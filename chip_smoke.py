@@ -7,23 +7,27 @@ Phases (each raises, and the script exits non-zero, on any failure):
 1. Build ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a (one nvcc per
    source, all at once) and print the compile times and ptxas reports.
 2. Hold each kernel against its plain PyTorch version on the card at the
-   shapes the Synfire4 path gives it, bit for bit where the arithmetic is
+   shapes the Synfire4 paths give it, bit for bit where the arithmetic is
    exact and at a stated tolerance for random weights, and time kernel,
    plain version and (where one exists) a single PyTorch library call
    with CUDA events (per call, host enqueue included), and the kernel
-   alone on the device with ``torch.profiler``.
+   alone on the device with ``torch.profiler``. ``fused_tick`` is held
+   on states taken from 50-tick runs of every Synfire path, twelve
+   chained ticks each.
 3. Run Synfire4 for 1,000 ticks on the card in fp16/fp32 x packed/sparse
-   through ``build_synfire`` and ``run``, with the launch counters reset
-   just before; check the paper's spike statistics, the launch counts,
-   and that the card's raster equals the port's CPU raster for the same
-   generator uniforms.
-4. Synfire4-mini fp16 packed for 5,000 ticks, once on the card's own
-   generator stream and once with injected uniforms against the CPU
-   raster (the wave dies out in both), and Synfire4x10 sparse fp16 for
-   1,000 ticks (raster against the CPU again); launch counts checked.
-5. Profile 100 Synfire4 fp16 ticks per propagation mode with
+   through ``build_synfire`` and ``run``, on the default backend and on
+   ``backend="fused"``, with the launch counters reset just before each
+   run; check the paper's spike statistics, the launch counts, and that
+   every card raster equals the port's CPU raster for the same generator
+   uniforms.
+4. Synfire4-mini fp16 packed for 5,000 ticks on both backends, on the
+   default generator stream (the reference's threefry draws, so the card
+   raster equals the CPU raster) and with injected uniforms (the wave dies
+   out in every run), and Synfire4x10 sparse fp16 for 1,000 ticks on both
+   backends (raster against the CPU again); launch counts checked.
+5. Profile 100 Synfire4 fp16 ticks per propagation mode and backend with
    ``torch.profiler``: device busy time per tick, the device's idle
-   share, and device time by kernel name.
+   share, device events per tick and device time by kernel name.
 
 The last lines are a JSON object of per-kernel numbers, a JSON object of
 per-path numbers, the card's name and power limit from nvidia-smi, and
@@ -104,6 +108,29 @@ def nbytes(*tensors) -> int:
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def fused_bound(payload, spikes: torch.Tensor, n: int, state_bytes: int) -> tuple[float, str]:
+    """The least work of one fused tick on this tick's spikes: v and u read
+    and written, gen_row, is_gen and the spike row, a-d, i_syn, the ring
+    rows the tick touches (its slot and one per delay, each read and
+    written), the descriptors, the dense rows of the pres that spiked, the
+    CSR index tables and the CSR weights of spiking pres; one f32 add per
+    weight added, about 31 operations per neuron for IZH4."""
+    sp = spikes.to(torch.int64).cpu()
+    k = len(payload.delays)
+    moved = (4 * n * state_bytes + 3 * n + 16 * n + 4 * n
+             + 2 * (1 + k) * n * state_bytes + nbytes(payload.desc))
+    adds = 0
+    for ps, _, _, w in payload.dense:
+        rows = int(sp[ps:ps + w.shape[0]].sum())
+        moved += rows * w.shape[1] * 4
+        adds += rows * w.shape[1]
+    for _, _, idx, w in payload.csr:
+        hits = int(sp[idx.long().cpu()].sum())
+        moved += nbytes(idx) + hits * 4
+        adds += hits
+    return bound(moved, adds + 31 * n)
 
 
 def phase_build() -> dict:
@@ -266,6 +293,7 @@ def phase_kernels(dev) -> list[dict]:
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": cuda_ms(lambda: torch.nn.functional.embedding_bag(
             idx64, spikes[:, None], per_sample_weights=w, mode="sum"))})
+    rows.append(_check_fused_tick(dev, g))
     for r in rows:
         lib = "-" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.2f} us"
         log(f"[kernels] {r['name']} ({r['shape']}): {r['ms'] * 1e3:.2f} us per call "
@@ -275,36 +303,190 @@ def phase_kernels(dev) -> list[dict]:
     return rows
 
 
-def _card_and_cpu_rasters(cfg, policy, propagation, gen_u, dev, **build_kw):
-    """The main path on the card for ``len(gen_u)`` ticks (timed, launch
-    counts reset just before) and the same network with the same uniforms
-    on the CPU; raises unless the two rasters are equal."""
+FUSED_STATES = (  # (config name, policy, propagation, build keywords)
+    ("SYNFIRE4", "fp16", "packed", {}), ("SYNFIRE4", "fp32", "packed", {}),
+    ("SYNFIRE4", "fp16", "sparse", {}), ("SYNFIRE4", "fp32", "sparse", {}),
+    ("SYNFIRE4_MINI", "fp16", "packed", {}),
+    ("SYNFIRE4_X10", "fp16", "sparse", {"budget": None, "monitor_ms_hint": 0}),
+)
+TICK_OUTPUTS = ("v", "u", "spikes", "ring", "i_syn")
+# Chained ticks per state: more than the longest delay (10), so the random
+# generator rows' drive arrives and neurons spike within the check.
+CHAINED = 12
+
+
+def _fused_state(cfg_name, policy, propagation, dev, build_kw, ticks=50):
+    """A fused net and its state after ``ticks`` ticks on the card (the
+    ring then holds currents and neurons spike), with the tick's operands."""
+    from repro_torch.configs import synfire4
+    from repro_torch.core.backend import assemble_fused
+    from repro_torch.core.engine import run
+
+    net = synfire4.build_synfire(getattr(synfire4, cfg_name), policy=policy,
+                                 propagation=propagation, device=dev,
+                                 backend="fused", **build_kw)
+    state, _ = run(net.static, net.params, net.state0, ticks)
+    payload = assemble_fused(net.static, state.weights, net.params).kernel
+    p = net.params.neuron
+    args = [state.neurons.v, state.neurons.u, state.ring[:, :, 0].contiguous(),
+            None, p.model == 0, p.a, p.b, p.c, p.d]
+    return net, state, payload, args
+
+
+def _check_fused_tick(dev, g) -> dict:
+    """fused_tick against fused_tick_ref on the card: bit for bit on every
+    Synfire state (CHAINED chained ticks each), and on random normal weights
+    v', u', spikes and i_syn bit for bit (they do not depend on the
+    weights within a tick) with ring' at rtol=1e-5, atol=1e-4 (f32 sums
+    in another order). Returns the kernel's row, timed at Synfire4 fp16
+    packed."""
+    from repro_torch.core.backend import assemble_packed
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fused_tick import assemble_kernel
+
+    def kernel_tick(args, t, payload):
+        """Tick ``t`` through the run wrapper on copies of ``args``:
+        (v', u', spikes, ring', i_syn), the plain version's outputs."""
+        v, u, ring = (x.clone() for x in args[:3])
+        rows = args[3][None].clone()
+        i_rows = torch.empty((1, v.shape[0]), dtype=torch.float32, device=v.device)
+        ops.FusedTickRun(payload, v, u, ring, *args[4:], rows, i_rows=i_rows).tick(0, t)
+        return v, u, rows[0], ring, i_rows[0]
+
+    def both(args, t, payload):
+        got = kernel_tick(args, t, payload)
+        want = ref.fused_tick_ref(*args, t, dense=payload.dense, csr=payload.csr,
+                                  ring_len=args[2].shape[0])
+        torch.cuda.synchronize()
+        return got, want
+
+    err, timed = 0.0, None
+    for cfg_name, policy, propagation, kw in FUSED_STATES:
+        net, state, payload, args = _fused_state(cfg_name, policy, propagation, dev, kw)
+        n = net.static.n
+        require(float(args[2].float().abs().sum()) > 0, f"{cfg_name}: empty ring")
+        spiked = 0
+        for t in range(state.t, state.t + CHAINED):
+            args[3] = (torch.rand(n, generator=g) < 0.3).to(dev)
+            got, want = both(args, t, payload)
+            for name, g_, w_ in zip(TICK_OUTPUTS, got, want):
+                require(g_.dtype == w_.dtype and torch.equal(g_, w_),
+                        f"fused_tick {cfg_name} {policy}/{propagation} tick {t}: "
+                        f"{name} differs from the plain version, max abs err "
+                        f"{max_err(g_, w_)}")
+            spiked += int(got[2][~args[4]].sum())
+            args[0], args[1], args[2] = got[0], got[1], got[3]
+        require(spiked > 0, f"fused_tick {cfg_name}: no neuron spiked in {CHAINED} ticks")
+        log(f"[kernels] fused_tick {cfg_name} {policy}/{propagation} (N={n}, "
+            f"{len(payload.dense)} dense, {len(payload.csr)} CSR buckets): {CHAINED} "
+            f"ticks bitwise, {spiked} neuron spikes")
+        if cfg_name == "SYNFIRE4" and policy == "fp32":
+            # Random normal weights in the same layout.
+            packed = [torch.randn(tuple(w.shape), generator=g).to(dev)
+                      for w in assemble_packed(net.static, state.weights)]
+            rpay = assemble_kernel(net.static, net.params, packed)
+            got, want = both(args, state.t + CHAINED, rpay)
+            for name, g_, w_ in zip(TICK_OUTPUTS, got, want):
+                if name == "ring":
+                    require(torch.allclose(g_, w_, rtol=1e-5, atol=1e-4),
+                            f"fused_tick random {propagation}: ring max abs err "
+                            f"{max_err(g_, w_)}")
+                    err = max(err, max_err(g_, w_))
+                else:
+                    require(torch.equal(g_, w_), f"fused_tick random {propagation}: "
+                            f"{name} max abs err {max_err(g_, w_)}")
+            log(f"[kernels] fused_tick random normal weights ({propagation}): ring "
+                f"within rtol=1e-5 atol=1e-4 (max abs err {err:.3g}), the rest bitwise")
+        if timed is None:
+            timed = (net, payload, list(args))
+    net, payload, args = timed
+    n, t0 = net.static.n, 60
+    got = kernel_tick(args, t0, payload)
+    b_ms, b_by = fused_bound(payload, got[2], n, args[0].element_size())
+    rows_buf = torch.zeros((230, n), dtype=torch.bool, device=dev)
+    v, u, ring = args[0].clone(), args[1].clone(), args[2].clone()
+    runner = ops.FusedTickRun(payload, v, u, ring, *args[4:], rows_buf,
+                              dt=net.static.dt, substeps=net.static.substeps)
+    counter = iter(range(10**9))
+
+    def one_tick():
+        i = next(counter)
+        runner.tick(i % 230, t0 + i)
+
+    return {
+        "name": "fused_tick", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_tick.cu",
+        "replaces": "src/repro/kernels/fused_tick.py:243",
+        "shape": f"Synfire4 fp16 packed tick: N={n}, 8 dense buckets", "max_abs_err": err,
+        "ms": cuda_ms(one_tick),
+        "device_ms": device_ms(one_tick, "fused_tick_kernel"),
+        "plain_ms": cuda_ms(lambda: ref.fused_tick_ref(
+            *args, t0, dense=payload.dense, csr=payload.csr, ring_len=args[2].shape[0])),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def _require_same_raster(card, cpu, what):
+    if not torch.equal(card, cpu):
+        first = int(torch.nonzero((card != cpu).any(dim=1))[0])
+        raise AssertionError(f"{what}: card raster differs from the CPU raster "
+                             f"first at tick {first}")
+
+
+def _card_run(cfg, policy, propagation, gen_u, ticks, dev, backend=None, **build_kw):
+    """The main path on the card for ``ticks`` ticks (timed, launch counts
+    reset just before and read just after), on ``gen_u`` or, when it is
+    None, the default generator stream."""
     from repro_torch.configs.synfire4 import build_synfire
     from repro_torch.core.engine import run
     from repro_torch.kernels import ops
 
     net = build_synfire(cfg, policy=policy, propagation=propagation, device=dev,
-                        **build_kw)
-    gu = gen_u.to(dev)
-    run(net.static, net.params, net.state0, 20, gen_u=gu[:20])  # warm-up
+                        backend=backend, **build_kw)
+    gu = None if gen_u is None else gen_u.to(dev)
+    run(net.static, net.params, net.state0, 20,
+        gen_u=None if gu is None else gu[:20])  # warm-up
     torch.cuda.synchronize()
-    ticks = gen_u.shape[0]
     ops.reset_launches()
     t0 = time.perf_counter()
     _, out = run(net.static, net.params, net.state0, ticks, gen_u=gu)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(ops.LAUNCHES)
-    card = out["spikes"].cpu()
-    cpu_net = build_synfire(cfg, policy=policy, propagation=propagation,
-                            device="cpu", **build_kw)
-    _, cpu_out = run(cpu_net.static, cpu_net.params, cpu_net.state0, ticks,
-                     gen_u=gen_u.cpu())
-    if not torch.equal(card, cpu_out["spikes"]):
-        first = int(torch.nonzero((card != cpu_out["spikes"]).any(dim=1))[0])
-        raise AssertionError(f"{cfg.name} {policy}/{propagation}: card raster "
-                             f"differs from the CPU raster first at tick {first}")
-    return net, card, launches, seconds
+    return net, out["spikes"].cpu(), dict(ops.LAUNCHES), seconds
+
+
+def _cpu_raster(cfg, policy, propagation, gen_u, ticks, **build_kw):
+    from repro_torch.configs.synfire4 import build_synfire
+    from repro_torch.core.engine import run
+
+    net = build_synfire(cfg, policy=policy, propagation=propagation, device="cpu",
+                        **build_kw)
+    _, out = run(net.static, net.params, net.state0, ticks, gen_u=gen_u)
+    return out["spikes"]
+
+
+def _card_and_cpu_rasters(cfg, policy, propagation, gen_u, dev, **build_kw):
+    """The main path on the card on both backends for ``len(gen_u)`` ticks
+    and the same network with the same uniforms on the CPU; raises unless
+    every card raster equals the CPU raster. Returns per backend
+    ``(net, raster, launches, seconds)``."""
+    ticks = gen_u.shape[0]
+    cpu = _cpu_raster(cfg, policy, propagation, gen_u, ticks, **build_kw)
+    out = {}
+    for backend in (None, "fused"):
+        out[backend] = _card_run(cfg, policy, propagation, gen_u, ticks, dev,
+                                 backend=backend, **build_kw)
+        _require_same_raster(out[backend][1], cpu, f"{cfg.name} {policy}/"
+                             f"{propagation} backend={backend}")
+    return out
+
+
+def _fused_launches(ticks: int) -> dict:
+    return {"izh4_update": 0, "syn_matmul": 0, "syn_gather": 0, "fused_tick": ticks}
+
+
+def _add(totals: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        totals[k] += v
 
 
 def phase_synfire(dev, totals: dict) -> dict:
@@ -315,29 +497,28 @@ def phase_synfire(dev, totals: dict) -> dict:
     paths, counts = {}, {}
     for propagation in ("packed", "sparse"):
         for policy in ("fp16", "fp32"):
-            net, sp, launches, seconds = _card_and_cpu_rasters(
-                SYNFIRE4, policy, propagation, gen_u, dev)
-            for k, v in launches.items():
-                totals[k] += v
-            kinds = [b.kind for b in net.static.buckets]
-            expect = {"izh4_update": TICKS,
-                      "syn_matmul": kinds.count("dense") * TICKS,
-                      "syn_gather": kinds.count("sparse") * TICKS}
-            require(launches == expect, f"launches {launches} != {expect}")
-            require(kinds.count("dense" if propagation == "packed" else "sparse")
-                    == (8 if propagation == "packed" else 13), f"plan {kinds}")
-            total = int(sp.sum())
-            rate = total / (net.n_neurons * TICKS) * 1000.0
-            require(20_000 <= total <= 33_000, f"{total} spikes outside 20k-33k")
-            require(17.0 <= rate <= 29.0, f"mean rate {rate:.2f} Hz outside 17-29")
-            counts[(policy, propagation)] = total
-            key = f"synfire4/{policy}/{propagation}"
-            paths[key] = {"us_per_tick": seconds / TICKS * 1e6, "spikes": total,
-                          "rate_hz": rate, "launches": launches,
-                          "raster_equals_cpu": True}
-            log(f"[synfire4] {policy}/{propagation}: {total} spikes, {rate:.2f} Hz, "
-                f"{seconds / TICKS * 1e6:.1f} us/tick, launches {launches}, "
-                f"card raster == CPU raster")
+            runs = _card_and_cpu_rasters(SYNFIRE4, policy, propagation, gen_u, dev)
+            for backend, (net, sp, launches, seconds) in runs.items():
+                _add(totals, launches)
+                kinds = [b.kind for b in net.static.buckets]
+                expect = _fused_launches(TICKS) if backend else {
+                    "izh4_update": TICKS, "syn_matmul": kinds.count("dense") * TICKS,
+                    "syn_gather": kinds.count("sparse") * TICKS, "fused_tick": 0}
+                require(launches == expect, f"launches {launches} != {expect}")
+                require(kinds.count("dense" if propagation == "packed" else "sparse")
+                        == (8 if propagation == "packed" else 13), f"plan {kinds}")
+                total = int(sp.sum())
+                rate = total / (net.n_neurons * TICKS) * 1000.0
+                require(20_000 <= total <= 33_000, f"{total} spikes outside 20k-33k")
+                require(17.0 <= rate <= 29.0, f"mean rate {rate:.2f} Hz outside 17-29")
+                counts[(policy, propagation)] = total
+                key = f"synfire4/{policy}/{propagation}" + ("/fused" if backend else "")
+                paths[key] = {"us_per_tick": seconds / TICKS * 1e6, "spikes": total,
+                              "rate_hz": rate, "launches": launches,
+                              "raster_equals_cpu": True}
+                log(f"[synfire4] {policy}/{propagation} backend={backend}: {total} "
+                    f"spikes, {rate:.2f} Hz, {seconds / TICKS * 1e6:.1f} us/tick, "
+                    f"launches {launches}, card raster == CPU raster")
         acc = (min(counts[("fp16", propagation)], counts[("fp32", propagation)])
                / max(counts[("fp16", propagation)], counts[("fp32", propagation)]))
         require(acc >= 0.97, f"fp16 spike-count accuracy {acc:.4f} < 0.97")
@@ -346,14 +527,12 @@ def phase_synfire(dev, totals: dict) -> dict:
 
 
 def phase_scale(dev, totals: dict) -> dict:
-    from repro_torch.configs.synfire4 import SYNFIRE4_MINI, SYNFIRE4_X10, build_synfire
-    from repro_torch.core.engine import run
-    from repro_torch.kernels import ops
+    from repro_torch.configs.synfire4 import SYNFIRE4_MINI, SYNFIRE4_X10
 
     paths = {}
     mini_ticks = 5000
     mini_launches = {"izh4_update": mini_ticks, "syn_matmul": 8 * mini_ticks,
-                     "syn_gather": 0}
+                     "syn_gather": 0, "fused_tick": 0}
 
     def died_out(sp, what):
         total, tail = int(sp.sum()), int(sp[-1000:].sum())
@@ -362,65 +541,67 @@ def phase_scale(dev, totals: dict) -> dict:
                 f"(want 150-900, 0)")
         return total, tail
 
-    # The card's own generator stream, as Engine.run draws it by default.
-    mini = build_synfire(SYNFIRE4_MINI, policy="fp16", device=dev)
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    _, out = run(mini.static, mini.params, mini.state0, mini_ticks)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = dict(ops.LAUNCHES)
-    require(launches == mini_launches, f"mini launches {launches} != {mini_launches}")
-    for k, v in launches.items():
-        totals[k] += v
-    total, tail = died_out(out["spikes"], "card stream")
-    paths["synfire4_mini/fp16/packed"] = {
-        "us_per_tick": seconds / mini_ticks * 1e6, "spikes": total,
-        "last_second_spikes": tail, "launches": launches}
-    log(f"[mini] {mini_ticks} ticks, card stream: {total} spikes, silent last "
-        f"second, {seconds / mini_ticks * 1e6:.1f} us/tick, launches {launches}")
+    def mini_path(key, backend, sp, launches, seconds, what):
+        want = _fused_launches(mini_ticks) if backend else mini_launches
+        require(launches == want, f"mini launches {launches} != {want}")
+        _add(totals, launches)
+        total, tail = died_out(sp, what)
+        paths[key] = {"us_per_tick": seconds / mini_ticks * 1e6, "spikes": total,
+                      "last_second_spikes": tail, "launches": launches,
+                      "raster_equals_cpu": True}
+        log(f"[mini] {mini_ticks} ticks, {what}, backend={backend}: {total} spikes, "
+            f"silent last second, {seconds / mini_ticks * 1e6:.1f} us/tick, "
+            f"launches {launches}, card raster == CPU raster")
 
-    # Injected uniforms: the card's raster against the CPU's.
+    # The default generator stream (the reference's threefry draws), as
+    # Engine.run draws it: the card's raster equals the CPU's.
+    cpu = _cpu_raster(SYNFIRE4_MINI, "fp16", "packed", None, mini_ticks)
+    for backend in (None, "fused"):
+        _, sp, launches, seconds = _card_run(SYNFIRE4_MINI, "fp16", "packed", None,
+                                             mini_ticks, dev, backend=backend)
+        _require_same_raster(sp, cpu, f"mini default stream backend={backend}")
+        mini_path("synfire4_mini/fp16/packed" + ("/fused" if backend else ""),
+                  backend, sp, launches, seconds, "default stream")
+
+    # Injected uniforms.
     g = torch.Generator(device="cpu").manual_seed(13)
     gen_u = torch.rand((mini_ticks, SYNFIRE4_MINI.n_stim), generator=g)
-    _, sp, launches, seconds = _card_and_cpu_rasters(
-        SYNFIRE4_MINI, "fp16", "packed", gen_u, dev)
-    require(launches == mini_launches, f"mini launches {launches} != {mini_launches}")
-    for k, v in launches.items():
-        totals[k] += v
-    total, tail = died_out(sp, "injected uniforms")
-    paths["synfire4_mini/fp16/packed/injected"] = {
-        "us_per_tick": seconds / mini_ticks * 1e6, "spikes": total,
-        "last_second_spikes": tail, "launches": launches, "raster_equals_cpu": True}
-    log(f"[mini] {mini_ticks} ticks, injected uniforms: {total} spikes, silent "
-        f"last second, {seconds / mini_ticks * 1e6:.1f} us/tick, launches "
-        f"{launches}, card raster == CPU raster")
+    for backend, (_, sp, launches, seconds) in _card_and_cpu_rasters(
+            SYNFIRE4_MINI, "fp16", "packed", gen_u, dev).items():
+        mini_path("synfire4_mini/fp16/packed/injected" + ("/fused" if backend else ""),
+                  backend, sp, launches, seconds, "injected uniforms")
 
     g = torch.Generator(device="cpu").manual_seed(11)
     gen_u = torch.rand((TICKS, SYNFIRE4_X10.n_stim), generator=g)
-    net, sp, launches, seconds = _card_and_cpu_rasters(
-        SYNFIRE4_X10, "fp16", "sparse", gen_u, dev, budget=None, monitor_ms_hint=0)
-    for k, v in launches.items():
-        totals[k] += v
-    rate = int(sp.sum()) / (net.n_neurons * TICKS) * 1000.0
-    require(17.0 <= rate <= 29.0, f"x10 mean rate {rate:.2f} Hz outside 17-29")
-    x10_launches = {"izh4_update": TICKS, "syn_matmul": 0, "syn_gather": 13 * TICKS}
-    require(launches == x10_launches, f"x10 launches {launches} != {x10_launches}")
-    paths["synfire4_x10/fp16/sparse"] = {
-        "us_per_tick": seconds / TICKS * 1e6, "spikes": int(sp.sum()), "rate_hz": rate,
-        "synapse_bytes": net.ledger.synapse_bytes(), "launches": launches,
-        "raster_equals_cpu": True}
-    log(f"[x10] sparse fp16: {int(sp.sum())} spikes, {rate:.2f} Hz, "
-        f"{seconds / TICKS * 1e6:.1f} us/tick, synapse bytes "
-        f"{net.ledger.synapse_bytes()}, card raster == CPU raster")
+    x10_launches = {"izh4_update": TICKS, "syn_matmul": 0, "syn_gather": 13 * TICKS,
+                    "fused_tick": 0}
+    for backend, (net, sp, launches, seconds) in _card_and_cpu_rasters(
+            SYNFIRE4_X10, "fp16", "sparse", gen_u, dev, budget=None,
+            monitor_ms_hint=0).items():
+        _add(totals, launches)
+        rate = int(sp.sum()) / (net.n_neurons * TICKS) * 1000.0
+        require(17.0 <= rate <= 29.0, f"x10 mean rate {rate:.2f} Hz outside 17-29")
+        want = _fused_launches(TICKS) if backend else x10_launches
+        require(launches == want, f"x10 launches {launches} != {want}")
+        paths["synfire4_x10/fp16/sparse" + ("/fused" if backend else "")] = {
+            "us_per_tick": seconds / TICKS * 1e6, "spikes": int(sp.sum()),
+            "rate_hz": rate, "synapse_bytes": net.ledger.synapse_bytes(),
+            "launches": launches, "raster_equals_cpu": True}
+        log(f"[x10] sparse fp16 backend={backend}: {int(sp.sum())} spikes, "
+            f"{rate:.2f} Hz, {seconds / TICKS * 1e6:.1f} us/tick, synapse bytes "
+            f"{net.ledger.synapse_bytes()}, launches {launches}, card raster == "
+            f"CPU raster")
     return paths
 
 
 def phase_profile(dev) -> dict:
     """Device busy time per tick and idle share of the Synfire4 fp16 tick,
-    from a ``torch.profiler`` trace of 100 ticks: busy is the union of the
-    device's activity intervals, idle share is 1 - busy / host wall time
-    (the profiler's own host cost included, so idle reads high)."""
+    from a ``torch.profiler`` trace of 100 ticks per propagation mode and
+    backend: busy is the union of the device's activity intervals, idle
+    share is 1 - busy / host wall time (the profiler's own host cost
+    included, so idle reads high). On the fused path it also counts the
+    device events from the first ``fused_tick`` launch to the last: one
+    per tick."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -429,9 +610,10 @@ def phase_profile(dev) -> dict:
 
     out = {}
     ticks = 100
-    for propagation in ("packed", "sparse"):
+    for propagation, backend in (("packed", None), ("sparse", None),
+                                 ("packed", "fused"), ("sparse", "fused")):
         net = build_synfire(SYNFIRE4, policy="fp16", propagation=propagation,
-                            device=dev)
+                            device=dev, backend=backend)
         gu = torch.rand((ticks, SYNFIRE4.n_stim), device=dev)
         run(net.static, net.params, net.state0, 20, gen_u=gu[:20])
         torch.cuda.synchronize()
@@ -450,18 +632,28 @@ def phase_profile(dev) -> dict:
             name = name.split("(")[0][:100]  # drop the signature
             by_name[name] = by_name.get(name, 0.0) + (s1 - s0)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        key = f"profile/synfire4/fp16/{propagation}"
+        key = f"profile/synfire4/fp16/{propagation}" + ("/fused" if backend else "")
+        in_loop = None
+        if backend:
+            starts = [i for i, sp in enumerate(spans) if "fused_tick_kernel" in sp[2]]
+            require(len(starts) == ticks, f"profile {key}: {len(starts)} fused_tick "
+                    f"launches in {ticks} ticks")
+            in_loop = (starts[-1] - starts[0] + 1) / ticks
+            require(in_loop == 1.0, f"profile {key}: {in_loop} device events per tick "
+                    "inside the loop, want 1")
         out[key] = {
             "device_events": len(spans),
+            "device_events_per_tick_in_loop": in_loop,
             "device_busy_us_per_tick": busy / ticks if spans else None,
             "host_us_per_tick_profiled": wall_us / ticks,
             "idle_share": 1.0 - busy / wall_us if spans else None,
             "device_us_per_tick_by_kernel": {n: t / ticks for n, t in top},
         }
-        log(f"[profile] {propagation}: {len(spans)} device events, busy "
+        log(f"[profile] {propagation} backend={backend}: {len(spans)} device events, busy "
             f"{busy / ticks:.1f} us/tick of {wall_us / ticks:.1f} us/tick wall "
             f"(idle share {1.0 - busy / wall_us:.3f})" if spans else
-            f"[profile] {propagation}: the profiler recorded no device activity")
+            f"[profile] {propagation} backend={backend}: the profiler recorded no "
+            "device activity")
     return out
 
 

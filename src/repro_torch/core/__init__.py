@@ -3,6 +3,7 @@ from repro_torch.core.engine import Engine, StepOutput, run, step
 from repro_torch.core.network import (
     BucketSpec,
     CompiledNetwork,
+    FusedPlan,
     GroupSpec,
     NetParams,
     NetState,
@@ -22,7 +23,7 @@ from repro_torch.core.neurons import (
 
 __all__ = [
     "Engine", "StepOutput", "run", "step",
-    "BucketSpec", "CompiledNetwork", "GroupSpec", "NetParams", "NetState",
+    "BucketSpec", "CompiledNetwork", "FusedPlan", "GroupSpec", "NetParams", "NetState",
     "NetStatic", "NetworkBuilder",
     "NeuronModel", "NeuronParams", "NeuronState",
     "generator", "izh4", "izh9", "lif", "update_neurons",

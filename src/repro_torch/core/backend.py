@@ -3,9 +3,12 @@
 Every bucket of the compile-time plan (``NetStatic.buckets``) is either a
 dense ``[P, Q]`` matmul on the tick's spike row (``syn_matmul``) or a CSR
 fan-in gather (``syn_gather``); the neuron update of IZH4 networks is the
-``izh4_update`` kernel. The wrappers in :mod:`repro_torch.kernels.ops`
-launch the CUDA kernels for tensors on the card and run their plain
-PyTorch versions for tensors on the CPU, so this module has one code path.
+``izh4_update`` kernel. ``backend="fused"`` assembles its payload here
+(:func:`assemble_fused`): the whole tick is then the ``fused_tick`` kernel
+where the plan allows it, and the two phases above where it does not.
+The wrappers in :mod:`repro_torch.kernels.ops` launch the CUDA kernels for
+tensors on the card and run their plain PyTorch versions for tensors on
+the CPU, so this module has one code path.
 
 Two departures from the reference, both bitwise neutral:
 
@@ -19,12 +22,16 @@ Two departures from the reference, both bitwise neutral:
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.core import neurons as nrn
 from repro_torch.kernels import ops
+from repro_torch.kernels.fused_tick import KernelPayload, assemble_kernel
 
-__all__ = ["assemble_packed", "update_neurons_dispatch", "propagate_packed"]
+__all__ = ["assemble_packed", "update_neurons_dispatch", "propagate_packed",
+           "FusedPayload", "assemble_fused"]
 
 f32 = torch.float32
 
@@ -80,6 +87,13 @@ def update_neurons_dispatch(static, params, neurons: nrn.NeuronState,
     return nrn.NeuronState(v=v, u=u, refrac=refrac), spiked
 
 
+def _bucket_pre(static, params, spikes_f32, bi):
+    b = static.buckets[bi]
+    if b.pre_start >= 0:
+        return spikes_f32[b.pre_start:b.pre_start + b.p]
+    return spikes_f32.index_select(0, params.bucket_pre_ids[bi])
+
+
 def propagate_packed(static, params, spikes: torch.Tensor, ring: torch.Tensor,
                      t: int, packed) -> torch.Tensor:
     """Propagate this tick's spikes through every bucket into ``ring``.
@@ -93,10 +107,7 @@ def propagate_packed(static, params, spikes: torch.Tensor, ring: torch.Tensor,
     spikes_f32 = spikes.to(f32)
     acc: dict[int, torch.Tensor] = {}
     for bi, b in enumerate(static.buckets):
-        if b.pre_start >= 0:
-            pre = spikes_f32[b.pre_start:b.pre_start + b.p]
-        else:
-            pre = spikes_f32.index_select(0, params.bucket_pre_ids[bi])
+        pre = _bucket_pre(static, params, spikes_f32, bi)
         if b.kind == "sparse":
             drive = ops.syn_gather(pre, params.bucket_csr_idx[bi], packed[bi])
         else:
@@ -112,3 +123,25 @@ def propagate_packed(static, params, spikes: torch.Tensor, ring: torch.Tensor,
     for d in sorted(acc):
         ring[(t + d) % static.ring_len] += acc[d].to(ring.dtype)
     return ring
+
+
+class FusedPayload(NamedTuple):
+    """Loop-invariant payloads of ``backend="fused"``, built once per run.
+
+    ``packed`` is :func:`assemble_packed`'s per-bucket tuple, which the
+    ticks that are not one kernel (IZH9 or LIF groups, RK4, gathered or
+    scattered buckets, an external current) propagate with
+    :func:`propagate_packed`; ``kernel`` is the ``fused_tick`` kernel's
+    payload when ``static.fused_kernel`` is set (else ``None``)."""
+
+    packed: tuple[torch.Tensor, ...]
+    kernel: KernelPayload | None = None
+
+
+def assemble_fused(static, weights, params=None) -> FusedPayload:
+    """The fused payloads: the packed bucket payloads and, with ``params``
+    given and ``static.fused_kernel`` set, the kernel's payload."""
+    packed = assemble_packed(static, weights)
+    kernel = (assemble_kernel(static, params, packed)
+              if static.fused_kernel and params is not None else None)
+    return FusedPayload(packed=packed, kernel=kernel)

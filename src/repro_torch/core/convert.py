@@ -6,8 +6,8 @@ in one flat dict whose keys name the port's fields:
 * params: ``neuron.<field>``, ``masks.<j>`` (dense-stored projections),
   ``gen_rate``, ``gen_until``, ``gen_rate_after``, ``bucket_pre_ids.<b>``,
   ``bucket_post_ids.<b>``, ``bucket_csr_idx.<b>`` (sparse buckets);
-* state: ``t``, ``key`` (an int64 scalar, or the reference's two uint32
-  key words), ``neurons.v``, ``neurons.u``, ``neurons.refrac``, ``ring``,
+* state: ``t``, ``key`` (the reference's two uint32 key words, kept as
+  the port's int32 bit patterns), ``neurons.v``, ``neurons.u``, ``neurons.refrac``, ``ring``,
   ``weights.<j>``.
 
 Both functions take exactly the keys the port's compiled ``static`` needs
@@ -83,12 +83,9 @@ def params_from_numpy(static: NetStatic, arrays: dict, device) -> NetParams:
 def state_from_numpy(static: NetStatic, arrays: dict, device) -> NetState:
     arrays = dict(arrays)
     key = np.ascontiguousarray(np.asarray(arrays.pop("key")))
-    if key.nbytes != 8:
-        raise ValueError(f"key: expected 8 bytes, got {key.dtype} {key.shape}")
-    if key.dtype == np.uint32:  # the reference's (hi, lo) key words
-        key_val = (int(key.reshape(2)[0]) << 32 | int(key.reshape(2)[1])) & ((1 << 63) - 1)
-    else:
-        key_val = int(key.reshape(()).astype(np.int64))
+    if key.shape != (2,) or key.dtype not in (np.uint32, np.int32):
+        raise ValueError(f"key: expected two uint32 key words, got {key.dtype} "
+                         f"{key.shape}")
     t = int(np.asarray(arrays.pop("t")))
     read = _Reader(arrays, device)
     policy = get_policy(static.policy_name)
@@ -103,7 +100,7 @@ def state_from_numpy(static: NetStatic, arrays: dict, device) -> NetState:
              wdt)
         for j, s in enumerate(static.projections))
     state = NetState(
-        t=t, key=torch.tensor(key_val, dtype=torch.int64, device=device),
+        t=t, key=torch.from_numpy(key.view(np.int32).copy()).to(device),
         neurons=neurons,
         ring=read("ring", (static.ring_len, n, 1), sdt),
         weights=weights)

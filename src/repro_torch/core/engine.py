@@ -17,7 +17,14 @@ device, and nothing in the loop reads a tensor back to the host, so on
 the card the loop only enqueues work. The generator spikes of the whole
 run are computed before the loop in one comparison (they depend only on
 the uniforms and the tick), and the bucket weight payloads are decoded
-once per run.
+once per run. With ``backend="fused"`` and a plan whose ``kernel_ok`` is
+set, a tick is one operation, the ``fused_tick`` kernel, which writes its
+spike row straight into the raster; other fused nets, and runs with an
+external current, tick as the default backend does.
+
+The generator uniforms come, by default, from the reference's threefry
+stream (:mod:`repro_torch.core.rng`): the same seed gives the same raster
+in both packages.
 """
 from __future__ import annotations
 
@@ -27,18 +34,20 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import backend as be
+from repro_torch.core import neurons as nrn
+from repro_torch.core import rng
 from repro_torch.core.network import CompiledNetwork, NetParams, NetState, NetStatic
 from repro_torch.core.neurons import NeuronState
+from repro_torch.kernels import ops
 
 __all__ = ["StepOutput", "step", "run", "Engine"]
 
 f32 = torch.float32
 
 _RECORD_MODES = ("raster", "none")
-
-# Knuth's MMIX LCG: advances the int64 run key, as the reference's
-# split(key) hands the next run a fresh key.
-_LCG_A, _LCG_C, _KEY_MASK = 6364136223846793005, 1442695040888963407, (1 << 63) - 1
+# The refractory counters are int16: subtracting more than this from them
+# would wrap around.
+_REFRAC_MAX = 32767
 
 
 class StepOutput(NamedTuple):
@@ -96,26 +105,107 @@ def step(static: NetStatic, params: NetParams, state: NetState,
     """One 1 ms tick; returns (state', output) and leaves ``state`` as it was.
 
     ``gen_u`` holds this tick's uniforms for the generator spans
-    (``[static.n_gen]`` f32), required when the network has generators.
-    ``packed`` is :func:`repro_torch.core.backend.assemble_packed`'s
-    output, assembled here when omitted.
+    (``[static.n_gen]`` f32). Without it the tick draws as the reference's
+    ``step`` does: ``key, k_gen = split(state.key)`` and one uniform per
+    neuron from ``k_gen``, the generators' columns of which are used.
+    ``packed`` is :func:`repro_torch.core.backend.assemble_packed`'s output
+    (:func:`~repro_torch.core.backend.assemble_fused`'s with
+    ``backend="fused"``), assembled here when omitted.
     """
     dev = state.ring.device
+    key = state.key
     gen_row = None
     if static.n_gen:
         if gen_u is None:
-            raise ValueError(
-                "step needs gen_u, this tick's generator uniforms; the "
-                "reference's per-tick key draw is ROADMAP A4")
+            key, k_gen = rng.split(state.key)
+            full = rng.uniform(k_gen, (static.n,))
+            gen_u = torch.cat([full[g0:g0 + sz] for g0, sz in static.gen_spans])
         _check_gen_u(gen_u, (static.n_gen,), dev)
         gen_row = _gen_spikes(static, params, state.t, gen_u[None])[0]
+    fused = static.backend == "fused"
     if packed is None:
-        packed = be.assemble_packed(static, state.weights)
+        packed = (be.assemble_fused(static, state.weights, params) if fused
+                  else be.assemble_packed(static, state.weights))
+    if static.fused_kernel and i_ext is None:
+        if packed.kernel is None:
+            raise ValueError("packed lacks the fused_tick kernel's payload: pass "
+                             "assemble_fused(static, weights, params)")
+        return _step_kernel(static, params, state._replace(key=key), packed, gen_row)
+    if fused:
+        packed = packed.packed
     ring = state.ring.clone()
     neurons, spikes, i_syn = _tick(static, params, state.neurons, ring,
                                    state.t, packed, gen_row, i_ext)
-    new_state = state._replace(t=state.t + 1, neurons=neurons, ring=ring)
+    new_state = state._replace(t=state.t + 1, key=key, neurons=neurons, ring=ring)
     return new_state, StepOutput(spikes=spikes, v=neurons.v.to(f32), i_syn=i_syn)
+
+
+def _gen_full_row(static: NetStatic, gen_spk: torch.Tensor | None, rows: torch.Tensor):
+    """Write generator spikes ``[T, n_gen]`` into their columns of ``rows``
+    ``[T, N]``."""
+    if gen_spk is None:
+        return
+    off = 0
+    for g0, sz in static.gen_spans:
+        rows[:, g0:g0 + sz] = gen_spk[:, off:off + sz]
+        off += sz
+
+
+def _step_kernel(static, params, state, payload, gen_row):
+    """One tick through the ``fused_tick`` kernel (``static.fused_kernel``):
+    the reference's ``_step_kernel``, as a one-tick run on copies of the
+    state. The refractory countdown, identically zero on the IZH4-only
+    nets the kernel takes, is kept for state parity."""
+    dev = state.ring.device
+    rows = torch.zeros((1, static.n), dtype=torch.bool, device=dev)
+    _gen_full_row(static, None if gen_row is None else gen_row[None], rows)
+    i_rows = torch.empty((1, static.n), dtype=f32, device=dev)
+    v, u = state.neurons.v.clone(), state.neurons.u.clone()
+    ring = state.ring.clone()
+    p = params.neuron
+    ops.FusedTickRun(payload.kernel, v, u, ring[:, :, 0],
+                     p.model == nrn.NeuronModel.GENERATOR, p.a, p.b, p.c, p.d,
+                     rows, i_rows=i_rows, dt=static.dt,
+                     substeps=static.substeps).tick(0, state.t)
+    refrac = torch.clamp_min(state.neurons.refrac - 1, 0)
+    new_state = state._replace(t=state.t + 1,
+                               neurons=NeuronState(v=v, u=u, refrac=refrac), ring=ring)
+    return new_state, StepOutput(spikes=rows[0], v=v.to(f32), i_syn=i_rows[0])
+
+
+def _run_kernel(static, params, state, n_steps, payload, gen_spk, record,
+                record_v, record_i):
+    """``run``'s loop on the ``fused_tick`` kernel: one operation per tick.
+
+    The generator spikes of every tick are written into the raster before
+    the loop; the kernel reads a tick's row where ``is_gen`` and writes the
+    whole spike row back into it, and writes v' and i_syn rows when they
+    are recorded. The refractory countdown is applied once, for all ticks.
+    """
+    dev = state.ring.device
+    rows = torch.zeros((n_steps, static.n), dtype=torch.bool, device=dev)
+    _gen_full_row(static, gen_spk, rows)
+    v = state.neurons.v.clone()
+    u = state.neurons.u.clone()
+    ring = state.ring.clone()
+    vs = torch.empty((n_steps, static.n), dtype=f32, device=dev) if record_v else None
+    cur = torch.empty((n_steps, static.n), dtype=f32, device=dev) if record_i else None
+    p = params.neuron
+    runner = ops.FusedTickRun(payload.kernel, v, u, ring[:, :, 0],
+                              p.model == nrn.NeuronModel.GENERATOR, p.a, p.b, p.c,
+                              p.d, rows, vs, cur, dt=static.dt,
+                              substeps=static.substeps)
+    for i in range(n_steps):
+        runner.tick(i, state.t + i)
+    refrac = torch.clamp_min(state.neurons.refrac - min(n_steps, _REFRAC_MAX), 0)
+    final = state._replace(t=state.t + n_steps,
+                           neurons=NeuronState(v=v, u=u, refrac=refrac), ring=ring)
+    outputs = {"spikes": rows} if record == "raster" else {}
+    if vs is not None:
+        outputs["v"] = vs
+    if cur is not None:
+        outputs["i_syn"] = cur
+    return final, outputs
 
 
 def run(
@@ -139,13 +229,13 @@ def run(
     ``outputs["i_syn"]``. ``i_ext`` is an optional ``[T, N]`` external
     current.
 
-    The generators draw from ``gen_u`` (``[T, n_gen]`` f32) when given:
-    the parity tests inject the reference's uniforms there. Otherwise run
-    draws all ``[T, n_gen]`` uniforms up front from ``generator``, a
-    ``torch.Generator`` on the net's device; without one it seeds a fresh
-    generator from ``state.key`` and advances the key in the returned
-    state, so consecutive runs draw different streams. The streams are
-    torch's, not the reference's threefry (ROADMAP A4).
+    The generators draw from ``gen_u`` (``[T, n_gen]`` f32) when given.
+    Otherwise run draws all ``[T, n_gen]`` uniforms up front: from
+    ``generator``, a ``torch.Generator`` on the net's device, when given
+    (the key is then left as it was); by default as the reference's
+    ``run`` does, ``k_draw, k_carry = split(state.key)`` and
+    ``uniform(k_draw, (T, n_gen))``, and the returned state carries
+    ``k_carry``, so consecutive runs draw the reference's streams.
 
     ``state`` is left as it was: the run works on its own copy of the ring.
     """
@@ -159,13 +249,10 @@ def run(
     key = state.key
     gen_spk = None
     if static.n_gen:
-        if gen_u is None:
-            if generator is None:
-                seed = int(key)
-                generator = torch.Generator(device=dev)
-                generator.manual_seed(seed)
-                key = torch.tensor((seed * _LCG_A + _LCG_C) & _KEY_MASK,
-                                   dtype=torch.int64, device=dev)
+        if gen_u is None and generator is None:
+            k_draw, key = rng.split(state.key)
+            gen_u = rng.uniform(k_draw, (n_steps, static.n_gen))
+        elif gen_u is None:
             gen_u = torch.rand((n_steps, static.n_gen), generator=generator,
                                dtype=f32, device=dev)
         _check_gen_u(gen_u, (n_steps, static.n_gen), dev)
@@ -174,6 +261,11 @@ def run(
         raise ValueError(f"i_ext must be [{n_steps}, {static.n}], got "
                          f"{tuple(i_ext.shape)}")
 
+    state = state._replace(key=key)
+    if static.fused_kernel and i_ext is None:
+        return _run_kernel(static, params, state, n_steps,
+                           be.assemble_fused(static, state.weights, params),
+                           gen_spk, record, record_v, record_i)
     packed = be.assemble_packed(static, state.weights)
     ring = state.ring.clone()
     neurons = state.neurons
@@ -192,8 +284,7 @@ def run(
             vs[i] = neurons.v
         if cur is not None:
             cur[i] = i_syn
-    final = state._replace(t=state.t + n_steps, key=key, neurons=neurons,
-                           ring=ring)
+    final = state._replace(t=state.t + n_steps, neurons=neurons, ring=ring)
     outputs = {}
     if raster is not None:
         outputs["spikes"] = raster

@@ -14,11 +14,12 @@ paper's seven load-step names, reproducing Tables III/IV byte for byte with
 the reference. Connectivity comes from numpy ``default_rng(seed)`` with the
 reference's calls, so a seed compiles to the same tables in both packages.
 
-This slice compiles CUBA networks of IZH4/IZH9/LIF groups and Poisson
-generators with ``packed``, ``sparse`` or ``auto`` propagation. Plasticity,
-STP, conductances, in-run monitors, watches, core partitioning, the fused
-tick and the ``loop`` oracle raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+The port compiles CUBA networks of IZH4/IZH9/LIF groups and Poisson
+generators with ``packed``, ``sparse`` or ``auto`` propagation, on the
+default backend or ``backend="fused"`` (one program per tick). Plasticity,
+STP, conductances, in-run monitors, watches, core partitioning and the
+``loop`` oracle raise ``NotImplementedError`` naming the ROADMAP item that
+brings them.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import neurons as nrn
+from repro_torch.core import rng as threefry
 from repro_torch.core.synapses import (
     CSRFanin,
     ProjectionParams,
@@ -43,7 +45,7 @@ from repro_torch.memory import MemoryLedger
 from repro_torch.precision import PrecisionPolicy, get_policy
 
 __all__ = ["NetworkBuilder", "CompiledNetwork", "NetStatic", "NetParams",
-           "NetState", "BucketSpec", "GroupSpec"]
+           "NetState", "BucketSpec", "FusedPlan", "GroupSpec"]
 
 
 def _resolve_device(device: str | torch.device | None) -> torch.device:
@@ -100,6 +102,46 @@ class BucketSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class FusedPlan:
+    """Compile-time plan of ``backend="fused"`` (one program per tick).
+
+    The bucket plan is reused: ``dense_classes`` groups the dense buckets
+    by ``[P, Q]`` shape as the reference's plan does (the reference batches
+    each class; the port adds the buckets one by one in plan order and
+    reads no class), CSR buckets (``sparse_ids``) gather their fan-in rows,
+    and the distinct ``delays`` are the ring commits of the tick's
+    epilogue. ``kernel_ok`` marks a net
+    whose whole tick is the ``fused_tick`` kernel: IZH4 and generators
+    only, Euler, contiguous bucket spans (CUBA and no plasticity hold for
+    every net the port compiles). The reference's ``tile_q``/``tile_r``
+    size TPU VMEM buffers and have no counterpart here."""
+
+    delays: tuple[int, ...]  # sorted distinct ring delays committed per tick
+    # ((p, q), bucket_ids): dense buckets sharing a [P, Q] shape.
+    dense_classes: tuple[tuple[tuple[int, int], tuple[int, ...]], ...]
+    sparse_ids: tuple[int, ...]  # bucket indices executed as CSR gathers
+    kernel_ok: bool
+
+
+def _plan_fused(buckets: tuple[BucketSpec, ...], izh4_only: bool,
+                method: str) -> FusedPlan:
+    classes: dict[tuple[int, int], list[int]] = {}
+    sparse_ids: list[int] = []
+    for bi, b in enumerate(buckets):
+        if b.kind == "sparse":
+            sparse_ids.append(bi)
+        else:
+            classes.setdefault((b.p, b.q), []).append(bi)
+    spans_ok = all(b.pre_start >= 0 and b.post_start >= 0 for b in buckets)
+    return FusedPlan(
+        delays=tuple(sorted({b.delay_ms for b in buckets})),
+        dense_classes=tuple((pq, tuple(ids)) for pq, ids in classes.items()),
+        sparse_ids=tuple(sparse_ids),
+        kernel_ok=izh4_only and method == "euler" and spans_ok,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
 class NetStatic:
     """Hashable network topology.
 
@@ -122,6 +164,14 @@ class NetStatic:
     propagation: str = "packed"
     izh4_only: bool = False  # IZH4 + generators only: the kernel fast path
     buckets: tuple[BucketSpec, ...] = ()
+    backend: str | None = None  # None (per-phase kernels) | "fused"
+    fused: FusedPlan | None = None  # backend="fused" only
+
+    @property
+    def fused_kernel(self) -> bool:
+        """The whole tick is the fused_tick kernel (on CPU tensors its
+        plain version): the fused plan's ``kernel_ok``."""
+        return self.fused is not None and self.fused.kernel_ok
 
     @property
     def gen_spans(self) -> tuple[tuple[int, int], ...]:
@@ -160,7 +210,7 @@ class NetParams(NamedTuple):
 
 class NetState(NamedTuple):
     t: int  # tick, a Python int: the tick loop never reads the device for it
-    key: torch.Tensor  # int64 scalar, seeds run()'s generator stream
+    key: torch.Tensor  # int32 [2]: the reference's threefry key words (core.rng)
     neurons: nrn.NeuronState
     ring: torch.Tensor  # [D, N, 1] storage dtype
     weights: tuple[torch.Tensor, ...]  # per projection, storage dtype
@@ -248,15 +298,20 @@ class NetworkBuilder:
         device: str | torch.device | None = None,
     ) -> "CompiledNetwork":
         """Lower the declared network to tensors on ``device`` (the card
-        when ``None``). ``backend`` takes no value but ``None``: the port
-        dispatches by device, kernels for CUDA tensors and their plain
-        versions for CPU tensors."""
-        if backend == "fused":
-            raise _unported("backend='fused' (the one-program tick)", "A8/B4")
-        if backend is not None:
+        when ``None``). ``backend`` is ``None`` (a kernel per tick phase)
+        or ``"fused"`` (the whole tick as one ``fused_tick`` launch where
+        the plan allows it). Either way the port dispatches by device:
+        kernels for CUDA tensors, their plain versions for CPU tensors."""
+        if backend not in (None, "fused"):
             raise ValueError(
-                f"unknown backend {backend!r}: repro_torch dispatches by "
-                "device (CUDA kernels on the card, plain PyTorch on the CPU)")
+                f"unknown backend {backend!r}: repro_torch takes None or "
+                "'fused', and dispatches by device (CUDA kernels on the "
+                "card, plain PyTorch on the CPU)")
+        if backend == "fused" and propagation == "loop":
+            raise ValueError(
+                "backend='fused' fuses the bucketed tick; it has no "
+                "per-projection loop expression: use propagation="
+                "'packed'/'sparse'/'auto'")
         if propagation == "loop":
             raise _unported("propagation='loop' (the per-projection oracle)", "A5")
         if propagation not in ("packed", "sparse", "auto"):
@@ -287,9 +342,9 @@ class NetworkBuilder:
             ledger.register("static.tables", torch.empty(
                 (len(groups) * 16,), dtype=torch.int32, device="meta"))
 
-        # 2. Random Gen: RNG key (8 bytes, as the reference's threefry key)
+        # 2. Random Gen: RNG key (8 bytes, the reference's threefry key)
         # + generator schedules.
-        key = torch.tensor(self._seed, dtype=torch.int64)
+        key = threefry.key(self._seed)
         gen_rate = np.zeros((n,), np.float32)
         gen_until = np.full((n,), np.float32(np.inf))
         gen_rate_after = np.zeros((n,), np.float32)
@@ -398,10 +453,13 @@ class NetworkBuilder:
         codes = neuron_params.model.numpy()
         izh4_only = bool(np.all((codes == int(nrn.NeuronModel.GENERATOR))
                                 | (codes == int(nrn.NeuronModel.IZH4))))
+        fused = (_plan_fused(buckets, izh4_only, method)
+                 if backend == "fused" else None)
         static = NetStatic(
             n=n, ring_len=ring_len, dt=dt, substeps=substeps, method=method,
             policy_name=policy.name, groups=groups, projections=tuple(specs),
             propagation=propagation, izh4_only=izh4_only, buckets=buckets,
+            backend=backend, fused=fused,
         )
         params = NetParams(
             neuron=neuron_params, masks=masks, gen_rate=gen_rate,

@@ -12,11 +12,12 @@
 // therefore the leanest launch: one thread per neuron, no shared memory,
 // each thread's loads independent of the others'.
 //
-// Rounding: every multiply, add and subtract goes through __fmul_rn /
-// __fadd_rn / __fsub_rn in the reference's term order, which nvcc never
-// contracts into an FMA. The kernel therefore rounds exactly as the plain
-// PyTorch version (kernels/ref.py:izh4_ref) does on the CPU and the card,
-// and the two agree bit for bit.
+// Rounding: the update is common.cuh's izh4_tick, which spells every
+// multiply, add and subtract with __fmul_rn / __fadd_rn / __fsub_rn in the
+// reference's term order, so nvcc never contracts it into an FMA. The kernel
+// therefore rounds exactly as the plain PyTorch version
+// (kernels/ref.py:izh4_ref) does on the CPU and the card, and the two agree
+// bit for bit; fused_tick shares the same function.
 #include "common.cuh"
 
 template <typename T>
@@ -30,27 +31,7 @@ __global__ void izh4_kernel(const T* __restrict__ v_in, const T* __restrict__ u_
   if (i >= n) return;
   float v = to_f32(v_in[i]);
   float u = to_f32(u_in[i]);
-  const float cur = i_syn[i];
-  const float ai = a[i];
-  const float bi = b[i];
-  for (int s = 0; s < substeps; ++s) {
-    // dv = 0.04*v*v + 5.0*v + 140.0 - u + i_syn, left to right
-    const float dv = __fadd_rn(
-        __fsub_rn(__fadd_rn(__fadd_rn(__fmul_rn(__fmul_rn(0.04f, v), v),
-                                      __fmul_rn(5.0f, v)),
-                            140.0f),
-                  u),
-        cur);
-    // du = a*(b*v - u)
-    const float du = __fmul_rn(ai, __fsub_rn(__fmul_rn(bi, v), u));
-    v = __fadd_rn(v, __fmul_rn(h, dv));
-    u = __fadd_rn(u, __fmul_rn(h, du));
-  }
-  const bool spk = v >= 30.0f;
-  if (spk) {
-    v = c[i];
-    u = __fadd_rn(u, d[i]);
-  }
+  const bool spk = izh4_tick(v, u, i_syn[i], a[i], b[i], c[i], d[i], h, substeps);
   v_out[i] = from_f32<T>(v);
   u_out[i] = from_f32<T>(u);
   spiked[i] = spk ? 1 : 0;

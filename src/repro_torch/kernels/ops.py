@@ -10,17 +10,19 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import fused_tick as _fused
 from repro_torch.kernels import izh_update as _izh
 from repro_torch.kernels import ref
 from repro_torch.kernels import syn_gather as _gather
 from repro_torch.kernels import syn_matmul as _matmul
 
 __all__ = ["LAUNCHES", "reset_launches", "izh4_update", "syn_matmul",
-           "syn_gather"]
+           "syn_gather", "FusedTickRun"]
 
 f32 = torch.float32
 
-LAUNCHES: dict[str, int] = {"izh4_update": 0, "syn_matmul": 0, "syn_gather": 0}
+LAUNCHES: dict[str, int] = {"izh4_update": 0, "syn_matmul": 0, "syn_gather": 0,
+                            "fused_tick": 0}
 
 
 def reset_launches() -> None:
@@ -126,3 +128,79 @@ def syn_gather(spikes, idx, w):
         _gather.launch(spikes, idx, w, out)
         LAUNCHES["syn_gather"] += 1
     return out
+
+
+class FusedTickRun:
+    """A run's ticks through the fused tick
+    (:func:`repro_torch.kernels.ref.fused_tick_ref`), in place on the run's
+    own buffers: ``v``, ``u`` ``[N]`` and ``ring`` ``[L, N]``, in one
+    storage dtype, advance tick by tick; ``rows`` ``[T, N]`` bool holds each
+    tick's generator spikes on entry (read where ``is_gen``, ``[N]`` bool)
+    and its spike row on exit; ``v_rows`` and ``i_rows`` ``[T, N]`` f32,
+    where given, record v' and i_syn. ``a``..``d`` are ``[N]`` f32 and
+    ``payload`` comes from :func:`repro_torch.kernels.fused_tick.assemble_kernel`.
+
+    On the card the tensors are checked and the kernel's plan is built
+    once, and :meth:`tick` is one launch; on the CPU :meth:`tick` runs the
+    plain version. On the card N is at most ``fused_tick.MAX_N``."""
+
+    def __init__(self, payload: _fused.KernelPayload, v, u, ring, is_gen, a, b,
+                 c, d, rows, v_rows=None, i_rows=None, *, dt: float = 1.0,
+                 substeps: int = 2):
+        n = v.shape[0]
+        if v.dim() != 1 or ring.dim() != 2 or ring.shape[1] != n:
+            raise ValueError(f"fused_tick: v {tuple(v.shape)} and ring "
+                             f"{tuple(ring.shape)} must be [N] and [L, N]")
+        if any(x.shape != (n,) for x in (u, is_gen, a, b, c, d)):
+            raise ValueError(f"fused_tick: u, is_gen, a, b, c, d must be [{n}]")
+        if (v.dtype not in _fused.STORAGE_DTYPES or u.dtype != v.dtype
+                or ring.dtype != v.dtype):
+            raise ValueError(f"fused_tick: v/u/ring must share a storage dtype in "
+                             f"{_fused.STORAGE_DTYPES}, got {v.dtype}/{u.dtype}/"
+                             f"{ring.dtype}")
+        if is_gen.dtype != torch.bool or any(x.dtype != f32 for x in (a, b, c, d)):
+            raise ValueError("fused_tick: is_gen must be bool and a, b, c, d float32")
+        recs = [x for x in (v_rows, i_rows) if x is not None]
+        if rows.dim() != 2 or rows.shape[1] != n or rows.dtype != torch.bool:
+            raise ValueError(f"fused_tick: rows must be [T, {n}] bool")
+        if any(x.shape != rows.shape or x.dtype != f32 for x in recs):
+            raise ValueError(f"fused_tick: v_rows/i_rows must be float32 {tuple(rows.shape)}")
+        self._card = _on_card("fused_tick", v, u, ring, is_gen, a, b, c, d, rows,
+                              payload.desc, payload.wd, payload.wc, payload.ic, *recs)
+        self._args = (payload, v, u, ring, is_gen, a, b, c, d, rows, v_rows, i_rows)
+        self._dt, self._substeps = dt, substeps
+        if self._card and n:
+            self._launch = _fused.TickLauncher(payload, v, u, ring, is_gen, a, b,
+                                               c, d, dt=dt, substeps=substeps)
+            self._rows = (rows.data_ptr(), n)
+            self._v_rows = 0 if v_rows is None else v_rows.data_ptr()
+            self._i_rows = 0 if i_rows is None else i_rows.data_ptr()
+            self._row_bytes = n * 4
+        else:
+            self._launch = None
+
+    def tick(self, i: int, t: int) -> None:
+        """Tick ``t`` of the run, its ``i``-th: reads and writes row ``i``."""
+        if self._launch is not None:
+            rows, n = self._rows
+            row = rows + i * n
+            self._launch(t, row, row,
+                         self._v_rows and self._v_rows + i * self._row_bytes,
+                         self._i_rows and self._i_rows + i * self._row_bytes)
+            LAUNCHES["fused_tick"] += 1
+            return
+        if self._card:  # N = 0: nothing to compute
+            return
+        payload, v, u, ring, is_gen, a, b, c, d, rows, v_rows, i_rows = self._args
+        v2, u2, spikes, ring2, i_syn = ref.fused_tick_ref(
+            v, u, ring, rows[i], is_gen, a, b, c, d, t, dense=payload.dense,
+            csr=payload.csr, ring_len=ring.shape[0], dt=self._dt,
+            substeps=self._substeps)
+        v.copy_(v2)
+        u.copy_(u2)
+        ring.copy_(ring2)
+        rows[i] = spikes
+        if v_rows is not None:
+            v_rows[i] = v2
+        if i_rows is not None:
+            i_rows[i] = i_syn

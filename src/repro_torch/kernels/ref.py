@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["izh4_ref", "syn_matmul_ref", "syn_gather_ref"]
+__all__ = ["izh4_ref", "syn_matmul_ref", "syn_gather_ref", "fused_tick_ref"]
 
 f32 = torch.float32
 
@@ -55,3 +55,44 @@ def syn_gather_ref(spikes, idx, w):
                          f"{int(idx.max())}], outside [0, {spikes.shape[0]})")
     g = spikes.to(f32)[idx.to(torch.int64)]
     return (g * w.to(f32)).sum(dim=1)
+
+
+def fused_tick_ref(v, u, ring, gen_row, is_gen, a, b, c, d, t: int, *,
+                   dense=(), csr=(), ring_len: int, dt: float = 1.0,
+                   substeps: int = 2):
+    """One whole tick on unpadded operands, as the reference's
+    ``kernels/ref.py:fused_tick_ref``: ring slot read and zero, IZH4,
+    generator override, propagation, one ring commit per distinct delay.
+
+    ``ring`` ``[L, N]`` single-channel storage-dtype ring; ``gen_row`` and
+    ``is_gen`` ``[N]`` bool; ``dense`` iterates ``(pre_start, post_start,
+    delay_ms, W [P, Q])``, ``csr`` ``(post_start, delay_ms, idx [Q, F]
+    global ids, w [Q, F])``. Drives land per delay in an f32 accumulator,
+    dense buckets first, then CSR ones, each in its list's order. Returns
+    ``(v', u', spikes, ring', i_syn)``; ``ring`` is left as it was.
+    """
+    n = v.shape[0]
+    slot = t % ring_len
+    i_syn = ring[slot].to(f32)
+    ring = ring.clone()
+    ring[slot].zero_()
+    v1, u1, spiked = izh4_ref(v, u, i_syn, a, b, c, d, dt=dt, substeps=substeps)
+    v2 = torch.where(is_gen, c, v1.to(f32)).to(v.dtype)
+    u2 = torch.where(is_gen, 0.0, u1.to(f32)).to(u.dtype)
+    spikes = torch.where(is_gen, gen_row, spiked)
+    sf = spikes.to(f32)
+    acc: dict[int, torch.Tensor] = {}
+
+    def add(dly, qs, drive):
+        a_ = acc.get(dly)
+        if a_ is None:
+            a_ = acc[dly] = torch.zeros((n,), dtype=f32, device=v.device)
+        a_[qs:qs + drive.shape[0]] += drive
+
+    for ps, qs, dly, w in dense:
+        add(dly, qs, syn_matmul_ref(sf[None, ps:ps + w.shape[0]], w)[0])
+    for qs, dly, idx, w in csr:
+        add(dly, qs, syn_gather_ref(sf, idx, w))
+    for dly in sorted(acc):
+        ring[(t + dly) % ring_len] += acc[dly].to(ring.dtype)
+    return v2, u2, spikes, ring, i_syn

@@ -27,7 +27,7 @@ from repro.configs import synfire4 as rsyn  # noqa: E402
 from repro.core import NetworkBuilder as RBuilder, izh4 as rizh4  # noqa: E402
 from repro.core.engine import run as ref_run  # noqa: E402
 from repro_torch.configs import synfire4 as tsyn  # noqa: E402
-from repro_torch.core import Engine, NetworkBuilder, izh4, run, step  # noqa: E402
+from repro_torch.core import Engine, NetworkBuilder, izh4, rng, run, step  # noqa: E402
 from repro_torch.core.convert import params_from_numpy, state_from_numpy  # noqa: E402
 
 
@@ -284,16 +284,24 @@ class TestRunAndStep:
         assert torch.equal(net.state0.ring, torch.zeros_like(net.state0.ring))
 
     def test_step_needs_uniforms(self):
+        """Without ``gen_u`` a step draws its uniforms as the reference's
+        step does: ``key, k_gen = split(key)``, one uniform per neuron from
+        ``k_gen``; the generators take their columns."""
         net = self._net()
-        with pytest.raises(ValueError, match="gen_u"):
-            step(net.static, net.params, net.state0)
+        s1, o1 = step(net.static, net.params, net.state0)
+        k_next, k_gen = rng.split(net.state0.key)
+        assert torch.equal(s1.key, k_next)
+        full = rng.uniform(k_gen, (net.static.n,))
+        gu = torch.cat([full[g0:g0 + sz] for g0, sz in net.static.gen_spans])
+        _, o2 = step(net.static, net.params, net.state0, gen_u=gu)
+        assert torch.equal(o1.spikes, o2.spikes)
 
     def test_default_stream_is_seeded_and_advances(self):
         net = self._net()
         s1, o1 = run(net.static, net.params, net.state0, 100)
         _, o1b = run(net.static, net.params, net.state0, 100)
         assert torch.equal(o1["spikes"], o1b["spikes"])
-        assert int(s1.key) != int(net.state0.key)
+        assert not torch.equal(s1.key, net.state0.key)
         _, o2 = run(net.static, net.params, s1._replace(t=0), 100)
         assert not torch.equal(o1["spikes"], o2["spikes"])
 
@@ -304,7 +312,7 @@ class TestRunAndStep:
         s, o = run(net.static, net.params, net.state0, 100, generator=g)
         _, o2 = run(net.static, net.params, net.state0, 100, gen_u=gu)
         assert torch.equal(o["spikes"], o2["spikes"])
-        assert int(s.key) == int(net.state0.key)
+        assert torch.equal(s.key, net.state0.key)
 
     def test_monitor_records_raise(self):
         net = self._net()

@@ -36,6 +36,8 @@ def test_importing_the_port_loads_no_jax():
         "import sys\n"
         "import repro_torch, repro_torch.core, repro_torch.core.convert\n"
         "import repro_torch.configs.synfire4, repro_torch.kernels.ops\n"
+        "import repro_torch.core.rng, repro_torch.core.backend\n"
+        "import repro_torch.kernels.fused_tick, repro_torch.kernels.ref\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
     )

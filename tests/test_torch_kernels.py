@@ -202,7 +202,8 @@ class TestWrappers:
         ops.syn_matmul(torch.ones((1, 8)), torch.ones((8, 4), dtype=torch.float16))
         ops.syn_gather(torch.ones(8), torch.zeros((4, 3), dtype=torch.int16),
                        torch.ones((4, 3)))
-        assert ops.LAUNCHES == {"izh4_update": 0, "syn_matmul": 0, "syn_gather": 0}
+        assert ops.LAUNCHES == {"izh4_update": 0, "syn_matmul": 0, "syn_gather": 0,
+                                "fused_tick": 0}
         assert _build._LIBS == {}
 
     def test_mixed_devices_raise(self):
