@@ -13,7 +13,10 @@ Phases (each raises, and the script exits non-zero, on any failure):
    with CUDA events (per call, host enqueue included), and the kernel
    alone on the device with ``torch.profiler``. ``fused_tick`` is held
    on states taken from 50-tick runs of every Synfire path, twelve
-   chained ticks each.
+   chained ticks each; ``stdp_update`` and ``stdp_gather`` bit for bit on
+   random weights, traces and masks at the plastic chain's shapes
+   (Synfire4 packed [200, 200] and an odd shape; the compiled Synfire4
+   and x10 fan-in tables with int16 and int32 indices).
 3. Run Synfire4 for 1,000 ticks on the card in fp16/fp32 x packed/sparse
    through ``build_synfire`` and ``run``, on the default backend and on
    ``backend="fused"``, with the launch counters reset just before each
@@ -25,9 +28,19 @@ Phases (each raises, and the script exits non-zero, on any failure):
    raster equals the CPU raster) and with injected uniforms (the wave dies
    out in every run), and Synfire4x10 sparse fp16 for 1,000 ticks on both
    backends (raster against the CPU again); launch counts checked.
-5. Profile 100 Synfire4 fp16 ticks per propagation mode and backend with
-   ``torch.profiler``: device busy time per tick, the device's idle
-   share, device events per tick and device time by kernel name.
+5. Plastic Synfire4 (``CHAIN_STDP`` on the exc->exc chain) for 1,000
+   ticks in fp16/fp32 x packed/sparse: card raster and final plastic
+   weights equal the CPU port's, packed and sparse weights equal at the
+   twin cells, each tick launches ``stdp_update`` (packed) or
+   ``stdp_gather`` (sparse) once per chain projection; the same with
+   homeostasis every 100 ticks (fp16 sparse); plastic Synfire4x10 fp16
+   sparse inside the 8.477 MB ledger (card equals CPU); and plastic nets
+   on ``backend="fused"``, which launch no ``fused_tick`` and give the
+   default backend's raster and weights.
+6. Profile 100 Synfire4 fp16 ticks per propagation mode and backend, and
+   of the plastic default-backend tick, with ``torch.profiler``: device
+   busy time per tick, the device's idle share, device events per tick
+   and device time by kernel name.
 
 The last lines are a JSON object of per-kernel numbers, a JSON object of
 per-path numbers, the card's name and power limit from nvidia-smi, and
@@ -294,6 +307,7 @@ def phase_kernels(dev) -> list[dict]:
         "library_ms": cuda_ms(lambda: torch.nn.functional.embedding_bag(
             idx64, spikes[:, None], per_sample_weights=w, mode="sum"))})
     rows.append(_check_fused_tick(dev, g))
+    rows += _check_stdp(dev, g)
     for r in rows:
         lib = "-" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.2f} us"
         log(f"[kernels] {r['name']} ({r['shape']}): {r['ms'] * 1e3:.2f} us per call "
@@ -425,6 +439,102 @@ def _check_fused_tick(dev, g) -> dict:
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
+STDP_KW = dict(a_plus=0.004, a_minus=0.0033, w_min=0.0, w_max=4.0)  # CHAIN_STDP
+
+
+def _stdp_vectors(g, p: int, q: int, dev):
+    """Random pre/post traces in [0, 3) and 0/1 spikes (30 %), f32."""
+    return [x.to(dev) for x in (torch.rand(p, generator=g) * 3, torch.rand(q, generator=g) * 3,
+                                (torch.rand(p, generator=g) < 0.3).float(),
+                                (torch.rand(q, generator=g) < 0.3).float())]
+
+
+def _require_bitwise(got, want, what):
+    require(got.dtype == want.dtype and torch.equal(got, want),
+            f"{what} differs from its plain version: max abs err {max_err(got, want)}")
+
+
+def _check_stdp(dev, g) -> list[dict]:
+    """stdp_update and stdp_gather against their plain versions on the card,
+    bit for bit (both pin their rounding and reduce nothing), and their rows
+    timed at the plastic chain's shapes: Synfire4 packed [200, 200] fp16,
+    and Synfire4 sparse's first chain table (int16, fp16)."""
+    from repro_torch.configs.synfire4 import CHAIN_STDP, SYNFIRE4, SYNFIRE4_X10, build_synfire
+    from repro_torch.kernels import ops, ref
+
+    timed = {}
+    for p, q in ((200, 200), (37, 113)):
+        for dtype in (torch.float16, torch.float32):
+            mask = (torch.rand((p, q), generator=g) < 0.3).to(dev)
+            w = torch.where(mask.cpu(), torch.rand((p, q), generator=g) * 4, 0.0).to(dtype).to(dev)
+            args = [w, mask, *_stdp_vectors(g, p, q, dev)]
+            got = ops.stdp_update(*args, **STDP_KW)
+            want = ref.stdp_update_ref(*args, **STDP_KW)
+            torch.cuda.synchronize()
+            _require_bitwise(got, want, f"stdp_update [{p},{q}] {dtype}")
+            require(not torch.equal(got, w), "stdp_update moved no weight")
+            timed.setdefault("update", args)
+            log(f"[kernels] stdp_update [{p},{q}] {dtype}: bitwise equal")
+    for cfg in (SYNFIRE4, SYNFIRE4_X10):
+        net = build_synfire(cfg, policy="fp16", propagation="sparse", stdp_chain=CHAIN_STDP,
+                            monitor_ms_hint=0, device=dev)
+        for j in net.static.plastic_csr:
+            spec = net.static.projections[j]
+            valid, idx16 = net.params.masks[j], net.params.proj_csr_idx[j]
+            for idx in (idx16, idx16.to(torch.int32)):
+                for dtype in (torch.float16, torch.float32):
+                    w = torch.where(valid.cpu(), torch.rand(tuple(valid.shape), generator=g)
+                                    * 4, 0.0).to(dtype).to(dev)
+                    args = [w, idx, valid, *_stdp_vectors(g, spec.pre_size, spec.post_size,
+                                                          dev)]
+                    got = ops.stdp_gather(*args, **STDP_KW)
+                    want = ref.stdp_gather_ref(*args, **STDP_KW)
+                    torch.cuda.synchronize()
+                    _require_bitwise(got, want, f"stdp_gather {cfg.name} proj {j} "
+                                     f"{idx.dtype} {dtype}")
+                    timed.setdefault("gather", args)
+        log(f"[kernels] stdp_gather {cfg.name}: {len(net.static.plastic_csr)} chain "
+            f"tables (Q x F {sorted({tuple(net.params.masks[j].shape) for j in net.static.plastic_csr})}) "
+            "x int16/int32 x fp16/fp32 bitwise")
+    bad = torch.tensor([[0, 1], [2, 200]], dtype=torch.int16, device=dev)
+    out = ops.stdp_gather(torch.ones((2, 2), device=dev), bad,
+                          torch.ones((2, 2), dtype=torch.bool, device=dev),
+                          *_stdp_vectors(g, 200, 2, dev), **STDP_KW)
+    require(bool(out[1, 1].isnan()) and not bool(out[:, 0].isnan().any()),
+            f"stdp_gather: an index outside [0, P) gave {out.tolist()}, want NaN there only")
+    log("[kernels] stdp_gather: an index outside [0, P) yields NaN on the card")
+
+    rows = []
+    args = timed["update"]
+    p, q = args[0].shape
+    b_ms, b_by = bound(nbytes(*args) + nbytes(args[0]), 7 * p * q)
+    rows.append({
+        "name": "stdp_update", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/stdp_update.cu",
+        "replaces": "src/repro/kernels/stdp_update.py:33",
+        "shape": f"Synfire4 packed chain block [{p},{q}] fp16", "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: ops.stdp_update(*args, **STDP_KW)),
+        "device_ms": device_ms(lambda: ops.stdp_update(*args, **STDP_KW),
+                               "stdp_update_kernel"),
+        "plain_ms": cuda_ms(lambda: ref.stdp_update_ref(*args, **STDP_KW)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    args = timed["gather"]
+    q, f = args[0].shape
+    b_ms, b_by = bound(nbytes(*args) + nbytes(args[0]), 7 * q * f)
+    rows.append({
+        "name": "stdp_gather", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/stdp_gather.cu",
+        "replaces": "src/repro/kernels/stdp_gather.py:59",
+        "shape": f"Synfire4 sparse chain table: P={args[3].shape[0]} Q={q} F={f} "
+                 "int16/fp16", "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: ops.stdp_gather(*args, **STDP_KW)),
+        "device_ms": device_ms(lambda: ops.stdp_gather(*args, **STDP_KW),
+                               "stdp_gather_kernel"),
+        "plain_ms": cuda_ms(lambda: ref.stdp_gather_ref(*args, **STDP_KW)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    return rows
+
+
 def _require_same_raster(card, cpu, what):
     if not torch.equal(card, cpu):
         first = int(torch.nonzero((card != cpu).any(dim=1))[0])
@@ -480,8 +590,12 @@ def _card_and_cpu_rasters(cfg, policy, propagation, gen_u, dev, **build_kw):
     return out
 
 
+NO_STDP = {"stdp_update": 0, "stdp_gather": 0}
+
+
 def _fused_launches(ticks: int) -> dict:
-    return {"izh4_update": 0, "syn_matmul": 0, "syn_gather": 0, "fused_tick": ticks}
+    return {"izh4_update": 0, "syn_matmul": 0, "syn_gather": 0, "fused_tick": ticks,
+            **NO_STDP}
 
 
 def _add(totals: dict, launches: dict) -> None:
@@ -503,7 +617,8 @@ def phase_synfire(dev, totals: dict) -> dict:
                 kinds = [b.kind for b in net.static.buckets]
                 expect = _fused_launches(TICKS) if backend else {
                     "izh4_update": TICKS, "syn_matmul": kinds.count("dense") * TICKS,
-                    "syn_gather": kinds.count("sparse") * TICKS, "fused_tick": 0}
+                    "syn_gather": kinds.count("sparse") * TICKS, "fused_tick": 0,
+                    **NO_STDP}
                 require(launches == expect, f"launches {launches} != {expect}")
                 require(kinds.count("dense" if propagation == "packed" else "sparse")
                         == (8 if propagation == "packed" else 13), f"plan {kinds}")
@@ -532,7 +647,7 @@ def phase_scale(dev, totals: dict) -> dict:
     paths = {}
     mini_ticks = 5000
     mini_launches = {"izh4_update": mini_ticks, "syn_matmul": 8 * mini_ticks,
-                     "syn_gather": 0, "fused_tick": 0}
+                     "syn_gather": 0, "fused_tick": 0, **NO_STDP}
 
     def died_out(sp, what):
         total, tail = int(sp.sum()), int(sp[-1000:].sum())
@@ -574,7 +689,7 @@ def phase_scale(dev, totals: dict) -> dict:
     g = torch.Generator(device="cpu").manual_seed(11)
     gen_u = torch.rand((TICKS, SYNFIRE4_X10.n_stim), generator=g)
     x10_launches = {"izh4_update": TICKS, "syn_matmul": 0, "syn_gather": 13 * TICKS,
-                    "fused_tick": 0}
+                    "fused_tick": 0, **NO_STDP}
     for backend, (net, sp, launches, seconds) in _card_and_cpu_rasters(
             SYNFIRE4_X10, "fp16", "sparse", gen_u, dev, budget=None,
             monitor_ms_hint=0).items():
@@ -594,6 +709,172 @@ def phase_scale(dev, totals: dict) -> dict:
     return paths
 
 
+HOMEO = dict(target_hz=10.0, tau_avg_ms=1000.0, beta=2.0)  # visible within 1 s
+
+
+def _plastic_run(cfg, policy, propagation, gen_u, dev, backend=None, **build_kw):
+    """Plastic Synfire (``CHAIN_STDP`` on the exc->exc chain) through
+    ``build_synfire`` and ``run`` on ``dev`` for ``len(gen_u)`` ticks. On the
+    card it is warmed up, then timed with the launch counts reset just
+    before and read just after. Returns (net, raster, final state,
+    launches or None, seconds)."""
+    from repro_torch.configs.synfire4 import CHAIN_STDP, build_synfire
+    from repro_torch.core.engine import run
+    from repro_torch.kernels import ops
+
+    net = build_synfire(cfg, policy=policy, propagation=propagation, device=dev,
+                        backend=backend, stdp_chain=CHAIN_STDP, **build_kw)
+    gu = gen_u.to(dev)
+    card = dev.type == "cuda"
+    if card:
+        warm = net.static.homeo_period or 20
+        run(net.static, net.params, net.state0, warm, gen_u=gu[:warm])
+        torch.cuda.synchronize()
+        ops.reset_launches()
+    t0 = time.perf_counter()
+    final, out = run(net.static, net.params, net.state0, gen_u.shape[0], gen_u=gu)
+    if card:
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return (net, out["spikes"].cpu(), final, dict(ops.LAUNCHES) if card else None,
+            seconds)
+
+
+def _chain(net) -> list[int]:
+    return [j for j, c in enumerate(net.static.stdp) if c is not None]
+
+
+def _require_same_plastic_state(card, cpu, what):
+    """The card's final plastic weights, traces and homeostasis rates equal
+    those of ``cpu`` (a CPU port run, or another card run) bit for bit."""
+    net, final = card[0], card[2]
+    cpu_final = cpu[2]
+    for j in _chain(net):
+        for name, a, b in [("weights", final.weights[j], cpu_final.weights[j])] + [
+                (f"stdp.{f}", getattr(final.stdp[j], f), getattr(cpu_final.stdp[j], f))
+                for f in final.stdp[j]._fields]:
+            a, b = a.cpu(), b.cpu()
+            require(torch.equal(a, b), f"{what}: card {name} of projection {j} "
+                    f"differ from the CPU's, max abs err {max_err(a, b)}")
+    for j, h in enumerate(final.homeo):
+        if h is not None:
+            require(torch.equal(h.cpu(), cpu_final.homeo[j].cpu()),
+                    f"{what}: card homeostasis rates of projection {j} differ")
+
+
+def _dense_chain(net, final) -> dict:
+    """The chain's final weights as dense f32 images (CSR rows scattered)."""
+    from repro_torch.core.synapses import CSRFanin, csr_to_dense
+
+    out = {}
+    for j in _chain(net):
+        w = final.weights[j]
+        if j in net.static.csr_projs:
+            out[j] = csr_to_dense(CSRFanin(net.params.proj_csr_idx[j], w,
+                                           net.params.masks[j]),
+                                  net.static.projections[j].pre_size)
+        else:
+            out[j] = w.float().cpu().numpy()
+    return out
+
+
+def _plastic_launches(net, ticks: int) -> dict:
+    kinds = [b.kind for b in net.static.buckets]
+    chain = len(_chain(net))
+    csr = sum(j in net.static.csr_projs for j in _chain(net))
+    return {"izh4_update": ticks, "syn_matmul": kinds.count("dense") * ticks,
+            "syn_gather": kinds.count("sparse") * ticks, "fused_tick": 0,
+            "stdp_update": (chain - csr) * ticks, "stdp_gather": csr * ticks}
+
+
+def phase_plastic(dev, totals: dict) -> dict:
+    """Plastic Synfire4 on the card against the CPU port (see phase 5 of the
+    module's docstring)."""
+    import numpy as np
+
+    from repro_torch.configs.synfire4 import SYNFIRE4, SYNFIRE4_X10
+    from repro_torch.core.plasticity import HomeostasisConfig
+    from repro_torch.memory import MCU_BUDGET_BYTES
+
+    cpu_dev = torch.device("cpu")
+    g = torch.Generator(device="cpu").manual_seed(17)
+    gen_u = torch.rand((TICKS, SYNFIRE4.n_stim), generator=g)
+    paths, images, card_runs = {}, {}, {}
+
+    def record(key, card, cpu, extra=None):
+        net, sp, final, launches, seconds = card
+        _require_same_raster(sp, cpu[1], key)
+        _require_same_plastic_state(card, cpu, key)
+        want = _plastic_launches(net, sp.shape[0])
+        require(launches == want, f"{key}: launches {launches} != {want}")
+        _add(totals, launches)
+        moved = sum(int((final.weights[j].cpu() != net.state0.weights[j].cpu()).sum())
+                    for j in _chain(net))
+        require(moved > 0, f"{key}: no plastic weight moved")
+        total = int(sp.sum())
+        rate = total / (net.n_neurons * sp.shape[0]) * 1000.0
+        require(17.0 <= rate <= 29.0, f"{key}: mean rate {rate:.2f} Hz outside 17-29")
+        paths[key] = {"us_per_tick": seconds / sp.shape[0] * 1e6, "spikes": total,
+                      "rate_hz": rate, "plastic_weights_moved": moved,
+                      "launches": launches, "raster_equals_cpu": True,
+                      "weights_equal_cpu": True, "cpu_us_per_tick": cpu[4] / sp.shape[0] * 1e6,
+                      **(extra or {})}
+        log(f"[plastic] {key}: {total} spikes, {rate:.2f} Hz, {moved} plastic weights "
+            f"moved, {seconds / sp.shape[0] * 1e6:.1f} us/tick (CPU port "
+            f"{cpu[4] / sp.shape[0] * 1e6:.1f}), launches {launches}, card raster "
+            "and weights == CPU")
+
+    for propagation in ("packed", "sparse"):
+        for policy in ("fp16", "fp32"):
+            cpu = _plastic_run(SYNFIRE4, policy, propagation, gen_u, cpu_dev)
+            card = _plastic_run(SYNFIRE4, policy, propagation, gen_u, dev)
+            record(f"synfire4_plastic/{policy}/{propagation}", card, cpu)
+            images[(policy, propagation)] = _dense_chain(card[0], card[2])
+            card_runs[(policy, propagation)] = card
+    for policy in ("fp16", "fp32"):
+        for j, img in images[(policy, "packed")].items():
+            require(np.array_equal(img, images[(policy, "sparse")][j]),
+                    f"plastic {policy}: packed and sparse weights of projection {j} differ")
+        require(torch.equal(card_runs[(policy, "packed")][1], card_runs[(policy, "sparse")][1]),
+                f"plastic {policy}: packed and sparse rasters differ")
+        log(f"[plastic] {policy}: packed and sparse rasters and chain weights bitwise equal")
+
+    homeo = dict(homeo_chain=HomeostasisConfig(**HOMEO), homeostasis_period=100)
+    cpu = _plastic_run(SYNFIRE4, "fp16", "sparse", gen_u, cpu_dev, **homeo)
+    card = _plastic_run(SYNFIRE4, "fp16", "sparse", gen_u, dev, **homeo)
+    record("synfire4_plastic_homeo/fp16/sparse", card, cpu)
+    scaled = card_runs[("fp16", "sparse")][2]
+    require(any(not torch.equal(card[2].weights[j], scaled.weights[j]) for j in _chain(card[0])),
+            "homeostasis moved no weight beyond STDP")
+
+    g = torch.Generator(device="cpu").manual_seed(19)
+    gen_u10 = torch.rand((TICKS, SYNFIRE4_X10.n_stim), generator=g)
+    x10 = dict(budget=MCU_BUDGET_BYTES, monitor_ms_hint=0)
+    cpu = _plastic_run(SYNFIRE4_X10, "fp16", "sparse", gen_u10, cpu_dev, **x10)
+    card = _plastic_run(SYNFIRE4_X10, "fp16", "sparse", gen_u10, dev, **x10)
+    used = card[0].ledger.total_used
+    require(used <= MCU_BUDGET_BYTES, f"plastic x10: ledger {used} > {MCU_BUDGET_BYTES}")
+    record("synfire4_x10_plastic/fp16/sparse", card, cpu,
+           {"ledger_bytes": used, "budget_bytes": MCU_BUDGET_BYTES})
+
+    for propagation in ("packed", "sparse"):
+        key = f"synfire4_plastic/fp16/{propagation}/fused"
+        net, sp, final, launches, seconds = _plastic_run(SYNFIRE4, "fp16", propagation,
+                                                          gen_u, dev, backend="fused")
+        require(not net.static.fused_kernel, f"{key}: plastic net planned as one kernel")
+        plain = card_runs[("fp16", propagation)]
+        _require_same_raster(sp, plain[1], f"{key} vs the default backend")
+        _require_same_plastic_state((net, sp, final), plain, f"{key} vs the default backend")
+        want = _plastic_launches(net, TICKS)
+        require(launches == want, f"{key}: launches {launches} != {want}")
+        _add(totals, launches)
+        paths[key] = {"us_per_tick": seconds / TICKS * 1e6, "spikes": int(sp.sum()),
+                      "launches": launches, "raster_equals_default_backend": True}
+        log(f"[plastic] {key}: no fused_tick launch, raster and weights == default "
+            f"backend, {seconds / TICKS * 1e6:.1f} us/tick, launches {launches}")
+    return paths
+
+
 def phase_profile(dev) -> dict:
     """Device busy time per tick and idle share of the Synfire4 fp16 tick,
     from a ``torch.profiler`` trace of 100 ticks per propagation mode and
@@ -605,15 +886,17 @@ def phase_profile(dev) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs.synfire4 import SYNFIRE4, build_synfire
+    from repro_torch.configs.synfire4 import CHAIN_STDP, SYNFIRE4, build_synfire
     from repro_torch.core.engine import run
 
     out = {}
     ticks = 100
-    for propagation, backend in (("packed", None), ("sparse", None),
-                                 ("packed", "fused"), ("sparse", "fused")):
+    for propagation, backend, stdp in (
+            ("packed", None, None), ("sparse", None, None), ("packed", "fused", None),
+            ("sparse", "fused", None), ("packed", None, CHAIN_STDP),
+            ("sparse", None, CHAIN_STDP)):
         net = build_synfire(SYNFIRE4, policy="fp16", propagation=propagation,
-                            device=dev, backend=backend)
+                            device=dev, backend=backend, stdp_chain=stdp)
         gu = torch.rand((ticks, SYNFIRE4.n_stim), device=dev)
         run(net.static, net.params, net.state0, 20, gen_u=gu[:20])
         torch.cuda.synchronize()
@@ -632,7 +915,8 @@ def phase_profile(dev) -> dict:
             name = name.split("(")[0][:100]  # drop the signature
             by_name[name] = by_name.get(name, 0.0) + (s1 - s0)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        key = f"profile/synfire4/fp16/{propagation}" + ("/fused" if backend else "")
+        key = (f"profile/synfire4{'_plastic' if stdp else ''}/fp16/{propagation}"
+               + ("/fused" if backend else ""))
         in_loop = None
         if backend:
             starts = [i for i, sp in enumerate(spans) if "fused_tick_kernel" in sp[2]]
@@ -649,10 +933,10 @@ def phase_profile(dev) -> dict:
             "idle_share": 1.0 - busy / wall_us if spans else None,
             "device_us_per_tick_by_kernel": {n: t / ticks for n, t in top},
         }
-        log(f"[profile] {propagation} backend={backend}: {len(spans)} device events, busy "
+        log(f"[profile] {key}: {len(spans)} device events, busy "
             f"{busy / ticks:.1f} us/tick of {wall_us / ticks:.1f} us/tick wall "
             f"(idle share {1.0 - busy / wall_us:.3f})" if spans else
-            f"[profile] {propagation} backend={backend}: the profiler recorded no "
+            f"[profile] {key}: the profiler recorded no "
             "device activity")
     return out
 
@@ -675,6 +959,7 @@ def main() -> int:
     totals = {k: 0 for k in ops.LAUNCHES}
     paths = phase_synfire(dev, totals)
     paths.update(phase_scale(dev, totals))
+    paths.update(phase_plastic(dev, totals))
     paths.update(phase_profile(dev))
     for r in rows:
         r["launches"] = totals[r["name"]]

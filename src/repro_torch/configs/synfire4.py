@@ -18,10 +18,11 @@ import torch
 
 from repro_torch.core.network import CompiledNetwork, NetworkBuilder
 from repro_torch.core.neurons import izh4
+from repro_torch.core.plasticity import HomeostasisConfig, STDPConfig
 from repro_torch.memory import MCU_BUDGET_BYTES, MemoryLedger
 
 __all__ = ["SynfireConfig", "SYNFIRE4", "SYNFIRE4_MINI", "SYNFIRE4_X10",
-           "build_synfire", "scale_synfire"]
+           "CHAIN_STDP", "build_synfire", "scale_synfire"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +74,12 @@ def scale_synfire(cfg: SynfireConfig, k: int, name: str | None = None) -> Synfir
 # budget only with sparse (CSR) propagation.
 SYNFIRE4_X10 = scale_synfire(SYNFIRE4, 10)
 
+# STDP of the plastic Synfire variant: mild pair-based learning on the
+# feed-forward chain. a± sit an order below the weights, so 1 s of volleys
+# moves weights measurably without detonating the wave; w_max caps runaway
+# LTP on the recurrent closure.
+CHAIN_STDP = STDPConfig(a_plus=0.004, a_minus=0.0033, w_max=4.0)
+
 
 def build_synfire(
     cfg: SynfireConfig = SYNFIRE4,
@@ -86,6 +93,9 @@ def build_synfire(
     method: str = "euler",
     backend: str | None = None,
     propagation: str = "packed",
+    stdp_chain: STDPConfig | None = None,
+    homeo_chain: HomeostasisConfig | None = None,
+    homeostasis_period: int = 0,
     device: str | torch.device | None = None,
 ) -> CompiledNetwork:
     """Build the Synfire benchmark under a precision policy on ``device``
@@ -96,6 +106,14 @@ def build_synfire(
     bucket matmuls, ``sparse`` CSR gathers or the per-projection ``auto``
     cost model. The ledger enforces ``budget`` (the paper's 8.477 MB by
     default) and counts a ``monitor_ms_hint``-tick raster buffer.
+
+    ``stdp_chain`` makes the exc→exc feed-forward chain (Cexc{i}→Cexc{i+1}
+    and the recurrent closure) plastic with that pair-based STDP
+    (:data:`CHAIN_STDP` is the benchmarked setting); under ``"sparse"``
+    those projections store CSR fan-in rows, which keeps a plastic
+    ``SYNFIRE4_X10`` inside the 8.477 MB budget. ``homeo_chain`` with
+    ``homeostasis_period`` adds CARLsim's slow-timer synaptic scaling to
+    the same projections, applied every ``homeostasis_period`` ticks.
     """
     net = NetworkBuilder(seed=seed)
     net.add_spike_generator(
@@ -113,7 +131,8 @@ def build_synfire(
                 delay_ms=cfg.delay_ff, mode=cfg.connect_mode)
     for i in range(cfg.n_segments - 1):
         net.connect(f"Cexc{i}", f"Cexc{i + 1}", fanin=cfg.fanin_exc,
-                    weight=cfg.w_exc, delay_ms=cfg.delay_ff, mode=cfg.connect_mode)
+                    weight=cfg.w_exc, delay_ms=cfg.delay_ff, mode=cfg.connect_mode,
+                    stdp=stdp_chain, homeostasis=homeo_chain)
         net.connect(f"Cexc{i}", f"Cinh{i + 1}", fanin=cfg.fanin_exc,
                     weight=cfg.w_inh_drive, delay_ms=cfg.delay_ff,
                     mode=cfg.connect_mode)
@@ -122,7 +141,8 @@ def build_synfire(
     # Recurrent closure: segment 3 -> segment 0.
     last = cfg.n_segments - 1
     net.connect(f"Cexc{last}", "Cexc0", fanin=cfg.fanin_exc, weight=cfg.w_exc,
-                delay_ms=cfg.delay_ff, mode=cfg.connect_mode)
+                delay_ms=cfg.delay_ff, mode=cfg.connect_mode, stdp=stdp_chain,
+                homeostasis=homeo_chain)
     net.connect(f"Cexc{last}", "Cinh0", fanin=cfg.fanin_exc,
                 weight=cfg.w_inh_drive, delay_ms=cfg.delay_ff, mode=cfg.connect_mode)
 
@@ -130,4 +150,5 @@ def build_synfire(
     return net.compile(policy=policy, ledger=ledger,
                        monitor_ms_hint=monitor_ms_hint, monitors=monitors,
                        watches=watches, method=method, backend=backend,
-                       propagation=propagation, device=device)
+                       propagation=propagation,
+                       homeostasis_period=homeostasis_period, device=device)

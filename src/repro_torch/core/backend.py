@@ -1,11 +1,15 @@
-"""The tick's two hot phases: neuron update and bucketed propagation.
+"""The tick's hot phases: neuron update, propagation and plasticity.
 
 Every bucket of the compile-time plan (``NetStatic.buckets``) is either a
 dense ``[P, Q]`` matmul on the tick's spike row (``syn_matmul``) or a CSR
 fan-in gather (``syn_gather``); the neuron update of IZH4 networks is the
-``izh4_update`` kernel. ``backend="fused"`` assembles its payload here
-(:func:`assemble_fused`): the whole tick is then the ``fused_tick`` kernel
-where the plan allows it, and the two phases above where it does not.
+``izh4_update`` kernel. Plastic and STP projections, whose weights change
+every tick, drive through :func:`plastic_drive` after the buckets, and
+pair-based STDP updates their weights through ``stdp_update`` (dense
+storage) or ``stdp_gather`` (CSR fan-in rows) in :func:`stdp_dispatch`.
+``backend="fused"`` assembles its payload here (:func:`assemble_fused`):
+the whole tick is then the ``fused_tick`` kernel where the plan allows it,
+and the phases above where it does not.
 The wrappers in :mod:`repro_torch.kernels.ops` launch the CUDA kernels for
 tensors on the card and run their plain PyTorch versions for tensors on
 the CPU, so this module has one code path.
@@ -25,12 +29,16 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import neurons as nrn
+from repro_torch.core.plasticity import STDPState, _trace_step
+from repro_torch.core.synapses import stp_update
 from repro_torch.kernels import ops
 from repro_torch.kernels.fused_tick import KernelPayload, assemble_kernel
 
 __all__ = ["assemble_packed", "update_neurons_dispatch", "propagate_packed",
+           "FaninRows", "assemble_fanin", "plastic_drive", "stdp_dispatch",
            "FusedPayload", "assemble_fused"]
 
 f32 = torch.float32
@@ -87,6 +95,64 @@ def update_neurons_dispatch(static, params, neurons: nrn.NeuronState,
     return nrn.NeuronState(v=v, u=u, refrac=refrac), spiked
 
 
+class FaninRows(NamedTuple):
+    """Gather tables of one plastic or STP projection's fan-in-row drive,
+    built once per run from ``params.proj_csr_idx``: ``pre`` ``[Q, F]``
+    int64 indices into the tick's spike row (global ids for plastic
+    projections, with the sentinel pad pointing at the zero appended after
+    the row; local ids for STP ones, whose pre row is scaled first), and,
+    for dense-stored projections, ``rows`` ``[Q, F]`` int64 indices into
+    the flattened ``[P, Q]`` weight with a zero appended (None for
+    CSR-stored ones)."""
+
+    pre: torch.Tensor
+    rows: torch.Tensor | None
+
+
+def assemble_fanin(static, params) -> tuple[FaninRows | None, ...]:
+    """Per projection, the :class:`FaninRows` of plastic and STP
+    projections (None for the others)."""
+    out = []
+    for j, spec in enumerate(static.projections):
+        if not (spec.plastic or spec.stp is not None):
+            out.append(None)
+            continue
+        idx = params.proj_csr_idx[j].long()
+        if spec.stp is not None:
+            out.append(FaninRows(pre=idx, rows=None))
+            continue
+        pad = idx >= spec.pre_size  # the sentinel of dense-stored tables
+        pre = torch.where(pad, static.n, idx + spec.pre_start)
+        rows = None
+        if j not in static.csr_projs:
+            q = spec.post_size
+            cols = torch.arange(q, device=idx.device)[:, None]
+            rows = torch.where(pad, spec.pre_size * q, idx * q + cols)
+        out.append(FaninRows(pre=pre, rows=rows))
+    return tuple(out)
+
+
+def plastic_drive(w: torch.Tensor, table: FaninRows,
+                  pre_row: torch.Tensor) -> torch.Tensor:
+    """Fan-in-row drive of a plastic or STP projection:
+    ``[Q] = Σ_k pre_row[pre[q, k]] · w_row[q, k]``.
+
+    CSR-stored projections read their ``[Q, F]`` weight rows directly;
+    dense-stored ones gather the rows out of the ``[P, Q]`` rectangle, the
+    sentinel cells reading an appended zero, as the CSR padding holds +0.0.
+    Same row values, same ``[Q, F]`` reduction: packed (dense storage) and
+    sparse (CSR storage) rasters stay bit for bit as STDP moves weights off
+    the representable grid. A plain PyTorch reduction on both devices, as
+    the reference keeps it plain on both backends.
+    """
+    g = pre_row[table.pre]
+    if table.rows is None:
+        rows = w.to(f32)
+    else:
+        rows = torch.cat((w.reshape(-1), w.new_zeros(1)))[table.rows].to(f32)
+    return (g * rows).sum(dim=1)
+
+
 def _bucket_pre(static, params, spikes_f32, bi):
     b = static.buckets[bi]
     if b.pre_start >= 0:
@@ -94,35 +160,79 @@ def _bucket_pre(static, params, spikes_f32, bi):
     return spikes_f32.index_select(0, params.bucket_pre_ids[bi])
 
 
-def propagate_packed(static, params, spikes: torch.Tensor, ring: torch.Tensor,
-                     t: int, packed) -> torch.Tensor:
-    """Propagate this tick's spikes through every bucket into ``ring``.
+def propagate_packed(static, params, spikes_f32: torch.Tensor, ring: torch.Tensor,
+                     t: int, packed, weights=(), stp=(), fanin=None) -> tuple:
+    """Propagate this tick's spikes (``[N]`` f32, 0.0/1.0) into ``ring``.
 
     Each bucket's drive lands in a per-delay ``[N, 1]`` f32 accumulator in
-    plan order; then one commit per distinct delay adds the accumulator,
-    cast to the ring's dtype first, into ring slot ``(t + d) % ring_len``
-    (the reference's ``row + acc.astype(ring.dtype)``). Updates ``ring``
-    in place and returns it.
+    plan order; then every plastic or STP projection's fan-in-row drive
+    (:func:`plastic_drive` on ``weights[j]``, the pre row scaled by
+    ``u · x`` for STP) lands in the same accumulators, in projection
+    order; then one commit per distinct delay adds each accumulator, cast
+    to the ring's dtype first, into ring slot ``(t + d) % ring_len`` (the
+    reference's ``row + acc.astype(ring.dtype)``). ``fanin`` is
+    :func:`assemble_fanin`'s output, built here when omitted. Updates
+    ``ring`` in place; returns the STP states advanced by this tick's
+    spikes, aligned with the projections.
     """
-    spikes_f32 = spikes.to(f32)
     acc: dict[int, torch.Tensor] = {}
+
+    def add(delay_ms, post_start, q, drive, post_ids=None):
+        a = acc.get(delay_ms)
+        if a is None:
+            a = acc[delay_ms] = torch.zeros((static.n, 1), dtype=f32,
+                                            device=spikes_f32.device)
+        if post_start >= 0:
+            a[post_start:post_start + q, 0] += drive
+        else:
+            a[:, 0].index_add_(0, post_ids, drive)
+
     for bi, b in enumerate(static.buckets):
         pre = _bucket_pre(static, params, spikes_f32, bi)
         if b.kind == "sparse":
             drive = ops.syn_gather(pre, params.bucket_csr_idx[bi], packed[bi])
         else:
             drive = ops.syn_matmul(pre[None, :], packed[bi])[0]
-        a = acc.get(b.delay_ms)
-        if a is None:
-            a = acc[b.delay_ms] = torch.zeros((static.n, 1), dtype=f32,
-                                              device=spikes.device)
-        if b.post_start >= 0:
-            a[b.post_start:b.post_start + b.q, b.channel] += drive
-        else:
-            a[:, b.channel].index_add_(0, params.bucket_post_ids[bi], drive)
+        add(b.delay_ms, b.post_start, b.q, drive, params.bucket_post_ids[bi])
+
+    new_stp = list(stp) or [None] * len(static.projections)
+    per_proj = [j for j, s in enumerate(static.projections)
+                if s.plastic or s.stp is not None]
+    if per_proj:
+        fanin = fanin if fanin is not None else assemble_fanin(static, params)
+        spikes_ext = F.pad(spikes_f32, (0, 1))
+        for j in per_proj:
+            spec = static.projections[j]
+            pre_row = spikes_ext
+            if spec.stp is not None:
+                pre_sp = spikes_f32[spec.pre_slice]
+                pre_row = pre_sp * (stp[j].u * stp[j].x)
+                new_stp[j] = stp_update(spec.stp, stp[j], pre_sp, static.dt)
+            add(spec.delay_ms, spec.post_start, spec.post_size,
+                plastic_drive(weights[j], fanin[j], pre_row))
     for d in sorted(acc):
         ring[(t + d) % static.ring_len] += acc[d].to(ring.dtype)
-    return ring
+    return tuple(new_stp)
+
+
+def stdp_dispatch(static, cfg, tr: STDPState, w: torch.Tensor, mask: torch.Tensor,
+                  pre_sp: torch.Tensor, post_sp: torch.Tensor,
+                  idx: torch.Tensor | None = None) -> tuple[STDPState, torch.Tensor]:
+    """One tick of pair-based STDP (``cfg.tau_elig`` None) on either storage:
+    the traces advance (:func:`repro_torch.core.plasticity._trace_step`),
+    then ``stdp_update`` updates dense ``[pre, post]`` weights under their
+    mask (``idx`` None), or ``stdp_gather`` CSR fan-in rows ``[post,
+    fanin]`` over ``idx`` under their validity rows (``mask``). Spikes are
+    f32 0.0/1.0. Returns ``(state', w')``."""
+    pre_t = _trace_step(tr.pre_trace, pre_sp, cfg.tau_plus, static.dt)
+    post_t = _trace_step(tr.post_trace, post_sp, cfg.tau_minus, static.dt)
+    kw = dict(a_plus=cfg.a_plus, a_minus=cfg.a_minus, w_min=cfg.w_min,
+              w_max=cfg.w_max)
+    if idx is None:
+        w2 = ops.stdp_update(w, mask, pre_t, post_t, pre_sp, post_sp, **kw)
+    else:
+        w2 = ops.stdp_gather(w, idx, mask, pre_t, post_t, pre_sp, post_sp, **kw)
+    return STDPState(pre_trace=pre_t, post_trace=post_t), w2
 
 
 class FusedPayload(NamedTuple):
@@ -130,7 +240,8 @@ class FusedPayload(NamedTuple):
 
     ``packed`` is :func:`assemble_packed`'s per-bucket tuple, which the
     ticks that are not one kernel (IZH9 or LIF groups, RK4, gathered or
-    scattered buckets, an external current) propagate with
+    scattered buckets, plastic or STP projections, an external current)
+    propagate with
     :func:`propagate_packed`; ``kernel`` is the ``fused_tick`` kernel's
     payload when ``static.fused_kernel`` is set (else ``None``)."""
 

@@ -3,12 +3,17 @@
 The reference's ``NetParams``/``NetState`` leaves arrive as numpy arrays
 in one flat dict whose keys name the port's fields:
 
-* params: ``neuron.<field>``, ``masks.<j>`` (dense-stored projections),
-  ``gen_rate``, ``gen_until``, ``gen_rate_after``, ``bucket_pre_ids.<b>``,
-  ``bucket_post_ids.<b>``, ``bucket_csr_idx.<b>`` (sparse buckets);
+* params: ``neuron.<field>``, ``masks.<j>`` (dense-stored projections,
+  and the validity rows of plastic CSR-stored ones), ``gen_rate``,
+  ``gen_until``, ``gen_rate_after``, ``bucket_pre_ids.<b>``,
+  ``bucket_post_ids.<b>``, ``bucket_csr_idx.<b>`` (sparse buckets),
+  ``proj_csr_idx.<j>`` (plastic and STP projections; sparse-bucket
+  members alias their bucket's table);
 * state: ``t``, ``key`` (the reference's two uint32 key words, kept as
   the port's int32 bit patterns), ``neurons.v``, ``neurons.u``, ``neurons.refrac``, ``ring``,
-  ``weights.<j>``.
+  ``weights.<j>``, ``stp.<j>.u``/``.x`` (STP projections),
+  ``stdp.<j>.pre_trace``/``.post_trace`` and, for DA-STDP, ``.elig``
+  (plastic projections), ``homeo.<j>`` (projections with homeostasis).
 
 Both functions take exactly the keys the port's compiled ``static`` needs
 and check each array's shape and dtype against it, so a mid-run reference
@@ -21,6 +26,8 @@ import torch
 
 from repro_torch.core.network import NetParams, NetState, NetStatic
 from repro_torch.core.neurons import NeuronParams, NeuronState
+from repro_torch.core.plasticity import DASTDPState, STDPState
+from repro_torch.core.synapses import STPState
 from repro_torch.precision import get_policy
 
 __all__ = ["params_from_numpy", "state_from_numpy"]
@@ -60,7 +67,8 @@ def params_from_numpy(static: NetStatic, arrays: dict, device) -> NetParams:
         for f in NeuronParams._fields})
     csr = static.csr_projs
     masks = tuple(
-        None if j in csr else read(f"masks.{j}", (s.pre_size, s.post_size), torch.bool)
+        (read(f"masks.{j}", (s.post_size, s.fanin), torch.bool) if s.plastic else None)
+        if j in csr else read(f"masks.{j}", (s.pre_size, s.post_size), torch.bool)
         for j, s in enumerate(static.projections))
     pre_ids, post_ids, csr_idx = [], [], []
     for bi, b in enumerate(static.buckets):
@@ -69,13 +77,22 @@ def params_from_numpy(static: NetStatic, arrays: dict, device) -> NetParams:
         post_ids.append(read(f"bucket_post_ids.{bi}", (b.q if dense else 0,), torch.int32))
         csr_idx.append(None if dense else read(
             f"bucket_csr_idx.{bi}", (b.q, b.fanin), _idx_dtype(b.p)))
+    # Sparse-bucket members alias their bucket's table, as in the reference;
+    # plastic and STP projections bring their own.
+    bucket_of = {b.members[0][0]: bi for bi, b in enumerate(static.buckets)
+                 if b.kind == "sparse"}
+    proj_csr_idx = tuple(
+        csr_idx[bucket_of[j]] if j in bucket_of
+        else read(f"proj_csr_idx.{j}", (s.post_size, s.fanin), _idx_dtype(s.pre_size))
+        if s.plastic or s.stp is not None else None
+        for j, s in enumerate(static.projections))
     out = NetParams(
         neuron=neuron, masks=masks,
         gen_rate=read("gen_rate", (n,), torch.float32),
         gen_until=read("gen_until", (n,), torch.float32),
         gen_rate_after=read("gen_rate_after", (n,), torch.float32),
         bucket_pre_ids=tuple(pre_ids), bucket_post_ids=tuple(post_ids),
-        bucket_csr_idx=tuple(csr_idx))
+        bucket_csr_idx=tuple(csr_idx), proj_csr_idx=proj_csr_idx)
     read.finish()
     return out
 
@@ -93,16 +110,35 @@ def state_from_numpy(static: NetStatic, arrays: dict, device) -> NetState:
     neurons = NeuronState(v=read("neurons.v", (n,), sdt),
                           u=read("neurons.u", (n,), sdt),
                           refrac=read("neurons.refrac", (n,), torch.int16))
-    fanin = {b.members[0][0]: b.fanin for b in static.buckets if b.kind == "sparse"}
+    csr = static.csr_projs
+    specs = static.projections
     weights = tuple(
         read(f"weights.{j}",
-             (s.post_size, fanin[j]) if j in fanin else (s.pre_size, s.post_size),
-             wdt)
-        for j, s in enumerate(static.projections))
+             (s.post_size, s.fanin) if j in csr else (s.pre_size, s.post_size), wdt)
+        for j, s in enumerate(specs))
+    stp = tuple(
+        None if s.stp is None else STPState(
+            u=read(f"stp.{j}.u", (s.pre_size,), sdt), x=read(f"stp.{j}.x", (s.pre_size,), sdt))
+        for j, s in enumerate(specs))
+    stdp = []
+    for j, (s, cfg) in enumerate(zip(specs, static.stdp)):
+        if cfg is None:
+            stdp.append(None)
+            continue
+        traces = (read(f"stdp.{j}.pre_trace", (s.pre_size,), torch.float32),
+                  read(f"stdp.{j}.post_trace", (s.post_size,), torch.float32))
+        if cfg.tau_elig is None:
+            stdp.append(STDPState(*traces))
+        else:
+            shape = (s.post_size, s.fanin) if j in csr else (s.pre_size, s.post_size)
+            stdp.append(DASTDPState(*traces, elig=read(f"stdp.{j}.elig", shape, sdt)))
+    homeo = tuple(
+        None if h is None else read(f"homeo.{j}", (s.post_size,), torch.float32)
+        for j, (s, h) in enumerate(zip(specs, static.homeo)))
     state = NetState(
         t=t, key=torch.from_numpy(key.view(np.int32).copy()).to(device),
         neurons=neurons,
         ring=read("ring", (static.ring_len, n, 1), sdt),
-        weights=weights)
+        weights=weights, stp=stp, stdp=tuple(stdp), homeo=homeo)
     read.finish()
     return state

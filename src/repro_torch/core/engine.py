@@ -9,7 +9,15 @@ Order of operations per tick follows CARLsim's kernel, as the reference's
   3. integrate the neurons, detect and reset spikes (``izh4_update``)
   4. merge the Poisson generators' spikes
   5. propagate the spikes through every bucket into slot (t + d) mod D
-     (``syn_matmul`` / ``syn_gather``), one ring commit per delay
+     (``syn_matmul`` / ``syn_gather``), then through the plastic and STP
+     projections' fan-in rows, one ring commit per delay
+  6. plasticity: pair-based STDP on the plastic projections
+     (``stdp_update`` on dense storage, ``stdp_gather`` on CSR rows), or
+     DA-STDP gated by the tick's dopamine
+
+and, every ``homeo_period`` ticks, homeostatic scaling of the weights of
+the projections that carry it, from the segment's spike counts (counted on
+the device, so no tick reads back).
 
 ``run`` is a Python loop over ticks. The tick index is a Python int, the
 raster is written into a preallocated ``[T, N]`` bool tensor on the
@@ -19,8 +27,9 @@ run are computed before the loop in one comparison (they depend only on
 the uniforms and the tick), and the bucket weight payloads are decoded
 once per run. With ``backend="fused"`` and a plan whose ``kernel_ok`` is
 set, a tick is one operation, the ``fused_tick`` kernel, which writes its
-spike row straight into the raster; other fused nets, and runs with an
-external current, tick as the default backend does.
+spike row straight into the raster; other fused nets (plastic or STP ones
+among them), and runs with an external current, tick as the default
+backend does.
 
 The generator uniforms come, by default, from the reference's threefry
 stream (:mod:`repro_torch.core.rng`): the same seed gives the same raster
@@ -38,6 +47,12 @@ from repro_torch.core import neurons as nrn
 from repro_torch.core import rng
 from repro_torch.core.network import CompiledNetwork, NetParams, NetState, NetStatic
 from repro_torch.core.neurons import NeuronState
+from repro_torch.core.plasticity import (
+    da_stdp_step,
+    da_stdp_step_csr,
+    homeostasis_step,
+    homeostasis_step_csr,
+)
 from repro_torch.kernels import ops
 
 __all__ = ["StepOutput", "step", "run", "Engine"]
@@ -54,6 +69,15 @@ class StepOutput(NamedTuple):
     spikes: torch.Tensor  # [N] bool
     v: torch.Tensor  # [N] f32 membrane potential after update
     i_syn: torch.Tensor  # [N] f32 synaptic current delivered this tick
+
+
+class _Syn(NamedTuple):
+    """The synaptic state a tick advances: ``NetState``'s fields of the
+    same names."""
+
+    weights: tuple
+    stp: tuple
+    stdp: tuple
 
 
 def _gen_spikes(static: NetStatic, params: NetParams, t0: int,
@@ -73,10 +97,61 @@ def _gen_spikes(static: NetStatic, params: NetParams, t0: int,
     return gen_u < rate * (static.dt / 1000.0)
 
 
+def _plasticity(static: NetStatic, params: NetParams, spikes_f32: torch.Tensor,
+                weights: tuple, stdp: tuple, dopamine) -> tuple[tuple, tuple]:
+    """Phase 6: every STDP-carrying projection's traces and weights advance
+    on this tick's spikes. CSR-stored projections update their fan-in rows
+    under their validity rows; pair-based STDP goes through
+    :func:`repro_torch.core.backend.stdp_dispatch` (the kernels), DA-STDP
+    through the plain steps with ``dopamine`` (0.0 when None)."""
+    if all(cfg is None for cfg in static.stdp):
+        return weights, stdp
+    new_w, new_tr = list(weights), list(stdp)
+    da = 0.0 if dopamine is None else dopamine
+    csr = static.csr_projs
+    for j, cfg in enumerate(static.stdp):
+        if cfg is None:
+            continue
+        spec = static.projections[j]
+        pre_sp, post_sp = spikes_f32[spec.pre_slice], spikes_f32[spec.post_slice]
+        mask = params.masks[j]
+        idx = params.proj_csr_idx[j] if j in csr else None
+        if cfg.tau_elig is None:
+            new_tr[j], new_w[j] = be.stdp_dispatch(static, cfg, stdp[j], weights[j],
+                                                   mask, pre_sp, post_sp, idx)
+        elif idx is None:
+            new_tr[j], new_w[j] = da_stdp_step(cfg, stdp[j], weights[j], mask, pre_sp,
+                                               post_sp, da, static.dt)
+        else:
+            new_tr[j], new_w[j] = da_stdp_step_csr(cfg, stdp[j], weights[j], idx, mask,
+                                                   pre_sp, post_sp, da, static.dt)
+    return tuple(new_w), tuple(new_tr)
+
+
+def _apply_homeostasis(static: NetStatic, weights: tuple, homeo: tuple,
+                       counts: torch.Tensor) -> tuple[tuple, tuple]:
+    """The slow timer: every projection carrying a homeostasis config scales
+    its weights from ``counts``, each neuron's spikes over the elapsed
+    segment of ``homeo_period`` ticks, with ``dt`` the segment in ms (so
+    the op's rate term is the segment's mean rate in Hz). Dense and CSR
+    storage compute the same ``w · scale[post]`` per synapse."""
+    chunk_ms = static.homeo_period * static.dt
+    csr = static.csr_projs
+    new_w, new_h = list(weights), list(homeo)
+    for j, cfg in enumerate(static.homeo):
+        if cfg is None:
+            continue
+        fn = homeostasis_step_csr if j in csr else homeostasis_step
+        new_h[j], new_w[j] = fn(cfg, homeo[j], weights[j],
+                                counts[static.projections[j].post_slice], chunk_ms)
+    return tuple(new_w), tuple(new_h)
+
+
 def _tick(static: NetStatic, params: NetParams, neurons: NeuronState,
           ring: torch.Tensor, t: int, packed, gen_row: torch.Tensor | None,
-          i_ext_row: torch.Tensor | None):
-    """One tick, updating ``ring`` in place; returns (neurons', spikes, i_syn)."""
+          i_ext_row: torch.Tensor | None, syn: _Syn, fanin, dopamine=None):
+    """One tick, updating ``ring`` in place; returns (neurons', spikes,
+    i_syn, syn')."""
     slot = t % static.ring_len
     i_syn = ring[slot, :, 0].to(f32, copy=True)
     ring[slot].zero_()
@@ -88,8 +163,12 @@ def _tick(static: NetStatic, params: NetParams, neurons: NeuronState,
         for g0, sz in static.gen_spans:
             spikes[g0:g0 + sz] = gen_row[off:off + sz]
             off += sz
-    be.propagate_packed(static, params, spikes, ring, t, packed)
-    return neurons, spikes, i_syn
+    spikes_f32 = spikes.to(f32)
+    stp = be.propagate_packed(static, params, spikes_f32, ring, t, packed,
+                              syn.weights, syn.stp, fanin)
+    weights, stdp = _plasticity(static, params, spikes_f32, syn.weights, syn.stdp,
+                                dopamine)
+    return neurons, spikes, i_syn, _Syn(weights, stp, stdp)
 
 
 def _check_gen_u(gen_u: torch.Tensor, shape, device) -> None:
@@ -100,9 +179,13 @@ def _check_gen_u(gen_u: torch.Tensor, shape, device) -> None:
 
 
 def step(static: NetStatic, params: NetParams, state: NetState,
-         i_ext: torch.Tensor | None = None, *, packed=None,
+         i_ext: torch.Tensor | None = None, *, dopamine=None, packed=None,
          gen_u: torch.Tensor | None = None) -> tuple[NetState, StepOutput]:
     """One 1 ms tick; returns (state', output) and leaves ``state`` as it was.
+
+    ``dopamine`` is the tick's scalar f32 dopamine concentration for
+    DA-STDP projections (0.0 when None). Homeostasis, a slow timer between
+    segments, is :func:`run`'s.
 
     ``gen_u`` holds this tick's uniforms for the generator spans
     (``[static.n_gen]`` f32). Without it the tick draws as the reference's
@@ -134,9 +217,11 @@ def step(static: NetStatic, params: NetParams, state: NetState,
     if fused:
         packed = packed.packed
     ring = state.ring.clone()
-    neurons, spikes, i_syn = _tick(static, params, state.neurons, ring,
-                                   state.t, packed, gen_row, i_ext)
-    new_state = state._replace(t=state.t + 1, key=key, neurons=neurons, ring=ring)
+    neurons, spikes, i_syn, syn = _tick(
+        static, params, state.neurons, ring, state.t, packed, gen_row, i_ext,
+        _Syn(state.weights, state.stp, state.stdp), None, dopamine)
+    new_state = state._replace(t=state.t + 1, key=key, neurons=neurons, ring=ring,
+                               **syn._asdict())
     return new_state, StepOutput(spikes=spikes, v=neurons.v.to(f32), i_syn=i_syn)
 
 
@@ -215,6 +300,7 @@ def run(
     n_steps: int,
     *,
     i_ext: torch.Tensor | None = None,
+    dopamine: torch.Tensor | None = None,
     record: str = "raster",
     record_v: bool = False,
     record_i: bool = False,
@@ -227,7 +313,12 @@ def run(
     ``outputs["spikes"]``; ``"none"`` records nothing. ``record_v`` /
     ``record_i`` add ``[T, N]`` f32 traces ``outputs["v"]`` /
     ``outputs["i_syn"]``. ``i_ext`` is an optional ``[T, N]`` external
-    current.
+    current, ``dopamine`` an optional ``[T]`` f32 dopamine schedule on the
+    net's device (one concentration per tick, for DA-STDP).
+
+    With ``static.homeo_period`` set, ``n_steps`` must be a multiple of it:
+    the weights of the projections carrying homeostasis scale at the end
+    of every segment of that many ticks.
 
     The generators draw from ``gen_u`` (``[T, n_gen]`` f32) when given.
     Otherwise run draws all ``[T, n_gen]`` uniforms up front: from
@@ -260,6 +351,15 @@ def run(
     if i_ext is not None and i_ext.shape != (n_steps, static.n):
         raise ValueError(f"i_ext must be [{n_steps}, {static.n}], got "
                          f"{tuple(i_ext.shape)}")
+    if dopamine is not None and (dopamine.shape != (n_steps,)
+                                 or dopamine.dtype != f32 or dopamine.device != dev):
+        raise ValueError(f"dopamine must be float32 [{n_steps}] on {dev}, got "
+                         f"{dopamine.dtype} {tuple(dopamine.shape)} on {dopamine.device}")
+    period = static.homeo_period if any(h is not None for h in static.homeo) else 0
+    if period and n_steps % period:
+        raise ValueError(
+            f"n_steps ({n_steps}) must be a multiple of the homeostasis period "
+            f"({period}): the slow timer fires at whole-segment boundaries")
 
     state = state._replace(key=key)
     if static.fused_kernel and i_ext is None:
@@ -267,24 +367,36 @@ def run(
                            be.assemble_fused(static, state.weights, params),
                            gen_spk, record, record_v, record_i)
     packed = be.assemble_packed(static, state.weights)
+    fanin = be.assemble_fanin(static, params)
     ring = state.ring.clone()
     neurons = state.neurons
+    syn = _Syn(state.weights, state.stp, state.stdp)
+    homeo = state.homeo
+    counts = torch.zeros((static.n,), dtype=torch.int32, device=dev) if period else None
     raster = (torch.empty((n_steps, static.n), dtype=torch.bool, device=dev)
               if record == "raster" else None)
     vs = torch.empty((n_steps, static.n), dtype=f32, device=dev) if record_v else None
     cur = torch.empty((n_steps, static.n), dtype=f32, device=dev) if record_i else None
     for i in range(n_steps):
-        neurons, spikes, i_syn = _tick(
+        neurons, spikes, i_syn, syn = _tick(
             static, params, neurons, ring, state.t + i, packed,
             None if gen_spk is None else gen_spk[i],
-            None if i_ext is None else i_ext[i])
+            None if i_ext is None else i_ext[i], syn, fanin,
+            None if dopamine is None else dopamine[i])
+        if counts is not None:
+            counts += spikes
+            if (i + 1) % period == 0:
+                weights, homeo = _apply_homeostasis(static, syn.weights, homeo, counts)
+                syn = syn._replace(weights=weights)
+                counts.zero_()
         if raster is not None:
             raster[i] = spikes
         if vs is not None:
             vs[i] = neurons.v
         if cur is not None:
             cur[i] = i_syn
-    final = state._replace(t=state.t + n_steps, neurons=neurons, ring=ring)
+    final = state._replace(t=state.t + n_steps, neurons=neurons, ring=ring,
+                           homeo=homeo, **syn._asdict())
     outputs = {}
     if raster is not None:
         outputs["spikes"] = raster

@@ -7,7 +7,7 @@ The builder mirrors how the paper's Synfire4 network is declared in CARLsim
   * params: read-only tensors (neuron parameters, masks, CSR index
     tables, generator rates)
   * state: mutable tensors (membrane state, **fp16 synaptic weights**,
-    delay ring, RNG key)
+    delay ring, RNG key, STP/STDP traces, homeostasis rates)
 
 and registers every allocation against a :class:`MemoryLedger` under the
 paper's seven load-step names, reproducing Tables III/IV byte for byte with
@@ -16,10 +16,10 @@ reference's calls, so a seed compiles to the same tables in both packages.
 
 The port compiles CUBA networks of IZH4/IZH9/LIF groups and Poisson
 generators with ``packed``, ``sparse`` or ``auto`` propagation, on the
-default backend or ``backend="fused"`` (one program per tick). Plasticity,
-STP, conductances, in-run monitors, watches, core partitioning and the
-``loop`` oracle raise ``NotImplementedError`` naming the ROADMAP item that
-brings them.
+default backend or ``backend="fused"`` (one program per tick), with
+plastic (STDP, DA-STDP, homeostasis) and STP projections. Conductances,
+in-run monitors, watches, core partitioning and the ``loop`` oracle raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -32,14 +32,26 @@ import torch
 
 from repro_torch.core import neurons as nrn
 from repro_torch.core import rng as threefry
+from repro_torch.core.plasticity import (
+    DASTDPState,
+    HomeostasisConfig,
+    STDPConfig,
+    STDPState,
+    init_da_stdp_state,
+    init_stdp_state,
+)
 from repro_torch.core.synapses import (
     CSRFanin,
     ProjectionParams,
     ProjectionSpec,
+    STPConfig,
+    STPState,
     build_bernoulli,
     build_csr_direct,
     build_fixed_fanin,
+    csr_layout,
     dense_to_csr,
+    init_stp_state,
 )
 from repro_torch.memory import MemoryLedger
 from repro_torch.precision import PrecisionPolicy, get_policy
@@ -109,12 +121,14 @@ class FusedPlan:
     by ``[P, Q]`` shape as the reference's plan does (the reference batches
     each class; the port adds the buckets one by one in plan order and
     reads no class), CSR buckets (``sparse_ids``) gather their fan-in rows,
-    and the distinct ``delays`` are the ring commits of the tick's
-    epilogue. ``kernel_ok`` marks a net
-    whose whole tick is the ``fused_tick`` kernel: IZH4 and generators
-    only, Euler, contiguous bucket spans (CUBA and no plasticity hold for
-    every net the port compiles). The reference's ``tile_q``/``tile_r``
-    size TPU VMEM buffers and have no counterpart here."""
+    and the distinct ``delays`` (those of the buckets and of the plastic
+    and STP projections) are the ring commits of the tick's epilogue.
+    ``kernel_ok`` marks a net whose whole tick is the ``fused_tick``
+    kernel: IZH4 and generators only, Euler, contiguous bucket spans, no
+    plastic or STP projection (the kernel knows nothing of learning), and
+    one ring channel (CUBA, the only kind the port compiles). The
+    reference's ``tile_q``/``tile_r`` size TPU VMEM buffers and have no
+    counterpart here."""
 
     delays: tuple[int, ...]  # sorted distinct ring delays committed per tick
     # ((p, q), bucket_ids): dense buckets sharing a [P, Q] shape.
@@ -123,8 +137,9 @@ class FusedPlan:
     kernel_ok: bool
 
 
-def _plan_fused(buckets: tuple[BucketSpec, ...], izh4_only: bool,
-                method: str) -> FusedPlan:
+def _plan_fused(buckets: tuple[BucketSpec, ...], specs: tuple[ProjectionSpec, ...],
+                izh4_only: bool, method: str) -> FusedPlan:
+    per_proj = [s for s in specs if s.plastic or s.stp is not None]
     classes: dict[tuple[int, int], list[int]] = {}
     sparse_ids: list[int] = []
     for bi, b in enumerate(buckets):
@@ -134,10 +149,11 @@ def _plan_fused(buckets: tuple[BucketSpec, ...], izh4_only: bool,
             classes.setdefault((b.p, b.q), []).append(bi)
     spans_ok = all(b.pre_start >= 0 and b.post_start >= 0 for b in buckets)
     return FusedPlan(
-        delays=tuple(sorted({b.delay_ms for b in buckets})),
+        delays=tuple(sorted({b.delay_ms for b in buckets}
+                            | {s.delay_ms for s in per_proj})),
         dense_classes=tuple((pq, tuple(ids)) for pq, ids in classes.items()),
         sparse_ids=tuple(sparse_ids),
-        kernel_ok=izh4_only and method == "euler" and spans_ok,
+        kernel_ok=izh4_only and method == "euler" and spans_ok and not per_proj,
     )
 
 
@@ -145,12 +161,20 @@ def _plan_fused(buckets: tuple[BucketSpec, ...], izh4_only: bool,
 class NetStatic:
     """Hashable network topology.
 
-    ``propagation``: ``"packed"`` lowers every projection to a dense
-    bucket matmul; ``"sparse"`` to a CSR fan-in gather bucket with weights
-    stored as ``[post, fanin]`` rows; ``"auto"`` picks per projection by
-    the bytes-per-tick cost model (:func:`_csr_wins`). With exactly
-    representable weights (the Synfire tables) all three give the same
-    raster bit for bit.
+    ``propagation``: ``"packed"`` lowers every non-plastic, non-STP
+    projection to a dense bucket matmul; ``"sparse"`` to a CSR fan-in
+    gather bucket with weights stored as ``[post, fanin]`` rows; ``"auto"``
+    picks per projection by the bytes-per-tick cost model
+    (:func:`_csr_wins`). With exactly representable weights (the Synfire
+    tables) all three give the same raster bit for bit.
+
+    Plastic and STP projections join no bucket: their weights change every
+    tick. Their drive and their weight updates run on fan-in rows over
+    ``NetParams.proj_csr_idx`` in every mode, so plastic runs stay bit
+    for bit across modes as STDP moves weights off the representable grid.
+    Plastic non-STP projections are stored as CSR rows (``plastic_csr``)
+    under ``"sparse"``, and under ``"auto"`` where the plastic cost model
+    picks it; STP projections always (``stp_csr``).
     """
 
     n: int
@@ -161,11 +185,18 @@ class NetStatic:
     policy_name: str
     groups: tuple[GroupSpec, ...]
     projections: tuple[ProjectionSpec, ...]
+    stdp: tuple[STDPConfig | None, ...] = ()  # aligned with projections
     propagation: str = "packed"
     izh4_only: bool = False  # IZH4 + generators only: the kernel fast path
     buckets: tuple[BucketSpec, ...] = ()
     backend: str | None = None  # None (per-phase kernels) | "fused"
     fused: FusedPlan | None = None  # backend="fused" only
+    plastic_csr: tuple[int, ...] = ()  # plastic non-STP projections stored CSR
+    stp_csr: tuple[int, ...] = ()  # STP projections (always stored CSR)
+    # Slow-timer homeostasis, aligned with projections (None: none); the
+    # engine applies it every ``homeo_period`` ticks between segments.
+    homeo: tuple[HomeostasisConfig | None, ...] = ()
+    homeo_period: int = 0
 
     @property
     def fused_kernel(self) -> bool:
@@ -185,16 +216,19 @@ class NetStatic:
 
     @property
     def csr_projs(self) -> frozenset[int]:
-        """Projection indices whose weights are stored CSR ``[post, fanin]``."""
-        return frozenset(m[0] for b in self.buckets if b.kind == "sparse"
-                         for m in b.members)
+        """Projection indices whose weights are stored CSR ``[post, fanin]``:
+        sparse-bucket members, ``plastic_csr`` and ``stp_csr``."""
+        return (frozenset(m[0] for b in self.buckets if b.kind == "sparse"
+                          for m in b.members)
+                | frozenset(self.plastic_csr) | frozenset(self.stp_csr))
 
 
 class NetParams(NamedTuple):
     neuron: nrn.NeuronParams
-    # Per projection: [pre, post] bool for dense-stored projections, None
-    # for CSR-stored ones (padding weights are exact zeros, so propagation
-    # never needs a mask).
+    # Per projection: [pre, post] bool for dense-stored projections, the
+    # [post, fanin] bool validity rows (the STDP mask) for plastic CSR-stored
+    # ones, None for other CSR-stored ones (padding weights are exact zeros,
+    # so propagation never needs a mask).
     masks: tuple[torch.Tensor | None, ...]
     gen_rate: torch.Tensor  # [N] Hz during the pulse (0 for non-generators)
     gen_until: torch.Tensor  # [N] ms pulse end
@@ -206,6 +240,12 @@ class NetParams(NamedTuple):
     bucket_pre_ids: tuple[torch.Tensor, ...] = ()
     bucket_post_ids: tuple[torch.Tensor, ...] = ()
     bucket_csr_idx: tuple[torch.Tensor | None, ...] = ()
+    # Per-projection fan-in index tables [post, fanin] (int16/int32, local
+    # to the pre group), aligned with static.projections: the CSR idx of
+    # every CSR-stored projection, and for dense-stored plastic ones a
+    # table whose padding is the sentinel n_pre (one past the pre group,
+    # where the drive gathers an appended zero) instead of 0; None else.
+    proj_csr_idx: tuple[torch.Tensor | None, ...] = ()
 
 
 class NetState(NamedTuple):
@@ -214,6 +254,11 @@ class NetState(NamedTuple):
     neurons: nrn.NeuronState
     ring: torch.Tensor  # [D, N, 1] storage dtype
     weights: tuple[torch.Tensor, ...]  # per projection, storage dtype
+    stp: tuple[STPState | None, ...] = ()  # per projection
+    stdp: tuple[STDPState | DASTDPState | None, ...] = ()  # per projection
+    # Per projection: homeostasis running-average rate [post] f32 (None
+    # where static.homeo[j] is None).
+    homeo: tuple[torch.Tensor | None, ...] = ()
 
 
 @dataclasses.dataclass
@@ -223,7 +268,12 @@ class _PendingConnect:
     fanin: int
     weight: float
     delay_ms: int
+    plastic: bool
+    stdp: STDPConfig | None
+    stp: STPConfig | None
+    da_modulated: bool
     mode: str = "fanin"  # "fanin" (exact) | "prob" (CARLsim random connect)
+    homeostasis: HomeostasisConfig | None = None
 
 
 def _to_device(tree, device: torch.device):
@@ -264,19 +314,22 @@ class NetworkBuilder:
         return name
 
     def connect(self, pre: str, post: str, *, fanin: int, weight: float,
-                delay_ms: int, plastic: bool = False, stdp=None, stp=None,
+                delay_ms: int, plastic: bool = False,
+                stdp: STDPConfig | None = None, stp: STPConfig | None = None,
                 da_modulated: bool = False, mode: str = "fanin",
-                homeostasis=None) -> None:
-        if plastic or stdp is not None or da_modulated:
-            raise _unported("plastic projections (STDP, DA-STDP)", "A7")
-        if stp is not None:
-            raise _unported("short-term plasticity", "A7")
-        if homeostasis is not None:
-            raise _unported("homeostasis", "A7")
+                homeostasis: HomeostasisConfig | None = None) -> None:
+        """Connect ``pre`` to ``post``. A projection with ``stdp`` or
+        ``homeostasis`` is plastic; ``da_modulated`` makes its STDP
+        dopamine-gated (``tau_elig`` defaults to 100 ms); ``stp`` adds
+        short-term plasticity."""
         if delay_ms < 1:
             raise ValueError("delay must be >= 1 ms (one tick)")
-        self._connects.append(
-            _PendingConnect(pre, post, fanin, weight, delay_ms, mode))
+        if homeostasis is not None and stp is not None:
+            raise ValueError("homeostasis on STP projections is unsupported")
+        self._connects.append(_PendingConnect(
+            pre, post, fanin, weight, delay_ms,
+            plastic or stdp is not None or homeostasis is not None,
+            stdp, stp, da_modulated, mode, homeostasis))
 
     def compile(
         self,
@@ -317,13 +370,20 @@ class NetworkBuilder:
         if propagation not in ("packed", "sparse", "auto"):
             raise ValueError(f"unknown propagation {propagation!r}")
         if conductances is not None:
-            raise _unported("conductance-based synapses (COBA)", "A7")
+            raise _unported("conductance-based synapses (COBA)", "A7, COBA")
         if monitors is not None:
             raise _unported("in-run monitors", "A6")
         if watches is not None:
             raise _unported("watchpoints", "A10")
-        if homeostasis_period:
-            raise _unported("homeostasis", "A7")
+        if any(c.homeostasis is not None for c in self._connects):
+            if homeostasis_period < 1:
+                raise ValueError(
+                    "connections carry homeostasis configs but "
+                    f"homeostasis_period is {homeostasis_period}: pass the "
+                    "slow-timer period (in ticks) to compile()")
+        elif homeostasis_period:
+            raise ValueError("homeostasis_period set but no connection has a "
+                             "HomeostasisConfig")
         if partition is not None:
             raise _unported("core partitioning", "A11")
         device = _resolve_device(device)
@@ -366,6 +426,8 @@ class NetworkBuilder:
         rng = np.random.default_rng(self._seed)
         specs: list[ProjectionSpec] = []
         projs: list[ProjectionParams | CSRFanin] = []
+        stdp_cfgs: list[STDPConfig | None] = []
+        homeo_cfgs: list[HomeostasisConfig | None] = []
         for c in self._connects:
             gpre = next(s for s in groups if s.name == c.pre)
             gpost = next(s for s in groups if s.name == c.post)
@@ -375,6 +437,7 @@ class NetworkBuilder:
                 post_start=gpost.start, post_size=gpost.size,
                 delay_ms=int(round(c.delay_ms / dt)),
                 receptor="inh" if c.weight < 0 else "exc",
+                plastic=c.plastic, stp=c.stp,
             )
             specs.append(spec)
             if gpre.size * gpost.size > _DENSE_BUILD_CELLS:
@@ -389,6 +452,11 @@ class NetworkBuilder:
                 builder = build_fixed_fanin if c.mode == "fanin" else build_bernoulli
                 projs.append(builder(rng, spec, c.fanin, c.weight,
                                      storage_dtype=wdt))
+            cfg = c.stdp
+            if cfg is not None and c.da_modulated and cfg.tau_elig is None:
+                cfg = dataclasses.replace(cfg, tau_elig=100.0)
+            stdp_cfgs.append(cfg)
+            homeo_cfgs.append(c.homeostasis)
         for j, p in enumerate(projs):
             if isinstance(p, CSRFanin):
                 fanin, n_syn = int(p.valid.shape[1]), int(p.valid.sum())
@@ -398,8 +466,19 @@ class NetworkBuilder:
             specs[j] = dataclasses.replace(specs[j], fanin=fanin, n_syn=n_syn)
         buckets, pre_ids, post_ids = _plan_buckets(
             tuple(specs), pack_density, propagation)
-        csr_set = frozenset(m[0] for b in buckets if b.kind == "sparse"
-                            for m in b.members)
+        # Plastic non-STP projections join no bucket, but their storage
+        # flips to CSR fan-in rows when forced ("sparse") or when the
+        # plastic cost model wins ("auto"); STP projections are CSR-stored
+        # in every mode (the per-pre u·x scale composes with the gather).
+        plastic_csr = tuple(
+            j for j, s in enumerate(specs)
+            if s.plastic and s.stp is None
+            and (propagation == "sparse"
+                 or (propagation == "auto" and _csr_wins(s))))
+        stp_csr = tuple(j for j, s in enumerate(specs) if s.stp is not None)
+        csr_set = (frozenset(m[0] for b in buckets if b.kind == "sparse"
+                             for m in b.members)
+                   | frozenset(plastic_csr) | frozenset(stp_csr))
         for j, p in enumerate(projs):
             if isinstance(p, CSRFanin) and j not in csr_set:
                 raise ValueError(
@@ -416,23 +495,43 @@ class NetworkBuilder:
         bucket_csr_idx = tuple(
             csr[b.members[0][0]].idx if b.kind == "sparse" else None
             for b in buckets)
-        masks = tuple(None if j in csr_set else p.mask
-                      for j, p in enumerate(projs))
+        # Per-projection fan-in tables: CSR-stored projections alias their
+        # CSR idx; dense-stored plastic ones get a sentinel-padded table, so
+        # the drive and the updates run the same row arithmetic on the dense
+        # rectangle (what keeps plastic runs bit for bit across modes).
+        proj_csr_idx: list[torch.Tensor | None] = []
+        for j, s in enumerate(specs):
+            if j in csr_set:
+                proj_csr_idx.append(csr[j].idx)
+            elif s.plastic and s.stp is None:
+                idx, valid = csr_layout(projs[j].mask.numpy(), fanin=s.fanin)
+                sent = np.where(valid, idx, s.pre_size)
+                idt = np.int16 if s.pre_size <= np.iinfo(np.int16).max else np.int32
+                proj_csr_idx.append(torch.from_numpy(np.ascontiguousarray(
+                    sent.astype(idt))))
+            else:
+                proj_csr_idx.append(None)
+        masks = tuple(
+            (torch.from_numpy(csr[j].valid) if s.plastic else None) if j in csr_set
+            else p.mask for j, (s, p) in enumerate(zip(specs, projs)))
         weights = tuple(csr[j].weight if j in csr_set else p.weight
                         for j, p in enumerate(projs))
         with ledger.stage("3. Conn. Info"):
             ledger.register("masks", tuple(m for m in masks if m is not None))
-            if csr:
-                ledger.register("csr.indices", tuple(c.idx for c in csr.values()))
+            idx_tables = tuple(t for t in proj_csr_idx if t is not None)
+            if idx_tables:
+                ledger.register("csr.indices", idx_tables)
 
-        # 4. Syn. State: weights (the fp16 payload; CSR rows for sparse
-        # projections) and the delay ring.
+        # 4. Syn. State: weights (the fp16 payload; CSR rows for CSR-stored
+        # projections), the delay ring, STP state.
         ring_len = max((s.delay_ms for s in specs), default=1) + 1
         ring = torch.zeros((ring_len, n, 1), dtype=sdt)
+        stp_states = tuple(init_stp_state(s.stp, s.pre_size, sdt)
+                           if s.stp is not None else None for s in specs)
         with ledger.stage("4. Syn. State"):
             ledger.register("weights", weights)
             ledger.register("ring", ring)
-            ledger.register("stp", ())
+            ledger.register("stp", tuple(s for s in stp_states if s is not None))
 
         # 5. Neuron State and 6. Group State.
         neuron_params = nrn.concat_params([p for _, p, _ in self._groups])
@@ -442,10 +541,24 @@ class NetworkBuilder:
         with ledger.stage("6. Group State"):
             ledger.register("neuron.params", neuron_params)
 
-        # 7. Auxiliary Data: plasticity traces (none in this slice) and the
-        # raster buffer a monitor window of `monitor_ms_hint` ticks needs.
+        # 7. Auxiliary Data: plasticity traces (DA eligibility on the fan-in
+        # rows of CSR-stored projections), homeostasis rates, and the raster
+        # buffer a monitor window of `monitor_ms_hint` ticks needs.
+        stdp_states = tuple(
+            None if cfg is None
+            else init_da_stdp_state(s.pre_size, s.post_size, sdt,
+                                    fanin=s.fanin if j in csr_set else None)
+            if cfg.tau_elig is not None
+            else init_stdp_state(s.pre_size, s.post_size)
+            for j, (s, cfg) in enumerate(zip(specs, stdp_cfgs)))
+        homeo_states = tuple(
+            None if h is None else torch.zeros((s.post_size,), dtype=torch.float32)
+            for s, h in zip(specs, homeo_cfgs))
         with ledger.stage("7. Auxiliary Data"):
-            ledger.register("stdp.traces", ())
+            ledger.register("stdp.traces", tuple(s for s in stdp_states if s is not None))
+            if any(h is not None for h in homeo_states):
+                ledger.register("homeo.avg_rate",
+                                tuple(h for h in homeo_states if h is not None))
             if monitor_ms_hint:
                 ledger.register("monitor.spikes", torch.empty(
                     (monitor_ms_hint, n), dtype=torch.bool, device="meta"))
@@ -453,22 +566,25 @@ class NetworkBuilder:
         codes = neuron_params.model.numpy()
         izh4_only = bool(np.all((codes == int(nrn.NeuronModel.GENERATOR))
                                 | (codes == int(nrn.NeuronModel.IZH4))))
-        fused = (_plan_fused(buckets, izh4_only, method)
+        fused = (_plan_fused(buckets, tuple(specs), izh4_only, method)
                  if backend == "fused" else None)
         static = NetStatic(
             n=n, ring_len=ring_len, dt=dt, substeps=substeps, method=method,
             policy_name=policy.name, groups=groups, projections=tuple(specs),
-            propagation=propagation, izh4_only=izh4_only, buckets=buckets,
-            backend=backend, fused=fused,
+            stdp=tuple(stdp_cfgs), propagation=propagation, izh4_only=izh4_only,
+            buckets=buckets, backend=backend, fused=fused, plastic_csr=plastic_csr,
+            stp_csr=stp_csr, homeo=tuple(homeo_cfgs),
+            homeo_period=int(homeostasis_period),
         )
         params = NetParams(
             neuron=neuron_params, masks=masks, gen_rate=gen_rate,
             gen_until=gen_until, gen_rate_after=gen_rate_after,
             bucket_pre_ids=pre_ids, bucket_post_ids=post_ids,
-            bucket_csr_idx=bucket_csr_idx,
+            bucket_csr_idx=bucket_csr_idx, proj_csr_idx=tuple(proj_csr_idx),
         )
         state0 = NetState(t=0, key=key, neurons=nstate, ring=ring,
-                          weights=weights)
+                          weights=weights, stp=stp_states, stdp=stdp_states,
+                          homeo=homeo_states)
         return CompiledNetwork(static=static,
                                params=_to_device(params, device),
                                state0=_to_device(state0, device),
@@ -478,7 +594,8 @@ class NetworkBuilder:
 # How many × fewer bytes the CSR layout must touch per tick before a
 # projection is auto-assigned the sparse gather: dense reads 4·pre·post
 # bytes (the hoisted f32 image), CSR reads ≤ 8·post·fanin (index + hoisted
-# f32 weight).
+# f32 weight). A plastic projection adds its STDP traffic, about 5 B per
+# cell on either side (weight read and write, mask byte).
 _SPARSE_ADVANTAGE = 4.0
 
 # Above this many pre×post cells a projection skips the dense host-side
@@ -488,8 +605,12 @@ _DENSE_BUILD_CELLS = 1 << 25
 
 def _csr_wins(spec: ProjectionSpec) -> bool:
     """Cost model: bytes touched per tick, dense image vs CSR fan-in rows."""
-    dense_bytes = 4 * spec.pre_size * spec.post_size
-    csr_bytes = 8 * spec.post_size * max(spec.fanin, 1)
+    area_dense = spec.pre_size * spec.post_size
+    area_csr = spec.post_size * max(spec.fanin, 1)
+    dense_bytes, csr_bytes = 4 * area_dense, 8 * area_csr
+    if spec.plastic:
+        dense_bytes += 5 * area_dense
+        csr_bytes += 5 * area_csr
     return dense_bytes >= _SPARSE_ADVANTAGE * csr_bytes
 
 
@@ -498,9 +619,9 @@ def _plan_buckets(
     propagation: str = "packed",
 ) -> tuple[tuple[BucketSpec, ...], tuple[torch.Tensor, ...],
            tuple[torch.Tensor, ...]]:
-    """Compile-time propagation plan.
+    """Compile-time propagation plan for non-plastic, non-STP projections.
 
-    Each projection goes sparse (one ``kind="sparse"`` bucket) when forced
+    Each such projection goes sparse (one ``kind="sparse"`` bucket) when forced
     by ``"sparse"`` or picked by ``"auto"``'s cost model; the rest are
     grouped by delay and each group lowers to ONE block-dense matmul over
     the sorted union of its pre/post ranges when the member blocks fill at
@@ -511,6 +632,8 @@ def _plan_buckets(
     grouped: dict[tuple[int, int], list[int]] = {}
     sparse_js: list[int] = []
     for j, s in enumerate(specs):
+        if s.plastic or s.stp is not None:
+            continue
         if propagation == "sparse" or (propagation == "auto" and _csr_wins(s)):
             sparse_js.append(j)
         else:

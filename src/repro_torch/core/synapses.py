@@ -1,4 +1,5 @@
-"""Synaptic projections: dense delay-bucketed weights and CSR fan-in rows.
+"""Synaptic projections: dense delay-bucketed weights and CSR fan-in rows,
+plus short-term plasticity (STP).
 
 CARLsim stores an AoS synapse list and walks it per spike. Here each
 projection is either a dense ``[n_pre, n_post]`` weight matrix in the
@@ -11,6 +12,9 @@ Connectivity is drawn host-side with a seeded numpy Generator, with the
 reference's exact calls in the reference's order, so a seed gives the
 same network in both packages. Weights round f32 → storage dtype to
 nearest even, as the reference's ``asarray`` does.
+
+Short-term plasticity follows CARLsim's Tsodyks–Markram form with
+per-presynaptic-neuron (u, x) state.
 """
 from __future__ import annotations
 
@@ -24,12 +28,26 @@ __all__ = [
     "CSRFanin",
     "ProjectionSpec",
     "ProjectionParams",
+    "STPConfig",
+    "STPState",
     "build_bernoulli",
     "build_csr_direct",
     "build_fixed_fanin",
     "csr_layout",
+    "csr_to_dense",
     "dense_to_csr",
+    "init_stp_state",
+    "stp_update",
 ]
+
+
+@dataclasses.dataclass(frozen=True)
+class STPConfig:
+    """Tsodyks–Markram short-term plasticity (CARLsim ``setSTP``)."""
+
+    u0: float = 0.45  # utilization increment U
+    tau_f: float = 50.0  # facilitation time constant (ms)
+    tau_d: float = 750.0  # depression time constant (ms)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +67,8 @@ class ProjectionSpec:
     post_size: int
     delay_ms: int
     receptor: str  # "exc" or "inh"
+    plastic: bool = False
+    stp: STPConfig | None = None
     fanin: int = 0  # realized max in-degree (compile-time)
     n_syn: int = 0  # realized synapse count (compile-time)
 
@@ -64,6 +84,11 @@ class ProjectionSpec:
 class ProjectionParams(NamedTuple):
     weight: torch.Tensor  # [pre, post] storage dtype, signed
     mask: torch.Tensor  # [pre, post] bool: which synapses exist
+
+
+class STPState(NamedTuple):
+    u: torch.Tensor  # [pre] facilitation
+    x: torch.Tensor  # [pre] depression resource
 
 
 def _weights(w: np.ndarray, storage_dtype: torch.dtype) -> torch.Tensor:
@@ -187,3 +212,43 @@ def dense_to_csr(mask: torch.Tensor, weight: torch.Tensor, *,
     return CSRFanin(idx=_idx_table(idx, m.shape[0]),
                     weight=_weights(wq, storage_dtype or weight.dtype),
                     valid=valid)
+
+
+def csr_to_dense(csr: CSRFanin, n_pre: int) -> np.ndarray:
+    """Scatter CSR fan-in rows back to the dense ``[pre, post]`` f32 image
+    (host numpy): the inverse of :func:`dense_to_csr` up to the exact zeros
+    on padded cells."""
+    idx = csr.idx.cpu().numpy()
+    w = csr.weight.cpu().to(torch.float32).numpy()
+    valid = (csr.valid.cpu().numpy() if isinstance(csr.valid, torch.Tensor)
+             else np.asarray(csr.valid))
+    n_post, fanin = idx.shape
+    out = np.zeros((n_pre, n_post), np.float32)
+    cols = np.broadcast_to(np.arange(n_post)[:, None], (n_post, fanin))
+    out[idx[valid], cols[valid]] = w[valid]
+    return out
+
+
+def stp_update(cfg: STPConfig, state: STPState, pre_spikes: torch.Tensor,
+               dt: float) -> STPState:
+    """Tsodyks–Markram: on a spike u += U(1−u), then x −= u⁺x; continuous
+    recovery du/dt = −u/τ_F, dx/dt = (1−x)/τ_D. The divisions divide by
+    f32 tensors on the state's device (PyTorch's CUDA division by a Python
+    scalar multiplies by its reciprocal, which rounds differently)."""
+    s = pre_spikes.to(torch.float32)
+    u = state.u.to(torch.float32)
+    x = state.x.to(torch.float32)
+    dev = u.device
+    tau_f = torch.full((), cfg.tau_f, dtype=torch.float32, device=dev)
+    tau_d = torch.full((), cfg.tau_d, dtype=torch.float32, device=dev)
+    u_plus = u + cfg.u0 * (1.0 - u) * s
+    x_minus = x - u_plus * x * s
+    u_rec = u_plus - dt * u_plus / tau_f
+    x_rec = x_minus + dt * (1.0 - x_minus) / tau_d
+    return STPState(u=u_rec.to(state.u.dtype), x=x_rec.to(state.x.dtype))
+
+
+def init_stp_state(cfg: STPConfig, n_pre: int,
+                   dtype: torch.dtype = torch.float32) -> STPState:
+    return STPState(u=torch.full((n_pre,), cfg.u0, dtype=dtype),
+                    x=torch.ones((n_pre,), dtype=dtype))

@@ -13,16 +13,18 @@ import torch
 from repro_torch.kernels import fused_tick as _fused
 from repro_torch.kernels import izh_update as _izh
 from repro_torch.kernels import ref
+from repro_torch.kernels import stdp_gather as _stdp_gather
+from repro_torch.kernels import stdp_update as _stdp_update
 from repro_torch.kernels import syn_gather as _gather
 from repro_torch.kernels import syn_matmul as _matmul
 
 __all__ = ["LAUNCHES", "reset_launches", "izh4_update", "syn_matmul",
-           "syn_gather", "FusedTickRun"]
+           "syn_gather", "FusedTickRun", "stdp_update", "stdp_gather"]
 
 f32 = torch.float32
 
 LAUNCHES: dict[str, int] = {"izh4_update": 0, "syn_matmul": 0, "syn_gather": 0,
-                            "fused_tick": 0}
+                            "fused_tick": 0, "stdp_update": 0, "stdp_gather": 0}
 
 
 def reset_launches() -> None:
@@ -127,6 +129,77 @@ def syn_gather(spikes, idx, w):
     if out.numel():
         _gather.launch(spikes, idx, w, out)
         LAUNCHES["syn_gather"] += 1
+    return out
+
+
+def _check_stdp_vectors(name: str, n_pre: int, n_post: int, pre_trace, post_trace,
+                        pre_spikes, post_spikes) -> None:
+    if any(t.shape != (n_pre,) for t in (pre_trace, pre_spikes)) or any(
+            t.shape != (n_post,) for t in (post_trace, post_spikes)):
+        raise ValueError(f"{name}: pre_trace/pre_spikes must be [{n_pre}] and "
+                         f"post_trace/post_spikes [{n_post}]")
+    if any(t.dtype != f32 for t in (pre_trace, post_trace, pre_spikes, post_spikes)):
+        raise ValueError(f"{name}: traces and spikes must be float32")
+
+
+def stdp_update(w, mask, pre_trace, post_trace, pre_spikes, post_spikes, *,
+                a_plus: float, a_minus: float, w_min: float, w_max: float):
+    """Dense pair-based STDP: ``w [P, Q]`` (fp16 or f32 storage) and its
+    bool ``mask`` → the updated weights in w's dtype
+    (:func:`repro_torch.kernels.ref.stdp_update_ref`); traces and spikes
+    ``[P]``/``[Q]`` f32, spikes as 0.0/1.0."""
+    if w.dim() != 2 or mask.shape != w.shape or mask.dtype != torch.bool:
+        raise ValueError(f"stdp_update: w {tuple(w.shape)} must be [P, Q] with a "
+                         f"bool mask of its shape, got {mask.dtype} {tuple(mask.shape)}")
+    if w.dtype not in _stdp_update.STORAGE_DTYPES:
+        raise ValueError(f"stdp_update: w dtype {w.dtype} not in "
+                         f"{_stdp_update.STORAGE_DTYPES}")
+    _check_stdp_vectors("stdp_update", *w.shape, pre_trace, post_trace, pre_spikes,
+                        post_spikes)
+    kw = dict(a_plus=a_plus, a_minus=a_minus, w_min=w_min, w_max=w_max)
+    if not _on_card("stdp_update", w, mask, pre_trace, post_trace, pre_spikes,
+                    post_spikes):
+        return ref.stdp_update_ref(w, mask, pre_trace, post_trace, pre_spikes,
+                                   post_spikes, **kw)
+    out = torch.empty_like(w)
+    if out.numel():
+        _stdp_update.launch(w, mask, pre_trace, post_trace, pre_spikes, post_spikes,
+                            out, **kw)
+        LAUNCHES["stdp_update"] += 1
+    return out
+
+
+def stdp_gather(w, idx, valid, pre_trace, post_trace, pre_spikes, post_spikes, *,
+                a_plus: float, a_minus: float, w_min: float, w_max: float):
+    """Pair-based STDP on CSR fan-in rows: ``w``, ``idx`` (int16/int32) and
+    ``valid`` (bool) ``[Q, F]`` → the updated rows in w's dtype
+    (:func:`repro_torch.kernels.ref.stdp_gather_ref`); pre traces and
+    spikes ``[P]``, post ones ``[Q]``, f32.
+
+    Every index must lie in ``[0, P)``: an index outside raises
+    ``IndexError`` on the CPU and writes NaN into its cell on the card,
+    where a check would cost a device-to-host sync."""
+    if w.dim() != 2 or idx.shape != w.shape or valid.shape != w.shape:
+        raise ValueError(f"stdp_gather: w {tuple(w.shape)}, idx {tuple(idx.shape)} "
+                         f"and valid {tuple(valid.shape)} must share one [Q, F] shape")
+    if w.dtype not in _stdp_gather.STORAGE_DTYPES:
+        raise ValueError(f"stdp_gather: w dtype {w.dtype} not in "
+                         f"{_stdp_gather.STORAGE_DTYPES}")
+    if idx.dtype not in _stdp_gather.INDEX_DTYPES or valid.dtype != torch.bool:
+        raise ValueError(f"stdp_gather: idx must be int16/int32 and valid bool, got "
+                         f"{idx.dtype}/{valid.dtype}")
+    _check_stdp_vectors("stdp_gather", pre_trace.shape[0], w.shape[0], pre_trace,
+                        post_trace, pre_spikes, post_spikes)
+    kw = dict(a_plus=a_plus, a_minus=a_minus, w_min=w_min, w_max=w_max)
+    if not _on_card("stdp_gather", w, idx, valid, pre_trace, post_trace, pre_spikes,
+                    post_spikes):
+        return ref.stdp_gather_ref(w, idx, valid, pre_trace, post_trace, pre_spikes,
+                                   post_spikes, **kw)
+    out = torch.empty_like(w)
+    if out.numel():
+        _stdp_gather.launch(w, idx, valid, pre_trace, post_trace, pre_spikes,
+                            post_spikes, out, **kw)
+        LAUNCHES["stdp_gather"] += 1
     return out
 
 

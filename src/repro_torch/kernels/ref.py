@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["izh4_ref", "syn_matmul_ref", "syn_gather_ref", "fused_tick_ref"]
+__all__ = ["izh4_ref", "syn_matmul_ref", "syn_gather_ref", "fused_tick_ref",
+           "stdp_update_ref", "stdp_gather_ref"]
 
 f32 = torch.float32
 
@@ -44,15 +45,19 @@ def syn_matmul_ref(x, w):
     return torch.matmul(x.to(f32), w.to(f32))
 
 
+def _check_indices(what: str, idx, n: int) -> None:
+    if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= n):
+        raise IndexError(f"{what}: indices span [{int(idx.min())}, "
+                         f"{int(idx.max())}], outside [0, {n})")
+
+
 def syn_gather_ref(spikes, idx, w):
     """CSR fan-in drive: ``out[q] = Σ_k spikes[idx[q, k]] * w[q, k]``.
 
     Padded entries carry weight +0.0, so they contribute an exact +0.0.
     Raises ``IndexError`` for an index outside ``[0, P)``.
     """
-    if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= spikes.shape[0]):
-        raise IndexError(f"syn_gather: indices span [{int(idx.min())}, "
-                         f"{int(idx.max())}], outside [0, {spikes.shape[0]})")
+    _check_indices("syn_gather", idx, spikes.shape[0])
     g = spikes.to(f32)[idx.to(torch.int64)]
     return (g * w.to(f32)).sum(dim=1)
 
@@ -96,3 +101,31 @@ def fused_tick_ref(v, u, ring, gen_row, is_gen, a, b, c, d, t: int, *,
     for dly in sorted(acc):
         ring[(t + dly) % ring_len] += acc[dly].to(ring.dtype)
     return v2, u2, spikes, ring, i_syn
+
+
+def stdp_update_ref(w, mask, pre_trace, post_trace, pre_spikes, post_spikes, *,
+                    a_plus: float, a_minus: float, w_min: float, w_max: float):
+    """Dense pair-based STDP on ``w [P, Q]`` (storage dtype): ``w + a⁺·(pre_t
+    ⊗ post_s) − a⁻·(pre_s ⊗ post_t)``, clipped to ``[w_min, w_max]``,
+    +0.0 outside ``mask``, cast back to w's dtype."""
+    wf = w.to(f32)
+    ltp = a_plus * torch.outer(pre_trace.to(f32), post_spikes.to(f32))
+    ltd = a_minus * torch.outer(pre_spikes.to(f32), post_trace.to(f32))
+    wf = torch.clamp(wf + ltp - ltd, w_min, w_max)
+    return torch.where(mask, wf, 0.0).to(w.dtype)
+
+
+def stdp_gather_ref(w, idx, valid, pre_trace, post_trace, pre_spikes,
+                    post_spikes, *, a_plus: float, a_minus: float,
+                    w_min: float, w_max: float):
+    """Pair-based STDP on CSR fan-in rows (``w``/``idx``/``valid`` [Q, F]):
+    ``dw[q, k] = a⁺·(pre_t[idx[q, k]]·post_s[q]) −
+    a⁻·(pre_s[idx[q, k]]·post_t[q])``, clipped, +0.0 where not ``valid``,
+    cast back. Raises ``IndexError`` for an index outside ``[0, P)``."""
+    _check_indices("stdp_gather", idx, pre_trace.shape[0])
+    ii = idx.to(torch.int64)
+    post_s = post_spikes.to(f32)[:, None]
+    ltp = a_plus * (pre_trace.to(f32)[ii] * post_s)
+    ltd = a_minus * (pre_spikes.to(f32)[ii] * post_trace.to(f32)[:, None])
+    wf = torch.clamp(w.to(f32) + ltp - ltd, w_min, w_max)
+    return torch.where(valid, wf, 0.0).to(w.dtype)

@@ -1,8 +1,12 @@
 """The port's kernel wrappers on the CPU (their plain PyTorch versions)
 against the reference: eager ``repro.kernels.ref`` bit for bit, and the
 Pallas kernels in interpret mode with the tolerances of
-``tests/test_kernels.py``. Inputs are made with numpy from a seed and
-handed to both packages."""
+``tests/test_kernels.py`` (bit for bit for the two STDP kernels, which
+reduce nothing). Inputs are made with numpy from a seed and handed to both
+packages."""
+import functools
+
+import jax  # noqa: E402
 import numpy as np
 import pytest
 
@@ -12,6 +16,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.izh_update import izh4_update as pallas_izh4  # noqa: E402
+from repro.kernels.stdp_gather import stdp_gather as pallas_stdp_gather  # noqa: E402
+from repro.kernels.stdp_update import stdp_update as pallas_stdp_update  # noqa: E402
 from repro.kernels.syn_gather import syn_gather as pallas_gather  # noqa: E402
 from repro.kernels.syn_matmul import syn_matmul as pallas_matmul  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
@@ -192,6 +198,146 @@ class TestSynGather:
             ops.syn_gather(torch.ones(8), idx, torch.ones((2, 3)))
 
 
+def _opt0(fn, *args):
+    """``fn`` jitted and compiled without XLA CPU's backend optimizations,
+    which contract mul+add into FMAs (eager PyTorch and the CUDA kernels,
+    their rounding pinned, never do)."""
+    jargs = [jnp.asarray(a) for a in args]
+    return jax.jit(fn).lower(*jargs).compile(
+        compiler_options={"xla_backend_optimization_level": 0})(*jargs)
+
+
+STDP_KW = dict(a_plus=0.01, a_minus=0.012, w_min=0.0, w_max=5.0)
+
+
+def _stdp_vectors(rng, p, q):
+    return (rng.random(p).astype(np.float32) * 2, rng.random(q).astype(np.float32) * 2,
+            (rng.random(p) < 0.2).astype(np.float32),
+            (rng.random(q) < 0.2).astype(np.float32))
+
+
+def _assert_bitwise_vs_pallas(out, pallas_fn, args, what):
+    """``out`` equals the Pallas kernel in interpret mode compiled at
+    optimization level 0, bit for bit; its distance from the default
+    compile (FMA-contracted in fp32) is printed."""
+    want = np.asarray(_opt0(pallas_fn, *args), np.float32)
+    got = out.float().numpy()
+    np.testing.assert_array_equal(got, want, err_msg=what)
+    default = np.asarray(pallas_fn(*[jnp.asarray(a) for a in args]), np.float32)
+    print(f"{what}: {int((got != default).sum())} of {got.size} cells differ from "
+          "the default-compiled Pallas kernel")
+
+
+class TestSTDPUpdate:
+    @pytest.mark.parametrize("pq", [(50, 60), (200, 200), (1000, 300), (37, 113)])
+    @pytest.mark.parametrize("wdtype", ["fp16", "fp32"])
+    def test_bitwise_vs_pallas_interpret(self, pq, wdtype):
+        p, q = pq
+        rng = np.random.default_rng(1)
+        mask = rng.random((p, q)) < 0.3
+        npd = DTYPES[wdtype][0]
+        w = np.where(mask, rng.normal(1.0, 0.4, (p, q)), 0.0).astype(npd)
+        args = [w, mask, *_stdp_vectors(rng, p, q)]
+        out = ops.stdp_update(*map(torch.from_numpy, args), **STDP_KW)
+        assert out.shape == (p, q) and out.dtype == DTYPES[wdtype][1]
+        _assert_bitwise_vs_pallas(out, functools.partial(
+            pallas_stdp_update, interpret=True, **STDP_KW), args,
+            f"stdp_update {p}x{q} {wdtype}")
+        np.testing.assert_array_equal(out.float().numpy(), np.asarray(
+            _opt0(functools.partial(jref.stdp_update_ref, **STDP_KW), *args), np.float32))
+
+    def test_clip_and_mask(self):
+        """Weights pushed past either bound land on it; masked cells hold +0.0."""
+        w = torch.tensor([[4.99, 0.001], [1.0, 2.0]])
+        mask = torch.tensor([[True, True], [False, True]])
+        out = ops.stdp_update(w, mask, torch.tensor([10.0, 0.0]), torch.tensor([0.0, 10.0]),
+                              torch.tensor([0.0, 1.0]), torch.tensor([1.0, 0.0]),
+                              **STDP_KW)
+        np.testing.assert_array_equal(out.numpy(), np.array([[5.0, 0.001], [0.0, 1.88]],
+                                                            np.float32))
+
+    def test_rejects_bad_operands(self):
+        ones = torch.ones(4)
+        with pytest.raises(ValueError, match="bool mask"):
+            ops.stdp_update(torch.ones((4, 4)), torch.ones((4, 4)), ones, ones, ones,
+                            ones, **STDP_KW)
+        with pytest.raises(ValueError, match="w dtype"):
+            ops.stdp_update(torch.ones((4, 4), dtype=torch.bfloat16),
+                            torch.ones((4, 4), dtype=torch.bool), ones, ones, ones, ones,
+                            **STDP_KW)
+        with pytest.raises(ValueError, match="float32"):
+            ops.stdp_update(torch.ones((4, 4)), torch.ones((4, 4), dtype=torch.bool),
+                            ones, ones, ones.bool(), ones, **STDP_KW)
+
+
+class TestSTDPGather:
+    """CSR-row STDP: every op is elementwise per row cell (the gathers read,
+    never reduce), so the port matches the Pallas kernel bit for bit."""
+
+    def _case(self, seed, p, q, f, wdtype, idx_dtype):
+        rng = np.random.default_rng(seed)
+        idx = np.sort(rng.integers(0, p, (q, f)), axis=1)
+        lens = rng.integers(0, f + 1, q)
+        valid = np.arange(f)[None, :] < lens[:, None]
+        idx = np.where(valid, idx, 0).astype(idx_dtype)
+        w = np.where(valid, rng.normal(1.0, 0.4, (q, f)), 0.0).astype(DTYPES[wdtype][0])
+        pre_t, post_t, pre_s, post_s = _stdp_vectors(rng, p, q)
+        return [w, idx, valid, pre_t, post_t, pre_s, post_s]
+
+    @pytest.mark.parametrize("pqf", [
+        (200, 200, 80),    # Synfire4 sparse chain projection
+        (2000, 2000, 90),  # Synfire4x10 chain projection
+        (50, 300, 7),
+        (130, 257, 129),
+        (40, 10, 15),
+    ])
+    @pytest.mark.parametrize("wdtype", ["fp16", "fp32"])
+    @pytest.mark.parametrize("idx_dtype", ["int16", "int32"])
+    def test_bitwise_vs_pallas_interpret(self, pqf, wdtype, idx_dtype):
+        p, q, f = pqf
+        args = self._case(0, p, q, f, wdtype, idx_dtype)
+        out = ops.stdp_gather(*map(torch.from_numpy, args), **STDP_KW)
+        assert out.shape == (q, f) and out.dtype == DTYPES[wdtype][1]
+        _assert_bitwise_vs_pallas(out, functools.partial(
+            pallas_stdp_gather, interpret=True, **STDP_KW), args,
+            f"stdp_gather {pqf} {wdtype} {idx_dtype}")
+        np.testing.assert_array_equal(out.float().numpy(), np.asarray(
+            _opt0(functools.partial(jref.stdp_gather_ref, **STDP_KW), *args), np.float32))
+
+    @pytest.mark.parametrize("wdtype", ["fp16", "fp32"])
+    def test_padding_stays_exact_zero(self, wdtype):
+        """Padded cells gather pre_trace[0] for their terms, and the
+        validity rows pin them at +0.0 (else CSR rows drift from their
+        dense twins)."""
+        args = self._case(3, 64, 48, 20, wdtype, "int16")
+        args[3] = np.full(64, 5.0, np.float32)  # a large pre trace everywhere
+        args[6] = np.ones(48, np.float32)  # every post neuron spikes: LTP
+        out = ops.stdp_gather(*map(torch.from_numpy, args), **STDP_KW).float().numpy()
+        assert np.all(out[~args[2]] == 0.0)
+        assert np.all(out[args[2]] > args[0][args[2]].astype(np.float32))
+
+    @pytest.mark.parametrize("bad", [-1, 8])
+    @pytest.mark.parametrize("idx_dtype", [torch.int16, torch.int32])
+    def test_index_outside_pre_raises_on_cpu(self, bad, idx_dtype):
+        idx = torch.tensor([[1, 3, 0], [2, bad, 0]], dtype=idx_dtype)
+        valid = torch.ones((2, 3), dtype=torch.bool)
+        with pytest.raises(IndexError, match=r"outside \[0, 8\)"):
+            ops.stdp_gather(torch.ones((2, 3)), idx, valid, torch.ones(8), torch.ones(2),
+                            torch.ones(8), torch.ones(2), **STDP_KW)
+
+    def test_rejects_bad_operands(self):
+        w = torch.ones((2, 3))
+        idx = torch.zeros((2, 3), dtype=torch.int16)
+        valid = torch.ones((2, 3), dtype=torch.bool)
+        pre, post = torch.ones(8), torch.ones(2)
+        with pytest.raises(ValueError, match="one \\[Q, F\\] shape"):
+            ops.stdp_gather(w, idx[:, :2], valid, pre, post, pre, post, **STDP_KW)
+        with pytest.raises(ValueError, match="int16/int32"):
+            ops.stdp_gather(w, idx.long(), valid, pre, post, pre, post, **STDP_KW)
+        with pytest.raises(ValueError, match="post_trace"):
+            ops.stdp_gather(w, idx, valid, pre, pre, pre, post, **STDP_KW)
+
+
 class TestWrappers:
     def test_cpu_calls_launch_nothing(self):
         """CPU tensors take the plain versions: no kernel is built, loaded
@@ -202,8 +348,14 @@ class TestWrappers:
         ops.syn_matmul(torch.ones((1, 8)), torch.ones((8, 4), dtype=torch.float16))
         ops.syn_gather(torch.ones(8), torch.zeros((4, 3), dtype=torch.int16),
                        torch.ones((4, 3)))
+        kw = dict(a_plus=0.01, a_minus=0.01, w_min=0.0, w_max=1.0)
+        ops.stdp_update(torch.ones((8, 4)), torch.ones((8, 4), dtype=torch.bool),
+                        torch.ones(8), torch.ones(4), torch.ones(8), torch.ones(4), **kw)
+        ops.stdp_gather(torch.ones((4, 3)), torch.zeros((4, 3), dtype=torch.int16),
+                        torch.ones((4, 3), dtype=torch.bool), torch.ones(8),
+                        torch.ones(4), torch.ones(8), torch.ones(4), **kw)
         assert ops.LAUNCHES == {"izh4_update": 0, "syn_matmul": 0, "syn_gather": 0,
-                                "fused_tick": 0}
+                                "fused_tick": 0, "stdp_update": 0, "stdp_gather": 0}
         assert _build._LIBS == {}
 
     def test_mixed_devices_raise(self):

@@ -15,6 +15,8 @@ from repro.configs import synfire4 as rsyn  # noqa: E402
 from repro.core import network as rnet  # noqa: E402
 from repro_torch.configs import synfire4 as tsyn  # noqa: E402
 from repro_torch.core import NetworkBuilder, izh4  # noqa: E402
+from repro_torch.core.plasticity import HomeostasisConfig, STDPConfig  # noqa: E402
+from repro_torch.core.synapses import STPConfig  # noqa: E402
 from repro_torch.core import network as tnet  # noqa: E402
 
 
@@ -161,22 +163,40 @@ class TestUnportedFeaturesRaise:
         net.add_group("a", izh4(10, a=0.02, b=0.2, c=-65.0, d=8.0))
         return net
 
+    # Plasticity (ROADMAP A7) is ported: the keywords these cases once
+    # refused now compile into plastic and STP projections. The ids keep
+    # the cases' names.
     @pytest.mark.parametrize("kw,item", [
-        ({"stdp": object()}, "A7"), ({"plastic": True}, "A7"),
-        ({"stp": object()}, "A7"), ({"homeostasis": object()}, "A7"),
+        pytest.param({"stdp": STDPConfig()}, "A7", id="kw0-A7"),
+        pytest.param({"plastic": True}, "A7", id="kw1-A7"),
+        pytest.param({"stp": STPConfig()}, "A7", id="kw2-A7"),
+        pytest.param({"homeostasis": HomeostasisConfig()}, "A7", id="kw3-A7"),
     ])
     def test_connect(self, kw, item):
-        with pytest.raises(NotImplementedError, match=item):
-            self._net().connect("a", "a", fanin=2, weight=1.0, delay_ms=1, **kw)
+        net = self._net()
+        net.connect("a", "a", fanin=2, weight=1.0, delay_ms=1, **kw)
+        period = 10 if "homeostasis" in kw else 0
+        c = net.compile(device="cpu", homeostasis_period=period)
+        spec = c.static.projections[0]
+        assert spec.plastic == ("stp" not in kw)
+        assert (spec.stp is not None) == ("stp" in kw)
+        assert c.static.buckets == ()
+        assert c.params.proj_csr_idx[0].shape == (10, spec.fanin)
 
-    @pytest.mark.parametrize("kw,item", [
-        ({"propagation": "loop"}, "A5"),
-        ({"conductances": object()}, "A7"), ({"monitors": "default"}, "A6"),
-        ({"watches": "default"}, "A10"), ({"partition": object()}, "A11"),
-        ({"homeostasis_period": 10}, "A7"),
+    @pytest.mark.parametrize("kw,item,error", [
+        pytest.param({"propagation": "loop"}, "A5", NotImplementedError, id="kw0-A5"),
+        pytest.param({"conductances": object()}, "A7", NotImplementedError,
+                     id="kw1-A7"),
+        pytest.param({"monitors": "default"}, "A6", NotImplementedError, id="kw2-A6"),
+        pytest.param({"watches": "default"}, "A10", NotImplementedError, id="kw3-A10"),
+        pytest.param({"partition": object()}, "A11", NotImplementedError, id="kw4-A11"),
+        # Ported with A7: a period without a homeostasis config is the
+        # reference's ValueError.
+        pytest.param({"homeostasis_period": 10}, "HomeostasisConfig", ValueError,
+                     id="kw5-A7"),
     ])
-    def test_compile(self, kw, item):
-        with pytest.raises(NotImplementedError, match=item):
+    def test_compile(self, kw, item, error):
+        with pytest.raises(error, match=item):
             self._net().compile(device="cpu", **kw)
 
     def test_unknown_backend_is_a_value_error(self):
