@@ -37,7 +37,20 @@ Phases (each raises, and the script exits non-zero, on any failure):
    sparse inside the 8.477 MB ledger (card equals CPU); and plastic nets
    on ``backend="fused"``, which launch no ``fused_tick`` and give the
    default backend's raster and weights.
-6. Profile 100 Synfire4 fp16 ticks per propagation mode and backend, and
+6. LM serving on the dense decoder (``repro_torch.launch.serve``): (a) the
+   attention kernel ``flash_attention`` against its plain version on the
+   card, at rtol = atol = 1e-5, at smollm-360m's prefill and decode shapes,
+   a local window, the Pallas signature, head dims 16/64/128/160, GQA
+   groups 3 and 4 and rows with no allowed key, each timed beside its
+   plain version and ``scaled_dot_product_attention``; (b) smollm-360m at
+   full width (32 layers, random weights from a seed) serving batch 4,
+   512-token prompts, 32 generated tokens, fp16, with exactly one
+   attention launch per layer per prefill and decode step; (c) the card
+   against the CPU port at full width cut to 2 layers, same weights, fp32
+   and fp16 policies: logits and greedy tokens; (d) prefill against
+   token-by-token decode at full depth on the card; (e) five decode
+   steps under ``torch.profiler``.
+7. Profile 100 Synfire4 fp16 ticks per propagation mode and backend, and
    of the plastic default-backend tick, with ``torch.profiler``: device
    busy time per tick, the device's idle share, device events per tick
    and device time by kernel name.
@@ -89,9 +102,10 @@ def cuda_ms(fn, reps: int = 200, warmup: int = 20) -> float:
 
 
 def device_ms(fn, name_part: str, reps: int = 100) -> float:
-    """Mean device time (ms) of the kernels whose name contains
-    ``name_part``, per call of ``fn``, from a ``torch.profiler`` trace of
-    ``reps`` calls: the kernel alone, without the host's enqueue cost."""
+    """Mean device time (ms) of one launch of the kernel whose name
+    contains ``name_part`` (one per call of ``fn``), from a
+    ``torch.profiler`` trace of ``reps`` calls: the kernel alone, without
+    the host's enqueue cost."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -103,9 +117,13 @@ def device_ms(fn, name_part: str, reps: int = 100) -> float:
         torch.cuda.synchronize()
     spans = [e.time_range.elapsed_us() for e in prof.events()
              if e.device_type == DeviceType.CUDA and name_part in e.name]
-    require(len(spans) == reps, f"profiler saw {len(spans)} launches of "
+    # The profiler may drop a few records of long kernels (it kept 44 of 50
+    # 100-us launches once): average over the launches it recorded.
+    require(reps // 2 <= len(spans) <= reps, f"profiler saw {len(spans)} launches of "
             f"{name_part!r} in {reps} calls")
-    return sum(spans) / reps / 1e3
+    if len(spans) < reps:
+        log(f"[profile] {name_part}: the profiler recorded {len(spans)} of {reps} launches")
+    return sum(spans) / len(spans) / 1e3
 
 
 def bound(nbytes: int, ops: int) -> tuple[float, str]:
@@ -590,12 +608,12 @@ def _card_and_cpu_rasters(cfg, policy, propagation, gen_u, dev, **build_kw):
     return out
 
 
-NO_STDP = {"stdp_update": 0, "stdp_gather": 0}
+NOT_ON_PATH = {"stdp_update": 0, "stdp_gather": 0, "flash_attention": 0}  # of a static tick
 
 
 def _fused_launches(ticks: int) -> dict:
     return {"izh4_update": 0, "syn_matmul": 0, "syn_gather": 0, "fused_tick": ticks,
-            **NO_STDP}
+            **NOT_ON_PATH}
 
 
 def _add(totals: dict, launches: dict) -> None:
@@ -618,7 +636,7 @@ def phase_synfire(dev, totals: dict) -> dict:
                 expect = _fused_launches(TICKS) if backend else {
                     "izh4_update": TICKS, "syn_matmul": kinds.count("dense") * TICKS,
                     "syn_gather": kinds.count("sparse") * TICKS, "fused_tick": 0,
-                    **NO_STDP}
+                    **NOT_ON_PATH}
                 require(launches == expect, f"launches {launches} != {expect}")
                 require(kinds.count("dense" if propagation == "packed" else "sparse")
                         == (8 if propagation == "packed" else 13), f"plan {kinds}")
@@ -647,7 +665,7 @@ def phase_scale(dev, totals: dict) -> dict:
     paths = {}
     mini_ticks = 5000
     mini_launches = {"izh4_update": mini_ticks, "syn_matmul": 8 * mini_ticks,
-                     "syn_gather": 0, "fused_tick": 0, **NO_STDP}
+                     "syn_gather": 0, "fused_tick": 0, **NOT_ON_PATH}
 
     def died_out(sp, what):
         total, tail = int(sp.sum()), int(sp[-1000:].sum())
@@ -689,7 +707,7 @@ def phase_scale(dev, totals: dict) -> dict:
     g = torch.Generator(device="cpu").manual_seed(11)
     gen_u = torch.rand((TICKS, SYNFIRE4_X10.n_stim), generator=g)
     x10_launches = {"izh4_update": TICKS, "syn_matmul": 0, "syn_gather": 13 * TICKS,
-                    "fused_tick": 0, **NO_STDP}
+                    "fused_tick": 0, **NOT_ON_PATH}
     for backend, (net, sp, launches, seconds) in _card_and_cpu_rasters(
             SYNFIRE4_X10, "fp16", "sparse", gen_u, dev, budget=None,
             monitor_ms_hint=0).items():
@@ -784,7 +802,8 @@ def _plastic_launches(net, ticks: int) -> dict:
     csr = sum(j in net.static.csr_projs for j in _chain(net))
     return {"izh4_update": ticks, "syn_matmul": kinds.count("dense") * ticks,
             "syn_gather": kinds.count("sparse") * ticks, "fused_tick": 0,
-            "stdp_update": (chain - csr) * ticks, "stdp_gather": csr * ticks}
+            "stdp_update": (chain - csr) * ticks, "stdp_gather": csr * ticks,
+            "flash_attention": 0}
 
 
 def phase_plastic(dev, totals: dict) -> dict:
@@ -875,6 +894,305 @@ def phase_plastic(dev, totals: dict) -> dict:
     return paths
 
 
+# -- LM serving ----------------------------------------------------------------------
+
+SMOLLM = "smollm-360m"
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 512, 32
+# Full width, fp16 policy: the logits reach about |5|, where one fp16 ulp
+# of a projection input moves a logit by up to about 3e-3 (ROADMAP queue C),
+# so card and CPU are held at 4e-3 there and at 1e-4 under fp32.
+CARD_VS_CPU_TOL = {"fp32": 1e-4, "fp16": 4e-3}
+ATTN_TOL = 1e-5
+
+
+def _attn_case(g, b, sq, sk, hq, hkv, d, kvdt, dev, invalid=0, shift=0):
+    """q, k, v, qpos, kpos on the card in the model's layout: kpos =
+    arange(Sk) with the last ``invalid`` slots empty, queries at the end of
+    the valid keys moved by ``shift``."""
+    q = torch.randn((b, sq, hq, d), generator=g)
+    k = torch.randn((b, sk, hkv, d), generator=g).to(kvdt)
+    v = torch.randn((b, sk, hkv, d), generator=g).to(kvdt)
+    kpos = torch.arange(sk, dtype=torch.int32)
+    if invalid:
+        kpos[-invalid:] = -1
+    qpos = (torch.arange(sq, dtype=torch.int32) + (sk - invalid - sq + shift)).expand(b, sq)
+    return [x.contiguous().to(dev) for x in (q, k, v, qpos, kpos)]
+
+
+def _allowed(qpos, kpos, causal: bool, window: int):
+    """[B, Sq, Sk] bool: the keys each query may see."""
+    kp, qp = kpos[None, None, :], qpos[:, :, None]
+    mask = (kp >= 0).expand(qpos.shape[0], qpos.shape[1], kpos.shape[0])
+    if causal:
+        mask = mask & (kp <= qp)
+    if window > 0:
+        mask = mask & (kp > qp - window)
+    return mask
+
+
+def _attn_row(name, args, causal, window, pallas=False):
+    """Check and time one attention case: the kernel against its plain
+    version (max abs error, rtol = atol = 1e-5), per-call and device-alone
+    time, the plain version's time, one ``scaled_dot_product_attention``
+    on the same f32 inputs with the same mask (None where a row sees no
+    key: SDPA gives NaN there), and the bound: each input read once and
+    the output written once at 3.35 TB/s, or 4 * Hq * D f32 operations per
+    allowed (query, key) pair at 67 TFLOP/s, whichever is larger."""
+    from repro_torch.kernels import ops, ref
+
+    q, k, v, qpos, kpos = args
+    if pallas:  # the Pallas signature: [B, H, S, D] operands
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        run = lambda: ops.flash_attention(qh, kh, vh, causal=causal, window=window)  # noqa: E731
+        plain = lambda: ref.flash_attention_ref(qh, kh, vh, causal=causal, window=window)  # noqa: E731
+        got, want = run().transpose(1, 2), plain().transpose(1, 2)
+    else:
+        run = lambda: ops.attention(q, k, v, qpos, kpos, causal=causal, window=window)  # noqa: E731
+        plain = lambda: ref.chunked_attention_ref(q, k, v, qpos, kpos, causal=causal,  # noqa: E731
+                                                  window=window)
+        got, want = run(), plain()
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    require(torch.allclose(got, want, rtol=ATTN_TOL, atol=ATTN_TOL),
+            f"flash_attention {name}: max abs err {err} against its plain version")
+    allowed = _allowed(qpos, kpos, causal, window)
+    empty = ~allowed.any(dim=-1)  # [B, Sq]
+    if bool(empty.any()):
+        require(bool((got[empty] == 0).all()), f"flash_attention {name}: a row with no "
+                "allowed key is not 0")
+    b, sq, hq, d = q.shape
+    pairs = int(allowed.sum())
+    b_ms, b_by = bound(nbytes(q, k, v, qpos, kpos) + nbytes(got), 4 * hq * d * pairs)
+    library = None
+    if not bool(empty.any()):
+        qt, kt, vt = (x.float().transpose(1, 2).contiguous() for x in (q, k, v))
+        mask = allowed[:, None]
+        library = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True), reps=50)
+    row = {"case": name, "shape": f"q {list(q.shape)} kv {list(k.shape)} "
+           f"{str(k.dtype).removeprefix('torch.')} causal={causal} window={window}"
+           + (" (Pallas signature)" if pallas else ""),
+           "max_abs_err": err, "allowed_pairs": pairs, "empty_rows": int(empty.sum()),
+           "ms": cuda_ms(run, reps=50), "device_ms": device_ms(run, "flash_attn_kernel", reps=50),
+           "plain_ms": cuda_ms(plain, reps=20, warmup=3), "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": library}
+    lib = "-" if library is None else f"{library * 1e3:.2f} us"
+    log(f"[lm] flash_attention {name} ({row['shape']}): max abs err {err:.3g}, "
+        f"{row['ms'] * 1e3:.2f} us per call ({row['device_ms'] * 1e3:.2f} us on the device), "
+        f"plain {row['plain_ms'] * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us ({b_by}), SDPA {lib}")
+    return row
+
+
+def _check_attention(dev) -> dict:
+    """Phase 6a; returns the kernel's row (its numbers: the decode case,
+    992 of the serve path's 1,024 launches) with every case under
+    ``cases``."""
+    g = torch.Generator(device="cpu").manual_seed(23)
+    f16, f32, bf16 = torch.float16, torch.float32, torch.bfloat16
+    cases = [
+        ("smollm prefill", _attn_case(g, 4, 512, 512, 15, 5, 64, f32, dev), True, -1, False),
+        ("smollm decode, 544-slot fp16 cache, 32 empty",
+         _attn_case(g, 4, 1, 544, 15, 5, 64, f16, dev, invalid=32), True, -1, False),
+        ("smollm prefill, window 64", _attn_case(g, 4, 512, 512, 15, 5, 64, f32, dev),
+         True, 64, False),
+        ("Pallas signature [1,4,256,64], fp16 KV",
+         _attn_case(g, 1, 256, 256, 4, 2, 64, f16, dev), True, -1, True),
+        ("D 128, group 4 (qwen2.5/minitron heads)",
+         _attn_case(g, 2, 256, 256, 8, 2, 128, f16, dev), True, -1, False),
+        ("D 160, group 4 (stablelm heads)", _attn_case(g, 2, 256, 256, 8, 2, 160, f32, dev),
+         True, -1, False),
+        ("D 16, group 4 (reduced)", _attn_case(g, 2, 64, 64, 4, 1, 16, bf16, dev),
+         True, -1, False),
+        ("rows with no allowed key", _attn_case(g, 2, 40, 40, 6, 2, 64, f32, dev, shift=-8),
+         True, -1, False),
+    ]
+    rows = [_attn_row(name, args, causal, window, pallas)
+            for name, args, causal, window, pallas in cases]
+    main = rows[1]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+            "replaces": "src/repro/kernels/flash_attn.py:70",
+            "shape": main["shape"], "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")},
+            "cases": rows}
+
+
+def _card_vs_cpu(dev, policy_name: str) -> dict:
+    """Phase 6c: smollm-360m at full width cut to 2 layers, the same
+    weights on the card and the CPU, a [2, 64] prompt and 8 greedy steps."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import tasks
+    from repro_torch.models import transformer as tf
+    from repro_torch.precision import get_policy
+
+    cfg = dataclasses.replace(get_arch(SMOLLM), n_layers=2)
+    policy = get_policy(policy_name)
+    toks = torch.from_numpy(np.random.default_rng(29).integers(0, cfg.vocab_size, (2, 64)))
+    errs, runs = [], []
+    for where in (dev, torch.device("cpu")):
+        model = tf.init_params(cfg, policy, seed=31, device=where)
+        prefill = tasks.make_prefill_step(cfg, policy, collect_cache=True, cache_len=72)
+        decode = tasks.make_decode_step(cfg, policy)
+        with torch.inference_mode():
+            out, cache = prefill(model, {"tokens": toks.to(where)})
+            steps = [out.cpu()]
+            for i in range(8):
+                token = out.argmax(dim=-1)[:, None]
+                out, cache = decode(model, cache, token, 64 + i)
+                steps.append(out.cpu())
+        runs.append(steps)
+    tol = CARD_VS_CPU_TOL[policy_name]
+    for i, (a, b) in enumerate(zip(*runs)):
+        errs.append(max_err(a, b))
+        require(torch.allclose(a, b, rtol=0, atol=tol) if policy_name == "fp16" else
+                torch.allclose(a, b, rtol=tol, atol=tol),
+                f"card vs CPU {policy_name} step {i}: max abs err {errs[-1]}")
+        require(torch.equal(a.argmax(-1), b.argmax(-1)),
+                f"card vs CPU {policy_name} step {i}: greedy tokens differ")
+    log(f"[lm] card vs CPU port, {SMOLLM} full width 2 layers {policy_name}: prefill + 8 "
+        f"decode steps, max abs logit err {max(errs):.3g} (tolerance {tol}), greedy tokens "
+        f"equal")
+    return {"max_abs_err_per_step": errs, "tolerance": tol, "tokens_equal": True}
+
+
+def _profile_decode(model, cfg, policy, dev, steps: int = 5) -> dict:
+    """Phase 6e: ``steps`` decode steps of the served batch under
+    ``torch.profiler`` (after a 512-token prefill and two warm steps)."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import tasks
+
+    toks = torch.from_numpy(np.random.default_rng(37).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).to(dev)
+    prefill = tasks.make_prefill_step(cfg, policy, collect_cache=True,
+                                      cache_len=LM_PROMPT + LM_GEN)
+    decode = tasks.make_decode_step(cfg, policy)
+    with torch.inference_mode():
+        logits, cache = prefill(model, {"tokens": toks})
+        pos = LM_PROMPT
+        for _ in range(2):
+            logits, cache = decode(model, cache, logits.argmax(-1)[:, None], pos)
+            pos += 1
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                logits, cache = decode(model, cache, logits.argmax(-1)[:, None], pos)
+                pos += 1
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end, by_name = 0.0, float("-inf"), {}
+    for s0, s1, name in spans:
+        busy += max(0.0, s1 - max(s0, end))
+        end = max(end, s1)
+        name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+        name = name.split("(")[0][:100]
+        by_name[name] = by_name.get(name, 0.0) + (s1 - s0)
+    attn = sum(1 for sp in spans if "flash_attn_kernel" in sp[2])
+    require(attn == steps * cfg.n_layers, f"profile: {attn} attention launches in {steps} "
+            f"decode steps, want {steps * cfg.n_layers}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    out = {"device_events": len(spans), "device_events_per_step": len(spans) / steps,
+           "device_busy_us_per_step": busy / steps, "host_us_per_step_profiled": wall_us / steps,
+           "idle_share": 1.0 - busy / wall_us,
+           "device_us_per_step_by_kernel": {n: t / steps for n, t in top}}
+    log(f"[lm] profile {steps} decode steps: {len(spans) / steps:.0f} device events per step, "
+        f"busy {busy / steps:.1f} us/step of {wall_us / steps:.1f} us/step wall (idle share "
+        f"{1.0 - busy / wall_us:.3f}); largest: "
+        + ", ".join(f"{n} {t / steps:.1f} us" for n, t in top[:5]))
+    return out
+
+
+def phase_lm(dev, totals: dict) -> tuple[dict, dict]:
+    """Phase 6: the attention kernel's checks and row, smollm-360m served at
+    full width (the main path: launches counted), card against CPU, prefill
+    against decode at full depth, and a decode profile. Returns (the
+    kernel's row, paths)."""
+    import numpy as np
+
+    from repro_torch.configs import count_params, get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import tasks
+    from repro_torch.models import transformer as tf
+    from repro_torch.precision import get_policy, tree_bytes
+
+    log(f"[lm] torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
+        f"float32 matmul precision {torch.get_float32_matmul_precision()!r}")
+    row = _check_attention(dev)
+    paths = {}
+
+    cfg, policy = get_arch(SMOLLM), get_policy("fp16")
+    t0 = time.perf_counter()
+    model = tf.init_params(cfg, policy, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = tree_bytes(list(model.parameters()))
+    n_params = sum(p.numel() for p in model.parameters())
+    kw = dict(batch=LM_BATCH, prompt_len=LM_PROMPT, reduced=False, params=model, device=dev)
+    serve(SMOLLM, gen=4, **kw)  # warm-up (cuBLAS handles, allocator)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    out = serve(SMOLLM, gen=LM_GEN, **kw)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = {k: 0 for k in launches}
+    want["flash_attention"] = cfg.n_layers * LM_GEN  # 1 prefill + 31 decode steps
+    require(launches == want, f"serve launches {launches} != {want}")
+    _add(totals, launches)
+    tokens = out["tokens"]
+    require(tokens.shape == (LM_BATCH, LM_GEN) and int(tokens.min()) >= 0
+            and int(tokens.max()) < cfg.vocab_size, f"served tokens {tokens.shape}")
+    cap = LM_PROMPT + LM_GEN
+    kv_bytes = cfg.n_layers * 2 * LM_BATCH * cap * cfg.n_kv_heads * cfg.head_dim * 2
+    pos_bytes = cfg.n_layers * cap * 4
+    step_ms = out["decode_s"] / (LM_GEN - 1) * 1e3
+    paths["lm/smollm-360m/serve/fp16"] = {
+        "batch": LM_BATCH, "prompt_len": LM_PROMPT, "gen": LM_GEN,
+        "prefill_ms": out["prefill_s"] * 1e3, "decode_ms_per_step": step_ms,
+        "decode_tok_s": out["decode_tok_s"],
+        "prefill_tok_s": LM_BATCH * LM_PROMPT / out["prefill_s"],
+        "params": n_params, "count_params": count_params(cfg), "param_bytes": param_bytes,
+        "kv_cache_bytes": kv_bytes, "kv_pos_bytes": pos_bytes, "peak_device_bytes": peak,
+        "init_s": init_s, "launches": launches, "tokens_row0": tokens[0].tolist()}
+    log(f"[lm] serve {SMOLLM} full width (32 layers) fp16, batch {LM_BATCH}, prompt "
+        f"{LM_PROMPT}, gen {LM_GEN}: prefill {out['prefill_s'] * 1e3:.1f} ms, decode "
+        f"{step_ms:.2f} ms/step, {out['decode_tok_s']:.1f} tok/s; {n_params} parameters "
+        f"({count_params(cfg)} counted without the final norm) in {param_bytes} B, KV cache "
+        f"{kv_bytes} B + pos {pos_bytes} B, peak device memory {peak} B; launches {launches}")
+
+    for policy_name in ("fp32", "fp16"):
+        paths[f"lm/smollm-360m-2l/card_vs_cpu/{policy_name}"] = _card_vs_cpu(dev, policy_name)
+
+    # Prefill against decode at full depth (the reference's test_archs check).
+    toks = torch.from_numpy(np.random.default_rng(41).integers(0, cfg.vocab_size, (1, 8))).to(dev)
+    with torch.inference_mode():
+        logits_p = tasks.make_prefill_step(cfg, policy)(model, {"tokens": toks})
+        cache = tf.init_cache(cfg, 1, 16, policy.state_storage, dev)
+        step = tasks.make_decode_step(cfg, policy)
+        for pos in range(8):
+            logits_d, cache = step(model, cache, toks[:, pos:pos + 1], pos)
+    err = max_err(logits_p, logits_d)
+    require(bool(torch.isfinite(logits_d).all()) and torch.allclose(
+        logits_p, logits_d, rtol=5e-2, atol=5e-2),
+            f"prefill vs decode at full depth: max abs err {err}")
+    paths["lm/smollm-360m/prefill_vs_decode/fp16"] = {"max_abs_err": err, "tolerance": 5e-2}
+    log(f"[lm] prefill vs token-by-token decode, {SMOLLM} 32 layers fp16: max abs logit "
+        f"err {err:.3g} (tolerance 5e-2)")
+
+    paths["profile/lm/smollm-360m/decode/fp16"] = _profile_decode(model, cfg, policy, dev)
+    return row, paths
+
+
 def phase_profile(dev) -> dict:
     """Device busy time per tick and idle share of the Synfire4 fp16 tick,
     from a ``torch.profiler`` trace of 100 ticks per propagation mode and
@@ -960,6 +1278,9 @@ def main() -> int:
     paths = phase_synfire(dev, totals)
     paths.update(phase_scale(dev, totals))
     paths.update(phase_plastic(dev, totals))
+    lm_row, lm_paths = phase_lm(dev, totals)
+    rows.append(lm_row)
+    paths.update(lm_paths)
     paths.update(phase_profile(dev))
     for r in rows:
         r["launches"] = totals[r["name"]]

@@ -18,6 +18,12 @@ in one flat dict whose keys name the port's fields:
 Both functions take exactly the keys the port's compiled ``static`` needs
 and check each array's shape and dtype against it, so a mid-run reference
 state can be resumed on the port (the engine parity tests do).
+
+:func:`lm_params_from_numpy` carries an LM's parameter tree across: the
+reference's nested dict (``embed``, ``lm_head``, ``final_norm``,
+``layers`` with its stacked ``[L, ...]`` leaves) as numpy arrays, into
+the port's :class:`~repro_torch.models.transformer.Transformer`, dtypes
+checked leaf by leaf.
 """
 from __future__ import annotations
 
@@ -30,7 +36,7 @@ from repro_torch.core.plasticity import DASTDPState, STDPState
 from repro_torch.core.synapses import STPState
 from repro_torch.precision import get_policy
 
-__all__ = ["params_from_numpy", "state_from_numpy"]
+__all__ = ["params_from_numpy", "state_from_numpy", "lm_params_from_numpy"]
 
 
 class _Reader:
@@ -142,3 +148,47 @@ def state_from_numpy(static: NetStatic, arrays: dict, device) -> NetState:
         weights=weights, stp=stp, stdp=tuple(stdp), homeo=homeo)
     read.finish()
     return state
+
+
+def _flatten(tree, prefix: str = "") -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}{k}."))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def lm_params_from_numpy(cfg, arrays: dict, device, policy):
+    """The port's model holding the reference's parameters ``arrays`` (its
+    parameter tree with numpy leaves; a homogeneous stack's ``layers``
+    leaves are ``[L, ...]``), on ``device``. Raises on a missing or extra
+    leaf and on a shape or dtype other than the port's parameter's."""
+    from repro_torch.models.transformer import Transformer
+
+    if isinstance(policy, str):
+        policy = get_policy(policy)
+    flat = _flatten(arrays)
+    model = Transformer(cfg, policy, None)
+    used = set()
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            key = ".".join([parts[0], *parts[2:]])
+            arr = flat.get(key)
+            arr = None if arr is None else np.asarray(arr)[int(parts[1])]
+        else:
+            key = name
+            arr = flat.get(key)
+        if arr is None:
+            raise KeyError(f"missing array {key!r}")
+        used.add(key)
+        x = torch.from_numpy(np.array(arr, copy=True, order="C"))
+        if tuple(x.shape) != tuple(p.shape) or x.dtype != p.dtype:
+            raise ValueError(f"{name}: expected {p.dtype} {tuple(p.shape)}, got "
+                             f"{x.dtype} {tuple(x.shape)}")
+        p.data.copy_(x)
+    extra = sorted(set(flat) - used)
+    if extra:
+        raise ValueError(f"arrays the model has no parameter for: {extra}")
+    return model.to(torch.device(device))

@@ -23,7 +23,7 @@ __all__ = ["KERNELS", "BUILD_DIR", "build", "load", "check"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 KERNELS = ("izh_update", "syn_matmul", "syn_gather", "fused_tick", "stdp_update",
-           "stdp_gather")
+           "stdp_gather", "flash_attn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attn as _flash
 from repro_torch.kernels import fused_tick as _fused
 from repro_torch.kernels import izh_update as _izh
 from repro_torch.kernels import ref
@@ -19,12 +20,14 @@ from repro_torch.kernels import syn_gather as _gather
 from repro_torch.kernels import syn_matmul as _matmul
 
 __all__ = ["LAUNCHES", "reset_launches", "izh4_update", "syn_matmul",
-           "syn_gather", "FusedTickRun", "stdp_update", "stdp_gather"]
+           "syn_gather", "FusedTickRun", "stdp_update", "stdp_gather", "attention",
+           "flash_attention"]
 
 f32 = torch.float32
 
 LAUNCHES: dict[str, int] = {"izh4_update": 0, "syn_matmul": 0, "syn_gather": 0,
-                            "fused_tick": 0, "stdp_update": 0, "stdp_gather": 0}
+                            "fused_tick": 0, "stdp_update": 0, "stdp_gather": 0,
+                            "flash_attention": 0}
 
 
 def reset_launches() -> None:
@@ -277,3 +280,50 @@ class FusedTickRun:
             v_rows[i] = v2
         if i_rows is not None:
             i_rows[i] = i_syn
+
+
+def attention(q, k, v, qpos, kpos, *, causal: bool = True, window: int = -1):
+    """GQA online-softmax attention in the model's layout
+    (:func:`repro_torch.kernels.ref.chunked_attention_ref`): q ``[B, Sq,
+    Hq, D]`` f32, k/v ``[B, Sk, Hkv, D]`` in f32, fp16 or bf16 with ``Hq %
+    Hkv == 0``, qpos int32 ``[B, Sq]``, kpos int32 ``[Sk]`` (``< 0`` marks
+    an invalid slot) → ``[B, Sq, Hq, D]`` f32. A row with no allowed key
+    is 0. The card takes D up to ``MAX_HEAD_DIM`` (256) and raises above."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"attention: q {tuple(q.shape)} must be [B, Sq, Hq, D] and "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)} one [B, Sk, Hkv, D]")
+    b, sq, hq, d = q.shape
+    _, sk, hkv, dk = k.shape
+    if k.shape[0] != b or dk != d or hkv < 1 or hq % hkv:
+        raise ValueError(f"attention: q {tuple(q.shape)} and k {tuple(k.shape)} need one "
+                         "batch and head dim, and Hq a multiple of Hkv")
+    if qpos.shape != (b, sq) or kpos.shape != (sk,):
+        raise ValueError(f"attention: qpos {tuple(qpos.shape)} must be [{b}, {sq}] and "
+                         f"kpos {tuple(kpos.shape)} [{sk}]")
+    if q.dtype != f32 or k.dtype not in _flash.KV_DTYPES or v.dtype != k.dtype:
+        raise ValueError(f"attention: q must be float32 and k/v share a dtype in "
+                         f"{_flash.KV_DTYPES}, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if qpos.dtype != torch.int32 or kpos.dtype != torch.int32:
+        raise ValueError("attention: qpos and kpos must be int32")
+    if not _on_card("flash_attention", q, k, v, qpos, kpos):
+        return ref.chunked_attention_ref(q, k, v, qpos, kpos, causal=causal, window=window)
+    if d > _flash.MAX_HEAD_DIM:
+        raise ValueError(f"attention: head dim {d} above the kernel's limit "
+                         f"{_flash.MAX_HEAD_DIM}")
+    out = torch.empty_like(q)
+    if out.numel():
+        _flash.launch(q, k, v, qpos, kpos, out, causal=causal, window=window)
+        LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = -1):
+    """The Pallas kernel's signature (``repro/kernels/flash_attn.py``): q
+    ``[B, Hq, Sq, D]``, k/v ``[B, Hkv, Sk, D]``, queries aligned to the end
+    of KV → ``[B, Hq, Sq, D]`` in q's dtype; one :func:`attention` call on
+    :func:`repro_torch.kernels.ref.model_layout`'s operands."""
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k {tuple(k.shape)} "
+                         "must be [B, H, S, D]")
+    out = attention(*ref.model_layout(q, k, v), causal=causal, window=window)
+    return out.transpose(1, 2).to(q.dtype)

@@ -11,9 +11,11 @@ from __future__ import annotations
 import torch
 
 __all__ = ["izh4_ref", "syn_matmul_ref", "syn_gather_ref", "fused_tick_ref",
-           "stdp_update_ref", "stdp_gather_ref"]
+           "stdp_update_ref", "stdp_gather_ref", "chunked_attention_ref",
+           "flash_attention_ref", "model_layout"]
 
 f32 = torch.float32
+NEG_INF = -1e30  # the reference's mask value (not -inf)
 
 
 def izh4_ref(v, u, i_syn, a, b, c, d, *, dt: float = 1.0, substeps: int = 2):
@@ -129,3 +131,87 @@ def stdp_gather_ref(w, idx, valid, pre_trace, post_trace, pre_spikes,
     ltd = a_minus * (pre_spikes.to(f32)[ii] * post_trace.to(f32)[:, None])
     wf = torch.clamp(w.to(f32) + ltp - ltd, w_min, w_max)
     return torch.where(valid, wf, 0.0).to(w.dtype)
+
+
+def chunked_attention_ref(q, k, v, qpos, kpos, *, causal: bool = True,
+                          window: int = -1, block_k: int = 1024):
+    """Online-softmax GQA attention blocked over KV, step for step as the
+    reference's ``models/attention.py:chunked_attention``.
+
+    q ``[B, Sq, Hq, D]`` f32; k, v ``[B, Sk, Hkv, D]`` (f32, fp16 or bf16,
+    decoded to f32); qpos int32 ``[B, Sq]`` and kpos int32 ``[Sk]``
+    absolute positions, ``kpos < 0`` an invalid slot. Query head ``h``
+    reads KV head ``h // (Hq // Hkv)``. A key is allowed iff it is valid,
+    ``kpos <= qpos`` when ``causal`` and ``kpos > qpos - window`` when
+    ``window > 0``. Scores are masked with -1e30 and the sum divided by
+    ``where(l > 0, l, 1)``, as in the reference; masked keys add an exact
+    0 to the sums (``p = where(mask, exp(s - m), 0)``), so a row with no
+    allowed key is 0, in this plain version and in the CUDA kernel alike.
+    (The reference's ``chunked_attention`` gives such a row the mean of v
+    over its padded KV blocks, and ``kernels/ref.py:flash_attention_ref``
+    NaN; on rows with an allowed key all three agree.) Returns
+    ``[B, Sq, Hq, D]`` f32.
+    """
+    b, sq, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    g = hq // hkv
+    if sk == 0:
+        return torch.zeros((b, sq, hq, d), dtype=f32, device=q.device)
+    scale = 1.0 / (d ** 0.5)
+    bk = min(block_k, sk)
+    pad = -sk % bk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        kpos = torch.nn.functional.pad(kpos, (0, pad), value=-1)
+    nblk = (sk + pad) // bk
+    qf = (q.to(f32) * scale).reshape(b, sq, hkv, g, d)
+    kb = k.reshape(b, nblk, bk, hkv, d)
+    vb = v.reshape(b, nblk, bk, hkv, d)
+    pb = kpos.reshape(nblk, bk)
+    m = torch.full((b, hkv, g, sq), NEG_INF, dtype=f32, device=q.device)
+    l = torch.zeros((b, hkv, g, sq), dtype=f32, device=q.device)
+    acc = torch.zeros((b, hkv, g, sq, d), dtype=f32, device=q.device)
+    for i in range(nblk):
+        kc, vc, pc = kb[:, i], vb[:, i], pb[i]
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kc.to(f32))
+        mask = (pc >= 0)[None, None, :].expand(b, sq, bk)
+        if causal:
+            mask = mask & (pc[None, None, :] <= qpos[:, :, None])
+        if window > 0:
+            mask = mask & (pc[None, None, :] > qpos[:, :, None] - window)
+        mask = mask[:, None, None]  # [b, 1, 1, q, k]
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, vc.to(f32))
+        m = m_new
+    out = acc / torch.where(l > 0, l, 1.0)[..., None]
+    return out.reshape(b, hkv * g, sq, d).transpose(1, 2).contiguous()
+
+
+def model_layout(q, k, v):
+    """The Pallas kernel's operands (q ``[B, Hq, Sq, D]``, k/v ``[B, Hkv,
+    Sk, D]``) in the model's layout: ``(q f32 [B, Sq, Hq, D], k, v [B, Sk,
+    Hkv, D], qpos, kpos)``, contiguous, with the queries aligned to the end
+    of KV as the Pallas kernel aligns them: ``qpos = arange(Sq) + (Sk - Sq)``
+    for every batch row, ``kpos = arange(Sk)``."""
+    b, _, sq, _ = q.shape
+    sk = k.shape[2]
+    dev = q.device
+    qpos = (torch.arange(sq, dtype=torch.int32, device=dev) + (sk - sq)).expand(b, sq)
+    return (q.to(f32).transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+            v.transpose(1, 2).contiguous(), qpos.contiguous(),
+            torch.arange(sk, dtype=torch.int32, device=dev))
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = -1):
+    """The Pallas kernel's signature (``repro/kernels/flash_attn.py``): q
+    ``[B, Hq, Sq, D]``, k/v ``[B, Hkv, Sk, D]`` in a storage dtype, queries
+    aligned to the end of KV; :func:`chunked_attention_ref` on
+    :func:`model_layout`'s operands. Returns ``[B, Hq, Sq, D]`` in q's
+    dtype."""
+    out = chunked_attention_ref(*model_layout(q, k, v), causal=causal, window=window)
+    return out.transpose(1, 2).to(q.dtype)

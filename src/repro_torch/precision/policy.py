@@ -3,8 +3,9 @@
 The paper stores CARLsim's synaptic data as IEEE binary16 while arithmetic
 is promoted to f32 (ARM softfp promotes ``__fp16`` operands). A
 :class:`PrecisionPolicy` names the *storage* dtypes of data at rest
-(synaptic weights; neuron state and the delay ring); all math runs in
-f32. ``fp16`` reproduces the paper; ``fp32`` is its reference build.
+(synaptic weights and LM parameters; neuron state, the delay ring and KV
+caches) and the *compute* dtype math runs in, f32 under both policies.
+``fp16`` reproduces the paper; ``fp32`` is its reference build.
 Downcasts round to nearest even, as ``torch.Tensor.to`` does.
 """
 from __future__ import annotations
@@ -23,14 +24,17 @@ class PrecisionPolicy:
 
     Attributes:
       name: registry key.
-      param_storage: dtype of synaptic weights at rest.
+      param_storage: dtype of synaptic weights and LM parameters at rest.
       state_storage: dtype of large mutable state at rest (neuron state,
-        delay ring).
+        delay ring, KV caches).
+      compute: dtype math and activations run in (softfp promotion
+        analogue).
     """
 
     name: str
     param_storage: torch.dtype
     state_storage: torch.dtype
+    compute: torch.dtype = torch.float32
 
 
 POLICIES: dict[str, PrecisionPolicy] = {

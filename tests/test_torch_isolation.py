@@ -38,6 +38,12 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.configs.synfire4, repro_torch.kernels.ops\n"
         "import repro_torch.core.rng, repro_torch.core.backend\n"
         "import repro_torch.kernels.fused_tick, repro_torch.kernels.ref\n"
+        "import repro_torch.kernels.flash_attn, repro_torch.configs.base\n"
+        "import repro_torch.configs.smollm_360m, repro_torch.configs.qwen2_5_14b\n"
+        "import repro_torch.configs.minitron_8b, repro_torch.configs.stablelm_12b\n"
+        "import repro_torch.models.layers, repro_torch.models.attention\n"
+        "import repro_torch.models.transformer, repro_torch.models.tasks\n"
+        "import repro_torch.launch.serve\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
     )

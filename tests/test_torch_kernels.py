@@ -354,8 +354,14 @@ class TestWrappers:
         ops.stdp_gather(torch.ones((4, 3)), torch.zeros((4, 3), dtype=torch.int16),
                         torch.ones((4, 3), dtype=torch.bool), torch.ones(8),
                         torch.ones(4), torch.ones(8), torch.ones(4), **kw)
+        ops.attention(torch.ones((1, 2, 4, 8)), torch.ones((1, 3, 2, 8)),
+                      torch.ones((1, 3, 2, 8)), torch.ones((1, 2), dtype=torch.int32),
+                      torch.ones(3, dtype=torch.int32))
+        ops.flash_attention(torch.ones((1, 4, 2, 8)), torch.ones((1, 2, 3, 8)),
+                            torch.ones((1, 2, 3, 8)))
         assert ops.LAUNCHES == {"izh4_update": 0, "syn_matmul": 0, "syn_gather": 0,
-                                "fused_tick": 0, "stdp_update": 0, "stdp_gather": 0}
+                                "fused_tick": 0, "stdp_update": 0, "stdp_gather": 0,
+                                "flash_attention": 0}
         assert _build._LIBS == {}
 
     def test_mixed_devices_raise(self):
@@ -378,3 +384,4 @@ class TestWrappers:
             assert "Replaces the Pallas TPU kernel" in src.read_text()
         assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
         assert _build.BUILD_DIR.parts[-2:] == ("build", "torch_kernels")
+
