@@ -11,9 +11,13 @@ Phases (each raises, and the script exits non-zero, on any failure):
    exact and at a stated tolerance for random weights, and time kernel,
    plain version and (where one exists) a single PyTorch library call
    with CUDA events (per call, host enqueue included), and the kernel
-   alone on the device with ``torch.profiler``. ``fused_tick`` is held
-   on states taken from 50-tick runs of every Synfire path, twelve
-   chained ticks each; ``stdp_update`` and ``stdp_gather`` bit for bit on
+   alone on the device with ``torch.profiler`` (a library call's kernels
+   too). ``syn_matmul`` goes through ``ops.syn_matmul`` and the engine's
+   per-run launcher ``ops.MatmulRun``; ``syn_gather`` also at spike rows
+   of 20,000 and 70,000. ``fused_tick`` is held on states taken from
+   50-tick runs of every Synfire path, twelve chained ticks each, and
+   each path's grid, grid-barrier cost and tick on the grid against one
+   CTA are measured; ``stdp_update`` and ``stdp_gather`` bit for bit on
    random weights, traces and masks at the plastic chain's shapes
    (Synfire4 packed [200, 200] and an odd shape; the compiled Synfire4
    and x10 fan-in tables with int16 and int32 indices).
@@ -27,7 +31,11 @@ Phases (each raises, and the script exits non-zero, on any failure):
    default generator stream (the reference's threefry draws, so the card
    raster equals the CPU raster) and with injected uniforms (the wave dies
    out in every run), and Synfire4x10 sparse fp16 for 1,000 ticks on both
-   backends (raster against the CPU again); launch counts checked.
+   backends (raster against the CPU again); launch counts checked. Then
+   Synfire4x100 (N = 120,000) sparse fp16 for 1,000 ticks on both
+   backends, whose rasters must be equal bit for bit (two independent
+   kernel paths), at 17-29 Hz, with peak device memory, and fused_tick
+   against its plain version on a x100 state.
 5. Plastic Synfire4 (``CHAIN_STDP`` on the exc->exc chain) for 1,000
    ticks in fp16/fp32 x packed/sparse: card raster and final plastic
    weights equal the CPU port's, packed and sparse weights equal at the
@@ -53,7 +61,9 @@ Phases (each raises, and the script exits non-zero, on any failure):
 7. Profile 100 Synfire4 fp16 ticks per propagation mode and backend, and
    of the plastic default-backend tick, with ``torch.profiler``: device
    busy time per tick, the device's idle share, device events per tick
-   and device time by kernel name.
+   and device time by kernel name; and the packed default tick's host
+   time through the per-run ``syn_matmul`` launcher against the per-call
+   path, in turns.
 
 The last lines are a JSON object of per-kernel numbers, a JSON object of
 per-path numbers, the card's name and power limit from nvidia-smi, and
@@ -101,29 +111,61 @@ def cuda_ms(fn, reps: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, name_part: str, reps: int = 100) -> float:
-    """Mean device time (ms) of one launch of the kernel whose name
-    contains ``name_part`` (one per call of ``fn``), from a
-    ``torch.profiler`` trace of ``reps`` calls: the kernel alone, without
-    the host's enqueue cost."""
+PROFILE_TRIES = 3
+
+
+def _cuda_events(fn, reps: int, activities=None) -> list:
+    """The device events of ``reps`` calls of ``fn`` under ``torch.profiler``
+    (after one warm call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities or [ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    spans = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and name_part in e.name]
-    # The profiler may drop a few records of long kernels (it kept 44 of 50
-    # 100-us launches once): average over the launches it recorded.
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def device_ms(fn, name_part: str, reps: int = 100) -> float:
+    """Mean device time (ms) of one launch of the kernel whose name
+    contains ``name_part`` (one per call of ``fn``), from a
+    ``torch.profiler`` trace of ``reps`` calls: the kernel alone, without
+    the host's enqueue cost. Late in a long process the profiler may drop
+    kernel records (it kept 44 of 50 100-us launches once, and none of 100
+    2-us ones another time, while a fresh process on the same card kept
+    every one): the trace is taken again, up to PROFILE_TRIES times, until
+    it holds at least half of the launches, and the mean is over those."""
+    for attempt in range(PROFILE_TRIES):
+        events = _cuda_events(fn, reps)
+        spans = [e.time_range.elapsed_us() for e in events if name_part in e.name]
+        if reps // 2 <= len(spans) <= reps:
+            break
+        log(f"[profile] {name_part}: trace {attempt + 1} held {len(spans)} of {reps} "
+            "launches; tracing again")
     require(reps // 2 <= len(spans) <= reps, f"profiler saw {len(spans)} launches of "
-            f"{name_part!r} in {reps} calls")
+            f"{name_part!r} in {reps} calls; device events by name: "
+            f"{sorted({e.name[:80] for e in events})}")
     if len(spans) < reps:
         log(f"[profile] {name_part}: the profiler recorded {len(spans)} of {reps} launches")
     return sum(spans) / len(spans) / 1e3
+
+
+def device_total_ms(fn, reps: int = 100) -> float:
+    """Mean device time (ms) of all kernels one call of ``fn`` launches,
+    from a ``torch.profiler`` trace of ``reps`` calls: a library call's
+    kernels, whatever their names (traced again as :func:`device_ms` is
+    when records are missing)."""
+    for attempt in range(PROFILE_TRIES):
+        spans = [e.time_range.elapsed_us() for e in _cuda_events(fn, reps)]
+        if len(spans) >= reps:
+            break
+        log(f"[profile] all kernels: trace {attempt + 1} held {len(spans)} events in "
+            f"{reps} calls; tracing again")
+    require(len(spans) >= reps // 2, f"profiler saw {len(spans)} kernels in {reps} calls")
+    return sum(spans) / reps / 1e3
 
 
 def bound(nbytes: int, ops: int) -> tuple[float, str]:
@@ -193,7 +235,7 @@ def _izh_inputs(n: int, dtype, dev, seed: int):
     return [x.to(dev).contiguous() for x in (v, u, i_syn, a, b, c, d)]
 
 
-def phase_kernels(dev) -> list[dict]:
+def phase_kernels(dev) -> tuple[list[dict], dict]:
     from repro_torch.configs.synfire4 import (SYNFIRE4, SYNFIRE4_MINI, SYNFIRE4_X10,
                                               build_synfire)
     from repro_torch.core.backend import assemble_packed
@@ -230,8 +272,10 @@ def phase_kernels(dev) -> list[dict]:
         "plain_ms": cuda_ms(lambda: ref.izh4_ref(*args)),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
 
-    # syn_matmul: exact on 0/1 spikes x Synfire4's weight table, stated
-    # tolerance (summation order only) on random normal operands.
+    # syn_matmul: exact on 0/1 spikes x Synfire4's weight table, through
+    # ops.syn_matmul and the per-run launcher the engine uses
+    # (ops.MatmulRun); stated tolerance (summation order only) on random
+    # normal operands.
     g = torch.Generator(device="cpu").manual_seed(2)
     table = torch.tensor([0.0, 1.0, 3.5, -2.0])
     err = 0.0
@@ -242,6 +286,11 @@ def phase_kernels(dev) -> list[dict]:
         torch.cuda.synchronize()
         require(torch.equal(got, want),
                 f"syn_matmul [{m},{k}]x[{k},{n}] exact case: max abs err {max_err(got, want)}")
+        if m == 1:
+            got = ops.MatmulRun([w])(0, x[0])
+            torch.cuda.synchronize()
+            require(torch.equal(got, want[0]), f"syn_matmul launcher [1,{k}]x[{k},{n}] "
+                    f"exact case: max abs err {max_err(got, want[0])}")
         for wdt in (torch.float32, torch.float16):
             xr = torch.randn((m, k), generator=g).to(dev)
             wr = torch.randn((k, n), generator=g).to(wdt).to(dev)
@@ -249,33 +298,41 @@ def phase_kernels(dev) -> list[dict]:
             require(torch.allclose(got, want, rtol=1e-5, atol=1e-4),
                     f"syn_matmul [{m},{k}]x[{k},{n}] {wdt}: max abs err {max_err(got, want)}")
             err = max(err, max_err(got, want))
-        log(f"[kernels] syn_matmul [{m},{k}]x[{k},{n}]: bitwise on spikes, "
-            f"random within rtol=1e-5 atol=1e-4")
+        log(f"[kernels] syn_matmul [{m},{k}]x[{k},{n}]: bitwise on spikes"
+            + (" (ops.syn_matmul and the launcher)" if m == 1 else "")
+            + ", random within rtol=1e-5 atol=1e-4")
     # The mini's packed images: its fp16 weights (4, 14, -6.66796875) are
     # multiples of 1/256, so every sum of them is exact in f32.
     mini = build_synfire(SYNFIRE4_MINI, policy="fp16", device=dev)
     images = assemble_packed(mini.static, mini.state0.weights)
-    for w in images:
+    launcher = ops.MatmulRun(images)
+    for i, w in enumerate(images):
         x = (torch.rand((1, w.shape[0]), generator=g) < 0.3).float().to(dev)
         got, want = ops.syn_matmul(x, w), ref.syn_matmul_ref(x, w)
+        via_run = launcher(i, x[0])
         torch.cuda.synchronize()
-        require(torch.equal(got, want), f"syn_matmul mini [1,{w.shape[0]}]x"
-                f"{list(w.shape)}: max abs err {max_err(got, want)}")
+        require(torch.equal(got, want) and torch.equal(via_run, want[0]),
+                f"syn_matmul mini [1,{w.shape[0]}]x{list(w.shape)}: max abs err "
+                f"{max_err(got, want)}, launcher {max_err(via_run, want[0])}")
     log(f"[kernels] syn_matmul Synfire4-mini packed images "
-        f"{sorted({tuple(w.shape) for w in images})}: bitwise")
+        f"{sorted({tuple(w.shape) for w in images})}: bitwise (both entries)")
     x = (torch.rand((1, 200), generator=g) < 0.3).float().to(dev)
     w = table[torch.randint(0, 4, (200, 250), generator=g)].to(dev)
     b_ms, b_by = bound(nbytes(x, w) + 250 * 4, 2 * 200 * 250)
+    run = ops.MatmulRun([w])
+    x0 = x[0]
     rows.append({
         "name": "syn_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/syn_matmul.cu",
         "replaces": "src/repro/kernels/syn_matmul.py:40",
         "shape": "[1,200]x[200,250] f32", "max_abs_err": err,
-        "ms": cuda_ms(lambda: ops.syn_matmul(x, w)),
-        "device_ms": device_ms(lambda: ops.syn_matmul(x, w), "gemv_kernel"),
+        "ms": cuda_ms(lambda: run(0, x0)),
+        "ops_ms": cuda_ms(lambda: ops.syn_matmul(x, w)),
+        "device_ms": device_ms(lambda: run(0, x0), "gemv_kernel"),
         "plain_ms": cuda_ms(lambda: ref.syn_matmul_ref(x, w)),
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(lambda: torch.matmul(x, w))})
+        "library_ms": cuda_ms(lambda: torch.matmul(x, w)),
+        "library_device_ms": device_total_ms(lambda: torch.matmul(x, w))})
 
     # syn_gather: the compiled Synfire4 and x10 CSR tables, exact with their
     # weights, stated tolerance with random normal weights.
@@ -308,6 +365,21 @@ def phase_kernels(dev) -> list[dict]:
     require(float(out[0]) == 2.0 and bool(out[1].isnan()),
             f"syn_gather: an index outside [0, P) gave {out.tolist()}, want [2, nan]")
     log("[kernels] syn_gather: an index outside [0, P) yields NaN on the card")
+    for p in (20_000, 70_000):  # shared memory opted in; read from device memory
+        q, f = 300, 97
+        idx = torch.randint(0, p, (q, f), generator=g, dtype=torch.int32)
+        wl = table[torch.randint(0, 4, (q, f), generator=g)]
+        spikes = (torch.rand(p, generator=g) < 0.3).float()
+        args = [spikes.to(dev), idx.to(dev), wl.to(dev)]
+        got, want = ops.syn_gather(*args), ref.syn_gather_ref(*args)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"syn_gather P={p}: max abs err {max_err(got, want)}")
+        idx[7, 3] = p
+        got = ops.syn_gather(args[0], idx.to(dev), args[2])
+        ok = torch.arange(q, device=dev) != 7
+        require(bool(got[7].isnan()) and torch.equal(got[ok], want[ok]),
+                f"syn_gather P={p}: an index outside [0, P) gave {float(got[7])}")
+        log(f"[kernels] syn_gather P={p} Q={q} F={f}: bitwise, NaN for an index outside [0, P)")
     spikes, idx, w = timed
     q, f = idx.shape
     b_ms, b_by = bound(nbytes(spikes, idx, w) + q * 4, 2 * q * f)
@@ -323,16 +395,21 @@ def phase_kernels(dev) -> list[dict]:
         "plain_ms": cuda_ms(lambda: ref.syn_gather_ref(spikes, idx, w)),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": cuda_ms(lambda: torch.nn.functional.embedding_bag(
+            idx64, spikes[:, None], per_sample_weights=w, mode="sum")),
+        "library_device_ms": device_total_ms(lambda: torch.nn.functional.embedding_bag(
             idx64, spikes[:, None], per_sample_weights=w, mode="sum"))})
-    rows.append(_check_fused_tick(dev, g))
+    fused_row, designs = _check_fused_tick(dev, g)
+    rows.append(fused_row)
     rows += _check_stdp(dev, g)
     for r in rows:
         lib = "-" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.2f} us"
+        if r.get("library_device_ms") is not None:
+            lib += f" ({r['library_device_ms'] * 1e3:.2f} us on the device)"
         log(f"[kernels] {r['name']} ({r['shape']}): {r['ms'] * 1e3:.2f} us per call "
             f"({r['device_ms'] * 1e3:.2f} us on the device), plain "
             f"{r['plain_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.4f} us "
             f"({r['bound_by']}), library {lib}")
-    return rows
+    return rows, designs
 
 
 FUSED_STATES = (  # (config name, policy, propagation, build keywords)
@@ -347,16 +424,18 @@ TICK_OUTPUTS = ("v", "u", "spikes", "ring", "i_syn")
 CHAINED = 12
 
 
-def _fused_state(cfg_name, policy, propagation, dev, build_kw, ticks=50):
-    """A fused net and its state after ``ticks`` ticks on the card (the
-    ring then holds currents and neurons spike), with the tick's operands."""
+def _fused_state(cfg_name, policy, propagation, dev, build_kw, ticks=50, net=None):
+    """A fused net (built here unless ``net`` is given) and its state after
+    ``ticks`` ticks on the card (the ring then holds currents and neurons
+    spike), with the tick's operands."""
     from repro_torch.configs import synfire4
     from repro_torch.core.backend import assemble_fused
     from repro_torch.core.engine import run
 
-    net = synfire4.build_synfire(getattr(synfire4, cfg_name), policy=policy,
-                                 propagation=propagation, device=dev,
-                                 backend="fused", **build_kw)
+    if net is None:
+        net = synfire4.build_synfire(getattr(synfire4, cfg_name), policy=policy,
+                                     propagation=propagation, device=dev,
+                                     backend="fused", **build_kw)
     state, _ = run(net.static, net.params, net.state0, ticks)
     payload = assemble_fused(net.static, state.weights, net.params).kernel
     p = net.params.neuron
@@ -365,59 +444,116 @@ def _fused_state(cfg_name, policy, propagation, dev, build_kw, ticks=50):
     return net, state, payload, args
 
 
-def _check_fused_tick(dev, g) -> dict:
+def _fused_kernel_tick(args, t, payload, grid=None):
+    """Tick ``t`` through the run wrapper on copies of ``args``: (v', u',
+    spikes, ring', i_syn), the plain version's outputs."""
+    from repro_torch.kernels import ops
+
+    v, u, ring = (x.clone() for x in args[:3])
+    rows = args[3][None].clone()
+    i_rows = torch.empty((1, v.shape[0]), dtype=torch.float32, device=v.device)
+    ops.FusedTickRun(payload, v, u, ring, *args[4:], rows, i_rows=i_rows,
+                     grid=grid).tick(0, t)
+    return v, u, rows[0], ring, i_rows[0]
+
+
+def _fused_both(args, t, payload):
+    from repro_torch.kernels import ref
+
+    got = _fused_kernel_tick(args, t, payload)
+    want = ref.fused_tick_ref(*args, t, dense=payload.dense, csr=payload.csr,
+                              ring_len=args[2].shape[0])
+    torch.cuda.synchronize()
+    return got, want
+
+
+def _hold_fused(net, state, payload, args, g, what) -> int:
+    """CHAINED chained ticks of the kernel against its plain version from
+    ``state``, bit for bit, on random generator rows; returns the neuron
+    spikes seen (raises on none). Leaves ``args`` at the last state."""
+    n = net.static.n
+    dev = args[0].device
+    require(float(args[2].float().abs().sum()) > 0, f"{what}: empty ring")
+    spiked = 0
+    for t in range(state.t, state.t + CHAINED):
+        args[3] = (torch.rand(n, generator=g) < 0.3).to(dev)
+        got, want = _fused_both(args, t, payload)
+        for name, g_, w_ in zip(TICK_OUTPUTS, got, want):
+            require(g_.dtype == w_.dtype and torch.equal(g_, w_),
+                    f"fused_tick {what} tick {t}: {name} differs from the plain "
+                    f"version, max abs err {max_err(g_, w_)}")
+        spiked += int(got[2][~args[4]].sum())
+        args[0], args[1], args[2] = got[0], got[1], got[3]
+    require(spiked > 0, f"fused_tick {what}: no neuron spiked in {CHAINED} ticks")
+    return spiked
+
+
+def _fused_design(net, payload, args, t0=60) -> dict:
+    """The grid the launcher picks for this net, the cost of one grid-wide
+    barrier at that grid (a kernel of 100 barriers against one of none),
+    and the fused tick's time per call on that grid and on one CTA (the
+    previous design's layout), in turns."""
+    from repro_torch.kernels import ops
+
+    n = net.static.n
+    rows_buf = torch.zeros((230, n), dtype=torch.bool, device=args[0].device)
+    runners = {}
+    for grid in (None, 1):
+        v, u, ring = args[0].clone(), args[1].clone(), args[2].clone()
+        runners[grid] = ops.FusedTickRun(payload, v, u, ring, *args[4:], rows_buf,
+                                         dt=net.static.dt, substeps=net.static.substeps,
+                                         grid=grid)
+    launcher = runners[None].launcher
+    empty = cuda_ms(lambda: launcher.barrier_probe(0), reps=100)
+    synced = cuda_ms(lambda: launcher.barrier_probe(100), reps=100)
+
+    def timer(runner):
+        counter = iter(range(10**9))
+
+        def one_tick():
+            i = next(counter)
+            runner.tick(i % 230, t0 + i)
+        return one_tick
+
+    times = {None: [], 1: []}
+    for grid in (None, 1, 1, None):
+        times[grid].append(cuda_ms(timer(runners[grid]), reps=100))
+    return {"grid": launcher.grid, "resident_ctas": launcher.resident,
+            "barrier_us": (synced - empty) / 100 * 1e3,
+            "us_per_tick_grid": min(times[None]) * 1e3,
+            "us_per_tick_one_cta": min(times[1]) * 1e3}
+
+
+def _check_fused_tick(dev, g) -> tuple[dict, dict]:
     """fused_tick against fused_tick_ref on the card: bit for bit on every
     Synfire state (CHAINED chained ticks each), and on random normal weights
     v', u', spikes and i_syn bit for bit (they do not depend on the
     weights within a tick) with ring' at rtol=1e-5, atol=1e-4 (f32 sums
     in another order). Returns the kernel's row, timed at Synfire4 fp16
-    packed."""
+    packed, and per state the grid, the barrier's cost and the tick on
+    that grid against one CTA (:func:`_fused_design`)."""
     from repro_torch.core.backend import assemble_packed
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.fused_tick import assemble_kernel
 
-    def kernel_tick(args, t, payload):
-        """Tick ``t`` through the run wrapper on copies of ``args``:
-        (v', u', spikes, ring', i_syn), the plain version's outputs."""
-        v, u, ring = (x.clone() for x in args[:3])
-        rows = args[3][None].clone()
-        i_rows = torch.empty((1, v.shape[0]), dtype=torch.float32, device=v.device)
-        ops.FusedTickRun(payload, v, u, ring, *args[4:], rows, i_rows=i_rows).tick(0, t)
-        return v, u, rows[0], ring, i_rows[0]
-
-    def both(args, t, payload):
-        got = kernel_tick(args, t, payload)
-        want = ref.fused_tick_ref(*args, t, dense=payload.dense, csr=payload.csr,
-                                  ring_len=args[2].shape[0])
-        torch.cuda.synchronize()
-        return got, want
-
-    err, timed = 0.0, None
+    err, timed, designs = 0.0, None, {}
     for cfg_name, policy, propagation, kw in FUSED_STATES:
         net, state, payload, args = _fused_state(cfg_name, policy, propagation, dev, kw)
         n = net.static.n
-        require(float(args[2].float().abs().sum()) > 0, f"{cfg_name}: empty ring")
-        spiked = 0
-        for t in range(state.t, state.t + CHAINED):
-            args[3] = (torch.rand(n, generator=g) < 0.3).to(dev)
-            got, want = both(args, t, payload)
-            for name, g_, w_ in zip(TICK_OUTPUTS, got, want):
-                require(g_.dtype == w_.dtype and torch.equal(g_, w_),
-                        f"fused_tick {cfg_name} {policy}/{propagation} tick {t}: "
-                        f"{name} differs from the plain version, max abs err "
-                        f"{max_err(g_, w_)}")
-            spiked += int(got[2][~args[4]].sum())
-            args[0], args[1], args[2] = got[0], got[1], got[3]
-        require(spiked > 0, f"fused_tick {cfg_name}: no neuron spiked in {CHAINED} ticks")
-        log(f"[kernels] fused_tick {cfg_name} {policy}/{propagation} (N={n}, "
-            f"{len(payload.dense)} dense, {len(payload.csr)} CSR buckets): {CHAINED} "
-            f"ticks bitwise, {spiked} neuron spikes")
+        what = f"{cfg_name} {policy}/{propagation}"
+        spiked = _hold_fused(net, state, payload, args, g, what)
+        design = designs[what] = _fused_design(net, payload, args)
+        log(f"[kernels] fused_tick {what} (N={n}, {len(payload.dense)} dense, "
+            f"{len(payload.csr)} CSR buckets): {CHAINED} ticks bitwise, {spiked} neuron "
+            f"spikes; grid {design['grid']} CTAs (of {design['resident_ctas']} resident), "
+            f"barrier {design['barrier_us']:.2f} us, {design['us_per_tick_grid']:.2f} "
+            f"us/tick on the grid vs {design['us_per_tick_one_cta']:.2f} on one CTA")
         if cfg_name == "SYNFIRE4" and policy == "fp32":
             # Random normal weights in the same layout.
             packed = [torch.randn(tuple(w.shape), generator=g).to(dev)
                       for w in assemble_packed(net.static, state.weights)]
             rpay = assemble_kernel(net.static, net.params, packed)
-            got, want = both(args, state.t + CHAINED, rpay)
+            got, want = _fused_both(args, state.t + CHAINED, rpay)
             for name, g_, w_ in zip(TICK_OUTPUTS, got, want):
                 if name == "ring":
                     require(torch.allclose(g_, w_, rtol=1e-5, atol=1e-4),
@@ -433,7 +569,7 @@ def _check_fused_tick(dev, g) -> dict:
             timed = (net, payload, list(args))
     net, payload, args = timed
     n, t0 = net.static.n, 60
-    got = kernel_tick(args, t0, payload)
+    got = _fused_kernel_tick(args, t0, payload)
     b_ms, b_by = fused_bound(payload, got[2], n, args[0].element_size())
     rows_buf = torch.zeros((230, n), dtype=torch.bool, device=dev)
     v, u, ring = args[0].clone(), args[1].clone(), args[2].clone()
@@ -449,12 +585,13 @@ def _check_fused_tick(dev, g) -> dict:
         "name": "fused_tick", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_tick.cu",
         "replaces": "src/repro/kernels/fused_tick.py:243",
-        "shape": f"Synfire4 fp16 packed tick: N={n}, 8 dense buckets", "max_abs_err": err,
+        "shape": f"Synfire4 fp16 packed tick: N={n}, 8 dense buckets, "
+                 f"grid {runner.launcher.grid} CTAs", "max_abs_err": err,
         "ms": cuda_ms(one_tick),
         "device_ms": device_ms(one_tick, "fused_tick_kernel"),
         "plain_ms": cuda_ms(lambda: ref.fused_tick_ref(
             *args, t0, dense=payload.dense, csr=payload.csr, ring_len=args[2].shape[0])),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}, designs
 
 
 STDP_KW = dict(a_plus=0.004, a_minus=0.0033, w_min=0.0, w_max=4.0)  # CHAIN_STDP
@@ -724,6 +861,73 @@ def phase_scale(dev, totals: dict) -> dict:
             f"{rate:.2f} Hz, {seconds / TICKS * 1e6:.1f} us/tick, synapse bytes "
             f"{net.ledger.synapse_bytes()}, launches {launches}, card raster == "
             f"CPU raster")
+    paths.update(_phase_x100(dev, totals))
+    return paths
+
+
+X100_TICKS = 1000
+
+
+def _phase_x100(dev, totals: dict) -> dict:
+    """Synfire4x100 (N = 120,000) fp16 sparse for X100_TICKS ticks on both
+    backends: two independent kernel paths (izh4_update and 13 syn_gather
+    per tick, whose longest spike row, 20,000, opts into more shared memory,
+    against one fused_tick per tick on a grid of many CTAs), whose rasters
+    must be equal bit for bit; then fused_tick against its plain version on
+    a x100 state and the fused design's numbers there."""
+    from repro_torch.configs.synfire4 import SYNFIRE4, scale_synfire
+
+    cfg = scale_synfire(SYNFIRE4, 100)
+    g = torch.Generator(device="cpu").manual_seed(43)
+    gen_u = torch.rand((X100_TICKS, cfg.n_stim), generator=g)
+    paths, rasters, nets = {}, {}, {}
+    for backend in (None, "fused"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        net, sp, launches, seconds = _card_run(cfg, "fp16", "sparse", gen_u, X100_TICKS,
+                                               dev, backend=backend, budget=None,
+                                               monitor_ms_hint=0)
+        total_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        kinds = [b.kind for b in net.static.buckets]
+        require(net.static.n == 120_000 and kinds.count("sparse") == 13,
+                f"x100 plan: N={net.static.n}, buckets {kinds}")
+        want = _fused_launches(X100_TICKS) if backend else {
+            "izh4_update": X100_TICKS, "syn_matmul": 0, "syn_gather": 13 * X100_TICKS,
+            "fused_tick": 0, **NOT_ON_PATH}
+        require(launches == want, f"x100 launches {launches} != {want}")
+        _add(totals, launches)
+        total = int(sp.sum())
+        rate = total / (net.n_neurons * X100_TICKS) * 1000.0
+        require(17.0 <= rate <= 29.0, f"x100 mean rate {rate:.2f} Hz outside 17-29")
+        rasters[backend], nets[backend] = sp, net
+        longest = max(b.p for b in net.static.buckets)
+        key = "synfire4_x100/fp16/sparse" + ("/fused" if backend else "")
+        paths[key] = {"us_per_tick": seconds / X100_TICKS * 1e6, "spikes": total,
+                      "rate_hz": rate, "n": net.static.n, "longest_pre": longest,
+                      "synapse_bytes": net.ledger.synapse_bytes(),
+                      "peak_device_bytes": peak, "build_and_run_s": total_s,
+                      "launches": launches}
+        log(f"[x100] sparse fp16 backend={backend}: N={net.static.n}, {total} spikes, "
+            f"{rate:.2f} Hz, {seconds / X100_TICKS * 1e6:.1f} us/tick, longest pre row "
+            f"{longest}, synapse bytes {net.ledger.synapse_bytes()}, peak device memory "
+            f"{peak} B, build + runs {total_s:.1f} s, launches {launches}")
+    _require_same_raster(rasters["fused"], rasters[None], "x100 fused vs default backend")
+    log("[x100] the fused raster equals the default backend's bit for bit")
+    net = nets["fused"]
+    net, state, payload, args = _fused_state(None, None, None, dev, {}, net=net)
+    spiked = _hold_fused(net, state, payload, args, g, "SYNFIRE4_X100 fp16/sparse")
+    design = _fused_design(net, payload, args)
+    b_ms, b_by = fused_bound(payload, _fused_kernel_tick(args, state.t + CHAINED,
+                                                         payload)[2],
+                             net.static.n, args[0].element_size())
+    paths["synfire4_x100/fp16/sparse/fused"].update(
+        fused_design=design, tick_bound_us=b_ms * 1e3, tick_bound_by=b_by)
+    log(f"[x100] fused_tick: {CHAINED} ticks bitwise against the plain version "
+        f"({spiked} neuron spikes); grid {design['grid']} CTAs (of "
+        f"{design['resident_ctas']} resident), barrier {design['barrier_us']:.2f} us, "
+        f"{design['us_per_tick_grid']:.2f} us/tick on the grid vs "
+        f"{design['us_per_tick_one_cta']:.2f} on one CTA; bound {b_ms * 1e3:.3f} us ({b_by})")
     return paths
 
 
@@ -963,19 +1167,24 @@ def _attn_row(name, args, causal, window, pallas=False):
     b, sq, hq, d = q.shape
     pairs = int(allowed.sum())
     b_ms, b_by = bound(nbytes(q, k, v, qpos, kpos) + nbytes(got), 4 * hq * d * pairs)
-    library = None
+    library = library_device = None
     if not bool(empty.any()):
         qt, kt, vt = (x.float().transpose(1, 2).contiguous() for x in (q, k, v))
         mask = allowed[:, None]
-        library = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True), reps=50)
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+        library = cuda_ms(sdpa, reps=50)
+        library_device = device_total_ms(sdpa, reps=20)
     row = {"case": name, "shape": f"q {list(q.shape)} kv {list(k.shape)} "
            f"{str(k.dtype).removeprefix('torch.')} causal={causal} window={window}"
            + (" (Pallas signature)" if pallas else ""),
            "max_abs_err": err, "allowed_pairs": pairs, "empty_rows": int(empty.sum()),
            "ms": cuda_ms(run, reps=50), "device_ms": device_ms(run, "flash_attn_kernel", reps=50),
            "plain_ms": cuda_ms(plain, reps=20, warmup=3), "bound_ms": b_ms, "bound_by": b_by,
-           "library_ms": library}
+           "library_ms": library, "library_device_ms": library_device}
     lib = "-" if library is None else f"{library * 1e3:.2f} us"
     log(f"[lm] flash_attention {name} ({row['shape']}): max abs err {err:.3g}, "
         f"{row['ms'] * 1e3:.2f} us per call ({row['device_ms'] * 1e3:.2f} us on the device), "
@@ -1014,7 +1223,7 @@ def _check_attention(dev) -> dict:
             "replaces": "src/repro/kernels/flash_attn.py:70",
             "shape": main["shape"], "max_abs_err": max(r["max_abs_err"] for r in rows),
             **{k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms")},
+                                    "library_ms", "library_device_ms")},
             "cases": rows}
 
 
@@ -1193,6 +1402,45 @@ def phase_lm(dev, totals: dict) -> tuple[dict, dict]:
     return row, paths
 
 
+def _matmul_launcher_vs_per_call(dev, ticks: int = 300) -> dict:
+    """Host us/tick of the Synfire4 fp16 packed default tick through the
+    engine's per-run syn_matmul launcher against the per-call path (the
+    engine's launcher swapped for a shim around ops.syn_matmul, the earlier
+    path), in turns (per call, launcher, launcher, per call) in one
+    process; both give the same raster."""
+    from repro_torch.configs.synfire4 import SYNFIRE4, build_synfire
+    from repro_torch.core import backend as be
+    from repro_torch.core.engine import run
+    from repro_torch.kernels import ops
+
+    net = build_synfire(SYNFIRE4, policy="fp16", propagation="packed", device=dev)
+    gu = torch.rand((ticks, SYNFIRE4.n_stim), device=dev)
+    launcher = be.assemble_matmul
+
+    def per_call(static, packed):
+        return lambda bi, x: ops.syn_matmul(x[None, :], packed[bi])[0]
+
+    times, rasters = {"per_call": [], "launcher": []}, {}
+    try:
+        for mode in ("per_call", "launcher", "launcher", "per_call"):
+            be.assemble_matmul = launcher if mode == "launcher" else per_call
+            run(net.static, net.params, net.state0, 20, gen_u=gu[:20])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, out = run(net.static, net.params, net.state0, ticks, gen_u=gu)
+            torch.cuda.synchronize()
+            times[mode].append((time.perf_counter() - t0) / ticks * 1e6)
+            rasters[mode] = out["spikes"]
+    finally:
+        be.assemble_matmul = launcher
+    require(torch.equal(rasters["launcher"], rasters["per_call"]),
+            "packed tick: the launcher's raster differs from the per-call path's")
+    out = {f"{k}_us_per_tick": v for k, v in times.items()}
+    log(f"[profile] Synfire4 fp16 packed default tick, host us/tick in turns: per-call "
+        f"ops.syn_matmul {times['per_call']}, launcher {times['launcher']} (same raster)")
+    return out
+
+
 def phase_profile(dev) -> dict:
     """Device busy time per tick and idle share of the Synfire4 fp16 tick,
     from a ``torch.profiler`` trace of 100 ticks per propagation mode and
@@ -1218,13 +1466,21 @@ def phase_profile(dev) -> dict:
         gu = torch.rand((ticks, SYNFIRE4.n_stim), device=dev)
         run(net.static, net.params, net.state0, 20, gen_u=gu[:20])
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run(net.static, net.params, net.state0, ticks, gen_u=gu)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                       for e in prof.events() if e.device_type == DeviceType.CUDA)
+        key = (f"profile/synfire4{'_plastic' if stdp else ''}/fp16/{propagation}"
+               + ("/fused" if backend else ""))
+        for attempt in range(PROFILE_TRIES):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run(net.static, net.params, net.state0, ticks, gen_u=gu)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                           for e in prof.events() if e.device_type == DeviceType.CUDA)
+            launched = sum("fused_tick_kernel" in sp[2] for sp in spans)
+            if not backend or launched == ticks:
+                break
+            log(f"[profile] {key}: trace {attempt + 1} held {launched} of {ticks} "
+                "fused_tick launches; tracing again")
         busy, end, by_name = 0.0, float("-inf"), {}
         for s0, s1, name in spans:
             busy += max(0.0, s1 - max(s0, end))
@@ -1233,8 +1489,6 @@ def phase_profile(dev) -> dict:
             name = name.split("(")[0][:100]  # drop the signature
             by_name[name] = by_name.get(name, 0.0) + (s1 - s0)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        key = (f"profile/synfire4{'_plastic' if stdp else ''}/fp16/{propagation}"
-               + ("/fused" if backend else ""))
         in_loop = None
         if backend:
             starts = [i for i, sp in enumerate(spans) if "fused_tick_kernel" in sp[2]]
@@ -1256,6 +1510,7 @@ def phase_profile(dev) -> dict:
             f"(idle share {1.0 - busy / wall_us:.3f})" if spans else
             f"[profile] {key}: the profiler recorded no "
             "device activity")
+    out["synfire4/fp16/packed/matmul_launcher_vs_per_call"] = _matmul_launcher_vs_per_call(dev)
     return out
 
 
@@ -1273,7 +1528,7 @@ def main() -> int:
     log(f"[device] {torch.cuda.get_device_name(0)} | {smi} | torch {torch.__version__} "
         f"CUDA {torch.version.cuda}")
     build = phase_build()
-    rows = phase_kernels(dev)
+    rows, designs = phase_kernels(dev)
     totals = {k: 0 for k in ops.LAUNCHES}
     paths = phase_synfire(dev, totals)
     paths.update(phase_scale(dev, totals))
@@ -1286,7 +1541,8 @@ def main() -> int:
         r["launches"] = totals[r["name"]]
         require(r["launches"] > 0, f"{r['name']} never launched on the main path")
     log(json.dumps({"kernels": rows}))
-    log(json.dumps({"paths": paths, "build": build, "card": smi}))
+    log(json.dumps({"paths": paths, "fused_designs": designs, "build": build,
+                    "card": smi}))
     log(smi.splitlines()[0])
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

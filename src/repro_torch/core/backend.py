@@ -1,9 +1,10 @@
 """The tick's hot phases: neuron update, propagation and plasticity.
 
 Every bucket of the compile-time plan (``NetStatic.buckets``) is either a
-dense ``[P, Q]`` matmul on the tick's spike row (``syn_matmul``) or a CSR
-fan-in gather (``syn_gather``); the neuron update of IZH4 networks is the
-``izh4_update`` kernel. Plastic and STP projections, whose weights change
+dense ``[P, Q]`` matmul on the tick's spike row (``syn_matmul``, through
+the run's :class:`repro_torch.kernels.ops.MatmulRun`, built by
+:func:`assemble_matmul`) or a CSR fan-in gather (``syn_gather``); the
+neuron update of IZH4 networks is the ``izh4_update`` kernel. Plastic and STP projections, whose weights change
 every tick, drive through :func:`plastic_drive` after the buckets, and
 pair-based STDP updates their weights through ``stdp_update`` (dense
 storage) or ``stdp_gather`` (CSR fan-in rows) in :func:`stdp_dispatch`.
@@ -37,8 +38,8 @@ from repro_torch.core.synapses import stp_update
 from repro_torch.kernels import ops
 from repro_torch.kernels.fused_tick import KernelPayload, assemble_kernel
 
-__all__ = ["assemble_packed", "update_neurons_dispatch", "propagate_packed",
-           "FaninRows", "assemble_fanin", "plastic_drive", "stdp_dispatch",
+__all__ = ["assemble_packed", "assemble_matmul", "update_neurons_dispatch",
+           "propagate_packed", "FaninRows", "assemble_fanin", "plastic_drive", "stdp_dispatch",
            "FusedPayload", "assemble_fused"]
 
 f32 = torch.float32
@@ -65,6 +66,14 @@ def assemble_packed(static, weights) -> tuple[torch.Tensor, ...]:
             img[r0:r0 + spec.pre_size, c0:c0 + spec.post_size] += weights[j].to(f32)
         packed.append(img)
     return tuple(packed)
+
+
+def assemble_matmul(static, packed) -> ops.MatmulRun:
+    """The run's ``syn_matmul`` launcher over the dense buckets' images in
+    ``packed`` (:func:`assemble_packed`'s output). Plastic and STP
+    projections join no bucket, so the images stay fixed for the run."""
+    return ops.MatmulRun([None if b.kind == "sparse" else w
+                          for b, w in zip(static.buckets, packed)])
 
 
 def update_neurons_dispatch(static, params, neurons: nrn.NeuronState,
@@ -161,7 +170,8 @@ def _bucket_pre(static, params, spikes_f32, bi):
 
 
 def propagate_packed(static, params, spikes_f32: torch.Tensor, ring: torch.Tensor,
-                     t: int, packed, weights=(), stp=(), fanin=None) -> tuple:
+                     t: int, packed, weights=(), stp=(), fanin=None,
+                     matmul=None) -> tuple:
     """Propagate this tick's spikes (``[N]`` f32, 0.0/1.0) into ``ring``.
 
     Each bucket's drive lands in a per-delay ``[N, 1]`` f32 accumulator in
@@ -171,11 +181,13 @@ def propagate_packed(static, params, spikes_f32: torch.Tensor, ring: torch.Tenso
     order; then one commit per distinct delay adds each accumulator, cast
     to the ring's dtype first, into ring slot ``(t + d) % ring_len`` (the
     reference's ``row + acc.astype(ring.dtype)``). ``fanin`` is
-    :func:`assemble_fanin`'s output, built here when omitted. Updates
-    ``ring`` in place; returns the STP states advanced by this tick's
+    :func:`assemble_fanin`'s output and ``matmul`` :func:`assemble_matmul`'s,
+    each built here when omitted. Updates ``ring`` in place; returns the STP states advanced by this tick's
     spikes, aligned with the projections.
     """
     acc: dict[int, torch.Tensor] = {}
+    if matmul is None:
+        matmul = assemble_matmul(static, packed)
 
     def add(delay_ms, post_start, q, drive, post_ids=None):
         a = acc.get(delay_ms)
@@ -192,7 +204,7 @@ def propagate_packed(static, params, spikes_f32: torch.Tensor, ring: torch.Tenso
         if b.kind == "sparse":
             drive = ops.syn_gather(pre, params.bucket_csr_idx[bi], packed[bi])
         else:
-            drive = ops.syn_matmul(pre[None, :], packed[bi])[0]
+            drive = matmul(bi, pre)
         add(b.delay_ms, b.post_start, b.q, drive, params.bucket_post_ids[bi])
 
     new_stp = list(stp) or [None] * len(static.projections)

@@ -25,11 +25,12 @@ device, and nothing in the loop reads a tensor back to the host, so on
 the card the loop only enqueues work. The generator spikes of the whole
 run are computed before the loop in one comparison (they depend only on
 the uniforms and the tick), and the bucket weight payloads are decoded
-once per run. With ``backend="fused"`` and a plan whose ``kernel_ok`` is
-set, a tick is one operation, the ``fused_tick`` kernel, which writes its
-spike row straight into the raster; other fused nets (plastic or STP ones
-among them), and runs with an external current, tick as the default
-backend does.
+once per run, as is the dense buckets' ``syn_matmul`` launcher
+(``ops.MatmulRun``: one ctypes call per product). With
+``backend="fused"`` and a plan whose ``kernel_ok`` is set, a tick is one
+operation, the ``fused_tick`` kernel, which writes its spike row straight
+into the raster; other fused nets (plastic or STP ones among them), and
+runs with an external current, tick as the default backend does.
 
 The generator uniforms come, by default, from the reference's threefry
 stream (:mod:`repro_torch.core.rng`): the same seed gives the same raster
@@ -149,7 +150,8 @@ def _apply_homeostasis(static: NetStatic, weights: tuple, homeo: tuple,
 
 def _tick(static: NetStatic, params: NetParams, neurons: NeuronState,
           ring: torch.Tensor, t: int, packed, gen_row: torch.Tensor | None,
-          i_ext_row: torch.Tensor | None, syn: _Syn, fanin, dopamine=None):
+          i_ext_row: torch.Tensor | None, syn: _Syn, fanin, matmul,
+          dopamine=None):
     """One tick, updating ``ring`` in place; returns (neurons', spikes,
     i_syn, syn')."""
     slot = t % static.ring_len
@@ -165,7 +167,7 @@ def _tick(static: NetStatic, params: NetParams, neurons: NeuronState,
             off += sz
     spikes_f32 = spikes.to(f32)
     stp = be.propagate_packed(static, params, spikes_f32, ring, t, packed,
-                              syn.weights, syn.stp, fanin)
+                              syn.weights, syn.stp, fanin, matmul)
     weights, stdp = _plasticity(static, params, spikes_f32, syn.weights, syn.stdp,
                                 dopamine)
     return neurons, spikes, i_syn, _Syn(weights, stp, stdp)
@@ -219,7 +221,7 @@ def step(static: NetStatic, params: NetParams, state: NetState,
     ring = state.ring.clone()
     neurons, spikes, i_syn, syn = _tick(
         static, params, state.neurons, ring, state.t, packed, gen_row, i_ext,
-        _Syn(state.weights, state.stp, state.stdp), None, dopamine)
+        _Syn(state.weights, state.stp, state.stdp), None, None, dopamine)
     new_state = state._replace(t=state.t + 1, key=key, neurons=neurons, ring=ring,
                                **syn._asdict())
     return new_state, StepOutput(spikes=spikes, v=neurons.v.to(f32), i_syn=i_syn)
@@ -368,6 +370,7 @@ def run(
                            gen_spk, record, record_v, record_i)
     packed = be.assemble_packed(static, state.weights)
     fanin = be.assemble_fanin(static, params)
+    matmul = be.assemble_matmul(static, packed)
     ring = state.ring.clone()
     neurons = state.neurons
     syn = _Syn(state.weights, state.stp, state.stdp)
@@ -381,7 +384,7 @@ def run(
         neurons, spikes, i_syn, syn = _tick(
             static, params, neurons, ring, state.t + i, packed,
             None if gen_spk is None else gen_spk[i],
-            None if i_ext is None else i_ext[i], syn, fanin,
+            None if i_ext is None else i_ext[i], syn, fanin, matmul,
             None if dopamine is None else dopamine[i])
         if counts is not None:
             counts += spikes

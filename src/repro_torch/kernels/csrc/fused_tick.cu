@@ -8,46 +8,72 @@
 //     IZH4 update (common.cuh's izh4_tick, rounding pinned); the generator
 //     override in the reference's order, v = is_gen ? c : v', u = is_gen ?
 //     0 : u', spike = is_gen ? gen_row : spiked, each stored in the storage
-//     type; the spike row goes to shared memory and to `spikes`;
+//     type; the spike goes to `spikes` and, one bit per neuron, to the
+//     run's bitmask scratch (`words`);
 //   phase 2, per post column: every bucket's drive in plan order into one
 //     f32 accumulator per distinct delay, then one ring commit per delay in
 //     ascending order, ring[(t+d) % L] = ring + store(acc), in the ring's
 //     type (for fp16: round(float(r) + float(round(acc))), which is what
 //     torch's half add gives on the CPU and the card).
 //
-// Layout: one CTA of kThreads threads; __syncthreads() separates the two
-// phases. Ring, v/u, weights and CSR tables stay in device memory (Synfire4's
-// payload is about 1.2 MB, Synfire4x10 sparse 5.4 MB: both sit in the 50 MB
-// L2); the spike row (N bytes) and the bucket descriptors sit in shared
-// memory. Limits, checked by the launcher before any tick: N <= kMaxN
-// (47,104: the spike row and descriptors fit the default 48 KB of shared
-// memory), at most kMaxDelays (4) distinct delays, at most kMaxBuckets (64)
-// buckets, any ring length L, any P, Q, F.
+// Layout: a cooperative grid of CTAs of kThreads threads, sized by the
+// work (one CTA per kThreads neurons or per 16 CSR rows, whichever needs
+// more: the 186-neuron mini runs on one CTA, Synfire4 sparse on 116) and
+// capped at what the card can hold resident at once; the launcher picks
+// the grid once per run, and a grid that cannot be resident makes the
+// launch fail (the wrapper raises). Phase 1: each warp updates 32
+// consecutive neurons and writes their spike word with __ballot_sync;
+// every word has one owner and is overwritten every tick, so there are no
+// atomics and no clearing pass. A grid-wide barrier
+// (cooperative_groups::this_grid().sync(); __syncthreads() for a one-CTA
+// grid) separates the phases. Phase 2: each CTA stages the bitmask (N/8
+// bytes: 150 B at Synfire4, 15 KB at x100) in shared memory; (a) every CSR
+// row's drive, one warp per row over the whole grid (two rows in flight
+// per warp; lanes over k, four coalesced index loads in flight per lane
+// and row, the bit tested in shared memory, the spiking entries' weights
+// loaded together, a fixed shuffle tree) into the run's CSR-drive scratch (`cdrive`), then a second
+// grid-wide barrier (only where there are CSR buckets); (b) one thread
+// per post column adds the buckets covering it in plan order, a dense
+// bucket by walking the set bits of its pre span in ascending p (the
+// spiking rows only, eight weight loads in flight), a CSR bucket by
+// reading its row's drive. Ring, v/u, weights and CSR tables stay in
+// device memory. Limits, checked by the launcher before any tick:
+// N <= kMaxN (262,144: the bitmask fits 32 KB of shared memory), at most
+// kMaxDelays (4) distinct delays, at most kMaxBuckets (64) buckets, any
+// ring length L, any P, Q, F.
 //
-// Order and rounding: no atomics. A thread owns a post column and adds the
-// drives of the buckets covering it in plan order; a dense drive sums the
-// rows of W in ascending p, a CSR drive the fan-in entries in ascending k.
-// Spikes are 0 or 1, so a spiking pre adds its weight exactly (1 * w = w)
-// and a silent one would add a signed zero: the sums start at +0.0 and are
-// never -0.0, so skipping silent pres is bitwise neutral (weights finite),
-// as the reference's event gating asserts. With Synfire's exactly
-// representable weight tables every sum is exact, so the result equals the
-// plain version's bit for bit; with arbitrary weights it differs only by
-// summation order.
+// Order and rounding: no atomics. Spikes are 0 or 1, so a spiking pre adds
+// its weight exactly (1 * w = w) and a silent one would add a signed
+// zero: the sums start at +0.0 and are never -0.0, so skipping silent
+// pres is bitwise neutral (weights finite), as the reference's event
+// gating asserts. A dense drive adds its spiking rows in ascending p, as
+// the plain version's product would with the silent rows left out; a CSR
+// drive adds each lane's entries in ascending k, then the lanes in the
+// shuffle tree's fixed order. With Synfire's exactly representable weight
+// tables every sum is exact, so the result equals the plain version's bit for bit; with arbitrary
+// weights it differs only by summation order. An index outside [0, N)
+// makes its row's drive NaN: a corrupt table shows in the output.
 //
-// What bounds it: at Synfire4 size, latency. The bytes a tick must move
-// (the f32 images, the ring and the neuron state, about 1.1 MB packed) take
-// 0.35 us at 3.35 TB/s; one CTA on one SM walks them in a few microseconds,
-// and the launch itself costs about as much. The Hopper form (state in
-// shared memory, clusters with distributed shared memory, TMA-streamed
-// weight tiles) is later work.
+// What bounds it: bytes. At Synfire4 size a tick must move about 0.1 MB
+// (state, ring rows, the weight rows of the pres that spiked): latency
+// and the barrier decide. At x100 sparse the CSR index tables (about 13.5
+// M entries, 54 MB of int32) are read every tick, beyond the 50 MB L2; a
+// storage-typed (int16/fp16) payload would halve that.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
-constexpr int kThreads = 1024;
+namespace cg = cooperative_groups;
+
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kCsrUnroll = 4;   // index loads in flight per lane of a CSR row
+constexpr int kRowsInFlight = 2;  // CSR rows a warp works on at once
+constexpr int kDenseBatch = 8;  // weight loads in flight per dense column walk
 constexpr int kMaxDelays = 4;
 constexpr int kMaxBuckets = 64;
 constexpr int kDescInts = 8;  // kind, pre_start, post_start, p, q, f, kpos, offset
-constexpr int kMaxN = 48 * 1024 - kMaxBuckets * kDescInts * 4;
+constexpr int kMaxN = 32 * 1024 * 8;  // the bitmask in 32 KB of shared memory
 
 // Everything that stays fixed for a run; the Python launcher fills it once.
 // Field order and types match kernels/fused_tick.py:_Plan.
@@ -64,6 +90,8 @@ struct TickPlan {
   const float* wd;    // dense images, concatenated [P, Q] row-major
   const float* wc;    // CSR weight rows, concatenated [Q, F]
   const int* ic;      // CSR global pre indices, laid out as wc
+  uint32_t* words;    // [ceil(N / 32)] scratch: the tick's spike bitmask
+  float* cdrive;      // [sum of the CSR buckets' Q] scratch: CSR row drives
   void* stream;
   int delays[kMaxDelays];  // ascending
   int n;
@@ -72,48 +100,166 @@ struct TickPlan {
   int n_delays;
   int substeps;
   float h;
+  int grid;           // CTAs, at most what the card holds resident
 };
 
 namespace {
+
+__device__ __forceinline__ bool spiked(const uint32_t* words, int j) {
+  return (words[j >> 5] >> (j & 31)) & 1u;
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 fused_tick_kernel(const TickPlan P, const int t, const uint8_t* gen_row,
                   uint8_t* spikes, float* v_rec, float* isyn_rec) {
-  extern __shared__ uint8_t s_spk[];  // [n]
+  extern __shared__ uint32_t s_words[];  // [ceil(n / 32)]
   __shared__ int s_desc[kMaxBuckets * kDescInts];
+  // Each CSR bucket's first row in cdrive; [kMaxBuckets] holds their total.
+  __shared__ int s_cbase[kMaxBuckets + 1];
   const int n = P.n;
-  for (int i = threadIdx.x; i < P.n_buckets * kDescInts; i += blockDim.x) {
+  const int n_words = (n + 31) >> 5;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < P.n_buckets * kDescInts; i += kThreads) {
     s_desc[i] = P.desc[i];
+  }
+  if (threadIdx.x == 0) {
+    int base = 0;
+    for (int bi = 0; bi < P.n_buckets; ++bi) {
+      s_cbase[bi] = base;
+      if (P.desc[bi * kDescInts] == 1) base += P.desc[bi * kDescInts + 4];
+    }
+    s_cbase[kMaxBuckets] = base;
   }
   T* ring = static_cast<T*>(P.ring);
 
-  // Phase 1: delivery, neurons, generators.
+  // Phase 1: delivery, neurons, generators; one warp per 32 neurons.
   T* slot = ring + static_cast<size_t>(t) * n;  // t < ring_len (reduced by the launcher)
   T* vv = static_cast<T*>(P.v);
   T* uu = static_cast<T*>(P.u);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const float cur = to_f32(slot[i]);
-    slot[i] = from_f32<T>(0.0f);
-    float v = to_f32(vv[i]);
-    float u = to_f32(uu[i]);
-    const float c = P.c[i];
-    const bool spk = izh4_tick(v, u, cur, P.a[i], P.b[i], c, P.d[i], P.h, P.substeps);
-    const bool gen = P.is_gen[i] != 0;
-    const T vs = gen ? from_f32<T>(c) : from_f32<T>(v);
-    const T us = gen ? from_f32<T>(0.0f) : from_f32<T>(u);
-    const uint8_t s = gen ? (gen_row[i] != 0 ? 1 : 0) : (spk ? 1 : 0);
-    vv[i] = vs;
-    uu[i] = us;
-    s_spk[i] = s;
-    spikes[i] = s;  // may alias gen_row: the same thread read it above
-    if (v_rec != nullptr) v_rec[i] = to_f32(vs);
-    if (isyn_rec != nullptr) isyn_rec[i] = cur;
+  for (int wi = blockIdx.x * kWarps + warp; wi < n_words; wi += gridDim.x * kWarps) {
+    const int i = (wi << 5) + lane;
+    bool s = false;
+    if (i < n) {
+      const float cur = to_f32(slot[i]);
+      slot[i] = from_f32<T>(0.0f);
+      float v = to_f32(vv[i]);
+      float u = to_f32(uu[i]);
+      const float c = P.c[i];
+      const bool spk = izh4_tick(v, u, cur, P.a[i], P.b[i], c, P.d[i], P.h, P.substeps);
+      const bool gen = P.is_gen[i] != 0;
+      const T vs = gen ? from_f32<T>(c) : from_f32<T>(v);
+      const T us = gen ? from_f32<T>(0.0f) : from_f32<T>(u);
+      s = gen ? gen_row[i] != 0 : spk;
+      vv[i] = vs;
+      uu[i] = us;
+      spikes[i] = s ? 1 : 0;  // may alias gen_row: the same thread read it above
+      if (v_rec != nullptr) v_rec[i] = to_f32(vs);
+      if (isyn_rec != nullptr) isyn_rec[i] = cur;
+    }
+    const uint32_t word = __ballot_sync(0xffffffffu, s);
+    if (lane == 0) P.words[wi] = word;
   }
+  if (gridDim.x > 1) {
+    cg::this_grid().sync();
+  } else {
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < n_words; i += kThreads) s_words[i] = P.words[i];
   __syncthreads();
 
-  // Phase 2: propagation and the ring commits, one post column per thread.
-  for (int q = threadIdx.x; q < n; q += blockDim.x) {
+  // Phase 2a: every CSR row's drive, one warp per row over the whole grid,
+  // into cdrive (row R of the flat order: bucket by bucket, row by row).
+  // A warp keeps kRowsInFlight rows in flight (rows R and R + all warps),
+  // so their loads overlap; each row still sums its lanes' entries in
+  // ascending k, then the lanes in the fixed shuffle tree.
+  const int n_csr = s_cbase[kMaxBuckets];
+  if (n_csr > 0) {
+    const int all_warps = gridDim.x * kWarps;
+    int bucket[kRowsInFlight];  // each row's bucket: a warp's rows only move forward
+#pragma unroll
+    for (int r = 0; r < kRowsInFlight; ++r) bucket[r] = 0;
+    for (int base = blockIdx.x * kWarps + warp; base < n_csr;
+         base += kRowsInFlight * all_warps) {
+      const int* idx[kRowsInFlight];
+      const float* wrow[kRowsInFlight];
+      int f[kRowsInFlight];
+      float acc[kRowsInFlight];
+      int f_max = 0;
+#pragma unroll
+      for (int r = 0; r < kRowsInFlight; ++r) {
+        const int row_id = base + r * all_warps;
+        acc[r] = 0.0f;
+        f[r] = 0;
+        idx[r] = P.ic;
+        wrow[r] = P.wc;
+        if (row_id < n_csr) {
+          int bi = bucket[r];
+          while (s_desc[bi * kDescInts] != 1 ||
+                 row_id >= s_cbase[bi] + s_desc[bi * kDescInts + 4]) {
+            ++bi;
+          }
+          bucket[r] = bi;
+          const int* dsc = s_desc + bi * kDescInts;
+          f[r] = dsc[5];
+          const size_t row = static_cast<size_t>(dsc[7]) +
+                             static_cast<size_t>(row_id - s_cbase[bi]) * f[r];
+          idx[r] = P.ic + row;
+          wrow[r] = P.wc + row;
+          f_max = max(f_max, f[r]);
+        }
+      }
+      for (int k0 = lane; k0 < f_max; k0 += 32 * kCsrUnroll) {
+        // All index loads first, then the spiking entries' weights, then
+        // the adds in ascending k (a silent entry adds +0.0: neutral).
+        int j[kRowsInFlight][kCsrUnroll];
+        float wv[kRowsInFlight][kCsrUnroll];
+#pragma unroll
+        for (int r = 0; r < kRowsInFlight; ++r) {
+#pragma unroll
+          for (int u = 0; u < kCsrUnroll; ++u) {
+            const int k = k0 + 32 * u;
+            j[r][u] = k < f[r] ? idx[r][k] : 0;
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < kRowsInFlight; ++r) {
+#pragma unroll
+          for (int u = 0; u < kCsrUnroll; ++u) {
+            const int k = k0 + 32 * u;
+            const bool valid = j[r][u] >= 0 && j[r][u] < n;
+            wv[r][u] = k >= f[r] ? 0.0f
+                       : !valid ? __int_as_float(0x7fc00000)  // a corrupt table shows as NaN
+                       : spiked(s_words, j[r][u]) ? wrow[r][k] : 0.0f;
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < kRowsInFlight; ++r) {
+#pragma unroll
+          for (int u = 0; u < kCsrUnroll; ++u) acc[r] = __fadd_rn(acc[r], wv[r][u]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kRowsInFlight; ++r) {
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          acc[r] = __fadd_rn(acc[r], __shfl_down_sync(0xffffffffu, acc[r], off));
+        }
+        const int row_id = base + r * all_warps;
+        if (lane == 0 && row_id < n_csr) P.cdrive[row_id] = acc[r];
+      }
+    }
+    if (gridDim.x > 1) {
+      cg::this_grid().sync();
+    } else {
+      __syncthreads();
+    }
+  }
+
+  // Phase 2b: one thread per post column adds the buckets covering it in
+  // plan order and commits the ring.
+  for (int q = blockIdx.x * kThreads + threadIdx.x; q < n; q += gridDim.x * kThreads) {
     float acc[kMaxDelays];
 #pragma unroll
     for (int k = 0; k < kMaxDelays; ++k) acc[k] = 0.0f;
@@ -123,26 +269,38 @@ fused_tick_kernel(const TickPlan P, const int t, const uint8_t* gen_row,
       const int qn = dsc[4];
       if (col < 0 || col >= qn) continue;
       float drive = 0.0f;
-      if (dsc[0] == 0) {  // dense [P, Q] image, pre span [pre_start, pre_start + P)
-        const uint8_t* pre = s_spk + dsc[1];
+      if (dsc[0] == 0) {  // dense [P, Q] image, pre span [ps, pe)
+        const int ps = dsc[1];
+        const int pe = ps + dsc[3];
         const float* w = P.wd + dsc[7] + col;
-        const int pn = dsc[3];
-        for (int p = 0; p < pn; ++p) {
-          if (pre[p]) drive = __fadd_rn(drive, w[static_cast<size_t>(p) * qn]);
-        }
-      } else {  // CSR fan-in row of width F, global pre indices
-        const int f = dsc[5];
-        const size_t row = static_cast<size_t>(dsc[7]) + static_cast<size_t>(col) * f;
-        const int* idx = P.ic + row;
-        const float* w = P.wc + row;
-        for (int k = 0; k < f; ++k) {
-          const int j = idx[k];
-          if (j < 0 || j >= n) {
-            drive = __int_as_float(0x7fc00000);  // a corrupt table shows as NaN
-          } else if (s_spk[j]) {
-            drive = __fadd_rn(drive, w[k]);
+        if (pe > ps) {
+          const int w0 = ps >> 5;
+          const int w1 = (pe - 1) >> 5;
+          for (int wi = w0; wi <= w1; ++wi) {
+            uint32_t m = s_words[wi];
+            if (wi == w0) m &= 0xffffffffu << (ps & 31);
+            if (wi == w1) m &= 0xffffffffu >> (31 - ((pe - 1) & 31));
+            while (m != 0u) {  // the spiking rows, ascending, kDenseBatch loads at once
+              float wv[kDenseBatch];
+              int cnt = 0;
+#pragma unroll
+              for (int u = 0; u < kDenseBatch; ++u) {
+                if (m != 0u) {
+                  const int p = (wi << 5) + __ffs(m) - 1 - ps;
+                  m &= m - 1u;
+                  wv[u] = w[static_cast<size_t>(p) * qn];
+                  cnt = u + 1;
+                }
+              }
+#pragma unroll
+              for (int u = 0; u < kDenseBatch; ++u) {
+                if (u < cnt) drive = __fadd_rn(drive, wv[u]);
+              }
+            }
           }
         }
+      } else {
+        drive = P.cdrive[s_cbase[bi] + col];
       }
       const int kpos = dsc[6];
 #pragma unroll
@@ -162,19 +320,33 @@ fused_tick_kernel(const TickPlan P, const int t, const uint8_t* gen_row,
   }
 }
 
+size_t words_bytes(int n) { return static_cast<size_t>((n + 31) / 32) * sizeof(uint32_t); }
+
 template <typename T>
 int launch(const TickPlan* plan, int t, const void* gen_row, void* spikes, void* v_rec,
            void* isyn_rec) {
   if (plan->n <= 0) return 0;
   if (plan->n > kMaxN || plan->n_buckets > kMaxBuckets || plan->n_delays > kMaxDelays ||
-      t < 0 || t >= plan->ring_len) {
+      plan->grid < 1 || t < 0 || t >= plan->ring_len) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  fused_tick_kernel<T><<<1, kThreads, static_cast<size_t>(plan->n),
-                         static_cast<cudaStream_t>(plan->stream)>>>(
-      *plan, t, static_cast<const uint8_t*>(gen_row), static_cast<uint8_t*>(spikes),
-      static_cast<float*>(v_rec), static_cast<float*>(isyn_rec));
+  int tt = t;
+  const uint8_t* g = static_cast<const uint8_t*>(gen_row);
+  uint8_t* sp = static_cast<uint8_t*>(spikes);
+  float* vr = static_cast<float*>(v_rec);
+  float* ir = static_cast<float*>(isyn_rec);
+  void* args[] = {const_cast<TickPlan*>(plan), &tt, &g, &sp, &vr, &ir};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(fused_tick_kernel<T>), dim3(plan->grid), dim3(kThreads),
+      args, words_bytes(plan->n), static_cast<cudaStream_t>(plan->stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// `reps` grid-wide barriers and nothing else: the barrier's cost at a grid.
+__global__ void __launch_bounds__(kThreads) barrier_probe_kernel(int reps) {
+  cg::grid_group grid = cg::this_grid();
+  for (int i = 0; i < reps; ++i) grid.sync();
 }
 
 }  // namespace
@@ -184,7 +356,35 @@ REPRO_EXPORT int fused_tick_limits(int* out) {
   out[1] = kMaxDelays;
   out[2] = kMaxBuckets;
   out[3] = static_cast<int>(sizeof(TickPlan));
+  out[4] = kThreads;
   return 0;
+}
+
+// The kernel's resident CTAs per SM at N neurons (storage type f32 when
+// fp16 is 0, else fp16), the device's SM count, and whether it takes
+// cooperative launches.
+REPRO_EXPORT int fused_tick_occupancy(int fp16, int n, int* out) {
+  int per_sm = 0, dev = 0, sms = 0, coop = 0;
+  cudaError_t err = fp16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                               &per_sm, fused_tick_kernel<__half>, kThreads, words_bytes(n))
+                         : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                               &per_sm, fused_tick_kernel<float>, kThreads, words_bytes(n));
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  out[0] = per_sm;
+  out[1] = sms;
+  out[2] = coop;
+  return static_cast<int>(err);
+}
+
+REPRO_EXPORT int fused_tick_barrier_probe(int grid, int reps, void* stream) {
+  void* args[] = {&reps};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(barrier_probe_kernel), dim3(grid), dim3(kThreads), args, 0,
+      static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 #define REPRO_FUSED(NAME, T)                                                       \

@@ -16,22 +16,31 @@
 // meet in a fixed shuffle tree, so every run gives the same bits.
 // An index outside [0, P) contributes NaN: a corrupt table shows in the
 // output instead of reading out of bounds (the plain version raises).
-// The spike row must fit the default 48 KB of shared memory (P <= 12,288;
-// Synfire4x10's longest pre group is 2,000).
+//
+// Any P: the spike row is staged in dynamic shared memory, above the
+// default 48 KB after opting in up to what the device allows per block
+// (cudaDevAttrMaxSharedMemoryPerBlockOptin: 232,448 B on the H100, so
+// P <= 58,112 f32; Synfire4x100's longest pre group is 20,000). A longer
+// row is read from device memory through the read-only path instead
+// (kStaged false); the sum is the same either way.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kRowsPerBlock = 16;  // 16 warps, 512 threads
-constexpr int kMaxSharedBytes = 48 * 1024;
+constexpr size_t kDefaultSharedBytes = 48 * 1024;
 
-template <typename I, typename W>
+template <typename I, typename W, bool kStaged>
 __global__ void gather_kernel(const float* __restrict__ spikes, const I* __restrict__ idx,
                               const W* __restrict__ w, float* __restrict__ out, int P,
                               int Q, int F) {
-  extern __shared__ float sp[];
-  for (int j = threadIdx.x; j < P; j += blockDim.x) sp[j] = spikes[j];
-  __syncthreads();
+  extern __shared__ float staged[];
+  const float* sp = spikes;
+  if (kStaged) {
+    for (int j = threadIdx.x; j < P; j += blockDim.x) staged[j] = spikes[j];
+    __syncthreads();
+    sp = staged;
+  }
   const int lane = threadIdx.x & 31;
   const int q = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
   if (q >= Q) return;  // whole warps leave together: the shuffles stay full
@@ -40,7 +49,8 @@ __global__ void gather_kernel(const float* __restrict__ spikes, const I* __restr
   float acc = 0.0f;
   for (int k = lane; k < F; k += 32) {
     const int j = static_cast<int>(irow[k]);
-    const float s = (j >= 0 && j < P) ? sp[j] : __int_as_float(0x7fc00000);
+    const float s = (j >= 0 && j < P) ? (kStaged ? sp[j] : __ldg(sp + j))
+                                      : __int_as_float(0x7fc00000);
     acc = fmaf(s, to_f32(wrow[k]), acc);
   }
 #pragma unroll
@@ -48,16 +58,46 @@ __global__ void gather_kernel(const float* __restrict__ spikes, const I* __restr
   if (lane == 0) out[q] = acc;
 }
 
+// The most dynamic shared memory one block may opt into on the current
+// device, read once per process.
+size_t optin_shared_bytes() {
+  static size_t bytes = 0;
+  if (bytes == 0) {
+    int dev = 0, v = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    bytes = v > 0 ? static_cast<size_t>(v) : kDefaultSharedBytes;
+  }
+  return bytes;
+}
+
 template <typename I, typename W>
 int launch(const void* spikes, const void* idx, const void* w, void* out, int P, int Q,
            int F, void* stream) {
   if (Q <= 0) return 0;
   const size_t smem = static_cast<size_t>(P) * sizeof(float);
-  if (smem > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (Q + kRowsPerBlock - 1) / kRowsPerBlock;
-  gather_kernel<I, W><<<blocks, kRowsPerBlock * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(spikes), static_cast<const I*>(idx),
-      static_cast<const W*>(w), static_cast<float*>(out), P, Q, F);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sp = static_cast<const float*>(spikes);
+  const I* ip = static_cast<const I*>(idx);
+  const W* wp = static_cast<const W*>(w);
+  float* op = static_cast<float*>(out);
+  if (smem <= optin_shared_bytes()) {
+    if (smem > kDefaultSharedBytes) {
+      // Opted in once per instance, to the longest row seen so far.
+      static size_t opted = 0;
+      if (smem > opted) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            gather_kernel<I, W, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (err != cudaSuccess) return static_cast<int>(err);
+        opted = smem;
+      }
+    }
+    gather_kernel<I, W, true><<<blocks, kRowsPerBlock * 32, smem, s>>>(sp, ip, wp, op, P, Q, F);
+  } else {
+    gather_kernel<I, W, false><<<blocks, kRowsPerBlock * 32, 0, s>>>(sp, ip, wp, op, P, Q, F);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

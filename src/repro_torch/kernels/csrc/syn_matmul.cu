@@ -4,52 +4,163 @@
 // (syn_matmul -> _matmul_kernel): out[M, N] = x[M, K] @ w[K, N] with w in
 // fp16, bf16 or f32, decoded to f32 where it is loaded, f32 accumulation.
 //
-// What bounds it: bytes. The engine calls it with M = 1, the tick's spike
-// row against a hoisted f32 bucket image ([200, 250] and [50, 200] on
-// Synfire4): 2·K·N operations on 4·K·N bytes of weights, two orders of
-// magnitude below the card's operations-per-byte balance. So the M = 1
-// case is a GEMV laid out for coalesced weight rows: a block of 32 x 8
-// threads owns 32 columns, each of its 8 warps sums a contiguous eighth
-// of K (every warp load is 32 neighbouring columns of one row), and the
-// 8 partial sums are added in warp order through shared memory, so the
-// result is the same on every run. M > 1 (batched rows) takes a plain
-// 16 x 16 shared-memory tiled product. Tensor cores (wgmma) and TMA come
-// with the batched serving lanes, where M grows.
+// What bounds it: bytes, and at the engine's shapes latency. The engine
+// calls it with M = 1, the tick's spike row against a hoisted f32 bucket
+// image ([200, 250] and [50, 200] on Synfire4): 2·K·N operations on
+// 4·K·N bytes of weights, two orders of magnitude below the card's
+// operations-per-byte balance, and a few hundred KB at most, so the time
+// is the launch and the longest dependent chain of loads and adds. The
+// M = 1 case is a GEMV spread over the card: the grid is (C, column
+// tiles); every lane owns VEC neighbouring columns, read with one 16-byte
+// (or, where N or the pointer's alignment does not allow it, 8-, 4- or
+// 2-byte) load per weight row, and the warps of a CTA split its K slice.
+// Partial sums meet in a fixed order: the warps through shared memory in
+// warp order, then, where K is split over a thread-block cluster of C
+// CTAs, the C ranks through distributed shared memory
+// (cluster.map_shared_rank) into rank 0 in rank order, so every run gives
+// the same bits. A cluster launch costs about 1.3 us more on the device
+// than a plain one, even with one rank (scripts/bench_gemv_layouts.py on
+// an H100 80GB HBM3 at 700 W), so K up to
+// kClusterMinK runs as one CTA of 16 warps per column tile without a
+// cluster (2.05 us at [200, 250] against 3.6 us with a cluster), and
+// longer K on a cluster of C = min(8, ceil(K / 512)) CTAs of 8 warps
+// (29.3 us at [4096, 4096] against 58.1 us without). Every weight is
+// multiplied by its x[k] (no gating on x[k] != 0): a zero row times an
+// infinite weight stays NaN, as the TPU kernel's dot leaves it. M > 1
+// (batched rows) takes a plain 16 x 16 shared-memory tiled product;
+// tensor cores (wgmma) and TMA come with the batched serving lanes, where
+// M grows.
+//
+// Two entries: syn_matmul_<w>(x, w, out, M, K, N, stream) for one checked
+// call, and syn_matmul_run(plan, x), the per-run launcher's (ops.MatmulRun):
+// the bucket image, its output buffer, the shape and the stream sit in a
+// GemvPlan filled once per run, so a tick's call passes only the spike row.
 //
 // Exactness: 0/1 spikes times Synfire4's weight table (1.0, 3.5, -2.0)
 // give half-integer partial sums, exact in f32 in any order, so the kernel
 // equals the plain version bit for bit there; for arbitrary weights it
 // differs from it by summation order only.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kGemvCols = 32;
-constexpr int kGemvSlices = 8;
+constexpr int kMaxCluster = 8;
+constexpr int kRowsPerRank = 512;   // K per cluster rank before another rank joins
+constexpr int kClusterMinK = 1024;  // shorter K runs without a cluster
 constexpr int kTile = 16;
 
-template <typename W>
-__global__ void gemv_kernel(const float* __restrict__ x, const W* __restrict__ w,
-                            float* __restrict__ out, int K, int N) {
-  __shared__ float part[kGemvSlices][kGemvCols + 1];
-  const int col = blockIdx.x * kGemvCols + threadIdx.x;
-  const int slice = threadIdx.y;
-  const int chunk = (K + kGemvSlices - 1) / kGemvSlices;
-  const int k0 = slice * chunk;
-  const int k1 = min(K, k0 + chunk);
-  float acc = 0.0f;
-  if (col < N) {
-    for (int k = k0; k < k1; ++k) {
-      acc = fmaf(x[k], to_f32(w[static_cast<size_t>(k) * N + col]), acc);
+// VEC weights of one row, loaded as one aligned vector.
+template <typename W, int VEC>
+struct alignas(sizeof(W) * VEC) Pack {
+  W v[VEC];
+};
+
+template <typename W, int VEC, int WARPS, bool CLUSTER>
+__global__ void __launch_bounds__(WARPS * 32)
+gemv_kernel(const float* __restrict__ x, const W* __restrict__ w, float* __restrict__ out,
+            int K, int N, int rows_per_rank) {
+  constexpr int kCols = 32 * VEC;
+  __shared__ float part[WARPS][kCols];
+  __shared__ float total[kCols];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int rank = CLUSTER ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
+  const int col0 = blockIdx.y * kCols + lane * VEC;  // N % VEC == 0: all VEC in range
+  const int k0 = rank * rows_per_rank;
+  const int per_warp = (rows_per_rank + WARPS - 1) / WARPS;
+  const int wk0 = k0 + warp * per_warp;
+  const int wk1 = min(min(K, k0 + rows_per_rank), wk0 + per_warp);
+  float acc[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) acc[j] = 0.0f;
+  if (col0 < N) {
+    const W* wp = w + col0;
+#pragma unroll 4
+    for (int k = wk0; k < wk1; ++k) {
+      const float xk = x[k];
+      const Pack<W, VEC> p = *reinterpret_cast<const Pack<W, VEC>*>(
+          wp + static_cast<size_t>(k) * N);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) acc[j] = fmaf(xk, to_f32(p.v[j]), acc[j]);
     }
   }
-  part[slice][threadIdx.x] = acc;
-  __syncthreads();
-  if (slice == 0 && col < N) {
-    float s = part[0][threadIdx.x];
 #pragma unroll
-    for (int j = 1; j < kGemvSlices; ++j) s += part[j][threadIdx.x];
-    out[col] = s;
+  for (int j = 0; j < VEC; ++j) part[warp][lane * VEC + j] = acc[j];
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      float s = part[0][lane * VEC + j];
+#pragma unroll
+      for (int wi = 1; wi < WARPS; ++wi) s += part[wi][lane * VEC + j];
+      total[lane * VEC + j] = s;
+    }
+  }
+  if constexpr (CLUSTER) {
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();  // every rank's total is written
+    if (rank == 0 && warp == 0 && col0 < N) {
+      const int ranks = static_cast<int>(cluster.num_blocks());
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        float s = total[lane * VEC + j];
+        for (int r = 1; r < ranks; ++r) s += cluster.map_shared_rank(total, r)[lane * VEC + j];
+        out[col0 + j] = s;
+      }
+    }
+    cluster.sync();  // rank 0 has read every rank's shared memory before it is freed
+  } else if (warp == 0 && col0 < N) {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) out[col0 + j] = total[lane * VEC + j];
+  }
+}
+
+template <typename W, int VEC>
+cudaError_t launch_gemv_vec(const float* x, const W* w, float* out, int K, int N,
+                            cudaStream_t s) {
+  const dim3 tiles(1, (N + 32 * VEC - 1) / (32 * VEC), 1);
+  if (K <= kClusterMinK) {
+    gemv_kernel<W, VEC, 16, false><<<tiles, 16 * 32, 0, s>>>(x, w, out, K, N, K);
+    return cudaSuccess;
+  }
+  const int ranks = min(kMaxCluster, (K + kRowsPerRank - 1) / kRowsPerRank);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ranks, tiles.y, 1);
+  cfg.blockDim = dim3(8 * 32, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ranks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, gemv_kernel<W, VEC, 8, true>, x, w, out, K, N,
+                            (K + ranks - 1) / ranks);
+}
+
+// The widest load (16 bytes down to one element) that N and w's alignment
+// allow for every row.
+template <typename W>
+cudaError_t launch_gemv(const float* x, const W* w, float* out, int K, int N,
+                        cudaStream_t s) {
+  int vec = 16 / static_cast<int>(sizeof(W));
+  while (vec > 1 && (N % vec != 0 ||
+                     reinterpret_cast<uintptr_t>(w) % (vec * sizeof(W)) != 0)) {
+    vec /= 2;
+  }
+  switch (vec) {
+    case 8:
+      if constexpr (sizeof(W) == 2) return launch_gemv_vec<W, 8>(x, w, out, K, N, s);
+      return cudaErrorInvalidValue;
+    case 4: return launch_gemv_vec<W, 4>(x, w, out, K, N, s);
+    case 2: return launch_gemv_vec<W, 2>(x, w, out, K, N, s);
+    default: return launch_gemv_vec<W, 1>(x, w, out, K, N, s);
   }
 }
 
@@ -84,9 +195,8 @@ int launch(const void* x, const void* w, void* out, int M, int K, int N, void* s
   const W* wp = static_cast<const W*>(w);
   float* op = static_cast<float*>(out);
   if (M == 1) {
-    dim3 block(kGemvCols, kGemvSlices);
-    dim3 grid((N + kGemvCols - 1) / kGemvCols);
-    gemv_kernel<W><<<grid, block, 0, s>>>(xp, wp, op, K, N);
+    const cudaError_t err = launch_gemv<W>(xp, wp, op, K, N, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
   } else {
     dim3 block(kTile, kTile);
     dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile);
@@ -96,6 +206,17 @@ int launch(const void* x, const void* w, void* out, int M, int K, int N, void* s
 }
 
 }  // namespace
+
+// One bucket's M = 1 product for a run; field order and types match
+// kernels/syn_matmul.py:GemvPlan.
+struct GemvPlan {
+  const void* w;  // [K, N] in the type wtype names
+  void* out;      // [N] f32
+  void* stream;
+  int K;
+  int N;
+  int wtype;  // 0 f32, 1 fp16, 2 bf16
+};
 
 REPRO_EXPORT int syn_matmul_f32(const void* x, const void* w, void* out, int M,
                                 int K, int N, void* stream) {
@@ -111,3 +232,15 @@ REPRO_EXPORT int syn_matmul_bf16(const void* x, const void* w, void* out, int M,
                                  int K, int N, void* stream) {
   return launch<__nv_bfloat16>(x, w, out, M, K, N, stream);
 }
+
+REPRO_EXPORT int syn_matmul_run(const GemvPlan* plan, const void* x) {
+  switch (plan->wtype) {
+    case 0: return launch<float>(x, plan->w, plan->out, 1, plan->K, plan->N, plan->stream);
+    case 1: return launch<__half>(x, plan->w, plan->out, 1, plan->K, plan->N, plan->stream);
+    case 2:
+      return launch<__nv_bfloat16>(x, plan->w, plan->out, 1, plan->K, plan->N, plan->stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+REPRO_EXPORT int syn_matmul_plan_size() { return static_cast<int>(sizeof(GemvPlan)); }

@@ -15,9 +15,11 @@ once per run, the operands the CUDA kernel reads, in this card's layout
 The same payload carries the per-bucket ``dense``/``csr`` lists the plain
 version (:func:`repro_torch.kernels.ref.fused_tick_ref`) takes.
 
-:class:`TickLauncher` checks a run's fixed tensors and fills the kernel's
-plan (a C struct) once; each tick then passes only the tick and its row
-pointers through ctypes. Call it through
+:class:`TickLauncher` checks a run's fixed tensors (:func:`check_limits`),
+picks the kernel's grid (:func:`plan_grid`), allocates its scratch (the
+spike bitmask and the CSR row drives) and fills the kernel's plan (a C
+struct) once; each tick then passes only the tick and its row pointers
+through ctypes. Call it through
 :class:`repro_torch.kernels.ops.FusedTickRun`, which checks the tensors and
 counts launches.
 """
@@ -30,15 +32,20 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["KernelPayload", "assemble_kernel", "TickLauncher", "MAX_N",
-           "MAX_DELAYS", "MAX_BUCKETS", "STORAGE_DTYPES"]
+__all__ = ["KernelPayload", "assemble_kernel", "pack_payload", "TickLauncher", "check_limits",
+           "plan_grid", "MAX_N", "MAX_DELAYS", "MAX_BUCKETS", "THREADS",
+           "CSR_ROWS_PER_CTA",
+           "STORAGE_DTYPES"]
 
-# Limits of the one-CTA kernel (csrc/fused_tick.cu): the spike row and the
-# bucket descriptors fit the default 48 KB of shared memory.
+# Limits of the kernel (csrc/fused_tick.cu): the spike bitmask (one bit per
+# neuron) fits 32 KB of shared memory; at most 4 distinct delays and 64
+# buckets. Synfire4x100 (N = 120,000) needs 15 KB, 2 delays, 13 buckets.
+MAX_N = 262_144
 MAX_DELAYS = 4
 MAX_BUCKETS = 64
+THREADS = 256  # per CTA
+CSR_ROWS_PER_CTA = 16  # two CSR rows (one pair in flight) per warp
 _DESC_INTS = 8
-MAX_N = 48 * 1024 - MAX_BUCKETS * _DESC_INTS * 4
 _ENTRY = {torch.float32: "fused_tick_f32", torch.float16: "fused_tick_f16"}
 STORAGE_DTYPES = tuple(_ENTRY)
 
@@ -50,16 +57,19 @@ class _Plan(ctypes.Structure):
 
     _fields_ = [(name, _P) for name in (
         "v", "u", "ring", "is_gen", "a", "b", "c", "d",
-        "desc", "wd", "wc", "ic", "stream")] + [
+        "desc", "wd", "wc", "ic", "words", "cdrive", "stream")] + [
         ("delays", ctypes.c_int * MAX_DELAYS), ("n", ctypes.c_int),
         ("ring_len", ctypes.c_int), ("n_buckets", ctypes.c_int),
         ("n_delays", ctypes.c_int), ("substeps", ctypes.c_int),
-        ("h", ctypes.c_float)]
+        ("h", ctypes.c_float), ("grid", ctypes.c_int)]
 
 
 _TICK_SIGNATURE = [ctypes.POINTER(_Plan), ctypes.c_int, _P, _P, _P, _P]
+_INTS = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {"fused_tick_f32": _TICK_SIGNATURE, "fused_tick_f16": _TICK_SIGNATURE,
-               "fused_tick_limits": [ctypes.POINTER(ctypes.c_int)]}
+               "fused_tick_limits": [_INTS],
+               "fused_tick_occupancy": [ctypes.c_int, ctypes.c_int, _INTS],
+               "fused_tick_barrier_probe": [ctypes.c_int, ctypes.c_int, _P]}
 
 
 class KernelPayload(NamedTuple):
@@ -80,81 +90,135 @@ def assemble_kernel(static, params, packed) -> KernelPayload:
     """The fused tick's payload from the assembled bucket payloads
     (:func:`repro_torch.core.backend.assemble_packed`). Every bucket must
     have contiguous pre and post spans (``FusedPlan.kernel_ok``)."""
-    delays = static.fused.delays
-    kpos = {d: k for k, d in enumerate(delays)}
-    dev = params.gen_rate.device
-    dense, csr, rows = [], [], []
-    wd_off = wc_off = 0
+    buckets = []
     for bi, b in enumerate(static.buckets):
         if b.pre_start < 0 or b.post_start < 0:
             raise ValueError(f"bucket {bi} gathers or scatters: the fused kernel "
                              "takes contiguous spans only (FusedPlan.kernel_ok)")
         if b.kind == "dense":
-            dense.append((b.pre_start, b.post_start, b.delay_ms, packed[bi]))
-            rows.append((0, b.pre_start, b.post_start, b.p, b.q, 0,
-                         kpos[b.delay_ms], wd_off))
-            wd_off += b.p * b.q
+            buckets.append(("dense", b.pre_start, b.post_start, b.delay_ms, packed[bi]))
         else:
             idx = params.bucket_csr_idx[bi].to(torch.int32) + b.pre_start
-            csr.append((b.post_start, b.delay_ms, idx.contiguous(), packed[bi]))
-            f = idx.shape[1]
-            rows.append((1, b.pre_start, b.post_start, b.p, b.q, f,
-                         kpos[b.delay_ms], wc_off))
-            wc_off += b.q * f
+            buckets.append(("csr", b.pre_start, b.p, b.post_start, b.delay_ms,
+                            idx.contiguous(), packed[bi]))
+    return pack_payload(static.fused.delays, buckets, params.gen_rate.device)
+
+
+def pack_payload(delays, buckets, device) -> KernelPayload:
+    """The payload of ``buckets``, in plan order: ``("dense", pre_start,
+    post_start, delay, W [P, Q] f32)`` or ``("csr", pre_start, pre_size,
+    post_start, delay, idx [Q, F] int32 global, w [Q, F] f32)``, with
+    ``delays`` the ascending distinct delays."""
+    kpos = {d: k for k, d in enumerate(delays)}
+    dense, csr, rows = [], [], []
+    wd_off = wc_off = 0
+    for b in buckets:
+        if b[0] == "dense":
+            _, ps, qs, dly, w = b
+            dense.append((ps, qs, dly, w))
+            rows.append((0, ps, qs, w.shape[0], w.shape[1], 0, kpos[dly], wd_off))
+            wd_off += w.numel()
+        else:
+            _, ps, pn, qs, dly, idx, w = b
+            csr.append((qs, dly, idx, w))
+            rows.append((1, ps, qs, pn, idx.shape[0], idx.shape[1], kpos[dly], wc_off))
+            wc_off += idx.numel()
 
     def cat(parts, dtype):
         flat = [x.reshape(-1) for x in parts]
-        return torch.cat(flat) if flat else torch.zeros((0,), dtype=dtype, device=dev)
+        return torch.cat(flat) if flat else torch.zeros((0,), dtype=dtype, device=device)
 
-    desc = torch.tensor(rows, dtype=torch.int32).reshape(-1, _DESC_INTS).to(dev)
+    desc = torch.tensor(rows, dtype=torch.int32).reshape(-1, _DESC_INTS).to(device)
     return KernelPayload(
-        delays=delays, dense=tuple(dense), csr=tuple(csr),
+        delays=tuple(delays), dense=tuple(dense), csr=tuple(csr),
         desc=desc, wd=cat([w for *_, w in dense], torch.float32),
         wc=cat([w for *_, w in csr], torch.float32),
         ic=cat([i for _, _, i, _ in csr], torch.int32))
 
 
+def check_limits(n: int, delays, n_buckets: int, ring_len: int) -> None:
+    """Raise unless the kernel takes a net of ``n`` neurons with these
+    distinct ``delays``, ``n_buckets`` buckets and a ring of ``ring_len``
+    slots."""
+    if n > MAX_N:
+        raise ValueError(f"fused_tick: N = {n} neurons exceed the kernel's "
+                         f"{MAX_N} (the spike bitmask lives in shared memory)")
+    if len(delays) > MAX_DELAYS:
+        raise ValueError(f"fused_tick: {len(delays)} distinct delays "
+                         f"exceed the kernel's {MAX_DELAYS}")
+    if n_buckets > MAX_BUCKETS:
+        raise ValueError(f"fused_tick: {n_buckets} buckets exceed "
+                         f"the kernel's {MAX_BUCKETS}")
+    if any(not 0 < dly < ring_len for dly in delays):
+        raise ValueError(f"fused_tick: delays {tuple(delays)} must lie in "
+                         f"[1, {ring_len})")
+
+
+def plan_grid(n: int, csr_rows: int, per_sm: int, sms: int, cooperative: bool = True,
+              grid: int | None = None) -> int:
+    """The kernel's CTAs for ``n`` neurons and ``csr_rows`` CSR rows: one
+    per ``THREADS`` neurons or per ``CSR_ROWS_PER_CTA`` rows, whichever
+    needs more, capped at what the card holds resident (``per_sm`` CTAs on
+    each of ``sms`` SMs), since a grid-wide barrier needs every CTA
+    resident; or ``grid`` where given, which must lie in [1, resident].
+    Raises where the card takes no cooperative launch or holds no CTA of
+    the kernel."""
+    if not cooperative:
+        raise RuntimeError("fused_tick: the device takes no cooperative launch")
+    resident = per_sm * sms
+    if resident < 1:
+        raise RuntimeError(f"fused_tick: no CTA of the kernel fits an SM "
+                           f"({per_sm} per SM on {sms} SMs)")
+    if grid is None:
+        return min(max(-(-n // THREADS), -(-csr_rows // CSR_ROWS_PER_CTA)), resident)
+    if not 1 <= grid <= resident:
+        raise ValueError(f"fused_tick: a grid of {grid} CTAs is not in [1, {resident}] "
+                         "(the CTAs the card holds resident)")
+    return grid
+
+
 class TickLauncher:
-    """One run's fused-tick launches. Checks the fixed tensors and fills
-    the kernel's plan once; :meth:`__call__` launches one tick on the
-    current stream. ``v``, ``u`` ``[N]`` and ``ring`` ``[L, N]`` are
-    updated in place."""
+    """One run's fused-tick launches. Checks the fixed tensors, picks the
+    grid (:attr:`grid` CTAs), allocates the kernel's scratch and fills its
+    plan once; :meth:`__call__` launches one tick on the stream current at
+    construction. ``v``, ``u`` ``[N]`` and ``ring`` ``[L, N]`` are updated
+    in place. ``grid`` overrides the grid (:func:`plan_grid`)."""
 
     def __init__(self, payload: KernelPayload, v, u, ring, is_gen, a, b, c, d,
-                 *, dt: float, substeps: int):
+                 *, dt: float, substeps: int, grid: int | None = None):
         n = v.shape[0]
         ring_len = ring.shape[0]
-        if n > MAX_N:
-            raise ValueError(f"fused_tick: N = {n} neurons exceed the kernel's "
-                             f"{MAX_N} (the spike row lives in shared memory)")
-        if len(payload.delays) > MAX_DELAYS:
-            raise ValueError(f"fused_tick: {len(payload.delays)} distinct delays "
-                             f"exceed the kernel's {MAX_DELAYS}")
-        if payload.desc.shape[0] > MAX_BUCKETS:
-            raise ValueError(f"fused_tick: {payload.desc.shape[0]} buckets exceed "
-                             f"the kernel's {MAX_BUCKETS}")
-        if any(not 0 < dly < ring_len for dly in payload.delays):
-            raise ValueError(f"fused_tick: delays {payload.delays} must lie in "
-                             f"[1, {ring_len})")
+        check_limits(n, payload.delays, payload.desc.shape[0], ring_len)
         self._lib = _build.load("fused_tick", _SIGNATURES)
-        limits = (ctypes.c_int * 4)()
+        limits = (ctypes.c_int * 5)()
         self._lib.fused_tick_limits(limits)
-        if tuple(limits) != (MAX_N, MAX_DELAYS, MAX_BUCKETS, ctypes.sizeof(_Plan)):
+        if tuple(limits) != (MAX_N, MAX_DELAYS, MAX_BUCKETS, ctypes.sizeof(_Plan),
+                             THREADS):
             raise RuntimeError(f"fused_tick: the library's limits and plan size "
                                f"{tuple(limits)} differ from the launcher's")
+        occ = (ctypes.c_int * 3)()
+        _build.check(self._lib, self._lib.fused_tick_occupancy(
+            int(v.dtype == torch.float16), n, occ), "fused_tick occupancy")
+        csr_rows = sum(w.shape[0] for *_, w in payload.csr)
+        self.grid = plan_grid(n, csr_rows, occ[0], occ[1], bool(occ[2]), grid)
+        self.resident = occ[0] * occ[1]
+        words = torch.empty((-(-n // 32),), dtype=torch.int32, device=v.device)
+        cdrive = torch.empty((csr_rows,), dtype=torch.float32, device=v.device)
         # Keep every tensor the plan points at alive for the launcher's life.
-        self._keep = (payload, v, u, ring, is_gen, a, b, c, d)
+        self._keep = (payload, v, u, ring, is_gen, a, b, c, d, words, cdrive)
         plan = _Plan()
         for name, tensor in (("v", v), ("u", u), ("ring", ring), ("is_gen", is_gen),
                              ("a", a), ("b", b), ("c", c), ("d", d),
                              ("desc", payload.desc), ("wd", payload.wd),
-                             ("wc", payload.wc), ("ic", payload.ic)):
+                             ("wc", payload.wc), ("ic", payload.ic),
+                             ("words", words), ("cdrive", cdrive)):
             setattr(plan, name, tensor.data_ptr())
         plan.stream = torch.cuda.current_stream(v.device).cuda_stream
         plan.delays[:len(payload.delays)] = list(payload.delays)
         plan.n, plan.ring_len = n, ring_len
         plan.n_buckets, plan.n_delays = payload.desc.shape[0], len(payload.delays)
         plan.substeps, plan.h = substeps, dt / substeps
+        plan.grid = self.grid
         self._plan = plan
         self._plan_ref = ctypes.byref(plan)
         self._ring_len = ring_len
@@ -168,3 +232,9 @@ class TickLauncher:
                        v_rec or None, isyn_rec or None)
         if err:
             _build.check(self._lib, err, "fused_tick")
+
+    def barrier_probe(self, reps: int) -> None:
+        """Launch a kernel of :attr:`grid` CTAs that runs ``reps``
+        grid-wide barriers and nothing else (to time the barrier)."""
+        _build.check(self._lib, self._lib.fused_tick_barrier_probe(
+            self.grid, reps, self._plan.stream), "fused_tick barrier probe")

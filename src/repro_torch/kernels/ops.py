@@ -20,7 +20,7 @@ from repro_torch.kernels import syn_gather as _gather
 from repro_torch.kernels import syn_matmul as _matmul
 
 __all__ = ["LAUNCHES", "reset_launches", "izh4_update", "syn_matmul",
-           "syn_gather", "FusedTickRun", "stdp_update", "stdp_gather", "attention",
+           "MatmulRun", "syn_gather", "FusedTickRun", "stdp_update", "stdp_gather", "attention",
            "flash_attention"]
 
 f32 = torch.float32
@@ -101,6 +101,42 @@ def syn_matmul(x, w):
     return out
 
 
+class MatmulRun:
+    """The M = 1 ``syn_matmul`` products of one run: ``images`` holds, per
+    bucket, its ``[K, N]`` weight image (f32, fp16 or bf16), or None for a
+    bucket that is not a product. The images are checked once, here, and
+    must stay as they are for the launcher's life.
+
+    ``run(i, x)`` is ``x [K] @ images[i] -> [N]`` f32
+    (:func:`repro_torch.kernels.ref.syn_matmul_ref`). On the card it is
+    one launch into an output buffer held for the run, which the next
+    call for the same bucket overwrites; ``x`` must be a contiguous f32
+    row of length K on the images' card, and is not checked per call. On
+    the CPU it runs the plain version."""
+
+    def __init__(self, images):
+        self._images = tuple(images)
+        mats = [w for w in self._images if w is not None]
+        for w in mats:
+            if w.dim() != 2:
+                raise ValueError(f"syn_matmul: weight image {tuple(w.shape)} must be [K, N]")
+            if w.dtype not in _matmul.WEIGHT_DTYPES:
+                raise ValueError(f"syn_matmul: w dtype {w.dtype} not in "
+                                 f"{_matmul.WEIGHT_DTYPES}")
+        self._gemv = None
+        if mats and _on_card("syn_matmul", *mats):
+            self._gemv = _matmul.GemvRun(self._images, mats[0].device)
+            self._counts = tuple(w is not None and w.shape[1] > 0 for w in self._images)
+
+    def __call__(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        if self._gemv is None:
+            return ref.syn_matmul_ref(x[None, :], self._images[i])[0]
+        out = self._gemv(i, x.data_ptr())
+        if self._counts[i]:
+            LAUNCHES["syn_matmul"] += 1
+        return out
+
+
 def syn_gather(spikes, idx, w):
     """CSR fan-in drive ``out[q] = Σ_k spikes[idx[q, k]] * w[q, k]``:
     spikes ``[P]`` f32, idx ``[Q, F]`` int16/int32, w ``[Q, F]`` in f32,
@@ -110,8 +146,7 @@ def syn_gather(spikes, idx, w):
     Every index must lie in ``[0, P)``; ``NetworkBuilder.compile`` builds
     its tables so. A table that breaks this raises ``IndexError`` on the
     CPU, while on the card, where a check would cost a device-to-host
-    sync, each offending entry makes its row's output NaN. The card takes
-    ``P`` up to ``MAX_PRE`` (12,288) and raises above it."""
+    sync, each offending entry makes its row's output NaN. Any ``P``."""
     if spikes.dim() != 1 or idx.dim() != 2 or w.shape != idx.shape:
         raise ValueError(f"syn_gather: shapes spikes {tuple(spikes.shape)}, "
                          f"idx {tuple(idx.shape)}, w {tuple(w.shape)}")
@@ -125,9 +160,6 @@ def syn_gather(spikes, idx, w):
                          f"{_gather.WEIGHT_DTYPES}")
     if not _on_card("syn_gather", spikes, idx, w):
         return ref.syn_gather_ref(spikes, idx, w)
-    if spikes.shape[0] > _gather.MAX_PRE:
-        raise ValueError(f"syn_gather: a spike row of {spikes.shape[0]} does not "
-                         f"fit the kernel's shared memory (at most {_gather.MAX_PRE})")
     out = torch.empty((idx.shape[0],), dtype=f32, device=spikes.device)
     if out.numel():
         _gather.launch(spikes, idx, w, out)
@@ -217,12 +249,14 @@ class FusedTickRun:
     ``payload`` comes from :func:`repro_torch.kernels.fused_tick.assemble_kernel`.
 
     On the card the tensors are checked and the kernel's plan is built
-    once, and :meth:`tick` is one launch; on the CPU :meth:`tick` runs the
-    plain version. On the card N is at most ``fused_tick.MAX_N``."""
+    once (``launcher``, a :class:`repro_torch.kernels.fused_tick.TickLauncher`,
+    whose ``grid`` is the CTAs each tick runs on; ``grid`` overrides its
+    choice), and :meth:`tick` is one launch; on the CPU ``launcher`` is None and :meth:`tick` runs the plain
+    version. On the card N is at most ``fused_tick.MAX_N``."""
 
     def __init__(self, payload: _fused.KernelPayload, v, u, ring, is_gen, a, b,
                  c, d, rows, v_rows=None, i_rows=None, *, dt: float = 1.0,
-                 substeps: int = 2):
+                 substeps: int = 2, grid: int | None = None):
         n = v.shape[0]
         if v.dim() != 1 or ring.dim() != 2 or ring.shape[1] != n:
             raise ValueError(f"fused_tick: v {tuple(v.shape)} and ring "
@@ -246,21 +280,22 @@ class FusedTickRun:
         self._args = (payload, v, u, ring, is_gen, a, b, c, d, rows, v_rows, i_rows)
         self._dt, self._substeps = dt, substeps
         if self._card and n:
-            self._launch = _fused.TickLauncher(payload, v, u, ring, is_gen, a, b,
-                                               c, d, dt=dt, substeps=substeps)
+            self.launcher = _fused.TickLauncher(payload, v, u, ring, is_gen, a, b,
+                                                c, d, dt=dt, substeps=substeps,
+                                                grid=grid)
             self._rows = (rows.data_ptr(), n)
             self._v_rows = 0 if v_rows is None else v_rows.data_ptr()
             self._i_rows = 0 if i_rows is None else i_rows.data_ptr()
             self._row_bytes = n * 4
         else:
-            self._launch = None
+            self.launcher = None
 
     def tick(self, i: int, t: int) -> None:
         """Tick ``t`` of the run, its ``i``-th: reads and writes row ``i``."""
-        if self._launch is not None:
+        if self.launcher is not None:
             rows, n = self._rows
             row = rows + i * n
-            self._launch(t, row, row,
+            self.launcher(t, row, row,
                          self._v_rows and self._v_rows + i * self._row_bytes,
                          self._i_rows and self._i_rows + i * self._row_bytes)
             LAUNCHES["fused_tick"] += 1

@@ -21,8 +21,6 @@ _SIGNATURES = {f"syn_gather_{i}_{w}": _SIGNATURE
                for i in _IDX.values() for w in _W.values()}
 INDEX_DTYPES = tuple(_IDX)
 WEIGHT_DTYPES = tuple(_W)
-# The spike row is staged in the default 48 KB of shared memory per block.
-MAX_PRE = 48 * 1024 // 4
 
 
 def launch(spikes, idx, w, out) -> None:

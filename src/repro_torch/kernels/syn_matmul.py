@@ -1,8 +1,12 @@
-"""Launcher of the CUDA storage-type matmul (``csrc/syn_matmul.cu``).
+"""Launchers of the CUDA storage-type matmul (``csrc/syn_matmul.cu``).
 
 Replaces the Pallas kernel ``repro/kernels/syn_matmul.py:syn_matmul``.
-Call it through :func:`repro_torch.kernels.ops.syn_matmul`, which checks
-the tensors, allocates the output and counts launches.
+:func:`launch` is one checked call (through
+:func:`repro_torch.kernels.ops.syn_matmul`, which checks the tensors,
+allocates the output and counts launches); :class:`GemvRun` holds the
+M = 1 products of one run, one :class:`GemvPlan` per weight image filled
+once, so that each call is one ctypes call carrying the row's pointer
+(through :class:`repro_torch.kernels.ops.MatmulRun`).
 """
 from __future__ import annotations
 
@@ -17,14 +21,66 @@ _I = ctypes.c_int
 _SIGNATURE = [_P, _P, _P, _I, _I, _I, _P]
 _ENTRY = {torch.float32: "syn_matmul_f32", torch.float16: "syn_matmul_f16",
           torch.bfloat16: "syn_matmul_bf16"}
-_SIGNATURES = {name: _SIGNATURE for name in _ENTRY.values()}
+_WTYPE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 WEIGHT_DTYPES = tuple(_ENTRY)
 
 
+class GemvPlan(ctypes.Structure):
+    """``GemvPlan`` of ``csrc/syn_matmul.cu``, field for field."""
+
+    _fields_ = [("w", _P), ("out", _P), ("stream", _P), ("K", _I), ("N", _I),
+                ("wtype", _I)]
+
+
+_SIGNATURES = {**{name: _SIGNATURE for name in _ENTRY.values()},
+               "syn_matmul_run": [ctypes.POINTER(GemvPlan), _P],
+               "syn_matmul_plan_size": []}
+
+
+def _lib() -> ctypes.CDLL:
+    return _build.load("syn_matmul", _SIGNATURES)
+
+
 def launch(x, w, out) -> None:
-    lib = _build.load("syn_matmul", _SIGNATURES)
+    lib = _lib()
     (m, k), n = x.shape, w.shape[1]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = getattr(lib, _ENTRY[w.dtype])(x.data_ptr(), w.data_ptr(),
                                         out.data_ptr(), m, k, n, stream)
     _build.check(lib, err, "syn_matmul")
+
+
+class GemvRun:
+    """``out_i = x @ images[i]`` for a run's weight images (``[K, N]`` on
+    one card, checked by the caller; None where there is no product); each
+    image's ``[N]`` f32 output buffer is allocated here once and
+    overwritten by every call. Launches on the stream current at
+    construction."""
+
+    def __init__(self, images, device):
+        lib = _lib()
+        if lib.syn_matmul_plan_size() != ctypes.sizeof(GemvPlan):
+            raise RuntimeError("syn_matmul: the library's GemvPlan size differs "
+                               "from the launcher's")
+        self._lib, self._fn = lib, lib.syn_matmul_run
+        self._keep = tuple(images)  # the plans point at these tensors
+        stream = torch.cuda.current_stream(device).cuda_stream
+        self.outs, self._plans = [], []
+        for w in images:
+            if w is None:
+                self.outs.append(None)
+                self._plans.append(None)
+                continue
+            out = torch.empty((w.shape[1],), dtype=torch.float32, device=device)
+            plan = GemvPlan(w=w.data_ptr(), out=out.data_ptr(), stream=stream,
+                            K=w.shape[0], N=w.shape[1], wtype=_WTYPE[w.dtype])
+            self.outs.append(out)
+            self._plans.append((ctypes.byref(plan), plan))
+
+    def __call__(self, i: int, x_ptr: int) -> torch.Tensor:
+        """Launch image ``i``'s product with the f32 row at device pointer
+        ``x_ptr`` (``K`` contiguous values); returns its output buffer."""
+        err = self._fn(self._plans[i][0], x_ptr)
+        if err:
+            _build.check(self._lib, err, "syn_matmul")
+        return self.outs[i]

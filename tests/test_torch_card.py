@@ -7,14 +7,21 @@ machine with the card and PyTorch alone:
 (``--noconftest``: ``tests/conftest.py`` resets the reference's flags and
 imports JAX.) ``chip_smoke.py`` holds every kernel at the main paths'
 shapes; these cases are the attention kernel's (B7) against its plain
-version at rtol = atol = 1e-5, and the serving path on the card against
-the CPU port."""
+version at rtol = atol = 1e-5, the serving path on the card against the
+CPU port, and the Synfire kernels at shapes beside the main paths':
+``syn_matmul`` (B3) through ``ops.syn_matmul`` and the per-run
+``ops.MatmulRun``, ``syn_gather`` (B2) on spike rows longer than shared
+memory holds by default, and ``fused_tick`` (B4) on random nets of 1 to
+5,000 neurons, on one CTA and on many."""
+import math
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_arch, reduce_arch  # noqa: E402
+from repro_torch.kernels import fused_tick as ftk  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
@@ -105,3 +112,218 @@ def test_serve_on_card_equals_cpu(card, arch):
     want = serve(arch, batch=2, prompt_len=8, gen=5, policy_name="fp32", params=on_cpu,
                  seed=3, device="cpu")
     np.testing.assert_array_equal(got["tokens"], want["tokens"])
+
+
+# -- Synfire kernels -------------------------------------------------------------
+
+TABLE = torch.tensor([0.0, 1.0, 3.5, -2.0])  # Synfire4's weights: exact sums
+MATMUL_SHAPES = [(1, 200, 250), (1, 50, 200), (1, 1, 1), (1, 4096, 4096), (64, 200, 250)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", MATMUL_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.float16, torch.bfloat16],
+                         ids=["f32", "fp16", "bf16"])
+def test_syn_matmul_kernel_matches_plain(card, shape, wdtype):
+    """Bit for bit on 0/1 spikes times Synfire's weights, through
+    ``ops.syn_matmul`` and (M = 1) ``ops.MatmulRun``; random normal operands
+    within rtol 1e-5 and an atol of 2e-6 per K (f32 sums in another
+    order); a zero row times an infinite weight is NaN, as in the plain
+    version."""
+    m, k, n = shape
+    g = torch.Generator().manual_seed(k + n)
+    x = (torch.rand((m, k), generator=g) < 0.3).float().to(card)
+    w = TABLE[torch.randint(0, 4, (k, n), generator=g)].to(wdtype).to(card)
+    ops.reset_launches()
+    got = ops.syn_matmul(x, w)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["syn_matmul"] == 1
+    want = ref.syn_matmul_ref(x, w)
+    assert torch.equal(got, want)
+    if m == 1:
+        run = ops.MatmulRun([None, w])
+        got = run(1, x[0])
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["syn_matmul"] == 2
+        assert torch.equal(got, want[0])
+    xr = torch.randn((m, k), generator=g).to(card)
+    wr = torch.randn((k, n), generator=g).to(wdtype).to(card)
+    torch.testing.assert_close(ops.syn_matmul(xr, wr), ref.syn_matmul_ref(xr, wr),
+                               rtol=1e-5, atol=2e-6 * k)
+    w_inf = w.clone()
+    w_inf[0, n - 1] = math.inf
+    zero = torch.zeros_like(x)
+    got = ops.syn_matmul(zero, w_inf)
+    assert bool(got[:, n - 1].isnan().all())
+    torch.testing.assert_close(got, ref.syn_matmul_ref(zero, w_inf), equal_nan=True,
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [20_000, 70_000], ids=["P20000-opt-in", "P70000-global"])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.float16], ids=["f32", "fp16"])
+def test_syn_gather_long_rows(card, p, wdtype):
+    """Spike rows beyond the default 48 KB of shared memory (opted in up
+    to the device's limit) and beyond that limit (read from device
+    memory): bit for bit on 0/1 spikes and Synfire weights, int16 and
+    int32 indices where they fit, NaN for an index outside [0, P)."""
+    g = torch.Generator().manual_seed(p)
+    q, f = 300, 97
+    idx = torch.randint(0, p, (q, f), generator=g, dtype=torch.int32)
+    w = TABLE[torch.randint(0, 4, (q, f), generator=g)].to(wdtype)
+    spikes = (torch.rand(p, generator=g) < 0.3).float()
+    idx_types = (torch.int16, torch.int32) if p < 2**15 else (torch.int32,)
+    for idt in idx_types:
+        args = [spikes.to(card), idx.to(idt).to(card), w.to(card)]
+        got = ops.syn_gather(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref.syn_gather_ref(*args)), idt
+    bad = idx.clone()
+    bad[1, 5] = p
+    got = ops.syn_gather(spikes.to(card), bad.to(card), w.to(card))
+    want = ref.syn_gather_ref(spikes.to(card), idx.to(card), w.to(card))
+    assert bool(got[1].isnan()) and not bool(got[torch.arange(q) != 1].isnan().any())
+    assert torch.equal(got[2:], want[2:]) and torch.equal(got[:1], want[:1])
+
+
+def _fused_case(n, dtype, exact, seed, device):
+    """A random fused-tick case of ``n`` neurons: state, ring (6 slots,
+    delays 2 and 5), generator rows and a payload of 3 dense and 2 CSR
+    buckets on random spans, two of them sharing a post span and a delay
+    (plan order matters there). Exact weights are multiples of 1/8, so
+    every sum is exact in f32."""
+    r = np.random.default_rng(seed)
+    ring_len, delays = 6, (2, 5)
+    n_gen = max(1, n // 10)
+    idx_n = np.arange(n)
+    state = dict(
+        v=r.uniform(-75.0, 25.0, n), u=r.uniform(-16.0, -8.0, n),
+        ring=r.integers(-24, 40, (ring_len, n)) / 8.0)
+    consts = dict(is_gen=idx_n < n_gen, a=np.where(idx_n % 3 == 0, 0.1, 0.02),
+                  b=np.full(n, 0.2), c=np.full(n, -65.0),
+                  d=np.where(idx_n % 3 == 0, 2.0, 8.0))
+
+    def weights(shape):
+        if exact:
+            return torch.from_numpy(r.integers(-8, 9, shape) / 8.0).float().to(device)
+        return torch.from_numpy(r.standard_normal(shape)).float().to(device)
+
+    def span(cap):
+        start = int(r.integers(0, n))
+        return start, int(r.integers(1, min(n - start, cap) + 1))
+
+    buckets = []
+    for kind in ("dense", "dense", "csr", "dense", "csr"):
+        ps, pn = span(300)
+        if kind == "dense" and buckets and buckets[-1][0] == "dense":
+            qs, qn, dly = buckets[-1][2], buckets[-1][4].shape[1], buckets[-1][3]
+        else:
+            (qs, qn), dly = span(n), delays[int(r.integers(0, 2))]
+        if kind == "dense":
+            buckets.append(("dense", ps, qs, dly, weights((pn, qn))))
+            continue
+        f = int(r.integers(1, 40))
+        idx = ps + r.integers(0, pn, (qn, f))
+        w = weights((qn, f))
+        idx[::3, -1] = ps  # padding: index pre_start, weight +0.0
+        w[::3, -1] = 0.0
+        buckets.append(("csr", ps, pn, qs, dly, torch.from_numpy(idx).int().to(device), w))
+    payload = ftk.pack_payload(delays, buckets, device)
+    tensors = {k: torch.from_numpy(x).to(dtype).to(device) for k, x in state.items()}
+    tensors.update({k: torch.from_numpy(x).float().to(device) for k, x in consts.items()
+                    if k != "is_gen"})
+    tensors["is_gen"] = torch.from_numpy(consts["is_gen"]).to(device)
+    gen_rows = torch.from_numpy(r.random((12, n)) < 0.3).to(device)
+    return payload, tensors, gen_rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 33, 1025, 5000])
+@pytest.mark.parametrize("grid", [1, None], ids=["one-cta", "by-work"])
+@pytest.mark.parametrize("dtype,exact", [(torch.float16, True), (torch.float32, True),
+                                         (torch.float32, False)],
+                         ids=["fp16-exact", "fp32-exact", "fp32-normal"])
+def test_fused_tick_kernel_matches_plain(card, n, grid, dtype, exact):
+    """The fused tick against its plain version: twelve chained ticks bit
+    for bit with exact weights; one tick with random normal weights, v',
+    u', spikes and i_syn bit for bit and the ring at rtol 1e-5, atol 1e-4
+    (f32 sums in another order; fp16 rings only with exact weights, where
+    one f32 ulp could move a rounded fp16 drive by a whole fp16 ulp). The
+    grid is one CTA, or chosen by the work (one CTA per 256 neurons or 16
+    CSR rows)."""
+    payload, x, gen_rows = _fused_case(n, dtype, exact, seed=n, device=card)
+    v, u, ring = x["v"].clone(), x["u"].clone(), x["ring"].clone()
+    rows = gen_rows.clone()
+    i_rows = torch.empty(rows.shape, dtype=torch.float32, device=card)
+    consts = [x[k] for k in ("is_gen", "a", "b", "c", "d")]
+    runner = ops.FusedTickRun(payload, v, u, ring, *consts, rows, i_rows=i_rows,
+                              grid=grid)
+    csr_rows = sum(w.shape[0] for *_, w in payload.csr)
+    assert runner.launcher.grid == (1 if grid == 1 else min(
+        max(-(-n // ftk.THREADS), -(-csr_rows // ftk.CSR_ROWS_PER_CTA)),
+        runner.launcher.resident))
+    state = (x["v"], x["u"], x["ring"])
+    spiked = 0
+    for t in range(12 if exact else 1):
+        ops.reset_launches()
+        runner.tick(t, t)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["fused_tick"] == 1
+        want = ref.fused_tick_ref(*state, gen_rows[t], *consts, t, dense=payload.dense,
+                                  csr=payload.csr, ring_len=ring.shape[0])
+        got = (v, u, rows[t], ring, i_rows[t])
+        for name, g_, w_ in zip(("v", "u", "spikes", "ring", "i_syn"), got, want):
+            assert g_.dtype == w_.dtype, name
+            if name == "ring" and not exact:
+                torch.testing.assert_close(g_, w_, rtol=1e-5, atol=1e-4)
+            else:
+                assert torch.equal(g_, w_), f"tick {t}: {name}"
+        spiked += int(rows[t][~consts[0]].sum())
+        state = (want[0], want[1], want[3])
+    if exact and n > 1:
+        assert spiked > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [1, None], ids=["one-cta", "by-work"])
+def test_fused_tick_corrupt_index_is_nan(card, grid):
+    """A CSR index outside [0, N) makes its post neuron's drive NaN in the
+    ring (the plain version raises there instead); every other ring entry,
+    v and the spikes equal the plain version on the intact table."""
+    payload, x, gen_rows = _fused_case(1025, torch.float32, True, seed=7, device=card)
+    qs, dly, idx, w = payload.csr[0]
+    bad_idx = idx.clone()
+    bad_idx[0, 0] = 1025
+    buckets = []
+    dense, csr = list(payload.dense), list(payload.csr)
+    for kind in payload.desc[:, 0].tolist():
+        if kind == 0:
+            buckets.append(("dense", *dense.pop(0)))
+        else:
+            c_qs, c_dly, c_idx, c_w = csr.pop(0)
+            row = payload.desc[len(buckets)].tolist()
+            buckets.append(("csr", row[1], row[3], c_qs, c_dly,
+                            bad_idx if c_idx is idx else c_idx, c_w))
+    bad = ftk.pack_payload(payload.delays, buckets, card)
+    consts = [x[k] for k in ("is_gen", "a", "b", "c", "d")]
+    v, u, ring = x["v"].clone(), x["u"].clone(), x["ring"].clone()
+    rows = gen_rows[:1].clone()
+    ops.FusedTickRun(bad, v, u, ring, *consts, rows, grid=grid).tick(0, 0)
+    torch.cuda.synchronize()
+    want = ref.fused_tick_ref(x["v"], x["u"], x["ring"], gen_rows[0], *consts, 0,
+                              dense=payload.dense, csr=payload.csr, ring_len=ring.shape[0])
+    slot = dly % ring.shape[0]
+    assert bool(ring[slot, qs].isnan())
+    ok = torch.ones_like(ring, dtype=torch.bool)
+    ok[slot, qs] = False
+    assert torch.equal(ring[ok], want[3][ok])
+    assert torch.equal(v, want[0]) and torch.equal(rows[0], want[2])
+
+
+@pytest.mark.cuda
+def test_fused_tick_rejects_grid_beyond_resident(card):
+    payload, x, gen_rows = _fused_case(64, torch.float32, True, seed=1, device=card)
+    consts = [x[k] for k in ("is_gen", "a", "b", "c", "d")]
+    with pytest.raises(ValueError, match="resident"):
+        ops.FusedTickRun(payload, x["v"], x["u"], x["ring"], *consts, gen_rows,
+                         grid=10**6)

@@ -345,3 +345,35 @@ def test_fp32_state_bitwise_vs_eager_reference(cfg_name, n_steps):
     for r, t in ((rfinal.neurons.v, tfinal.neurons.v),
                  (rfinal.neurons.u, tfinal.neurons.u), (rfinal.ring, tfinal.ring)):
         np.testing.assert_array_equal(t.numpy(), np.asarray(r))
+
+
+@pytest.mark.parametrize("policy", ["fp16", "fp32"])
+@pytest.mark.parametrize("cfg_name", ["SYNFIRE4_MINI", "SYNFIRE4"])
+def test_propagate_packed_through_launcher_matches_per_call_path(cfg_name, policy):
+    """``propagate_packed`` through the run's ``syn_matmul`` launcher
+    (``assemble_matmul``, what ``run`` builds once) gives the ring that the
+    per-call path (``ops.syn_matmul`` on each bucket, each tick) gives, bit
+    for bit, over ticks of random spike rows; and so does the launcher it
+    builds itself when given none."""
+    from repro_torch.core import backend as be
+    from repro_torch.kernels import ops
+
+    net = tsyn.build_synfire(getattr(tsyn, cfg_name), policy=policy,
+                             propagation="packed", device="cpu")
+    static, params = net.static, net.params
+    packed = be.assemble_packed(static, net.state0.weights)
+    assert sum(b.kind == "dense" for b in static.buckets) == 8
+
+    def per_call(bi, x):
+        return ops.syn_matmul(x[None, :], packed[bi])[0]
+
+    launcher = be.assemble_matmul(static, packed)
+    rings = [net.state0.ring.clone() for _ in range(3)]
+    rng_np = np.random.default_rng(len(cfg_name))
+    for t in range(12):
+        spikes = torch.from_numpy((rng_np.random(static.n) < 0.2).astype(np.float32))
+        be.propagate_packed(static, params, spikes, rings[0], t, packed, matmul=per_call)
+        be.propagate_packed(static, params, spikes, rings[1], t, packed, matmul=launcher)
+        be.propagate_packed(static, params, spikes, rings[2], t, packed)
+    assert float(rings[0].float().abs().sum()) > 0
+    assert torch.equal(rings[1], rings[0]) and torch.equal(rings[2], rings[0])

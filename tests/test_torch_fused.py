@@ -520,3 +520,70 @@ def test_run_wrapper_rejects_bad_rows():
     with pytest.raises(ValueError, match="v_rows"):
         ops.FusedTickRun(payload, v, u, ring, is_gen, a, b, c, d, rows,
                          v_rows=torch.zeros((2, net.static.n)))
+
+
+# -- the kernel's limits and grid (checked in Python before any launch) -------
+
+def test_kernel_limits_take_synfire4_x100():
+    """N up to 262,144 (the spike bitmask in 32 KB of shared memory), at
+    most 4 delays and 64 buckets: Synfire4x100's plan (N 120,000, delays 8
+    and 10 on an 11-slot ring, 13 buckets) fits."""
+    from repro_torch.kernels import fused_tick as ftk
+
+    assert ftk.MAX_N >= 120_000
+    ftk.check_limits(120_000, (8, 10), 13, 11)
+    ftk.check_limits(ftk.MAX_N, (1, 2, 3, 4), ftk.MAX_BUCKETS, 5)
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(n=262_145), "262144"), (dict(delays=(1, 2, 3, 4, 5), ring_len=6), "delays"),
+    (dict(n_buckets=65), "buckets"), (dict(delays=(8, 11)), r"\[1, 11\)"),
+    (dict(delays=(0, 8)), r"\[1, 11\)")])
+def test_kernel_limits_raise(bad, match):
+    from repro_torch.kernels import fused_tick as ftk
+
+    kw = dict(n=120_000, delays=(8, 10), n_buckets=13, ring_len=11) | bad
+    with pytest.raises(ValueError, match=match):
+        ftk.check_limits(kw["n"], kw["delays"], kw["n_buckets"], kw["ring_len"])
+
+
+def test_grid_is_sized_by_the_work_and_capped_at_residency():
+    """One CTA per 256 neurons or per 16 CSR rows, whichever needs more
+    (the mini and a one-neuron net on one CTA, Synfire4 packed on 5 and
+    sparse on 116, x10 and x100 sparse on every resident CTA), never more
+    than the card holds resident; an explicit grid must lie in [1,
+    resident]."""
+    from repro_torch.kernels import fused_tick as ftk
+
+    assert (ftk.THREADS, ftk.CSR_ROWS_PER_CTA) == (256, 16)
+    for n, rows, want in ((1, 0, 1), (186, 0, 1), (1200, 0, 5), (1200, 1850, 116),
+                          (12_000, 0, 47), (12_000, 18_500, 1056),
+                          (120_000, 185_000, 1056)):
+        assert ftk.plan_grid(n, rows, per_sm=8, sms=132) == want, (n, rows)
+    assert ftk.plan_grid(ftk.MAX_N, 0, per_sm=2, sms=132) == 264
+    assert ftk.plan_grid(120_000, 0, per_sm=8, sms=132, grid=1) == 1
+    assert ftk.plan_grid(120_000, 0, per_sm=8, sms=132, grid=1056) == 1056
+    with pytest.raises(ValueError, match="resident"):
+        ftk.plan_grid(120_000, 0, per_sm=8, sms=132, grid=1057)
+    with pytest.raises(ValueError, match="resident"):
+        ftk.plan_grid(1200, 0, per_sm=8, sms=132, grid=0)
+    with pytest.raises(RuntimeError, match="no CTA"):
+        ftk.plan_grid(1200, 0, per_sm=0, sms=132)
+    with pytest.raises(RuntimeError, match="cooperative"):
+        ftk.plan_grid(1200, 0, per_sm=8, sms=132, cooperative=False)
+
+
+def test_pack_payload_matches_assemble_kernel():
+    """The payload packed from bucket tuples in plan order is the one
+    ``assemble_kernel`` builds from the compiled plan."""
+    from repro_torch.kernels import fused_tick as ftk
+
+    net = tsyn.build_synfire(tsyn.SYNFIRE4_MINI, policy="fp16", device="cpu",
+                             backend="fused", propagation="sparse")
+    got = assemble_fused(net.static, net.state0.weights, net.params).kernel
+    assert not got.dense and len(got.csr) == len(net.static.buckets)
+    want = ftk.pack_payload(got.delays, [
+        ("csr", b.pre_start, b.p, b.post_start, b.delay_ms, idx, w)
+        for b, (_, _, idx, w) in zip(net.static.buckets, got.csr)], "cpu")
+    for name in ("desc", "wd", "wc", "ic"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name

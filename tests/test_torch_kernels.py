@@ -132,6 +132,59 @@ class TestSynMatmul:
             pallas_matmul(jnp.asarray(x), jnp.asarray(w), interpret=True)))
 
 
+class TestMatmulRun:
+    """The engine's per-run ``syn_matmul`` launcher: on the CPU it runs the
+    plain version, so it equals ``ops.syn_matmul`` bit for bit, and the
+    reference's jitted ``ref.syn_matmul_ref`` on spike rows."""
+
+    @pytest.mark.parametrize("kn", [(200, 250), (50, 200), (1, 1)])
+    @pytest.mark.parametrize("wdtype", ["fp16", "bf16", "fp32"])
+    def test_bitwise_vs_ops_and_reference(self, kn, wdtype):
+        k, n = kn
+        rng = np.random.default_rng(k + n)
+        td, jd = WDTYPES[wdtype]
+        table = np.array([0.0, 1.0, 3.5, -2.0], np.float32)
+        spikes = (rng.random(k) < 0.3).astype(np.float32)
+        w_syn = table[rng.integers(0, 4, (k, n))]
+        w_rnd = rng.standard_normal((k, n)).astype(np.float32)
+        x_rnd = rng.standard_normal(k).astype(np.float32)
+        images = [torch.from_numpy(w_syn).to(td), None, torch.from_numpy(w_rnd).to(td)]
+        ops.reset_launches()
+        run = ops.MatmulRun(images)
+        jit_ref = jax.jit(jref.syn_matmul_ref)
+        for i, x in ((0, spikes), (2, x_rnd)):
+            xt = torch.from_numpy(x)
+            got = run(i, xt)
+            assert got.shape == (n,) and got.dtype == torch.float32
+            np.testing.assert_array_equal(got.numpy(),
+                                          ops.syn_matmul(xt[None], images[i])[0].numpy())
+            want = np.asarray(jit_ref(jnp.asarray(x[None]),
+                                      jnp.asarray(images[i].float().numpy()).astype(jd)))[0]
+            if i == 0:
+                np.testing.assert_array_equal(got.numpy(), want)
+            else:
+                np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+        assert ops.LAUNCHES["syn_matmul"] == 0 and "syn_matmul" not in _build._LIBS
+
+    @pytest.mark.parametrize("bad", ["one_dim", "int_dtype", "f64", "mixed_devices"])
+    def test_checks_raise_at_construction(self, bad):
+        images = [torch.ones((8, 4)), None, torch.ones((3, 5), dtype=torch.float16)]
+        if bad == "one_dim":
+            images[0] = torch.ones(8)
+        elif bad == "int_dtype":
+            images[2] = torch.ones((3, 5), dtype=torch.int32)
+        elif bad == "f64":
+            images[0] = torch.ones((8, 4), dtype=torch.float64)
+        else:
+            images[2] = torch.ones((3, 5), device="meta")
+        with pytest.raises(ValueError, match="syn_matmul"):
+            ops.MatmulRun(images)
+
+    def test_no_products(self):
+        run = ops.MatmulRun([None, None])
+        assert run._gemv is None
+
+
 class TestSynGather:
     def _case(self, seed, p, q, f, ragged=True):
         rng = np.random.default_rng(seed)
@@ -182,6 +235,24 @@ class TestSynGather:
         np.testing.assert_array_equal(out.numpy(), np.asarray(jref.syn_gather_ref(
             jnp.asarray(spikes), csr.idx, csr.weight)))
         np.testing.assert_array_equal(out.numpy(), spikes @ w)
+
+    @pytest.mark.parametrize("idx_dtype", ["int16", "int32"])
+    def test_long_spike_row_bitwise_vs_reference(self, idx_dtype):
+        """P = 20,000, Synfire4x100's longest pre group (the card stages it
+        in opted-in shared memory): the plain version equals the
+        reference's jitted ``ref.syn_gather_ref`` bit for bit."""
+        rng = np.random.default_rng(20_000)
+        p, q, f = 20_000, 500, 120
+        idx = rng.integers(0, p, (q, f)).astype(idx_dtype)
+        table = np.array([0.0, 1.0, 3.5, -2.0], np.float32)
+        w = table[rng.integers(0, 4, (q, f))]
+        spikes = (rng.random(p) < 0.3).astype(np.float32)
+        out = ops.syn_gather(torch.from_numpy(spikes), torch.from_numpy(idx),
+                             torch.from_numpy(w))
+        want = jax.jit(jref.syn_gather_ref)(jnp.asarray(spikes), jnp.asarray(idx),
+                                            jnp.asarray(w))
+        np.testing.assert_array_equal(out.numpy(), np.asarray(want))
+        assert float(out.abs().sum()) > 0
 
     def test_empty_fanin_returns_zeros(self):
         out = ops.syn_gather(torch.ones(10), torch.zeros((4, 0), dtype=torch.int32),
