@@ -13,8 +13,13 @@ Phases (each raises, and the script exits non-zero, on any failure):
    with CUDA events (per call, host enqueue included), and the kernel
    alone on the device with ``torch.profiler`` (a library call's kernels
    too). ``syn_matmul`` goes through ``ops.syn_matmul`` and the engine's
-   per-run launcher ``ops.MatmulRun``; ``syn_gather`` also at spike rows
-   of 20,000 and 70,000. ``fused_tick`` is held on states taken from
+   per-run launcher ``ops.MatmulRun``; ``syn_gather`` through
+   ``ops.syn_gather`` per compiled table, on bad indices (the reference's
+   ``jnp.take`` contract) and at spike rows of 20,000 and 70,000, and
+   through the engine's per-run launcher ``ops.GatherRun`` (one launch
+   over a tick's 13 buckets) on the compiled Synfire4 and x10 tables, bit
+   for bit, on random weights at 1e-5, staged against unstaged, beside
+   ``embedding_bag``. ``fused_tick`` is held on states taken from
    50-tick runs of every Synfire path, twelve chained ticks each, and
    each path's grid, grid-barrier cost and tick on the grid against one
    CTA are measured; ``stdp_update`` and ``stdp_gather`` bit for bit on
@@ -34,8 +39,11 @@ Phases (each raises, and the script exits non-zero, on any failure):
    backends (raster against the CPU again); launch counts checked. Then
    Synfire4x100 (N = 120,000) sparse fp16 for 1,000 ticks on both
    backends, whose rasters must be equal bit for bit (two independent
-   kernel paths), at 17-29 Hz, with peak device memory, and fused_tick
-   against its plain version on a x100 state.
+   kernel paths), at 17-29 Hz, with peak device memory, ``ops.GatherRun``
+   against its plain version on the x100 tables (and staged against
+   unstaged on its longest pre row alone), and fused_tick against its
+   plain version on a x100 state. The default-backend sparse paths launch
+   ``syn_gather`` once per tick.
 5. Plastic Synfire4 (``CHAIN_STDP`` on the exc->exc chain) for 1,000
    ticks in fp16/fp32 x packed/sparse: card raster and final plastic
    weights equal the CPU port's, packed and sparse weights equal at the
@@ -48,22 +56,27 @@ Phases (each raises, and the script exits non-zero, on any failure):
 6. LM serving on the dense decoder (``repro_torch.launch.serve``): (a) the
    attention kernel ``flash_attention`` against its plain version on the
    card, at rtol = atol = 1e-5, at smollm-360m's prefill and decode shapes,
-   a local window, the Pallas signature, head dims 16/64/128/160, GQA
-   groups 3 and 4 and rows with no allowed key, each timed beside its
-   plain version and ``scaled_dot_product_attention``; (b) smollm-360m at
+   decode at caches of 1,100 to 32,768 slots (split-K), a local window,
+   the Pallas signature, head dims 16/64/128/160, GQA groups 3 and 4 and
+   rows with no allowed key (the reference's sum of v over Sk + pad),
+   each timed beside its plain version and
+   ``scaled_dot_product_attention`` (per call and on the device), decode
+   also with L2 flushed before each launch; (b) smollm-360m at
    full width (32 layers, random weights from a seed) serving batch 4,
    512-token prompts, 32 generated tokens, fp16, with exactly one
    attention launch per layer per prefill and decode step; (c) the card
    against the CPU port at full width cut to 2 layers, same weights, fp32
    and fp16 policies: logits and greedy tokens; (d) prefill against
    token-by-token decode at full depth on the card; (e) five decode
-   steps under ``torch.profiler``.
+   steps under ``torch.profiler``, with the attention kernel's time per
+   launch inside the step.
 7. Profile 100 Synfire4 fp16 ticks per propagation mode and backend, and
    of the plastic default-backend tick, with ``torch.profiler``: device
    busy time per tick, the device's idle share, device events per tick
    and device time by kernel name; and the packed default tick's host
-   time through the per-run ``syn_matmul`` launcher against the per-call
-   path, in turns.
+   time through the per-run ``syn_matmul`` launcher, and the sparse
+   default tick's through the per-run ``syn_gather`` launcher, each
+   against its per-call path, in turns.
 
 The last lines are a JSON object of per-kernel numbers, a JSON object of
 per-path numbers, the card's name and power limit from nvidia-smi, and
@@ -235,6 +248,90 @@ def _izh_inputs(n: int, dtype, dev, seed: int):
     return [x.to(dev).contiguous() for x in (v, u, i_syn, a, b, c, d)]
 
 
+def _check_gather_run(dev, g, net, what: str, staged_fits: bool = True) -> dict:
+    """``ops.GatherRun`` (the default backend's per-run gather launcher) on
+    a compiled sparse net's tables: one launch per tick, bit for bit with
+    its plain version on random spike rows and the compiled weights, and
+    within rtol = atol = 1e-5 on random normal weights; timed per call (the
+    launcher's ctypes call included), alone on the device, staged (the
+    whole spike row in shared memory in every CTA, where it fits) against
+    unstaged in the same run, the plain version, and ``embedding_bag`` over
+    the same rows (their sums alone, without the per-entry adds). The
+    bound reads every table entry, the spike row once and writes the rows
+    once, with two operations per entry."""
+    from repro_torch.core import backend as be
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import syn_gather as gsyn
+
+    static, params = net.static, net.params
+    packed = be.assemble_packed(static, net.state0.weights)
+    run = be.assemble_gather(static, params, packed)
+    require(len(run.starts) == 1 and len(run.plan.groups[0]) == 13,
+            f"{what}: gather plan {run.plan.groups}")
+    plain = [(k, posts.to(dev), gidx.to(dev), w) for k, posts, gidx, w in run.plan.plain[0]]
+    want = torch.empty_like(run.rows)
+    for _ in range(3):
+        spikes = (torch.rand(static.n, generator=g) < 0.3).float().to(dev)
+        ops.reset_launches()
+        run(0, spikes)
+        ref.gather_run_ref(spikes, want, plain, first=True)
+        torch.cuda.synchronize()
+        require(ops.LAUNCHES["syn_gather"] == 1 and torch.equal(run.rows, want),
+                f"{what}: GatherRun differs from its plain version, max abs err "
+                f"{max_err(run.rows, want)}")
+    rand = [(k, posts, gidx, torch.randn(tuple(w.shape), generator=g).to(dev))
+            for k, posts, gidx, w in plain]
+    buckets = [gsyn.Bucket(run.delays[k], posts.cpu().numpy(),
+                           (torch.arange(static.n).numpy(), gidx.int(), w))
+               for k, posts, gidx, w in rand]
+    rrun = ops.GatherRun(static.n, buckets, dev)
+    rrun(0, spikes)
+    rwant = torch.empty_like(run.rows)
+    ref.gather_run_ref(spikes, rwant, rand, first=True)
+    torch.cuda.synchronize()
+    err = max_err(rrun.rows, rwant)
+    require(torch.allclose(rrun.rows, rwant, rtol=1e-5, atol=1e-5),
+            f"{what}: GatherRun on random weights, max abs err {err}")
+    ptr = spikes.data_ptr()
+    unstaged = lambda: run.launcher(0, ptr)  # noqa: E731
+    staged_ms = None
+    if staged_fits:
+        staged = gsyn.GatherLauncher(run.plan, dev, staged=True)
+        staged(0, ptr)
+        torch.cuda.synchronize()
+        require(torch.equal(staged.rows, want), f"{what}: staged GatherRun differs")
+        staged_ms = device_ms(lambda: staged(0, ptr), "gather_kernel")
+    plan = run.plan
+    entries = int(plan.idx.numel())
+    rows_i = [gidx.reshape(-1).long() for _, _, gidx, _ in plain]
+    flat = torch.cat(rows_i)
+    wflat = torch.cat([w.reshape(-1) for *_, w in plain]).float()
+    offsets = torch.cat([torch.arange(0, gidx.numel(), gidx.shape[1], device=dev)
+                         + sum(x.numel() for x in rows_i[:i])
+                         for i, (_, _, gidx, _) in enumerate(plain)])
+    bag = lambda: torch.nn.functional.embedding_bag(  # noqa: E731
+        flat, spikes[:, None], offsets, per_sample_weights=wflat, mode="sum")
+    b_ms, b_by = bound(nbytes(plan.idx, plan.w) + static.n * 4 + nbytes(run.rows),
+                       2 * entries)
+    out = {"shape": f"{what}: 13 CSR buckets, {entries} entries, N={static.n}, "
+                    f"{str(plan.idx_dtype).removeprefix('torch.')}/"
+                    f"{str(plan.w_dtype).removeprefix('torch.')}, one launch",
+           "max_abs_err": err, "ms": cuda_ms(lambda: run(0, spikes)),
+           "device_ms": device_ms(unstaged, "gather_kernel"), "staged_device_ms": staged_ms,
+           "plain_ms": cuda_ms(lambda: ref.gather_run_ref(spikes, want, plain, first=True),
+                               reps=20, warmup=3),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(bag),
+           "library_device_ms": device_total_ms(bag)}
+    log(f"[kernels] GatherRun {what}: bitwise on 3 ticks, random weights within 1e-5 "
+        f"(max abs err {err:.3g}); {out['ms'] * 1e3:.2f} us per call, "
+        f"{out['device_ms'] * 1e3:.2f} us on the device"
+        + ("" if staged_ms is None else f" ({staged_ms * 1e3:.2f} us staged)")
+        + f", plain {out['plain_ms'] * 1e3:.2f} us, bound {b_ms * 1e3:.4f} us ({b_by}), "
+        f"embedding_bag {out['library_ms'] * 1e3:.2f} us "
+        f"({out['library_device_ms'] * 1e3:.2f} us on the device)")
+    return out
+
+
 def phase_kernels(dev) -> tuple[list[dict], dict]:
     from repro_torch.configs.synfire4 import (SYNFIRE4, SYNFIRE4_MINI, SYNFIRE4_X10,
                                               build_synfire)
@@ -360,12 +457,16 @@ def phase_kernels(dev) -> tuple[list[dict], dict]:
         log(f"[kernels] syn_gather {cfg.name}: {len(net.static.buckets)} tables "
             f"(Q x F {sorted({tuple(t.shape) for t in net.params.bucket_csr_idx})}) "
             f"bitwise; random weights within rtol=1e-5 atol=1e-5")
-    bad = torch.tensor([[0, 1], [2, 200]], dtype=torch.int16, device=dev)
-    out = ops.syn_gather(torch.ones(200, device=dev), bad, torch.ones((2, 2), device=dev))
-    require(float(out[0]) == 2.0 and bool(out[1].isnan()),
-            f"syn_gather: an index outside [0, P) gave {out.tolist()}, want [2, nan]")
-    log("[kernels] syn_gather: an index outside [0, P) yields NaN on the card")
-    for p in (20_000, 70_000):  # shared memory opted in; read from device memory
+    bad = torch.tensor([[0, 1], [2, 200], [-1, 0], [-201, 0]], dtype=torch.int16, device=dev)
+    out = ops.syn_gather(torch.ones(200, device=dev), bad, torch.ones((4, 2), device=dev))
+    want = ref.syn_gather_ref(torch.ones(200, device=dev), bad, torch.ones((4, 2), device=dev))
+    require(out[0] == 2.0 and bool(out[1].isnan()) and out[2] == 2.0 and bool(out[3].isnan())
+            and torch.equal(out.isnan(), want.isnan()) and torch.equal(out[[0, 2]], want[[0, 2]]),
+            f"syn_gather: indices outside [0, P) gave {out.tolist()}, want [2, nan, 2, nan] "
+            f"(the plain version {want.tolist()})")
+    log("[kernels] syn_gather: an index in [-P, -1] counts from the row's end, any other "
+        "outside [0, P) gives NaN, as the plain version (the reference's jnp.take)")
+    for p in (20_000, 70_000):  # long rows, read through the read-only path
         q, f = 300, 97
         idx = torch.randint(0, p, (q, f), generator=g, dtype=torch.int32)
         wl = table[torch.randint(0, 4, (q, f), generator=g)]
@@ -380,24 +481,29 @@ def phase_kernels(dev) -> tuple[list[dict], dict]:
         require(bool(got[7].isnan()) and torch.equal(got[ok], want[ok]),
                 f"syn_gather P={p}: an index outside [0, P) gave {float(got[7])}")
         log(f"[kernels] syn_gather P={p} Q={q} F={f}: bitwise, NaN for an index outside [0, P)")
+    gather_rows = []
+    for cfg in (SYNFIRE4, SYNFIRE4_X10):
+        gather_rows.append(_check_gather_run(dev, g, build_synfire(
+            cfg, policy="fp16", propagation="sparse", budget=None, monitor_ms_hint=0,
+            device=dev), cfg.name))
     spikes, idx, w = timed
     q, f = idx.shape
-    b_ms, b_by = bound(nbytes(spikes, idx, w) + q * 4, 2 * q * f)
     idx64 = idx.long()
+    main = gather_rows[0]
     rows.append({
         "name": "syn_gather", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/syn_gather.cu",
         "replaces": "src/repro/kernels/syn_gather.py:41",
-        "shape": f"Synfire4 bucket 0: P={spikes.shape[0]} Q={q} F={f} int16/f32",
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda: ops.syn_gather(spikes, idx, w)),
-        "device_ms": device_ms(lambda: ops.syn_gather(spikes, idx, w), "gather_kernel"),
-        "plain_ms": cuda_ms(lambda: ref.syn_gather_ref(spikes, idx, w)),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(lambda: torch.nn.functional.embedding_bag(
+        "shape": main["shape"], "max_abs_err": max(err, *(r["max_abs_err"] for r in gather_rows)),
+        **{k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "library_device_ms")},
+        "staged_device_ms": main["staged_device_ms"],
+        "ops_ms": cuda_ms(lambda: ops.syn_gather(spikes, idx, w)),
+        "ops_device_ms": device_ms(lambda: ops.syn_gather(spikes, idx, w), "gather_kernel"),
+        "ops_shape": f"Synfire4 bucket 0: P={spikes.shape[0]} Q={q} F={f} int16/f32",
+        "ops_library_device_ms": device_total_ms(lambda: torch.nn.functional.embedding_bag(
             idx64, spikes[:, None], per_sample_weights=w, mode="sum")),
-        "library_device_ms": device_total_ms(lambda: torch.nn.functional.embedding_bag(
-            idx64, spikes[:, None], per_sample_weights=w, mode="sum"))})
+        "per_tick": gather_rows})
     fused_row, designs = _check_fused_tick(dev, g)
     rows.append(fused_row)
     rows += _check_stdp(dev, g)
@@ -772,7 +878,7 @@ def phase_synfire(dev, totals: dict) -> dict:
                 kinds = [b.kind for b in net.static.buckets]
                 expect = _fused_launches(TICKS) if backend else {
                     "izh4_update": TICKS, "syn_matmul": kinds.count("dense") * TICKS,
-                    "syn_gather": kinds.count("sparse") * TICKS, "fused_tick": 0,
+                    "syn_gather": TICKS if "sparse" in kinds else 0, "fused_tick": 0,
                     **NOT_ON_PATH}
                 require(launches == expect, f"launches {launches} != {expect}")
                 require(kinds.count("dense" if propagation == "packed" else "sparse")
@@ -843,7 +949,7 @@ def phase_scale(dev, totals: dict) -> dict:
 
     g = torch.Generator(device="cpu").manual_seed(11)
     gen_u = torch.rand((TICKS, SYNFIRE4_X10.n_stim), generator=g)
-    x10_launches = {"izh4_update": TICKS, "syn_matmul": 0, "syn_gather": 13 * TICKS,
+    x10_launches = {"izh4_update": TICKS, "syn_matmul": 0, "syn_gather": TICKS,
                     "fused_tick": 0, **NOT_ON_PATH}
     for backend, (net, sp, launches, seconds) in _card_and_cpu_rasters(
             SYNFIRE4_X10, "fp16", "sparse", gen_u, dev, budget=None,
@@ -870,11 +976,13 @@ X100_TICKS = 1000
 
 def _phase_x100(dev, totals: dict) -> dict:
     """Synfire4x100 (N = 120,000) fp16 sparse for X100_TICKS ticks on both
-    backends: two independent kernel paths (izh4_update and 13 syn_gather
-    per tick, whose longest spike row, 20,000, opts into more shared memory,
-    against one fused_tick per tick on a grid of many CTAs), whose rasters
-    must be equal bit for bit; then fused_tick against its plain version on
-    a x100 state and the fused design's numbers there."""
+    backends: two independent kernel paths (izh4_update and one syn_gather
+    launch over the 13 CSR buckets per tick, against one fused_tick per
+    tick on a grid of many CTAs), whose rasters must be equal bit for bit;
+    the gather launcher against its plain version on the x100 tables, and
+    staged against unstaged on its longest pre row; then fused_tick against
+    its plain version on a x100 state and the fused design's numbers
+    there."""
     from repro_torch.configs.synfire4 import SYNFIRE4, scale_synfire
 
     cfg = scale_synfire(SYNFIRE4, 100)
@@ -893,7 +1001,7 @@ def _phase_x100(dev, totals: dict) -> dict:
         require(net.static.n == 120_000 and kinds.count("sparse") == 13,
                 f"x100 plan: N={net.static.n}, buckets {kinds}")
         want = _fused_launches(X100_TICKS) if backend else {
-            "izh4_update": X100_TICKS, "syn_matmul": 0, "syn_gather": 13 * X100_TICKS,
+            "izh4_update": X100_TICKS, "syn_matmul": 0, "syn_gather": X100_TICKS,
             "fused_tick": 0, **NOT_ON_PATH}
         require(launches == want, f"x100 launches {launches} != {want}")
         _add(totals, launches)
@@ -914,6 +1022,11 @@ def _phase_x100(dev, totals: dict) -> dict:
             f"{peak} B, build + runs {total_s:.1f} s, launches {launches}")
     _require_same_raster(rasters["fused"], rasters[None], "x100 fused vs default backend")
     log("[x100] the fused raster equals the default backend's bit for bit")
+    row = _check_gather_run(dev, g, nets[None], "SYNFIRE4_X100", staged_fits=False)
+    row["staged"] = ("not possible: the 120,000-entry f32 spike row (480,000 B) exceeds a "
+                     "CTA's shared memory")
+    row["one_bucket"] = _staged_one_bucket(dev, nets[None])
+    paths["synfire4_x100/fp16/sparse"]["gather_run"] = row
     net = nets["fused"]
     net, state, payload, args = _fused_state(None, None, None, dev, {}, net=net)
     spiked = _hold_fused(net, state, payload, args, g, "SYNFIRE4_X100 fp16/sparse")
@@ -929,6 +1042,40 @@ def _phase_x100(dev, totals: dict) -> dict:
         f"{design['us_per_tick_grid']:.2f} us/tick on the grid vs "
         f"{design['us_per_tick_one_cta']:.2f} on one CTA; bound {b_ms * 1e3:.3f} us ({b_by})")
     return paths
+
+
+def _staged_one_bucket(dev, net) -> dict:
+    """x100's bucket with the longest pre row (20,000 f32, 80,000 B: it
+    fits shared memory) alone over its own pre row, as the per-bucket path
+    ran it: the gather kernel staged against unstaged, device time in the
+    same run, bit for bit equal."""
+    import numpy as np
+
+    from repro_torch.core import backend as be
+    from repro_torch.kernels import syn_gather as gsyn
+
+    static, params = net.static, net.params
+    packed = be.assemble_packed(static, net.state0.weights)
+    bi = max(range(len(static.buckets)), key=lambda i: static.buckets[i].p)
+    b = static.buckets[bi]
+    plan = gsyn.GatherPlan(b.p, [gsyn.Bucket(b.delay_ms, np.arange(b.q), (
+        np.arange(b.p), params.bucket_csr_idx[bi], packed[bi]))])
+    spikes = (torch.rand(b.p, device=dev) < 0.3).float()
+    ptr = spikes.data_ptr()
+    runs = {k: gsyn.GatherLauncher(plan, dev, staged=k == "staged")
+            for k in ("unstaged", "staged")}
+    for r in runs.values():
+        r(0, ptr)
+    torch.cuda.synchronize()
+    require(torch.equal(runs["staged"].rows, runs["unstaged"].rows),
+            "x100 one bucket: staged and unstaged gathers differ")
+    out = {"bucket": bi, "p": b.p, "q": b.q, "f": b.fanin,
+           **{f"{k}_device_ms": device_ms(lambda r=r: r(0, ptr), "gather_kernel")
+              for k, r in runs.items()}}
+    log(f"[x100] one bucket (P={b.p}, Q={b.q}, F={b.fanin}): unstaged "
+        f"{out['unstaged_device_ms'] * 1e3:.2f} us, staged "
+        f"{out['staged_device_ms'] * 1e3:.2f} us on the device, equal sums")
+    return out
 
 
 HOMEO = dict(target_hz=10.0, tau_avg_ms=1000.0, beta=2.0)  # visible within 1 s
@@ -1005,7 +1152,7 @@ def _plastic_launches(net, ticks: int) -> dict:
     chain = len(_chain(net))
     csr = sum(j in net.static.csr_projs for j in _chain(net))
     return {"izh4_update": ticks, "syn_matmul": kinds.count("dense") * ticks,
-            "syn_gather": kinds.count("sparse") * ticks, "fused_tick": 0,
+            "syn_gather": ticks if "sparse" in kinds else 0, "fused_tick": 0,
             "stdp_update": (chain - csr) * ticks, "stdp_gather": csr * ticks,
             "flash_attention": 0}
 
@@ -1142,9 +1289,14 @@ def _attn_row(name, args, causal, window, pallas=False):
     key: SDPA gives NaN there), and the bound: each input read once and
     the output written once at 3.35 TB/s, or 4 * Hq * D f32 operations per
     allowed (query, key) pair at 67 TFLOP/s, whichever is larger."""
+    from repro_torch.kernels import flash_attn as fa
     from repro_torch.kernels import ops, ref
 
     q, k, v, qpos, kpos = args
+    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+    splits = fa.plan(q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2], q.shape[3],
+                     n_sm)[0]
+    kernel = "decode_kernel" if splits else "prefill_kernel"
     if pallas:  # the Pallas signature: [B, H, S, D] operands
         qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         run = lambda: ops.flash_attention(qh, kh, vh, causal=causal, window=window)  # noqa: E731
@@ -1161,10 +1313,14 @@ def _attn_row(name, args, causal, window, pallas=False):
             f"flash_attention {name}: max abs err {err} against its plain version")
     allowed = _allowed(qpos, kpos, causal, window)
     empty = ~allowed.any(dim=-1)  # [B, Sq]
-    if bool(empty.any()):
-        require(bool((got[empty] == 0).all()), f"flash_attention {name}: a row with no "
-                "allowed key is not 0")
     b, sq, hq, d = q.shape
+    if bool(empty.any()):  # the reference's value: sum of v over Sk + pad
+        mean = (v.float().sum(dim=1) / fa.pad_den(k.shape[1])).repeat_interleave(
+            hq // k.shape[2], dim=1)  # [B, Hq, D]
+        want_empty = mean[:, None].expand(b, sq, hq, d)[empty]
+        require(torch.allclose(got[empty], want_empty, rtol=ATTN_TOL, atol=ATTN_TOL),
+                f"flash_attention {name}: rows with no allowed key differ from sum(v) / "
+                f"(Sk + pad) by {max_err(got[empty], want_empty)}")
     pairs = int(allowed.sum())
     b_ms, b_by = bound(nbytes(q, k, v, qpos, kpos) + nbytes(got), 4 * hq * d * pairs)
     library = library_device = None
@@ -1178,16 +1334,30 @@ def _attn_row(name, args, causal, window, pallas=False):
 
         library = cuda_ms(sdpa, reps=50)
         library_device = device_total_ms(sdpa, reps=20)
+    cold = None
+    if splits:  # L2 flushed before each launch, as inside a decode step
+        flush = torch.empty(64 << 20, dtype=torch.int32, device=q.device)
+
+        def flushed():
+            flush.zero_()
+            run()
+
+        cold = device_ms(flushed, kernel, reps=50)
     row = {"case": name, "shape": f"q {list(q.shape)} kv {list(k.shape)} "
            f"{str(k.dtype).removeprefix('torch.')} causal={causal} window={window}"
            + (" (Pallas signature)" if pallas else ""),
+           "path": f"decode, {splits} splits" if splits else "prefill",
            "max_abs_err": err, "allowed_pairs": pairs, "empty_rows": int(empty.sum()),
-           "ms": cuda_ms(run, reps=50), "device_ms": device_ms(run, "flash_attn_kernel", reps=50),
+           "ms": cuda_ms(run, reps=50), "device_ms": device_ms(run, kernel, reps=50),
+           "device_ms_l2_flushed": cold,
            "plain_ms": cuda_ms(plain, reps=20, warmup=3), "bound_ms": b_ms, "bound_by": b_by,
            "library_ms": library, "library_device_ms": library_device}
     lib = "-" if library is None else f"{library * 1e3:.2f} us"
-    log(f"[lm] flash_attention {name} ({row['shape']}): max abs err {err:.3g}, "
-        f"{row['ms'] * 1e3:.2f} us per call ({row['device_ms'] * 1e3:.2f} us on the device), "
+    if library_device is not None:
+        lib += f" ({library_device * 1e3:.2f} us on the device)"
+    log(f"[lm] flash_attention {name} ({row['shape']}, {row['path']}): max abs err {err:.3g}, "
+        f"{row['ms'] * 1e3:.2f} us per call ({row['device_ms'] * 1e3:.2f} us on the device"
+        + ("" if cold is None else f", {cold * 1e3:.2f} us with L2 flushed") + "), "
         f"plain {row['plain_ms'] * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us ({b_by}), SDPA {lib}")
     return row
 
@@ -1214,6 +1384,16 @@ def _check_attention(dev) -> dict:
          True, -1, False),
         ("rows with no allowed key", _attn_case(g, 2, 40, 40, 6, 2, 64, f32, dev, shift=-8),
          True, -1, False),
+        ("decode, 4,096-slot fp16 cache, group 3",
+         _attn_case(g, 4, 1, 4096, 15, 5, 64, f16, dev, invalid=64), True, -1, False),
+        ("decode, 32,768-slot fp16 cache, group 3",
+         _attn_case(g, 4, 1, 32768, 15, 5, 64, f16, dev), True, -1, False),
+        ("decode, group 4, D 128, bf16 cache",
+         _attn_case(g, 2, 1, 2048, 32, 8, 128, bf16, dev, invalid=10), True, -1, False),
+        ("decode, window 256", _attn_case(g, 4, 1, 1500, 15, 5, 64, f16, dev), True, 256,
+         False),
+        ("decode, rows with no allowed key (Sk 1,100: pad 948)",
+         _attn_case(g, 2, 1, 1100, 15, 5, 64, f16, dev, shift=-1200), True, -1, False),
     ]
     rows = [_attn_row(name, args, causal, window, pallas)
             for name, args, causal, window, pallas in cases]
@@ -1223,7 +1403,10 @@ def _check_attention(dev) -> dict:
             "replaces": "src/repro/kernels/flash_attn.py:70",
             "shape": main["shape"], "max_abs_err": max(r["max_abs_err"] for r in rows),
             **{k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms", "library_device_ms")},
+                                    "library_ms", "library_device_ms", "device_ms_l2_flushed")},
+            **{f"prefill_{k}": rows[0][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                    "bound_by", "library_ms",
+                                                    "library_device_ms")},
             "cases": rows}
 
 
@@ -1306,17 +1489,21 @@ def _profile_decode(model, cfg, policy, dev, steps: int = 5) -> dict:
         name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
         name = name.split("(")[0][:100]
         by_name[name] = by_name.get(name, 0.0) + (s1 - s0)
-    attn = sum(1 for sp in spans if "flash_attn_kernel" in sp[2])
+    attn = sum(1 for sp in spans if "decode_kernel" in sp[2])
     require(attn == steps * cfg.n_layers, f"profile: {attn} attention launches in {steps} "
             f"decode steps, want {steps * cfg.n_layers}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    attn_us = [s1 - s0 for s0, s1, name in spans if "decode_kernel" in name]
     out = {"device_events": len(spans), "device_events_per_step": len(spans) / steps,
+           "decode_attention_us_per_launch": sum(attn_us) / len(attn_us),
+           "decode_attention_us_per_launch_max": max(attn_us),
            "device_busy_us_per_step": busy / steps, "host_us_per_step_profiled": wall_us / steps,
            "idle_share": 1.0 - busy / wall_us,
            "device_us_per_step_by_kernel": {n: t / steps for n, t in top}}
     log(f"[lm] profile {steps} decode steps: {len(spans) / steps:.0f} device events per step, "
         f"busy {busy / steps:.1f} us/step of {wall_us / steps:.1f} us/step wall (idle share "
-        f"{1.0 - busy / wall_us:.3f}); largest: "
+        f"{1.0 - busy / wall_us:.3f}); decode attention {sum(attn_us) / len(attn_us):.2f} us "
+        f"per launch in the step (max {max(attn_us):.2f}); largest: "
         + ", ".join(f"{n} {t / steps:.1f} us" for n, t in top[:5]))
     return out
 
@@ -1441,6 +1628,77 @@ def _matmul_launcher_vs_per_call(dev, ticks: int = 300) -> dict:
     return out
 
 
+class _PerBucketGather:
+    """The per-bucket gather path, the earlier one, in
+    ``ops.GatherRun``'s shape: each tick ``ops.syn_gather`` on every
+    sparse bucket's pre row, each drive added at its post columns into
+    rows zeroed first, in plan order (a compiled plan's sparse buckets
+    come first)."""
+
+    def __init__(self, static, params, packed):
+        from repro_torch.core import backend as be
+        from repro_torch.kernels import ops
+
+        self._go = lambda bi, x: ops.syn_gather(be._bucket_pre(static, params, x, bi),
+                                                params.bucket_csr_idx[bi], packed[bi])
+        self._sparse = [(bi, b) for bi, b in enumerate(static.buckets) if b.kind == "sparse"]
+        self._ids = params.bucket_post_ids
+        self.delays = tuple(sorted({b.delay_ms for _, b in self._sparse}))
+        self.starts = [0] if self._sparse else []
+        self.rows = torch.zeros((len(self.delays), static.n), device=params.neuron.a.device)
+
+    def __call__(self, g, x):
+        self.rows.zero_()
+        for bi, b in self._sparse:
+            row, drive = self.rows[self.delays.index(b.delay_ms)], self._go(bi, x)
+            if b.post_start >= 0:
+                row[b.post_start:b.post_start + b.q] += drive
+            else:
+                row.index_add_(0, self._ids[bi], drive)
+
+
+def _gather_launcher_vs_per_call(dev, ticks: int = 300) -> dict:
+    """Host us/tick of the Synfire4 fp16 sparse default tick through the
+    engine's per-run gather launcher (one launch per tick) against the
+    per-bucket path (13 ``ops.syn_gather`` calls and adds per tick), in
+    turns (per call, launcher, launcher, per call) in one process, with the
+    same raster required; and each mode's device events per tick in a
+    ``torch.profiler`` trace of 20 ticks."""
+    from repro_torch.configs.synfire4 import SYNFIRE4, build_synfire
+    from repro_torch.core import backend as be
+    from repro_torch.core.engine import run
+
+    net = build_synfire(SYNFIRE4, policy="fp16", propagation="sparse", device=dev)
+    gu = torch.rand((ticks, SYNFIRE4.n_stim), device=dev)
+    launcher = be.assemble_gather
+    modes = {"launcher": launcher, "per_call": _PerBucketGather}
+    times, rasters, events = {"per_call": [], "launcher": []}, {}, {}
+    try:
+        for mode in ("per_call", "launcher", "launcher", "per_call"):
+            be.assemble_gather = modes[mode]
+            run(net.static, net.params, net.state0, 20, gen_u=gu[:20])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, out = run(net.static, net.params, net.state0, ticks, gen_u=gu)
+            torch.cuda.synchronize()
+            times[mode].append((time.perf_counter() - t0) / ticks * 1e6)
+            rasters[mode] = out["spikes"]
+            if mode not in events:
+                events[mode] = len(_cuda_events(
+                    lambda: run(net.static, net.params, net.state0, 20, gen_u=gu[:20]),
+                    1)) / 20
+    finally:
+        be.assemble_gather = launcher
+    require(torch.equal(rasters["launcher"], rasters["per_call"]),
+            "sparse tick: the gather launcher's raster differs from the per-call path's")
+    out = {f"{k}_us_per_tick": v for k, v in times.items()}
+    out.update({f"{k}_device_events_per_tick": v for k, v in events.items()})
+    log(f"[profile] Synfire4 fp16 sparse default tick, host us/tick in turns: per-call "
+        f"ops.syn_gather {times['per_call']}, launcher {times['launcher']} (same raster); "
+        f"device events per tick {events}")
+    return out
+
+
 def phase_profile(dev) -> dict:
     """Device busy time per tick and idle share of the Synfire4 fp16 tick,
     from a ``torch.profiler`` trace of 100 ticks per propagation mode and
@@ -1511,6 +1769,7 @@ def phase_profile(dev) -> dict:
             f"[profile] {key}: the profiler recorded no "
             "device activity")
     out["synfire4/fp16/packed/matmul_launcher_vs_per_call"] = _matmul_launcher_vs_per_call(dev)
+    out["synfire4/fp16/sparse/gather_launcher_vs_per_call"] = _gather_launcher_vs_per_call(dev)
     return out
 
 

@@ -3,8 +3,11 @@
 Every bucket of the compile-time plan (``NetStatic.buckets``) is either a
 dense ``[P, Q]`` matmul on the tick's spike row (``syn_matmul``, through
 the run's :class:`repro_torch.kernels.ops.MatmulRun`, built by
-:func:`assemble_matmul`) or a CSR fan-in gather (``syn_gather``); the
-neuron update of IZH4 networks is the ``izh4_update`` kernel. Plastic and STP projections, whose weights change
+:func:`assemble_matmul`) or a CSR fan-in gather (``syn_gather``, every
+sparse bucket of a tick in one launch through the run's
+:class:`repro_torch.kernels.ops.GatherRun`, built by
+:func:`assemble_gather`); the neuron update of IZH4 networks is the
+``izh4_update`` kernel. Plastic and STP projections, whose weights change
 every tick, drive through :func:`plastic_drive` after the buckets, and
 pair-based STDP updates their weights through ``stdp_update`` (dense
 storage) or ``stdp_gather`` (CSR fan-in rows) in :func:`stdp_dispatch`.
@@ -29,6 +32,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -37,8 +41,9 @@ from repro_torch.core.plasticity import STDPState, _trace_step
 from repro_torch.core.synapses import stp_update
 from repro_torch.kernels import ops
 from repro_torch.kernels.fused_tick import KernelPayload, assemble_kernel
+from repro_torch.kernels.syn_gather import Bucket
 
-__all__ = ["assemble_packed", "assemble_matmul", "update_neurons_dispatch",
+__all__ = ["assemble_packed", "assemble_matmul", "assemble_gather", "update_neurons_dispatch",
            "propagate_packed", "FaninRows", "assemble_fanin", "plastic_drive", "stdp_dispatch",
            "FusedPayload", "assemble_fused"]
 
@@ -74,6 +79,26 @@ def assemble_matmul(static, packed) -> ops.MatmulRun:
     projections join no bucket, so the images stay fixed for the run."""
     return ops.MatmulRun([None if b.kind == "sparse" else w
                           for b, w in zip(static.buckets, packed)])
+
+
+def assemble_gather(static, params, packed) -> ops.GatherRun:
+    """The run's ``syn_gather`` launcher over the sparse buckets' CSR
+    tables (``params.bucket_csr_idx``, weights from ``packed``, pre ids
+    composed through ``bucket_pre_ids`` where ``pre_start < 0``), with the
+    whole plan's post columns (``bucket_post_ids`` where ``post_start <
+    0``) deciding its launch groups; built once per run, as
+    :func:`assemble_matmul`."""
+    buckets = []
+    for bi, b in enumerate(static.buckets):
+        posts = (np.arange(b.post_start, b.post_start + b.q) if b.post_start >= 0
+                 else params.bucket_post_ids[bi].cpu().numpy())
+        table = None
+        if b.kind == "sparse":
+            pre = (np.arange(b.pre_start, b.pre_start + b.p) if b.pre_start >= 0
+                   else params.bucket_pre_ids[bi].cpu().numpy())
+            table = (pre, params.bucket_csr_idx[bi], packed[bi])
+        buckets.append(Bucket(b.delay_ms, posts, table))
+    return ops.GatherRun(static.n, buckets, params.neuron.a.device)
 
 
 def update_neurons_dispatch(static, params, neurons: nrn.NeuronState,
@@ -171,23 +196,29 @@ def _bucket_pre(static, params, spikes_f32, bi):
 
 def propagate_packed(static, params, spikes_f32: torch.Tensor, ring: torch.Tensor,
                      t: int, packed, weights=(), stp=(), fanin=None,
-                     matmul=None) -> tuple:
+                     matmul=None, gather=None) -> tuple:
     """Propagate this tick's spikes (``[N]`` f32, 0.0/1.0) into ``ring``.
 
     Each bucket's drive lands in a per-delay ``[N, 1]`` f32 accumulator in
-    plan order; then every plastic or STP projection's fan-in-row drive
-    (:func:`plastic_drive` on ``weights[j]``, the pre row scaled by
+    plan order: the sparse buckets' through ``gather``, whose accumulator
+    rows become those of their delays (its group 0 writes them before the
+    first bucket, a later group adds where it stands), the dense buckets'
+    through ``matmul``; then every plastic or STP projection's fan-in-row
+    drive (:func:`plastic_drive` on ``weights[j]``, the pre row scaled by
     ``u · x`` for STP) lands in the same accumulators, in projection
     order; then one commit per distinct delay adds each accumulator, cast
     to the ring's dtype first, into ring slot ``(t + d) % ring_len`` (the
     reference's ``row + acc.astype(ring.dtype)``). ``fanin`` is
-    :func:`assemble_fanin`'s output and ``matmul`` :func:`assemble_matmul`'s,
-    each built here when omitted. Updates ``ring`` in place; returns the STP states advanced by this tick's
-    spikes, aligned with the projections.
+    :func:`assemble_fanin`'s output, ``matmul`` :func:`assemble_matmul`'s
+    and ``gather`` :func:`assemble_gather`'s, each built here when
+    omitted. Updates ``ring`` in place; returns the STP states advanced by
+    this tick's spikes, aligned with the projections.
     """
     acc: dict[int, torch.Tensor] = {}
     if matmul is None:
         matmul = assemble_matmul(static, packed)
+    if gather is None:
+        gather = assemble_gather(static, params, packed)
 
     def add(delay_ms, post_start, q, drive, post_ids=None):
         a = acc.get(delay_ms)
@@ -199,12 +230,16 @@ def propagate_packed(static, params, spikes_f32: torch.Tensor, ring: torch.Tenso
         else:
             a[:, 0].index_add_(0, post_ids, drive)
 
+    if gather.starts:
+        gather(0, spikes_f32)
+        acc.update((d, gather.rows[k][:, None]) for k, d in enumerate(gather.delays))
+    later = {i: g for g, i in enumerate(gather.starts) if g}
     for bi, b in enumerate(static.buckets):
-        pre = _bucket_pre(static, params, spikes_f32, bi)
+        if bi in later:
+            gather(later[bi], spikes_f32)
         if b.kind == "sparse":
-            drive = ops.syn_gather(pre, params.bucket_csr_idx[bi], packed[bi])
-        else:
-            drive = matmul(bi, pre)
+            continue
+        drive = matmul(bi, _bucket_pre(static, params, spikes_f32, bi))
         add(b.delay_ms, b.post_start, b.q, drive, params.bucket_post_ids[bi])
 
     new_stp = list(stp) or [None] * len(static.projections)

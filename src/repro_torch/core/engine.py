@@ -25,8 +25,10 @@ device, and nothing in the loop reads a tensor back to the host, so on
 the card the loop only enqueues work. The generator spikes of the whole
 run are computed before the loop in one comparison (they depend only on
 the uniforms and the tick), and the bucket weight payloads are decoded
-once per run, as is the dense buckets' ``syn_matmul`` launcher
-(``ops.MatmulRun``: one ctypes call per product). With
+once per run, as are the dense buckets' ``syn_matmul`` launcher
+(``ops.MatmulRun``: one ctypes call per product) and the sparse buckets'
+``syn_gather`` launcher (``ops.GatherRun``: one ctypes call and one
+launch per tick for every compiled plan). With
 ``backend="fused"`` and a plan whose ``kernel_ok`` is set, a tick is one
 operation, the ``fused_tick`` kernel, which writes its spike row straight
 into the raster; other fused nets (plastic or STP ones among them), and
@@ -150,7 +152,7 @@ def _apply_homeostasis(static: NetStatic, weights: tuple, homeo: tuple,
 
 def _tick(static: NetStatic, params: NetParams, neurons: NeuronState,
           ring: torch.Tensor, t: int, packed, gen_row: torch.Tensor | None,
-          i_ext_row: torch.Tensor | None, syn: _Syn, fanin, matmul,
+          i_ext_row: torch.Tensor | None, syn: _Syn, fanin, matmul, gather,
           dopamine=None):
     """One tick, updating ``ring`` in place; returns (neurons', spikes,
     i_syn, syn')."""
@@ -167,7 +169,7 @@ def _tick(static: NetStatic, params: NetParams, neurons: NeuronState,
             off += sz
     spikes_f32 = spikes.to(f32)
     stp = be.propagate_packed(static, params, spikes_f32, ring, t, packed,
-                              syn.weights, syn.stp, fanin, matmul)
+                              syn.weights, syn.stp, fanin, matmul, gather)
     weights, stdp = _plasticity(static, params, spikes_f32, syn.weights, syn.stdp,
                                 dopamine)
     return neurons, spikes, i_syn, _Syn(weights, stp, stdp)
@@ -221,7 +223,7 @@ def step(static: NetStatic, params: NetParams, state: NetState,
     ring = state.ring.clone()
     neurons, spikes, i_syn, syn = _tick(
         static, params, state.neurons, ring, state.t, packed, gen_row, i_ext,
-        _Syn(state.weights, state.stp, state.stdp), None, None, dopamine)
+        _Syn(state.weights, state.stp, state.stdp), None, None, None, dopamine)
     new_state = state._replace(t=state.t + 1, key=key, neurons=neurons, ring=ring,
                                **syn._asdict())
     return new_state, StepOutput(spikes=spikes, v=neurons.v.to(f32), i_syn=i_syn)
@@ -371,6 +373,7 @@ def run(
     packed = be.assemble_packed(static, state.weights)
     fanin = be.assemble_fanin(static, params)
     matmul = be.assemble_matmul(static, packed)
+    gather = be.assemble_gather(static, params, packed)
     ring = state.ring.clone()
     neurons = state.neurons
     syn = _Syn(state.weights, state.stp, state.stdp)
@@ -384,7 +387,7 @@ def run(
         neurons, spikes, i_syn, syn = _tick(
             static, params, neurons, ring, state.t + i, packed,
             None if gen_spk is None else gen_spk[i],
-            None if i_ext is None else i_ext[i], syn, fanin, matmul,
+            None if i_ext is None else i_ext[i], syn, fanin, matmul, gather,
             None if dopamine is None else dopamine[i])
         if counts is not None:
             counts += spikes

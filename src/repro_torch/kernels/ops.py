@@ -19,9 +19,9 @@ from repro_torch.kernels import stdp_update as _stdp_update
 from repro_torch.kernels import syn_gather as _gather
 from repro_torch.kernels import syn_matmul as _matmul
 
-__all__ = ["LAUNCHES", "reset_launches", "izh4_update", "syn_matmul",
-           "MatmulRun", "syn_gather", "FusedTickRun", "stdp_update", "stdp_gather", "attention",
-           "flash_attention"]
+__all__ = ["LAUNCHES", "reset_launches", "izh4_update", "syn_matmul", "MatmulRun",
+           "syn_gather", "GatherRun", "FusedTickRun", "stdp_update", "stdp_gather",
+           "attention", "flash_attention"]
 
 f32 = torch.float32
 
@@ -141,12 +141,13 @@ def syn_gather(spikes, idx, w):
     """CSR fan-in drive ``out[q] = Σ_k spikes[idx[q, k]] * w[q, k]``:
     spikes ``[P]`` f32, idx ``[Q, F]`` int16/int32, w ``[Q, F]`` in f32,
     fp16 or bf16 → ``[Q]`` f32. Rows shorter than F are padded with
-    index 0 and weight +0.0.
+    index 0 and weight +0.0. Any ``P``.
 
-    Every index must lie in ``[0, P)``; ``NetworkBuilder.compile`` builds
-    its tables so. A table that breaks this raises ``IndexError`` on the
-    CPU, while on the card, where a check would cost a device-to-host
-    sync, each offending entry makes its row's output NaN. Any ``P``."""
+    Out-of-range indices follow the reference's ``jnp.take``, on the CPU
+    and on the card: an index in ``[-P, -1]`` counts from the end of the
+    row, and any other index outside ``[0, P)`` makes its row's output
+    NaN. On the card it is the kernel of :class:`GatherRun` over this one
+    table, one launch."""
     if spikes.dim() != 1 or idx.dim() != 2 or w.shape != idx.shape:
         raise ValueError(f"syn_gather: shapes spikes {tuple(spikes.shape)}, "
                          f"idx {tuple(idx.shape)}, w {tuple(w.shape)}")
@@ -165,6 +166,62 @@ def syn_gather(spikes, idx, w):
         _gather.launch(spikes, idx, w, out)
         LAUNCHES["syn_gather"] += 1
     return out
+
+
+class GatherRun:
+    """The CSR gathers of one run's sparse buckets, over the tick's whole
+    ``[N]`` f32 spike row: ``buckets`` is the run's plan in plan order
+    (:class:`repro_torch.kernels.syn_gather.Bucket`, dense buckets
+    included, whose columns decide the launch groups), built into a
+    :class:`repro_torch.kernels.syn_gather.GatherPlan` (``plan``) once,
+    here, with its tables checked: they must stay as they are for the
+    launcher's life.
+
+    ``rows`` ``[len(delays), N]`` f32 holds one accumulator row per delay
+    of a sparse bucket. ``run(0, spikes)`` writes every entry of it: each
+    (delay, column) entry the sum of group 0's bucket drives there, in
+    plan order, starting at +0.0, and 0.0 where group 0 has none;
+    ``run(g, spikes)`` for g > 0 adds group g's drives into the entries it
+    covers. Group 0 runs before the plan's first bucket, group g where
+    bucket ``starts[g]`` stands, so each entry keeps the per-bucket path's
+    sum bit for bit (``ops.syn_gather`` per bucket, added in plan order).
+    Each row sum is the kernel's and ``ops.syn_gather``'s. On the card a
+    group is one launch through ``launcher`` (a
+    :class:`repro_torch.kernels.syn_gather.GatherLauncher`), on the
+    stream current at construction; ``spikes`` must be a contiguous f32
+    row of length N on the tables' card and is not checked per call. On
+    the CPU ``launcher`` is None and each group runs the plain version
+    (:func:`repro_torch.kernels.ref.gather_run_ref`). Every compiled plan
+    is one group: one launch per tick."""
+
+    def __init__(self, n: int, buckets, device):
+        buckets = list(buckets)
+        tables = [b.table for b in buckets if b.table is not None]
+        for _, idx, w in tables:
+            if idx.dim() != 2 or w.shape != idx.shape:
+                raise ValueError(f"syn_gather: idx {tuple(idx.shape)} and w "
+                                 f"{tuple(w.shape)} must share one [Q, F] shape")
+            if idx.dtype not in _gather.INDEX_DTYPES or w.dtype not in _gather.WEIGHT_DTYPES:
+                raise ValueError(f"syn_gather: idx/w dtypes {idx.dtype}/{w.dtype} not in "
+                                 f"{_gather.INDEX_DTYPES}/{_gather.WEIGHT_DTYPES}")
+        self.plan = _gather.GatherPlan(n, buckets)
+        self.delays, self.starts = self.plan.delays, self.plan.starts
+        device = torch.device(device)
+        self.launcher = None
+        if device.type == "cuda" and self.plan.groups:
+            with torch.cuda.device(device):
+                self.launcher = _gather.GatherLauncher(self.plan, device)
+            self.rows = self.launcher.rows
+        else:
+            self.rows = torch.zeros((len(self.delays), n), dtype=f32, device=device)
+
+    def __call__(self, g: int, spikes: torch.Tensor) -> None:
+        if self.launcher is None:
+            ref.gather_run_ref(spikes, self.rows, self.plan.plain[g], first=g == 0)
+            return
+        self.launcher(g, spikes.data_ptr())
+        if self.launcher.items[g]:
+            LAUNCHES["syn_gather"] += 1
 
 
 def _check_stdp_vectors(name: str, n_pre: int, n_post: int, pre_trace, post_trace,
@@ -323,7 +380,12 @@ def attention(q, k, v, qpos, kpos, *, causal: bool = True, window: int = -1):
     Hq, D]`` f32, k/v ``[B, Sk, Hkv, D]`` in f32, fp16 or bf16 with ``Hq %
     Hkv == 0``, qpos int32 ``[B, Sq]``, kpos int32 ``[Sk]`` (``< 0`` marks
     an invalid slot) → ``[B, Sq, Hq, D]`` f32. A row with no allowed key
-    is 0. The card takes D up to ``MAX_HEAD_DIM`` (256) and raises above."""
+    gets the reference's ``chunked_attention`` value, ``Σ_{j<Sk} v_j / (Sk
+    + pad)`` with ``pad = -Sk mod min(1024, Sk)``; with ``Sk = 0`` every row
+    is 0. On the card it is one launch of the split-K decode path or the
+    tensor-core prefill path, chosen from the shapes
+    (:func:`repro_torch.kernels.flash_attn.plan`); D is at most
+    ``MAX_HEAD_DIM`` (256) there, and above it raises."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"attention: q {tuple(q.shape)} must be [B, Sq, Hq, D] and "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} one [B, Sk, Hkv, D]")
@@ -345,6 +407,8 @@ def attention(q, k, v, qpos, kpos, *, causal: bool = True, window: int = -1):
     if d > _flash.MAX_HEAD_DIM:
         raise ValueError(f"attention: head dim {d} above the kernel's limit "
                          f"{_flash.MAX_HEAD_DIM}")
+    if sk == 0:
+        return torch.zeros_like(q)
     out = torch.empty_like(q)
     if out.numel():
         _flash.launch(q, k, v, qpos, kpos, out, causal=causal, window=window)

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["izh4_ref", "syn_matmul_ref", "syn_gather_ref", "fused_tick_ref",
+__all__ = ["izh4_ref", "syn_matmul_ref", "syn_gather_ref", "gather_run_ref", "fused_tick_ref",
            "stdp_update_ref", "stdp_gather_ref", "chunked_attention_ref",
            "flash_attention_ref", "model_layout"]
 
@@ -57,11 +57,29 @@ def syn_gather_ref(spikes, idx, w):
     """CSR fan-in drive: ``out[q] = Σ_k spikes[idx[q, k]] * w[q, k]``.
 
     Padded entries carry weight +0.0, so they contribute an exact +0.0.
-    Raises ``IndexError`` for an index outside ``[0, P)``.
+    Out-of-range indices follow the reference's ``jnp.take``: an index in
+    ``[-P, -1]`` counts from the end of the row, and any other index
+    outside ``[0, P)`` reads NaN, which makes its row's sum NaN.
     """
-    _check_indices("syn_gather", idx, spikes.shape[0])
-    g = spikes.to(f32)[idx.to(torch.int64)]
-    return (g * w.to(f32)).sum(dim=1)
+    p = spikes.shape[0]
+    ii = idx.to(torch.int64)
+    ii = torch.where(ii < 0, ii + p, ii)
+    ii = torch.where((ii >= 0) & (ii < p), ii, p)  # p: the NaN appended below
+    row = torch.cat((spikes.to(f32), spikes.new_full((1,), float("nan"), dtype=f32)))
+    return (row[ii] * w.to(f32)).sum(dim=1)
+
+
+def gather_run_ref(spikes, rows, buckets, *, first: bool) -> None:
+    """One launch of a :class:`repro_torch.kernels.ops.GatherRun`, in place
+    on ``rows`` ``[D, N]`` f32 (one row per delay): zeroed first when
+    ``first``, then each bucket ``(row, posts, idx, w)`` of ``buckets``, in
+    plan order, adds its :func:`syn_gather_ref` drive on the ``[N]`` f32
+    spike row (``idx`` ``[Q, F]`` global ids) at the post columns ``posts``
+    ``[Q]`` int64 of row ``row``."""
+    if first:
+        rows.zero_()
+    for k, posts, idx, w in buckets:
+        rows[k].index_add_(0, posts, syn_gather_ref(spikes, idx, w))
 
 
 def fused_tick_ref(v, u, ring, gen_row, is_gen, a, b, c, d, t: int, *,
@@ -143,13 +161,13 @@ def chunked_attention_ref(q, k, v, qpos, kpos, *, causal: bool = True,
     absolute positions, ``kpos < 0`` an invalid slot. Query head ``h``
     reads KV head ``h // (Hq // Hkv)``. A key is allowed iff it is valid,
     ``kpos <= qpos`` when ``causal`` and ``kpos > qpos - window`` when
-    ``window > 0``. Scores are masked with -1e30 and the sum divided by
-    ``where(l > 0, l, 1)``, as in the reference; masked keys add an exact
-    0 to the sums (``p = where(mask, exp(s - m), 0)``), so a row with no
-    allowed key is 0, in this plain version and in the CUDA kernel alike.
-    (The reference's ``chunked_attention`` gives such a row the mean of v
-    over its padded KV blocks, and ``kernels/ref.py:flash_attention_ref``
-    NaN; on rows with an allowed key all three agree.) Returns
+    ``window > 0``. Scores are masked with -1e30, ``p = exp(s - m)`` is
+    taken over every key and the sum divided by ``where(l > 0, l, 1)``, as
+    in the reference. A masked key's ``p`` is an exact 0 once the row has
+    seen an allowed key; a row with no allowed key keeps ``m = -1e30``,
+    so every key, padding included, gets ``p = 1`` and the row is
+    ``Σ_{j<Sk} v_j / (Sk + pad)`` with ``pad = -Sk mod min(block_k, Sk)``,
+    the reference's value, which the CUDA kernel gives too. Returns
     ``[B, Sq, Hq, D]`` f32.
     """
     b, sq, hq, d = q.shape
@@ -183,7 +201,7 @@ def chunked_attention_ref(q, k, v, qpos, kpos, *, causal: bool = True,
         mask = mask[:, None, None]  # [b, 1, 1, q, k]
         s = torch.where(mask, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+        p = torch.exp(s - m_new[..., None])
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1)
         acc = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, vc.to(f32))

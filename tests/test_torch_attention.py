@@ -77,16 +77,25 @@ def test_chunked_attention_matches_reference(case):
 
 
 def test_row_without_allowed_key_is_zero():
-    """A query before every valid key (causal) has no allowed key: the port
-    gives 0 there (the kernel too); the other rows equal the reference."""
+    """A query before every valid key (causal) has no allowed key: the
+    port gives the reference's value there, ``Σ_{j<Sk} v_j / (Sk + pad)``
+    (the reference keeps m = -1e30, so every key takes p = 1), and every
+    row equals the reference, blocked over KV (pad > 0) or not."""
     q, k, v, _, _ = _model_inputs(3, 2, 6, 8, 4, 2, 16, "f32")
     kpos = np.arange(8, dtype=np.int32) + 10
     qpos = np.array([[5, 10, 11, 12, 13, 30], [17, 9, 14, 15, 16, 17]], np.int32)
     got = ops.attention(*(torch.from_numpy(x) for x in (q, k, v, qpos, kpos))).numpy()
     want = np.asarray(chunked_attention(*(jnp.asarray(x) for x in (q, k, v, qpos, kpos))))
     empty = qpos < 10
-    assert np.all(got[empty] == 0.0)
-    np.testing.assert_allclose(got[~empty], want[~empty], **TOL)
+    np.testing.assert_allclose(got, want, **TOL)
+    mean = np.repeat(v.sum(axis=1) / 8, 2, axis=1)  # [b, hq, d]: KV head h // 2
+    np.testing.assert_allclose(got[empty], mean[np.nonzero(empty)[0]], **TOL)
+    blocked = [torch.from_numpy(x) for x in (q, k, v, qpos, kpos)]
+    for block_k in (3, 8):  # pad 1 and 0
+        got = ref.chunked_attention_ref(*blocked, block_k=block_k).numpy()
+        want = np.asarray(chunked_attention(*(jnp.asarray(x) for x in (q, k, v, qpos, kpos)),
+                                            block_k=block_k))
+        np.testing.assert_allclose(got, want, **TOL)
 
 
 # (b, hq, hkv, sq, sk, d, window, kv dtype)
@@ -154,3 +163,34 @@ def test_attention_rejects_bad_operands(bad):
     tensors = [torch.from_numpy(x) for x in arrays]
     with pytest.raises(ValueError, match="attention"):
         ops.attention(*bad(*tensors))
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((4, 1, 544, 15, 5, 64), (17, 32)),      # the smollm serve's decode: 340 CTAs
+    ((4, 1, 4096, 15, 5, 64), (26, 160)),
+    ((4, 1, 32768, 15, 5, 64), (32, 1024)),  # capped at 1,024 keys a split
+    ((1, 1, 32768, 15, 5, 64), (103, 320)),
+    ((2, 2, 700, 8, 2, 128), (22, 32)),      # 8 query rows per KV head
+    ((4, 512, 512, 15, 5, 64), (0, 0)),      # prefill
+    ((1, 1, 100, 20, 1, 64), (0, 0)),        # 20 rows per KV head: prefill path
+    ((1, 1, 100, 16, 1, 256), (0, 0)),       # 16 x 256 outputs per CTA: prefill path
+])
+def test_attention_path_and_split_plan(shape, want):
+    """The kernel's path and decode split count, chosen from the shapes
+    (132 SMs): splits of whole 32-key tiles making about four CTAs per SM,
+    at most 1,024 keys a split; the prefill path beyond 16 query rows or
+    2,048 outputs per KV head."""
+    from repro_torch.kernels import flash_attn as fa
+
+    b, sq, sk, hq, hkv, d = shape
+    splits, kps = fa.plan(b, sq, sk, hq, hkv, d, 132)
+    assert (splits, kps) == want
+    if splits:
+        assert kps % fa.TILE == 0 and kps <= fa.MAX_SPLIT and (splits - 1) * kps < sk <= splits * kps
+
+
+def test_pad_den_is_the_reference_divisor():
+    from repro_torch.kernels import flash_attn as fa
+
+    assert [fa.pad_den(sk) for sk in (1, 40, 1024, 1100, 2048, 2049)] == [
+        1.0, 40.0, 1024.0, 2048.0, 2048.0, 3072.0]

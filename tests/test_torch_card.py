@@ -7,12 +7,15 @@ machine with the card and PyTorch alone:
 (``--noconftest``: ``tests/conftest.py`` resets the reference's flags and
 imports JAX.) ``chip_smoke.py`` holds every kernel at the main paths'
 shapes; these cases are the attention kernel's (B7) against its plain
-version at rtol = atol = 1e-5, the serving path on the card against the
-CPU port, and the Synfire kernels at shapes beside the main paths':
-``syn_matmul`` (B3) through ``ops.syn_matmul`` and the per-run
-``ops.MatmulRun``, ``syn_gather`` (B2) on spike rows longer than shared
-memory holds by default, and ``fused_tick`` (B4) on random nets of 1 to
-5,000 neurons, on one CTA and on many."""
+version at rtol = atol = 1e-5 (its split-K decode path at several split
+counts and cache lengths, its split-TF32 prefill path on f32, fp16 and
+bf16 K/V), the serving path on the card against the CPU port, and the
+Synfire kernels at shapes beside the main paths': ``syn_matmul`` (B3)
+through ``ops.syn_matmul`` and the per-run ``ops.MatmulRun``,
+``syn_gather`` (B2) through ``ops.syn_gather`` on long spike rows and
+bad indices and through the per-run ``ops.GatherRun`` on every compiled
+Synfire table (x100 included), and ``fused_tick`` (B4) on random nets of
+1 to 5,000 neurons, on one CTA and on many."""
 import math
 
 import numpy as np
@@ -53,7 +56,8 @@ CASES = {
 @pytest.mark.parametrize("case", CASES.values(), ids=CASES.keys())
 def test_flash_attention_kernel_matches_plain(card, case):
     """One launch per call, and the plain version's result on the same
-    inputs; a row with no allowed key is 0 in both."""
+    inputs, rows with no allowed key included (the reference's mean of v
+    there)."""
     b, sq, sk, hq, hkv, d, causal, window, kvdt, invalid, shift = case
     g = torch.Generator().manual_seed(sq + sk)
     q = torch.randn((b, sq, hq, d), generator=g)
@@ -71,7 +75,76 @@ def test_flash_attention_kernel_matches_plain(card, case):
     want = ref.chunked_attention_ref(*args, causal=causal, window=window)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     if shift < 0:
-        assert bool((got[:, :-shift] == 0).all())
+        mean = v.float().sum(dim=1) / sk  # [b, hkv, d]; Sk <= 1024: no pad
+        want_empty = mean.repeat_interleave(hq // hkv, dim=1)[:, None].to(card)
+        torch.testing.assert_close(got[:, :-shift], want_empty.expand(b, -shift, hq, d),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def _attn_args(card, seed, b, sq, sk, hq, hkv, d, kvdt, invalid=0, shift=0):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((b, sq, hq, d), generator=g)
+    k = torch.randn((b, sk, hkv, d), generator=g).to(kvdt)
+    v = torch.randn((b, sk, hkv, d), generator=g).to(kvdt)
+    kpos = torch.arange(sk, dtype=torch.int32)
+    if invalid:
+        kpos[-invalid:] = -1
+    qpos = (torch.arange(sq, dtype=torch.int32) + (sk - invalid - sq + shift)).expand(b, sq)
+    return [x.contiguous().to(card) for x in (q, k, v, qpos, kpos)]
+
+
+# (b, sq, sk, hq, hkv, d, window, kv dtype, invalid slots, query shift)
+DECODE = {
+    "serve-544-g3": (4, 1, 544, 15, 5, 64, -1, torch.float16, 32, 0),
+    "4096-g4-bf16": (2, 1, 4096, 8, 2, 64, -1, torch.bfloat16, 100, 0),
+    "32768-g3": (1, 1, 32768, 15, 5, 64, -1, torch.float16, 0, 0),
+    "window-g4-f32": (2, 2, 700, 8, 2, 128, 200, torch.float32, 0, 0),
+    "empty-rows-1100": (2, 3, 1100, 8, 2, 64, -1, torch.float16, 0, -1200),
+    "d36-scalar-copies": (3, 1, 77, 6, 2, 36, -1, torch.float16, 5, 0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [None, 1, 3, 8], ids=["plan", "s1", "s3", "s8"])
+@pytest.mark.parametrize("case", DECODE.values(), ids=DECODE.keys())
+def test_flash_decode_split_k_matches_plain(card, case, splits):
+    """The split-K decode path (chosen by ``flash_attn.plan`` or forced to
+    a split count) against the plain version at rtol = atol = 1e-5, twice
+    in a row (the tickets reset), one launch per call; rows with no
+    allowed key (the last case, Sk 1,100: pad 948) included."""
+    from repro_torch.kernels import flash_attn as fa
+
+    b, sq, sk, hq, hkv, d, window, kvdt, invalid, shift = case
+    args = _attn_args(card, sk + d, b, sq, sk, hq, hkv, d, kvdt, invalid, shift)
+    n_sm = torch.cuda.get_device_properties(card).multi_processor_count
+    assert fa.plan(b, sq, sk, hq, hkv, d, n_sm)[0] > 0
+    want = ref.chunked_attention_ref(*args, causal=True, window=window)
+    for _ in range(2):
+        out = torch.empty_like(args[0])
+        fa.launch(*args, out, causal=True, window=window, splits=splits)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    ops.reset_launches()
+    ops.attention(*args, causal=True, window=window)
+    assert ops.LAUNCHES["flash_attention"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kvdt", [torch.float32, torch.float16, torch.bfloat16],
+                         ids=["f32", "fp16", "bf16"])
+@pytest.mark.parametrize("d", [16, 36, 64, 128, 256])
+def test_flash_prefill_split_tf32_matches_plain(card, kvdt, d):
+    """The tensor-core prefill path (split TF32: three MMAs a product on
+    f32 K/V, two on fp16/bf16) holds rtol = atol = 1e-5 against the plain
+    f32 version, causal and windowed, with ragged query and key tiles."""
+    from repro_torch.kernels import flash_attn as fa
+
+    args = _attn_args(card, d, 2, 200, 200, 6, 2, d, kvdt)
+    assert fa.plan(2, 200, 200, 6, 2, d, 132) == (0, 0)
+    for window in (-1, 48):
+        got = ops.attention(*args, causal=True, window=window)
+        want = ref.chunked_attention_ref(*args, causal=True, window=window)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda
@@ -163,10 +236,12 @@ def test_syn_matmul_kernel_matches_plain(card, shape, wdtype):
 @pytest.mark.parametrize("p", [20_000, 70_000], ids=["P20000-opt-in", "P70000-global"])
 @pytest.mark.parametrize("wdtype", [torch.float32, torch.float16], ids=["f32", "fp16"])
 def test_syn_gather_long_rows(card, p, wdtype):
-    """Spike rows beyond the default 48 KB of shared memory (opted in up
-    to the device's limit) and beyond that limit (read from device
-    memory): bit for bit on 0/1 spikes and Synfire weights, int16 and
-    int32 indices where they fit, NaN for an index outside [0, P)."""
+    """Long spike rows (Synfire4x100's longest pre group, and one beyond
+    what shared memory could stage), read through the read-only path: bit
+    for bit on 0/1 spikes and Synfire weights, int16 and int32 indices
+    where they fit; an index in [-P, -1] counts from the row's end and any
+    other index outside [0, P) gives NaN, as the plain version (the
+    reference's ``jnp.take``)."""
     g = torch.Generator().manual_seed(p)
     q, f = 300, 97
     idx = torch.randint(0, p, (q, f), generator=g, dtype=torch.int32)
@@ -179,11 +254,98 @@ def test_syn_gather_long_rows(card, p, wdtype):
         torch.cuda.synchronize()
         assert torch.equal(got, ref.syn_gather_ref(*args)), idt
     bad = idx.clone()
-    bad[1, 5] = p
+    bad[1, 5], bad[2, 0], bad[3, 1] = p, -1, -p - 1
     got = ops.syn_gather(spikes.to(card), bad.to(card), w.to(card))
-    want = ref.syn_gather_ref(spikes.to(card), idx.to(card), w.to(card))
-    assert bool(got[1].isnan()) and not bool(got[torch.arange(q) != 1].isnan().any())
-    assert torch.equal(got[2:], want[2:]) and torch.equal(got[:1], want[:1])
+    want = ref.syn_gather_ref(spikes.to(card), bad.to(card), w.to(card))
+    assert bool(got[1].isnan()) and bool(got[3].isnan()) and not bool(got[2].isnan())
+    torch.testing.assert_close(got, want, equal_nan=True, rtol=0, atol=0)
+
+
+def _synfire_gather(card, cfg, policy, seed, random_weights=False):
+    """A compiled sparse Synfire net's GatherRun on the card, a random
+    spike row, and the plain version's rows on the same tables."""
+    from repro_torch.configs import synfire4 as syn
+    from repro_torch.core import backend as be
+
+    net = syn.build_synfire(cfg, policy=policy, propagation="sparse", budget=None,
+                            monitor_ms_hint=0, device=card)
+    weights = net.state0.weights
+    if random_weights:
+        g = torch.Generator().manual_seed(seed)
+        weights = tuple(torch.randn(tuple(w.shape), generator=g).to(w.dtype).to(card)
+                        if j in net.static.csr_projs else w for j, w in enumerate(weights))
+    packed = be.assemble_packed(net.static, weights)
+    run = be.assemble_gather(net.static, net.params, packed)
+    g = torch.Generator().manual_seed(seed + 1)
+    spikes = (torch.rand(net.static.n, generator=g) < 0.3).float().to(card)
+    want = torch.empty_like(run.rows)
+    plain = [(k, posts.to(card), idx.to(card), w) for k, posts, idx, w in run.plan.plain[0]]
+    ref.gather_run_ref(spikes, want, plain, first=True)
+    return run, spikes, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg_name,policy", [("SYNFIRE4", "fp16"), ("SYNFIRE4", "fp32"),
+                                             ("SYNFIRE4_X10", "fp16"), ("X100", "fp16")])
+def test_gather_run_on_compiled_tables(card, cfg_name, policy):
+    """``ops.GatherRun`` on every compiled Synfire table (13 buckets, one
+    launch): bit for bit with its plain version on the compiled weights,
+    staged and unstaged where the row fits shared memory, twice in a row
+    (every entry rewritten); within rtol = atol = 1e-5 on random weights."""
+    from repro_torch.configs import synfire4 as syn
+    from repro_torch.kernels import syn_gather as gsyn
+
+    cfg = syn.scale_synfire(syn.SYNFIRE4, 100) if cfg_name == "X100" else getattr(syn, cfg_name)
+    run, spikes, want = _synfire_gather(card, cfg, policy, seed=len(cfg_name))
+    assert len(run.starts) == 1 and len(run.plan.groups[0]) == 13
+    ops.reset_launches()
+    for _ in range(2):
+        run(0, spikes)
+        torch.cuda.synchronize()
+        assert torch.equal(run.rows, want)
+    assert ops.LAUNCHES["syn_gather"] == 2
+    if run.plan.n * 4 <= 200_000:
+        staged = gsyn.GatherLauncher(run.plan, card, staged=True)
+        staged(0, spikes.data_ptr())
+        torch.cuda.synchronize()
+        assert torch.equal(staged.rows, want)
+    if cfg_name != "X100":
+        run, spikes, want = _synfire_gather(card, cfg, policy, seed=5, random_weights=True)
+        run(0, spikes)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(run.rows, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_gather_run_later_group_adds_in_place(card):
+    """A plan whose second sparse bucket opens a second launch group:
+    group 0 writes every entry, group 1 adds into the entries it covers
+    after the dense drive, bit for bit with the plain version."""
+    import numpy as np
+
+    from repro_torch.kernels import syn_gather as gsyn
+
+    r = np.random.default_rng(9)
+    n = 300
+
+    def sparse(posts, f):
+        idx = torch.from_numpy(r.integers(0, n, (len(posts), f)).astype(np.int16))
+        return gsyn.Bucket(4, np.asarray(posts), (np.arange(n), idx,
+                                                  TABLE[torch.randint(0, 4, idx.shape)]))
+
+    buckets = [sparse(np.arange(0, 100), 40), gsyn.Bucket(4, np.arange(50, 60)),
+               sparse(np.arange(55, 120), 33)]
+    runs = [ops.GatherRun(n, buckets, dev) for dev in (card, "cpu")]
+    assert runs[0].starts == [0, 2]
+    spikes = (torch.rand(n) < 0.3).float()
+    drive = TABLE[torch.randint(0, 4, (10,))]
+    for run, dev in zip(runs, (card, "cpu")):
+        run.rows.fill_(7.0)  # group 0 overwrites every entry
+        run(0, spikes.to(dev))
+        run.rows[0, 50:60] += drive.to(dev)
+        run(1, spikes.to(dev))
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0].rows.cpu(), runs[1].rows)
 
 
 def _fused_case(n, dtype, exact, seed, device):
@@ -288,8 +450,8 @@ def test_fused_tick_kernel_matches_plain(card, n, grid, dtype, exact):
 @pytest.mark.parametrize("grid", [1, None], ids=["one-cta", "by-work"])
 def test_fused_tick_corrupt_index_is_nan(card, grid):
     """A CSR index outside [0, N) makes its post neuron's drive NaN in the
-    ring (the plain version raises there instead); every other ring entry,
-    v and the spikes equal the plain version on the intact table."""
+    ring (as in the plain version); every other ring entry, v and the
+    spikes equal the plain version on the intact table."""
     payload, x, gen_rows = _fused_case(1025, torch.float32, True, seed=7, device=card)
     qs, dly, idx, w = payload.csr[0]
     bad_idx = idx.clone()

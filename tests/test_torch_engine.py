@@ -377,3 +377,83 @@ def test_propagate_packed_through_launcher_matches_per_call_path(cfg_name, polic
         be.propagate_packed(static, params, spikes, rings[2], t, packed)
     assert float(rings[0].float().abs().sum()) > 0
     assert torch.equal(rings[1], rings[0]) and torch.equal(rings[2], rings[0])
+
+
+class PerBucketGather:
+    """The per-bucket gather path in :class:`repro_torch.kernels.ops.GatherRun`'s
+    shape: each tick, ``ops.syn_gather`` on every sparse bucket's pre row
+    and the drive added at its post columns, in plan order, into rows
+    zeroed first (every compiled plan puts its sparse buckets first)."""
+
+    def __init__(self, static, params, packed):
+        from repro_torch.core import backend as be
+        from repro_torch.kernels import ops
+
+        self._go = lambda bi, spikes: ops.syn_gather(
+            be._bucket_pre(static, params, spikes, bi), params.bucket_csr_idx[bi], packed[bi])
+        self._sparse = [(bi, b) for bi, b in enumerate(static.buckets) if b.kind == "sparse"]
+        self._ids = params.bucket_post_ids
+        self.delays = tuple(sorted({b.delay_ms for _, b in self._sparse}))
+        self.starts = [0] if self._sparse else []
+        self.rows = torch.zeros((len(self.delays), static.n), device=params.neuron.a.device)
+
+    def __call__(self, g, spikes):
+        self.rows.zero_()
+        for bi, b in self._sparse:
+            row, drive = self.rows[self.delays.index(b.delay_ms)], self._go(bi, spikes)
+            if b.post_start >= 0:
+                row[b.post_start:b.post_start + b.q] += drive
+            else:
+                row.index_add_(0, self._ids[bi], drive)
+
+
+@pytest.mark.parametrize("cfg_name,propagation,policy", [
+    ("SYNFIRE4", "sparse", "fp16"), ("SYNFIRE4", "sparse", "fp32"),
+    ("SYNFIRE4", "auto", "fp16"), ("SYNFIRE4_X10", "auto", "fp16")])
+def test_propagate_packed_through_gather_launcher_matches_per_call_path(
+        cfg_name, propagation, policy):
+    """``propagate_packed`` through the run's ``syn_gather`` launcher
+    (``assemble_gather``, what ``run`` builds once: one group, so one
+    launch per tick on the card, and none on Synfire4's all-dense auto
+    plan) gives the ring that the per-bucket path gives, bit for bit, over
+    ticks of random spike rows on random normal sparse weights; and so
+    does the launcher it builds itself; and a run through it gives the
+    per-bucket path's raster and final state."""
+    from repro_torch.core import backend as be
+    from repro_torch.core import engine
+
+    net = tsyn.build_synfire(getattr(tsyn, cfg_name), policy=policy,
+                             propagation=propagation, device="cpu", budget=None,
+                             monitor_ms_hint=0)
+    static, params = net.static, net.params
+    n_sparse = sum(b.kind == "sparse" for b in static.buckets)
+    assert n_sparse == (0 if (cfg_name, propagation) == ("SYNFIRE4", "auto") else 13)
+    rng_np = np.random.default_rng(len(propagation))
+    weights = tuple(torch.from_numpy(rng_np.standard_normal(tuple(w.shape)).astype(np.float32))
+                    .to(w.dtype) if j in static.csr_projs else w
+                    for j, w in enumerate(net.state0.weights))
+    packed = be.assemble_packed(static, weights)
+    launcher = be.assemble_gather(static, params, packed)
+    assert len(launcher.starts) == min(n_sparse, 1) and launcher.launcher is None
+    per_call = PerBucketGather(static, params, packed)
+    rings = [net.state0.ring.clone() for _ in range(3)]
+    for t in range(12):
+        spikes = torch.from_numpy((rng_np.random(static.n) < 0.2).astype(np.float32))
+        be.propagate_packed(static, params, spikes, rings[0], t, packed, gather=per_call)
+        be.propagate_packed(static, params, spikes, rings[1], t, packed, gather=launcher)
+        be.propagate_packed(static, params, spikes, rings[2], t, packed)
+    assert float(rings[0].float().abs().sum()) > 0
+    assert torch.equal(rings[1], rings[0]) and torch.equal(rings[2], rings[0])
+
+    state = net.state0._replace(weights=weights)
+    gu = torch.from_numpy(rng_np.random((60, static.n_gen)).astype(np.float32))
+    final, out = engine.run(static, params, state, 60, gen_u=gu)
+    built = be.assemble_gather
+    be.assemble_gather = lambda static, params, packed: PerBucketGather(static, params, packed)
+    try:
+        final_pc, out_pc = engine.run(static, params, state, 60, gen_u=gu)
+    finally:
+        be.assemble_gather = built
+    assert torch.equal(out["spikes"], out_pc["spikes"])
+    for a, b in ((final.ring, final_pc.ring), (final.neurons.v, final_pc.neurons.v)):
+        assert torch.equal(a, b)

@@ -21,6 +21,7 @@ from repro.kernels.stdp_update import stdp_update as pallas_stdp_update  # noqa:
 from repro.kernels.syn_gather import syn_gather as pallas_gather  # noqa: E402
 from repro.kernels.syn_matmul import syn_matmul as pallas_matmul  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import syn_gather as gsyn  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -262,11 +263,148 @@ class TestSynGather:
     @pytest.mark.parametrize("bad", [-1, 8])
     @pytest.mark.parametrize("idx_dtype", [torch.int16, torch.int32])
     def test_index_outside_pre_raises_on_cpu(self, bad, idx_dtype):
-        """The plain side of the wrapper's contract: an index outside
-        [0, P) raises instead of wrapping or reading past the row."""
-        idx = torch.tensor([[1, 3, 0], [2, bad, 0]], dtype=idx_dtype)
+        """The plain side of the wrapper's contract on an index outside
+        [0, P): the reference's ``jnp.take`` (``ref.syn_gather_ref``) on the
+        same table, -1 counting from the end of the row and 8 giving NaN."""
+        spikes = np.arange(1, 9, dtype=np.float32)
+        idx = np.array([[1, 3, 0], [2, bad, 0]], np.int16 if idx_dtype == torch.int16
+                       else np.int32)
+        w = np.array([[1.0, 2.0, 0.5], [1.0, 3.5, -2.0]], np.float32)
+        out = ops.syn_gather(torch.from_numpy(spikes), torch.from_numpy(idx),
+                             torch.from_numpy(w))
+        want = np.asarray(jref.syn_gather_ref(jnp.asarray(spikes), jnp.asarray(idx),
+                                              jnp.asarray(w)))
+        np.testing.assert_array_equal(out.numpy(), want)
+        assert np.isnan(want[1]) == (bad == 8)
+
+
+class TestGatherRun:
+    """The per-run gather launcher's host plan (``syn_gather.GatherPlan``)
+    and its plain run on the CPU, against the per-bucket path and the
+    reference's ``ref.syn_gather_ref``."""
+
+    @staticmethod
+    def _sparse(rng, n, pre, posts, f, delay, wdtype=torch.float32):
+        idx = rng.integers(0, len(pre), (len(posts), f)).astype(np.int16)
+        w = torch.from_numpy(rng.standard_normal((len(posts), f)).astype(np.float32))
+        return gsyn.Bucket(delay, np.asarray(posts), (np.asarray(pre), torch.from_numpy(idx),
+                                                      w.to(wdtype)))
+
+    def test_composed_pre_indices(self):
+        """Each bucket's rows are composed through its pre ids into global
+        ids of the [N] row, int16 where N fits and int32 beyond."""
+        rng = np.random.default_rng(1)
+        pre_gathered = rng.permutation(300)[:40]
+        buckets = [self._sparse(rng, 300, np.arange(100, 150), np.arange(0, 20), 7, 8),
+                   self._sparse(rng, 300, pre_gathered, np.arange(20, 30), 5, 8)]
+        plan = gsyn.GatherPlan(300, buckets)
+        assert plan.idx.dtype == torch.int16
+        for (_, _, gidx, _), b in zip(plan.plain[0], buckets):
+            pre, idx, _ = b.table
+            np.testing.assert_array_equal(gidx.numpy(), pre[idx.numpy().astype(np.int64)])
+        flat = np.concatenate([pre[idx.numpy().astype(np.int64)].reshape(-1)
+                               for pre, idx, _ in (b.table for b in buckets)])
+        np.testing.assert_array_equal(plan.idx.numpy(), flat)
+        wide = gsyn.GatherPlan(40_000, [self._sparse(rng, 40_000, np.arange(39_000, 40_000),
+                                                     np.arange(5), 3, 1)])
+        assert wide.idx.dtype == torch.int32 and int(wide.idx.min()) >= 39_000
+
+    def test_contributions_in_plan_order(self):
+        """Per (delay, column), the (bucket, row) contributions in plan
+        order, post ids resolved; every other entry of group 0 is a
+        zero-fill item, each entry written once."""
+        rng = np.random.default_rng(2)
+        n = 70
+        posts_b = rng.permutation(np.arange(10, 50))[:25]
+        buckets = [self._sparse(rng, n, np.arange(n), np.arange(0, 30), 4, 10),
+                   self._sparse(rng, n, np.arange(n), posts_b, 6, 10),
+                   self._sparse(rng, n, np.arange(n), np.arange(5, 15), 3, 8)]
+        plan = gsyn.GatherPlan(n, buckets)
+        assert plan.delays == (8, 10) and plan.groups == ((0, 1, 2),) and plan.starts == [0]
+        items, contribs = plan.items[0].numpy(), plan.contribs.numpy()
+        offsets = np.cumsum([0] + [b.table[1].numel() for b in buckets])
+        want = {}
+        for bi, b in enumerate(buckets):
+            k = plan.delays.index(b.delay)
+            f = b.table[1].shape[1]
+            for r, col in enumerate(b.posts):
+                want.setdefault(k * n + int(col), []).append((offsets[bi] + r * f, f))
+        written = []
+        for out, begin, end in items:
+            if begin < 0:
+                written += range(out, out - begin)
+                assert -begin <= 32 and out not in want
+                continue
+            written.append(out)
+            assert [tuple(c) for c in contribs[begin:end]] == want[out]
+        assert sorted(written) == list(range(2 * n))
+
+    def test_group_split_keeps_plan_order(self):
+        """A dense bucket between two sparse ones on one (delay, column)
+        of three terms opens a second group where the second sparse bucket
+        stands; with two terms, or on other columns, the plan is one
+        group; a dense bucket before the first sparse one on a
+        three-term entry leaves group 0 with zero fills alone."""
+        rng = np.random.default_rng(3)
+        n = 40
+        s1 = self._sparse(rng, n, np.arange(n), np.arange(0, 10), 3, 5)
+        s2 = self._sparse(rng, n, np.arange(n), np.arange(8, 12), 3, 5)
+        dense = lambda cols: gsyn.Bucket(5, np.asarray(cols))  # noqa: E731
+        assert gsyn.GatherPlan(n, [s1, dense([9]), s2]).starts == [0, 2]
+        assert gsyn.GatherPlan(n, [s1, dense([20]), s2]).groups == ((0, 2),)
+        assert gsyn.GatherPlan(n, [s1, dense([0]), s2]).groups == ((0, 2),)
+        plan = gsyn.GatherPlan(n, [dense([9]), s1, s2])
+        assert plan.groups == ((), (1, 2)) and plan.starts == [0, 1]
+        assert (plan.items[0][:, 1] < 0).all() and (plan.items[1][:, 1] >= 0).all()
+        other = gsyn.Bucket(7, np.arange(9, 10))  # another delay: no conflict
+        assert gsyn.GatherPlan(n, [s1, other, s2]).groups == ((0, 2),)
+
+    @pytest.mark.parametrize("order", ["sparse-first", "interleaved"])
+    def test_cpu_run_equals_per_bucket_path(self, order):
+        """The launcher's rows, with dense drives added where their buckets
+        stand, equal the per-bucket path (``ops.syn_gather`` per bucket and
+        the dense drives, added in plan order into zeros) bit for bit on
+        random weights; each row sum is the reference's ``syn_gather_ref``
+        on the composed table, up to its summation order."""
+        rng = np.random.default_rng(4)
+        n = 90
+        s = [self._sparse(rng, n, rng.permutation(n)[:30], rng.permutation(n)[:25], 9, 4)
+             for _ in range(3)]
+        d = [gsyn.Bucket(4, rng.permutation(n)[:40]) for _ in range(2)]
+        plan_buckets = s + d if order == "sparse-first" else [s[0], d[0], s[1], d[1], s[2]]
+        drives = {id(b): torch.from_numpy(rng.standard_normal(len(b.posts)).astype(np.float32))
+                  for b in d}
+        spikes = torch.from_numpy((rng.random(n) < 0.4).astype(np.float32))
+        run = ops.GatherRun(n, plan_buckets, "cpu")
+        assert run.launcher is None and len(run.starts) == (1 if order == "sparse-first" else 3)
+        later = {i: g for g, i in enumerate(run.starts) if g}
+        run(0, spikes)
+        for i, b in enumerate(plan_buckets):
+            if i in later:
+                run(later[i], spikes)
+            if b.table is None:
+                run.rows[0].index_add_(0, torch.from_numpy(b.posts), drives[id(b)])
+        want = torch.zeros(n)
+        for b in plan_buckets:
+            if b.table is None:
+                want.index_add_(0, torch.from_numpy(b.posts), drives[id(b)])
+                continue
+            pre, idx, w = b.table
+            drive = ops.syn_gather(spikes[torch.from_numpy(pre)], idx, w)
+            want.index_add_(0, torch.from_numpy(b.posts), drive)
+            jwant = jref.syn_gather_ref(jnp.asarray(spikes.numpy()),
+                                        jnp.asarray(pre[idx.numpy().astype(np.int64)]),
+                                        jnp.asarray(w.numpy()))
+            # XLA sums the random products in its own order: a few ulp.
+            np.testing.assert_allclose(drive.numpy(), np.asarray(jwant), rtol=1e-6, atol=1e-6)
+        assert torch.equal(run.rows[0], want)
+        assert ops.LAUNCHES["syn_gather"] == 0
+
+    def test_rejects_index_outside_pre(self):
+        bucket = gsyn.Bucket(1, np.arange(2), (np.arange(8), torch.tensor(
+            [[0, 8], [1, 2]], dtype=torch.int16), torch.ones((2, 2))))
         with pytest.raises(IndexError, match=r"outside \[0, 8\)"):
-            ops.syn_gather(torch.ones(8), idx, torch.ones((2, 3)))
+            ops.GatherRun(10, [bucket], "cpu")
 
 
 def _opt0(fn, *args):
