@@ -19,13 +19,26 @@ Phases (each raises, and the script exits non-zero, on any failure):
    through the engine's per-run launcher ``ops.GatherRun`` (one launch
    over a tick's 13 buckets) on the compiled Synfire4 and x10 tables, bit
    for bit, on random weights at 1e-5, staged against unstaged, beside
-   ``embedding_bag``. ``fused_tick`` is held on states taken from
-   50-tick runs of every Synfire path, twelve chained ticks each, and
-   each path's grid, grid-barrier cost and tick on the grid against one
-   CTA are measured; ``stdp_update`` and ``stdp_gather`` bit for bit on
-   random weights, traces and masks at the plastic chain's shapes
-   (Synfire4 packed [200, 200] and an odd shape; the compiled Synfire4
-   and x10 fan-in tables with int16 and int32 indices).
+   ``embedding_bag``. ``izh4_update`` through ``ops.izh4_update`` and
+   through the engine's per-run neuron-phase launcher ``ops.NeuronRun``
+   (one launch per tick: ring slot, IZH4, generator merge, refractory
+   countdown, raster, record and count writes), held bit for bit against
+   its plain version over twelve chained ticks on Synfire4 fp16 and fp32
+   with and without an external current and records (x100 in phase 4).
+   ``fused_tick`` is held on states taken from 50-tick runs of every
+   Synfire path, twelve chained ticks each, and each path's grid,
+   grid-barrier cost and tick on the grid against one CTA are measured,
+   then on bad input: CSR indices of -1 and -(N + 1) (the reference's
+   ``jnp.take`` contract) and an infinite weight on a silent pre
+   (recorded: the kernel skips silent pres); ``stdp_update`` and
+   ``stdp_gather`` bit for bit on random weights, traces and masks at the
+   plastic chain's shapes (Synfire4 packed [200, 200] and an odd shape;
+   the compiled Synfire4 and x10 fan-in tables with int16 and int32
+   indices), ``stdp_gather`` on the reference's bad indices, and the
+   engine's per-run launcher ``ops.StdpGatherRun`` (one launch per tick
+   over every CSR pair-STDP projection, trace steps folded in) against
+   the per-call path on plastic Synfire4 and x10 fp16/fp32 and on two
+   projections with bad indices.
 3. Run Synfire4 for 1,000 ticks on the card in fp16/fp32 x packed/sparse
    through ``build_synfire`` and ``run``, on the default backend and on
    ``backend="fused"``, with the launch counters reset just before each
@@ -41,14 +54,15 @@ Phases (each raises, and the script exits non-zero, on any failure):
    backends, whose rasters must be equal bit for bit (two independent
    kernel paths), at 17-29 Hz, with peak device memory, ``ops.GatherRun``
    against its plain version on the x100 tables (and staged against
-   unstaged on its longest pre row alone), and fused_tick against its
-   plain version on a x100 state. The default-backend sparse paths launch
-   ``syn_gather`` once per tick.
+   unstaged on its longest pre row alone), ``ops.NeuronRun`` against its
+   plain version at N = 120,000, and fused_tick against its plain version
+   on a x100 state. The default-backend paths launch ``izh4_update`` once
+   per tick, the sparse ones ``syn_gather`` once.
 5. Plastic Synfire4 (``CHAIN_STDP`` on the exc->exc chain) for 1,000
    ticks in fp16/fp32 x packed/sparse: card raster and final plastic
    weights equal the CPU port's, packed and sparse weights equal at the
-   twin cells, each tick launches ``stdp_update`` (packed) or
-   ``stdp_gather`` (sparse) once per chain projection; the same with
+   twin cells, each tick launches ``stdp_update`` (packed) once per chain
+   projection or ``stdp_gather`` (sparse) once; the same with
    homeostasis every 100 ticks (fp16 sparse); plastic Synfire4x10 fp16
    sparse inside the 8.477 MB ledger (card equals CPU); and plastic nets
    on ``backend="fused"``, which launch no ``fused_tick`` and give the
@@ -76,7 +90,10 @@ Phases (each raises, and the script exits non-zero, on any failure):
    and device time by kernel name; and the packed default tick's host
    time through the per-run ``syn_matmul`` launcher, and the sparse
    default tick's through the per-run ``syn_gather`` launcher, each
-   against its per-call path, in turns.
+   against its per-call path, in turns; and, in turns with the same raster
+   (and weights), the static fp16 sparse and packed ticks with and without
+   ``ops.NeuronRun`` and the plastic fp16 sparse tick with and without
+   ``ops.StdpGatherRun``: host us/tick and device events per tick.
 
 The last lines are a JSON object of per-kernel numbers, a JSON object of
 per-path numbers, the card's name and power limit from nvidia-smi, and
@@ -248,6 +265,131 @@ def _izh_inputs(n: int, dtype, dev, seed: int):
     return [x.to(dev).contiguous() for x in (v, u, i_syn, a, b, c, d)]
 
 
+NEURON_TICKS = 12  # chained ticks per NeuronRun case: ring slots wrap past L = 11
+
+
+def _gen_cols(static, dev) -> torch.Tensor:
+    """Each neuron's column in the run's ``[T, n_gen]`` generator spikes
+    (the spans side by side), -1 for the other neurons."""
+    cols = torch.full((static.n,), -1, dtype=torch.int64, device=dev)
+    off = 0
+    for g0, sz in static.gen_spans:
+        cols[g0:g0 + sz] = torch.arange(off, off + sz, device=dev)
+        off += sz
+    return cols
+
+
+def _hold_neuron_run(net, g, dev, i_ext: bool, records: bool, what: str) -> int:
+    """``ops.NeuronRun`` (the run's neuron phase, one launch per tick) on the
+    card against its plain version (``ref.neuron_run_ref`` on the card) on
+    the same inputs: a random ring, v, u and refractory counts, random
+    generator rows, and, where asked, an external current and the raster,
+    v, i_syn rows and homeostasis counts; v, u, refrac, the whole ring and
+    the f32 spike row after every tick, the rows and counts at the end, bit
+    for bit; the caller's state left as it was. Returns the neuron spikes
+    seen (raises on none)."""
+    from repro_torch.core import backend as be
+    from repro_torch.core.neurons import NeuronModel, NeuronState
+    from repro_torch.kernels import ops, ref
+
+    static, params = net.static, net.params
+    n, ticks, dtype = static.n, NEURON_TICKS, net.state0.neurons.v.dtype
+    v = (torch.rand(n, generator=g) * 115 - 80).to(dtype).to(dev)
+    u = (torch.rand(n, generator=g) * 10 - 15).to(dtype).to(dev)
+    refrac = torch.randint(0, 3, (n,), generator=g).to(torch.int16).to(dev)
+    ring = (torch.rand(tuple(net.state0.ring.shape), generator=g) * 12).to(dtype).to(dev)
+    gen_spk = (torch.rand((ticks, static.n_gen), generator=g) < 0.3).to(dev)
+    cur = (torch.rand((ticks, n), generator=g) * 8).to(dev) if i_ext else None
+    neurons = NeuronState(v=v, u=u, refrac=refrac)
+    saved = [x.clone() for x in (v, u, refrac)]
+
+    def rows():
+        return ({"raster": torch.zeros((ticks, n), dtype=torch.bool, device=dev),
+                 "v_rows": torch.zeros((ticks, n), device=dev),
+                 "i_rows": torch.zeros((ticks, n), device=dev),
+                 "counts": torch.zeros(n, dtype=torch.int32, device=dev)} if records else {})
+
+    k_rows, p_rows = rows(), rows()
+    k_ring, p_ring = ring.clone(), ring.clone()
+    run = be.assemble_neurons(static, params, neurons, k_ring, gen_spk=gen_spk, i_ext=cur,
+                              **k_rows)
+    require(run.launcher is not None, f"NeuronRun {what}: no launcher on the card")
+    p = params.neuron
+    is_gen = p.model == NeuronModel.GENERATOR
+    cols = _gen_cols(static, dev)
+    pv, pu, pr = v.clone(), u.clone(), refrac.clone()
+    p_spikes = torch.zeros(n, device=dev)
+    ops.reset_launches()
+    spiked = 0
+    for i in range(ticks):
+        t = 100 + i
+        run(i, t)
+        ref.neuron_run_ref(pv, pu, pr, p_ring, t % static.ring_len, is_gen, p.a, p.b, p.c,
+                           p.d, cols, p_spikes, gen_row=gen_spk[i],
+                           i_ext_row=None if cur is None else cur[i],
+                           raster_row=p_rows["raster"][i] if records else None,
+                           v_row=p_rows["v_rows"][i] if records else None,
+                           i_row=p_rows["i_rows"][i] if records else None,
+                           counts=p_rows.get("counts"), dt=static.dt,
+                           substeps=static.substeps)
+        torch.cuda.synchronize()
+        for name, got, want in (("v", run.v, pv), ("u", run.u, pu), ("refrac", run.refrac, pr),
+                                ("ring", k_ring, p_ring), ("spikes", run.spikes, p_spikes)):
+            _require_bitwise(got, want, f"NeuronRun {what} tick {t} {name}")
+        spiked += int(run.spikes[~is_gen].sum())
+    for name in k_rows:
+        _require_bitwise(k_rows[name], p_rows[name], f"NeuronRun {what} {name}")
+    require(ops.LAUNCHES["izh4_update"] == ticks, f"NeuronRun {what}: "
+            f"{ops.LAUNCHES['izh4_update']} launches in {ticks} ticks")
+    require(all(torch.equal(a, b) for a, b in zip((v, u, refrac), saved)),
+            f"NeuronRun {what}: the caller's state changed")
+    require(spiked > 0, f"NeuronRun {what}: no neuron spiked")
+    log(f"[kernels] NeuronRun {what} (N={n}, i_ext={i_ext}, records={records}): {ticks} "
+        f"ticks bitwise against its plain version (v, u, refrac, ring, spike rows"
+        + (", raster, v, i_syn rows, counts" if records else "") + f"), {spiked} spikes")
+    return spiked
+
+
+def _neuron_run_row(net, g, dev, what: str) -> dict:
+    """The NeuronRun's numbers on ``net`` as the main path runs it (raster
+    recorded, generator rows): per call (the ctypes call included) and
+    alone on the device, the plain version on the card, and the bound: the
+    ring slot read and zeroed, v, u and refrac read and written, a-d,
+    is_gen, the generator column map and row, the f32 spike row and the
+    raster row, and about 31 operations per neuron."""
+    from repro_torch.core import backend as be
+    from repro_torch.core.neurons import NeuronModel
+    from repro_torch.kernels import ref
+
+    static, params = net.static, net.params
+    n, rows_t, s = static.n, 230, net.state0.neurons.v.element_size()
+    ring = net.state0.ring.clone()
+    gen_spk = (torch.rand((rows_t, static.n_gen), generator=g) < 0.3).to(dev)
+    raster = torch.zeros((rows_t, n), dtype=torch.bool, device=dev)
+    run = be.assemble_neurons(static, params, net.state0.neurons, ring, gen_spk=gen_spk,
+                              raster=raster)
+    counter = iter(range(10**9))
+
+    def tick():
+        i = next(counter)
+        run(i % rows_t, i)
+
+    p = params.neuron
+    is_gen = p.model == NeuronModel.GENERATOR
+    cols = _gen_cols(static, dev)
+    pv, pu, pr = (x.clone() for x in (run.v, run.u, run.refrac))
+    sp = torch.zeros(n, device=dev)
+    plain = lambda: ref.neuron_run_ref(pv, pu, pr, ring, 0, is_gen, p.a, p.b, p.c, p.d,  # noqa: E731
+                                       cols, sp, gen_row=gen_spk[0], raster_row=raster[0])
+    moved = (2 * n * s + 2 * 2 * n * s + 2 * 2 * n + 4 * 4 * n + n + 4 * n + static.n_gen
+             + 4 * n + n)
+    b_ms, b_by = bound(moved, 31 * n)
+    return {"shape": f"{what} tick: N={n}, raster recorded, one launch",
+            "ms": cuda_ms(tick), "device_ms": device_ms(tick, "izh4_run_kernel"),
+            "plain_ms": cuda_ms(plain, reps=50, warmup=5), "bound_ms": b_ms,
+            "bound_by": b_by, "bound_bytes": moved}
+
+
 def _check_gather_run(dev, g, net, what: str, staged_fits: bool = True) -> dict:
     """``ops.GatherRun`` (the default backend's per-run gather launcher) on
     a compiled sparse net's tables: one launch per tick, bit for bit with
@@ -358,16 +500,21 @@ def phase_kernels(dev) -> tuple[list[dict], dict]:
             err = max(err, max_err(got[0], want[0]))
             log(f"[kernels] izh4_update N={n} {dtype}: bitwise equal")
     args = _izh_inputs(1200, torch.float16, dev, seed=1)
-    b_ms, b_by = bound(nbytes(*args) + 1200 * (2 + 2 + 1), 1200 * 31)
+    single = {"ops_shape": "N=1200 fp16", "ops_ms": cuda_ms(lambda: ops.izh4_update(*args)),
+              "ops_device_ms": device_ms(lambda: ops.izh4_update(*args), "izh4_kernel"),
+              "ops_plain_ms": cuda_ms(lambda: ref.izh4_ref(*args))}
+    g_nrn = torch.Generator(device="cpu").manual_seed(3)
+    for policy in ("fp16", "fp32"):
+        net = build_synfire(SYNFIRE4, policy=policy, propagation="sparse", device=dev)
+        for i_ext, records in ((False, False), (True, True), (False, True)):
+            _hold_neuron_run(net, g_nrn, dev, i_ext, records, f"SYNFIRE4 {policy}")
     rows.append({
         "name": "izh4_update", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/izh_update.cu",
-        "replaces": "src/repro/kernels/izh_update.py:50",
-        "shape": "N=1200 fp16", "max_abs_err": err,
-        "ms": cuda_ms(lambda: ops.izh4_update(*args)),
-        "device_ms": device_ms(lambda: ops.izh4_update(*args), "izh4_kernel"),
-        "plain_ms": cuda_ms(lambda: ref.izh4_ref(*args)),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        "replaces": "src/repro/kernels/izh_update.py:50", "max_abs_err": err,
+        **_neuron_run_row(build_synfire(SYNFIRE4, policy="fp16", propagation="sparse",
+                                        device=dev), g_nrn, dev, "Synfire4 fp16"),
+        **single, "library_ms": None})
 
     # syn_matmul: exact on 0/1 spikes x Synfire4's weight table, through
     # ops.syn_matmul and the per-run launcher the engine uses
@@ -505,6 +652,7 @@ def phase_kernels(dev) -> tuple[list[dict], dict]:
             idx64, spikes[:, None], per_sample_weights=w, mode="sum")),
         "per_tick": gather_rows})
     fused_row, designs = _check_fused_tick(dev, g)
+    fused_row["bad_input"] = _fused_bad_input(dev)
     rows.append(fused_row)
     rows += _check_stdp(dev, g)
     for r in rows:
@@ -700,6 +848,75 @@ def _check_fused_tick(dev, g) -> tuple[dict, dict]:
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}, designs
 
 
+def _payload_with(payload, k: int, idx=None, w=None):
+    """``payload`` with CSR bucket ``k``'s index table or weights replaced."""
+    from repro_torch.kernels import fused_tick as ftk
+
+    dense, csr, buckets = list(payload.dense), list(payload.csr), []
+    for row in payload.desc.tolist():
+        if row[0] == 0:
+            buckets.append(("dense", *dense.pop(0)))
+            continue
+        qs, dly, c_idx, c_w = csr.pop(0)
+        if len(payload.csr) - len(csr) - 1 == k:
+            c_idx = c_idx if idx is None else idx
+            c_w = c_w if w is None else w
+        buckets.append(("csr", row[1], row[3], qs, dly, c_idx, c_w))
+    return ftk.pack_payload(payload.delays, buckets, payload.desc.device)
+
+
+def _fused_bad_input(dev) -> dict:
+    """fused_tick on bad input, on a Synfire4 fp32 sparse state: a CSR
+    index of -1 counts from the end of the spike row and -(N + 1) makes its
+    row's drive NaN, as the plain version (the reference's jnp.take), bit
+    for bit; and an infinite weight on a silent pre (a generator entry of
+    the stimulus bucket, every generator silent this tick), which the
+    kernel skips (it adds only the weights of pres that spiked) where the
+    plain version multiplies 0 by inf: what each gives is returned, and the
+    card must give the plain version's value on the intact table."""
+    import numpy as np
+
+    net, state, payload, args = _fused_state("SYNFIRE4", "fp32", "sparse", dev, {})
+    n, t = net.static.n, state.t
+    args[3] = torch.zeros(n, dtype=torch.bool, device=dev)  # every generator silent
+    qs, dly, idx, w = payload.csr[0]
+    bad = idx.clone()
+    bad[0, 0] = -1
+    bad[1, 0] = -(n + 1)
+    got, want = _fused_both(args, t, _payload_with(payload, 0, idx=bad))
+    slot = (t + dly) % args[2].shape[0]
+    for name, g_, w_ in zip(TICK_OUTPUTS, got, want):
+        nan = g_.isnan() if g_.is_floating_point() else torch.zeros_like(g_)
+        require(torch.equal(nan, w_.isnan() if w_.is_floating_point() else nan)
+                and torch.equal(g_[~nan], w_[~nan]),
+                f"fused_tick bad indices: {name} differs from the plain version")
+    ring_nan = got[3].isnan()
+    require(int(ring_nan.sum()) == 1 and bool(ring_nan[slot, qs + 1]),
+            f"fused_tick: -(N + 1) gave NaN at {torch.nonzero(ring_nan).tolist()}")
+    log("[kernels] fused_tick: a CSR index of -1 counts from the row's end and -(N + 1) "
+        "gives NaN, bit for bit as the plain version")
+
+    gens = [(g0, g0 + sz) for g0, sz in net.static.gen_spans]
+    k = next(i for i, row in enumerate(
+        r for r in payload.desc.tolist() if r[0] == 1)
+             if any(lo <= row[1] < hi for lo, hi in gens))
+    qs, dly, idx, w = payload.csr[k]
+    inf_w = w.clone()
+    inf_w[0, 0] = float("inf")
+    got, want = _fused_both(args, t, _payload_with(payload, k, w=inf_w))
+    intact, _ = _fused_both(args, t, payload)
+    slot = (t + dly) % args[2].shape[0]
+    out = {"card_ring_entry": float(got[3][slot, qs]),
+           "plain_ring_entry": float(want[3][slot, qs]),
+           "card_equals_intact_table": bool(torch.equal(got[3], intact[3]))}
+    require(out["card_equals_intact_table"] and bool(np.isnan(out["plain_ring_entry"])),
+            f"fused_tick inf weight on a silent pre: {out}")
+    log(f"[kernels] fused_tick, inf weight on a silent pre: the card adds nothing (ring "
+        f"entry {out['card_ring_entry']}, the intact table's), the plain version gives "
+        f"{out['plain_ring_entry']} (0 * inf)")
+    return out
+
+
 STDP_KW = dict(a_plus=0.004, a_minus=0.0033, w_min=0.0, w_max=4.0)  # CHAIN_STDP
 
 
@@ -757,13 +974,24 @@ def _check_stdp(dev, g) -> list[dict]:
         log(f"[kernels] stdp_gather {cfg.name}: {len(net.static.plastic_csr)} chain "
             f"tables (Q x F {sorted({tuple(net.params.masks[j].shape) for j in net.static.plastic_csr})}) "
             "x int16/int32 x fp16/fp32 bitwise")
-    bad = torch.tensor([[0, 1], [2, 200]], dtype=torch.int16, device=dev)
-    out = ops.stdp_gather(torch.ones((2, 2), device=dev), bad,
-                          torch.ones((2, 2), dtype=torch.bool, device=dev),
-                          *_stdp_vectors(g, 200, 2, dev), **STDP_KW)
-    require(bool(out[1, 1].isnan()) and not bool(out[:, 0].isnan().any()),
-            f"stdp_gather: an index outside [0, P) gave {out.tolist()}, want NaN there only")
-    log("[kernels] stdp_gather: an index outside [0, P) yields NaN on the card")
+    # The reference's jnp.take contract on bad indices (P = 8): -1 reads the
+    # row's last entry, 8 and -9 read NaN, and a cell that is not valid is
+    # +0.0 whatever its index.
+    bad = torch.tensor([[1, -1, 8], [2, -9, 0]], dtype=torch.int16, device=dev)
+    vecs = _stdp_vectors(g, 8, 2, dev)
+    w1 = torch.tensor([[1.0, 1.06, 0.5], [1.0, 2.0, 1.0]], device=dev)
+    for valid in (torch.ones((2, 3), dtype=torch.bool, device=dev),
+                  torch.tensor([[True, True, False], [True, False, True]], device=dev)):
+        out = ops.stdp_gather(w1, bad, valid, *vecs, **STDP_KW)
+        want = ref.stdp_gather_ref(w1, bad, valid, *vecs, **STDP_KW)
+        torch.cuda.synchronize()
+        nan = torch.tensor([[False, False, True], [False, True, False]], device=dev) & valid
+        require(torch.equal(out.isnan(), nan) and torch.equal(want.isnan(), nan)
+                and torch.equal(out[~nan], want[~nan]),
+                f"stdp_gather bad indices: {out.tolist()}, plain version {want.tolist()}")
+    log("[kernels] stdp_gather: an index in [-P, -1] counts from the row's end, any other "
+        "outside [0, P) gives NaN where valid and +0.0 where not, as the plain version "
+        "(the reference's jnp.take)")
 
     rows = []
     args = timed["update"]
@@ -781,19 +1009,175 @@ def _check_stdp(dev, g) -> list[dict]:
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     args = timed["gather"]
     q, f = args[0].shape
-    b_ms, b_by = bound(nbytes(*args) + nbytes(args[0]), 7 * q * f)
+    single = {"ops_shape": f"Synfire4 sparse chain table: P={args[3].shape[0]} Q={q} F={f} "
+                           "int16/fp16",
+              "ops_ms": cuda_ms(lambda: ops.stdp_gather(*args, **STDP_KW)),
+              "ops_device_ms": device_ms(lambda: ops.stdp_gather(*args, **STDP_KW),
+                                         "stdp_gather_kernel"),
+              "ops_plain_ms": cuda_ms(lambda: ref.stdp_gather_ref(*args, **STDP_KW))}
+    for cfg in (SYNFIRE4, SYNFIRE4_X10):
+        for policy in ("fp16", "fp32"):
+            net = build_synfire(cfg, policy=policy, propagation="sparse",
+                                stdp_chain=CHAIN_STDP, budget=None, monitor_ms_hint=0,
+                                device=dev)
+            _hold_stdp_run(net, g, dev, f"{cfg.name} {policy}")
+    _stdp_run_bad_indices(g, dev)
+    net = build_synfire(SYNFIRE4, policy="fp16", propagation="sparse", stdp_chain=CHAIN_STDP,
+                        device=dev)
     rows.append({
         "name": "stdp_gather", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/stdp_gather.cu",
-        "replaces": "src/repro/kernels/stdp_gather.py:59",
-        "shape": f"Synfire4 sparse chain table: P={args[3].shape[0]} Q={q} F={f} "
-                 "int16/fp16", "max_abs_err": 0.0,
-        "ms": cuda_ms(lambda: ops.stdp_gather(*args, **STDP_KW)),
-        "device_ms": device_ms(lambda: ops.stdp_gather(*args, **STDP_KW),
-                               "stdp_gather_kernel"),
-        "plain_ms": cuda_ms(lambda: ref.stdp_gather_ref(*args, **STDP_KW)),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        "replaces": "src/repro/kernels/stdp_gather.py:59", "max_abs_err": 0.0,
+        **_stdp_run_row(net, g, dev), **single, "library_ms": None})
     return rows
+
+
+STDP_TICKS = 10  # chained ticks per StdpGatherRun case
+
+
+def _plastic_tables(net, g, dev):
+    """Random weights (in [0, 4) on valid cells, +0.0 elsewhere) and traces
+    (in [0, 3)) for the plastic chain of ``net``."""
+    from repro_torch.core.plasticity import STDPState
+
+    weights, stdp = list(net.state0.weights), list(net.state0.stdp)
+    for j in _chain(net):
+        valid, w = net.params.masks[j], weights[j]
+        weights[j] = torch.where(valid.cpu(), torch.rand(tuple(w.shape), generator=g) * 4,
+                                 0.0).to(w.dtype).to(dev)
+        tr = stdp[j]
+        stdp[j] = STDPState(*(torch.rand(x.shape[0], generator=g).mul(3).to(dev)
+                              for x in (tr.pre_trace, tr.post_trace)))
+    return tuple(weights), tuple(stdp)
+
+
+def _hold_stdp_run(net, g, dev, what: str) -> None:
+    """``ops.StdpGatherRun`` (every CSR pair-STDP projection of a tick in
+    one launch, trace steps folded in) against the per-call path
+    (``backend.stdp_dispatch``: the two ``_trace_step`` s and one
+    ``ops.stdp_gather`` per projection) on the card, from random weights
+    and traces over STDP_TICKS random spike rows: weights and both traces
+    bit for bit after every tick, one launch per tick, the caller's tensors
+    left as they were."""
+    from repro_torch.core import backend as be
+    from repro_torch.kernels import ops
+
+    static, params = net.static, net.params
+    weights, stdp = _plastic_tables(net, g, dev)
+    saved = [w.clone() for w in weights]
+    run = be.assemble_stdp_gather(static, params, weights, stdp)
+    require(run is not None and run.launcher is not None
+            and run.keys == tuple(j for j in _chain(net) if j in static.csr_projs),
+            f"StdpGatherRun {what}: keys {None if run is None else run.keys}")
+    w_pc, tr_pc = dict(enumerate(weights)), dict(enumerate(stdp))
+    launched = 0
+    for t in range(STDP_TICKS):
+        spikes = (torch.rand(static.n, generator=g) < 0.3).float().to(dev)
+        ops.reset_launches()
+        run(spikes)
+        launched += ops.LAUNCHES["stdp_gather"]
+        for j in run.keys:
+            spec = static.projections[j]
+            tr_pc[j], w_pc[j] = be.stdp_dispatch(
+                static, static.stdp[j], tr_pc[j], w_pc[j], params.masks[j],
+                spikes[spec.pre_slice], spikes[spec.post_slice], params.proj_csr_idx[j])
+        torch.cuda.synchronize()
+        for k, j in enumerate(run.keys):
+            pre, post = run.traces(k)
+            for name, got, want in (("weights", run.projs[k].w, w_pc[j]),
+                                    ("pre trace", pre, tr_pc[j].pre_trace),
+                                    ("post trace", post, tr_pc[j].post_trace)):
+                _require_bitwise(got, want, f"StdpGatherRun {what} tick {t} projection "
+                                 f"{j} {name} (against the per-call path)")
+    require(launched == STDP_TICKS,
+            f"StdpGatherRun {what}: {launched} launches in {STDP_TICKS} ticks")
+    require(all(torch.equal(a, b) for a, b in zip(weights, saved)),
+            f"StdpGatherRun {what}: the caller's weights changed")
+    log(f"[kernels] StdpGatherRun {what}: {len(run.keys)} projections "
+        f"(Q x F {sorted({tuple(p.w.shape) for p in run.projs})}) in one launch a tick, "
+        f"{STDP_TICKS} ticks bitwise against the per-call path (weights, both traces)")
+
+
+def _stdp_run_bad_indices(g, dev) -> None:
+    """A StdpGatherRun of two projections of different P, Q and F, the first
+    with the reference's bad indices (P = 8: -1 reads the last pre, 8 and
+    -9 read NaN; one bad cell not valid), against its plain version
+    (``ref.stdp_gather_run_ref``) on the card: bit for bit where a number,
+    NaN at the same cells, over three ticks."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.stdp_gather import Projection
+
+    def projs():
+        g2 = torch.Generator(device="cpu").manual_seed(5)
+        out = []
+        for idx, valid, p_, ps, qs in (
+                ([[1, -1, 8], [2, -9, 0]], [[True, True, True], [True, False, True]], 8, 0,
+                 8),
+                (torch.randint(0, 30, (7, 5), generator=g2).tolist(), [[True] * 5] * 7, 30,
+                 10, 2)):
+            idx = torch.tensor(idx, dtype=torch.int32, device=dev)
+            valid = torch.tensor(valid, device=dev)
+            q, f = idx.shape
+            pre = torch.rand(p_, generator=g2).to(dev)
+            post = torch.rand(q, generator=g2).to(dev)
+            out.append(Projection(
+                w=(torch.rand((q, f), generator=g2) * 2).half().to(dev), idx=idx,
+                valid=valid, pre_tr=(pre, torch.empty_like(pre)),
+                post_tr=(post, torch.empty_like(post)), pre_start=ps, post_start=qs,
+                **STDP_KW, decay_pre=0.951229424500714, decay_post=0.951229424500714))
+        return out
+
+    card, plain = projs(), projs()
+    run = ops.StdpGatherRun(40, card)
+    require(run.launcher is not None, "StdpGatherRun bad indices: no launcher")
+    for t in range(3):
+        spikes = (torch.rand(40, generator=g) < 0.5).float().to(dev)
+        run(spikes)
+        ref.stdp_gather_run_ref(spikes, plain, t % 2)
+        torch.cuda.synchronize()
+        for a, b in zip(card, plain):
+            for name, x, y in (("w", a.w, b.w), ("pre", a.pre_tr[1 - t % 2],
+                                                 b.pre_tr[1 - t % 2]),
+                               ("post", a.post_tr[1 - t % 2], b.post_tr[1 - t % 2])):
+                nan = x.isnan()
+                require(torch.equal(nan, y.isnan()) and torch.equal(x[~nan], y[~nan]),
+                        f"StdpGatherRun bad indices tick {t} {name}: {x.tolist()} vs "
+                        f"{y.tolist()}")
+    nan = card[0].w.isnan()
+    require(nan.tolist() == [[False, False, True], [False, False, False]],
+            f"StdpGatherRun bad indices: NaN at {nan.tolist()}")
+    log("[kernels] StdpGatherRun on the reference's bad indices: equal to its plain "
+        "version (NaN where valid and outside [-P, P), +0.0 where not valid)")
+
+
+def _stdp_run_row(net, g, dev) -> dict:
+    """StdpGatherRun's numbers on the plastic Synfire4 sparse chain (four
+    projections in one launch): per call (the ctypes call included) and
+    alone on the device, its plain version on the card, and the bound:
+    each projection's weights read and written, its indices and validity
+    rows, its traces read and written and its pre and post spikes read
+    once, 7 operations per cell and 2 per trace."""
+    from repro_torch.core import backend as be
+    from repro_torch.kernels import ref
+
+    weights, stdp = _plastic_tables(net, g, dev)
+    run = be.assemble_stdp_gather(net.static, net.params, weights, stdp)
+    spikes = (torch.rand(net.static.n, generator=g) < 0.3).float().to(dev)
+    moved = ops_ = 0
+    for p in run.projs:
+        q, f = p.w.shape
+        n_tr = p.pre_tr[0].shape[0] + q
+        moved += 2 * nbytes(p.w) + nbytes(p.idx, p.valid) + 3 * 4 * n_tr
+        ops_ += 7 * q * f + 2 * n_tr
+    b_ms, b_by = bound(moved, ops_)
+    plain = lambda: ref.stdp_gather_run_ref(spikes, run.projs, 0)  # noqa: E731
+    return {"shape": f"plastic Synfire4 sparse fp16 tick: {len(run.projs)} chain "
+                     f"projections (Q x F {sorted({tuple(p.w.shape) for p in run.projs})}, "
+                     "int16/fp16), one launch",
+            "ms": cuda_ms(lambda: run(spikes)),
+            "device_ms": device_ms(lambda: run(spikes), "stdp_run_kernel"),
+            "plain_ms": cuda_ms(plain, reps=50, warmup=5), "bound_ms": b_ms,
+            "bound_by": b_by, "bound_bytes": moved}
 
 
 def _require_same_raster(card, cpu, what):
@@ -1022,6 +1406,10 @@ def _phase_x100(dev, totals: dict) -> dict:
             f"{peak} B, build + runs {total_s:.1f} s, launches {launches}")
     _require_same_raster(rasters["fused"], rasters[None], "x100 fused vs default backend")
     log("[x100] the fused raster equals the default backend's bit for bit")
+    for i_ext, records in ((False, False), (True, True)):
+        _hold_neuron_run(nets[None], g, dev, i_ext, records, "SYNFIRE4_X100 fp16")
+    paths["synfire4_x100/fp16/sparse"]["neuron_run"] = _neuron_run_row(
+        nets[None], g, dev, "Synfire4x100 fp16")
     row = _check_gather_run(dev, g, nets[None], "SYNFIRE4_X100", staged_fits=False)
     row["staged"] = ("not possible: the 120,000-entry f32 spike row (480,000 B) exceeds a "
                      "CTA's shared memory")
@@ -1153,7 +1541,7 @@ def _plastic_launches(net, ticks: int) -> dict:
     csr = sum(j in net.static.csr_projs for j in _chain(net))
     return {"izh4_update": ticks, "syn_matmul": kinds.count("dense") * ticks,
             "syn_gather": ticks if "sparse" in kinds else 0, "fused_tick": 0,
-            "stdp_update": (chain - csr) * ticks, "stdp_gather": csr * ticks,
+            "stdp_update": (chain - csr) * ticks, "stdp_gather": ticks if csr else 0,
             "flash_attention": 0}
 
 
@@ -1589,43 +1977,12 @@ def phase_lm(dev, totals: dict) -> tuple[dict, dict]:
     return row, paths
 
 
-def _matmul_launcher_vs_per_call(dev, ticks: int = 300) -> dict:
-    """Host us/tick of the Synfire4 fp16 packed default tick through the
-    engine's per-run syn_matmul launcher against the per-call path (the
-    engine's launcher swapped for a shim around ops.syn_matmul, the earlier
-    path), in turns (per call, launcher, launcher, per call) in one
-    process; both give the same raster."""
-    from repro_torch.configs.synfire4 import SYNFIRE4, build_synfire
-    from repro_torch.core import backend as be
-    from repro_torch.core.engine import run
+def _per_call_matmul(static, packed):
+    """The per-call syn_matmul path, the earlier one, in ``ops.MatmulRun``'s
+    shape: one ``ops.syn_matmul`` per dense bucket and tick."""
     from repro_torch.kernels import ops
 
-    net = build_synfire(SYNFIRE4, policy="fp16", propagation="packed", device=dev)
-    gu = torch.rand((ticks, SYNFIRE4.n_stim), device=dev)
-    launcher = be.assemble_matmul
-
-    def per_call(static, packed):
-        return lambda bi, x: ops.syn_matmul(x[None, :], packed[bi])[0]
-
-    times, rasters = {"per_call": [], "launcher": []}, {}
-    try:
-        for mode in ("per_call", "launcher", "launcher", "per_call"):
-            be.assemble_matmul = launcher if mode == "launcher" else per_call
-            run(net.static, net.params, net.state0, 20, gen_u=gu[:20])
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _, out = run(net.static, net.params, net.state0, ticks, gen_u=gu)
-            torch.cuda.synchronize()
-            times[mode].append((time.perf_counter() - t0) / ticks * 1e6)
-            rasters[mode] = out["spikes"]
-    finally:
-        be.assemble_matmul = launcher
-    require(torch.equal(rasters["launcher"], rasters["per_call"]),
-            "packed tick: the launcher's raster differs from the per-call path's")
-    out = {f"{k}_us_per_tick": v for k, v in times.items()}
-    log(f"[profile] Synfire4 fp16 packed default tick, host us/tick in turns: per-call "
-        f"ops.syn_matmul {times['per_call']}, launcher {times['launcher']} (same raster)")
-    return out
+    return lambda bi, x: ops.syn_matmul(x[None, :], packed[bi])[0]
 
 
 class _PerBucketGather:
@@ -1657,45 +2014,73 @@ class _PerBucketGather:
                 row.index_add_(0, self._ids[bi], drive)
 
 
-def _gather_launcher_vs_per_call(dev, ticks: int = 300) -> dict:
-    """Host us/tick of the Synfire4 fp16 sparse default tick through the
-    engine's per-run gather launcher (one launch per tick) against the
-    per-bucket path (13 ``ops.syn_gather`` calls and adds per tick), in
-    turns (per call, launcher, launcher, per call) in one process, with the
-    same raster required; and each mode's device events per tick in a
-    ``torch.profiler`` trace of 20 ticks."""
-    from repro_torch.configs.synfire4 import SYNFIRE4, build_synfire
+def _none(*args, **kwargs):
+    """A launcher builder that builds nothing: the engine then runs that
+    phase op by op or call by call, the earlier path."""
+    return None
+
+
+# (key, propagation, plastic chain, backend builder swapped, its earlier path)
+IN_TURNS = (
+    ("synfire4/fp16/packed/matmul_launcher_vs_per_call", "packed", False, "assemble_matmul",
+     _per_call_matmul),
+    ("synfire4/fp16/sparse/gather_launcher_vs_per_call", "sparse", False, "assemble_gather",
+     _PerBucketGather),
+    ("synfire4/fp16/sparse/neuron_launcher_vs_per_op", "sparse", False, "assemble_neurons",
+     _none),
+    ("synfire4/fp16/packed/neuron_launcher_vs_per_op", "packed", False, "assemble_neurons",
+     _none),
+    ("synfire4_plastic/fp16/sparse/stdp_launcher_vs_per_call", "sparse", True,
+     "assemble_stdp_gather", _none),
+)
+
+
+def _launchers_in_turns(dev, ticks: int = 300) -> dict:
+    """Host us/tick and device events per tick of the Synfire4 fp16 default
+    tick through each per-run launcher of the engine (``backend.<builder>``)
+    against the earlier path it replaced (the builder swapped for a shim
+    in this file: per-call ``ops.syn_matmul``, the per-bucket gathers, or
+    none at all, where the engine then runs the neuron phase op by op or
+    STDP call by call), in turns (per call, launcher, launcher, per call)
+    in one process, every other launcher on in both; each pair must give
+    the same raster (and, for plastic, the same final weights and traces).
+    Device events per tick from a ``torch.profiler`` trace of 20 ticks."""
+    from repro_torch.configs.synfire4 import CHAIN_STDP, SYNFIRE4, build_synfire
     from repro_torch.core import backend as be
     from repro_torch.core.engine import run
 
-    net = build_synfire(SYNFIRE4, policy="fp16", propagation="sparse", device=dev)
-    gu = torch.rand((ticks, SYNFIRE4.n_stim), device=dev)
-    launcher = be.assemble_gather
-    modes = {"launcher": launcher, "per_call": _PerBucketGather}
-    times, rasters, events = {"per_call": [], "launcher": []}, {}, {}
-    try:
-        for mode in ("per_call", "launcher", "launcher", "per_call"):
-            be.assemble_gather = modes[mode]
-            run(net.static, net.params, net.state0, 20, gen_u=gu[:20])
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _, out = run(net.static, net.params, net.state0, ticks, gen_u=gu)
-            torch.cuda.synchronize()
-            times[mode].append((time.perf_counter() - t0) / ticks * 1e6)
-            rasters[mode] = out["spikes"]
-            if mode not in events:
-                events[mode] = len(_cuda_events(
-                    lambda: run(net.static, net.params, net.state0, 20, gen_u=gu[:20]),
-                    1)) / 20
-    finally:
-        be.assemble_gather = launcher
-    require(torch.equal(rasters["launcher"], rasters["per_call"]),
-            "sparse tick: the gather launcher's raster differs from the per-call path's")
-    out = {f"{k}_us_per_tick": v for k, v in times.items()}
-    out.update({f"{k}_device_events_per_tick": v for k, v in events.items()})
-    log(f"[profile] Synfire4 fp16 sparse default tick, host us/tick in turns: per-call "
-        f"ops.syn_gather {times['per_call']}, launcher {times['launcher']} (same raster); "
-        f"device events per tick {events}")
+    out = {}
+    for key, propagation, plastic, builder, earlier in IN_TURNS:
+        net = build_synfire(SYNFIRE4, policy="fp16", propagation=propagation, device=dev,
+                            stdp_chain=CHAIN_STDP if plastic else None)
+        gu = torch.rand((ticks, SYNFIRE4.n_stim), device=dev)
+        launcher = getattr(be, builder)
+        times, finals, events = {"per_call": [], "launcher": []}, {}, {}
+        try:
+            for mode in ("per_call", "launcher", "launcher", "per_call"):
+                setattr(be, builder, launcher if mode == "launcher" else earlier)
+                run(net.static, net.params, net.state0, 20, gen_u=gu[:20])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                finals[mode] = run(net.static, net.params, net.state0, ticks, gen_u=gu)
+                torch.cuda.synchronize()
+                times[mode].append((time.perf_counter() - t0) / ticks * 1e6)
+                if mode not in events:
+                    events[mode] = len(_cuda_events(
+                        lambda: run(net.static, net.params, net.state0, 20, gen_u=gu[:20]),
+                        1)) / 20
+        finally:
+            setattr(be, builder, launcher)
+        (fl, ol), (fp, op) = finals["launcher"], finals["per_call"]
+        require(torch.equal(ol["spikes"], op["spikes"]),
+                f"{key}: the launcher's raster differs from the earlier path's")
+        if plastic:
+            _require_same_plastic_state((net, None, fl), (net, None, fp), key)
+        out[key] = {**{f"{k}_us_per_tick": v for k, v in times.items()},
+                    **{f"{k}_device_events_per_tick": v for k, v in events.items()}}
+        log(f"[profile] {key}, host us/tick in turns: earlier path {times['per_call']}, "
+            f"launcher {times['launcher']} (same raster" + (" and weights" if plastic else "")
+            + f"); device events per tick {events}")
     return out
 
 
@@ -1768,8 +2153,7 @@ def phase_profile(dev) -> dict:
             f"(idle share {1.0 - busy / wall_us:.3f})" if spans else
             f"[profile] {key}: the profiler recorded no "
             "device activity")
-    out["synfire4/fp16/packed/matmul_launcher_vs_per_call"] = _matmul_launcher_vs_per_call(dev)
-    out["synfire4/fp16/sparse/gather_launcher_vs_per_call"] = _gather_launcher_vs_per_call(dev)
+    out.update(_launchers_in_turns(dev))
     return out
 
 

@@ -6,11 +6,17 @@ the run's :class:`repro_torch.kernels.ops.MatmulRun`, built by
 :func:`assemble_matmul`) or a CSR fan-in gather (``syn_gather``, every
 sparse bucket of a tick in one launch through the run's
 :class:`repro_torch.kernels.ops.GatherRun`, built by
-:func:`assemble_gather`); the neuron update of IZH4 networks is the
-``izh4_update`` kernel. Plastic and STP projections, whose weights change
-every tick, drive through :func:`plastic_drive` after the buckets, and
-pair-based STDP updates their weights through ``stdp_update`` (dense
-storage) or ``stdp_gather`` (CSR fan-in rows) in :func:`stdp_dispatch`.
+:func:`assemble_gather`); the neuron phase of IZH4-only Euler networks is
+the ``izh4_update`` kernel, a run's whole neuron phase of a tick in one
+launch through its :class:`repro_torch.kernels.ops.NeuronRun` (built by
+:func:`assemble_neurons`). Plastic and STP projections, whose weights
+change every tick, drive through :func:`plastic_drive` after the buckets,
+and pair-based STDP updates their weights through ``stdp_update`` (dense
+storage) or ``stdp_gather`` (CSR fan-in rows) in :func:`stdp_dispatch`; a
+run's CSR pair-STDP projections update in one ``stdp_gather`` launch per
+tick, trace steps included, through its
+:class:`repro_torch.kernels.ops.StdpGatherRun` (built by
+:func:`assemble_stdp_gather`).
 ``backend="fused"`` assembles its payload here (:func:`assemble_fused`):
 the whole tick is then the ``fused_tick`` kernel where the plan allows it,
 and the phases above where it does not.
@@ -30,6 +36,7 @@ Two departures from the reference, both bitwise neutral:
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -41,11 +48,13 @@ from repro_torch.core.plasticity import STDPState, _trace_step
 from repro_torch.core.synapses import stp_update
 from repro_torch.kernels import ops
 from repro_torch.kernels.fused_tick import KernelPayload, assemble_kernel
+from repro_torch.kernels.stdp_gather import Projection
 from repro_torch.kernels.syn_gather import Bucket
 
-__all__ = ["assemble_packed", "assemble_matmul", "assemble_gather", "update_neurons_dispatch",
-           "propagate_packed", "FaninRows", "assemble_fanin", "plastic_drive", "stdp_dispatch",
-           "FusedPayload", "assemble_fused"]
+__all__ = ["assemble_packed", "assemble_matmul", "assemble_gather", "assemble_neurons",
+           "update_neurons_dispatch", "propagate_packed", "FaninRows", "assemble_fanin",
+           "plastic_drive", "stdp_dispatch", "assemble_stdp_gather", "FusedPayload",
+           "assemble_fused"]
 
 f32 = torch.float32
 
@@ -99,6 +108,32 @@ def assemble_gather(static, params, packed) -> ops.GatherRun:
             table = (pre, params.bucket_csr_idx[bi], packed[bi])
         buckets.append(Bucket(b.delay_ms, posts, table))
     return ops.GatherRun(static.n, buckets, params.neuron.a.device)
+
+
+def assemble_neurons(static, params, neurons: nrn.NeuronState, ring: torch.Tensor, *,
+                     gen_spk=None, i_ext=None, raster=None, v_rows=None, i_rows=None,
+                     counts=None) -> ops.NeuronRun | None:
+    """The run's neuron-phase launcher (an :class:`repro_torch.kernels.ops.NeuronRun`
+    on copies of ``neurons`` and on the run's ``ring``) for IZH4-only
+    Euler networks, None for the others, which integrate through
+    :func:`update_neurons_dispatch` tick by tick. ``gen_spk`` ``[T, n_gen]``
+    holds the generator spans' spikes side by side in ``static.gen_spans``
+    order; the other rows and ``counts`` are ``NeuronRun``'s."""
+    if not (static.izh4_only and static.method == "euler"):
+        return None
+    p = params.neuron
+    cols = None
+    if gen_spk is not None:
+        cols = torch.full((static.n,), -1, dtype=torch.int64, device=p.a.device)
+        off = 0
+        for g0, sz in static.gen_spans:
+            cols[g0:g0 + sz] = torch.arange(off, off + sz, device=p.a.device)
+            off += sz
+    return ops.NeuronRun(neurons.v, neurons.u, neurons.refrac, ring,
+                         p.model == nrn.NeuronModel.GENERATOR, p.a, p.b, p.c, p.d,
+                         gen_spk=gen_spk, gen_cols=cols, i_ext=i_ext, raster=raster,
+                         v_rows=v_rows, i_rows=i_rows, counts=counts, dt=static.dt,
+                         substeps=static.substeps)
 
 
 def update_neurons_dispatch(static, params, neurons: nrn.NeuronState,
@@ -280,6 +315,29 @@ def stdp_dispatch(static, cfg, tr: STDPState, w: torch.Tensor, mask: torch.Tenso
     else:
         w2 = ops.stdp_gather(w, idx, mask, pre_t, post_t, pre_sp, post_sp, **kw)
     return STDPState(pre_trace=pre_t, post_trace=post_t), w2
+
+
+def assemble_stdp_gather(static, params, weights, stdp) -> ops.StdpGatherRun | None:
+    """The run's ``stdp_gather`` launcher over its CSR-stored pair-STDP
+    projections (``cfg.tau_elig`` None, ``j in static.csr_projs``), on
+    copies of their ``weights`` and ``stdp`` traces, keyed by projection id;
+    None where there is none. DA-STDP and dense-stored pair STDP stay on
+    their per-call steps."""
+    projs, keys = [], []
+    for j, cfg in enumerate(static.stdp):
+        if cfg is None or cfg.tau_elig is not None or j not in static.csr_projs:
+            continue
+        spec, tr = static.projections[j], stdp[j]
+        projs.append(Projection(
+            w=weights[j].clone(), idx=params.proj_csr_idx[j], valid=params.masks[j],
+            pre_tr=(tr.pre_trace.clone(), torch.empty_like(tr.pre_trace)),
+            post_tr=(tr.post_trace.clone(), torch.empty_like(tr.post_trace)),
+            pre_start=spec.pre_start, post_start=spec.post_start, a_plus=cfg.a_plus,
+            a_minus=cfg.a_minus, w_min=cfg.w_min, w_max=cfg.w_max,
+            decay_pre=math.exp(-static.dt / cfg.tau_plus),
+            decay_post=math.exp(-static.dt / cfg.tau_minus)))
+        keys.append(j)
+    return ops.StdpGatherRun(static.n, projs, keys) if projs else None
 
 
 class FusedPayload(NamedTuple):

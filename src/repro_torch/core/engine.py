@@ -26,9 +26,14 @@ the card the loop only enqueues work. The generator spikes of the whole
 run are computed before the loop in one comparison (they depend only on
 the uniforms and the tick), and the bucket weight payloads are decoded
 once per run, as are the dense buckets' ``syn_matmul`` launcher
-(``ops.MatmulRun``: one ctypes call per product) and the sparse buckets'
+(``ops.MatmulRun``: one ctypes call per product), the sparse buckets'
 ``syn_gather`` launcher (``ops.GatherRun``: one ctypes call and one
-launch per tick for every compiled plan). With
+launch per tick for every compiled plan), the neuron phase's
+``izh4_update`` launcher of IZH4-only Euler nets (``ops.NeuronRun``:
+steps 1-4 and the tick's raster, record and homeostasis-count writes in
+one ctypes call and one launch per tick) and the CSR pair-STDP
+projections' ``stdp_gather`` launcher (``ops.StdpGatherRun``: one launch
+per tick for all of them, trace steps included). With
 ``backend="fused"`` and a plan whose ``kernel_ok`` is set, a tick is one
 operation, the ``fused_tick`` kernel, which writes its spike row straight
 into the raster; other fused nets (plastic or STP ones among them), and
@@ -51,6 +56,7 @@ from repro_torch.core import rng
 from repro_torch.core.network import CompiledNetwork, NetParams, NetState, NetStatic
 from repro_torch.core.neurons import NeuronState
 from repro_torch.core.plasticity import (
+    STDPState,
     da_stdp_step,
     da_stdp_step_csr,
     homeostasis_step,
@@ -101,19 +107,27 @@ def _gen_spikes(static: NetStatic, params: NetParams, t0: int,
 
 
 def _plasticity(static: NetStatic, params: NetParams, spikes_f32: torch.Tensor,
-                weights: tuple, stdp: tuple, dopamine) -> tuple[tuple, tuple]:
+                weights: tuple, stdp: tuple, dopamine, stdp_run=None) -> tuple[tuple, tuple]:
     """Phase 6: every STDP-carrying projection's traces and weights advance
     on this tick's spikes. CSR-stored projections update their fan-in rows
-    under their validity rows; pair-based STDP goes through
+    under their validity rows; pair-based STDP goes through ``stdp_run``
+    (the run's ``ops.StdpGatherRun``, in place on its own buffers) for the
+    projections it holds, else through
     :func:`repro_torch.core.backend.stdp_dispatch` (the kernels), DA-STDP
-    through the plain steps with ``dopamine`` (0.0 when None)."""
+    through the plain steps with ``dopamine`` (0.0 when None). The traces
+    of ``stdp_run``'s projections live in it, and their entries of
+    ``stdp`` are left as they were."""
     if all(cfg is None for cfg in static.stdp):
         return weights, stdp
+    held = ()
+    if stdp_run is not None:
+        stdp_run(spikes_f32)
+        held = stdp_run.keys
     new_w, new_tr = list(weights), list(stdp)
     da = 0.0 if dopamine is None else dopamine
     csr = static.csr_projs
     for j, cfg in enumerate(static.stdp):
-        if cfg is None:
+        if cfg is None or j in held:
             continue
         spec = static.projections[j]
         pre_sp, post_sp = spikes_f32[spec.pre_slice], spikes_f32[spec.post_slice]
@@ -150,12 +164,12 @@ def _apply_homeostasis(static: NetStatic, weights: tuple, homeo: tuple,
     return tuple(new_w), tuple(new_h)
 
 
-def _tick(static: NetStatic, params: NetParams, neurons: NeuronState,
-          ring: torch.Tensor, t: int, packed, gen_row: torch.Tensor | None,
-          i_ext_row: torch.Tensor | None, syn: _Syn, fanin, matmul, gather,
-          dopamine=None):
-    """One tick, updating ``ring`` in place; returns (neurons', spikes,
-    i_syn, syn')."""
+def _neuron_phase(static: NetStatic, params: NetParams, neurons: NeuronState,
+                  ring: torch.Tensor, t: int, gen_row: torch.Tensor | None,
+                  i_ext_row: torch.Tensor | None):
+    """Steps 1-4 of tick ``t`` op by op, zeroing the ring slot in place;
+    returns (neurons', spikes, i_syn). ``run`` takes them through the run's
+    ``ops.NeuronRun`` where the net allows it."""
     slot = t % static.ring_len
     i_syn = ring[slot, :, 0].to(f32, copy=True)
     ring[slot].zero_()
@@ -167,12 +181,19 @@ def _tick(static: NetStatic, params: NetParams, neurons: NeuronState,
         for g0, sz in static.gen_spans:
             spikes[g0:g0 + sz] = gen_row[off:off + sz]
             off += sz
-    spikes_f32 = spikes.to(f32)
+    return neurons, spikes, i_syn
+
+
+def _synaptic_phase(static: NetStatic, params: NetParams, spikes_f32: torch.Tensor,
+                    ring: torch.Tensor, t: int, packed, syn: _Syn, fanin, matmul, gather,
+                    dopamine=None, stdp_run=None) -> _Syn:
+    """Steps 5-6 of tick ``t`` on its f32 spike row, updating ``ring`` in
+    place; returns syn'."""
     stp = be.propagate_packed(static, params, spikes_f32, ring, t, packed,
                               syn.weights, syn.stp, fanin, matmul, gather)
     weights, stdp = _plasticity(static, params, spikes_f32, syn.weights, syn.stdp,
-                                dopamine)
-    return neurons, spikes, i_syn, _Syn(weights, stp, stdp)
+                                dopamine, stdp_run)
+    return _Syn(weights, stp, stdp)
 
 
 def _check_gen_u(gen_u: torch.Tensor, shape, device) -> None:
@@ -221,9 +242,11 @@ def step(static: NetStatic, params: NetParams, state: NetState,
     if fused:
         packed = packed.packed
     ring = state.ring.clone()
-    neurons, spikes, i_syn, syn = _tick(
-        static, params, state.neurons, ring, state.t, packed, gen_row, i_ext,
-        _Syn(state.weights, state.stp, state.stdp), None, None, None, dopamine)
+    neurons, spikes, i_syn = _neuron_phase(static, params, state.neurons, ring, state.t,
+                                           gen_row, i_ext)
+    syn = _synaptic_phase(static, params, spikes.to(f32), ring, state.t, packed,
+                          _Syn(state.weights, state.stp, state.stdp), None, None, None,
+                          dopamine)
     new_state = state._replace(t=state.t + 1, key=key, neurons=neurons, ring=ring,
                                **syn._asdict())
     return new_state, StepOutput(spikes=spikes, v=neurons.v.to(f32), i_syn=i_syn)
@@ -376,31 +399,52 @@ def run(
     gather = be.assemble_gather(static, params, packed)
     ring = state.ring.clone()
     neurons = state.neurons
-    syn = _Syn(state.weights, state.stp, state.stdp)
     homeo = state.homeo
     counts = torch.zeros((static.n,), dtype=torch.int32, device=dev) if period else None
     raster = (torch.empty((n_steps, static.n), dtype=torch.bool, device=dev)
               if record == "raster" else None)
     vs = torch.empty((n_steps, static.n), dtype=f32, device=dev) if record_v else None
     cur = torch.empty((n_steps, static.n), dtype=f32, device=dev) if record_i else None
+    neuron_run = be.assemble_neurons(static, params, neurons, ring, gen_spk=gen_spk,
+                                     i_ext=i_ext, raster=raster, v_rows=vs, i_rows=cur,
+                                     counts=counts)
+    stdp_run = be.assemble_stdp_gather(static, params, state.weights, state.stdp)
+    weights = state.weights if stdp_run is None else stdp_run.adopt(state.weights)
+    syn = _Syn(weights, state.stp, state.stdp)
     for i in range(n_steps):
-        neurons, spikes, i_syn, syn = _tick(
-            static, params, neurons, ring, state.t + i, packed,
-            None if gen_spk is None else gen_spk[i],
-            None if i_ext is None else i_ext[i], syn, fanin, matmul, gather,
-            None if dopamine is None else dopamine[i])
-        if counts is not None:
-            counts += spikes
-            if (i + 1) % period == 0:
-                weights, homeo = _apply_homeostasis(static, syn.weights, homeo, counts)
-                syn = syn._replace(weights=weights)
-                counts.zero_()
-        if raster is not None:
-            raster[i] = spikes
-        if vs is not None:
-            vs[i] = neurons.v
-        if cur is not None:
-            cur[i] = i_syn
+        t = state.t + i
+        if neuron_run is not None:
+            neuron_run(i, t)
+            spikes_f32 = neuron_run.spikes
+        else:
+            neurons, spikes, i_syn = _neuron_phase(
+                static, params, neurons, ring, t, None if gen_spk is None else gen_spk[i],
+                None if i_ext is None else i_ext[i])
+            spikes_f32 = spikes.to(f32)
+            if counts is not None:
+                counts += spikes
+            if raster is not None:
+                raster[i] = spikes
+            if vs is not None:
+                vs[i] = neurons.v
+            if cur is not None:
+                cur[i] = i_syn
+        syn = _synaptic_phase(static, params, spikes_f32, ring, t, packed, syn, fanin,
+                              matmul, gather, None if dopamine is None else dopamine[i],
+                              stdp_run)
+        if counts is not None and (i + 1) % period == 0:
+            weights, homeo = _apply_homeostasis(static, syn.weights, homeo, counts)
+            if stdp_run is not None:
+                weights = stdp_run.adopt(weights)
+            syn = syn._replace(weights=weights)
+            counts.zero_()
+    if neuron_run is not None:
+        neurons = NeuronState(v=neuron_run.v, u=neuron_run.u, refrac=neuron_run.refrac)
+    if stdp_run is not None:
+        stdp = list(syn.stdp)
+        for k, j in enumerate(stdp_run.keys):
+            stdp[j] = STDPState(*stdp_run.traces(k))
+        syn = syn._replace(stdp=tuple(stdp))
     final = state._replace(t=state.t + n_steps, neurons=neurons, ring=ring,
                            homeo=homeo, **syn._asdict())
     outputs = {}

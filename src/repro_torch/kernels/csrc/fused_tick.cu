@@ -51,8 +51,10 @@
 // drive adds each lane's entries in ascending k, then the lanes in the
 // shuffle tree's fixed order. With Synfire's exactly representable weight
 // tables every sum is exact, so the result equals the plain version's bit for bit; with arbitrary
-// weights it differs only by summation order. An index outside [0, N)
-// makes its row's drive NaN: a corrupt table shows in the output.
+// weights it differs only by summation order. A CSR index follows the
+// reference's jnp.take: one in [-N, -1] counts from the end of the spike
+// row, any other outside [0, N) makes its row's drive NaN, so a corrupt
+// table shows in the output.
 //
 // What bounds it: bytes. At Synfire4 size a tick must move about 0.1 MB
 // (state, ring rows, the weight rows of the pres that spiked): latency
@@ -220,7 +222,8 @@ fused_tick_kernel(const TickPlan P, const int t, const uint8_t* gen_row,
 #pragma unroll
           for (int u = 0; u < kCsrUnroll; ++u) {
             const int k = k0 + 32 * u;
-            j[r][u] = k < f[r] ? idx[r][k] : 0;
+            const int jj = k < f[r] ? idx[r][k] : 0;
+            j[r][u] = jj < 0 ? jj + n : jj;  // [-N, -1] counts from the row's end
           }
         }
 #pragma unroll

@@ -1,4 +1,6 @@
-// Pair-based STDP on CSR fan-in rows for Hopper (sm_90a).
+// Pair-based STDP on CSR fan-in rows for Hopper (sm_90a): one launch per
+// tick over every CSR pair-STDP projection of a run, the trace steps folded
+// in.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/stdp_gather.py
 // (stdp_gather -> _stdp_gather_kernel): for every cell (q, k) of the
@@ -8,27 +10,74 @@
 // then +0.0 where valid is false, stored back in the storage type. idx is
 // int16 or int32; padded cells carry index 0 and valid false.
 //
-// What bounds it: bytes, then launch latency. Per cell it reads the weight,
-// the index and the validity byte and writes the weight: 7 B per cell at
-// fp16 with int16 indices (Synfire4 sparse: Q = 200, F about 80, 16,000
-// cells, about 0.03 us at 3.35 TB/s; Synfire4x10: Q = 2,000, F about 90,
-// about 1.3 MB, 0.4 us), so a launch dominates at these sizes. One thread
-// per cell, consecutive threads along a row (coalesced weight, index and
-// validity rows); the gathered pre traces and spikes (P floats each) are
-// read through the read-only cache, with no shared-memory staging and so
-// no limit on P.
+// One device function (stdp_cell) serves two callers. The single checked
+// call (ops.stdp_gather, stdp_gather_<i>_<w>) takes the stepped traces and
+// writes a new [Q, F] table. The run launcher (ops.StdpGatherRun,
+// stdp_gather_run) takes a table of projection descriptors built once per
+// run and, each tick, one f32 spike row: every projection's weights are
+// updated in place, and each trace advances one step,
+//   trace' = trace * decay + spike       (__fmul_rn then __fadd_rn),
+// which is what core/plasticity.py:_trace_step gives in eager PyTorch (a
+// multiply kernel, then an add kernel: no FMA). The traces are ping-pong
+// buffers: tick parity p reads buffer p and writes buffer 1 - p. A cell
+// recomputes the new trace of its pre and of its post from buffer p, and
+// one item per pre and per post neuron writes the new trace into buffer
+// 1 - p, so no thread reads what the launch writes.
 //
-// Rounding: as in stdp_update.cu, every multiply, add and subtract is
-// __fmul_rn / __fadd_rn / __fsub_rn in the plain version's association
-// (kernels/ref.py:stdp_gather_ref), the clip fminf(fmaxf(.)), the mask
-// +0.0: bit for bit equal to the plain version. An index outside [0, P)
-// writes NaN, so a corrupt table shows in the weights instead of reading
-// out of bounds (the plain version raises).
+// What bounds it: launch latency, then bytes. Per cell it reads the weight,
+// the index and the validity byte and writes the weight: 7 B per cell at
+// fp16 with int16 indices. A plastic Synfire4 sparse tick updates four
+// chain projections (P = Q = 200, F about 80: about 64,000 cells, 0.45 MB,
+// about 0.14 us at 3.35 TB/s); four single calls cost four launches, and
+// their trace steps four elementwise ops each. The run launcher makes it
+// one launch. One thread per item (cells of every projection in
+// descriptor order, then each projection's pre and post trace items),
+// consecutive threads along a row (coalesced weight, index and validity
+// rows); the gathered traces and spikes are read through the read-only
+// cache, with no shared-memory staging and so no limit on P.
+//
+// Rounding: every multiply, add and subtract is __fmul_rn / __fadd_rn /
+// __fsub_rn in the plain version's association (kernels/ref.py:
+// stdp_gather_ref, stdp_gather_run_ref), the mask +0.0: bit for bit equal
+// to the plain version. The clip is fminf(fmaxf(.)) on a number and keeps a
+// NaN, as torch.clamp and jnp.clip do (fmaxf alone would drop it).
+//
+// Out-of-range indices follow the reference's jnp.take: an index in
+// [-P, -1] counts from the end of the pre row, any other index outside
+// [0, P) reads NaN for the pre trace and the pre spike, so the cell is NaN
+// before the valid mask, and +0.0 where valid is false.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+
+__device__ __forceinline__ float nan_f32() { return __int_as_float(0x7fc00000); }
+
+struct Cell {  // the per-projection constants of the update
+  float a_plus, a_minus, w_min, w_max;
+};
+
+// The pre index of a cell, wrapped as jnp.take wraps it; -1 when it is
+// outside [-P, P).
+__device__ __forceinline__ int pre_index(int j, int P) {
+  if (j < 0) j += P;
+  return (j >= 0 && j < P) ? j : -1;
+}
+
+__device__ __forceinline__ float clip(float x, float lo, float hi) {
+  return isnan(x) ? x : fminf(fmaxf(x, lo), hi);
+}
+
+__device__ __forceinline__ float stdp_cell(float w, float pre_t, float pre_s, float post_t,
+                                           float post_s, bool valid, const Cell& c) {
+  const float ltp = __fmul_rn(c.a_plus, __fmul_rn(pre_t, post_s));
+  const float ltd = __fmul_rn(c.a_minus, __fmul_rn(pre_s, post_t));
+  const float x = clip(__fsub_rn(__fadd_rn(w, ltp), ltd), c.w_min, c.w_max);
+  return valid ? x : 0.0f;
+}
+
+// -- the single checked call -------------------------------------------------
 
 template <typename I, typename T>
 __global__ void stdp_gather_kernel(const T* __restrict__ w, const I* __restrict__ idx,
@@ -37,29 +86,21 @@ __global__ void stdp_gather_kernel(const T* __restrict__ w, const I* __restrict_
                                    const float* __restrict__ post_t,
                                    const float* __restrict__ pre_s,
                                    const float* __restrict__ post_s, T* __restrict__ out,
-                                   int P, int Q, int F, float a_plus, float a_minus,
-                                   float w_min, float w_max) {
+                                   int P, int Q, int F, Cell c) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= static_cast<long long>(Q) * F) return;
   const int q = static_cast<int>(i / F);
-  const int j = static_cast<int>(idx[i]);
-  float v;
-  if (j < 0 || j >= P) {
-    v = __int_as_float(0x7fc00000);
-  } else {
-    const float ltp = __fmul_rn(a_plus, __fmul_rn(__ldg(pre_t + j), __ldg(post_s + q)));
-    const float ltd = __fmul_rn(a_minus, __fmul_rn(__ldg(pre_s + j), __ldg(post_t + q)));
-    v = fminf(fmaxf(__fsub_rn(__fadd_rn(to_f32(w[i]), ltp), ltd), w_min), w_max);
-    if (!valid[i]) v = 0.0f;
-  }
-  out[i] = from_f32<T>(v);
+  const int j = pre_index(static_cast<int>(idx[i]), P);
+  const float pt = j >= 0 ? __ldg(pre_t + j) : nan_f32();
+  const float ps = j >= 0 ? __ldg(pre_s + j) : nan_f32();
+  out[i] = from_f32<T>(stdp_cell(to_f32(w[i]), pt, ps, __ldg(post_t + q), __ldg(post_s + q),
+                                 valid[i] != 0, c));
 }
 
 template <typename I, typename T>
 int launch(const void* w, const void* idx, const void* valid, const void* pre_t,
            const void* post_t, const void* pre_s, const void* post_s, void* out, int P,
-           int Q, int F, float a_plus, float a_minus, float w_min, float w_max,
-           void* stream) {
+           int Q, int F, Cell c, void* stream) {
   const long long cells = static_cast<long long>(Q) * F;
   if (cells <= 0) return 0;
   const long long blocks = (cells + kThreads - 1) / kThreads;
@@ -69,12 +110,100 @@ int launch(const void* w, const void* idx, const void* valid, const void* pre_t,
       static_cast<const T*>(w), static_cast<const I*>(idx),
       static_cast<const uint8_t*>(valid), static_cast<const float*>(pre_t),
       static_cast<const float*>(post_t), static_cast<const float*>(pre_s),
-      static_cast<const float*>(post_s), static_cast<T*>(out), P, Q, F, a_plus, a_minus,
-      w_min, w_max);
+      static_cast<const float*>(post_s), static_cast<T*>(out), P, Q, F, c);
   return static_cast<int>(cudaGetLastError());
 }
 
+// -- the run launcher ----------------------------------------------------------
+
+// One plastic projection of a run (kernels/stdp_gather.py:_Proj, field
+// for field). Its items are [begin, begin + Q*F + P + Q): the cells row by
+// row, then the P pre-trace items, then the Q post-trace items.
+struct StdpProj {
+  void* w;  // [Q, F] storage type, updated in place
+  const void* idx;  // [Q, F] int16 (itype 0) or int32 (itype 1)
+  const uint8_t* valid;  // [Q, F]
+  float* pre_tr[2];  // [P] ping-pong
+  float* post_tr[2];  // [Q] ping-pong
+  long long begin;
+  int P, Q, F, pre_start, post_start, itype, wtype;  // wtype 0 f32, 1 fp16
+  float a_plus, a_minus, w_min, w_max, decay_pre, decay_post;
+};
+
+struct StdpPlan {
+  const StdpProj* projs;  // [n_projs] in device memory
+  void* stream;
+  long long n_items;
+  int n_projs;
+};
+
+__device__ __forceinline__ float stepped(const float* tr, float decay, float spike, int j) {
+  return __fadd_rn(__fmul_rn(__ldg(tr + j), decay), spike);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    stdp_run_kernel(StdpPlan plan, const float* __restrict__ spikes, int parity) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= plan.n_items) return;
+  int k = 0;
+  while (k + 1 < plan.n_projs && i >= plan.projs[k + 1].begin) ++k;
+  const StdpProj& p = plan.projs[k];
+  const long long local = i - p.begin;
+  const long long cells = static_cast<long long>(p.Q) * p.F;
+  const float* pre_sp = spikes + p.pre_start;
+  const float* post_sp = spikes + p.post_start;
+  if (local >= cells) {  // a trace item: the new trace into the other buffer
+    const int j = static_cast<int>(local - cells);
+    if (j < p.P) {
+      p.pre_tr[1 - parity][j] = stepped(p.pre_tr[parity], p.decay_pre, __ldg(pre_sp + j), j);
+    } else {
+      const int q = j - p.P;
+      p.post_tr[1 - parity][q] =
+          stepped(p.post_tr[parity], p.decay_post, __ldg(post_sp + q), q);
+    }
+    return;
+  }
+  const int q = static_cast<int>(local / p.F);
+  const int raw = p.itype ? static_cast<const int32_t*>(p.idx)[local]
+                          : static_cast<const int16_t*>(p.idx)[local];
+  const int j = pre_index(raw, p.P);
+  float pt = nan_f32(), ps = nan_f32();
+  if (j >= 0) {
+    ps = __ldg(pre_sp + j);
+    pt = stepped(p.pre_tr[parity], p.decay_pre, ps, j);
+  }
+  const float qs = __ldg(post_sp + q);
+  const float qt = stepped(p.post_tr[parity], p.decay_post, qs, q);
+  const Cell c{p.a_plus, p.a_minus, p.w_min, p.w_max};
+  const bool ok = p.valid[local] != 0;
+  if (p.wtype) {
+    __half* w = static_cast<__half*>(p.w) + local;
+    *w = from_f32<__half>(stdp_cell(to_f32(*w), pt, ps, qt, qs, ok, c));
+  } else {
+    float* w = static_cast<float*>(p.w) + local;
+    *w = stdp_cell(*w, pt, ps, qt, qs, ok, c);
+  }
+}
+
 }  // namespace
+
+REPRO_EXPORT int stdp_gather_run_sizes(int* out) {
+  out[0] = static_cast<int>(sizeof(StdpProj));
+  out[1] = static_cast<int>(sizeof(StdpPlan));
+  return 0;
+}
+
+// One tick of a run (kernels/stdp_gather.py:StdpLauncher): `spikes` is the
+// tick's [N] f32 spike row, `parity` the trace buffer holding the traces.
+REPRO_EXPORT int stdp_gather_run(const StdpPlan* plan, const void* spikes, int parity) {
+  if (plan->n_items <= 0) return 0;
+  const long long blocks = (plan->n_items + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  stdp_run_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                    static_cast<cudaStream_t>(plan->stream)>>>(
+      *plan, static_cast<const float*>(spikes), parity);
+  return static_cast<int>(cudaGetLastError());
+}
 
 #define REPRO_STDP_GATHER(NAME, I, T)                                                   \
   REPRO_EXPORT int NAME(const void* w, const void* idx, const void* valid,             \
@@ -83,7 +212,7 @@ int launch(const void* w, const void* idx, const void* valid, const void* pre_t,
                         float a_plus, float a_minus, float w_min, float w_max,         \
                         void* stream) {                                                \
     return launch<I, T>(w, idx, valid, pre_t, post_t, pre_s, post_s, out, P, Q, F,     \
-                        a_plus, a_minus, w_min, w_max, stream);                        \
+                        Cell{a_plus, a_minus, w_min, w_max}, stream);                  \
   }
 
 REPRO_STDP_GATHER(stdp_gather_i16_f32, int16_t, float)

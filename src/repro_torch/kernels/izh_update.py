@@ -1,8 +1,13 @@
-"""Launcher of the CUDA IZH4 kernel (``csrc/izh_update.cu``).
+"""Launchers of the CUDA IZH4 kernel (``csrc/izh_update.cu``).
 
 Replaces the Pallas kernel ``repro/kernels/izh_update.py:izh4_update``.
-Call it through :func:`repro_torch.kernels.ops.izh4_update`, which checks
-the tensors, allocates the outputs and counts launches.
+:func:`launch` is the single call (through
+:func:`repro_torch.kernels.ops.izh4_update`, which checks the tensors,
+allocates the outputs and counts launches). :class:`NeuronLauncher` is one
+run's neuron phase on the card: its plan (a C struct pointing at the run's
+state) filled once, so that a tick's neuron phase is one ctypes call
+carrying the tick's ring slot and row pointers (through
+:class:`repro_torch.kernels.ops.NeuronRun`).
 """
 from __future__ import annotations
 
@@ -12,18 +17,74 @@ import torch
 
 from repro_torch.kernels import _build
 
+__all__ = ["STORAGE_DTYPES", "launch", "NeuronLauncher"]
+
 _P = ctypes.c_void_p
-_SIGNATURE = [_P] * 10 + [ctypes.c_int, ctypes.c_float, ctypes.c_int, _P]
-_SIGNATURES = {"izh4_update_f32": _SIGNATURE, "izh4_update_f16": _SIGNATURE}
+_I = ctypes.c_int
+_SIGNATURE = [_P] * 10 + [_I, ctypes.c_float, _I, _P]
 _ENTRY = {torch.float32: "izh4_update_f32", torch.float16: "izh4_update_f16"}
+_RUN_ENTRY = {torch.float32: "izh4_run_f32", torch.float16: "izh4_run_f16"}
 STORAGE_DTYPES = tuple(_ENTRY)
+
+
+class _Plan(ctypes.Structure):
+    """``NeuronPlan`` of ``csrc/izh_update.cu``, field for field."""
+
+    _fields_ = [(name, _P) for name in (
+        "v", "u", "refrac", "ring", "a", "b", "c", "d", "is_gen", "gen_col", "spikes",
+        "counts", "stream")] + [("n", _I), ("substeps", _I), ("h", ctypes.c_float)]
+
+
+_RUN_SIGNATURE = [ctypes.POINTER(_Plan), _I, _P, _P, _P, _P, _P]
+_SIGNATURES = {**{name: _SIGNATURE for name in _ENTRY.values()},
+               **{name: _RUN_SIGNATURE for name in _RUN_ENTRY.values()},
+               "izh4_run_plan_size": []}
+
+
+def _lib() -> ctypes.CDLL:
+    return _build.load("izh_update", _SIGNATURES)
 
 
 def launch(v, u, i_syn, a, b, c, d, v_out, u_out, spiked, *, h: float,
            substeps: int) -> None:
-    lib = _build.load("izh_update", _SIGNATURES)
+    lib = _lib()
     stream = torch.cuda.current_stream(v.device).cuda_stream
     err = getattr(lib, _ENTRY[v.dtype])(
         *(t.data_ptr() for t in (v, u, i_syn, a, b, c, d, v_out, u_out, spiked)),
         v.shape[0], h, substeps, stream)
     _build.check(lib, err, "izh4_update")
+
+
+class NeuronLauncher:
+    """One run's neuron phase on the card: ``v``, ``u`` ``[N]`` (storage
+    dtype), ``refrac`` ``[N]`` int16 and ``ring`` ``[L, N, 1]`` updated in
+    place, ``spikes`` ``[N]`` f32 written every tick, ``counts`` ``[N]``
+    int32 (or None) counted up; launching on the stream current at
+    construction. The caller keeps every tensor alive and checked."""
+
+    def __init__(self, v, u, refrac, ring, is_gen, a, b, c, d, gen_col, spikes,
+                 counts, *, dt: float, substeps: int):
+        lib = _lib()
+        if lib.izh4_run_plan_size() != ctypes.sizeof(_Plan):
+            raise RuntimeError("izh4_update: the library's NeuronPlan size differs "
+                               "from the launcher's")
+        plan = _Plan()
+        for name, t in (("v", v), ("u", u), ("refrac", refrac), ("ring", ring), ("a", a),
+                        ("b", b), ("c", c), ("d", d), ("is_gen", is_gen),
+                        ("gen_col", gen_col), ("spikes", spikes)):
+            setattr(plan, name, t.data_ptr())
+        plan.counts = None if counts is None else counts.data_ptr()
+        plan.stream = torch.cuda.current_stream(v.device).cuda_stream
+        plan.n, plan.substeps, plan.h = v.shape[0], substeps, dt / substeps
+        self._plan = plan
+        self._ref = ctypes.byref(plan)
+        self._lib, self._fn = lib, getattr(lib, _RUN_ENTRY[v.dtype])
+
+    def __call__(self, slot: int, gen_row: int, i_ext: int, raster: int, v_rec: int,
+                 i_rec: int) -> None:
+        """One tick on ring slot ``slot``; the rows are device pointers, 0
+        for none."""
+        err = self._fn(self._ref, slot, gen_row or None, i_ext or None, raster or None,
+                       v_rec or None, i_rec or None)
+        if err:
+            _build.check(self._lib, err, "izh4_update")

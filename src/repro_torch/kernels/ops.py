@@ -19,9 +19,9 @@ from repro_torch.kernels import stdp_update as _stdp_update
 from repro_torch.kernels import syn_gather as _gather
 from repro_torch.kernels import syn_matmul as _matmul
 
-__all__ = ["LAUNCHES", "reset_launches", "izh4_update", "syn_matmul", "MatmulRun",
-           "syn_gather", "GatherRun", "FusedTickRun", "stdp_update", "stdp_gather",
-           "attention", "flash_attention"]
+__all__ = ["LAUNCHES", "reset_launches", "izh4_update", "NeuronRun", "syn_matmul",
+           "MatmulRun", "syn_gather", "GatherRun", "FusedTickRun", "stdp_update",
+           "stdp_gather", "StdpGatherRun", "attention", "flash_attention"]
 
 f32 = torch.float32
 
@@ -80,6 +80,102 @@ def izh4_update(v, u, i_syn, a, b, c, d, *, dt: float = 1.0, substeps: int = 2):
                     h=dt / substeps, substeps=substeps)
         LAUNCHES["izh4_update"] += 1
     return v_out, u_out, spiked
+
+
+class NeuronRun:
+    """One run's neuron phase of an IZH4-only Euler net, tick by tick
+    (:func:`repro_torch.kernels.ref.neuron_run_ref`): on the run's own
+    copies of ``v``, ``u`` (``[N]``, one storage dtype) and ``refrac``
+    (``[N]`` int16), made here, so the caller's tensors are left as they
+    were, and on ``ring`` (``[L, N, 1]``, the storage dtype) in place.
+    ``is_gen`` ``[N]`` bool; ``a``..``d`` ``[N]`` f32. ``gen_spk`` ``[T,
+    n_gen]`` bool holds the run's generator spikes and ``gen_cols`` ``[N]``
+    each neuron's column in it (-1 for the others); ``i_ext`` ``[T, N]``,
+    converted to f32 once, here. ``raster`` ``[T, N]`` bool, ``v_rows`` and
+    ``i_rows`` ``[T, N]`` f32 and ``counts`` ``[N]`` int32, where given,
+    take each tick's spike row, v and i_syn, and its spikes added.
+
+    ``run(i, t)`` is the run's ``i``-th tick, tick ``t`` (ring slot ``t %
+    L``); afterwards ``spikes`` ``[N]`` f32 holds its spike row (0.0/1.0)
+    until the next call, and ``v``, ``u``, ``refrac`` the state. On the card
+    the tensors are checked and the plan is filled once (``launcher``, a
+    :class:`repro_torch.kernels.izh_update.NeuronLauncher`), and a tick is
+    one launch on the stream current at construction; on the CPU
+    ``launcher`` is None and a tick runs the plain version."""
+
+    def __init__(self, v, u, refrac, ring, is_gen, a, b, c, d, *, gen_spk=None,
+                 gen_cols=None, i_ext=None, raster=None, v_rows=None, i_rows=None,
+                 counts=None, dt: float = 1.0, substeps: int = 2):
+        n = v.shape[0]
+        if v.dim() != 1 or ring.dim() != 3 or ring.shape[1:] != (n, 1):
+            raise ValueError(f"izh4_update: v {tuple(v.shape)} and ring "
+                             f"{tuple(ring.shape)} must be [N] and [L, N, 1]")
+        if any(x.shape != (n,) for x in (u, refrac, is_gen, a, b, c, d)):
+            raise ValueError(f"izh4_update: u, refrac, is_gen, a, b, c, d must be [{n}]")
+        if (v.dtype not in _izh.STORAGE_DTYPES or u.dtype != v.dtype
+                or ring.dtype != v.dtype):
+            raise ValueError(f"izh4_update: v/u/ring must share a storage dtype in "
+                             f"{_izh.STORAGE_DTYPES}, got {v.dtype}/{u.dtype}/{ring.dtype}")
+        if (refrac.dtype != torch.int16 or is_gen.dtype != torch.bool
+                or any(x.dtype != f32 for x in (a, b, c, d))):
+            raise ValueError("izh4_update: refrac must be int16, is_gen bool and a, b, "
+                             "c, d float32")
+        rows = [x for x in (gen_spk, i_ext, raster, v_rows, i_rows) if x is not None]
+        ticks = rows[0].shape[0] if rows else 0
+        if any(x.dim() != 2 or x.shape[0] != ticks for x in rows) or any(
+                x is not None and x.shape[1] != n for x in (i_ext, raster, v_rows, i_rows)):
+            raise ValueError(f"izh4_update: gen_spk must be [T, n_gen] and i_ext, raster, "
+                             f"v_rows, i_rows [T, {n}], for one T")
+        if (raster is not None and raster.dtype != torch.bool) or any(
+                x is not None and x.dtype != f32 for x in (v_rows, i_rows)):
+            raise ValueError("izh4_update: raster must be bool and v_rows, i_rows float32")
+        if counts is not None and (counts.shape != (n,) or counts.dtype != torch.int32):
+            raise ValueError(f"izh4_update: counts must be int32 [{n}]")
+        if gen_spk is None:
+            gen_cols = torch.full((n,), -1, dtype=torch.int64, device=v.device)
+        elif (gen_spk.dtype != torch.bool or gen_cols is None or gen_cols.shape != (n,)
+              or gen_cols.dtype not in (torch.int32, torch.int64)
+              or (n and int(gen_cols.max()) >= gen_spk.shape[1])):
+            raise ValueError(f"izh4_update: gen_spk must be bool [T, n_gen] with gen_cols "
+                             f"int [{n}] below n_gen")
+        self.v, self.u, self.refrac = v.clone(), u.clone(), refrac.clone()
+        self.spikes = torch.zeros((n,), dtype=f32, device=v.device)
+        if i_ext is not None:
+            i_ext = i_ext.to(f32).contiguous()
+        self._rows = (gen_spk, i_ext, raster, v_rows, i_rows)
+        self._args = (ring, is_gen, a, b, c, d, gen_cols.long(), counts)
+        self._ring_len, self._dt, self._substeps = ring.shape[0], dt, substeps
+        self.launcher = None
+        card = _on_card("izh4_update", self.v, self.u, self.refrac, ring, is_gen, a, b,
+                        c, d, gen_cols, self.spikes, *rows,
+                        *([] if counts is None else [counts]))
+        if card and n:
+            cols = gen_cols.to(torch.int32)
+            self._keep = cols
+            self.launcher = _izh.NeuronLauncher(
+                self.v, self.u, self.refrac, ring, is_gen, a, b, c, d, cols, self.spikes,
+                counts, dt=dt, substeps=substeps)
+            # Per row: (base pointer, bytes per tick), base 0 for none.
+            self._steps = tuple((0, 0) if x is None else
+                                (x.data_ptr(), x.shape[1] * x.element_size())
+                                for x in self._rows)
+        self._card = card
+
+    def __call__(self, i: int, t: int) -> None:
+        if self.launcher is not None:
+            self.launcher(t % self._ring_len, *(p and p + i * step for p, step in self._steps))
+            LAUNCHES["izh4_update"] += 1
+            return
+        if self._card:  # N = 0: nothing to compute
+            return
+        ring, is_gen, a, b, c, d, cols, counts = self._args
+        gen_spk, i_ext, raster, v_rows, i_rows = (None if x is None else x[i]
+                                                  for x in self._rows)
+        ref.neuron_run_ref(self.v, self.u, self.refrac, ring, t % self._ring_len, is_gen,
+                           a, b, c, d, cols, self.spikes, gen_row=gen_spk,
+                           i_ext_row=i_ext, raster_row=raster, v_row=v_rows,
+                           i_row=i_rows, counts=counts, dt=self._dt,
+                           substeps=self._substeps)
 
 
 def syn_matmul(x, w):
@@ -268,9 +364,11 @@ def stdp_gather(w, idx, valid, pre_trace, post_trace, pre_spikes, post_spikes, *
     (:func:`repro_torch.kernels.ref.stdp_gather_ref`); pre traces and
     spikes ``[P]``, post ones ``[Q]``, f32.
 
-    Every index must lie in ``[0, P)``: an index outside raises
-    ``IndexError`` on the CPU and writes NaN into its cell on the card,
-    where a check would cost a device-to-host sync."""
+    Out-of-range indices follow the reference's ``jnp.take``, on the CPU
+    and on the card: an index in ``[-P, -1]`` counts from the end of the
+    pre row, and any other index outside ``[0, P)`` makes its cell NaN
+    where ``valid`` (+0.0 where not). On the card it is the kernel of
+    :class:`StdpGatherRun` on one table, one launch."""
     if w.dim() != 2 or idx.shape != w.shape or valid.shape != w.shape:
         raise ValueError(f"stdp_gather: w {tuple(w.shape)}, idx {tuple(idx.shape)} "
                          f"and valid {tuple(valid.shape)} must share one [Q, F] shape")
@@ -295,6 +393,78 @@ def stdp_gather(w, idx, valid, pre_trace, post_trace, pre_spikes, post_spikes, *
     return out
 
 
+class StdpGatherRun:
+    """Pair-based STDP of one run's plastic CSR projections, one tick at a
+    time (:func:`repro_torch.kernels.ref.stdp_gather_run_ref`): ``projs``
+    are :class:`repro_torch.kernels.stdp_gather.Projection` s on the run's
+    own buffers (weights updated in place, traces in ping-pong pairs),
+    checked here against an ``[n]`` f32 spike row, and labelled by ``keys``
+    (the caller's projection ids; ``range(len(projs))`` when None).
+    ``run(spikes)`` steps every projection's traces and updates its
+    weights, the traces read from buffer ``parity`` and written to the
+    other, then flips ``parity``; the current traces of projection ``k``
+    are ``traces(k)``. On the card it
+    is one launch per call over every projection (``launcher``, a
+    :class:`repro_torch.kernels.stdp_gather.StdpLauncher`, on the stream
+    current at construction); ``spikes`` must be a contiguous f32 row of
+    length ``n`` on the projections' card and is not checked per call. On
+    the CPU ``launcher`` is None and a call runs the plain version."""
+
+    def __init__(self, n: int, projs, keys=None):
+        self.projs = tuple(projs)
+        self.keys = tuple(range(len(self.projs)) if keys is None else keys)
+        tensors = []
+        for p in self.projs:
+            if p.w.dim() != 2 or p.idx.shape != p.w.shape or p.valid.shape != p.w.shape:
+                raise ValueError(f"stdp_gather: w {tuple(p.w.shape)}, idx "
+                                 f"{tuple(p.idx.shape)} and valid {tuple(p.valid.shape)} "
+                                 "must share one [Q, F] shape")
+            if (p.w.dtype not in _stdp_gather.STORAGE_DTYPES
+                    or p.idx.dtype not in _stdp_gather.INDEX_DTYPES
+                    or p.valid.dtype != torch.bool):
+                raise ValueError(f"stdp_gather: w/idx/valid dtypes {p.w.dtype}/"
+                                 f"{p.idx.dtype}/{p.valid.dtype}")
+            n_pre, n_post = p.pre_tr[0].shape[0], p.w.shape[0]
+            if (len(p.pre_tr) != 2 or len(p.post_tr) != 2
+                    or any(t.shape != (n_pre,) or t.dtype != f32 for t in p.pre_tr)
+                    or any(t.shape != (n_post,) or t.dtype != f32 for t in p.post_tr)):
+                raise ValueError(f"stdp_gather: pre_tr/post_tr must be two float32 "
+                                 f"[P] and two [{n_post}] buffers")
+            if not (0 <= p.pre_start <= n - n_pre and 0 <= p.post_start <= n - n_post):
+                raise ValueError(f"stdp_gather: pre [{p.pre_start}, +{n_pre}) or post "
+                                 f"[{p.post_start}, +{n_post}) outside the [{n}] spike row")
+            tensors += [p.w, p.idx, p.valid, *p.pre_tr, *p.post_tr]
+        self.parity = 0
+        self.launcher = None
+        if tensors and _on_card("stdp_gather", *tensors):
+            self.launcher = _stdp_gather.StdpLauncher(self.projs, tensors[0].device)
+
+    def __call__(self, spikes: torch.Tensor) -> None:
+        if self.launcher is None:
+            ref.stdp_gather_run_ref(spikes, self.projs, self.parity)
+        elif self.launcher.items:
+            self.launcher(spikes.data_ptr(), self.parity)
+            LAUNCHES["stdp_gather"] += 1
+        self.parity ^= 1
+
+    def traces(self, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Projection ``k``'s current (pre, post) traces."""
+        p = self.projs[k]
+        return p.pre_tr[self.parity], p.post_tr[self.parity]
+
+    def adopt(self, weights) -> tuple:
+        """``weights`` (indexed by the keys) with this run's weight buffers
+        in its projections' places; a buffer first takes the values of the
+        tensor it replaces where that is another tensor (homeostasis makes
+        new ones)."""
+        out = list(weights)
+        for p, j in zip(self.projs, self.keys):
+            if out[j] is not p.w:
+                p.w.copy_(out[j])
+                out[j] = p.w
+        return tuple(out)
+
+
 class FusedTickRun:
     """A run's ticks through the fused tick
     (:func:`repro_torch.kernels.ref.fused_tick_ref`), in place on the run's
@@ -309,7 +479,16 @@ class FusedTickRun:
     once (``launcher``, a :class:`repro_torch.kernels.fused_tick.TickLauncher`,
     whose ``grid`` is the CTAs each tick runs on; ``grid`` overrides its
     choice), and :meth:`tick` is one launch; on the CPU ``launcher`` is None and :meth:`tick` runs the plain
-    version. On the card N is at most ``fused_tick.MAX_N``."""
+    version. On the card N is at most ``fused_tick.MAX_N``.
+
+    Contract on non-finite weights: the kernel adds only the weights of
+    pres that spiked, so a non-finite weight on a silent pre adds nothing
+    on the card, where the plain version and the reference's
+    ``fused_tick_ref`` multiply it by 0.0 and give NaN (``chip_smoke.py``
+    records both). With finite weights the two agree, as silent pres add
+    exact zeros. A CSR index follows the reference's ``jnp.take`` on both
+    devices: one in ``[-N, -1]`` counts from the end of the spike row, any
+    other outside ``[0, N)`` makes its row's drive NaN."""
 
     def __init__(self, payload: _fused.KernelPayload, v, u, ring, is_gen, a, b,
                  c, d, rows, v_rows=None, i_rows=None, *, dt: float = 1.0,
@@ -420,9 +599,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = -1):
     """The Pallas kernel's signature (``repro/kernels/flash_attn.py``): q
     ``[B, Hq, Sq, D]``, k/v ``[B, Hkv, Sk, D]``, queries aligned to the end
     of KV → ``[B, Hq, Sq, D]`` in q's dtype; one :func:`attention` call on
-    :func:`repro_torch.kernels.ref.model_layout`'s operands."""
+    :func:`repro_torch.kernels.ref.model_layout`'s operands. A row that
+    sees no key (a causal call with Sq > Sk: the first Sq - Sk queries)
+    gets the Pallas kernel's value there, ``Σ_{j<Sk} v_j / ceil_to(Sk,
+    128)`` (:func:`repro_torch.kernels.ref.pallas_no_key_rows`), on both
+    devices; :func:`attention` keeps ``chunked_attention``'s, which the
+    model computes."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} and k {tuple(k.shape)} "
                          "must be [B, H, S, D]")
     out = attention(*ref.model_layout(q, k, v), causal=causal, window=window)
-    return out.transpose(1, 2).to(q.dtype)
+    out = out.transpose(1, 2)
+    ref.pallas_no_key_rows(out, v, causal=causal)
+    return out.to(q.dtype)

@@ -10,9 +10,10 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["izh4_ref", "syn_matmul_ref", "syn_gather_ref", "gather_run_ref", "fused_tick_ref",
-           "stdp_update_ref", "stdp_gather_ref", "chunked_attention_ref",
-           "flash_attention_ref", "model_layout"]
+__all__ = ["izh4_ref", "neuron_run_ref", "syn_matmul_ref", "syn_gather_ref", "gather_run_ref",
+           "fused_tick_ref", "stdp_update_ref", "stdp_gather_ref", "stdp_gather_run_ref",
+           "chunked_attention_ref", "flash_attention_ref", "pallas_no_key_rows",
+           "model_layout"]
 
 f32 = torch.float32
 NEG_INF = -1e30  # the reference's mask value (not -inf)
@@ -42,15 +43,58 @@ def izh4_ref(v, u, i_syn, a, b, c, d, *, dt: float = 1.0, substeps: int = 2):
     return v.to(out_dtype), u.to(out_dtype), spiked
 
 
+def neuron_run_ref(v, u, refrac, ring, slot: int, is_gen, a, b, c, d, gen_cols, spikes, *,
+                   gen_row=None, i_ext_row=None, raster_row=None, v_row=None, i_row=None,
+                   counts=None, dt: float = 1.0, substeps: int = 2) -> None:
+    """One tick's neuron phase of an IZH4-only Euler net, in place, as
+    ``engine._neuron_phase`` and ``backend.update_neurons_dispatch``
+    compute it op by op: read ring slot ``slot`` (``ring`` ``[L, N, 1]``,
+    storage dtype) into ``i_syn`` f32 and zero it; add the tick's
+    ``i_ext_row`` (f32) where given; the IZH4 update (:func:`izh4_ref`);
+    the spike masked by ``is_gen`` and a running refractory countdown;
+    ``v = c`` and ``u = +0.0`` on generators, in the storage dtype;
+    ``refrac = max(refrac - 1, 0)`` (int16); then each generator column's
+    spike from ``gen_row`` (``[n_gen]`` bool) through ``gen_cols``
+    (``[N]`` int64, -1 for other neurons). Writes v, u, refrac, the f32
+    spike row ``spikes`` and, where given, the bool ``raster_row``, the
+    f32 ``v_row`` and ``i_row`` (``i_syn``), and ``counts += spike``
+    (int32)."""
+    i_syn = ring[slot, :, 0].to(f32, copy=True)
+    ring[slot].zero_()
+    if i_ext_row is not None:
+        i_syn = i_syn + i_ext_row
+    v2, u2, spiked = izh4_ref(v, u, i_syn, a, b, c, d, dt=dt, substeps=substeps)
+    spiked = spiked & ~is_gen & ~(refrac > 0)
+    v.copy_(torch.where(is_gen, c, v2.to(f32)).to(v.dtype))
+    u.copy_(torch.where(is_gen, 0.0, u2.to(f32)).to(u.dtype))
+    refrac.copy_(torch.clamp_min(refrac - 1, 0))
+    if gen_row is not None:
+        spiked = torch.where(gen_cols >= 0, gen_row[gen_cols.clamp_min(0)], spiked)
+    spikes.copy_(spiked.to(f32))
+    if raster_row is not None:
+        raster_row.copy_(spiked)
+    if v_row is not None:
+        v_row.copy_(v)
+    if i_row is not None:
+        i_row.copy_(i_syn)
+    if counts is not None:
+        counts += spiked
+
+
 def syn_matmul_ref(x, w):
     """x [M, K] @ w [K, N], storage-dtype weights decoded to f32 (softfp)."""
     return torch.matmul(x.to(f32), w.to(f32))
 
 
-def _check_indices(what: str, idx, n: int) -> None:
-    if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= n):
-        raise IndexError(f"{what}: indices span [{int(idx.min())}, "
-                         f"{int(idx.max())}], outside [0, {n})")
+def _take(row, idx):
+    """``row[idx]`` as the reference's ``jnp.take`` reads it (``row`` f32
+    ``[P]``, any ``idx`` shape): an index in ``[-P, -1]`` counts from the
+    end of the row, any other index outside ``[0, P)`` reads NaN."""
+    p = row.shape[0]
+    ii = idx.to(torch.int64)
+    ii = torch.where(ii < 0, ii + p, ii)
+    ii = torch.where((ii >= 0) & (ii < p), ii, p)  # p: the NaN appended below
+    return torch.cat((row.to(f32), row.new_full((1,), float("nan"), dtype=f32)))[ii]
 
 
 def syn_gather_ref(spikes, idx, w):
@@ -61,12 +105,7 @@ def syn_gather_ref(spikes, idx, w):
     ``[-P, -1]`` counts from the end of the row, and any other index
     outside ``[0, P)`` reads NaN, which makes its row's sum NaN.
     """
-    p = spikes.shape[0]
-    ii = idx.to(torch.int64)
-    ii = torch.where(ii < 0, ii + p, ii)
-    ii = torch.where((ii >= 0) & (ii < p), ii, p)  # p: the NaN appended below
-    row = torch.cat((spikes.to(f32), spikes.new_full((1,), float("nan"), dtype=f32)))
-    return (row[ii] * w.to(f32)).sum(dim=1)
+    return (_take(spikes, idx) * w.to(f32)).sum(dim=1)
 
 
 def gather_run_ref(spikes, rows, buckets, *, first: bool) -> None:
@@ -141,14 +180,36 @@ def stdp_gather_ref(w, idx, valid, pre_trace, post_trace, pre_spikes,
     """Pair-based STDP on CSR fan-in rows (``w``/``idx``/``valid`` [Q, F]):
     ``dw[q, k] = a⁺·(pre_t[idx[q, k]]·post_s[q]) −
     a⁻·(pre_s[idx[q, k]]·post_t[q])``, clipped, +0.0 where not ``valid``,
-    cast back. Raises ``IndexError`` for an index outside ``[0, P)``."""
-    _check_indices("stdp_gather", idx, pre_trace.shape[0])
-    ii = idx.to(torch.int64)
+    cast back. Indices are read as the reference's ``jnp.take`` reads
+    them: one in ``[-P, -1]`` counts from the end of the pre row, any other
+    outside ``[0, P)`` reads NaN, so its cell is NaN where ``valid`` and
+    +0.0 where not (``torch.clamp`` keeps a NaN)."""
     post_s = post_spikes.to(f32)[:, None]
-    ltp = a_plus * (pre_trace.to(f32)[ii] * post_s)
-    ltd = a_minus * (pre_spikes.to(f32)[ii] * post_trace.to(f32)[:, None])
+    ltp = a_plus * (_take(pre_trace, idx) * post_s)
+    ltd = a_minus * (_take(pre_spikes, idx) * post_trace.to(f32)[:, None])
     wf = torch.clamp(w.to(f32) + ltp - ltd, w_min, w_max)
     return torch.where(valid, wf, 0.0).to(w.dtype)
+
+
+def stdp_gather_run_ref(spikes, projs, parity: int) -> None:
+    """One launch of a :class:`repro_torch.kernels.ops.StdpGatherRun`, in
+    place: for each projection of ``projs``
+    (:class:`repro_torch.kernels.stdp_gather.Projection`), in order, its
+    pre and post spikes are the slices of the ``[N]`` f32 row ``spikes`` at
+    ``pre_start``/``post_start``, each trace steps as
+    ``core/plasticity._trace_step`` steps it (``trace * decay + spike``)
+    from buffer ``parity`` into buffer ``1 - parity``, and the weights take
+    :func:`stdp_gather_ref` on the stepped traces."""
+    for p in projs:
+        pre_sp = spikes[p.pre_start:p.pre_start + p.pre_tr[0].shape[0]]
+        post_sp = spikes[p.post_start:p.post_start + p.post_tr[0].shape[0]]
+        pre_t = p.pre_tr[1 - parity]
+        post_t = p.post_tr[1 - parity]
+        pre_t.copy_(p.pre_tr[parity] * p.decay_pre + pre_sp.to(f32))
+        post_t.copy_(p.post_tr[parity] * p.decay_post + post_sp.to(f32))
+        p.w.copy_(stdp_gather_ref(p.w, p.idx, p.valid, pre_t, post_t, pre_sp, post_sp,
+                                  a_plus=p.a_plus, a_minus=p.a_minus, w_min=p.w_min,
+                                  w_max=p.w_max))
 
 
 def chunked_attention_ref(q, k, v, qpos, kpos, *, causal: bool = True,
@@ -229,7 +290,31 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = -1):
     """The Pallas kernel's signature (``repro/kernels/flash_attn.py``): q
     ``[B, Hq, Sq, D]``, k/v ``[B, Hkv, Sk, D]`` in a storage dtype, queries
     aligned to the end of KV; :func:`chunked_attention_ref` on
-    :func:`model_layout`'s operands. Returns ``[B, Hq, Sq, D]`` in q's
-    dtype."""
+    :func:`model_layout`'s operands, with the Pallas kernel's value on rows
+    that see no key (:func:`pallas_no_key_rows`). Returns ``[B, Hq, Sq,
+    D]`` in q's dtype."""
     out = chunked_attention_ref(*model_layout(q, k, v), causal=causal, window=window)
-    return out.transpose(1, 2).to(q.dtype)
+    out = out.transpose(1, 2)
+    pallas_no_key_rows(out, v, causal=causal)
+    return out.to(q.dtype)
+
+
+PALLAS_BLOCK_K = 128  # the Pallas kernel's default block_k
+
+
+def pallas_no_key_rows(out, v, *, causal: bool) -> None:
+    """The Pallas kernel's value on the rows that see no key, in place on
+    ``out`` ``[B, Hq, Sq, D]`` f32 (v ``[B, Hkv, Sk, D]``, queries aligned
+    to the end of KV). Only a causal call with ``Sq > Sk > 0`` has such
+    rows: the first ``Sq - Sk`` queries. There the kernel keeps m = -1e30
+    over every slot of its padded KV, so every slot gets p = 1 and the row
+    is ``Σ_{j<Sk} v_j / ceil_to(Sk, 128)`` (padding slots hold v = 0; a
+    sliding window removes no key from the other rows)."""
+    _, hq, sq, _ = out.shape
+    _, hkv, sk, _ = v.shape
+    if not causal or sq <= sk or sk == 0:
+        return
+    den = torch.full((), float(-(-sk // PALLAS_BLOCK_K) * PALLAS_BLOCK_K), dtype=f32,
+                     device=out.device)
+    mean = v.to(f32).sum(dim=2) / den  # [B, Hkv, D]
+    out[:, :, :sq - sk] = mean.repeat_interleave(hq // hkv, dim=1)[:, :, None]

@@ -132,6 +132,49 @@ def test_flash_attention_matches_pallas(case):
     assert torch.equal(plain, got)
 
 
+def _no_key_case(case):
+    """q, k, v in the Pallas layout with Sq > Sk, so the first Sq - Sk
+    queries of a causal call see no key: the ROADMAP's case (q, k = 1, v =
+    arange(16) as [1, 1, 2, 8], Sq 4) and a random one with Sk 130, which
+    the Pallas kernel pads to 256 slots."""
+    if case == "roadmap":
+        v = np.arange(16, dtype=np.float32).reshape(1, 1, 2, 8)
+        return np.ones((1, 1, 4, 8), np.float32), np.ones_like(v), v
+    rng = np.random.default_rng(130)
+    return (rng.standard_normal((2, 4, 140, 16), np.float32),
+            *(rng.standard_normal((2, 2, 130, 16), np.float32) for _ in range(2)))
+
+
+# fp16 q: the outputs round to fp16, one ulp of which is up to 9.8e-4 here.
+Q_TOL = {"f32": TOL, "fp16": dict(rtol=0, atol=1e-3)}
+
+
+@pytest.mark.parametrize("qdtype", ["f32", "fp16"])
+@pytest.mark.parametrize("case", ["roadmap", "sk130"])
+def test_flash_attention_rows_without_keys_match_pallas(case, qdtype):
+    """A causal call with Sq > Sk: the rows that see no key take the Pallas
+    kernel's value (every padded slot gets p = 1 there: the sum of v over
+    Sk, divided by Sk rounded up to 128), the others its usual one; the
+    plain version (``ref.flash_attention_ref``) equals the wrapper."""
+    q, k, v = _no_key_case(case)
+    q = q.astype(KV[qdtype][0])
+    pallas = np.asarray(pallas_flash(*(jnp.asarray(x) for x in (q, k, v)), causal=True,
+                                     interpret=True), np.float32)
+    got = ops.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)), causal=True)
+    assert got.dtype == KV[qdtype][1]
+    np.testing.assert_allclose(got.float().numpy(), pallas, **Q_TOL[qdtype])
+    empty = q.shape[2] - k.shape[2]
+    want = v.sum(axis=2) / (-(-k.shape[2] // 128) * 128)  # [B, Hkv, D]
+    want = np.repeat(want, q.shape[1] // k.shape[1], axis=1)[:, :, None]
+    np.testing.assert_allclose(got[:, :, :empty].float().numpy(),
+                               np.broadcast_to(want, got[:, :, :empty].shape),
+                               **Q_TOL[qdtype])
+    if case == "roadmap":
+        assert float(got[0, 0, 0, 0]) == 0.0625
+    plain = ref.flash_attention_ref(*(torch.from_numpy(x) for x in (q, k, v)), causal=True)
+    assert torch.equal(plain, got)
+
+
 def test_flash_attention_keeps_q_dtype():
     """Out in q's dtype, as the Pallas kernel's; bf16 K/V decoded to f32."""
     rng = np.random.default_rng(9)

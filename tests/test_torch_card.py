@@ -14,8 +14,11 @@ Synfire kernels at shapes beside the main paths': ``syn_matmul`` (B3)
 through ``ops.syn_matmul`` and the per-run ``ops.MatmulRun``,
 ``syn_gather`` (B2) through ``ops.syn_gather`` on long spike rows and
 bad indices and through the per-run ``ops.GatherRun`` on every compiled
-Synfire table (x100 included), and ``fused_tick`` (B4) on random nets of
-1 to 5,000 neurons, on one CTA and on many."""
+Synfire table (x100 included), ``fused_tick`` (B4) on random nets of
+1 to 5,000 neurons, on one CTA and on many, and on a CSR index of -1, and
+the per-run launchers of B1 (``ops.NeuronRun``) and B5
+(``ops.StdpGatherRun``) in whole runs against the per-op and per-call
+paths."""
 import math
 
 import numpy as np
@@ -480,6 +483,106 @@ def test_fused_tick_corrupt_index_is_nan(card, grid):
     ok[slot, qs] = False
     assert torch.equal(ring[ok], want[3][ok])
     assert torch.equal(v, want[0]) and torch.equal(rows[0], want[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [1, None], ids=["one-cta", "by-work"])
+def test_fused_tick_negative_index_wraps(card, grid):
+    """A CSR index of -1 reads the spike row's last entry, as the plain
+    version (the reference's ``jnp.take``) reads it: every output bit for
+    bit."""
+    payload, x, gen_rows = _fused_case(1025, torch.float32, True, seed=9, device=card)
+    dense, csr, buckets = list(payload.dense), list(payload.csr), []
+    for row in payload.desc.tolist():
+        if row[0] == 0:
+            buckets.append(("dense", *dense.pop(0)))
+            continue
+        c_qs, c_dly, c_idx, c_w = csr.pop(0)
+        if len(payload.csr) - len(csr) == 1:
+            c_idx = c_idx.clone()
+            c_idx[0, 0] = -1
+        buckets.append(("csr", row[1], row[3], c_qs, c_dly, c_idx, c_w))
+    wrapped = ftk.pack_payload(payload.delays, buckets, card)
+    consts = [x[k] for k in ("is_gen", "a", "b", "c", "d")]
+    v, u, ring = x["v"].clone(), x["u"].clone(), x["ring"].clone()
+    rows = gen_rows[:1].clone()
+    ops.FusedTickRun(wrapped, v, u, ring, *consts, rows, grid=grid).tick(0, 0)
+    want = ref.fused_tick_ref(x["v"], x["u"], x["ring"], gen_rows[0], *consts, 0,
+                              dense=wrapped.dense, csr=wrapped.csr, ring_len=ring.shape[0])
+    torch.cuda.synchronize()
+    assert not ring.isnan().any()
+    for name, g_, w_ in zip(("v", "u", "spikes", "ring"), (v, u, rows[0], ring), want):
+        assert torch.equal(g_, w_), name
+
+
+def _neuron_net(policy, device):
+    from repro_torch.configs.synfire4 import SYNFIRE4, build_synfire
+
+    return build_synfire(SYNFIRE4, policy=policy, propagation="sparse", device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["fp16", "fp32"])
+def test_neuron_run_matches_per_op_phase(card, policy):
+    """``run`` through the neuron-phase launcher (one ``izh4_update``
+    launch per tick) against the per-op phase on the card: the same
+    raster, v and i_syn records and final state, bit for bit, with an
+    external current; one launch per tick."""
+    from repro_torch.core import backend as be
+    from repro_torch.core.engine import run
+
+    net = _neuron_net(policy, card)
+    g = torch.Generator(device="cpu").manual_seed(4)
+    gu = torch.rand((200, net.static.n_gen), generator=g).to(card)
+    cur = (torch.rand((200, net.static.n), generator=g) * 4).to(card)
+    kw = dict(gen_u=gu, i_ext=cur, record_v=True, record_i=True)
+    ops.reset_launches()
+    final, out = run(net.static, net.params, net.state0, 200, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["izh4_update"] == 200
+    built = be.assemble_neurons
+    be.assemble_neurons = lambda *a, **k: None
+    try:
+        final_po, out_po = run(net.static, net.params, net.state0, 200, **kw)
+    finally:
+        be.assemble_neurons = built
+    for name in ("spikes", "v", "i_syn"):
+        assert torch.equal(out[name], out_po[name]), name
+    for a, b in ((final.ring, final_po.ring), *zip(final.neurons, final_po.neurons)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["fp16", "fp32"])
+def test_stdp_gather_run_matches_per_call_path(card, policy):
+    """Plastic Synfire4 sparse through the CSR STDP launcher (one
+    ``stdp_gather`` launch per tick for the four chain projections) against
+    the per-call path on the card: raster, weights and traces bit for
+    bit."""
+    from repro_torch.configs.synfire4 import CHAIN_STDP, SYNFIRE4, build_synfire
+    from repro_torch.core import backend as be
+    from repro_torch.core.engine import run
+
+    net = build_synfire(SYNFIRE4, policy=policy, propagation="sparse",
+                        stdp_chain=CHAIN_STDP, device=card)
+    gu = torch.rand((200, net.static.n_gen),
+                    generator=torch.Generator(device="cpu").manual_seed(6)).to(card)
+    ops.reset_launches()
+    final, out = run(net.static, net.params, net.state0, 200, gen_u=gu)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["stdp_gather"] == 200
+    built = be.assemble_stdp_gather
+    be.assemble_stdp_gather = lambda *a, **k: None
+    try:
+        final_pc, out_pc = run(net.static, net.params, net.state0, 200, gen_u=gu)
+    finally:
+        be.assemble_stdp_gather = built
+    assert torch.equal(out["spikes"], out_pc["spikes"])
+    for j, cfg in enumerate(net.static.stdp):
+        if cfg is not None:
+            assert torch.equal(final.weights[j], final_pc.weights[j])
+            for a, b in zip(final.stdp[j], final_pc.stdp[j]):
+                assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

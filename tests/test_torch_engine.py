@@ -457,3 +457,81 @@ def test_propagate_packed_through_gather_launcher_matches_per_call_path(
     assert torch.equal(out["spikes"], out_pc["spikes"])
     for a, b in ((final.ring, final_pc.ring), (final.neurons.v, final_pc.neurons.v)):
         assert torch.equal(a, b)
+
+
+def _without(builder):
+    """``backend.<builder>`` swapped for one that builds nothing, so the
+    run takes that phase's per-op or per-call path, the earlier one."""
+    from repro_torch.core import backend as be
+
+    class _Swap:
+        def __enter__(self):
+            self.saved = getattr(be, builder)
+            setattr(be, builder, lambda *a, **k: None)
+
+        def __exit__(self, *exc):
+            setattr(be, builder, self.saved)
+
+    return _Swap()
+
+
+@pytest.mark.parametrize("cfg_name,policy,propagation,n_steps", [
+    ("SYNFIRE4_MINI", "fp16", "packed", 120), ("SYNFIRE4_MINI", "fp32", "sparse", 120),
+    ("SYNFIRE4_MINI", "fp16", "sparse", 120), ("SYNFIRE4_MINI", "fp32", "packed", 120),
+    ("SYNFIRE4", "fp16", "sparse", 150), ("SYNFIRE4", "fp32", "packed", 150)])
+def test_run_through_neuron_launcher_matches_per_op_path(cfg_name, policy, propagation,
+                                                         n_steps):
+    """``run`` through the run's neuron-phase launcher
+    (``backend.assemble_neurons``, ``ops.NeuronRun``) gives the per-op
+    path's raster, v and i_syn records and final v, u, refrac and ring bit
+    for bit, with an external current; the input state is left as it
+    was."""
+    net = tsyn.build_synfire(getattr(tsyn, cfg_name), policy=policy,
+                             propagation=propagation, device="cpu")
+    static, params, state = net.static, net.params, net.state0
+    rng_np = np.random.default_rng(n_steps)
+    gu = torch.from_numpy(rng_np.random((n_steps, static.n_gen)).astype(np.float32))
+    cur = torch.from_numpy(rng_np.uniform(0, 4, (n_steps, static.n)).astype(np.float32))
+    saved = [x.clone() for x in (*state.neurons, state.ring)]
+    kw = dict(gen_u=gu, i_ext=cur, record_v=True, record_i=True)
+    final, out = run(static, params, state, n_steps, **kw)
+    with _without("assemble_neurons"):
+        final_po, out_po = run(static, params, state, n_steps, **kw)
+    assert int(out["spikes"].sum()) > 0
+    for name in ("spikes", "v", "i_syn"):
+        assert torch.equal(out[name], out_po[name]), name
+    for a, b in ((final.ring, final_po.ring), *zip(final.neurons, final_po.neurons)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert all(torch.equal(a, b) for a, b in zip((*state.neurons, state.ring), saved))
+
+
+@pytest.mark.parametrize("policy", ["fp16", "fp32"])
+def test_external_current_run_matches_reference(policy):
+    """Synfire4-mini with an external current, through the neuron-phase
+    launcher (its plain run on the CPU), against the reference with the
+    same current: over 150 ticks the raster and the i_syn record bit for
+    bit against its jitted ``run``; over 40 ticks the raster and the v and
+    i_syn records bit for bit against it evaluated op by op (the jitted
+    reference contracts the IZH4 mul+adds into FMAs: its v record then
+    parts from both by an ulp here and there, ROADMAP queue C)."""
+    from repro.core.engine import _run_impl
+
+    rnet = rsyn.build_synfire(rsyn.SYNFIRE4_MINI, policy=policy, monitors=None)
+    tnet = tsyn.build_synfire(tsyn.SYNFIRE4_MINI, policy=policy, device="cpu")
+    cur = np.random.default_rng(5).uniform(0, 4, (150, rnet.static.n)).astype(np.float32)
+    kw = dict(record_v=True, record_i=True)
+    _, rout = ref_run(rnet.static, rnet.params, rnet.state0, 150, i_ext=jnp.asarray(cur), **kw)
+    gu = torch.from_numpy(ref_uniforms(rnet, 150).copy())
+    _, tout = run(tnet.static, tnet.params, tnet.state0, 150, gen_u=gu,
+                  i_ext=torch.from_numpy(cur), **kw)
+    assert_same_raster(np.asarray(rout["spikes"]), tout["spikes"].numpy())
+    np.testing.assert_array_equal(tout["i_syn"].numpy(), np.asarray(rout["i_syn"]))
+    with jax.disable_jit():
+        _, eout = _run_impl(rnet.static, rnet.params, rnet.state0, 40,
+                            i_ext=jnp.asarray(cur[:40]), **kw)
+    _, tout = run(tnet.static, tnet.params, tnet.state0, 40,
+                  gen_u=torch.from_numpy(ref_uniforms(rnet, 40).copy()),
+                  i_ext=torch.from_numpy(cur[:40]), **kw)
+    for name in ("spikes", "v", "i_syn"):
+        np.testing.assert_array_equal(tout[name].numpy(), np.asarray(eout[name]),
+                                      err_msg=name)

@@ -255,6 +255,25 @@ def test_fused_tick_ref_matches_reference(dtype, exact):
                 np.testing.assert_array_equal(t_.numpy(), r_, err_msg=f"tick {t} {name}")
 
 
+@pytest.mark.parametrize("bad", [-1, -N, -(N + 1), N], ids=["m1", "mN", "below", "N"])
+def test_fused_tick_ref_csr_index_outside_row_matches_reference(bad):
+    """A CSR index outside [0, N) in the plain version, as in the
+    reference's ``fused_tick_ref`` (``jnp.take``): one in [-N, -1] counts
+    from the end of the spike row, any other makes its row's drive NaN.
+    Twelve chained ticks, every output bit for bit (NaN at the same
+    places)."""
+    case = _tick_case(seed=5, dtype=np.float16, exact=True)
+    qs, dly, idx, w = case["csr"][0]
+    idx = idx.copy()
+    idx[1, 0] = bad
+    case["csr"] = [(qs, dly, idx, w)]
+    port = _port_ticks(case)
+    for t, (out_t, out_r) in enumerate(zip(port, _ref_ticks(case, eager=False))):
+        for name, t_, r_ in zip(OUT_NAMES, out_t, out_r):
+            np.testing.assert_array_equal(t_.numpy(), r_, err_msg=f"tick {t} {name}")
+    assert bool(port[0][3].isnan().any()) == (bad in (-(N + 1), N))
+
+
 # -- whole runs ---------------------------------------------------------------
 
 _RUNS: dict = {}

@@ -5,6 +5,7 @@ Pallas kernels in interpret mode with the tolerances of
 reduce nothing). Inputs are made with numpy from a seed and handed to both
 packages."""
 import functools
+import math
 
 import jax  # noqa: E402
 import numpy as np
@@ -525,14 +526,36 @@ class TestSTDPGather:
         assert np.all(out[~args[2]] == 0.0)
         assert np.all(out[args[2]] > args[0][args[2]].astype(np.float32))
 
+    @staticmethod
+    def _bad_case(bad, idx_dtype, valid):
+        rng = np.random.default_rng(8)
+        idx = np.array([[1, -1, 3], [2, bad, 0]], np.int16 if idx_dtype == torch.int16
+                       else np.int32)
+        w = np.array([[1.0, 1.06, 0.5], [1.0, 2.0, 1.0]], np.float32)
+        return [w, idx, np.asarray(valid), *_stdp_vectors(rng, 8, 2)]
+
     @pytest.mark.parametrize("bad", [-1, 8])
     @pytest.mark.parametrize("idx_dtype", [torch.int16, torch.int32])
-    def test_index_outside_pre_raises_on_cpu(self, bad, idx_dtype):
-        idx = torch.tensor([[1, 3, 0], [2, bad, 0]], dtype=idx_dtype)
-        valid = torch.ones((2, 3), dtype=torch.bool)
-        with pytest.raises(IndexError, match=r"outside \[0, 8\)"):
-            ops.stdp_gather(torch.ones((2, 3)), idx, valid, torch.ones(8), torch.ones(2),
-                            torch.ones(8), torch.ones(2), **STDP_KW)
+    def test_index_outside_pre_follows_reference(self, bad, idx_dtype):
+        """The wrapper's contract on an index outside [0, P), on the CPU: the
+        reference's ``jnp.take`` (``ref.stdp_gather_ref``) on the same table,
+        -1 counting from the end of the pre row and 8 giving NaN."""
+        args = self._bad_case(bad, idx_dtype, np.ones((2, 3), bool))
+        out = ops.stdp_gather(*map(torch.from_numpy, args), **STDP_KW)
+        want = np.asarray(jref.stdp_gather_ref(*map(jnp.asarray, args), **STDP_KW))
+        np.testing.assert_array_equal(out.numpy(), want)
+        assert np.isnan(want[1, 1]) == (bad == 8) and not np.isnan(want[0]).any()
+
+    @pytest.mark.parametrize("idx_dtype", [torch.int16, torch.int32])
+    def test_invalid_cell_outside_pre_is_zero(self, idx_dtype):
+        """A cell whose index lies outside [-P, P) but whose ``valid`` is
+        false stays +0.0, as in the reference."""
+        args = self._bad_case(-9, idx_dtype, [[True, True, True], [True, False, True]])
+        out = ops.stdp_gather(*map(torch.from_numpy, args), **STDP_KW)
+        want = np.asarray(jref.stdp_gather_ref(*map(jnp.asarray, args), **STDP_KW))
+        np.testing.assert_array_equal(out.numpy(), want)
+        assert out[1, 1].item() == 0.0 and not torch.signbit(out[1, 1])
+        assert not out.isnan().any()
 
     def test_rejects_bad_operands(self):
         w = torch.ones((2, 3))
@@ -545,6 +568,163 @@ class TestSTDPGather:
             ops.stdp_gather(w, idx.long(), valid, pre, post, pre, post, **STDP_KW)
         with pytest.raises(ValueError, match="post_trace"):
             ops.stdp_gather(w, idx, valid, pre, pre, pre, post, **STDP_KW)
+
+
+class TestStdpGatherRun:
+    """The per-run CSR STDP launcher (``ops.StdpGatherRun``) on the CPU, its
+    plain run (``ref.stdp_gather_run_ref``), against the per-call path it
+    replaces: each projection's two trace steps
+    (``core/plasticity._trace_step``) and one ``ops.stdp_gather`` per
+    tick."""
+
+    TAU = (20.0, 15.0)  # tau+ (pre traces), tau- (post traces), dt = 1 ms
+
+    def _projs(self, rng, wdtype, idx_dtype):
+        from repro_torch.kernels.stdp_gather import Projection
+
+        out = []
+        for p, q, f, ps, qs in ((40, 25, 9, 0, 60), (70, 12, 31, 30, 0)):
+            idx = rng.integers(0, p, (q, f)).astype(idx_dtype)
+            valid = rng.random((q, f)) < 0.8
+            w = np.where(valid, rng.uniform(0, 4, (q, f)), 0).astype(DTYPES[wdtype][0])
+            pre, post = (torch.from_numpy(rng.random(x).astype(np.float32) * 2)
+                         for x in (p, q))
+            out.append(Projection(
+                w=torch.from_numpy(w), idx=torch.from_numpy(idx),
+                valid=torch.from_numpy(valid), pre_tr=(pre, torch.empty_like(pre)),
+                post_tr=(post, torch.empty_like(post)), pre_start=ps, post_start=qs,
+                **STDP_KW, decay_pre=math.exp(-1.0 / self.TAU[0]),
+                decay_post=math.exp(-1.0 / self.TAU[1])))
+        return out
+
+    @pytest.mark.parametrize("wdtype", ["fp16", "fp32"])
+    @pytest.mark.parametrize("idx_dtype", ["int16", "int32"])
+    def test_matches_per_call_path(self, wdtype, idx_dtype):
+        """Two projections of different P, Q and F in one run: weights and
+        both traces after every tick equal the per-call path's bit for
+        bit, and no launch is counted on the CPU."""
+        from repro_torch.core.plasticity import _trace_step
+
+        rng = np.random.default_rng(11)
+        projs = self._projs(rng, wdtype, idx_dtype)
+        w0 = [p.w.clone() for p in projs]
+        w_pc = [p.w.clone() for p in projs]
+        tr_pc = [(p.pre_tr[0].clone(), p.post_tr[0].clone()) for p in projs]
+        ops.reset_launches()
+        run = ops.StdpGatherRun(100, projs, keys=(3, 7))
+        assert run.keys == (3, 7) and run.launcher is None
+        for _ in range(8):
+            spikes = torch.from_numpy((rng.random(100) < 0.3).astype(np.float32))
+            run(spikes)
+            for k, p in enumerate(projs):
+                pre_sp = spikes[p.pre_start:p.pre_start + p.pre_tr[0].shape[0]]
+                post_sp = spikes[p.post_start:p.post_start + p.w.shape[0]]
+                tr_pc[k] = (_trace_step(tr_pc[k][0], pre_sp, self.TAU[0], 1.0),
+                            _trace_step(tr_pc[k][1], post_sp, self.TAU[1], 1.0))
+                w_pc[k] = ops.stdp_gather(w_pc[k], p.idx, p.valid, *tr_pc[k], pre_sp,
+                                          post_sp, **STDP_KW)
+                assert torch.equal(p.w, w_pc[k])
+                for got, want in zip(run.traces(k), tr_pc[k]):
+                    assert torch.equal(got, want)
+        assert ops.LAUNCHES["stdp_gather"] == 0
+        assert all(not torch.equal(p.w, w) for p, w in zip(projs, w0))
+
+    def test_adopt_loads_new_tensors_in_place(self):
+        rng = np.random.default_rng(2)
+        projs = self._projs(rng, "fp16", "int16")
+        run = ops.StdpGatherRun(100, projs, keys=(1, 2))
+        buffers = [p.w for p in projs]
+        new = torch.full_like(projs[1].w, 0.5)
+        out = run.adopt((None, projs[0].w, new))
+        assert out[1] is buffers[0] and out[2] is buffers[1] and out[0] is None
+        assert torch.equal(buffers[1], new) and buffers[1].data_ptr() != new.data_ptr()
+
+    def test_rejects_bad_projections(self):
+        rng = np.random.default_rng(3)
+        projs = self._projs(rng, "fp32", "int16")
+        with pytest.raises(ValueError, match="spike row"):
+            ops.StdpGatherRun(80, projs)
+        with pytest.raises(ValueError, match="one \\[Q, F\\] shape"):
+            ops.StdpGatherRun(100, [projs[0]._replace(idx=projs[0].idx[:, :3])])
+        with pytest.raises(ValueError, match="float32"):
+            ops.StdpGatherRun(100, [projs[0]._replace(pre_tr=(projs[0].pre_tr[0].half(),
+                                                                projs[0].pre_tr[1]))])
+
+
+class TestNeuronRun:
+    """The per-run neuron-phase launcher (``ops.NeuronRun``) on the CPU,
+    its plain run (``ref.neuron_run_ref``), against the per-op phase it
+    replaces (``engine._neuron_phase``: the ring slot read and zero, the
+    external current, ``ops.izh4_update``, the generator and refractory
+    masks, the generator hold, the refractory countdown and the generator
+    merge; then the run's raster, record and count writes), bit for bit,
+    tick by tick, from a random state with refractory neurons."""
+
+    @pytest.mark.parametrize("i_ext,records", [(False, False), (True, True), (False, True)])
+    @pytest.mark.parametrize("policy", ["fp16", "fp32"])
+    def test_matches_per_op_phase(self, policy, i_ext, records):
+        from repro_torch.configs import synfire4 as tsyn
+        from repro_torch.core import backend as be
+        from repro_torch.core import engine
+        from repro_torch.core.neurons import NeuronState
+
+        net = tsyn.build_synfire(tsyn.SYNFIRE4_MINI, policy=policy, device="cpu")
+        static, params = net.static, net.params
+        n, ticks, f32 = static.n, 15, torch.float32
+        dtype = net.state0.neurons.v.dtype
+        rng = np.random.default_rng(2 * i_ext + records)
+        neurons = NeuronState(
+            v=torch.from_numpy(rng.uniform(-80, 35, n).astype(np.float32)).to(dtype),
+            u=torch.from_numpy(rng.uniform(-15, -5, n).astype(np.float32)).to(dtype),
+            refrac=torch.from_numpy(rng.integers(0, 3, n).astype(np.int16)))
+        saved = [x.clone() for x in neurons]
+        ring = torch.from_numpy(rng.uniform(0, 12, tuple(net.state0.ring.shape))
+                                .astype(np.float32)).to(dtype)
+        gen_spk = torch.from_numpy(rng.random((ticks, static.n_gen)) < 0.3)
+        cur = (torch.from_numpy(rng.uniform(0, 8, (ticks, n)).astype(np.float32))
+               if i_ext else None)
+        rows = ({"raster": torch.zeros((ticks, n), dtype=torch.bool),
+                 "v_rows": torch.zeros((ticks, n)), "i_rows": torch.zeros((ticks, n)),
+                 "counts": torch.zeros(n, dtype=torch.int32)} if records else {})
+        run_ring = ring.clone()
+        run = be.assemble_neurons(static, params, neurons, run_ring, gen_spk=gen_spk,
+                                  i_ext=cur, **rows)
+        assert run.launcher is None
+        state, counts, spiked = neurons, torch.zeros(n, dtype=torch.int32), 0
+        for i in range(ticks):
+            t = 30 + i
+            run(i, t)
+            state, spikes, i_syn = engine._neuron_phase(
+                static, params, state, ring, t, gen_spk[i], None if cur is None else cur[i])
+            for got, want in ((run.v, state.v), (run.u, state.u), (run.refrac, state.refrac),
+                              (run_ring, ring), (run.spikes, spikes.to(f32))):
+                assert got.dtype == want.dtype and torch.equal(got, want), f"tick {t}"
+            counts += spikes
+            spiked += int(spikes[static.n_gen:].sum())
+            if records:
+                assert torch.equal(rows["raster"][i], spikes)
+                assert torch.equal(rows["v_rows"][i], state.v.to(f32))
+                assert torch.equal(rows["i_rows"][i], i_syn)
+        if records:
+            assert torch.equal(rows["counts"], counts)
+        assert spiked > 0
+        assert all(torch.equal(a, b) for a, b in zip(neurons, saved))
+
+    def test_rejects_bad_operands(self):
+        from repro_torch.configs import synfire4 as tsyn
+        from repro_torch.core import backend as be
+
+        net = tsyn.build_synfire(tsyn.SYNFIRE4_MINI, policy="fp16", device="cpu")
+        static, params, st = net.static, net.params, net.state0
+        with pytest.raises(ValueError, match="int16"):
+            be.assemble_neurons(static, params, st.neurons._replace(
+                refrac=st.neurons.refrac.int()), st.ring)
+        with pytest.raises(ValueError, match=r"\[L, N, 1\]"):
+            be.assemble_neurons(static, params, st.neurons, st.ring[:, :10])
+        with pytest.raises(ValueError, match="one T"):
+            be.assemble_neurons(static, params, st.neurons, st.ring,
+                                gen_spk=torch.zeros((4, static.n_gen), dtype=torch.bool),
+                                raster=torch.zeros((5, static.n), dtype=torch.bool))
 
 
 class TestWrappers:

@@ -461,3 +461,49 @@ def test_convert_rejects_missing_plastic_state():
     params["proj_csr_idx.2"] = params["proj_csr_idx.2"].astype(np.int32)
     with pytest.raises(ValueError, match="proj_csr_idx.2"):
         params_from_numpy(tnet.static, params, "cpu")
+
+
+@pytest.mark.parametrize("cfg_name,policy,homeo", [
+    ("SYNFIRE4_MINI", "fp16", False), ("SYNFIRE4_MINI", "fp32", True),
+    ("SYNFIRE4", "fp16", True), ("SYNFIRE4", "fp32", False)])
+def test_stdp_launcher_matches_per_call_path(cfg_name, policy, homeo):
+    """Plastic sparse Synfire through the run's CSR STDP launcher
+    (``backend.assemble_stdp_gather``, ``ops.StdpGatherRun``: every chain
+    projection in one call a tick, traces stepped inside) and through the
+    per-call path (``stdp_dispatch`` per projection), with homeostasis
+    every 100 ticks where asked: raster, final weights, traces, running
+    rates, v, u and ring bit for bit; the input state is left as it was;
+    the final state carries the launcher's weights and current traces."""
+    from repro_torch.core import backend as be
+
+    kw = dict(homeo_chain=tpl.HomeostasisConfig(target_hz=10.0, tau_avg_ms=1000.0, beta=2.0),
+              homeostasis_period=100) if homeo else {}
+    net = tsyn.build_synfire(getattr(tsyn, cfg_name), policy=policy, propagation="sparse",
+                             stdp_chain=tsyn.CHAIN_STDP, device="cpu", **kw)
+    static, params, state = net.static, net.params, net.state0
+    chain = plastic_ids(static)
+    built = be.assemble_stdp_gather(static, params, state.weights, state.stdp)
+    assert built.keys == tuple(chain) and len(chain) == 4
+    saved = [x.clone() for j in chain for x in (state.weights[j], *state.stdp[j])]
+    gu = torch.from_numpy(np.random.default_rng(1).random((200, static.n_gen))
+                          .astype(np.float32))
+    final, out = run(static, params, state, 200, gen_u=gu)
+    swapped = be.assemble_stdp_gather
+    be.assemble_stdp_gather = lambda *a, **k: None
+    try:
+        final_pc, out_pc = run(static, params, state, 200, gen_u=gu)
+    finally:
+        be.assemble_stdp_gather = swapped
+    assert torch.equal(out["spikes"], out_pc["spikes"])
+    for j in chain:
+        assert torch.equal(final.weights[j], final_pc.weights[j])
+        for a, b in zip(final.stdp[j], final_pc.stdp[j]):
+            assert torch.equal(a, b)
+        if homeo:
+            assert torch.equal(final.homeo[j], final_pc.homeo[j])
+    for a, b in ((final.ring, final_pc.ring), *zip(final.neurons, final_pc.neurons)):
+        assert torch.equal(a, b)
+    moved = [not torch.equal(final.weights[j], state.weights[j]) for j in chain]
+    assert any(moved)
+    now = [x for j in chain for x in (state.weights[j], *state.stdp[j])]
+    assert all(torch.equal(a, b) for a, b in zip(now, saved))
