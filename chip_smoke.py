@@ -35,10 +35,15 @@ Phases (each raises, and the script exits non-zero, on any failure):
    plastic chain's shapes (Synfire4 packed [200, 200] and an odd shape;
    the compiled Synfire4 and x10 fan-in tables with int16 and int32
    indices), ``stdp_gather`` on the reference's bad indices, and the
-   engine's per-run launcher ``ops.StdpGatherRun`` (one launch per tick
+   engine's per-run launchers ``ops.StdpGatherRun`` (one launch per tick
    over every CSR pair-STDP projection, trace steps folded in) against
    the per-call path on plastic Synfire4 and x10 fp16/fp32 and on two
-   projections with bad indices.
+   projections with bad indices, and ``ops.StdpUpdateRun`` (the same for
+   every dense-stored one, weights on zero-ended buffers) against its
+   plain version tick by tick on the plastic Synfire4 packed chain
+   fp16/fp32 and on a plan mixing [37, 113] f32 with [200, 200] fp16;
+   a NaN weight through ``stdp_update`` and ``StdpUpdateRun`` (NaN inside
+   the mask, +0.0 outside, as the plain version).
 3. Run Synfire4 for 1,000 ticks on the card in fp16/fp32 x packed/sparse
    through ``build_synfire`` and ``run``, on the default backend and on
    ``backend="fused"``, with the launch counters reset just before each
@@ -61,9 +66,9 @@ Phases (each raises, and the script exits non-zero, on any failure):
 5. Plastic Synfire4 (``CHAIN_STDP`` on the exc->exc chain) for 1,000
    ticks in fp16/fp32 x packed/sparse: card raster and final plastic
    weights equal the CPU port's, packed and sparse weights equal at the
-   twin cells, each tick launches ``stdp_update`` (packed) once per chain
-   projection or ``stdp_gather`` (sparse) once; the same with
-   homeostasis every 100 ticks (fp16 sparse); plastic Synfire4x10 fp16
+   twin cells, each tick launches ``stdp_update`` (packed) or
+   ``stdp_gather`` (sparse) once for the four chain projections; the same
+   with homeostasis every 100 ticks (fp16 sparse and packed); plastic Synfire4x10 fp16
    sparse inside the 8.477 MB ledger (card equals CPU); and plastic nets
    on ``backend="fused"``, which launch no ``fused_tick`` and give the
    default backend's raster and weights.
@@ -92,8 +97,11 @@ Phases (each raises, and the script exits non-zero, on any failure):
    default tick's through the per-run ``syn_gather`` launcher, each
    against its per-call path, in turns; and, in turns with the same raster
    (and weights), the static fp16 sparse and packed ticks with and without
-   ``ops.NeuronRun`` and the plastic fp16 sparse tick with and without
-   ``ops.StdpGatherRun``: host us/tick and device events per tick.
+   ``ops.NeuronRun``, the plastic fp16 sparse tick with and without
+   ``ops.StdpGatherRun``, the plastic fp16 packed tick with and without
+   ``ops.StdpUpdateRun``, and with the launcher, the fan-in drive on its
+   zero-ended buffers against a copy with the zero appended each tick:
+   host us/tick and device events per tick.
 
 The last lines are a JSON object of per-kernel numbers, a JSON object of
 per-path numbers, the card's name and power limit from nvidia-smi, and
@@ -934,9 +942,12 @@ def _require_bitwise(got, want, what):
 
 def _check_stdp(dev, g) -> list[dict]:
     """stdp_update and stdp_gather against their plain versions on the card,
-    bit for bit (both pin their rounding and reduce nothing), and their rows
-    timed at the plastic chain's shapes: Synfire4 packed [200, 200] fp16,
-    and Synfire4 sparse's first chain table (int16, fp16)."""
+    bit for bit (both pin their rounding and reduce nothing), single calls
+    and per-run launchers, and their rows timed at the plastic chain's
+    shapes: a plastic Synfire4 packed and sparse fp16 tick's four chain
+    projections through the launchers, and one [200, 200] fp16 block and
+    Synfire4 sparse's first chain table (int16, fp16) through the single
+    calls (``ops_*``)."""
     from repro_torch.configs.synfire4 import CHAIN_STDP, SYNFIRE4, SYNFIRE4_X10, build_synfire
     from repro_torch.kernels import ops, ref
 
@@ -996,17 +1007,25 @@ def _check_stdp(dev, g) -> list[dict]:
     rows = []
     args = timed["update"]
     p, q = args[0].shape
-    b_ms, b_by = bound(nbytes(*args) + nbytes(args[0]), 7 * p * q)
+    single = {"ops_shape": f"Synfire4 packed chain block [{p},{q}] fp16",
+              "ops_ms": cuda_ms(lambda: ops.stdp_update(*args, **STDP_KW)),
+              "ops_device_ms": device_ms(lambda: ops.stdp_update(*args, **STDP_KW),
+                                         "stdp_update_kernel"),
+              "ops_plain_ms": cuda_ms(lambda: ref.stdp_update_ref(*args, **STDP_KW))}
+    for policy in ("fp16", "fp32"):
+        net = build_synfire(SYNFIRE4, policy=policy, propagation="packed",
+                            stdp_chain=CHAIN_STDP, monitor_ms_hint=0, device=dev)
+        _hold_stdp_update_run(net, g, dev, f"{SYNFIRE4.name} {policy}")
+    _stdp_update_mixed_plan(g, dev)
+    nan = _stdp_update_nan_weight(g, dev)
+    net = build_synfire(SYNFIRE4, policy="fp16", propagation="packed", stdp_chain=CHAIN_STDP,
+                        device=dev)
     rows.append({
         "name": "stdp_update", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/stdp_update.cu",
-        "replaces": "src/repro/kernels/stdp_update.py:33",
-        "shape": f"Synfire4 packed chain block [{p},{q}] fp16", "max_abs_err": 0.0,
-        "ms": cuda_ms(lambda: ops.stdp_update(*args, **STDP_KW)),
-        "device_ms": device_ms(lambda: ops.stdp_update(*args, **STDP_KW),
-                               "stdp_update_kernel"),
-        "plain_ms": cuda_ms(lambda: ref.stdp_update_ref(*args, **STDP_KW)),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        "replaces": "src/repro/kernels/stdp_update.py:33", "max_abs_err": 0.0,
+        **_stdp_update_run_row(net, g, dev), **single, "nan_weight": nan,
+        "library_ms": None})
     args = timed["gather"]
     q, f = args[0].shape
     single = {"ops_shape": f"Synfire4 sparse chain table: P={args[3].shape[0]} Q={q} F={f} "
@@ -1032,7 +1051,7 @@ def _check_stdp(dev, g) -> list[dict]:
     return rows
 
 
-STDP_TICKS = 10  # chained ticks per StdpGatherRun case
+STDP_TICKS = 10  # chained ticks per StdpGatherRun and StdpUpdateRun case
 
 
 def _plastic_tables(net, g, dev):
@@ -1176,6 +1195,170 @@ def _stdp_run_row(net, g, dev) -> dict:
                      "int16/fp16), one launch",
             "ms": cuda_ms(lambda: run(spikes)),
             "device_ms": device_ms(lambda: run(spikes), "stdp_run_kernel"),
+            "plain_ms": cuda_ms(plain, reps=50, warmup=5), "bound_ms": b_ms,
+            "bound_by": b_by, "bound_bytes": moved}
+
+
+def _dense_plain_copy(projs):
+    """Copies of ``DenseProjection`` s (weights and both trace buffers,
+    without the zero-ended buffer) for the plain run."""
+    return [p._replace(w=p.w.clone(), pre_tr=tuple(t.clone() for t in p.pre_tr),
+                       post_tr=tuple(t.clone() for t in p.post_tr), padded=None)
+            for p in projs]
+
+
+def _require_same_dense(card, plain, what):
+    for k, (a, b) in enumerate(zip(card, plain)):
+        for name, x, y in (("weights", a.w, b.w), ("pre trace 0", a.pre_tr[0], b.pre_tr[0]),
+                           ("pre trace 1", a.pre_tr[1], b.pre_tr[1]),
+                           ("post trace 0", a.post_tr[0], b.post_tr[0]),
+                           ("post trace 1", a.post_tr[1], b.post_tr[1])):
+            _require_bitwise(x, y, f"{what} projection {k} {name}")
+
+
+def _hold_stdp_update_run(net, g, dev, what: str) -> None:
+    """``ops.StdpUpdateRun`` (every dense pair-STDP projection of a tick in
+    one launch, trace steps folded in, weights in place on zero-ended
+    buffers) against its plain version (``ref.stdp_update_run_ref``) on the
+    card, from random weights and traces over STDP_TICKS random spike rows:
+    weights and both trace buffers bit for bit after every tick, one launch
+    per tick, each buffer's last entry +0.0, the caller's tensors left as
+    they were."""
+    from repro_torch.core import backend as be
+    from repro_torch.kernels import ops, ref
+
+    static, params = net.static, net.params
+    weights, stdp = _plastic_tables(net, g, dev)
+    saved = [w.clone() for w in weights]
+    run = be.assemble_stdp_update(static, params, weights, stdp)
+    require(run is not None and run.launcher is not None
+            and run.keys == tuple(j for j in _chain(net) if j not in static.csr_projs)
+            and sorted(run.padded) == list(run.keys),
+            f"StdpUpdateRun {what}: keys {None if run is None else run.keys}")
+    plain = _dense_plain_copy(run.projs)
+    launched = 0
+    for t in range(STDP_TICKS):
+        spikes = (torch.rand(static.n, generator=g) < 0.3).float().to(dev)
+        ops.reset_launches()
+        run(spikes)
+        launched += ops.LAUNCHES["stdp_update"]
+        ref.stdp_update_run_ref(spikes, plain, t % 2)
+        torch.cuda.synchronize()
+        _require_same_dense(run.projs, plain, f"StdpUpdateRun {what} tick {t}")
+    require(all(float(b[-1]) == 0.0 for b in run.padded.values()),
+            f"StdpUpdateRun {what}: a zero-ended buffer lost its zero")
+    require(launched == STDP_TICKS,
+            f"StdpUpdateRun {what}: {launched} launches in {STDP_TICKS} ticks")
+    require(all(torch.equal(a, b) for a, b in zip(weights, saved)),
+            f"StdpUpdateRun {what}: the caller's weights changed")
+    log(f"[kernels] StdpUpdateRun {what}: {len(run.keys)} projections "
+        f"(P x Q {sorted({tuple(p.w.shape) for p in run.projs})}) in one launch a tick, "
+        f"{STDP_TICKS} ticks bitwise against its plain version (weights, both trace buffers)")
+
+
+def _dense_projs(dev, seed: int, plan):
+    """``DenseProjection`` s from ``plan`` ((P, Q, dtype, pre_start,
+    post_start) each): random weights in [0, 4) on a 40 % mask, traces in
+    [0, 2)."""
+    from repro_torch.kernels.stdp_update import DenseProjection
+
+    g2 = torch.Generator(device="cpu").manual_seed(seed)
+    out = []
+    for p_, q_, dtype, ps, qs in plan:
+        mask = torch.rand((p_, q_), generator=g2) < 0.4
+        w = torch.where(mask, torch.rand((p_, q_), generator=g2) * 4, 0.0).to(dtype)
+        pre, post = (torch.rand(x, generator=g2).mul(2).to(dev) for x in (p_, q_))
+        out.append(DenseProjection(
+            w=w.to(dev), mask=mask.to(dev), pre_tr=(pre, torch.empty_like(pre)),
+            post_tr=(post, torch.empty_like(post)), pre_start=ps, post_start=qs,
+            **STDP_KW, decay_pre=0.951229424500714, decay_post=0.9355069850316178))
+    return out
+
+
+def _stdp_update_mixed_plan(g, dev) -> None:
+    """One StdpUpdateRun over two projections of different P, Q and storage
+    ([37, 113] f32 and [200, 200] fp16) against its plain version on the
+    card over STDP_TICKS ticks, bit for bit."""
+    from repro_torch.kernels import ops, ref
+
+    plan = ((37, 113, torch.float32, 0, 40), (200, 200, torch.float16, 153, 400))
+    card = _dense_projs(dev, 21, plan)
+    plain = _dense_plain_copy(card)
+    run = ops.StdpUpdateRun(600, card)
+    require(run.launcher is not None, "StdpUpdateRun mixed plan: no launcher")
+    for t in range(STDP_TICKS):
+        spikes = (torch.rand(600, generator=g) < 0.3).float().to(dev)
+        run(spikes)
+        ref.stdp_update_run_ref(spikes, plain, t % 2)
+        torch.cuda.synchronize()
+        _require_same_dense(card, plain, f"StdpUpdateRun mixed plan tick {t}")
+    log(f"[kernels] StdpUpdateRun mixed plan ([37, 113] f32 + [200, 200] fp16, "
+        f"{run.launcher.items} CTAs): {STDP_TICKS} ticks bitwise against its plain version")
+
+
+def _stdp_update_nan_weight(g, dev) -> str:
+    """A NaN weight in a masked-in cell and one in a masked-out cell,
+    through ``ops.stdp_update`` and ``ops.StdpUpdateRun`` on the card in
+    fp16 and f32: NaN in the first, +0.0 in the second, as in the plain
+    version (``torch.clamp``, the reference's ``jnp.clip``); every other
+    cell equal to the plain version."""
+    from repro_torch.kernels import ops, ref
+
+    def check(got, want, what):
+        for name, x in (("card", got), ("plain", want)):
+            require(bool(x[3, 5].isnan()) and int(x.isnan().sum()) == 1,
+                    f"{what}: {name} NaN cells {x.isnan().nonzero().tolist()}, want [[3, 5]]")
+            require(float(x[20, 100]) == 0.0 and not bool(torch.signbit(x[20, 100])),
+                    f"{what}: {name} masked-out NaN cell gave {float(x[20, 100])}")
+        ok = ~want.isnan()
+        require(torch.equal(got[ok], want[ok]), f"{what}: other cells differ")
+
+    for dtype in (torch.float16, torch.float32):
+        card = _dense_projs(dev, 22, ((37, 113, dtype, 0, 37),))
+        p = card[0]
+        p.w[3, 5] = p.w[20, 100] = float("nan")
+        p.mask[3, 5], p.mask[20, 100] = True, False
+        plain = _dense_plain_copy(card)
+        spikes = (torch.rand(150, generator=g) < 0.5).float().to(dev)
+        args = [p.w, p.mask, p.pre_tr[0], p.post_tr[0], spikes[:37], spikes[37:]]
+        check(ops.stdp_update(*args, **STDP_KW), ref.stdp_update_ref(*args, **STDP_KW),
+              f"stdp_update NaN weight {dtype}")
+        ops.StdpUpdateRun(150, card)(spikes)
+        ref.stdp_update_run_ref(spikes, plain, 0)
+        torch.cuda.synchronize()
+        check(card[0].w, plain[0].w, f"StdpUpdateRun NaN weight {dtype}")
+    log("[kernels] stdp_update: a NaN weight stays NaN in a masked-in cell and is +0.0 in "
+        "a masked-out one (single call and StdpUpdateRun, fp16 and f32), as the plain "
+        "version and the reference's jnp.clip")
+    return "NaN kept in a masked-in cell, +0.0 in a masked-out one (fp16, f32; single call, run)"
+
+
+def _stdp_update_run_row(net, g, dev) -> dict:
+    """StdpUpdateRun's numbers on the plastic Synfire4 packed chain (four
+    [200, 200] projections in one launch): per call (the ctypes call
+    included) and alone on the device, its plain version on the card, and
+    the bound: each projection's weights read and written, its mask, its
+    traces read and written and its pre and post spikes read once, 7
+    operations per cell and 2 per trace."""
+    from repro_torch.core import backend as be
+    from repro_torch.kernels import ref
+
+    weights, stdp = _plastic_tables(net, g, dev)
+    run = be.assemble_stdp_update(net.static, net.params, weights, stdp)
+    spikes = (torch.rand(net.static.n, generator=g) < 0.3).float().to(dev)
+    moved = ops_ = 0
+    for p in run.projs:
+        p_, q_ = p.w.shape
+        n_tr = p_ + q_
+        moved += 2 * nbytes(p.w) + nbytes(p.mask) + 3 * 4 * n_tr
+        ops_ += 7 * p_ * q_ + 2 * n_tr
+    b_ms, b_by = bound(moved, ops_)
+    plain = lambda: ref.stdp_update_run_ref(spikes, run.projs, 0)  # noqa: E731
+    return {"shape": f"plastic Synfire4 packed fp16 tick: {len(run.projs)} chain "
+                     f"projections (P x Q {sorted({tuple(p.w.shape) for p in run.projs})}, "
+                     f"fp16), one launch of {run.launcher.items} CTAs",
+            "ms": cuda_ms(lambda: run(spikes)),
+            "device_ms": device_ms(lambda: run(spikes), "stdp_update_run_kernel"),
             "plain_ms": cuda_ms(plain, reps=50, warmup=5), "bound_ms": b_ms,
             "bound_by": b_by, "bound_bytes": moved}
 
@@ -1541,7 +1724,7 @@ def _plastic_launches(net, ticks: int) -> dict:
     csr = sum(j in net.static.csr_projs for j in _chain(net))
     return {"izh4_update": ticks, "syn_matmul": kinds.count("dense") * ticks,
             "syn_gather": ticks if "sparse" in kinds else 0, "fused_tick": 0,
-            "stdp_update": (chain - csr) * ticks, "stdp_gather": ticks if csr else 0,
+            "stdp_update": ticks if chain - csr else 0, "stdp_gather": ticks if csr else 0,
             "flash_attention": 0}
 
 
@@ -1598,12 +1781,14 @@ def phase_plastic(dev, totals: dict) -> dict:
         log(f"[plastic] {policy}: packed and sparse rasters and chain weights bitwise equal")
 
     homeo = dict(homeo_chain=HomeostasisConfig(**HOMEO), homeostasis_period=100)
-    cpu = _plastic_run(SYNFIRE4, "fp16", "sparse", gen_u, cpu_dev, **homeo)
-    card = _plastic_run(SYNFIRE4, "fp16", "sparse", gen_u, dev, **homeo)
-    record("synfire4_plastic_homeo/fp16/sparse", card, cpu)
-    scaled = card_runs[("fp16", "sparse")][2]
-    require(any(not torch.equal(card[2].weights[j], scaled.weights[j]) for j in _chain(card[0])),
-            "homeostasis moved no weight beyond STDP")
+    for propagation in ("sparse", "packed"):
+        cpu = _plastic_run(SYNFIRE4, "fp16", propagation, gen_u, cpu_dev, **homeo)
+        card = _plastic_run(SYNFIRE4, "fp16", propagation, gen_u, dev, **homeo)
+        record(f"synfire4_plastic_homeo/fp16/{propagation}", card, cpu)
+        scaled = card_runs[("fp16", propagation)][2]
+        require(any(not torch.equal(card[2].weights[j], scaled.weights[j])
+                    for j in _chain(card[0])),
+                f"homeostasis ({propagation}) moved no weight beyond STDP")
 
     g = torch.Generator(device="cpu").manual_seed(19)
     gen_u10 = torch.rand((TICKS, SYNFIRE4_X10.n_stim), generator=g)
@@ -2020,6 +2205,21 @@ def _none(*args, **kwargs):
     return None
 
 
+def _unpadded_stdp_update(static, params, weights, stdp):
+    """The dense STDP launcher on weight copies without the appended zero:
+    the fan-in drive then copies each dense plastic matrix with a zero
+    appended every tick, the earlier drive."""
+    from repro_torch.core.backend import _pair_stdp
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.stdp_update import DenseProjection
+
+    projs, keys = [], []
+    for j, fields in _pair_stdp(static, stdp, dense=True):
+        projs.append(DenseProjection(w=weights[j].clone(), mask=params.masks[j], **fields))
+        keys.append(j)
+    return ops.StdpUpdateRun(static.n, projs, keys) if projs else None
+
+
 # (key, propagation, plastic chain, backend builder swapped, its earlier path)
 IN_TURNS = (
     ("synfire4/fp16/packed/matmul_launcher_vs_per_call", "packed", False, "assemble_matmul",
@@ -2032,6 +2232,10 @@ IN_TURNS = (
      _none),
     ("synfire4_plastic/fp16/sparse/stdp_launcher_vs_per_call", "sparse", True,
      "assemble_stdp_gather", _none),
+    ("synfire4_plastic/fp16/packed/stdp_launcher_vs_per_call", "packed", True,
+     "assemble_stdp_update", _none),
+    ("synfire4_plastic/fp16/packed/drive_zero_ended_vs_copy", "packed", True,
+     "assemble_stdp_update", _unpadded_stdp_update),
 )
 
 

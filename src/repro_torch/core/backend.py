@@ -16,7 +16,10 @@ storage) or ``stdp_gather`` (CSR fan-in rows) in :func:`stdp_dispatch`; a
 run's CSR pair-STDP projections update in one ``stdp_gather`` launch per
 tick, trace steps included, through its
 :class:`repro_torch.kernels.ops.StdpGatherRun` (built by
-:func:`assemble_stdp_gather`).
+:func:`assemble_stdp_gather`), and its dense-stored ones in one
+``stdp_update`` launch per tick through its
+:class:`repro_torch.kernels.ops.StdpUpdateRun` (built by
+:func:`assemble_stdp_update`).
 ``backend="fused"`` assembles its payload here (:func:`assemble_fused`):
 the whole tick is then the ``fused_tick`` kernel where the plan allows it,
 and the phases above where it does not.
@@ -49,12 +52,13 @@ from repro_torch.core.synapses import stp_update
 from repro_torch.kernels import ops
 from repro_torch.kernels.fused_tick import KernelPayload, assemble_kernel
 from repro_torch.kernels.stdp_gather import Projection
+from repro_torch.kernels.stdp_update import DenseProjection
 from repro_torch.kernels.syn_gather import Bucket
 
 __all__ = ["assemble_packed", "assemble_matmul", "assemble_gather", "assemble_neurons",
            "update_neurons_dispatch", "propagate_packed", "FaninRows", "assemble_fanin",
-           "plastic_drive", "stdp_dispatch", "assemble_stdp_gather", "FusedPayload",
-           "assemble_fused"]
+           "xla_cpu_row_sum", "plastic_drive", "stdp_dispatch", "assemble_stdp_gather",
+           "assemble_stdp_update", "FusedPayload", "assemble_fused"]
 
 f32 = torch.float32
 
@@ -201,24 +205,63 @@ def assemble_fanin(static, params) -> tuple[FaninRows | None, ...]:
     return tuple(out)
 
 
-def plastic_drive(w: torch.Tensor, table: FaninRows,
-                  pre_row: torch.Tensor) -> torch.Tensor:
+XLA_REDUCE_WINDOW = 32  # XLA CPU's tree reduction rewriter's window
+
+
+def xla_cpu_row_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x.sum(dim=1)`` for an f32 ``[Q, F]`` ``x``, in the order the
+    reference's compiled reduce takes on the CPU. XLA CPU's tree reduction
+    rewriter cuts a reduced dimension longer than 32 into windows of 32,
+    the row padded with ``pad // 2`` skipped slots in front (``pad = -F mod
+    32``) and the rest behind; each window sums its elements left to right
+    from +0.0, and the window sums are reduced the same way, until 32 or
+    fewer remain, which sum left to right from +0.0. Padding adds +0.0 to
+    a partial sum that cannot be -0.0, so it is added here instead of
+    skipped. One add per window slot, whatever F: a few dozen ops."""
+    while x.shape[1] > XLA_REDUCE_WINDOW:
+        q, f = x.shape
+        n = -(-f // XLA_REDUCE_WINDOW)
+        pad = n * XLA_REDUCE_WINDOW - f
+        x = F.pad(x, (pad // 2, pad - pad // 2)).reshape(q, n, XLA_REDUCE_WINDOW)
+        x = _sum_left_to_right(x)
+    return _sum_left_to_right(x)
+
+
+def _sum_left_to_right(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over its last dimension left to right from +0.0."""
+    acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    for k in range(x.shape[-1]):
+        acc = acc + x[..., k]
+    return acc
+
+
+def plastic_drive(w: torch.Tensor, table: FaninRows, pre_row: torch.Tensor,
+                  padded: torch.Tensor | None = None) -> torch.Tensor:
     """Fan-in-row drive of a plastic or STP projection:
     ``[Q] = Σ_k pre_row[pre[q, k]] · w_row[q, k]``.
 
     CSR-stored projections read their ``[Q, F]`` weight rows directly;
     dense-stored ones gather the rows out of the ``[P, Q]`` rectangle, the
-    sentinel cells reading an appended zero, as the CSR padding holds +0.0.
-    Same row values, same ``[Q, F]`` reduction: packed (dense storage) and
-    sparse (CSR storage) rasters stay bit for bit as STDP moves weights off
-    the representable grid. A plain PyTorch reduction on both devices, as
-    the reference keeps it plain on both backends.
+    sentinel cells reading a zero after its last entry, as the CSR padding
+    holds +0.0: out of ``padded``, the flat ``[P·Q + 1]`` buffer that ``w``
+    starts (a run's ``ops.StdpUpdateRun`` keeps its weights so), else out
+    of a copy of ``w`` with the zero appended. Same row values, same
+    ``[Q, F]`` reduction: packed (dense storage) and sparse (CSR storage)
+    rasters stay bit for bit as STDP moves weights off the representable
+    grid. A plain PyTorch reduction on both devices, as the reference keeps
+    it plain on both backends: on the CPU in the reference's order
+    (:func:`xla_cpu_row_sum`), so that f32 sums off the representable grid
+    round as the reference's do; on the card in ``torch.sum``'s.
     """
     g = pre_row[table.pre]
     if table.rows is None:
         rows = w.to(f32)
     else:
-        rows = torch.cat((w.reshape(-1), w.new_zeros(1)))[table.rows].to(f32)
+        if padded is None:
+            padded = torch.cat((w.reshape(-1), w.new_zeros(1)))
+        rows = padded[table.rows].to(f32)
+    if g.device.type == "cpu":
+        return xla_cpu_row_sum(g * rows)
     return (g * rows).sum(dim=1)
 
 
@@ -231,7 +274,7 @@ def _bucket_pre(static, params, spikes_f32, bi):
 
 def propagate_packed(static, params, spikes_f32: torch.Tensor, ring: torch.Tensor,
                      t: int, packed, weights=(), stp=(), fanin=None,
-                     matmul=None, gather=None) -> tuple:
+                     matmul=None, gather=None, padded=None) -> tuple:
     """Propagate this tick's spikes (``[N]`` f32, 0.0/1.0) into ``ring``.
 
     Each bucket's drive lands in a per-delay ``[N, 1]`` f32 accumulator in
@@ -246,8 +289,10 @@ def propagate_packed(static, params, spikes_f32: torch.Tensor, ring: torch.Tenso
     reference's ``row + acc.astype(ring.dtype)``). ``fanin`` is
     :func:`assemble_fanin`'s output, ``matmul`` :func:`assemble_matmul`'s
     and ``gather`` :func:`assemble_gather`'s, each built here when
-    omitted. Updates ``ring`` in place; returns the STP states advanced by
-    this tick's spikes, aligned with the projections.
+    omitted; ``padded`` maps projection ids to the flat zero-ended weight
+    buffers of :func:`plastic_drive` (``ops.StdpUpdateRun.padded``).
+    Updates ``ring`` in place; returns the STP states advanced by this
+    tick's spikes, aligned with the projections.
     """
     acc: dict[int, torch.Tensor] = {}
     if matmul is None:
@@ -291,7 +336,7 @@ def propagate_packed(static, params, spikes_f32: torch.Tensor, ring: torch.Tenso
                 pre_row = pre_sp * (stp[j].u * stp[j].x)
                 new_stp[j] = stp_update(spec.stp, stp[j], pre_sp, static.dt)
             add(spec.delay_ms, spec.post_start, spec.post_size,
-                plastic_drive(weights[j], fanin[j], pre_row))
+                plastic_drive(weights[j], fanin[j], pre_row, (padded or {}).get(j)))
     for d in sorted(acc):
         ring[(t + d) % static.ring_len] += acc[d].to(ring.dtype)
     return tuple(new_stp)
@@ -317,27 +362,54 @@ def stdp_dispatch(static, cfg, tr: STDPState, w: torch.Tensor, mask: torch.Tenso
     return STDPState(pre_trace=pre_t, post_trace=post_t), w2
 
 
-def assemble_stdp_gather(static, params, weights, stdp) -> ops.StdpGatherRun | None:
-    """The run's ``stdp_gather`` launcher over its CSR-stored pair-STDP
-    projections (``cfg.tau_elig`` None, ``j in static.csr_projs``), on
-    copies of their ``weights`` and ``stdp`` traces, keyed by projection id;
-    None where there is none. DA-STDP and dense-stored pair STDP stay on
-    their per-call steps."""
-    projs, keys = [], []
+def _pair_stdp(static, stdp, dense: bool):
+    """Per pair-STDP projection (``cfg.tau_elig`` None) of one storage
+    (dense-stored when ``dense``, else CSR-stored), in projection order:
+    its id and the run-launcher fields it shares with the other storage,
+    on copies of its ``stdp`` traces (each a ping-pong pair)."""
     for j, cfg in enumerate(static.stdp):
-        if cfg is None or cfg.tau_elig is not None or j not in static.csr_projs:
+        if cfg is None or cfg.tau_elig is not None or (j in static.csr_projs) == dense:
             continue
         spec, tr = static.projections[j], stdp[j]
-        projs.append(Projection(
-            w=weights[j].clone(), idx=params.proj_csr_idx[j], valid=params.masks[j],
+        yield j, dict(
             pre_tr=(tr.pre_trace.clone(), torch.empty_like(tr.pre_trace)),
             post_tr=(tr.post_trace.clone(), torch.empty_like(tr.post_trace)),
             pre_start=spec.pre_start, post_start=spec.post_start, a_plus=cfg.a_plus,
             a_minus=cfg.a_minus, w_min=cfg.w_min, w_max=cfg.w_max,
             decay_pre=math.exp(-static.dt / cfg.tau_plus),
-            decay_post=math.exp(-static.dt / cfg.tau_minus)))
+            decay_post=math.exp(-static.dt / cfg.tau_minus))
+
+
+def assemble_stdp_gather(static, params, weights, stdp) -> ops.StdpGatherRun | None:
+    """The run's ``stdp_gather`` launcher over its CSR-stored pair-STDP
+    projections (``cfg.tau_elig`` None, ``j in static.csr_projs``), on
+    copies of their ``weights`` and ``stdp`` traces, keyed by projection id;
+    None where there is none. DA-STDP stays on its per-call steps."""
+    projs, keys = [], []
+    for j, fields in _pair_stdp(static, stdp, dense=False):
+        projs.append(Projection(w=weights[j].clone(), idx=params.proj_csr_idx[j],
+                                valid=params.masks[j], **fields))
         keys.append(j)
     return ops.StdpGatherRun(static.n, projs, keys) if projs else None
+
+
+def assemble_stdp_update(static, params, weights, stdp) -> ops.StdpUpdateRun | None:
+    """The run's ``stdp_update`` launcher over its dense-stored pair-STDP
+    projections (``cfg.tau_elig`` None, ``j not in static.csr_projs``), on
+    copies of their ``weights`` and ``stdp`` traces, keyed by projection
+    id; None where there is none. Each copy is the start of a flat ``[P·Q +
+    1]`` buffer ending in +0.0 (``padded``), out of which the fan-in drive
+    gathers its rows. DA-STDP stays on its per-call steps, as the
+    reference keeps it plain on both backends."""
+    projs, keys = [], []
+    for j, fields in _pair_stdp(static, stdp, dense=True):
+        w = weights[j]
+        padded = w.new_zeros(w.numel() + 1)
+        padded[:-1].copy_(w.reshape(-1))
+        projs.append(DenseProjection(w=padded[:-1].view(w.shape), mask=params.masks[j],
+                                     padded=padded, **fields))
+        keys.append(j)
+    return ops.StdpUpdateRun(static.n, projs, keys) if projs else None
 
 
 class FusedPayload(NamedTuple):

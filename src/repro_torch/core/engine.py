@@ -31,9 +31,11 @@ once per run, as are the dense buckets' ``syn_matmul`` launcher
 launch per tick for every compiled plan), the neuron phase's
 ``izh4_update`` launcher of IZH4-only Euler nets (``ops.NeuronRun``:
 steps 1-4 and the tick's raster, record and homeostasis-count writes in
-one ctypes call and one launch per tick) and the CSR pair-STDP
-projections' ``stdp_gather`` launcher (``ops.StdpGatherRun``: one launch
-per tick for all of them, trace steps included). With
+one ctypes call and one launch per tick), the CSR pair-STDP projections'
+``stdp_gather`` launcher (``ops.StdpGatherRun``: one launch per tick for
+all of them, trace steps included) and the dense-stored pair-STDP
+projections' ``stdp_update`` launcher (``ops.StdpUpdateRun``, the same
+for dense storage). With
 ``backend="fused"`` and a plan whose ``kernel_ok`` is set, a tick is one
 operation, the ``fused_tick`` kernel, which writes its spike row straight
 into the raster; other fused nets (plastic or STP ones among them), and
@@ -107,22 +109,22 @@ def _gen_spikes(static: NetStatic, params: NetParams, t0: int,
 
 
 def _plasticity(static: NetStatic, params: NetParams, spikes_f32: torch.Tensor,
-                weights: tuple, stdp: tuple, dopamine, stdp_run=None) -> tuple[tuple, tuple]:
+                weights: tuple, stdp: tuple, dopamine, stdp_runs=()) -> tuple[tuple, tuple]:
     """Phase 6: every STDP-carrying projection's traces and weights advance
     on this tick's spikes. CSR-stored projections update their fan-in rows
-    under their validity rows; pair-based STDP goes through ``stdp_run``
-    (the run's ``ops.StdpGatherRun``, in place on its own buffers) for the
-    projections it holds, else through
+    under their validity rows; pair-based STDP goes through ``stdp_runs``
+    (the run's ``ops.StdpGatherRun`` and ``ops.StdpUpdateRun``, each in
+    place on its own buffers) for the projections they hold, else through
     :func:`repro_torch.core.backend.stdp_dispatch` (the kernels), DA-STDP
     through the plain steps with ``dopamine`` (0.0 when None). The traces
-    of ``stdp_run``'s projections live in it, and their entries of
+    of ``stdp_runs``' projections live in them, and their entries of
     ``stdp`` are left as they were."""
     if all(cfg is None for cfg in static.stdp):
         return weights, stdp
-    held = ()
-    if stdp_run is not None:
+    held = set()
+    for stdp_run in stdp_runs:
         stdp_run(spikes_f32)
-        held = stdp_run.keys
+        held.update(stdp_run.keys)
     new_w, new_tr = list(weights), list(stdp)
     da = 0.0 if dopamine is None else dopamine
     csr = static.csr_projs
@@ -186,13 +188,13 @@ def _neuron_phase(static: NetStatic, params: NetParams, neurons: NeuronState,
 
 def _synaptic_phase(static: NetStatic, params: NetParams, spikes_f32: torch.Tensor,
                     ring: torch.Tensor, t: int, packed, syn: _Syn, fanin, matmul, gather,
-                    dopamine=None, stdp_run=None) -> _Syn:
+                    dopamine=None, stdp_runs=(), padded=None) -> _Syn:
     """Steps 5-6 of tick ``t`` on its f32 spike row, updating ``ring`` in
-    place; returns syn'."""
+    place; returns syn'. ``padded`` is ``propagate_packed``'s."""
     stp = be.propagate_packed(static, params, spikes_f32, ring, t, packed,
-                              syn.weights, syn.stp, fanin, matmul, gather)
+                              syn.weights, syn.stp, fanin, matmul, gather, padded)
     weights, stdp = _plasticity(static, params, spikes_f32, syn.weights, syn.stdp,
-                                dopamine, stdp_run)
+                                dopamine, stdp_runs)
     return _Syn(weights, stp, stdp)
 
 
@@ -408,8 +410,13 @@ def run(
     neuron_run = be.assemble_neurons(static, params, neurons, ring, gen_spk=gen_spk,
                                      i_ext=i_ext, raster=raster, v_rows=vs, i_rows=cur,
                                      counts=counts)
-    stdp_run = be.assemble_stdp_gather(static, params, state.weights, state.stdp)
-    weights = state.weights if stdp_run is None else stdp_run.adopt(state.weights)
+    stdp_gather = be.assemble_stdp_gather(static, params, state.weights, state.stdp)
+    stdp_update = be.assemble_stdp_update(static, params, state.weights, state.stdp)
+    stdp_runs = tuple(x for x in (stdp_gather, stdp_update) if x is not None)
+    padded = None if stdp_update is None else stdp_update.padded
+    weights = state.weights
+    for stdp_run in stdp_runs:
+        weights = stdp_run.adopt(weights)
     syn = _Syn(weights, state.stp, state.stdp)
     for i in range(n_steps):
         t = state.t + i
@@ -431,20 +438,20 @@ def run(
                 cur[i] = i_syn
         syn = _synaptic_phase(static, params, spikes_f32, ring, t, packed, syn, fanin,
                               matmul, gather, None if dopamine is None else dopamine[i],
-                              stdp_run)
+                              stdp_runs, padded)
         if counts is not None and (i + 1) % period == 0:
             weights, homeo = _apply_homeostasis(static, syn.weights, homeo, counts)
-            if stdp_run is not None:
+            for stdp_run in stdp_runs:
                 weights = stdp_run.adopt(weights)
             syn = syn._replace(weights=weights)
             counts.zero_()
     if neuron_run is not None:
         neurons = NeuronState(v=neuron_run.v, u=neuron_run.u, refrac=neuron_run.refrac)
-    if stdp_run is not None:
-        stdp = list(syn.stdp)
+    stdp = list(syn.stdp)
+    for stdp_run in stdp_runs:
         for k, j in enumerate(stdp_run.keys):
             stdp[j] = STDPState(*stdp_run.traces(k))
-        syn = syn._replace(stdp=tuple(stdp))
+    syn = syn._replace(stdp=tuple(stdp))
     final = state._replace(t=state.t + n_steps, neurons=neurons, ring=ring,
                            homeo=homeo, **syn._asdict())
     outputs = {}

@@ -1,7 +1,7 @@
 // Shared helpers for the port's CUDA kernels: storage-type decode/encode
-// through the CUDA intrinsics, the IZH4 update with its rounding pinned, the
-// C export macro, and the error-string export every library carries (each
-// library is built from one .cu file).
+// through the CUDA intrinsics, the IZH4 update and the pair-STDP cell update
+// with their rounding pinned, the C export macro, and the error-string
+// export every library carries (each library is built from one .cu file).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -50,6 +50,38 @@ __device__ __forceinline__ bool izh4_tick(float& v, float& u, float cur, float a
     u = __fadd_rn(u, d);
   }
   return spk;
+}
+
+// The constants of a pair-STDP weight update.
+struct StdpCoeffs {
+  float a_plus, a_minus, w_min, w_max;
+};
+
+// The clip of torch.clamp and jnp.clip: a NaN stays NaN (fmaxf alone would
+// turn it into the lower bound).
+__device__ __forceinline__ float clip_keep_nan(float x, float lo, float hi) {
+  return isnan(x) ? x : fminf(fmaxf(x, lo), hi);
+}
+
+// One pair-STDP synapse: clip((w + a+ * (pre_t * post_s)) - a- * (pre_s *
+// post_t)), then +0.0 where `keep` is false (outside the mask or the row's
+// valid cells). Every multiply, add and subtract is __fmul_rn / __fadd_rn /
+// __fsub_rn in the plain versions' association (kernels/ref.py:
+// stdp_update_ref, stdp_gather_ref), which nvcc never contracts into an
+// FMA, so stdp_update and stdp_gather round as eager PyTorch does.
+__device__ __forceinline__ float stdp_cell(float w, float pre_t, float pre_s, float post_t,
+                                           float post_s, bool keep, const StdpCoeffs& c) {
+  const float ltp = __fmul_rn(c.a_plus, __fmul_rn(pre_t, post_s));
+  const float ltd = __fmul_rn(c.a_minus, __fmul_rn(pre_s, post_t));
+  const float x = clip_keep_nan(__fsub_rn(__fadd_rn(w, ltp), ltd), c.w_min, c.w_max);
+  return keep ? x : 0.0f;
+}
+
+// One trace step, trace * decay + spike (__fmul_rn then __fadd_rn), which is
+// what core/plasticity.py:_trace_step gives in eager PyTorch: a multiply
+// kernel, then an add kernel, no FMA.
+__device__ __forceinline__ float trace_step(float trace, float decay, float spike) {
+  return __fadd_rn(__fmul_rn(trace, decay), spike);
 }
 
 REPRO_EXPORT const char* error_string(int err) {

@@ -10,15 +10,15 @@
 // then +0.0 where valid is false, stored back in the storage type. idx is
 // int16 or int32; padded cells carry index 0 and valid false.
 //
-// One device function (stdp_cell) serves two callers. The single checked
-// call (ops.stdp_gather, stdp_gather_<i>_<w>) takes the stepped traces and
-// writes a new [Q, F] table. The run launcher (ops.StdpGatherRun,
-// stdp_gather_run) takes a table of projection descriptors built once per
-// run and, each tick, one f32 spike row: every projection's weights are
-// updated in place, and each trace advances one step,
-//   trace' = trace * decay + spike       (__fmul_rn then __fadd_rn),
-// which is what core/plasticity.py:_trace_step gives in eager PyTorch (a
-// multiply kernel, then an add kernel: no FMA). The traces are ping-pong
+// One device function (common.cuh:stdp_cell, shared with stdp_update)
+// serves two callers. The single checked call (ops.stdp_gather,
+// stdp_gather_<i>_<w>) takes the stepped traces and writes a new [Q, F]
+// table. The run launcher (ops.StdpGatherRun, stdp_gather_run) takes a
+// table of projection descriptors built once per run and, each tick, one
+// f32 spike row: every projection's weights are updated in place, and each
+// trace advances one step,
+//   trace' = trace * decay + spike       (__fmul_rn then __fadd_rn,
+// common.cuh:trace_step). The traces are ping-pong
 // buffers: tick parity p reads buffer p and writes buffer 1 - p. A cell
 // recomputes the new trace of its pre and of its post from buffer p, and
 // one item per pre and per post neuron writes the new trace into buffer
@@ -39,8 +39,8 @@
 // Rounding: every multiply, add and subtract is __fmul_rn / __fadd_rn /
 // __fsub_rn in the plain version's association (kernels/ref.py:
 // stdp_gather_ref, stdp_gather_run_ref), the mask +0.0: bit for bit equal
-// to the plain version. The clip is fminf(fmaxf(.)) on a number and keeps a
-// NaN, as torch.clamp and jnp.clip do (fmaxf alone would drop it).
+// to the plain version. The clip (common.cuh:clip_keep_nan) keeps a NaN, as
+// torch.clamp and jnp.clip do.
 //
 // Out-of-range indices follow the reference's jnp.take: an index in
 // [-P, -1] counts from the end of the pre row, any other index outside
@@ -54,27 +54,11 @@ constexpr int kThreads = 256;
 
 __device__ __forceinline__ float nan_f32() { return __int_as_float(0x7fc00000); }
 
-struct Cell {  // the per-projection constants of the update
-  float a_plus, a_minus, w_min, w_max;
-};
-
 // The pre index of a cell, wrapped as jnp.take wraps it; -1 when it is
 // outside [-P, P).
 __device__ __forceinline__ int pre_index(int j, int P) {
   if (j < 0) j += P;
   return (j >= 0 && j < P) ? j : -1;
-}
-
-__device__ __forceinline__ float clip(float x, float lo, float hi) {
-  return isnan(x) ? x : fminf(fmaxf(x, lo), hi);
-}
-
-__device__ __forceinline__ float stdp_cell(float w, float pre_t, float pre_s, float post_t,
-                                           float post_s, bool valid, const Cell& c) {
-  const float ltp = __fmul_rn(c.a_plus, __fmul_rn(pre_t, post_s));
-  const float ltd = __fmul_rn(c.a_minus, __fmul_rn(pre_s, post_t));
-  const float x = clip(__fsub_rn(__fadd_rn(w, ltp), ltd), c.w_min, c.w_max);
-  return valid ? x : 0.0f;
 }
 
 // -- the single checked call -------------------------------------------------
@@ -86,7 +70,7 @@ __global__ void stdp_gather_kernel(const T* __restrict__ w, const I* __restrict_
                                    const float* __restrict__ post_t,
                                    const float* __restrict__ pre_s,
                                    const float* __restrict__ post_s, T* __restrict__ out,
-                                   int P, int Q, int F, Cell c) {
+                                   int P, int Q, int F, StdpCoeffs c) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= static_cast<long long>(Q) * F) return;
   const int q = static_cast<int>(i / F);
@@ -100,7 +84,7 @@ __global__ void stdp_gather_kernel(const T* __restrict__ w, const I* __restrict_
 template <typename I, typename T>
 int launch(const void* w, const void* idx, const void* valid, const void* pre_t,
            const void* post_t, const void* pre_s, const void* post_s, void* out, int P,
-           int Q, int F, Cell c, void* stream) {
+           int Q, int F, StdpCoeffs c, void* stream) {
   const long long cells = static_cast<long long>(Q) * F;
   if (cells <= 0) return 0;
   const long long blocks = (cells + kThreads - 1) / kThreads;
@@ -137,10 +121,6 @@ struct StdpPlan {
   int n_projs;
 };
 
-__device__ __forceinline__ float stepped(const float* tr, float decay, float spike, int j) {
-  return __fadd_rn(__fmul_rn(__ldg(tr + j), decay), spike);
-}
-
 __global__ void __launch_bounds__(kThreads)
     stdp_run_kernel(StdpPlan plan, const float* __restrict__ spikes, int parity) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -155,11 +135,12 @@ __global__ void __launch_bounds__(kThreads)
   if (local >= cells) {  // a trace item: the new trace into the other buffer
     const int j = static_cast<int>(local - cells);
     if (j < p.P) {
-      p.pre_tr[1 - parity][j] = stepped(p.pre_tr[parity], p.decay_pre, __ldg(pre_sp + j), j);
+      p.pre_tr[1 - parity][j] =
+          trace_step(__ldg(p.pre_tr[parity] + j), p.decay_pre, __ldg(pre_sp + j));
     } else {
       const int q = j - p.P;
       p.post_tr[1 - parity][q] =
-          stepped(p.post_tr[parity], p.decay_post, __ldg(post_sp + q), q);
+          trace_step(__ldg(p.post_tr[parity] + q), p.decay_post, __ldg(post_sp + q));
     }
     return;
   }
@@ -170,11 +151,11 @@ __global__ void __launch_bounds__(kThreads)
   float pt = nan_f32(), ps = nan_f32();
   if (j >= 0) {
     ps = __ldg(pre_sp + j);
-    pt = stepped(p.pre_tr[parity], p.decay_pre, ps, j);
+    pt = trace_step(__ldg(p.pre_tr[parity] + j), p.decay_pre, ps);
   }
   const float qs = __ldg(post_sp + q);
-  const float qt = stepped(p.post_tr[parity], p.decay_post, qs, q);
-  const Cell c{p.a_plus, p.a_minus, p.w_min, p.w_max};
+  const float qt = trace_step(__ldg(p.post_tr[parity] + q), p.decay_post, qs);
+  const StdpCoeffs c{p.a_plus, p.a_minus, p.w_min, p.w_max};
   const bool ok = p.valid[local] != 0;
   if (p.wtype) {
     __half* w = static_cast<__half*>(p.w) + local;
@@ -212,7 +193,7 @@ REPRO_EXPORT int stdp_gather_run(const StdpPlan* plan, const void* spikes, int p
                         float a_plus, float a_minus, float w_min, float w_max,         \
                         void* stream) {                                                \
     return launch<I, T>(w, idx, valid, pre_t, post_t, pre_s, post_s, out, P, Q, F,     \
-                        Cell{a_plus, a_minus, w_min, w_max}, stream);                  \
+                        StdpCoeffs{a_plus, a_minus, w_min, w_max}, stream);                  \
   }
 
 REPRO_STDP_GATHER(stdp_gather_i16_f32, int16_t, float)

@@ -21,7 +21,8 @@ from repro_torch.kernels import syn_matmul as _matmul
 
 __all__ = ["LAUNCHES", "reset_launches", "izh4_update", "NeuronRun", "syn_matmul",
            "MatmulRun", "syn_gather", "GatherRun", "FusedTickRun", "stdp_update",
-           "stdp_gather", "StdpGatherRun", "attention", "flash_attention"]
+           "stdp_gather", "StdpGatherRun", "StdpUpdateRun", "attention",
+           "flash_attention"]
 
 f32 = torch.float32
 
@@ -335,7 +336,10 @@ def stdp_update(w, mask, pre_trace, post_trace, pre_spikes, post_spikes, *,
     """Dense pair-based STDP: ``w [P, Q]`` (fp16 or f32 storage) and its
     bool ``mask`` → the updated weights in w's dtype
     (:func:`repro_torch.kernels.ref.stdp_update_ref`); traces and spikes
-    ``[P]``/``[Q]`` f32, spikes as 0.0/1.0."""
+    ``[P]``/``[Q]`` f32, spikes as 0.0/1.0. The clip keeps a NaN, as the
+    reference's ``jnp.clip`` does, on the CPU and on the card: a NaN weight
+    stays NaN inside the mask and becomes +0.0 outside it. On the card it
+    is one launch of the single-call kernel."""
     if w.dim() != 2 or mask.shape != w.shape or mask.dtype != torch.bool:
         raise ValueError(f"stdp_update: w {tuple(w.shape)} must be [P, Q] with a "
                          f"bool mask of its shape, got {mask.dtype} {tuple(mask.shape)}")
@@ -393,58 +397,49 @@ def stdp_gather(w, idx, valid, pre_trace, post_trace, pre_spikes, post_spikes, *
     return out
 
 
-class StdpGatherRun:
-    """Pair-based STDP of one run's plastic CSR projections, one tick at a
-    time (:func:`repro_torch.kernels.ref.stdp_gather_run_ref`): ``projs``
-    are :class:`repro_torch.kernels.stdp_gather.Projection` s on the run's
-    own buffers (weights updated in place, traces in ping-pong pairs),
-    checked here against an ``[n]`` f32 spike row, and labelled by ``keys``
-    (the caller's projection ids; ``range(len(projs))`` when None).
-    ``run(spikes)`` steps every projection's traces and updates its
-    weights, the traces read from buffer ``parity`` and written to the
+class _StdpRun:
+    """What :class:`StdpGatherRun` and :class:`StdpUpdateRun` share: one
+    run's pair-STDP projections (NamedTuples on the run's own buffers,
+    weights ``w`` updated in place, traces in ping-pong pairs ``pre_tr`` and
+    ``post_tr``), labelled by ``keys`` (the caller's projection ids;
+    ``range(len(projs))`` when None) and checked against an ``[n]`` f32
+    spike row. ``run(spikes)`` steps every projection's traces and updates
+    its weights, the traces read from buffer ``parity`` and written to the
     other, then flips ``parity``; the current traces of projection ``k``
-    are ``traces(k)``. On the card it
-    is one launch per call over every projection (``launcher``, a
-    :class:`repro_torch.kernels.stdp_gather.StdpLauncher`, on the stream
-    current at construction); ``spikes`` must be a contiguous f32 row of
-    length ``n`` on the projections' card and is not checked per call. On
-    the CPU ``launcher`` is None and a call runs the plain version."""
+    are ``traces(k)``. On the card it is one launch per call over every
+    projection (``launcher``, on the stream current at construction);
+    ``spikes`` must be a contiguous f32 row of length ``n`` on the
+    projections' card and is not checked per call. On the CPU ``launcher``
+    is None and a call runs the plain version."""
 
-    def __init__(self, n: int, projs, keys=None):
+    _name: str  # the kernel, as LAUNCHES counts it
+
+    def __init__(self, n: int, projs, keys, tables):
         self.projs = tuple(projs)
         self.keys = tuple(range(len(self.projs)) if keys is None else keys)
         tensors = []
-        for p in self.projs:
-            if p.w.dim() != 2 or p.idx.shape != p.w.shape or p.valid.shape != p.w.shape:
-                raise ValueError(f"stdp_gather: w {tuple(p.w.shape)}, idx "
-                                 f"{tuple(p.idx.shape)} and valid {tuple(p.valid.shape)} "
-                                 "must share one [Q, F] shape")
-            if (p.w.dtype not in _stdp_gather.STORAGE_DTYPES
-                    or p.idx.dtype not in _stdp_gather.INDEX_DTYPES
-                    or p.valid.dtype != torch.bool):
-                raise ValueError(f"stdp_gather: w/idx/valid dtypes {p.w.dtype}/"
-                                 f"{p.idx.dtype}/{p.valid.dtype}")
-            n_pre, n_post = p.pre_tr[0].shape[0], p.w.shape[0]
+        for p, table in zip(self.projs, tables):  # table: the weight-side tensors
+            n_pre, n_post = p.pre_tr[0].shape[0], p.post_tr[0].shape[0]
             if (len(p.pre_tr) != 2 or len(p.post_tr) != 2
                     or any(t.shape != (n_pre,) or t.dtype != f32 for t in p.pre_tr)
                     or any(t.shape != (n_post,) or t.dtype != f32 for t in p.post_tr)):
-                raise ValueError(f"stdp_gather: pre_tr/post_tr must be two float32 "
-                                 f"[P] and two [{n_post}] buffers")
+                raise ValueError(f"{self._name}: pre_tr/post_tr must be two float32 "
+                                 f"[P] and two [Q] buffers")
             if not (0 <= p.pre_start <= n - n_pre and 0 <= p.post_start <= n - n_post):
-                raise ValueError(f"stdp_gather: pre [{p.pre_start}, +{n_pre}) or post "
+                raise ValueError(f"{self._name}: pre [{p.pre_start}, +{n_pre}) or post "
                                  f"[{p.post_start}, +{n_post}) outside the [{n}] spike row")
-            tensors += [p.w, p.idx, p.valid, *p.pre_tr, *p.post_tr]
+            tensors += [*table, *p.pre_tr, *p.post_tr]
         self.parity = 0
         self.launcher = None
-        if tensors and _on_card("stdp_gather", *tensors):
-            self.launcher = _stdp_gather.StdpLauncher(self.projs, tensors[0].device)
+        if tensors and _on_card(self._name, *tensors):
+            self.launcher = self._launcher(self.projs, tensors[0].device)
 
     def __call__(self, spikes: torch.Tensor) -> None:
         if self.launcher is None:
-            ref.stdp_gather_run_ref(spikes, self.projs, self.parity)
+            self._plain(spikes, self.projs, self.parity)
         elif self.launcher.items:
             self.launcher(spikes.data_ptr(), self.parity)
-            LAUNCHES["stdp_gather"] += 1
+            LAUNCHES[self._name] += 1
         self.parity ^= 1
 
     def traces(self, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -463,6 +458,77 @@ class StdpGatherRun:
                 p.w.copy_(out[j])
                 out[j] = p.w
         return tuple(out)
+
+
+class StdpGatherRun(_StdpRun):
+    """Pair-based STDP of one run's plastic CSR projections, one tick at a
+    time (:func:`repro_torch.kernels.ref.stdp_gather_run_ref`): ``projs``
+    are :class:`repro_torch.kernels.stdp_gather.Projection` s, run as
+    :class:`_StdpRun` says. On the card ``launcher`` is a
+    :class:`repro_torch.kernels.stdp_gather.StdpLauncher`."""
+
+    _name = "stdp_gather"
+    _plain = staticmethod(ref.stdp_gather_run_ref)
+    _launcher = _stdp_gather.StdpLauncher
+
+    def __init__(self, n: int, projs, keys=None):
+        projs = tuple(projs)
+        for p in projs:
+            if p.w.dim() != 2 or p.idx.shape != p.w.shape or p.valid.shape != p.w.shape:
+                raise ValueError(f"stdp_gather: w {tuple(p.w.shape)}, idx "
+                                 f"{tuple(p.idx.shape)} and valid {tuple(p.valid.shape)} "
+                                 "must share one [Q, F] shape")
+            if (p.w.dtype not in _stdp_gather.STORAGE_DTYPES
+                    or p.idx.dtype not in _stdp_gather.INDEX_DTYPES
+                    or p.valid.dtype != torch.bool):
+                raise ValueError(f"stdp_gather: w/idx/valid dtypes {p.w.dtype}/"
+                                 f"{p.idx.dtype}/{p.valid.dtype}")
+            if p.post_tr[0].shape[0] != p.w.shape[0]:
+                raise ValueError(f"stdp_gather: post_tr must be two float32 "
+                                 f"[{p.w.shape[0]}] buffers")
+        super().__init__(n, projs, keys, [(p.w, p.idx, p.valid) for p in projs])
+
+
+class StdpUpdateRun(_StdpRun):
+    """Pair-based STDP of one run's dense-stored projections, one tick at a
+    time (:func:`repro_torch.kernels.ref.stdp_update_run_ref`): ``projs``
+    are :class:`repro_torch.kernels.stdp_update.DenseProjection` s
+    (``[P, Q]`` weights and bool mask), run as :class:`_StdpRun` says. On
+    the card ``launcher`` is a
+    :class:`repro_torch.kernels.stdp_update.StdpUpdateLauncher`: one launch
+    per tick over every projection, whatever their number, shapes and
+    storage dtypes. A projection's ``padded`` buffer, where given, must
+    hold its weights as its first P·Q entries (``w`` a view of it)."""
+
+    _name = "stdp_update"
+    _plain = staticmethod(ref.stdp_update_run_ref)
+    _launcher = _stdp_update.StdpUpdateLauncher
+
+    def __init__(self, n: int, projs, keys=None):
+        projs = tuple(projs)
+        for p in projs:
+            if p.w.dim() != 2 or p.mask.shape != p.w.shape or p.mask.dtype != torch.bool:
+                raise ValueError(f"stdp_update: w {tuple(p.w.shape)} must be [P, Q] with a "
+                                 f"bool mask of its shape, got {p.mask.dtype} "
+                                 f"{tuple(p.mask.shape)}")
+            if p.w.dtype not in _stdp_update.STORAGE_DTYPES:
+                raise ValueError(f"stdp_update: w dtype {p.w.dtype} not in "
+                                 f"{_stdp_update.STORAGE_DTYPES}")
+            if (p.pre_tr[0].shape[0], p.post_tr[0].shape[0]) != tuple(p.w.shape):
+                raise ValueError(f"stdp_update: pre_tr/post_tr must be two float32 "
+                                 f"[{p.w.shape[0]}] and two [{p.w.shape[1]}] buffers")
+            if p.padded is not None and (
+                    p.padded.shape != (p.w.numel() + 1,) or p.padded.dtype != p.w.dtype
+                    or p.padded.data_ptr() != p.w.data_ptr() or not p.w.is_contiguous()):
+                raise ValueError(f"stdp_update: padded must be the flat [{p.w.numel() + 1}] "
+                                 "buffer that w is the start of")
+        super().__init__(n, projs, keys, [(p.w, p.mask) for p in projs])
+
+    @property
+    def padded(self) -> dict:
+        """Projection id → its ``padded`` buffer, where it has one."""
+        return {j: p.padded for p, j in zip(self.projs, self.keys)
+                if p.padded is not None}
 
 
 class FusedTickRun:

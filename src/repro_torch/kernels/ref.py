@@ -12,7 +12,7 @@ import torch
 
 __all__ = ["izh4_ref", "neuron_run_ref", "syn_matmul_ref", "syn_gather_ref", "gather_run_ref",
            "fused_tick_ref", "stdp_update_ref", "stdp_gather_ref", "stdp_gather_run_ref",
-           "chunked_attention_ref", "flash_attention_ref", "pallas_no_key_rows",
+           "stdp_update_run_ref", "chunked_attention_ref", "flash_attention_ref", "pallas_no_key_rows",
            "model_layout"]
 
 f32 = torch.float32
@@ -165,8 +165,9 @@ def fused_tick_ref(v, u, ring, gen_row, is_gen, a, b, c, d, t: int, *,
 def stdp_update_ref(w, mask, pre_trace, post_trace, pre_spikes, post_spikes, *,
                     a_plus: float, a_minus: float, w_min: float, w_max: float):
     """Dense pair-based STDP on ``w [P, Q]`` (storage dtype): ``w + a⁺·(pre_t
-    ⊗ post_s) − a⁻·(pre_s ⊗ post_t)``, clipped to ``[w_min, w_max]``,
-    +0.0 outside ``mask``, cast back to w's dtype."""
+    ⊗ post_s) − a⁻·(pre_s ⊗ post_t)``, clipped to ``[w_min, w_max]``
+    (``torch.clamp``, which keeps a NaN, as the reference's ``jnp.clip``
+    does), +0.0 outside ``mask``, cast back to w's dtype."""
     wf = w.to(f32)
     ltp = a_plus * torch.outer(pre_trace.to(f32), post_spikes.to(f32))
     ltd = a_minus * torch.outer(pre_spikes.to(f32), post_trace.to(f32))
@@ -191,23 +192,43 @@ def stdp_gather_ref(w, idx, valid, pre_trace, post_trace, pre_spikes,
     return torch.where(valid, wf, 0.0).to(w.dtype)
 
 
+def _step_traces(spikes, p, parity: int):
+    """Projection ``p``'s pre and post spikes (the slices of the ``[N]`` f32
+    row ``spikes`` at ``pre_start``/``post_start``), and its traces stepped
+    as ``core/plasticity._trace_step`` steps them (``trace * decay +
+    spike``) from buffer ``parity`` into buffer ``1 - parity``, which are
+    returned."""
+    pre_sp = spikes[p.pre_start:p.pre_start + p.pre_tr[0].shape[0]]
+    post_sp = spikes[p.post_start:p.post_start + p.post_tr[0].shape[0]]
+    pre_t = p.pre_tr[1 - parity]
+    post_t = p.post_tr[1 - parity]
+    pre_t.copy_(p.pre_tr[parity] * p.decay_pre + pre_sp.to(f32))
+    post_t.copy_(p.post_tr[parity] * p.decay_post + post_sp.to(f32))
+    return pre_sp, post_sp, pre_t, post_t
+
+
 def stdp_gather_run_ref(spikes, projs, parity: int) -> None:
     """One launch of a :class:`repro_torch.kernels.ops.StdpGatherRun`, in
     place: for each projection of ``projs``
     (:class:`repro_torch.kernels.stdp_gather.Projection`), in order, its
-    pre and post spikes are the slices of the ``[N]`` f32 row ``spikes`` at
-    ``pre_start``/``post_start``, each trace steps as
-    ``core/plasticity._trace_step`` steps it (``trace * decay + spike``)
-    from buffer ``parity`` into buffer ``1 - parity``, and the weights take
+    traces step (:func:`_step_traces`) and its weights take
     :func:`stdp_gather_ref` on the stepped traces."""
     for p in projs:
-        pre_sp = spikes[p.pre_start:p.pre_start + p.pre_tr[0].shape[0]]
-        post_sp = spikes[p.post_start:p.post_start + p.post_tr[0].shape[0]]
-        pre_t = p.pre_tr[1 - parity]
-        post_t = p.post_tr[1 - parity]
-        pre_t.copy_(p.pre_tr[parity] * p.decay_pre + pre_sp.to(f32))
-        post_t.copy_(p.post_tr[parity] * p.decay_post + post_sp.to(f32))
+        pre_sp, post_sp, pre_t, post_t = _step_traces(spikes, p, parity)
         p.w.copy_(stdp_gather_ref(p.w, p.idx, p.valid, pre_t, post_t, pre_sp, post_sp,
+                                  a_plus=p.a_plus, a_minus=p.a_minus, w_min=p.w_min,
+                                  w_max=p.w_max))
+
+
+def stdp_update_run_ref(spikes, projs, parity: int) -> None:
+    """One launch of a :class:`repro_torch.kernels.ops.StdpUpdateRun`, in
+    place: for each projection of ``projs``
+    (:class:`repro_torch.kernels.stdp_update.DenseProjection`), in order,
+    its traces step (:func:`_step_traces`) and its weights take
+    :func:`stdp_update_ref` on the stepped traces."""
+    for p in projs:
+        pre_sp, post_sp, pre_t, post_t = _step_traces(spikes, p, parity)
+        p.w.copy_(stdp_update_ref(p.w, p.mask, pre_t, post_t, pre_sp, post_sp,
                                   a_plus=p.a_plus, a_minus=p.a_minus, w_min=p.w_min,
                                   w_max=p.w_max))
 

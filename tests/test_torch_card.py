@@ -16,9 +16,9 @@ through ``ops.syn_matmul`` and the per-run ``ops.MatmulRun``,
 bad indices and through the per-run ``ops.GatherRun`` on every compiled
 Synfire table (x100 included), ``fused_tick`` (B4) on random nets of
 1 to 5,000 neurons, on one CTA and on many, and on a CSR index of -1, and
-the per-run launchers of B1 (``ops.NeuronRun``) and B5
-(``ops.StdpGatherRun``) in whole runs against the per-op and per-call
-paths."""
+the per-run launchers of B1 (``ops.NeuronRun``), B5
+(``ops.StdpGatherRun``) and B6 (``ops.StdpUpdateRun``) in whole runs
+against the per-op and per-call paths, and B6 on a NaN weight."""
 import math
 
 import numpy as np
@@ -583,6 +583,88 @@ def test_stdp_gather_run_matches_per_call_path(card, policy):
             assert torch.equal(final.weights[j], final_pc.weights[j])
             for a, b in zip(final.stdp[j], final_pc.stdp[j]):
                 assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["fp16", "fp32"])
+@pytest.mark.parametrize("homeo", [False, True])
+def test_stdp_update_run_matches_per_call_path(card, policy, homeo):
+    """Plastic Synfire4 packed through the dense STDP launcher (one
+    ``stdp_update`` launch per tick for the four chain projections, the
+    fan-in drive on its zero-ended weight buffers) against the per-call
+    path on the card, with homeostasis every 100 ticks where asked:
+    raster, weights, traces, v, u and ring bit for bit."""
+    from repro_torch.configs.synfire4 import CHAIN_STDP, SYNFIRE4, build_synfire
+    from repro_torch.core import backend as be
+    from repro_torch.core.engine import run
+    from repro_torch.core.plasticity import HomeostasisConfig
+
+    kw = dict(homeo_chain=HomeostasisConfig(target_hz=10.0, tau_avg_ms=1000.0, beta=2.0),
+              homeostasis_period=100) if homeo else {}
+    net = build_synfire(SYNFIRE4, policy=policy, propagation="packed",
+                        stdp_chain=CHAIN_STDP, device=card, **kw)
+    gu = torch.rand((200, net.static.n_gen),
+                    generator=torch.Generator(device="cpu").manual_seed(7)).to(card)
+    ops.reset_launches()
+    final, out = run(net.static, net.params, net.state0, 200, gen_u=gu)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["stdp_update"] == 200
+    built = be.assemble_stdp_update
+    be.assemble_stdp_update = lambda *a, **k: None
+    try:
+        ops.reset_launches()
+        final_pc, out_pc = run(net.static, net.params, net.state0, 200, gen_u=gu)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["stdp_update"] == 4 * 200
+    finally:
+        be.assemble_stdp_update = built
+    assert torch.equal(out["spikes"], out_pc["spikes"])
+    for j, cfg in enumerate(net.static.stdp):
+        if cfg is not None:
+            assert torch.equal(final.weights[j], final_pc.weights[j])
+            for a, b in zip(final.stdp[j], final_pc.stdp[j]):
+                assert torch.equal(a, b)
+    for a, b in ((final.ring, final_pc.ring), *zip(final.neurons, final_pc.neurons)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_stdp_update_nan_weight_follows_plain(card, dtype):
+    """A NaN weight stays NaN in a masked-in cell and becomes +0.0 in a
+    masked-out one, through ``ops.stdp_update`` and ``ops.StdpUpdateRun``
+    on the card, as in the plain version (``torch.clamp``) and the
+    reference (``jnp.clip``); every other cell equals the plain version."""
+    from repro_torch.kernels.stdp_update import DenseProjection
+
+    g = torch.Generator(device="cpu").manual_seed(8)
+    w = (torch.rand((37, 113), generator=g) * 4).to(dtype)
+    mask = torch.rand((37, 113), generator=g) < 0.5
+    w[3, 5] = w[20, 100] = float("nan")
+    mask[3, 5], mask[20, 100] = True, False
+    pre, post = torch.rand(37, generator=g) * 3, torch.rand(113, generator=g) * 3
+    spikes = (torch.rand(150, generator=g) < 0.5).float()
+    kw = dict(a_plus=0.004, a_minus=0.0033, w_min=0.0, w_max=4.0)
+    args = [w, mask, pre, post, spikes[:37], spikes[37:]]
+    want = ref.stdp_update_ref(*args, **kw)
+    got = ops.stdp_update(*(x.to(card) for x in args), **kw).cpu()
+
+    def proj(device):
+        return DenseProjection(
+            w=w.clone().to(device), mask=mask.to(device),
+            pre_tr=(pre.to(device), torch.empty(37, device=device)),
+            post_tr=(post.to(device), torch.empty(113, device=device)), pre_start=0,
+            post_start=37, **kw, decay_pre=1.0, decay_post=1.0)
+
+    card_p, cpu_p = proj(card), proj("cpu")
+    ops.StdpUpdateRun(150, [card_p])(spikes.to(card))
+    ops.StdpUpdateRun(150, [cpu_p])(spikes)
+    for out, plain in ((got, want), (card_p.w.cpu(), cpu_p.w)):
+        for x in (out, plain):
+            assert bool(x[3, 5].isnan()) and int(x.isnan().sum()) == 1
+            assert x[20, 100].item() == 0.0 and not torch.signbit(x[20, 100])
+        ok = ~plain.isnan()
+        assert torch.equal(out[ok], plain[ok])
 
 
 @pytest.mark.cuda

@@ -651,6 +651,189 @@ class TestStdpGatherRun:
                                                                 projs[0].pre_tr[1]))])
 
 
+class TestStdpUpdateRun:
+    """The per-run dense STDP launcher (``ops.StdpUpdateRun``) on the CPU,
+    its plain run (``ref.stdp_update_run_ref``), against the per-call path
+    it replaces (each projection's two trace steps,
+    ``core/plasticity._trace_step``, and one ``ops.stdp_update`` per tick)
+    and against the reference's trace steps and Pallas kernel."""
+
+    TAU = (20.0, 15.0)  # tau+ (pre traces), tau- (post traces), dt = 1 ms
+    # (P, Q, pre_start, post_start, storage) per projection, per plan
+    PLANS = {"fp16": ((40, 25, 0, 60, "fp16"), (70, 12, 30, 0, "fp16")),
+             "fp32": ((40, 25, 0, 60, "fp32"), (70, 12, 30, 0, "fp32")),
+             "mixed": ((37, 113, 0, 50, "fp32"), (20, 20, 163, 170, "fp16"))}
+
+    def _projs(self, rng, plan):
+        from repro_torch.kernels.stdp_update import DenseProjection
+
+        out = []
+        for p, q, ps, qs, wdtype in self.PLANS[plan]:
+            mask = rng.random((p, q)) < 0.4
+            w = np.where(mask, rng.uniform(0, 4, (p, q)), 0).astype(DTYPES[wdtype][0])
+            pre, post = (torch.from_numpy(rng.random(x).astype(np.float32) * 2)
+                         for x in (p, q))
+            out.append(DenseProjection(
+                w=torch.from_numpy(w), mask=torch.from_numpy(mask),
+                pre_tr=(pre, torch.empty_like(pre)), post_tr=(post, torch.empty_like(post)),
+                pre_start=ps, post_start=qs, **STDP_KW,
+                decay_pre=math.exp(-1.0 / self.TAU[0]),
+                decay_post=math.exp(-1.0 / self.TAU[1])))
+        return out
+
+    @pytest.mark.parametrize("plan", list(PLANS))
+    def test_matches_per_call_path(self, plan):
+        """Two projections of different P and Q in one run (fp16, f32, or
+        one of each): weights, both trace buffers and ``parity`` after
+        every one of 10 chained ticks equal the per-call path's bit for bit,
+        and no launch is counted on the CPU."""
+        from repro_torch.core.plasticity import _trace_step
+
+        rng = np.random.default_rng(12)
+        projs = self._projs(rng, plan)
+        w0 = [p.w.clone() for p in projs]
+        w_pc = [p.w.clone() for p in projs]
+        tr_pc = [(p.pre_tr[0].clone(), p.post_tr[0].clone()) for p in projs]
+        ops.reset_launches()
+        run = ops.StdpUpdateRun(200, projs, keys=(3, 7))
+        assert run.keys == (3, 7) and run.launcher is None and run.parity == 0
+        for t in range(10):
+            spikes = torch.from_numpy((rng.random(200) < 0.3).astype(np.float32))
+            run(spikes)
+            assert run.parity == (t + 1) % 2
+            for k, p in enumerate(projs):
+                pre_sp = spikes[p.pre_start:p.pre_start + p.w.shape[0]]
+                post_sp = spikes[p.post_start:p.post_start + p.w.shape[1]]
+                old = tr_pc[k]
+                tr_pc[k] = (_trace_step(old[0], pre_sp, self.TAU[0], 1.0),
+                            _trace_step(old[1], post_sp, self.TAU[1], 1.0))
+                w_pc[k] = ops.stdp_update(w_pc[k], p.mask, *tr_pc[k], pre_sp, post_sp,
+                                          **STDP_KW)
+                assert torch.equal(p.w, w_pc[k]) and p.w.dtype == w_pc[k].dtype
+                now = run.parity
+                for bufs, new_tr, old_tr in ((p.pre_tr, tr_pc[k][0], old[0]),
+                                             (p.post_tr, tr_pc[k][1], old[1])):
+                    assert torch.equal(bufs[now], new_tr)
+                    assert torch.equal(bufs[1 - now], old_tr)
+                for got, want in zip(run.traces(k), tr_pc[k]):
+                    assert torch.equal(got, want)
+        assert ops.LAUNCHES["stdp_update"] == 0
+        assert all(not torch.equal(p.w, w) for p, w in zip(projs, w0))
+
+    @pytest.mark.parametrize("plan", ["fp16", "fp32"])
+    def test_one_tick_matches_pallas_interpret(self, plan):
+        """One tick of the plain run equals, per projection, the
+        reference's ``_trace_step`` on both traces followed by its Pallas
+        kernel in interpret mode, compiled at optimization level 0 (the
+        default compile contracts the trace step into an FMA), on the same
+        numpy inputs."""
+        from repro.core.plasticity import _trace_step as jtrace
+
+        rng = np.random.default_rng(13)
+        projs = self._projs(rng, plan)
+        before = [[x.numpy().copy() for x in (p.w, p.mask, p.pre_tr[0], p.post_tr[0])]
+                  for p in projs]
+        spikes = (rng.random(200) < 0.3).astype(np.float32)
+        ops.StdpUpdateRun(200, projs)(torch.from_numpy(spikes))
+        for p, (w, mask, pre, post) in zip(projs, before):
+            pre_sp = spikes[p.pre_start:p.pre_start + w.shape[0]]
+            post_sp = spikes[p.post_start:p.post_start + w.shape[1]]
+
+            def tick(w, mask, pre, post, pre_sp, post_sp):
+                pre_t = jtrace(pre, pre_sp, self.TAU[0], 1.0)
+                post_t = jtrace(post, post_sp, self.TAU[1], 1.0)
+                return pallas_stdp_update(w, mask, pre_t, post_t, pre_sp, post_sp,
+                                          interpret=True, **STDP_KW), pre_t, post_t
+
+            want = _opt0(tick, w, mask, pre, post, pre_sp, post_sp)
+            for got, ref_ in zip((p.w, p.pre_tr[1], p.post_tr[1]), want):
+                np.testing.assert_array_equal(got.float().numpy(),
+                                              np.asarray(ref_, np.float32))
+
+    def test_nan_weight_follows_reference(self):
+        """A NaN weight stays NaN in a masked-in cell and becomes +0.0 in a
+        masked-out one: through ``ops.stdp_update`` and the launcher's plain
+        run on the CPU, and in the reference's Pallas kernel (interpret
+        mode, optimization level 0), whose ``jnp.clip`` keeps a NaN; the
+        other cells equal the reference's."""
+        from repro_torch.kernels.stdp_update import DenseProjection
+
+        rng = np.random.default_rng(14)
+        w = rng.uniform(0, 4, (6, 5)).astype(np.float32)
+        mask = np.ones((6, 5), bool)
+        w[1, 2] = w[4, 0] = np.nan
+        mask[4, 0] = False
+        vecs = _stdp_vectors(rng, 6, 5)
+        want = np.asarray(_opt0(functools.partial(pallas_stdp_update, interpret=True,
+                                                  **STDP_KW), w, mask, *vecs))
+        outs = {}
+        for storage in (torch.float32, torch.float16):
+            args = [torch.from_numpy(w).to(storage), torch.from_numpy(mask),
+                    *map(torch.from_numpy, vecs)]
+            out = outs[storage] = ops.stdp_update(*args, **STDP_KW)
+            pre, post = args[2].clone(), args[3].clone()
+            proj = DenseProjection(w=args[0].clone(), mask=args[1],
+                                   pre_tr=(pre, torch.empty_like(pre)),
+                                   post_tr=(post, torch.empty_like(post)), pre_start=0,
+                                   post_start=6, **STDP_KW, decay_pre=0.9, decay_post=0.9)
+            ops.StdpUpdateRun(11, [proj])(torch.zeros(11))
+            for got in (out, proj.w):
+                assert bool(got[1, 2].isnan())
+                assert got[4, 0].item() == 0.0 and not torch.signbit(got[4, 0])
+                assert int(got.isnan().sum()) == 1
+        assert np.isnan(want[1, 2]) and want[4, 0] == 0.0 and not np.signbit(want[4, 0])
+        ok = ~np.isnan(want)
+        np.testing.assert_array_equal(outs[torch.float32].numpy()[ok], want[ok])
+
+    def test_adopt_loads_new_tensors_in_place(self):
+        rng = np.random.default_rng(2)
+        projs = self._projs(rng, "mixed")
+        run = ops.StdpUpdateRun(200, projs, keys=(1, 2))
+        buffers = [p.w for p in projs]
+        new = torch.full_like(projs[1].w, 0.5)
+        out = run.adopt((None, projs[0].w, new))
+        assert out[1] is buffers[0] and out[2] is buffers[1] and out[0] is None
+        assert torch.equal(buffers[1], new) and buffers[1].data_ptr() != new.data_ptr()
+        assert run.padded == {}
+
+    def test_padded_buffer_keeps_the_drive_zero(self):
+        """A projection whose weights start a flat ``[P·Q + 1]`` buffer:
+        ``padded`` maps its key to the buffer, updates and ``adopt`` write
+        through to it, and its last entry stays +0.0."""
+        rng = np.random.default_rng(4)
+        p = self._projs(rng, "fp16")[0]
+        padded = torch.zeros(p.w.numel() + 1, dtype=p.w.dtype)
+        padded[:-1] = p.w.reshape(-1)
+        p = p._replace(w=padded[:-1].view(p.w.shape), padded=padded)
+        run = ops.StdpUpdateRun(200, [p], keys=(5,))
+        assert run.padded == {5: padded}
+        run(torch.ones(200))
+        run.adopt((None,) * 5 + (torch.full_like(p.w, 2.0),))
+        assert torch.equal(padded[:-1], torch.full((p.w.numel(),), 2.0, dtype=p.w.dtype))
+        assert padded[-1].item() == 0.0
+
+    def test_rejects_bad_projections(self):
+        rng = np.random.default_rng(3)
+        projs = self._projs(rng, "fp32")
+        p = projs[0]
+        with pytest.raises(ValueError, match="spike row"):
+            ops.StdpUpdateRun(80, projs)
+        with pytest.raises(ValueError, match="bool mask of its shape"):
+            ops.StdpUpdateRun(200, [p._replace(mask=p.mask[:, :3])])
+        with pytest.raises(ValueError, match="bool mask of its shape"):
+            ops.StdpUpdateRun(200, [p._replace(mask=p.mask.float())])
+        with pytest.raises(ValueError, match="w dtype"):
+            ops.StdpUpdateRun(200, [p._replace(w=p.w.to(torch.bfloat16))])
+        with pytest.raises(ValueError, match="pre_tr/post_tr"):
+            ops.StdpUpdateRun(200, [p._replace(post_tr=(p.pre_tr[0], p.pre_tr[1]))])
+        with pytest.raises(ValueError, match="float32"):
+            ops.StdpUpdateRun(200, [p._replace(pre_tr=(p.pre_tr[0].half(), p.pre_tr[1]))])
+        with pytest.raises(ValueError, match="spike row"):
+            ops.StdpUpdateRun(200, [p._replace(pre_start=-1)])
+        with pytest.raises(ValueError, match="padded"):
+            ops.StdpUpdateRun(200, [p._replace(padded=torch.zeros(p.w.numel() + 1))])
+
+
 class TestNeuronRun:
     """The per-run neuron-phase launcher (``ops.NeuronRun``) on the CPU,
     its plain run (``ref.neuron_run_ref``), against the per-op phase it

@@ -10,10 +10,11 @@ rounds traces and weights as the reference evaluated op by op does. The
 reference's default jit contracts mul+add into FMAs (ROADMAP queue C), so
 the runs are held against its jitted ``run`` compiled at
 ``xla_backend_optimization_level=0``; fp32 ``v``/``u`` at ``rtol=1e-5,
-atol=1e-4``, as for the non-plastic engine. The plastic drive's f32 sum
-over the fan-in rows runs in PyTorch's order, not XLA's: on Synfire4's
-exactly representable fp16 weights any order is exact, and on the fp32
-runs below no raster bit moved.
+atol=1e-4``, as for the non-plastic engine, and bit for bit against the
+reference evaluated op by op. The plastic drive's f32 sum over the fan-in
+rows runs, on the CPU, in the order of XLA CPU's tree reduction rewriter
+(``core/backend.xla_cpu_row_sum``), so the ring holds the reference's
+sums bit for bit as STDP moves the weights off the representable grid.
 """
 import numpy as np
 import pytest
@@ -139,10 +140,11 @@ CASES = [(p, q) for p in ("fp16", "fp32") for q in ("packed", "sparse")]
 @pytest.mark.parametrize("cfg_name,n_steps", [("SYNFIRE4_MINI", MINI_TICKS),
                                               ("SYNFIRE4", FULL_TICKS)])
 def test_plastic_synfire_matches_reference(cfg_name, n_steps, policy, propagation):
-    """Raster, final plastic weights and traces bit for bit; v, u and the
-    ring bit for bit in fp16 and at rtol=1e-5, atol=1e-4 in fp32, where the
-    plastic drive's sums run in another order than XLA's (the ring holds
-    them; ROADMAP queue C). Learning happened, and the jitted reference's
+    """Raster, final plastic weights, traces and the ring bit for bit; v
+    and u bit for bit in fp16 and at rtol=1e-5, atol=1e-4 in fp32, where
+    the reference's compile contracts mul+add in the IZH4 update even at
+    optimization level 0 (ROADMAP queue C; the op-by-op reference is held
+    bit for bit below). Learning happened, and the jitted reference's
     distance is printed."""
     rnet, rfinal, rsp, tnet, tfinal, tsp, jfinal = both_runs(cfg_name, policy,
                                                              propagation, n_steps)
@@ -165,13 +167,65 @@ def test_plastic_synfire_matches_reference(cfg_name, n_steps, policy, propagatio
             lambda s, f=name: getattr(s.neurons, f))
         t = get(tfinal).float().numpy()
         r = np.asarray(get(rfinal), np.float32)
-        if policy == "fp16":
+        if policy == "fp16" or name == "ring":
             np.testing.assert_array_equal(t, r, err_msg=name)
             continue
         ulp = np.abs(t.view(np.int32).astype(np.int64) - r.view(np.int32).astype(np.int64))
         print(f"{cfg_name} fp32/{propagation} {name}: {int((t != r).sum())} of {t.size} "
               f"entries differ, max {int(ulp.max())} f32 ulp")
         np.testing.assert_allclose(t, r, rtol=1e-5, atol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("propagation", ["packed", "sparse"])
+def test_plastic_fp32_state_bitwise_vs_eager_reference(propagation):
+    """Plastic Synfire4 fp32 for 100 ticks against the reference evaluated
+    op by op (``jax.disable_jit``): raster, v, u, ring, chain weights and
+    traces bit for bit. The plastic drive's sums take the reference's
+    reduce order on the CPU (``core/backend.xla_cpu_row_sum``), and eager
+    PyTorch rounds every other op as the op-by-op reference does."""
+    from repro.core.engine import _run_impl
+
+    n_steps = 100
+    rnet = rsyn.build_synfire(rsyn.SYNFIRE4, policy="fp32", propagation=propagation,
+                              stdp_chain=rsyn.CHAIN_STDP, monitors=None)
+    tnet = tsyn.build_synfire(tsyn.SYNFIRE4, policy="fp32", propagation=propagation,
+                              stdp_chain=tsyn.CHAIN_STDP, device="cpu")
+    with jax.disable_jit():
+        rfinal, rout = _run_impl(rnet.static, rnet.params, rnet.state0, n_steps)
+    gu = torch.from_numpy(ref_uniforms(rnet, n_steps).copy())
+    tfinal, tout = run(tnet.static, tnet.params, tnet.state0, n_steps, gen_u=gu)
+    assert_same_raster(np.asarray(rout["spikes"]), tout["spikes"].numpy())
+    assert_same_plastic_state(rnet, rfinal, tnet, tfinal, f"eager fp32 {propagation}")
+    for r, t in ((rfinal.neurons.v, tfinal.neurons.v),
+                 (rfinal.neurons.u, tfinal.neurons.u), (rfinal.ring, tfinal.ring)):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(r))
+    ids = plastic_ids(tnet.static)
+    assert any(not np.array_equal(dense_weights(tnet.static, tnet.params, tfinal.weights, j),
+                                  dense_weights(tnet.static, tnet.params, tnet.state0.weights, j))
+               for j in ids), "no plastic weight moved"
+
+
+def test_xla_cpu_row_sum_matches_reference_reduce():
+    """``xla_cpu_row_sum`` equals the reference's compiled f32 row sum
+    (optimization level 0 and the default compile) bit for bit at fan-ins
+    from 1 to 1,100, on both sides of each 32-wide window and its padding;
+    ``torch.sum`` does not at the chain's fan-ins."""
+    from repro_torch.core.backend import xla_cpu_row_sum
+
+    rng = np.random.default_rng(9)
+    fn = jax.jit(lambda a: a.sum(axis=1))
+    differs = 0
+    for f in (1, 20, 32, 33, 41, 64, 76, 81, 97, 1024, 1100):
+        x = (rng.random((200, f), dtype=np.float32) * 3).astype(np.float32)
+        j = jnp.asarray(x)
+        opt0 = np.asarray(fn.lower(j).compile(
+            compiler_options={"xla_backend_optimization_level": 0})(j))
+        got = xla_cpu_row_sum(torch.from_numpy(x)).numpy()
+        np.testing.assert_array_equal(got, opt0, err_msg=f"F={f}")
+        np.testing.assert_array_equal(got, np.asarray(fn(j)), err_msg=f"F={f}")
+        if f in (76, 81):
+            differs += int((torch.from_numpy(x).sum(dim=1).numpy() != opt0).sum())
+    assert differs > 0
 
 
 @pytest.mark.parametrize("policy", ["fp16", "fp32"])
@@ -507,3 +561,111 @@ def test_stdp_launcher_matches_per_call_path(cfg_name, policy, homeo):
     assert any(moved)
     now = [x for j in chain for x in (state.weights[j], *state.stdp[j])]
     assert all(torch.equal(a, b) for a, b in zip(now, saved))
+
+
+def _swapped_run(builders, *args, **kw):
+    """``run`` with each ``backend`` launcher builder named in ``builders``
+    swapped for one that builds nothing: those projections then take the
+    per-call path."""
+    from repro_torch.core import backend as be
+
+    saved = {name: getattr(be, name) for name in builders}
+    for name in builders:
+        setattr(be, name, lambda *a, **k: None)
+    try:
+        return run(*args, **kw)
+    finally:
+        for name, fn in saved.items():
+            setattr(be, name, fn)
+
+
+@pytest.mark.parametrize("policy", ["fp16", "fp32"])
+@pytest.mark.parametrize("homeo", [False, True])
+def test_dense_stdp_launcher_matches_per_call_path(policy, homeo):
+    """Plastic Synfire4 packed for 1,000 ticks through the run's dense STDP
+    launcher (``backend.assemble_stdp_update``, ``ops.StdpUpdateRun``:
+    every chain projection in one call a tick, traces stepped inside, the
+    fan-in drive reading the launcher's zero-ended weight buffers) and
+    through the per-call path (``stdp_dispatch`` per projection), with
+    homeostasis every 100 ticks where asked: raster, final weights,
+    traces, running rates, v, u and ring bit for bit; the input state is
+    left as it was; the final state carries the launcher's weights and
+    current traces."""
+    from repro_torch.core import backend as be
+
+    kw = dict(homeo_chain=tpl.HomeostasisConfig(target_hz=10.0, tau_avg_ms=1000.0, beta=2.0),
+              homeostasis_period=100) if homeo else {}
+    net = tsyn.build_synfire(tsyn.SYNFIRE4, policy=policy, propagation="packed",
+                             stdp_chain=tsyn.CHAIN_STDP, device="cpu", **kw)
+    static, params, state = net.static, net.params, net.state0
+    chain = plastic_ids(static)
+    built = be.assemble_stdp_update(static, params, state.weights, state.stdp)
+    assert built.keys == tuple(chain) and len(chain) == 4
+    assert be.assemble_stdp_gather(static, params, state.weights, state.stdp) is None
+    assert sorted(built.padded) == chain
+    saved = [x.clone() for j in chain for x in (state.weights[j], *state.stdp[j])]
+    gu = torch.from_numpy(np.random.default_rng(2).random((FULL_TICKS, static.n_gen))
+                          .astype(np.float32))
+    final, out = run(static, params, state, FULL_TICKS, gen_u=gu)
+    final_pc, out_pc = _swapped_run(("assemble_stdp_update",), static, params, state,
+                                    FULL_TICKS, gen_u=gu)
+    assert torch.equal(out["spikes"], out_pc["spikes"])
+    for j in chain:
+        assert final.weights[j].shape == state.weights[j].shape
+        assert torch.equal(final.weights[j], final_pc.weights[j])
+        for a, b in zip(final.stdp[j], final_pc.stdp[j]):
+            assert torch.equal(a, b)
+        if homeo:
+            assert torch.equal(final.homeo[j], final_pc.homeo[j])
+    for a, b in ((final.ring, final_pc.ring), *zip(final.neurons, final_pc.neurons)):
+        assert torch.equal(a, b)
+    assert any(not torch.equal(final.weights[j], state.weights[j]) for j in chain)
+    if homeo:
+        no_homeo = tsyn.build_synfire(tsyn.SYNFIRE4, policy=policy, propagation="packed",
+                                      stdp_chain=tsyn.CHAIN_STDP, device="cpu")
+        plain, _ = run(no_homeo.static, no_homeo.params, no_homeo.state0, FULL_TICKS,
+                       gen_u=gu)
+        assert any(not torch.equal(final.weights[j], plain.weights[j]) for j in chain)
+    now = [x for j in chain for x in (state.weights[j], *state.stdp[j])]
+    assert all(torch.equal(a, b) for a, b in zip(now, saved))
+
+
+def test_both_stdp_launchers_and_da_stdp_in_one_run():
+    """A net with a dense-stored pair-STDP projection, a CSR-stored one
+    (``propagation="auto"`` picks the storage) and a DA-STDP one: one run
+    takes the dense launcher, the CSR launcher and the plain DA-STDP step
+    side by side, and equals the per-call path bit for bit (raster,
+    weights, traces, eligibility, v, u, ring) under a dopamine schedule."""
+    from repro_torch.core import backend as be
+
+    net = NetworkBuilder(seed=7)
+    net.add_spike_generator("pre", 30, rate_hz=80.0)
+    net.add_spike_generator("wide", 200, rate_hz=40.0)
+    net.add_group("post", izh4(10, a=0.02, b=0.2, c=-65.0, d=8.0))
+    net.add_group("post2", izh4(12, a=0.02, b=0.2, c=-65.0, d=8.0))
+    pair = tpl.STDPConfig(a_plus=0.01, a_minus=0.002, w_max=6.0)
+    net.connect("pre", "post", fanin=15, weight=3.0, delay_ms=1, stdp=pair)
+    net.connect("wide", "post", fanin=5, weight=2.0, delay_ms=2, stdp=pair)
+    net.connect("pre", "post2", fanin=10, weight=3.0, delay_ms=1, da_modulated=True,
+                stdp=tpl.STDPConfig(a_plus=0.01, a_minus=0.002, w_max=6.0, tau_elig=200.0))
+    c = net.compile(policy="fp16", propagation="auto", device="cpu")
+    static, params, state = c.static, c.params, c.state0
+    assert plastic_ids(static) == [0, 1, 2] and static.plastic_csr == (1,)
+    assert be.assemble_stdp_update(static, params, state.weights, state.stdp).keys == (0,)
+    assert be.assemble_stdp_gather(static, params, state.weights, state.stdp).keys == (1,)
+    ticks = 300
+    rng = np.random.default_rng(3)
+    gu = torch.from_numpy(rng.random((ticks, static.n_gen)).astype(np.float32))
+    da = torch.from_numpy((rng.random(ticks) * 1.5).astype(np.float32))
+    final, out = run(static, params, state, ticks, gen_u=gu, dopamine=da)
+    final_pc, out_pc = _swapped_run(("assemble_stdp_update", "assemble_stdp_gather"),
+                                    static, params, state, ticks, gen_u=gu, dopamine=da)
+    assert out["spikes"].sum() > 100
+    assert torch.equal(out["spikes"], out_pc["spikes"])
+    for j in (0, 1, 2):
+        assert torch.equal(final.weights[j], final_pc.weights[j])
+        assert not torch.equal(final.weights[j], state.weights[j])
+        for a, b in zip(final.stdp[j], final_pc.stdp[j]):
+            assert torch.equal(a, b)
+    for a, b in ((final.ring, final_pc.ring), *zip(final.neurons, final_pc.neurons)):
+        assert torch.equal(a, b)
