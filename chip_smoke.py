@@ -72,6 +72,33 @@ Phases (each raises, and the script exits non-zero, on any failure):
    sparse inside the 8.477 MB ledger (card equals CPU); and plastic nets
    on ``backend="fused"``, which launch no ``fused_tick`` and give the
    default backend's raster and weights.
+5b. Conductance-based (COBA) synapses: ``ops.NeuronRun`` in COBA mode
+   (both ring channels read and zeroed, the four conductances decayed,
+   delivered and stored, the current from them) against its plain
+   version, fp16 and f32, on random conductances, ring and external
+   current, bit for bit; ``ops.GatherRun`` over two channels (rows keyed
+   by (delay, channel), ``|drive|`` per bucket) against its plain version
+   on a plan where an excitatory and an inhibitory bucket share a delay
+   and posts and two excitatory buckets share entries, bit for bit; both
+   timed beside the CUBA mode (rows ``izh4_update.coba`` and
+   ``syn_gather.coba``). Then Synfire4's Table II network compiled with
+   ``conductances=COBAConfig()`` for 1,000 ticks, fp16/fp32 x
+   packed/sparse: card raster and final v, u, refrac, ring and
+   conductances equal the CPU port's; one ``izh4_update`` per tick and 8
+   ``syn_matmul`` (packed) or one ``syn_gather`` (sparse); us/tick and
+   device events per tick (beside the CUBA sparse tick's); the same nets
+   on ``backend="fused"`` launch no ``fused_tick`` and give the same
+   raster and state. COBA Synfire4x100 fp16 sparse (N = 120,000) through
+   the launcher against the per-op COBA phase on the card (raster and
+   state equal), with us/tick and peak device memory; plastic COBA
+   Synfire4 fp16 packed and sparse (card raster, chain weights and traces
+   equal the CPU port's, packed weights equal sparse ones).
+5c. ``run``'s serving arguments on Synfire4 fp16 sparse: ``gen_base`` (one
+   run(1000) equals four run(250) on the card, and the CPU port),
+   ``gen_chunk=100`` (card equals CPU, also with homeostasis every 100
+   ticks), ``active=False`` for 200 ticks (no generator spike, homeostasis
+   holds the weights), and the ``propagation="loop"`` oracle, fp16 and
+   fp32, whose raster equals packed's on the card.
 6. LM serving on the dense decoder (``repro_torch.launch.serve``): (a) the
    attention kernel ``flash_attention`` against its plain version on the
    card, at rtol = atol = 1e-5, at smollm-360m's prefill and decode shapes,
@@ -287,15 +314,25 @@ def _gen_cols(static, dev) -> torch.Tensor:
     return cols
 
 
+def _random_cond(net, g, dev):
+    """Four random conductances in [0, 3) in the net's storage dtype, or
+    None for a current-based net."""
+    if net.static.coba is None:
+        return None
+    dtype, n = net.state0.neurons.v.dtype, net.static.n
+    return tuple((torch.rand(n, generator=g) * 3).to(dtype).to(dev) for _ in range(4))
+
+
 def _hold_neuron_run(net, g, dev, i_ext: bool, records: bool, what: str) -> int:
     """``ops.NeuronRun`` (the run's neuron phase, one launch per tick) on the
     card against its plain version (``ref.neuron_run_ref`` on the card) on
     the same inputs: a random ring, v, u and refractory counts, random
-    generator rows, and, where asked, an external current and the raster,
-    v, i_syn rows and homeostasis counts; v, u, refrac, the whole ring and
-    the f32 spike row after every tick, the rows and counts at the end, bit
-    for bit; the caller's state left as it was. Returns the neuron spikes
-    seen (raises on none)."""
+    generator rows, on a COBA net random conductances, and, where asked,
+    an external current and the raster, v, i_syn rows and homeostasis
+    counts; v, u, refrac, the whole ring, the conductances and the f32
+    spike row after every tick, the rows and counts at the end, bit for
+    bit; the caller's state left as it was. Returns the neuron spikes seen
+    (raises on none)."""
     from repro_torch.core import backend as be
     from repro_torch.core.neurons import NeuronModel, NeuronState
     from repro_torch.kernels import ops, ref
@@ -306,6 +343,8 @@ def _hold_neuron_run(net, g, dev, i_ext: bool, records: bool, what: str) -> int:
     u = (torch.rand(n, generator=g) * 10 - 15).to(dtype).to(dev)
     refrac = torch.randint(0, 3, (n,), generator=g).to(torch.int16).to(dev)
     ring = (torch.rand(tuple(net.state0.ring.shape), generator=g) * 12).to(dtype).to(dev)
+    cond = _random_cond(net, g, dev)
+    coba = None if cond is None else be.coba_coeffs(static)
     gen_spk = (torch.rand((ticks, static.n_gen), generator=g) < 0.3).to(dev)
     cur = (torch.rand((ticks, n), generator=g) * 8).to(dev) if i_ext else None
     neurons = NeuronState(v=v, u=u, refrac=refrac)
@@ -319,13 +358,15 @@ def _hold_neuron_run(net, g, dev, i_ext: bool, records: bool, what: str) -> int:
 
     k_rows, p_rows = rows(), rows()
     k_ring, p_ring = ring.clone(), ring.clone()
-    run = be.assemble_neurons(static, params, neurons, k_ring, gen_spk=gen_spk, i_ext=cur,
-                              **k_rows)
+    run = be.assemble_neurons(static, params, neurons, k_ring, cond=cond, gen_spk=gen_spk,
+                              i_ext=cur, **k_rows)
     require(run.launcher is not None, f"NeuronRun {what}: no launcher on the card")
     p = params.neuron
     is_gen = p.model == NeuronModel.GENERATOR
     cols = _gen_cols(static, dev)
     pv, pu, pr = v.clone(), u.clone(), refrac.clone()
+    p_cond = None if cond is None else tuple(x.clone() for x in cond)
+    saved += [] if cond is None else [x.clone() for x in cond]
     p_spikes = torch.zeros(n, device=dev)
     ops.reset_launches()
     spiked = 0
@@ -338,22 +379,26 @@ def _hold_neuron_run(net, g, dev, i_ext: bool, records: bool, what: str) -> int:
                            raster_row=p_rows["raster"][i] if records else None,
                            v_row=p_rows["v_rows"][i] if records else None,
                            i_row=p_rows["i_rows"][i] if records else None,
-                           counts=p_rows.get("counts"), dt=static.dt,
-                           substeps=static.substeps)
+                           counts=p_rows.get("counts"), cond=p_cond, coba=coba,
+                           dt=static.dt, substeps=static.substeps)
         torch.cuda.synchronize()
-        for name, got, want in (("v", run.v, pv), ("u", run.u, pu), ("refrac", run.refrac, pr),
-                                ("ring", k_ring, p_ring), ("spikes", run.spikes, p_spikes)):
+        checks = [("v", run.v, pv), ("u", run.u, pu), ("refrac", run.refrac, pr),
+                  ("ring", k_ring, p_ring), ("spikes", run.spikes, p_spikes)]
+        if cond is not None:
+            checks += [(f"g{k}", a, b) for k, (a, b) in enumerate(zip(run.cond, p_cond))]
+        for name, got, want in checks:
             _require_bitwise(got, want, f"NeuronRun {what} tick {t} {name}")
         spiked += int(run.spikes[~is_gen].sum())
     for name in k_rows:
         _require_bitwise(k_rows[name], p_rows[name], f"NeuronRun {what} {name}")
     require(ops.LAUNCHES["izh4_update"] == ticks, f"NeuronRun {what}: "
             f"{ops.LAUNCHES['izh4_update']} launches in {ticks} ticks")
-    require(all(torch.equal(a, b) for a, b in zip((v, u, refrac), saved)),
+    require(all(torch.equal(a, b) for a, b in zip((v, u, refrac, *(cond or ())), saved)),
             f"NeuronRun {what}: the caller's state changed")
     require(spiked > 0, f"NeuronRun {what}: no neuron spiked")
     log(f"[kernels] NeuronRun {what} (N={n}, i_ext={i_ext}, records={records}): {ticks} "
-        f"ticks bitwise against its plain version (v, u, refrac, ring, spike rows"
+        f"ticks bitwise against its plain version (v, u, refrac, ring, "
+        + ("conductances, " if cond is not None else "") + "spike rows"
         + (", raster, v, i_syn rows, counts" if records else "") + f"), {spiked} spikes")
     return spiked
 
@@ -362,9 +407,11 @@ def _neuron_run_row(net, g, dev, what: str) -> dict:
     """The NeuronRun's numbers on ``net`` as the main path runs it (raster
     recorded, generator rows): per call (the ctypes call included) and
     alone on the device, the plain version on the card, and the bound: the
-    ring slot read and zeroed, v, u and refrac read and written, a-d,
-    is_gen, the generator column map and row, the f32 spike row and the
-    raster row, and about 31 operations per neuron."""
+    ring slot read and zeroed (both channels on a COBA net), v, u and
+    refrac read and written, a-d, is_gen, the generator column map and
+    row, the f32 spike row and the raster row, on a COBA net the four
+    conductances read and written; about 31 operations per neuron, 26 more
+    for COBA."""
     from repro_torch.core import backend as be
     from repro_torch.core.neurons import NeuronModel
     from repro_torch.kernels import ref
@@ -374,8 +421,10 @@ def _neuron_run_row(net, g, dev, what: str) -> dict:
     ring = net.state0.ring.clone()
     gen_spk = (torch.rand((rows_t, static.n_gen), generator=g) < 0.3).to(dev)
     raster = torch.zeros((rows_t, n), dtype=torch.bool, device=dev)
-    run = be.assemble_neurons(static, params, net.state0.neurons, ring, gen_spk=gen_spk,
-                              raster=raster)
+    cond = _random_cond(net, g, dev)
+    coba = None if cond is None else be.coba_coeffs(static)
+    run = be.assemble_neurons(static, params, net.state0.neurons, ring, cond=cond,
+                              gen_spk=gen_spk, raster=raster)
     counter = iter(range(10**9))
 
     def tick():
@@ -387,12 +436,16 @@ def _neuron_run_row(net, g, dev, what: str) -> dict:
     cols = _gen_cols(static, dev)
     pv, pu, pr = (x.clone() for x in (run.v, run.u, run.refrac))
     sp = torch.zeros(n, device=dev)
+    pc = None if cond is None else tuple(x.clone() for x in cond)
     plain = lambda: ref.neuron_run_ref(pv, pu, pr, ring, 0, is_gen, p.a, p.b, p.c, p.d,  # noqa: E731
-                                       cols, sp, gen_row=gen_spk[0], raster_row=raster[0])
-    moved = (2 * n * s + 2 * 2 * n * s + 2 * 2 * n + 4 * 4 * n + n + 4 * n + static.n_gen
-             + 4 * n + n)
-    b_ms, b_by = bound(moved, 31 * n)
-    return {"shape": f"{what} tick: N={n}, raster recorded, one launch",
+                                       cols, sp, gen_row=gen_spk[0], raster_row=raster[0],
+                                       cond=pc, coba=coba)
+    channels = static.ring_channels
+    moved = (2 * channels * n * s + 2 * 2 * n * s + 2 * 2 * n + 4 * 4 * n + n + 4 * n
+             + static.n_gen + 4 * n + n + (0 if cond is None else 2 * 4 * n * s))
+    b_ms, b_by = bound(moved, (31 if cond is None else 57) * n)
+    return {"shape": f"{what} tick: N={n}, raster recorded, one launch"
+                     + (", COBA" if cond is not None else ""),
             "ms": cuda_ms(tick), "device_ms": device_ms(tick, "izh4_run_kernel"),
             "plain_ms": cuda_ms(plain, reps=50, warmup=5), "bound_ms": b_ms,
             "bound_by": b_by, "bound_bytes": moved}
@@ -1818,6 +1871,401 @@ def phase_plastic(dev, totals: dict) -> dict:
     return paths
 
 
+# -- COBA synapses and run's serving arguments (A5) -------------------------------------
+
+
+def _coba_net(cfg, policy, propagation, dev, backend=None, stdp_chain=None,
+              budget=None, monitor_ms_hint=1000):
+    """Synfire's Table II network (``configs/synfire4._synfire_builder``, what
+    ``build_synfire`` compiles) compiled with ``conductances=COBAConfig()``."""
+    from repro_torch.configs import synfire4 as tsyn
+    from repro_torch.core import COBAConfig
+    from repro_torch.memory import MemoryLedger
+
+    return tsyn._synfire_builder(cfg, stdp_chain=stdp_chain).compile(
+        policy=policy, propagation=propagation, backend=backend, conductances=COBAConfig(),
+        ledger=MemoryLedger(budget=budget, name=f"{cfg.name}/{policy}/coba"),
+        monitor_ms_hint=monitor_ms_hint, device=dev)
+
+
+def _timed_run(net, ticks, dev, **kw):
+    """``run`` of ``net`` for ``ticks`` ticks from its state0 on the default
+    generator stream; on the card warmed up first, timed, the launch counts
+    reset just before and read just after. Returns (final, raster,
+    launches or None, seconds)."""
+    from repro_torch.core.engine import run
+    from repro_torch.kernels import ops
+
+    card = dev.type == "cuda"
+    if card:
+        warm = net.static.homeo_period or 20
+        run(net.static, net.params, net.state0, warm)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+    t0 = time.perf_counter()
+    final, out = run(net.static, net.params, net.state0, ticks, **kw)
+    if card:
+        torch.cuda.synchronize()
+    return (final, out["spikes"].cpu(), dict(ops.LAUNCHES) if card else None,
+            time.perf_counter() - t0)
+
+
+def _require_same_state(a, b, what, plastic=()):
+    """Two final NetStates equal bit for bit: v, u, refrac, ring, the
+    conductances and key, and the weights and STDP traces of the projections
+    in ``plastic``."""
+    pairs = [("v", a.neurons.v, b.neurons.v), ("u", a.neurons.u, b.neurons.u),
+             ("refrac", a.neurons.refrac, b.neurons.refrac), ("ring", a.ring, b.ring),
+             ("key", a.key, b.key)]
+    if a.cond is not None or b.cond is not None:
+        pairs += [(f"cond.{f}", x, y) for f, x, y in zip(a.cond._fields, a.cond, b.cond)]
+    for j in plastic:
+        pairs.append((f"weights.{j}", a.weights[j], b.weights[j]))
+        if a.stdp[j] is not None:
+            pairs += [(f"stdp.{j}.{f}", x, y)
+                      for f, x, y in zip(a.stdp[j]._fields, a.stdp[j], b.stdp[j])]
+    for name, x, y in pairs:
+        x, y = x.cpu(), y.cpu()
+        require(x.dtype == y.dtype and torch.equal(x, y),
+                f"{what}: {name} differs, max abs err {max_err(x, y)}")
+
+
+def _events_per_tick(net, ticks: int = 20) -> float:
+    """Device events per tick of a ``ticks``-tick run on injected uniforms
+    (its set-up included) under ``torch.profiler``, as phase 7 counts them."""
+    from repro_torch.core.engine import run
+
+    gu = torch.rand((ticks, net.static.n_gen), device=net.state0.ring.device)
+    return len(_cuda_events(lambda: run(net.static, net.params, net.state0, ticks, gen_u=gu),
+                            1)) / ticks
+
+
+def _static_launches(net, ticks: int) -> dict:
+    kinds = [b.kind for b in net.static.buckets]
+    return {"izh4_update": ticks, "syn_matmul": kinds.count("dense") * ticks,
+            "syn_gather": ticks if "sparse" in kinds else 0, "fused_tick": 0,
+            **NOT_ON_PATH}
+
+
+def _check_gather_channels(dev, g) -> dict:
+    """``ops.GatherRun`` on a two-channel (COBA) plan against its plain
+    version, bit for bit: an excitatory and an inhibitory bucket sharing a
+    delay and post columns, two excitatory buckets sharing entries, a
+    bucket of another delay, and a dense bucket between them (a second
+    launch group), on weights of both signs that are multiples of 1/4 (so
+    every sum is exact) in f32 and fp16; each bucket's drive enters as
+    its absolute value."""
+    import numpy as np
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import syn_gather as gsyn
+
+    n, f = 300, 7
+
+    def table(q, wdt):
+        idx = torch.randint(0, 100, (q, f), generator=g, dtype=torch.int16)
+        w = (torch.randint(-16, 17, (q, f), generator=g).float() / 4).to(wdt)
+        return (np.arange(100, 200), idx.to(dev), w.to(dev))
+
+    for wdt in (torch.float32, torch.float16):
+        buckets = [gsyn.Bucket(3, np.arange(0, 100), table(100, wdt), 0),
+                   gsyn.Bucket(3, np.arange(0, 100), table(100, wdt), 1),
+                   gsyn.Bucket(3, np.arange(50, 150), table(100, wdt), 0),
+                   gsyn.Bucket(5, np.arange(200, 300), table(100, wdt), 0),
+                   gsyn.Bucket(3, np.arange(40, 60), None, 0),
+                   gsyn.Bucket(3, np.arange(55, 85), table(30, wdt), 0)]
+        run = ops.GatherRun(n, buckets, dev, channels=2)
+        require(run.keys == ((3, 0), (3, 1), (5, 0), (5, 1)) and len(run.starts) == 2,
+                f"GatherRun COBA plan: keys {run.keys}, starts {run.starts}")
+        want = torch.empty_like(run.rows)
+        plain = [[(k, posts.to(dev), gidx.to(dev), w) for k, posts, gidx, w in grp]
+                 for grp in run.plan.plain]
+        for _ in range(3):
+            spikes = (torch.rand(n, generator=g) < 0.5).float().to(dev)
+            ops.reset_launches()
+            for grp in range(len(run.starts)):
+                run(grp, spikes)
+                ref.gather_run_ref(spikes, want, plain[grp], first=grp == 0, absolute=True)
+            torch.cuda.synchronize()
+            require(ops.LAUNCHES["syn_gather"] == 2, "GatherRun COBA: launches "
+                    f"{ops.LAUNCHES['syn_gather']} for 2 groups")
+            _require_bitwise(run.rows, want, f"GatherRun COBA {wdt}")
+            require(bool((want >= 0).all()) and float(want.sum()) > 0,
+                    "GatherRun COBA: rows not non-negative magnitudes")
+    log("[kernels] GatherRun two channels (exc + inh sharing a delay and posts, exc "
+        "buckets sharing entries, two launch groups), f32 and fp16: bitwise against its "
+        "plain version, |drive| per bucket")
+    return {"channel_plan": "exc+inh on one delay and posts, shared exc entries, "
+                            "two groups: bitwise"}
+
+
+def _coba_gather_row(dev, g, net) -> dict:
+    """``ops.GatherRun`` on a compiled COBA Synfire4 sparse net's tables
+    (13 buckets, rows keyed by (delay, channel)): bit for bit against its
+    plain version on random spike rows and timed as the CUBA row is."""
+    from repro_torch.core import backend as be
+    from repro_torch.kernels import ops, ref
+
+    static, params = net.static, net.params
+    packed = be.assemble_packed(static, net.state0.weights)
+    run = be.assemble_gather(static, params, packed)
+    require(len(run.starts) == 1 and len(run.plan.groups[0]) == 13
+            and len(run.keys) == 2 * len(run.delays),
+            f"COBA gather plan {run.plan.groups}, keys {run.keys}")
+    plain = [(k, posts.to(dev), gidx.to(dev), w) for k, posts, gidx, w in run.plan.plain[0]]
+    want = torch.empty_like(run.rows)
+    for _ in range(3):
+        spikes = (torch.rand(static.n, generator=g) < 0.3).float().to(dev)
+        ops.reset_launches()
+        run(0, spikes)
+        ref.gather_run_ref(spikes, want, plain, first=True, absolute=True)
+        torch.cuda.synchronize()
+        require(ops.LAUNCHES["syn_gather"] == 1, "COBA GatherRun: one launch a tick")
+        _require_bitwise(run.rows, want, "COBA GatherRun Synfire4")
+    plan = run.plan
+    ptr = spikes.data_ptr()
+    b_ms, b_by = bound(nbytes(plan.idx, plan.w) + static.n * 4 + nbytes(run.rows),
+                       3 * int(plan.idx.numel()))
+    out = {"shape": f"COBA Synfire4 tick: 13 CSR buckets, {int(plan.idx.numel())} "
+                    f"entries, keys {run.keys}, one launch",
+           "ms": cuda_ms(lambda: run(0, spikes)),
+           "device_ms": device_ms(lambda: run.launcher(0, ptr), "gather_kernel"),
+           "plain_ms": cuda_ms(lambda: ref.gather_run_ref(spikes, want, plain, first=True,
+                                                          absolute=True), reps=20, warmup=3),
+           "bound_ms": b_ms, "bound_by": b_by}
+    log(f"[kernels] GatherRun COBA Synfire4: bitwise on 3 ticks; {out['ms'] * 1e3:.2f} us "
+        f"per call, {out['device_ms'] * 1e3:.2f} us on the device, plain "
+        f"{out['plain_ms'] * 1e3:.2f} us, bound {b_ms * 1e3:.4f} us ({b_by})")
+    return out
+
+
+def phase_coba_kernels(dev, rows: list) -> None:
+    """COBA mode of B1 (``NeuronRun``) and B2 (``GatherRun``) on the card
+    against their plain versions, and their numbers beside the CUBA
+    mode's, into the izh4_update and syn_gather rows."""
+    from repro_torch.configs.synfire4 import SYNFIRE4
+
+    g = torch.Generator(device="cpu").manual_seed(29)
+    row = {r["name"]: r for r in rows}
+    for policy in ("fp16", "fp32"):
+        net = _coba_net(SYNFIRE4, policy, "sparse", dev)
+        for i_ext, records in ((False, False), (True, True)):
+            _hold_neuron_run(net, g, dev, i_ext, records, f"COBA SYNFIRE4 {policy}")
+    fp16 = _coba_net(SYNFIRE4, "fp16", "sparse", dev)
+    nr = _neuron_run_row(fp16, g, dev, "COBA Synfire4 fp16")
+    row["izh4_update"]["coba"] = nr
+    log(f"[kernels] NeuronRun COBA Synfire4 fp16: {nr['ms'] * 1e3:.2f} us per call, "
+        f"{nr['device_ms'] * 1e3:.2f} us on the device (CUBA: "
+        f"{row['izh4_update']['ms'] * 1e3:.2f}, {row['izh4_update']['device_ms'] * 1e3:.2f}), "
+        f"plain {nr['plain_ms'] * 1e3:.2f} us, bound {nr['bound_ms'] * 1e3:.4f} us")
+    gr = _coba_gather_row(dev, g, fp16)
+    gr.update(_check_gather_channels(dev, g))
+    row["syn_gather"]["coba"] = gr
+    log(f"[kernels] GatherRun COBA: {gr['ms'] * 1e3:.2f} us per call, "
+        f"{gr['device_ms'] * 1e3:.2f} us on the device (CUBA: "
+        f"{row['syn_gather']['ms'] * 1e3:.2f}, {row['syn_gather']['device_ms'] * 1e3:.2f})")
+
+
+def phase_coba(dev, totals: dict) -> dict:
+    """COBA Synfire4 (Table II compiled with ``conductances=COBAConfig()``)
+    on the card against the CPU port, at 1,200 and 120,000 neurons, static
+    and plastic, and on ``backend="fused"``."""
+    import numpy as np
+
+    from repro_torch.configs.synfire4 import CHAIN_STDP, SYNFIRE4, build_synfire, scale_synfire
+    from repro_torch.core import backend as be
+
+    cpu_dev = torch.device("cpu")
+    paths, rasters = {}, {}
+    for propagation in ("packed", "sparse"):
+        for policy in ("fp16", "fp32"):
+            key = f"synfire4_coba/{policy}/{propagation}"
+            net = _coba_net(SYNFIRE4, policy, propagation, dev)
+            final, sp, launches, seconds = _timed_run(net, TICKS, dev)
+            cpu = _coba_net(SYNFIRE4, policy, propagation, cpu_dev)
+            cfinal, csp, _, cseconds = _timed_run(cpu, TICKS, cpu_dev)
+            _require_same_raster(sp, csp, key)
+            _require_same_state(final, cfinal, f"{key} card vs CPU")
+            want = _static_launches(net, TICKS)
+            require(launches == want, f"{key}: launches {launches} != {want}")
+            require(want["syn_matmul" if propagation == "packed" else "syn_gather"]
+                    == (8 if propagation == "packed" else 1) * TICKS, f"{key}: plan")
+            _add(totals, launches)
+            events = _events_per_tick(net)
+            rasters[key] = sp
+            total = int(sp.sum())
+            paths[key] = {"us_per_tick": seconds / TICKS * 1e6, "spikes": total,
+                          "rate_hz": total / (net.n_neurons * TICKS) * 1000.0,
+                          "launches": launches, "device_events_per_tick": events,
+                          "cpu_us_per_tick": cseconds / TICKS * 1e6,
+                          "raster_and_state_equal_cpu": True}
+            log(f"[coba] {key}: {total} spikes, {seconds / TICKS * 1e6:.1f} us/tick (CPU "
+                f"port {cseconds / TICKS * 1e6:.1f}), {events:.2f} device events per tick, "
+                f"launches {launches}; card raster, v, u, refrac, ring and conductances == CPU")
+            fnet = _coba_net(SYNFIRE4, policy, propagation, dev, backend="fused")
+            require(not fnet.static.fused_kernel, f"{key}: COBA net planned as one kernel")
+            ffinal, fsp, flaunches, fseconds = _timed_run(fnet, TICKS, dev)
+            _require_same_raster(fsp, sp, f"{key}/fused vs the default backend")
+            _require_same_state(ffinal, final, f"{key}/fused vs the default backend")
+            require(flaunches == want, f"{key}/fused: launches {flaunches} != {want}")
+            _add(totals, flaunches)
+            paths[key + "/fused"] = {"us_per_tick": fseconds / TICKS * 1e6,
+                                     "launches": flaunches,
+                                     "raster_equals_default_backend": True}
+            log(f"[coba] {key}/fused: no fused_tick launch, raster and state == default "
+                f"backend, {fseconds / TICKS * 1e6:.1f} us/tick")
+    for policy in ("fp16", "fp32"):
+        require(torch.equal(rasters[f"synfire4_coba/{policy}/packed"],
+                            rasters[f"synfire4_coba/{policy}/sparse"]),
+                f"COBA {policy}: packed and sparse rasters differ")
+    paths["synfire4/fp16/sparse/device_events_per_tick"] = _events_per_tick(
+        build_synfire(SYNFIRE4, policy="fp16", propagation="sparse", device=dev))
+
+    # x100: the launcher path against the per-op COBA phase, both on the card.
+    cfg = scale_synfire(SYNFIRE4, 100)
+    net = _coba_net(cfg, "fp16", "sparse", dev, monitor_ms_hint=0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    final, sp, launches, seconds = _timed_run(net, TICKS, dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = _static_launches(net, TICKS)
+    require(net.static.n == 120_000 and launches == want,
+            f"COBA x100: N={net.static.n}, launches {launches} != {want}")
+    _add(totals, launches)
+    built = be.assemble_neurons
+    be.assemble_neurons = _none
+    try:
+        pfinal, psp, _, pseconds = _timed_run(net, TICKS, dev)
+    finally:
+        be.assemble_neurons = built
+    _require_same_raster(sp, psp, "COBA x100 launcher vs per-op phase")
+    _require_same_state(final, pfinal, "COBA x100 launcher vs per-op phase")
+    paths["synfire4_x100_coba/fp16/sparse"] = {
+        "us_per_tick": seconds / TICKS * 1e6, "per_op_us_per_tick": pseconds / TICKS * 1e6,
+        "spikes": int(sp.sum()), "n": net.static.n, "peak_device_bytes": peak,
+        "launches": launches, "raster_and_state_equal_per_op": True}
+    log(f"[coba] x100 fp16 sparse: N={net.static.n}, {int(sp.sum())} spikes, "
+        f"{seconds / TICKS * 1e6:.1f} us/tick (per-op COBA phase "
+        f"{pseconds / TICKS * 1e6:.1f}), peak device memory {peak} B, launches {launches}; "
+        "launcher raster and state == per-op phase")
+
+    # Plastic COBA: the chain's weights and traces too.
+    images, prast = {}, {}
+    for propagation in ("packed", "sparse"):
+        key = f"synfire4_coba_plastic/fp16/{propagation}"
+        net = _coba_net(SYNFIRE4, "fp16", propagation, dev, stdp_chain=CHAIN_STDP)
+        final, sp, launches, seconds = _timed_run(net, TICKS, dev)
+        cpu = _coba_net(SYNFIRE4, "fp16", propagation, cpu_dev, stdp_chain=CHAIN_STDP)
+        cfinal, csp, _, _ = _timed_run(cpu, TICKS, cpu_dev)
+        chain = _chain(net)
+        _require_same_raster(sp, csp, key)
+        _require_same_state(final, cfinal, f"{key} card vs CPU", plastic=chain)
+        want = _plastic_launches(net, TICKS)
+        require(launches == want, f"{key}: launches {launches} != {want}")
+        _add(totals, launches)
+        moved = sum(int((final.weights[j].cpu() != net.state0.weights[j].cpu()).sum())
+                    for j in chain)
+        require(moved > 0, f"{key}: no plastic weight moved")
+        images[propagation], prast[propagation] = _dense_chain(net, final), sp
+        paths[key] = {"us_per_tick": seconds / TICKS * 1e6, "spikes": int(sp.sum()),
+                      "plastic_weights_moved": moved, "launches": launches,
+                      "raster_weights_traces_equal_cpu": True}
+        log(f"[coba] {key}: {int(sp.sum())} spikes, {moved} plastic weights moved, "
+            f"{seconds / TICKS * 1e6:.1f} us/tick, launches {launches}; card raster, "
+            "weights and traces == CPU")
+    for j, img in images["packed"].items():
+        require(np.array_equal(img, images["sparse"][j]),
+                f"plastic COBA: packed and sparse weights of projection {j} differ")
+    require(torch.equal(prast["packed"], prast["sparse"]),
+            "plastic COBA: packed and sparse rasters differ")
+    log("[coba] plastic fp16: packed and sparse rasters and chain weights bitwise equal")
+    return paths
+
+
+def phase_a5(dev, totals: dict) -> dict:
+    """``run``'s ``gen_base``, ``gen_chunk`` and ``active`` and the loop
+    oracle on Synfire4 on the card, against the CPU port and each other."""
+    from repro_torch.configs.synfire4 import SYNFIRE4, build_synfire
+    from repro_torch.core import rng
+    from repro_torch.core.engine import run
+    from repro_torch.core.plasticity import HomeostasisConfig
+
+    cpu_dev = torch.device("cpu")
+    paths = {}
+    sparse = lambda d, **kw: build_synfire(SYNFIRE4, policy="fp16",  # noqa: E731
+                                           propagation="sparse", device=d, **kw)
+
+    # gen_base: call-split invariance on the card, and card == CPU.
+    net, cpu = sparse(dev), sparse(cpu_dev)
+    base = rng.key(7, dev)
+    final, sp, launches, seconds = _timed_run(net, TICKS, dev, gen_base=base)
+    require(launches == _static_launches(net, TICKS), f"gen_base launches {launches}")
+    _add(totals, launches)
+    state, parts = net.state0, []
+    for _ in range(4):
+        state, out = run(net.static, net.params, state, TICKS // 4, gen_base=base)
+        parts.append(out["spikes"].cpu())
+    _require_same_raster(torch.cat(parts), sp, "gen_base 4 x 250 vs 1 x 1000")
+    _require_same_state(state, final, "gen_base 4 x 250 vs 1 x 1000")
+    require(torch.equal(final.key, net.state0.key), "gen_base moved the key")
+    cfinal, csp, _, _ = _timed_run(cpu, TICKS, cpu_dev, gen_base=base.cpu())
+    _require_same_raster(sp, csp, "gen_base card vs CPU")
+    _require_same_state(final, cfinal, "gen_base card vs CPU")
+    paths["a5/gen_base/fp16/sparse"] = {"us_per_tick": seconds / TICKS * 1e6,
+                                        "spikes": int(sp.sum()), "launches": launches}
+    log(f"[a5] gen_base: run(1000) == 4 x run(250) bitwise on the card, == CPU port; "
+        f"{int(sp.sum())} spikes, {seconds / TICKS * 1e6:.1f} us/tick")
+
+    # gen_chunk: card == CPU, also with homeostasis every 100 ticks.
+    homeo = dict(homeo_chain=HomeostasisConfig(**HOMEO), homeostasis_period=100)
+    for label, kw in (("static", {}), ("homeostasis", homeo)):
+        net, cpu = sparse(dev, **kw), sparse(cpu_dev, **kw)
+        final, sp, launches, seconds = _timed_run(net, TICKS, dev, gen_chunk=100)
+        cfinal, csp, _, _ = _timed_run(cpu, TICKS, cpu_dev, gen_chunk=100)
+        chain = [j for j, h in enumerate(net.static.homeo) if h is not None]
+        _require_same_raster(sp, csp, f"gen_chunk {label}")
+        _require_same_state(final, cfinal, f"gen_chunk {label} card vs CPU", plastic=chain)
+        _add(totals, launches)
+        paths[f"a5/gen_chunk/{label}/fp16/sparse"] = {
+            "us_per_tick": seconds / TICKS * 1e6, "spikes": int(sp.sum()),
+            "launches": launches}
+        log(f"[a5] gen_chunk=100 {label}: card raster and state == CPU port; "
+            f"{int(sp.sum())} spikes, {seconds / TICKS * 1e6:.1f} us/tick")
+
+    # active=False: no generator spike, homeostasis leaves the weights.
+    net = sparse(dev, **homeo)
+    chain = [j for j, h in enumerate(net.static.homeo) if h is not None]
+    idle = torch.tensor(False, device=dev)
+    final, out = run(net.static, net.params, net.state0, 200, active=idle)
+    gen_cols = torch.cat([out["spikes"][:, g0:g0 + sz] for g0, sz in net.static.gen_spans], 1)
+    require(int(gen_cols.sum()) == 0, "active=False: generators spiked")
+    require(all(torch.equal(final.weights[j], net.state0.weights[j]) for j in chain),
+            "active=False: homeostasis moved weights")
+    busy, _ = run(net.static, net.params, net.state0, 200, active=torch.tensor(True, device=dev))
+    require(any(not torch.equal(busy.weights[j], net.state0.weights[j]) for j in chain),
+            "active=True: homeostasis moved no weight")
+    paths["a5/active_false"] = {"generator_spikes": 0, "weights_unchanged": True,
+                                "spikes": int(out["spikes"].sum())}
+    log(f"[a5] active=False for 200 ticks: no generator spike ({int(out['spikes'].sum())} "
+        "spikes in all), homeostasis left the weights; active=True moves them")
+
+    # The loop oracle against packed on the card.
+    for policy in ("fp16", "fp32"):
+        key = f"a5/loop/{policy}"
+        loop = build_synfire(SYNFIRE4, policy=policy, propagation="loop", device=dev)
+        packed = build_synfire(SYNFIRE4, policy=policy, propagation="packed", device=dev)
+        lfinal, lsp, launches, seconds = _timed_run(loop, TICKS, dev)
+        _, psp, _, _ = _timed_run(packed, TICKS, dev)
+        _require_same_raster(lsp, psp, f"{key}: loop vs packed")
+        want = {**_static_launches(loop, TICKS), "syn_matmul": 0, "syn_gather": 0}
+        require(launches == want, f"{key}: launches {launches} != {want}")
+        _add(totals, launches)
+        paths[key] = {"us_per_tick": seconds / TICKS * 1e6, "spikes": int(lsp.sum()),
+                      "launches": launches, "raster_equals_packed": True}
+        log(f"[a5] loop {policy}: raster == packed on the card, {int(lsp.sum())} spikes, "
+            f"{seconds / TICKS * 1e6:.1f} us/tick")
+    return paths
+
+
 # -- LM serving ----------------------------------------------------------------------
 
 SMOLLM = "smollm-360m"
@@ -2380,6 +2828,9 @@ def main() -> int:
     paths = phase_synfire(dev, totals)
     paths.update(phase_scale(dev, totals))
     paths.update(phase_plastic(dev, totals))
+    phase_coba_kernels(dev, rows)
+    paths.update(phase_coba(dev, totals))
+    paths.update(phase_a5(dev, totals))
     lm_row, lm_paths = phase_lm(dev, totals)
     rows.append(lm_row)
     paths.update(lm_paths)

@@ -81,6 +81,45 @@ SYNFIRE4_X10 = scale_synfire(SYNFIRE4, 10)
 CHAIN_STDP = STDPConfig(a_plus=0.004, a_minus=0.0033, w_max=4.0)
 
 
+def _synfire_builder(cfg: SynfireConfig, *, seed: int = 42,
+                     stdp_chain: STDPConfig | None = None,
+                     homeo_chain: HomeostasisConfig | None = None) -> NetworkBuilder:
+    """Synfire's Table II network, declared and not yet compiled: what
+    :func:`build_synfire` compiles (a caller may compile it with other
+    arguments, such as ``conductances=``)."""
+    net = NetworkBuilder(seed=seed)
+    net.add_spike_generator(
+        "Cstim", cfg.n_stim, cfg.stim_pulse_hz,
+        until_ms=cfg.stim_pulse_ms, rate_after_hz=cfg.stim_rate_hz,
+    )
+    for i in range(cfg.n_segments):
+        net.add_group(f"Cexc{i}", izh4(cfg.n_exc, a=0.02, b=0.2, c=-65.0, d=8.0))
+        net.add_group(f"Cinh{i}", izh4(cfg.n_inh, a=0.1, b=0.2, c=-65.0, d=2.0))
+
+    # Table II rows.
+    net.connect("Cstim", "Cexc0", fanin=cfg.fanin_exc, weight=cfg.w_exc,
+                delay_ms=cfg.delay_ff, mode=cfg.connect_mode)
+    net.connect("Cstim", "Cinh0", fanin=cfg.fanin_exc, weight=cfg.w_inh_drive,
+                delay_ms=cfg.delay_ff, mode=cfg.connect_mode)
+    for i in range(cfg.n_segments - 1):
+        net.connect(f"Cexc{i}", f"Cexc{i + 1}", fanin=cfg.fanin_exc,
+                    weight=cfg.w_exc, delay_ms=cfg.delay_ff, mode=cfg.connect_mode,
+                    stdp=stdp_chain, homeostasis=homeo_chain)
+        net.connect(f"Cexc{i}", f"Cinh{i + 1}", fanin=cfg.fanin_exc,
+                    weight=cfg.w_inh_drive, delay_ms=cfg.delay_ff,
+                    mode=cfg.connect_mode)
+        net.connect(f"Cinh{i + 1}", f"Cexc{i + 1}", fanin=cfg.fanin_inh,
+                    weight=cfg.w_inh, delay_ms=cfg.delay_inh, mode=cfg.connect_mode)
+    # Recurrent closure: segment 3 -> segment 0.
+    last = cfg.n_segments - 1
+    net.connect(f"Cexc{last}", "Cexc0", fanin=cfg.fanin_exc, weight=cfg.w_exc,
+                delay_ms=cfg.delay_ff, mode=cfg.connect_mode, stdp=stdp_chain,
+                homeostasis=homeo_chain)
+    net.connect(f"Cexc{last}", "Cinh0", fanin=cfg.fanin_exc,
+                weight=cfg.w_inh_drive, delay_ms=cfg.delay_ff, mode=cfg.connect_mode)
+    return net
+
+
 def build_synfire(
     cfg: SynfireConfig = SYNFIRE4,
     *,
@@ -115,37 +154,7 @@ def build_synfire(
     ``homeostasis_period`` adds CARLsim's slow-timer synaptic scaling to
     the same projections, applied every ``homeostasis_period`` ticks.
     """
-    net = NetworkBuilder(seed=seed)
-    net.add_spike_generator(
-        "Cstim", cfg.n_stim, cfg.stim_pulse_hz,
-        until_ms=cfg.stim_pulse_ms, rate_after_hz=cfg.stim_rate_hz,
-    )
-    for i in range(cfg.n_segments):
-        net.add_group(f"Cexc{i}", izh4(cfg.n_exc, a=0.02, b=0.2, c=-65.0, d=8.0))
-        net.add_group(f"Cinh{i}", izh4(cfg.n_inh, a=0.1, b=0.2, c=-65.0, d=2.0))
-
-    # Table II rows.
-    net.connect("Cstim", "Cexc0", fanin=cfg.fanin_exc, weight=cfg.w_exc,
-                delay_ms=cfg.delay_ff, mode=cfg.connect_mode)
-    net.connect("Cstim", "Cinh0", fanin=cfg.fanin_exc, weight=cfg.w_inh_drive,
-                delay_ms=cfg.delay_ff, mode=cfg.connect_mode)
-    for i in range(cfg.n_segments - 1):
-        net.connect(f"Cexc{i}", f"Cexc{i + 1}", fanin=cfg.fanin_exc,
-                    weight=cfg.w_exc, delay_ms=cfg.delay_ff, mode=cfg.connect_mode,
-                    stdp=stdp_chain, homeostasis=homeo_chain)
-        net.connect(f"Cexc{i}", f"Cinh{i + 1}", fanin=cfg.fanin_exc,
-                    weight=cfg.w_inh_drive, delay_ms=cfg.delay_ff,
-                    mode=cfg.connect_mode)
-        net.connect(f"Cinh{i + 1}", f"Cexc{i + 1}", fanin=cfg.fanin_inh,
-                    weight=cfg.w_inh, delay_ms=cfg.delay_inh, mode=cfg.connect_mode)
-    # Recurrent closure: segment 3 -> segment 0.
-    last = cfg.n_segments - 1
-    net.connect(f"Cexc{last}", "Cexc0", fanin=cfg.fanin_exc, weight=cfg.w_exc,
-                delay_ms=cfg.delay_ff, mode=cfg.connect_mode, stdp=stdp_chain,
-                homeostasis=homeo_chain)
-    net.connect(f"Cexc{last}", "Cinh0", fanin=cfg.fanin_exc,
-                weight=cfg.w_inh_drive, delay_ms=cfg.delay_ff, mode=cfg.connect_mode)
-
+    net = _synfire_builder(cfg, seed=seed, stdp_chain=stdp_chain, homeo_chain=homeo_chain)
     ledger = MemoryLedger(budget=budget, name=f"{cfg.name}/{policy}")
     return net.compile(policy=policy, ledger=ledger,
                        monitor_ms_hint=monitor_ms_hint, monitors=monitors,

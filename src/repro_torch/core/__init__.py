@@ -1,4 +1,11 @@
 """SNN simulation core: the paper's contribution (CARLsim on PyTorch/CUDA)."""
+from repro_torch.core.conductance import (
+    COBAConfig,
+    ConductanceState,
+    coba_current,
+    decay_and_deliver,
+    init_conductance_state,
+)
 from repro_torch.core.engine import Engine, StepOutput, run, step
 from repro_torch.core.network import (
     BucketSpec,
@@ -22,6 +29,8 @@ from repro_torch.core.neurons import (
 )
 
 __all__ = [
+    "COBAConfig", "ConductanceState", "coba_current", "decay_and_deliver",
+    "init_conductance_state",
     "Engine", "StepOutput", "run", "step",
     "BucketSpec", "CompiledNetwork", "FusedPlan", "GroupSpec", "NetParams", "NetState",
     "NetStatic", "NetworkBuilder",

@@ -22,7 +22,15 @@ tick, trace steps included, through its
 :func:`assemble_stdp_update`).
 ``backend="fused"`` assembles its payload here (:func:`assemble_fused`):
 the whole tick is then the ``fused_tick`` kernel where the plan allows it,
-and the phases above where it does not.
+and the phases above where it does not. ``propagation="loop"`` nets
+propagate through :func:`propagate_loop`, the oracle: one plain product
+and one ring commit per projection.
+
+Conductance-based (COBA) nets have a two-channel ring: every drive lands
+as its absolute value in channel 0 (excitatory projections) or 1
+(inhibitory ones), bucket by bucket and projection by projection, as in
+the reference; their neuron phase decays and delivers the conductances
+(:class:`repro_torch.kernels.ops.NeuronRun`'s COBA mode).
 The wrappers in :mod:`repro_torch.kernels.ops` launch the CUDA kernels for
 tensors on the card and run their plain PyTorch versions for tensors on
 the CPU, so this module has one code path.
@@ -47,16 +55,20 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import neurons as nrn
+from repro_torch.core.conductance import decay_factors
+from repro_torch.core.network import ring_channel
 from repro_torch.core.plasticity import STDPState, _trace_step
-from repro_torch.core.synapses import stp_update
+from repro_torch.core.synapses import ProjectionParams, propagate, stp_update
 from repro_torch.kernels import ops
 from repro_torch.kernels.fused_tick import KernelPayload, assemble_kernel
+from repro_torch.kernels.izh_update import CobaCoeffs
 from repro_torch.kernels.stdp_gather import Projection
 from repro_torch.kernels.stdp_update import DenseProjection
 from repro_torch.kernels.syn_gather import Bucket
 
 __all__ = ["assemble_packed", "assemble_matmul", "assemble_gather", "assemble_neurons",
-           "update_neurons_dispatch", "propagate_packed", "FaninRows", "assemble_fanin",
+           "coba_coeffs", "update_neurons_dispatch", "propagate_packed", "propagate_loop",
+           "FaninRows", "assemble_fanin",
            "xla_cpu_row_sum", "plastic_drive", "stdp_dispatch", "assemble_stdp_gather",
            "assemble_stdp_update", "FusedPayload", "assemble_fused"]
 
@@ -110,19 +122,39 @@ def assemble_gather(static, params, packed) -> ops.GatherRun:
             pre = (np.arange(b.pre_start, b.pre_start + b.p) if b.pre_start >= 0
                    else params.bucket_pre_ids[bi].cpu().numpy())
             table = (pre, params.bucket_csr_idx[bi], packed[bi])
-        buckets.append(Bucket(b.delay_ms, posts, table))
-    return ops.GatherRun(static.n, buckets, params.neuron.a.device)
+        buckets.append(Bucket(b.delay_ms, posts, table, b.channel))
+    return ops.GatherRun(static.n, buckets, params.neuron.a.device, static.ring_channels)
+
+
+def coba_coeffs(static) -> CobaCoeffs:
+    """The COBA neuron phase's coefficients of a net with ``static.coba``:
+    the decay factors of :func:`repro_torch.core.conductance.decay_factors`,
+    the delivery fractions and the reversal potentials, each the f32 value
+    of the configuration's double, as the reference's weak-typed scalars
+    enter."""
+    cfg = static.coba
+
+    def as_f32(x: float) -> float:
+        return float(torch.tensor(x, dtype=f32))
+
+    return CobaCoeffs(
+        decay=decay_factors(cfg, static.dt),
+        frac=tuple(as_f32(x) for x in (1.0 - cfg.nmda_frac, cfg.nmda_frac,
+                                        1.0 - cfg.gabab_frac, cfg.gabab_frac)),
+        e_exc=as_f32(cfg.e_exc), e_gabaa=as_f32(cfg.e_gabaa),
+        e_gabab=as_f32(cfg.e_gabab))
 
 
 def assemble_neurons(static, params, neurons: nrn.NeuronState, ring: torch.Tensor, *,
-                     gen_spk=None, i_ext=None, raster=None, v_rows=None, i_rows=None,
-                     counts=None) -> ops.NeuronRun | None:
+                     cond=None, gen_spk=None, i_ext=None, raster=None, v_rows=None,
+                     i_rows=None, counts=None) -> ops.NeuronRun | None:
     """The run's neuron-phase launcher (an :class:`repro_torch.kernels.ops.NeuronRun`
-    on copies of ``neurons`` and on the run's ``ring``) for IZH4-only
-    Euler networks, None for the others, which integrate through
-    :func:`update_neurons_dispatch` tick by tick. ``gen_spk`` ``[T, n_gen]``
-    holds the generator spans' spikes side by side in ``static.gen_spans``
-    order; the other rows and ``counts`` are ``NeuronRun``'s."""
+    on copies of ``neurons`` and, for a COBA net, of its conductances
+    ``cond``, and on the run's ``ring``) for IZH4-only Euler networks, None
+    for the others, which integrate through :func:`update_neurons_dispatch`
+    tick by tick. ``gen_spk`` ``[T, n_gen]`` holds the generator spans'
+    spikes side by side in ``static.gen_spans`` order; the other rows and
+    ``counts`` are ``NeuronRun``'s."""
     if not (static.izh4_only and static.method == "euler"):
         return None
     p = params.neuron
@@ -136,8 +168,9 @@ def assemble_neurons(static, params, neurons: nrn.NeuronState, ring: torch.Tenso
     return ops.NeuronRun(neurons.v, neurons.u, neurons.refrac, ring,
                          p.model == nrn.NeuronModel.GENERATOR, p.a, p.b, p.c, p.d,
                          gen_spk=gen_spk, gen_cols=cols, i_ext=i_ext, raster=raster,
-                         v_rows=v_rows, i_rows=i_rows, counts=counts, dt=static.dt,
-                         substeps=static.substeps)
+                         v_rows=v_rows, i_rows=i_rows, counts=counts, cond=cond,
+                         coba=None if static.coba is None else coba_coeffs(static),
+                         dt=static.dt, substeps=static.substeps)
 
 
 def update_neurons_dispatch(static, params, neurons: nrn.NeuronState,
@@ -277,16 +310,19 @@ def propagate_packed(static, params, spikes_f32: torch.Tensor, ring: torch.Tenso
                      matmul=None, gather=None, padded=None) -> tuple:
     """Propagate this tick's spikes (``[N]`` f32, 0.0/1.0) into ``ring``.
 
-    Each bucket's drive lands in a per-delay ``[N, 1]`` f32 accumulator in
-    plan order: the sparse buckets' through ``gather``, whose accumulator
-    rows become those of their delays (its group 0 writes them before the
-    first bucket, a later group adds where it stands), the dense buckets'
+    Each bucket's drive lands in a per-delay ``[N, C]`` f32 accumulator
+    (``C = static.ring_channels``) in plan order, in its bucket's channel:
+    the sparse buckets' through ``gather``, whose accumulator rows become
+    those of their delays (its group 0 writes them before the first
+    bucket, a later group adds where it stands), the dense buckets'
     through ``matmul``; then every plastic or STP projection's fan-in-row
     drive (:func:`plastic_drive` on ``weights[j]``, the pre row scaled by
     ``u · x`` for STP) lands in the same accumulators, in projection
-    order; then one commit per distinct delay adds each accumulator, cast
-    to the ring's dtype first, into ring slot ``(t + d) % ring_len`` (the
-    reference's ``row + acc.astype(ring.dtype)``). ``fanin`` is
+    order, in channel 1 for an inhibitory projection of a COBA net and 0
+    else; a COBA drive lands as its absolute value. Then one commit per
+    distinct delay adds each accumulator, cast to the ring's dtype first,
+    into ring slot ``(t + d) % ring_len`` (the reference's ``row +
+    acc.astype(ring.dtype)``). ``fanin`` is
     :func:`assemble_fanin`'s output, ``matmul`` :func:`assemble_matmul`'s
     and ``gather`` :func:`assemble_gather`'s, each built here when
     omitted; ``padded`` maps projection ids to the flat zero-ended weight
@@ -299,20 +335,25 @@ def propagate_packed(static, params, spikes_f32: torch.Tensor, ring: torch.Tenso
         matmul = assemble_matmul(static, packed)
     if gather is None:
         gather = assemble_gather(static, params, packed)
+    n_ch = static.ring_channels
+    coba = n_ch == 2
 
-    def add(delay_ms, post_start, q, drive, post_ids=None):
+    def add(delay_ms, channel, post_start, q, drive, post_ids=None):
         a = acc.get(delay_ms)
         if a is None:
-            a = acc[delay_ms] = torch.zeros((static.n, 1), dtype=f32,
+            a = acc[delay_ms] = torch.zeros((static.n, n_ch), dtype=f32,
                                             device=spikes_f32.device)
+        if coba:
+            drive = drive.abs()
         if post_start >= 0:
-            a[post_start:post_start + q, 0] += drive
+            a[post_start:post_start + q, channel] += drive
         else:
-            a[:, 0].index_add_(0, post_ids, drive)
+            a[:, channel].index_add_(0, post_ids, drive)
 
     if gather.starts:
         gather(0, spikes_f32)
-        acc.update((d, gather.rows[k][:, None]) for k, d in enumerate(gather.delays))
+        acc.update((d, gather.rows[k * n_ch:(k + 1) * n_ch].t())
+                   for k, d in enumerate(gather.delays))
     later = {i: g for g, i in enumerate(gather.starts) if g}
     for bi, b in enumerate(static.buckets):
         if bi in later:
@@ -320,7 +361,7 @@ def propagate_packed(static, params, spikes_f32: torch.Tensor, ring: torch.Tenso
         if b.kind == "sparse":
             continue
         drive = matmul(bi, _bucket_pre(static, params, spikes_f32, bi))
-        add(b.delay_ms, b.post_start, b.q, drive, params.bucket_post_ids[bi])
+        add(b.delay_ms, b.channel, b.post_start, b.q, drive, params.bucket_post_ids[bi])
 
     new_stp = list(stp) or [None] * len(static.projections)
     per_proj = [j for j, s in enumerate(static.projections)
@@ -335,10 +376,36 @@ def propagate_packed(static, params, spikes_f32: torch.Tensor, ring: torch.Tenso
                 pre_sp = spikes_f32[spec.pre_slice]
                 pre_row = pre_sp * (stp[j].u * stp[j].x)
                 new_stp[j] = stp_update(spec.stp, stp[j], pre_sp, static.dt)
-            add(spec.delay_ms, spec.post_start, spec.post_size,
+            add(spec.delay_ms, ring_channel(spec, n_ch), spec.post_start, spec.post_size,
                 plastic_drive(weights[j], fanin[j], pre_row, (padded or {}).get(j)))
     for d in sorted(acc):
         ring[(t + d) % static.ring_len] += acc[d].to(ring.dtype)
+    return tuple(new_stp)
+
+
+def propagate_loop(static, spikes_f32: torch.Tensor, ring: torch.Tensor, t: int,
+                   weights, stp) -> tuple:
+    """The loop oracle's propagation (``propagation="loop"``), as the
+    reference's ``engine._propagate_loop``: projection by projection, its
+    drive (:func:`repro_torch.core.synapses.propagate`, one plain
+    ``torch.matmul`` of the pre row, scaled by ``u · x`` for STP, with the
+    dense weights), its absolute value on a COBA net, is cast to the ring's
+    dtype and added into its post columns and channel of ring slot ``(t +
+    delay) % ring_len``: one rounding per projection, where
+    :func:`propagate_packed` rounds once per delay (the two agree on
+    exactly representable tables). Updates ``ring`` in place; returns the
+    STP states advanced by this tick's spikes, aligned with the
+    projections."""
+    n_ch = static.ring_channels
+    new_stp = []
+    for spec, w, st in zip(static.projections, weights, stp or (None,) * len(weights)):
+        contrib = propagate(spec, ProjectionParams(weight=w, mask=None), spikes_f32, st)
+        if n_ch == 2:
+            contrib = contrib.abs()
+        ring[(t + spec.delay_ms) % static.ring_len, spec.post_slice,
+             ring_channel(spec, n_ch)] += contrib.to(ring.dtype)
+        new_stp.append(None if st is None
+                       else stp_update(spec.stp, st, spikes_f32[spec.pre_slice], static.dt))
     return tuple(new_stp)
 
 

@@ -13,7 +13,9 @@ in one flat dict whose keys name the port's fields:
   the port's int32 bit patterns), ``neurons.v``, ``neurons.u``, ``neurons.refrac``, ``ring``,
   ``weights.<j>``, ``stp.<j>.u``/``.x`` (STP projections),
   ``stdp.<j>.pre_trace``/``.post_trace`` and, for DA-STDP, ``.elig``
-  (plastic projections), ``homeo.<j>`` (projections with homeostasis).
+  (plastic projections), ``cond.g_ampa``/``.g_nmda``/``.g_gabaa``/
+  ``.g_gabab`` (COBA nets), ``homeo.<j>`` (projections with homeostasis).
+  The ring is ``[L, N, C]``, C the net's ring channels.
 
 Both functions take exactly the keys the port's compiled ``static`` needs
 and check each array's shape and dtype against it, so a mid-run reference
@@ -30,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.conductance import ConductanceState
 from repro_torch.core.network import NetParams, NetState, NetStatic
 from repro_torch.core.neurons import NeuronParams, NeuronState
 from repro_torch.core.plasticity import DASTDPState, STDPState
@@ -141,11 +144,13 @@ def state_from_numpy(static: NetStatic, arrays: dict, device) -> NetState:
     homeo = tuple(
         None if h is None else read(f"homeo.{j}", (s.post_size,), torch.float32)
         for j, (s, h) in enumerate(zip(specs, static.homeo)))
+    cond = None if static.coba is None else ConductanceState(
+        *(read(f"cond.{f}", (n,), sdt) for f in ConductanceState._fields))
     state = NetState(
         t=t, key=torch.from_numpy(key.view(np.int32).copy()).to(device),
         neurons=neurons,
-        ring=read("ring", (static.ring_len, n, 1), sdt),
-        weights=weights, stp=stp, stdp=tuple(stdp), homeo=homeo)
+        ring=read("ring", (static.ring_len, n, static.ring_channels), sdt),
+        weights=weights, stp=stp, stdp=tuple(stdp), cond=cond, homeo=homeo)
     read.finish()
     return state
 

@@ -5,12 +5,15 @@ Order of operations per tick follows CARLsim's kernel, as the reference's
 
   1. read the delay-ring slot for tick t (the currents that arrive now)
      and zero it
-  2. CUBA: the current is the signed slot (+ optional external current)
+  2. CUBA: the current is the signed slot; COBA: the conductances decay,
+     take the slot's excitatory and inhibitory deliveries, and give the
+     current at the membrane potential (+ optional external current)
   3. integrate the neurons, detect and reset spikes (``izh4_update``)
   4. merge the Poisson generators' spikes
   5. propagate the spikes through every bucket into slot (t + d) mod D
      (``syn_matmul`` / ``syn_gather``), then through the plastic and STP
-     projections' fan-in rows, one ring commit per delay
+     projections' fan-in rows, one ring commit per delay (the ``loop``
+     oracle: one plain product and one ring commit per projection)
   6. plasticity: pair-based STDP on the plastic projections
      (``stdp_update`` on dense storage, ``stdp_gather`` on CSR rows), or
      DA-STDP gated by the tick's dopamine
@@ -43,7 +46,10 @@ runs with an external current, tick as the default backend does.
 
 The generator uniforms come, by default, from the reference's threefry
 stream (:mod:`repro_torch.core.rng`): the same seed gives the same raster
-in both packages.
+in both packages. ``run``'s serving arguments follow the reference's:
+``gen_chunk`` draws them chunk by chunk (generator memory O(chunk)),
+``gen_base`` from a counter-keyed stream indexed by the absolute tick
+(runs are call-split invariant), and ``active`` gates a lane silent.
 """
 from __future__ import annotations
 
@@ -55,6 +61,12 @@ import torch
 from repro_torch.core import backend as be
 from repro_torch.core import neurons as nrn
 from repro_torch.core import rng
+from repro_torch.core.conductance import (
+    ConductanceState,
+    coba_current,
+    decay_and_deliver,
+    decay_factors,
+)
 from repro_torch.core.network import CompiledNetwork, NetParams, NetState, NetStatic
 from repro_torch.core.neurons import NeuronState
 from repro_torch.core.plasticity import (
@@ -148,12 +160,15 @@ def _plasticity(static: NetStatic, params: NetParams, spikes_f32: torch.Tensor,
 
 
 def _apply_homeostasis(static: NetStatic, weights: tuple, homeo: tuple,
-                       counts: torch.Tensor) -> tuple[tuple, tuple]:
+                       counts: torch.Tensor,
+                       active: torch.Tensor | None = None) -> tuple[tuple, tuple]:
     """The slow timer: every projection carrying a homeostasis config scales
     its weights from ``counts``, each neuron's spikes over the elapsed
     segment of ``homeo_period`` ticks, with ``dt`` the segment in ms (so
     the op's rate term is the segment's mean rate in Hz). Dense and CSR
-    storage compute the same ``w · scale[post]`` per synapse."""
+    storage compute the same ``w · scale[post]`` per synapse. ``active``
+    (a 0-dim bool tensor) gates the update on the device: an idle lane's
+    rates and weights stay as they were."""
     chunk_ms = static.homeo_period * static.dt
     csr = static.csr_projs
     new_w, new_h = list(weights), list(homeo)
@@ -161,20 +176,35 @@ def _apply_homeostasis(static: NetStatic, weights: tuple, homeo: tuple,
         if cfg is None:
             continue
         fn = homeostasis_step_csr if j in csr else homeostasis_step
-        new_h[j], new_w[j] = fn(cfg, homeo[j], weights[j],
-                                counts[static.projections[j].post_slice], chunk_ms)
+        avg, w = fn(cfg, homeo[j], weights[j], counts[static.projections[j].post_slice],
+                    chunk_ms)
+        if active is not None:
+            avg = torch.where(active, avg, homeo[j])
+            w = torch.where(active, w, weights[j])
+        new_h[j], new_w[j] = avg, w
     return tuple(new_w), tuple(new_h)
 
 
 def _neuron_phase(static: NetStatic, params: NetParams, neurons: NeuronState,
                   ring: torch.Tensor, t: int, gen_row: torch.Tensor | None,
-                  i_ext_row: torch.Tensor | None):
+                  i_ext_row: torch.Tensor | None, cond: ConductanceState | None = None,
+                  decays=None):
     """Steps 1-4 of tick ``t`` op by op, zeroing the ring slot in place;
-    returns (neurons', spikes, i_syn). ``run`` takes them through the run's
-    ``ops.NeuronRun`` where the net allows it."""
+    returns (neurons', spikes, i_syn, cond'). A COBA net's conductances
+    decay and take the slot's channels (``decays``: the factors of
+    :func:`repro_torch.core.conductance.decay_factors`, computed when
+    omitted), and the current comes from them and the v before the update.
+    ``run`` takes these steps through the run's ``ops.NeuronRun`` where
+    the net allows it."""
     slot = t % static.ring_len
-    i_syn = ring[slot, :, 0].to(f32, copy=True)
+    deliver = ring[slot].to(f32, copy=True)  # [N, C]
     ring[slot].zero_()
+    if static.coba is not None:
+        cond = decay_and_deliver(static.coba, cond, deliver[:, 0], deliver[:, 1],
+                                 static.dt, decays)
+        i_syn = coba_current(static.coba, cond, neurons.v)
+    else:
+        i_syn = deliver[:, 0]
     if i_ext_row is not None:
         i_syn = i_syn + i_ext_row.to(f32)
     neurons, spikes = be.update_neurons_dispatch(static, params, neurons, i_syn)
@@ -183,16 +213,20 @@ def _neuron_phase(static: NetStatic, params: NetParams, neurons: NeuronState,
         for g0, sz in static.gen_spans:
             spikes[g0:g0 + sz] = gen_row[off:off + sz]
             off += sz
-    return neurons, spikes, i_syn
+    return neurons, spikes, i_syn, cond
 
 
 def _synaptic_phase(static: NetStatic, params: NetParams, spikes_f32: torch.Tensor,
                     ring: torch.Tensor, t: int, packed, syn: _Syn, fanin, matmul, gather,
                     dopamine=None, stdp_runs=(), padded=None) -> _Syn:
     """Steps 5-6 of tick ``t`` on its f32 spike row, updating ``ring`` in
-    place; returns syn'. ``padded`` is ``propagate_packed``'s."""
-    stp = be.propagate_packed(static, params, spikes_f32, ring, t, packed,
-                              syn.weights, syn.stp, fanin, matmul, gather, padded)
+    place; returns syn'. ``padded`` is ``propagate_packed``'s; the loop
+    oracle takes none of ``packed``, ``fanin``, ``matmul``, ``gather``."""
+    if static.propagation == "loop":
+        stp = be.propagate_loop(static, spikes_f32, ring, t, syn.weights, syn.stp)
+    else:
+        stp = be.propagate_packed(static, params, spikes_f32, ring, t, packed,
+                                  syn.weights, syn.stp, fanin, matmul, gather, padded)
     weights, stdp = _plasticity(static, params, spikes_f32, syn.weights, syn.stdp,
                                 dopamine, stdp_runs)
     return _Syn(weights, stp, stdp)
@@ -233,7 +267,7 @@ def step(static: NetStatic, params: NetParams, state: NetState,
         _check_gen_u(gen_u, (static.n_gen,), dev)
         gen_row = _gen_spikes(static, params, state.t, gen_u[None])[0]
     fused = static.backend == "fused"
-    if packed is None:
+    if packed is None and static.propagation != "loop":
         packed = (be.assemble_fused(static, state.weights, params) if fused
                   else be.assemble_packed(static, state.weights))
     if static.fused_kernel and i_ext is None:
@@ -244,13 +278,13 @@ def step(static: NetStatic, params: NetParams, state: NetState,
     if fused:
         packed = packed.packed
     ring = state.ring.clone()
-    neurons, spikes, i_syn = _neuron_phase(static, params, state.neurons, ring, state.t,
-                                           gen_row, i_ext)
+    neurons, spikes, i_syn, cond = _neuron_phase(static, params, state.neurons, ring,
+                                                 state.t, gen_row, i_ext, state.cond)
     syn = _synaptic_phase(static, params, spikes.to(f32), ring, state.t, packed,
                           _Syn(state.weights, state.stp, state.stdp), None, None, None,
                           dopamine)
     new_state = state._replace(t=state.t + 1, key=key, neurons=neurons, ring=ring,
-                               **syn._asdict())
+                               cond=cond, **syn._asdict())
     return new_state, StepOutput(spikes=spikes, v=neurons.v.to(f32), i_syn=i_syn)
 
 
@@ -322,6 +356,14 @@ def _run_kernel(static, params, state, n_steps, payload, gen_spk, record,
     return final, outputs
 
 
+def _check_active(active, dev: torch.device) -> torch.Tensor:
+    active = torch.as_tensor(active, device=dev)
+    if active.dtype != torch.bool or active.dim() != 0:
+        raise ValueError(f"active must be a 0-dim bool tensor, got {active.dtype} "
+                         f"{tuple(active.shape)}")
+    return active
+
+
 def run(
     static: NetStatic,
     params: NetParams,
@@ -335,6 +377,12 @@ def run(
     record_i: bool = False,
     gen_u: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
+    gen_chunk: int | None = None,
+    gen_base: torch.Tensor | None = None,
+    active: torch.Tensor | None = None,
+    tel_carry=None,
+    return_tel_carry: bool = False,
+    watch_carry=None,
 ) -> tuple[NetState, dict]:
     """Run ``n_steps`` ticks; returns ``(state', outputs)``.
 
@@ -350,12 +398,33 @@ def run(
     of every segment of that many ticks.
 
     The generators draw from ``gen_u`` (``[T, n_gen]`` f32) when given.
-    Otherwise run draws all ``[T, n_gen]`` uniforms up front: from
-    ``generator``, a ``torch.Generator`` on the net's device, when given
-    (the key is then left as it was); by default as the reference's
-    ``run`` does, ``k_draw, k_carry = split(state.key)`` and
-    ``uniform(k_draw, (T, n_gen))``, and the returned state carries
-    ``k_carry``, so consecutive runs draw the reference's streams.
+    Otherwise run draws their uniforms as the reference's ``run`` does:
+
+    * by default all ``[T, n_gen]`` up front, ``k_draw, k_carry =
+      split(state.key)`` and ``uniform(k_draw, (T, n_gen))``; the returned
+      state carries ``k_carry``, so consecutive runs draw the reference's
+      streams;
+    * ``gen_chunk`` (dividing ``n_steps``, and equal to the homeostasis
+      period where there is one) draws ``[gen_chunk, n_gen]`` per chunk,
+      chunk ``c`` from ``split(k_draw, T // gen_chunk)[c]``, so the
+      generator buffers are O(gen_chunk) (a ``fused_kernel`` net's run
+      still writes every tick's generator spikes into its rows up
+      front); a chunk that covers the run is the whole-run draw, bit for
+      bit;
+    * ``gen_base`` (a key, int32 ``[2]`` as ``NetState.key``; it excludes
+      ``gen_chunk``) draws tick ``t``'s ``uniform(fold_in(gen_base, t),
+      (n_gen,))``, ``t`` the absolute tick, and leaves the key as it was:
+      one ``run(T)`` equals ``k`` runs of ``T/k`` with the state threaded
+      through, bit for bit;
+    * ``generator``, a ``torch.Generator`` on the net's device, draws all
+      of them with ``torch.rand`` and leaves the key as it was.
+
+    ``active`` (a 0-dim bool tensor on the net's device, never read back
+    to the host) gates a serving lane: where it is False the generators
+    draw no spike (their uniforms become 1.0) and homeostasis leaves the
+    rates and weights as they were. ``tel_carry``, ``return_tel_carry``
+    and ``watch_carry`` (resumable monitors and watchpoints) raise
+    ``NotImplementedError``.
 
     ``state`` is left as it was: the run works on its own copy of the ring.
     """
@@ -365,18 +434,28 @@ def run(
                 f"record={record!r} (in-run monitors) is not ported to "
                 "repro_torch yet (ROADMAP A6)")
         raise ValueError(f"record must be one of {_RECORD_MODES}, got {record!r}")
+    if tel_carry is not None or return_tel_carry:
+        raise NotImplementedError(
+            "tel_carry / return_tel_carry (resumable in-run monitors) are not "
+            "ported to repro_torch yet (ROADMAP A6)")
+    if watch_carry is not None:
+        raise NotImplementedError(
+            "watch_carry (in-run watchpoints) is not ported to repro_torch yet "
+            "(ROADMAP A10)")
+    if gen_chunk is not None and gen_chunk < 1:
+        raise ValueError(f"gen_chunk must be >= 1, got {gen_chunk}")
+    if gen_base is not None and gen_chunk is not None:
+        raise ValueError("gen_base and gen_chunk are mutually exclusive: a session "
+                         "stream is already bounded per call by the chunk size")
+    if (gen_u is not None or generator is not None) and (
+            gen_base is not None or gen_chunk is not None):
+        raise ValueError("gen_u and generator supply the whole run's uniforms: they "
+                         "exclude gen_base and gen_chunk")
+    chunked = gen_chunk is not None and static.n_gen > 0 and gen_chunk < n_steps
+    if chunked and n_steps % gen_chunk:
+        raise ValueError(f"gen_chunk ({gen_chunk}) must divide n_steps ({n_steps}): "
+                         "the generators draw whole chunks")
     dev = state.ring.device
-    key = state.key
-    gen_spk = None
-    if static.n_gen:
-        if gen_u is None and generator is None:
-            k_draw, key = rng.split(state.key)
-            gen_u = rng.uniform(k_draw, (n_steps, static.n_gen))
-        elif gen_u is None:
-            gen_u = torch.rand((n_steps, static.n_gen), generator=generator,
-                               dtype=f32, device=dev)
-        _check_gen_u(gen_u, (n_steps, static.n_gen), dev)
-        gen_spk = _gen_spikes(static, params, state.t, gen_u)
     if i_ext is not None and i_ext.shape != (n_steps, static.n):
         raise ValueError(f"i_ext must be [{n_steps}, {static.n}], got "
                          f"{tuple(i_ext.shape)}")
@@ -389,27 +468,75 @@ def run(
         raise ValueError(
             f"n_steps ({n_steps}) must be a multiple of the homeostasis period "
             f"({period}): the slow timer fires at whole-segment boundaries")
+    if chunked and period and gen_chunk != period:
+        raise ValueError(f"gen_chunk ({gen_chunk}) must equal the homeostasis period "
+                         f"({period}): both cut the run into the same segments")
+    if active is not None:
+        active = _check_active(active, dev)
+    if gen_base is not None and (gen_base.shape != (2,) or gen_base.dtype != torch.int32
+                                 or gen_base.device != dev):
+        raise ValueError(f"gen_base must be an int32 [2] key on {dev}, got "
+                         f"{gen_base.dtype} {tuple(gen_base.shape)} on {gen_base.device}")
+
+    key = state.key
+    seg_keys = None
+    if static.n_gen:
+        if gen_base is not None:
+            ticks = torch.arange(state.t, state.t + n_steps, dtype=torch.int64, device=dev)
+            gen_u = rng.uniform(rng.fold_in(gen_base, ticks), (static.n_gen,))
+        elif gen_u is None and generator is None:
+            k_draw, key = rng.split(state.key)
+            if chunked:
+                seg_keys = rng.split(k_draw, n_steps // gen_chunk)
+            else:
+                gen_u = rng.uniform(k_draw, (n_steps, static.n_gen))
+        elif gen_u is None:
+            gen_u = torch.rand((n_steps, static.n_gen), generator=generator,
+                               dtype=f32, device=dev)
+        if gen_u is not None:
+            _check_gen_u(gen_u, (n_steps, static.n_gen), dev)
+
+    def gen_segment(i0: int, u: torch.Tensor) -> torch.Tensor:
+        """The generator spikes of ticks ``i0 ..`` from their uniforms ``u``."""
+        if active is not None:
+            u = torch.where(active, u, 1.0)
+        return _gen_spikes(static, params, state.t + i0, u)
+
+    def chunk(c: int) -> torch.Tensor:
+        return gen_segment(c * gen_chunk, rng.uniform(seg_keys[c], (gen_chunk, static.n_gen)))
+
+    gen_spk = None
+    if gen_u is not None:
+        gen_spk = gen_segment(0, gen_u)
+    elif seg_keys is not None:
+        gen_spk = chunk(0)
 
     state = state._replace(key=key)
     if static.fused_kernel and i_ext is None:
+        if seg_keys is not None:
+            gen_spk = torch.cat([gen_spk] + [chunk(c) for c in range(1, len(seg_keys))])
         return _run_kernel(static, params, state, n_steps,
                            be.assemble_fused(static, state.weights, params),
                            gen_spk, record, record_v, record_i)
-    packed = be.assemble_packed(static, state.weights)
-    fanin = be.assemble_fanin(static, params)
-    matmul = be.assemble_matmul(static, packed)
-    gather = be.assemble_gather(static, params, packed)
+    loop = static.propagation == "loop"
+    packed = fanin = matmul = gather = None
+    if not loop:
+        packed = be.assemble_packed(static, state.weights)
+        fanin = be.assemble_fanin(static, params)
+        matmul = be.assemble_matmul(static, packed)
+        gather = be.assemble_gather(static, params, packed)
     ring = state.ring.clone()
-    neurons = state.neurons
+    neurons, cond = state.neurons, state.cond
+    decays = None if static.coba is None else decay_factors(static.coba, static.dt)
     homeo = state.homeo
     counts = torch.zeros((static.n,), dtype=torch.int32, device=dev) if period else None
     raster = (torch.empty((n_steps, static.n), dtype=torch.bool, device=dev)
               if record == "raster" else None)
     vs = torch.empty((n_steps, static.n), dtype=f32, device=dev) if record_v else None
     cur = torch.empty((n_steps, static.n), dtype=f32, device=dev) if record_i else None
-    neuron_run = be.assemble_neurons(static, params, neurons, ring, gen_spk=gen_spk,
-                                     i_ext=i_ext, raster=raster, v_rows=vs, i_rows=cur,
-                                     counts=counts)
+    neuron_run = be.assemble_neurons(static, params, neurons, ring, cond=cond,
+                                     gen_spk=gen_spk, i_ext=i_ext, raster=raster,
+                                     v_rows=vs, i_rows=cur, counts=counts)
     stdp_gather = be.assemble_stdp_gather(static, params, state.weights, state.stdp)
     stdp_update = be.assemble_stdp_update(static, params, state.weights, state.stdp)
     stdp_runs = tuple(x for x in (stdp_gather, stdp_update) if x is not None)
@@ -418,15 +545,21 @@ def run(
     for stdp_run in stdp_runs:
         weights = stdp_run.adopt(weights)
     syn = _Syn(weights, state.stp, state.stdp)
+    seg0 = 0  # the run's tick at gen_spk's row 0
     for i in range(n_steps):
         t = state.t + i
+        if seg_keys is not None and i and i % gen_chunk == 0:
+            gen_spk, seg0 = chunk(i // gen_chunk), i
+            if neuron_run is not None:
+                neuron_run.rows(gen_spk, i)
         if neuron_run is not None:
             neuron_run(i, t)
             spikes_f32 = neuron_run.spikes
         else:
-            neurons, spikes, i_syn = _neuron_phase(
-                static, params, neurons, ring, t, None if gen_spk is None else gen_spk[i],
-                None if i_ext is None else i_ext[i])
+            neurons, spikes, i_syn, cond = _neuron_phase(
+                static, params, neurons, ring, t,
+                None if gen_spk is None else gen_spk[i - seg0],
+                None if i_ext is None else i_ext[i], cond, decays)
             spikes_f32 = spikes.to(f32)
             if counts is not None:
                 counts += spikes
@@ -440,19 +573,20 @@ def run(
                               matmul, gather, None if dopamine is None else dopamine[i],
                               stdp_runs, padded)
         if counts is not None and (i + 1) % period == 0:
-            weights, homeo = _apply_homeostasis(static, syn.weights, homeo, counts)
+            weights, homeo = _apply_homeostasis(static, syn.weights, homeo, counts, active)
             for stdp_run in stdp_runs:
                 weights = stdp_run.adopt(weights)
             syn = syn._replace(weights=weights)
             counts.zero_()
     if neuron_run is not None:
         neurons = NeuronState(v=neuron_run.v, u=neuron_run.u, refrac=neuron_run.refrac)
+        cond = None if neuron_run.cond is None else ConductanceState(*neuron_run.cond)
     stdp = list(syn.stdp)
     for stdp_run in stdp_runs:
         for k, j in enumerate(stdp_run.keys):
             stdp[j] = STDPState(*stdp_run.traces(k))
     syn = syn._replace(stdp=tuple(stdp))
-    final = state._replace(t=state.t + n_steps, neurons=neurons, ring=ring,
+    final = state._replace(t=state.t + n_steps, neurons=neurons, ring=ring, cond=cond,
                            homeo=homeo, **syn._asdict())
     outputs = {}
     if raster is not None:

@@ -14,12 +14,16 @@ paper's seven load-step names, reproducing Tables III/IV byte for byte with
 the reference. Connectivity comes from numpy ``default_rng(seed)`` with the
 reference's calls, so a seed compiles to the same tables in both packages.
 
-The port compiles CUBA networks of IZH4/IZH9/LIF groups and Poisson
-generators with ``packed``, ``sparse`` or ``auto`` propagation, on the
-default backend or ``backend="fused"`` (one program per tick), with
-plastic (STDP, DA-STDP, homeostasis) and STP projections. Conductances,
-in-run monitors, watches, core partitioning and the ``loop`` oracle raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+The port compiles networks of IZH4/IZH9/LIF groups and Poisson
+generators, current-based (CUBA: one signed ring channel) or
+conductance-based (``conductances=COBAConfig()``: two ring channels, the
+excitatory and inhibitory magnitudes), with ``packed``, ``sparse`` or
+``auto`` propagation, on the default backend or ``backend="fused"`` (one
+program per tick), or with the ``loop`` oracle (every projection
+dense-stored and propagated on its own), with plastic (STDP, DA-STDP,
+homeostasis) and STP projections. In-run monitors, watches and core
+partitioning raise ``NotImplementedError`` naming the ROADMAP item that
+brings them.
 """
 from __future__ import annotations
 
@@ -32,6 +36,11 @@ import torch
 
 from repro_torch.core import neurons as nrn
 from repro_torch.core import rng as threefry
+from repro_torch.core.conductance import (
+    COBAConfig,
+    ConductanceState,
+    init_conductance_state,
+)
 from repro_torch.core.plasticity import (
     DASTDPState,
     HomeostasisConfig,
@@ -57,7 +66,7 @@ from repro_torch.memory import MemoryLedger
 from repro_torch.precision import PrecisionPolicy, get_policy
 
 __all__ = ["NetworkBuilder", "CompiledNetwork", "NetStatic", "NetParams",
-           "NetState", "BucketSpec", "FusedPlan", "GroupSpec"]
+           "NetState", "BucketSpec", "FusedPlan", "GroupSpec", "ring_channel"]
 
 
 def _resolve_device(device: str | torch.device | None) -> torch.device:
@@ -103,7 +112,7 @@ class BucketSpec:
     ``post_start >= 0`` likewise for the post side."""
 
     delay_ms: int
-    channel: int  # ring channel: 0 (CUBA has one signed channel)
+    channel: int  # ring channel: 0 = exc or signed (CUBA), 1 = inh magnitude (COBA)
     p: int
     q: int
     pre_start: int  # -1 => gather via params.bucket_pre_ids
@@ -126,7 +135,7 @@ class FusedPlan:
     ``kernel_ok`` marks a net whose whole tick is the ``fused_tick``
     kernel: IZH4 and generators only, Euler, contiguous bucket spans, no
     plastic or STP projection (the kernel knows nothing of learning), and
-    one ring channel (CUBA, the only kind the port compiles). The
+    one ring channel (CUBA: the kernel knows no conductances). The
     reference's ``tile_q``/``tile_r`` size TPU VMEM buffers and have no
     counterpart here."""
 
@@ -138,7 +147,7 @@ class FusedPlan:
 
 
 def _plan_fused(buckets: tuple[BucketSpec, ...], specs: tuple[ProjectionSpec, ...],
-                izh4_only: bool, method: str) -> FusedPlan:
+                channels: int, izh4_only: bool, method: str) -> FusedPlan:
     per_proj = [s for s in specs if s.plastic or s.stp is not None]
     classes: dict[tuple[int, int], list[int]] = {}
     sparse_ids: list[int] = []
@@ -153,7 +162,8 @@ def _plan_fused(buckets: tuple[BucketSpec, ...], specs: tuple[ProjectionSpec, ..
                             | {s.delay_ms for s in per_proj})),
         dense_classes=tuple((pq, tuple(ids)) for pq, ids in classes.items()),
         sparse_ids=tuple(sparse_ids),
-        kernel_ok=izh4_only and method == "euler" and spans_ok and not per_proj,
+        kernel_ok=(channels == 1 and izh4_only and method == "euler" and spans_ok
+                   and not per_proj),
     )
 
 
@@ -165,20 +175,26 @@ class NetStatic:
     projection to a dense bucket matmul; ``"sparse"`` to a CSR fan-in
     gather bucket with weights stored as ``[post, fanin]`` rows; ``"auto"``
     picks per projection by the bytes-per-tick cost model
-    (:func:`_csr_wins`). With exactly representable weights (the Synfire
-    tables) all three give the same raster bit for bit.
+    (:func:`_csr_wins`); ``"loop"`` is the oracle: every projection
+    dense-stored and propagated on its own, one ring commit each. With
+    exactly representable weights (the Synfire tables) all four give the
+    same raster bit for bit.
 
     Plastic and STP projections join no bucket: their weights change every
     tick. Their drive and their weight updates run on fan-in rows over
-    ``NetParams.proj_csr_idx`` in every mode, so plastic runs stay bit
+    ``NetParams.proj_csr_idx`` in every mode but ``"loop"``, so plastic runs stay bit
     for bit across modes as STDP moves weights off the representable grid.
     Plastic non-STP projections are stored as CSR rows (``plastic_csr``)
     under ``"sparse"``, and under ``"auto"`` where the plastic cost model
-    picks it; STP projections always (``stp_csr``).
+    picks it; STP projections always but under ``"loop"`` (``stp_csr``).
+
+    ``ring_channels`` is 1 for CUBA (a signed current) and 2 for COBA
+    (``coba`` set: excitatory and inhibitory magnitudes).
     """
 
     n: int
     ring_len: int
+    ring_channels: int
     dt: float
     substeps: int
     method: str
@@ -186,6 +202,7 @@ class NetStatic:
     groups: tuple[GroupSpec, ...]
     projections: tuple[ProjectionSpec, ...]
     stdp: tuple[STDPConfig | None, ...] = ()  # aligned with projections
+    coba: COBAConfig | None = None
     propagation: str = "packed"
     izh4_only: bool = False  # IZH4 + generators only: the kernel fast path
     buckets: tuple[BucketSpec, ...] = ()
@@ -252,10 +269,11 @@ class NetState(NamedTuple):
     t: int  # tick, a Python int: the tick loop never reads the device for it
     key: torch.Tensor  # int32 [2]: the reference's threefry key words (core.rng)
     neurons: nrn.NeuronState
-    ring: torch.Tensor  # [D, N, 1] storage dtype
+    ring: torch.Tensor  # [D, N, C] storage dtype, C = static.ring_channels
     weights: tuple[torch.Tensor, ...]  # per projection, storage dtype
     stp: tuple[STPState | None, ...] = ()  # per projection
     stdp: tuple[STDPState | DASTDPState | None, ...] = ()  # per projection
+    cond: ConductanceState | None = None  # COBA nets only
     # Per projection: homeostasis running-average rate [post] f32 (None
     # where static.homeo[j] is None).
     homeo: tuple[torch.Tensor | None, ...] = ()
@@ -365,12 +383,8 @@ class NetworkBuilder:
                 "backend='fused' fuses the bucketed tick; it has no "
                 "per-projection loop expression: use propagation="
                 "'packed'/'sparse'/'auto'")
-        if propagation == "loop":
-            raise _unported("propagation='loop' (the per-projection oracle)", "A5")
-        if propagation not in ("packed", "sparse", "auto"):
+        if propagation not in ("packed", "sparse", "auto", "loop"):
             raise ValueError(f"unknown propagation {propagation!r}")
-        if conductances is not None:
-            raise _unported("conductance-based synapses (COBA)", "A7, COBA")
         if monitors is not None:
             raise _unported("in-run monitors", "A6")
         if watches is not None:
@@ -464,18 +478,21 @@ class NetworkBuilder:
                 m = p.mask.numpy()
                 fanin, n_syn = int(m.sum(axis=0).max(initial=0)), int(m.sum())
             specs[j] = dataclasses.replace(specs[j], fanin=fanin, n_syn=n_syn)
+        channels = 2 if conductances is not None else 1
         buckets, pre_ids, post_ids = _plan_buckets(
-            tuple(specs), pack_density, propagation)
+            tuple(specs), channels, pack_density, propagation)
         # Plastic non-STP projections join no bucket, but their storage
         # flips to CSR fan-in rows when forced ("sparse") or when the
         # plastic cost model wins ("auto"); STP projections are CSR-stored
-        # in every mode (the per-pre u·x scale composes with the gather).
+        # in every mode but the loop oracle's (the per-pre u·x scale
+        # composes with the gather).
         plastic_csr = tuple(
             j for j, s in enumerate(specs)
             if s.plastic and s.stp is None
             and (propagation == "sparse"
                  or (propagation == "auto" and _csr_wins(s))))
-        stp_csr = tuple(j for j, s in enumerate(specs) if s.stp is not None)
+        stp_csr = tuple(j for j, s in enumerate(specs)
+                        if s.stp is not None and propagation != "loop")
         csr_set = (frozenset(m[0] for b in buckets if b.kind == "sparse"
                              for m in b.members)
                    | frozenset(plastic_csr) | frozenset(stp_csr))
@@ -498,12 +515,14 @@ class NetworkBuilder:
         # Per-projection fan-in tables: CSR-stored projections alias their
         # CSR idx; dense-stored plastic ones get a sentinel-padded table, so
         # the drive and the updates run the same row arithmetic on the dense
-        # rectangle (what keeps plastic runs bit for bit across modes).
+        # rectangle (what keeps plastic runs bit for bit across modes); the
+        # loop oracle's plastic projections propagate their dense rectangle
+        # and need none.
         proj_csr_idx: list[torch.Tensor | None] = []
         for j, s in enumerate(specs):
             if j in csr_set:
                 proj_csr_idx.append(csr[j].idx)
-            elif s.plastic and s.stp is None:
+            elif s.plastic and s.stp is None and propagation != "loop":
                 idx, valid = csr_layout(projs[j].mask.numpy(), fanin=s.fanin)
                 sent = np.where(valid, idx, s.pre_size)
                 idt = np.int16 if s.pre_size <= np.iinfo(np.int16).max else np.int32
@@ -525,7 +544,7 @@ class NetworkBuilder:
         # 4. Syn. State: weights (the fp16 payload; CSR rows for CSR-stored
         # projections), the delay ring, STP state.
         ring_len = max((s.delay_ms for s in specs), default=1) + 1
-        ring = torch.zeros((ring_len, n, 1), dtype=sdt)
+        ring = torch.zeros((ring_len, n, channels), dtype=sdt)
         stp_states = tuple(init_stp_state(s.stp, s.pre_size, sdt)
                            if s.stp is not None else None for s in specs)
         with ledger.stage("4. Syn. State"):
@@ -533,11 +552,15 @@ class NetworkBuilder:
             ledger.register("ring", ring)
             ledger.register("stp", tuple(s for s in stp_states if s is not None))
 
-        # 5. Neuron State and 6. Group State.
+        # 5. Neuron State (v, u, refractory, conductances) and 6. Group
+        # State.
         neuron_params = nrn.concat_params([p for _, p, _ in self._groups])
         nstate = nrn.init_neuron_state(neuron_params, sdt)
+        cond = init_conductance_state(n, sdt) if conductances is not None else None
         with ledger.stage("5. Neuron State"):
             ledger.register("neuron.state", nstate)
+            if cond is not None:
+                ledger.register("conductances", cond)
         with ledger.stage("6. Group State"):
             ledger.register("neuron.params", neuron_params)
 
@@ -566,12 +589,13 @@ class NetworkBuilder:
         codes = neuron_params.model.numpy()
         izh4_only = bool(np.all((codes == int(nrn.NeuronModel.GENERATOR))
                                 | (codes == int(nrn.NeuronModel.IZH4))))
-        fused = (_plan_fused(buckets, tuple(specs), izh4_only, method)
+        fused = (_plan_fused(buckets, tuple(specs), channels, izh4_only, method)
                  if backend == "fused" else None)
         static = NetStatic(
-            n=n, ring_len=ring_len, dt=dt, substeps=substeps, method=method,
-            policy_name=policy.name, groups=groups, projections=tuple(specs),
-            stdp=tuple(stdp_cfgs), propagation=propagation, izh4_only=izh4_only,
+            n=n, ring_len=ring_len, ring_channels=channels, dt=dt, substeps=substeps,
+            method=method, policy_name=policy.name, groups=groups,
+            projections=tuple(specs), stdp=tuple(stdp_cfgs), coba=conductances,
+            propagation=propagation, izh4_only=izh4_only,
             buckets=buckets, backend=backend, fused=fused, plastic_csr=plastic_csr,
             stp_csr=stp_csr, homeo=tuple(homeo_cfgs),
             homeo_period=int(homeostasis_period),
@@ -584,7 +608,7 @@ class NetworkBuilder:
         )
         state0 = NetState(t=0, key=key, neurons=nstate, ring=ring,
                           weights=weights, stp=stp_states, stdp=stdp_states,
-                          homeo=homeo_states)
+                          cond=cond, homeo=homeo_states)
         return CompiledNetwork(static=static,
                                params=_to_device(params, device),
                                state0=_to_device(state0, device),
@@ -614,16 +638,24 @@ def _csr_wins(spec: ProjectionSpec) -> bool:
     return dense_bytes >= _SPARSE_ADVANTAGE * csr_bytes
 
 
+def ring_channel(spec: ProjectionSpec, channels: int) -> int:
+    """The ring channel a projection delivers into: 1 for an inhibitory one
+    on a two-channel (COBA) ring, else 0."""
+    return 0 if channels == 1 or spec.receptor == "exc" else 1
+
+
 def _plan_buckets(
-    specs: tuple[ProjectionSpec, ...], pack_density: float,
+    specs: tuple[ProjectionSpec, ...], channels: int, pack_density: float,
     propagation: str = "packed",
 ) -> tuple[tuple[BucketSpec, ...], tuple[torch.Tensor, ...],
            tuple[torch.Tensor, ...]]:
     """Compile-time propagation plan for non-plastic, non-STP projections.
 
     Each such projection goes sparse (one ``kind="sparse"`` bucket) when forced
-    by ``"sparse"`` or picked by ``"auto"``'s cost model; the rest are
-    grouped by delay and each group lowers to ONE block-dense matmul over
+    by ``"sparse"`` or picked by ``"auto"``'s cost model (``"packed"`` and
+    ``"loop"`` keep them all dense); the rest are grouped by (delay, ring
+    channel), the channel 1 for inhibitory projections of a two-channel
+    (COBA) ring and 0 else, and each group lowers to ONE block-dense matmul over
     the sorted union of its pre/post ranges when the member blocks fill at
     least ``pack_density`` of the union rectangle. Otherwise projections
     sharing a pre range merge when they fill it densely enough, and the
@@ -637,7 +669,7 @@ def _plan_buckets(
         if propagation == "sparse" or (propagation == "auto" and _csr_wins(s)):
             sparse_js.append(j)
         else:
-            grouped.setdefault((s.delay_ms, 0), []).append(j)
+            grouped.setdefault((s.delay_ms, ring_channel(s, channels)), []).append(j)
 
     buckets: list[BucketSpec] = []
     pre_ids: list[torch.Tensor] = []
@@ -647,7 +679,7 @@ def _plan_buckets(
     for j in sparse_js:
         s = specs[j]
         buckets.append(BucketSpec(
-            delay_ms=s.delay_ms, channel=0, p=s.pre_size, q=s.post_size,
+            delay_ms=s.delay_ms, channel=ring_channel(s, channels), p=s.pre_size, q=s.post_size,
             pre_start=s.pre_start, post_start=s.post_start,
             members=((j, 0, 0),), kind="sparse", fanin=s.fanin,
         ))

@@ -7,7 +7,9 @@ integer ops, so the same seed gives the same raster in both packages, on
 the CPU and on the card alike:
 
 * a key is the two 32-bit key words, stored as an int32 ``[2]`` tensor of
-  their bit patterns (8 bytes, as the reference's key data);
+  their bit patterns (8 bytes, as the reference's key data); a stack of
+  keys ``[..., 2]`` draws for each key at once, as ``vmap`` over keys
+  does;
 * :func:`key` makes one from an integer seed as ``jax.random.key`` does
   with 64-bit types off: the words are ``(0, seed mod 2**32)``;
 * :func:`split`, :func:`fold_in` and :func:`uniform` follow
@@ -68,12 +70,14 @@ def threefry2x32(k1: int | torch.Tensor, k2: int | torch.Tensor,
 
 
 def _hash_counters(k: torch.Tensor, shape: tuple[int, ...]):
-    """Both output words of every counter ``0 .. prod(shape)-1``, shaped."""
+    """Both output words of every counter ``0 .. prod(shape)-1`` under each
+    key of ``k`` ``[..., 2]``, shaped ``[..., *shape]``."""
     words = _u32(k)
     n = math.prod(shape)
     ctr = torch.arange(n, dtype=torch.int64, device=k.device)
-    y1, y2 = threefry2x32(words[0], words[1], ctr >> 32, ctr & _MASK)
-    return y1.reshape(shape), y2.reshape(shape)
+    y1, y2 = threefry2x32(words[..., 0:1], words[..., 1:2], ctr >> 32, ctr & _MASK)
+    lead = tuple(k.shape[:-1])
+    return y1.reshape(lead + tuple(shape)), y2.reshape(lead + tuple(shape))
 
 
 def key(seed: int, device: str | torch.device | None = None) -> torch.Tensor:
@@ -88,22 +92,25 @@ def split(k: torch.Tensor, n: int = 2) -> torch.Tensor:
     return _as_key(torch.stack([y1, y2], dim=1))
 
 
-def fold_in(k: torch.Tensor, data: int) -> torch.Tensor:
-    """The key ``k`` with the 32-bit integer ``data`` folded in."""
+def fold_in(k: torch.Tensor, data: int | torch.Tensor) -> torch.Tensor:
+    """The key ``k`` with the 32-bit integer ``data`` folded in; for an
+    integer tensor ``data``, one key per entry, ``[*data.shape, 2]`` (the
+    reference's ``vmap`` of ``fold_in`` over the entries)."""
     words = _u32(k)
-    x1 = torch.zeros((1,), dtype=torch.int64, device=k.device)
-    x2 = torch.full((1,), int(data) & _MASK, dtype=torch.int64, device=k.device)
-    y1, y2 = threefry2x32(words[0], words[1], x1, x2)
-    return _as_key(torch.cat([y1, y2]))
+    x2 = torch.as_tensor(data, device=k.device).to(torch.int64) & _MASK
+    y1, y2 = threefry2x32(words[0], words[1], torch.zeros_like(x2), x2)
+    return _as_key(torch.stack([y1, y2], dim=-1))
 
 
 def random_bits(k: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
-    """32 random bits per element of ``shape``, as int64 in ``[0, 2**32)``."""
+    """32 random bits per element of ``shape`` (under each key of a stack
+    ``[..., 2]``: ``[..., *shape]``), as int64 in ``[0, 2**32)``."""
     y1, y2 = _hash_counters(k, tuple(shape))
     return y1 ^ y2
 
 
 def uniform(k: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
-    """float32 uniforms in ``[0, 1)`` of ``shape``, drawn from ``k``."""
+    """float32 uniforms in ``[0, 1)`` of ``shape``, drawn from ``k`` (from
+    each key of a stack ``[..., 2]``: ``[..., *shape]``)."""
     bits = (random_bits(k, shape) >> 9) | _ONE_F32_BITS
     return bits.to(torch.int32).view(torch.float32) - 1.0

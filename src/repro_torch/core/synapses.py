@@ -37,6 +37,7 @@ __all__ = [
     "csr_to_dense",
     "dense_to_csr",
     "init_stp_state",
+    "propagate",
     "stp_update",
 ]
 
@@ -227,6 +228,18 @@ def csr_to_dense(csr: CSRFanin, n_pre: int) -> np.ndarray:
     cols = np.broadcast_to(np.arange(n_post)[:, None], (n_post, fanin))
     out[idx[valid], cols[valid]] = w[valid]
     return out
+
+
+def propagate(spec: ProjectionSpec, params: ProjectionParams, spikes: torch.Tensor,
+              stp_state: STPState | None) -> torch.Tensor:
+    """One projection's synaptic drive, ``[post_size]`` f32: its pre slice of
+    the ``[N]`` spike row (bool or f32) as f32, scaled by ``u·x`` per pre
+    neuron for STP, times the storage-dtype weights decoded to f32 (the
+    loop oracle's product)."""
+    pre = spikes[spec.pre_slice].to(torch.float32)
+    if stp_state is not None and spec.stp is not None:
+        pre = pre * (stp_state.u * stp_state.x)
+    return torch.matmul(pre, params.weight.to(torch.float32))
 
 
 def stp_update(cfg: STPConfig, state: STPState, pre_spikes: torch.Tensor,

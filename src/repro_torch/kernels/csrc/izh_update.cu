@@ -20,11 +20,25 @@
 // backend.update_neurons_dispatch), each stored in the same type and so
 // bit for bit the same.
 //
+// Conductance-based (COBA) nets have a two-channel ring, excitatory and
+// inhibitory magnitudes side by side, and four conductances per neuron
+// (AMPA, NMDA, GABAa, GABAb) on the run's copies in the storage type. A
+// COBA tick reads and zeroes both channels of the slot, decays each
+// conductance and adds its share of the delivery (g * decay + frac * in,
+// core/conductance.py:decay_and_deliver), stores it back, and takes the
+// current from the stored values and the v from before the update
+// (coba_current): the same launch, the same one thread per neuron. The
+// decay factors arrive as f32 arguments computed on the host with f32
+// exp, so the kernel calls no expf; the division is __fdiv_rn, the IEEE
+// division eager PyTorch does by a tensor.
+//
 // What bounds it: launch latency. The run entry moves about 42 B per
 // neuron at fp16 (ring slot read and zeroed, v, u and refrac read and
 // written, a-d, is_gen, the generator column, the f32 spike row and the
 // raster byte): about 50 KB at Synfire4's N = 1,200 (15 ns at 3.35 TB/s),
-// 5 MB at Synfire4x100's N = 120,000 (1.5 us). The design is the leanest
+// 5 MB at Synfire4x100's N = 120,000 (1.5 us). COBA adds the second ring
+// channel and the four conductances read and written: 20 B more per
+// neuron at fp16. The design is the leanest
 // launch: one thread per neuron, no shared memory, each thread's loads
 // independent of the others'.
 //
@@ -86,9 +100,42 @@ struct NeuronPlan {
   float* spikes;  // [N] f32 spike row (0.0 / 1.0), written every tick
   int* counts;  // [N] int32 spike counts, or null
   void* stream;
+  void* g[4];  // COBA: AMPA, NMDA, GABAa, GABAb [N] storage type; null for CUBA
   int n, substeps;
+  int channels;  // ring channels: 1 (CUBA) or 2 (COBA: exc, inh)
   float h;
+  float decay[4];  // COBA: per-tick decay factors of g[0..3]
+  float frac[4];  // COBA: 1 - nmda_frac, nmda_frac, 1 - gabab_frac, gabab_frac
+  float e_exc, e_gabaa, e_gabab;  // COBA: reversal potentials (mV)
 };
+
+// One COBA neuron's conductances decayed and delivered, stored back in the
+// storage type, and its current from the stored values at the pre-update
+// v: core/conductance.py's decay_and_deliver and coba_current, every
+// operation in their term order and rounding.
+template <typename T>
+__device__ __forceinline__ float coba_tick(const NeuronPlan& p, int i, float exc, float inh,
+                                           float v) {
+  float g[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    T* gp = static_cast<T*>(p.g[k]);
+    const float in = k < 2 ? exc : inh;
+    const T stored = from_f32<T>(
+        __fadd_rn(__fmul_rn(to_f32(gp[i]), p.decay[k]), __fmul_rn(p.frac[k], in)));
+    gp[i] = stored;
+    g[k] = to_f32(stored);
+  }
+  const float nv = __fdiv_rn(__fadd_rn(v, 80.0f), 60.0f);
+  const float nv2 = __fmul_rn(nv, nv);
+  const float gate = __fdiv_rn(nv2, __fadd_rn(nv2, 1.0f));
+  const float d_exc = __fsub_rn(v, p.e_exc);
+  float sum = __fmul_rn(g[0], d_exc);
+  sum = __fadd_rn(sum, __fmul_rn(__fmul_rn(g[1], gate), d_exc));
+  sum = __fadd_rn(sum, __fmul_rn(g[2], __fsub_rn(v, p.e_gabaa)));
+  sum = __fadd_rn(sum, __fmul_rn(g[3], __fsub_rn(v, p.e_gabab)));
+  return -sum;
+}
 
 template <typename T>
 __global__ void izh4_run_kernel(NeuronPlan p, int slot, const uint8_t* __restrict__ gen_row,
@@ -97,14 +144,23 @@ __global__ void izh4_run_kernel(NeuronPlan p, int slot, const uint8_t* __restric
                                 float* __restrict__ i_rec) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.n) return;
-  T* ring = static_cast<T*>(p.ring) + static_cast<size_t>(slot) * p.n;
-  float cur = to_f32(ring[i]);
-  ring[i] = from_f32<T>(0.0f);
-  if (i_ext) cur = __fadd_rn(cur, i_ext[i]);
+  T* ring = static_cast<T*>(p.ring) + static_cast<size_t>(slot) * p.n * p.channels;
   T* vp = static_cast<T*>(p.v);
   T* up = static_cast<T*>(p.u);
   float v = to_f32(vp[i]);
   float u = to_f32(up[i]);
+  float cur;
+  if (p.channels == 2) {
+    const float exc = to_f32(ring[2 * i]);
+    const float inh = to_f32(ring[2 * i + 1]);
+    ring[2 * i] = from_f32<T>(0.0f);
+    ring[2 * i + 1] = from_f32<T>(0.0f);
+    cur = coba_tick<T>(p, i, exc, inh, v);
+  } else {
+    cur = to_f32(ring[i]);
+    ring[i] = from_f32<T>(0.0f);
+  }
+  if (i_ext) cur = __fadd_rn(cur, i_ext[i]);
   const float c = p.c[i];
   const bool spk = izh4_tick(v, u, cur, p.a[i], p.b[i], c, p.d[i], p.h, p.substeps);
   const bool gen = p.is_gen[i] != 0;

@@ -14,8 +14,12 @@
 // order into a register that starts at +0.0 (or, for a later launch
 // group, at the accumulator's current entry); it then writes the entry.
 // Zero-fill items write 0.0 into up to 32 entries no bucket of the group
-// covers, so every entry of the per-delay accumulator rows is written
-// every tick and nothing clears them. The indices are the tick's global
+// covers, so every entry of the accumulator rows, one per (delay, ring
+// channel), is written every tick and nothing clears them. On a COBA
+// (two-channel) ring each contribution lands as its absolute value: the
+// warp applies fabsf to each (bucket, row) sum before it adds it to the
+// entry's register, as the reference takes |drive| of each bucket's drive
+// before the per-delay sum (never of the entry's total). The indices are the tick's global
 // spike ids (composed once per run), so one launch reads the [N] spike
 // row directly. The single call (ops.syn_gather, items null) is the same
 // kernel over one table, one item per row. Row sums and per-entry sums
@@ -49,6 +53,7 @@ struct GatherPlan {
   float* rows;
   void* stream;
   int n_items, P, F, itype, wtype, accumulate, staged;
+  int absolute;  // 1: add |row sum| (COBA), 0: the signed sum
 };
 
 template <typename I, typename W, bool kStaged>
@@ -99,7 +104,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
-    acc += s;  // lane 0 holds the row sum and the entry's sum
+    acc += p.absolute ? fabsf(s) : s;  // lane 0 holds the row sum and the entry's sum
   }
   if (lane == 0) p.rows[out] = acc;
 }
@@ -173,7 +178,7 @@ REPRO_EXPORT int syn_gather_run(const GatherPlan* plan, const void* spikes) {
   REPRO_EXPORT int NAME(const void* spikes, const void* idx, const void* w, void* out, \
                         int P, int Q, int F, void* stream) {                          \
     const GatherPlan p{nullptr, nullptr, idx, w, static_cast<float*>(out), stream,    \
-                       Q, P, F, ITYPE, WTYPE, 0, 0};                                  \
+                       Q, P, F, ITYPE, WTYPE, 0, 0, 0};                               \
     return launch(p, spikes);                                                         \
   }
 

@@ -7,17 +7,20 @@ allocates the outputs and counts launches). :class:`NeuronLauncher` is one
 run's neuron phase on the card: its plan (a C struct pointing at the run's
 state) filled once, so that a tick's neuron phase is one ctypes call
 carrying the tick's ring slot and row pointers (through
-:class:`repro_torch.kernels.ops.NeuronRun`).
+:class:`repro_torch.kernels.ops.NeuronRun`), for a current-based ring
+(one channel) or a conductance-based one (two channels, the four
+conductances on the run's copies, :class:`CobaCoeffs` in the plan).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["STORAGE_DTYPES", "launch", "NeuronLauncher"]
+__all__ = ["STORAGE_DTYPES", "CobaCoeffs", "launch", "NeuronLauncher"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -27,12 +30,32 @@ _RUN_ENTRY = {torch.float32: "izh4_run_f32", torch.float16: "izh4_run_f16"}
 STORAGE_DTYPES = tuple(_ENTRY)
 
 
+class CobaCoeffs(NamedTuple):
+    """The f32 coefficients of a COBA neuron phase, each an f32 value held
+    as a Python float: the AMPA, NMDA, GABAa and GABAb ``decay`` factors
+    per tick, their delivery fractions ``frac`` (``1 − nmda_frac``,
+    ``nmda_frac``, ``1 − gabab_frac``, ``gabab_frac``) and the reversal
+    potentials."""
+
+    decay: tuple[float, float, float, float]
+    frac: tuple[float, float, float, float]
+    e_exc: float
+    e_gabaa: float
+    e_gabab: float
+
+
+_F = ctypes.c_float
+
+
 class _Plan(ctypes.Structure):
     """``NeuronPlan`` of ``csrc/izh_update.cu``, field for field."""
 
     _fields_ = [(name, _P) for name in (
         "v", "u", "refrac", "ring", "a", "b", "c", "d", "is_gen", "gen_col", "spikes",
-        "counts", "stream")] + [("n", _I), ("substeps", _I), ("h", ctypes.c_float)]
+        "counts", "stream")] + [
+        ("g", _P * 4), ("n", _I), ("substeps", _I), ("channels", _I), ("h", _F),
+        ("decay", _F * 4), ("frac", _F * 4), ("e_exc", _F), ("e_gabaa", _F),
+        ("e_gabab", _F)]
 
 
 _RUN_SIGNATURE = [ctypes.POINTER(_Plan), _I, _P, _P, _P, _P, _P]
@@ -57,13 +80,15 @@ def launch(v, u, i_syn, a, b, c, d, v_out, u_out, spiked, *, h: float,
 
 class NeuronLauncher:
     """One run's neuron phase on the card: ``v``, ``u`` ``[N]`` (storage
-    dtype), ``refrac`` ``[N]`` int16 and ``ring`` ``[L, N, 1]`` updated in
+    dtype), ``refrac`` ``[N]`` int16 and ``ring`` ``[L, N, C]`` updated in
     place, ``spikes`` ``[N]`` f32 written every tick, ``counts`` ``[N]``
-    int32 (or None) counted up; launching on the stream current at
+    int32 (or None) counted up; for a two-channel ring, the conductances
+    ``cond`` (four ``[N]`` storage-dtype tensors) updated in place under
+    ``coba`` (:class:`CobaCoeffs`); launching on the stream current at
     construction. The caller keeps every tensor alive and checked."""
 
     def __init__(self, v, u, refrac, ring, is_gen, a, b, c, d, gen_col, spikes,
-                 counts, *, dt: float, substeps: int):
+                 counts, *, dt: float, substeps: int, cond=None, coba=None):
         lib = _lib()
         if lib.izh4_run_plan_size() != ctypes.sizeof(_Plan):
             raise RuntimeError("izh4_update: the library's NeuronPlan size differs "
@@ -76,6 +101,13 @@ class NeuronLauncher:
         plan.counts = None if counts is None else counts.data_ptr()
         plan.stream = torch.cuda.current_stream(v.device).cuda_stream
         plan.n, plan.substeps, plan.h = v.shape[0], substeps, dt / substeps
+        plan.channels = ring.shape[2]
+        if cond is not None:
+            for k, g in enumerate(cond):
+                plan.g[k] = g.data_ptr()
+            plan.decay[:] = coba.decay
+            plan.frac[:] = coba.frac
+            plan.e_exc, plan.e_gabaa, plan.e_gabab = coba.e_exc, coba.e_gabaa, coba.e_gabab
         self._plan = plan
         self._ref = ctypes.byref(plan)
         self._lib, self._fn = lib, getattr(lib, _RUN_ENTRY[v.dtype])

@@ -88,17 +88,27 @@ class NeuronRun:
     (:func:`repro_torch.kernels.ref.neuron_run_ref`): on the run's own
     copies of ``v``, ``u`` (``[N]``, one storage dtype) and ``refrac``
     (``[N]`` int16), made here, so the caller's tensors are left as they
-    were, and on ``ring`` (``[L, N, 1]``, the storage dtype) in place.
-    ``is_gen`` ``[N]`` bool; ``a``..``d`` ``[N]`` f32. ``gen_spk`` ``[T,
-    n_gen]`` bool holds the run's generator spikes and ``gen_cols`` ``[N]``
-    each neuron's column in it (-1 for the others); ``i_ext`` ``[T, N]``,
+    were, and on ``ring`` (``[L, N, C]``, the storage dtype) in place. A
+    current-based net has one ring channel; a conductance-based (COBA) one
+    two, and passes its four conductances ``cond`` (``[N]``, the storage
+    dtype; the run's copies, ``cond`` afterwards, are made here) and their
+    coefficients ``coba``
+    (:class:`repro_torch.kernels.izh_update.CobaCoeffs`).
+    ``is_gen`` ``[N]`` bool; ``a``..``d`` ``[N]`` f32. ``gen_spk`` ``[T',
+    n_gen]`` bool holds the generator spikes of the run's first T' ticks
+    (T' divides T; all T of them unless later ones come through ``rows``) and
+    ``gen_cols`` ``[N]`` each neuron's column in it (-1 for the others);
+    ``i_ext`` ``[T, N]``,
     converted to f32 once, here. ``raster`` ``[T, N]`` bool, ``v_rows`` and
     ``i_rows`` ``[T, N]`` f32 and ``counts`` ``[N]`` int32, where given,
     take each tick's spike row, v and i_syn, and its spikes added.
 
     ``run(i, t)`` is the run's ``i``-th tick, tick ``t`` (ring slot ``t %
     L``); afterwards ``spikes`` ``[N]`` f32 holds its spike row (0.0/1.0)
-    until the next call, and ``v``, ``u``, ``refrac`` the state. On the card
+    until the next call, and ``v``, ``u``, ``refrac`` (and ``cond``) the
+    state. ``rows(gen_spk, start)`` hands it another ``[T', n_gen]``
+    generator buffer, whose row 0 is tick ``i = start`` (a run whose
+    generator spikes are made segment by segment). On the card
     the tensors are checked and the plan is filled once (``launcher``, a
     :class:`repro_torch.kernels.izh_update.NeuronLauncher`), and a tick is
     one launch on the stream current at construction; on the CPU
@@ -106,11 +116,17 @@ class NeuronRun:
 
     def __init__(self, v, u, refrac, ring, is_gen, a, b, c, d, *, gen_spk=None,
                  gen_cols=None, i_ext=None, raster=None, v_rows=None, i_rows=None,
-                 counts=None, dt: float = 1.0, substeps: int = 2):
+                 counts=None, cond=None, coba=None, dt: float = 1.0, substeps: int = 2):
         n = v.shape[0]
-        if v.dim() != 1 or ring.dim() != 3 or ring.shape[1:] != (n, 1):
+        channels = 2 if cond is not None else 1
+        if v.dim() != 1 or ring.dim() != 3 or ring.shape[1:] != (n, channels):
             raise ValueError(f"izh4_update: v {tuple(v.shape)} and ring "
-                             f"{tuple(ring.shape)} must be [N] and [L, N, 1]")
+                             f"{tuple(ring.shape)} must be [N] and [L, N, {channels}] "
+                             f"({'COBA, with cond' if cond is not None else 'CUBA'})")
+        if cond is not None and (len(cond) != 4 or coba is None or any(
+                g.shape != (n,) or g.dtype != v.dtype for g in cond)):
+            raise ValueError(f"izh4_update: cond must be four [{n}] tensors of v's dtype, "
+                             "with coba given")
         if any(x.shape != (n,) for x in (u, refrac, is_gen, a, b, c, d)):
             raise ValueError(f"izh4_update: u, refrac, is_gen, a, b, c, d must be [{n}]")
         if (v.dtype not in _izh.STORAGE_DTYPES or u.dtype != v.dtype
@@ -122,11 +138,13 @@ class NeuronRun:
             raise ValueError("izh4_update: refrac must be int16, is_gen bool and a, b, "
                              "c, d float32")
         rows = [x for x in (gen_spk, i_ext, raster, v_rows, i_rows) if x is not None]
-        ticks = rows[0].shape[0] if rows else 0
-        if any(x.dim() != 2 or x.shape[0] != ticks for x in rows) or any(
-                x is not None and x.shape[1] != n for x in (i_ext, raster, v_rows, i_rows)):
-            raise ValueError(f"izh4_update: gen_spk must be [T, n_gen] and i_ext, raster, "
-                             f"v_rows, i_rows [T, {n}], for one T")
+        ticks = {x.shape[0] for x in rows[int(gen_spk is not None):] if x.dim() == 2}
+        seg = None if gen_spk is None else gen_spk.shape[0]
+        if any(x.dim() != 2 for x in rows) or len(ticks) > 1 or any(
+                x is not None and x.shape[1] != n for x in (i_ext, raster, v_rows, i_rows)) or (
+                seg is not None and any(seg != t and (seg == 0 or t % seg) for t in ticks)):
+            raise ValueError(f"izh4_update: gen_spk must be [T', n_gen], T' dividing T, and "
+                             f"i_ext, raster, v_rows, i_rows [T, {n}], for one T")
         if (raster is not None and raster.dtype != torch.bool) or any(
                 x is not None and x.dtype != f32 for x in (v_rows, i_rows)):
             raise ValueError("izh4_update: raster must be bool and v_rows, i_rows float32")
@@ -140,43 +158,64 @@ class NeuronRun:
             raise ValueError(f"izh4_update: gen_spk must be bool [T, n_gen] with gen_cols "
                              f"int [{n}] below n_gen")
         self.v, self.u, self.refrac = v.clone(), u.clone(), refrac.clone()
+        self.cond = None if cond is None else tuple(g.clone() for g in cond)
+        self._coba = coba
         self.spikes = torch.zeros((n,), dtype=f32, device=v.device)
         if i_ext is not None:
             i_ext = i_ext.to(f32).contiguous()
-        self._rows = (gen_spk, i_ext, raster, v_rows, i_rows)
         self._args = (ring, is_gen, a, b, c, d, gen_cols.long(), counts)
         self._ring_len, self._dt, self._substeps = ring.shape[0], dt, substeps
         self.launcher = None
         card = _on_card("izh4_update", self.v, self.u, self.refrac, ring, is_gen, a, b,
-                        c, d, gen_cols, self.spikes, *rows,
+                        c, d, gen_cols, self.spikes, *rows, *(self.cond or ()),
                         *([] if counts is None else [counts]))
         if card and n:
             cols = gen_cols.to(torch.int32)
             self._keep = cols
             self.launcher = _izh.NeuronLauncher(
                 self.v, self.u, self.refrac, ring, is_gen, a, b, c, d, cols, self.spikes,
-                counts, dt=dt, substeps=substeps)
-            # Per row: (base pointer, bytes per tick), base 0 for none.
-            self._steps = tuple((0, 0) if x is None else
-                                (x.data_ptr(), x.shape[1] * x.element_size())
-                                for x in self._rows)
+                counts, dt=dt, substeps=substeps, cond=self.cond, coba=coba)
         self._card = card
+        self._rows = (gen_spk, i_ext, raster, v_rows, i_rows)
+        self._gen_start = 0
+        # Per row: (base pointer, bytes per tick), base 0 for none.
+        self._steps = tuple((0, 0) if x is None or not card else
+                            (x.data_ptr(), x.shape[1] * x.element_size())
+                            for x in self._rows)
+
+    def rows(self, gen_spk: torch.Tensor, start: int) -> None:
+        """Read the generator spikes from ``gen_spk`` ``[T', n_gen]`` bool
+        (the first buffer's ``n_gen`` and device, contiguous) from here on,
+        its row 0 being tick ``i = start``; the other rows keep their
+        buffers. The caller keeps ``gen_spk`` alive while it is read."""
+        old = self._rows[0]
+        if (old is None or gen_spk.dtype != torch.bool or gen_spk.dim() != 2
+                or gen_spk.shape[1] != old.shape[1] or gen_spk.device != old.device
+                or not gen_spk.is_contiguous()):
+            raise ValueError("izh4_update: gen_spk must be a contiguous bool [T, n_gen] "
+                             "buffer like the run's first")
+        self._rows = (gen_spk, *self._rows[1:])
+        self._gen_start = start
+        if self._card:
+            self._steps = ((gen_spk.data_ptr(), self._steps[0][1]), *self._steps[1:])
 
     def __call__(self, i: int, t: int) -> None:
+        at = (i - self._gen_start, i, i, i, i)
         if self.launcher is not None:
-            self.launcher(t % self._ring_len, *(p and p + i * step for p, step in self._steps))
+            self.launcher(t % self._ring_len, *(p and p + k * step
+                                                for (p, step), k in zip(self._steps, at)))
             LAUNCHES["izh4_update"] += 1
             return
         if self._card:  # N = 0: nothing to compute
             return
         ring, is_gen, a, b, c, d, cols, counts = self._args
-        gen_spk, i_ext, raster, v_rows, i_rows = (None if x is None else x[i]
-                                                  for x in self._rows)
+        gen_spk, i_ext, raster, v_rows, i_rows = (None if x is None else x[k]
+                                                  for x, k in zip(self._rows, at))
         ref.neuron_run_ref(self.v, self.u, self.refrac, ring, t % self._ring_len, is_gen,
                            a, b, c, d, cols, self.spikes, gen_row=gen_spk,
                            i_ext_row=i_ext, raster_row=raster, v_row=v_rows,
-                           i_row=i_rows, counts=counts, dt=self._dt,
-                           substeps=self._substeps)
+                           i_row=i_rows, counts=counts, cond=self.cond, coba=self._coba,
+                           dt=self._dt, substeps=self._substeps)
 
 
 def syn_matmul(x, w):
@@ -274,10 +313,13 @@ class GatherRun:
     here, with its tables checked: they must stay as they are for the
     launcher's life.
 
-    ``rows`` ``[len(delays), N]`` f32 holds one accumulator row per delay
-    of a sparse bucket. ``run(0, spikes)`` writes every entry of it: each
-    (delay, column) entry the sum of group 0's bucket drives there, in
-    plan order, starting at +0.0, and 0.0 where group 0 has none;
+    ``rows`` ``[len(keys), N]`` f32 holds one accumulator row per (delay,
+    channel) key of the plan (``channels`` ring channels, each delay of a
+    sparse bucket with each channel; delay k's ``[N, C]`` accumulator is
+    ``rows[k·C:(k+1)·C].T``). ``run(0, spikes)`` writes every entry of it:
+    each (key, column) entry the sum of group 0's bucket drives there, in
+    plan order, starting at +0.0, and 0.0 where group 0 has none (with two
+    channels, COBA, each bucket's drive enters as its absolute value);
     ``run(g, spikes)`` for g > 0 adds group g's drives into the entries it
     covers. Group 0 runs before the plan's first bucket, group g where
     bucket ``starts[g]`` stands, so each entry keeps the per-bucket path's
@@ -291,7 +333,7 @@ class GatherRun:
     (:func:`repro_torch.kernels.ref.gather_run_ref`). Every compiled plan
     is one group: one launch per tick."""
 
-    def __init__(self, n: int, buckets, device):
+    def __init__(self, n: int, buckets, device, channels: int = 1):
         buckets = list(buckets)
         tables = [b.table for b in buckets if b.table is not None]
         for _, idx, w in tables:
@@ -301,8 +343,8 @@ class GatherRun:
             if idx.dtype not in _gather.INDEX_DTYPES or w.dtype not in _gather.WEIGHT_DTYPES:
                 raise ValueError(f"syn_gather: idx/w dtypes {idx.dtype}/{w.dtype} not in "
                                  f"{_gather.INDEX_DTYPES}/{_gather.WEIGHT_DTYPES}")
-        self.plan = _gather.GatherPlan(n, buckets)
-        self.delays, self.starts = self.plan.delays, self.plan.starts
+        self.plan = _gather.GatherPlan(n, buckets, channels)
+        self.delays, self.keys, self.starts = self.plan.delays, self.plan.keys, self.plan.starts
         device = torch.device(device)
         self.launcher = None
         if device.type == "cuda" and self.plan.groups:
@@ -310,11 +352,12 @@ class GatherRun:
                 self.launcher = _gather.GatherLauncher(self.plan, device)
             self.rows = self.launcher.rows
         else:
-            self.rows = torch.zeros((len(self.delays), n), dtype=f32, device=device)
+            self.rows = torch.zeros((len(self.keys), n), dtype=f32, device=device)
 
     def __call__(self, g: int, spikes: torch.Tensor) -> None:
         if self.launcher is None:
-            ref.gather_run_ref(spikes, self.rows, self.plan.plain[g], first=g == 0)
+            ref.gather_run_ref(spikes, self.rows, self.plan.plain[g], first=g == 0,
+                               absolute=self.plan.absolute)
             return
         self.launcher(g, spikes.data_ptr())
         if self.launcher.items[g]:

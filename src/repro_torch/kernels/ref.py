@@ -10,9 +10,10 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["izh4_ref", "neuron_run_ref", "syn_matmul_ref", "syn_gather_ref", "gather_run_ref",
-           "fused_tick_ref", "stdp_update_ref", "stdp_gather_ref", "stdp_gather_run_ref",
-           "stdp_update_run_ref", "chunked_attention_ref", "flash_attention_ref", "pallas_no_key_rows",
+__all__ = ["izh4_ref", "neuron_run_ref", "coba_current_ref", "syn_matmul_ref",
+           "syn_gather_ref", "gather_run_ref", "fused_tick_ref", "stdp_update_ref",
+           "stdp_gather_ref", "stdp_gather_run_ref", "stdp_update_run_ref",
+           "chunked_attention_ref", "flash_attention_ref", "pallas_no_key_rows",
            "model_layout"]
 
 f32 = torch.float32
@@ -45,11 +46,18 @@ def izh4_ref(v, u, i_syn, a, b, c, d, *, dt: float = 1.0, substeps: int = 2):
 
 def neuron_run_ref(v, u, refrac, ring, slot: int, is_gen, a, b, c, d, gen_cols, spikes, *,
                    gen_row=None, i_ext_row=None, raster_row=None, v_row=None, i_row=None,
-                   counts=None, dt: float = 1.0, substeps: int = 2) -> None:
+                   counts=None, cond=None, coba=None, dt: float = 1.0,
+                   substeps: int = 2) -> None:
     """One tick's neuron phase of an IZH4-only Euler net, in place, as
     ``engine._neuron_phase`` and ``backend.update_neurons_dispatch``
-    compute it op by op: read ring slot ``slot`` (``ring`` ``[L, N, 1]``,
-    storage dtype) into ``i_syn`` f32 and zero it; add the tick's
+    compute it op by op: read ring slot ``slot`` (``ring`` ``[L, N, C]``,
+    storage dtype) as f32 and zero it; the current ``i_syn``: channel 0
+    for a CUBA ring (C = 1), else (C = 2, COBA) the conductances ``cond``
+    (AMPA, NMDA, GABAa, GABAb, ``[N]`` storage dtype) decayed, delivered
+    channel 0 (excitatory) and 1 (inhibitory) magnitudes and stored back,
+    and the current (:func:`coba_current_ref`) from the stored values and
+    the v from before the update, ``coba`` holding the coefficients
+    (:class:`repro_torch.kernels.izh_update.CobaCoeffs`); add the tick's
     ``i_ext_row`` (f32) where given; the IZH4 update (:func:`izh4_ref`);
     the spike masked by ``is_gen`` and a running refractory countdown;
     ``v = c`` and ``u = +0.0`` on generators, in the storage dtype;
@@ -59,8 +67,16 @@ def neuron_run_ref(v, u, refrac, ring, slot: int, is_gen, a, b, c, d, gen_cols, 
     spike row ``spikes`` and, where given, the bool ``raster_row``, the
     f32 ``v_row`` and ``i_row`` (``i_syn``), and ``counts += spike``
     (int32)."""
-    i_syn = ring[slot, :, 0].to(f32, copy=True)
+    if cond is None:
+        i_syn = ring[slot, :, 0].to(f32, copy=True)
+    else:
+        exc = ring[slot, :, 0].to(f32, copy=True)
+        inh = ring[slot, :, 1].to(f32, copy=True)
     ring[slot].zero_()
+    if cond is not None:
+        for g, decay, frac, x in zip(cond, coba.decay, coba.frac, (exc, exc, inh, inh)):
+            g.copy_((g.to(f32) * decay + frac * x).to(g.dtype))
+        i_syn = coba_current_ref(cond, v, coba)
     if i_ext_row is not None:
         i_syn = i_syn + i_ext_row
     v2, u2, spiked = izh4_ref(v, u, i_syn, a, b, c, d, dt=dt, substeps=substeps)
@@ -79,6 +95,20 @@ def neuron_run_ref(v, u, refrac, ring, slot: int, is_gen, a, b, c, d, gen_cols, 
         i_row.copy_(i_syn)
     if counts is not None:
         counts += spiked
+
+
+def coba_current_ref(cond, v, coba):
+    """The COBA current ``[N]`` f32 of ``core/conductance.coba_current``,
+    from the conductances ``cond`` (AMPA, NMDA, GABAa, GABAb, storage
+    dtype) and the membrane potential ``v``, with the reversal potentials
+    of ``coba`` (:class:`repro_torch.kernels.izh_update.CobaCoeffs`); the
+    division divides by a tensor, as IEEE division, on either device."""
+    ga, gn, g_a, g_b = (g.to(f32) for g in cond)
+    v = v.to(f32)
+    nv = (v + 80.0) / torch.full((), 60.0, dtype=f32, device=v.device)
+    gate = nv * nv / (1.0 + nv * nv)
+    return -(ga * (v - coba.e_exc) + gn * gate * (v - coba.e_exc)
+             + g_a * (v - coba.e_gabaa) + g_b * (v - coba.e_gabab))
 
 
 def syn_matmul_ref(x, w):
@@ -108,17 +138,19 @@ def syn_gather_ref(spikes, idx, w):
     return (_take(spikes, idx) * w.to(f32)).sum(dim=1)
 
 
-def gather_run_ref(spikes, rows, buckets, *, first: bool) -> None:
+def gather_run_ref(spikes, rows, buckets, *, first: bool, absolute: bool = False) -> None:
     """One launch of a :class:`repro_torch.kernels.ops.GatherRun`, in place
-    on ``rows`` ``[D, N]`` f32 (one row per delay): zeroed first when
-    ``first``, then each bucket ``(row, posts, idx, w)`` of ``buckets``, in
-    plan order, adds its :func:`syn_gather_ref` drive on the ``[N]`` f32
-    spike row (``idx`` ``[Q, F]`` global ids) at the post columns ``posts``
-    ``[Q]`` int64 of row ``row``."""
+    on ``rows`` ``[K, N]`` f32 (one row per (delay, channel) key): zeroed
+    first when ``first``, then each bucket ``(row, posts, idx, w)`` of
+    ``buckets``, in plan order, adds its :func:`syn_gather_ref` drive on
+    the ``[N]`` f32 spike row (``idx`` ``[Q, F]`` global ids), its absolute
+    value when ``absolute`` (COBA), at the post columns ``posts`` ``[Q]``
+    int64 of row ``row``."""
     if first:
         rows.zero_()
     for k, posts, idx, w in buckets:
-        rows[k].index_add_(0, posts, syn_gather_ref(spikes, idx, w))
+        drive = syn_gather_ref(spikes, idx, w)
+        rows[k].index_add_(0, posts, drive.abs() if absolute else drive)
 
 
 def fused_tick_ref(v, u, ring, gen_row, is_gen, a, b, c, d, t: int, *,

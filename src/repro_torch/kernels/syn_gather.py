@@ -39,7 +39,7 @@ class RunPlan(ctypes.Structure):
 
     _fields_ = [("items", _P), ("contribs", _P), ("idx", _P), ("w", _P), ("rows", _P),
                 ("stream", _P), ("n_items", _I), ("P", _I), ("F", _I), ("itype", _I),
-                ("wtype", _I), ("accumulate", _I), ("staged", _I)]
+                ("wtype", _I), ("accumulate", _I), ("staged", _I), ("absolute", _I)]
 
 
 _SIGNATURES = {**{f"syn_gather_{i}_{w}": _SIGNATURE
@@ -68,23 +68,29 @@ class Bucket(NamedTuple):
     row), and for a sparse bucket ``table = (pre, idx, w)``: ``pre`` ``[P]``
     the global ids of its pre rows, ``idx`` ``[Q, F]`` int16/int32 indices
     into ``pre`` and ``w`` ``[Q, F]`` its weights (f32, fp16 or bf16); a
-    dense bucket's ``table`` is None."""
+    dense bucket's ``table`` is None. ``channel`` is its ring channel."""
 
     delay: int
     posts: np.ndarray
     table: tuple | None = None
+    channel: int = 0
 
 
 class GatherPlan:
-    """The host plan of one run's CSR gathers over an ``[N]`` spike row.
+    """The host plan of one run's CSR gathers over an ``[N]`` spike row,
+    into a ring of ``channels`` channels (1: CUBA, 2: COBA, where each
+    bucket's drive lands as its absolute value, ``absolute``).
 
     ``buckets`` (:class:`Bucket`, the whole plan in plan order) are cut
     into launch groups. Group 0 launches before the plan's first bucket and
-    writes every entry of ``rows`` ``[len(delays), N]``, one row per delay
-    of a sparse bucket; group g > 0 launches where its first bucket stands
-    and adds into the entries it covers. A sparse bucket joins the open
+    writes every entry of ``rows`` ``[len(keys), N]``, one row per (delay,
+    channel) key: each delay of a sparse bucket with each channel, row
+    ``k·channels + c`` for ``delays[k]`` and channel ``c``, so that
+    ``rows[k·C:(k+1)·C].T`` is delay k's ``[N, C]`` accumulator. Group g >
+    0 launches where its first bucket stands and adds into the entries it
+    covers. A sparse bucket joins the open
     group unless a dense bucket since that group's launch covers one of
-    its (delay, column) entries whose sum has three or more terms: moving
+    its (key, column) entries whose sum has three or more terms: moving
     a term across another reorders only sums of three or more (a + b is b
     + a in IEEE arithmetic, and +0.0 + x is x for every sum here), so
     every sum keeps the bits of the plan-order sum. Plans whose sparse
@@ -103,28 +109,32 @@ class GatherPlan:
     index outside ``[0, P)``.
     """
 
-    def __init__(self, n: int, buckets):
-        self.n = n
+    def __init__(self, n: int, buckets, channels: int = 1):
+        self.n, self.channels, self.absolute = n, channels, channels == 2
         buckets = list(buckets)
+        if any(not 0 <= b.channel < channels for b in buckets):
+            raise ValueError(f"syn_gather: bucket channels must lie in [0, {channels})")
         sparse = [i for i, b in enumerate(buckets) if b.table is not None]
         self.delays = tuple(sorted({buckets[i].delay for i in sparse}))
-        row_of = {d: k for k, d in enumerate(self.delays)}
-        terms = {d: np.zeros(n, np.int64) for d in self.delays}
+        self.keys = tuple((d, c) for d in self.delays for c in range(channels))
+        row_of = {key: k for k, key in enumerate(self.keys)}
+        terms = {key: np.zeros(n, np.int64) for key in self.keys}
         for b in buckets:
-            if b.delay in terms:
-                np.add.at(terms[b.delay], np.asarray(b.posts, np.int64), 1)
+            if (b.delay, b.channel) in terms:
+                np.add.at(terms[b.delay, b.channel], np.asarray(b.posts, np.int64), 1)
         groups, self.starts = [[]], [0]
-        since = {d: np.zeros(n, bool) for d in self.delays}  # dense since the open launch
+        since = {key: np.zeros(n, bool) for key in self.keys}  # dense since the open launch
         for i, b in enumerate(buckets):
             posts = np.asarray(b.posts, np.int64)
+            key = (b.delay, b.channel)
             if b.table is None:
-                if b.delay in since:
-                    since[b.delay][posts] = True
+                if key in since:
+                    since[key][posts] = True
                 continue
-            if (since[b.delay][posts] & (terms[b.delay][posts] >= 3)).any():
+            if (since[key][posts] & (terms[key][posts] >= 3)).any():
                 groups.append([])
                 self.starts.append(i)
-                since = {d: np.zeros(n, bool) for d in self.delays}
+                since = {key: np.zeros(n, bool) for key in self.keys}
             groups[-1].append(i)
         if not sparse:
             groups, self.starts = [], []
@@ -160,10 +170,10 @@ class GatherPlan:
                 b = buckets[i]
                 posts = np.asarray(b.posts, np.int64)
                 q, f = tables[i][1].shape
-                keys.append(row_of[b.delay] * n + posts)
+                keys.append(row_of[b.delay, b.channel] * n + posts)
                 order.append(np.stack([offsets[i] + np.arange(q, dtype=np.int64) * f,
                                        np.full(q, f, np.int64)], axis=1))
-                plain.append((row_of[b.delay], torch.from_numpy(posts),
+                plain.append((row_of[b.delay, b.channel], torch.from_numpy(posts),
                               torch.from_numpy(composed[i]), tables[i][2]))
             self.plain.append(tuple(plain))
             keys = np.concatenate(keys) if keys else np.zeros(0, np.int64)
@@ -177,7 +187,7 @@ class GatherPlan:
             items = np.stack([cols, base + begin, base + end], axis=1)
             if g == 0:
                 items = np.concatenate([items, _zero_items(
-                    np.setdiff1d(np.arange(len(self.delays) * n), cols))])
+                    np.setdiff1d(np.arange(len(self.keys) * n), cols))])
             self.items.append(torch.from_numpy(items.astype(np.int32)).reshape(-1, 3))
         self.contribs = torch.from_numpy(
             np.concatenate(contribs or [np.zeros((0, 2), np.int64)]).astype(np.int32))
@@ -210,7 +220,7 @@ class GatherLauncher:
             raise RuntimeError("syn_gather: the library's GatherPlan size differs "
                                "from the launcher's")
         self._lib, self._fn = lib, lib.syn_gather_run
-        self.rows = torch.zeros((len(plan.delays), plan.n), dtype=torch.float32,
+        self.rows = torch.zeros((len(plan.keys), plan.n), dtype=torch.float32,
                                 device=device)
         self._keep = [plan.idx.to(device), plan.w.to(device), plan.contribs.to(device)]
         idx, w, contribs = self._keep
@@ -223,7 +233,8 @@ class GatherLauncher:
                          idx=idx.data_ptr(), w=w.data_ptr(), rows=self.rows.data_ptr(),
                          stream=stream, n_items=items.shape[0], P=plan.n, F=0,
                          itype=_ITYPE[plan.idx_dtype], wtype=_WTYPE[plan.w_dtype],
-                         accumulate=int(g > 0), staged=int(staged))
+                         accumulate=int(g > 0), staged=int(staged),
+                         absolute=int(plan.absolute))
             self._plans.append((ctypes.byref(rp), rp))
         self.items = tuple(rp.n_items for _, rp in self._plans)
 

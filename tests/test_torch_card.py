@@ -18,7 +18,12 @@ Synfire table (x100 included), ``fused_tick`` (B4) on random nets of
 1 to 5,000 neurons, on one CTA and on many, and on a CSR index of -1, and
 the per-run launchers of B1 (``ops.NeuronRun``), B5
 (``ops.StdpGatherRun``) and B6 (``ops.StdpUpdateRun``) in whole runs
-against the per-op and per-call paths, and B6 on a NaN weight."""
+against the per-op and per-call paths, and B6 on a NaN weight; and the
+conductance-based (COBA) nets: B1's COBA mode against the per-op COBA
+phase, COBA runs (packed, sparse, loop) on the card against the CPU port,
+B2 over a two-channel plan on random weights, and ``run``'s
+``gen_chunk``, ``gen_base`` and ``active`` on the card against the CPU
+port."""
 import math
 
 import numpy as np
@@ -674,3 +679,132 @@ def test_fused_tick_rejects_grid_beyond_resident(card):
     with pytest.raises(ValueError, match="resident"):
         ops.FusedTickRun(payload, x["v"], x["u"], x["ring"], *consts, gen_rows,
                          grid=10**6)
+
+
+def _coba_net(cfg_name, policy, propagation, device, **kw):
+    """Synfire's Table II network compiled with ``conductances=COBAConfig()``."""
+    from repro_torch.configs import synfire4 as tsyn
+    from repro_torch.core import COBAConfig
+
+    return tsyn._synfire_builder(getattr(tsyn, cfg_name)).compile(
+        policy=policy, propagation=propagation, conductances=COBAConfig(), device=device,
+        **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["fp16", "fp32"])
+def test_coba_neuron_run_matches_per_op_phase(card, policy):
+    """A COBA run through the neuron-phase launcher (the conductances in the
+    one ``izh4_update`` launch per tick) against the per-op COBA phase on
+    the card, with an external current: raster, v and i_syn records and
+    final state, conductances included, bit for bit."""
+    from repro_torch.core import backend as be
+    from repro_torch.core.engine import run
+
+    net = _coba_net("SYNFIRE4", policy, "sparse", card)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    cur = (torch.rand((200, net.static.n), generator=g) * 4).to(card)
+    kw = dict(i_ext=cur, record_v=True, record_i=True)
+    ops.reset_launches()
+    final, out = run(net.static, net.params, net.state0, 200, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["izh4_update"] == 200 and ops.LAUNCHES["syn_gather"] == 200
+    built = be.assemble_neurons
+    be.assemble_neurons = lambda *a, **k: None
+    try:
+        final_po, out_po = run(net.static, net.params, net.state0, 200, **kw)
+    finally:
+        be.assemble_neurons = built
+    for name in ("spikes", "v", "i_syn"):
+        assert torch.equal(out[name], out_po[name]), name
+    for a, b in ((final.ring, final_po.ring), *zip(final.neurons, final_po.neurons),
+                 *zip(final.cond, final_po.cond)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("propagation", ["packed", "sparse", "loop"])
+def test_coba_card_equals_cpu(card, propagation):
+    """COBA Synfire4-mini fp16 for 300 ticks on the card and on the CPU
+    port: raster and final state (v, u, ring, conductances) bit for bit."""
+    from repro_torch.core.engine import run
+
+    finals = {}
+    for dev in (card, torch.device("cpu")):
+        net = _coba_net("SYNFIRE4_MINI", "fp16", propagation, dev)
+        final, out = run(net.static, net.params, net.state0, 300)
+        finals[dev.type] = (final, out["spikes"].cpu())
+    (c, cs), (h, hs) = finals["cuda"], finals["cpu"]
+    assert int(hs.sum()) > 1000 and torch.equal(cs, hs)
+    for a, b in ((c.ring, h.ring), *zip(c.neurons, h.neurons), *zip(c.cond, h.cond)):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.float16])
+def test_gather_run_two_channels_random_weights(card, wdtype):
+    """``ops.GatherRun`` over a two-channel (COBA) plan on random normal
+    weights: within rtol = atol = 1e-5 of its plain version (the row sums'
+    order only), every entry a sum of absolute bucket drives."""
+    import numpy as np
+
+    from repro_torch.kernels import syn_gather as gsyn
+
+    g = torch.Generator(device="cpu").manual_seed(6)
+    n, f = 2000, 33
+
+    def table(q):
+        idx = torch.randint(0, 500, (q, f), generator=g, dtype=torch.int16).to(card)
+        return (np.arange(1000, 1500), idx, torch.randn((q, f), generator=g).to(wdtype).to(card))
+
+    buckets = [gsyn.Bucket(4, np.arange(0, 600), table(600), 0),
+               gsyn.Bucket(4, np.arange(0, 600), table(600), 1),
+               gsyn.Bucket(4, np.arange(300, 900), table(600), 0),
+               gsyn.Bucket(7, np.arange(1500, 2000), table(500), 1)]
+    run = ops.GatherRun(n, buckets, card, channels=2)
+    plain = [(k, posts.to(card), idx.to(card), w) for k, posts, idx, w in run.plan.plain[0]]
+    spikes = (torch.rand(n, generator=g) < 0.4).float().to(card)
+    ops.reset_launches()
+    run(0, spikes)
+    want = torch.empty_like(run.rows)
+    ref.gather_run_ref(spikes, want, plain, first=True, absolute=True)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["syn_gather"] == 1
+    assert bool((run.rows >= 0).all())
+    torch.testing.assert_close(run.rows, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_serving_arguments_card_equal_cpu(card):
+    """``gen_chunk`` (the launcher's generator rows swapped chunk by chunk),
+    ``gen_base`` (call-split invariant) and ``active`` on Synfire4-mini
+    fp16 sparse: card rasters and final states equal the CPU port's."""
+    from repro_torch.configs.synfire4 import SYNFIRE4_MINI, build_synfire
+    from repro_torch.core import rng
+    from repro_torch.core.engine import run
+
+    def both(**kw):
+        out = {}
+        for dev in (card, torch.device("cpu")):
+            net = build_synfire(SYNFIRE4_MINI, policy="fp16", propagation="sparse",
+                                device=dev)
+            args = {k: (v.to(dev) if isinstance(v, torch.Tensor) else v) for k, v in kw.items()}
+            final, o = run(net.static, net.params, net.state0, 300, **args)
+            out[dev.type] = (final, o["spikes"].cpu())
+        (c, cs), (h, hs) = out["cuda"], out["cpu"]
+        assert torch.equal(cs, hs)
+        for a, b in ((c.ring, h.ring), (c.key, h.key), *zip(c.neurons, h.neurons)):
+            assert torch.equal(a.cpu(), b)
+        return c, cs
+
+    _, chunked = both(gen_chunk=50)
+    assert int(chunked.sum()) > 100
+    whole, sp = both(gen_base=rng.key(9))
+    net = build_synfire(SYNFIRE4_MINI, policy="fp16", propagation="sparse", device=card)
+    state, parts = net.state0, []
+    for _ in range(3):
+        state, o = run(net.static, net.params, state, 100, gen_base=rng.key(9, card))
+        parts.append(o["spikes"].cpu())
+    assert torch.equal(torch.cat(parts), sp) and torch.equal(state.neurons.v, whole.neurons.v)
+    _, idle = both(active=torch.tensor(False))
+    assert int(idle.sum()) == 0

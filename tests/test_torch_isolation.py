@@ -39,6 +39,7 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch, repro_torch.core, repro_torch.core.convert\n"
         "import repro_torch.configs.synfire4, repro_torch.kernels.ops\n"
         "import repro_torch.core.rng, repro_torch.core.backend\n"
+        "import repro_torch.core.conductance, repro_torch.core.synapses\n"
         "import repro_torch.kernels.fused_tick, repro_torch.kernels.ref\n"
         "import repro_torch.kernels.flash_attn, repro_torch.configs.base\n"
         "import repro_torch.configs.smollm_360m, repro_torch.configs.qwen2_5_14b\n"

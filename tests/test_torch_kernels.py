@@ -877,7 +877,7 @@ class TestNeuronRun:
         for i in range(ticks):
             t = 30 + i
             run(i, t)
-            state, spikes, i_syn = engine._neuron_phase(
+            state, spikes, i_syn, _ = engine._neuron_phase(
                 static, params, state, ring, t, gen_spk[i], None if cur is None else cur[i])
             for got, want in ((run.v, state.v), (run.u, state.u), (run.refrac, state.refrac),
                               (run_ring, ring), (run.spikes, spikes.to(f32))):

@@ -14,7 +14,7 @@ import jax  # noqa: E402
 from repro.configs import synfire4 as rsyn  # noqa: E402
 from repro.core import network as rnet  # noqa: E402
 from repro_torch.configs import synfire4 as tsyn  # noqa: E402
-from repro_torch.core import NetworkBuilder, izh4  # noqa: E402
+from repro_torch.core import COBAConfig, NetworkBuilder, izh4  # noqa: E402
 from repro_torch.core.plasticity import HomeostasisConfig, STDPConfig  # noqa: E402
 from repro_torch.core.synapses import STPConfig  # noqa: E402
 from repro_torch.core import network as tnet  # noqa: E402
@@ -183,10 +183,11 @@ class TestUnportedFeaturesRaise:
         assert c.static.buckets == ()
         assert c.params.proj_csr_idx[0].shape == (10, spec.fanin)
 
+    # The loop oracle (ROADMAP A5) and conductances (A7, COBA) are ported:
+    # their cases (error None) now compile; the ids keep the cases' names.
     @pytest.mark.parametrize("kw,item,error", [
-        pytest.param({"propagation": "loop"}, "A5", NotImplementedError, id="kw0-A5"),
-        pytest.param({"conductances": object()}, "A7", NotImplementedError,
-                     id="kw1-A7"),
+        pytest.param({"propagation": "loop"}, "loop", None, id="kw0-A5"),
+        pytest.param({"conductances": COBAConfig()}, "coba", None, id="kw1-A7"),
         pytest.param({"monitors": "default"}, "A6", NotImplementedError, id="kw2-A6"),
         pytest.param({"watches": "default"}, "A10", NotImplementedError, id="kw3-A10"),
         pytest.param({"partition": object()}, "A11", NotImplementedError, id="kw4-A11"),
@@ -196,6 +197,15 @@ class TestUnportedFeaturesRaise:
                      id="kw5-A7"),
     ])
     def test_compile(self, kw, item, error):
+        if error is None:
+            c = self._net().compile(device="cpu", **kw)
+            if item == "loop":
+                assert c.static.propagation == "loop"
+            else:
+                assert c.static.ring_channels == 2 and c.static.coba == kw["conductances"]
+                assert tuple(c.state0.ring.shape[1:]) == (10, 2)
+                assert all(g.shape == (10,) for g in c.state0.cond)
+            return
         with pytest.raises(error, match=item):
             self._net().compile(device="cpu", **kw)
 
