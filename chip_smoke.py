@@ -99,6 +99,34 @@ Phases (each raises, and the script exits non-zero, on any failure):
    ticks), ``active=False`` for 200 ticks (no generator spike, homeostasis
    holds the weights), and the ``propagation="loop"`` oracle, fp16 and
    fp32, whose raster equals packed's on the card.
+8. Lanes (run before phase 6, in a process of its own: late in a long
+   process ``torch.profiler`` stops recording kernels): (a) ``ops.NeuronRun``, ``ops.GatherRun``
+   and ``ops.MatmulRun`` over 64 lanes on Synfire4 fp16 and fp32, packed
+   and sparse, with the lanes' ring slots spread over all L slots and a
+   third of the lanes inactive: bit for bit their plain lane versions over
+   12 chained ticks (``GatherRun`` and ``MatmulRun`` with shared and
+   per-lane Synfire-valued weights) and the one-lane launcher on every
+   lane on random weights; timed per call and on the device beside 64
+   one-lane calls, the plain version and the library call (B2
+   ``embedding_bag`` over the same rows, sums only; B3 ``torch.matmul``
+   (shared, M = 64) and ``torch.bmm`` (per lane)), with byte bounds; the
+   per-lane cases rotate through copies of their tables or images that
+   together hold three times the L2, so that each call reads them from
+   device memory (their L2-warm times beside).
+   (b) ``run_batch(1000, 64)`` on Synfire4 fp16 packed and sparse
+   (``budget=None``): one ``izh4_update`` per tick for all lanes and 8
+   ``syn_matmul`` or one ``syn_gather``; 8 lanes, the first and last among
+   them, equal solo card runs in raster and state; every lane's spikes in
+   20,000-33,000; µs/tick, lane-ticks per second, device events per tick
+   and peak device memory. (c) ``LaneScheduler(capacity=64,
+   record="none")`` on Synfire4 fp16 sparse: 48 tenants admitted in three
+   waves, 10 chunks of 100 ticks, 4 evicted to solo sessions, 4 exported
+   to a second scheduler and 2 moved there through ``save_lane``/
+   ``restore_lane``; every moved tenant and 8 more equal solo sessions;
+   µs per chunk of each scheduler against ``run_batch(100, 64)`` timed
+   beside them, and the ledger's serve bytes. (d) Synfire4-mini fp16 at
+   512 lanes, one 100-tick chunk. (e) plastic Synfire4-mini at 8 lanes,
+   the lane-by-lane route, each lane equal to its solo session.
 6. LM serving on the dense decoder (``repro_torch.launch.serve``): (a) the
    attention kernel ``flash_attention`` against its plain version on the
    card, at rtol = atol = 1e-5, at smollm-360m's prefill and decode shapes,
@@ -136,6 +164,8 @@ per-path numbers, the card's name and power limit from nvidia-smi, and
 """
 from __future__ import annotations
 
+import copy
+import itertools
 import json
 import subprocess
 import sys
@@ -2266,6 +2296,721 @@ def phase_a5(dev, totals: dict) -> dict:
     return paths
 
 
+# -- lanes (A9): B1-B3 over a leading lane dimension, run_batch, LaneScheduler --------
+
+LANES = 64
+LANE_SAMPLE = (0, 9, 18, 27, 36, 45, 54, 63)  # lanes held against solo runs
+SCHED_CHUNK = 100  # ticks per LaneScheduler chunk
+
+
+def _lane_t0() -> tuple[int, ...]:
+    """Lanes' first ticks, spread over every ring slot."""
+    return tuple(100 + 7 * b for b in range(LANES))
+
+
+def _lane_gen(g, static, dev, ticks: int) -> torch.Tensor:
+    """Random generator rows ``[B, T, n_gen]``, a third of the lanes
+    inactive (their rows all False: ``active`` folds into them)."""
+    gen = torch.rand((LANES, ticks, static.n_gen), generator=g) < 0.3
+    gen[2::3] = False
+    return gen.to(dev)
+
+
+def _hold_neuron_lanes(net, g, dev, what: str) -> dict:
+    """``ops.NeuronRun`` over 64 lanes (ring slots spread over all L, a third
+    of the lanes inactive) for 12 chained ticks on random v, u, refrac and
+    rings: bit for bit its plain version (``ref.neuron_lanes_ref`` on the
+    card) after every tick and the one-lane launcher on every lane; timed
+    beside the plain version and 64 one-lane calls. The bound is 64 times
+    the one-lane tick's bytes (raster recorded)."""
+    from repro_torch.core import backend as be
+    from repro_torch.core.lanes import lane_state
+    from repro_torch.core.neurons import NeuronModel, NeuronState
+    from repro_torch.kernels import ops, ref
+
+    static, params = net.static, net.params
+    n, dtype, ticks = static.n, net.state0.neurons.v.dtype, NEURON_TICKS
+    v = (torch.rand((LANES, n), generator=g) * 115 - 80).to(dtype).to(dev)
+    u = (torch.rand((LANES, n), generator=g) * 10 - 15).to(dtype).to(dev)
+    refrac = torch.randint(0, 3, (LANES, n), generator=g).to(torch.int16).to(dev)
+    ring = (torch.rand((LANES, *net.state0.ring.shape), generator=g) * 12).to(dtype).to(dev)
+    t0 = _lane_t0()
+    require(len({t % static.ring_len for t in t0}) == static.ring_len, f"t0 {t0}")
+    gen = _lane_gen(g, static, dev, ticks)
+    raster = torch.zeros((LANES, ticks, n), dtype=torch.bool, device=dev)
+    neurons = NeuronState(v=v, u=u, refrac=refrac)
+    k_ring, p_ring = ring.clone(), ring.clone()
+    run = be.assemble_neurons(static, params, neurons, k_ring, gen_spk=gen, raster=raster,
+                              t0=t0)
+    require(run.launcher is not None, f"NeuronRun lanes {what}: no launcher on the card")
+    p = params.neuron
+    is_gen = p.model == NeuronModel.GENERATOR
+    cols = _gen_cols(static, dev)
+    pv, pu, pr = v.clone(), u.clone(), refrac.clone()
+    p_spikes = torch.zeros((LANES, n), device=dev)
+    p_raster = torch.zeros_like(raster)
+    ops.reset_launches()
+    for i in range(ticks):
+        run(i)
+        ref.neuron_lanes_ref(pv, pu, pr, p_ring, [(t + i) % static.ring_len for t in t0],
+                             is_gen, p.a, p.b, p.c, p.d, cols, p_spikes, gen_rows=gen[:, i],
+                             raster_rows=p_raster[:, i], dt=static.dt,
+                             substeps=static.substeps)
+        torch.cuda.synchronize()
+        for name, got, want in (("v", run.v, pv), ("u", run.u, pu), ("refrac", run.refrac, pr),
+                                ("ring", k_ring, p_ring), ("spikes", run.spikes, p_spikes)):
+            _require_bitwise(got, want, f"NeuronRun lanes {what} tick {i} {name}")
+    _require_bitwise(raster, p_raster, f"NeuronRun lanes {what} raster")
+    require(ops.LAUNCHES["izh4_update"] == ticks, f"NeuronRun lanes {what}: "
+            f"{ops.LAUNCHES['izh4_update']} launches in {ticks} ticks")
+    fired = raster[:, :, ~is_gen].sum(dim=(1, 2))
+    require(int(fired.sum()) > 0, f"NeuronRun lanes {what}: no neuron spiked")
+    solos = []
+    for b in range(LANES):
+        one_ring = ring[b].clone()
+        one_raster = torch.zeros((ticks, n), dtype=torch.bool, device=dev)
+        solo = be.assemble_neurons(static, params, NeuronState(v[b], u[b], refrac[b]),
+                                   one_ring, gen_spk=gen[b].contiguous(), raster=one_raster)
+        for i in range(ticks):
+            solo(i, t0[b] + i)
+        for name, got, want in (("v", solo.v, run.v[b]), ("u", solo.u, run.u[b]),
+                                ("ring", one_ring, k_ring[b]), ("raster", one_raster,
+                                                                raster[b])):
+            _require_bitwise(got, want, f"NeuronRun lanes {what} lane {b} vs one lane {name}")
+        solos.append(solo)
+    log(f"[lanes] NeuronRun {what}: 64 lanes (slots over all {static.ring_len}, a third "
+        f"inactive) x {ticks} ticks bitwise against the plain lane version and the "
+        f"one-lane launcher on every lane; {int(fired.sum())} neuron spikes")
+    counter = iter(range(10**9))
+
+    def tick():
+        run(next(counter) % ticks)
+
+    def one_lane_calls():
+        i = next(counter) % ticks
+        for b, solo in enumerate(solos):
+            solo(i, t0[b] + i)
+
+    plain = lambda: ref.neuron_lanes_ref(  # noqa: E731
+        pv, pu, pr, p_ring, [t % static.ring_len for t in t0], is_gen, p.a, p.b, p.c, p.d,
+        cols, p_spikes, gen_rows=gen[:, 0], raster_rows=p_raster[:, 0])
+    s = v.element_size()
+    moved = LANES * (2 * n * s + 2 * 2 * n * s + 2 * 2 * n + 4 * n + static.n_gen + n) + (
+        4 * 4 * n + n + 4 * n)
+    b_ms, b_by = bound(moved, 31 * n * LANES)
+    return {"shape": f"{what} tick over 64 lanes: N={n}, raster recorded, one launch",
+            "ms": cuda_ms(tick), "device_ms": device_ms(tick, "izh4_run_kernel"),
+            "one_lane_x64_ms": cuda_ms(one_lane_calls, reps=20, warmup=2),
+            "plain_ms": cuda_ms(plain, reps=5, warmup=1), "bound_ms": b_ms,
+            "bound_by": b_by, "bound_bytes": moved, "library_ms": None}
+
+
+L2_BYTES = 50 * 2**20  # the H100's L2
+
+
+def _l2_copies(nbytes_each: int) -> int:
+    """How many copies of an operand of ``nbytes_each`` bytes together hold
+    three times the L2: rotating through them, each call reads its copy
+    from device memory."""
+    return max(2, -(-3 * L2_BYTES // nbytes_each))
+
+
+def _cycling(fns):
+    """A call that runs the next of ``fns`` each time."""
+    it = itertools.cycle(fns)
+    return lambda: next(it)()
+
+
+def _gather_copies(run, dev, copies: int) -> list:
+    """``run`` (a per-lane ``ops.GatherRun``) and ``copies - 1`` more on
+    copies of its weight table, each with its own launcher and rows."""
+    from repro_torch.kernels import syn_gather as gsyn
+
+    out = [run]
+    for _ in range(copies - 1):
+        plan = copy.copy(run.plan)
+        plan.w = run.plan.w.clone()
+        other = copy.copy(run)
+        other.plan = plan
+        with torch.cuda.device(dev):
+            other.launcher = gsyn.GatherLauncher(plan, dev, lanes=LANES)
+        other.rows = other.launcher.rows
+        out.append(other)
+    return out
+
+
+def _gather_lanes_bag(run, spikes, dev, copies: int = 1):
+    """``embedding_bag`` over the CSR rows of ``run`` (an ``ops.GatherRun``
+    over 64 lanes, one group) on the lanes' ``spikes`` ``[B, N]``, sums
+    only: shared tables are one call with the transposed spike rows ``[N,
+    B]`` as the table (transposed outside the call); per-lane tables one
+    call on ``spikes`` as ``[B·N, 1]``, lane b's indices offset by b·N and
+    its weights as per-sample weights (int32 indices), rotated through
+    ``copies`` copies of the weights. Returns the call and a check that
+    scatters its sums into ``run.rows``' layout."""
+    plain = run.plan.plain[0]
+    n, lanes = spikes.shape[1], spikes.shape[0]
+    rows_i = [gidx.reshape(-1).to(dev, torch.int32) for _, _, gidx, _ in plain]
+    flat = torch.cat(rows_i)
+    sizes = [gidx.shape[0] for _, _, gidx, _ in plain]
+    offsets = torch.cat([torch.arange(0, gidx.numel(), gidx.shape[1], device=dev,
+                                      dtype=torch.int32) + sum(x.numel() for x in rows_i[:i])
+                         for i, (_, _, gidx, _) in enumerate(plain)])
+    per_lane = plain[0][3].dim() == 3
+    bag = torch.nn.functional.embedding_bag
+    if per_lane:
+        lane = torch.arange(lanes, device=dev, dtype=torch.int32)[:, None]
+        offsets = (offsets[None] + lane * flat.numel()).reshape(-1)
+        flat = (flat[None] + lane * n).reshape(-1)
+        w0 = torch.cat([w.reshape(lanes, -1) for *_, w in plain], dim=1).reshape(-1).float()
+        ws = [w0] + [w0.clone() for _ in range(copies - 1)]
+        table = spikes.reshape(-1, 1)
+        calls = [lambda w=w: bag(flat, table, offsets, per_sample_weights=w, mode="sum")
+                 for w in ws]
+        fn = _cycling(calls)
+
+        def sums():
+            return calls[0]().reshape(lanes, -1)
+    else:
+        wflat = torch.cat([w.reshape(-1) for *_, w in plain]).float()
+        table = spikes.T.contiguous()
+
+        def fn():
+            return bag(flat, table, offsets, per_sample_weights=wflat, mode="sum")
+
+        def sums():
+            return fn().T
+
+    def check():
+        got = torch.zeros_like(run.rows)
+        per_row = sums()
+        r0 = 0
+        for (k, posts, _, _), q in zip(plain, sizes):
+            got[:, k].index_add_(1, posts.to(dev), per_row[:, r0:r0 + q])
+            r0 += q
+        return got
+
+    return fn, check
+
+
+def _hold_gather_lanes(net, g, dev, what: str) -> dict:
+    """``ops.GatherRun`` over 64 lanes on the compiled Synfire4 tables: with
+    the compiled weights shared and, per lane, Synfire-valued tables, bit
+    for bit its plain lane version on 12 random spike rows each; on random
+    normal weights, shared and per lane, bit for bit the one-lane launcher
+    on every lane. Timed (per call, device, 64 one-lane calls, plain,
+    ``embedding_bag`` over the same rows) with shared and with per-lane
+    tables, the per-lane ones rotated through copies past the L2; the
+    library's sums are held against the kernel's at rtol 1e-5, atol 1e-4.
+    The bound reads the index table once,
+    the weights once (shared) or 64 times, the 64 spike rows, and writes
+    the 64 accumulator blocks."""
+    from repro_torch.core import backend as be
+    from repro_torch.kernels import ops, ref
+
+    static, params = net.static, net.params
+    packed = be.assemble_packed(static, net.state0.weights)
+    table = torch.tensor([0.0, 1.0, 3.5, -2.0])
+    variants = {
+        "shared": packed,
+        "per-lane": tuple(table[torch.randint(0, 4, (LANES, *w.shape), generator=g)].to(dev)
+                          for w in packed)}
+    out = {}
+    for label, pk in variants.items():
+        run = be.assemble_gather(static, params, pk, LANES)
+        plain = [(k, posts.to(dev), gidx.to(dev), w) for k, posts, gidx, w in run.plan.plain[0]]
+        want = torch.empty_like(run.rows)
+        for _ in range(NEURON_TICKS):
+            spikes = (torch.rand((LANES, static.n), generator=g) < 0.3).float().to(dev)
+            spikes[2::3] = 0.0
+            ops.reset_launches()
+            run(0, spikes)
+            ref.gather_lanes_ref(spikes, want, plain, first=True)
+            torch.cuda.synchronize()
+            require(ops.LAUNCHES["syn_gather"] == 1, f"GatherRun lanes {what} {label}: "
+                    f"{ops.LAUNCHES['syn_gather']} launches")
+            _require_bitwise(run.rows, want, f"GatherRun lanes {what} {label}")
+        rand = tuple(torch.randn(tuple(w.shape), generator=g).to(dev) for w in pk)
+        rrun = be.assemble_gather(static, params, rand, LANES)
+        rrun(0, spikes)
+        if label == "shared":
+            ones = [be.assemble_gather(static, params, rand)] * LANES
+        else:
+            ones = [be.assemble_gather(static, params, tuple(w[b] for w in rand))
+                    for b in range(LANES)]
+        lane_rows = [spikes[b].contiguous() for b in range(LANES)]
+        for b in range(LANES):
+            ones[b](0, lane_rows[b])
+            torch.cuda.synchronize()
+            _require_bitwise(ones[b].rows, rrun.rows[b],
+                             f"GatherRun lanes {what} {label} random lane {b} vs one lane")
+        plan = run.plan
+        moved = (nbytes(plan.idx) + nbytes(plan.w.to(dev)) + nbytes(spikes) + nbytes(run.rows))
+        entries = int(plan.idx.numel()) * LANES
+        b_ms, b_by = bound(moved, 2 * entries)
+        bag, bag_check = _gather_lanes_bag(rrun, spikes, dev)
+        bag_rows = bag_check()
+        bag_err = max_err(rrun.rows, bag_rows)
+        require(torch.allclose(rrun.rows, bag_rows, rtol=1e-5, atol=1e-4),
+                f"GatherRun lanes {what} {label}: embedding_bag differs by {bag_err}")
+        call, launch, lib = (lambda: rrun(0, spikes)), (
+            lambda: rrun.launcher(0, spikes.data_ptr())), bag
+        warm = {}
+        if label == "per-lane":  # per-lane tables rotated through copies past the L2
+            warm = {"l2_warm_ms": cuda_ms(call), "l2_warm_device_ms": device_ms(
+                launch, "gather_kernel")}
+            runs = _gather_copies(rrun, dev, _l2_copies(nbytes(rrun.plan.w)))
+            call = _cycling([lambda r=r: r(0, spikes) for r in runs])
+            launch = _cycling([lambda r=r: r.launcher(0, spikes.data_ptr()) for r in runs])
+            lib = _gather_lanes_bag(rrun, spikes, dev, copies=len(runs))[0]
+            warm["copies"] = len(runs)
+        out[label] = {
+            "shape": f"{what}: 13 CSR buckets over 64 lanes, {label} weights, one launch",
+            "ms": cuda_ms(call), "device_ms": device_ms(launch, "gather_kernel"), **warm,
+            "one_lane_x64_ms": cuda_ms(lambda: [o(0, r) for o, r in zip(ones, lane_rows)],
+                                       reps=20, warmup=2),
+            "plain_ms": cuda_ms(lambda: ref.gather_lanes_ref(spikes, want, plain, first=True),
+                                reps=3, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": moved,
+            "library": "embedding_bag (sums only)", "library_ms": cuda_ms(lib),
+            "library_device_ms": device_total_ms(lib), "library_max_abs_err": bag_err}
+        log(f"[lanes] GatherRun {what} {label}: bitwise against the plain lane version "
+            f"on {NEURON_TICKS} spike rows and the one-lane launcher on every lane on "
+            f"random weights; {out[label]['ms'] * 1e3:.2f} us per call "
+            f"({out[label]['device_ms'] * 1e3:.2f} us on the device"
+            + ("" if not warm else f"; {warm['copies']} table copies rotated, "
+               f"{warm['l2_warm_device_ms'] * 1e3:.2f} us L2-warm")
+            + f"), 64 one-lane calls {out[label]['one_lane_x64_ms'] * 1e3:.2f} us, "
+            f"embedding_bag {out[label]['library_ms'] * 1e3:.2f} us "
+            f"({out[label]['library_device_ms'] * 1e3:.2f} us on the device), bound "
+            f"{b_ms * 1e3:.4f} us")
+    return out
+
+
+def _hold_matmul_lanes(net, g, dev, what: str) -> dict:
+    """``ops.MatmulRun`` over 64 lanes on the packed Synfire4 images, the
+    lanes' rows column slices of ``[64, N]`` spike rows: shared images and
+    per-lane Synfire-valued images bit for bit the plain lane version; on
+    random normal weights, shared and per lane, bit for bit the one-lane
+    GEMV on every lane. Timed at bucket 0 ([64, 200] x [200, 250] f32)
+    beside 64 one-lane calls, the plain version, ``torch.matmul`` (shared)
+    and ``torch.bmm`` (per lane), the per-lane image rotated through copies
+    past the L2."""
+    from repro_torch.core import backend as be
+    from repro_torch.kernels import ops, ref
+
+    static = net.static
+    images = be.assemble_packed(static, net.state0.weights)
+    table = torch.tensor([0.0, 1.0, 3.5, -2.0])
+    variants = {
+        "shared": images,
+        "per-lane": tuple(table[torch.randint(0, 4, (LANES, *w.shape), generator=g)].to(dev)
+                          for w in images)}
+    out, err = {}, 0.0
+    for label, imgs in variants.items():
+        run = ops.MatmulRun(imgs, LANES)
+        rand = tuple(torch.randn(tuple(w.shape), generator=g).to(dev) for w in imgs)
+        rrun = ops.MatmulRun(rand, LANES)
+        spikes = (torch.rand((LANES, static.n), generator=g) < 0.3).float().to(dev)
+        spikes[2::3] = 0.0
+        ops.reset_launches()
+        for bi, b in enumerate(static.buckets):
+            x = spikes[:, b.pre_start:b.pre_start + b.p]
+            got = run(bi, x)
+            want = ref.syn_matmul_lanes_ref(x, imgs[bi])
+            torch.cuda.synchronize()
+            _require_bitwise(got, want, f"MatmulRun lanes {what} {label} bucket {bi}")
+            got = rrun(bi, x).clone()
+            for lane in range(LANES):
+                one = ops.MatmulRun([rand[bi][lane] if label == "per-lane" else rand[bi]])
+                _require_bitwise(one(0, x[lane].contiguous()), got[lane],
+                                 f"MatmulRun lanes {what} {label} random bucket {bi} lane "
+                                 f"{lane} vs one lane")
+            err = max(err, max_err(got, ref.syn_matmul_lanes_ref(x, rand[bi])))
+        require(ops.LAUNCHES["syn_matmul"] >= 2 * len(static.buckets),
+                f"MatmulRun lanes {what}: {ops.LAUNCHES['syn_matmul']} launches")
+        w = imgs[0]
+        b0 = static.buckets[0]
+        x = spikes[:, b0.pre_start:b0.pre_start + b0.p]
+        xc = x.contiguous()
+        ones = [ops.MatmulRun([w[lane] if label == "per-lane" else w]) for lane in range(LANES)]
+        rows = [x[lane].contiguous() for lane in range(LANES)]
+        call = lambda: run(0, x)  # noqa: E731
+        lib = ((lambda: torch.matmul(xc, w)) if label == "shared"
+               else (lambda: torch.bmm(xc[:, None, :], w)))
+        warm = {}
+        if label == "per-lane":  # per-lane images rotated through copies past the L2
+            warm = {"l2_warm_ms": cuda_ms(call),
+                    "l2_warm_device_ms": device_ms(call, "gemv_lanes_kernel")}
+            ws = [w] + [w.clone() for _ in range(_l2_copies(nbytes(w)) - 1)]
+            call = _cycling([lambda r=ops.MatmulRun([c], LANES): r(0, x) for c in ws])
+            lib = _cycling([lambda c=c: torch.bmm(xc[:, None, :], c) for c in ws])
+            warm["copies"] = len(ws)
+        moved = nbytes(w) + nbytes(xc) + LANES * w.shape[-1] * 4
+        b_ms, b_by = bound(moved, 2 * LANES * w.shape[-2] * w.shape[-1])
+        out[label] = {
+            "shape": f"[64,{w.shape[-2]}]x{list(w.shape)} f32, {label} image, one launch",
+            "ms": cuda_ms(call), "device_ms": device_ms(call, "gemv_lanes_kernel"), **warm,
+            "one_lane_x64_ms": cuda_ms(lambda: [o(0, r) for o, r in zip(ones, rows)],
+                                       reps=20, warmup=2),
+            "plain_ms": cuda_ms(lambda: ref.syn_matmul_lanes_ref(x, w), reps=20, warmup=2),
+            "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": moved,
+            "library": "torch.matmul" if label == "shared" else "torch.bmm",
+            "library_ms": cuda_ms(lib), "library_device_ms": device_total_ms(lib)}
+        log(f"[lanes] MatmulRun {what} {label}: bitwise against the plain lane version on "
+            f"Synfire-valued images and the one-lane GEMV on every lane on random weights; "
+            f"{out[label]['ms'] * 1e3:.2f} us per call ({out[label]['device_ms'] * 1e3:.2f} "
+            f"us on the device"
+            + ("" if not warm else f"; {warm['copies']} image copies rotated, "
+               f"{warm['l2_warm_device_ms'] * 1e3:.2f} us L2-warm")
+            + f"), 64 one-lane calls {out[label]['one_lane_x64_ms'] * 1e3:.2f} "
+            f"us, {out[label]['library']} {out[label]['library_ms'] * 1e3:.2f} us "
+            f"({out[label]['library_device_ms'] * 1e3:.2f} us on the device), bound "
+            f"{b_ms * 1e3:.4f} us")
+    out["max_abs_err_vs_plain_random"] = err
+    return out
+
+
+def phase_lane_kernels(dev, rows: list) -> None:
+    """Phase 8a: B1-B3 over 64 lanes against their plain versions and the
+    one-lane launchers, on Synfire4 fp16 and fp32, packed and sparse; the
+    fp16 numbers join the kernel rows under ``lanes``."""
+    from repro_torch.configs.synfire4 import SYNFIRE4, build_synfire
+
+    g = torch.Generator(device="cpu").manual_seed(80)
+    by_name = {r["name"]: r for r in rows}
+    for policy in ("fp16", "fp32"):
+        for propagation in ("packed", "sparse"):
+            net = build_synfire(SYNFIRE4, policy=policy, propagation=propagation, device=dev,
+                                budget=None)
+            what = f"SYNFIRE4 {policy}/{propagation}"
+            neuron = _hold_neuron_lanes(net, g, dev, what)
+            syn = (_hold_matmul_lanes(net, g, dev, what) if propagation == "packed"
+                   else _hold_gather_lanes(net, g, dev, what))
+            if policy == "fp16":
+                if propagation == "sparse":
+                    by_name["izh4_update"]["lanes"] = neuron
+                by_name["syn_matmul" if propagation == "packed" else "syn_gather"][
+                    "lanes"] = syn
+
+
+def _loop_events(fn, ticks: int) -> tuple[float, float]:
+    """Device events per tick of ``fn`` (a ``ticks``-tick run) under
+    ``torch.profiler``: all of them (set-up included) over ``ticks``, and
+    those from the first ``izh4_run_kernel`` launch to the last over the
+    ticks between them (the tick loop alone)."""
+    for attempt in range(PROFILE_TRIES):
+        events = sorted(_cuda_events(fn, 1), key=lambda e: e.time_range.start)
+        ticks_at = [i for i, e in enumerate(events) if "izh4_run_kernel" in e.name]
+        if len(ticks_at) == ticks:
+            return len(events) / ticks, (ticks_at[-1] - ticks_at[0]) / (ticks - 1)
+        log(f"[profile] trace {attempt + 1} held {len(ticks_at)} of {ticks} "
+            "izh4_run_kernel launches; tracing again")
+    return len(events) / ticks, None
+
+
+def _require_lane_equals(final, out, b, solo, solo_out, what):
+    from repro_torch.core.lanes import lane_state
+
+    lane = lane_state(final, b)
+    if solo_out is not None:
+        _require_same_raster(out["spikes"][b].cpu(), solo_out["spikes"].cpu(), f"{what} lane {b}")
+    _require_same_state(lane, solo, f"{what} lane {b}")
+    require(lane.t == solo.t, f"{what} lane {b}: t {lane.t} != {solo.t}")
+
+
+def _run_batch_path(dev, propagation: str, totals: dict) -> dict:
+    """Phase 8b: ``run_batch(1000, 64)`` on Synfire4 fp16 (``budget=None``):
+    one ``izh4_update`` per tick for all lanes, one ``syn_gather`` (sparse)
+    or 8 ``syn_matmul`` (packed); 8 lanes, the first and last among them,
+    equal solo card runs on ``split(key, 64)[b]``; every lane's spikes in
+    the paper's 20,000-33,000. Wall µs/tick beside the solo run's,
+    lane-ticks per second, device events per tick, peak device memory."""
+    from repro_torch.configs.synfire4 import SYNFIRE4, build_synfire
+    from repro_torch.core import rng, run, run_batch
+    from repro_torch.kernels import ops
+
+    net = build_synfire(SYNFIRE4, policy="fp16", propagation=propagation, device=dev,
+                        budget=None)
+    static, params, state0 = net.static, net.params, net.state0
+    run_batch(static, params, state0, 20, LANES)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    final, out = run_batch(static, params, state0, TICKS, LANES)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    _add(totals, launches)
+    want = {**_static_launches(net, TICKS)}
+    require(launches == want, f"run_batch {propagation}: launches {launches} != {want}")
+    counts = out["spikes"].sum(dim=(1, 2)).cpu()
+    require(bool(((counts >= 20_000) & (counts <= 33_000)).all()),
+            f"run_batch {propagation}: lane spike counts {counts.min()}-{counts.max()} "
+            "outside 20,000-33,000")
+    keys = rng.split(state0.key, LANES)
+    solo_s = None
+    for b in LANE_SAMPLE:
+        t1 = time.perf_counter()
+        solo, solo_out = run(static, params, state0._replace(key=keys[b]), TICKS)
+        torch.cuda.synchronize()
+        solo_s = time.perf_counter() - t1
+        _require_lane_equals(final, out, b, solo, solo_out, f"run_batch {propagation}")
+    events, in_loop = _loop_events(lambda: run_batch(static, params, state0, 20, LANES), 20)
+    res = {"us_per_tick": seconds / TICKS * 1e6, "solo_us_per_tick": solo_s / TICKS * 1e6,
+           "lane_ticks_per_s": LANES * TICKS / seconds,
+           "solo_ticks_per_s": TICKS / solo_s, "device_events_per_tick": events,
+           "device_events_per_tick_in_loop": in_loop,
+           "peak_device_bytes": peak, "spikes_min": int(counts.min()),
+           "spikes_max": int(counts.max()), "launches": launches,
+           "lanes_equal_solo": list(LANE_SAMPLE)}
+    log(f"[lanes] run_batch(1000, 64) Synfire4 fp16 {propagation}: "
+        f"{res['us_per_tick']:.1f} us/tick ({res['lane_ticks_per_s']:.0f} lane-ticks/s; "
+        f"solo {res['solo_us_per_tick']:.1f} us/tick), {events:.2f} device events per tick "
+        f"({in_loop} in the tick loop), "
+        f"peak {peak} B, lane spikes {res['spikes_min']}-{res['spikes_max']}, launches "
+        f"{launches}; lanes {LANE_SAMPLE} == solo card runs (raster and state)")
+    return res
+
+
+def _solo_session(net, key, ticks, state=None):
+    from repro_torch.serve import Session
+
+    sess = Session.create(net, key=key, state=state)
+    sess.run(ticks, record="none")
+    return sess.state
+
+
+def _scheduler_path(dev, totals: dict) -> dict:
+    """Phase 8c: ``LaneScheduler(capacity=64, record="none")`` over
+    Synfire4 fp16 sparse: 48 tenants admitted in three waves (chunks 0, 2
+    and 4), 10 chunks of 100 ticks; after chunk 5, 4 tenants evicted and
+    resumed as solo sessions, 4 exported into a second scheduler
+    (capacity 8) and 2 moved there through ``save_lane``/``restore_lane``
+    on disk; at the end every moved tenant and 8 more equal a solo session
+    over the same key and ticks. Each scheduler's chunks are timed apart,
+    and beside them ``run_batch(100, 64)`` on the same net."""
+    import tempfile
+    import zlib
+
+    from repro_torch.configs.synfire4 import SYNFIRE4, build_synfire
+    from repro_torch.core import rng, run_batch
+    from repro_torch.core.lanes import lane_state
+    from repro_torch.kernels import ops
+    from repro_torch.serve import LaneScheduler, restore_lane, save_lane
+
+    net = build_synfire(SYNFIRE4, policy="fp16", propagation="sparse", device=dev, budget=None)
+    big = LaneScheduler(net, LANES, record="none")
+    small = LaneScheduler(net, 8, record="none", ledger_key="small")
+    admitted, solos, chunk_s, small_s = {}, {}, [], []
+    chunks, chunk = 10, SCHED_CHUNK
+    ops.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        for c in range(chunks):
+            if c in (0, 2, 4):
+                for k in range(LANES // 4):
+                    sid = f"tenant{len(admitted)}"
+                    big.admit(sid)
+                    admitted[sid] = c
+            if c == 6:
+                moved = big.session_ids[:10]
+                for sid in moved[:4]:  # evicted, resumed as solo sessions below
+                    solos[sid] = (big.evict(sid), (chunks - c) * chunk)
+                for sid in moved[4:8]:
+                    small.restore(big.export(sid))
+                for i, sid in enumerate(moved[8:]):
+                    save_lane(f"{tmp}/{i}", big.export(sid))
+                    small.restore(restore_lane(f"{tmp}/{i}", net))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            big.step(chunk)
+            torch.cuda.synchronize()
+            chunk_s.append(time.perf_counter() - t0)
+            if small.occupancy:
+                t0 = time.perf_counter()
+                small.step(chunk)
+                torch.cuda.synchronize()
+                small_s.append(time.perf_counter() - t0)
+    launches = dict(ops.LAUNCHES)
+    _add(totals, launches)
+    for sid, (ev, ticks) in solos.items():
+        solos[sid] = _solo_session(net, ev.gen_key, ticks, state=ev.state)
+    steps = chunks + (chunks - 6)
+    require(launches["izh4_update"] == steps * chunk and launches["syn_gather"] == steps * chunk,
+            f"scheduler launches {launches}: want {steps * chunk} izh4_update and syn_gather")
+    checked = []
+    for sid in list(solos) + small.session_ids + big.session_ids[:8]:
+        key = rng.key(zlib.crc32(sid.encode()), dev)
+        ticks = (chunks - admitted[sid]) * chunk
+        want = _solo_session(net, key, ticks)
+        if sid in solos:
+            got = solos[sid]
+        else:
+            sched = small if sid in small.session_ids else big
+            got = lane_state(sched.states, sched.lane_of(sid))
+        _require_same_state(got, want, f"scheduler tenant {sid}")
+        require(got.t == ticks, f"scheduler tenant {sid}: t {got.t} != {ticks}")
+        checked.append(sid)
+    # The same 64 lanes' 100 ticks batched (one shared table, one ring
+    # phase), in the same phase of the script: what a chunk is held to.
+    run_batch(net.static, net.params, net.state0, chunk, LANES, record="none")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_batch(net.static, net.params, net.state0, chunk, LANES, record="none")
+    torch.cuda.synchronize()
+    batched_s = time.perf_counter() - t0
+    res = {"us_per_chunk": [s * 1e6 for s in chunk_s], "chunk_ticks": chunk,
+           "small_us_per_chunk": [s * 1e6 for s in small_s],
+           "batched_us_per_100_ticks": batched_s * 1e6,
+           "chunk_over_batched": [s / batched_s for s in chunk_s],
+           "serve_bytes": net.ledger.serve_bytes(),
+           "serve_rung_bytes": net.ledger.serve_rung_bytes(),
+           "session_bytes": big.session_bytes, "tenants_checked": checked,
+           "launches": launches}
+    log(f"[lanes] LaneScheduler(64) Synfire4 fp16 sparse: 48 tenants in 3 waves, 10 chunks "
+        f"of 100 ticks; 4 evicted to solo sessions, 4 exported and 2 through save_lane/"
+        f"restore_lane into a second scheduler (8); {len(checked)} tenants (every moved one) "
+        f"== solo sessions; us per chunk {[round(s * 1e6) for s in chunk_s]} (the 8-lane "
+        f"scheduler {[round(s * 1e6) for s in small_s]}), run_batch(100, 64) "
+        f"{batched_s * 1e6:.0f} us, chunk / batched "
+        f"{[round(s / batched_s, 2) for s in chunk_s]}; serve bytes {res['serve_bytes']} "
+        f"({res['serve_rung_bytes']}), {res['session_bytes']} B per session")
+    return res
+
+
+def _mini_512_path(dev, totals: dict) -> dict:
+    """Phase 8d: Synfire4-mini fp16 (packed, ``build_synfire``'s default) at
+    capacity 512, bench_serve's top rung (``budget=None``: 512 lanes exceed
+    8.477 MB), every lane admitted, one chunk of 100 ticks after a warm-up
+    chunk; lanes 0 and 511 equal solo sessions."""
+    import zlib
+
+    from repro_torch.configs.synfire4 import SYNFIRE4_MINI, build_synfire
+    from repro_torch.core import rng
+    from repro_torch.core.lanes import lane_state
+    from repro_torch.kernels import ops
+    from repro_torch.serve import LaneScheduler
+
+    net = build_synfire(SYNFIRE4_MINI, policy="fp16", device=dev, budget=None)
+    sched = LaneScheduler(net, 512, record="none")
+    for i in range(512):
+        sched.admit(f"tenant{i}")
+    sched.step(100)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    sched.step(100)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    _add(totals, launches)
+    require(launches == _static_launches(net, 100), f"mini 512 launches {launches}")
+    for lane in (0, 511):
+        want = _solo_session(net, rng.key(zlib.crc32(f"tenant{lane}".encode()), dev), 200)
+        _require_same_state(lane_state(sched.states, lane), want, f"mini 512 lane {lane}")
+    res = {"us_per_chunk": seconds * 1e6, "chunk_ticks": 100,
+           "lane_ticks_per_s": 512 * 100 / seconds, "serve_bytes": net.ledger.serve_bytes(),
+           "launches": launches}
+    log(f"[lanes] LaneScheduler(512) Synfire4-mini fp16: {seconds * 1e6:.0f} us per 100-tick "
+        f"chunk ({res['lane_ticks_per_s']:.0f} lane-ticks/s), serve bytes "
+        f"{res['serve_bytes']}, launches {launches}; lanes 0 and 511 == solo sessions")
+    return res
+
+
+def _plastic_lanes_path(dev, totals: dict) -> dict:
+    """Phase 8e: plastic Synfire4-mini fp16 (``CHAIN_STDP``) at capacity 8,
+    the lane-by-lane route, 100 ticks: each lane on its own launchers
+    (8 ``izh4_update`` per tick) and equal to its solo session, weights and
+    traces included."""
+    import zlib
+
+    from repro_torch.configs.synfire4 import CHAIN_STDP, SYNFIRE4_MINI, build_synfire
+    from repro_torch.core import rng
+    from repro_torch.core.engine import batched_route
+    from repro_torch.core.lanes import lane_state
+    from repro_torch.kernels import ops
+    from repro_torch.serve import LaneScheduler
+
+    net = build_synfire(SYNFIRE4_MINI, policy="fp16", device=dev, stdp_chain=CHAIN_STDP)
+    require(not batched_route(net.static), "plastic mini takes the batched route")
+    sched = LaneScheduler(net, 8, record="none")
+    for i in range(8):
+        sched.admit(f"p{i}")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    sched.step(100)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    _add(totals, launches)
+    require(launches["izh4_update"] == 800 and launches["stdp_update"] == 800,
+            f"plastic lanes launches {launches}")
+    chain = _chain(net)
+    for lane in range(8):
+        want = _solo_session(net, rng.key(zlib.crc32(f"p{lane}".encode()), dev), 100)
+        _require_same_state(lane_state(sched.states, lane), want, f"plastic lane {lane}",
+                            plastic=chain)
+    log(f"[lanes] plastic Synfire4-mini, 8 lanes lane by lane: {seconds * 1e6:.0f} us per "
+        f"100-tick chunk, launches {launches}; every lane == its solo session (weights "
+        "and traces)")
+    return {"us_per_chunk": seconds * 1e6, "launches": launches}
+
+
+def phase_lanes(dev, rows: list, totals: dict) -> dict:
+    """Phase 8: lanes. (a) B1-B3 over 64 lanes; (b) run_batch(1000, 64) on
+    Synfire4 fp16 packed and sparse; (c) a 64-lane LaneScheduler with
+    waves, evictions and migrations; (d) the mini at 512 lanes; (e) plastic
+    lanes, lane by lane."""
+    phase_lane_kernels(dev, rows)
+    paths = {f"lanes/run_batch/fp16/{p}": _run_batch_path(dev, p, totals)
+             for p in ("packed", "sparse")}
+    paths["lanes/scheduler/synfire4/fp16/sparse"] = _scheduler_path(dev, totals)
+    paths["lanes/scheduler/mini512/fp16/packed"] = _mini_512_path(dev, totals)
+    paths["lanes/scheduler/plastic_mini8/fp16"] = _plastic_lanes_path(dev, totals)
+    return paths
+
+
+LANE_ROWS = ("izh4_update", "syn_matmul", "syn_gather")
+
+
+def phase_lanes_fresh(rows: list, totals: dict) -> dict:
+    """Phase 8 in a process of its own (``chip_smoke.py --lanes-json PATH``),
+    which this one waits for: late in a long process ``torch.profiler``
+    records fewer and fewer kernels (none at all once, in phase 8 after
+    phases 1-5c), and a fresh process records every one. Its lane rows,
+    paths and launch counts join this run's."""
+    import tempfile
+
+    from repro_torch.kernels import ops
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "lanes.json"
+        subprocess.run([sys.executable, str(Path(__file__).resolve()), "--lanes-json",
+                        str(out)], check=True, timeout=900)
+        res = json.loads(out.read_text())
+    for r in rows:
+        if r["name"] in res["lanes"]:
+            r["lanes"] = res["lanes"][r["name"]]
+    require(set(res["totals"]) == set(ops.LAUNCHES), f"phase 8 counts {res['totals']}")
+    _add(totals, res["totals"])
+    return res["paths"]
+
+
+def _lanes_main(out: str) -> int:
+    """``--lanes-json PATH``: phase 8 alone, written to ``PATH`` as JSON."""
+    from repro_torch.kernels import _build, ops
+
+    _build.build()
+    rows = [{"name": name} for name in LANE_ROWS]
+    totals = {k: 0 for k in ops.LAUNCHES}
+    paths = phase_lanes(torch.device("cuda", 0), rows, totals)
+    Path(out).write_text(json.dumps({"lanes": {r["name"]: r["lanes"] for r in rows},
+                                     "paths": paths, "totals": totals}))
+    return 0
+
+
 # -- LM serving ----------------------------------------------------------------------
 
 SMOLLM = "smollm-360m"
@@ -2814,6 +3559,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 1
+    if len(sys.argv) == 3 and sys.argv[1] == "--lanes-json":
+        return _lanes_main(sys.argv[2])
     from repro_torch.kernels import ops
 
     dev = torch.device("cuda", 0)
@@ -2831,6 +3578,7 @@ def main() -> int:
     phase_coba_kernels(dev, rows)
     paths.update(phase_coba(dev, totals))
     paths.update(phase_a5(dev, totals))
+    paths.update(phase_lanes_fresh(rows, totals))
     lm_row, lm_paths = phase_lm(dev, totals)
     rows.append(lm_row)
     paths.update(lm_paths)

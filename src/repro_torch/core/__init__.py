@@ -6,7 +6,8 @@ from repro_torch.core.conductance import (
     decay_and_deliver,
     init_conductance_state,
 )
-from repro_torch.core.engine import Engine, StepOutput, run, step
+from repro_torch.core.engine import Engine, StepOutput, run, run_batch, step
+from repro_torch.core.lanes import broadcast_state, lane_state, set_lane, stack_states
 from repro_torch.core.network import (
     BucketSpec,
     CompiledNetwork,
@@ -31,7 +32,8 @@ from repro_torch.core.neurons import (
 __all__ = [
     "COBAConfig", "ConductanceState", "coba_current", "decay_and_deliver",
     "init_conductance_state",
-    "Engine", "StepOutput", "run", "step",
+    "Engine", "StepOutput", "run", "run_batch", "step",
+    "broadcast_state", "lane_state", "set_lane", "stack_states",
     "BucketSpec", "CompiledNetwork", "FusedPlan", "GroupSpec", "NetParams", "NetState",
     "NetStatic", "NetworkBuilder",
     "NeuronModel", "NeuronParams", "NeuronState",

@@ -35,6 +35,12 @@ The wrappers in :mod:`repro_torch.kernels.ops` launch the CUDA kernels for
 tensors on the card and run their plain PyTorch versions for tensors on
 the CPU, so this module has one code path.
 
+Lanes: the launchers and :func:`propagate_packed` also take B independent
+lanes of one static net (a leading ``[B]`` axis on the spikes, the ring,
+the accumulators and, where each lane holds its own, the weights), each
+lane at its own tick (:class:`LaneSlots`), one launch per kernel for all
+of them; ``engine.run_batch`` and ``serve.LaneScheduler`` drive them.
+
 Two departures from the reference, both bitwise neutral:
 
 * Buckets run ungated. The reference skips a bucket whose pre spikes are
@@ -67,6 +73,7 @@ from repro_torch.kernels.stdp_update import DenseProjection
 from repro_torch.kernels.syn_gather import Bucket
 
 __all__ = ["assemble_packed", "assemble_matmul", "assemble_gather", "assemble_neurons",
+           "LanePropagation", "LaneSlots",
            "coba_coeffs", "update_neurons_dispatch", "propagate_packed", "propagate_loop",
            "FaninRows", "assemble_fanin",
            "xla_cpu_row_sum", "plastic_drive", "stdp_dispatch", "assemble_stdp_gather",
@@ -79,7 +86,9 @@ def assemble_packed(static, weights) -> tuple[torch.Tensor, ...]:
     """The per-bucket f32 weight payloads, decoded once per run.
 
     Dense buckets get their block-dense ``[P, Q]`` image; sparse buckets
-    their CSR weight rows ``[Q, fanin]`` decoded to f32.
+    their CSR weight rows ``[Q, fanin]`` decoded to f32. Weights with a
+    leading lane axis (``[B, ...]``, each lane's own) give payloads with
+    one, ``[B, P, Q]`` and ``[B, Q, fanin]``.
     """
     packed = []
     for b in static.buckets:
@@ -90,29 +99,31 @@ def assemble_packed(static, weights) -> tuple[torch.Tensor, ...]:
             # The decode is the payload: no zero-filled image.
             packed.append(weights[j0].to(f32).contiguous())
             continue
-        img = torch.zeros((b.p, b.q), dtype=f32, device=weights[j0].device)
+        lead = tuple(weights[j0].shape[:-2])
+        img = torch.zeros((*lead, b.p, b.q), dtype=f32, device=weights[j0].device)
         for j, r0, c0 in b.members:
             spec = static.projections[j]
-            img[r0:r0 + spec.pre_size, c0:c0 + spec.post_size] += weights[j].to(f32)
+            img[..., r0:r0 + spec.pre_size, c0:c0 + spec.post_size] += weights[j].to(f32)
         packed.append(img)
     return tuple(packed)
 
 
-def assemble_matmul(static, packed) -> ops.MatmulRun:
+def assemble_matmul(static, packed, lanes: int | None = None) -> ops.MatmulRun:
     """The run's ``syn_matmul`` launcher over the dense buckets' images in
-    ``packed`` (:func:`assemble_packed`'s output). Plastic and STP
-    projections join no bucket, so the images stay fixed for the run."""
+    ``packed`` (:func:`assemble_packed`'s output), over ``lanes`` lanes
+    where given. Plastic and STP projections join no bucket, so the images
+    stay fixed for the run."""
     return ops.MatmulRun([None if b.kind == "sparse" else w
-                          for b, w in zip(static.buckets, packed)])
+                          for b, w in zip(static.buckets, packed)], lanes)
 
 
-def assemble_gather(static, params, packed) -> ops.GatherRun:
+def assemble_gather(static, params, packed, lanes: int | None = None) -> ops.GatherRun:
     """The run's ``syn_gather`` launcher over the sparse buckets' CSR
     tables (``params.bucket_csr_idx``, weights from ``packed``, pre ids
     composed through ``bucket_pre_ids`` where ``pre_start < 0``), with the
     whole plan's post columns (``bucket_post_ids`` where ``post_start <
     0``) deciding its launch groups; built once per run, as
-    :func:`assemble_matmul`."""
+    :func:`assemble_matmul`, over ``lanes`` lanes where given."""
     buckets = []
     for bi, b in enumerate(static.buckets):
         posts = (np.arange(b.post_start, b.post_start + b.q) if b.post_start >= 0
@@ -123,7 +134,33 @@ def assemble_gather(static, params, packed) -> ops.GatherRun:
                    else params.bucket_pre_ids[bi].cpu().numpy())
             table = (pre, params.bucket_csr_idx[bi], packed[bi])
         buckets.append(Bucket(b.delay_ms, posts, table, b.channel))
-    return ops.GatherRun(static.n, buckets, params.neuron.a.device, static.ring_channels)
+    return ops.GatherRun(static.n, buckets, params.neuron.a.device, static.ring_channels,
+                         lanes)
+
+
+class LanePropagation:
+    """The propagation launchers of B lanes of a net (:func:`assemble_packed`'s
+    payloads, :func:`assemble_matmul` and :func:`assemble_gather` over
+    ``lanes``), built once on ``weights``: the weights every lane shares
+    (one-lane tensors) or each lane's own (``[B, ...]``). A caller that
+    keeps them across runs (``serve.LaneScheduler``) writes a lane's new
+    weights in with :meth:`set_lane`; the index plan, which depends on the
+    static net only, is built once."""
+
+    def __init__(self, static, params, weights, lanes: int):
+        self.static = static
+        self.packed = assemble_packed(static, weights)
+        self.matmul = assemble_matmul(static, self.packed, lanes)
+        self.gather = assemble_gather(static, params, self.packed, lanes)
+
+    def set_lane(self, lane: int, weights) -> None:
+        """Lane ``lane``'s payloads decoded from its one-lane ``weights``,
+        written in place (per-lane payloads only)."""
+        for dst, src in zip(self.packed, assemble_packed(self.static, weights)):
+            if dst.dim() == src.dim():
+                raise ValueError("LanePropagation.set_lane: the lanes share their weights")
+            dst[lane].copy_(src)
+        self.gather.set_lane(lane)
 
 
 def coba_coeffs(static) -> CobaCoeffs:
@@ -147,14 +184,15 @@ def coba_coeffs(static) -> CobaCoeffs:
 
 def assemble_neurons(static, params, neurons: nrn.NeuronState, ring: torch.Tensor, *,
                      cond=None, gen_spk=None, i_ext=None, raster=None, v_rows=None,
-                     i_rows=None, counts=None) -> ops.NeuronRun | None:
+                     i_rows=None, counts=None, t0=None) -> ops.NeuronRun | None:
     """The run's neuron-phase launcher (an :class:`repro_torch.kernels.ops.NeuronRun`
     on copies of ``neurons`` and, for a COBA net, of its conductances
     ``cond``, and on the run's ``ring``) for IZH4-only Euler networks, None
     for the others, which integrate through :func:`update_neurons_dispatch`
     tick by tick. ``gen_spk`` ``[T, n_gen]`` holds the generator spans'
     spikes side by side in ``static.gen_spans`` order; the other rows and
-    ``counts`` are ``NeuronRun``'s."""
+    ``counts`` are ``NeuronRun``'s, as is ``t0``, the lanes' first ticks of
+    a run over lanes."""
     if not (static.izh4_only and static.method == "euler"):
         return None
     p = params.neuron
@@ -170,7 +208,7 @@ def assemble_neurons(static, params, neurons: nrn.NeuronState, ring: torch.Tenso
                          gen_spk=gen_spk, gen_cols=cols, i_ext=i_ext, raster=raster,
                          v_rows=v_rows, i_rows=i_rows, counts=counts, cond=cond,
                          coba=None if static.coba is None else coba_coeffs(static),
-                         dt=static.dt, substeps=static.substeps)
+                         dt=static.dt, substeps=static.substeps, t0=t0)
 
 
 def update_neurons_dispatch(static, params, neurons: nrn.NeuronState,
@@ -301,13 +339,44 @@ def plastic_drive(w: torch.Tensor, table: FaninRows, pre_row: torch.Tensor,
 def _bucket_pre(static, params, spikes_f32, bi):
     b = static.buckets[bi]
     if b.pre_start >= 0:
-        return spikes_f32[b.pre_start:b.pre_start + b.p]
-    return spikes_f32.index_select(0, params.bucket_pre_ids[bi])
+        return spikes_f32[..., b.pre_start:b.pre_start + b.p]
+    return spikes_f32.index_select(-1, params.bucket_pre_ids[bi])
+
+
+class LaneSlots:
+    """The ring commits of a run over B lanes whose first ticks are ``t0``
+    (Python ints): run tick ``i``'s commit for delay ``d`` adds into lane
+    b's slot ``(t0[b] + i + d) % ring_len``. Lanes in one phase (every
+    ``t0`` equal mod ``ring_len``, as a batched run's) add into one slot
+    column of the ``[B, L, N, C]`` ring; lanes in different phases (a
+    scheduler's) gather their slots, add and scatter them back, through
+    per-phase index tensors built here once. Either way each lane's entry
+    is ``row + x`` in the ring's dtype, the one-lane commit's rounding."""
+
+    def __init__(self, t0: tuple[int, ...], ring_len: int, device):
+        self.t0, self.ring_len = tuple(t0), ring_len
+        self._phase = None
+        if len({t % ring_len for t in self.t0}) > 1:
+            lanes = torch.arange(len(self.t0), dtype=torch.int64) * ring_len
+            first = torch.tensor(self.t0, dtype=torch.int64)
+            self._phase = [(lanes + (first + s) % ring_len).to(device)
+                           for s in range(ring_len)]
+
+    def add(self, ring: torch.Tensor, tick: int, x: torch.Tensor) -> None:
+        """``ring`` ``[B, L, N, C]`` += ``x`` ``[B, N, C]`` (the ring's
+        dtype) at every lane's slot of run tick ``tick`` (delay included)."""
+        if self._phase is None:
+            ring[:, (self.t0[0] + tick) % self.ring_len] += x
+            return
+        flat = ring.view(-1, *ring.shape[2:])
+        rows = self._phase[tick % self.ring_len]
+        flat[rows] += x
 
 
 def propagate_packed(static, params, spikes_f32: torch.Tensor, ring: torch.Tensor,
                      t: int, packed, weights=(), stp=(), fanin=None,
-                     matmul=None, gather=None, padded=None) -> tuple:
+                     matmul=None, gather=None, padded=None,
+                     slots: LaneSlots | None = None) -> tuple:
     """Propagate this tick's spikes (``[N]`` f32, 0.0/1.0) into ``ring``.
 
     Each bucket's drive lands in a per-delay ``[N, C]`` f32 accumulator
@@ -329,6 +398,13 @@ def propagate_packed(static, params, spikes_f32: torch.Tensor, ring: torch.Tenso
     buffers of :func:`plastic_drive` (``ops.StdpUpdateRun.padded``).
     Updates ``ring`` in place; returns the STP states advanced by this
     tick's spikes, aligned with the projections.
+
+    Over B lanes (``slots`` given, a net with no plastic or STP
+    projection): the spikes are ``[B, N]``, the ring ``[B, L, N, C]``, the
+    accumulators ``[B, N, C]``, ``matmul`` and ``gather`` are lane
+    launchers, ``t`` is the run's tick index and each lane commits into its
+    own slot through ``slots``; every lane's sums and roundings are those
+    of its one-lane tick.
     """
     acc: dict[int, torch.Tensor] = {}
     if matmul is None:
@@ -337,22 +413,23 @@ def propagate_packed(static, params, spikes_f32: torch.Tensor, ring: torch.Tenso
         gather = assemble_gather(static, params, packed)
     n_ch = static.ring_channels
     coba = n_ch == 2
+    lead = tuple(spikes_f32.shape[:-1])
 
     def add(delay_ms, channel, post_start, q, drive, post_ids=None):
         a = acc.get(delay_ms)
         if a is None:
-            a = acc[delay_ms] = torch.zeros((static.n, n_ch), dtype=f32,
+            a = acc[delay_ms] = torch.zeros((*lead, static.n, n_ch), dtype=f32,
                                             device=spikes_f32.device)
         if coba:
             drive = drive.abs()
         if post_start >= 0:
-            a[post_start:post_start + q, channel] += drive
+            a[..., post_start:post_start + q, channel] += drive
         else:
-            a[:, channel].index_add_(0, post_ids, drive)
+            a[..., channel].index_add_(-1, post_ids, drive)
 
     if gather.starts:
         gather(0, spikes_f32)
-        acc.update((d, gather.rows[k * n_ch:(k + 1) * n_ch].t())
+        acc.update((d, gather.rows[..., k * n_ch:(k + 1) * n_ch, :].transpose(-1, -2))
                    for k, d in enumerate(gather.delays))
     later = {i: g for g, i in enumerate(gather.starts) if g}
     for bi, b in enumerate(static.buckets):
@@ -366,6 +443,9 @@ def propagate_packed(static, params, spikes_f32: torch.Tensor, ring: torch.Tenso
     new_stp = list(stp) or [None] * len(static.projections)
     per_proj = [j for j, s in enumerate(static.projections)
                 if s.plastic or s.stp is not None]
+    if per_proj and slots is not None:
+        raise ValueError("propagate_packed: plastic and STP projections tick one lane "
+                         "at a time")
     if per_proj:
         fanin = fanin if fanin is not None else assemble_fanin(static, params)
         spikes_ext = F.pad(spikes_f32, (0, 1))
@@ -379,7 +459,11 @@ def propagate_packed(static, params, spikes_f32: torch.Tensor, ring: torch.Tenso
             add(spec.delay_ms, ring_channel(spec, n_ch), spec.post_start, spec.post_size,
                 plastic_drive(weights[j], fanin[j], pre_row, (padded or {}).get(j)))
     for d in sorted(acc):
-        ring[(t + d) % static.ring_len] += acc[d].to(ring.dtype)
+        x = acc[d].to(ring.dtype)
+        if slots is None:
+            ring[(t + d) % static.ring_len] += x
+        else:
+            slots.add(ring, t + d, x)
     return tuple(new_stp)
 
 

@@ -67,6 +67,7 @@ from repro_torch.core.conductance import (
     decay_and_deliver,
     decay_factors,
 )
+from repro_torch.core.lanes import broadcast_state, stack_states
 from repro_torch.core.network import CompiledNetwork, NetParams, NetState, NetStatic
 from repro_torch.core.neurons import NeuronState
 from repro_torch.core.plasticity import (
@@ -78,7 +79,7 @@ from repro_torch.core.plasticity import (
 )
 from repro_torch.kernels import ops
 
-__all__ = ["StepOutput", "step", "run", "Engine"]
+__all__ = ["StepOutput", "step", "run", "run_batch", "batched_route", "Engine"]
 
 f32 = torch.float32
 
@@ -103,18 +104,21 @@ class _Syn(NamedTuple):
     stdp: tuple
 
 
-def _gen_spikes(static: NetStatic, params: NetParams, t0: int,
+def _gen_spikes(static: NetStatic, params: NetParams, t0,
                 gen_u: torch.Tensor) -> torch.Tensor:
     """Generator spikes ``[T, n_gen]`` for ticks ``t0 .. t0+T-1``: generator
     g fires at tick t when ``gen_u[t, g] < rate * (dt / 1000)``, where the
     rate is the pulse rate while ``t_ms < until`` and the sustained rate
     after, ``t_ms`` being the tick in f32 times dt. The same f32 compare
-    as the reference's per-tick merge, for all ticks at once."""
+    as the reference's per-tick merge, for all ticks at once. Over lanes,
+    ``t0`` is an int64 ``[B]`` tensor of first ticks and ``gen_u`` ``[B,
+    T, n_gen]``."""
     dev = gen_u.device
     cols = torch.cat([torch.arange(g0, g0 + sz, device=dev)
                       for g0, sz in static.gen_spans])
-    ticks = torch.arange(t0, t0 + gen_u.shape[0], dtype=torch.int32, device=dev)
-    t_ms = (ticks.to(f32) * static.dt)[:, None]
+    steps = torch.arange(gen_u.shape[-2], dtype=torch.int64, device=dev)
+    ticks = torch.as_tensor(t0, device=dev)[..., None] + steps
+    t_ms = (ticks.to(f32) * static.dt)[..., None]
     rate = torch.where(t_ms < params.gen_until[cols], params.gen_rate[cols],
                        params.gen_rate_after[cols])
     return gen_u < rate * (static.dt / 1000.0)
@@ -356,12 +360,88 @@ def _run_kernel(static, params, state, n_steps, payload, gen_spk, record,
     return final, outputs
 
 
+def _check_record(record: str) -> None:
+    if record not in _RECORD_MODES:
+        if record in ("monitors", "both"):
+            raise NotImplementedError(
+                f"record={record!r} (in-run monitors) is not ported to "
+                "repro_torch yet (ROADMAP A6)")
+        raise ValueError(f"record must be one of {_RECORD_MODES}, got {record!r}")
+
+
 def _check_active(active, dev: torch.device) -> torch.Tensor:
     active = torch.as_tensor(active, device=dev)
     if active.dtype != torch.bool or active.dim() != 0:
         raise ValueError(f"active must be a 0-dim bool tensor, got {active.dtype} "
                          f"{tuple(active.shape)}")
     return active
+
+
+def _gen_source(static: NetStatic, params: NetParams, t0, key: torch.Tensor, n_steps: int,
+                *, gen_chunk: int | None, gen_base: torch.Tensor | None,
+                active: torch.Tensor | None, gen_u: torch.Tensor | None = None,
+                generator: torch.Generator | None = None):
+    """The generator set-up of :func:`run` (``t0`` the first tick, an int;
+    ``key`` int32 ``[2]``; ``active`` 0-dim) and of :func:`_run_lanes`
+    (``t0`` int64 ``[B]``, each lane's first tick; ``key`` ``[B, 2]``;
+    ``active`` ``[B]``): checks the stream options and draws as
+    :func:`run`'s docstring says, every lane's uniforms of a segment in one
+    call. Returns ``(key', gen_spk, chunk)``: the key the final state
+    carries, the generator spikes of the first segment (the whole run's
+    ``[T, n_gen]``, or ``[B, T, n_gen]`` over lanes, unless the run draws
+    per ``gen_chunk``; None without generators), and ``chunk(c)``, segment
+    ``c``'s spikes where the run draws per ``gen_chunk`` (else None)."""
+    if gen_chunk is not None and gen_chunk < 1:
+        raise ValueError(f"gen_chunk must be >= 1, got {gen_chunk}")
+    if gen_base is not None and gen_chunk is not None:
+        raise ValueError("gen_base and gen_chunk are mutually exclusive: a session "
+                         "stream is already bounded per call by the chunk size")
+    if (gen_u is not None or generator is not None) and (
+            gen_base is not None or gen_chunk is not None):
+        raise ValueError("gen_u and generator supply the whole run's uniforms: they "
+                         "exclude gen_base and gen_chunk")
+    chunked = gen_chunk is not None and static.n_gen > 0 and gen_chunk < n_steps
+    if chunked and n_steps % gen_chunk:
+        raise ValueError(f"gen_chunk ({gen_chunk}) must divide n_steps ({n_steps}): "
+                         "the generators draw whole chunks")
+    dev = key.device
+    if gen_base is not None and (gen_base.shape != key.shape or gen_base.dtype != torch.int32
+                                 or gen_base.device != dev):
+        raise ValueError(f"gen_base must be an int32 {list(key.shape)} key on {dev}, got "
+                         f"{gen_base.dtype} {tuple(gen_base.shape)} on {gen_base.device}")
+    lanes = torch.is_tensor(t0)
+    seg_keys = None
+    if static.n_gen:
+        if gen_base is not None:
+            steps = torch.arange(n_steps, dtype=torch.int64, device=dev)
+            ticks = (t0[:, None] if lanes else t0) + steps
+            gen_u = rng.uniform(rng.fold_in(gen_base, ticks), (static.n_gen,))
+        elif gen_u is None and generator is None:
+            k_draw, key = rng.split(key).unbind(-2)
+            if chunked:
+                seg_keys = rng.split(k_draw, n_steps // gen_chunk)
+            else:
+                gen_u = rng.uniform(k_draw, (n_steps, static.n_gen))
+        elif gen_u is None:
+            gen_u = torch.rand((n_steps, static.n_gen), generator=generator,
+                               dtype=f32, device=dev)
+        else:
+            _check_gen_u(gen_u, (n_steps, static.n_gen), dev)
+    gate = None if active is None else active[:, None, None] if lanes else active
+
+    def segment(i0: int, u: torch.Tensor) -> torch.Tensor:
+        """The generator spikes of ticks ``t0 + i0 ..`` from their uniforms ``u``."""
+        if gate is not None:
+            u = torch.where(gate, u, 1.0)
+        return _gen_spikes(static, params, t0 + i0, u)
+
+    def chunk(c: int) -> torch.Tensor:
+        return segment(c * gen_chunk,
+                       rng.uniform(seg_keys[..., c, :], (gen_chunk, static.n_gen)))
+
+    if seg_keys is not None:
+        return key, chunk(0), chunk
+    return key, None if gen_u is None else segment(0, gen_u), None
 
 
 def run(
@@ -428,12 +508,7 @@ def run(
 
     ``state`` is left as it was: the run works on its own copy of the ring.
     """
-    if record not in _RECORD_MODES:
-        if record in ("monitors", "both"):
-            raise NotImplementedError(
-                f"record={record!r} (in-run monitors) is not ported to "
-                "repro_torch yet (ROADMAP A6)")
-        raise ValueError(f"record must be one of {_RECORD_MODES}, got {record!r}")
+    _check_record(record)
     if tel_carry is not None or return_tel_carry:
         raise NotImplementedError(
             "tel_carry / return_tel_carry (resumable in-run monitors) are not "
@@ -442,20 +517,12 @@ def run(
         raise NotImplementedError(
             "watch_carry (in-run watchpoints) is not ported to repro_torch yet "
             "(ROADMAP A10)")
-    if gen_chunk is not None and gen_chunk < 1:
-        raise ValueError(f"gen_chunk must be >= 1, got {gen_chunk}")
-    if gen_base is not None and gen_chunk is not None:
-        raise ValueError("gen_base and gen_chunk are mutually exclusive: a session "
-                         "stream is already bounded per call by the chunk size")
-    if (gen_u is not None or generator is not None) and (
-            gen_base is not None or gen_chunk is not None):
-        raise ValueError("gen_u and generator supply the whole run's uniforms: they "
-                         "exclude gen_base and gen_chunk")
-    chunked = gen_chunk is not None and static.n_gen > 0 and gen_chunk < n_steps
-    if chunked and n_steps % gen_chunk:
-        raise ValueError(f"gen_chunk ({gen_chunk}) must divide n_steps ({n_steps}): "
-                         "the generators draw whole chunks")
     dev = state.ring.device
+    if active is not None:
+        active = _check_active(active, dev)
+    key, gen_spk, chunk = _gen_source(static, params, state.t, state.key, n_steps,
+                                      gen_chunk=gen_chunk, gen_base=gen_base, active=active,
+                                      gen_u=gen_u, generator=generator)
     if i_ext is not None and i_ext.shape != (n_steps, static.n):
         raise ValueError(f"i_ext must be [{n_steps}, {static.n}], got "
                          f"{tuple(i_ext.shape)}")
@@ -468,53 +535,14 @@ def run(
         raise ValueError(
             f"n_steps ({n_steps}) must be a multiple of the homeostasis period "
             f"({period}): the slow timer fires at whole-segment boundaries")
-    if chunked and period and gen_chunk != period:
+    if chunk is not None and period and gen_chunk != period:
         raise ValueError(f"gen_chunk ({gen_chunk}) must equal the homeostasis period "
                          f"({period}): both cut the run into the same segments")
-    if active is not None:
-        active = _check_active(active, dev)
-    if gen_base is not None and (gen_base.shape != (2,) or gen_base.dtype != torch.int32
-                                 or gen_base.device != dev):
-        raise ValueError(f"gen_base must be an int32 [2] key on {dev}, got "
-                         f"{gen_base.dtype} {tuple(gen_base.shape)} on {gen_base.device}")
-
-    key = state.key
-    seg_keys = None
-    if static.n_gen:
-        if gen_base is not None:
-            ticks = torch.arange(state.t, state.t + n_steps, dtype=torch.int64, device=dev)
-            gen_u = rng.uniform(rng.fold_in(gen_base, ticks), (static.n_gen,))
-        elif gen_u is None and generator is None:
-            k_draw, key = rng.split(state.key)
-            if chunked:
-                seg_keys = rng.split(k_draw, n_steps // gen_chunk)
-            else:
-                gen_u = rng.uniform(k_draw, (n_steps, static.n_gen))
-        elif gen_u is None:
-            gen_u = torch.rand((n_steps, static.n_gen), generator=generator,
-                               dtype=f32, device=dev)
-        if gen_u is not None:
-            _check_gen_u(gen_u, (n_steps, static.n_gen), dev)
-
-    def gen_segment(i0: int, u: torch.Tensor) -> torch.Tensor:
-        """The generator spikes of ticks ``i0 ..`` from their uniforms ``u``."""
-        if active is not None:
-            u = torch.where(active, u, 1.0)
-        return _gen_spikes(static, params, state.t + i0, u)
-
-    def chunk(c: int) -> torch.Tensor:
-        return gen_segment(c * gen_chunk, rng.uniform(seg_keys[c], (gen_chunk, static.n_gen)))
-
-    gen_spk = None
-    if gen_u is not None:
-        gen_spk = gen_segment(0, gen_u)
-    elif seg_keys is not None:
-        gen_spk = chunk(0)
 
     state = state._replace(key=key)
     if static.fused_kernel and i_ext is None:
-        if seg_keys is not None:
-            gen_spk = torch.cat([gen_spk] + [chunk(c) for c in range(1, len(seg_keys))])
+        if chunk is not None:
+            gen_spk = torch.cat([gen_spk] + [chunk(c) for c in range(1, n_steps // gen_chunk)])
         return _run_kernel(static, params, state, n_steps,
                            be.assemble_fused(static, state.weights, params),
                            gen_spk, record, record_v, record_i)
@@ -548,7 +576,7 @@ def run(
     seg0 = 0  # the run's tick at gen_spk's row 0
     for i in range(n_steps):
         t = state.t + i
-        if seg_keys is not None and i and i % gen_chunk == 0:
+        if chunk is not None and i and i % gen_chunk == 0:
             gen_spk, seg0 = chunk(i // gen_chunk), i
             if neuron_run is not None:
                 neuron_run.rows(gen_spk, i)
@@ -598,6 +626,112 @@ def run(
     return final, outputs
 
 
+def batched_route(static: NetStatic) -> bool:
+    """Whether B lanes of a net tick together, one launch per kernel for
+    every lane (:func:`run_batch`, ``serve.LaneScheduler``): an IZH4-only
+    Euler net on the default backend, packed, sparse or auto, CUBA or COBA,
+    with no plastic, STP, DA or homeostasis projection. Every other net
+    (plastic ones, ``backend="fused"``, the ``loop`` oracle, other neuron
+    models) runs its lanes one after another through :func:`run`, each
+    lane on its own launchers."""
+    return (static.backend is None and static.propagation != "loop"
+            and static.izh4_only and static.method == "euler"
+            and not any(s.plastic or s.stp is not None for s in static.projections)
+            and all(c is None for c in static.stdp)
+            and all(h is None for h in static.homeo))
+
+
+def _run_lanes(static: NetStatic, params: NetParams, state: NetState, n_steps: int, *,
+               record: str = "raster", record_v: bool = False, record_i: bool = False,
+               gen_chunk: int | None = None, gen_base: torch.Tensor | None = None,
+               active: torch.Tensor | None = None,
+               prop: be.LanePropagation | None = None) -> tuple[NetState, dict]:
+    """``n_steps`` ticks of the B lanes of the batched ``state``
+    (:mod:`repro_torch.core.lanes`) of a :func:`batched_route` net, one
+    launch per kernel per tick for every lane; returns the batched final
+    state and the outputs, each with a leading ``[B]`` axis.
+
+    Lane b runs as :func:`run` runs it from its own one-lane state, bit for
+    bit: its generators draw from its key ``state.key[b]`` (the whole-run
+    draw, or ``gen_chunk``'s), or from ``gen_base[b]`` (``[B, 2]``) at its
+    own ticks ``state.t[b] + i``, all lanes' uniforms of a segment in one
+    call; ``active`` (``[B]`` bool) gates lanes silent. The lanes
+    propagate through ``prop`` (the weights every lane shares, or a
+    caller's launchers kept across runs), else through launchers built here
+    on each lane's own ``state.weights`` ``[B, ...]``. The state's
+    ``weights`` are returned as they came.
+    """
+    lanes = len(state.t)
+    dev = state.ring.device
+    t0 = torch.tensor(state.t, dtype=torch.int64, device=dev)
+    key, gen_spk, chunk = _gen_source(static, params, t0, state.key, n_steps,
+                                      gen_chunk=gen_chunk, gen_base=gen_base, active=active)
+    if prop is None:
+        prop = be.LanePropagation(static, params, state.weights, lanes)
+    ring = state.ring.clone()
+    shape = (lanes, n_steps, static.n)
+    raster = torch.empty(shape, dtype=torch.bool, device=dev) if record == "raster" else None
+    vs = torch.empty(shape, dtype=f32, device=dev) if record_v else None
+    cur = torch.empty(shape, dtype=f32, device=dev) if record_i else None
+    neuron_run = be.assemble_neurons(static, params, state.neurons, ring, cond=state.cond,
+                                     gen_spk=gen_spk, raster=raster, v_rows=vs, i_rows=cur,
+                                     t0=state.t)
+    slots = be.LaneSlots(state.t, static.ring_len, dev)
+    for i in range(n_steps):
+        if chunk is not None and i and i % gen_chunk == 0:
+            neuron_run.rows(chunk(i // gen_chunk), i)
+        neuron_run(i)
+        be.propagate_packed(static, params, neuron_run.spikes, ring, i, prop.packed,
+                            matmul=prop.matmul, gather=prop.gather, slots=slots)
+    cond = None if neuron_run.cond is None else ConductanceState(*neuron_run.cond)
+    final = state._replace(
+        t=tuple(t + n_steps for t in state.t), key=key, ring=ring, cond=cond,
+        neurons=NeuronState(v=neuron_run.v, u=neuron_run.u, refrac=neuron_run.refrac))
+    outputs = {}
+    if raster is not None:
+        outputs["spikes"] = raster
+    if vs is not None:
+        outputs["v"] = vs
+    if cur is not None:
+        outputs["i_syn"] = cur
+    return final, outputs
+
+
+def run_batch(static: NetStatic, params: NetParams, state: NetState, n_steps: int,
+              batch: int, *, record: str = "raster", record_v: bool = False,
+              record_i: bool = False, gen_chunk: int | None = None) -> tuple[NetState, dict]:
+    """``batch`` independent trials of ``n_steps`` ticks from ``state``.
+
+    Trial b runs :func:`run` from ``state`` with the key ``split(state.key,
+    batch)[b]``: its own generator draw (``gen_chunk`` per trial), the
+    other state and the weights shared. Returns ``(final_states,
+    outputs)``, both with a leading ``[batch]`` axis on every tensor
+    (``outputs["spikes"]`` ``[B, T, N]``; the final state a batched state
+    of :mod:`repro_torch.core.lanes`, its ``t`` a tuple of B ints).
+
+    ``batch == 1`` is :func:`run` with a leading axis. Otherwise a
+    :func:`batched_route` net runs every trial in one tick loop, one
+    ``izh4_update`` launch per tick for all of them and one ``syn_gather``
+    (sparse) or one ``syn_matmul`` per dense bucket (packed), the weights
+    decoded once and shared; every other net runs its trials one after
+    another through :func:`run` (the lane-by-lane route), which the launch
+    counts show. ``record="monitors"``/``"both"`` raise
+    ``NotImplementedError`` (ROADMAP A6), as :func:`run` does.
+    """
+    _check_record(record)
+    if batch < 1:
+        raise ValueError(f"batch must be >= 1, got {batch}")
+    keys = rng.split(state.key, batch)
+    kw = dict(record=record, record_v=record_v, record_i=record_i, gen_chunk=gen_chunk)
+    if batch > 1 and batched_route(static):
+        shared = be.LanePropagation(static, params, state.weights, batch)
+        return _run_lanes(static, params, broadcast_state(state, batch)._replace(key=keys),
+                          n_steps, prop=shared, **kw)
+    finals, outs = zip(*(run(static, params, state._replace(key=keys[b]), n_steps, **kw)
+                         for b in range(batch)))
+    return stack_states(finals), {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
 @dataclasses.dataclass
 class Engine:
     """Convenience wrapper binding a compiled network."""
@@ -607,6 +741,11 @@ class Engine:
     def run(self, n_steps: int, state: NetState | None = None, **kw):
         state = state if state is not None else self.net.state0
         return run(self.net.static, self.net.params, state, n_steps, **kw)
+
+    def run_batch(self, n_steps: int, batch: int, state: NetState | None = None, **kw):
+        """``batch`` independent trials; see :func:`run_batch`."""
+        state = state if state is not None else self.net.state0
+        return run_batch(self.net.static, self.net.params, state, n_steps, batch, **kw)
 
     def spike_counts(self, n_steps: int, **kw) -> torch.Tensor:
         _, out = self.run(n_steps, **kw)

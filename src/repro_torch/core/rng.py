@@ -87,18 +87,23 @@ def key(seed: int, device: str | torch.device | None = None) -> torch.Tensor:
 
 
 def split(k: torch.Tensor, n: int = 2) -> torch.Tensor:
-    """``n`` new keys from ``k``, as an int32 ``[n, 2]`` tensor."""
+    """``n`` new keys from ``k``, as an int32 ``[n, 2]`` tensor (from each
+    key of a stack ``[..., 2]``: ``[..., n, 2]``)."""
     y1, y2 = _hash_counters(k, (n,))
-    return _as_key(torch.stack([y1, y2], dim=1))
+    return _as_key(torch.stack([y1, y2], dim=-1))
 
 
 def fold_in(k: torch.Tensor, data: int | torch.Tensor) -> torch.Tensor:
     """The key ``k`` with the 32-bit integer ``data`` folded in; for an
     integer tensor ``data``, one key per entry, ``[*data.shape, 2]`` (the
-    reference's ``vmap`` of ``fold_in`` over the entries)."""
+    reference's ``vmap`` of ``fold_in`` over the entries). A stack of keys
+    ``[..., 2]`` folds each key into the entries of ``data`` that share its
+    leading indices (``data`` ``[..., *rest]``)."""
     words = _u32(k)
     x2 = torch.as_tensor(data, device=k.device).to(torch.int64) & _MASK
-    y1, y2 = threefry2x32(words[0], words[1], torch.zeros_like(x2), x2)
+    lead = (1,) * (x2.dim() - (words.dim() - 1))
+    k1, k2 = (words[..., i].reshape(words.shape[:-1] + lead) for i in (0, 1))
+    y1, y2 = threefry2x32(k1, k2, torch.zeros_like(x2), x2)
     return _as_key(torch.stack([y1, y2], dim=-1))
 
 

@@ -20,6 +20,12 @@
 // backend.update_neurons_dispatch), each stored in the same type and so
 // bit for bit the same.
 //
+// Lanes: izh4_run_<t> also takes B independent copies of the state (a
+// batched run, a LaneScheduler's chunk), lane b at its own tick and ring
+// slot, with the parameters and generator columns shared: one launch over
+// a grid of (neuron block, lane), every lane's arithmetic that of the
+// single-lane launch, so a lane equals its solo run bit for bit.
+//
 // Conductance-based (COBA) nets have a two-channel ring, excitatory and
 // inhibitory magnitudes side by side, and four conductances per neuron
 // (AMPA, NMDA, GABAa, GABAb) on the run's copies in the storage type. A
@@ -40,7 +46,8 @@
 // channel and the four conductances read and written: 20 B more per
 // neuron at fp16. The design is the leanest
 // launch: one thread per neuron, no shared memory, each thread's loads
-// independent of the others'.
+// independent of the others'. Over B lanes the bytes scale by B (about
+// 3.2 MB at Synfire4's 64 lanes, 1 us at 3.35 TB/s) under one launch.
 //
 // Rounding: the update is common.cuh's izh4_tick, which spells every
 // multiply, add and subtract with __fmul_rn / __fadd_rn / __fsub_rn in the
@@ -85,28 +92,37 @@ static int launch(const void* v, const void* u, const void* i_syn, const void* a
 }
 
 // One run's neuron phase (kernels/izh_update.py:_Plan, field for
-// field): the run's own state, updated in place every tick.
+// field): the run's own state, updated in place every tick. A run over B
+// lanes (a batched run or a LaneScheduler's chunk) keeps every per-neuron
+// array as [B, N] (lane stride N), the ring as [B, L, N, C] and the rows
+// per lane at their own strides; lane b's ring slot is (t0[b] + shift) % L
+// with t0 the lanes' first ticks mod L, uploaded once per run, so lanes at
+// different ticks share the launch and the kernel never reads t back.
 struct NeuronPlan {
-  void* v;  // [N] storage type
-  void* u;  // [N] storage type
-  int16_t* refrac;  // [N]
-  void* ring;  // [L, N] storage type
-  const float* a;
+  void* v;  // [B, N] storage type
+  void* u;  // [B, N] storage type
+  int16_t* refrac;  // [B, N]
+  void* ring;  // [B, L, N, C] storage type
+  const float* a;  // [N], shared by the lanes, as is everything up to spikes
   const float* b;
   const float* c;
   const float* d;
   const uint8_t* is_gen;  // [N] bool
   const int* gen_col;  // [N]: column in the tick's generator row, -1 for none
-  float* spikes;  // [N] f32 spike row (0.0 / 1.0), written every tick
-  int* counts;  // [N] int32 spike counts, or null
+  float* spikes;  // [B, N] f32 spike rows (0.0 / 1.0), written every tick
+  int* counts;  // [B, N] int32 spike counts, or null
   void* stream;
-  void* g[4];  // COBA: AMPA, NMDA, GABAa, GABAb [N] storage type; null for CUBA
+  void* g[4];  // COBA: AMPA, NMDA, GABAa, GABAb [B, N] storage type; null for CUBA
+  const int* t0;  // [B] first tick of each lane mod L; null: `slot` is the slot
   int n, substeps;
   int channels;  // ring channels: 1 (CUBA) or 2 (COBA: exc, inh)
+  int lanes, ring_len;
   float h;
   float decay[4];  // COBA: per-tick decay factors of g[0..3]
   float frac[4];  // COBA: 1 - nmda_frac, nmda_frac, 1 - gabab_frac, gabab_frac
   float e_exc, e_gabaa, e_gabab;  // COBA: reversal potentials (mV)
+  long long gen_stride;  // lane stride of the generator rows (entries)
+  long long row_stride;  // lane stride of the i_ext, raster, v and i_syn rows
 };
 
 // One COBA neuron's conductances decayed and delivered, stored back in the
@@ -114,8 +130,8 @@ struct NeuronPlan {
 // v: core/conductance.py's decay_and_deliver and coba_current, every
 // operation in their term order and rounding.
 template <typename T>
-__device__ __forceinline__ float coba_tick(const NeuronPlan& p, int i, float exc, float inh,
-                                           float v) {
+__device__ __forceinline__ float coba_tick(const NeuronPlan& p, size_t i, float exc,
+                                           float inh, float v) {
   float g[4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
@@ -144,47 +160,53 @@ __global__ void izh4_run_kernel(NeuronPlan p, int slot, const uint8_t* __restric
                                 float* __restrict__ i_rec) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.n) return;
-  T* ring = static_cast<T*>(p.ring) + static_cast<size_t>(slot) * p.n * p.channels;
+  const int lane = blockIdx.y;
+  if (p.t0) slot = (p.t0[lane] + slot) % p.ring_len;
+  const size_t at = static_cast<size_t>(lane) * p.n + i;  // this neuron of this lane
+  const size_t rows = static_cast<size_t>(lane) * p.row_stride + i;
+  T* ring = static_cast<T*>(p.ring) +
+            (static_cast<size_t>(lane) * p.ring_len + slot) * p.n * p.channels;
   T* vp = static_cast<T*>(p.v);
   T* up = static_cast<T*>(p.u);
-  float v = to_f32(vp[i]);
-  float u = to_f32(up[i]);
+  float v = to_f32(vp[at]);
+  float u = to_f32(up[at]);
   float cur;
   if (p.channels == 2) {
     const float exc = to_f32(ring[2 * i]);
     const float inh = to_f32(ring[2 * i + 1]);
     ring[2 * i] = from_f32<T>(0.0f);
     ring[2 * i + 1] = from_f32<T>(0.0f);
-    cur = coba_tick<T>(p, i, exc, inh, v);
+    cur = coba_tick<T>(p, at, exc, inh, v);
   } else {
     cur = to_f32(ring[i]);
     ring[i] = from_f32<T>(0.0f);
   }
-  if (i_ext) cur = __fadd_rn(cur, i_ext[i]);
+  if (i_ext) cur = __fadd_rn(cur, i_ext[rows]);
   const float c = p.c[i];
   const bool spk = izh4_tick(v, u, cur, p.a[i], p.b[i], c, p.d[i], p.h, p.substeps);
   const bool gen = p.is_gen[i] != 0;
-  const int16_t r = p.refrac[i];
+  const int16_t r = p.refrac[at];
   const int col = p.gen_col[i];
-  const bool s = col >= 0 ? gen_row[col] != 0 : (spk && !gen && !(r > 0));
+  const bool s = col >= 0 ? gen_row[static_cast<size_t>(lane) * p.gen_stride + col] != 0
+                          : (spk && !gen && !(r > 0));
   const T v2 = from_f32<T>(gen ? c : v);
-  vp[i] = v2;
-  up[i] = from_f32<T>(gen ? 0.0f : u);
+  vp[at] = v2;
+  up[at] = from_f32<T>(gen ? 0.0f : u);
   const int16_t r1 = static_cast<int16_t>(r - 1);  // int16 arithmetic, as torch's
-  p.refrac[i] = r1 > 0 ? r1 : static_cast<int16_t>(0);
-  p.spikes[i] = s ? 1.0f : 0.0f;
-  if (raster) raster[i] = s ? 1 : 0;
-  if (v_rec) v_rec[i] = to_f32(v2);
-  if (i_rec) i_rec[i] = cur;
-  if (p.counts && s) p.counts[i] += 1;
+  p.refrac[at] = r1 > 0 ? r1 : static_cast<int16_t>(0);
+  p.spikes[at] = s ? 1.0f : 0.0f;
+  if (raster) raster[rows] = s ? 1 : 0;
+  if (v_rec) v_rec[rows] = to_f32(v2);
+  if (i_rec) i_rec[rows] = cur;
+  if (p.counts && s) p.counts[at] += 1;
 }
 
 template <typename T>
 static int launch_run(const NeuronPlan* p, int slot, const void* gen_row, const void* i_ext,
                       void* raster, void* v_rec, void* i_rec) {
-  if (p->n <= 0) return 0;
+  if (p->n <= 0 || p->lanes <= 0) return 0;
   const int threads = 256;
-  const int blocks = (p->n + threads - 1) / threads;
+  const dim3 blocks((p->n + threads - 1) / threads, p->lanes);
   izh4_run_kernel<T><<<blocks, threads, 0, static_cast<cudaStream_t>(p->stream)>>>(
       *p, slot, static_cast<const uint8_t*>(gen_row), static_cast<const float*>(i_ext),
       static_cast<uint8_t*>(raster), static_cast<float*>(v_rec), static_cast<float*>(i_rec));
@@ -194,7 +216,8 @@ static int launch_run(const NeuronPlan* p, int slot, const void* gen_row, const 
 REPRO_EXPORT int izh4_run_plan_size() { return static_cast<int>(sizeof(NeuronPlan)); }
 
 // One tick of a run (kernels/izh_update.py:NeuronLauncher): ring slot
-// `slot`; the tick's rows as device pointers, null for none.
+// `slot` (over lanes, with t0 set: the shift i % L of every lane's slot);
+// the tick's rows of lane 0 as device pointers, null for none.
 REPRO_EXPORT int izh4_run_f32(const NeuronPlan* p, int slot, const void* gen_row,
                               const void* i_ext, void* raster, void* v_rec, void* i_rec) {
   return launch_run<float>(p, slot, gen_row, i_ext, raster, v_rec, i_rec);

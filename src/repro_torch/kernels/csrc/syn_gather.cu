@@ -35,6 +35,14 @@
 // every CTA (kStaged, a measurement option: P f32 must fit the device's
 // opt-in limit) gives the same sums.
 //
+// Lanes: a run over B lanes (a batched run, a LaneScheduler's chunk) gives
+// the kernel B spike rows and B accumulator row blocks, and the weight
+// tables either once (w_stride 0: shared weights, run_batch) or once per
+// lane (each lane's own weights, as a scheduler's lanes hold them). The
+// index plan is shared. The grid gains a lane dimension, so a tick of every
+// lane is still one launch, and each lane's sums keep the single-lane
+// order: a lane equals its solo run bit for bit.
+//
 // Out-of-range indices follow the reference's jnp.take: an index in
 // [-P, -1] counts from the end of the row, any other index outside
 // [0, P) reads NaN (the run launcher's tables are checked at build).
@@ -54,12 +62,18 @@ struct GatherPlan {
   void* stream;
   int n_items, P, F, itype, wtype, accumulate, staged;
   int absolute;  // 1: add |row sum| (COBA), 0: the signed sum
+  int lanes;  // B: spike rows [B, P], accumulator rows [B, .] at rows_stride
+  long long w_stride;  // lane stride of w: 0 when the lanes share the tables
+  long long rows_stride;  // lane stride of rows (entries)
 };
 
 template <typename I, typename W, bool kStaged>
 __global__ void __launch_bounds__(kWarps * 32)
     gather_kernel(GatherPlan p, const float* __restrict__ spikes) {
   extern __shared__ float staged[];
+  const int b = blockIdx.y;  // the lane
+  spikes += static_cast<size_t>(b) * p.P;
+  float* const rows = p.rows + static_cast<size_t>(b) * p.rows_stride;
   const float* sp = spikes;
   if (kStaged) {
     for (int j = threadIdx.x; j < p.P; j += blockDim.x) staged[j] = spikes[j];
@@ -75,13 +89,13 @@ __global__ void __launch_bounds__(kWarps * 32)
     begin = p.items[3 * item + 1];
     end = p.items[3 * item + 2];
     if (begin < 0) {  // zero fill of -begin entries
-      if (lane < -begin) p.rows[out + lane] = 0.0f;
+      if (lane < -begin) rows[out + lane] = 0.0f;
       return;
     }
   }
   const I* idx = static_cast<const I*>(p.idx);
-  const W* w = static_cast<const W*>(p.w);
-  float acc = p.accumulate ? p.rows[out] : 0.0f;
+  const W* w = static_cast<const W*>(p.w) + static_cast<size_t>(b) * p.w_stride;
+  float acc = p.accumulate ? rows[out] : 0.0f;
   for (int c = begin; c < end; ++c) {
     size_t off;
     int F;
@@ -106,7 +120,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
     acc += p.absolute ? fabsf(s) : s;  // lane 0 holds the row sum and the entry's sum
   }
-  if (lane == 0) p.rows[out] = acc;
+  if (lane == 0) rows[out] = acc;
 }
 
 // The most dynamic shared memory one block may opt into on the current
@@ -124,8 +138,8 @@ size_t optin_shared_bytes() {
 
 template <typename I, typename W>
 int launch_typed(const GatherPlan& p, const float* spikes) {
-  if (p.n_items <= 0) return 0;
-  const int blocks = (p.n_items + kWarps - 1) / kWarps;
+  if (p.n_items <= 0 || p.lanes <= 0) return 0;
+  const dim3 blocks((p.n_items + kWarps - 1) / kWarps, p.lanes);
   const cudaStream_t s = static_cast<cudaStream_t>(p.stream);
   if (!p.staged) {
     gather_kernel<I, W, false><<<blocks, kWarps * 32, 0, s>>>(p, spikes);
@@ -178,7 +192,7 @@ REPRO_EXPORT int syn_gather_run(const GatherPlan* plan, const void* spikes) {
   REPRO_EXPORT int NAME(const void* spikes, const void* idx, const void* w, void* out, \
                         int P, int Q, int F, void* stream) {                          \
     const GatherPlan p{nullptr, nullptr, idx, w, static_cast<float*>(out), stream,    \
-                       Q, P, F, ITYPE, WTYPE, 0, 0, 0};                               \
+                       Q, P, F, ITYPE, WTYPE, 0, 0, 0, 1, 0, 0};                      \
     return launch(p, spikes);                                                         \
   }
 

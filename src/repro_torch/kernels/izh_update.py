@@ -9,7 +9,8 @@ state) filled once, so that a tick's neuron phase is one ctypes call
 carrying the tick's ring slot and row pointers (through
 :class:`repro_torch.kernels.ops.NeuronRun`), for a current-based ring
 (one channel) or a conductance-based one (two channels, the four
-conductances on the run's copies, :class:`CobaCoeffs` in the plan).
+conductances on the run's copies, :class:`CobaCoeffs` in the plan), for
+one lane or for B lanes at their own ticks in one launch.
 """
 from __future__ import annotations
 
@@ -53,9 +54,10 @@ class _Plan(ctypes.Structure):
     _fields_ = [(name, _P) for name in (
         "v", "u", "refrac", "ring", "a", "b", "c", "d", "is_gen", "gen_col", "spikes",
         "counts", "stream")] + [
-        ("g", _P * 4), ("n", _I), ("substeps", _I), ("channels", _I), ("h", _F),
-        ("decay", _F * 4), ("frac", _F * 4), ("e_exc", _F), ("e_gabaa", _F),
-        ("e_gabab", _F)]
+        ("g", _P * 4), ("t0", _P), ("n", _I), ("substeps", _I), ("channels", _I),
+        ("lanes", _I), ("ring_len", _I), ("h", _F), ("decay", _F * 4), ("frac", _F * 4),
+        ("e_exc", _F), ("e_gabaa", _F), ("e_gabab", _F), ("gen_stride", ctypes.c_longlong),
+        ("row_stride", ctypes.c_longlong)]
 
 
 _RUN_SIGNATURE = [ctypes.POINTER(_Plan), _I, _P, _P, _P, _P, _P]
@@ -85,10 +87,18 @@ class NeuronLauncher:
     int32 (or None) counted up; for a two-channel ring, the conductances
     ``cond`` (four ``[N]`` storage-dtype tensors) updated in place under
     ``coba`` (:class:`CobaCoeffs`); launching on the stream current at
-    construction. The caller keeps every tensor alive and checked."""
+    construction. The caller keeps every tensor alive and checked.
+
+    Over lanes, ``t0`` (int32 ``[B]`` on the card: each lane's first tick
+    mod L) is given and every per-lane tensor carries a leading ``[B]``
+    (``v``, ``u``, ``refrac``, ``spikes``, ``counts``, ``cond``: ``[B, N]``;
+    ``ring``: ``[B, L, N, C]``); ``gen_stride`` and ``row_stride`` are the
+    lane strides of the generator rows and of the i_ext, raster and record
+    rows, in entries."""
 
     def __init__(self, v, u, refrac, ring, is_gen, a, b, c, d, gen_col, spikes,
-                 counts, *, dt: float, substeps: int, cond=None, coba=None):
+                 counts, *, dt: float, substeps: int, cond=None, coba=None, t0=None,
+                 gen_stride: int = 0, row_stride: int = 0):
         lib = _lib()
         if lib.izh4_run_plan_size() != ctypes.sizeof(_Plan):
             raise RuntimeError("izh4_update: the library's NeuronPlan size differs "
@@ -100,8 +110,11 @@ class NeuronLauncher:
             setattr(plan, name, t.data_ptr())
         plan.counts = None if counts is None else counts.data_ptr()
         plan.stream = torch.cuda.current_stream(v.device).cuda_stream
-        plan.n, plan.substeps, plan.h = v.shape[0], substeps, dt / substeps
-        plan.channels = ring.shape[2]
+        plan.n, plan.substeps, plan.h = v.shape[-1], substeps, dt / substeps
+        plan.channels, plan.ring_len = ring.shape[-1], ring.shape[-3]
+        plan.lanes = 1 if t0 is None else t0.shape[0]
+        plan.t0 = None if t0 is None else t0.data_ptr()
+        plan.gen_stride, plan.row_stride = gen_stride, row_stride
         if cond is not None:
             for k, g in enumerate(cond):
                 plan.g[k] = g.data_ptr()
@@ -112,10 +125,16 @@ class NeuronLauncher:
         self._ref = ctypes.byref(plan)
         self._lib, self._fn = lib, getattr(lib, _RUN_ENTRY[v.dtype])
 
+    def set_gen_stride(self, entries: int) -> None:
+        """The generator rows' lane stride from the next tick on (a new
+        buffer of another length)."""
+        self._plan.gen_stride = entries
+
     def __call__(self, slot: int, gen_row: int, i_ext: int, raster: int, v_rec: int,
                  i_rec: int) -> None:
-        """One tick on ring slot ``slot``; the rows are device pointers, 0
-        for none."""
+        """One tick on ring slot ``slot`` (over lanes: the shift ``i % L``
+        of every lane's slot); the rows are lane 0's device pointers, 0 for
+        none."""
         err = self._fn(self._ref, slot, gen_row or None, i_ext or None, raster or None,
                        v_rec or None, i_rec or None)
         if err:

@@ -58,6 +58,11 @@ def _on_card(name: str, *tensors: torch.Tensor) -> bool:
     return True
 
 
+def _check_lanes(name: str, lanes: int | None) -> None:
+    if lanes is not None and lanes < 1:
+        raise ValueError(f"{name}: lanes must be >= 1, got {lanes}")
+
+
 def izh4_update(v, u, i_syn, a, b, c, d, *, dt: float = 1.0, substeps: int = 2):
     """Fused IZH4 tick over flat ``[N]`` tensors: returns ``(v', u',
     spiked)`` with v', u' in v's storage dtype (fp16 or f32) and a bool
@@ -112,23 +117,47 @@ class NeuronRun:
     the tensors are checked and the plan is filled once (``launcher``, a
     :class:`repro_torch.kernels.izh_update.NeuronLauncher`), and a tick is
     one launch on the stream current at construction; on the CPU
-    ``launcher`` is None and a tick runs the plain version."""
+    ``launcher`` is None and a tick runs the plain version.
+
+    Lanes: with ``t0`` (a tuple of B Python ints, each lane's first tick)
+    the run covers B independent lanes that share ``is_gen``, ``a``..``d``
+    and ``gen_cols``: ``v``, ``u``, ``refrac``, each of ``cond`` and
+    ``spikes`` are ``[B, N]``, ``ring`` ``[B, L, N, C]``, ``gen_spk``
+    ``[B, T', n_gen]`` and ``raster``, ``v_rows``, ``i_rows`` ``[B, T,
+    N]``; ``run(i)`` is tick ``t0[b] + i`` of every lane b (ring slot
+    ``(t0[b] + i) % L``), one launch for all of them on the card
+    (:func:`repro_torch.kernels.ref.neuron_lanes_ref` on the CPU).
+    ``i_ext`` and ``counts`` are one lane's only."""
 
     def __init__(self, v, u, refrac, ring, is_gen, a, b, c, d, *, gen_spk=None,
                  gen_cols=None, i_ext=None, raster=None, v_rows=None, i_rows=None,
-                 counts=None, cond=None, coba=None, dt: float = 1.0, substeps: int = 2):
-        n = v.shape[0]
+                 counts=None, cond=None, coba=None, dt: float = 1.0, substeps: int = 2,
+                 t0: tuple[int, ...] | None = None):
+        n = v.shape[-1]
+        if t0 is not None and not t0:
+            raise ValueError("izh4_update: t0 must name at least one lane")
+        lead = () if t0 is None else (len(t0),)
         channels = 2 if cond is not None else 1
-        if v.dim() != 1 or ring.dim() != 3 or ring.shape[1:] != (n, channels):
+
+        def dims(*names) -> str:
+            return "[" + ", ".join(("B",) * len(lead) + names) + "]"
+
+        if (v.shape != (*lead, n) or ring.dim() != 3 + len(lead)
+                or ring.shape[:len(lead)] != lead or ring.shape[-2:] != (n, channels)):
             raise ValueError(f"izh4_update: v {tuple(v.shape)} and ring "
-                             f"{tuple(ring.shape)} must be [N] and [L, N, {channels}] "
+                             f"{tuple(ring.shape)} must be {dims('N')} and "
+                             f"{dims('L', 'N', str(channels))} "
                              f"({'COBA, with cond' if cond is not None else 'CUBA'})")
+        if lead and (i_ext is not None or counts is not None):
+            raise ValueError("izh4_update: i_ext and counts take one lane")
         if cond is not None and (len(cond) != 4 or coba is None or any(
-                g.shape != (n,) or g.dtype != v.dtype for g in cond)):
-            raise ValueError(f"izh4_update: cond must be four [{n}] tensors of v's dtype, "
-                             "with coba given")
-        if any(x.shape != (n,) for x in (u, refrac, is_gen, a, b, c, d)):
-            raise ValueError(f"izh4_update: u, refrac, is_gen, a, b, c, d must be [{n}]")
+                g.shape != v.shape or g.dtype != v.dtype for g in cond)):
+            raise ValueError(f"izh4_update: cond must be four {tuple(v.shape)} tensors of "
+                             "v's dtype, with coba given")
+        if any(x.shape != v.shape for x in (u, refrac)) or any(
+                x.shape != (n,) for x in (is_gen, a, b, c, d)):
+            raise ValueError(f"izh4_update: u, refrac must be {tuple(v.shape)} and is_gen, "
+                             f"a, b, c, d [{n}]")
         if (v.dtype not in _izh.STORAGE_DTYPES or u.dtype != v.dtype
                 or ring.dtype != v.dtype):
             raise ValueError(f"izh4_update: v/u/ring must share a storage dtype in "
@@ -138,13 +167,17 @@ class NeuronRun:
             raise ValueError("izh4_update: refrac must be int16, is_gen bool and a, b, "
                              "c, d float32")
         rows = [x for x in (gen_spk, i_ext, raster, v_rows, i_rows) if x is not None]
-        ticks = {x.shape[0] for x in rows[int(gen_spk is not None):] if x.dim() == 2}
-        seg = None if gen_spk is None else gen_spk.shape[0]
-        if any(x.dim() != 2 for x in rows) or len(ticks) > 1 or any(
-                x is not None and x.shape[1] != n for x in (i_ext, raster, v_rows, i_rows)) or (
+        ndim = 2 + len(lead)
+        ticks = {x.shape[-2] for x in rows[int(gen_spk is not None):] if x.dim() == ndim}
+        seg = None if gen_spk is None else gen_spk.shape[-2]
+        if any(x.dim() != ndim or x.shape[:len(lead)] != lead for x in rows) or len(
+                ticks) > 1 or any(x is not None and x.shape[-1] != n
+                                  for x in (i_ext, raster, v_rows, i_rows)) or (
                 seg is not None and any(seg != t and (seg == 0 or t % seg) for t in ticks)):
-            raise ValueError(f"izh4_update: gen_spk must be [T', n_gen], T' dividing T, and "
-                             f"i_ext, raster, v_rows, i_rows [T, {n}], for one T")
+            t_seg = "T'"
+            raise ValueError(f"izh4_update: gen_spk must be {dims(t_seg, 'n_gen')}, T' "
+                             f"dividing T, and i_ext, raster, v_rows, i_rows "
+                             f"{dims('T', str(n))}, for one T")
         if (raster is not None and raster.dtype != torch.bool) or any(
                 x is not None and x.dtype != f32 for x in (v_rows, i_rows)):
             raise ValueError("izh4_update: raster must be bool and v_rows, i_rows float32")
@@ -154,61 +187,85 @@ class NeuronRun:
             gen_cols = torch.full((n,), -1, dtype=torch.int64, device=v.device)
         elif (gen_spk.dtype != torch.bool or gen_cols is None or gen_cols.shape != (n,)
               or gen_cols.dtype not in (torch.int32, torch.int64)
-              or (n and int(gen_cols.max()) >= gen_spk.shape[1])):
-            raise ValueError(f"izh4_update: gen_spk must be bool [T, n_gen] with gen_cols "
-                             f"int [{n}] below n_gen")
+              or (n and int(gen_cols.max()) >= gen_spk.shape[-1])):
+            raise ValueError(f"izh4_update: gen_spk must be bool [.., T, n_gen] with "
+                             f"gen_cols int [{n}] below n_gen")
         self.v, self.u, self.refrac = v.clone(), u.clone(), refrac.clone()
         self.cond = None if cond is None else tuple(g.clone() for g in cond)
         self._coba = coba
-        self.spikes = torch.zeros((n,), dtype=f32, device=v.device)
+        self.spikes = torch.zeros(v.shape, dtype=f32, device=v.device)
         if i_ext is not None:
             i_ext = i_ext.to(f32).contiguous()
         self._args = (ring, is_gen, a, b, c, d, gen_cols.long(), counts)
-        self._ring_len, self._dt, self._substeps = ring.shape[0], dt, substeps
+        self._ring_len, self._dt, self._substeps = ring.shape[-3], dt, substeps
+        self._t0 = t0
         self.launcher = None
         card = _on_card("izh4_update", self.v, self.u, self.refrac, ring, is_gen, a, b,
                         c, d, gen_cols, self.spikes, *rows, *(self.cond or ()),
                         *([] if counts is None else [counts]))
         if card and n:
             cols = gen_cols.to(torch.int32)
-            self._keep = cols
+            self._keep = [cols]
+            lanes = {}
+            if t0 is not None:
+                slot0 = torch.tensor([t % self._ring_len for t in t0], dtype=torch.int32,
+                                     device=v.device)
+                self._keep.append(slot0)
+                lanes = dict(t0=slot0, gen_stride=0 if gen_spk is None else gen_spk[0].numel(),
+                             row_stride=max((x[0].numel() for x in rows[int(
+                                 gen_spk is not None):]), default=0))
             self.launcher = _izh.NeuronLauncher(
                 self.v, self.u, self.refrac, ring, is_gen, a, b, c, d, cols, self.spikes,
-                counts, dt=dt, substeps=substeps, cond=self.cond, coba=coba)
+                counts, dt=dt, substeps=substeps, cond=self.cond, coba=coba, **lanes)
         self._card = card
         self._rows = (gen_spk, i_ext, raster, v_rows, i_rows)
         self._gen_start = 0
         # Per row: (base pointer, bytes per tick), base 0 for none.
         self._steps = tuple((0, 0) if x is None or not card else
-                            (x.data_ptr(), x.shape[1] * x.element_size())
+                            (x.data_ptr(), x.shape[-1] * x.element_size())
                             for x in self._rows)
 
     def rows(self, gen_spk: torch.Tensor, start: int) -> None:
         """Read the generator spikes from ``gen_spk`` ``[T', n_gen]`` bool
-        (the first buffer's ``n_gen`` and device, contiguous) from here on,
-        its row 0 being tick ``i = start``; the other rows keep their
-        buffers. The caller keeps ``gen_spk`` alive while it is read."""
+        (over lanes ``[B, T', n_gen]``; the first buffer's ``n_gen``, lanes
+        and device, contiguous) from here on, its row 0 being tick ``i =
+        start``; the other rows keep their buffers. The caller keeps
+        ``gen_spk`` alive while it is read."""
         old = self._rows[0]
-        if (old is None or gen_spk.dtype != torch.bool or gen_spk.dim() != 2
-                or gen_spk.shape[1] != old.shape[1] or gen_spk.device != old.device
+        if (old is None or gen_spk.dtype != torch.bool or gen_spk.dim() != old.dim()
+                or gen_spk.shape[:-2] != old.shape[:-2]
+                or gen_spk.shape[-1] != old.shape[-1] or gen_spk.device != old.device
                 or not gen_spk.is_contiguous()):
-            raise ValueError("izh4_update: gen_spk must be a contiguous bool [T, n_gen] "
+            raise ValueError("izh4_update: gen_spk must be a contiguous bool [.., T, n_gen] "
                              "buffer like the run's first")
         self._rows = (gen_spk, *self._rows[1:])
         self._gen_start = start
         if self._card:
             self._steps = ((gen_spk.data_ptr(), self._steps[0][1]), *self._steps[1:])
+            if self._t0 is not None and self.launcher is not None:
+                self.launcher.set_gen_stride(gen_spk[0].numel())
 
-    def __call__(self, i: int, t: int) -> None:
+    def __call__(self, i: int, t: int | None = None) -> None:
         at = (i - self._gen_start, i, i, i, i)
         if self.launcher is not None:
-            self.launcher(t % self._ring_len, *(p and p + k * step
-                                                for (p, step), k in zip(self._steps, at)))
+            slot = i % self._ring_len if self._t0 is not None else t % self._ring_len
+            self.launcher(slot, *(p and p + k * step
+                                  for (p, step), k in zip(self._steps, at)))
             LAUNCHES["izh4_update"] += 1
             return
         if self._card:  # N = 0: nothing to compute
             return
         ring, is_gen, a, b, c, d, cols, counts = self._args
+        if self._t0 is not None:
+            gen_spk, _, raster, v_rows, i_rows = (None if x is None else x[:, k]
+                                                  for x, k in zip(self._rows, at))
+            ref.neuron_lanes_ref(self.v, self.u, self.refrac, ring,
+                                 [(t0 + i) % self._ring_len for t0 in self._t0], is_gen,
+                                 a, b, c, d, cols, self.spikes, gen_rows=gen_spk,
+                                 raster_rows=raster, v_rows=v_rows, i_rows=i_rows,
+                                 cond=self.cond, coba=self._coba, dt=self._dt,
+                                 substeps=self._substeps)
+            return
         gen_spk, i_ext, raster, v_rows, i_rows = (None if x is None else x[k]
                                                   for x, k in zip(self._rows, at))
         ref.neuron_run_ref(self.v, self.u, self.refrac, ring, t % self._ring_len, is_gen,
@@ -248,26 +305,38 @@ class MatmulRun:
     one launch into an output buffer held for the run, which the next
     call for the same bucket overwrites; ``x`` must be a contiguous f32
     row of length K on the images' card, and is not checked per call. On
-    the CPU it runs the plain version."""
+    the CPU it runs the plain version.
 
-    def __init__(self, images):
+    Over ``lanes`` B: ``run(i, x)`` takes ``x`` ``[B, K]`` (rows of stride
+    ``x.stride(0)``, each contiguous: a column slice of the tick's ``[B,
+    N]`` spike rows will do) against ``images[i]``, ``[K, N]`` shared by
+    the lanes or ``[B, K, N]`` one per lane, and returns ``[B, N]``; one
+    launch for every lane, each lane summed as the one-lane launch sums
+    (:func:`repro_torch.kernels.ref.syn_matmul_lanes_ref` on the CPU)."""
+
+    def __init__(self, images, lanes: int | None = None):
+        _check_lanes("syn_matmul", lanes)
         self._images = tuple(images)
         mats = [w for w in self._images if w is not None]
         for w in mats:
-            if w.dim() != 2:
-                raise ValueError(f"syn_matmul: weight image {tuple(w.shape)} must be [K, N]")
+            if w.dim() != 2 and (lanes is None or w.dim() != 3 or w.shape[0] != lanes):
+                raise ValueError(f"syn_matmul: weight image {tuple(w.shape)} must be [K, N]"
+                                 + ("" if lanes is None else f" or [{lanes}, K, N]"))
             if w.dtype not in _matmul.WEIGHT_DTYPES:
                 raise ValueError(f"syn_matmul: w dtype {w.dtype} not in "
                                  f"{_matmul.WEIGHT_DTYPES}")
+        self._lanes = lanes
         self._gemv = None
         if mats and _on_card("syn_matmul", *mats):
-            self._gemv = _matmul.GemvRun(self._images, mats[0].device)
-            self._counts = tuple(w is not None and w.shape[1] > 0 for w in self._images)
+            self._gemv = _matmul.GemvRun(self._images, mats[0].device, lanes)
+            self._counts = tuple(w is not None and w.shape[-1] > 0 for w in self._images)
 
     def __call__(self, i: int, x: torch.Tensor) -> torch.Tensor:
         if self._gemv is None:
+            if self._lanes is not None:
+                return ref.syn_matmul_lanes_ref(x, self._images[i])
             return ref.syn_matmul_ref(x[None, :], self._images[i])[0]
-        out = self._gemv(i, x.data_ptr())
+        out = self._gemv(i, x.data_ptr(), x.stride(0) if self._lanes is not None else 0)
         if self._counts[i]:
             LAUNCHES["syn_matmul"] += 1
         return out
@@ -331,37 +400,62 @@ class GatherRun:
     row of length N on the tables' card and is not checked per call. On
     the CPU ``launcher`` is None and each group runs the plain version
     (:func:`repro_torch.kernels.ref.gather_run_ref`). Every compiled plan
-    is one group: one launch per tick."""
+    is one group: one launch per tick.
 
-    def __init__(self, n: int, buckets, device, channels: int = 1):
+    Over ``lanes`` B: ``rows`` is ``[B, len(keys), N]``, ``run(g, spikes)``
+    takes ``spikes`` ``[B, N]`` (contiguous), and each table's weights are
+    ``[Q, F]``, shared by the lanes, or ``[B, Q, F]``, one table per lane;
+    the index plan is shared and one launch covers every lane, each lane
+    summed as the one-lane launch sums
+    (:func:`repro_torch.kernels.ref.gather_lanes_ref` on the CPU)."""
+
+    def __init__(self, n: int, buckets, device, channels: int = 1,
+                 lanes: int | None = None):
+        _check_lanes("syn_gather", lanes)
         buckets = list(buckets)
         tables = [b.table for b in buckets if b.table is not None]
         for _, idx, w in tables:
-            if idx.dim() != 2 or w.shape != idx.shape:
+            if idx.dim() != 2 or w.shape[-2:] != idx.shape or w.dim() != 2 and (
+                    lanes is None or w.shape != (lanes, *idx.shape)):
                 raise ValueError(f"syn_gather: idx {tuple(idx.shape)} and w "
-                                 f"{tuple(w.shape)} must share one [Q, F] shape")
+                                 f"{tuple(w.shape)} must share one [Q, F] shape"
+                                 + ("" if lanes is None else f" (w may be [{lanes}, Q, F])"))
             if idx.dtype not in _gather.INDEX_DTYPES or w.dtype not in _gather.WEIGHT_DTYPES:
                 raise ValueError(f"syn_gather: idx/w dtypes {idx.dtype}/{w.dtype} not in "
                                  f"{_gather.INDEX_DTYPES}/{_gather.WEIGHT_DTYPES}")
         self.plan = _gather.GatherPlan(n, buckets, channels)
         self.delays, self.keys, self.starts = self.plan.delays, self.plan.keys, self.plan.starts
+        self.lanes = lanes
         device = torch.device(device)
         self.launcher = None
         if device.type == "cuda" and self.plan.groups:
             with torch.cuda.device(device):
-                self.launcher = _gather.GatherLauncher(self.plan, device)
+                self.launcher = _gather.GatherLauncher(self.plan, device, lanes=lanes)
             self.rows = self.launcher.rows
         else:
-            self.rows = torch.zeros((len(self.keys), n), dtype=f32, device=device)
+            lead = () if lanes is None else (lanes,)
+            self.rows = torch.zeros((*lead, len(self.keys), n), dtype=f32, device=device)
 
     def __call__(self, g: int, spikes: torch.Tensor) -> None:
         if self.launcher is None:
+            if self.lanes is not None:
+                ref.gather_lanes_ref(spikes, self.rows, self.plan.plain[g], first=g == 0,
+                                     absolute=self.plan.absolute)
+                return
             ref.gather_run_ref(spikes, self.rows, self.plan.plain[g], first=g == 0,
                                absolute=self.plan.absolute)
             return
         self.launcher(g, spikes.data_ptr())
         if self.launcher.items[g]:
             LAUNCHES["syn_gather"] += 1
+
+    def set_lane(self, lane: int) -> None:
+        """Re-read lane ``lane``'s weights from the ``[B, Q, F]`` tables the
+        run was built on, which the caller has rewritten in place (a lane
+        admitted or restored with weights of its own)."""
+        self.plan.set_lane(lane)
+        if self.launcher is not None and self.launcher.w.data_ptr() != self.plan.w.data_ptr():
+            self.launcher.w[lane].copy_(self.plan.w[lane])
 
 
 def _check_stdp_vectors(name: str, n_pre: int, n_post: int, pre_trace, post_trace,

@@ -10,8 +10,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["izh4_ref", "neuron_run_ref", "coba_current_ref", "syn_matmul_ref",
-           "syn_gather_ref", "gather_run_ref", "fused_tick_ref", "stdp_update_ref",
+__all__ = ["izh4_ref", "neuron_run_ref", "neuron_lanes_ref", "coba_current_ref",
+           "syn_matmul_ref", "syn_matmul_lanes_ref", "syn_gather_ref", "gather_run_ref",
+           "gather_lanes_ref", "fused_tick_ref", "stdp_update_ref",
            "stdp_gather_ref", "stdp_gather_run_ref", "stdp_update_run_ref",
            "chunked_attention_ref", "flash_attention_ref", "pallas_no_key_rows",
            "model_layout"]
@@ -97,6 +98,27 @@ def neuron_run_ref(v, u, refrac, ring, slot: int, is_gen, a, b, c, d, gen_cols, 
         counts += spiked
 
 
+def neuron_lanes_ref(v, u, refrac, ring, slots, is_gen, a, b, c, d, gen_cols, spikes, *,
+                     gen_rows=None, raster_rows=None, v_rows=None, i_rows=None, cond=None,
+                     coba=None, dt: float = 1.0, substeps: int = 2) -> None:
+    """One tick of B lanes' neuron phase, in place: lane ``k`` is
+    :func:`neuron_run_ref` on ``v[k]``, ``u[k]``, ``refrac[k]`` and
+    ``spikes[k]`` (``[B, N]``), ``ring[k]`` (``[B, L, N, C]``) at ring slot
+    ``slots[k]``, the conductances ``cond`` (four ``[B, N]``) and the rows
+    ``gen_rows`` ``[B, n_gen]``, ``raster_rows``, ``v_rows`` and ``i_rows``
+    ``[B, N]`` where given; the parameters are shared. A loop over the
+    lanes."""
+    for k, slot in enumerate(slots):
+        def lane(x):
+            return None if x is None else x[k]
+
+        neuron_run_ref(v[k], u[k], refrac[k], ring[k], slot, is_gen, a, b, c, d, gen_cols,
+                       spikes[k], gen_row=lane(gen_rows), raster_row=lane(raster_rows),
+                       v_row=lane(v_rows), i_row=lane(i_rows),
+                       cond=None if cond is None else tuple(g[k] for g in cond), coba=coba,
+                       dt=dt, substeps=substeps)
+
+
 def coba_current_ref(cond, v, coba):
     """The COBA current ``[N]`` f32 of ``core/conductance.coba_current``,
     from the conductances ``cond`` (AMPA, NMDA, GABAa, GABAb, storage
@@ -114,6 +136,14 @@ def coba_current_ref(cond, v, coba):
 def syn_matmul_ref(x, w):
     """x [M, K] @ w [K, N], storage-dtype weights decoded to f32 (softfp)."""
     return torch.matmul(x.to(f32), w.to(f32))
+
+
+def syn_matmul_lanes_ref(x, w):
+    """B lanes' products ``x [B, K] @ w`` with ``w`` ``[K, N]`` shared by
+    the lanes or ``[B, K, N]``, one per lane → ``[B, N]`` f32: a loop over
+    the lanes of :func:`syn_matmul_ref`."""
+    return torch.stack([syn_matmul_ref(x[k:k + 1], w if w.dim() == 2 else w[k])[0]
+                        for k in range(x.shape[0])])
 
 
 def _take(row, idx):
@@ -151,6 +181,18 @@ def gather_run_ref(spikes, rows, buckets, *, first: bool, absolute: bool = False
     for k, posts, idx, w in buckets:
         drive = syn_gather_ref(spikes, idx, w)
         rows[k].index_add_(0, posts, drive.abs() if absolute else drive)
+
+
+def gather_lanes_ref(spikes, rows, buckets, *, first: bool, absolute: bool = False) -> None:
+    """One launch of a :class:`repro_torch.kernels.ops.GatherRun` over B
+    lanes, in place on ``rows`` ``[B, K, N]``: lane ``k`` is
+    :func:`gather_run_ref` on the spike row ``spikes[k]`` (``[B, N]``) and
+    ``rows[k]``, each bucket's weights shared (``[Q, F]``) or the lane's own
+    (``[B, Q, F]``). A loop over the lanes."""
+    for k in range(spikes.shape[0]):
+        lane = tuple((r, posts, idx, w if w.dim() == 2 else w[k])
+                     for r, posts, idx, w in buckets)
+        gather_run_ref(spikes[k], rows[k], lane, first=first, absolute=absolute)
 
 
 def fused_tick_ref(v, u, ring, gen_row, is_gen, a, b, c, d, t: int, *,

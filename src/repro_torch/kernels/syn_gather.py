@@ -7,7 +7,8 @@ allocates the output and counts launches). :class:`GatherPlan` is the
 host plan of a run's sparse buckets, built once with numpy, and
 :class:`GatherLauncher` its device copy: one ``GatherPlan`` structure per
 launch, so that a tick's gathers are one ctypes call carrying the spike
-row's pointer (through :class:`repro_torch.kernels.ops.GatherRun`).
+row's pointer (through :class:`repro_torch.kernels.ops.GatherRun`), for
+one lane or for B lanes in one launch.
 """
 from __future__ import annotations
 
@@ -39,7 +40,9 @@ class RunPlan(ctypes.Structure):
 
     _fields_ = [("items", _P), ("contribs", _P), ("idx", _P), ("w", _P), ("rows", _P),
                 ("stream", _P), ("n_items", _I), ("P", _I), ("F", _I), ("itype", _I),
-                ("wtype", _I), ("accumulate", _I), ("staged", _I), ("absolute", _I)]
+                ("wtype", _I), ("accumulate", _I), ("staged", _I), ("absolute", _I),
+                ("lanes", _I), ("w_stride", ctypes.c_longlong),
+                ("rows_stride", ctypes.c_longlong)]
 
 
 _SIGNATURES = {**{f"syn_gather_{i}_{w}": _SIGNATURE
@@ -67,8 +70,9 @@ class Bucket(NamedTuple):
     its delay, its post columns ``posts`` ``[Q]`` (ids into the ``[N]``
     row), and for a sparse bucket ``table = (pre, idx, w)``: ``pre`` ``[P]``
     the global ids of its pre rows, ``idx`` ``[Q, F]`` int16/int32 indices
-    into ``pre`` and ``w`` ``[Q, F]`` its weights (f32, fp16 or bf16); a
-    dense bucket's ``table`` is None. ``channel`` is its ring channel."""
+    into ``pre`` and ``w`` ``[Q, F]`` its weights (f32, fp16 or bf16), or
+    ``[B, Q, F]``, one table per lane; a dense bucket's ``table`` is None.
+    ``channel`` is its ring channel."""
 
     delay: int
     posts: np.ndarray
@@ -104,9 +108,10 @@ class GatherPlan:
     ``F`` entries at ``offset`` in ``idx`` (the buckets' rows composed
     through ``pre`` into global ids, int16 where N fits, else int32) and
     ``w`` (one dtype: the buckets', or f32 where they differ), concatenated
-    in plan order. ``plain[g]`` lists group g's buckets as
-    :func:`repro_torch.kernels.ref.gather_run_ref` takes them. Raises on an
-    index outside ``[0, P)``.
+    in plan order: ``[E]``, or ``[B, E]`` where every table holds one set
+    of weights per lane (``w_lanes`` is then B, else None). ``plain[g]``
+    lists group g's buckets as :func:`repro_torch.kernels.ref.gather_run_ref`
+    takes them. Raises on an index outside ``[0, P)``.
     """
 
     def __init__(self, n: int, buckets, channels: int = 1):
@@ -141,6 +146,12 @@ class GatherPlan:
         self.groups = tuple(tuple(g) for g in groups)
 
         tables = {i: buckets[i].table for i in sparse}
+        leads = {tuple(t[2].shape[:-2]) for t in tables.values()}
+        if len(leads) > 1 or any(len(lead) > 1 for lead in leads):
+            raise ValueError("syn_gather: the tables' weights must all be [Q, F] or all "
+                             "[B, Q, F] for one B")
+        lead = leads.pop() if leads else ()
+        self.w_lanes = lead[0] if lead else None
         wdts = {t[2].dtype for t in tables.values()}
         self.w_dtype = wdts.pop() if len(wdts) == 1 else torch.float32
         self.idx_dtype = torch.int16 if n <= np.iinfo(np.int16).max else torch.int32
@@ -152,7 +163,7 @@ class GatherPlan:
                 raise IndexError(f"syn_gather: bucket {i} has indices in "
                                  f"[{local.min()}, {local.max()}], outside [0, {len(pre)})")
             composed[i] = np.asarray(pre, np.int64)[local]
-            ws.append(w.reshape(-1).to(self.w_dtype).cpu())
+            ws.append(w.reshape(*lead, -1).to(self.w_dtype))
             offsets[i] = off
             off += local.size
         if off >= 2**31:
@@ -160,7 +171,8 @@ class GatherPlan:
         flat = [composed[i].reshape(-1) for i in sparse] or [np.zeros(0, np.int64)]
         self.idx = torch.from_numpy(np.concatenate(flat).astype(
             np.int16 if self.idx_dtype == torch.int16 else np.int32))
-        self.w = torch.cat(ws) if ws else torch.zeros(0, dtype=self.w_dtype)
+        self.w = torch.cat(ws, dim=-1) if ws else torch.zeros(0, dtype=self.w_dtype)
+        self._tables_w = tuple(tables[i][2] for i in sparse)
 
         contribs, self.items, self.plain = [], [], []
         for g, members in enumerate(self.groups):
@@ -193,6 +205,18 @@ class GatherPlan:
             np.concatenate(contribs or [np.zeros((0, 2), np.int64)]).astype(np.int32))
 
 
+    def set_lane(self, lane: int) -> None:
+        """Re-read lane ``lane``'s entries of ``w`` from the ``[B, Q, F]``
+        table weights the plan was built on, which the caller has rewritten
+        in place."""
+        if self.w_lanes is None:
+            if self._tables_w:
+                raise ValueError("syn_gather: the lanes share their tables")
+            return
+        self.w[lane].copy_(torch.cat([w[lane].reshape(-1).to(self.w_dtype)
+                                      for w in self._tables_w]))
+
+
 def _zero_items(flat: np.ndarray) -> np.ndarray:
     """Zero-fill items ``(out, -count, 0)`` over the sorted flat entries
     ``flat``: runs of consecutive entries cut every 32."""
@@ -212,18 +236,27 @@ class GatherLauncher:
     copied there, its ``rows`` buffer allocated, one ``RunPlan`` per group,
     launching on the stream current at construction. ``staged`` plans
     stage the whole spike row in shared memory in every CTA (for
-    measurement; ``N`` f32 must fit the device's opt-in limit)."""
+    measurement; ``N`` f32 must fit the device's opt-in limit).
 
-    def __init__(self, plan: GatherPlan, device, staged: bool = False):
+    Over ``lanes`` B (None: one lane), ``rows`` is ``[B, len(keys), N]``,
+    a launch takes B spike rows ``[B, N]``, and the lanes share the plan's
+    tables or each reads its own (``plan.w_lanes`` == B)."""
+
+    def __init__(self, plan: GatherPlan, device, staged: bool = False,
+                 lanes: int | None = None):
         lib = _lib()
         if lib.syn_gather_plan_size() != ctypes.sizeof(RunPlan):
             raise RuntimeError("syn_gather: the library's GatherPlan size differs "
                                "from the launcher's")
         self._lib, self._fn = lib, lib.syn_gather_run
-        self.rows = torch.zeros((len(plan.keys), plan.n), dtype=torch.float32,
-                                device=device)
+        if plan.w_lanes is not None and plan.w_lanes != lanes:
+            raise ValueError(f"syn_gather: {plan.w_lanes} lanes of weights for "
+                             f"{lanes} lanes")
+        self.rows = torch.zeros((*(() if lanes is None else (lanes,)), len(plan.keys),
+                                 plan.n), dtype=torch.float32, device=device)
         self._keep = [plan.idx.to(device), plan.w.to(device), plan.contribs.to(device)]
         idx, w, contribs = self._keep
+        self.w = w  # the plans point at it
         stream = torch.cuda.current_stream(device).cuda_stream
         self._plans = []
         for g, items in enumerate(plan.items):
@@ -234,13 +267,16 @@ class GatherLauncher:
                          stream=stream, n_items=items.shape[0], P=plan.n, F=0,
                          itype=_ITYPE[plan.idx_dtype], wtype=_WTYPE[plan.w_dtype],
                          accumulate=int(g > 0), staged=int(staged),
-                         absolute=int(plan.absolute))
+                         absolute=int(plan.absolute), lanes=lanes or 1,
+                         w_stride=0 if plan.w_lanes is None else w.shape[-1],
+                         rows_stride=len(plan.keys) * plan.n)
             self._plans.append((ctypes.byref(rp), rp))
         self.items = tuple(rp.n_items for _, rp in self._plans)
 
     def __call__(self, g: int, spikes_ptr: int) -> None:
         """Launch group ``g`` on the f32 spike row at device pointer
-        ``spikes_ptr`` (``N`` contiguous values)."""
+        ``spikes_ptr`` (``N`` contiguous values; over lanes, B rows of
+        them)."""
         err = self._fn(self._plans[g][0], spikes_ptr)
         if err:
             _build.check(self._lib, err, "syn_gather")

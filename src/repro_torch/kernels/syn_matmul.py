@@ -6,7 +6,8 @@ Replaces the Pallas kernel ``repro/kernels/syn_matmul.py:syn_matmul``.
 allocates the output and counts launches); :class:`GemvRun` holds the
 M = 1 products of one run, one :class:`GemvPlan` per weight image filled
 once, so that each call is one ctypes call carrying the row's pointer
-(through :class:`repro_torch.kernels.ops.MatmulRun`).
+(through :class:`repro_torch.kernels.ops.MatmulRun`), for one lane or for
+B lanes in one launch.
 """
 from __future__ import annotations
 
@@ -32,9 +33,18 @@ class GemvPlan(ctypes.Structure):
                 ("wtype", _I)]
 
 
+class LanesPlan(ctypes.Structure):
+    """``LanesPlan`` of ``csrc/syn_matmul.cu``, field for field."""
+
+    _fields_ = [("w", _P), ("out", _P), ("stream", _P), ("w_stride", ctypes.c_longlong),
+                ("K", _I), ("N", _I), ("wtype", _I), ("lanes", _I)]
+
+
 _SIGNATURES = {**{name: _SIGNATURE for name in _ENTRY.values()},
                "syn_matmul_run": [ctypes.POINTER(GemvPlan), _P],
-               "syn_matmul_plan_size": []}
+               "syn_matmul_plan_size": [],
+               "syn_matmul_lanes": [ctypes.POINTER(LanesPlan), _P, ctypes.c_longlong],
+               "syn_matmul_lanes_plan_size": []}
 
 
 def _lib() -> ctypes.CDLL:
@@ -55,14 +65,21 @@ class GemvRun:
     one card, checked by the caller; None where there is no product); each
     image's ``[N]`` f32 output buffer is allocated here once and
     overwritten by every call. Launches on the stream current at
-    construction."""
+    construction.
 
-    def __init__(self, images, device):
+    Over ``lanes`` B (None: one lane), ``x`` is B rows and the output
+    ``[B, N]``; an image ``[K, N]`` is shared by the lanes, one ``[B, K,
+    N]`` holds each lane's own, and each lane sums in the one-lane order."""
+
+    def __init__(self, images, device, lanes: int | None = None):
         lib = _lib()
-        if lib.syn_matmul_plan_size() != ctypes.sizeof(GemvPlan):
-            raise RuntimeError("syn_matmul: the library's GemvPlan size differs "
-                               "from the launcher's")
-        self._lib, self._fn = lib, lib.syn_matmul_run
+        plan_type, size = ((GemvPlan, lib.syn_matmul_plan_size()) if lanes is None else
+                           (LanesPlan, lib.syn_matmul_lanes_plan_size()))
+        if size != ctypes.sizeof(plan_type):
+            raise RuntimeError(f"syn_matmul: the library's {plan_type.__name__} size "
+                               "differs from the launcher's")
+        self._lib, self._lanes = lib, lanes is not None
+        self._fn = lib.syn_matmul_lanes if self._lanes else lib.syn_matmul_run
         self._keep = tuple(images)  # the plans point at these tensors
         stream = torch.cuda.current_stream(device).cuda_stream
         self.outs, self._plans = [], []
@@ -71,16 +88,24 @@ class GemvRun:
                 self.outs.append(None)
                 self._plans.append(None)
                 continue
-            out = torch.empty((w.shape[1],), dtype=torch.float32, device=device)
-            plan = GemvPlan(w=w.data_ptr(), out=out.data_ptr(), stream=stream,
-                            K=w.shape[0], N=w.shape[1], wtype=_WTYPE[w.dtype])
+            k, n = w.shape[-2:]
+            kw = dict(w=w.data_ptr(), stream=stream, K=k, N=n, wtype=_WTYPE[w.dtype])
+            if lanes is None:
+                out = torch.empty((n,), dtype=torch.float32, device=device)
+                plan = GemvPlan(out=out.data_ptr(), **kw)
+            else:
+                out = torch.empty((lanes, n), dtype=torch.float32, device=device)
+                plan = LanesPlan(out=out.data_ptr(), lanes=lanes,
+                                 w_stride=k * n if w.dim() == 3 else 0, **kw)
             self.outs.append(out)
             self._plans.append((ctypes.byref(plan), plan))
 
-    def __call__(self, i: int, x_ptr: int) -> torch.Tensor:
+    def __call__(self, i: int, x_ptr: int, x_stride: int = 0) -> torch.Tensor:
         """Launch image ``i``'s product with the f32 row at device pointer
-        ``x_ptr`` (``K`` contiguous values); returns its output buffer."""
-        err = self._fn(self._plans[i][0], x_ptr)
+        ``x_ptr`` (``K`` contiguous values; over lanes, lane b's at ``x_ptr
+        + 4 · b · x_stride``); returns its output buffer."""
+        args = (x_ptr, x_stride) if self._lanes else (x_ptr,)
+        err = self._fn(self._plans[i][0], *args)
         if err:
             _build.check(self._lib, err, "syn_matmul")
         return self.outs[i]

@@ -5,7 +5,10 @@ Info, Syn State, Neuron State, Group State, Auxiliary Data) and prints
 Tables III/IV. ``NetworkBuilder.compile`` registers every tensor it
 allocates under those stage names; the ledger counts bytes exactly
 (numel × element size) and enforces a device budget (8.477 MB emulates
-the MCU).
+the MCU). Serving adds an eighth stage, "8. Serve Lanes": a
+``repro_torch.serve.LaneScheduler`` registers its per-lane state there
+under ``serve.lanes[.<key>]`` and releases it when it closes or is
+replaced.
 """
 from __future__ import annotations
 
@@ -73,6 +76,13 @@ class MemoryLedger:
         self._entries.append(_Entry(stage=stage, name=name, nbytes=nbytes))
         return nbytes
 
+    def release(self, name: str) -> int:
+        """Remove the entries registered under ``name``; returns the bytes
+        freed."""
+        freed = sum(e.nbytes for e in self._entries if e.name == name)
+        self._entries = [e for e in self._entries if e.name != name]
+        return freed
+
     @property
     def total_used(self) -> int:
         return sum(e.nbytes for e in self._entries)
@@ -88,6 +98,26 @@ class MemoryLedger:
         out: dict[str, int] = {}
         for e in self._entries:
             out[e.name] = out.get(e.name, 0) + e.nbytes
+        return out
+
+    def serve_bytes(self) -> int:
+        """Serving bytes: the per-lane session state registered by
+        ``repro_torch.serve.LaneScheduler`` (the ``serve.*`` names of stage
+        "8. Serve Lanes")."""
+        nb = self.name_bytes()
+        return sum(v for k, v in nb.items() if k.startswith("serve."))
+
+    def serve_rung_bytes(self) -> dict[str, int]:
+        """Serving bytes per ledger key: ``serve.lanes`` and
+        ``serve.telemetry`` registrations grouped by the suffix after the
+        prefix (``serve.lanes.rung64`` under ``"rung64"``; an un-keyed
+        scheduler under ``""``)."""
+        out: dict[str, int] = {}
+        for e in self._entries:
+            for prefix in ("serve.lanes", "serve.telemetry"):
+                if e.name == prefix or e.name.startswith(prefix + "."):
+                    key = e.name[len(prefix) + 1:]
+                    out[key] = out.get(key, 0) + e.nbytes
         return out
 
     def synapse_bytes(self) -> int:

@@ -808,3 +808,208 @@ def test_serving_arguments_card_equal_cpu(card):
     assert torch.equal(torch.cat(parts), sp) and torch.equal(state.neurons.v, whole.neurons.v)
     _, idle = both(active=torch.tensor(False))
     assert int(idle.sum()) == 0
+
+
+def _lane_states(net, lanes, seed, device):
+    """``lanes`` lanes of ``net``'s state, each a few random ticks in: v, u
+    and the ring from 0-40 ticks of the net's own run on random uniforms,
+    so the lanes differ."""
+    from repro_torch.core.engine import run
+    from repro_torch.core.lanes import stack_states
+
+    g = torch.Generator().manual_seed(seed)
+    states = []
+    for b in range(lanes):
+        ticks = int(torch.randint(1, 41, (1,), generator=g))
+        gu = torch.rand((ticks, net.static.n_gen), generator=g).to(device)
+        states.append(run(net.static, net.params, net.state0, ticks, gen_u=gu)[0])
+    return stack_states(states)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["fp16", "fp32"])
+@pytest.mark.parametrize("coba", [False, True], ids=["cuba", "coba"])
+def test_neuron_run_lanes_matches_plain_and_one_lane(card, policy, coba):
+    """B1 over 16 lanes at their own ticks (spread over the ring) for 12
+    chained ticks: bit for bit the plain lane version on the card and the
+    one-lane launcher on each lane; one launch per tick."""
+    from repro_torch.configs.synfire4 import SYNFIRE4, _synfire_builder, build_synfire
+    from repro_torch.core import COBAConfig, NeuronModel
+    from repro_torch.core import backend as be
+    from repro_torch.core.lanes import lane_state
+
+    net = (_synfire_builder(SYNFIRE4).compile(conductances=COBAConfig(), policy=policy,
+                                                propagation="sparse", device=card)
+           if coba else build_synfire(SYNFIRE4, policy=policy, propagation="sparse",
+                                      device=card))
+    lanes = 16
+    st = _lane_states(net, lanes, 5, card)
+    g = torch.Generator().manual_seed(6)
+    ring = (torch.rand(st.ring.shape, generator=g) * 8).to(st.ring.dtype).to(card)
+    ring0 = ring.clone()
+    gen = torch.rand((lanes, 12, net.static.n_gen), generator=g).lt(0.3).to(card)
+    raster = torch.zeros((lanes, 12, net.static.n), dtype=torch.bool, device=card)
+    vs = torch.zeros((lanes, 12, net.static.n), device=card)
+    args = dict(cond=st.cond, gen_spk=gen, raster=raster, v_rows=vs, t0=st.t)
+    ops.reset_launches()
+    kernel = be.assemble_neurons(net.static, net.params, st.neurons, ring, **args)
+    p = net.params.neuron
+    is_gen = p.model == NeuronModel.GENERATOR
+    cols = torch.full((net.static.n,), -1, dtype=torch.int64, device=card)
+    cols[is_gen] = torch.arange(int(is_gen.sum()), device=card)
+    pv, pu, pr = (x.clone() for x in st.neurons)
+    pc = None if st.cond is None else tuple(x.clone() for x in st.cond)
+    p_ring, p_raster, p_vs = ring.clone(), raster.clone(), vs.clone()
+    p_spikes = torch.zeros((lanes, net.static.n), device=card)
+    coeffs = be.coba_coeffs(net.static) if coba else None
+    for i in range(12):
+        kernel(i)
+        ref.neuron_lanes_ref(pv, pu, pr, p_ring, [(t + i) % net.static.ring_len for t in st.t],
+                             is_gen, p.a, p.b, p.c, p.d, cols, p_spikes, gen_rows=gen[:, i],
+                             raster_rows=p_raster[:, i], v_rows=p_vs[:, i], cond=pc,
+                             coba=coeffs, dt=net.static.dt, substeps=net.static.substeps)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["izh4_update"] == 12
+    for a, b in ((kernel.v, pv), (kernel.u, pu), (kernel.refrac, pr), (ring, p_ring),
+                 (raster, p_raster), (vs, p_vs), (kernel.spikes, p_spikes),
+                 *zip(kernel.cond or (), pc or ())):
+        assert torch.equal(a, b)
+    for b in range(0, lanes, 5):
+        one = lane_state(st, b)
+        ring_b = ring0[b].clone()
+        solo_raster = torch.zeros((12, net.static.n), dtype=torch.bool, device=card)
+        solo = be.assemble_neurons(net.static, net.params, one.neurons, ring_b,
+                                   cond=one.cond, gen_spk=gen[b].contiguous(),
+                                   raster=solo_raster)
+        for i in range(12):
+            solo(i, st.t[b] + i)
+        for x, y in ((solo.v, kernel.v[b]), (solo.u, kernel.u[b]), (ring_b, ring[b]),
+                     (solo_raster, raster[b]),
+                     *zip(solo.cond or (), (c[b] for c in kernel.cond or ()))):
+            assert torch.equal(x, y), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_lane", [False, True], ids=["shared", "per-lane"])
+def test_gather_run_lanes_matches_one_lane(card, per_lane):
+    """B2 over 16 lanes on Synfire4's compiled tables with random f32
+    weights, shared or one table per lane: each lane bit for bit the
+    one-lane launcher on its spike row and weights; one launch."""
+    from repro_torch.configs.synfire4 import SYNFIRE4, build_synfire
+    from repro_torch.core import backend as be
+
+    net = build_synfire(SYNFIRE4, policy="fp16", propagation="sparse", device=card)
+    lanes = 16
+    g = torch.Generator().manual_seed(8)
+    lead = (lanes,) if per_lane else ()
+    packed = tuple(torch.randn((*lead, *w.shape), generator=g).to(card)
+                   for w in be.assemble_packed(net.static, net.state0.weights))
+    spikes = (torch.rand((lanes, net.static.n), generator=g) < 0.2).float().to(card)
+    run = be.assemble_gather(net.static, net.params, packed, lanes)
+    ops.reset_launches()
+    run(0, spikes)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["syn_gather"] == 1
+    for b in range(lanes):
+        one = be.assemble_gather(net.static, net.params,
+                                 tuple(w[b] for w in packed) if per_lane else packed)
+        one(0, spikes[b].contiguous())
+        assert torch.equal(one.rows, run.rows[b]), b
+
+
+LANE_MATMUL_SHAPES = [(200, 250), (50, 200), (1500, 96), (4096, 512), (7, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LANE_MATMUL_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("per_lane", [False, True], ids=["shared", "per-lane"])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.float16], ids=["f32", "fp16"])
+def test_matmul_run_lanes_matches_one_lane(card, shape, per_lane, wdtype):
+    """B3 over 37 lanes (rows a strided view of wider spike rows) on random
+    normal weights, shared or one image per lane, K below and above the
+    cluster split: each lane bit for bit the one-lane GEMV; on Synfire's
+    table bit for bit the plain lane version; one launch."""
+    k, n = shape
+    lanes = 37
+    g = torch.Generator().manual_seed(k * n)
+    lead = (lanes,) if per_lane else ()
+    w = torch.randn((*lead, k, n), generator=g).to(wdtype).to(card)
+    rows = torch.randn((lanes, k + 9), generator=g).to(card)
+    x = rows[:, 4:4 + k]
+    run = ops.MatmulRun([w], lanes)
+    ops.reset_launches()
+    got = run(0, x).clone()
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["syn_matmul"] == 1
+    for b in range(lanes):
+        one = ops.MatmulRun([w[b] if per_lane else w])
+        assert torch.equal(one(0, x[b].contiguous()), got[b]), b
+    wt = TABLE[torch.randint(0, 4, (*lead, k, n), generator=g)].to(wdtype).to(card)
+    xs = (torch.rand((lanes, k), generator=g) < 0.3).float().to(card)
+    assert torch.equal(ops.MatmulRun([wt], lanes)(0, xs), ref.syn_matmul_lanes_ref(xs, wt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("propagation", ["sparse", "packed"])
+def test_run_batch_lanes_equal_solo_runs(card, propagation):
+    """``run_batch(200, 64)`` on Synfire4 fp16: one ``izh4_update`` per tick
+    for all lanes and one ``syn_gather`` (sparse) or 8 ``syn_matmul``
+    (packed) per tick; lanes 0, 21 and 63 equal solo card runs on
+    ``split(key, 64)[b]`` in raster and state."""
+    from repro_torch.configs.synfire4 import SYNFIRE4, build_synfire
+    from repro_torch.core import lane_state, rng, run, run_batch
+
+    net = build_synfire(SYNFIRE4, policy="fp16", propagation=propagation, device=card,
+                        budget=None)
+    ops.reset_launches()
+    final, out = run_batch(net.static, net.params, net.state0, 200, 64)
+    torch.cuda.synchronize()
+    want = {"izh4_update": 200, "syn_gather": 200 if propagation == "sparse" else 0,
+            "syn_matmul": 0 if propagation == "sparse" else 1600}
+    assert {k: ops.LAUNCHES[k] for k in want} == want
+    keys = rng.split(net.state0.key, 64)
+    for b in (0, 21, 63):
+        solo, o = run(net.static, net.params, net.state0._replace(key=keys[b]), 200)
+        assert torch.equal(o["spikes"], out["spikes"][b]), b
+        lane = lane_state(final, b)
+        for x, y in ((lane.ring, solo.ring), (lane.key, solo.key),
+                     *zip(lane.neurons, solo.neurons)):
+            assert torch.equal(x, y), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("propagation", ["sparse", "packed"])
+def test_scheduler_lane_with_weights_of_its_own(card, propagation):
+    """A ``LaneScheduler`` on Synfire4-mini fp16 keeps its launchers across
+    chunks: a tenant admitted after the first chunk with weights of its
+    own (every weight x1.25) equals its solo card session, and so does the
+    tenant admitted into the lane it freed, on the net's weights."""
+    from repro_torch.configs.synfire4 import SYNFIRE4_MINI, build_synfire
+    from repro_torch.core import lane_state
+    from repro_torch.serve import LaneScheduler, Session
+
+    net = build_synfire(SYNFIRE4_MINI, policy="fp16", propagation=propagation, device=card)
+
+    def solo(seed, ticks, state=None):
+        sess = Session.create(net, seed=seed, state=state)
+        sess.run(ticks, record="none")
+        return sess.state
+
+    def same(a, b):
+        for x, y in ((a.ring, b.ring), *zip(a.neurons, b.neurons), *zip(a.weights, b.weights)):
+            assert torch.equal(x, y)
+        assert a.t == b.t
+
+    sched = LaneScheduler(net, capacity=4, record="none")
+    sched.admit("a", seed=1)
+    sched.step(30)
+    own = net.state0._replace(weights=tuple((w.float() * 1.25).to(w.dtype)
+                                            for w in net.state0.weights))
+    lane = sched.admit("b", seed=2, state=own)
+    sched.step(40)
+    same(lane_state(sched.states, lane), solo(2, 40, own))
+    sched.evict("b")
+    assert sched.admit("c", seed=3) == lane
+    sched.step(30)
+    same(lane_state(sched.states, sched.lane_of("a")), solo(1, 100))
+    same(lane_state(sched.states, lane), solo(3, 30))

@@ -46,7 +46,8 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.configs.minitron_8b, repro_torch.configs.stablelm_12b\n"
         "import repro_torch.models.layers, repro_torch.models.attention\n"
         "import repro_torch.models.transformer, repro_torch.models.tasks\n"
-        "import repro_torch.launch.serve\n"
+        "import repro_torch.launch.serve, repro_torch.core.lanes\n"
+        "import repro_torch.serve, repro_torch.serve.lifecycle, repro_torch.checkpoint.ckpt\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
     )
