@@ -43,7 +43,12 @@ Phases (each raises, and the script exits non-zero, on any failure):
    plain version tick by tick on the plastic Synfire4 packed chain
    fp16/fp32 and on a plan mixing [37, 113] f32 with [200, 200] fp16;
    a NaN weight through ``stdp_update`` and ``StdpUpdateRun`` (NaN inside
-   the mask, +0.0 outside, as the plain version).
+   the mask, +0.0 outside, as the plain version); the port's own
+   ``plastic_drive`` (``ops.DriveRun``: every plastic and STP projection's
+   fan-in drive in one launch, rows summed in XLA CPU's order) bit for bit
+   against its plain version on random off-grid weights on the plastic
+   Synfire4 chain fp16/fp32 x packed/sparse, plastic x10 sparse and an STP
+   net, beside ``embedding_bag`` with ``per_sample_weights``.
 3. Run Synfire4 for 1,000 ticks on the card in fp16/fp32 x packed/sparse
    through ``build_synfire`` and ``run``, on the default backend and on
    ``backend="fused"``, with the launch counters reset just before each
@@ -125,8 +130,24 @@ Phases (each raises, and the script exits non-zero, on any failure):
    ``restore_lane``; every moved tenant and 8 more equal solo sessions;
    µs per chunk of each scheduler against ``run_batch(100, 64)`` timed
    beside them, and the ledger's serve bytes. (d) Synfire4-mini fp16 at
-   512 lanes, one 100-tick chunk. (e) plastic Synfire4-mini at 8 lanes,
-   the lane-by-lane route, each lane equal to its solo session.
+   512 lanes, one 100-tick chunk. (e) plastic Synfire4-mini at 8 lanes in
+   a scheduler, batched (one ``izh4_update``, ``stdp_update`` and
+   ``plastic_drive`` per tick for all lanes), each lane equal to its solo
+   session, beside one solo session's chunk. (f) B4 (``FusedTickRun``),
+   B5 (``StdpGatherRun``), B6 (``StdpUpdateRun``) and the drive
+   (``DriveRun``) over 64 lanes of Synfire4 fp16 (the plastic chain for
+   B5, B6 and the drive; B4 on shared and per-lane tables), a third of the
+   lanes silent: bit for bit their plain lane versions and every lane its
+   one-lane launch, timed per call and on the device beside 64 one-lane
+   calls, the plain version, a byte bound and, for the drive,
+   ``embedding_bag``. (g) plastic ``run_batch(1000, 64)`` fp16, packed
+   with homeostasis every 100 ticks and sparse: one launch per kernel per
+   tick for every lane; 8 lanes, the first and last among them, equal
+   solo card runs in raster, weights, traces, rates and state; µs/tick,
+   lane-ticks per second against the solo run's ticks per second, device
+   events per tick and peak memory. (h) fused ``run_batch(1000, 64)``
+   packed and sparse: one ``fused_tick`` launch per tick and nothing else,
+   the same lanes equal solo fused runs.
 6. LM serving on the dense decoder (``repro_torch.launch.serve``): (a) the
    attention kernel ``flash_attention`` against its plain version on the
    card, at rtol = atol = 1e-5, at smollm-360m's prefill and decode shapes,
@@ -153,10 +174,8 @@ Phases (each raises, and the script exits non-zero, on any failure):
    against its per-call path, in turns; and, in turns with the same raster
    (and weights), the static fp16 sparse and packed ticks with and without
    ``ops.NeuronRun``, the plastic fp16 sparse tick with and without
-   ``ops.StdpGatherRun``, the plastic fp16 packed tick with and without
-   ``ops.StdpUpdateRun``, and with the launcher, the fan-in drive on its
-   zero-ended buffers against a copy with the zero appended each tick:
-   host us/tick and device events per tick.
+   ``ops.StdpGatherRun`` and the plastic fp16 packed tick with and without
+   ``ops.StdpUpdateRun``: host us/tick and device events per tick.
 
 The last lines are a JSON object of per-kernel numbers, a JSON object of
 per-path numbers, the card's name and power limit from nvidia-smi, and
@@ -285,6 +304,17 @@ def fused_bound(payload, spikes: torch.Tensor, n: int, state_bytes: int) -> tupl
     written), the descriptors, the dense rows of the pres that spiked, the
     CSR index tables and the CSR weights of spiking pres; one f32 add per
     weight added, about 31 operations per neuron for IZH4."""
+    return bound(*_fused_work(payload, spikes, n, state_bytes))
+
+
+def _fused_shared_bytes(payload, n: int) -> int:
+    """What the lanes of a fused tick share, read once for all of them:
+    a-d, is_gen, the descriptors and the CSR index tables."""
+    return 17 * n + nbytes(payload.desc) + sum(nbytes(idx) for _, _, idx, _ in payload.csr)
+
+
+def _fused_work(payload, spikes: torch.Tensor, n: int, state_bytes: int) -> tuple[int, int]:
+    """:func:`fused_bound`'s bytes and operations."""
     sp = spikes.to(torch.int64).cpu()
     k = len(payload.delays)
     moved = (4 * n * state_bytes + 3 * n + 16 * n + 4 * n
@@ -298,7 +328,7 @@ def fused_bound(payload, spikes: torch.Tensor, n: int, state_bytes: int) -> tupl
         hits = int(sp[idx.long().cpu()].sum())
         moved += nbytes(idx) + hits * 4
         adds += hits
-    return bound(moved, adds + 31 * n)
+    return moved, adds + 31 * n
 
 
 def phase_build() -> dict:
@@ -746,6 +776,7 @@ def phase_kernels(dev) -> tuple[list[dict], dict]:
     fused_row["bad_input"] = _fused_bad_input(dev)
     rows.append(fused_row)
     rows += _check_stdp(dev, g)
+    rows.append(_check_drive(dev, g))
     for r in rows:
         lib = "-" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.2f} us"
         if r.get("library_device_ms") is not None:
@@ -1134,6 +1165,150 @@ def _check_stdp(dev, g) -> list[dict]:
     return rows
 
 
+def _drive_case(net, g, dev, lanes=None):
+    """The plastic and STP projections of ``net`` as ``DriveProjection`` s
+    landing in random f32 accumulator entries ``[(B,) N]`` (``acc``), with
+    random off-grid weights in [0, 3) and STP state in [0, 1) (each lane
+    its own over ``lanes``): ``(projs, acc, weights, stp, keys)``;
+    ``projs_on(out)`` rebuilds the projections onto another accumulator."""
+    from repro_torch.core import backend as be
+    from repro_torch.kernels.plastic_drive import DriveProjection
+
+    lead = () if lanes is None else (lanes,)
+    fanin = be.assemble_fanin(net.static, net.params)
+    keys = [j for j, s in enumerate(net.static.projections) if s.plastic or s.stp is not None]
+    acc = torch.rand((*lead, net.static.n), generator=g).to(dev)
+    weights, stp, fields = [], [], []
+    for j in keys:
+        spec, fr = net.static.projections[j], fanin[j]
+        w0 = net.state0.weights[j]
+        weights.append((torch.rand((*lead, *w0.shape), generator=g) * 3).to(w0.dtype).to(dev))
+        st = None
+        if spec.stp is not None:
+            u0 = net.state0.stp[j].u
+            st = tuple(torch.rand((*lead, *u0.shape), generator=g).to(u0.dtype).to(dev)
+                       for _ in range(2))
+        stp.append(st)
+        fields.append((slice(spec.post_start, spec.post_start + spec.post_size), dict(
+            pre=fr.pre, rows=fr.rows, w_dtype=w0.dtype, stp=spec.stp is not None,
+            pre_start=spec.pre_start, n_pre=spec.pre_size,
+            stp_dtype=st[0].dtype if st else torch.float32,
+            sentinel=spec.pre_size * spec.post_size if fr.rows is not None else -1)))
+
+    def projs_on(out):
+        return [DriveProjection(out=out[..., cols], **kw) for cols, kw in fields]
+
+    return projs_on, acc, weights, stp, keys
+
+
+def _drive_bound(projs, weights, stp, n: int, lanes: int = 1) -> tuple[float, str, int]:
+    """The drive's least work: the pre ids (int32) and, dense, flat rows,
+    shared by the lanes; each lane's weights, STP state, spike row and
+    accumulator entries (read and written); a multiply and an add per
+    fan-in entry of every lane."""
+    moved, ops_ = lanes * n * 4, 0
+    for p, w, st in zip(projs, weights, stp):
+        q, f = p.pre.shape
+        moved += q * f * 4 * (1 if p.rows is None else 2) + nbytes(w) + lanes * 2 * q * 4
+        moved += 0 if st is None else nbytes(*st)
+        ops_ += 2 * q * f * lanes
+    b_ms, b_by = bound(moved, ops_)
+    return b_ms, b_by, moved
+
+
+def _drive_library(projs, weights, spikes, dev):
+    """One ``embedding_bag(mode="sum", per_sample_weights=...)`` call over
+    every projection's rows (of every lane), the spike rows with a zero
+    appended as its table: the same sums in the library's order, no
+    landing (CSR-stored projections only: a dense one's row gather is no
+    part of the call). Returns the call, or None where a projection is
+    dense-stored or scaled by STP."""
+    if any(p.rows is not None or p.stp for p in projs):
+        return None
+    lanes = spikes.shape[0] if spikes.dim() == 2 else 1
+    n1 = spikes.shape[-1] + 1
+    table = torch.nn.functional.pad(spikes.reshape(lanes, -1), (0, 1)).reshape(-1, 1)
+    idx, psw, offs, at = [], [], [], 0
+    for p, w in zip(projs, weights):
+        q, f = p.pre.shape
+        lane_ids = torch.arange(lanes, device=dev).view(-1, 1, 1) * n1
+        idx.append((p.pre.long()[None] + lane_ids).reshape(-1))
+        psw.append(w.float().reshape(-1))
+        offs.append(torch.arange(lanes * q, device=dev) * f + at)
+        at += lanes * q * f
+    idx, psw, offs = torch.cat(idx), torch.cat(psw), torch.cat(offs)
+    return lambda: torch.nn.functional.embedding_bag(idx, table, offs, mode="sum",
+                                                     per_sample_weights=psw)
+
+
+def _check_drive(dev, g) -> dict:
+    """``plastic_drive`` (the port's own kernel: the reference's drive is
+    XLA, ``src/repro/core/backend.py:161``) against its plain version on
+    the card, bit for bit (both sum each row in XLA CPU's order), on random
+    off-grid weights: the plastic Synfire4 chain fp16/fp32 x packed/sparse,
+    plastic x10 sparse (fan-in rows wider than 32) and an STP net; its row
+    at the plastic Synfire4 fp16 sparse tick (four chain projections, one
+    launch), beside ``embedding_bag`` over the same rows."""
+    from repro_torch.configs.synfire4 import CHAIN_STDP, SYNFIRE4, SYNFIRE4_X10, build_synfire
+    from repro_torch.core import NetworkBuilder, izh4
+    from repro_torch.core.synapses import STPConfig
+    from repro_torch.kernels import ops, ref
+
+    nets = []
+    for cfg, policy, propagation in ((SYNFIRE4, "fp16", "packed"), (SYNFIRE4, "fp32", "packed"),
+                                     (SYNFIRE4, "fp16", "sparse"), (SYNFIRE4, "fp32", "sparse"),
+                                     (SYNFIRE4_X10, "fp16", "sparse")):
+        nets.append((f"{cfg.name} {policy}/{propagation}", build_synfire(
+            cfg, policy=policy, propagation=propagation, stdp_chain=CHAIN_STDP, device=dev,
+            budget=None, monitor_ms_hint=0)))
+    b_ = NetworkBuilder(seed=0)
+    b_.add_spike_generator("g", 50, rate_hz=200.0)
+    b_.add_group("n", izh4(20, a=0.02, b=0.2, c=-65.0, d=8.0))
+    b_.connect("g", "n", fanin=20, weight=0.3, delay_ms=1,
+               stp=STPConfig(u0=0.45, tau_f=50.0, tau_d=750.0))
+    nets.append(("STP net fp16", b_.compile(policy="fp16", device=dev)))
+    err = 0.0
+    for what, net in nets:
+        projs_on, acc, weights, stp, _ = _drive_case(net, g, dev)
+        plain_acc = acc.clone()
+        run = ops.DriveRun(net.static.n, projs_on(acc))
+        plain = projs_on(plain_acc)
+        require(run.launcher is not None, f"plastic_drive {what}: no launcher on the card")
+        for t in range(3):
+            spikes = (torch.rand(net.static.n, generator=g) < 0.3).float().to(dev)
+            ops.reset_launches()
+            run(spikes, weights, stp)
+            ref.drive_run_ref(spikes, plain, weights, stp)
+            torch.cuda.synchronize()
+            require(ops.LAUNCHES["plastic_drive"] == 1, f"plastic_drive {what}: launches")
+            _require_bitwise(acc, plain_acc, f"plastic_drive {what} tick {t}")
+        f_max = max(p.pre.shape[1] for p in plain)
+        log(f"[kernels] plastic_drive {what}: {len(plain)} projections (F up to {f_max}), "
+            "3 ticks bitwise against its plain version (XLA CPU's row order)")
+    net = nets[2][1]
+    projs_on, acc, weights, stp, _ = _drive_case(net, g, dev)
+    projs = projs_on(acc)
+    run = ops.DriveRun(net.static.n, projs)
+    spikes = (torch.rand(net.static.n, generator=g) < 0.3).float().to(dev)
+    plain = projs_on(acc.clone())
+    b_ms, b_by, moved = _drive_bound(projs, weights, stp, net.static.n)
+    lib = _drive_library(projs, weights, spikes, dev)
+    call = lambda: run(spikes, weights, stp)  # noqa: E731
+    return {"name": "plastic_drive", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/plastic_drive.cu",
+            "replaces": "none: the port's own kernel (the reference's drive is XLA, "
+                        "src/repro/core/backend.py:161)",
+            "max_abs_err": err,
+            "shape": f"plastic Synfire4 sparse fp16 tick: {len(projs)} chain projections "
+                     f"(Q x F {sorted({tuple(p.pre.shape) for p in projs})}), one launch",
+            "ms": cuda_ms(call), "device_ms": device_ms(call, "plastic_drive_kernel"),
+            "plain_ms": cuda_ms(lambda: ref.drive_run_ref(spikes, plain, weights, stp),
+                                reps=20, warmup=2),
+            "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": moved,
+            "library_ms": cuda_ms(lib), "library_device_ms": device_total_ms(lib),
+            "library": "embedding_bag(mode='sum', per_sample_weights) over the same rows"}
+
+
 STDP_TICKS = 10  # chained ticks per StdpGatherRun and StdpUpdateRun case
 
 
@@ -1501,7 +1676,8 @@ def _card_and_cpu_rasters(cfg, policy, propagation, gen_u, dev, **build_kw):
     return out
 
 
-NOT_ON_PATH = {"stdp_update": 0, "stdp_gather": 0, "flash_attention": 0}  # of a static tick
+NOT_ON_PATH = {"stdp_update": 0, "stdp_gather": 0, "plastic_drive": 0,
+               "flash_attention": 0}  # of a static tick
 
 
 def _fused_launches(ticks: int) -> dict:
@@ -1808,7 +1984,7 @@ def _plastic_launches(net, ticks: int) -> dict:
     return {"izh4_update": ticks, "syn_matmul": kinds.count("dense") * ticks,
             "syn_gather": ticks if "sparse" in kinds else 0, "fused_tick": 0,
             "stdp_update": ticks if chain - csr else 0, "stdp_gather": ticks if csr else 0,
-            "flash_attention": 0}
+            "plastic_drive": ticks, "flash_attention": 0}
 
 
 def phase_plastic(dev, totals: dict) -> dict:
@@ -2694,18 +2870,18 @@ def phase_lane_kernels(dev, rows: list) -> None:
                     "lanes"] = syn
 
 
-def _loop_events(fn, ticks: int) -> tuple[float, float]:
+def _loop_events(fn, ticks: int, marker: str = "izh4_run_kernel") -> tuple[float, float]:
     """Device events per tick of ``fn`` (a ``ticks``-tick run) under
     ``torch.profiler``: all of them (set-up included) over ``ticks``, and
-    those from the first ``izh4_run_kernel`` launch to the last over the
-    ticks between them (the tick loop alone)."""
+    those from the first launch of the once-a-tick kernel ``marker`` to
+    the last over the ticks between them (the tick loop alone)."""
     for attempt in range(PROFILE_TRIES):
         events = sorted(_cuda_events(fn, 1), key=lambda e: e.time_range.start)
-        ticks_at = [i for i, e in enumerate(events) if "izh4_run_kernel" in e.name]
+        ticks_at = [i for i, e in enumerate(events) if marker in e.name]
         if len(ticks_at) == ticks:
             return len(events) / ticks, (ticks_at[-1] - ticks_at[0]) / (ticks - 1)
         log(f"[profile] trace {attempt + 1} held {len(ticks_at)} of {ticks} "
-            "izh4_run_kernel launches; tracing again")
+            f"{marker} launches; tracing again")
     return len(events) / ticks, None
 
 
@@ -2920,10 +3096,12 @@ def _mini_512_path(dev, totals: dict) -> dict:
 
 
 def _plastic_lanes_path(dev, totals: dict) -> dict:
-    """Phase 8e: plastic Synfire4-mini fp16 (``CHAIN_STDP``) at capacity 8,
-    the lane-by-lane route, 100 ticks: each lane on its own launchers
-    (8 ``izh4_update`` per tick) and equal to its solo session, weights and
-    traces included."""
+    """Phase 8e: plastic Synfire4-mini fp16 (``CHAIN_STDP``) at capacity 8
+    in a ``LaneScheduler``, the batched route: one chunk of 100 ticks
+    after a warm-up chunk, one launch per kernel per tick for every lane
+    (``izh4_update``, ``stdp_update``, ``plastic_drive``); every lane equal
+    to its solo session, weights and traces included; beside one solo
+    session's chunk of 100 ticks, timed in the same phase."""
     import zlib
 
     from repro_torch.configs.synfire4 import CHAIN_STDP, SYNFIRE4_MINI, build_synfire
@@ -2931,13 +3109,15 @@ def _plastic_lanes_path(dev, totals: dict) -> dict:
     from repro_torch.core.engine import batched_route
     from repro_torch.core.lanes import lane_state
     from repro_torch.kernels import ops
-    from repro_torch.serve import LaneScheduler
+    from repro_torch.serve import LaneScheduler, Session
 
     net = build_synfire(SYNFIRE4_MINI, policy="fp16", device=dev, stdp_chain=CHAIN_STDP)
-    require(not batched_route(net.static), "plastic mini takes the batched route")
+    require(batched_route(net.static), "plastic mini takes the lane-by-lane route")
     sched = LaneScheduler(net, 8, record="none")
     for i in range(8):
         sched.admit(f"p{i}")
+    sched.step(100)
+    torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
     sched.step(100)
@@ -2945,34 +3125,406 @@ def _plastic_lanes_path(dev, totals: dict) -> dict:
     seconds = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     _add(totals, launches)
-    require(launches["izh4_update"] == 800 and launches["stdp_update"] == 800,
-            f"plastic lanes launches {launches}")
+    want = _plastic_launches(net, 100)
+    require(launches == want, f"plastic lanes launches {launches} != {want}")
     chain = _chain(net)
     for lane in range(8):
-        want = _solo_session(net, rng.key(zlib.crc32(f"p{lane}".encode()), dev), 100)
-        _require_same_state(lane_state(sched.states, lane), want, f"plastic lane {lane}",
+        want_state = _solo_session(net, rng.key(zlib.crc32(f"p{lane}".encode()), dev), 200)
+        _require_same_state(lane_state(sched.states, lane), want_state, f"plastic lane {lane}",
                             plastic=chain)
-    log(f"[lanes] plastic Synfire4-mini, 8 lanes lane by lane: {seconds * 1e6:.0f} us per "
-        f"100-tick chunk, launches {launches}; every lane == its solo session (weights "
-        "and traces)")
-    return {"us_per_chunk": seconds * 1e6, "launches": launches}
+    sess = Session.create(net, seed=3)
+    sess.run(100, record="none")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess.run(100, record="none")
+    torch.cuda.synchronize()
+    solo_s = time.perf_counter() - t0
+    log(f"[lanes] plastic Synfire4-mini, 8 lanes batched: {seconds * 1e6:.0f} us per "
+        f"100-tick chunk (one solo session's chunk {solo_s * 1e6:.0f} us, ratio "
+        f"{seconds / solo_s:.2f}), launches {launches}; every lane == its solo session "
+        "(weights and traces)")
+    return {"us_per_chunk": seconds * 1e6, "solo_us_per_chunk": solo_s * 1e6,
+            "chunk_over_solo": seconds / solo_s, "lane_ticks_per_s": 800 / seconds,
+            "launches": launches}
+
+
+# -- phase 8f-8h: B4, B5, B6 and the drive over lanes ------------------------------
+
+
+def _lane_plastic_tables(net, g, dev):
+    """Each of the 64 lanes' own random chain weights (in [0, 4) on valid
+    cells) and traces (in [0, 3))."""
+    from repro_torch.core.plasticity import STDPState
+
+    weights, stdp = list(net.state0.weights), list(net.state0.stdp)
+    for j in _chain(net):
+        valid, w = net.params.masks[j], weights[j]
+        weights[j] = torch.where(valid.cpu(), torch.rand((LANES, *w.shape), generator=g) * 4,
+                                 0.0).to(w.dtype).to(dev)
+        stdp[j] = STDPState(*(torch.rand((LANES, x.shape[-1]), generator=g).mul(3).to(dev)
+                              for x in (stdp[j].pre_trace, stdp[j].post_trace)))
+    return tuple(weights), tuple(stdp)
+
+
+def _lane_spike_rows(g, n: int, dev) -> torch.Tensor:
+    """Random 0/1 f32 spike rows of the 64 lanes, a third of them silent."""
+    s = (torch.rand((LANES, n), generator=g) < 0.3).float()
+    s[2::3] = 0.0
+    return s.to(dev)
+
+
+def _hold_stdp_lanes(net, g, dev, what: str) -> dict:
+    """B6 (``StdpUpdateRun``, packed) or B5 (``StdpGatherRun``, sparse) over
+    64 lanes of the plastic chain, each lane its own random weights and
+    traces, a third of the lanes silent: bit for bit its plain lane version
+    after every tick and every lane its one-lane launch, one launch a tick;
+    timed per call and on the device beside 64 one-lane calls and the plain
+    version. The bound: 64 lanes' weights read and written and traces read
+    and written, the mask or index and validity rows once, 7 operations
+    per cell and 2 per trace of every lane."""
+    from repro_torch.core import backend as be
+    from repro_torch.kernels import ops, ref
+
+    static, params = net.static, net.params
+    packed = static.propagation == "packed"
+    build = be.assemble_stdp_update if packed else be.assemble_stdp_gather
+    plain_fn = ref.stdp_update_lanes_ref if packed else ref.stdp_gather_lanes_ref
+    name, kernel = (("stdp_update", "stdp_update_run_kernel") if packed
+                    else ("stdp_gather", "stdp_run_kernel"))
+    weights, stdp = _lane_plastic_tables(net, g, dev)
+    chain = set(_chain(net))
+
+    def lane(b):
+        return (tuple(w[b] if j in chain else w for j, w in enumerate(weights)),
+                tuple(s if j not in chain else type(s)(*(x[b] for x in s))
+                      for j, s in enumerate(stdp)))
+
+    runs = build(static, params, weights, stdp, LANES)
+    plain = build(static, params, weights, stdp, LANES)
+    ones = [build(static, params, *lane(b)) for b in range(LANES)]
+    require(runs.launcher is not None, f"{name} lanes {what}: no launcher on the card")
+    ops.reset_launches()
+    for t in range(STDP_TICKS):
+        spikes = _lane_spike_rows(g, static.n, dev)
+        runs(spikes)
+        plain_fn(spikes, plain.projs, t % 2)
+        for b, one in enumerate(ones):
+            one(spikes[b])
+        torch.cuda.synchronize()
+        for k in range(len(runs.keys)):
+            p, q = runs.projs[k], plain.projs[k]
+            pre_t, post_t = runs.traces(k)
+            for part, x, y in (("weights", p.w, q.w), ("pre trace", pre_t, q.pre_tr[1 - t % 2]),
+                               ("post trace", post_t, q.post_tr[1 - t % 2])):
+                _require_bitwise(x, y, f"{name} lanes {what} tick {t} proj {k} {part}")
+    require(ops.LAUNCHES[name] == STDP_TICKS * (1 + LANES),
+            f"{name} lanes {what}: {ops.LAUNCHES[name]} launches")
+    for b, one in enumerate(ones):
+        for k in range(len(runs.keys)):
+            _require_bitwise(runs.projs[k].w[b], one.projs[k].w,
+                             f"{name} lanes {what} lane {b} vs one lane, proj {k}")
+    log(f"[lanes] {name} {what}: 64 lanes x {len(runs.keys)} projections x {STDP_TICKS} "
+        "ticks bitwise against the plain lane version and the one-lane launch on every lane")
+    spikes = _lane_spike_rows(g, static.n, dev)
+    moved = ops_ = 0
+    for p in runs.projs:
+        cells = p.w.shape[-2] * p.w.shape[-1]
+        n_tr = p.pre_tr[0].shape[-1] + p.post_tr[0].shape[-1]
+        shared = nbytes(p.mask) if packed else nbytes(p.idx, p.valid)
+        moved += 2 * LANES * cells * p.w.element_size() + shared + 3 * 4 * n_tr * LANES
+        ops_ += LANES * (7 * cells + 2 * n_tr)
+    b_ms, b_by = bound(moved, ops_)
+    return {"shape": f"plastic Synfire4 {static.propagation} fp16 tick over 64 lanes: "
+                     f"{len(runs.keys)} chain projections, one launch",
+            "ms": cuda_ms(lambda: runs(spikes)),
+            "device_ms": device_ms(lambda: runs(spikes), kernel),
+            "one_lane_x64_ms": cuda_ms(lambda: [one(spikes[b]) for b, one in enumerate(ones)],
+                                       reps=20, warmup=2),
+            "plain_ms": cuda_ms(lambda: plain_fn(spikes, plain.projs, 0), reps=3, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": moved, "library_ms": None}
+
+
+def _hold_drive_lanes(net, g, dev, what: str) -> dict:
+    """The drive over 64 lanes of the plastic chain, each lane its own
+    random off-grid weights, a third silent: bit for bit its plain version
+    on the card and every lane its one-lane launch; timed per call and on
+    the device beside 64 one-lane calls, the plain version and, for
+    CSR-stored rows, ``embedding_bag`` over the same rows of every lane."""
+    from repro_torch.kernels import ops, ref
+
+    n = net.static.n
+    projs_on, acc, weights, stp, _ = _drive_case(net, g, dev, LANES)
+    plain_acc, one_acc = acc.clone(), acc.clone()
+    projs = projs_on(acc)
+    run = ops.DriveRun(n, projs, lanes=LANES)
+    plain = projs_on(plain_acc)
+    ones = [ops.DriveRun(n, projs_on(one_acc[b])) for b in range(LANES)]
+    lane_in = [([w[b] for w in weights],
+                [None if s is None else (s[0][b], s[1][b]) for s in stp])
+               for b in range(LANES)]
+    ops.reset_launches()
+    for t in range(3):
+        spikes = _lane_spike_rows(g, n, dev)
+        run(spikes, weights, stp)
+        ref.drive_run_ref(spikes, plain, weights, stp)
+        for b, one in enumerate(ones):
+            one(spikes[b], *lane_in[b])
+        torch.cuda.synchronize()
+        _require_bitwise(acc, plain_acc, f"plastic_drive lanes {what} tick {t}")
+        _require_bitwise(acc, one_acc, f"plastic_drive lanes {what} tick {t} vs one lane")
+    require(ops.LAUNCHES["plastic_drive"] == 3 * (1 + LANES), "plastic_drive lanes launches")
+    log(f"[lanes] plastic_drive {what}: 64 lanes x {len(projs)} projections x 3 ticks "
+        "bitwise against the plain version and the one-lane launch on every lane")
+    spikes = _lane_spike_rows(g, n, dev)
+    b_ms, b_by, moved = _drive_bound(projs, weights, stp, n, LANES)
+    lib = _drive_library(projs, weights, spikes, dev)
+    call = lambda: run(spikes, weights, stp)  # noqa: E731
+    return {"shape": f"plastic Synfire4 {net.static.propagation} fp16 tick over 64 lanes: "
+                     f"{len(projs)} chain projections, one launch",
+            "ms": cuda_ms(call), "device_ms": device_ms(call, "plastic_drive_kernel"),
+            "one_lane_x64_ms": cuda_ms(lambda: [one(spikes[b], *lane_in[b])
+                                                for b, one in enumerate(ones)],
+                                       reps=20, warmup=2),
+            "plain_ms": cuda_ms(lambda: ref.drive_run_ref(spikes, plain, weights, stp),
+                                reps=5, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": moved,
+            "library_ms": None if lib is None else cuda_ms(lib),
+            "library_device_ms": None if lib is None else device_total_ms(lib)}
+
+
+def _hold_fused_lanes(net, g, dev, what: str) -> dict:
+    """B4 (``FusedTickRun`` over lanes) on 64 lanes of Synfire4 fp16 at
+    their own ring slots (random v, u, ring and generator rows, a third of
+    the lanes silent), on per-lane tables (each lane's Synfire table times
+    a power of two, so every sum stays exact) and on the shared payload
+    ``run_batch`` uses: bit for bit its plain lane version and the one-lane
+    launch on every lane over 12 chained ticks, one launch a tick; timed
+    (shared payload) per tick and on the device beside 64 one-lane ticks
+    and the plain version. The bound is the sum of each lane's one-lane
+    fused bound on its last tick's spikes, the tables the lanes share
+    (a-d, is_gen, descriptors, CSR indices) counted once."""
+    from repro_torch.core import backend as be
+    from repro_torch.core.neurons import NeuronModel
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fused_tick import assemble_kernel
+
+    static, params = net.static, net.params
+    n, ticks, L = static.n, CHAINED, static.ring_len
+    p = params.neuron
+    is_gen = p.model == NeuronModel.GENERATOR
+    dtype = net.state0.neurons.v.dtype
+    base = be.assemble_packed(static, net.state0.weights)
+    scale = (2.0 ** torch.randint(-2, 3, (LANES,), generator=g)).to(dev)
+    t0 = _lane_t0()
+    out = {}
+    for label, packed in (("per-lane", tuple(w[None] * scale.view(-1, *[1] * w.dim())
+                                             for w in base)), ("shared", base)):
+        payload = assemble_kernel(static, params, packed)
+        v = (torch.rand((LANES, n), generator=g) * 100 - 75).to(dtype).to(dev)
+        u = (torch.rand((LANES, n), generator=g) * 10 - 15).to(dtype).to(dev)
+        ring = (torch.rand((LANES, L, n), generator=g) * 10).to(dtype).to(dev)
+        rows = torch.rand((LANES, ticks, n), generator=g) < 0.2
+        rows[2::3] = False
+        rows = rows.to(dev)
+        state = [x.clone() for x in (v, u, ring, rows)]
+        plain = [x.clone() for x in (v, u, ring, rows)]
+        runs = ops.FusedTickRun(payload, *state[:3], is_gen, p.a, p.b, p.c, p.d, state[3],
+                                t0=t0)
+        require(runs.launcher is not None, f"fused_tick lanes {what}: no launcher")
+        ops.reset_launches()
+        for i in range(ticks):
+            runs.tick(i)
+            pv, pu, pring, prows = plain
+            v2, u2, sp, ring2, _ = ref.fused_tick_lanes_ref(
+                pv, pu, pring, prows[:, i], is_gen, p.a, p.b, p.c, p.d,
+                [t + i for t in t0], dense=payload.dense, csr=payload.csr, ring_len=L)
+            pv.copy_(v2)
+            pu.copy_(u2)
+            pring.copy_(ring2)
+            prows[:, i] = sp
+            torch.cuda.synchronize()
+            for part, x, y in zip(("v", "u", "ring", "rows"), state, plain):
+                _require_bitwise(x, y, f"fused_tick lanes {what} {label} tick {i} {part}")
+        require(ops.LAUNCHES["fused_tick"] == ticks, f"fused_tick lanes {what}: launches")
+        solos = []
+        for b in range(LANES):
+            one = payload if label == "shared" else assemble_kernel(
+                static, params, tuple(w[b] for w in packed))
+            mine = [x[b].clone() for x in (v, u, ring, rows)]
+            solo = ops.FusedTickRun(one, *mine[:3], is_gen, p.a, p.b, p.c, p.d, mine[3])
+            for i in range(ticks):
+                solo.tick(i, t0[b] + i)
+            torch.cuda.synchronize()
+            for part, x, y in zip(("v", "u", "ring", "rows"), mine, state):
+                _require_bitwise(x, y[b], f"fused_tick lanes {what} {label} lane {b} vs "
+                                 f"one lane: {part}")
+            solos.append((solo, t0[b]))
+        fired = int(state[3][:, :, ~is_gen].sum())
+        require(fired > 0, f"fused_tick lanes {what}: no neuron spiked")
+        log(f"[lanes] fused_tick {what} ({label} weights): 64 lanes (slots over all {L}, a "
+            f"third silent) x {ticks} ticks bitwise against the plain lane version and the "
+            f"one-lane launch on every lane; {fired} neuron spikes; grid "
+            f"{getattr(runs.launcher, 'grid', None)} CTAs")
+        out[label] = (runs, solos, payload, state)
+    runs, solos, payload, state = out["shared"]
+    counter = iter(range(10**9))
+
+    def tick():
+        runs.tick(next(counter) % ticks)
+
+    def one_lane_ticks():
+        i = next(counter) % ticks
+        for solo, t in solos:
+            solo.tick(i, t + i)
+
+    pv, pu, pring, prows = (x.clone() for x in state)
+    plain_tick = lambda: ref.fused_tick_lanes_ref(  # noqa: E731
+        pv, pu, pring, prows[:, 0], is_gen, p.a, p.b, p.c, p.d, list(t0),
+        dense=payload.dense, csr=payload.csr, ring_len=L)
+    moved = ops_ = 0
+    for b in range(LANES):
+        lane_bytes, lane_ops = _fused_work(payload, state[3][b, -1], n, state[0].element_size())
+        moved += lane_bytes
+        ops_ += lane_ops
+    moved -= (LANES - 1) * _fused_shared_bytes(payload, n)
+    b_ms, b_by = bound(moved, ops_)
+    grid = getattr(runs.launcher, "grid", None)
+    return {"shape": f"{what} tick over 64 lanes (shared weights, as run_batch), one "
+                     f"launch on {grid} CTAs",
+            "ms": cuda_ms(tick), "device_ms": device_ms(tick, "fused_tick_kernel"),
+            "one_lane_x64_ms": cuda_ms(one_lane_ticks, reps=10, warmup=2),
+            "plain_ms": cuda_ms(plain_tick, reps=2, warmup=1), "bound_ms": b_ms,
+            "bound_by": b_by, "bound_bytes": moved, "library_ms": None, "grid": grid}
+
+
+def phase_plastic_lane_kernels(dev, rows: list) -> None:
+    """Phase 8f: B4, B5, B6 and the drive over 64 lanes of Synfire4 fp16
+    (plastic chain for B5, B6 and the drive) against their plain versions
+    and the one-lane launches; their numbers join the kernel rows under
+    ``lanes`` (the sparse tick's for B4 and the drive)."""
+    from repro_torch.configs.synfire4 import CHAIN_STDP, SYNFIRE4, build_synfire
+
+    g = torch.Generator(device="cpu").manual_seed(81)
+    by_name = {r["name"]: r for r in rows}
+    for propagation in ("packed", "sparse"):
+        net = build_synfire(SYNFIRE4, policy="fp16", propagation=propagation, device=dev,
+                            stdp_chain=CHAIN_STDP, budget=None)
+        what = f"SYNFIRE4 fp16/{propagation}"
+        by_name["stdp_update" if propagation == "packed" else "stdp_gather"]["lanes"] = (
+            _hold_stdp_lanes(net, g, dev, what))
+        drive = _hold_drive_lanes(net, g, dev, what)
+        fused = build_synfire(SYNFIRE4, policy="fp16", propagation=propagation, device=dev,
+                              backend="fused", budget=None)
+        tick = _hold_fused_lanes(fused, g, dev, f"SYNFIRE4 fp16/{propagation} fused")
+        if propagation == "sparse":
+            by_name["plastic_drive"]["lanes"] = drive
+            by_name["fused_tick"]["lanes"] = tick
+
+
+def _require_plastic_lane(final, out, b, solo, solo_out, net, what):
+    """Lane ``b`` equals the solo run: raster, state, and the chain's
+    weights, traces and homeostasis rates."""
+    from repro_torch.core.lanes import lane_state
+
+    _require_lane_equals(final, out, b, solo, solo_out, what)
+    lane = lane_state(final, b)
+    _require_same_state(lane, solo, f"{what} lane {b}", plastic=_chain(net))
+    for j, h in enumerate(lane.homeo):
+        if h is not None:
+            _require_bitwise(h, solo.homeo[j], f"{what} lane {b} homeostasis rates {j}")
+
+
+def _widened_run_batch_path(dev, propagation: str, totals: dict, *, plastic: bool,
+                            homeo: bool = False) -> dict:
+    """Phase 8g (``plastic``: plastic Synfire4 fp16, ``CHAIN_STDP``, with
+    homeostasis every 100 ticks where ``homeo``) and 8h (fused Synfire4
+    fp16): ``run_batch(1000, 64)`` (``budget=None``), one launch per kernel
+    per tick for every lane; 8 lanes, the first and last among them, equal
+    solo card runs in raster, weights, traces, rates and state. Wall
+    µs/tick beside one solo run's, lane-ticks per second, device events
+    per tick and peak device memory."""
+    from repro_torch.configs.synfire4 import CHAIN_STDP, SYNFIRE4, build_synfire
+    from repro_torch.core import rng, run, run_batch
+    from repro_torch.core.plasticity import HomeostasisConfig
+    from repro_torch.kernels import ops
+
+    kw = dict(stdp_chain=CHAIN_STDP) if plastic else dict(backend="fused")
+    if homeo:
+        kw.update(homeo_chain=HomeostasisConfig(**HOMEO), homeostasis_period=100)
+    net = build_synfire(SYNFIRE4, policy="fp16", propagation=propagation, device=dev,
+                        budget=None, **kw)
+    static, params, state0 = net.static, net.params, net.state0
+    what = (f"{'plastic' if plastic else 'fused'} run_batch {propagation}"
+            + (" homeostasis" if homeo else ""))
+    short = 100 if homeo else 20
+    run_batch(static, params, state0, short, LANES)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    final, out = run_batch(static, params, state0, TICKS, LANES)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    _add(totals, launches)
+    want = _plastic_launches(net, TICKS) if plastic else _fused_launches(TICKS)
+    require(launches == want, f"{what}: launches {launches} != {want}")
+    counts = out["spikes"].sum(dim=(1, 2)).cpu()
+    require(bool((counts > 0).all()), f"{what}: a lane never spiked")
+    keys = rng.split(state0.key, LANES)
+    solo_s = None
+    for b in LANE_SAMPLE:
+        t1 = time.perf_counter()
+        solo, solo_out = run(static, params, state0._replace(key=keys[b]), TICKS)
+        torch.cuda.synchronize()
+        solo_s = time.perf_counter() - t1
+        _require_plastic_lane(final, out, b, solo, solo_out, net, what)
+    events, in_loop = _loop_events(lambda: run_batch(static, params, state0, short, LANES),
+                                   short, "izh4_run_kernel" if plastic else "fused_tick_kernel")
+    res = {"us_per_tick": seconds / TICKS * 1e6, "solo_us_per_tick": solo_s / TICKS * 1e6,
+           "lane_ticks_per_s": LANES * TICKS / seconds, "solo_ticks_per_s": TICKS / solo_s,
+           "lane_ticks_over_solo": LANES * solo_s / seconds,
+           "device_events_per_tick": events, "device_events_per_tick_in_loop": in_loop,
+           "peak_device_bytes": peak, "spikes_min": int(counts.min()),
+           "spikes_max": int(counts.max()), "launches": launches,
+           "lanes_equal_solo": list(LANE_SAMPLE)}
+    log(f"[lanes] {what} (1000, 64) Synfire4 fp16: {res['us_per_tick']:.1f} us/tick "
+        f"({res['lane_ticks_per_s']:.0f} lane-ticks/s, {res['lane_ticks_over_solo']:.1f}x "
+        f"the solo run's {res['solo_ticks_per_s']:.0f} ticks/s), {events:.2f} device events "
+        f"per tick ({in_loop} in the tick loop), peak {peak} B, lane spikes "
+        f"{res['spikes_min']}-{res['spikes_max']}, launches {launches}; lanes {LANE_SAMPLE} "
+        "== solo card runs (raster, weights, traces, rates and state)")
+    return res
 
 
 def phase_lanes(dev, rows: list, totals: dict) -> dict:
     """Phase 8: lanes. (a) B1-B3 over 64 lanes; (b) run_batch(1000, 64) on
     Synfire4 fp16 packed and sparse; (c) a 64-lane LaneScheduler with
-    waves, evictions and migrations; (d) the mini at 512 lanes; (e) plastic
-    lanes, lane by lane."""
+    waves, evictions and migrations; (d) the mini at 512 lanes; (e) the
+    plastic mini at 8 lanes in a scheduler, batched; (f) B4, B5, B6 and
+    the drive over 64 lanes; (g) plastic run_batch(1000, 64), packed with
+    homeostasis every 100 ticks and sparse; (h) fused run_batch(1000,
+    64), packed and sparse."""
     phase_lane_kernels(dev, rows)
     paths = {f"lanes/run_batch/fp16/{p}": _run_batch_path(dev, p, totals)
              for p in ("packed", "sparse")}
     paths["lanes/scheduler/synfire4/fp16/sparse"] = _scheduler_path(dev, totals)
     paths["lanes/scheduler/mini512/fp16/packed"] = _mini_512_path(dev, totals)
     paths["lanes/scheduler/plastic_mini8/fp16"] = _plastic_lanes_path(dev, totals)
+    phase_plastic_lane_kernels(dev, rows)
+    paths["lanes/run_batch/plastic/fp16/packed_homeo100"] = _widened_run_batch_path(
+        dev, "packed", totals, plastic=True, homeo=True)
+    paths["lanes/run_batch/plastic/fp16/sparse"] = _widened_run_batch_path(
+        dev, "sparse", totals, plastic=True)
+    for p in ("packed", "sparse"):
+        paths[f"lanes/run_batch/fused/fp16/{p}"] = _widened_run_batch_path(
+            dev, p, totals, plastic=False)
     return paths
 
 
-LANE_ROWS = ("izh4_update", "syn_matmul", "syn_gather")
+LANE_ROWS = ("izh4_update", "syn_matmul", "syn_gather", "fused_tick", "stdp_update",
+             "stdp_gather", "plastic_drive")
 
 
 def phase_lanes_fresh(rows: list, totals: dict) -> dict:
@@ -3398,21 +3950,6 @@ def _none(*args, **kwargs):
     return None
 
 
-def _unpadded_stdp_update(static, params, weights, stdp):
-    """The dense STDP launcher on weight copies without the appended zero:
-    the fan-in drive then copies each dense plastic matrix with a zero
-    appended every tick, the earlier drive."""
-    from repro_torch.core.backend import _pair_stdp
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.stdp_update import DenseProjection
-
-    projs, keys = [], []
-    for j, fields in _pair_stdp(static, stdp, dense=True):
-        projs.append(DenseProjection(w=weights[j].clone(), mask=params.masks[j], **fields))
-        keys.append(j)
-    return ops.StdpUpdateRun(static.n, projs, keys) if projs else None
-
-
 # (key, propagation, plastic chain, backend builder swapped, its earlier path)
 IN_TURNS = (
     ("synfire4/fp16/packed/matmul_launcher_vs_per_call", "packed", False, "assemble_matmul",
@@ -3427,8 +3964,6 @@ IN_TURNS = (
      "assemble_stdp_gather", _none),
     ("synfire4_plastic/fp16/packed/stdp_launcher_vs_per_call", "packed", True,
      "assemble_stdp_update", _none),
-    ("synfire4_plastic/fp16/packed/drive_zero_ended_vs_copy", "packed", True,
-     "assemble_stdp_update", _unpadded_stdp_update),
 )
 
 

@@ -10,9 +10,12 @@ sparse bucket of a tick in one launch through the run's
 the ``izh4_update`` kernel, a run's whole neuron phase of a tick in one
 launch through its :class:`repro_torch.kernels.ops.NeuronRun` (built by
 :func:`assemble_neurons`). Plastic and STP projections, whose weights
-change every tick, drive through :func:`plastic_drive` after the buckets,
+change every tick, drive through :class:`PlasticDrive` after the buckets,
 and pair-based STDP updates their weights through ``stdp_update`` (dense
-storage) or ``stdp_gather`` (CSR fan-in rows) in :func:`stdp_dispatch`; a
+storage) or ``stdp_gather`` (CSR fan-in rows) in :func:`stdp_dispatch`; the
+plastic drive is one ``plastic_drive`` launch per tick over every such
+projection (:class:`PlasticDrive`, an :class:`repro_torch.kernels.ops.DriveRun`
+landing in the tick's accumulators); a
 run's CSR pair-STDP projections update in one ``stdp_gather`` launch per
 tick, trace steps included, through its
 :class:`repro_torch.kernels.ops.StdpGatherRun` (built by
@@ -37,9 +40,10 @@ the CPU, so this module has one code path.
 
 Lanes: the launchers and :func:`propagate_packed` also take B independent
 lanes of one static net (a leading ``[B]`` axis on the spikes, the ring,
-the accumulators and, where each lane holds its own, the weights), each
-lane at its own tick (:class:`LaneSlots`), one launch per kernel for all
-of them; ``engine.run_batch`` and ``serve.LaneScheduler`` drive them.
+the accumulators, the plastic and STP state and, where each lane holds its
+own, the weights), each lane at its own tick (:class:`LaneSlots`), one
+launch per kernel for all of them; ``engine.run_batch`` and
+``serve.LaneScheduler`` drive them.
 
 Two departures from the reference, both bitwise neutral:
 
@@ -58,7 +62,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core import neurons as nrn
 from repro_torch.core.conductance import decay_factors
@@ -68,6 +71,8 @@ from repro_torch.core.synapses import ProjectionParams, propagate, stp_update
 from repro_torch.kernels import ops
 from repro_torch.kernels.fused_tick import KernelPayload, assemble_kernel
 from repro_torch.kernels.izh_update import CobaCoeffs
+from repro_torch.kernels.plastic_drive import DriveProjection
+from repro_torch.kernels.ref import xla_cpu_row_sum
 from repro_torch.kernels.stdp_gather import Projection
 from repro_torch.kernels.stdp_update import DenseProjection
 from repro_torch.kernels.syn_gather import Bucket
@@ -75,8 +80,8 @@ from repro_torch.kernels.syn_gather import Bucket
 __all__ = ["assemble_packed", "assemble_matmul", "assemble_gather", "assemble_neurons",
            "LanePropagation", "LaneSlots",
            "coba_coeffs", "update_neurons_dispatch", "propagate_packed", "propagate_loop",
-           "FaninRows", "assemble_fanin",
-           "xla_cpu_row_sum", "plastic_drive", "stdp_dispatch", "assemble_stdp_gather",
+           "FaninRows", "assemble_fanin", "PlasticDrive", "assemble_drive",
+           "xla_cpu_row_sum", "stdp_dispatch", "assemble_stdp_gather",
            "assemble_stdp_update", "FusedPayload", "assemble_fused"]
 
 f32 = torch.float32
@@ -141,17 +146,23 @@ def assemble_gather(static, params, packed, lanes: int | None = None) -> ops.Gat
 class LanePropagation:
     """The propagation launchers of B lanes of a net (:func:`assemble_packed`'s
     payloads, :func:`assemble_matmul` and :func:`assemble_gather` over
-    ``lanes``), built once on ``weights``: the weights every lane shares
+    ``lanes``; for a ``fused_tick`` net the kernel's payload ``kernel``
+    instead), built once on ``weights``: the weights every lane shares
     (one-lane tensors) or each lane's own (``[B, ...]``). A caller that
     keeps them across runs (``serve.LaneScheduler``) writes a lane's new
     weights in with :meth:`set_lane`; the index plan, which depends on the
-    static net only, is built once."""
+    static net only, is built once. Plastic and STP projections join no
+    bucket: their launchers are built per run on the lanes' weights."""
 
     def __init__(self, static, params, weights, lanes: int):
-        self.static = static
+        self.static, self.params = static, params
         self.packed = assemble_packed(static, weights)
-        self.matmul = assemble_matmul(static, self.packed, lanes)
-        self.gather = assemble_gather(static, params, self.packed, lanes)
+        self.matmul = self.gather = self.kernel = None
+        if static.fused_kernel:
+            self.kernel = assemble_kernel(static, params, self.packed)
+        else:
+            self.matmul = assemble_matmul(static, self.packed, lanes)
+            self.gather = assemble_gather(static, params, self.packed, lanes)
 
     def set_lane(self, lane: int, weights) -> None:
         """Lane ``lane``'s payloads decoded from its one-lane ``weights``,
@@ -160,7 +171,13 @@ class LanePropagation:
             if dst.dim() == src.dim():
                 raise ValueError("LanePropagation.set_lane: the lanes share their weights")
             dst[lane].copy_(src)
-        self.gather.set_lane(lane)
+        if self.kernel is not None:
+            one = assemble_kernel(self.static, self.params,
+                                  tuple(w[lane] for w in self.packed))
+            self.kernel.wd[lane].copy_(one.wd)
+            self.kernel.wc[lane].copy_(one.wc)
+        else:
+            self.gather.set_lane(lane)
 
 
 def coba_coeffs(static) -> CobaCoeffs:
@@ -276,64 +293,64 @@ def assemble_fanin(static, params) -> tuple[FaninRows | None, ...]:
     return tuple(out)
 
 
-XLA_REDUCE_WINDOW = 32  # XLA CPU's tree reduction rewriter's window
+class PlasticDrive:
+    """A run's fan-in drive of its plastic and STP projections (``keys``,
+    in projection order): an :class:`repro_torch.kernels.ops.DriveRun`
+    (``run``) whose drives land where :func:`propagate_packed` accumulates
+    their delay, in the projection's channel (1 for an inhibitory
+    projection of a COBA net): in ``gather``'s accumulator rows where that
+    launcher holds the delay, else in accumulators of its own (``own``,
+    delay → ``[(B,) N, C]``, zeroed by :meth:`start` every tick). Sums in
+    the reference's order (:func:`xla_cpu_row_sum`) on both devices, so
+    the card's drive equals the CPU port's bit for bit. Built per run (per
+    chunk over ``lanes``) after ``gather``, on ``weights`` and ``stp`` for
+    their storage dtypes."""
+
+    def __init__(self, static, params, weights, stp, gather, fanin=None,
+                 lanes: int | None = None):
+        fanin = fanin if fanin is not None else assemble_fanin(static, params)
+        n_ch = static.ring_channels
+        lead = () if lanes is None else (lanes,)
+        self.keys = tuple(j for j, s in enumerate(static.projections)
+                          if s.plastic or s.stp is not None)
+        held = set(gather.delays) if gather.starts else set()
+        mine = sorted({static.projections[j].delay_ms for j in self.keys} - held)
+        self._own = torch.zeros((len(mine), *lead, static.n, n_ch), dtype=f32,
+                                device=params.neuron.a.device)
+        self.own = {d: self._own[k] for k, d in enumerate(mine)}
+        projs = []
+        for j in self.keys:
+            spec, fr = static.projections[j], fanin[j]
+            if spec.delay_ms in held:
+                k = gather.delays.index(spec.delay_ms)
+                acc = gather.rows[..., k * n_ch:(k + 1) * n_ch, :].transpose(-1, -2)
+            else:
+                acc = self.own[spec.delay_ms]
+            out = acc[..., spec.post_start:spec.post_start + spec.post_size,
+                      ring_channel(spec, n_ch)]
+            projs.append(DriveProjection(
+                pre=fr.pre, rows=fr.rows, out=out, w_dtype=weights[j].dtype,
+                sentinel=spec.pre_size * spec.post_size if fr.rows is not None else -1,
+                stp=spec.stp is not None, pre_start=spec.pre_start, n_pre=spec.pre_size,
+                stp_dtype=stp[j].u.dtype if spec.stp is not None else f32))
+        self.run = ops.DriveRun(static.n, projs, lanes=lanes, coba=n_ch == 2)
+
+    def start(self, acc: dict) -> None:
+        """The tick's own accumulators, zeroed, into ``acc`` (delay → its
+        ``[(B,) N, C]`` accumulator), before any bucket adds there."""
+        if self.own:
+            self._own.zero_()
+            acc.update(self.own)
 
 
-def xla_cpu_row_sum(x: torch.Tensor) -> torch.Tensor:
-    """``x.sum(dim=1)`` for an f32 ``[Q, F]`` ``x``, in the order the
-    reference's compiled reduce takes on the CPU. XLA CPU's tree reduction
-    rewriter cuts a reduced dimension longer than 32 into windows of 32,
-    the row padded with ``pad // 2`` skipped slots in front (``pad = -F mod
-    32``) and the rest behind; each window sums its elements left to right
-    from +0.0, and the window sums are reduced the same way, until 32 or
-    fewer remain, which sum left to right from +0.0. Padding adds +0.0 to
-    a partial sum that cannot be -0.0, so it is added here instead of
-    skipped. One add per window slot, whatever F: a few dozen ops."""
-    while x.shape[1] > XLA_REDUCE_WINDOW:
-        q, f = x.shape
-        n = -(-f // XLA_REDUCE_WINDOW)
-        pad = n * XLA_REDUCE_WINDOW - f
-        x = F.pad(x, (pad // 2, pad - pad // 2)).reshape(q, n, XLA_REDUCE_WINDOW)
-        x = _sum_left_to_right(x)
-    return _sum_left_to_right(x)
-
-
-def _sum_left_to_right(x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed over its last dimension left to right from +0.0."""
-    acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
-    for k in range(x.shape[-1]):
-        acc = acc + x[..., k]
-    return acc
-
-
-def plastic_drive(w: torch.Tensor, table: FaninRows, pre_row: torch.Tensor,
-                  padded: torch.Tensor | None = None) -> torch.Tensor:
-    """Fan-in-row drive of a plastic or STP projection:
-    ``[Q] = Σ_k pre_row[pre[q, k]] · w_row[q, k]``.
-
-    CSR-stored projections read their ``[Q, F]`` weight rows directly;
-    dense-stored ones gather the rows out of the ``[P, Q]`` rectangle, the
-    sentinel cells reading a zero after its last entry, as the CSR padding
-    holds +0.0: out of ``padded``, the flat ``[P·Q + 1]`` buffer that ``w``
-    starts (a run's ``ops.StdpUpdateRun`` keeps its weights so), else out
-    of a copy of ``w`` with the zero appended. Same row values, same
-    ``[Q, F]`` reduction: packed (dense storage) and sparse (CSR storage)
-    rasters stay bit for bit as STDP moves weights off the representable
-    grid. A plain PyTorch reduction on both devices, as the reference keeps
-    it plain on both backends: on the CPU in the reference's order
-    (:func:`xla_cpu_row_sum`), so that f32 sums off the representable grid
-    round as the reference's do; on the card in ``torch.sum``'s.
-    """
-    g = pre_row[table.pre]
-    if table.rows is None:
-        rows = w.to(f32)
-    else:
-        if padded is None:
-            padded = torch.cat((w.reshape(-1), w.new_zeros(1)))
-        rows = padded[table.rows].to(f32)
-    if g.device.type == "cpu":
-        return xla_cpu_row_sum(g * rows)
-    return (g * rows).sum(dim=1)
+def assemble_drive(static, params, weights, stp, gather, fanin=None,
+                   lanes: int | None = None) -> PlasticDrive | None:
+    """The run's :class:`PlasticDrive` (on ``gather``, :func:`assemble_gather`'s
+    launcher of the same run), None for a net with no plastic or STP
+    projection."""
+    if not any(s.plastic or s.stp is not None for s in static.projections):
+        return None
+    return PlasticDrive(static, params, weights, stp, gather, fanin, lanes)
 
 
 def _bucket_pre(static, params, spikes_f32, bi):
@@ -376,7 +393,8 @@ class LaneSlots:
 def propagate_packed(static, params, spikes_f32: torch.Tensor, ring: torch.Tensor,
                      t: int, packed, weights=(), stp=(), fanin=None,
                      matmul=None, gather=None, padded=None,
-                     slots: LaneSlots | None = None) -> tuple:
+                     slots: LaneSlots | None = None,
+                     drive: PlasticDrive | None = None) -> tuple:
     """Propagate this tick's spikes (``[N]`` f32, 0.0/1.0) into ``ring``.
 
     Each bucket's drive lands in a per-delay ``[N, C]`` f32 accumulator
@@ -385,26 +403,29 @@ def propagate_packed(static, params, spikes_f32: torch.Tensor, ring: torch.Tenso
     those of their delays (its group 0 writes them before the first
     bucket, a later group adds where it stands), the dense buckets'
     through ``matmul``; then every plastic or STP projection's fan-in-row
-    drive (:func:`plastic_drive` on ``weights[j]``, the pre row scaled by
-    ``u · x`` for STP) lands in the same accumulators, in projection
-    order, in channel 1 for an inhibitory projection of a COBA net and 0
-    else; a COBA drive lands as its absolute value. Then one commit per
+    drive (``drive``, a :class:`PlasticDrive`, one launch for all of them,
+    on ``weights[j]``, the pre row scaled by ``u · x`` for STP) lands in
+    the same accumulators, in projection order, in channel 1 for an
+    inhibitory projection of a COBA net and 0 else; a COBA drive lands as
+    its absolute value. Then one commit per
     distinct delay adds each accumulator, cast to the ring's dtype first,
     into ring slot ``(t + d) % ring_len`` (the reference's ``row +
     acc.astype(ring.dtype)``). ``fanin`` is
-    :func:`assemble_fanin`'s output, ``matmul`` :func:`assemble_matmul`'s
-    and ``gather`` :func:`assemble_gather`'s, each built here when
-    omitted; ``padded`` maps projection ids to the flat zero-ended weight
-    buffers of :func:`plastic_drive` (``ops.StdpUpdateRun.padded``).
+    :func:`assemble_fanin`'s output (read when ``drive`` is built here),
+    ``matmul`` :func:`assemble_matmul`'s, ``gather``
+    :func:`assemble_gather`'s and ``drive`` a :class:`PlasticDrive` on
+    ``gather``, each built here when omitted; ``padded`` maps projection
+    ids to the flat zero-ended weight buffers their dense weights start
+    (``ops.StdpUpdateRun.padded``), which the drive reads in their place.
     Updates ``ring`` in place; returns the STP states advanced by this
     tick's spikes, aligned with the projections.
 
-    Over B lanes (``slots`` given, a net with no plastic or STP
-    projection): the spikes are ``[B, N]``, the ring ``[B, L, N, C]``, the
-    accumulators ``[B, N, C]``, ``matmul`` and ``gather`` are lane
-    launchers, ``t`` is the run's tick index and each lane commits into its
-    own slot through ``slots``; every lane's sums and roundings are those
-    of its one-lane tick.
+    Over B lanes (``slots`` given): the spikes are ``[B, N]``, the ring
+    ``[B, L, N, C]``, the accumulators ``[B, N, C]``, the plastic weights
+    and STP states ``[B, ...]``, ``matmul``, ``gather`` and ``drive`` are
+    lane launchers, ``t`` is the run's tick index and each lane commits
+    into its own slot through ``slots``; every lane's sums and roundings
+    are those of its one-lane tick.
     """
     acc: dict[int, torch.Tensor] = {}
     if matmul is None:
@@ -414,6 +435,12 @@ def propagate_packed(static, params, spikes_f32: torch.Tensor, ring: torch.Tenso
     n_ch = static.ring_channels
     coba = n_ch == 2
     lead = tuple(spikes_f32.shape[:-1])
+    per_proj = [j for j, s in enumerate(static.projections) if s.plastic or s.stp is not None]
+    if per_proj and drive is None:
+        drive = assemble_drive(static, params, weights, stp, gather, fanin,
+                               lead[0] if lead else None)
+    if per_proj:
+        drive.start(acc)
 
     def add(delay_ms, channel, post_start, q, drive, post_ids=None):
         a = acc.get(delay_ms)
@@ -437,27 +464,21 @@ def propagate_packed(static, params, spikes_f32: torch.Tensor, ring: torch.Tenso
             gather(later[bi], spikes_f32)
         if b.kind == "sparse":
             continue
-        drive = matmul(bi, _bucket_pre(static, params, spikes_f32, bi))
-        add(b.delay_ms, b.channel, b.post_start, b.q, drive, params.bucket_post_ids[bi])
+        add(b.delay_ms, b.channel, b.post_start, b.q,
+            matmul(bi, _bucket_pre(static, params, spikes_f32, bi)),
+            params.bucket_post_ids[bi])
 
-    new_stp = list(stp) or [None] * len(static.projections)
-    per_proj = [j for j, s in enumerate(static.projections)
-                if s.plastic or s.stp is not None]
-    if per_proj and slots is not None:
-        raise ValueError("propagate_packed: plastic and STP projections tick one lane "
-                         "at a time")
+    stp = stp or (None,) * len(static.projections)
+    new_stp = list(stp)
     if per_proj:
-        fanin = fanin if fanin is not None else assemble_fanin(static, params)
-        spikes_ext = F.pad(spikes_f32, (0, 1))
+        padded = padded or {}
+        drive.run(spikes_f32, [padded.get(j, weights[j]) for j in per_proj],
+                  [None if stp[j] is None else (stp[j].u, stp[j].x) for j in per_proj])
         for j in per_proj:
             spec = static.projections[j]
-            pre_row = spikes_ext
             if spec.stp is not None:
-                pre_sp = spikes_f32[spec.pre_slice]
-                pre_row = pre_sp * (stp[j].u * stp[j].x)
-                new_stp[j] = stp_update(spec.stp, stp[j], pre_sp, static.dt)
-            add(spec.delay_ms, ring_channel(spec, n_ch), spec.post_start, spec.post_size,
-                plastic_drive(weights[j], fanin[j], pre_row, (padded or {}).get(j)))
+                new_stp[j] = stp_update(spec.stp, stp[j], spikes_f32[..., spec.pre_slice],
+                                        static.dt)
     for d in sorted(acc):
         x = acc[d].to(ring.dtype)
         if slots is None:
@@ -531,36 +552,40 @@ def _pair_stdp(static, stdp, dense: bool):
             decay_post=math.exp(-static.dt / cfg.tau_minus))
 
 
-def assemble_stdp_gather(static, params, weights, stdp) -> ops.StdpGatherRun | None:
+def assemble_stdp_gather(static, params, weights, stdp,
+                         lanes: int | None = None) -> ops.StdpGatherRun | None:
     """The run's ``stdp_gather`` launcher over its CSR-stored pair-STDP
     projections (``cfg.tau_elig`` None, ``j in static.csr_projs``), on
     copies of their ``weights`` and ``stdp`` traces, keyed by projection id;
-    None where there is none. DA-STDP stays on its per-call steps."""
+    None where there is none. Over ``lanes``, the weights and traces are
+    each lane's own (``[B, ...]``). DA-STDP stays on its per-call steps."""
     projs, keys = [], []
     for j, fields in _pair_stdp(static, stdp, dense=False):
         projs.append(Projection(w=weights[j].clone(), idx=params.proj_csr_idx[j],
                                 valid=params.masks[j], **fields))
         keys.append(j)
-    return ops.StdpGatherRun(static.n, projs, keys) if projs else None
+    return ops.StdpGatherRun(static.n, projs, keys, lanes) if projs else None
 
 
-def assemble_stdp_update(static, params, weights, stdp) -> ops.StdpUpdateRun | None:
+def assemble_stdp_update(static, params, weights, stdp,
+                         lanes: int | None = None) -> ops.StdpUpdateRun | None:
     """The run's ``stdp_update`` launcher over its dense-stored pair-STDP
     projections (``cfg.tau_elig`` None, ``j not in static.csr_projs``), on
     copies of their ``weights`` and ``stdp`` traces, keyed by projection
     id; None where there is none. Each copy is the start of a flat ``[P·Q +
-    1]`` buffer ending in +0.0 (``padded``), out of which the fan-in drive
-    gathers its rows. DA-STDP stays on its per-call steps, as the
-    reference keeps it plain on both backends."""
+    1]`` buffer ending in +0.0 (``padded``; over ``lanes`` one such row per
+    lane, ``[B, P·Q + 1]``), which the fan-in drive reads. DA-STDP stays on
+    its per-call steps, as the reference keeps it plain on both backends."""
     projs, keys = [], []
     for j, fields in _pair_stdp(static, stdp, dense=True):
         w = weights[j]
-        padded = w.new_zeros(w.numel() + 1)
-        padded[:-1].copy_(w.reshape(-1))
-        projs.append(DenseProjection(w=padded[:-1].view(w.shape), mask=params.masks[j],
+        lead = tuple(w.shape[:-2])
+        padded = w.new_zeros((*lead, w.shape[-2] * w.shape[-1] + 1))
+        padded[..., :-1].copy_(w.reshape(*lead, -1))
+        projs.append(DenseProjection(w=padded[..., :-1].view(w.shape), mask=params.masks[j],
                                      padded=padded, **fields))
         keys.append(j)
-    return ops.StdpUpdateRun(static.n, projs, keys) if projs else None
+    return ops.StdpUpdateRun(static.n, projs, keys, lanes) if projs else None
 
 
 class FusedPayload(NamedTuple):

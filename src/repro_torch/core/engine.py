@@ -38,7 +38,11 @@ one ctypes call and one launch per tick), the CSR pair-STDP projections'
 ``stdp_gather`` launcher (``ops.StdpGatherRun``: one launch per tick for
 all of them, trace steps included) and the dense-stored pair-STDP
 projections' ``stdp_update`` launcher (``ops.StdpUpdateRun``, the same
-for dense storage). With
+for dense storage) and the plastic and STP projections' fan-in drive
+(``backend.PlasticDrive``: one ``plastic_drive`` launch per tick for all
+of them). :func:`run_batch` and ``serve.LaneScheduler`` tick B lanes
+through the same launchers over a leading lane dimension
+(:func:`batched_route`). With
 ``backend="fused"`` and a plan whose ``kernel_ok`` is set, a tick is one
 operation, the ``fused_tick`` kernel, which writes its spike row straight
 into the raster; other fused nets (plastic or STP ones among them), and
@@ -148,7 +152,7 @@ def _plasticity(static: NetStatic, params: NetParams, spikes_f32: torch.Tensor,
         if cfg is None or j in held:
             continue
         spec = static.projections[j]
-        pre_sp, post_sp = spikes_f32[spec.pre_slice], spikes_f32[spec.post_slice]
+        pre_sp, post_sp = spikes_f32[..., spec.pre_slice], spikes_f32[..., spec.post_slice]
         mask = params.masks[j]
         idx = params.proj_csr_idx[j] if j in csr else None
         if cfg.tau_elig is None:
@@ -172,20 +176,25 @@ def _apply_homeostasis(static: NetStatic, weights: tuple, homeo: tuple,
     the op's rate term is the segment's mean rate in Hz). Dense and CSR
     storage compute the same ``w · scale[post]`` per synapse. ``active``
     (a 0-dim bool tensor) gates the update on the device: an idle lane's
-    rates and weights stay as they were."""
+    rates and weights stay as they were. Over B lanes the weights, rates
+    and ``counts`` carry a leading ``[B]`` and ``active`` is ``[B]``."""
     chunk_ms = static.homeo_period * static.dt
     csr = static.csr_projs
     new_w, new_h = list(weights), list(homeo)
+
+    def gate(new, old):
+        if active is None:
+            return new
+        return torch.where(active.view(*active.shape, *[1] * (new.dim() - active.dim())),
+                           new, old)
+
     for j, cfg in enumerate(static.homeo):
         if cfg is None:
             continue
         fn = homeostasis_step_csr if j in csr else homeostasis_step
-        avg, w = fn(cfg, homeo[j], weights[j], counts[static.projections[j].post_slice],
+        avg, w = fn(cfg, homeo[j], weights[j], counts[..., static.projections[j].post_slice],
                     chunk_ms)
-        if active is not None:
-            avg = torch.where(active, avg, homeo[j])
-            w = torch.where(active, w, weights[j])
-        new_h[j], new_w[j] = avg, w
+        new_h[j], new_w[j] = gate(avg, homeo[j]), gate(w, weights[j])
     return tuple(new_w), tuple(new_h)
 
 
@@ -222,15 +231,19 @@ def _neuron_phase(static: NetStatic, params: NetParams, neurons: NeuronState,
 
 def _synaptic_phase(static: NetStatic, params: NetParams, spikes_f32: torch.Tensor,
                     ring: torch.Tensor, t: int, packed, syn: _Syn, fanin, matmul, gather,
-                    dopamine=None, stdp_runs=(), padded=None) -> _Syn:
+                    dopamine=None, stdp_runs=(), padded=None, drive=None,
+                    slots=None) -> _Syn:
     """Steps 5-6 of tick ``t`` on its f32 spike row, updating ``ring`` in
-    place; returns syn'. ``padded`` is ``propagate_packed``'s; the loop
-    oracle takes none of ``packed``, ``fanin``, ``matmul``, ``gather``."""
+    place; returns syn'. ``padded``, ``drive`` and ``slots`` (B lanes: the
+    spike rows ``[B, N]``, ``t`` the run's tick index) are
+    ``propagate_packed``'s; the loop oracle takes none of ``packed``,
+    ``fanin``, ``matmul``, ``gather``, ``drive``."""
     if static.propagation == "loop":
         stp = be.propagate_loop(static, spikes_f32, ring, t, syn.weights, syn.stp)
     else:
         stp = be.propagate_packed(static, params, spikes_f32, ring, t, packed,
-                                  syn.weights, syn.stp, fanin, matmul, gather, padded)
+                                  syn.weights, syn.stp, fanin, matmul, gather, padded,
+                                  slots, drive)
     weights, stdp = _plasticity(static, params, spikes_f32, syn.weights, syn.stdp,
                                 dopamine, stdp_runs)
     return _Syn(weights, stp, stdp)
@@ -293,13 +306,13 @@ def step(static: NetStatic, params: NetParams, state: NetState,
 
 
 def _gen_full_row(static: NetStatic, gen_spk: torch.Tensor | None, rows: torch.Tensor):
-    """Write generator spikes ``[T, n_gen]`` into their columns of ``rows``
-    ``[T, N]``."""
+    """Write generator spikes ``[(B,) T, n_gen]`` into their columns of
+    ``rows`` ``[(B,) T, N]``."""
     if gen_spk is None:
         return
     off = 0
     for g0, sz in static.gen_spans:
-        rows[:, g0:g0 + sz] = gen_spk[:, off:off + sz]
+        rows[..., g0:g0 + sz] = gen_spk[..., off:off + sz]
         off += sz
 
 
@@ -352,12 +365,33 @@ def _run_kernel(static, params, state, n_steps, payload, gen_spk, record,
     refrac = torch.clamp_min(state.neurons.refrac - min(n_steps, _REFRAC_MAX), 0)
     final = state._replace(t=state.t + n_steps,
                            neurons=NeuronState(v=v, u=u, refrac=refrac), ring=ring)
-    outputs = {"spikes": rows} if record == "raster" else {}
-    if vs is not None:
-        outputs["v"] = vs
-    if cur is not None:
-        outputs["i_syn"] = cur
-    return final, outputs
+    return final, _outputs(rows if record == "raster" else None, vs, cur)
+
+
+def _run_kernel_lanes(static, params, state, n_steps, gen_spk, raster, vs, cur, prop):
+    """:func:`_run_lanes` on the ``fused_tick`` kernel: one launch per tick
+    for every lane (``ops.FusedTickRun`` over lanes, each lane at its own
+    ring slot), on ``prop``'s kernel payload (the weights every lane
+    shares, or each lane's own) or one built here on ``state.weights``."""
+    lanes = len(state.t)
+    dev = state.ring.device
+    rows = raster if raster is not None else torch.empty(
+        (lanes, n_steps, static.n), dtype=torch.bool, device=dev)
+    rows.zero_()
+    _gen_full_row(static, gen_spk, rows)
+    payload = (prop.kernel if prop is not None and prop.kernel is not None
+               else be.LanePropagation(static, params, state.weights, lanes).kernel)
+    v, u, ring = state.neurons.v.clone(), state.neurons.u.clone(), state.ring.clone()
+    p = params.neuron
+    runner = ops.FusedTickRun(payload, v, u, ring[..., 0],
+                              p.model == nrn.NeuronModel.GENERATOR, p.a, p.b, p.c, p.d, rows,
+                              vs, cur, dt=static.dt, substeps=static.substeps, t0=state.t)
+    for i in range(n_steps):
+        runner.tick(i)
+    refrac = torch.clamp_min(state.neurons.refrac - min(n_steps, _REFRAC_MAX), 0)
+    final = state._replace(t=tuple(t + n_steps for t in state.t), ring=ring,
+                           neurons=NeuronState(v=v, u=u, refrac=refrac))
+    return final, _outputs(raster, vs, cur)
 
 
 def _check_record(record: str) -> None:
@@ -442,6 +476,47 @@ def _gen_source(static: NetStatic, params: NetParams, t0, key: torch.Tensor, n_s
     if seg_keys is not None:
         return key, chunk(0), chunk
     return key, None if gen_u is None else segment(0, gen_u), None
+
+
+def _homeo_period(static: NetStatic, n_steps: int, gen_chunk: int | None) -> int:
+    """The run's homeostasis period (0 for none), after the reference's
+    checks: ``n_steps`` a multiple of it, and a chunked generator draw
+    (``gen_chunk``, None when the run draws whole) cut at it."""
+    period = static.homeo_period if any(h is not None for h in static.homeo) else 0
+    if period and n_steps % period:
+        raise ValueError(
+            f"n_steps ({n_steps}) must be a multiple of the homeostasis period "
+            f"({period}): the slow timer fires at whole-segment boundaries")
+    if gen_chunk is not None and period and gen_chunk != period:
+        raise ValueError(f"gen_chunk ({gen_chunk}) must equal the homeostasis period "
+                         f"({period}): both cut the run into the same segments")
+    return period
+
+
+def _stdp_launchers(static: NetStatic, params: NetParams, state: NetState,
+                    lanes: int | None = None):
+    """The run's pair-STDP launchers (``stdp_gather`` and ``stdp_update``,
+    those the net has), their zero-ended dense buffers, and the state's
+    weights with the launchers' buffers in their projections' places."""
+    runs = tuple(x for x in (
+        be.assemble_stdp_gather(static, params, state.weights, state.stdp, lanes),
+        be.assemble_stdp_update(static, params, state.weights, state.stdp, lanes))
+        if x is not None)
+    padded, weights = {}, state.weights
+    for stdp_run in runs:
+        weights = stdp_run.adopt(weights)
+        padded.update(getattr(stdp_run, "padded", {}))
+    return runs, padded, weights
+
+
+def _final_syn(syn: _Syn, stdp_runs) -> _Syn:
+    """``syn`` with the traces the launchers hold in their projections'
+    places."""
+    stdp = list(syn.stdp)
+    for stdp_run in stdp_runs:
+        for k, j in enumerate(stdp_run.keys):
+            stdp[j] = STDPState(*stdp_run.traces(k))
+    return syn._replace(stdp=tuple(stdp))
 
 
 def run(
@@ -530,14 +605,7 @@ def run(
                                  or dopamine.dtype != f32 or dopamine.device != dev):
         raise ValueError(f"dopamine must be float32 [{n_steps}] on {dev}, got "
                          f"{dopamine.dtype} {tuple(dopamine.shape)} on {dopamine.device}")
-    period = static.homeo_period if any(h is not None for h in static.homeo) else 0
-    if period and n_steps % period:
-        raise ValueError(
-            f"n_steps ({n_steps}) must be a multiple of the homeostasis period "
-            f"({period}): the slow timer fires at whole-segment boundaries")
-    if chunk is not None and period and gen_chunk != period:
-        raise ValueError(f"gen_chunk ({gen_chunk}) must equal the homeostasis period "
-                         f"({period}): both cut the run into the same segments")
+    period = _homeo_period(static, n_steps, gen_chunk if chunk is not None else None)
 
     state = state._replace(key=key)
     if static.fused_kernel and i_ext is None:
@@ -565,13 +633,9 @@ def run(
     neuron_run = be.assemble_neurons(static, params, neurons, ring, cond=cond,
                                      gen_spk=gen_spk, i_ext=i_ext, raster=raster,
                                      v_rows=vs, i_rows=cur, counts=counts)
-    stdp_gather = be.assemble_stdp_gather(static, params, state.weights, state.stdp)
-    stdp_update = be.assemble_stdp_update(static, params, state.weights, state.stdp)
-    stdp_runs = tuple(x for x in (stdp_gather, stdp_update) if x is not None)
-    padded = None if stdp_update is None else stdp_update.padded
-    weights = state.weights
-    for stdp_run in stdp_runs:
-        weights = stdp_run.adopt(weights)
+    stdp_runs, padded, weights = _stdp_launchers(static, params, state)
+    drive = None if loop else be.assemble_drive(static, params, weights, state.stp, gather,
+                                                 fanin)
     syn = _Syn(weights, state.stp, state.stdp)
     seg0 = 0  # the run's tick at gen_spk's row 0
     for i in range(n_steps):
@@ -599,7 +663,7 @@ def run(
                 cur[i] = i_syn
         syn = _synaptic_phase(static, params, spikes_f32, ring, t, packed, syn, fanin,
                               matmul, gather, None if dopamine is None else dopamine[i],
-                              stdp_runs, padded)
+                              stdp_runs, padded, drive)
         if counts is not None and (i + 1) % period == 0:
             weights, homeo = _apply_homeostasis(static, syn.weights, homeo, counts, active)
             for stdp_run in stdp_runs:
@@ -609,36 +673,24 @@ def run(
     if neuron_run is not None:
         neurons = NeuronState(v=neuron_run.v, u=neuron_run.u, refrac=neuron_run.refrac)
         cond = None if neuron_run.cond is None else ConductanceState(*neuron_run.cond)
-    stdp = list(syn.stdp)
-    for stdp_run in stdp_runs:
-        for k, j in enumerate(stdp_run.keys):
-            stdp[j] = STDPState(*stdp_run.traces(k))
-    syn = syn._replace(stdp=tuple(stdp))
+    syn = _final_syn(syn, stdp_runs)
     final = state._replace(t=state.t + n_steps, neurons=neurons, ring=ring, cond=cond,
                            homeo=homeo, **syn._asdict())
-    outputs = {}
-    if raster is not None:
-        outputs["spikes"] = raster
-    if vs is not None:
-        outputs["v"] = vs
-    if cur is not None:
-        outputs["i_syn"] = cur
-    return final, outputs
+    return final, _outputs(raster, vs, cur)
 
 
 def batched_route(static: NetStatic) -> bool:
     """Whether B lanes of a net tick together, one launch per kernel for
     every lane (:func:`run_batch`, ``serve.LaneScheduler``): an IZH4-only
-    Euler net on the default backend, packed, sparse or auto, CUBA or COBA,
-    with no plastic, STP, DA or homeostasis projection. Every other net
-    (plastic ones, ``backend="fused"``, the ``loop`` oracle, other neuron
-    models) runs its lanes one after another through :func:`run`, each
-    lane on its own launchers."""
-    return (static.backend is None and static.propagation != "loop"
-            and static.izh4_only and static.method == "euler"
-            and not any(s.plastic or s.stp is not None for s in static.projections)
-            and all(c is None for c in static.stdp)
-            and all(h is None for h in static.homeo))
+    Euler net on the default or the fused backend, packed, sparse or auto,
+    CUBA or COBA, with any mix of pair-STDP, DA-STDP, STP and homeostasis
+    projections (a fused net whose plan takes the ``fused_tick`` kernel
+    ticks every lane in one launch of it; other fused nets take the default
+    tick, as :func:`run` does). The ``loop`` oracle and other neuron models
+    or integrators run their lanes one after another through :func:`run`,
+    each lane on its own launchers."""
+    return (static.backend in (None, "fused") and static.propagation != "loop"
+            and static.izh4_only and static.method == "euler")
 
 
 def _run_lanes(static: NetStatic, params: NetParams, state: NetState, n_steps: int, *,
@@ -655,38 +707,69 @@ def _run_lanes(static: NetStatic, params: NetParams, state: NetState, n_steps: i
     bit: its generators draw from its key ``state.key[b]`` (the whole-run
     draw, or ``gen_chunk``'s), or from ``gen_base[b]`` (``[B, 2]``) at its
     own ticks ``state.t[b] + i``, all lanes' uniforms of a segment in one
-    call; ``active`` (``[B]`` bool) gates lanes silent. The lanes
-    propagate through ``prop`` (the weights every lane shares, or a
-    caller's launchers kept across runs), else through launchers built here
-    on each lane's own ``state.weights`` ``[B, ...]``. The state's
-    ``weights`` are returned as they came.
+    call; ``active`` (``[B]`` bool) gates lanes silent (their generators,
+    and their homeostasis). The lanes propagate through ``prop`` (the
+    static buckets' launchers on the weights every lane shares, or a
+    caller's kept across runs), else through launchers built here on each
+    lane's own ``state.weights`` ``[B, ...]``. Plastic, STP, DA-STDP and
+    homeostasis state is each lane's own (``[B, ...]``): the pair-STDP
+    launchers (``stdp_gather``, ``stdp_update``) and the plastic drive are
+    built here on the lanes' current weights, the DA-STDP, STP and
+    homeostasis steps run on the lane axis with dopamine 0.0, and the slow
+    timer fires every ``homeo_period`` ticks of the run on per-lane spike
+    counts. A ``fused_tick`` net ticks every lane in one launch of it.
     """
     lanes = len(state.t)
     dev = state.ring.device
     t0 = torch.tensor(state.t, dtype=torch.int64, device=dev)
     key, gen_spk, chunk = _gen_source(static, params, t0, state.key, n_steps,
                                       gen_chunk=gen_chunk, gen_base=gen_base, active=active)
-    if prop is None:
-        prop = be.LanePropagation(static, params, state.weights, lanes)
-    ring = state.ring.clone()
+    period = _homeo_period(static, n_steps, gen_chunk if chunk is not None else None)
     shape = (lanes, n_steps, static.n)
     raster = torch.empty(shape, dtype=torch.bool, device=dev) if record == "raster" else None
     vs = torch.empty(shape, dtype=f32, device=dev) if record_v else None
     cur = torch.empty(shape, dtype=f32, device=dev) if record_i else None
+    if static.fused_kernel:
+        if chunk is not None:
+            gen_spk = torch.cat([gen_spk] + [chunk(c) for c in range(1, n_steps // gen_chunk)],
+                                dim=1)
+        return _run_kernel_lanes(static, params, state._replace(key=key), n_steps, gen_spk,
+                                 raster, vs, cur, prop)
+    if prop is None:
+        prop = be.LanePropagation(static, params, state.weights, lanes)
+    ring = state.ring.clone()
+    counts = torch.zeros((lanes, static.n), dtype=torch.int32, device=dev) if period else None
     neuron_run = be.assemble_neurons(static, params, state.neurons, ring, cond=state.cond,
                                      gen_spk=gen_spk, raster=raster, v_rows=vs, i_rows=cur,
-                                     t0=state.t)
+                                     counts=counts, t0=state.t)
     slots = be.LaneSlots(state.t, static.ring_len, dev)
+    fanin = be.assemble_fanin(static, params)
+    stdp_runs, padded, weights = _stdp_launchers(static, params, state, lanes)
+    drive = be.assemble_drive(static, params, weights, state.stp, prop.gather, fanin, lanes)
+    syn = _Syn(weights, state.stp, state.stdp)
+    homeo = state.homeo
     for i in range(n_steps):
         if chunk is not None and i and i % gen_chunk == 0:
             neuron_run.rows(chunk(i // gen_chunk), i)
         neuron_run(i)
-        be.propagate_packed(static, params, neuron_run.spikes, ring, i, prop.packed,
-                            matmul=prop.matmul, gather=prop.gather, slots=slots)
+        syn = _synaptic_phase(static, params, neuron_run.spikes, ring, i, prop.packed, syn,
+                              fanin, prop.matmul, prop.gather, None, stdp_runs, padded,
+                              drive, slots)
+        if counts is not None and (i + 1) % period == 0:
+            weights, homeo = _apply_homeostasis(static, syn.weights, homeo, counts, active)
+            for stdp_run in stdp_runs:
+                weights = stdp_run.adopt(weights)
+            syn = syn._replace(weights=weights)
+            counts.zero_()
     cond = None if neuron_run.cond is None else ConductanceState(*neuron_run.cond)
     final = state._replace(
-        t=tuple(t + n_steps for t in state.t), key=key, ring=ring, cond=cond,
-        neurons=NeuronState(v=neuron_run.v, u=neuron_run.u, refrac=neuron_run.refrac))
+        t=tuple(t + n_steps for t in state.t), key=key, ring=ring, cond=cond, homeo=homeo,
+        neurons=NeuronState(v=neuron_run.v, u=neuron_run.u, refrac=neuron_run.refrac),
+        **_final_syn(syn, stdp_runs)._asdict())
+    return final, _outputs(raster, vs, cur)
+
+
+def _outputs(raster, vs, cur) -> dict:
     outputs = {}
     if raster is not None:
         outputs["spikes"] = raster
@@ -694,7 +777,7 @@ def _run_lanes(static: NetStatic, params: NetParams, state: NetState, n_steps: i
         outputs["v"] = vs
     if cur is not None:
         outputs["i_syn"] = cur
-    return final, outputs
+    return outputs
 
 
 def run_batch(static: NetStatic, params: NetParams, state: NetState, n_steps: int,
@@ -710,10 +793,13 @@ def run_batch(static: NetStatic, params: NetParams, state: NetState, n_steps: in
     of :mod:`repro_torch.core.lanes`, its ``t`` a tuple of B ints).
 
     ``batch == 1`` is :func:`run` with a leading axis. Otherwise a
-    :func:`batched_route` net runs every trial in one tick loop, one
-    ``izh4_update`` launch per tick for all of them and one ``syn_gather``
-    (sparse) or one ``syn_matmul`` per dense bucket (packed), the weights
-    decoded once and shared; every other net runs its trials one after
+    :func:`batched_route` net runs every trial in one tick loop, one launch
+    per kernel per tick for all of them: ``izh4_update``, one
+    ``syn_gather`` (sparse) or one ``syn_matmul`` per dense bucket
+    (packed), the static weights decoded once and shared, and, on a
+    plastic or STP net, one ``plastic_drive``, ``stdp_gather`` and
+    ``stdp_update`` over every trial's own plastic weights; a ``fused_tick``
+    net one ``fused_tick``. Every other net runs its trials one after
     another through :func:`run` (the lane-by-lane route), which the launch
     counts show. ``record="monitors"``/``"both"`` raise
     ``NotImplementedError`` (ROADMAP A6), as :func:`run` does.

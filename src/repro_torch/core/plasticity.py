@@ -26,6 +26,12 @@ constants are. A division by a configuration constant divides by a tensor
 on the operand's device: PyTorch's CUDA division by a Python scalar
 multiplies by its reciprocal instead, which rounds differently. The
 divisor is made with ``torch.full`` (a fill on the device, no host copy).
+
+Lanes: every op also takes B independent lanes of one projection (a
+leading ``[B]`` axis on the weights, traces, eligibilities, spikes, rates
+and counts; the mask, validity rows and indices shared), as
+``engine.run_batch`` and ``serve.LaneScheduler`` drive them. Each op is
+element-wise per lane, so a lane is bit for bit its one-lane call.
 """
 from __future__ import annotations
 
@@ -90,14 +96,19 @@ def _csr_deltas(cfg: STDPConfig, pre_t, post_t, idx, pre_spikes, post_spikes):
     """LTP/LTD terms on the fan-in rows, ``a · (pre_term · post_term)``
     per cell as in the dense outer products."""
     ii = idx.long()
-    ltp = cfg.a_plus * (pre_t[ii] * post_spikes.to(f32)[:, None])
-    ltd = cfg.a_minus * (pre_spikes.to(f32)[ii] * post_t[:, None])
+    ltp = cfg.a_plus * (pre_t[..., ii] * post_spikes.to(f32)[..., :, None])
+    ltd = cfg.a_minus * (pre_spikes.to(f32)[..., ii] * post_t[..., :, None])
     return ltp, ltd
 
 
+def _outer(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.outer`` over any leading (lane) axes: one product per cell."""
+    return a[..., :, None] * b[..., None, :]
+
+
 def _outer_deltas(cfg: STDPConfig, pre_t, post_t, pre_spikes, post_spikes):
-    ltp = cfg.a_plus * torch.outer(pre_t, post_spikes.to(f32))
-    ltd = cfg.a_minus * torch.outer(pre_spikes.to(f32), post_t)
+    ltp = cfg.a_plus * _outer(pre_t, post_spikes.to(f32))
+    ltd = cfg.a_minus * _outer(pre_spikes.to(f32), post_t)
     return ltp, ltd
 
 
@@ -221,7 +232,7 @@ def homeostasis_step(cfg: HomeostasisConfig, avg_rate: torch.Tensor,
     """Returns (new avg_rate, scaled ``[pre, post]`` weight): the incoming
     weights of a neuron firing above target shrink, below target grow."""
     new_avg, scale = _homeostasis_scale(cfg, avg_rate, post_spikes, dt)
-    return new_avg, (weight.to(f32) * scale[None, :]).to(weight.dtype)
+    return new_avg, (weight.to(f32) * scale[..., None, :]).to(weight.dtype)
 
 
 def homeostasis_step_csr(cfg: HomeostasisConfig, avg_rate: torch.Tensor,
@@ -231,4 +242,4 @@ def homeostasis_step_csr(cfg: HomeostasisConfig, avg_rate: torch.Tensor,
     column is a CSR row, so the per-post scale broadcasts over the fan-in
     axis; padding stays exactly 0."""
     new_avg, scale = _homeostasis_scale(cfg, avg_rate, post_spikes, dt)
-    return new_avg, (weight.to(f32) * scale[:, None]).to(weight.dtype)
+    return new_avg, (weight.to(f32) * scale[..., :, None]).to(weight.dtype)

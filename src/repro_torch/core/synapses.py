@@ -247,7 +247,9 @@ def stp_update(cfg: STPConfig, state: STPState, pre_spikes: torch.Tensor,
     """Tsodyks–Markram: on a spike u += U(1−u), then x −= u⁺x; continuous
     recovery du/dt = −u/τ_F, dx/dt = (1−x)/τ_D. The divisions divide by
     f32 tensors on the state's device (PyTorch's CUDA division by a Python
-    scalar multiplies by its reciprocal, which rounds differently)."""
+    scalar multiplies by its reciprocal, which rounds differently).
+    Element-wise, so B lanes (a leading ``[B]`` on the state and spikes)
+    step as B one-lane calls, bit for bit."""
     s = pre_spikes.to(torch.float32)
     u = state.u.to(torch.float32)
     x = state.x.to(torch.float32)

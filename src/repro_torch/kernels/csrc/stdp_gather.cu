@@ -36,6 +36,13 @@
 // rows); the gathered traces and spikes are read through the read-only
 // cache, with no shared-memory staging and so no limit on P.
 //
+// Lanes: the run launcher also takes B independent lanes of a run (a
+// batched run, a LaneScheduler's chunk) in the same launch: grid.y is the
+// lane, and lane b reads its weights at w + b * w_lane, its traces at
+// b * P and b * Q and its spike row at b * n, the index and validity rows
+// shared. Each lane's items are the one-lane launch's, so a lane equals
+// its one-lane launch bit for bit.
+//
 // Rounding: every multiply, add and subtract is __fmul_rn / __fadd_rn /
 // __fsub_rn in the plain version's association (kernels/ref.py:
 // stdp_gather_ref, stdp_gather_run_ref), the mask +0.0: bit for bit equal
@@ -104,11 +111,12 @@ int launch(const void* w, const void* idx, const void* valid, const void* pre_t,
 // for field). Its items are [begin, begin + Q*F + P + Q): the cells row by
 // row, then the P pre-trace items, then the Q post-trace items.
 struct StdpProj {
-  void* w;  // [Q, F] storage type, updated in place
-  const void* idx;  // [Q, F] int16 (itype 0) or int32 (itype 1)
-  const uint8_t* valid;  // [Q, F]
-  float* pre_tr[2];  // [P] ping-pong
-  float* post_tr[2];  // [Q] ping-pong
+  void* w;  // [B, Q, F] storage type, lane stride w_lane, updated in place
+  const void* idx;  // [Q, F] int16 (itype 0) or int32 (itype 1), shared by the lanes
+  const uint8_t* valid;  // [Q, F], shared
+  float* pre_tr[2];  // [B, P] ping-pong
+  float* post_tr[2];  // [B, Q] ping-pong
+  long long w_lane;  // the weights' lane stride in entries
   long long begin;
   int P, Q, F, pre_start, post_start, itype, wtype;  // wtype 0 f32, 1 fp16
   float a_plus, a_minus, w_min, w_max, decay_pre, decay_post;
@@ -119,6 +127,7 @@ struct StdpPlan {
   void* stream;
   long long n_items;
   int n_projs;
+  int lanes, n;  // lanes (grid.y) and the spike row's length (its lane stride)
 };
 
 __global__ void __launch_bounds__(kThreads)
@@ -128,19 +137,22 @@ __global__ void __launch_bounds__(kThreads)
   int k = 0;
   while (k + 1 < plan.n_projs && i >= plan.projs[k + 1].begin) ++k;
   const StdpProj& p = plan.projs[k];
+  const long long lane = blockIdx.y;
   const long long local = i - p.begin;
   const long long cells = static_cast<long long>(p.Q) * p.F;
-  const float* pre_sp = spikes + p.pre_start;
-  const float* post_sp = spikes + p.post_start;
+  const float* pre_sp = spikes + lane * plan.n + p.pre_start;
+  const float* post_sp = spikes + lane * plan.n + p.post_start;
+  const float* pre_old = p.pre_tr[parity] + lane * p.P;
+  const float* post_old = p.post_tr[parity] + lane * p.Q;
   if (local >= cells) {  // a trace item: the new trace into the other buffer
     const int j = static_cast<int>(local - cells);
     if (j < p.P) {
-      p.pre_tr[1 - parity][j] =
-          trace_step(__ldg(p.pre_tr[parity] + j), p.decay_pre, __ldg(pre_sp + j));
+      p.pre_tr[1 - parity][lane * p.P + j] =
+          trace_step(__ldg(pre_old + j), p.decay_pre, __ldg(pre_sp + j));
     } else {
       const int q = j - p.P;
-      p.post_tr[1 - parity][q] =
-          trace_step(__ldg(p.post_tr[parity] + q), p.decay_post, __ldg(post_sp + q));
+      p.post_tr[1 - parity][lane * p.Q + q] =
+          trace_step(__ldg(post_old + q), p.decay_post, __ldg(post_sp + q));
     }
     return;
   }
@@ -151,17 +163,18 @@ __global__ void __launch_bounds__(kThreads)
   float pt = nan_f32(), ps = nan_f32();
   if (j >= 0) {
     ps = __ldg(pre_sp + j);
-    pt = trace_step(__ldg(p.pre_tr[parity] + j), p.decay_pre, ps);
+    pt = trace_step(__ldg(pre_old + j), p.decay_pre, ps);
   }
   const float qs = __ldg(post_sp + q);
-  const float qt = trace_step(__ldg(p.post_tr[parity] + q), p.decay_post, qs);
+  const float qt = trace_step(__ldg(post_old + q), p.decay_post, qs);
   const StdpCoeffs c{p.a_plus, p.a_minus, p.w_min, p.w_max};
   const bool ok = p.valid[local] != 0;
+  const long long at = lane * p.w_lane + local;
   if (p.wtype) {
-    __half* w = static_cast<__half*>(p.w) + local;
+    __half* w = static_cast<__half*>(p.w) + at;
     *w = from_f32<__half>(stdp_cell(to_f32(*w), pt, ps, qt, qs, ok, c));
   } else {
-    float* w = static_cast<float*>(p.w) + local;
+    float* w = static_cast<float*>(p.w) + at;
     *w = stdp_cell(*w, pt, ps, qt, qs, ok, c);
   }
 }
@@ -175,12 +188,15 @@ REPRO_EXPORT int stdp_gather_run_sizes(int* out) {
 }
 
 // One tick of a run (kernels/stdp_gather.py:StdpLauncher): `spikes` is the
-// tick's [N] f32 spike row, `parity` the trace buffer holding the traces.
+// tick's [B, N] f32 spike rows, `parity` the trace buffer holding the traces.
 REPRO_EXPORT int stdp_gather_run(const StdpPlan* plan, const void* spikes, int parity) {
-  if (plan->n_items <= 0) return 0;
+  if (plan->n_items <= 0 || plan->lanes <= 0) return 0;
   const long long blocks = (plan->n_items + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  stdp_run_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+  if (blocks > 0x7fffffffLL || plan->lanes > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  stdp_run_kernel<<<dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(plan->lanes)),
+                    kThreads, 0,
                     static_cast<cudaStream_t>(plan->stream)>>>(
       *plan, static_cast<const float*>(spikes), parity);
   return static_cast<int>(cudaGetLastError());

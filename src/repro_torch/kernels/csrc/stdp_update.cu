@@ -20,6 +20,13 @@
 // tick parity p reads buffer p and writes buffer 1 - p, so no thread reads
 // what the launch writes.
 //
+// Lanes: the run launcher also takes B independent lanes of a run (a
+// batched run, a LaneScheduler's chunk) in the same launch: grid.y is the
+// lane, and lane b reads its weights at w + b * w_lane (each lane the start
+// of its own zero-ended [P*Q + 1] buffer), its traces at b * P and b * Q
+// and its spike row at b * n, the mask shared. Each lane's tile is the
+// one-lane tile, so a lane equals its one-lane launch bit for bit.
+//
 // The run launcher's layout: the work is a dense rectangle per projection,
 // so one CTA takes a tile of kRows rows by kThreads columns, one thread per
 // column. Its first kRows threads step the tile rows' pre traces into
@@ -102,10 +109,11 @@ constexpr int kRows = 4;  // rows per tile
 // max(1, ceil(Q / kThreads)): a projection with no cells still steps its
 // traces.
 struct StdpDenseProj {
-  void* w;  // [P, Q] storage type, updated in place
-  const uint8_t* mask;  // [P, Q]
-  float* pre_tr[2];  // [P] ping-pong
-  float* post_tr[2];  // [Q] ping-pong
+  void* w;  // [B, P, Q] storage type, lane stride w_lane, updated in place
+  const uint8_t* mask;  // [P, Q], shared by the lanes
+  float* pre_tr[2];  // [B, P] ping-pong
+  float* post_tr[2];  // [B, Q] ping-pong
+  long long w_lane;  // the weights' lane stride in entries
   int begin, P, Q, col_tiles, pre_start, post_start, wtype;  // wtype 0 f32, 1 fp16
   float a_plus, a_minus, w_min, w_max, decay_pre, decay_post;
 };
@@ -115,6 +123,7 @@ struct StdpDensePlan {
   const int* begins;  // [n_projs] each projection's first tile, ascending from 0
   void* stream;
   int n_tiles, n_projs;
+  int lanes, n;  // lanes (grid.y) and the spike row's length (its lane stride)
 };
 
 // One CTA's tile of projection p in storage type T. Every weight and mask
@@ -124,14 +133,18 @@ struct StdpDensePlan {
 // decoded only after the barrier.
 template <typename T>
 __device__ __forceinline__ void update_tile(const StdpDenseProj& p, int tile,
-                                            const float* __restrict__ spikes, int parity) {
+                                            const float* __restrict__ spikes, int parity,
+                                            int lane) {
   const int x = threadIdx.x;
   // Constant indices only: a runtime index into the descriptor's pairs would
   // put the descriptor on the stack.
-  const float* pre_old = parity ? p.pre_tr[1] : p.pre_tr[0];
-  float* pre_new = parity ? p.pre_tr[0] : p.pre_tr[1];
-  const float* post_old = parity ? p.post_tr[1] : p.post_tr[0];
-  float* post_new = parity ? p.post_tr[0] : p.post_tr[1];
+  const long long pre_at = static_cast<long long>(lane) * p.P;
+  const long long post_at = static_cast<long long>(lane) * p.Q;
+  const float* pre_old = (parity ? p.pre_tr[1] : p.pre_tr[0]) + pre_at;
+  float* pre_new = (parity ? p.pre_tr[0] : p.pre_tr[1]) + pre_at;
+  const float* post_old = (parity ? p.post_tr[1] : p.post_tr[0]) + post_at;
+  float* post_new = (parity ? p.post_tr[0] : p.post_tr[1]) + post_at;
+  void* const w_base = static_cast<T*>(p.w) + static_cast<long long>(lane) * p.w_lane;
   const int r0 = (tile / p.col_tiles) * kRows;
   const int col_tile = tile % p.col_tiles;
   const int c = col_tile * kThreads + x;
@@ -141,7 +154,7 @@ __device__ __forceinline__ void update_tile(const StdpDenseProj& p, int tile,
   uint8_t keep[kRows];
   if (rows > 0 && p.Q > 0) {  // the same for the whole CTA
     const long long at = static_cast<long long>(r0) * p.Q + min(c, p.Q - 1);
-    const T* w = static_cast<const T*>(p.w) + at;
+    const T* w = static_cast<const T*>(w_base) + at;
     const uint8_t* mask = p.mask + at;
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
@@ -175,7 +188,7 @@ __device__ __forceinline__ void update_tile(const StdpDenseProj& p, int tile,
   __syncthreads();
   if (!col) return;
   const StdpCoeffs coeffs{p.a_plus, p.a_minus, p.w_min, p.w_max};
-  T* w = static_cast<T*>(p.w) + static_cast<long long>(r0) * p.Q + c;
+  T* w = static_cast<T*>(w_base) + static_cast<long long>(r0) * p.Q + c;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     if (r < rows) {
@@ -194,10 +207,12 @@ __global__ void __launch_bounds__(kThreads)
     k += __syncthreads_count(j < plan.n_projs && __ldg(plan.begins + j) <= tile_id);
   }
   const StdpDenseProj p = plan.projs[k];  // a copy: the stores below alias nothing in it
+  const int lane = static_cast<int>(blockIdx.y);
+  const float* row = spikes + static_cast<long long>(lane) * plan.n;
   if (p.wtype) {  // the same for the whole CTA, as is the barrier inside
-    update_tile<__half>(p, tile_id - p.begin, spikes, parity);
+    update_tile<__half>(p, tile_id - p.begin, row, parity, lane);
   } else {
-    update_tile<float>(p, tile_id - p.begin, spikes, parity);
+    update_tile<float>(p, tile_id - p.begin, row, parity, lane);
   }
 }
 
@@ -212,11 +227,13 @@ REPRO_EXPORT int stdp_update_run_sizes(int* out) {
 }
 
 // One tick of a run (kernels/stdp_update.py:StdpUpdateLauncher): `spikes`
-// is the tick's [N] f32 spike row, `parity` the trace buffer holding the
+// is the tick's [B, N] f32 spike rows, `parity` the trace buffer holding the
 // traces.
 REPRO_EXPORT int stdp_update_run(const StdpDensePlan* plan, const void* spikes, int parity) {
-  if (plan->n_tiles <= 0) return 0;
-  stdp_update_run_kernel<<<static_cast<unsigned>(plan->n_tiles), kThreads, 0,
+  if (plan->n_tiles <= 0 || plan->lanes <= 0) return 0;
+  if (plan->lanes > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  stdp_update_run_kernel<<<dim3(static_cast<unsigned>(plan->n_tiles),
+                                static_cast<unsigned>(plan->lanes)), kThreads, 0,
                            static_cast<cudaStream_t>(plan->stream)>>>(
       *plan, static_cast<const float*>(spikes), parity);
   return static_cast<int>(cudaGetLastError());

@@ -13,6 +13,7 @@ import torch
 from repro_torch.kernels import flash_attn as _flash
 from repro_torch.kernels import fused_tick as _fused
 from repro_torch.kernels import izh_update as _izh
+from repro_torch.kernels import plastic_drive as _drive
 from repro_torch.kernels import ref
 from repro_torch.kernels import stdp_gather as _stdp_gather
 from repro_torch.kernels import stdp_update as _stdp_update
@@ -21,14 +22,14 @@ from repro_torch.kernels import syn_matmul as _matmul
 
 __all__ = ["LAUNCHES", "reset_launches", "izh4_update", "NeuronRun", "syn_matmul",
            "MatmulRun", "syn_gather", "GatherRun", "FusedTickRun", "stdp_update",
-           "stdp_gather", "StdpGatherRun", "StdpUpdateRun", "attention",
+           "stdp_gather", "StdpGatherRun", "StdpUpdateRun", "DriveRun", "attention",
            "flash_attention"]
 
 f32 = torch.float32
 
 LAUNCHES: dict[str, int] = {"izh4_update": 0, "syn_matmul": 0, "syn_gather": 0,
                             "fused_tick": 0, "stdp_update": 0, "stdp_gather": 0,
-                            "flash_attention": 0}
+                            "plastic_drive": 0, "flash_attention": 0}
 
 
 def reset_launches() -> None:
@@ -126,8 +127,8 @@ class NeuronRun:
     ``[B, T', n_gen]`` and ``raster``, ``v_rows``, ``i_rows`` ``[B, T,
     N]``; ``run(i)`` is tick ``t0[b] + i`` of every lane b (ring slot
     ``(t0[b] + i) % L``), one launch for all of them on the card
-    (:func:`repro_torch.kernels.ref.neuron_lanes_ref` on the CPU).
-    ``i_ext`` and ``counts`` are one lane's only."""
+    (:func:`repro_torch.kernels.ref.neuron_lanes_ref` on the CPU);
+    ``counts`` is ``[B, N]``. ``i_ext`` is one lane's only."""
 
     def __init__(self, v, u, refrac, ring, is_gen, a, b, c, d, *, gen_spk=None,
                  gen_cols=None, i_ext=None, raster=None, v_rows=None, i_rows=None,
@@ -148,8 +149,8 @@ class NeuronRun:
                              f"{tuple(ring.shape)} must be {dims('N')} and "
                              f"{dims('L', 'N', str(channels))} "
                              f"({'COBA, with cond' if cond is not None else 'CUBA'})")
-        if lead and (i_ext is not None or counts is not None):
-            raise ValueError("izh4_update: i_ext and counts take one lane")
+        if lead and i_ext is not None:
+            raise ValueError("izh4_update: i_ext takes one lane")
         if cond is not None and (len(cond) != 4 or coba is None or any(
                 g.shape != v.shape or g.dtype != v.dtype for g in cond)):
             raise ValueError(f"izh4_update: cond must be four {tuple(v.shape)} tensors of "
@@ -181,8 +182,8 @@ class NeuronRun:
         if (raster is not None and raster.dtype != torch.bool) or any(
                 x is not None and x.dtype != f32 for x in (v_rows, i_rows)):
             raise ValueError("izh4_update: raster must be bool and v_rows, i_rows float32")
-        if counts is not None and (counts.shape != (n,) or counts.dtype != torch.int32):
-            raise ValueError(f"izh4_update: counts must be int32 [{n}]")
+        if counts is not None and (counts.shape != v.shape or counts.dtype != torch.int32):
+            raise ValueError(f"izh4_update: counts must be int32 {dims('N')}")
         if gen_spk is None:
             gen_cols = torch.full((n,), -1, dtype=torch.int64, device=v.device)
         elif (gen_spk.dtype != torch.bool or gen_cols is None or gen_cols.shape != (n,)
@@ -263,7 +264,7 @@ class NeuronRun:
                                  [(t0 + i) % self._ring_len for t0 in self._t0], is_gen,
                                  a, b, c, d, cols, self.spikes, gen_rows=gen_spk,
                                  raster_rows=raster, v_rows=v_rows, i_rows=i_rows,
-                                 cond=self.cond, coba=self._coba, dt=self._dt,
+                                 cond=self.cond, counts=counts, coba=self._coba, dt=self._dt,
                                  substeps=self._substeps)
             return
         gen_spk, i_ext, raster, v_rows, i_rows = (None if x is None else x[k]
@@ -547,21 +548,30 @@ class _StdpRun:
     projection (``launcher``, on the stream current at construction);
     ``spikes`` must be a contiguous f32 row of length ``n`` on the
     projections' card and is not checked per call. On the CPU ``launcher``
-    is None and a call runs the plain version."""
+    is None and a call runs the plain version.
+
+    Over ``lanes`` B: every projection's weights and traces carry a
+    leading ``[B]`` (each lane its own), ``spikes`` is ``[B, n]``, and one
+    launch covers every projection of every lane, each lane updated as the
+    one-lane launch updates it (the ``*_lanes_ref`` plain versions on the
+    CPU)."""
 
     _name: str  # the kernel, as LAUNCHES counts it
 
-    def __init__(self, n: int, projs, keys, tables):
+    def __init__(self, n: int, projs, keys, tables, lanes: int | None = None):
+        _check_lanes(self._name, lanes)
         self.projs = tuple(projs)
         self.keys = tuple(range(len(self.projs)) if keys is None else keys)
+        self.lanes = lanes
+        lead = () if lanes is None else (lanes,)
         tensors = []
         for p, table in zip(self.projs, tables):  # table: the weight-side tensors
-            n_pre, n_post = p.pre_tr[0].shape[0], p.post_tr[0].shape[0]
+            n_pre, n_post = p.pre_tr[0].shape[-1], p.post_tr[0].shape[-1]
             if (len(p.pre_tr) != 2 or len(p.post_tr) != 2
-                    or any(t.shape != (n_pre,) or t.dtype != f32 for t in p.pre_tr)
-                    or any(t.shape != (n_post,) or t.dtype != f32 for t in p.post_tr)):
+                    or any(t.shape != (*lead, n_pre) or t.dtype != f32 for t in p.pre_tr)
+                    or any(t.shape != (*lead, n_post) or t.dtype != f32 for t in p.post_tr)):
                 raise ValueError(f"{self._name}: pre_tr/post_tr must be two float32 "
-                                 f"[P] and two [Q] buffers")
+                                 f"{list(lead) + ['P']} and two {list(lead) + ['Q']} buffers")
             if not (0 <= p.pre_start <= n - n_pre and 0 <= p.post_start <= n - n_post):
                 raise ValueError(f"{self._name}: pre [{p.pre_start}, +{n_pre}) or post "
                                  f"[{p.post_start}, +{n_post}) outside the [{n}] spike row")
@@ -569,11 +579,12 @@ class _StdpRun:
         self.parity = 0
         self.launcher = None
         if tensors and _on_card(self._name, *tensors):
-            self.launcher = self._launcher(self.projs, tensors[0].device)
+            self.launcher = self._launcher(self.projs, tensors[0].device, lanes, n)
 
     def __call__(self, spikes: torch.Tensor) -> None:
         if self.launcher is None:
-            self._plain(spikes, self.projs, self.parity)
+            plain = self._plain if self.lanes is None else self._plain_lanes
+            plain(spikes, self.projs, self.parity)
         elif self.launcher.items:
             self.launcher(spikes.data_ptr(), self.parity)
             LAUNCHES[self._name] += 1
@@ -588,7 +599,8 @@ class _StdpRun:
         """``weights`` (indexed by the keys) with this run's weight buffers
         in its projections' places; a buffer first takes the values of the
         tensor it replaces where that is another tensor (homeostasis makes
-        new ones)."""
+        new ones): a copy into the buffer, lane by lane in place over lanes,
+        never a rebinding."""
         out = list(weights)
         for p, j in zip(self.projs, self.keys):
             if out[j] is not p.w:
@@ -597,21 +609,33 @@ class _StdpRun:
         return tuple(out)
 
 
+def _lead(name: str, w: torch.Tensor, lanes: int | None) -> tuple:
+    lead = () if lanes is None else (lanes,)
+    if w.dim() != 2 + len(lead) or w.shape[:len(lead)] != lead:
+        raise ValueError(f"{name}: w {tuple(w.shape)} must be "
+                         f"{list(lead) + ['rows', 'cols']}")
+    return lead
+
+
 class StdpGatherRun(_StdpRun):
     """Pair-based STDP of one run's plastic CSR projections, one tick at a
     time (:func:`repro_torch.kernels.ref.stdp_gather_run_ref`): ``projs``
     are :class:`repro_torch.kernels.stdp_gather.Projection` s, run as
-    :class:`_StdpRun` says. On the card ``launcher`` is a
+    :class:`_StdpRun` says (over ``lanes``, weights ``[B, Q, F]``,
+    :func:`repro_torch.kernels.ref.stdp_gather_lanes_ref`). On the card
+    ``launcher`` is a
     :class:`repro_torch.kernels.stdp_gather.StdpLauncher`."""
 
     _name = "stdp_gather"
     _plain = staticmethod(ref.stdp_gather_run_ref)
+    _plain_lanes = staticmethod(ref.stdp_gather_lanes_ref)
     _launcher = _stdp_gather.StdpLauncher
 
-    def __init__(self, n: int, projs, keys=None):
+    def __init__(self, n: int, projs, keys=None, lanes: int | None = None):
         projs = tuple(projs)
         for p in projs:
-            if p.w.dim() != 2 or p.idx.shape != p.w.shape or p.valid.shape != p.w.shape:
+            _lead("stdp_gather", p.w, lanes)
+            if p.idx.dim() != 2 or p.idx.shape != p.w.shape[-2:] or p.valid.shape != p.idx.shape:
                 raise ValueError(f"stdp_gather: w {tuple(p.w.shape)}, idx "
                                  f"{tuple(p.idx.shape)} and valid {tuple(p.valid.shape)} "
                                  "must share one [Q, F] shape")
@@ -620,52 +644,116 @@ class StdpGatherRun(_StdpRun):
                     or p.valid.dtype != torch.bool):
                 raise ValueError(f"stdp_gather: w/idx/valid dtypes {p.w.dtype}/"
                                  f"{p.idx.dtype}/{p.valid.dtype}")
-            if p.post_tr[0].shape[0] != p.w.shape[0]:
+            if p.post_tr[0].shape[-1] != p.w.shape[-2]:
                 raise ValueError(f"stdp_gather: post_tr must be two float32 "
-                                 f"[{p.w.shape[0]}] buffers")
-        super().__init__(n, projs, keys, [(p.w, p.idx, p.valid) for p in projs])
+                                 f"[{p.w.shape[-2]}] buffers")
+        super().__init__(n, projs, keys, [(p.w, p.idx, p.valid) for p in projs], lanes)
 
 
 class StdpUpdateRun(_StdpRun):
     """Pair-based STDP of one run's dense-stored projections, one tick at a
     time (:func:`repro_torch.kernels.ref.stdp_update_run_ref`): ``projs``
     are :class:`repro_torch.kernels.stdp_update.DenseProjection` s
-    (``[P, Q]`` weights and bool mask), run as :class:`_StdpRun` says. On
-    the card ``launcher`` is a
+    (``[P, Q]`` weights and bool mask), run as :class:`_StdpRun` says (over
+    ``lanes``, weights ``[B, P, Q]``,
+    :func:`repro_torch.kernels.ref.stdp_update_lanes_ref`). On the card
+    ``launcher`` is a
     :class:`repro_torch.kernels.stdp_update.StdpUpdateLauncher`: one launch
     per tick over every projection, whatever their number, shapes and
     storage dtypes. A projection's ``padded`` buffer, where given, must
-    hold its weights as its first P·Q entries (``w`` a view of it)."""
+    hold its weights as its first P·Q entries (``w`` a view of it; over
+    lanes ``padded`` is ``[B, P·Q + 1]`` and lane b's weights start its
+    row b)."""
 
     _name = "stdp_update"
     _plain = staticmethod(ref.stdp_update_run_ref)
+    _plain_lanes = staticmethod(ref.stdp_update_lanes_ref)
     _launcher = _stdp_update.StdpUpdateLauncher
 
-    def __init__(self, n: int, projs, keys=None):
+    def __init__(self, n: int, projs, keys=None, lanes: int | None = None):
         projs = tuple(projs)
         for p in projs:
-            if p.w.dim() != 2 or p.mask.shape != p.w.shape or p.mask.dtype != torch.bool:
+            lead = _lead("stdp_update", p.w, lanes)
+            if p.mask.shape != p.w.shape[-2:] or p.mask.dtype != torch.bool:
                 raise ValueError(f"stdp_update: w {tuple(p.w.shape)} must be [P, Q] with a "
                                  f"bool mask of its shape, got {p.mask.dtype} "
                                  f"{tuple(p.mask.shape)}")
             if p.w.dtype not in _stdp_update.STORAGE_DTYPES:
                 raise ValueError(f"stdp_update: w dtype {p.w.dtype} not in "
                                  f"{_stdp_update.STORAGE_DTYPES}")
-            if (p.pre_tr[0].shape[0], p.post_tr[0].shape[0]) != tuple(p.w.shape):
+            if (p.pre_tr[0].shape[-1], p.post_tr[0].shape[-1]) != tuple(p.w.shape[-2:]):
                 raise ValueError(f"stdp_update: pre_tr/post_tr must be two float32 "
-                                 f"[{p.w.shape[0]}] and two [{p.w.shape[1]}] buffers")
+                                 f"[{p.w.shape[-2]}] and two [{p.w.shape[-1]}] buffers")
+            cells = p.w.shape[-2] * p.w.shape[-1]
             if p.padded is not None and (
-                    p.padded.shape != (p.w.numel() + 1,) or p.padded.dtype != p.w.dtype
-                    or p.padded.data_ptr() != p.w.data_ptr() or not p.w.is_contiguous()):
-                raise ValueError(f"stdp_update: padded must be the flat [{p.w.numel() + 1}] "
-                                 "buffer that w is the start of")
-        super().__init__(n, projs, keys, [(p.w, p.mask) for p in projs])
+                    p.padded.shape != (*lead, cells + 1) or p.padded.dtype != p.w.dtype
+                    or p.padded.data_ptr() != p.w.data_ptr()
+                    or p.w.stride()[len(lead):] != (p.w.shape[-1], 1)
+                    or (lead and p.w.stride(0) != p.padded.stride(0))):
+                raise ValueError(f"stdp_update: padded must be the flat "
+                                 f"{list(lead) + [cells + 1]} buffer that w is the start of")
+            if p.padded is None and not p.w.is_contiguous():
+                raise ValueError("stdp_update: w must be contiguous")
+        super().__init__(n, projs, keys, [(p.w if p.padded is None else p.padded, p.mask)
+                                          for p in projs], lanes)
 
     @property
     def padded(self) -> dict:
         """Projection id → its ``padded`` buffer, where it has one."""
         return {j: p.padded for p, j in zip(self.projs, self.keys)
                 if p.padded is not None}
+
+
+class DriveRun:
+    """The fan-in drive of one run's plastic and STP projections, one tick
+    at a time (:func:`repro_torch.kernels.ref.drive_run_ref`): ``projs``
+    are :class:`repro_torch.kernels.plastic_drive.DriveProjection` s, whose
+    drives add into their accumulator entries ``out`` in order (``|drive|``
+    when ``coba``), each row summed in the reference's XLA CPU order
+    (:func:`repro_torch.kernels.ref.xla_cpu_row_sum`) on both devices.
+    ``run(spikes, weights, stp)`` takes the tick's f32 spike rows ``[(B,)
+    n]`` (contiguous; not checked per call) and, aligned with ``projs``,
+    each projection's weights (``[(B,) P, Q]`` dense, rows row-major, or
+    its zero-ended ``[(B,) P·Q + 1]`` buffer; ``[(B,) Q, F]`` CSR) and STP
+    state ``(u, x)`` ``[(B,) n_pre]`` (None for a plastic projection),
+    lanes contiguous. On the card it is one launch for every projection and
+    every lane (``launcher``, a
+    :class:`repro_torch.kernels.plastic_drive.DriveLauncher`, on the stream
+    current at construction); on the CPU ``launcher`` is None and a call
+    runs the plain version."""
+
+    def __init__(self, n: int, projs, *, lanes: int | None = None, coba: bool = False):
+        _check_lanes("plastic_drive", lanes)
+        self.projs = tuple(projs)
+        lead = () if lanes is None else (lanes,)
+        tensors = []
+        for p in self.projs:
+            q = p.pre.shape[0]
+            if p.pre.dim() != 2 or (p.rows is not None and p.rows.shape != p.pre.shape):
+                raise ValueError(f"plastic_drive: pre {tuple(p.pre.shape)} and rows must "
+                                 "share one [Q, F] shape")
+            if p.out.shape != (*lead, q) or p.out.dtype != f32:
+                raise ValueError(f"plastic_drive: out {tuple(p.out.shape)} must be float32 "
+                                 f"{list(lead) + [q]}")
+            if p.w_dtype not in _drive._TYPE or p.stp_dtype not in _drive._TYPE:
+                raise ValueError(f"plastic_drive: storage dtypes {p.w_dtype}/{p.stp_dtype}")
+            if p.rows is not None and p.sentinel < 0:
+                raise ValueError("plastic_drive: a dense projection needs its sentinel P·Q")
+            tensors += [p.pre, p.out] + ([] if p.rows is None else [p.rows])
+        if len({t.device for t in tensors}) > 1:
+            raise ValueError(f"plastic_drive: tensors on different devices "
+                             f"{sorted({str(t.device) for t in tensors})}")
+        self.n, self.lanes, self.coba = n, lanes, coba
+        self.launcher = None
+        if tensors and tensors[0].device.type == "cuda":
+            self.launcher = _drive.DriveLauncher(self.projs, tensors[0].device, lanes, n, coba)
+
+    def __call__(self, spikes: torch.Tensor, weights, stp) -> None:
+        if self.launcher is None:
+            ref.drive_run_ref(spikes, self.projs, weights, stp, coba=self.coba)
+        elif self.launcher.items:
+            self.launcher(spikes.data_ptr(), weights, stp)
+            LAUNCHES["plastic_drive"] += 1
 
 
 class FusedTickRun:
@@ -684,6 +772,14 @@ class FusedTickRun:
     choice), and :meth:`tick` is one launch; on the CPU ``launcher`` is None and :meth:`tick` runs the plain
     version. On the card N is at most ``fused_tick.MAX_N``.
 
+    Lanes: with ``t0`` (B Python ints, each lane's first tick) the run
+    covers B independent lanes: ``v``, ``u`` ``[B, N]``, ``ring`` ``[B, L,
+    N]``, ``rows``, ``v_rows``, ``i_rows`` ``[B, T, N]``, and the payload's
+    weights shared or each lane's own (``assemble_kernel`` on ``[B, ...]``
+    bucket payloads); ``tick(i)`` is tick ``t0[b] + i`` of every lane b, one
+    launch for all of them on the card
+    (:func:`repro_torch.kernels.ref.fused_tick_lanes_ref` on the CPU).
+
     Contract on non-finite weights: the kernel adds only the weights of
     pres that spiked, so a non-finite weight on a silent pre adds nothing
     on the card, where the plain version and the reference's
@@ -695,13 +791,20 @@ class FusedTickRun:
 
     def __init__(self, payload: _fused.KernelPayload, v, u, ring, is_gen, a, b,
                  c, d, rows, v_rows=None, i_rows=None, *, dt: float = 1.0,
-                 substeps: int = 2, grid: int | None = None):
-        n = v.shape[0]
-        if v.dim() != 1 or ring.dim() != 2 or ring.shape[1] != n:
+                 substeps: int = 2, grid: int | None = None,
+                 t0: tuple[int, ...] | None = None):
+        n = v.shape[-1]
+        if t0 is not None and not t0:
+            raise ValueError("fused_tick: t0 must name at least one lane")
+        lead = () if t0 is None else (len(t0),)
+        if v.shape != (*lead, n) or ring.dim() != 2 + len(lead) or ring.shape[:len(lead)] != lead \
+                or ring.shape[-1] != n:
+            dims = "B, " if lead else ""
             raise ValueError(f"fused_tick: v {tuple(v.shape)} and ring "
-                             f"{tuple(ring.shape)} must be [N] and [L, N]")
-        if any(x.shape != (n,) for x in (u, is_gen, a, b, c, d)):
-            raise ValueError(f"fused_tick: u, is_gen, a, b, c, d must be [{n}]")
+                             f"{tuple(ring.shape)} must be [{dims}N] and [{dims}L, N]")
+        if u.shape != v.shape or any(x.shape != (n,) for x in (is_gen, a, b, c, d)):
+            raise ValueError(f"fused_tick: u must be {tuple(v.shape)} and is_gen, a, b, c, d "
+                             f"[{n}]")
         if (v.dtype not in _fused.STORAGE_DTYPES or u.dtype != v.dtype
                 or ring.dtype != v.dtype):
             raise ValueError(f"fused_tick: v/u/ring must share a storage dtype in "
@@ -710,18 +813,19 @@ class FusedTickRun:
         if is_gen.dtype != torch.bool or any(x.dtype != f32 for x in (a, b, c, d)):
             raise ValueError("fused_tick: is_gen must be bool and a, b, c, d float32")
         recs = [x for x in (v_rows, i_rows) if x is not None]
-        if rows.dim() != 2 or rows.shape[1] != n or rows.dtype != torch.bool:
-            raise ValueError(f"fused_tick: rows must be [T, {n}] bool")
+        if (rows.dim() != 2 + len(lead) or rows.shape[:len(lead)] != lead
+                or rows.shape[-1] != n or rows.dtype != torch.bool):
+            raise ValueError(f"fused_tick: rows must be {list(lead) + ['T', n]} bool")
         if any(x.shape != rows.shape or x.dtype != f32 for x in recs):
             raise ValueError(f"fused_tick: v_rows/i_rows must be float32 {tuple(rows.shape)}")
         self._card = _on_card("fused_tick", v, u, ring, is_gen, a, b, c, d, rows,
                               payload.desc, payload.wd, payload.wc, payload.ic, *recs)
         self._args = (payload, v, u, ring, is_gen, a, b, c, d, rows, v_rows, i_rows)
-        self._dt, self._substeps = dt, substeps
+        self._dt, self._substeps, self._t0 = dt, substeps, t0
         if self._card and n:
-            self.launcher = _fused.TickLauncher(payload, v, u, ring, is_gen, a, b,
-                                                c, d, dt=dt, substeps=substeps,
-                                                grid=grid)
+            self.launcher = _fused.TickLauncher(
+                payload, v, u, ring, is_gen, a, b, c, d, dt=dt, substeps=substeps, grid=grid,
+                t0=t0, row_stride=rows.shape[-2] * n if lead else 0)
             self._rows = (rows.data_ptr(), n)
             self._v_rows = 0 if v_rows is None else v_rows.data_ptr()
             self._i_rows = 0 if i_rows is None else i_rows.data_ptr()
@@ -729,31 +833,36 @@ class FusedTickRun:
         else:
             self.launcher = None
 
-    def tick(self, i: int, t: int) -> None:
-        """Tick ``t`` of the run, its ``i``-th: reads and writes row ``i``."""
+    def tick(self, i: int, t: int | None = None) -> None:
+        """Tick ``t`` of the run, its ``i``-th: reads and writes row ``i``
+        (over lanes, ``tick(i)``: every lane's tick ``t0[b] + i``)."""
         if self.launcher is not None:
             rows, n = self._rows
             row = rows + i * n
-            self.launcher(t, row, row,
-                         self._v_rows and self._v_rows + i * self._row_bytes,
-                         self._i_rows and self._i_rows + i * self._row_bytes)
+            self.launcher(i if self._t0 is not None else t, row, row,
+                          self._v_rows and self._v_rows + i * self._row_bytes,
+                          self._i_rows and self._i_rows + i * self._row_bytes)
             LAUNCHES["fused_tick"] += 1
             return
         if self._card:  # N = 0: nothing to compute
             return
         payload, v, u, ring, is_gen, a, b, c, d, rows, v_rows, i_rows = self._args
-        v2, u2, spikes, ring2, i_syn = ref.fused_tick_ref(
-            v, u, ring, rows[i], is_gen, a, b, c, d, t, dense=payload.dense,
-            csr=payload.csr, ring_len=ring.shape[0], dt=self._dt,
-            substeps=self._substeps)
+        kw = dict(dense=payload.dense, csr=payload.csr, ring_len=ring.shape[-2], dt=self._dt,
+                  substeps=self._substeps)
+        if self._t0 is None:
+            v2, u2, spikes, ring2, i_syn = ref.fused_tick_ref(
+                v, u, ring, rows[i], is_gen, a, b, c, d, t, **kw)
+        else:
+            v2, u2, spikes, ring2, i_syn = ref.fused_tick_lanes_ref(
+                v, u, ring, rows[:, i], is_gen, a, b, c, d, [t0 + i for t0 in self._t0], **kw)
         v.copy_(v2)
         u.copy_(u2)
         ring.copy_(ring2)
-        rows[i] = spikes
+        rows[..., i, :] = spikes
         if v_rows is not None:
-            v_rows[i] = v2
+            v_rows[..., i, :] = v2
         if i_rows is not None:
-            i_rows[i] = i_syn
+            i_rows[..., i, :] = i_syn
 
 
 def attention(q, k, v, qpos, kpos, *, causal: bool = True, window: int = -1):

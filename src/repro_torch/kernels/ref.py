@@ -9,11 +9,14 @@ them.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 __all__ = ["izh4_ref", "neuron_run_ref", "neuron_lanes_ref", "coba_current_ref",
            "syn_matmul_ref", "syn_matmul_lanes_ref", "syn_gather_ref", "gather_run_ref",
-           "gather_lanes_ref", "fused_tick_ref", "stdp_update_ref",
+           "gather_lanes_ref", "fused_tick_ref", "fused_tick_lanes_ref", "stdp_update_ref",
            "stdp_gather_ref", "stdp_gather_run_ref", "stdp_update_run_ref",
+           "stdp_gather_lanes_ref", "stdp_update_lanes_ref", "xla_cpu_row_sum",
+           "plastic_drive_ref", "drive_run_ref",
            "chunked_attention_ref", "flash_attention_ref", "pallas_no_key_rows",
            "model_layout"]
 
@@ -100,21 +103,21 @@ def neuron_run_ref(v, u, refrac, ring, slot: int, is_gen, a, b, c, d, gen_cols, 
 
 def neuron_lanes_ref(v, u, refrac, ring, slots, is_gen, a, b, c, d, gen_cols, spikes, *,
                      gen_rows=None, raster_rows=None, v_rows=None, i_rows=None, cond=None,
-                     coba=None, dt: float = 1.0, substeps: int = 2) -> None:
+                     counts=None, coba=None, dt: float = 1.0, substeps: int = 2) -> None:
     """One tick of B lanes' neuron phase, in place: lane ``k`` is
     :func:`neuron_run_ref` on ``v[k]``, ``u[k]``, ``refrac[k]`` and
     ``spikes[k]`` (``[B, N]``), ``ring[k]`` (``[B, L, N, C]``) at ring slot
-    ``slots[k]``, the conductances ``cond`` (four ``[B, N]``) and the rows
+    ``slots[k]``, the conductances ``cond`` (four ``[B, N]``), the rows
     ``gen_rows`` ``[B, n_gen]``, ``raster_rows``, ``v_rows`` and ``i_rows``
-    ``[B, N]`` where given; the parameters are shared. A loop over the
-    lanes."""
+    ``[B, N]`` and the spike ``counts`` ``[B, N]`` where given; the
+    parameters are shared. A loop over the lanes."""
     for k, slot in enumerate(slots):
         def lane(x):
             return None if x is None else x[k]
 
         neuron_run_ref(v[k], u[k], refrac[k], ring[k], slot, is_gen, a, b, c, d, gen_cols,
                        spikes[k], gen_row=lane(gen_rows), raster_row=lane(raster_rows),
-                       v_row=lane(v_rows), i_row=lane(i_rows),
+                       v_row=lane(v_rows), i_row=lane(i_rows), counts=lane(counts),
                        cond=None if cond is None else tuple(g[k] for g in cond), coba=coba,
                        dt=dt, substeps=substeps)
 
@@ -236,6 +239,26 @@ def fused_tick_ref(v, u, ring, gen_row, is_gen, a, b, c, d, t: int, *,
     return v2, u2, spikes, ring, i_syn
 
 
+def fused_tick_lanes_ref(v, u, ring, gen_rows, is_gen, a, b, c, d, ticks, *,
+                         dense=(), csr=(), ring_len: int, dt: float = 1.0,
+                         substeps: int = 2):
+    """One tick of B lanes through the fused tick: lane ``k`` is
+    :func:`fused_tick_ref` on ``v[k]``, ``u[k]`` ``[B, N]``, ``ring[k]``
+    ``[B, L, N]`` and ``gen_rows[k]`` ``[B, N]`` at its tick ``ticks[k]``,
+    each bucket's weights shared (``[P, Q]``/``[Q, F]``) or the lane's own
+    (a leading ``[B]``). Returns the five results stacked over the lanes. A
+    loop over the lanes."""
+    def lane(w, k):
+        return w if w.dim() == 2 else w[k]
+
+    outs = [fused_tick_ref(v[k], u[k], ring[k], gen_rows[k], is_gen, a, b, c, d, t,
+                           dense=[(ps, qs, dl, lane(w, k)) for ps, qs, dl, w in dense],
+                           csr=[(qs, dl, idx, lane(w, k)) for qs, dl, idx, w in csr],
+                           ring_len=ring_len, dt=dt, substeps=substeps)
+            for k, t in enumerate(ticks)]
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
 def stdp_update_ref(w, mask, pre_trace, post_trace, pre_spikes, post_spikes, *,
                     a_plus: float, a_minus: float, w_min: float, w_max: float):
     """Dense pair-based STDP on ``w [P, Q]`` (storage dtype): ``w + a⁺·(pre_t
@@ -305,6 +328,104 @@ def stdp_update_run_ref(spikes, projs, parity: int) -> None:
         p.w.copy_(stdp_update_ref(p.w, p.mask, pre_t, post_t, pre_sp, post_sp,
                                   a_plus=p.a_plus, a_minus=p.a_minus, w_min=p.w_min,
                                   w_max=p.w_max))
+
+
+def _lane_proj(p, k):
+    """Lane ``k`` of a run projection over lanes (weights ``[B, ...]``,
+    trace pairs ``[B, P]`` and ``[B, Q]``): views, so that the one-lane
+    plain version updates the lane in place."""
+    return p._replace(w=p.w[k], pre_tr=tuple(t[k] for t in p.pre_tr),
+                      post_tr=tuple(t[k] for t in p.post_tr))
+
+
+def stdp_gather_lanes_ref(spikes, projs, parity: int) -> None:
+    """One launch of an :class:`repro_torch.kernels.ops.StdpGatherRun` over
+    B lanes, in place: lane ``k`` is :func:`stdp_gather_run_ref` on the
+    spike row ``spikes[k]`` (``[B, N]``) and every projection's lane ``k``
+    (weights ``[B, Q, F]``, traces ``[B, P]``/``[B, Q]``; ``idx`` and
+    ``valid`` shared). A loop over the lanes."""
+    for k in range(spikes.shape[0]):
+        stdp_gather_run_ref(spikes[k], [_lane_proj(p, k) for p in projs], parity)
+
+
+def stdp_update_lanes_ref(spikes, projs, parity: int) -> None:
+    """One launch of an :class:`repro_torch.kernels.ops.StdpUpdateRun` over
+    B lanes, in place: lane ``k`` is :func:`stdp_update_run_ref` on the
+    spike row ``spikes[k]`` (``[B, N]``) and every projection's lane ``k``
+    (weights ``[B, P, Q]``, traces ``[B, P]``/``[B, Q]``; the mask shared).
+    A loop over the lanes."""
+    for k in range(spikes.shape[0]):
+        stdp_update_run_ref(spikes[k], [_lane_proj(p, k) for p in projs], parity)
+
+
+XLA_REDUCE_WINDOW = 32  # XLA CPU's tree reduction rewriter's window
+
+
+def xla_cpu_row_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x.sum(dim=-1)`` for an f32 ``[..., F]`` ``x``, in the order the
+    reference's compiled reduce takes on the CPU. XLA CPU's tree reduction
+    rewriter cuts a reduced dimension longer than 32 into windows of 32,
+    the row padded with ``pad // 2`` skipped slots in front (``pad = -F mod
+    32``) and the rest behind; each window sums its elements left to right
+    from +0.0, and the window sums are reduced the same way, until 32 or
+    fewer remain, which sum left to right from +0.0. Padding adds +0.0 to
+    a partial sum that cannot be -0.0, so it is added here instead of
+    skipped. One add per window slot, whatever F: a few dozen ops. Leading
+    dimensions (rows, lanes) are independent, each summed so."""
+    while x.shape[-1] > XLA_REDUCE_WINDOW:
+        f = x.shape[-1]
+        n = -(-f // XLA_REDUCE_WINDOW)
+        pad = n * XLA_REDUCE_WINDOW - f
+        x = F.pad(x, (pad // 2, pad - pad // 2)).reshape(*x.shape[:-1], n, XLA_REDUCE_WINDOW)
+        x = _sum_left_to_right(x)
+    return _sum_left_to_right(x)
+
+
+def _sum_left_to_right(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over its last dimension left to right from +0.0."""
+    acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    for k in range(x.shape[-1]):
+        acc = acc + x[..., k]
+    return acc
+
+
+def plastic_drive_ref(w, pre, rows, pre_row, sentinel: int = -1):
+    """One plastic or STP projection's fan-in drive ``[(B,) Q] = Σ_k
+    pre_row[pre[q, k]] · w_row[q, k]`` (f32), as the reference's XLA
+    gather, product and row reduce give it on the CPU (sum order
+    :func:`xla_cpu_row_sum`). ``pre_row`` ``[(B,) M]`` f32 (the spike row
+    with a zero appended, or an STP projection's scaled pre row); ``pre``
+    ``[Q, F]`` int64 ids into it. ``rows`` None: ``w`` is the CSR fan-in
+    weights ``[(B,) Q, F]``; else ``rows`` ``[Q, F]`` int64 flat ids into a
+    dense ``[P, Q]`` weight whose id ``sentinel`` (``P·Q``) reads +0.0, and
+    ``w`` is that weight ``[(B,) P, Q]`` or its zero-ended ``[(B,) P·Q +
+    1]`` buffer."""
+    g = pre_row[..., pre]
+    if rows is None:
+        wr = w.to(f32)
+    else:
+        flat = w.reshape(*pre_row.shape[:-1], -1)
+        if flat.shape[-1] == sentinel:
+            flat = torch.cat((flat, flat.new_zeros((*flat.shape[:-1], 1))), dim=-1)
+        wr = flat[..., rows].to(f32)
+    return xla_cpu_row_sum(g * wr)
+
+
+def drive_run_ref(spikes, projs, weights, stp, *, coba: bool = False) -> None:
+    """One launch of an :class:`repro_torch.kernels.ops.DriveRun`, in place
+    on the projections' accumulator entries: for each projection of
+    ``projs`` (:class:`repro_torch.kernels.plastic_drive.DriveProjection`),
+    in order, its :func:`plastic_drive_ref` drive on the spike rows
+    ``spikes`` ``[(B,) N]`` f32 (with a zero appended; an STP projection's
+    pre group scaled by ``u · x`` from ``stp``) and its weights from
+    ``weights`` is added into ``out``, its absolute value when ``coba``."""
+    ext = F.pad(spikes, (0, 1))
+    for p, w, s in zip(projs, weights, stp):
+        pre_row = ext
+        if p.stp:
+            pre_row = spikes[..., p.pre_start:p.pre_start + p.n_pre] * (s[0] * s[1])
+        d = plastic_drive_ref(w, p.pre, p.rows, pre_row, p.sentinel)
+        p.out.add_(d.abs() if coba else d)
 
 
 def chunked_attention_ref(q, k, v, qpos, kpos, *, causal: bool = True,

@@ -36,7 +36,8 @@ class _Proj(ctypes.Structure):
     """``StdpProj`` of ``csrc/stdp_gather.cu``, field for field."""
 
     _fields_ = [("w", _P), ("idx", _P), ("valid", _P), ("pre_tr", _P * 2),
-                ("post_tr", _P * 2), ("begin", ctypes.c_longlong)] + [
+                ("post_tr", _P * 2), ("w_lane", ctypes.c_longlong),
+                ("begin", ctypes.c_longlong)] + [
         (name, _I) for name in ("P", "Q", "F", "pre_start", "post_start", "itype",
                                 "wtype")] + [
         (name, _F) for name in ("a_plus", "a_minus", "w_min", "w_max", "decay_pre",
@@ -47,7 +48,7 @@ class _Plan(ctypes.Structure):
     """``StdpPlan`` of ``csrc/stdp_gather.cu``, field for field."""
 
     _fields_ = [("projs", _P), ("stream", _P), ("n_items", ctypes.c_longlong),
-                ("n_projs", _I)]
+                ("n_projs", _I), ("lanes", _I), ("n", _I)]
 
 
 _SIGNATURES = {**{f"stdp_gather_{i}_{w}": _SIGNATURE
@@ -79,7 +80,9 @@ class Projection(NamedTuple):
     and ``post_tr`` (two ``[Q]`` f32); where its pre and post groups start
     in the tick's ``[N]`` spike row; the update's constants and the trace
     decays ``exp(-dt/tau+)`` (pre) and ``exp(-dt/tau-)`` (post) as Python
-    floats, applied as f32."""
+    floats, applied as f32. Over B lanes (a batched run), ``w`` is ``[B, Q,
+    F]`` and the traces are pairs of ``[B, P]`` and ``[B, Q]``; ``idx`` and
+    ``valid`` are shared."""
 
     w: torch.Tensor
     idx: torch.Tensor
@@ -100,9 +103,11 @@ class StdpLauncher:
     """The :class:`Projection` s of one run on the card ``device``: their
     descriptors laid out once, in order, in device memory, launching on the
     stream current at construction. Each projection's items are its cells,
-    then one per pre and one per post neuron (the trace steps)."""
+    then one per pre and one per post neuron (the trace steps). Over
+    ``lanes`` B (``n`` the spike row's length) the grid takes a second
+    dimension, one lane each."""
 
-    def __init__(self, projs, device):
+    def __init__(self, projs, device, lanes: int | None = None, n: int = 0):
         lib = _lib()
         sizes = (_I * 2)()
         lib.stdp_gather_run_sizes(sizes)
@@ -112,11 +117,12 @@ class StdpLauncher:
         table = (_Proj * len(projs))()
         begin = 0
         for d, p in zip(table, projs):
-            q, f = p.w.shape
-            n_pre = p.pre_tr[0].shape[0]
+            q, f = p.w.shape[-2:]
+            n_pre = p.pre_tr[0].shape[-1]
             d.w, d.idx, d.valid = p.w.data_ptr(), p.idx.data_ptr(), p.valid.data_ptr()
             d.pre_tr[:] = [t.data_ptr() for t in p.pre_tr]
             d.post_tr[:] = [t.data_ptr() for t in p.post_tr]
+            d.w_lane = p.w.stride(0) if lanes is not None else 0
             d.begin, d.P, d.Q, d.F = begin, n_pre, q, f
             d.pre_start, d.post_start = p.pre_start, p.post_start
             d.itype, d.wtype = _ITYPE[p.idx.dtype], _WTYPE[p.w.dtype]
@@ -129,7 +135,8 @@ class StdpLauncher:
         self.items = begin
         self._plan = _Plan(projs=self._keep[1].data_ptr(),
                            stream=torch.cuda.current_stream(device).cuda_stream,
-                           n_items=begin, n_projs=len(projs))
+                           n_items=begin, n_projs=len(projs),
+                           lanes=1 if lanes is None else lanes, n=n)
         self._ref = ctypes.byref(self._plan)
         self._lib, self._fn = lib, lib.stdp_gather_run
 

@@ -33,7 +33,8 @@ STORAGE_DTYPES = tuple(_ENTRY)
 class _Proj(ctypes.Structure):
     """``StdpDenseProj`` of ``csrc/stdp_update.cu``, field for field."""
 
-    _fields_ = [("w", _P), ("mask", _P), ("pre_tr", _P * 2), ("post_tr", _P * 2)] + [
+    _fields_ = [("w", _P), ("mask", _P), ("pre_tr", _P * 2), ("post_tr", _P * 2),
+                ("w_lane", ctypes.c_longlong)] + [
         (name, _I) for name in ("begin", "P", "Q", "col_tiles", "pre_start", "post_start",
                                 "wtype")] + [
         (name, _F) for name in ("a_plus", "a_minus", "w_min", "w_max", "decay_pre",
@@ -44,7 +45,7 @@ class _Plan(ctypes.Structure):
     """``StdpDensePlan`` of ``csrc/stdp_update.cu``, field for field."""
 
     _fields_ = [("projs", _P), ("begins", _P), ("stream", _P), ("n_tiles", _I),
-                ("n_projs", _I)]
+                ("n_projs", _I), ("lanes", _I), ("n", _I)]
 
 
 _SIGNATURES = {**{name: _SIGNATURE for name in _ENTRY.values()},
@@ -77,7 +78,12 @@ class DenseProjection(NamedTuple):
     ``exp(-dt/tau-)`` (post) as Python floats, applied as f32. ``padded``,
     where given, is the flat ``[P·Q + 1]`` buffer whose first P·Q entries
     are ``w`` and whose last is +0.0: the fan-in drive gathers its rows
-    from it (``core/backend.plastic_drive``)."""
+    from it (the plain fan-in drive, ``ref.plastic_drive_ref``).
+
+    Over B lanes (a batched run), ``w`` is ``[B, P, Q]`` (each lane the
+    start of its own row of ``padded`` ``[B, P·Q + 1]``, or contiguous
+    without it), the traces are pairs of ``[B, P]`` and ``[B, Q]`` and the
+    mask is shared."""
 
     w: torch.Tensor
     mask: torch.Tensor
@@ -100,9 +106,10 @@ class StdpUpdateLauncher:
     on the stream current at construction. Each projection is tiles of
     ``rows`` rows by ``cols`` columns (the kernel's), one CTA each, at least
     one per projection; ``items`` is the launch's CTA count (0: nothing to
-    launch)."""
+    launch). Over ``lanes`` B (``n`` the spike row's length) the grid
+    takes a second dimension, one lane each."""
 
-    def __init__(self, projs, device):
+    def __init__(self, projs, device, lanes: int | None = None, n: int = 0):
         lib = _lib()
         sizes = (_I * 4)()
         lib.stdp_update_run_sizes(sizes)
@@ -114,11 +121,12 @@ class StdpUpdateLauncher:
         begins = []
         tiles = 0
         for d, p in zip(table, projs):
-            n_pre, n_post = p.w.shape
+            n_pre, n_post = p.w.shape[-2:]
             col_tiles = max(1, -(-n_post // self.cols))
             d.w, d.mask = p.w.data_ptr(), p.mask.data_ptr()
             d.pre_tr[:] = [t.data_ptr() for t in p.pre_tr]
             d.post_tr[:] = [t.data_ptr() for t in p.post_tr]
+            d.w_lane = p.w.stride(0) if lanes is not None else 0
             d.begin, d.P, d.Q, d.col_tiles = tiles, n_pre, n_post, col_tiles
             d.pre_start, d.post_start = p.pre_start, p.post_start
             d.wtype = _WTYPE[p.w.dtype]
@@ -135,12 +143,13 @@ class StdpUpdateLauncher:
         self.items = tiles
         self._plan = _Plan(projs=self._keep[1].data_ptr(), begins=self._keep[2].data_ptr(),
                            stream=torch.cuda.current_stream(device).cuda_stream,
-                           n_tiles=self.items, n_projs=len(projs))
+                           n_tiles=self.items, n_projs=len(projs),
+                           lanes=1 if lanes is None else lanes, n=n)
         self._ref = ctypes.byref(self._plan)
         self._lib, self._fn = lib, lib.stdp_update_run
 
     def __call__(self, spikes_ptr: int, parity: int) -> None:
-        """One tick on the f32 spike row at device pointer ``spikes_ptr``,
+        """One tick on the f32 spike row(s) at device pointer ``spikes_ptr``,
         the traces read from buffer ``parity`` and written to the other."""
         err = self._fn(self._ref, spikes_ptr, parity)
         if err:

@@ -9,11 +9,17 @@ counter-keyed generator stream and its own ``active`` flag.
 :func:`repro_torch.core.engine.batched_route` net that chunk is one tick
 loop for all lanes, one launch per kernel per tick (``izh4_update`` over
 every lane, ``syn_gather`` or the dense buckets' ``syn_matmul`` over every
-lane's own weight tables), through propagation launchers built once per
-scheduler (:class:`repro_torch.core.backend.LanePropagation`; an admit or
-a restore writes its lane's weights into them); any other net (plastic, ``backend="fused"``,
-the ``loop`` oracle) advances its lanes one after another through
-``engine.run``, each lane on its own launchers.
+lane's own weight tables; on a plastic or STP net one ``plastic_drive``,
+``stdp_gather`` and ``stdp_update`` over every lane's own plastic weights
+and traces, DA-STDP, STP and homeostasis on the lane axis; on a
+``fused_tick`` net one ``fused_tick``), through propagation launchers built
+once per scheduler (:class:`repro_torch.core.backend.LanePropagation`; an
+admit or a restore writes its lane's weights into them; the plastic
+launchers are built per chunk on the lanes' current weights, which, with
+the traces, homeostasis rates and STP state, live in the lanes' state);
+any other net (the ``loop`` oracle, IZH9/LIF groups, RK4) advances its
+lanes one after another through ``engine.run``, each lane on its own
+launchers.
 
 Lanes are slots: :meth:`~LaneScheduler.admit` writes a session into a free
 lane, :meth:`~LaneScheduler.evict` copies its state back out (resumable bit

@@ -23,7 +23,13 @@ conductance-based (COBA) nets: B1's COBA mode against the per-op COBA
 phase, COBA runs (packed, sparse, loop) on the card against the CPU port,
 B2 over a two-channel plan on random weights, and ``run``'s
 ``gen_chunk``, ``gen_base`` and ``active`` on the card against the CPU
-port."""
+port; and lanes: B1-B3 over lanes against their plain versions and the
+one-lane launchers, B4 (``FusedTickRun``), B5 (``StdpGatherRun``), B6
+(``StdpUpdateRun``) and the plastic drive (``DriveRun``, bit for bit
+against ``ref.drive_run_ref`` at fan-ins up to 33,000) over lanes the
+same way, ``NeuronRun``'s per-lane spike counts, and static, plastic
+(with homeostasis) and fused ``run_batch`` lanes against solo card
+runs."""
 import math
 
 import numpy as np
@@ -1013,3 +1019,337 @@ def test_scheduler_lane_with_weights_of_its_own(card, propagation):
     sched.step(30)
     same(lane_state(sched.states, sched.lane_of("a")), solo(1, 100))
     same(lane_state(sched.states, lane), solo(3, 30))
+
+
+# -- plastic, STP and fused lanes (B4, B5, B6 and the plastic drive over lanes) --------
+
+
+def _plastic_mini(propagation, device, **kw):
+    from repro_torch.configs.synfire4 import CHAIN_STDP, SYNFIRE4_MINI, build_synfire
+
+    return build_synfire(SYNFIRE4_MINI, policy="fp16", propagation=propagation, device=device,
+                         stdp_chain=CHAIN_STDP, **kw)
+
+
+def _lane_spikes(g, lanes, n, device):
+    """Random 0/1 f32 spike rows, a third of the lanes silent."""
+    s = (torch.rand((lanes, n), generator=g) < 0.3).float()
+    s[2::3] = 0.0
+    return s.to(device)
+
+
+def _lane_tables(net, g, lanes, device):
+    """Each lane's own random off-grid plastic weights and traces."""
+    weights = tuple(torch.where(net.params.masks[j].cpu(),
+                                torch.rand((lanes, *w.shape), generator=g) * 4, 0.0
+                                ).to(w.dtype).to(device)
+                    if net.static.projections[j].plastic else w
+                    for j, w in enumerate(net.state0.weights))
+    stdp = tuple(None if s is None else type(s)(*(
+        (torch.rand((lanes, *x.shape), generator=g) * 2).to(device) for x in s))
+        for s in net.state0.stdp)
+    return weights, stdp
+
+
+def _one_lane(tree, b):
+    """Lane ``b`` of a tuple of per-lane tensors (shared ones kept)."""
+    return tuple(None if x is None else type(x)(*(y[b] for y in x)) if isinstance(x, tuple)
+                 else x[b] if x.dim() == 3 else x for x in tree)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("propagation", ["packed", "sparse"])
+def test_stdp_lanes_match_plain_and_one_lane(card, propagation):
+    """``StdpUpdateRun`` (packed) or ``StdpGatherRun`` (sparse) over 48 lanes
+    of the plastic mini's chain on random off-grid weights and traces, a
+    third of the lanes silent: bit for bit their plain lane versions after
+    every tick, and every lane its one-lane launch; one launch a tick."""
+    from repro_torch.core import backend as be
+
+    net = _plastic_mini(propagation, card)
+    g = torch.Generator().manual_seed(21)
+    lanes = 48
+    weights, stdp = _lane_tables(net, g, lanes, card)
+    build = be.assemble_stdp_update if propagation == "packed" else be.assemble_stdp_gather
+    runs = build(net.static, net.params, weights, stdp, lanes)
+    plain = build(net.static, net.params, weights, stdp, lanes)  # its buffers, run plain
+    plain_fn = (ref.stdp_update_lanes_ref if propagation == "packed"
+                else ref.stdp_gather_lanes_ref)
+    ones = [build(net.static, net.params, _one_lane(weights, b), _one_lane(stdp, b))
+            for b in range(lanes)]
+    assert runs.launcher is not None
+    name = "stdp_update" if propagation == "packed" else "stdp_gather"
+    ops.reset_launches()
+    for t in range(6):
+        spikes = _lane_spikes(g, lanes, net.static.n, card)
+        runs(spikes)
+        plain_fn(spikes, plain.projs, t % 2)
+        for b, one in enumerate(ones):
+            one(spikes[b].contiguous())
+        torch.cuda.synchronize()
+        for k in range(len(runs.keys)):
+            assert torch.equal(runs.projs[k].w, plain.projs[k].w), k
+            for x, y in zip(runs.traces(k), (plain.projs[k].pre_tr[(t + 1) % 2],
+                                              plain.projs[k].post_tr[(t + 1) % 2])):
+                assert torch.equal(x, y), k
+    assert ops.LAUNCHES[name] == 6 + 6 * lanes
+    for b, one in enumerate(ones):
+        for k in range(len(runs.keys)):
+            assert torch.equal(one.projs[k].w, runs.projs[k].w[b]), (b, k)
+            for x, y in zip(one.traces(k), runs.traces(k)):
+                assert torch.equal(x, y[b]), (b, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net_name", ["packed", "sparse", "stp", "x10-sparse"])
+def test_drive_kernel_matches_plain_bitwise(card, net_name):
+    """``DriveRun`` over 16 lanes on random off-grid weights (and STP state)
+    lands bit for bit what ``ref.drive_run_ref`` lands, on the card and on
+    the CPU, and every lane its one-lane launch: the kernel sums each row
+    in XLA CPU's order (the x10 chain's fan-in rows are wider than 32)."""
+    from repro_torch.core import NetworkBuilder, backend as be, izh4
+    from repro_torch.core.synapses import STPConfig
+    from repro_torch.kernels.plastic_drive import DriveProjection
+
+    if net_name == "stp":
+        b_ = NetworkBuilder(seed=0)
+        b_.add_spike_generator("g", 50, rate_hz=200.0)
+        b_.add_group("n", izh4(20, a=0.02, b=0.2, c=-65.0, d=8.0))
+        b_.connect("g", "n", fanin=20, weight=0.3, delay_ms=1,
+                   stp=STPConfig(u0=0.45, tau_f=50.0, tau_d=750.0))
+        net = b_.compile(policy="fp16", device=card)
+    elif net_name == "x10-sparse":
+        from repro_torch.configs.synfire4 import CHAIN_STDP, SYNFIRE4_X10, build_synfire
+
+        net = build_synfire(SYNFIRE4_X10, policy="fp16", propagation="sparse", device=card,
+                            stdp_chain=CHAIN_STDP, monitor_ms_hint=0, budget=None)
+    else:
+        net = _plastic_mini(net_name, card)
+    g = torch.Generator().manual_seed(22)
+    lanes = 16
+    fanin = be.assemble_fanin(net.static, net.params)
+    keys = [j for j, s in enumerate(net.static.projections) if s.plastic or s.stp is not None]
+    acc = torch.rand((lanes, net.static.n), generator=g).to(card)
+    before = acc.clone()
+    accs = {"plain": acc.clone(), "one": acc.clone(), "cpu": acc.cpu()}
+    projs = {k: [] for k in ("card", "plain", "cpu")}
+    ones = [[] for _ in range(lanes)]
+    weights, stp = [], []
+    for j in keys:
+        spec, fr = net.static.projections[j], fanin[j]
+        w0 = net.state0.weights[j]
+        weights.append((torch.rand((lanes, *w0.shape), generator=g) * 3).to(w0.dtype).to(card))
+        st = None
+        if spec.stp is not None:
+            u0 = net.state0.stp[j].u
+            st = tuple(torch.rand((lanes, *u0.shape), generator=g).to(u0.dtype).to(card)
+                       for _ in range(2))
+        stp.append(st)
+        kw = dict(w_dtype=w0.dtype, stp=spec.stp is not None, pre_start=spec.pre_start,
+                  n_pre=spec.pre_size, stp_dtype=st[0].dtype if st else torch.float32,
+                  sentinel=spec.pre_size * spec.post_size if fr.rows is not None else -1)
+        cols = slice(spec.post_start, spec.post_start + spec.post_size)
+        for name, out in (("card", acc), ("plain", accs["plain"]), ("cpu", accs["cpu"])):
+            dev = out.device
+            projs[name].append(DriveProjection(
+                pre=fr.pre.to(dev), rows=None if fr.rows is None else fr.rows.to(dev),
+                out=out[:, cols], **kw))
+        for b in range(lanes):
+            ones[b].append(DriveProjection(pre=fr.pre, rows=fr.rows,
+                                           out=accs["one"][b, cols], **kw))
+    spikes = _lane_spikes(g, lanes, net.static.n, card)
+    run = ops.DriveRun(net.static.n, projs["card"], lanes=lanes)
+    assert run.launcher is not None
+    ops.reset_launches()
+    run(spikes, weights, stp)
+    ref.drive_run_ref(spikes, projs["plain"], weights, stp)
+    ops.DriveRun(net.static.n, projs["cpu"], lanes=lanes)(
+        spikes.cpu(), [w.cpu() for w in weights],
+        [None if s is None else tuple(x.cpu() for x in s) for s in stp])
+    for b in range(lanes):
+        ops.DriveRun(net.static.n, ones[b])(
+            spikes[b].contiguous(), [w[b] for w in weights],
+            [None if s is None else (s[0][b], s[1][b]) for s in stp])
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["plastic_drive"] == 1 + lanes
+    assert torch.equal(acc, accs["plain"]) and torch.equal(acc.cpu(), accs["cpu"])
+    assert torch.equal(acc, accs["one"])
+    assert not torch.equal(acc, before)
+
+
+@pytest.mark.cuda
+def test_neuron_run_lane_counts_match_one_lane(card):
+    """``NeuronRun`` over 64 lanes at their own ticks counts every lane's
+    spikes (``[B, N]``) as its one-lane launch counts them."""
+    from repro_torch.configs.synfire4 import SYNFIRE4, build_synfire
+    from repro_torch.core import backend as be
+    from repro_torch.core.lanes import lane_state
+
+    net = build_synfire(SYNFIRE4, policy="fp16", propagation="sparse", device=card,
+                        budget=None)
+    st = _lane_states(net, 64, 23, card)
+    g = torch.Generator().manual_seed(23)
+    gen = (torch.rand((64, 20, net.static.n_gen), generator=g) < 0.3)
+    gen[2::3] = False
+    gen = gen.to(card)
+    counts = torch.zeros((64, net.static.n), dtype=torch.int32, device=card)
+    runs = be.assemble_neurons(net.static, net.params, st.neurons, st.ring.clone(),
+                               gen_spk=gen, counts=counts, t0=st.t)
+    for i in range(20):
+        runs(i)
+    for b in (0, 31, 63):
+        one = lane_state(st, b)
+        c1 = torch.zeros((net.static.n,), dtype=torch.int32, device=card)
+        solo = be.assemble_neurons(net.static, net.params, one.neurons, one.ring,
+                                   gen_spk=gen[b].contiguous(), counts=c1)
+        for i in range(20):
+            solo(i, st.t[b] + i)
+        torch.cuda.synchronize()
+        assert torch.equal(c1, counts[b]), b
+    assert int(counts.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_lane", [False, True], ids=["shared", "per-lane"])
+@pytest.mark.parametrize("propagation", ["packed", "sparse"])
+def test_fused_tick_lanes_match_plain_and_one_lane(card, propagation, per_lane):
+    """``FusedTickRun`` over 64 lanes of Synfire4 fp16 at their own ring
+    slots (random v, u, ring and generator rows, a third of the lanes
+    silent; weights shared, or each lane's own Synfire-valued table, which
+    keeps every sum exact): bit for bit its plain lane version and every
+    lane its one-lane launch over 12 ticks, one launch a tick."""
+    from repro_torch.configs.synfire4 import SYNFIRE4, build_synfire
+    from repro_torch.core import backend as be
+    from repro_torch.core.neurons import NeuronModel
+    from repro_torch.kernels.fused_tick import assemble_kernel
+
+    net = build_synfire(SYNFIRE4, policy="fp16", propagation=propagation, device=card,
+                        backend="fused", budget=None)
+    g = torch.Generator().manual_seed(24)
+    lanes, ticks, n = 64, 12, net.static.n
+    packed = be.assemble_packed(net.static, net.state0.weights)
+    if per_lane:  # each lane its table scaled by a power of two: sums stay exact
+        scale = (2.0 ** torch.randint(-2, 3, (lanes,), generator=g)).to(card)
+        packed = tuple(w[None] * scale.view(-1, *[1] * w.dim()) for w in packed)
+    payload = assemble_kernel(net.static, net.params, packed)
+    dtype = net.state0.neurons.v.dtype
+    v = (torch.rand((lanes, n), generator=g) * 100 - 75).to(dtype).to(card)
+    u = (torch.rand((lanes, n), generator=g) * 10 - 15).to(dtype).to(card)
+    ring = (torch.rand((lanes, net.static.ring_len, n), generator=g) * 10).to(dtype).to(card)
+    rows = torch.rand((lanes, ticks, n), generator=g) < 0.2
+    rows[2::3] = False
+    rows = rows.to(card)
+    t0 = tuple(100 + 7 * b for b in range(lanes))
+    p = net.params.neuron
+    is_gen = p.model == NeuronModel.GENERATOR
+    state = [x.clone() for x in (v, u, ring, rows)]
+    plain = [x.clone() for x in (v, u, ring, rows)]
+    runs = ops.FusedTickRun(payload, *state[:3], is_gen, p.a, p.b, p.c, p.d, state[3], t0=t0)
+    assert runs.launcher is not None
+    ops.reset_launches()
+    for i in range(ticks):
+        runs.tick(i)
+        pv, pu, pring, prows = plain
+        v2, u2, spikes, ring2, _ = ref.fused_tick_lanes_ref(
+            pv, pu, pring, prows[:, i], is_gen, p.a, p.b, p.c, p.d, [t + i for t in t0],
+            dense=payload.dense, csr=payload.csr, ring_len=net.static.ring_len)
+        pv.copy_(v2)
+        pu.copy_(u2)
+        pring.copy_(ring2)
+        prows[:, i] = spikes
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fused_tick"] == ticks
+    for x, y in zip(state, plain):
+        assert torch.equal(x, y)
+    for b in (0, 1, 2, 33, 63):
+        one = assemble_kernel(net.static, net.params, tuple(
+            w[b] if per_lane else w for w in packed))
+        ov, ou, oring, orows = (x[b].clone() for x in (v, u, ring, rows))
+        solo = ops.FusedTickRun(one, ov, ou, oring, is_gen, p.a, p.b, p.c, p.d, orows)
+        for i in range(ticks):
+            solo.tick(i, t0[b] + i)
+        torch.cuda.synchronize()
+        for x, y in zip((ov, ou, oring, orows), state):
+            assert torch.equal(x, y[b]), b
+    assert int(state[3][:, :, ~is_gen].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["plastic-packed", "plastic-sparse-homeo", "fused-sparse"])
+def test_widened_run_batch_lanes_equal_solo_runs(card, case):
+    """``run_batch(200, 16)`` on the plastic mini (packed; sparse with
+    homeostasis every 40 ticks) and the fused Synfire4: one launch per
+    kernel per tick for every lane, and lanes 0, 7 and 15 equal solo card
+    runs in raster, weights, traces, rates and state."""
+    from repro_torch.configs.synfire4 import SYNFIRE4, build_synfire
+    from repro_torch.core import lane_state, rng, run, run_batch
+    from repro_torch.core.plasticity import HomeostasisConfig
+
+    if case == "fused-sparse":
+        net = build_synfire(SYNFIRE4, policy="fp16", propagation="sparse", device=card,
+                            backend="fused", budget=None)
+        want = {"fused_tick": 200}
+    elif case == "plastic-packed":
+        net = _plastic_mini("packed", card)
+        want = {"izh4_update": 200, "stdp_update": 200, "plastic_drive": 200}
+    else:
+        net = _plastic_mini("sparse", card, homeo_chain=HomeostasisConfig(
+            target_hz=10.0, tau_avg_ms=1000.0, beta=2.0), homeostasis_period=40)
+        want = {"izh4_update": 200, "stdp_gather": 200, "plastic_drive": 200,
+                "syn_gather": 200}
+    ops.reset_launches()
+    final, out = run_batch(net.static, net.params, net.state0, 200, 16)
+    torch.cuda.synchronize()
+    assert {k: ops.LAUNCHES[k] for k in want} == want
+    keys = rng.split(net.state0.key, 16)
+    for b in (0, 7, 15):
+        solo, o = run(net.static, net.params, net.state0._replace(key=keys[b]), 200)
+        assert torch.equal(o["spikes"], out["spikes"][b]), b
+        lane = lane_state(final, b)
+        for x, y in ((lane.ring, solo.ring), *zip(lane.neurons, solo.neurons),
+                     *zip(lane.weights, solo.weights)):
+            assert torch.equal(x, y), b
+        for x, y in zip(lane.stdp, solo.stdp):
+            assert (x is None) == (y is None) and (x is None or all(
+                torch.equal(a, c) for a, c in zip(x, y))), b
+        for x, y in zip(lane.homeo, solo.homeo):
+            assert (x is None and y is None) or torch.equal(x, y), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 7, 32, 33, 65, 1025, 1100, 33000])
+@pytest.mark.parametrize("dense", [False, True], ids=["csr", "dense"])
+def test_drive_kernel_row_order(card, f, dense):
+    """The drive kernel's row sums in XLA CPU's order at fan-ins below, at
+    and just above a window of 32 and past 1,024 (windows two and three
+    levels deep), fp16 and f32 weights, three lanes, against its plain
+    version on the card and on the CPU, bit for bit."""
+    from repro_torch.kernels.plastic_drive import DriveProjection
+
+    g = torch.Generator().manual_seed(f)
+    lanes, n, q = 3, 500, 5
+    for wdtype in (torch.float32, torch.float16):
+        pre = torch.randint(0, n + 1, (q, f), generator=g)  # id n: the sentinel
+        rows, sentinel = None, -1
+        if dense:
+            p_ = 40
+            sentinel = p_ * q
+            rows = torch.randint(0, sentinel + 1, (q, f), generator=g)
+            w = torch.randn((lanes, p_, q), generator=g).to(wdtype)
+        else:
+            w = torch.randn((lanes, q, f), generator=g).to(wdtype)
+        spikes = (torch.rand((lanes, n), generator=g) < 0.4).float()
+        outs = {}
+        for name, dev in (("card", card), ("plain", card), ("cpu", torch.device("cpu"))):
+            acc = torch.zeros((lanes, n), device=dev)
+            proj = DriveProjection(pre=pre.to(dev), rows=None if rows is None else rows.to(dev),
+                                   out=acc[:, 10:10 + q], w_dtype=wdtype, sentinel=sentinel)
+            if name == "plain":
+                ref.drive_run_ref(spikes.to(dev), [proj], [w.to(dev)], [None])
+            else:
+                ops.DriveRun(n, [proj], lanes=lanes)(spikes.to(dev), [w.to(dev)], [None])
+            outs[name] = acc.cpu()
+        torch.cuda.synchronize()
+        assert torch.equal(outs["card"], outs["plain"]) and torch.equal(outs["card"],
+                                                                        outs["cpu"])
+        assert bool(outs["card"].ne(0).any())

@@ -23,6 +23,7 @@ from repro.kernels.syn_gather import syn_gather as pallas_gather  # noqa: E402
 from repro.kernels.syn_matmul import syn_matmul as pallas_matmul  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import syn_gather as gsyn  # noqa: E402
+from repro_torch.kernels.plastic_drive import DriveProjection  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -931,9 +932,14 @@ class TestWrappers:
                       torch.ones(3, dtype=torch.int32))
         ops.flash_attention(torch.ones((1, 4, 2, 8)), torch.ones((1, 2, 3, 8)),
                             torch.ones((1, 2, 3, 8)))
+        out = torch.zeros(4)
+        ops.DriveRun(8, [DriveProjection(pre=torch.zeros((4, 3), dtype=torch.int64), rows=None,
+                                         out=out, w_dtype=torch.float32)])(
+            torch.ones(8), [torch.ones((4, 3))], [None])
+        assert torch.equal(out, torch.full((4,), 3.0))
         assert ops.LAUNCHES == {"izh4_update": 0, "syn_matmul": 0, "syn_gather": 0,
                                 "fused_tick": 0, "stdp_update": 0, "stdp_gather": 0,
-                                "flash_attention": 0}
+                                "plastic_drive": 0, "flash_attention": 0}
         assert _build._LIBS == {}
 
     def test_mixed_devices_raise(self):
@@ -949,11 +955,17 @@ class TestWrappers:
             ops.syn_matmul(torch.ones((1, 8), dtype=torch.float16), torch.ones((8, 4)))
 
     def test_kernel_sources_and_build_flags(self):
-        """Every kernel has its CUDA source, built for sm_90a."""
+        """Every kernel has its CUDA source, built for sm_90a, which names
+        the Pallas TPU kernel it replaces, or, for the port's own plastic
+        drive (the reference computes it in XLA), says it replaces none."""
         for name in _build.KERNELS:
             src = _build.CSRC / f"{name}.cu"
             assert src.exists(), src
-            assert "Replaces the Pallas TPU kernel" in src.read_text()
+            text = src.read_text()
+            if name == "plastic_drive":
+                assert "Replaces no TPU kernel" in text
+            else:
+                assert "Replaces the Pallas TPU kernel" in text
         assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
         assert _build.BUILD_DIR.parts[-2:] == ("build", "torch_kernels")
 

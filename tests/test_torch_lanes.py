@@ -300,10 +300,12 @@ def test_coba_run_batch_matches_reference(propagation):
 
 
 def test_plastic_run_batch_takes_the_lane_by_lane_route():
-    """Plastic fp16 sparse: the lane-by-lane route, rasters, plastic
-    weights and state bit for bit against the reference's vmapped batch."""
+    """Plastic fp16 sparse, which now takes the batched route (one launch
+    per kernel per tick for every lane; the test keeps its earlier name):
+    rasters, plastic weights and state bit for bit against the reference's
+    vmapped batch."""
     rnet, tnet = nets(plastic=True)
-    assert not batched_route(tnet.static)
+    assert batched_route(tnet.static)
     rfinal, rout = ref_batch(rnet, 150, 4)
     tfinal, tout = Engine(tnet).run_batch(150, 4)
     assert_raster(rout, tout)
@@ -337,11 +339,12 @@ def test_synfire4_run_batch_matches_reference():
 @pytest.mark.parametrize("build", [dict(backend="fused"), dict(propagation="loop")],
                          ids=["fused", "loop"])
 def test_lane_by_lane_nets_equal_their_trials(build):
-    """Fused and loop nets take the lane-by-lane route: each lane is the
-    solo run on ``split(key, B)[b]``, and equals the default backend's
-    batch."""
+    """Loop nets take the lane-by-lane route and fused ones, since they
+    have lanes of the ``fused_tick`` kernel, the batched route (the test
+    keeps its earlier name): each lane is the solo run on ``split(key,
+    B)[b]``, and equals the default backend's batch."""
     net = tsyn.build_synfire(tsyn.SYNFIRE4_MINI, policy="fp16", device="cpu", **build)
-    assert not batched_route(net.static)
+    assert batched_route(net.static) == ("backend" in build)
     final, out = run_batch(net.static, net.params, net.state0, 100, 3)
     keys = rng.split(net.state0.key, 3)
     for b in range(3):
