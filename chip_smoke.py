@@ -5,7 +5,10 @@
 Phases (each raises, and the script exits non-zero, on any failure):
 
 1. Build ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a (one nvcc per
-   source, all at once) and print the compile times and ptxas reports.
+   source, all at once) and print the compile times and ptxas reports,
+   with ``plastic_drive_kernel``'s on a line of its own, and the loaded
+   kernel's registers and local memory as the CUDA runtime reports them
+   (built now or cached, it must use no stack frame and spill nothing).
 2. Hold each kernel against its plain PyTorch version on the card at the
    shapes the Synfire4 paths give it, bit for bit where the arithmetic is
    exact and at a stated tolerance for random weights, and time kernel,
@@ -48,7 +51,10 @@ Phases (each raises, and the script exits non-zero, on any failure):
    fan-in drive in one launch, rows summed in XLA CPU's order) bit for bit
    against its plain version on random off-grid weights on the plastic
    Synfire4 chain fp16/fp32 x packed/sparse, plastic x10 sparse and an STP
-   net, beside ``embedding_bag`` with ``per_sample_weights``.
+   net, and timed at the plastic Synfire4 fp16 sparse and packed ticks and
+   the plastic x10 fp16 sparse tick (8,000 rows), beside ``embedding_bag``
+   with ``per_sample_weights`` where the rows are CSR-stored and
+   ``torch.bmm`` over the masked dense images where they are dense.
 3. Run Synfire4 for 1,000 ticks on the card in fp16/fp32 x packed/sparse
    through ``build_synfire`` and ``run``, on the default backend and on
    ``backend="fused"``, with the launch counters reset just before each
@@ -333,6 +339,7 @@ def _fused_work(payload, spikes: torch.Tensor, n: int, state_bytes: int) -> tupl
 
 def phase_build() -> dict:
     from repro_torch.kernels import _build
+    from repro_torch.kernels.plastic_drive import kernel_resources
 
     t0 = time.perf_counter()
     report = _build.build()
@@ -343,8 +350,30 @@ def phase_build() -> dict:
             if "registers" in line or "spill" in line:
                 log(f"[build]   {line.strip()}")
     log(f"[build] all kernels in {wall:.2f} s wall (parallel nvcc)")
-    return {"nvcc_wall_s": wall,
+    drive = _ptxas_report(report["plastic_drive"]["log"], "plastic_drive_kernel")
+    log(f"[build] plastic_drive_kernel ptxas: {drive or 'not in the log (a cached build)'}")
+    if drive is not None:
+        require("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" in drive,
+                f"plastic_drive_kernel uses local memory: {drive}")
+    res = kernel_resources()  # the loaded library's, whether built now or cached
+    log(f"[build] plastic_drive_kernel loaded: {res['registers']} registers, "
+        f"{res['local_bytes']} bytes local memory a thread")
+    require(res["local_bytes"] == 0,
+            f"plastic_drive_kernel uses {res['local_bytes']} bytes of local memory a thread")
+    return {"nvcc_wall_s": wall, "plastic_drive_ptxas": drive, "plastic_drive_resources": res,
             "nvcc_s": {k: v["seconds"] for k, v in report.items()}}
+
+
+def _ptxas_report(log_text: str, kernel: str) -> str | None:
+    """ptxas' registers, stack and spill lines for the entry ``kernel``
+    (its mangled name contains it) in one build's ``-v`` log, joined; None
+    where the log does not name it."""
+    lines = log_text.splitlines()
+    for i, line in enumerate(lines):
+        if "Function properties for" in line and kernel in line:
+            found = [x.strip().removeprefix("ptxas info    : ") for x in lines[i + 1:i + 3]]
+            return "; ".join(found)
+    return None
 
 
 def _izh_inputs(n: int, dtype, dev, seed: int):
@@ -1202,43 +1231,93 @@ def _drive_case(net, g, dev, lanes=None):
 
 
 def _drive_bound(projs, weights, stp, n: int, lanes: int = 1) -> tuple[float, str, int]:
-    """The drive's least work: the pre ids (int32) and, dense, flat rows,
-    shared by the lanes; each lane's weights, STP state, spike row and
-    accumulator entries (read and written); a multiply and an add per
-    fan-in entry of every lane."""
+    """The drive's least work: each lane's spike row, STP state and
+    accumulator entries (read and written), a multiply and an add per
+    fan-in entry of every lane, and per projection the cheaper way to read
+    its weights: through its fan-in rows (the pre ids, int32, and, dense,
+    the flat rows, shared by the lanes; each lane's Q·F weights they pick)
+    or, dense-stored, each lane's whole [P, Q] image and a bit a cell of
+    its mask, shared by the lanes."""
     moved, ops_ = lanes * n * 4, 0
     for p, w, st in zip(projs, weights, stp):
         q, f = p.pre.shape
-        moved += q * f * 4 * (1 if p.rows is None else 2) + nbytes(w) + lanes * 2 * q * 4
+        size = w.element_size()
+        read = q * f * 4 * (1 if p.rows is None else 2) + lanes * q * f * size
+        if p.rows is not None:
+            cells = p.sentinel  # P·Q
+            read = min(read, lanes * cells * size + -(-cells // 8))
+        moved += read + lanes * 2 * q * 4
         moved += 0 if st is None else nbytes(*st)
         ops_ += 2 * q * f * lanes
     b_ms, b_by = bound(moved, ops_)
     return b_ms, b_by, moved
 
 
-def _drive_library(projs, weights, spikes, dev):
-    """One ``embedding_bag(mode="sum", per_sample_weights=...)`` call over
-    every projection's rows (of every lane), the spike rows with a zero
-    appended as its table: the same sums in the library's order, no
-    landing (CSR-stored projections only: a dense one's row gather is no
-    part of the call). Returns the call, or None where a projection is
-    dense-stored or scaled by STP."""
-    if any(p.rows is not None or p.stp for p in projs):
+DRIVE_LIBRARY_TOL = (1e-5, 1e-4)  # rtol, atol: the library sums in another order
+
+
+def _drive_library(projs, weights, stp, spikes, dev):
+    """One PyTorch call for the drive of every projection (of every lane),
+    in the library's order and with no landing: where the rows are
+    CSR-stored, ``embedding_bag(mode="sum", per_sample_weights=...)`` over
+    them with the spike rows and a zero appended as its table; where every
+    projection is dense-stored with one [P, Q] shape, ``torch.bmm`` of each
+    pre group's spikes by its f32 image masked to the fan-in (made outside
+    the call). The call's drives are held against the plain version's at
+    ``DRIVE_LIBRARY_TOL``. Returns ``(call, name)``, or None where STP
+    scales a row or the projections mix storage or dense shapes."""
+    from repro_torch.kernels import ref
+
+    if any(p.stp for p in projs):
         return None
     lanes = spikes.shape[0] if spikes.dim() == 2 else 1
-    n1 = spikes.shape[-1] + 1
-    table = torch.nn.functional.pad(spikes.reshape(lanes, -1), (0, 1)).reshape(-1, 1)
-    idx, psw, offs, at = [], [], [], 0
-    for p, w in zip(projs, weights):
-        q, f = p.pre.shape
-        lane_ids = torch.arange(lanes, device=dev).view(-1, 1, 1) * n1
-        idx.append((p.pre.long()[None] + lane_ids).reshape(-1))
-        psw.append(w.float().reshape(-1))
-        offs.append(torch.arange(lanes * q, device=dev) * f + at)
-        at += lanes * q * f
-    idx, psw, offs = torch.cat(idx), torch.cat(psw), torch.cat(offs)
-    return lambda: torch.nn.functional.embedding_bag(idx, table, offs, mode="sum",
-                                                     per_sample_weights=psw)
+    rows = spikes.reshape(lanes, -1)
+    if all(p.rows is None for p in projs):
+        n1 = rows.shape[1] + 1
+        table = torch.nn.functional.pad(rows, (0, 1)).reshape(-1, 1)
+        idx, psw, offs, at = [], [], [], 0
+        for p, w in zip(projs, weights):
+            q, f = p.pre.shape
+            lane_ids = torch.arange(lanes, device=dev).view(-1, 1, 1) * n1
+            idx.append((p.pre.long()[None] + lane_ids).reshape(-1))
+            psw.append(w.float().reshape(-1))
+            offs.append(torch.arange(lanes * q, device=dev) * f + at)
+            at += lanes * q * f
+        idx, psw, offs = torch.cat(idx), torch.cat(psw), torch.cat(offs)
+        call = lambda: torch.nn.functional.embedding_bag(  # noqa: E731
+            idx, table, offs, mode="sum", per_sample_weights=psw)
+        name = "embedding_bag(mode='sum', per_sample_weights) over the same rows"
+    elif all(p.rows is not None for p in projs) and len(
+            {(p.sentinel, p.pre.shape[0]) for p in projs}) == 1:
+        q = projs[0].pre.shape[0]
+        cells = projs[0].sentinel
+        images, pres = [], []
+        for p, w in zip(projs, weights):
+            valid = p.rows.long() != cells
+            flat = p.rows.long()[valid]
+            mask = torch.zeros(cells, dtype=torch.bool, device=dev)
+            mask[flat] = True
+            image = w.reshape(lanes, -1)[:, :cells].float() * mask
+            images.append(image.reshape(lanes, cells // q, q))
+            starts = p.pre.long()[valid] - flat // q  # a dense row's pre ids: pre_start + p
+            require(bool((starts == starts[0]).all()), "plastic_drive library: pre ids")
+            start = int(starts[0])
+            pres.append(rows[:, start:start + cells // q])
+        image = torch.stack(images).reshape(-1, cells // q, q)
+        pre = torch.stack(pres).reshape(-1, 1, cells // q)
+        call = lambda: torch.bmm(pre, image)  # noqa: E731
+        name = "torch.bmm of the pre spikes by the masked f32 dense images"
+    else:
+        return None
+    outs = [torch.zeros(p.out.shape, device=dev) for p in projs]
+    ref.drive_run_ref(spikes, [p._replace(out=o) for p, o in zip(projs, outs)], weights, stp)
+    want = torch.cat([o.reshape(-1) for o in outs])
+    got = call().reshape(-1)
+    rtol, atol = DRIVE_LIBRARY_TOL
+    require(torch.allclose(got, want, rtol=rtol, atol=atol),
+            f"plastic_drive library call ({name}) differs from the plain version by "
+            f"{max_err(got, want)}")
+    return call, name
 
 
 def _check_drive(dev, g) -> dict:
@@ -1285,28 +1364,48 @@ def _check_drive(dev, g) -> dict:
         f_max = max(p.pre.shape[1] for p in plain)
         log(f"[kernels] plastic_drive {what}: {len(plain)} projections (F up to {f_max}), "
             "3 ticks bitwise against its plain version (XLA CPU's row order)")
-    net = nets[2][1]
+    return {"name": "plastic_drive", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/plastic_drive.cu",
+            "replaces": "none: the port's own kernel (the reference's drive is XLA, "
+                        "src/repro/core/backend.py:161)",
+            "max_abs_err": err, **_time_drive(nets[2], g, dev),
+            "x10": _time_drive(nets[4], g, dev), "packed": _time_drive(nets[0], g, dev)}
+
+
+def _time_drive(named, g, dev) -> dict:
+    """One lane's drive of every plastic projection of ``named`` (a
+    ``(what, net)`` pair) on random off-grid weights: per call, alone on
+    the device, the plain version, the byte bound and, for CSR-stored
+    rows, ``embedding_bag`` over the same rows."""
+    from repro_torch.kernels import ops, ref
+
+    what, net = named
     projs_on, acc, weights, stp, _ = _drive_case(net, g, dev)
     projs = projs_on(acc)
     run = ops.DriveRun(net.static.n, projs)
     spikes = (torch.rand(net.static.n, generator=g) < 0.3).float().to(dev)
     plain = projs_on(acc.clone())
     b_ms, b_by, moved = _drive_bound(projs, weights, stp, net.static.n)
-    lib = _drive_library(projs, weights, spikes, dev)
+    lib = _drive_library(projs, weights, stp, spikes, dev)
     call = lambda: run(spikes, weights, stp)  # noqa: E731
-    return {"name": "plastic_drive", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/plastic_drive.cu",
-            "replaces": "none: the port's own kernel (the reference's drive is XLA, "
-                        "src/repro/core/backend.py:161)",
-            "max_abs_err": err,
-            "shape": f"plastic Synfire4 sparse fp16 tick: {len(projs)} chain projections "
+    rows = sum(p.pre.shape[0] for p in projs)
+    return {"shape": f"plastic {what} tick: {len(projs)} chain projections, {rows} rows "
                      f"(Q x F {sorted({tuple(p.pre.shape) for p in projs})}), one launch",
             "ms": cuda_ms(call), "device_ms": device_ms(call, "plastic_drive_kernel"),
             "plain_ms": cuda_ms(lambda: ref.drive_run_ref(spikes, plain, weights, stp),
                                 reps=20, warmup=2),
             "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": moved,
-            "library_ms": cuda_ms(lib), "library_device_ms": device_total_ms(lib),
-            "library": "embedding_bag(mode='sum', per_sample_weights) over the same rows"}
+            **_drive_library_times(lib)}
+
+
+def _drive_library_times(lib) -> dict:
+    """The library call of :func:`_drive_library` (or None): its name, per
+    call and alone on the device."""
+    if lib is None:
+        return {"library": None, "library_ms": None, "library_device_ms": None}
+    call, name = lib
+    return {"library": name, "library_ms": cuda_ms(call),
+            "library_device_ms": device_total_ms(call)}
 
 
 STDP_TICKS = 10  # chained ticks per StdpGatherRun and StdpUpdateRun case
@@ -3277,7 +3376,7 @@ def _hold_drive_lanes(net, g, dev, what: str) -> dict:
         "bitwise against the plain version and the one-lane launch on every lane")
     spikes = _lane_spike_rows(g, n, dev)
     b_ms, b_by, moved = _drive_bound(projs, weights, stp, n, LANES)
-    lib = _drive_library(projs, weights, spikes, dev)
+    lib = _drive_library(projs, weights, stp, spikes, dev)
     call = lambda: run(spikes, weights, stp)  # noqa: E731
     return {"shape": f"plastic Synfire4 {net.static.propagation} fp16 tick over 64 lanes: "
                      f"{len(projs)} chain projections, one launch",
@@ -3288,8 +3387,7 @@ def _hold_drive_lanes(net, g, dev, what: str) -> dict:
             "plain_ms": cuda_ms(lambda: ref.drive_run_ref(spikes, plain, weights, stp),
                                 reps=5, warmup=1),
             "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": moved,
-            "library_ms": None if lib is None else cuda_ms(lib),
-            "library_device_ms": None if lib is None else device_total_ms(lib)}
+            **_drive_library_times(lib)}
 
 
 def _hold_fused_lanes(net, g, dev, what: str) -> dict:

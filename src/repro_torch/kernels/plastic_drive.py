@@ -9,6 +9,13 @@ row) pairs that land there in projection order), so that a tick's drive of
 every projection and every lane is one ctypes call carrying the spike
 rows' pointer and the tick's weights (through
 :class:`repro_torch.kernels.ops.DriveRun`).
+
+The kernel runs one warp per accumulator entry and group of lanes: its
+threads load a window of 32 fan-in entries at once, stage the products in
+shared memory, sum up to 32 windows (of one lane's row or of several
+lanes' rows) side by side and reduce each row's window sums over the
+warp, every add in XLA CPU's order (:func:`xla_levels` gives the offsets
+of each window level). See the source's note for what bounds it.
 """
 from __future__ import annotations
 
@@ -20,7 +27,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["DriveProjection", "DriveLauncher", "MAX_PROJS", "xla_levels", "WINDOW"]
+__all__ = ["DriveProjection", "DriveLauncher", "MAX_PROJS", "xla_levels", "WINDOW",
+           "kernel_resources"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -80,7 +88,7 @@ class _Target(ctypes.Structure):
 
 class _Plan(ctypes.Structure):
     _fields_ = [("projs", _P), ("targets", _P), ("entries", _P), ("stream", _P)] + [
-        (name, _I) for name in ("n_targets", "n_projs", "lanes", "n", "coba")]
+        (name, _I) for name in ("n_targets", "n_projs", "lanes", "n", "coba", "group")]
 
 
 class _Tick(ctypes.Structure):
@@ -89,7 +97,18 @@ class _Tick(ctypes.Structure):
 
 
 _SIGNATURES = {"plastic_drive_run": [ctypes.POINTER(_Plan), _P, ctypes.POINTER(_Tick)],
-               "plastic_drive_sizes": [ctypes.POINTER(_I)]}
+               "plastic_drive_sizes": [ctypes.POINTER(_I)],
+               "plastic_drive_attributes": [ctypes.POINTER(_I)]}
+
+
+def kernel_resources() -> dict[str, int]:
+    """``plastic_drive_kernel``'s registers a thread and local memory a
+    thread in bytes (its stack frame, spills included), as the CUDA
+    runtime reports them for the loaded library, built now or cached."""
+    lib = _build.load("plastic_drive", _SIGNATURES)
+    out = (_I * 2)()
+    _build.check(lib, lib.plastic_drive_attributes(out), "plastic_drive_attributes")
+    return {"registers": out[0], "local_bytes": out[1]}
 
 
 class DriveLauncher:
@@ -98,7 +117,9 @@ class DriveLauncher:
     ``|drive|`` when ``coba``: descriptors, accumulator entries and their
     (projection, row) lists laid out once in device memory, launching on
     the stream current at construction; ``items`` is the entries' count
-    (0: nothing to launch). The caller keeps every tensor alive."""
+    (0: nothing to launch), ``group`` the lanes one warp takes (as many as
+    fit their rows' windows of 32 into one warp's 32 threads). The caller
+    keeps every tensor alive."""
 
     def __init__(self, projs, device, lanes: int | None, n: int, coba: bool):
         lib = _build.load("plastic_drive", _SIGNATURES)
@@ -156,11 +177,17 @@ class DriveLauncher:
         # Keep every tensor a descriptor points at alive for the launcher's life.
         self._keep = (tuple(projs), keep, raw, ent)
         self.items = len(uniq)
+        # Lanes a warp takes: all their level-0 windows sum side by side
+        # (group * n1 <= 32 on every row of at most 32 windows; one lane
+        # where a row is deeper).
+        n1 = max((-(-p.pre.shape[1] // WINDOW) for p in projs), default=1)
+        self.group = 1 if lanes is None else max(1, min(lanes, WINDOW // max(n1, 1)))
         self._plan = _Plan(projs=raw[0].data_ptr(), targets=raw[1].data_ptr(),
                            entries=ent.data_ptr(),
                            stream=torch.cuda.current_stream(device).cuda_stream,
                            n_targets=self.items, n_projs=len(projs),
-                           lanes=1 if lanes is None else lanes, n=n, coba=int(coba))
+                           lanes=1 if lanes is None else lanes, n=n, coba=int(coba),
+                           group=self.group)
         self._tick = _Tick()
         self._lanes = lanes
         self._ref, self._tick_ref = ctypes.byref(self._plan), ctypes.byref(self._tick)

@@ -1317,13 +1317,14 @@ def test_widened_run_batch_lanes_equal_solo_runs(card, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("f", [1, 7, 32, 33, 65, 1025, 1100, 33000])
+@pytest.mark.parametrize("f", [1, 7, 32, 33, 65, 80, 96, 1025, 1100, 2049, 33000])
 @pytest.mark.parametrize("dense", [False, True], ids=["csr", "dense"])
 def test_drive_kernel_row_order(card, f, dense):
     """The drive kernel's row sums in XLA CPU's order at fan-ins below, at
-    and just above a window of 32 and past 1,024 (windows two and three
-    levels deep), fp16 and f32 weights, three lanes, against its plain
-    version on the card and on the CPU, bit for bit."""
+    and just above a window of 32, the plastic chain's 80 and 96, and past
+    1,024 (windows two and three levels deep), fp16 and f32 weights, three
+    lanes, against its plain version on the card and on the CPU, bit for
+    bit."""
     from repro_torch.kernels.plastic_drive import DriveProjection
 
     g = torch.Generator().manual_seed(f)
@@ -1353,3 +1354,102 @@ def test_drive_kernel_row_order(card, f, dense):
         assert torch.equal(outs["card"], outs["plain"]) and torch.equal(outs["card"],
                                                                         outs["cpu"])
         assert bool(outs["card"].ne(0).any())
+
+
+def _same_bits(got, want) -> bool:
+    """NaN at the same places and equal f32 bits everywhere else."""
+    nan = want.isnan()
+    return torch.equal(got.isnan(), nan) and torch.equal(
+        got.masked_fill(nan, 0.0).view(torch.int32), want.masked_fill(nan, 0.0).view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("coba", [False, True], ids=["cuba", "coba"])
+def test_drive_kernel_lands_projections_in_order(card, coba):
+    """Three projections landing on overlapping columns (CSR fp16 at F =
+    80, dense f32 at F = 37, CSR f32 at F = 96) add in projection order,
+    ``|drive|`` each on a conductance-based net, and a NaN weight on a
+    silent pre makes its column NaN (the kernel never gates on a silent
+    pre): bit for bit the plain version on the card and the CPU port, NaN
+    at the same places."""
+    from repro_torch.kernels.plastic_drive import DriveProjection
+
+    g = torch.Generator().manual_seed(23 + coba)
+    lanes, n, q, p_ = 3, 300, 20, 50
+    tables = [
+        dict(pre=torch.randint(0, n + 1, (q, 80), generator=g), rows=None, cols=(10, 30),
+             w=torch.randn((lanes, q, 80), generator=g).half()),
+        dict(pre=torch.randint(0, n + 1, (q, 37), generator=g),
+             rows=torch.randint(0, p_ * q + 1, (q, 37), generator=g), cols=(10, 30),
+             w=torch.randn((lanes, p_, q), generator=g)),
+        dict(pre=torch.randint(0, n + 1, (q, 96), generator=g), rows=None, cols=(20, 40),
+             w=torch.randn((lanes, q, 96), generator=g)),
+    ]
+    spikes = (torch.rand((lanes, n), generator=g) < 0.4).float()
+    silent = int(tables[0]["pre"][2, 5])
+    spikes[:, silent % n] = 0.0
+    tables[0]["w"][:, 2, 5] = float("nan")
+    outs = {}
+    for name, dev in (("card", card), ("plain", card), ("cpu", torch.device("cpu"))):
+        acc = (torch.rand((lanes, n), generator=torch.Generator().manual_seed(5)) * 2).to(dev)
+        projs = [DriveProjection(pre=t["pre"].to(dev),
+                                 rows=None if t["rows"] is None else t["rows"].to(dev),
+                                 out=acc[:, t["cols"][0]:t["cols"][1]], w_dtype=t["w"].dtype,
+                                 sentinel=-1 if t["rows"] is None else p_ * q)
+                 for t in tables]
+        w = [t["w"].to(dev) for t in tables]
+        if name == "plain":
+            ref.drive_run_ref(spikes.to(dev), projs, w, [None] * 3, coba=coba)
+        else:
+            ops.DriveRun(n, projs, lanes=lanes, coba=coba)(spikes.to(dev), w, [None] * 3)
+        outs[name] = acc.cpu()
+    torch.cuda.synchronize()
+    assert _same_bits(outs["card"], outs["plain"]) and _same_bits(outs["card"], outs["cpu"])
+    assert bool(outs["card"][:, 12].isnan().all())
+    assert int(outs["card"].isnan().sum()) == lanes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True], ids=["csr", "dense"])
+def test_drive_kernel_64_lanes_two_levels(card, dense):
+    """64 lanes at F = 1,025 (windows two levels deep), fp16 weights each
+    lane's own, a third of the lanes silent: bit for bit the plain version
+    and every lane its one-lane launch."""
+    from repro_torch.kernels.plastic_drive import DriveProjection
+
+    g = torch.Generator().manual_seed(64)
+    lanes, n, q, f, p_ = 64, 2000, 12, 1025, 1100
+    pre = torch.randint(0, n + 1, (q, f), generator=g).to(card)
+    rows, sentinel = None, -1
+    if dense:
+        sentinel = p_ * q
+        rows = torch.randint(0, sentinel + 1, (q, f), generator=g).to(card)
+        w = torch.randn((lanes, p_, q), generator=g).half().to(card)
+    else:
+        w = torch.randn((lanes, q, f), generator=g).half().to(card)
+    spikes = _lane_spikes(g, lanes, n, card)
+    accs = {k: torch.zeros((lanes, n), device=card) for k in ("card", "plain", "one")}
+
+    def proj(out):
+        return DriveProjection(pre=pre, rows=rows, out=out, w_dtype=torch.float16,
+                               sentinel=sentinel)
+
+    ops.reset_launches()
+    ops.DriveRun(n, [proj(accs["card"][:, 7:7 + q])], lanes=lanes)(spikes, [w], [None])
+    ref.drive_run_ref(spikes, [proj(accs["plain"][:, 7:7 + q])], [w], [None])
+    for b in range(lanes):
+        ops.DriveRun(n, [proj(accs["one"][b, 7:7 + q])])(spikes[b].contiguous(), [w[b]], [None])
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["plastic_drive"] == 1 + lanes
+    assert torch.equal(accs["card"], accs["plain"]) and torch.equal(accs["card"], accs["one"])
+    assert bool(accs["card"][0].ne(0).any()) and not bool(accs["card"][2].ne(0).any())
+
+
+@pytest.mark.cuda
+def test_drive_kernel_uses_no_local_memory(card):
+    """The loaded drive kernel, built now or cached, has no stack frame and
+    spills nothing: the runtime reports 0 bytes of local memory a thread."""
+    from repro_torch.kernels.plastic_drive import kernel_resources
+
+    res = kernel_resources()
+    assert res["local_bytes"] == 0 and 0 < res["registers"] <= 255

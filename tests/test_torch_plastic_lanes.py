@@ -484,54 +484,106 @@ def test_fused_tick_run_lanes_equal_one_lane_runs(propagation, per_lane):
 # -- the drive's sum order ---------------------------------------------------------
 
 
-def _stream_sum(row: np.ndarray) -> np.float32:
+def _chain(xs, lo: int, hi: int) -> np.float32:
+    """``xs[lo:hi]`` summed left to right from +0.0 in f32."""
+    s = np.float32(0.0)
+    with np.errstate(invalid="ignore"):  # inf + -inf: NaN, as on the devices
+        for i in range(lo, hi):
+            s = np.float32(s + xs[i])
+    return s
+
+
+def _warp_sum(row: np.ndarray) -> np.float32:
     """The CUDA drive kernel's row sum (``csrc/plastic_drive.cu``,
-    ``XlaSum``), step for step in numpy f32: one accumulator per window
-    level, a finished window pushed up a level as the next one starts."""
-    offs = xla_levels(len(row))
+    ``Row::sum``), step for step in numpy f32: level-0 windows of 32 (slots
+    outside the row +0.0) each summed on its own from +0.0, up to 32 of
+    them side by side, one level-1 window at a time; the window sums
+    reduced in order over their slots in range; deeper levels carried one
+    partial window each and summed when full or at the level's last
+    item."""
+    f = len(row)
+    offs = xla_levels(f)
     levels = len(offs)
-    acc = [np.float32(0.0)] * (levels + 1)
-    cur = [-1] * levels
+    n1 = -(-f // 32)
+    o0 = offs[0] if levels else 0
+    o1 = offs[1] if levels > 1 else 0
+    n2 = -(-n1 // 32) if levels > 1 else 1
+    carry = {i: [np.float32(0.0)] * 32 for i in range(2, levels + 1)}
+    total = np.float32(0.0)
+    for v in range(n2):
+        wb = 32 * v - o1
+        lo, hi = max(wb, 0), min(wb + 32, n1)
+        sums = [np.float32(0.0)] * 32
+        for w in range(lo, hi):
+            ks = [32 * w + lane - o0 for lane in range(32)]
+            sums[w - wb] = _chain([row[k] if 0 <= k < f else np.float32(0.0) for k in ks],
+                                  0, 32)
+        up = _chain(sums, lo - wb, hi - wb)
+        if levels <= 1:
+            return up
+        at, items = v, n2
+        for i in range(2, levels + 1):
+            pos = at + (offs[i] if i < levels else 0)
+            slot = pos % 32
+            carry[i][slot] = up
+            if slot != 31 and at != items - 1:
+                break
+            up = _chain(carry[i], 0, slot + 1)
+            carry[i] = [np.float32(0.0)] * 32
+            if i == levels:
+                total = up
+            at, items = pos // 32, -(-items // 32)
+    return total
 
-    def push(i, v, idx):
-        while i < levels:
-            w = (idx + offs[i]) // 32
-            if cur[i] == w:
-                acc[i] = np.float32(acc[i] + v)
-                return
-            done, done_at = acc[i], cur[i]
-            cur[i], acc[i] = w, np.float32(np.float32(0.0) + v)
-            if done_at < 0:
-                return
-            v, idx, i = done, done_at, i + 1
-        acc[levels] = np.float32(acc[levels] + v)
 
-    for k, x in enumerate(row):
-        push(0, np.float32(x), k)
-    for i in range(levels):
-        if cur[i] >= 0:
-            done, at = acc[i], cur[i]
-            cur[i] = -1
-            push(i + 1, done, at)
-    return acc[levels]
+def _same_bits(got: np.ndarray, want: np.ndarray) -> None:
+    """NaN at the same places, and equal f32 bits everywhere else."""
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(want)
+    np.testing.assert_array_equal(got[ok].view(np.int32), want[ok].view(np.int32))
 
 
-@pytest.mark.parametrize("f", [1, 7, 31, 32, 33, 64, 65, 97, 1024, 1025, 1100, 33000])
+def _order_rows(g: torch.Generator, f: int) -> torch.Tensor:
+    """``[2, 3, F]`` f32 rows whose sums depend on the order: magnitudes
+    from 1e-6 to 1e6 of both signs, -0.0 and subnormal entries in every
+    row; row [1, 0] holds a +inf, row [1, 1] a +inf and a -inf (NaN; at F
+    = 1 a NaN), row [1, 2] a NaN."""
+    x = torch.randn((2, 3, f), generator=g) * 10.0 ** (torch.rand((2, 3, f), generator=g) * 12
+                                                       - 6)
+    pick = torch.rand((2, 3, f), generator=g)
+    x = torch.where(pick < 0.1, torch.tensor(-0.0), x)
+    x = torch.where((pick >= 0.1) & (pick < 0.15), torch.tensor(-3e-40), x)
+    x = torch.where((pick >= 0.15) & (pick < 0.2), torch.tensor(1e-42), x)
+    x[1, 0, f // 2] = float("inf")
+    x[1, 1, 0] = float("inf")
+    x[1, 1, f - 1] = float("-inf") if f > 1 else float("nan")
+    x[1, 2, (2 * f) // 3] = float("nan")
+    return x
+
+
+@pytest.mark.parametrize("f", [1, 7, 20, 31, 32, 33, 60, 64, 65, 80, 96, 97, 1024, 1025, 1100,
+                               33000])
 def test_xla_cpu_row_sum_over_leading_dims(f):
     """``xla_cpu_row_sum`` on ``[2, 3, F]``: each row as its one-row call,
-    and the drive kernel's streaming order gives the same f32 sums (F below,
-    at and just above a window, and past 1,024, where the windows nest two
-    and three levels deep)."""
+    and the drive kernel's warp schedule gives the same f32 sums, bit for
+    bit (F below, at and just above a window, the plastic chain's 60 to 96,
+    and past 1,024, where the windows nest two and three levels deep), on
+    rows whose sum depends on the order, with -0.0, subnormal, infinite
+    and NaN entries."""
     g = torch.Generator().manual_seed(f)
-    x = torch.randn((2, 3, f), generator=g) * torch.rand((2, 3, f), generator=g) * 100
+    x = _order_rows(g, f)
     got = ref.xla_cpu_row_sum(x)
     assert got.shape == (2, 3)
     for a in range(2):
         for q in range(3):
-            assert torch.equal(got[a, q], ref.xla_cpu_row_sum(x[a, q][None])[0])
+            _same_bits(ref.xla_cpu_row_sum(x[a, q][None]).numpy(), got[a, q][None].numpy())
     rows = x.reshape(-1, f).numpy()
-    stream = np.array([_stream_sum(r) for r in rows[:2]], np.float32)
-    np.testing.assert_array_equal(stream, got.reshape(-1)[:2].numpy())
+    want = got.reshape(-1).numpy()
+    _same_bits(np.array([_warp_sum(r) for r in rows], np.float32), want)
+    assert np.isinf(want[3]) and np.isnan(want[4]) and np.isnan(want[5])
+    assert np.isfinite(want[:3]).all() and (want[:3] != 0).all()
+    if f >= 60:  # the order matters: a plain left-to-right sum differs on some row
+        assert any(_chain(r, 0, f) != w for r, w in zip(rows[:3], want[:3]))
     assert be.xla_cpu_row_sum is ref.xla_cpu_row_sum
 
 
