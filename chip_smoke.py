@@ -73,7 +73,10 @@ Phases (each raises, and the script exits non-zero, on any failure):
    unstaged on its longest pre row alone), ``ops.NeuronRun`` against its
    plain version at N = 120,000, and fused_tick against its plain version
    on a x100 state. The default-backend paths launch ``izh4_update`` once
-   per tick, the sparse ones ``syn_gather`` once.
+   per tick, the sparse ones ``syn_gather`` once. The x100 default net
+   then runs the same uniforms under ``record="monitors"`` (phase 9's
+   x100 case, on the net built here): its group rates equal the raster
+   run's, and its peak device memory is printed beside the raster run's.
 5. Plastic Synfire4 (``CHAIN_STDP`` on the exc->exc chain) for 1,000
    ticks in fp16/fp32 x packed/sparse: card raster and final plastic
    weights equal the CPU port's, packed and sparse weights equal at the
@@ -154,6 +157,24 @@ Phases (each raises, and the script exits non-zero, on any failure):
    events per tick and peak memory. (h) fused ``run_batch(1000, 64)``
    packed and sparse: one ``fused_tick`` launch per tick and nothing else,
    the same lanes equal solo fused runs.
+9. In-run monitors (after phase 8, in a process of its own too:
+   ``chip_smoke.py --monitors-json PATH``): (a) Synfire4 fp16/fp32 x
+   packed/sparse x default/fused for 1,000 ticks of ``record="both"``:
+   the launch counts of an unmonitored run, card telemetry equal to the
+   CPU port's bit for bit, the raster equal to a ``"raster"`` run's, the
+   SpikeCount totals equal to the raster's group sums; (b) device events
+   per tick in the tick loop with the default monitors equal to
+   ``record="none"``'s (1 on the fused tick), host us/tick of both in
+   interleaved turns, and ``izh4_update`` and ``fused_tick`` with the
+   monitor slots bit for bit against their plain versions at one lane
+   and 64, timed on the device with and without the slots; (c)
+   ``run_batch(1000, 64, record="monitors")`` fp16 sparse, packed and
+   fused (lanes equal to solo runs), and a ``LaneScheduler(64)`` under its
+   default ``record="monitors"`` whose tenants' flushes sum to their
+   uninterrupted sessions' through evicts and ``save_lane`` moves; (d) the
+   paper's fp16 vs fp32 accuracy (at least 0.97), real-time factors of
+   Synfire4 and the mini on both backends and the energy model's M33 and
+   Pi Zero 2 W rows from the card's telemetry.
 6. LM serving on the dense decoder (``repro_torch.launch.serve``): (a) the
    attention kernel ``flash_attention`` against its plain version on the
    card, at rtol = atol = 1e-5, at smollm-360m's prefill and decode shapes,
@@ -1947,6 +1968,8 @@ def _phase_x100(dev, totals: dict) -> dict:
             f"{peak} B, build + runs {total_s:.1f} s, launches {launches}")
     _require_same_raster(rasters["fused"], rasters[None], "x100 fused vs default backend")
     log("[x100] the fused raster equals the default backend's bit for bit")
+    paths["synfire4_x100/fp16/sparse"]["monitors"] = _x100_monitored(
+        nets[None], gen_u, rasters[None], dev, totals)
     for i_ext, records in ((False, False), (True, True)):
         _hold_neuron_run(nets[None], g, dev, i_ext, records, "SYNFIRE4_X100 fp16")
     paths["synfire4_x100/fp16/sparse"]["neuron_run"] = _neuron_run_row(
@@ -1971,6 +1994,41 @@ def _phase_x100(dev, totals: dict) -> dict:
         f"{design['us_per_tick_grid']:.2f} us/tick on the grid vs "
         f"{design['us_per_tick_one_cta']:.2f} on one CTA; bound {b_ms * 1e3:.3f} us ({b_by})")
     return paths
+
+
+def _x100_monitored(net, gen_u, raster, dev, totals) -> dict:
+    """Phase 9 on the x100 net built for phase 4 (default backend): the same
+    uniforms under ``record="monitors"`` (no [T, N] raster), its peak device
+    memory beside the raster run's, and its streamed group rates equal to
+    the raster's post-hoc ones, dict for dict."""
+    from repro_torch.core.engine import run
+    from repro_torch.core.monitors import group_rates
+    from repro_torch.kernels import ops
+    from repro_torch.telemetry import summarize
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    _, out = run(net.static, net.params, net.state0, X100_TICKS, gen_u=gen_u.to(dev),
+                 record="monitors")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = dict(ops.LAUNCHES)
+    want = {"izh4_update": X100_TICKS, "syn_matmul": 0, "syn_gather": X100_TICKS,
+            "fused_tick": 0, **NOT_ON_PATH}
+    require(launches == want, f"x100 monitors launches {launches} != {want}")
+    _add(totals, launches)
+    require(set(out) == {"telemetry"}, f"x100 monitors outputs {set(out)}")
+    s = summarize(net.static, out["telemetry"], X100_TICKS)
+    require(s["group_rates"] == group_rates(net.static, raster),
+            "x100: streamed group rates differ from the raster's")
+    log(f"[x100] record='monitors': group rates == the raster run's, {s['total_spikes']} "
+        f"spikes, {seconds / X100_TICKS * 1e6:.1f} us/tick, peak device memory {peak} B "
+        f"(the raster alone: {raster.numel()} B)")
+    return {"us_per_tick": seconds / X100_TICKS * 1e6, "peak_device_bytes": peak,
+            "spikes": s["total_spikes"], "launches": launches}
 
 
 def _staged_one_bucket(dev, net) -> dict:
@@ -3661,6 +3719,475 @@ def _lanes_main(out: str) -> int:
     return 0
 
 
+# -- phase 9: in-run monitors (A6) ----------------------------------------------------
+
+MON_TICKS = 1000
+MON_SLOT_TICKS = 12  # chained ticks per slot case: ring slots wrap past L = 11
+MON_EVENT_TICKS = 20
+MON_REPS = 5  # interleaved timing reps of none and monitors
+MON_TENANTS = 16
+MON_BATCH_REPS = 3  # interleaved turns of a 64-lane batch with and without monitors
+
+
+def _slot_inputs(g, net, shape, dev):
+    """A SpikeCount count and a GroupRate level (random, so the fold rounds
+    off its grid), and the constants of ``net``'s GroupRate."""
+    from repro_torch.telemetry.monitors import kernel_slots, rate_constants
+
+    count = torch.randint(0, 50, shape, generator=g, dtype=torch.int32).to(dev)
+    level = (torch.rand(shape, generator=g) * 40).to(dev)
+    rate = net.static.monitors[kernel_slots(net.static)[1]]
+    return count, level, rate_constants(net.static, rate)
+
+
+def _hold_neuron_slots(net, g, dev, lanes) -> dict:
+    """``ops.NeuronRun`` with the monitor slots (a SpikeCount's count and a
+    GroupRate's level folded in the launch) for 12 chained ticks on random
+    state, one lane or 64 at spread ring slots: bit for bit its plain
+    version with the same slots; device time of one tick with and without
+    the slots."""
+    from repro_torch.core import backend as be
+    from repro_torch.core.neurons import NeuronModel, NeuronState
+    from repro_torch.kernels import ref
+
+    static, params = net.static, net.params
+    n, dtype, ticks = static.n, net.state0.neurons.v.dtype, MON_SLOT_TICKS
+    lead = () if lanes is None else (LANES,)
+    v = (torch.rand((*lead, n), generator=g) * 115 - 80).to(dtype).to(dev)
+    u = (torch.rand((*lead, n), generator=g) * 10 - 15).to(dtype).to(dev)
+    refrac = torch.zeros((*lead, n), dtype=torch.int16, device=dev)
+    ring = (torch.rand((*lead, *net.state0.ring.shape), generator=g) * 12).to(dtype).to(dev)
+    gen = (torch.rand((*lead, ticks, static.n_gen), generator=g) < 0.3).to(dev)
+    count, level, rate = _slot_inputs(g, net, (*lead, n), dev)
+    t0 = _lane_t0() if lanes else None
+    tel = dict(tel_count=count.clone(), tel_rate=level.clone(), rate=rate)
+    k_ring = ring.clone()
+    run = be.assemble_neurons(static, params, NeuronState(v=v, u=u, refrac=refrac), k_ring,
+                              gen_spk=gen, t0=t0, tel=tel)
+    require(run.launcher is not None, "NeuronRun with slots: no launcher on the card")
+    p = params.neuron
+    is_gen = p.model == NeuronModel.GENERATOR
+    cols = _gen_cols(static, dev)
+    pv, pu, pr, p_ring = v.clone(), u.clone(), refrac.clone(), ring.clone()
+    pc, pl = count.clone(), level.clone()
+    spikes = torch.zeros((*lead, n), device=dev)
+    for i in range(ticks):
+        if lanes:
+            run(i)
+            ref.neuron_lanes_ref(pv, pu, pr, p_ring, [(t + i) % static.ring_len for t in t0],
+                                 is_gen, p.a, p.b, p.c, p.d, cols, spikes, gen_rows=gen[:, i],
+                                 tel_count=pc, tel_rate=pl, rate=rate, dt=static.dt,
+                                 substeps=static.substeps)
+        else:
+            run(i, 100 + i)
+            ref.neuron_run_ref(pv, pu, pr, p_ring, (100 + i) % static.ring_len, is_gen, p.a,
+                               p.b, p.c, p.d, cols, spikes, gen_row=gen[i], tel_count=pc,
+                               tel_rate=pl, rate=rate, dt=static.dt, substeps=static.substeps)
+    torch.cuda.synchronize()
+    what = f"NeuronRun with monitor slots, {LANES if lanes else 1} lane(s)"
+    for name, a, b in (("v", run.v, pv), ("u", run.u, pu), ("ring", k_ring, p_ring),
+                       ("count", tel["tel_count"], pc), ("level", tel["tel_rate"], pl)):
+        require(torch.equal(a, b), f"{what}: {name} differs from the plain version "
+                f"(max abs err {max_err(a.float(), b.float())})")
+    require(not torch.equal(pl, level) and int((pc - count).sum()) > 0, f"{what}: idle")
+    bare = be.assemble_neurons(static, params, NeuronState(v=v, u=u, refrac=refrac),
+                               ring.clone(), gen_spk=gen, t0=t0)
+    step = (lambda r: (lambda: r(0))) if lanes else (lambda r: (lambda: r(0, 100)))
+    with_us = device_ms(step(run), "izh4_run_kernel", reps=200) * 1e3
+    none_us = device_ms(step(bare), "izh4_run_kernel", reps=200) * 1e3
+    log(f"[monitors] {what}: {ticks} ticks bit for bit the plain version; device "
+        f"{with_us:.3f} us a tick with the slots, {none_us:.3f} without")
+    return {"device_us_slots": with_us, "device_us_none": none_us, "max_abs_err": 0.0}
+
+
+def _hold_fused_slots(net, g, dev, lanes) -> dict:
+    """``ops.FusedTickRun`` with the monitor slots for 12 ticks on random
+    state (one lane, or 64 at their own ring slots): bit for bit its plain
+    version with the same slots, still one launch a tick; device time of a
+    tick with and without the slots."""
+    from repro_torch.core import backend as be
+    from repro_torch.core.neurons import NeuronModel
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fused_tick import assemble_kernel
+
+    static, params = net.static, net.params
+    n, dtype, ticks = static.n, net.state0.neurons.v.dtype, MON_SLOT_TICKS
+    lead = () if lanes is None else (LANES,)
+    payload = assemble_kernel(static, params, be.assemble_packed(static, net.state0.weights))
+    v = (torch.rand((*lead, n), generator=g) * 100 - 75).to(dtype).to(dev)
+    u = (torch.rand((*lead, n), generator=g) * 10 - 15).to(dtype).to(dev)
+    ring = (torch.rand((*lead, static.ring_len, n), generator=g) * 10).to(dtype).to(dev)
+    rows = (torch.rand((*lead, ticks, n), generator=g) < 0.2).to(dev)
+    count, level, rate = _slot_inputs(g, net, (*lead, n), dev)
+    t0 = _lane_t0() if lanes else None
+    p = params.neuron
+    is_gen = p.model == NeuronModel.GENERATOR
+    state = [x.clone() for x in (v, u, ring, rows, count, level)]
+    plain = [x.clone() for x in state]
+    runs = ops.FusedTickRun(payload, *state[:3], is_gen, p.a, p.b, p.c, p.d, state[3], t0=t0,
+                            tel_count=state[4], tel_rate=state[5], rate=rate)
+    require(runs.launcher is not None, "FusedTickRun with slots: no launcher on the card")
+    kw = dict(dense=payload.dense, csr=payload.csr, ring_len=static.ring_len,
+              tel_count=plain[4], tel_rate=plain[5], rate=rate)
+    ops.reset_launches()
+    for i in range(ticks):
+        pv, pu, pring, prows = plain[:4]
+        if lanes:
+            runs.tick(i)
+            out = ref.fused_tick_lanes_ref(pv, pu, pring, prows[:, i], is_gen, p.a, p.b, p.c,
+                                           p.d, [t + i for t in t0], **kw)
+        else:
+            runs.tick(i, 100 + i)
+            out = ref.fused_tick_ref(pv, pu, pring, prows[i], is_gen, p.a, p.b, p.c, p.d,
+                                     100 + i, **kw)
+        pv.copy_(out[0])
+        pu.copy_(out[1])
+        pring.copy_(out[3])
+        prows[..., i, :] = out[2]
+    torch.cuda.synchronize()
+    what = f"FusedTickRun with monitor slots, {LANES if lanes else 1} lane(s)"
+    require(ops.LAUNCHES["fused_tick"] == ticks, f"{what}: {ops.LAUNCHES}")
+    for name, a, b in zip(("v", "u", "ring", "rows", "count", "level"), state, plain):
+        require(torch.equal(a, b), f"{what}: {name} differs from the plain version")
+    require(not torch.equal(state[5], level), f"{what}: the level never moved")
+    bare = ops.FusedTickRun(payload, v.clone(), u.clone(), ring.clone(), is_gen, p.a, p.b,
+                            p.c, p.d, rows.clone(), t0=t0)
+    step = (lambda r: (lambda: r.tick(0))) if lanes else (lambda r: (lambda: r.tick(0, 100)))
+    with_us = device_ms(step(runs), "fused_tick_kernel", reps=200) * 1e3
+    none_us = device_ms(step(bare), "fused_tick_kernel", reps=200) * 1e3
+    log(f"[monitors] {what}: {ticks} ticks bit for bit the plain version; device "
+        f"{with_us:.3f} us a tick with the slots, {none_us:.3f} without")
+    return {"device_us_slots": with_us, "device_us_none": none_us, "max_abs_err": 0.0}
+
+
+def _require_same_telemetry(a: dict, b: dict, what: str) -> None:
+    for name in ("spike_count", "group_rate"):
+        x, y = a[name].cpu(), b[name].cpu()
+        require(x.dtype == y.dtype and torch.equal(x, y),
+                f"{what}: {name} differs (max abs err {max_err(x.float(), y.float())})")
+
+
+def _monitored_cell(cfg, policy, propagation, backend, dev, totals) -> dict:
+    """Phase 9a, one cell: ``record="both"`` for MON_TICKS ticks on the card
+    (warmed up, timed, launch counts reset just before and read just after)
+    against the CPU port's ``record="monitors"`` (telemetry bit for bit), the
+    card's ``"raster"`` run (the same raster), and the raster's group sums
+    (the SpikeCount totals)."""
+    from repro_torch.configs.synfire4 import build_synfire
+    from repro_torch.core.engine import run
+    from repro_torch.kernels import ops
+
+    net = build_synfire(cfg, policy=policy, propagation=propagation, backend=backend,
+                        device=dev)
+    run(net.static, net.params, net.state0, 20, record="both")
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    _, out = run(net.static, net.params, net.state0, MON_TICKS, record="both")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    want = _fused_launches(MON_TICKS) if backend else _static_launches(net, MON_TICKS)
+    what = f"{cfg.name} {policy}/{propagation} backend={backend} monitors"
+    require(launches == want, f"{what}: launches {launches} != {want}")
+    _add(totals, launches)
+    _, raster = run(net.static, net.params, net.state0, MON_TICKS)
+    _require_same_raster(out["spikes"].cpu(), raster["spikes"].cpu(), f"{what}: both vs raster")
+    sp = out["spikes"]
+    sums = [int(sp[:, g.start:g.start + g.size].sum()) for g in net.static.groups]
+    tel = out["telemetry"]
+    require(tel["spike_count"].tolist() == sums, f"{what}: counts {tel['spike_count']} "
+            f"!= raster group sums {sums}")
+    cpu_net = build_synfire(cfg, policy=policy, propagation=propagation, backend=backend,
+                            device="cpu")
+    cpu = run(cpu_net.static, cpu_net.params, cpu_net.state0, MON_TICKS,
+              record="monitors")[1]["telemetry"]
+    _require_same_telemetry(tel, cpu, f"{what}: card vs CPU port")
+    total = int(tel["spike_count"].sum())
+    log(f"[monitors] {what}: card telemetry == CPU port's, raster == record='raster' run's, "
+        f"counts == raster group sums; {total} spikes, {seconds / MON_TICKS * 1e6:.1f} us/tick")
+    return {"us_per_tick": seconds / MON_TICKS * 1e6, "spikes": total, "seconds": seconds,
+            "launches": launches, "net": net, "telemetry": tel}
+
+
+def _events_and_overhead(net, marker: str) -> dict:
+    """Phase 9b, one cell: device events per tick in the tick loop with
+    ``record="monitors"`` and ``"none"`` (equal: a ``require``), and host
+    us/tick of MON_TICKS-tick runs in interleaved turns, none then
+    monitors, MON_REPS times."""
+    from repro_torch.core.engine import run
+
+    gu = torch.rand((MON_EVENT_TICKS, net.static.n_gen), device=net.state0.ring.device)
+    events = {}
+    for record in ("none", "monitors"):
+        events[record] = _loop_events(
+            lambda: run(net.static, net.params, net.state0, MON_EVENT_TICKS, gen_u=gu,
+                        record=record), MON_EVENT_TICKS, marker)
+    require(events["none"][1] is not None and events["monitors"][1] == events["none"][1],
+            f"device events per tick in the loop: monitors {events['monitors']} vs none "
+            f"{events['none']}")
+    walls = {"none": [], "monitors": []}
+    for _ in range(MON_REPS):
+        for record in ("none", "monitors"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(net.static, net.params, net.state0, MON_TICKS, record=record)
+            torch.cuda.synchronize()
+            walls[record].append((time.perf_counter() - t0) / MON_TICKS * 1e6)
+    med = {k: sorted(v)[len(v) // 2] for k, v in walls.items()}
+    return {"events_per_tick_all": {k: e[0] for k, e in events.items()},
+            "events_per_tick_loop": {k: e[1] for k, e in events.items()},
+            "us_per_tick_none": walls["none"], "us_per_tick_monitors": walls["monitors"],
+            "median_ratio": med["monitors"] / med["none"]}
+
+
+def _lanes_monitored(dev, propagation, backend, totals) -> dict:
+    """Phase 9c: ``run_batch(MON_TICKS, 64, record="monitors")`` on Synfire4
+    fp16 (``budget=None``): the launch counts of the unmonitored batch, every
+    checked lane's telemetry equal to its solo run's; timed in turns with
+    the unmonitored batch (medians)."""
+    from repro_torch.configs.synfire4 import SYNFIRE4, build_synfire
+    from repro_torch.core import rng
+    from repro_torch.core.engine import run, run_batch
+    from repro_torch.kernels import ops
+
+    net = build_synfire(SYNFIRE4, policy="fp16", propagation=propagation, backend=backend,
+                        device=dev, budget=None)
+    run_batch(net.static, net.params, net.state0, 20, LANES, record="monitors")
+    walls = {"none": [], "monitors": []}
+    for _ in range(MON_BATCH_REPS):
+        for record in ("none", "monitors"):
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            _, out = run_batch(net.static, net.params, net.state0, MON_TICKS, LANES,
+                               record=record)
+            torch.cuda.synchronize()
+            walls[record].append(time.perf_counter() - t0)
+            launches = dict(ops.LAUNCHES)
+    walls = {k: sorted(v)[len(v) // 2] for k, v in walls.items()}  # medians
+    want = _fused_launches(MON_TICKS) if backend else _static_launches(net, MON_TICKS)
+    what = f"run_batch({MON_TICKS}, {LANES}) fp16 {propagation} backend={backend} monitors"
+    require(launches == want, f"{what}: launches {launches} != {want}")
+    _add(totals, launches)
+    tel = out["telemetry"]
+    require(tuple(tel["spike_count"].shape) == (LANES, len(net.static.groups)), what)
+    keys = rng.split(net.state0.key, LANES)
+    for b in (0, 21, 63):
+        solo = run(net.static, net.params, net.state0._replace(key=keys[b]), MON_TICKS,
+                   record="monitors")[1]["telemetry"]
+        _require_same_telemetry({k: v[b] for k, v in tel.items()}, solo, f"{what} lane {b}")
+    per_lane = tel["spike_count"].sum(dim=1)
+    require(bool(((per_lane >= 20_000) & (per_lane <= 33_000)).all()),
+            f"{what}: lane spikes {per_lane.min()}-{per_lane.max()} outside 20,000-33,000")
+    log(f"[monitors] {what}: lanes 0, 21, 63 == solo runs; median of {MON_BATCH_REPS} turns "
+        f"{walls['monitors'] / MON_TICKS * 1e6:.1f} us/tick "
+        f"({walls['none'] / MON_TICKS * 1e6:.1f} without monitors)")
+    return {"us_per_tick": walls["monitors"] / MON_TICKS * 1e6,
+            "us_per_tick_none": walls["none"] / MON_TICKS * 1e6,
+            "lane_ticks_per_s": LANES * MON_TICKS / walls["monitors"], "launches": launches}
+
+
+def _scheduler_monitored(dev, tmp) -> dict:
+    """Phase 9c: a ``LaneScheduler(64)`` under its default
+    ``record="monitors"`` on Synfire4 fp16 sparse: MON_TENANTS tenants, five
+    chunks of 100 ticks with a flush of every tenant after chunk 2; after
+    chunk 3 two tenants are evicted to solo sessions (their final flush
+    kept) and two moved to a second scheduler through ``save_lane``/
+    ``restore_lane``. Each tenant's flushes sum to its uninterrupted
+    session's one flush, and its last filter level is that session's."""
+    import zlib
+
+    from repro_torch.configs.synfire4 import SYNFIRE4, build_synfire
+    from repro_torch.serve import LaneScheduler, Session, restore_lane, save_lane
+
+    net = build_synfire(SYNFIRE4, policy="fp16", propagation="sparse", device=dev,
+                        budget=None)
+    sched, small = LaneScheduler(net, LANES), LaneScheduler(net, 8, ledger_key="small")
+    ids = [f"tenant{i}" for i in range(MON_TENANTS)]
+    for sid in ids:
+        sched.admit(sid)
+    flushes = {sid: [] for sid in ids}
+    solos = {}
+    t0 = time.perf_counter()
+    for c in range(5):
+        sched.step(100)
+        if small.occupancy:
+            small.step(100)
+        for sid, sess in solos.items():
+            sess.run(100)
+        if c == 1:
+            for sid in sched.session_ids:
+                flushes[sid].append(sched.flush(sid))
+        if c == 2:
+            for sid in ids[:2]:
+                ev = sched.evict(sid)
+                flushes[sid].append(ev.flush)
+                solos[sid] = Session.create(net, key=ev.gen_key, state=ev.state)
+            for k, sid in enumerate(ids[2:4]):
+                d = str(Path(tmp) / f"lane{k}")
+                save_lane(d, sched.export(sid))
+                small.restore(restore_lane(d, net))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for sid in ids:
+        if sid in solos:
+            flushes[sid].append(solos[sid].flush())
+        else:
+            flushes[sid].append((small if sid in small.session_ids else sched).flush(sid))
+    for sid in ids:
+        solo = Session.create(net, seed=zlib.crc32(sid.encode()))
+        solo.run(500)
+        want = solo.flush()
+        got = sum(f["spike_count"].astype("int64") for f in flushes[sid])
+        require((got == want["spike_count"]).all() and sum(f["n_ticks"] for f in flushes[sid])
+                == 500, f"scheduler tenant {sid}: flushes sum to {got}, the uninterrupted "
+                f"session's {want['spike_count']}")
+        # An evicted tenant's solo session starts a fresh filter; the others
+        # carry theirs through the moves.
+        require(sid in solos or (flushes[sid][-1]["group_rate"] == want["group_rate"]).all(),
+                f"scheduler tenant {sid}: last filter level differs from the session's")
+    log(f"[monitors] LaneScheduler({LANES}) record='monitors': {MON_TENANTS} tenants' flushes "
+        f"sum to their uninterrupted sessions' through evicts and save_lane moves; "
+        f"{wall:.2f} s for 5 chunks; serve bytes {net.ledger.serve_bytes()}")
+    return {"seconds_5_chunks": wall, "serve_bytes": net.ledger.serve_bytes(),
+            "session_bytes": sched.session_bytes}
+
+
+def _paper_metrics(cells: dict, dev) -> dict:
+    """Phase 9d: the paper's three numbers from the card's telemetry, as
+    ``benchmarks/report.py`` computes them: fp16 vs fp32 spike-count
+    accuracy of 1 s of Synfire4 (at least 0.97), the real-time factor of
+    Synfire4 and of the mini on both backends (warm runs), and the energy
+    model's rows for the M33 and the Pi Zero 2 W (a model: no card power)."""
+    from repro_torch.configs.synfire4 import SYNFIRE4_MINI, build_synfire
+    from repro_torch.core.engine import run
+    from repro_torch.core.sizing import M33, PI_ZERO_2W
+    from repro_torch.telemetry import metrics, summarize
+
+    out = {}
+    for propagation in ("packed", "sparse"):
+        for backend in (None, "fused"):
+            c16 = cells[("fp16", propagation, backend)]
+            c32 = cells[("fp32", propagation, backend)]
+            acc = metrics.spike_count_accuracy(c16["spikes"], c32["spikes"])
+            require(acc >= 0.97, f"fp16 accuracy {acc} < 0.97 ({propagation}, {backend})")
+            out[f"accuracy/{propagation}/{backend or 'default'}"] = acc
+    nets = {("synfire4", b): (cells[("fp16", "sparse", b)]["net"],
+                              cells[("fp16", "sparse", b)]["telemetry"],
+                              cells[("fp16", "sparse", b)]["seconds"]) for b in (None, "fused")}
+    for backend in (None, "fused"):
+        net = build_synfire(SYNFIRE4_MINI, policy="fp16", backend=backend, device=dev)
+        run(net.static, net.params, net.state0, MON_TICKS, record="monitors")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, o = run(net.static, net.params, net.state0, MON_TICKS, record="monitors")
+        torch.cuda.synchronize()
+        nets[("synfire4_mini", backend)] = (net, o["telemetry"], time.perf_counter() - t0)
+    for (label, backend), (net, tel, wall) in nets.items():
+        s = summarize(net.static, tel, MON_TICKS)
+        events = metrics.synaptic_events(net.static, tel["spike_count"].numpy())
+        kw = dict(n_neurons=net.n_neurons, fanin=net.n_synapses / net.n_neurons,
+                  synaptic_events=events, model_time_s=s["model_time_s"],
+                  mean_rate_hz=s["mean_rate_hz"])
+        reps = {hw.name: metrics.energy_report(hw, **kw) for hw in (M33, PI_ZERO_2W)}
+        key = f"{label}/{backend or 'default'}"
+        out[key] = {"realtime_factor_card": metrics.realtime_factor(s["model_time_s"], wall),
+                    "total_spikes": s["total_spikes"], "mean_rate_hz": s["mean_rate_hz"],
+                    "synaptic_events": events,
+                    **{name: r.as_dict() for name, r in reps.items()},
+                    "mcu_vs_pi": metrics.energy_comparison(reps[M33.name],
+                                                          reps[PI_ZERO_2W.name])}
+        log(f"[monitors] {key}: real-time factor on the card "
+            f"{out[key]['realtime_factor_card']:.1f}, M33 {reps[M33.name].realtime_factor:.3f}"
+            f", {s['total_spikes']} spikes, {events:.0f} synaptic events")
+    return out
+
+
+def phase_monitors(dev, rows: list, totals: dict) -> dict:
+    """Phase 9: in-run monitors. (a) Synfire4 fp16/fp32 x packed/sparse x
+    default/fused, 1,000 ticks of record="both"; (b) device events per tick
+    with monitors as without, host us/tick in turns, B1/B4 held with the
+    slots against their plain versions at one lane and 64 and timed with
+    and without; (c) monitored run_batch(1000, 64) and a monitored
+    LaneScheduler(64); (d) the paper's metrics from the card's telemetry."""
+    import tempfile
+
+    from repro_torch.configs.synfire4 import SYNFIRE4
+
+    g = torch.Generator(device="cpu").manual_seed(91)
+    paths, cells = {}, {}
+    for propagation in ("packed", "sparse"):
+        for policy in ("fp16", "fp32"):
+            for backend in (None, "fused"):
+                cell = _monitored_cell(SYNFIRE4, policy, propagation, backend, dev, totals)
+                cells[(policy, propagation, backend)] = cell
+                paths[f"monitors/synfire4/{policy}/{propagation}/{backend or 'default'}"] = {
+                    k: cell[k] for k in ("us_per_tick", "spikes", "launches")}
+    slots = {"izh4_update": {}, "fused_tick": {}}
+    for propagation in ("packed", "sparse"):
+        for backend in (None, "fused"):
+            net = cells[("fp16", propagation, backend)]["net"]
+            marker = "fused_tick_kernel" if backend else "izh4_run_kernel"
+            res = _events_and_overhead(net, marker)
+            paths[f"monitors/synfire4/fp16/{propagation}/{backend or 'default'}"].update(res)
+            log(f"[monitors] fp16 {propagation} backend={backend}: device events per tick in "
+                f"the loop {res['events_per_tick_loop']}, all {res['events_per_tick_all']}; "
+                f"host us/tick none {res['us_per_tick_none']} monitors "
+                f"{res['us_per_tick_monitors']}")
+    for lanes in (None, LANES):
+        key = f"{LANES if lanes else 1}_lanes"
+        slots["izh4_update"][key] = _hold_neuron_slots(
+            cells[("fp16", "sparse", None)]["net"], g, dev, lanes)
+        slots["fused_tick"][key] = _hold_fused_slots(
+            cells[("fp16", "packed", "fused")]["net"], g, dev, lanes)
+    for r in rows:
+        if r["name"] in slots:
+            r["monitors"] = slots[r["name"]]
+    for propagation, backend in (("sparse", None), ("packed", None), ("sparse", "fused")):
+        paths[f"monitors/run_batch/fp16/{propagation}/{backend or 'default'}"] = (
+            _lanes_monitored(dev, propagation, backend, totals))
+    with tempfile.TemporaryDirectory() as tmp:
+        paths["monitors/scheduler/synfire4/fp16/sparse"] = _scheduler_monitored(dev, tmp)
+    paths["monitors/paper_metrics"] = _paper_metrics(cells, dev)
+    return paths
+
+
+def phase_monitors_fresh(rows: list, totals: dict) -> dict:
+    """Phase 9 in a process of its own (``chip_smoke.py --monitors-json
+    PATH``), as phase 8 is: its device-event counts need a profiler that
+    records every kernel. Its rows, paths and launch counts join this
+    run's."""
+    import tempfile
+
+    from repro_torch.kernels import ops
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "monitors.json"
+        subprocess.run([sys.executable, str(Path(__file__).resolve()), "--monitors-json",
+                        str(out)], check=True, timeout=600)
+        res = json.loads(out.read_text())
+    for r in rows:
+        if r["name"] in res["rows"]:
+            r["monitors"] = res["rows"][r["name"]]
+    require(set(res["totals"]) == set(ops.LAUNCHES), f"phase 9 counts {res['totals']}")
+    _add(totals, res["totals"])
+    return res["paths"]
+
+
+def _monitors_main(out: str) -> int:
+    """``--monitors-json PATH``: phase 9 alone, written to ``PATH`` as JSON."""
+    from repro_torch.kernels import _build, ops
+
+    _build.build()
+    rows = [{"name": name} for name in ("izh4_update", "fused_tick")]
+    totals = {k: 0 for k in ops.LAUNCHES}
+    paths = phase_monitors(torch.device("cuda", 0), rows, totals)
+    Path(out).write_text(json.dumps({"rows": {r["name"]: r["monitors"] for r in rows},
+                                     "paths": paths, "totals": totals}))
+    return 0
+
+
 # -- LM serving ----------------------------------------------------------------------
 
 SMOLLM = "smollm-360m"
@@ -4194,6 +4721,8 @@ def main() -> int:
         return 1
     if len(sys.argv) == 3 and sys.argv[1] == "--lanes-json":
         return _lanes_main(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--monitors-json":
+        return _monitors_main(sys.argv[2])
     from repro_torch.kernels import ops
 
     dev = torch.device("cuda", 0)
@@ -4212,6 +4741,7 @@ def main() -> int:
     paths.update(phase_coba(dev, totals))
     paths.update(phase_a5(dev, totals))
     paths.update(phase_lanes_fresh(rows, totals))
+    paths.update(phase_monitors_fresh(rows, totals))
     lm_row, lm_paths = phase_lm(dev, totals)
     rows.append(lm_row)
     paths.update(lm_paths)

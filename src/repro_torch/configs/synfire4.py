@@ -127,7 +127,7 @@ def build_synfire(
     seed: int = 42,
     budget: int | None = MCU_BUDGET_BYTES,
     monitor_ms_hint: int = 1000,
-    monitors=None,
+    monitors="default",
     watches=None,
     method: str = "euler",
     backend: str | None = None,
@@ -144,7 +144,9 @@ def build_synfire(
     single-precision reference. ``propagation`` selects ``packed`` dense
     bucket matmuls, ``sparse`` CSR gathers or the per-projection ``auto``
     cost model. The ledger enforces ``budget`` (the paper's 8.477 MB by
-    default) and counts a ``monitor_ms_hint``-tick raster buffer.
+    default) and counts a ``monitor_ms_hint``-tick raster buffer and the
+    in-run ``monitors``' storage (``"default"``: SpikeCount and GroupRate,
+    the reference's default; ``None`` for none).
 
     ``stdp_chain`` makes the exc→exc feed-forward chain (Cexc{i}→Cexc{i+1}
     and the recurrent closure) plastic with that pair-based STDP

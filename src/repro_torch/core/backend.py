@@ -201,7 +201,7 @@ def coba_coeffs(static) -> CobaCoeffs:
 
 def assemble_neurons(static, params, neurons: nrn.NeuronState, ring: torch.Tensor, *,
                      cond=None, gen_spk=None, i_ext=None, raster=None, v_rows=None,
-                     i_rows=None, counts=None, t0=None) -> ops.NeuronRun | None:
+                     i_rows=None, counts=None, t0=None, tel=None) -> ops.NeuronRun | None:
     """The run's neuron-phase launcher (an :class:`repro_torch.kernels.ops.NeuronRun`
     on copies of ``neurons`` and, for a COBA net, of its conductances
     ``cond``, and on the run's ``ring``) for IZH4-only Euler networks, None
@@ -209,7 +209,8 @@ def assemble_neurons(static, params, neurons: nrn.NeuronState, ring: torch.Tenso
     tick by tick. ``gen_spk`` ``[T, n_gen]`` holds the generator spans'
     spikes side by side in ``static.gen_spans`` order; the other rows and
     ``counts`` are ``NeuronRun``'s, as is ``t0``, the lanes' first ticks of
-    a run over lanes."""
+    a run over lanes; ``tel`` its in-run monitor slots (``tel_count``,
+    ``tel_rate`` and ``rate``, a dict; None for none)."""
     if not (static.izh4_only and static.method == "euler"):
         return None
     p = params.neuron
@@ -225,7 +226,7 @@ def assemble_neurons(static, params, neurons: nrn.NeuronState, ring: torch.Tenso
                          gen_spk=gen_spk, gen_cols=cols, i_ext=i_ext, raster=raster,
                          v_rows=v_rows, i_rows=i_rows, counts=counts, cond=cond,
                          coba=None if static.coba is None else coba_coeffs(static),
-                         dt=static.dt, substeps=static.substeps, t0=t0)
+                         dt=static.dt, substeps=static.substeps, t0=t0, **(tel or {}))
 
 
 def update_neurons_dispatch(static, params, neurons: nrn.NeuronState,

@@ -48,6 +48,13 @@ operation, the ``fused_tick`` kernel, which writes its spike row straight
 into the raster; other fused nets (plastic or STP ones among them), and
 runs with an external current, tick as the default backend does.
 
+``record="monitors"`` keeps the net's in-run monitors
+(:mod:`repro_torch.telemetry.monitors`) through the run: the first
+SpikeCount and GroupRate fold inside the neuron kernel's launch
+(``ops.NeuronRun`` or ``ops.FusedTickRun``), so the default set adds no
+device operation per tick, and the rest fold as plain ops; the per-group
+reductions run once, at the end.
+
 The generator uniforms come, by default, from the reference's threefry
 stream (:mod:`repro_torch.core.rng`): the same seed gives the same raster
 in both packages. ``run``'s serving arguments follow the reference's:
@@ -82,12 +89,13 @@ from repro_torch.core.plasticity import (
     homeostasis_step_csr,
 )
 from repro_torch.kernels import ops
+from repro_torch.telemetry import monitors as tel
 
 __all__ = ["StepOutput", "step", "run", "run_batch", "batched_route", "Engine"]
 
 f32 = torch.float32
 
-_RECORD_MODES = ("raster", "none")
+_RECORD_MODES = ("raster", "monitors", "both", "none")
 # The refractory counters are int16: subtracting more than this from them
 # would wrap around.
 _REFRAC_MAX = 32767
@@ -338,14 +346,16 @@ def _step_kernel(static, params, state, payload, gen_row):
     return new_state, StepOutput(spikes=rows[0], v=v.to(f32), i_syn=i_rows[0])
 
 
-def _run_kernel(static, params, state, n_steps, payload, gen_spk, record,
-                record_v, record_i):
+def _run_kernel(static, params, state, n_steps, payload, gen_spk, raster,
+                record_v, record_i, mon=None):
     """``run``'s loop on the ``fused_tick`` kernel: one operation per tick.
 
     The generator spikes of every tick are written into the raster before
     the loop; the kernel reads a tick's row where ``is_gen`` and writes the
     whole spike row back into it, and writes v' and i_syn rows when they
-    are recorded. The refractory countdown is applied once, for all ticks.
+    are recorded, and folds the default monitors (``mon``, a
+    :class:`_Telemetry`). The refractory countdown is applied once, for
+    all ticks.
     """
     dev = state.ring.device
     rows = torch.zeros((n_steps, static.n), dtype=torch.bool, device=dev)
@@ -359,16 +369,28 @@ def _run_kernel(static, params, state, n_steps, payload, gen_spk, record,
     runner = ops.FusedTickRun(payload.kernel, v, u, ring[:, :, 0],
                               p.model == nrn.NeuronModel.GENERATOR, p.a, p.b, p.c,
                               p.d, rows, vs, cur, dt=static.dt,
-                              substeps=static.substeps)
+                              substeps=static.substeps, **_kernel_tel(mon))
     for i in range(n_steps):
         runner.tick(i, state.t + i)
+        if mon is not None and mon.plain:
+            mon.tick(i, rows[i], v, state.weights)
     refrac = torch.clamp_min(state.neurons.refrac - min(n_steps, _REFRAC_MAX), 0)
     final = state._replace(t=state.t + n_steps,
                            neurons=NeuronState(v=v, u=u, refrac=refrac), ring=ring)
-    return final, _outputs(rows if record == "raster" else None, vs, cur)
+    return final, _outputs(rows if raster else None, vs, cur)
 
 
-def _run_kernel_lanes(static, params, state, n_steps, gen_spk, raster, vs, cur, prop):
+def _kernel_tel(mon: _Telemetry | None) -> dict:
+    """The neuron kernel's monitor slots of a run (none without monitors),
+    the run told that the kernel folds them."""
+    if mon is None:
+        return {}
+    mon.in_kernel(True)
+    return mon.kernel
+
+
+def _run_kernel_lanes(static, params, state, n_steps, gen_spk, raster, vs, cur, prop,
+                      mon=None):
     """:func:`_run_lanes` on the ``fused_tick`` kernel: one launch per tick
     for every lane (``ops.FusedTickRun`` over lanes, each lane at its own
     ring slot), on ``prop``'s kernel payload (the weights every lane
@@ -385,22 +407,91 @@ def _run_kernel_lanes(static, params, state, n_steps, gen_spk, raster, vs, cur, 
     p = params.neuron
     runner = ops.FusedTickRun(payload, v, u, ring[..., 0],
                               p.model == nrn.NeuronModel.GENERATOR, p.a, p.b, p.c, p.d, rows,
-                              vs, cur, dt=static.dt, substeps=static.substeps, t0=state.t)
+                              vs, cur, dt=static.dt, substeps=static.substeps, t0=state.t,
+                              **_kernel_tel(mon))
     for i in range(n_steps):
         runner.tick(i)
+        if mon is not None and mon.plain:
+            mon.tick(i, rows[:, i], v, state.weights)
     refrac = torch.clamp_min(state.neurons.refrac - min(n_steps, _REFRAC_MAX), 0)
     final = state._replace(t=tuple(t + n_steps for t in state.t), ring=ring,
                            neurons=NeuronState(v=v, u=u, refrac=refrac))
     return final, _outputs(raster, vs, cur)
 
 
-def _check_record(record: str) -> None:
+def _check_record(static: NetStatic, record: str, return_tel_carry: bool = False) -> bool:
+    """The reference's checks of ``record`` and ``return_tel_carry``;
+    returns whether the run keeps its monitors."""
     if record not in _RECORD_MODES:
-        if record in ("monitors", "both"):
-            raise NotImplementedError(
-                f"record={record!r} (in-run monitors) is not ported to "
-                "repro_torch yet (ROADMAP A6)")
         raise ValueError(f"record must be one of {_RECORD_MODES}, got {record!r}")
+    want_mon = record in ("monitors", "both")
+    if want_mon and not static.monitors:
+        raise ValueError(
+            "record requests monitors but the network was compiled with "
+            "monitors=() — pass monitor specs (or 'default') to compile()")
+    if return_tel_carry and not want_mon:
+        raise ValueError("return_tel_carry requires record='monitors'/'both'")
+    return want_mon
+
+
+class _Telemetry:
+    """A run's in-run monitors (``static.monitors``) over ``n_steps`` ticks
+    on ``device`` (over ``lanes``: a leading ``[B]`` on every slot): the
+    carry (copies of ``carry``'s tensors, the caller's ``tel_carry``, else
+    zeros), the VoltageProbe rows ``[(B,) T, k]`` f32, and :attr:`kernel`,
+    the first SpikeCount's and GroupRate's slots as the neuron kernels take
+    them (``ops.NeuronRun``, ``ops.FusedTickRun``). Once the run knows
+    whether a kernel folds those two (:meth:`in_kernel`), :meth:`tick`
+    folds every other monitor as plain ops
+    (:func:`repro_torch.telemetry.monitors.update`); :attr:`plain` says
+    whether there is any (with the default set in a kernel there is none,
+    and the run's loop does not call it)."""
+
+    def __init__(self, static: NetStatic, n_steps: int, device, carry=None,
+                 lanes: int | None = None):
+        self.static = static
+        if carry is None:
+            carry = tel.init_carry(static, n_steps, device=device, lanes=lanes)
+        elif len(carry) != len(static.monitors):
+            raise ValueError(f"tel_carry has {len(carry)} slots for "
+                             f"{len(static.monitors)} monitors")
+        else:
+            carry = tuple(c.clone() if isinstance(c, torch.Tensor) else c for c in carry)
+        self.carry = carry
+        lead = () if lanes is None else (lanes,)
+        self.rows = {k: torch.empty((*lead, n_steps, len(spec.neurons)), dtype=f32,
+                                    device=device)
+                     for k, spec in enumerate(static.monitors)
+                     if isinstance(spec, tel.VoltageProbe)}
+        count, rate = tel.kernel_slots(static)
+        self.kernel = dict(
+            tel_count=None if count is None else carry[count],
+            tel_rate=None if rate is None else carry[rate],
+            rate=(0.0, 0.0) if rate is None else tel.rate_constants(static,
+                                                                   static.monitors[rate]))
+        self._held = {k for k in (count, rate) if k is not None}
+        self.in_kernel(False)
+
+    def in_kernel(self, held: bool) -> None:
+        """Whether the run's neuron kernel folds :attr:`kernel`'s slots."""
+        self._skip = self._held if held else set()
+        self.plain = len(self._skip) < len(self.static.monitors)
+
+    def tick(self, i: int, spikes: torch.Tensor, v: torch.Tensor, weights: tuple) -> None:
+        """The run's ``i``-th tick: its spike row ``[(B,) N]``, stored ``v``
+        and weights after plasticity."""
+        _, ys = tel.update(self.static, self.carry, i, spikes, v, weights, skip=self._skip)
+        for k, rows in self.rows.items():
+            rows[..., i, :] = ys[k]
+
+    def outputs(self, outputs: dict, return_carry: bool) -> dict:
+        """``outputs`` with ``"telemetry"`` (:func:`~repro_torch.telemetry.
+        monitors.collect`) and, where asked, ``"tel_carry"``, the raw carry."""
+        ys = tuple(self.rows.get(k) for k in range(len(self.static.monitors)))
+        outputs["telemetry"] = tel.collect(self.static, self.carry, ys)
+        if return_carry:
+            outputs["tel_carry"] = self.carry
+        return outputs
 
 
 def _check_active(active, dev: torch.device) -> torch.Tensor:
@@ -542,7 +633,19 @@ def run(
     """Run ``n_steps`` ticks; returns ``(state', outputs)``.
 
     ``record="raster"`` puts the ``[T, N]`` bool raster in
-    ``outputs["spikes"]``; ``"none"`` records nothing. ``record_v`` /
+    ``outputs["spikes"]``; ``"monitors"`` keeps the net's in-run monitors
+    (``static.monitors``) instead and puts their output in
+    ``outputs["telemetry"]`` (:func:`repro_torch.telemetry.monitors.collect`:
+    per-group SpikeCount totals and GroupRate levels as CPU tensors
+    ``[G]``, VoltageProbe rows ``[T, k]`` and WeightNorm snapshots on the
+    net's device); ``"both"`` does both; ``"none"`` records nothing. On a
+    neuron kernel's tick (``ops.NeuronRun``, ``ops.FusedTickRun``) the
+    first SpikeCount and GroupRate are folded inside its launch, so the
+    default monitor set adds no device operation per tick. ``tel_carry``
+    resumes the monitors' accumulators (a chunked session's carry,
+    :func:`repro_torch.telemetry.monitors.chunk_carry`; the caller's
+    tensors are left as they were) and ``return_tel_carry`` returns the
+    final ones raw in ``outputs["tel_carry"]``. ``record_v`` /
     ``record_i`` add ``[T, N]`` f32 traces ``outputs["v"]`` /
     ``outputs["i_syn"]``. ``i_ext`` is an optional ``[T, N]`` external
     current, ``dopamine`` an optional ``[T]`` f32 dopamine schedule on the
@@ -577,17 +680,12 @@ def run(
     ``active`` (a 0-dim bool tensor on the net's device, never read back
     to the host) gates a serving lane: where it is False the generators
     draw no spike (their uniforms become 1.0) and homeostasis leaves the
-    rates and weights as they were. ``tel_carry``, ``return_tel_carry``
-    and ``watch_carry`` (resumable monitors and watchpoints) raise
+    rates and weights as they were. ``watch_carry`` (watchpoints) raises
     ``NotImplementedError``.
 
     ``state`` is left as it was: the run works on its own copy of the ring.
     """
-    _check_record(record)
-    if tel_carry is not None or return_tel_carry:
-        raise NotImplementedError(
-            "tel_carry / return_tel_carry (resumable in-run monitors) are not "
-            "ported to repro_torch yet (ROADMAP A6)")
+    want_mon = _check_record(static, record, return_tel_carry)
     if watch_carry is not None:
         raise NotImplementedError(
             "watch_carry (in-run watchpoints) is not ported to repro_torch yet "
@@ -608,12 +706,15 @@ def run(
     period = _homeo_period(static, n_steps, gen_chunk if chunk is not None else None)
 
     state = state._replace(key=key)
+    want_raster = record in ("raster", "both")
+    mon = _Telemetry(static, n_steps, dev, tel_carry) if want_mon else None
     if static.fused_kernel and i_ext is None:
         if chunk is not None:
             gen_spk = torch.cat([gen_spk] + [chunk(c) for c in range(1, n_steps // gen_chunk)])
-        return _run_kernel(static, params, state, n_steps,
-                           be.assemble_fused(static, state.weights, params),
-                           gen_spk, record, record_v, record_i)
+        final, outputs = _run_kernel(static, params, state, n_steps,
+                                     be.assemble_fused(static, state.weights, params),
+                                     gen_spk, want_raster, record_v, record_i, mon)
+        return final, _with_telemetry(outputs, mon, return_tel_carry)
     loop = static.propagation == "loop"
     packed = fanin = matmul = gather = None
     if not loop:
@@ -627,12 +728,15 @@ def run(
     homeo = state.homeo
     counts = torch.zeros((static.n,), dtype=torch.int32, device=dev) if period else None
     raster = (torch.empty((n_steps, static.n), dtype=torch.bool, device=dev)
-              if record == "raster" else None)
+              if want_raster else None)
     vs = torch.empty((n_steps, static.n), dtype=f32, device=dev) if record_v else None
     cur = torch.empty((n_steps, static.n), dtype=f32, device=dev) if record_i else None
     neuron_run = be.assemble_neurons(static, params, neurons, ring, cond=cond,
                                      gen_spk=gen_spk, i_ext=i_ext, raster=raster,
-                                     v_rows=vs, i_rows=cur, counts=counts)
+                                     v_rows=vs, i_rows=cur, counts=counts,
+                                     tel=None if mon is None else mon.kernel)
+    if mon is not None:
+        mon.in_kernel(neuron_run is not None)
     stdp_runs, padded, weights = _stdp_launchers(static, params, state)
     drive = None if loop else be.assemble_drive(static, params, weights, state.stp, gather,
                                                  fanin)
@@ -664,6 +768,9 @@ def run(
         syn = _synaptic_phase(static, params, spikes_f32, ring, t, packed, syn, fanin,
                               matmul, gather, None if dopamine is None else dopamine[i],
                               stdp_runs, padded, drive)
+        if mon is not None and mon.plain:
+            mon.tick(i, spikes_f32, neurons.v if neuron_run is None else neuron_run.v,
+                     syn.weights)
         if counts is not None and (i + 1) % period == 0:
             weights, homeo = _apply_homeostasis(static, syn.weights, homeo, counts, active)
             for stdp_run in stdp_runs:
@@ -676,7 +783,7 @@ def run(
     syn = _final_syn(syn, stdp_runs)
     final = state._replace(t=state.t + n_steps, neurons=neurons, ring=ring, cond=cond,
                            homeo=homeo, **syn._asdict())
-    return final, _outputs(raster, vs, cur)
+    return final, _with_telemetry(_outputs(raster, vs, cur), mon, return_tel_carry)
 
 
 def batched_route(static: NetStatic) -> bool:
@@ -697,7 +804,8 @@ def _run_lanes(static: NetStatic, params: NetParams, state: NetState, n_steps: i
                record: str = "raster", record_v: bool = False, record_i: bool = False,
                gen_chunk: int | None = None, gen_base: torch.Tensor | None = None,
                active: torch.Tensor | None = None,
-               prop: be.LanePropagation | None = None) -> tuple[NetState, dict]:
+               prop: be.LanePropagation | None = None, tel_carry=None,
+               return_tel_carry: bool = False) -> tuple[NetState, dict]:
     """``n_steps`` ticks of the B lanes of the batched ``state``
     (:mod:`repro_torch.core.lanes`) of a :func:`batched_route` net, one
     launch per kernel per tick for every lane; returns the batched final
@@ -718,7 +826,12 @@ def _run_lanes(static: NetStatic, params: NetParams, state: NetState, n_steps: i
     homeostasis steps run on the lane axis with dopamine 0.0, and the slow
     timer fires every ``homeo_period`` ticks of the run on per-lane spike
     counts. A ``fused_tick`` net ticks every lane in one launch of it.
+    ``record="monitors"``/``"both"`` keep every lane's monitors (``[B,
+    ...]`` accumulators, resumed from ``tel_carry``; the default set
+    folded in the neuron kernel's launch), their output ``[B, G]`` per
+    group in ``outputs["telemetry"]``, as :func:`run` for one lane.
     """
+    want_mon = _check_record(static, record, return_tel_carry)
     lanes = len(state.t)
     dev = state.ring.device
     t0 = torch.tensor(state.t, dtype=torch.int64, device=dev)
@@ -726,22 +839,26 @@ def _run_lanes(static: NetStatic, params: NetParams, state: NetState, n_steps: i
                                       gen_chunk=gen_chunk, gen_base=gen_base, active=active)
     period = _homeo_period(static, n_steps, gen_chunk if chunk is not None else None)
     shape = (lanes, n_steps, static.n)
-    raster = torch.empty(shape, dtype=torch.bool, device=dev) if record == "raster" else None
+    raster = (torch.empty(shape, dtype=torch.bool, device=dev)
+              if record in ("raster", "both") else None)
+    mon = _Telemetry(static, n_steps, dev, tel_carry, lanes) if want_mon else None
     vs = torch.empty(shape, dtype=f32, device=dev) if record_v else None
     cur = torch.empty(shape, dtype=f32, device=dev) if record_i else None
     if static.fused_kernel:
         if chunk is not None:
             gen_spk = torch.cat([gen_spk] + [chunk(c) for c in range(1, n_steps // gen_chunk)],
                                 dim=1)
-        return _run_kernel_lanes(static, params, state._replace(key=key), n_steps, gen_spk,
-                                 raster, vs, cur, prop)
+        final, outputs = _run_kernel_lanes(static, params, state._replace(key=key), n_steps,
+                                           gen_spk, raster, vs, cur, prop, mon)
+        return final, _with_telemetry(outputs, mon, return_tel_carry)
     if prop is None:
         prop = be.LanePropagation(static, params, state.weights, lanes)
     ring = state.ring.clone()
     counts = torch.zeros((lanes, static.n), dtype=torch.int32, device=dev) if period else None
     neuron_run = be.assemble_neurons(static, params, state.neurons, ring, cond=state.cond,
                                      gen_spk=gen_spk, raster=raster, v_rows=vs, i_rows=cur,
-                                     counts=counts, t0=state.t)
+                                     counts=counts, t0=state.t,
+                                     tel=None if mon is None else _kernel_tel(mon))
     slots = be.LaneSlots(state.t, static.ring_len, dev)
     fanin = be.assemble_fanin(static, params)
     stdp_runs, padded, weights = _stdp_launchers(static, params, state, lanes)
@@ -755,6 +872,8 @@ def _run_lanes(static: NetStatic, params: NetParams, state: NetState, n_steps: i
         syn = _synaptic_phase(static, params, neuron_run.spikes, ring, i, prop.packed, syn,
                               fanin, prop.matmul, prop.gather, None, stdp_runs, padded,
                               drive, slots)
+        if mon is not None and mon.plain:
+            mon.tick(i, neuron_run.spikes, neuron_run.v, syn.weights)
         if counts is not None and (i + 1) % period == 0:
             weights, homeo = _apply_homeostasis(static, syn.weights, homeo, counts, active)
             for stdp_run in stdp_runs:
@@ -766,7 +885,11 @@ def _run_lanes(static: NetStatic, params: NetParams, state: NetState, n_steps: i
         t=tuple(t + n_steps for t in state.t), key=key, ring=ring, cond=cond, homeo=homeo,
         neurons=NeuronState(v=neuron_run.v, u=neuron_run.u, refrac=neuron_run.refrac),
         **_final_syn(syn, stdp_runs)._asdict())
-    return final, _outputs(raster, vs, cur)
+    return final, _with_telemetry(_outputs(raster, vs, cur), mon, return_tel_carry)
+
+
+def _with_telemetry(outputs: dict, mon: _Telemetry | None, return_carry: bool) -> dict:
+    return outputs if mon is None else mon.outputs(outputs, return_carry)
 
 
 def _outputs(raster, vs, cur) -> dict:
@@ -801,10 +924,11 @@ def run_batch(static: NetStatic, params: NetParams, state: NetState, n_steps: in
     ``stdp_update`` over every trial's own plastic weights; a ``fused_tick``
     net one ``fused_tick``. Every other net runs its trials one after
     another through :func:`run` (the lane-by-lane route), which the launch
-    counts show. ``record="monitors"``/``"both"`` raise
-    ``NotImplementedError`` (ROADMAP A6), as :func:`run` does.
+    counts show. ``record="monitors"``/``"both"`` keep every trial's
+    monitors: ``outputs["telemetry"]`` holds each monitor's output with a
+    leading ``[batch]`` (SpikeCount and GroupRate ``[B, G]``).
     """
-    _check_record(record)
+    _check_record(static, record)
     if batch < 1:
         raise ValueError(f"batch must be >= 1, got {batch}")
     keys = rng.split(state.key, batch)
@@ -815,7 +939,14 @@ def run_batch(static: NetStatic, params: NetParams, state: NetState, n_steps: in
                           n_steps, prop=shared, **kw)
     finals, outs = zip(*(run(static, params, state._replace(key=keys[b]), n_steps, **kw)
                          for b in range(batch)))
-    return stack_states(finals), {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+    return stack_states(finals), _stack_outputs(outs)
+
+
+def _stack_outputs(outs) -> dict:
+    """Per-trial output dicts stacked on a leading axis, the telemetry dict
+    entry by entry."""
+    return {k: _stack_outputs([o[k] for o in outs]) if isinstance(outs[0][k], dict)
+            else torch.stack([o[k] for o in outs]) for k in outs[0]}
 
 
 @dataclasses.dataclass
@@ -836,3 +967,12 @@ class Engine:
     def spike_counts(self, n_steps: int, **kw) -> torch.Tensor:
         _, out = self.run(n_steps, **kw)
         return out["spikes"].sum(dim=0)
+
+    def run_monitored(self, n_steps: int, state: NetState | None = None,
+                      **kw) -> tuple[NetState, dict]:
+        """Constant-memory run: in-run monitors only (no ``[T, N]`` raster);
+        returns ``(final_state, summary)``, ``summary`` the host-side
+        :func:`repro_torch.telemetry.summarize` dict (exact group spike
+        counts and rates, filtered rates, probe traces)."""
+        final, out = self.run(n_steps, state=state, record="monitors", **kw)
+        return final, tel.summarize(self.net.static, out["telemetry"], n_steps)

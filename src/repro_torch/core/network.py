@@ -21,9 +21,10 @@ excitatory and inhibitory magnitudes), with ``packed``, ``sparse`` or
 ``auto`` propagation, on the default backend or ``backend="fused"`` (one
 program per tick), or with the ``loop`` oracle (every projection
 dense-stored and propagated on its own), with plastic (STDP, DA-STDP,
-homeostasis) and STP projections. In-run monitors, watches and core
-partitioning raise ``NotImplementedError`` naming the ROADMAP item that
-brings them.
+homeostasis) and STP projections, and in-run monitors
+(``monitors="default"``: SpikeCount and GroupRate, as the reference's
+default). Watches and core partitioning raise ``NotImplementedError``
+naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -64,6 +65,7 @@ from repro_torch.core.synapses import (
 )
 from repro_torch.memory import MemoryLedger
 from repro_torch.precision import PrecisionPolicy, get_policy
+from repro_torch.telemetry import monitors as telem
 
 __all__ = ["NetworkBuilder", "CompiledNetwork", "NetStatic", "NetParams",
            "NetState", "BucketSpec", "FusedPlan", "GroupSpec", "ring_channel"]
@@ -214,6 +216,9 @@ class NetStatic:
     # engine applies it every ``homeo_period`` ticks between segments.
     homeo: tuple[HomeostasisConfig | None, ...] = ()
     homeo_period: int = 0
+    # In-run monitor specs (repro_torch.telemetry); the engine keeps their
+    # accumulators when run(record="monitors"/"both").
+    monitors: tuple = ()
 
     @property
     def fused_kernel(self) -> bool:
@@ -359,7 +364,7 @@ class NetworkBuilder:
         conductances=None,
         ledger: MemoryLedger | None = None,
         monitor_ms_hint: int = 0,
-        monitors=None,
+        monitors="default",
         watches=None,
         backend: str | None = None,
         propagation: str = "packed",
@@ -385,8 +390,6 @@ class NetworkBuilder:
                 "'packed'/'sparse'/'auto'")
         if propagation not in ("packed", "sparse", "auto", "loop"):
             raise ValueError(f"unknown propagation {propagation!r}")
-        if monitors is not None:
-            raise _unported("in-run monitors", "A6")
         if watches is not None:
             raise _unported("watchpoints", "A10")
         if any(c.homeostasis is not None for c in self._connects):
@@ -565,8 +568,10 @@ class NetworkBuilder:
             ledger.register("neuron.params", neuron_params)
 
         # 7. Auxiliary Data: plasticity traces (DA eligibility on the fan-in
-        # rows of CSR-stored projections), homeostasis rates, and the raster
-        # buffer a monitor window of `monitor_ms_hint` ticks needs.
+        # rows of CSR-stored projections), homeostasis rates, the raster
+        # buffer a monitor window of `monitor_ms_hint` ticks needs, and the
+        # in-run monitors' storage over that window (1,000 ticks without
+        # one): O(N + probes·T), never the O(T·N) raster.
         stdp_states = tuple(
             None if cfg is None
             else init_da_stdp_state(s.pre_size, s.post_size, sdt,
@@ -577,6 +582,7 @@ class NetworkBuilder:
         homeo_states = tuple(
             None if h is None else torch.zeros((s.post_size,), dtype=torch.float32)
             for s, h in zip(specs, homeo_cfgs))
+        mon_specs = telem.resolve(monitors, n=n, n_projections=len(specs), dt=dt)
         with ledger.stage("7. Auxiliary Data"):
             ledger.register("stdp.traces", tuple(s for s in stdp_states if s is not None))
             if any(h is not None for h in homeo_states):
@@ -585,6 +591,9 @@ class NetworkBuilder:
             if monitor_ms_hint:
                 ledger.register("monitor.spikes", torch.empty(
                     (monitor_ms_hint, n), dtype=torch.bool, device="meta"))
+            if mon_specs:
+                ledger.register("monitor.telemetry", telem.carry_struct(
+                    mon_specs, n, len(specs), monitor_ms_hint or 1000))
 
         codes = neuron_params.model.numpy()
         izh4_only = bool(np.all((codes == int(nrn.NeuronModel.GENERATOR))
@@ -598,7 +607,7 @@ class NetworkBuilder:
             propagation=propagation, izh4_only=izh4_only,
             buckets=buckets, backend=backend, fused=fused, plastic_csr=plastic_csr,
             stp_csr=stp_csr, homeo=tuple(homeo_cfgs),
-            homeo_period=int(homeostasis_period),
+            homeo_period=int(homeostasis_period), monitors=mon_specs,
         )
         params = NetParams(
             neuron=neuron_params, masks=masks, gen_rate=gen_rate,

@@ -84,6 +84,15 @@ __device__ __forceinline__ float trace_step(float trace, float decay, float spik
   return __fadd_rn(__fmul_rn(trace, decay), spike);
 }
 
+// One GroupRate monitor step of a neuron's filter level c on this tick's
+// spike: c + alpha * (inst - c) with inst = spike ? rate : 0.0 (the spike
+// times float32(1000 / dt), exact), __fsub_rn / __fmul_rn / __fadd_rn in
+// telemetry/monitors.py:update's order, so the level rounds as eager
+// PyTorch's three ops and is never contracted into an FMA.
+__device__ __forceinline__ float rate_fold(float c, bool spike, float alpha, float rate) {
+  return __fadd_rn(c, __fmul_rn(alpha, __fsub_rn(spike ? rate : 0.0f, c)));
+}
+
 REPRO_EXPORT const char* error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -9,7 +9,9 @@
 //     override in the reference's order, v = is_gen ? c : v', u = is_gen ?
 //     0 : u', spike = is_gen ? gen_row : spiked, each stored in the storage
 //     type; the spike goes to `spikes` and, one bit per neuron, to the
-//     run's bitmask scratch (`words`);
+//     run's bitmask scratch (`words`), and, where the run keeps in-run
+//     monitors, into a SpikeCount's int32 count and a GroupRate's f32
+//     filter level (common.cuh's rate_fold: the plain fold's rounding);
 //   phase 2, per post column: every bucket's drive in plan order into one
 //     f32 accumulator per distinct delay, then one ring commit per delay in
 //     ascending order, ring[(t+d) % L] = ring + store(acc), in the ring's
@@ -121,6 +123,10 @@ struct TickPlan {
   int grid;           // CTAs, at most what the card holds resident
   int lanes;
   int group;          // lanes whose bitmasks are staged in shared memory at once
+  int* tel_count;     // [B, N] int32 SpikeCount accumulator, or null
+  float* tel_rate;    // [B, N] f32 GroupRate filter level, or null
+  float tel_alpha;    // GroupRate: float32(dt / tau_ms)
+  float tel_inst;     // GroupRate: float32(1000 / dt), a spike's rate
 };
 
 namespace {
@@ -195,6 +201,7 @@ fused_tick_kernel(const TickPlan P, const int t, const uint8_t* gen_row,
       slot[i] = from_f32<T>(0.0f);
       float v = to_f32(vv[at]);
       float u = to_f32(uu[at]);
+      const float level = P.tel_rate != nullptr ? P.tel_rate[at] : 0.0f;  // loaded early
       const float c = P.c[i];
       const bool spk = izh4_tick(v, u, cur, P.a[i], P.b[i], c, P.d[i], P.h, P.substeps);
       const bool gen = P.is_gen[i] != 0;
@@ -204,6 +211,10 @@ fused_tick_kernel(const TickPlan P, const int t, const uint8_t* gen_row,
       vv[at] = vs;
       uu[at] = us;
       spikes[row] = s ? 1 : 0;  // may alias gen_row: the same thread read it above
+      if (P.tel_count != nullptr && s) P.tel_count[at] += 1;
+      if (P.tel_rate != nullptr) {
+        P.tel_rate[at] = rate_fold(level, s, P.tel_alpha, P.tel_inst);
+      }
       if (v_rec != nullptr) v_rec[row] = to_f32(vs);
       if (isyn_rec != nullptr) isyn_rec[row] = cur;
     }

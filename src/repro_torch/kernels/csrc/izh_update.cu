@@ -15,10 +15,13 @@
 // generators at v = c, u = +0.0, counts the refractory countdown down,
 // takes a generator's spike from the tick's generator row, and writes the
 // f32 spike row the propagation reads, and, where asked, the raster row,
-// the v and i_syn rows and the homeostasis counts. That is the work of
-// about 19 device ops per tick of the per-op phase (engine._neuron_phase,
-// backend.update_neurons_dispatch), each stored in the same type and so
-// bit for bit the same.
+// the v and i_syn rows, the homeostasis counts and the in-run monitors'
+// two accumulators (a SpikeCount's int32 count, a GroupRate's f32 filter
+// level c <- c + alpha * (inst - c), every operation rounded on its own).
+// That is the work of about 19 device ops per tick of the per-op phase
+// (engine._neuron_phase, backend.update_neurons_dispatch) and 6 more of
+// the monitors' plain fold (telemetry/monitors.py:update), each stored in
+// the same type and so bit for bit the same.
 //
 // Lanes: izh4_run_<t> also takes B independent copies of the state (a
 // batched run, a LaneScheduler's chunk), lane b at its own tick and ring
@@ -123,6 +126,10 @@ struct NeuronPlan {
   float e_exc, e_gabaa, e_gabab;  // COBA: reversal potentials (mV)
   long long gen_stride;  // lane stride of the generator rows (entries)
   long long row_stride;  // lane stride of the i_ext, raster, v and i_syn rows
+  int* tel_count;  // [B, N] int32 SpikeCount accumulator, or null
+  float* tel_rate;  // [B, N] f32 GroupRate filter level, or null
+  float tel_alpha;  // GroupRate: float32(dt / tau_ms)
+  float tel_inst;  // GroupRate: float32(1000 / dt), a spike's rate
 };
 
 // One COBA neuron's conductances decayed and delivered, stored back in the
@@ -170,6 +177,9 @@ __global__ void izh4_run_kernel(NeuronPlan p, int slot, const uint8_t* __restric
   T* up = static_cast<T*>(p.u);
   float v = to_f32(vp[at]);
   float u = to_f32(up[at]);
+  // The filter level is loaded with the state, so its latency overlaps the
+  // update's instead of following the spike.
+  const float level = p.tel_rate ? p.tel_rate[at] : 0.0f;
   float cur;
   if (p.channels == 2) {
     const float exc = to_f32(ring[2 * i]);
@@ -199,6 +209,8 @@ __global__ void izh4_run_kernel(NeuronPlan p, int slot, const uint8_t* __restric
   if (v_rec) v_rec[rows] = to_f32(v2);
   if (i_rec) i_rec[rows] = cur;
   if (p.counts && s) p.counts[at] += 1;
+  if (p.tel_count && s) p.tel_count[at] += 1;
+  if (p.tel_rate) p.tel_rate[at] = rate_fold(level, s, p.tel_alpha, p.tel_inst);
 }
 
 template <typename T>

@@ -70,7 +70,8 @@ class _Plan(ctypes.Structure):
         ("ring_len", ctypes.c_int), ("n_buckets", ctypes.c_int),
         ("n_delays", ctypes.c_int), ("substeps", ctypes.c_int),
         ("h", ctypes.c_float), ("grid", ctypes.c_int), ("lanes", ctypes.c_int),
-        ("group", ctypes.c_int)]
+        ("group", ctypes.c_int), ("tel_count", _P), ("tel_rate", _P),
+        ("tel_alpha", ctypes.c_float), ("tel_inst", ctypes.c_float)]
 
 
 _TICK_SIGNATURE = [ctypes.POINTER(_Plan), ctypes.c_int, _P, _P, _P, _P]
@@ -208,11 +209,17 @@ class TickLauncher:
     ``v``, ``u`` are ``[B, N]``, ``ring`` ``[B, L, N]``, the rows lie
     ``row_stride`` entries apart from lane to lane, and the payload's
     weights are shared (one-dimensional ``wd``/``wc``) or one row per lane;
-    a tick then takes the shift ``i % L`` of every lane's slot."""
+    a tick then takes the shift ``i % L`` of every lane's slot.
+
+    ``tel_count`` (``[(B,) N]`` int32) and ``tel_rate`` (``[(B,) N]`` f32),
+    where given, are a SpikeCount's and a GroupRate's accumulators,
+    counted up and filtered (``rate``: the GroupRate's ``(alpha, inst)``)
+    in the neuron phase of the same launch."""
 
     def __init__(self, payload: KernelPayload, v, u, ring, is_gen, a, b, c, d,
                  *, dt: float, substeps: int, grid: int | None = None,
-                 t0: tuple[int, ...] | None = None, row_stride: int = 0):
+                 t0: tuple[int, ...] | None = None, row_stride: int = 0, tel_count=None,
+                 tel_rate=None, rate: tuple[float, float] = (0.0, 0.0)):
         n = v.shape[-1]
         ring_len = ring.shape[-2]
         lanes = 1 if t0 is None else len(t0)
@@ -239,7 +246,8 @@ class TickLauncher:
         slot0 = (None if t0 is None else
                  torch.tensor([t % ring_len for t in t0], dtype=torch.int32, device=v.device))
         # Keep every tensor the plan points at alive for the launcher's life.
-        self._keep = (payload, v, u, ring, is_gen, a, b, c, d, words, cdrive, slot0)
+        self._keep = (payload, v, u, ring, is_gen, a, b, c, d, words, cdrive, slot0,
+                      tel_count, tel_rate)
         plan = _Plan()
         for name, tensor in (("v", v), ("u", u), ("ring", ring), ("is_gen", is_gen),
                              ("a", a), ("b", b), ("c", c), ("d", d),
@@ -257,6 +265,9 @@ class TickLauncher:
         plan.n_buckets, plan.n_delays = payload.desc.shape[0], len(payload.delays)
         plan.substeps, plan.h = substeps, dt / substeps
         plan.grid, plan.lanes, plan.group = self.grid, lanes, group
+        plan.tel_count = None if tel_count is None else tel_count.data_ptr()
+        plan.tel_rate = None if tel_rate is None else tel_rate.data_ptr()
+        plan.tel_alpha, plan.tel_inst = rate
         self._plan = plan
         self._plan_ref = ctypes.byref(plan)
         self._ring_len = ring_len

@@ -57,7 +57,8 @@ class _Plan(ctypes.Structure):
         ("g", _P * 4), ("t0", _P), ("n", _I), ("substeps", _I), ("channels", _I),
         ("lanes", _I), ("ring_len", _I), ("h", _F), ("decay", _F * 4), ("frac", _F * 4),
         ("e_exc", _F), ("e_gabaa", _F), ("e_gabab", _F), ("gen_stride", ctypes.c_longlong),
-        ("row_stride", ctypes.c_longlong)]
+        ("row_stride", ctypes.c_longlong), ("tel_count", _P), ("tel_rate", _P),
+        ("tel_alpha", _F), ("tel_inst", _F)]
 
 
 _RUN_SIGNATURE = [ctypes.POINTER(_Plan), _I, _P, _P, _P, _P, _P]
@@ -94,11 +95,17 @@ class NeuronLauncher:
     (``v``, ``u``, ``refrac``, ``spikes``, ``counts``, ``cond``: ``[B, N]``;
     ``ring``: ``[B, L, N, C]``); ``gen_stride`` and ``row_stride`` are the
     lane strides of the generator rows and of the i_ext, raster and record
-    rows, in entries."""
+    rows, in entries.
+
+    ``tel_count`` (``[(B,) N]`` int32) and ``tel_rate`` (``[(B,) N]`` f32),
+    where given, are a SpikeCount's and a GroupRate's accumulators,
+    counted up and filtered (``rate``: the GroupRate's ``(alpha, inst)``)
+    in the same launch."""
 
     def __init__(self, v, u, refrac, ring, is_gen, a, b, c, d, gen_col, spikes,
                  counts, *, dt: float, substeps: int, cond=None, coba=None, t0=None,
-                 gen_stride: int = 0, row_stride: int = 0):
+                 gen_stride: int = 0, row_stride: int = 0, tel_count=None, tel_rate=None,
+                 rate: tuple[float, float] = (0.0, 0.0)):
         lib = _lib()
         if lib.izh4_run_plan_size() != ctypes.sizeof(_Plan):
             raise RuntimeError("izh4_update: the library's NeuronPlan size differs "
@@ -115,6 +122,9 @@ class NeuronLauncher:
         plan.lanes = 1 if t0 is None else t0.shape[0]
         plan.t0 = None if t0 is None else t0.data_ptr()
         plan.gen_stride, plan.row_stride = gen_stride, row_stride
+        plan.tel_count = None if tel_count is None else tel_count.data_ptr()
+        plan.tel_rate = None if tel_rate is None else tel_rate.data_ptr()
+        plan.tel_alpha, plan.tel_inst = rate
         if cond is not None:
             for k, g in enumerate(cond):
                 plan.g[k] = g.data_ptr()

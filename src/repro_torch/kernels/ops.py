@@ -128,12 +128,20 @@ class NeuronRun:
     N]``; ``run(i)`` is tick ``t0[b] + i`` of every lane b (ring slot
     ``(t0[b] + i) % L``), one launch for all of them on the card
     (:func:`repro_torch.kernels.ref.neuron_lanes_ref` on the CPU);
-    ``counts`` is ``[B, N]``. ``i_ext`` is one lane's only."""
+    ``counts`` is ``[B, N]``. ``i_ext`` is one lane's only.
+
+    In-run monitors: ``tel_count`` (``[(B,) N]`` int32, a SpikeCount's
+    accumulator) takes each tick's spikes added and ``tel_rate`` (``[(B,)
+    N]`` f32, a GroupRate's filter level) its fold with ``rate`` (the
+    GroupRate's ``(alpha, inst)``,
+    :func:`repro_torch.kernels.ref.rate_fold_ref`), in place, in the same
+    launch."""
 
     def __init__(self, v, u, refrac, ring, is_gen, a, b, c, d, *, gen_spk=None,
                  gen_cols=None, i_ext=None, raster=None, v_rows=None, i_rows=None,
                  counts=None, cond=None, coba=None, dt: float = 1.0, substeps: int = 2,
-                 t0: tuple[int, ...] | None = None):
+                 t0: tuple[int, ...] | None = None, tel_count=None, tel_rate=None,
+                 rate: tuple[float, float] = (0.0, 0.0)):
         n = v.shape[-1]
         if t0 is not None and not t0:
             raise ValueError("izh4_update: t0 must name at least one lane")
@@ -184,6 +192,11 @@ class NeuronRun:
             raise ValueError("izh4_update: raster must be bool and v_rows, i_rows float32")
         if counts is not None and (counts.shape != v.shape or counts.dtype != torch.int32):
             raise ValueError(f"izh4_update: counts must be int32 {dims('N')}")
+        if (tel_count is not None and (tel_count.shape != v.shape
+                                       or tel_count.dtype != torch.int32)) or (
+                tel_rate is not None and (tel_rate.shape != v.shape or tel_rate.dtype != f32)):
+            raise ValueError(f"izh4_update: tel_count must be int32 and tel_rate float32 "
+                             f"{dims('N')}")
         if gen_spk is None:
             gen_cols = torch.full((n,), -1, dtype=torch.int64, device=v.device)
         elif (gen_spk.dtype != torch.bool or gen_cols is None or gen_cols.shape != (n,)
@@ -198,12 +211,13 @@ class NeuronRun:
         if i_ext is not None:
             i_ext = i_ext.to(f32).contiguous()
         self._args = (ring, is_gen, a, b, c, d, gen_cols.long(), counts)
+        self._tel = dict(tel_count=tel_count, tel_rate=tel_rate, rate=rate)
         self._ring_len, self._dt, self._substeps = ring.shape[-3], dt, substeps
         self._t0 = t0
         self.launcher = None
         card = _on_card("izh4_update", self.v, self.u, self.refrac, ring, is_gen, a, b,
                         c, d, gen_cols, self.spikes, *rows, *(self.cond or ()),
-                        *([] if counts is None else [counts]))
+                        *(x for x in (counts, tel_count, tel_rate) if x is not None))
         if card and n:
             cols = gen_cols.to(torch.int32)
             self._keep = [cols]
@@ -217,7 +231,8 @@ class NeuronRun:
                                  gen_spk is not None):]), default=0))
             self.launcher = _izh.NeuronLauncher(
                 self.v, self.u, self.refrac, ring, is_gen, a, b, c, d, cols, self.spikes,
-                counts, dt=dt, substeps=substeps, cond=self.cond, coba=coba, **lanes)
+                counts, dt=dt, substeps=substeps, cond=self.cond, coba=coba, **lanes,
+                **self._tel)
         self._card = card
         self._rows = (gen_spk, i_ext, raster, v_rows, i_rows)
         self._gen_start = 0
@@ -265,7 +280,7 @@ class NeuronRun:
                                  a, b, c, d, cols, self.spikes, gen_rows=gen_spk,
                                  raster_rows=raster, v_rows=v_rows, i_rows=i_rows,
                                  cond=self.cond, counts=counts, coba=self._coba, dt=self._dt,
-                                 substeps=self._substeps)
+                                 substeps=self._substeps, **self._tel)
             return
         gen_spk, i_ext, raster, v_rows, i_rows = (None if x is None else x[k]
                                                   for x, k in zip(self._rows, at))
@@ -273,7 +288,7 @@ class NeuronRun:
                            a, b, c, d, cols, self.spikes, gen_row=gen_spk,
                            i_ext_row=i_ext, raster_row=raster, v_row=v_rows,
                            i_row=i_rows, counts=counts, cond=self.cond, coba=self._coba,
-                           dt=self._dt, substeps=self._substeps)
+                           dt=self._dt, substeps=self._substeps, **self._tel)
 
 
 def syn_matmul(x, w):
@@ -689,7 +704,7 @@ class StdpUpdateRun(_StdpRun):
                     p.padded.shape != (*lead, cells + 1) or p.padded.dtype != p.w.dtype
                     or p.padded.data_ptr() != p.w.data_ptr()
                     or p.w.stride()[len(lead):] != (p.w.shape[-1], 1)
-                    or (lead and p.w.stride(0) != p.padded.stride(0))):
+                    or (lead and lead[0] > 1 and p.w.stride(0) != p.padded.stride(0))):
                 raise ValueError(f"stdp_update: padded must be the flat "
                                  f"{list(lead) + [cells + 1]} buffer that w is the start of")
             if p.padded is None and not p.w.is_contiguous():
@@ -787,12 +802,18 @@ class FusedTickRun:
     records both). With finite weights the two agree, as silent pres add
     exact zeros. A CSR index follows the reference's ``jnp.take`` on both
     devices: one in ``[-N, -1]`` counts from the end of the spike row, any
-    other outside ``[0, N)`` makes its row's drive NaN."""
+    other outside ``[0, N)`` makes its row's drive NaN.
+
+    In-run monitors: ``tel_count`` (``v``'s shape, int32, a SpikeCount's
+    accumulator) and ``tel_rate`` (f32, a GroupRate's filter level, ``rate``
+    its ``(alpha, inst)``) take each tick's spikes in place in the same
+    launch, as :class:`NeuronRun`'s do."""
 
     def __init__(self, payload: _fused.KernelPayload, v, u, ring, is_gen, a, b,
                  c, d, rows, v_rows=None, i_rows=None, *, dt: float = 1.0,
                  substeps: int = 2, grid: int | None = None,
-                 t0: tuple[int, ...] | None = None):
+                 t0: tuple[int, ...] | None = None, tel_count=None, tel_rate=None,
+                 rate: tuple[float, float] = (0.0, 0.0)):
         n = v.shape[-1]
         if t0 is not None and not t0:
             raise ValueError("fused_tick: t0 must name at least one lane")
@@ -818,14 +839,21 @@ class FusedTickRun:
             raise ValueError(f"fused_tick: rows must be {list(lead) + ['T', n]} bool")
         if any(x.shape != rows.shape or x.dtype != f32 for x in recs):
             raise ValueError(f"fused_tick: v_rows/i_rows must be float32 {tuple(rows.shape)}")
+        if (tel_count is not None and (tel_count.shape != v.shape
+                                       or tel_count.dtype != torch.int32)) or (
+                tel_rate is not None and (tel_rate.shape != v.shape or tel_rate.dtype != f32)):
+            raise ValueError(f"fused_tick: tel_count must be int32 and tel_rate float32 "
+                             f"{tuple(v.shape)}")
+        tel = [x for x in (tel_count, tel_rate) if x is not None]
         self._card = _on_card("fused_tick", v, u, ring, is_gen, a, b, c, d, rows,
-                              payload.desc, payload.wd, payload.wc, payload.ic, *recs)
+                              payload.desc, payload.wd, payload.wc, payload.ic, *recs, *tel)
         self._args = (payload, v, u, ring, is_gen, a, b, c, d, rows, v_rows, i_rows)
+        self._tel = dict(tel_count=tel_count, tel_rate=tel_rate, rate=rate)
         self._dt, self._substeps, self._t0 = dt, substeps, t0
         if self._card and n:
             self.launcher = _fused.TickLauncher(
                 payload, v, u, ring, is_gen, a, b, c, d, dt=dt, substeps=substeps, grid=grid,
-                t0=t0, row_stride=rows.shape[-2] * n if lead else 0)
+                t0=t0, row_stride=rows.shape[-2] * n if lead else 0, **self._tel)
             self._rows = (rows.data_ptr(), n)
             self._v_rows = 0 if v_rows is None else v_rows.data_ptr()
             self._i_rows = 0 if i_rows is None else i_rows.data_ptr()
@@ -848,7 +876,7 @@ class FusedTickRun:
             return
         payload, v, u, ring, is_gen, a, b, c, d, rows, v_rows, i_rows = self._args
         kw = dict(dense=payload.dense, csr=payload.csr, ring_len=ring.shape[-2], dt=self._dt,
-                  substeps=self._substeps)
+                  substeps=self._substeps, **self._tel)
         if self._t0 is None:
             v2, u2, spikes, ring2, i_syn = ref.fused_tick_ref(
                 v, u, ring, rows[i], is_gen, a, b, c, d, t, **kw)

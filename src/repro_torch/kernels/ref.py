@@ -16,6 +16,7 @@ __all__ = ["izh4_ref", "neuron_run_ref", "neuron_lanes_ref", "coba_current_ref",
            "gather_lanes_ref", "fused_tick_ref", "fused_tick_lanes_ref", "stdp_update_ref",
            "stdp_gather_ref", "stdp_gather_run_ref", "stdp_update_run_ref",
            "stdp_gather_lanes_ref", "stdp_update_lanes_ref", "xla_cpu_row_sum",
+           "rate_fold_ref",
            "plastic_drive_ref", "drive_run_ref",
            "chunked_attention_ref", "flash_attention_ref", "pallas_no_key_rows",
            "model_layout"]
@@ -48,10 +49,22 @@ def izh4_ref(v, u, i_syn, a, b, c, d, *, dt: float = 1.0, substeps: int = 2):
     return v.to(out_dtype), u.to(out_dtype), spiked
 
 
+def rate_fold_ref(level, spikes, alpha: float, inst: float) -> None:
+    """One GroupRate monitor step, in place on the f32 filter level
+    ``level`` ``[(B,) N]``: ``level + alpha * (spikes * inst - level)``
+    with ``spikes`` bool or f32 0/1, four ops each rounded on its own
+    (``alpha``, ``inst``: f32 values held as Python floats)."""
+    d = spikes.to(f32) * inst
+    d = d - level
+    d = d * alpha
+    level += d
+
+
 def neuron_run_ref(v, u, refrac, ring, slot: int, is_gen, a, b, c, d, gen_cols, spikes, *,
                    gen_row=None, i_ext_row=None, raster_row=None, v_row=None, i_row=None,
                    counts=None, cond=None, coba=None, dt: float = 1.0,
-                   substeps: int = 2) -> None:
+                   substeps: int = 2, tel_count=None, tel_rate=None,
+                   rate: tuple[float, float] = (0.0, 0.0)) -> None:
     """One tick's neuron phase of an IZH4-only Euler net, in place, as
     ``engine._neuron_phase`` and ``backend.update_neurons_dispatch``
     compute it op by op: read ring slot ``slot`` (``ring`` ``[L, N, C]``,
@@ -69,8 +82,10 @@ def neuron_run_ref(v, u, refrac, ring, slot: int, is_gen, a, b, c, d, gen_cols, 
     spike from ``gen_row`` (``[n_gen]`` bool) through ``gen_cols``
     (``[N]`` int64, -1 for other neurons). Writes v, u, refrac, the f32
     spike row ``spikes`` and, where given, the bool ``raster_row``, the
-    f32 ``v_row`` and ``i_row`` (``i_syn``), and ``counts += spike``
-    (int32)."""
+    f32 ``v_row`` and ``i_row`` (``i_syn``), ``counts += spike`` (int32)
+    and the in-run monitors' accumulators: ``tel_count += spike`` (a
+    SpikeCount's int32) and :func:`rate_fold_ref` on ``tel_rate`` (a
+    GroupRate's f32 level, ``rate`` its ``(alpha, inst)``)."""
     if cond is None:
         i_syn = ring[slot, :, 0].to(f32, copy=True)
     else:
@@ -99,18 +114,25 @@ def neuron_run_ref(v, u, refrac, ring, slot: int, is_gen, a, b, c, d, gen_cols, 
         i_row.copy_(i_syn)
     if counts is not None:
         counts += spiked
+    if tel_count is not None:
+        tel_count += spiked
+    if tel_rate is not None:
+        rate_fold_ref(tel_rate, spiked, *rate)
 
 
 def neuron_lanes_ref(v, u, refrac, ring, slots, is_gen, a, b, c, d, gen_cols, spikes, *,
                      gen_rows=None, raster_rows=None, v_rows=None, i_rows=None, cond=None,
-                     counts=None, coba=None, dt: float = 1.0, substeps: int = 2) -> None:
+                     counts=None, coba=None, dt: float = 1.0, substeps: int = 2,
+                     tel_count=None, tel_rate=None,
+                     rate: tuple[float, float] = (0.0, 0.0)) -> None:
     """One tick of B lanes' neuron phase, in place: lane ``k`` is
     :func:`neuron_run_ref` on ``v[k]``, ``u[k]``, ``refrac[k]`` and
     ``spikes[k]`` (``[B, N]``), ``ring[k]`` (``[B, L, N, C]``) at ring slot
     ``slots[k]``, the conductances ``cond`` (four ``[B, N]``), the rows
     ``gen_rows`` ``[B, n_gen]``, ``raster_rows``, ``v_rows`` and ``i_rows``
-    ``[B, N]`` and the spike ``counts`` ``[B, N]`` where given; the
-    parameters are shared. A loop over the lanes."""
+    ``[B, N]``, the spike ``counts`` and the monitors' ``tel_count`` and
+    ``tel_rate`` ``[B, N]`` where given; the parameters are shared. A loop
+    over the lanes."""
     for k, slot in enumerate(slots):
         def lane(x):
             return None if x is None else x[k]
@@ -119,7 +141,8 @@ def neuron_lanes_ref(v, u, refrac, ring, slots, is_gen, a, b, c, d, gen_cols, sp
                        spikes[k], gen_row=lane(gen_rows), raster_row=lane(raster_rows),
                        v_row=lane(v_rows), i_row=lane(i_rows), counts=lane(counts),
                        cond=None if cond is None else tuple(g[k] for g in cond), coba=coba,
-                       dt=dt, substeps=substeps)
+                       dt=dt, substeps=substeps, tel_count=lane(tel_count),
+                       tel_rate=lane(tel_rate), rate=rate)
 
 
 def coba_current_ref(cond, v, coba):
@@ -200,7 +223,8 @@ def gather_lanes_ref(spikes, rows, buckets, *, first: bool, absolute: bool = Fal
 
 def fused_tick_ref(v, u, ring, gen_row, is_gen, a, b, c, d, t: int, *,
                    dense=(), csr=(), ring_len: int, dt: float = 1.0,
-                   substeps: int = 2):
+                   substeps: int = 2, tel_count=None, tel_rate=None,
+                   rate: tuple[float, float] = (0.0, 0.0)):
     """One whole tick on unpadded operands, as the reference's
     ``kernels/ref.py:fused_tick_ref``: ring slot read and zero, IZH4,
     generator override, propagation, one ring commit per distinct delay.
@@ -210,7 +234,10 @@ def fused_tick_ref(v, u, ring, gen_row, is_gen, a, b, c, d, t: int, *,
     delay_ms, W [P, Q])``, ``csr`` ``(post_start, delay_ms, idx [Q, F]
     global ids, w [Q, F])``. Drives land per delay in an f32 accumulator,
     dense buckets first, then CSR ones, each in its list's order. Returns
-    ``(v', u', spikes, ring', i_syn)``; ``ring`` is left as it was.
+    ``(v', u', spikes, ring', i_syn)``; ``ring`` is left as it was. The
+    in-run monitors' ``tel_count`` (int32 ``[N]``) and ``tel_rate`` (f32
+    ``[N]``, ``rate`` its ``(alpha, inst)``), where given, take the tick's
+    spikes in place, as :func:`neuron_run_ref` folds them.
     """
     n = v.shape[0]
     slot = t % ring_len
@@ -221,6 +248,10 @@ def fused_tick_ref(v, u, ring, gen_row, is_gen, a, b, c, d, t: int, *,
     v2 = torch.where(is_gen, c, v1.to(f32)).to(v.dtype)
     u2 = torch.where(is_gen, 0.0, u1.to(f32)).to(u.dtype)
     spikes = torch.where(is_gen, gen_row, spiked)
+    if tel_count is not None:
+        tel_count += spikes
+    if tel_rate is not None:
+        rate_fold_ref(tel_rate, spikes, *rate)
     sf = spikes.to(f32)
     acc: dict[int, torch.Tensor] = {}
 
@@ -241,12 +272,14 @@ def fused_tick_ref(v, u, ring, gen_row, is_gen, a, b, c, d, t: int, *,
 
 def fused_tick_lanes_ref(v, u, ring, gen_rows, is_gen, a, b, c, d, ticks, *,
                          dense=(), csr=(), ring_len: int, dt: float = 1.0,
-                         substeps: int = 2):
+                         substeps: int = 2, tel_count=None, tel_rate=None,
+                         rate: tuple[float, float] = (0.0, 0.0)):
     """One tick of B lanes through the fused tick: lane ``k`` is
     :func:`fused_tick_ref` on ``v[k]``, ``u[k]`` ``[B, N]``, ``ring[k]``
     ``[B, L, N]`` and ``gen_rows[k]`` ``[B, N]`` at its tick ``ticks[k]``,
     each bucket's weights shared (``[P, Q]``/``[Q, F]``) or the lane's own
-    (a leading ``[B]``). Returns the five results stacked over the lanes. A
+    (a leading ``[B]``), and the monitors' ``tel_count``/``tel_rate`` ``[B,
+    N]`` where given. Returns the five results stacked over the lanes. A
     loop over the lanes."""
     def lane(w, k):
         return w if w.dim() == 2 else w[k]
@@ -254,7 +287,9 @@ def fused_tick_lanes_ref(v, u, ring, gen_rows, is_gen, a, b, c, d, ticks, *,
     outs = [fused_tick_ref(v[k], u[k], ring[k], gen_rows[k], is_gen, a, b, c, d, t,
                            dense=[(ps, qs, dl, lane(w, k)) for ps, qs, dl, w in dense],
                            csr=[(qs, dl, idx, lane(w, k)) for qs, dl, idx, w in csr],
-                           ring_len=ring_len, dt=dt, substeps=substeps)
+                           ring_len=ring_len, dt=dt, substeps=substeps,
+                           tel_count=None if tel_count is None else tel_count[k],
+                           tel_rate=None if tel_rate is None else tel_rate[k], rate=rate)
             for k, t in enumerate(ticks)]
     return tuple(torch.stack(x) for x in zip(*outs))
 

@@ -100,6 +100,14 @@ class MemoryLedger:
             out[e.name] = out.get(e.name, 0) + e.nbytes
         return out
 
+    def monitor_bytes(self) -> int:
+        """Telemetry/monitor payload bytes: the in-run accumulator state
+        (``monitor.telemetry``, registered by ``network.compile``: the peak
+        monitor-state footprint of a ``record="monitors"`` run) plus any
+        post-hoc raster buffer hint (``monitor.spikes``)."""
+        nb = self.name_bytes()
+        return sum(v for k, v in nb.items() if k.startswith("monitor."))
+
     def serve_bytes(self) -> int:
         """Serving bytes: the per-lane session state registered by
         ``repro_torch.serve.LaneScheduler`` (the ``serve.*`` names of stage
@@ -126,3 +134,42 @@ class MemoryLedger:
         projection stores."""
         nb = self.name_bytes()
         return sum(nb.get(k, 0) for k in ("weights", "masks", "csr.indices"))
+
+    def rampup_rows(self) -> list[dict[str, float]]:
+        """Rows in the paper's Table III/IV format (MB), in stage order."""
+        per_stage = self.stage_bytes()
+        ordered = [s for s in PAPER_STAGES if s in per_stage]
+        ordered += [s for s in per_stage if s not in PAPER_STAGES]
+        rows, used = [], 0
+        for s in ordered:
+            used += per_stage[s]
+            row = {
+                "stage": s,
+                "mem_size_mb": per_stage[s] / 1024**2,
+                "total_used_mb": used / 1024**2,
+            }
+            if self.budget is not None:
+                row["total_available_mb"] = (self.budget - used) / 1024**2
+            rows.append(row)
+        return rows
+
+    def format_table(self) -> str:
+        """Render the ramp-up in the paper's Table III layout."""
+        lines = []
+        header = f"{'Simulation load step':<24}{'Mem. Size':>12}{'Total Used':>12}"
+        if self.budget is not None:
+            header += f"{'Total Available':>18}"
+            lines.append(
+                f"{'(budget)':<24}{'':>12}{'':>12}{self.budget / 1024**2:>15.3f} MB"
+            )
+        lines.insert(0, header)
+        for row in self.rampup_rows():
+            line = (
+                f"{row['stage']:<24}"
+                f"{row['mem_size_mb']:>9.3f} MB"
+                f"{row['total_used_mb']:>9.3f} MB"
+            )
+            if "total_available_mb" in row:
+                line += f"{row['total_available_mb']:>15.3f} MB"
+            lines.append(line)
+        return "\n".join(lines)

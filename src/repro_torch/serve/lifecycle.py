@@ -8,16 +8,16 @@ stimulus key; its tick cursor) and :func:`save_lane` /
 reference's (``repro.serve.lifecycle``) leaf for leaf: a ``fmt`` format
 stamp, the state with its tick as int32 and its key as the two ``uint32``
 key words (the port keeps them as int32 bit patterns), ``gen_key``,
-``ticks``, ``tel`` and ``tel_ticks``, and a lane's ``session_id`` as
-UTF-8 bytes. So a session saved by either package resumes in the other
-and continues bit for bit.
+``ticks``, ``tel`` (the cumulative telemetry slots: a SpikeCount's int32
+counts and a GroupRate's f32 levels per neuron) and ``tel_ticks`` (ticks
+since the last flush), and a lane's ``session_id`` as UTF-8 bytes. So a
+session saved by either package resumes in the other and continues bit
+for bit, its next flush included.
 
 Restore validates the file before reading the payload and raises
 :class:`CheckpointError` (with the file's path and the implicated key) for
 a corrupt or truncated archive, a missing or foreign format stamp, and a
-missing payload key. A file that holds telemetry accumulators raises
-``NotImplementedError`` (session telemetry is ROADMAP A6). Quarantine
-dumps and their retention wait for A10.
+missing payload key. Quarantine dumps and their retention wait for A10.
 """
 from __future__ import annotations
 
@@ -31,6 +31,7 @@ from repro_torch.core.engine import Engine
 from repro_torch.core.network import CompiledNetwork, NetState
 from repro_torch.serve.scheduler import LaneSnapshot
 from repro_torch.serve.session import Session
+from repro_torch.telemetry import monitors as tel
 
 __all__ = ["CheckpointError", "save_session", "restore_session", "latest_session_step",
            "save_lane", "restore_lane"]
@@ -75,12 +76,22 @@ def _template(net_state: NetState) -> NetState:
     return net_state._replace(t=np.int32(0), key=np.zeros(2, np.uint32))
 
 
+def _tel_template(static, device) -> tuple:
+    """The restore template of a persistent telemetry carry: the cumulative
+    slots at their compiled shapes, ``()`` elsewhere (as
+    ``SessionMonitors.absorb`` strips them)."""
+    return tuple(c if isinstance(s, tel.CUMULATIVE) else ()
+                 for s, c in zip(static.monitors, tel.init_carry(static, 1, device=device)))
+
+
 def _fail(message: str, *, path: str, key: str | None = None):
     raise CheckpointError(f"{message} [{path}]", path=path, key=key)
 
 
-def _inspect(ckpt_dir: str, step: int) -> None:
-    """Validate a checkpoint file before restoring from it."""
+def _inspect(ckpt_dir: str, step: int) -> bool:
+    """Validate a checkpoint file before restoring from it; returns whether
+    it holds telemetry accumulators (a session saved before its first
+    chunk, or over a monitor-free net, holds none)."""
     path = ckpt.step_path(ckpt_dir, step)
     try:
         with np.load(path, allow_pickle=False) as data:
@@ -97,10 +108,7 @@ def _inspect(ckpt_dir: str, step: int) -> None:
     if fmt != _CKPT_FORMAT:
         _fail(f"unsupported checkpoint format {fmt} (this build reads {_CKPT_FORMAT})",
               path=path, key="fmt")
-    if has_tel:
-        raise NotImplementedError(
-            f"{path} holds session telemetry accumulators, which repro_torch does not "
-            "restore yet (ROADMAP A6)")
+    return has_tel
 
 
 def _restore_payload(ckpt_dir: str, step: int, like: dict) -> dict:
@@ -123,13 +131,14 @@ def _latest(ckpt_dir: str, step: int | None, what: str) -> int:
 def save_session(ckpt_dir: str, session: Session, *, step: int | None = None) -> str:
     """Atomically persist a session; returns the checkpoint path. ``step``
     defaults to the session's tick cursor."""
+    has_tel = session.monitors is not None and session.monitors.carry is not None
     payload = {
         "fmt": np.int32(_CKPT_FORMAT),
         "state": _pack(session.state),
         "gen_key": _key_words(session.gen_key),
         "ticks": np.int32(session.ticks),
-        "tel": (),
-        "tel_ticks": np.int32(0),
+        "tel": session.monitors.carry if has_tel else (),
+        "tel_ticks": np.int32(session.monitors.ticks_since_flush if has_tel else 0),
     }
     return ckpt.save(ckpt_dir, step if step is not None else session.ticks, payload)
 
@@ -141,14 +150,20 @@ def restore_session(ckpt_dir: str, net: CompiledNetwork | Engine, *,
     that never stopped, bit for bit."""
     engine = net if isinstance(net, Engine) else Engine(net)
     step = _latest(ckpt_dir, step, "session")
-    _inspect(ckpt_dir, step)
+    has_tel = _inspect(ckpt_dir, step)
     state0 = engine.net.state0
+    dev = state0.ring.device
     like = {"state": _template(state0), "gen_key": np.zeros(2, np.uint32),
-            "ticks": np.int32(0), "tel": (), "tel_ticks": np.int32(0)}
+            "ticks": np.int32(0),
+            "tel": _tel_template(engine.net.static, dev) if has_tel else (),
+            "tel_ticks": np.int32(0)}
     payload = _restore_payload(ckpt_dir, step, like)
     session = Session.create(engine, key=_port_key(payload["gen_key"], state0.key.device),
                              state=_unpack(payload["state"], state0))
     session.ticks = int(payload["ticks"])
+    if session.monitors is not None and has_tel:
+        session.monitors.carry = tuple(payload["tel"])
+        session.monitors.ticks_since_flush = int(payload["tel_ticks"])
     return session
 
 
@@ -161,7 +176,7 @@ def save_lane(ckpt_dir: str, snap: LaneSnapshot, *, step: int | None = None) -> 
         "state": _pack(snap.state),
         "gen_key": _key_words(snap.gen_key),
         "ticks": np.int32(snap.ticks),
-        "tel": (),
+        "tel": snap.tel if snap.tel is not None else (),
         "tel_ticks": np.int32(snap.ticks_since_flush),
     }
     return ckpt.save(ckpt_dir, step if step is not None else snap.ticks, payload)
@@ -173,17 +188,18 @@ def restore_lane(ckpt_dir: str, net: CompiledNetwork | Engine, *,
     ready for ``LaneScheduler.restore`` over the same compiled network."""
     engine = net if isinstance(net, Engine) else Engine(net)
     step = _latest(ckpt_dir, step, "lane")
-    _inspect(ckpt_dir, step)
+    has_tel = _inspect(ckpt_dir, step)
     state0 = engine.net.state0
     like = {"session_id": np.zeros((0,), np.uint8), "state": _template(state0),
-            "gen_key": np.zeros(2, np.uint32), "ticks": np.int32(0), "tel": (),
+            "gen_key": np.zeros(2, np.uint32), "ticks": np.int32(0),
+            "tel": _tel_template(engine.net.static, state0.ring.device) if has_tel else (),
             "tel_ticks": np.int32(0)}
     payload = _restore_payload(ckpt_dir, step, like)
     return LaneSnapshot(
         session_id=bytes(np.asarray(payload["session_id"])).decode(),
         state=_unpack(payload["state"], state0),
         gen_key=_port_key(payload["gen_key"], state0.key.device),
-        tel=None, ticks=int(payload["ticks"]),
+        tel=tuple(payload["tel"]) if has_tel else None, ticks=int(payload["ticks"]),
         ticks_since_flush=int(payload["tel_ticks"]))
 
 

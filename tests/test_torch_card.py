@@ -1453,3 +1453,167 @@ def test_drive_kernel_uses_no_local_memory(card):
 
     res = kernel_resources()
     assert res["local_bytes"] == 0 and 0 < res["registers"] <= 255
+
+
+def _monitor_slots(g, shape, device):
+    """A SpikeCount count and a GroupRate level of ``shape`` (random, so the
+    filter rounds off its grid), and the constants of a 100 ms GroupRate
+    at dt = 1 ms."""
+    count = torch.randint(0, 50, shape, generator=g, dtype=torch.int32).to(device)
+    level = (torch.rand(shape, generator=g) * 40).to(device)
+    return count, level, (float(np.float32(1.0 / 100.0)), 1000.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [None, 64], ids=["one-lane", "64-lanes"])
+@pytest.mark.parametrize("policy", ["fp16", "fp32"])
+def test_neuron_run_monitor_slots_match_plain(card, policy, lanes):
+    """B1 with the in-run monitor slots (a SpikeCount's count, a GroupRate's
+    level folded in the launch) over 20 chained Synfire4 ticks: bit for bit
+    its plain version (``ref.neuron_run_ref`` / ``neuron_lanes_ref`` with
+    the same slots) on random levels, at one lane and over 64 lanes at
+    their own ticks (every lane then equal to its one-lane launch); one
+    launch a tick."""
+    from repro_torch.configs.synfire4 import SYNFIRE4, build_synfire
+    from repro_torch.core import NeuronModel
+    from repro_torch.core import backend as be
+    from repro_torch.core.lanes import lane_state
+
+    net = build_synfire(SYNFIRE4, policy=policy, propagation="sparse", device=card,
+                        budget=None)
+    n, ticks = net.static.n, 20
+    g = torch.Generator().manual_seed(31)
+    st = _lane_states(net, lanes or 1, 32, card)
+    if lanes is None:
+        st = lane_state(st, 0)
+    lead = () if lanes is None else (lanes,)
+    ring = (torch.rand(st.ring.shape, generator=g) * 8).to(st.ring.dtype).to(card)
+    gen = (torch.rand((*lead, ticks, net.static.n_gen), generator=g) < 0.3).to(card)
+    count, level, rate = _monitor_slots(g, (*lead, n), card)
+    t0 = st.t if lanes else None
+    p = net.params.neuron
+    is_gen = p.model == NeuronModel.GENERATOR
+    cols = torch.full((n,), -1, dtype=torch.int64, device=card)
+    cols[is_gen] = torch.arange(int(is_gen.sum()), device=card)
+    plain = [x.clone() for x in (*st.neurons, ring, count, level)]
+    c0, l0, ring0 = count.clone(), level.clone(), ring.clone()
+    ops.reset_launches()
+    kernel = be.assemble_neurons(net.static, net.params, st.neurons, ring, gen_spk=gen,
+                                 t0=t0, tel=dict(tel_count=count, tel_rate=level, rate=rate))
+    assert kernel.launcher is not None
+    spikes = torch.zeros((*lead, n), device=card)
+    for i in range(ticks):
+        if lanes is None:
+            kernel(i, st.t + i)
+            ref.neuron_run_ref(*plain[:4], (st.t + i) % net.static.ring_len, is_gen, p.a,
+                               p.b, p.c, p.d, cols, spikes, gen_row=gen[i],
+                               tel_count=plain[4], tel_rate=plain[5], rate=rate)
+        else:
+            kernel(i)
+            ref.neuron_lanes_ref(*plain[:4], [(t + i) % net.static.ring_len for t in st.t],
+                                 is_gen, p.a, p.b, p.c, p.d, cols, spikes,
+                                 gen_rows=gen[:, i], tel_count=plain[4], tel_rate=plain[5],
+                                 rate=rate)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["izh4_update"] == ticks
+    for a, b in zip((kernel.v, kernel.u, kernel.refrac, ring, count, level), plain):
+        assert torch.equal(a, b)
+    assert not torch.equal(level, l0) and int((count - c0).sum()) > 0
+    for b in range(0, lanes or 0, 21):
+        one = lane_state(st, b)
+        c1, l1 = c0[b].clone(), l0[b].clone()
+        solo = be.assemble_neurons(net.static, net.params, one.neurons, ring0[b].clone(),
+                                   gen_spk=gen[b].contiguous(),
+                                   tel=dict(tel_count=c1, tel_rate=l1, rate=rate))
+        for i in range(ticks):
+            solo(i, st.t[b] + i)
+        torch.cuda.synchronize()
+        assert torch.equal(c1, count[b]) and torch.equal(l1, level[b]), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [None, 64], ids=["one-lane", "64-lanes"])
+@pytest.mark.parametrize("propagation", ["packed", "sparse"])
+def test_fused_tick_monitor_slots_match_plain(card, propagation, lanes):
+    """B4 with the in-run monitor slots over 12 ticks of Synfire4 fp16
+    (random v, u, ring, generator rows and levels): bit for bit its plain
+    version with the same slots, at one lane and over 64 lanes at their own
+    ring slots; still one launch a tick."""
+    from repro_torch.configs.synfire4 import SYNFIRE4, build_synfire
+    from repro_torch.core import backend as be
+    from repro_torch.core.neurons import NeuronModel
+    from repro_torch.kernels.fused_tick import assemble_kernel
+
+    net = build_synfire(SYNFIRE4, policy="fp16", propagation=propagation, device=card,
+                        backend="fused", budget=None)
+    g = torch.Generator().manual_seed(33)
+    ticks, n = 12, net.static.n
+    lead = () if lanes is None else (lanes,)
+    payload = assemble_kernel(net.static, net.params,
+                              be.assemble_packed(net.static, net.state0.weights))
+    dtype = net.state0.neurons.v.dtype
+    v = (torch.rand((*lead, n), generator=g) * 100 - 75).to(dtype).to(card)
+    u = (torch.rand((*lead, n), generator=g) * 10 - 15).to(dtype).to(card)
+    ring = (torch.rand((*lead, net.static.ring_len, n), generator=g) * 10).to(dtype).to(card)
+    rows = (torch.rand((*lead, ticks, n), generator=g) < 0.2).to(card)
+    count, level, rate = _monitor_slots(g, (*lead, n), card)
+    t0 = tuple(100 + 7 * b for b in range(lanes)) if lanes else None
+    p = net.params.neuron
+    is_gen = p.model == NeuronModel.GENERATOR
+    state = [x.clone() for x in (v, u, ring, rows, count, level)]
+    plain = [x.clone() for x in state]
+    runs = ops.FusedTickRun(payload, *state[:3], is_gen, p.a, p.b, p.c, p.d, state[3], t0=t0,
+                            tel_count=state[4], tel_rate=state[5], rate=rate)
+    assert runs.launcher is not None
+    ops.reset_launches()
+    kw = dict(dense=payload.dense, csr=payload.csr, ring_len=net.static.ring_len,
+              tel_count=plain[4], tel_rate=plain[5], rate=rate)
+    for i in range(ticks):
+        pv, pu, pring, prows = plain[:4]
+        if lanes is None:
+            runs.tick(i, 100 + i)
+            v2, u2, spikes, ring2, _ = ref.fused_tick_ref(
+                pv, pu, pring, prows[i], is_gen, p.a, p.b, p.c, p.d, 100 + i, **kw)
+        else:
+            runs.tick(i)
+            v2, u2, spikes, ring2, _ = ref.fused_tick_lanes_ref(
+                pv, pu, pring, prows[:, i], is_gen, p.a, p.b, p.c, p.d,
+                [t + i for t in t0], **kw)
+        pv.copy_(v2)
+        pu.copy_(u2)
+        pring.copy_(ring2)
+        prows[..., i, :] = spikes
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fused_tick"] == ticks
+    for x, y in zip(state, plain):
+        assert torch.equal(x, y)
+    assert not torch.equal(state[5], level) and int((state[4] - count).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", [None, "fused"], ids=["default", "fused"])
+@pytest.mark.parametrize("propagation", ["packed", "sparse"])
+def test_monitored_runs_card_equal_cpu(card, propagation, backend):
+    """``record="both"`` on Synfire4-mini fp16 (300 ticks): the card's
+    telemetry equals the CPU port's bit for bit, its raster the
+    ``"raster"`` run's, and ``run_batch(300, 4, record="monitors")``'s lanes
+    each its solo run's."""
+    from repro_torch.configs.synfire4 import SYNFIRE4_MINI, build_synfire
+    from repro_torch.core import rng
+    from repro_torch.core.engine import run, run_batch
+
+    nets = [build_synfire(SYNFIRE4_MINI, policy="fp16", propagation=propagation,
+                          backend=backend, device=dev) for dev in (card, "cpu")]
+    outs = [run(net.static, net.params, net.state0, 300, record="both")[1] for net in nets]
+    _, raster = run(nets[0].static, nets[0].params, nets[0].state0, 300)
+    assert torch.equal(outs[0]["spikes"], raster["spikes"])
+    for name in ("spike_count", "group_rate"):
+        assert torch.equal(outs[0]["telemetry"][name], outs[1]["telemetry"][name]), name
+    net = nets[0]
+    _, batch = run_batch(net.static, net.params, net.state0, 300, 4, record="monitors")
+    keys = rng.split(net.state0.key, 4)
+    for b in (0, 3):
+        _, solo = run(net.static, net.params, net.state0._replace(key=keys[b]), 300,
+                      record="monitors")
+        for name in ("spike_count", "group_rate"):
+            assert torch.equal(solo["telemetry"][name], batch["telemetry"][name][b]), name

@@ -218,10 +218,96 @@ def test_missing_key_raises(tmp_path):
 
 
 def test_telemetry_in_a_file_is_not_restored(tmp_path):
-    _, tnet, d = _saved(tmp_path)
-    _rewrite(os.path.join(d, "step_0000000000.npz"), **{"['tel']||[0]": np.zeros(3)})
-    with pytest.raises(NotImplementedError, match="A6"):
-        restore_session(d, tnet)
+    """Session telemetry is ported (A6), so a file's accumulators are
+    restored now: a session saved after a monitored chunk, with counts
+    written into its file, comes back with those counts and its flush
+    counter, and flushes them."""
+    _, tnet = nets()
+    sess = Session.create(tnet, seed=1)
+    sess.run(30)
+    d = str(tmp_path / "tel")
+    path = save_session(d, sess)
+    counts = np.arange(tnet.static.n, dtype=np.int32)
+    assert files(path)["['tel']||[0]"] == (np.int32, (tnet.static.n,))
+    _rewrite(path, **{"['tel']||[0]": counts})
+    back = restore_session(d, tnet)
+    np.testing.assert_array_equal(back.monitors.carry[0].numpy(), counts)
+    assert torch.equal(back.monitors.carry[1], sess.monitors.carry[1])
+    flushed = back.flush()
+    assert flushed["n_ticks"] == 30
+    assert flushed["spike_count"].tolist() == [
+        int(counts[g.start:g.start + g.size].sum()) for g in tnet.static.groups]
+
+
+def _monitored_nets(policy="fp16", propagation="sparse"):
+    kw = dict(policy=policy, propagation=propagation)
+    return (rsyn.build_synfire(rsyn.SYNFIRE4_MINI, **kw),
+            tsyn.build_synfire(tsyn.SYNFIRE4_MINI, device="cpu", **kw))
+
+
+@pytest.mark.parametrize("writer", ["reference", "port"])
+def test_session_telemetry_crosses_packages(tmp_path, writer):
+    """A monitored session saved by one package after two chunks (one
+    flush between them) restores in the other with its accumulators and
+    flush counter bit for bit: the next flush of both equals, and both
+    sessions continue to the same next flush."""
+    rnet, tnet = _monitored_nets()
+    rsess = rserve.Session.create(rnet, seed=7)
+    tsess = Session.create(tnet, seed=7)
+    for sess in (rsess, tsess):
+        sess.run(40)
+        sess.flush()
+        sess.run(40)
+    d = str(tmp_path / writer)
+    if writer == "reference":
+        rserve.save_session(d, rsess)
+        moved, source = restore_session(d, tnet), rsess
+        assert torch.equal(moved.monitors.carry[0],
+                           torch.from_numpy(np.array(rsess.monitors.carry[0])))
+    else:
+        save_session(d, tsess)
+        moved, source = rserve.restore_session(d, rnet), tsess
+        np.testing.assert_array_equal(np.asarray(moved.monitors.carry[0]),
+                                      tsess.monitors.carry[0].numpy())
+        np.testing.assert_array_equal(np.asarray(moved.monitors.carry[1]),
+                                      tsess.monitors.carry[1].numpy())
+    assert moved.monitors.ticks_since_flush == source.monitors.ticks_since_flush == 40
+    a, b = moved.flush(), source.flush()
+    assert a["n_ticks"] == b["n_ticks"] == 40
+    np.testing.assert_array_equal(np.asarray(a["spike_count"]), np.asarray(b["spike_count"]))
+    np.testing.assert_array_equal(np.asarray(a["group_rate"]), np.asarray(b["group_rate"]))
+
+
+def test_lane_telemetry_crosses_packages(tmp_path):
+    """A monitored scheduler lane exported after two chunks: the reference
+    restores the port's lane file with its cumulative slots and flush
+    counter, and the port the reference's."""
+    rnet, tnet = _monitored_nets()
+    tsched, rsched = LaneScheduler(tnet, 2), rserve.LaneScheduler(rnet, 2)
+    for sched in (tsched, rsched):
+        sched.admit("x", seed=4)
+        sched.step(40)
+        sched.step(40)
+    save_lane(str(tmp_path / "t"), tsched.export("x"))
+    rserve.save_lane(str(tmp_path / "r"), rsched.export("x"))
+    from_port = rserve.restore_lane(str(tmp_path / "t"), rnet)
+    from_ref = restore_lane(str(tmp_path / "r"), tnet)
+    assert from_port.ticks_since_flush == from_ref.ticks_since_flush == 80
+    np.testing.assert_array_equal(np.asarray(from_port.tel[0]), from_ref.tel[0].numpy())
+    assert from_port.tel[0].dtype == np.int32 and from_ref.tel[1].dtype == torch.float32
+    again = LaneScheduler(tnet, 2)
+    again.restore(from_ref)
+    flushed = again.flush("x")
+    assert flushed["n_ticks"] == 80
+    np.testing.assert_array_equal(flushed["spike_count"],
+                                  np.asarray(rsched_flush(rnet, from_port)["spike_count"]))
+
+
+def rsched_flush(rnet, snap) -> dict:
+    """The reference scheduler's flush of a restored lane snapshot."""
+    sched = rserve.LaneScheduler(rnet, 2)
+    sched.restore(snap)
+    return sched.flush(snap.session_id)
 
 
 def test_restore_without_checkpoints_raises(tmp_path):

@@ -60,7 +60,7 @@ def ref_coba_synfire(cfg_name, policy, propagation, **kw):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(rnetwork.NetworkBuilder, "compile", compile_coba)
         return rsyn.build_synfire(getattr(rsyn, cfg_name), policy=policy,
-                                  propagation=propagation, monitors=None, **kw)
+                                  propagation=propagation, **kw)
 
 
 def port_coba_synfire(cfg_name, policy, propagation, device="cpu", stdp_chain=None,

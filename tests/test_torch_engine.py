@@ -315,9 +315,29 @@ class TestRunAndStep:
         assert torch.equal(s.key, net.state0.key)
 
     def test_monitor_records_raise(self):
+        """``record="monitors"`` (ported with ROADMAP A6, so it no longer
+        raises) gives the reference's telemetry from the same seed: the
+        SpikeCount totals bit for bit against the reference's jitted run,
+        the GroupRate levels against its opt-level-0 compile; ``"both"``
+        adds the raster, whose group sums are the counts."""
         net = self._net()
-        with pytest.raises(NotImplementedError, match="A6"):
-            run(net.static, net.params, net.state0, 10, record="monitors")
+        rnet = rsyn.build_synfire(rsyn.SYNFIRE4_MINI, policy="fp16")
+        _, out = run(net.static, net.params, net.state0, 200, record="monitors")
+        _, both = run(net.static, net.params, net.state0, 200, record="both")
+        assert set(out) == {"telemetry"} and set(both) == {"spikes", "telemetry"}
+        rtel = ref_run(rnet.static, rnet.params, rnet.state0, 200,
+                       record="monitors")[1]["telemetry"]
+        rtel0 = ref_run.lower(rnet.static, rnet.params, rnet.state0, 200,
+                              record="monitors").compile(
+            compiler_options={"xla_backend_optimization_level": 0})(
+            rnet.params, rnet.state0)[1]["telemetry"]
+        np.testing.assert_array_equal(out["telemetry"]["spike_count"].numpy(),
+                                      np.asarray(rtel["spike_count"]))
+        np.testing.assert_array_equal(out["telemetry"]["group_rate"].numpy(),
+                                      np.asarray(rtel0["group_rate"]))
+        sums = [int(both["spikes"][:, g.start:g.start + g.size].sum())
+                for g in net.static.groups]
+        assert both["telemetry"]["spike_count"].tolist() == sums
 
     def test_engine_spike_counts(self):
         eng = Engine(self._net())

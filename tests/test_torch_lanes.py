@@ -378,8 +378,55 @@ def test_run_batch_records_and_errors():
                   net.state0._replace(key=rng.split(net.state0.key, 3)[2]), 40,
                   record_v=True, record_i=True)
     assert torch.equal(o["v"], out["v"][2]) and torch.equal(o["i_syn"], out["i_syn"][2])
+    # In-run monitors are ported (A6): every trial's telemetry [B, G] on the
+    # lane route equals its solo run's, and the reference's run_batch
+    # (counts bit for bit; filter levels against its opt-level-0 compile).
+    rnet = rsyn.build_synfire(rsyn.SYNFIRE4_MINI, policy="fp16")
+    rtel = ref_run_batch.lower(rnet.static, rnet.params, rnet.state0, 40, 3,
+                               record="monitors").compile(
+        compiler_options={"xla_backend_optimization_level": 0})(
+        rnet.params, rnet.state0)[1]["telemetry"]
     for record in ("monitors", "both"):
-        with pytest.raises(NotImplementedError, match="A6"):
-            run_batch(net.static, net.params, net.state0, 10, 2, record=record)
+        _, mon = run_batch(net.static, net.params, net.state0, 40, 3, record=record)
+        assert ("spikes" in mon) == (record == "both")
+        tel = mon["telemetry"]
+        assert tel["spike_count"].shape == tel["group_rate"].shape == (3, 9)
+        np.testing.assert_array_equal(tel["spike_count"].numpy(),
+                                      np.asarray(rtel["spike_count"]))
+        np.testing.assert_array_equal(tel["group_rate"].numpy(),
+                                      np.asarray(rtel["group_rate"]))
+        _, o = run(net.static, net.params,
+                   net.state0._replace(key=rng.split(net.state0.key, 3)[2]), 40,
+                   record="monitors")
+        assert torch.equal(o["telemetry"]["spike_count"], tel["spike_count"][2])
+        assert torch.equal(o["telemetry"]["group_rate"], tel["group_rate"][2])
     with pytest.raises(ValueError, match="gen_chunk"):
         run_batch(net.static, net.params, net.state0, 100, 2, gen_chunk=30)
+
+
+@pytest.mark.parametrize("propagation,backend", [("sparse", None), ("packed", None),
+                                                 ("sparse", "fused")])
+def test_run_batch_monitor_kinds_equal_solo_runs(propagation, backend):
+    """Every monitor kind over lanes: SpikeCount and GroupRate (folded in
+    the lanes' neuron launch), a VoltageProbe with a repeated id and a
+    WeightNorm (plain ops on ``[B, ...]``), on the plastic mini (the static
+    mini on the fused tick), 120 ticks: each of 3 lanes equals its solo
+    run, output for output."""
+    from repro_torch.telemetry import GroupRate, SpikeCount, VoltageProbe, WeightNorm
+
+    monitors = (SpikeCount(), GroupRate(tau_ms=30.0), VoltageProbe(neurons=(5, 180, 5)),
+                WeightNorm(stride=40))
+    net = tsyn.build_synfire(tsyn.SYNFIRE4_MINI, policy="fp16", propagation=propagation,
+                             backend=backend, device="cpu", monitors=monitors,
+                             stdp_chain=None if backend else tsyn.CHAIN_STDP)
+    assert batched_route(net.static)
+    _, out = run_batch(net.static, net.params, net.state0, 120, 3, record="monitors")
+    keys = rng.split(net.state0.key, 3)
+    assert out["telemetry"]["vprobe"].shape == (3, 120, 3)
+    assert out["telemetry"]["weight_norm"].shape == (3, 3, len(net.static.projections))
+    for b in range(3):
+        _, solo = run(net.static, net.params, net.state0._replace(key=keys[b]), 120,
+                      record="monitors")
+        for name, got in out["telemetry"].items():
+            assert torch.equal(got[b], solo["telemetry"][name]), (b, name)
+

@@ -13,6 +13,7 @@ import jax  # noqa: E402
 
 from repro.configs import synfire4 as rsyn  # noqa: E402
 from repro.core import network as rnet  # noqa: E402
+from repro.telemetry import monitors as rtel  # noqa: E402
 from repro_torch.configs import synfire4 as tsyn  # noqa: E402
 from repro_torch.core import COBAConfig, NetworkBuilder, izh4  # noqa: E402
 from repro_torch.core.plasticity import HomeostasisConfig, STDPConfig  # noqa: E402
@@ -43,7 +44,7 @@ def assert_same(t, ref, what):
 
 def build_both(cfg_name, policy, propagation):
     ref = rsyn.build_synfire(getattr(rsyn, cfg_name), policy=policy,
-                             propagation=propagation, monitors=None)
+                             propagation=propagation)
     port = tsyn.build_synfire(getattr(tsyn, cfg_name), policy=policy,
                               propagation=propagation, device="cpu")
     return ref, port
@@ -150,7 +151,7 @@ def test_non_contiguous_bucket_spans_match_reference():
     union is not contiguous (gathered through bucket_pre_ids), and two
     targets likewise on the post side."""
     from repro.core import NetworkBuilder as RBuilder, izh4 as rizh4
-    ref = _two_source_net(RBuilder, rizh4, policy="fp32", monitors=None)
+    ref = _two_source_net(RBuilder, rizh4, policy="fp32")
     port = _two_source_net(NetworkBuilder, izh4, policy="fp32", device="cpu")
     assert any(b.pre_start == -1 for b in port.static.buckets)
     assert any(b.post_start == -1 for b in port.static.buckets)
@@ -183,12 +184,14 @@ class TestUnportedFeaturesRaise:
         assert c.static.buckets == ()
         assert c.params.proj_csr_idx[0].shape == (10, spec.fanin)
 
-    # The loop oracle (ROADMAP A5) and conductances (A7, COBA) are ported:
-    # their cases (error None) now compile; the ids keep the cases' names.
+    # The loop oracle (ROADMAP A5), conductances (A7, COBA) and in-run
+    # monitors (A6) are ported: their cases (error None) now compile, the
+    # monitors resolved as the reference resolves its default; the ids keep
+    # the cases' names.
     @pytest.mark.parametrize("kw,item,error", [
         pytest.param({"propagation": "loop"}, "loop", None, id="kw0-A5"),
         pytest.param({"conductances": COBAConfig()}, "coba", None, id="kw1-A7"),
-        pytest.param({"monitors": "default"}, "A6", NotImplementedError, id="kw2-A6"),
+        pytest.param({"monitors": "default"}, "A6", None, id="kw2-A6"),
         pytest.param({"watches": "default"}, "A10", NotImplementedError, id="kw3-A10"),
         pytest.param({"partition": object()}, "A11", NotImplementedError, id="kw4-A11"),
         # Ported with A7: a period without a homeostasis config is the
@@ -201,6 +204,11 @@ class TestUnportedFeaturesRaise:
             c = self._net().compile(device="cpu", **kw)
             if item == "loop":
                 assert c.static.propagation == "loop"
+            elif item == "A6":  # in-run monitors, ported with A6
+                assert [(type(m).__name__, dataclasses.asdict(m)) for m in c.static.monitors] \
+                    == [(type(m).__name__, dataclasses.asdict(m))
+                        for m in rtel.resolve("default", n=10, n_projections=0)]
+                assert c.ledger.name_bytes()["monitor.telemetry"] == 8 * 10
             else:
                 assert c.static.ring_channels == 2 and c.static.coba == kw["conductances"]
                 assert tuple(c.state0.ring.shape[1:]) == (10, 2)

@@ -335,7 +335,7 @@ def port_plastic_net(propagation, **kw):
 
 
 def ref_plastic_net(propagation, **kw):
-    return _plastic_net(RBuilder, rizh4, rpl, propagation, monitors=None, **kw)
+    return _plastic_net(RBuilder, rizh4, rpl, propagation, **kw)
 
 
 class TestPlasticCSRLayout:
@@ -444,7 +444,7 @@ class TestPlasticCostModel:
     @pytest.mark.parametrize("propagation", ["sparse", "packed", "auto"])
     def test_stp_projection_rides_csr_rows(self, propagation):
         c = _stp_net(NetworkBuilder, izh4, tsynapses, tpl, propagation, device="cpu")
-        ref = _stp_net(RBuilder, rizh4, rsynapses, rpl, propagation, monitors=None)
+        ref = _stp_net(RBuilder, rizh4, rsynapses, rpl, propagation)
         spec = c.static.projections[0]
         assert c.static.plastic_csr == () and c.static.stp_csr == (0,)
         assert 0 in c.static.csr_projs
@@ -489,8 +489,7 @@ class TestPlasticLedger:
         (p, q) for p in ("fp16", "fp32") for q in ("packed", "sparse")])
     def test_plastic_synfire4_stage_bytes_match_reference(self, policy, propagation):
         kw = dict(policy=policy, propagation=propagation)
-        ref = rsyn.build_synfire(rsyn.SYNFIRE4, stdp_chain=rsyn.CHAIN_STDP, monitors=None,
-                                 **kw)
+        ref = rsyn.build_synfire(rsyn.SYNFIRE4, stdp_chain=rsyn.CHAIN_STDP, **kw)
         port = tsyn.build_synfire(tsyn.SYNFIRE4, stdp_chain=tsyn.CHAIN_STDP, device="cpu",
                                   **kw)
         assert port.ledger.stage_bytes() == ref.ledger.stage_bytes()
@@ -499,7 +498,7 @@ class TestPlasticLedger:
 
     def test_homeostasis_stage_bytes_match_reference(self):
         kw = dict(policy="fp16", propagation="sparse", homeostasis_period=100)
-        ref = rsyn.build_synfire(rsyn.SYNFIRE4, stdp_chain=rsyn.CHAIN_STDP, monitors=None,
+        ref = rsyn.build_synfire(rsyn.SYNFIRE4, stdp_chain=rsyn.CHAIN_STDP,
                                  homeo_chain=rpl.HomeostasisConfig(), **kw)
         port = tsyn.build_synfire(tsyn.SYNFIRE4, stdp_chain=tsyn.CHAIN_STDP, device="cpu",
                                   homeo_chain=tpl.HomeostasisConfig(), **kw)
@@ -515,8 +514,7 @@ class TestPlasticLedger:
                                   device="cpu", **kw)
         assert len(port.static.plastic_csr) == 4  # the exc->exc chain
         assert port.ledger.total_used <= MCU_BUDGET_BYTES
-        ref = rsyn.build_synfire(rsyn.SYNFIRE4_X10, stdp_chain=rsyn.CHAIN_STDP,
-                                 monitors=None, **kw)
+        ref = rsyn.build_synfire(rsyn.SYNFIRE4_X10, stdp_chain=rsyn.CHAIN_STDP, **kw)
         assert port.ledger.stage_bytes() == ref.ledger.stage_bytes()
 
 

@@ -257,9 +257,29 @@ class TestErrors:
                                          ({"return_tel_carry": True}, "A6"),
                                          ({"watch_carry": ()}, "A10")])
     def test_unported_carries_raise(self, kw, item):
+        """Watchpoints (A10) still raise. The telemetry carries are ported
+        (A6): ``tel_carry`` resumes a run's monitors, so two runs of 50
+        ticks on ``gen_base`` fed each other's carry equal one of 100, as
+        in the reference; ``return_tel_carry`` without monitors is the
+        reference's ValueError."""
         net = self._net()
-        with pytest.raises(NotImplementedError, match=item):
-            run(net.static, net.params, net.state0, 10, **kw)
+        if item == "A10":
+            with pytest.raises(NotImplementedError, match=item):
+                run(net.static, net.params, net.state0, 10, **kw)
+            return
+        if "return_tel_carry" in kw:
+            with pytest.raises(ValueError, match="return_tel_carry requires"):
+                run(net.static, net.params, net.state0, 10, **kw)
+            return
+        key = rng.key(5)
+        _, whole = run(net.static, net.params, net.state0, 100, record="monitors",
+                       gen_base=key)
+        mid, first = run(net.static, net.params, net.state0, 50, record="monitors",
+                         gen_base=key, return_tel_carry=True)
+        _, second = run(net.static, net.params, mid, 50, record="monitors", gen_base=key,
+                        tel_carry=first["tel_carry"])
+        for name in ("spike_count", "group_rate"):
+            assert torch.equal(second["telemetry"][name], whole["telemetry"][name]), name
 
 
 def _raster(tnet, ticks=TICKS, **kw):

@@ -58,7 +58,7 @@ def mini(policy="fp16", propagation="sparse", plastic=False, homeo=False, ref=Fa
         kw.update(homeo_chain=(RHomeo if ref else HomeostasisConfig)(**HOMEO),
                   homeostasis_period=40)
     if ref:
-        kw["monitors"] = None
+        kw.setdefault("monitors", None)
     else:
         kw["device"] = "cpu"
     return syn.build_synfire(syn.SYNFIRE4_MINI, policy=policy, propagation=propagation, **kw)
@@ -148,16 +148,38 @@ class TestSession:
             assert_same_state(as_np_state(tsess.state), rstate)
 
     def test_unported_modes_raise(self):
-        sess = Session.create(mini())
-        for record in ("monitors", "both"):
-            with pytest.raises(NotImplementedError, match="A6"):
-                sess.run(10, record=record)
-        with pytest.raises(NotImplementedError, match="A6"):
-            sess.run(10)  # the reference's default, record="monitors"
+        """Watchpoints (A10) still raise. The monitor modes are ported (A6):
+        the reference's default ``record="monitors"`` and ``"both"`` keep
+        the session's telemetry, and every flush equals the reference
+        session's (spike counts bit for bit; filter levels bit for bit
+        against its chunks compiled at opt level 0); a session without
+        monitors cannot flush."""
+        rnet = mini(ref=True, monitors="default")
+        key = jax.random.key(5)
+        chunk = ref_run.lower(rnet.static, rnet.params, rnet.state0, 40, gen_base=key,
+                              record="monitors", return_tel_carry=True,
+                              tel_carry=rserve.SessionMonitors(rnet.static).chunk_carry(40)
+                              ).compile(compiler_options=OPT0)
+        rmon = rserve.SessionMonitors(rnet.static)
+        rstate = rnet.state0
+        sess = Session.create(mini(), seed=5)
+        for record in ("monitors", "both", "monitors"):
+            out = sess.run(40, record=record)
+            assert ("spikes" in out) == (record == "both") and "telemetry" in out
+            rstate, rout = chunk(rnet.params, rstate, gen_base=key,
+                                 tel_carry=rmon.chunk_carry(40))
+            rmon.absorb(rout["tel_carry"], 40)
+            got, want = sess.flush(), rmon.flush()
+            assert got.keys() == want.keys() and got["n_ticks"] == 40
+            for name in ("spike_count", "group_rate"):
+                np.testing.assert_array_equal(got[name], np.asarray(want[name]), name)
         with pytest.raises(NotImplementedError, match="A10"):
             sess.check_watches()
+        bare = Session.create(mini(), monitors=False)
         with pytest.raises(ValueError, match="monitors"):
-            sess.flush()
+            bare.flush()
+        with pytest.raises(ValueError, match="monitors"):
+            bare.run(10)
         with pytest.raises(ValueError, match="mutually exclusive"):
             sess.run(100, record="none", gen_chunk=50)
 
@@ -238,6 +260,46 @@ class TestLaneScheduler:
         for lane in range(4):
             r = jax.tree.map(lambda x, i=lane: x[i], rs.states)
             assert_same_state(as_np_state(lane_state(ts.states, lane)), r)
+
+    @pytest.mark.parametrize("plastic", [False, True])
+    def test_flushes_equal_the_reference_scheduler(self, plastic, monkeypatch):
+        """Under the reference's default ``record="monitors"``: waves of
+        admits at different ticks, flushes between chunks, an evict (its
+        final flush), a re-admit into the recycled lane and an
+        export/restore: every flush equals the reference scheduler's bit for
+        bit, spike counts, filter levels and ticks, its chunks compiled at
+        ``xla_backend_optimization_level=0`` (the default jit contracts the
+        GroupRate fold, ROADMAP queue C); the serve bytes are equal."""
+        step = rscheduler._step_lanes
+
+        def step_opt0(static, params, states, keys, active, n_ticks, record, **kw):
+            return step.lower(static, params, states, keys, active, n_ticks, record,
+                              **kw).compile(compiler_options=OPT0)(
+                params, states, keys, active, **kw)
+
+        monkeypatch.setattr(rscheduler, "_step_lanes", step_opt0)
+        rnet = mini(plastic=plastic, ref=True, monitors="default")
+        tnet = mini(plastic=plastic)
+        flushes = []
+        for sched in (rserve.LaneScheduler(rnet, 4), LaneScheduler(tnet, 4)):
+            out = []
+            sched.admit("a", seed=1)
+            sched.step(30)
+            sched.admit("b", seed=2)
+            sched.step(20)
+            out.append(sched.flush("a"))
+            out.append(sched.evict("a").flush)
+            sched.admit("c")
+            sched.step(30)
+            sched.restore(sched.export("b"))
+            sched.step(20)
+            out += [sched.flush_all()[sid] for sid in ("b", "c")]
+            flushes.append(out)
+        assert tnet.ledger.serve_bytes() == rnet.ledger.serve_bytes()
+        for want, got in zip(*flushes):
+            assert got.keys() == want.keys() and got["n_ticks"] == want["n_ticks"]
+            for name in ("spike_count", "group_rate"):
+                np.testing.assert_array_equal(got[name], np.asarray(want[name]), name)
 
     def test_evict_resumes_bitwise_as_solo(self):
         net = mini()
@@ -398,9 +460,21 @@ class TestLaneScheduler:
             assert_same_state(as_np_state(got), as_np_state(solo_state(net, seed, 100)))
 
     def test_unported_options_raise(self):
+        """The reference's default, ``record="monitors"``, is ported (A6):
+        its flushes equal solo sessions'; mesh (A11), the flight recorder,
+        watchpoints and quarantine (A10) still raise."""
         net = mini()
-        with pytest.raises(NotImplementedError, match="A6"):
-            LaneScheduler(net, capacity=2)  # the reference's default, record="monitors"
+        sched = LaneScheduler(net, capacity=2)
+        assert sched.record == "monitors"
+        sched.admit("m", seed=3)
+        sched.step(40)
+        sess = Session.create(net, seed=3)
+        sess.run(40)
+        got, want = sched.flush("m"), sess.flush()
+        for name in ("spike_count", "group_rate", "n_ticks"):
+            np.testing.assert_array_equal(got[name], want[name], name)
+        with pytest.raises(ValueError, match="compiled with monitors"):
+            LaneScheduler(mini(monitors=None), capacity=2)
         with pytest.raises(NotImplementedError, match="A11"):
             LaneScheduler(net, capacity=2, record="none", mesh=object())
         with pytest.raises(NotImplementedError, match="A10"):
