@@ -175,6 +175,29 @@ Phases (each raises, and the script exits non-zero, on any failure):
    paper's fp16 vs fp32 accuracy (at least 0.97), real-time factors of
    Synfire4 and the mini on both backends and the energy model's M33 and
    Pi Zero 2 W rows from the card's telemetry.
+10. Observability (after phase 9, in a process of its own too:
+   ``chip_smoke.py --obs-json PATH``): (a) Synfire4 with the default
+   watches (NonFinite, RateBand, Silent), fp16/fp32 x packed/sparse x
+   default/fused, 1,000 ticks of ``record="both"``: raster, telemetry,
+   final state and launch counts equal to the same net without watches,
+   the watch carry equal to the CPU port's bit for bit, and device events
+   per tick in the tick loop equal to the unwatched run's; (b)
+   ``izh4_update`` (fp16 and fp32, and fp16 with one Euler substep) and
+   ``fused_tick`` with the watch slots bit for bit against their plain
+   versions at one lane and 64, with a NaN membrane, one stored as inf, a
+   lane that never spikes and (one substep) a membrane whose f32 value
+   fp16 stores as -inf, timed on the device with and without the slots;
+   (c) plastic Synfire4 fp16 sparse with ``NonFinite(weight_stride=100)``
+   and ``WeightDrift()``: the carry equal to the CPU port's (the norms at
+   rtol 1e-6) and the device events the strided checks add per 100
+   ticks; (d) a ``LaneScheduler(64)`` with ``flight_window=4`` and 16
+   tenants beside an unpoisoned twin: one tenant's membrane NaN'd, found by
+   ``check_watches`` after one chunk, the other lanes equal to the twin's,
+   quarantined, dumped, restored and replayed bit for bit from its first
+   flight snapshot; (e) obs on and off bit for bit, host us/tick of both in
+   turns, the compile and cache-hit counts of a first and a second
+   scheduler step (printed), the Prometheus text's size and
+   ``health_snapshot``'s status (the mini pass on the M33, Synfire4 fail).
 6. LM serving on the dense decoder (``repro_torch.launch.serve``): (a) the
    attention kernel ``flash_attention`` against its plain version on the
    card, at rtol = atol = 1e-5, at smollm-360m's prefill and decode shapes,
@@ -4188,6 +4211,587 @@ def _monitors_main(out: str) -> int:
     return 0
 
 
+# -- phase 10: observability (watches, quarantine and replay, the obs plane) ----------
+
+OBS_TICKS = 1000
+WATCH_SLOT_TICKS = 12  # chained ticks per slot case: ring slots wrap past L = 11
+OBS_TENANTS = 16
+OBS_FLIGHT = 4
+OBS_REPS = 5  # interleaved turns of obs on and off
+WATCH_TURNS = 3  # interleaved device timings with and without the watch slots
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit, NaNs included (a NaN in the same place equals)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan = a.isnan()
+    return torch.equal(nan, b.isnan()) and torch.equal(a[~nan], b[~nan])
+
+
+def _require_state_bits(a, b, what) -> None:
+    """Two NetStates equal bit for bit in every tensor (NaNs in the same
+    places equal): the tick, neurons, ring, key, weights and traces."""
+    def leaves(st):
+        out = [("ring", st.ring), ("key", st.key)]
+        out += [(f"neurons.{f}", x) for f, x in zip(st.neurons._fields, st.neurons)]
+        out += [(f"weights.{j}", w) for j, w in enumerate(st.weights)]
+        out += [(f"stdp.{j}.{f}", x) for j, tr in enumerate(st.stdp) if tr is not None
+                for f, x in zip(tr._fields, tr)]
+        return out
+
+    require(a.t == b.t, f"{what}: tick {a.t} vs {b.t}")
+    for (name, x), (_, y) in zip(leaves(a), leaves(b)):
+        require(_same_bits(x.cpu(), y.cpu()), f"{what}: {name} differs")
+
+
+def _watch_inputs(g, lead, n, dev):
+    """Random watch slots over ``lead`` lanes: a RateBand count, a Silent's
+    {last, gap, flags} words and a NonFinite's {ticks, 0, flags} words (the
+    flags clear, as a run starts them)."""
+    count = torch.randint(0, 50, (*lead, n), generator=g, dtype=torch.int32)
+    zero = torch.zeros(lead, dtype=torch.int32)
+    silent = torch.stack([-1 - torch.randint(0, 30, lead, generator=g, dtype=torch.int32),
+                          torch.randint(0, 60, lead, generator=g, dtype=torch.int32),
+                          zero, zero], -1)
+    bad = torch.stack([torch.randint(0, 5, lead, generator=g, dtype=torch.int32),
+                       zero, zero, zero], -1)
+    return [x.to(torch.int32).contiguous().to(dev) for x in (count, silent, bad)]
+
+
+def _poison_lanes(v, ring, gen, lanes: bool) -> None:
+    """In place: lane 0 a NaN membrane; over lanes, lane 1 a membrane stored
+    as inf (an fp16 value past 65,504; an f32 one at inf), lane 2 at rest
+    with no input (it never spikes) and lane 3's ring at -65,504 (with one
+    substep its f32 membrane lands finite past -65,504, which fp16 stores
+    as -inf)."""
+    first = v[0] if lanes else v
+    first[-7] = float("nan")  # a neuron of the last group, not a generator
+    if lanes:
+        v[1, -20] = float("inf")
+        v[2] = -70.0
+        ring[2] = 0.0
+        gen[2] = False
+        ring[3] = -65504.0
+
+
+def _slot_times(with_slots, without, marker: str) -> dict:
+    """Device time (us) of one launch with the watch slots and without, in
+    WATCH_TURNS interleaved turns of 100 launches each: the medians, and
+    their ratio."""
+    times = {"watch": [], "none": []}
+    for _ in range(WATCH_TURNS):
+        for key, fn in (("watch", with_slots), ("none", without)):
+            times[key].append(device_ms(fn, marker, reps=100) * 1e3)
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    return {"device_us_watch": med["watch"], "device_us_none": med["none"],
+            "ratio": med["watch"] / med["none"], "turns": times}
+
+
+def _hold_neuron_watch_slots(net, g, dev, lanes, substeps: int) -> dict:
+    """``ops.NeuronRun`` with the watch slots (and the monitor slots) for 12
+    chained ticks on random state with the poisoned lanes, one lane or 64:
+    bit for bit its plain version with the same slots, NaNs in place; the
+    silent lane's gap grows, the NaN lane's bad ticks count; device time of
+    a tick with and without the watch slots."""
+    from repro_torch.core.neurons import NeuronModel
+    from repro_torch.kernels import ops, ref
+
+    static, params = net.static, net.params
+    n, dtype, ticks = static.n, net.state0.neurons.v.dtype, WATCH_SLOT_TICKS
+    lead = () if lanes is None else (LANES,)
+    v = (torch.rand((*lead, n), generator=g) * 115 - 80).to(dtype)
+    u = (torch.rand((*lead, n), generator=g) * 10 - 15).to(dtype)
+    ring = (torch.rand((*lead, *net.state0.ring.shape), generator=g) * 12).to(dtype)
+    gen = torch.rand((*lead, ticks, static.n_gen), generator=g) < 0.3
+    _poison_lanes(v, ring, gen, lanes is not None)
+    if lanes:
+        u[2] = -14.0
+    v, u, ring, gen = v.to(dev), u.to(dev), ring.to(dev), gen.to(dev)
+    refrac = torch.zeros((*lead, n), dtype=torch.int16, device=dev)
+    count, level, rate = _slot_inputs(g, net, (*lead, n), dev)
+    w_count, w_silent, w_bad = _watch_inputs(g, lead, n, dev)
+    t0 = _lane_t0() if lanes else None
+    p = params.neuron
+    is_gen = p.model == NeuronModel.GENERATOR
+    cols = _gen_cols(static, dev)
+    slots = [x.clone() for x in (count, level, w_count, w_silent, w_bad)]
+    k_ring = ring.clone()
+    kw = dict(gen_spk=gen, gen_cols=cols, dt=static.dt, substeps=substeps, t0=t0)
+    run = ops.NeuronRun(v, u, refrac, k_ring, is_gen, p.a, p.b, p.c, p.d, tel_count=slots[0],
+                        tel_rate=slots[1], rate=rate, w_count=slots[2], w_silent=slots[3],
+                        w_bad=slots[4], **kw)
+    require(run.launcher is not None, "NeuronRun with watch slots: no launcher on the card")
+    pv, pu, pr, p_ring = v.clone(), u.clone(), refrac.clone(), ring.clone()
+    plain = [x.clone() for x in (count, level, w_count, w_silent, w_bad)]
+    spikes = torch.zeros((*lead, n), device=dev)
+    pk = dict(tel_count=plain[0], tel_rate=plain[1], rate=rate, w_count=plain[2],
+              w_silent=plain[3], w_bad=plain[4], dt=static.dt, substeps=substeps)
+    for i in range(ticks):
+        if lanes:
+            run(i)
+            ref.neuron_lanes_ref(pv, pu, pr, p_ring, [(t + i) % static.ring_len for t in t0],
+                                 is_gen, p.a, p.b, p.c, p.d, cols, spikes, gen_rows=gen[:, i],
+                                 step=i, **pk)
+        else:
+            run(i, 100 + i)
+            ref.neuron_run_ref(pv, pu, pr, p_ring, (100 + i) % static.ring_len, is_gen, p.a,
+                               p.b, p.c, p.d, cols, spikes, gen_row=gen[i], step=i, **pk)
+    torch.cuda.synchronize()
+    what = (f"NeuronRun with watch slots, {dtype}, {LANES if lanes else 1} lane(s), "
+            f"substeps {substeps}")
+    for name, a, b in (("v", run.v, pv), ("u", run.u, pu), ("ring", k_ring, p_ring),
+                       *zip(("count", "level", "w_count", "w_silent", "w_bad"), slots, plain)):
+        require(_same_bits(a, b), f"{what}: {name} differs from the plain version")
+    bad = (slots[4] - w_bad)[..., 0].reshape(-1)  # the ticks folded: all but the last
+    require(int(bad[0]) >= ticks - 2, f"{what}: the NaN lane counted {int(bad[0])} bad ticks")
+    if lanes:
+        require(int(bad[1]) > 0, f"{what}: the inf lane counted no bad tick")
+        require(torch.equal(slots[3][2], w_silent[2]), f"{what}: the silent lane spiked")
+        if substeps == 1 and dtype == torch.float16:
+            require(int(bad[3]) > 0, f"{what}: the overflowed lane counted no bad tick")
+    out = {"max_abs_err": 0.0, "bad_ticks_lane0": int(bad[0])}
+    if substeps == static.substeps:
+        bare = ops.NeuronRun(v, u, refrac, ring.clone(), is_gen, p.a, p.b, p.c, p.d,
+                             tel_count=count.clone(), tel_rate=level.clone(), rate=rate, **kw)
+        step = (lambda r: (lambda: r(0))) if lanes else (lambda r: (lambda: r(0, 100)))
+        out.update(_slot_times(step(run), step(bare), "izh4_run_kernel"))
+    log(f"[watches] {what}: {ticks} ticks bit for bit the plain version (NaN, inf, silent and "
+        f"overflow lanes); {out}")
+    return out
+
+
+def _hold_fused_watch_slots(net, g, dev, lanes) -> dict:
+    """``ops.FusedTickRun`` with the watch slots for 12 ticks on random state
+    with the poisoned lanes (one lane, or 64 at their own ring slots): bit
+    for bit its plain version, still one launch a tick; device time of a
+    tick with and without the watch slots."""
+    from repro_torch.core import backend as be
+    from repro_torch.core.neurons import NeuronModel
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fused_tick import assemble_kernel
+
+    static, params = net.static, net.params
+    n, dtype, ticks = static.n, net.state0.neurons.v.dtype, WATCH_SLOT_TICKS
+    lead = () if lanes is None else (LANES,)
+    payload = assemble_kernel(static, params, be.assemble_packed(static, net.state0.weights))
+    v = (torch.rand((*lead, n), generator=g) * 100 - 75).to(dtype)
+    u = (torch.rand((*lead, n), generator=g) * 10 - 15).to(dtype)
+    ring = (torch.rand((*lead, static.ring_len, n), generator=g) * 10).to(dtype)
+    rows = torch.rand((*lead, ticks, n), generator=g) < 0.2
+    p = params.neuron
+    is_gen = (p.model == NeuronModel.GENERATOR).cpu()
+    _poison_lanes(v, ring, rows, lanes is not None)
+    if lanes:
+        u[2] = -14.0
+        ring[3] = 0.0  # the overflow lane is the one-substep case of B1
+    is_gen = is_gen.to(dev)
+    v, u, ring, rows = v.to(dev), u.to(dev), ring.to(dev), rows.to(dev)
+    w_count, w_silent, w_bad = _watch_inputs(g, lead, n, dev)
+    t0 = _lane_t0() if lanes else None
+    state = [x.clone() for x in (v, u, ring, rows, w_count, w_silent, w_bad)]
+    plain = [x.clone() for x in state]
+    runs = ops.FusedTickRun(payload, *state[:3], is_gen, p.a, p.b, p.c, p.d, state[3], t0=t0,
+                            w_count=state[4], w_silent=state[5], w_bad=state[6])
+    require(runs.launcher is not None, "FusedTickRun with watch slots: no launcher on the card")
+    kw = dict(dense=payload.dense, csr=payload.csr, ring_len=static.ring_len,
+              w_count=plain[4], w_silent=plain[5], w_bad=plain[6])
+    ops.reset_launches()
+    for i in range(ticks):
+        pv, pu, pring, prows = plain[:4]
+        if lanes:
+            runs.tick(i)
+            out = ref.fused_tick_lanes_ref(pv, pu, pring, prows[:, i], is_gen, p.a, p.b, p.c,
+                                           p.d, [t + i for t in t0], step=i, **kw)
+        else:
+            runs.tick(i, 100 + i)
+            out = ref.fused_tick_ref(pv, pu, pring, prows[i], is_gen, p.a, p.b, p.c, p.d,
+                                     100 + i, step=i, **kw)
+        pv.copy_(out[0])
+        pu.copy_(out[1])
+        pring.copy_(out[3])
+        prows[..., i, :] = out[2]
+    torch.cuda.synchronize()
+    what = f"FusedTickRun with watch slots, {LANES if lanes else 1} lane(s)"
+    require(ops.LAUNCHES["fused_tick"] == ticks, f"{what}: {ops.LAUNCHES}")
+    for name, a, b in zip(("v", "u", "ring", "rows", "w_count", "w_silent", "w_bad"), state,
+                          plain):
+        require(_same_bits(a, b), f"{what}: {name} differs from the plain version")
+    bad = (state[6] - w_bad)[..., 0].reshape(-1)  # the ticks folded: all but the last
+    require(int(bad[0]) >= ticks - 2, f"{what}: the NaN lane counted {int(bad[0])} bad ticks")
+    if lanes:
+        require(int(bad[1]) > 0, f"{what}: the inf lane counted no bad tick")
+        require(torch.equal(state[5][2], w_silent[2]), f"{what}: the silent lane spiked")
+    bare = ops.FusedTickRun(payload, v.clone(), u.clone(), ring.clone(), is_gen, p.a, p.b,
+                            p.c, p.d, rows.clone(), t0=t0)
+    step = (lambda r: (lambda: r.tick(0))) if lanes else (lambda r: (lambda: r.tick(0, 100)))
+    out = {"max_abs_err": 0.0, "bad_ticks_lane0": int(bad[0]),
+           **_slot_times(step(runs), step(bare), "fused_tick_kernel")}
+    log(f"[watches] {what}: {ticks} ticks bit for bit the plain version; {out}")
+    return out
+
+
+def _require_same_carry(a, b, what, rtol=None) -> float:
+    """Two watch carries equal slot for slot (bit for bit, or float slots at
+    ``rtol``); returns the largest relative error of the float slots."""
+    worst = 0.0
+    for k, (x, y) in enumerate(zip(a, b)):
+        for j, (p, q) in enumerate(zip(x, y)):
+            p, q = p.cpu(), q.cpu()
+            if rtol is not None and p.is_floating_point():
+                err = float(((p - q).abs() / q.abs().clamp_min(1e-30)).max()) if p.numel() else 0.0
+                worst = max(worst, err)
+                require(err <= rtol, f"{what}: slot {k}.{j} off by {err} (rtol {rtol})")
+            else:
+                require(_same_bits(p, q), f"{what}: slot {k}.{j} differs: {p} vs {q}")
+    return worst
+
+
+def _watched_cell(cfg, policy, propagation, backend, dev, totals) -> dict:
+    """Phase 10a, one cell: the net with the default watches and without,
+    ``record="both"`` for OBS_TICKS ticks on the card: raster, telemetry and
+    final state equal, the same launches; the watch carry equal to the CPU
+    port's bit for bit; device events per tick in the tick loop with
+    watches equal to those without."""
+    from repro_torch.configs.synfire4 import build_synfire
+    from repro_torch.core.engine import run
+    from repro_torch.kernels import ops
+
+    kw = dict(policy=policy, propagation=propagation, backend=backend)
+    nets = {w: build_synfire(cfg, watches=w, device=dev, **kw) for w in ("default", None)}
+    outs, launches = {}, {}
+    for w, net in nets.items():
+        run(net.static, net.params, net.state0, 20, record="both")
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        outs[w] = run(net.static, net.params, net.state0, OBS_TICKS, record="both")
+        torch.cuda.synchronize()
+        launches[w] = dict(ops.LAUNCHES)
+    what = f"{cfg.name} {policy}/{propagation} backend={backend} watches"
+    require(launches["default"] == launches[None], f"{what}: launches {launches}")
+    _add(totals, launches["default"])
+    (fw, ow), (fn, on) = outs["default"], outs[None]
+    _require_same_raster(ow["spikes"].cpu(), on["spikes"].cpu(), f"{what}: watched vs bare")
+    _require_same_telemetry(ow["telemetry"], on["telemetry"], f"{what}: watched vs bare")
+    _require_same_state(fw, fn, what)
+    cpu_net = build_synfire(cfg, watches="default", device="cpu", **kw)
+    cpu = run(cpu_net.static, cpu_net.params, cpu_net.state0, OBS_TICKS, record="none")[1]
+    _require_same_carry(ow["watch_carry"], cpu["watch_carry"], f"{what}: card vs CPU port")
+    res = {"spikes": int(ow["spikes"].sum()), "launches": launches["default"],
+           "carry": [[x.cpu().tolist() if x.numel() < 8 else int(x.sum()) for x in c]
+                     for c in ow["watch_carry"]]}
+    marker = "fused_tick_kernel" if backend else "izh4_run_kernel"
+    ev = {}
+    for w, net in nets.items():
+        gu = torch.rand((MON_EVENT_TICKS, net.static.n_gen), device=dev)
+        ev[w] = _loop_events(lambda: run(net.static, net.params, net.state0, MON_EVENT_TICKS,
+                                         gen_u=gu, record="none"), MON_EVENT_TICKS, marker)
+    require(ev[None][1] is not None and ev["default"][1] == ev[None][1],
+            f"{what}: device events per tick in the loop with watches {ev['default']} "
+            f"vs without {ev[None]}")
+    res["events_per_tick_loop"] = {"watches": ev["default"][1], "none": ev[None][1]}
+    res["events_per_tick_all"] = {"watches": ev["default"][0], "none": ev[None][0]}
+    log(f"[watches] {what}: raster, telemetry, state and launches equal the unwatched run's, "
+        f"card carry == CPU port's; {res}")
+    return res
+
+
+def _plastic_watched(dev, totals) -> dict:
+    """Phase 10c: plastic Synfire4 fp16 sparse with ``NonFinite(weight_stride
+    =100)`` and ``WeightDrift()`` for OBS_TICKS ticks: raster and state equal
+    the unwatched run's, the card's carry the CPU port's (the norms at
+    WeightNorm's rtol 1e-6), and the device events the strided plain checks
+    add per 100 ticks."""
+    from repro_torch.configs.synfire4 import CHAIN_STDP, SYNFIRE4, build_synfire
+    from repro_torch.core.engine import run
+    from repro_torch.kernels import ops
+    from repro_torch.obs import watch as wat
+
+    specs = (wat.NonFinite(weight_stride=100), wat.WeightDrift())
+    kw = dict(policy="fp16", propagation="sparse", stdp_chain=CHAIN_STDP)
+    nets = {w: build_synfire(SYNFIRE4, watches=w, device=dev, **kw) for w in (specs, None)}
+    outs = {}
+    for w, net in nets.items():
+        ops.reset_launches()
+        outs[w] = run(net.static, net.params, net.state0, OBS_TICKS)
+        torch.cuda.synchronize()
+        if w is not None:
+            _add(totals, dict(ops.LAUNCHES))
+    what = "plastic Synfire4 fp16 sparse, NonFinite(weight_stride=100) + WeightDrift()"
+    (fw, ow), (fn, on) = outs[specs], outs[None]
+    _require_same_raster(ow["spikes"].cpu(), on["spikes"].cpu(), f"{what}: watched vs bare")
+    plastic = [j for j, c in enumerate(nets[None].static.stdp) if c is not None]
+    _require_same_state(fw, fn, what, plastic)
+    cpu_net = build_synfire(SYNFIRE4, watches=specs, device="cpu", **kw)
+    cpu = run(cpu_net.static, cpu_net.params, cpu_net.state0, OBS_TICKS, record="none")[1]
+    err = _require_same_carry(ow["watch_carry"], cpu["watch_carry"],
+                              f"{what}: card vs CPU port", rtol=1e-6)
+    verdicts, _ = wat.drain(nets[specs].static, ow["watch_carry"])
+    events = {}
+    for w, net in nets.items():
+        gu = torch.rand((100, net.static.n_gen), device=dev)
+        events[w] = len(_cuda_events(lambda: run(net.static, net.params, net.state0, 100,
+                                                 gen_u=gu, record="none"), 1))
+    res = {"norms_max_rel_err": err, "verdicts": [v.as_dict() for v in verdicts],
+           "device_events_per_100_ticks": {"watches": events[specs], "none": events[None]}}
+    log(f"[watches] {what}: raster and state == unwatched, card carry == CPU port's (norms "
+        f"rel err {err:.3g}); events per 100 ticks {res['device_events_per_100_ticks']}")
+    return res
+
+
+def _quarantine_path(dev, tmp) -> dict:
+    """Phase 10d: ``LaneScheduler(64)`` over Synfire4 fp16 sparse with the
+    default watches and ``flight_window=4``, OBS_TENANTS tenants, beside an
+    unpoisoned twin: three healthy 100-tick chunks, one tenant's membrane
+    NaN'd in place, one more chunk; ``check_watches`` names exactly that
+    tenant (NonFinite tripped), the other lanes equal the twin's, the
+    tenant is quarantined, dumped and restored, and the replay of its
+    first flight snapshot equals its live chunks bit for bit."""
+    from repro_torch import serve
+    from repro_torch.configs.synfire4 import SYNFIRE4, build_synfire
+    from repro_torch.core.lanes import lane_state, set_lane
+    from repro_torch.kernels import ops
+
+    net = build_synfire(SYNFIRE4, policy="fp16", propagation="sparse", device=dev,
+                        budget=None, watches="default")
+    bare = build_synfire(SYNFIRE4, policy="fp16", propagation="sparse", device=dev,
+                         budget=None)
+    live = serve.LaneScheduler(net, LANES, flight_window=OBS_FLIGHT)
+    twin = serve.LaneScheduler(net, LANES, ledger_key="twin")
+    ids = [f"tenant{i}" for i in range(OBS_TENANTS)]
+    for sid in ids:
+        live.admit(sid)
+        twin.admit(sid)
+    victim = ids[len(ids) // 3]
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for c in range(4):
+        if c == 3:
+            lane = live.lane_of(victim)
+            st = lane_state(live.states, lane)
+            st.neurons.v[-7] = float("nan")  # a neuron of the last group
+            live.states = set_lane(live.states, lane, st)
+        live.step(SCHED_CHUNK)
+        twin.step(SCHED_CHUNK)
+        alerts = live.check_watches()
+        require(alerts == {} if c < 3 else set(alerts) == {victim},
+                f"chunk {c}: check_watches named {sorted(alerts)}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    require(launches["syn_gather"] == 8 * SCHED_CHUNK and launches["izh4_update"] ==
+            8 * SCHED_CHUNK, f"scheduler chunks: launches {launches}")
+    require(any(v.watch == "nonfinite" and v.tripped for v in alerts[victim]),
+            f"{victim}: {alerts[victim]}")
+    for sid in ids:
+        if sid != victim:
+            _require_state_bits(live.snapshot(sid).state, twin.snapshot(sid).state,
+                                f"survivor {sid} vs the unpoisoned twin")
+    q = live.quarantine(victim, alerts[victim])
+    require(len(q.recording) == OBS_FLIGHT and victim not in live.session_ids,
+            f"quarantine: {len(q.recording)} snapshots")
+    ddir = serve.dump_quarantine(str(Path(tmp) / "dumps"), q)
+    snap = serve.restore_lane(str(Path(ddir) / "final"), net)
+    _require_state_bits(snap.state, q.snapshot.state, "the dumped final snapshot")
+    sess, _ = serve.replay(net, q.recording[0], SCHED_CHUNK, record="raster")
+    _require_state_bits(sess.state, q.recording[1].state, "replay of chunk 2")
+    sess.run(SCHED_CHUNK, record="raster")
+    _require_state_bits(sess.state, q.recording[2].state, "replay of chunk 3")
+    live.step(SCHED_CHUNK)
+    twin.step(SCHED_CHUNK)
+    for sid in ids:
+        if sid != victim:
+            _require_state_bits(live.snapshot(sid).state, twin.snapshot(sid).state,
+                                f"survivor {sid} after the quarantine")
+    require(live.check_watches() == {}, "the fleet after the quarantine")
+    bare_sched = serve.LaneScheduler(bare, LANES)
+    res = {"seconds_4_chunks_2_schedulers": wall, "launches": launches,
+           "verdicts": [v.as_dict() for v in alerts[victim]],
+           "session_bytes": live.session_bytes, "session_bytes_none": bare_sched.session_bytes,
+           "serve_bytes_delta": LANES * (live.session_bytes - bare_sched.session_bytes)}
+    log(f"[watches] LaneScheduler({LANES}) fp16 sparse, {OBS_TENANTS} tenants: {victim} found "
+        f"after one chunk, quarantined, dumped, restored and replayed bit for bit; the other "
+        f"lanes == the unpoisoned twin's; {res}")
+    return res, launches
+
+
+def _obs_plane(dev) -> dict:
+    """Phase 10e: obs on and off give bitwise-equal results (a 1,000-tick
+    ``record="both"`` run and a scheduler's chunks and flushes, watches
+    drained); host us/tick of 10-chunk sessions with obs on and off in
+    turns; the compile and cache-hit counts of a first and a second
+    dispatch; the Prometheus text's size; and health_snapshot's status for
+    the mini (pass on the M33) and Synfire4 (fail)."""
+    from repro_torch import obs, serve
+    from repro_torch.configs.synfire4 import SYNFIRE4, SYNFIRE4_MINI, build_synfire
+    from repro_torch.core import Engine, rng
+    from repro_torch.obs.metrics import MetricsRegistry
+
+    def workload(enabled):
+        obs.configure(enabled=enabled, reset=True)
+        net = build_synfire(SYNFIRE4, policy="fp16", propagation="sparse", device=dev,
+                            budget=None, watches="default")
+        final, out = Engine(net).run(OBS_TICKS, gen_base=rng.key(5, dev), record="both")
+        sched = serve.LaneScheduler(net, 8)
+        for i in range(4):
+            sched.admit(f"s{i}", seed=i)
+        for _ in range(3):
+            sched.step(SCHED_CHUNK)
+        flushed = sched.flush_all()
+        alerts = sched.check_watches()
+        torch.cuda.synchronize()
+        return final, out, sched, flushed, alerts
+
+    on, off = workload(True), workload(False)
+    _require_same_state(on[0], off[0], "obs on vs off: final state")
+    _require_same_raster(on[1]["spikes"].cpu(), off[1]["spikes"].cpu(), "obs on vs off")
+    _require_same_telemetry(on[1]["telemetry"], off[1]["telemetry"], "obs on vs off")
+    _require_same_carry(on[1]["watch_carry"], off[1]["watch_carry"], "obs on vs off")
+    for sid in on[3]:
+        for k in on[3][sid]:
+            require(torch.equal(torch.as_tensor(on[3][sid][k]), torch.as_tensor(off[3][sid][k])),
+                    f"obs on vs off: flush {sid}.{k}")
+        _require_same_state(on[2].snapshot(sid).state, off[2].snapshot(sid).state,
+                            f"obs on vs off: lane {sid}")
+    require(on[4] == off[4] == {}, "obs on vs off: watch alerts")
+    # The dispatch classification in a fresh registry: the first run of a
+    # mini net of another dtype loads no new library (phase 10a did), so
+    # count a first and a second scheduler step instead (the first builds
+    # the launchers).
+    obs.configure(enabled=True, reset=True)
+    mini = build_synfire(SYNFIRE4_MINI, policy="fp16", device=dev, watches="default")
+    sched = serve.LaneScheduler(mini, 8)
+    sched.admit("a", seed=1)
+    sched.step(SCHED_CHUNK)
+    first = (obs.registry().counter("repro_compiles_total").value(site="serve.step_lanes"),
+             obs.registry().counter("repro_jit_cache_hits_total").value(site="serve.step_lanes"))
+    sched.step(SCHED_CHUNK)
+    second = (obs.registry().counter("repro_compiles_total").value(site="serve.step_lanes"),
+              obs.registry().counter("repro_jit_cache_hits_total").value(site="serve.step_lanes"))
+    net = build_synfire(SYNFIRE4, policy="fp16", propagation="sparse", device=dev,
+                        budget=None, watches="default")
+    walls = {True: [], False: []}
+    for _ in range(OBS_REPS):
+        for enabled in (False, True):
+            obs.configure(enabled=enabled)
+            sess = serve.Session.create(net, seed=3)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                sess.run(SCHED_CHUNK)
+            torch.cuda.synchronize()
+            walls[enabled].append((time.perf_counter() - t0) / (10 * SCHED_CHUNK) * 1e6)
+    obs.configure(enabled=True)
+    med = {k: sorted(v)[len(v) // 2] for k, v in walls.items()}
+    text = obs.registry().to_prometheus()
+    status_mini = obs.health.health_snapshot(mini, registry=MetricsRegistry())["status"]
+    status_s4 = obs.health.health_snapshot(net, registry=MetricsRegistry())["status"]
+    status_live = obs.health.health_snapshot(mini)["status"]
+    require(status_mini == "pass" and status_s4 == "fail",
+            f"health_snapshot: mini {status_mini}, Synfire4 {status_s4}")
+    res = {"us_per_tick_obs_on": walls[True], "us_per_tick_obs_off": walls[False],
+           "median_ratio_on_off": med[True] / med[False],
+           "dispatch_after_first_step": first, "dispatch_after_second_step": second,
+           "prometheus_bytes": len(text.encode()), "prometheus_series": sum(
+               1 for ln in text.splitlines() if ln and not ln.startswith("#")),
+           "health_mini": status_mini, "health_synfire4": status_s4,
+           "health_live_registry": status_live}
+    log(f"[obs] on == off bit for bit (run, lanes, flushes, watches); {res}")
+    return res
+
+
+def phase_obs(dev, rows: list, totals: dict) -> dict:
+    """Phase 10: observability. (a) Synfire4 with the default watches, fp16
+    and fp32 x packed and sparse x default and fused, 1,000 ticks: equal to
+    the unwatched run, the carry equal to the CPU port's, device events per
+    tick equal (fp16); (b) B1 and B4 with the watch slots bit for bit their
+    plain versions at one lane and 64 with NaN, inf, silent and overflow
+    lanes, timed with and without; (c) a plastic net's strided watches
+    against the CPU port; (d) quarantine and replay on a 64-lane
+    scheduler; (e) the obs plane on and off."""
+    import tempfile
+
+    from repro_torch.configs.synfire4 import SYNFIRE4
+
+    g = torch.Generator(device="cpu").manual_seed(101)
+    paths, nets = {}, {}
+    t0 = time.perf_counter()
+    for propagation in ("packed", "sparse"):
+        for policy in ("fp16", "fp32"):
+            for backend in (None, "fused"):
+                paths[f"watches/synfire4/{policy}/{propagation}/{backend or 'default'}"] = (
+                    _watched_cell(SYNFIRE4, policy, propagation, backend, dev, totals))
+    from repro_torch.configs.synfire4 import build_synfire
+
+    seconds = {"a": time.perf_counter() - t0}
+    slots = {"izh4_update": {}, "fused_tick": {}}
+    for policy in ("fp16", "fp32"):
+        nets[policy] = build_synfire(SYNFIRE4, policy=policy, propagation="sparse", device=dev,
+                                     budget=None)
+    fused = build_synfire(SYNFIRE4, policy="fp16", propagation="packed", backend="fused",
+                          device=dev, budget=None)
+    for lanes in (None, LANES):
+        key = f"{LANES if lanes else 1}_lanes"
+        slots["izh4_update"][key] = _hold_neuron_watch_slots(nets["fp16"], g, dev, lanes, 2)
+        slots["izh4_update"][f"{key}_fp32"] = _hold_neuron_watch_slots(nets["fp32"], g, dev,
+                                                                       lanes, 2)
+        slots["izh4_update"][f"{key}_one_substep"] = _hold_neuron_watch_slots(
+            nets["fp16"], g, dev, lanes, 1)
+        slots["fused_tick"][key] = _hold_fused_watch_slots(fused, g, dev, lanes)
+    for r in rows:
+        if r["name"] in slots:
+            r["watches"] = slots[r["name"]]
+    seconds["b"] = time.perf_counter() - t0 - sum(seconds.values())
+    paths["watches/plastic/synfire4/fp16/sparse"] = _plastic_watched(dev, totals)
+    seconds["c"] = time.perf_counter() - t0 - sum(seconds.values())
+    with tempfile.TemporaryDirectory() as tmp:
+        res, launches = _quarantine_path(dev, tmp)
+    _add(totals, launches)
+    paths["watches/scheduler/synfire4/fp16/sparse"] = res
+    seconds["d"] = time.perf_counter() - t0 - sum(seconds.values())
+    paths["obs/plane"] = _obs_plane(dev)
+    seconds["e"] = time.perf_counter() - t0 - sum(seconds.values())
+    paths["obs/phase_seconds"] = seconds
+    log(f"[obs] phase 10 seconds by part: {seconds}")
+    return paths
+
+
+def phase_obs_fresh(rows: list, totals: dict) -> dict:
+    """Phase 10 in a process of its own (``chip_smoke.py --obs-json PATH``),
+    as phases 8 and 9 are. Its rows, paths and launch counts join this
+    run's."""
+    import tempfile
+
+    from repro_torch.kernels import ops
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "obs.json"
+        subprocess.run([sys.executable, str(Path(__file__).resolve()), "--obs-json",
+                        str(out)], check=True, timeout=600)
+        res = json.loads(out.read_text())
+    for r in rows:
+        if r["name"] in res["rows"]:
+            r["watches"] = res["rows"][r["name"]]
+    require(set(res["totals"]) == set(ops.LAUNCHES), f"phase 10 counts {res['totals']}")
+    _add(totals, res["totals"])
+    return res["paths"]
+
+
+def _obs_main(out: str) -> int:
+    """``--obs-json PATH``: phase 10 alone, written to ``PATH`` as JSON."""
+    from repro_torch.kernels import _build, ops
+
+    _build.build()
+    rows = [{"name": name} for name in ("izh4_update", "fused_tick")]
+    totals = {k: 0 for k in ops.LAUNCHES}
+    paths = phase_obs(torch.device("cuda", 0), rows, totals)
+    Path(out).write_text(json.dumps({"rows": {r["name"]: r["watches"] for r in rows},
+                                     "paths": paths, "totals": totals}, default=str))
+    return 0
+
+
 # -- LM serving ----------------------------------------------------------------------
 
 SMOLLM = "smollm-360m"
@@ -4723,6 +5327,8 @@ def main() -> int:
         return _lanes_main(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--monitors-json":
         return _monitors_main(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--obs-json":
+        return _obs_main(sys.argv[2])
     from repro_torch.kernels import ops
 
     dev = torch.device("cuda", 0)
@@ -4742,6 +5348,7 @@ def main() -> int:
     paths.update(phase_a5(dev, totals))
     paths.update(phase_lanes_fresh(rows, totals))
     paths.update(phase_monitors_fresh(rows, totals))
+    paths.update(phase_obs_fresh(rows, totals))
     lm_row, lm_paths = phase_lm(dev, totals)
     rows.append(lm_row)
     paths.update(lm_paths)

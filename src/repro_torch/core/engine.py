@@ -53,7 +53,12 @@ runs with an external current, tick as the default backend does.
 SpikeCount and GroupRate fold inside the neuron kernel's launch
 (``ops.NeuronRun`` or ``ops.FusedTickRun``), so the default set adds no
 device operation per tick, and the rest fold as plain ops; the per-group
-reductions run once, at the end.
+reductions run once, at the end. A net compiled with watches
+(:mod:`repro_torch.obs.watch`) keeps them through every run, whatever it
+records, the first RateBand, Silent and NonFinite inside the same launch
+(the default set adds no device operation per tick either) and the rest,
+and the strided weight checks, as plain ops; the final carry comes back as
+``outputs["watch_carry"]``.
 
 The generator uniforms come, by default, from the reference's threefry
 stream (:mod:`repro_torch.core.rng`): the same seed gives the same raster
@@ -69,6 +74,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import backend as be
 from repro_torch.core import neurons as nrn
 from repro_torch.core import rng
@@ -89,6 +95,8 @@ from repro_torch.core.plasticity import (
     homeostasis_step_csr,
 )
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import watch_fold_ref
+from repro_torch.obs import watch as wat
 from repro_torch.telemetry import monitors as tel
 
 __all__ = ["StepOutput", "step", "run", "run_batch", "batched_route", "Engine"]
@@ -347,15 +355,15 @@ def _step_kernel(static, params, state, payload, gen_row):
 
 
 def _run_kernel(static, params, state, n_steps, payload, gen_spk, raster,
-                record_v, record_i, mon=None):
+                record_v, record_i, mon=None, watch=None):
     """``run``'s loop on the ``fused_tick`` kernel: one operation per tick.
 
     The generator spikes of every tick are written into the raster before
     the loop; the kernel reads a tick's row where ``is_gen`` and writes the
     whole spike row back into it, and writes v' and i_syn rows when they
     are recorded, and folds the default monitors (``mon``, a
-    :class:`_Telemetry`). The refractory countdown is applied once, for
-    all ticks.
+    :class:`_Telemetry`) and watches (``watch``, a :class:`_Watches`). The
+    refractory countdown is applied once, for all ticks.
     """
     dev = state.ring.device
     rows = torch.zeros((n_steps, static.n), dtype=torch.bool, device=dev)
@@ -369,28 +377,32 @@ def _run_kernel(static, params, state, n_steps, payload, gen_spk, raster,
     runner = ops.FusedTickRun(payload.kernel, v, u, ring[:, :, 0],
                               p.model == nrn.NeuronModel.GENERATOR, p.a, p.b, p.c,
                               p.d, rows, vs, cur, dt=static.dt,
-                              substeps=static.substeps, **_kernel_tel(mon))
+                              substeps=static.substeps, **_kernel_slots(mon, watch))
     for i in range(n_steps):
         runner.tick(i, state.t + i)
         if mon is not None and mon.plain:
             mon.tick(i, rows[i], v, state.weights)
+        if watch is not None and watch.due(i):
+            watch.tick(i, rows[i], v, state.weights)
     refrac = torch.clamp_min(state.neurons.refrac - min(n_steps, _REFRAC_MAX), 0)
     final = state._replace(t=state.t + n_steps,
                            neurons=NeuronState(v=v, u=u, refrac=refrac), ring=ring)
     return final, _outputs(rows if raster else None, vs, cur)
 
 
-def _kernel_tel(mon: _Telemetry | None) -> dict:
-    """The neuron kernel's monitor slots of a run (none without monitors),
-    the run told that the kernel folds them."""
-    if mon is None:
-        return {}
-    mon.in_kernel(True)
-    return mon.kernel
+def _kernel_slots(mon: _Telemetry | None, watch: _Watches | None = None) -> dict:
+    """The neuron kernel's monitor and watch slots of a run (none without
+    monitors or watches), the run told that the kernel folds them."""
+    slots = {}
+    for part in (mon, watch):
+        if part is not None:
+            part.in_kernel(True)
+            slots.update(part.kernel)
+    return slots
 
 
 def _run_kernel_lanes(static, params, state, n_steps, gen_spk, raster, vs, cur, prop,
-                      mon=None):
+                      mon=None, watch=None):
     """:func:`_run_lanes` on the ``fused_tick`` kernel: one launch per tick
     for every lane (``ops.FusedTickRun`` over lanes, each lane at its own
     ring slot), on ``prop``'s kernel payload (the weights every lane
@@ -408,11 +420,13 @@ def _run_kernel_lanes(static, params, state, n_steps, gen_spk, raster, vs, cur, 
     runner = ops.FusedTickRun(payload, v, u, ring[..., 0],
                               p.model == nrn.NeuronModel.GENERATOR, p.a, p.b, p.c, p.d, rows,
                               vs, cur, dt=static.dt, substeps=static.substeps, t0=state.t,
-                              **_kernel_tel(mon))
+                              **_kernel_slots(mon, watch))
     for i in range(n_steps):
         runner.tick(i)
         if mon is not None and mon.plain:
             mon.tick(i, rows[:, i], v, state.weights)
+        if watch is not None and watch.due(i):
+            watch.tick(i, rows[:, i], v, state.weights)
     refrac = torch.clamp_min(state.neurons.refrac - min(n_steps, _REFRAC_MAX), 0)
     final = state._replace(t=tuple(t + n_steps for t in state.t), ring=ring,
                            neurons=NeuronState(v=v, u=u, refrac=refrac))
@@ -492,6 +506,127 @@ class _Telemetry:
         if return_carry:
             outputs["tel_carry"] = self.carry
         return outputs
+
+
+class _Watches:
+    """A run's in-run watches (``static.watches``) on ``device`` (over
+    ``lanes``: a leading ``[B]`` on every slot), from ``carry`` (the
+    caller's ``watch_carry``: tensors, numpy values or ints in the
+    reference's layout, left as they were) or fresh accumulators.
+
+    The run keeps each RateBand's counts, each Silent's and NonFinite's
+    words (:func:`repro_torch.obs.watch.kernel_words`), each NonFinite's
+    weight-check count and each WeightDrift's norms on its own copies.
+    :attr:`kernel` is the first RateBand's, Silent's and NonFinite's slots
+    as the neuron kernels take them (``ops.NeuronRun``,
+    ``ops.FusedTickRun``); once the run knows whether a kernel folds them
+    (:meth:`in_kernel`), :meth:`tick` folds the others
+    (:func:`repro_torch.kernels.ref.watch_fold_ref`) and, on their stride's
+    ticks, the plastic weights' NonFinite check and WeightDrift's norms as
+    plain ops; :meth:`due` says whether tick ``i`` has any such work (with
+    the default set in a kernel and no plastic projection, none).
+    :meth:`carry` gives the reference's carry after the run."""
+
+    def __init__(self, static: NetStatic, device, carry=None, lanes: int | None = None):
+        self.static = static
+        self.lead = () if lanes is None else (lanes,)
+        specs = static.watches
+        if carry is None:
+            carry = wat.init_carry(static, device=device, lanes=lanes)
+        else:
+            carry = _watch_carry_in(static, carry, device, self.lead)
+        self.first = carry
+        self.words, self.count, self.bad_w, self.norms = {}, {}, {}, {}
+        for k, (s, c) in enumerate(zip(specs, carry)):
+            if isinstance(s, (wat.Silent, wat.NonFinite)):
+                self.words[k] = wat.kernel_words(s, c)
+            if isinstance(s, wat.NonFinite):
+                self.bad_w[k] = c[1].clone()
+            elif isinstance(s, wat.RateBand):
+                self.count[k] = c[0].clone()
+            elif isinstance(s, wat.WeightDrift):
+                self.norms[k] = c[0].clone()
+        rate, silent, bad = wat.kernel_slots(static)
+        self.kernel = dict(w_count=None if rate is None else self.count[rate],
+                           w_silent=None if silent is None else self.words[silent],
+                           w_bad=None if bad is None else self.words[bad])
+        self._held = {k for k in (rate, silent, bad) if k is not None}
+        plastic = any(cfg is not None for cfg in static.stdp)
+        self._strided = [(k, s.weight_stride) for k, s in enumerate(specs)
+                         if isinstance(s, wat.NonFinite) and plastic]
+        self._strided += [(k, s.stride) for k, s in enumerate(specs)
+                          if isinstance(s, wat.WeightDrift)]
+        self.in_kernel(False)
+
+    def in_kernel(self, held: bool) -> None:
+        """Whether the run's neuron kernel folds :attr:`kernel`'s slots."""
+        skip = self._held if held else set()
+        self._plain = [k for k, s in enumerate(self.static.watches)
+                       if k not in skip and not isinstance(s, wat.WeightDrift)]
+
+    def due(self, i: int) -> bool:
+        """Whether tick ``i`` has plain work (:meth:`tick`)."""
+        return bool(self._plain) or any(i % stride == 0 for _, stride in self._strided)
+
+    def tick(self, i: int, spikes: torch.Tensor, v: torch.Tensor, weights: tuple) -> None:
+        """The run's ``i``-th tick: its spike row ``[(B,) N]``, stored ``v``
+        and weights after plasticity."""
+        specs = self.static.watches
+        for k in self._plain:
+            s = specs[k]
+            if isinstance(s, wat.RateBand):
+                watch_fold_ref(i, spikes, v, w_count=self.count[k])
+            elif isinstance(s, wat.Silent):
+                watch_fold_ref(i, spikes, v, w_silent=self.words[k])
+            else:
+                watch_fold_ref(i, spikes, v, w_bad=self.words[k])
+        for k, stride in self._strided:
+            if i % stride:
+                continue
+            if isinstance(specs[k], wat.NonFinite):
+                self.bad_w[k] += ~wat._plastic_finite(self.static, weights, len(self.lead))
+            else:
+                self.norms[k] = wat._l2(weights, len(self.lead))
+
+    def carry(self, n_steps: int) -> tuple:
+        """The watch carry after the run's ``n_steps`` ticks."""
+        out = []
+        for k, (s, c) in enumerate(zip(self.static.watches, self.first)):
+            if isinstance(s, wat.Silent):
+                out.append(wat.carry_from_words(s, self.words[k], c, n_steps))
+            elif isinstance(s, wat.NonFinite):
+                bad_v, _ = wat.carry_from_words(s, self.words[k], c, n_steps)
+                out.append((bad_v, self.bad_w[k]))
+            elif isinstance(s, wat.RateBand):
+                out.append((self.count[k], (c[1] + n_steps).to(torch.int32)))
+            else:
+                out.append((self.norms[k],))
+        return tuple(out)
+
+
+def _watch_carry_in(static: NetStatic, carry, device, lead: tuple) -> tuple:
+    """A caller's watch carry as the run's own tensors on ``device``, in the
+    shapes and dtypes of :func:`repro_torch.obs.watch.init_carry`."""
+    fresh = wat.init_carry(static, device="meta", lanes=lead[0] if lead else None)
+    if len(carry) != len(fresh) or any(len(c) != len(f) for c, f in zip(carry, fresh)):
+        raise ValueError(f"watch_carry does not match the net's {len(fresh)} watches")
+    out = []
+    for c, f in zip(carry, fresh):
+        slot = []
+        for x, like in zip(c, f):
+            x = (x if isinstance(x, torch.Tensor) else torch.tensor(x)).to(device)
+            if x.shape != like.shape:
+                raise ValueError(f"watch_carry slot of shape {tuple(x.shape)}, want "
+                                 f"{tuple(like.shape)}")
+            slot.append(x.to(like.dtype, copy=True))
+        out.append(tuple(slot))
+    return tuple(out)
+
+
+def _with_watch(outputs: dict, watch: _Watches | None, n_steps: int) -> dict:
+    if watch is not None:
+        outputs["watch_carry"] = watch.carry(n_steps)
+    return outputs
 
 
 def _check_active(active, dev: torch.device) -> torch.Tensor:
@@ -680,16 +815,20 @@ def run(
     ``active`` (a 0-dim bool tensor on the net's device, never read back
     to the host) gates a serving lane: where it is False the generators
     draw no spike (their uniforms become 1.0) and homeostasis leaves the
-    rates and weights as they were. ``watch_carry`` (watchpoints) raises
-    ``NotImplementedError``.
+    rates and weights as they were.
+
+    A net compiled with watches (``static.watches``) keeps them through
+    the run whatever ``record`` is, and returns the final accumulators raw
+    in ``outputs["watch_carry"]`` (the reference's layout); ``watch_carry``
+    resumes them (a chunked session's carry; the caller's values are left
+    as they were; ignored on a net without watches). On a neuron kernel's
+    tick the first RateBand, Silent and NonFinite fold inside its launch.
+    A strided check counts the run's local step ``i``, not the absolute
+    tick.
 
     ``state`` is left as it was: the run works on its own copy of the ring.
     """
     want_mon = _check_record(static, record, return_tel_carry)
-    if watch_carry is not None:
-        raise NotImplementedError(
-            "watch_carry (in-run watchpoints) is not ported to repro_torch yet "
-            "(ROADMAP A10)")
     dev = state.ring.device
     if active is not None:
         active = _check_active(active, dev)
@@ -708,13 +847,15 @@ def run(
     state = state._replace(key=key)
     want_raster = record in ("raster", "both")
     mon = _Telemetry(static, n_steps, dev, tel_carry) if want_mon else None
+    watch = _Watches(static, dev, watch_carry) if static.watches else None
     if static.fused_kernel and i_ext is None:
         if chunk is not None:
             gen_spk = torch.cat([gen_spk] + [chunk(c) for c in range(1, n_steps // gen_chunk)])
         final, outputs = _run_kernel(static, params, state, n_steps,
                                      be.assemble_fused(static, state.weights, params),
-                                     gen_spk, want_raster, record_v, record_i, mon)
-        return final, _with_telemetry(outputs, mon, return_tel_carry)
+                                     gen_spk, want_raster, record_v, record_i, mon, watch)
+        return final, _with_watch(_with_telemetry(outputs, mon, return_tel_carry), watch,
+                                  n_steps)
     loop = static.propagation == "loop"
     packed = fanin = matmul = gather = None
     if not loop:
@@ -731,12 +872,14 @@ def run(
               if want_raster else None)
     vs = torch.empty((n_steps, static.n), dtype=f32, device=dev) if record_v else None
     cur = torch.empty((n_steps, static.n), dtype=f32, device=dev) if record_i else None
+    slots = {**({} if mon is None else mon.kernel),
+             **({} if watch is None else watch.kernel)}
     neuron_run = be.assemble_neurons(static, params, neurons, ring, cond=cond,
                                      gen_spk=gen_spk, i_ext=i_ext, raster=raster,
-                                     v_rows=vs, i_rows=cur, counts=counts,
-                                     tel=None if mon is None else mon.kernel)
-    if mon is not None:
-        mon.in_kernel(neuron_run is not None)
+                                     v_rows=vs, i_rows=cur, counts=counts, tel=slots)
+    for part in (mon, watch):
+        if part is not None:
+            part.in_kernel(neuron_run is not None)
     stdp_runs, padded, weights = _stdp_launchers(static, params, state)
     drive = None if loop else be.assemble_drive(static, params, weights, state.stp, gather,
                                                  fanin)
@@ -771,6 +914,9 @@ def run(
         if mon is not None and mon.plain:
             mon.tick(i, spikes_f32, neurons.v if neuron_run is None else neuron_run.v,
                      syn.weights)
+        if watch is not None and watch.due(i):
+            watch.tick(i, spikes_f32, neurons.v if neuron_run is None else neuron_run.v,
+                       syn.weights)
         if counts is not None and (i + 1) % period == 0:
             weights, homeo = _apply_homeostasis(static, syn.weights, homeo, counts, active)
             for stdp_run in stdp_runs:
@@ -783,7 +929,8 @@ def run(
     syn = _final_syn(syn, stdp_runs)
     final = state._replace(t=state.t + n_steps, neurons=neurons, ring=ring, cond=cond,
                            homeo=homeo, **syn._asdict())
-    return final, _with_telemetry(_outputs(raster, vs, cur), mon, return_tel_carry)
+    return final, _with_watch(_with_telemetry(_outputs(raster, vs, cur), mon,
+                                              return_tel_carry), watch, n_steps)
 
 
 def batched_route(static: NetStatic) -> bool:
@@ -805,7 +952,7 @@ def _run_lanes(static: NetStatic, params: NetParams, state: NetState, n_steps: i
                gen_chunk: int | None = None, gen_base: torch.Tensor | None = None,
                active: torch.Tensor | None = None,
                prop: be.LanePropagation | None = None, tel_carry=None,
-               return_tel_carry: bool = False) -> tuple[NetState, dict]:
+               return_tel_carry: bool = False, watch_carry=None) -> tuple[NetState, dict]:
     """``n_steps`` ticks of the B lanes of the batched ``state``
     (:mod:`repro_torch.core.lanes`) of a :func:`batched_route` net, one
     launch per kernel per tick for every lane; returns the batched final
@@ -829,7 +976,10 @@ def _run_lanes(static: NetStatic, params: NetParams, state: NetState, n_steps: i
     ``record="monitors"``/``"both"`` keep every lane's monitors (``[B,
     ...]`` accumulators, resumed from ``tel_carry``; the default set
     folded in the neuron kernel's launch), their output ``[B, G]`` per
-    group in ``outputs["telemetry"]``, as :func:`run` for one lane.
+    group in ``outputs["telemetry"]``, as :func:`run` for one lane; a net's
+    watches ride every lane (``[B, ...]`` accumulators, resumed from
+    ``watch_carry``, the default set in the same launch), returned as
+    ``outputs["watch_carry"]``.
     """
     want_mon = _check_record(static, record, return_tel_carry)
     lanes = len(state.t)
@@ -842,6 +992,7 @@ def _run_lanes(static: NetStatic, params: NetParams, state: NetState, n_steps: i
     raster = (torch.empty(shape, dtype=torch.bool, device=dev)
               if record in ("raster", "both") else None)
     mon = _Telemetry(static, n_steps, dev, tel_carry, lanes) if want_mon else None
+    watch = _Watches(static, dev, watch_carry, lanes) if static.watches else None
     vs = torch.empty(shape, dtype=f32, device=dev) if record_v else None
     cur = torch.empty(shape, dtype=f32, device=dev) if record_i else None
     if static.fused_kernel:
@@ -849,16 +1000,16 @@ def _run_lanes(static: NetStatic, params: NetParams, state: NetState, n_steps: i
             gen_spk = torch.cat([gen_spk] + [chunk(c) for c in range(1, n_steps // gen_chunk)],
                                 dim=1)
         final, outputs = _run_kernel_lanes(static, params, state._replace(key=key), n_steps,
-                                           gen_spk, raster, vs, cur, prop, mon)
-        return final, _with_telemetry(outputs, mon, return_tel_carry)
+                                           gen_spk, raster, vs, cur, prop, mon, watch)
+        return final, _with_watch(_with_telemetry(outputs, mon, return_tel_carry), watch,
+                                  n_steps)
     if prop is None:
         prop = be.LanePropagation(static, params, state.weights, lanes)
     ring = state.ring.clone()
     counts = torch.zeros((lanes, static.n), dtype=torch.int32, device=dev) if period else None
     neuron_run = be.assemble_neurons(static, params, state.neurons, ring, cond=state.cond,
                                      gen_spk=gen_spk, raster=raster, v_rows=vs, i_rows=cur,
-                                     counts=counts, t0=state.t,
-                                     tel=None if mon is None else _kernel_tel(mon))
+                                     counts=counts, t0=state.t, tel=_kernel_slots(mon, watch))
     slots = be.LaneSlots(state.t, static.ring_len, dev)
     fanin = be.assemble_fanin(static, params)
     stdp_runs, padded, weights = _stdp_launchers(static, params, state, lanes)
@@ -874,6 +1025,8 @@ def _run_lanes(static: NetStatic, params: NetParams, state: NetState, n_steps: i
                               drive, slots)
         if mon is not None and mon.plain:
             mon.tick(i, neuron_run.spikes, neuron_run.v, syn.weights)
+        if watch is not None and watch.due(i):
+            watch.tick(i, neuron_run.spikes, neuron_run.v, syn.weights)
         if counts is not None and (i + 1) % period == 0:
             weights, homeo = _apply_homeostasis(static, syn.weights, homeo, counts, active)
             for stdp_run in stdp_runs:
@@ -885,7 +1038,8 @@ def _run_lanes(static: NetStatic, params: NetParams, state: NetState, n_steps: i
         t=tuple(t + n_steps for t in state.t), key=key, ring=ring, cond=cond, homeo=homeo,
         neurons=NeuronState(v=neuron_run.v, u=neuron_run.u, refrac=neuron_run.refrac),
         **_final_syn(syn, stdp_runs)._asdict())
-    return final, _with_telemetry(_outputs(raster, vs, cur), mon, return_tel_carry)
+    return final, _with_watch(_with_telemetry(_outputs(raster, vs, cur), mon,
+                                              return_tel_carry), watch, n_steps)
 
 
 def _with_telemetry(outputs: dict, mon: _Telemetry | None, return_carry: bool) -> dict:
@@ -926,7 +1080,9 @@ def run_batch(static: NetStatic, params: NetParams, state: NetState, n_steps: in
     another through :func:`run` (the lane-by-lane route), which the launch
     counts show. ``record="monitors"``/``"both"`` keep every trial's
     monitors: ``outputs["telemetry"]`` holds each monitor's output with a
-    leading ``[batch]`` (SpikeCount and GroupRate ``[B, G]``).
+    leading ``[batch]`` (SpikeCount and GroupRate ``[B, G]``). A net's
+    watches ride every trial; ``outputs["watch_carry"]`` holds their final
+    accumulators with a leading ``[batch]``.
     """
     _check_record(static, record)
     if batch < 1:
@@ -942,11 +1098,15 @@ def run_batch(static: NetStatic, params: NetParams, state: NetState, n_steps: in
     return stack_states(finals), _stack_outputs(outs)
 
 
-def _stack_outputs(outs) -> dict:
-    """Per-trial output dicts stacked on a leading axis, the telemetry dict
-    entry by entry."""
-    return {k: _stack_outputs([o[k] for o in outs]) if isinstance(outs[0][k], dict)
-            else torch.stack([o[k] for o in outs]) for k in outs[0]}
+def _stack_outputs(outs):
+    """Per-trial outputs stacked on a leading axis: dicts entry by entry,
+    tuples (the watch carry) slot by slot."""
+    first = outs[0]
+    if isinstance(first, dict):
+        return {k: _stack_outputs([o[k] for o in outs]) for k in first}
+    if isinstance(first, tuple):
+        return tuple(_stack_outputs(list(x)) for x in zip(*outs))
+    return torch.stack(outs)
 
 
 @dataclasses.dataclass
@@ -957,12 +1117,31 @@ class Engine:
 
     def run(self, n_steps: int, state: NetState | None = None, **kw):
         state = state if state is not None else self.net.state0
-        return run(self.net.static, self.net.params, state, n_steps, **kw)
+        if not obs.enabled():
+            return run(self.net.static, self.net.params, state, n_steps, **kw)
+        # A host-side span around the run's enqueue: nothing on the device
+        # changes and nothing synchronizes it, so results are bitwise
+        # identical with obs on or off. The build probe before and after
+        # classifies the dispatch as a compile or a cache hit.
+        before = obs.build_count()
+        with obs.span("engine_run", n_ticks=n_steps, record=str(kw.get("record", "raster"))):
+            out = run(self.net.static, self.net.params, state, n_steps, **kw)
+        obs.note_dispatch("engine.run", before)
+        obs.inc("repro_engine_ticks_total", float(n_steps))
+        return out
 
     def run_batch(self, n_steps: int, batch: int, state: NetState | None = None, **kw):
         """``batch`` independent trials; see :func:`run_batch`."""
         state = state if state is not None else self.net.state0
-        return run_batch(self.net.static, self.net.params, state, n_steps, batch, **kw)
+        if not obs.enabled():
+            return run_batch(self.net.static, self.net.params, state, n_steps, batch, **kw)
+        before = obs.build_count()
+        with obs.span("engine_run", n_ticks=n_steps, batch=batch,
+                      record=str(kw.get("record", "raster"))):
+            out = run_batch(self.net.static, self.net.params, state, n_steps, batch, **kw)
+        obs.note_dispatch("engine.run_batch", before)
+        obs.inc("repro_engine_ticks_total", float(n_steps) * batch)
+        return out
 
     def spike_counts(self, n_steps: int, **kw) -> torch.Tensor:
         _, out = self.run(n_steps, **kw)

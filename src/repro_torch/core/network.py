@@ -21,10 +21,11 @@ excitatory and inhibitory magnitudes), with ``packed``, ``sparse`` or
 ``auto`` propagation, on the default backend or ``backend="fused"`` (one
 program per tick), or with the ``loop`` oracle (every projection
 dense-stored and propagated on its own), with plastic (STDP, DA-STDP,
-homeostasis) and STP projections, and in-run monitors
+homeostasis) and STP projections, in-run monitors
 (``monitors="default"``: SpikeCount and GroupRate, as the reference's
-default). Watches and core partitioning raise ``NotImplementedError``
-naming the ROADMAP item that brings them.
+default) and in-run watches (``watches="default"``: NonFinite, RateBand
+and Silent, :mod:`repro_torch.obs.watch`). Core partitioning raises
+``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -64,6 +65,7 @@ from repro_torch.core.synapses import (
     init_stp_state,
 )
 from repro_torch.memory import MemoryLedger
+from repro_torch.obs import watch as wspec
 from repro_torch.precision import PrecisionPolicy, get_policy
 from repro_torch.telemetry import monitors as telem
 
@@ -219,6 +221,9 @@ class NetStatic:
     # In-run monitor specs (repro_torch.telemetry); the engine keeps their
     # accumulators when run(record="monitors"/"both").
     monitors: tuple = ()
+    # In-run watch specs (repro_torch.obs.watch); every run of the net keeps
+    # their accumulators and returns them as outputs["watch_carry"].
+    watches: tuple = ()
 
     @property
     def fused_kernel(self) -> bool:
@@ -390,8 +395,6 @@ class NetworkBuilder:
                 "'packed'/'sparse'/'auto'")
         if propagation not in ("packed", "sparse", "auto", "loop"):
             raise ValueError(f"unknown propagation {propagation!r}")
-        if watches is not None:
-            raise _unported("watchpoints", "A10")
         if any(c.homeostasis is not None for c in self._connects):
             if homeostasis_period < 1:
                 raise ValueError(
@@ -402,6 +405,10 @@ class NetworkBuilder:
             raise ValueError("homeostasis_period set but no connection has a "
                              "HomeostasisConfig")
         if partition is not None:
+            if watches is not None and watches != ():
+                raise ValueError(
+                    "watches are not supported on partitioned networks yet — "
+                    "the per-core lowerings carry no watch accumulators")
             raise _unported("core partitioning", "A11")
         device = _resolve_device(device)
         if isinstance(policy, str):
@@ -583,6 +590,12 @@ class NetworkBuilder:
             None if h is None else torch.zeros((s.post_size,), dtype=torch.float32)
             for s, h in zip(specs, homeo_cfgs))
         mon_specs = telem.resolve(monitors, n=n, n_projections=len(specs), dt=dt)
+        # Watch baselines (WeightDrift) come from the state0 weights, through
+        # the L2 expression telemetry.WeightNorm reports.
+        watch_specs = wspec.resolve(
+            watches, n=n, n_projections=len(specs), dt=dt,
+            baseline_norms=tuple(telem.weight_norms(weights).tolist())
+            if watches is not None and weights else None)
         with ledger.stage("7. Auxiliary Data"):
             ledger.register("stdp.traces", tuple(s for s in stdp_states if s is not None))
             if any(h is not None for h in homeo_states):
@@ -594,6 +607,9 @@ class NetworkBuilder:
             if mon_specs:
                 ledger.register("monitor.telemetry", telem.carry_struct(
                     mon_specs, n, len(specs), monitor_ms_hint or 1000))
+            if watch_specs:
+                ledger.register("monitor.watch",
+                                wspec.carry_struct(watch_specs, n, len(specs)))
 
         codes = neuron_params.model.numpy()
         izh4_only = bool(np.all((codes == int(nrn.NeuronModel.GENERATOR))
@@ -608,6 +624,7 @@ class NetworkBuilder:
             buckets=buckets, backend=backend, fused=fused, plastic_csr=plastic_csr,
             stp_csr=stp_csr, homeo=tuple(homeo_cfgs),
             homeo_period=int(homeostasis_period), monitors=mon_specs,
+            watches=watch_specs,
         )
         params = NetParams(
             neuron=neuron_params, masks=masks, gen_rate=gen_rate,

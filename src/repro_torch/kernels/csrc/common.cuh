@@ -93,6 +93,73 @@ __device__ __forceinline__ float rate_fold(float c, bool spike, float alpha, flo
   return __fadd_rn(c, __fmul_rn(alpha, __fsub_rn(spike ? rate : 0.0f, c)));
 }
 
+// Whether a stored membrane value is finite, tested on the stored value
+// itself: an fp16 membrane that overflowed to inf counts as non-finite,
+// as the reference's isfinite on v.astype(f32) of the stored state does.
+__device__ __forceinline__ bool stored_finite(float x) { return isfinite(x); }
+__device__ __forceinline__ bool stored_finite(__half x) {
+  return !__hisinf(x) && !__hisnan(x);
+}
+
+// The in-run watches' two whole-net reductions of a tick, a Silent's and
+// a NonFinite's, kept per lane in four int32 words (obs/watch.py,
+// kernel_words): Silent {last, gap, flag0, flag1} (the local step of the
+// last spike, the longest closed spike-free run), NonFinite {ticks, 0,
+// flag0, flag1} (the steps with a non-finite membrane). No atomics and no
+// grid barrier: at step s every warp with a spiking (non-finite) neuron
+// stores 1 into the lane's flag of s's parity (watch_mark: a warp vote,
+// one plain store of the same value), and at step s + 1 one thread per
+// lane folds step s's flag into the words and clears it (watch_fold), in
+// plain stores: the launches of a stream are ordered, so step s's flag is
+// whole when s + 1 reads it, and s + 1 writes the other parity's. The last
+// step's flag is folded once, when a run turns its words back into the
+// carry. The result is exact and independent of the order the warps run
+// in; kernels/ref.py:watch_fold_ref is the same fold in plain ops.
+struct WatchWords {
+  int a = 0, b = 0, flag = 0;  // the words of step - 1 and its flag
+};
+
+// The lane's words and step - 1's flag, loaded early (their latency
+// overlaps the tick's work); nothing to load at step 0.
+__device__ __forceinline__ WatchWords watch_load(const int* w, int step) {
+  WatchWords r;
+  if (w != nullptr && step > 0) {
+    r.a = w[0];
+    r.b = w[1];
+    r.flag = w[2 + ((step - 1) & 1)];
+  }
+  return r;
+}
+
+// Step - 1's flag folded into a Silent's (`silent`) or a NonFinite's words
+// and cleared for step + 1.
+__device__ __forceinline__ void watch_fold(int* w, int step, const WatchWords& r,
+                                           bool silent) {
+  if (w == nullptr || step == 0) return;
+  const int prev = step - 1;
+  if (r.flag != 0) {
+    if (silent) {
+      if (prev > 0) w[1] = max(r.b, prev - r.a - 1);  // a closing step 0 adds no run
+      w[0] = prev;
+    } else {
+      w[0] = r.a + 1;
+    }
+  }
+  w[2 + (prev & 1)] = 0;
+}
+
+// Step `step`'s marks, for the warp that calls it (every thread of the
+// warp, each with its neuron's spike and whether its stored membrane is
+// non-finite; a thread past the last neuron passes false for both).
+__device__ __forceinline__ void watch_mark(int* silent, int* bad, bool spike, bool nonfinite,
+                                           int step) {
+  const unsigned fired = __ballot_sync(0xffffffffu, spike);
+  const unsigned poisoned = __ballot_sync(0xffffffffu, nonfinite);
+  if ((threadIdx.x & 31) != 0) return;
+  if (silent != nullptr && fired != 0u) silent[2 + (step & 1)] = 1;
+  if (bad != nullptr && poisoned != 0u) bad[2 + (step & 1)] = 1;
+}
+
 REPRO_EXPORT const char* error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

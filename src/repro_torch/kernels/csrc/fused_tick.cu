@@ -11,7 +11,13 @@
 //     type; the spike goes to `spikes` and, one bit per neuron, to the
 //     run's bitmask scratch (`words`), and, where the run keeps in-run
 //     monitors, into a SpikeCount's int32 count and a GroupRate's f32
-//     filter level (common.cuh's rate_fold: the plain fold's rounding);
+//     filter level (common.cuh's rate_fold: the plain fold's rounding),
+//     and, where the run keeps in-run watches, into a RateBand's int32
+//     count and, once per warp (common.cuh's watch_mark: a warp vote and
+//     a flag store), a Silent's and a NonFinite's per-lane flags of the
+//     tick's local step, the membrane tested as stored; one thread per lane
+//     folds the previous step's flags into the lane's words at the end
+//     (watch_fold: plain loads and stores, no atomics);
 //   phase 2, per post column: every bucket's drive in plan order into one
 //     f32 accumulator per distinct delay, then one ring commit per delay in
 //     ascending order, ring[(t+d) % L] = ring + store(acc), in the ring's
@@ -127,6 +133,9 @@ struct TickPlan {
   float* tel_rate;    // [B, N] f32 GroupRate filter level, or null
   float tel_alpha;    // GroupRate: float32(dt / tau_ms)
   float tel_inst;     // GroupRate: float32(1000 / dt), a spike's rate
+  int* w_count;       // [B, N] int32 RateBand watch counts, or null
+  int* w_silent;      // [B, 4] int32 Silent watch words {last, gap, flags}, or null
+  int* w_bad;         // [B, 4] int32 NonFinite watch words {ticks, 0, flags}, or null
 };
 
 namespace {
@@ -160,7 +169,7 @@ __device__ __forceinline__ void stage_words(const TickPlan& P, uint32_t* s_words
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-fused_tick_kernel(const TickPlan P, const int t, const uint8_t* gen_row,
+fused_tick_kernel(const TickPlan P, const int t, const int step, const uint8_t* gen_row,
                   uint8_t* spikes, float* v_rec, float* isyn_rec) {
   extern __shared__ uint32_t s_words[];  // [group, ceil(n / 32)]
   __shared__ int s_desc[kMaxBuckets * kDescInts];
@@ -183,6 +192,14 @@ fused_tick_kernel(const TickPlan P, const int t, const uint8_t* gen_row,
   }
   T* const ring0 = static_cast<T*>(P.ring);
   const size_t lane_ring = static_cast<size_t>(P.ring_len) * n;
+  // The watches' words of lane `gt` (one thread per lane), loaded now and
+  // folded at the end, so their latency overlaps the tick.
+  const int gt = blockIdx.x * kThreads + threadIdx.x;
+  const WatchWords ws0 =
+      gt < P.lanes && P.w_silent != nullptr ? watch_load(P.w_silent + 4 * gt, step)
+                                            : WatchWords();
+  const WatchWords wb0 =
+      gt < P.lanes && P.w_bad != nullptr ? watch_load(P.w_bad + 4 * gt, step) : WatchWords();
 
   // Phase 1: delivery, neurons, generators; one warp per 32 neurons of a lane.
   for (int wi = blockIdx.x * kWarps + warp; wi < P.lanes * n_words;
@@ -191,6 +208,7 @@ fused_tick_kernel(const TickPlan P, const int t, const uint8_t* gen_row,
     const int w = wi - ln * n_words;
     const int i = (w << 5) + lane_id;
     bool s = false;
+    bool nonfinite = false;
     if (i < n) {
       const size_t at = static_cast<size_t>(ln) * n + i;
       const size_t row = static_cast<size_t>(ln) * P.row_stride + i;
@@ -201,25 +219,34 @@ fused_tick_kernel(const TickPlan P, const int t, const uint8_t* gen_row,
       slot[i] = from_f32<T>(0.0f);
       float v = to_f32(vv[at]);
       float u = to_f32(uu[at]);
-      const float level = P.tel_rate != nullptr ? P.tel_rate[at] : 0.0f;  // loaded early
+      // The accumulators are loaded early: their latency overlaps the update's.
+      const float level = P.tel_rate != nullptr ? P.tel_rate[at] : 0.0f;
+      const int count0 = P.tel_count != nullptr ? P.tel_count[at] : 0;
+      const int wcount0 = P.w_count != nullptr ? P.w_count[at] : 0;
       const float c = P.c[i];
       const bool spk = izh4_tick(v, u, cur, P.a[i], P.b[i], c, P.d[i], P.h, P.substeps);
       const bool gen = P.is_gen[i] != 0;
       const T vs = gen ? from_f32<T>(c) : from_f32<T>(v);
       const T us = gen ? from_f32<T>(0.0f) : from_f32<T>(u);
       s = gen ? gen_row[row] != 0 : spk;
+      nonfinite = !stored_finite(vs);
       vv[at] = vs;
       uu[at] = us;
       spikes[row] = s ? 1 : 0;  // may alias gen_row: the same thread read it above
-      if (P.tel_count != nullptr && s) P.tel_count[at] += 1;
+      if (P.tel_count != nullptr && s) P.tel_count[at] = count0 + 1;
       if (P.tel_rate != nullptr) {
         P.tel_rate[at] = rate_fold(level, s, P.tel_alpha, P.tel_inst);
       }
       if (v_rec != nullptr) v_rec[row] = to_f32(vs);
       if (isyn_rec != nullptr) isyn_rec[row] = cur;
+      if (P.w_count != nullptr && s) P.w_count[at] = wcount0 + 1;
     }
     const uint32_t word = __ballot_sync(0xffffffffu, s);
     if (lane_id == 0) P.words[wi] = word;
+    if (P.w_silent != nullptr || P.w_bad != nullptr) {  // the in-run watches' marks
+      watch_mark(P.w_silent != nullptr ? P.w_silent + 4 * ln : nullptr,
+                 P.w_bad != nullptr ? P.w_bad + 4 * ln : nullptr, s, nonfinite, step);
+    }
   }
   grid_sync();
 
@@ -390,6 +417,15 @@ fused_tick_kernel(const TickPlan P, const int t, const uint8_t* gen_row,
       }
     }
   }
+
+  // The watches' fold of the previous step's flags, one thread per lane
+  // (lanes past the grid's threads load theirs here).
+  for (int ln = gt; ln < P.lanes; ln += gridDim.x * kThreads) {
+    int* const w_s = P.w_silent != nullptr ? P.w_silent + 4 * ln : nullptr;
+    int* const w_b = P.w_bad != nullptr ? P.w_bad + 4 * ln : nullptr;
+    watch_fold(w_s, step, ln == gt ? ws0 : watch_load(w_s, step), true);
+    watch_fold(w_b, step, ln == gt ? wb0 : watch_load(w_b, step), false);
+  }
 }
 
 size_t words_bytes(int n, int group) {
@@ -397,8 +433,8 @@ size_t words_bytes(int n, int group) {
 }
 
 template <typename T>
-int launch(const TickPlan* plan, int t, const void* gen_row, void* spikes, void* v_rec,
-           void* isyn_rec) {
+int launch(const TickPlan* plan, int t, int step, const void* gen_row, void* spikes,
+           void* v_rec, void* isyn_rec) {
   if (plan->n <= 0) return 0;
   if (plan->n > kMaxN || plan->n_buckets > kMaxBuckets || plan->n_delays > kMaxDelays ||
       plan->grid < 1 || t < 0 || t >= plan->ring_len || plan->lanes < 1 || plan->group < 1 ||
@@ -407,11 +443,12 @@ int launch(const TickPlan* plan, int t, const void* gen_row, void* spikes, void*
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int tt = t;
+  int ss = step;
   const uint8_t* g = static_cast<const uint8_t*>(gen_row);
   uint8_t* sp = static_cast<uint8_t*>(spikes);
   float* vr = static_cast<float*>(v_rec);
   float* ir = static_cast<float*>(isyn_rec);
-  void* args[] = {const_cast<TickPlan*>(plan), &tt, &g, &sp, &vr, &ir};
+  void* args[] = {const_cast<TickPlan*>(plan), &tt, &ss, &g, &sp, &vr, &ir};
   const cudaError_t err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(fused_tick_kernel<T>), dim3(plan->grid), dim3(kThreads),
       args, words_bytes(plan->n, plan->group), static_cast<cudaStream_t>(plan->stream));
@@ -466,9 +503,9 @@ REPRO_EXPORT int fused_tick_barrier_probe(int grid, int reps, void* stream) {
 }
 
 #define REPRO_FUSED(NAME, T)                                                       \
-  REPRO_EXPORT int NAME(const TickPlan* plan, int t, const void* gen_row,          \
+  REPRO_EXPORT int NAME(const TickPlan* plan, int t, int step, const void* gen_row,\
                         void* spikes, void* v_rec, void* isyn_rec) {               \
-    return launch<T>(plan, t, gen_row, spikes, v_rec, isyn_rec);                   \
+    return launch<T>(plan, t, step, gen_row, spikes, v_rec, isyn_rec);             \
   }
 
 REPRO_FUSED(fused_tick_f32, float)

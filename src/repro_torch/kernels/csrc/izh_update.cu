@@ -17,11 +17,16 @@
 // f32 spike row the propagation reads, and, where asked, the raster row,
 // the v and i_syn rows, the homeostasis counts and the in-run monitors'
 // two accumulators (a SpikeCount's int32 count, a GroupRate's f32 filter
-// level c <- c + alpha * (inst - c), every operation rounded on its own).
+// level c <- c + alpha * (inst - c), every operation rounded on its own)
+// and the in-run watches' three (a RateBand's int32 count, a Silent's and
+// a NonFinite's per-lane words: common.cuh's watch_mark and watch_fold, a
+// warp vote and a flag store per warp, the previous step's flag folded by
+// one thread per lane, on the stored membrane; no atomics).
 // That is the work of about 19 device ops per tick of the per-op phase
-// (engine._neuron_phase, backend.update_neurons_dispatch) and 6 more of
-// the monitors' plain fold (telemetry/monitors.py:update), each stored in
-// the same type and so bit for bit the same.
+// (engine._neuron_phase, backend.update_neurons_dispatch), 6 more of the
+// monitors' plain fold (telemetry/monitors.py:update) and about 8 of the
+// watches' (kernels/ref.py:watch_fold_ref), each stored in the same type
+// and so bit for bit the same.
 //
 // Lanes: izh4_run_<t> also takes B independent copies of the state (a
 // batched run, a LaneScheduler's chunk), lane b at its own tick and ring
@@ -130,6 +135,9 @@ struct NeuronPlan {
   float* tel_rate;  // [B, N] f32 GroupRate filter level, or null
   float tel_alpha;  // GroupRate: float32(dt / tau_ms)
   float tel_inst;  // GroupRate: float32(1000 / dt), a spike's rate
+  int* w_count;  // [B, N] int32 RateBand watch counts, or null
+  int* w_silent;  // [B, 4] int32 Silent watch words {last, gap, flags}, or null
+  int* w_bad;  // [B, 4] int32 NonFinite watch words {ticks, 0, flags}, or null
 };
 
 // One COBA neuron's conductances decayed and delivered, stored back in the
@@ -161,66 +169,89 @@ __device__ __forceinline__ float coba_tick(const NeuronPlan& p, size_t i, float 
 }
 
 template <typename T>
-__global__ void izh4_run_kernel(NeuronPlan p, int slot, const uint8_t* __restrict__ gen_row,
+__global__ void izh4_run_kernel(NeuronPlan p, int slot, int step,
+                                const uint8_t* __restrict__ gen_row,
                                 const float* __restrict__ i_ext,
                                 uint8_t* __restrict__ raster, float* __restrict__ v_rec,
                                 float* __restrict__ i_rec) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p.n) return;
   const int lane = blockIdx.y;
-  if (p.t0) slot = (p.t0[lane] + slot) % p.ring_len;
-  const size_t at = static_cast<size_t>(lane) * p.n + i;  // this neuron of this lane
-  const size_t rows = static_cast<size_t>(lane) * p.row_stride + i;
-  T* ring = static_cast<T*>(p.ring) +
-            (static_cast<size_t>(lane) * p.ring_len + slot) * p.n * p.channels;
-  T* vp = static_cast<T*>(p.v);
-  T* up = static_cast<T*>(p.u);
-  float v = to_f32(vp[at]);
-  float u = to_f32(up[at]);
-  // The filter level is loaded with the state, so its latency overlaps the
-  // update's instead of following the spike.
-  const float level = p.tel_rate ? p.tel_rate[at] : 0.0f;
-  float cur;
-  if (p.channels == 2) {
-    const float exc = to_f32(ring[2 * i]);
-    const float inh = to_f32(ring[2 * i + 1]);
-    ring[2 * i] = from_f32<T>(0.0f);
-    ring[2 * i + 1] = from_f32<T>(0.0f);
-    cur = coba_tick<T>(p, at, exc, inh, v);
-  } else {
-    cur = to_f32(ring[i]);
-    ring[i] = from_f32<T>(0.0f);
+  // The lane's watch words, folded by its first thread at the end.
+  const bool folds = blockIdx.x == 0 && threadIdx.x == 0;
+  int* const w_silent = p.w_silent ? p.w_silent + 4 * lane : nullptr;
+  int* const w_bad = p.w_bad ? p.w_bad + 4 * lane : nullptr;
+  const WatchWords ws = folds ? watch_load(w_silent, step) : WatchWords();
+  const WatchWords wb = folds ? watch_load(w_bad, step) : WatchWords();
+  bool s = false;
+  bool nonfinite = false;
+  if (i < p.n) {
+    if (p.t0) slot = (p.t0[lane] + slot) % p.ring_len;
+    const size_t at = static_cast<size_t>(lane) * p.n + i;  // this neuron of this lane
+    const size_t rows = static_cast<size_t>(lane) * p.row_stride + i;
+    T* ring = static_cast<T*>(p.ring) +
+              (static_cast<size_t>(lane) * p.ring_len + slot) * p.n * p.channels;
+    T* vp = static_cast<T*>(p.v);
+    T* up = static_cast<T*>(p.u);
+    float v = to_f32(vp[at]);
+    float u = to_f32(up[at]);
+    // The monitors' and watches' accumulators are loaded with the state, so
+    // their latency overlaps the update's instead of following the spike
+    // (the plan's pointers may alias, so a load after a store would wait
+    // for it).
+    const float level = p.tel_rate ? p.tel_rate[at] : 0.0f;
+    const int count0 = p.tel_count ? p.tel_count[at] : 0;
+    const int wcount0 = p.w_count ? p.w_count[at] : 0;
+    float cur;
+    if (p.channels == 2) {
+      const float exc = to_f32(ring[2 * i]);
+      const float inh = to_f32(ring[2 * i + 1]);
+      ring[2 * i] = from_f32<T>(0.0f);
+      ring[2 * i + 1] = from_f32<T>(0.0f);
+      cur = coba_tick<T>(p, at, exc, inh, v);
+    } else {
+      cur = to_f32(ring[i]);
+      ring[i] = from_f32<T>(0.0f);
+    }
+    if (i_ext) cur = __fadd_rn(cur, i_ext[rows]);
+    const float c = p.c[i];
+    const bool spk = izh4_tick(v, u, cur, p.a[i], p.b[i], c, p.d[i], p.h, p.substeps);
+    const bool gen = p.is_gen[i] != 0;
+    const int16_t r = p.refrac[at];
+    const int col = p.gen_col[i];
+    s = col >= 0 ? gen_row[static_cast<size_t>(lane) * p.gen_stride + col] != 0
+                 : (spk && !gen && !(r > 0));
+    const T v2 = from_f32<T>(gen ? c : v);
+    nonfinite = !stored_finite(v2);
+    vp[at] = v2;
+    up[at] = from_f32<T>(gen ? 0.0f : u);
+    const int16_t r1 = static_cast<int16_t>(r - 1);  // int16 arithmetic, as torch's
+    p.refrac[at] = r1 > 0 ? r1 : static_cast<int16_t>(0);
+    p.spikes[at] = s ? 1.0f : 0.0f;
+    if (raster) raster[rows] = s ? 1 : 0;
+    if (v_rec) v_rec[rows] = to_f32(v2);
+    if (i_rec) i_rec[rows] = cur;
+    if (p.counts && s) p.counts[at] += 1;
+    if (p.tel_count && s) p.tel_count[at] = count0 + 1;
+    if (p.tel_rate) p.tel_rate[at] = rate_fold(level, s, p.tel_alpha, p.tel_inst);
+    if (p.w_count && s) p.w_count[at] = wcount0 + 1;
   }
-  if (i_ext) cur = __fadd_rn(cur, i_ext[rows]);
-  const float c = p.c[i];
-  const bool spk = izh4_tick(v, u, cur, p.a[i], p.b[i], c, p.d[i], p.h, p.substeps);
-  const bool gen = p.is_gen[i] != 0;
-  const int16_t r = p.refrac[at];
-  const int col = p.gen_col[i];
-  const bool s = col >= 0 ? gen_row[static_cast<size_t>(lane) * p.gen_stride + col] != 0
-                          : (spk && !gen && !(r > 0));
-  const T v2 = from_f32<T>(gen ? c : v);
-  vp[at] = v2;
-  up[at] = from_f32<T>(gen ? 0.0f : u);
-  const int16_t r1 = static_cast<int16_t>(r - 1);  // int16 arithmetic, as torch's
-  p.refrac[at] = r1 > 0 ? r1 : static_cast<int16_t>(0);
-  p.spikes[at] = s ? 1.0f : 0.0f;
-  if (raster) raster[rows] = s ? 1 : 0;
-  if (v_rec) v_rec[rows] = to_f32(v2);
-  if (i_rec) i_rec[rows] = cur;
-  if (p.counts && s) p.counts[at] += 1;
-  if (p.tel_count && s) p.tel_count[at] += 1;
-  if (p.tel_rate) p.tel_rate[at] = rate_fold(level, s, p.tel_alpha, p.tel_inst);
+  // Every thread of the block reaches the watches' warp vote (a block's
+  // warps lie in one lane).
+  if (w_silent || w_bad) watch_mark(w_silent, w_bad, s, nonfinite, step);
+  if (folds) {
+    watch_fold(w_silent, step, ws, true);
+    watch_fold(w_bad, step, wb, false);
+  }
 }
 
 template <typename T>
-static int launch_run(const NeuronPlan* p, int slot, const void* gen_row, const void* i_ext,
-                      void* raster, void* v_rec, void* i_rec) {
+static int launch_run(const NeuronPlan* p, int slot, int step, const void* gen_row,
+                      const void* i_ext, void* raster, void* v_rec, void* i_rec) {
   if (p->n <= 0 || p->lanes <= 0) return 0;
   const int threads = 256;
   const dim3 blocks((p->n + threads - 1) / threads, p->lanes);
   izh4_run_kernel<T><<<blocks, threads, 0, static_cast<cudaStream_t>(p->stream)>>>(
-      *p, slot, static_cast<const uint8_t*>(gen_row), static_cast<const float*>(i_ext),
+      *p, slot, step, static_cast<const uint8_t*>(gen_row), static_cast<const float*>(i_ext),
       static_cast<uint8_t*>(raster), static_cast<float*>(v_rec), static_cast<float*>(i_rec));
   return static_cast<int>(cudaGetLastError());
 }
@@ -228,16 +259,17 @@ static int launch_run(const NeuronPlan* p, int slot, const void* gen_row, const 
 REPRO_EXPORT int izh4_run_plan_size() { return static_cast<int>(sizeof(NeuronPlan)); }
 
 // One tick of a run (kernels/izh_update.py:NeuronLauncher): ring slot
-// `slot` (over lanes, with t0 set: the shift i % L of every lane's slot);
-// the tick's rows of lane 0 as device pointers, null for none.
-REPRO_EXPORT int izh4_run_f32(const NeuronPlan* p, int slot, const void* gen_row,
+// `slot` (over lanes, with t0 set: the shift i % L of every lane's slot),
+// `step` the tick's local index in the run (the watches' tick); the tick's
+// rows of lane 0 as device pointers, null for none.
+REPRO_EXPORT int izh4_run_f32(const NeuronPlan* p, int slot, int step, const void* gen_row,
                               const void* i_ext, void* raster, void* v_rec, void* i_rec) {
-  return launch_run<float>(p, slot, gen_row, i_ext, raster, v_rec, i_rec);
+  return launch_run<float>(p, slot, step, gen_row, i_ext, raster, v_rec, i_rec);
 }
 
-REPRO_EXPORT int izh4_run_f16(const NeuronPlan* p, int slot, const void* gen_row,
+REPRO_EXPORT int izh4_run_f16(const NeuronPlan* p, int slot, int step, const void* gen_row,
                               const void* i_ext, void* raster, void* v_rec, void* i_rec) {
-  return launch_run<__half>(p, slot, gen_row, i_ext, raster, v_rec, i_rec);
+  return launch_run<__half>(p, slot, step, gen_row, i_ext, raster, v_rec, i_rec);
 }
 
 REPRO_EXPORT int izh4_update_f32(const void* v, const void* u, const void* i_syn,

@@ -71,10 +71,11 @@ class _Plan(ctypes.Structure):
         ("n_delays", ctypes.c_int), ("substeps", ctypes.c_int),
         ("h", ctypes.c_float), ("grid", ctypes.c_int), ("lanes", ctypes.c_int),
         ("group", ctypes.c_int), ("tel_count", _P), ("tel_rate", _P),
-        ("tel_alpha", ctypes.c_float), ("tel_inst", ctypes.c_float)]
+        ("tel_alpha", ctypes.c_float), ("tel_inst", ctypes.c_float),
+        ("w_count", _P), ("w_silent", _P), ("w_bad", _P)]
 
 
-_TICK_SIGNATURE = [ctypes.POINTER(_Plan), ctypes.c_int, _P, _P, _P, _P]
+_TICK_SIGNATURE = [ctypes.POINTER(_Plan), ctypes.c_int, ctypes.c_int, _P, _P, _P, _P]
 _INTS = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {"fused_tick_f32": _TICK_SIGNATURE, "fused_tick_f16": _TICK_SIGNATURE,
                "fused_tick_limits": [_INTS],
@@ -214,12 +215,15 @@ class TickLauncher:
     ``tel_count`` (``[(B,) N]`` int32) and ``tel_rate`` (``[(B,) N]`` f32),
     where given, are a SpikeCount's and a GroupRate's accumulators,
     counted up and filtered (``rate``: the GroupRate's ``(alpha, inst)``)
-    in the neuron phase of the same launch."""
+    in the neuron phase of the same launch, as are the in-run watches'
+    slots ``w_count`` (``[(B,) N]`` int32), ``w_silent`` and ``w_bad``
+    (``[(B,) 4]`` int32; :func:`repro_torch.obs.watch.kernel_words`)."""
 
     def __init__(self, payload: KernelPayload, v, u, ring, is_gen, a, b, c, d,
                  *, dt: float, substeps: int, grid: int | None = None,
                  t0: tuple[int, ...] | None = None, row_stride: int = 0, tel_count=None,
-                 tel_rate=None, rate: tuple[float, float] = (0.0, 0.0)):
+                 tel_rate=None, rate: tuple[float, float] = (0.0, 0.0), w_count=None,
+                 w_silent=None, w_bad=None):
         n = v.shape[-1]
         ring_len = ring.shape[-2]
         lanes = 1 if t0 is None else len(t0)
@@ -247,7 +251,7 @@ class TickLauncher:
                  torch.tensor([t % ring_len for t in t0], dtype=torch.int32, device=v.device))
         # Keep every tensor the plan points at alive for the launcher's life.
         self._keep = (payload, v, u, ring, is_gen, a, b, c, d, words, cdrive, slot0,
-                      tel_count, tel_rate)
+                      tel_count, tel_rate, w_count, w_silent, w_bad)
         plan = _Plan()
         for name, tensor in (("v", v), ("u", u), ("ring", ring), ("is_gen", is_gen),
                              ("a", a), ("b", b), ("c", c), ("d", d),
@@ -268,17 +272,20 @@ class TickLauncher:
         plan.tel_count = None if tel_count is None else tel_count.data_ptr()
         plan.tel_rate = None if tel_rate is None else tel_rate.data_ptr()
         plan.tel_alpha, plan.tel_inst = rate
+        for name, t in (("w_count", w_count), ("w_silent", w_silent), ("w_bad", w_bad)):
+            setattr(plan, name, None if t is None else t.data_ptr())
         self._plan = plan
         self._plan_ref = ctypes.byref(plan)
         self._ring_len = ring_len
         self._fn = getattr(self._lib, _ENTRY[v.dtype])
 
     def __call__(self, t: int, gen_row: int, spikes: int, v_rec: int = 0,
-                 isyn_rec: int = 0) -> None:
+                 isyn_rec: int = 0, step: int = 0) -> None:
         """Launch tick ``t`` (over lanes: run tick ``t``, each lane at its
-        own slot); the row arguments are (lane 0's) device pointers
-        (``v_rec``/``isyn_rec`` 0 for none)."""
-        err = self._fn(self._plan_ref, t % self._ring_len, gen_row, spikes,
+        own slot), ``step`` its local index in the run (the watches' tick);
+        the row arguments are (lane 0's) device pointers (``v_rec``/
+        ``isyn_rec`` 0 for none)."""
+        err = self._fn(self._plan_ref, t % self._ring_len, step, gen_row, spikes,
                        v_rec or None, isyn_rec or None)
         if err:
             _build.check(self._lib, err, "fused_tick")

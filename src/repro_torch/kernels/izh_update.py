@@ -58,10 +58,11 @@ class _Plan(ctypes.Structure):
         ("lanes", _I), ("ring_len", _I), ("h", _F), ("decay", _F * 4), ("frac", _F * 4),
         ("e_exc", _F), ("e_gabaa", _F), ("e_gabab", _F), ("gen_stride", ctypes.c_longlong),
         ("row_stride", ctypes.c_longlong), ("tel_count", _P), ("tel_rate", _P),
-        ("tel_alpha", _F), ("tel_inst", _F)]
+        ("tel_alpha", _F), ("tel_inst", _F), ("w_count", _P), ("w_silent", _P),
+        ("w_bad", _P)]
 
 
-_RUN_SIGNATURE = [ctypes.POINTER(_Plan), _I, _P, _P, _P, _P, _P]
+_RUN_SIGNATURE = [ctypes.POINTER(_Plan), _I, _I, _P, _P, _P, _P, _P]
 _SIGNATURES = {**{name: _SIGNATURE for name in _ENTRY.values()},
                **{name: _RUN_SIGNATURE for name in _RUN_ENTRY.values()},
                "izh4_run_plan_size": []}
@@ -100,12 +101,19 @@ class NeuronLauncher:
     ``tel_count`` (``[(B,) N]`` int32) and ``tel_rate`` (``[(B,) N]`` f32),
     where given, are a SpikeCount's and a GroupRate's accumulators,
     counted up and filtered (``rate``: the GroupRate's ``(alpha, inst)``)
-    in the same launch."""
+    in the same launch.
+
+    ``w_count`` (``[(B,) N]`` int32), ``w_silent`` and ``w_bad`` (``[(B,)
+    4]`` int32), where given, are the in-run watches' slots: a RateBand's
+    counts, a Silent's and a NonFinite's words
+    (:func:`repro_torch.obs.watch.kernel_words`), folded in the same
+    launch at the tick's local step."""
 
     def __init__(self, v, u, refrac, ring, is_gen, a, b, c, d, gen_col, spikes,
                  counts, *, dt: float, substeps: int, cond=None, coba=None, t0=None,
                  gen_stride: int = 0, row_stride: int = 0, tel_count=None, tel_rate=None,
-                 rate: tuple[float, float] = (0.0, 0.0)):
+                 rate: tuple[float, float] = (0.0, 0.0), w_count=None, w_silent=None,
+                 w_bad=None):
         lib = _lib()
         if lib.izh4_run_plan_size() != ctypes.sizeof(_Plan):
             raise RuntimeError("izh4_update: the library's NeuronPlan size differs "
@@ -125,6 +133,8 @@ class NeuronLauncher:
         plan.tel_count = None if tel_count is None else tel_count.data_ptr()
         plan.tel_rate = None if tel_rate is None else tel_rate.data_ptr()
         plan.tel_alpha, plan.tel_inst = rate
+        for name, t in (("w_count", w_count), ("w_silent", w_silent), ("w_bad", w_bad)):
+            setattr(plan, name, None if t is None else t.data_ptr())
         if cond is not None:
             for k, g in enumerate(cond):
                 plan.g[k] = g.data_ptr()
@@ -140,12 +150,13 @@ class NeuronLauncher:
         buffer of another length)."""
         self._plan.gen_stride = entries
 
-    def __call__(self, slot: int, gen_row: int, i_ext: int, raster: int, v_rec: int,
-                 i_rec: int) -> None:
+    def __call__(self, slot: int, step: int, gen_row: int, i_ext: int, raster: int,
+                 v_rec: int, i_rec: int) -> None:
         """One tick on ring slot ``slot`` (over lanes: the shift ``i % L``
-        of every lane's slot); the rows are lane 0's device pointers, 0 for
+        of every lane's slot), ``step`` its local index in the run (the
+        watches' tick); the rows are lane 0's device pointers, 0 for
         none."""
-        err = self._fn(self._ref, slot, gen_row or None, i_ext or None, raster or None,
-                       v_rec or None, i_rec or None)
+        err = self._fn(self._ref, slot, step, gen_row or None, i_ext or None,
+                       raster or None, v_rec or None, i_rec or None)
         if err:
             _build.check(self._lib, err, "izh4_update")

@@ -59,6 +59,18 @@ def _on_card(name: str, *tensors: torch.Tensor) -> bool:
     return True
 
 
+def _check_watch_slots(name: str, shape, w_count, w_silent, w_bad) -> None:
+    """The in-run watches' kernel slots of a neuron launch over ``shape``
+    (``[(B,) N]``): ``w_count`` int32 of that shape, ``w_silent`` and
+    ``w_bad`` int32 ``[(B,) 4]``."""
+    words = (*shape[:-1], 4)
+    if (w_count is not None and (w_count.shape != shape or w_count.dtype != torch.int32)) or any(
+            x is not None and (x.shape != words or x.dtype != torch.int32)
+            for x in (w_silent, w_bad)):
+        raise ValueError(f"{name}: w_count must be int32 {tuple(shape)} and w_silent, w_bad "
+                         f"int32 {words}")
+
+
 def _check_lanes(name: str, lanes: int | None) -> None:
     if lanes is not None and lanes < 1:
         raise ValueError(f"{name}: lanes must be >= 1, got {lanes}")
@@ -135,13 +147,22 @@ class NeuronRun:
     N]`` f32, a GroupRate's filter level) its fold with ``rate`` (the
     GroupRate's ``(alpha, inst)``,
     :func:`repro_torch.kernels.ref.rate_fold_ref`), in place, in the same
+    launch.
+
+    In-run watches: ``w_count`` (``[(B,) N]`` int32, a RateBand's counts)
+    takes each tick's spikes added, and ``w_silent`` and ``w_bad`` (``[(B,)
+    4]`` int32, a Silent's and a NonFinite's words,
+    :func:`repro_torch.obs.watch.kernel_words`) the tick's whole-net
+    reductions at its local step ``i``, on the stored membrane
+    (:func:`repro_torch.kernels.ref.watch_fold_ref`), in place, in the same
     launch."""
 
     def __init__(self, v, u, refrac, ring, is_gen, a, b, c, d, *, gen_spk=None,
                  gen_cols=None, i_ext=None, raster=None, v_rows=None, i_rows=None,
                  counts=None, cond=None, coba=None, dt: float = 1.0, substeps: int = 2,
                  t0: tuple[int, ...] | None = None, tel_count=None, tel_rate=None,
-                 rate: tuple[float, float] = (0.0, 0.0)):
+                 rate: tuple[float, float] = (0.0, 0.0), w_count=None, w_silent=None,
+                 w_bad=None):
         n = v.shape[-1]
         if t0 is not None and not t0:
             raise ValueError("izh4_update: t0 must name at least one lane")
@@ -197,6 +218,7 @@ class NeuronRun:
                 tel_rate is not None and (tel_rate.shape != v.shape or tel_rate.dtype != f32)):
             raise ValueError(f"izh4_update: tel_count must be int32 and tel_rate float32 "
                              f"{dims('N')}")
+        _check_watch_slots("izh4_update", v.shape, w_count, w_silent, w_bad)
         if gen_spk is None:
             gen_cols = torch.full((n,), -1, dtype=torch.int64, device=v.device)
         elif (gen_spk.dtype != torch.bool or gen_cols is None or gen_cols.shape != (n,)
@@ -211,13 +233,15 @@ class NeuronRun:
         if i_ext is not None:
             i_ext = i_ext.to(f32).contiguous()
         self._args = (ring, is_gen, a, b, c, d, gen_cols.long(), counts)
-        self._tel = dict(tel_count=tel_count, tel_rate=tel_rate, rate=rate)
+        self._tel = dict(tel_count=tel_count, tel_rate=tel_rate, rate=rate, w_count=w_count,
+                         w_silent=w_silent, w_bad=w_bad)
         self._ring_len, self._dt, self._substeps = ring.shape[-3], dt, substeps
         self._t0 = t0
         self.launcher = None
         card = _on_card("izh4_update", self.v, self.u, self.refrac, ring, is_gen, a, b,
                         c, d, gen_cols, self.spikes, *rows, *(self.cond or ()),
-                        *(x for x in (counts, tel_count, tel_rate) if x is not None))
+                        *(x for x in (counts, tel_count, tel_rate, w_count, w_silent, w_bad)
+                          if x is not None))
         if card and n:
             cols = gen_cols.to(torch.int32)
             self._keep = [cols]
@@ -265,8 +289,8 @@ class NeuronRun:
         at = (i - self._gen_start, i, i, i, i)
         if self.launcher is not None:
             slot = i % self._ring_len if self._t0 is not None else t % self._ring_len
-            self.launcher(slot, *(p and p + k * step
-                                  for (p, step), k in zip(self._steps, at)))
+            self.launcher(slot, i, *(p and p + k * step
+                                     for (p, step), k in zip(self._steps, at)))
             LAUNCHES["izh4_update"] += 1
             return
         if self._card:  # N = 0: nothing to compute
@@ -280,7 +304,7 @@ class NeuronRun:
                                  a, b, c, d, cols, self.spikes, gen_rows=gen_spk,
                                  raster_rows=raster, v_rows=v_rows, i_rows=i_rows,
                                  cond=self.cond, counts=counts, coba=self._coba, dt=self._dt,
-                                 substeps=self._substeps, **self._tel)
+                                 substeps=self._substeps, step=i, **self._tel)
             return
         gen_spk, i_ext, raster, v_rows, i_rows = (None if x is None else x[k]
                                                   for x, k in zip(self._rows, at))
@@ -288,7 +312,7 @@ class NeuronRun:
                            a, b, c, d, cols, self.spikes, gen_row=gen_spk,
                            i_ext_row=i_ext, raster_row=raster, v_row=v_rows,
                            i_row=i_rows, counts=counts, cond=self.cond, coba=self._coba,
-                           dt=self._dt, substeps=self._substeps, **self._tel)
+                           dt=self._dt, substeps=self._substeps, step=i, **self._tel)
 
 
 def syn_matmul(x, w):
@@ -807,13 +831,16 @@ class FusedTickRun:
     In-run monitors: ``tel_count`` (``v``'s shape, int32, a SpikeCount's
     accumulator) and ``tel_rate`` (f32, a GroupRate's filter level, ``rate``
     its ``(alpha, inst)``) take each tick's spikes in place in the same
-    launch, as :class:`NeuronRun`'s do."""
+    launch, as :class:`NeuronRun`'s do, and so do the in-run watches'
+    ``w_count``, ``w_silent`` and ``w_bad`` at the tick's local step
+    ``i``."""
 
     def __init__(self, payload: _fused.KernelPayload, v, u, ring, is_gen, a, b,
                  c, d, rows, v_rows=None, i_rows=None, *, dt: float = 1.0,
                  substeps: int = 2, grid: int | None = None,
                  t0: tuple[int, ...] | None = None, tel_count=None, tel_rate=None,
-                 rate: tuple[float, float] = (0.0, 0.0)):
+                 rate: tuple[float, float] = (0.0, 0.0), w_count=None, w_silent=None,
+                 w_bad=None):
         n = v.shape[-1]
         if t0 is not None and not t0:
             raise ValueError("fused_tick: t0 must name at least one lane")
@@ -844,11 +871,13 @@ class FusedTickRun:
                 tel_rate is not None and (tel_rate.shape != v.shape or tel_rate.dtype != f32)):
             raise ValueError(f"fused_tick: tel_count must be int32 and tel_rate float32 "
                              f"{tuple(v.shape)}")
-        tel = [x for x in (tel_count, tel_rate) if x is not None]
+        _check_watch_slots("fused_tick", v.shape, w_count, w_silent, w_bad)
+        tel = [x for x in (tel_count, tel_rate, w_count, w_silent, w_bad) if x is not None]
         self._card = _on_card("fused_tick", v, u, ring, is_gen, a, b, c, d, rows,
                               payload.desc, payload.wd, payload.wc, payload.ic, *recs, *tel)
         self._args = (payload, v, u, ring, is_gen, a, b, c, d, rows, v_rows, i_rows)
-        self._tel = dict(tel_count=tel_count, tel_rate=tel_rate, rate=rate)
+        self._tel = dict(tel_count=tel_count, tel_rate=tel_rate, rate=rate, w_count=w_count,
+                         w_silent=w_silent, w_bad=w_bad)
         self._dt, self._substeps, self._t0 = dt, substeps, t0
         if self._card and n:
             self.launcher = _fused.TickLauncher(
@@ -869,14 +898,14 @@ class FusedTickRun:
             row = rows + i * n
             self.launcher(i if self._t0 is not None else t, row, row,
                           self._v_rows and self._v_rows + i * self._row_bytes,
-                          self._i_rows and self._i_rows + i * self._row_bytes)
+                          self._i_rows and self._i_rows + i * self._row_bytes, step=i)
             LAUNCHES["fused_tick"] += 1
             return
         if self._card:  # N = 0: nothing to compute
             return
         payload, v, u, ring, is_gen, a, b, c, d, rows, v_rows, i_rows = self._args
         kw = dict(dense=payload.dense, csr=payload.csr, ring_len=ring.shape[-2], dt=self._dt,
-                  substeps=self._substeps, **self._tel)
+                  substeps=self._substeps, step=i, **self._tel)
         if self._t0 is None:
             v2, u2, spikes, ring2, i_syn = ref.fused_tick_ref(
                 v, u, ring, rows[i], is_gen, a, b, c, d, t, **kw)

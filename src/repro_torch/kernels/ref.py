@@ -16,7 +16,7 @@ __all__ = ["izh4_ref", "neuron_run_ref", "neuron_lanes_ref", "coba_current_ref",
            "gather_lanes_ref", "fused_tick_ref", "fused_tick_lanes_ref", "stdp_update_ref",
            "stdp_gather_ref", "stdp_gather_run_ref", "stdp_update_run_ref",
            "stdp_gather_lanes_ref", "stdp_update_lanes_ref", "xla_cpu_row_sum",
-           "rate_fold_ref",
+           "rate_fold_ref", "watch_fold_ref",
            "plastic_drive_ref", "drive_run_ref",
            "chunked_attention_ref", "flash_attention_ref", "pallas_no_key_rows",
            "model_layout"]
@@ -60,11 +60,46 @@ def rate_fold_ref(level, spikes, alpha: float, inst: float) -> None:
     level += d
 
 
+def watch_fold_ref(step: int, spikes, v, *, w_count=None, w_silent=None, w_bad=None) -> None:
+    """One tick of the in-run watches' kernel slots, in place, as
+    ``common.cuh``'s ``watch_fold`` and ``watch_mark`` and the kernels'
+    count add compute them: ``spikes`` ``[(B,) N]`` (bool, or f32 0/1) and
+    the stored membrane ``v`` ``[(B,) N]`` (storage dtype) of the run's
+    local step ``step``. ``w_count`` (int32 ``[(B,) N]``, a RateBand's
+    counts) takes the spikes added. ``w_silent`` (int32 ``[(B,) 4]``, a
+    Silent's ``{last, gap, flag0, flag1}``) and ``w_bad`` (a NonFinite's
+    ``{ticks, 0, flag0, flag1}``, :func:`repro_torch.obs.watch.kernel_words`)
+    first fold the previous step's flag (a spike there closes the silent run
+    since ``last``, a closing step 0 adding none of it, and becomes ``last``;
+    a non-finite membrane counts a tick) and clear it, then set this step's
+    flag where any neuron spiked (any stored membrane is not finite)."""
+    if spikes.dtype != torch.bool:
+        spikes = spikes != 0
+    if w_count is not None:
+        w_count += spikes
+    prev, here = 2 + ((step - 1) & 1), 2 + (step & 1)
+    if w_silent is not None:
+        if step > 0:
+            flag = w_silent[..., prev] != 0
+            last, gap = w_silent[..., 0], w_silent[..., 1]
+            if step > 1:
+                gap.copy_(torch.where(flag, torch.maximum(gap, step - 2 - last), gap))
+            last.copy_(torch.where(flag, step - 1, last))
+            w_silent[..., prev] = 0
+        w_silent[..., here] = spikes.any(dim=-1).to(torch.int32)
+    if w_bad is not None:
+        if step > 0:
+            w_bad[..., 0] += w_bad[..., prev]
+            w_bad[..., prev] = 0
+        w_bad[..., here] = (~torch.isfinite(v).all(dim=-1)).to(torch.int32)
+
+
 def neuron_run_ref(v, u, refrac, ring, slot: int, is_gen, a, b, c, d, gen_cols, spikes, *,
                    gen_row=None, i_ext_row=None, raster_row=None, v_row=None, i_row=None,
                    counts=None, cond=None, coba=None, dt: float = 1.0,
                    substeps: int = 2, tel_count=None, tel_rate=None,
-                   rate: tuple[float, float] = (0.0, 0.0)) -> None:
+                   rate: tuple[float, float] = (0.0, 0.0), step: int = 0, w_count=None,
+                   w_silent=None, w_bad=None) -> None:
     """One tick's neuron phase of an IZH4-only Euler net, in place, as
     ``engine._neuron_phase`` and ``backend.update_neurons_dispatch``
     compute it op by op: read ring slot ``slot`` (``ring`` ``[L, N, C]``,
@@ -85,7 +120,9 @@ def neuron_run_ref(v, u, refrac, ring, slot: int, is_gen, a, b, c, d, gen_cols, 
     f32 ``v_row`` and ``i_row`` (``i_syn``), ``counts += spike`` (int32)
     and the in-run monitors' accumulators: ``tel_count += spike`` (a
     SpikeCount's int32) and :func:`rate_fold_ref` on ``tel_rate`` (a
-    GroupRate's f32 level, ``rate`` its ``(alpha, inst)``)."""
+    GroupRate's f32 level, ``rate`` its ``(alpha, inst)``), and the in-run
+    watches' slots ``w_count``, ``w_silent``, ``w_bad`` at the local step
+    ``step`` (:func:`watch_fold_ref`, on the stored v)."""
     if cond is None:
         i_syn = ring[slot, :, 0].to(f32, copy=True)
     else:
@@ -118,21 +155,24 @@ def neuron_run_ref(v, u, refrac, ring, slot: int, is_gen, a, b, c, d, gen_cols, 
         tel_count += spiked
     if tel_rate is not None:
         rate_fold_ref(tel_rate, spiked, *rate)
+    watch_fold_ref(step, spiked, v, w_count=w_count, w_silent=w_silent, w_bad=w_bad)
 
 
 def neuron_lanes_ref(v, u, refrac, ring, slots, is_gen, a, b, c, d, gen_cols, spikes, *,
                      gen_rows=None, raster_rows=None, v_rows=None, i_rows=None, cond=None,
                      counts=None, coba=None, dt: float = 1.0, substeps: int = 2,
                      tel_count=None, tel_rate=None,
-                     rate: tuple[float, float] = (0.0, 0.0)) -> None:
+                     rate: tuple[float, float] = (0.0, 0.0), step: int = 0, w_count=None,
+                     w_silent=None, w_bad=None) -> None:
     """One tick of B lanes' neuron phase, in place: lane ``k`` is
     :func:`neuron_run_ref` on ``v[k]``, ``u[k]``, ``refrac[k]`` and
     ``spikes[k]`` (``[B, N]``), ``ring[k]`` (``[B, L, N, C]``) at ring slot
     ``slots[k]``, the conductances ``cond`` (four ``[B, N]``), the rows
     ``gen_rows`` ``[B, n_gen]``, ``raster_rows``, ``v_rows`` and ``i_rows``
-    ``[B, N]``, the spike ``counts`` and the monitors' ``tel_count`` and
-    ``tel_rate`` ``[B, N]`` where given; the parameters are shared. A loop
-    over the lanes."""
+    ``[B, N]``, the spike ``counts``, the monitors' ``tel_count`` and
+    ``tel_rate`` ``[B, N]`` and the watches' ``w_count`` ``[B, N]``,
+    ``w_silent`` and ``w_bad`` ``[B, 4]`` where given; the parameters are
+    shared. A loop over the lanes."""
     for k, slot in enumerate(slots):
         def lane(x):
             return None if x is None else x[k]
@@ -142,7 +182,8 @@ def neuron_lanes_ref(v, u, refrac, ring, slots, is_gen, a, b, c, d, gen_cols, sp
                        v_row=lane(v_rows), i_row=lane(i_rows), counts=lane(counts),
                        cond=None if cond is None else tuple(g[k] for g in cond), coba=coba,
                        dt=dt, substeps=substeps, tel_count=lane(tel_count),
-                       tel_rate=lane(tel_rate), rate=rate)
+                       tel_rate=lane(tel_rate), rate=rate, step=step,
+                       w_count=lane(w_count), w_silent=lane(w_silent), w_bad=lane(w_bad))
 
 
 def coba_current_ref(cond, v, coba):
@@ -224,7 +265,8 @@ def gather_lanes_ref(spikes, rows, buckets, *, first: bool, absolute: bool = Fal
 def fused_tick_ref(v, u, ring, gen_row, is_gen, a, b, c, d, t: int, *,
                    dense=(), csr=(), ring_len: int, dt: float = 1.0,
                    substeps: int = 2, tel_count=None, tel_rate=None,
-                   rate: tuple[float, float] = (0.0, 0.0)):
+                   rate: tuple[float, float] = (0.0, 0.0), step: int = 0, w_count=None,
+                   w_silent=None, w_bad=None):
     """One whole tick on unpadded operands, as the reference's
     ``kernels/ref.py:fused_tick_ref``: ring slot read and zero, IZH4,
     generator override, propagation, one ring commit per distinct delay.
@@ -237,7 +279,9 @@ def fused_tick_ref(v, u, ring, gen_row, is_gen, a, b, c, d, t: int, *,
     ``(v', u', spikes, ring', i_syn)``; ``ring`` is left as it was. The
     in-run monitors' ``tel_count`` (int32 ``[N]``) and ``tel_rate`` (f32
     ``[N]``, ``rate`` its ``(alpha, inst)``), where given, take the tick's
-    spikes in place, as :func:`neuron_run_ref` folds them.
+    spikes in place, as :func:`neuron_run_ref` folds them, and so do the
+    watches' slots ``w_count``, ``w_silent``, ``w_bad`` at the local step
+    ``step`` (:func:`watch_fold_ref`, on the stored v').
     """
     n = v.shape[0]
     slot = t % ring_len
@@ -252,6 +296,7 @@ def fused_tick_ref(v, u, ring, gen_row, is_gen, a, b, c, d, t: int, *,
         tel_count += spikes
     if tel_rate is not None:
         rate_fold_ref(tel_rate, spikes, *rate)
+    watch_fold_ref(step, spikes, v2, w_count=w_count, w_silent=w_silent, w_bad=w_bad)
     sf = spikes.to(f32)
     acc: dict[int, torch.Tensor] = {}
 
@@ -273,23 +318,29 @@ def fused_tick_ref(v, u, ring, gen_row, is_gen, a, b, c, d, t: int, *,
 def fused_tick_lanes_ref(v, u, ring, gen_rows, is_gen, a, b, c, d, ticks, *,
                          dense=(), csr=(), ring_len: int, dt: float = 1.0,
                          substeps: int = 2, tel_count=None, tel_rate=None,
-                         rate: tuple[float, float] = (0.0, 0.0)):
+                         rate: tuple[float, float] = (0.0, 0.0), step: int = 0,
+                         w_count=None, w_silent=None, w_bad=None):
     """One tick of B lanes through the fused tick: lane ``k`` is
     :func:`fused_tick_ref` on ``v[k]``, ``u[k]`` ``[B, N]``, ``ring[k]``
     ``[B, L, N]`` and ``gen_rows[k]`` ``[B, N]`` at its tick ``ticks[k]``,
     each bucket's weights shared (``[P, Q]``/``[Q, F]``) or the lane's own
     (a leading ``[B]``), and the monitors' ``tel_count``/``tel_rate`` ``[B,
-    N]`` where given. Returns the five results stacked over the lanes. A
-    loop over the lanes."""
+    N]`` and the watches' ``w_count`` ``[B, N]``, ``w_silent``/``w_bad``
+    ``[B, 4]`` where given. Returns the five results stacked over the lanes.
+    A loop over the lanes."""
     def lane(w, k):
         return w if w.dim() == 2 else w[k]
+
+    def own(x, k):
+        return None if x is None else x[k]
 
     outs = [fused_tick_ref(v[k], u[k], ring[k], gen_rows[k], is_gen, a, b, c, d, t,
                            dense=[(ps, qs, dl, lane(w, k)) for ps, qs, dl, w in dense],
                            csr=[(qs, dl, idx, lane(w, k)) for qs, dl, idx, w in csr],
                            ring_len=ring_len, dt=dt, substeps=substeps,
-                           tel_count=None if tel_count is None else tel_count[k],
-                           tel_rate=None if tel_rate is None else tel_rate[k], rate=rate)
+                           tel_count=own(tel_count, k), tel_rate=own(tel_rate, k),
+                           rate=rate, step=step, w_count=own(w_count, k),
+                           w_silent=own(w_silent, k), w_bad=own(w_bad, k))
             for k, t in enumerate(ticks)]
     return tuple(torch.stack(x) for x in zip(*outs))
 

@@ -8,7 +8,10 @@ allocates under those stage names; the ledger counts bytes exactly
 the MCU). Serving adds an eighth stage, "8. Serve Lanes": a
 ``repro_torch.serve.LaneScheduler`` registers its per-lane state there
 under ``serve.lanes[.<key>]`` and releases it when it closes or is
-replaced.
+replaced. Every register and release republishes the ledger's bytes as
+observability gauges (``repro_ledger_bytes``, ``repro_ledger_stage_bytes``,
+``repro_ledger_total_bytes``, ``repro_serve_rung_bytes``), as the
+reference's ledger does.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import dataclasses
 from contextlib import contextmanager
 from typing import Any, Iterator
 
+from repro_torch import obs
 from repro_torch.precision.policy import tree_bytes
 
 __all__ = ["MemoryBudgetError", "MemoryLedger", "PAPER_STAGES",
@@ -74,6 +78,7 @@ class MemoryLedger:
                 f"(used {self.total_used / 1024**2:.3f} MB)"
             )
         self._entries.append(_Entry(stage=stage, name=name, nbytes=nbytes))
+        self._obs_sync()
         return nbytes
 
     def release(self, name: str) -> int:
@@ -81,11 +86,38 @@ class MemoryLedger:
         freed."""
         freed = sum(e.nbytes for e in self._entries if e.name == name)
         self._entries = [e for e in self._entries if e.name != name]
+        self._obs_sync()
         return freed
+
+    def _obs_sync(self) -> None:
+        """Republish this ledger's live bytes as obs gauges (per name, per
+        stage, total, per serving rung). Stale series of released
+        registrations are dropped first, so the gauges always mirror
+        ``name_bytes()``, also after a rung migration sheds its old lanes."""
+        if not obs.enabled():
+            return
+        for g in ("repro_ledger_bytes", "repro_ledger_stage_bytes",
+                  "repro_ledger_total_bytes", "repro_serve_rung_bytes"):
+            obs.remove_gauge(g, ledger=self.name)
+        for name, nb in self.name_bytes().items():
+            obs.gauge("repro_ledger_bytes", float(nb), ledger=self.name, name=name)
+        for stage, nb in self.stage_bytes().items():
+            obs.gauge("repro_ledger_stage_bytes", float(nb), ledger=self.name, stage=stage)
+        obs.gauge("repro_ledger_total_bytes", float(self.total_used), ledger=self.name)
+        for rung, nb in self.serve_rung_bytes().items():
+            obs.gauge("repro_serve_rung_bytes", float(nb), ledger=self.name,
+                      rung=rung or "unkeyed")
 
     @property
     def total_used(self) -> int:
         return sum(e.nbytes for e in self._entries)
+
+    @property
+    def total_available(self) -> int | None:
+        """Bytes left under the budget (None when unbudgeted)."""
+        if self.budget is None:
+            return None
+        return self.budget - self.total_used
 
     def stage_bytes(self) -> dict[str, int]:
         out: dict[str, int] = {}

@@ -28,9 +28,13 @@ would change the numerics (topology, propagation mode, backend,
 precision policy, weights, monitors) forks a new ladder. Its best-fit
 admission reads the tenants' flushed telemetry.
 
-The reference's observability calls (spans, counters, route events) wait
-for ROADMAP A10, as do watchpoints, quarantine and the flight recorder
-(those methods raise); the mesh-sharded lane axis (``mesh=``) is A11.
+Both layers carry the reference's observability calls (``rung_build`` and
+``rung_migrate`` spans, ``repro_rung_migrations_total``, the ``route``
+event and ``repro_pool_routes_total``) and its watch surface:
+``flight_window`` reaches every rung's scheduler, flight windows survive
+rung migrations, and ``check_watches``, ``quarantine`` and ``flight``
+route to the tenant's rung. The mesh-sharded lane axis (``mesh=``) is
+A11.
 """
 from __future__ import annotations
 
@@ -39,8 +43,9 @@ import hashlib
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.network import CompiledNetwork, NetState
-from repro_torch.serve.scheduler import Evicted, LaneScheduler, LaneSnapshot
+from repro_torch.serve.scheduler import Evicted, LaneScheduler, LaneSnapshot, Quarantined
 
 __all__ = ["CapacityLadder", "ServePool", "compile_fingerprint", "RUNGS"]
 
@@ -87,11 +92,6 @@ def compile_fingerprint(net: CompiledNetwork) -> str:
     return fp
 
 
-def _unported_watches(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what}: in-run watchpoints, quarantine and the flight "
-                               "recorder are not ported to repro_torch yet (ROADMAP A10)")
-
-
 class CapacityLadder:
     """Elastic lane capacity for one topology through rung-to-rung migration.
 
@@ -102,7 +102,7 @@ class CapacityLadder:
     ``idle_after`` consecutive :meth:`step` calls during which a smaller
     rung would have sufficed (hysteresis: one transient eviction does not
     thrash the ladder). Per-rung ledger names carry ``ledger_prefix``.
-    ``mesh`` (A11) and ``flight_window > 0`` (A10) raise.
+    ``flight_window`` is every rung's scheduler's. ``mesh`` (A11) raises.
     """
 
     def __init__(self, net: CompiledNetwork, *, rungs=RUNGS, record: str = "monitors",
@@ -114,10 +114,6 @@ class CapacityLadder:
             raise NotImplementedError(
                 "CapacityLadder(mesh=...): sharding the lane axis across cards is not "
                 "ported to repro_torch yet (ROADMAP A11)")
-        if flight_window:
-            raise NotImplementedError(
-                "CapacityLadder(flight_window=...): the flight recorder is not ported to "
-                "repro_torch yet (ROADMAP A10)")
         self.net = net
         self.flight_window = flight_window
         # Optional admission policy hook: called with the live scheduler,
@@ -153,20 +149,30 @@ class CapacityLadder:
                            f"({self.rungs[-1]} lanes) — extend rungs=")
 
     def _build(self, n: int) -> LaneScheduler:
-        return LaneScheduler(self.net, n, record=self.record,
-                             ledger_key=f"{self.ledger_prefix}rung{n}")
+        key = f"{self.ledger_prefix}rung{n}"
+        with obs.span("rung_build", rung=n, ledger_key=key):
+            return LaneScheduler(self.net, n, record=self.record, ledger_key=key,
+                                 flight_window=self.flight_window)
 
     def _migrate(self, new_rung: int) -> None:
         """Move the whole fleet to ``new_rung`` through raw lane snapshots
         (no flush, no stream perturbation, no telemetry drain), releasing
-        the old rung's ledger registrations."""
-        snaps: list[LaneSnapshot] = []
-        if self._sched is not None:
-            snaps = self._sched.export_all()
-            self._sched.close()
-        self._sched = self._build(new_rung)
-        for snap in snaps:
-            self._sched.restore(snap)
+        the old rung's ledger registrations. The flight windows move with
+        the fleet."""
+        old_rung = self._sched.capacity if self._sched else 0
+        with obs.span("rung_migrate", from_rung=old_rung, to_rung=new_rung,
+                      tenants=self.occupancy):
+            snaps: list[LaneSnapshot] = []
+            flights: dict = {}
+            if self._sched is not None:
+                snaps = self._sched.export_all()
+                flights = dict(self._sched._flight)
+                self._sched.close()
+            self._sched = self._build(new_rung)
+            for snap in snaps:
+                self._sched.restore(snap)
+            self._sched._flight.update(flights)
+        obs.inc("repro_rung_migrations_total", direction="up" if new_rung > old_rung else "down")
         self.migrations += 1
         self._idle_steps = 0
 
@@ -205,13 +211,16 @@ class CapacityLadder:
         return self._sched.flush(session_id)
 
     def check_watches(self) -> dict[str, list]:
-        raise _unported_watches("CapacityLadder.check_watches")
+        """Drain the rung's watch accumulators
+        (:meth:`LaneScheduler.check_watches`); {} before the first admit."""
+        return self._sched.check_watches() if self._sched else {}
 
-    def quarantine(self, session_id: str, verdicts=()):
-        raise _unported_watches("CapacityLadder.quarantine")
+    def quarantine(self, session_id: str, verdicts=()) -> Quarantined:
+        return self._sched.quarantine(session_id, verdicts)
 
     def flight(self, session_id: str) -> tuple:
-        raise _unported_watches("CapacityLadder.flight")
+        """The tenant's recorded flight window, oldest first."""
+        return self._sched.flight(session_id) if self._sched else ()
 
     def step(self, n_ticks: int) -> None:
         """Advance every lane one chunk, then apply the down-rung rule:
@@ -261,12 +270,8 @@ class ServePool:
             raise NotImplementedError(
                 "ServePool(mesh=...): sharding the lane axis across cards is not ported "
                 "to repro_torch yet (ROADMAP A11)")
-        if flight_window:
-            raise NotImplementedError(
-                "ServePool(flight_window=...): the flight recorder is not ported to "
-                "repro_torch yet (ROADMAP A10)")
         self._opts = dict(rungs=rungs, record=record, mesh_axis=mesh_axis,
-                          idle_after=idle_after)
+                          idle_after=idle_after, flight_window=flight_window)
         self.policy = policy
         self.bin_lanes = bin_lanes
         self._ladders: dict[str, CapacityLadder] = {}
@@ -303,6 +308,8 @@ class ServePool:
         if session_id in self._routes:
             raise ValueError(f"session id {session_id!r} already admitted")
         fp, ladder = self._ladder_for(net)
+        obs.event("route", session=session_id, fingerprint=fp[:8])
+        obs.inc("repro_pool_routes_total", fingerprint=fp[:8])
         ladder.admit(session_id, seed=seed, key=key, state=state)
         self._routes[session_id] = fp
         return fp
@@ -378,6 +385,8 @@ class ServePool:
         if snap.session_id in self._routes:
             raise ValueError(f"session id {snap.session_id!r} already admitted")
         fp, ladder = self._ladder_for(net)
+        obs.event("route", session=snap.session_id, fingerprint=fp[:8])
+        obs.inc("repro_pool_routes_total", fingerprint=fp[:8])
         ladder.restore(snap)
         self._routes[snap.session_id] = fp
         return fp
@@ -396,12 +405,26 @@ class ServePool:
         """A lane's snapshot, the tenant left serving."""
         return self.ladder_of(session_id).snapshot(session_id)
 
-    # -- later ports ----------------------------------------------------------
+    # -- watchpoints and post-mortems -------------------------------------------
     def check_watches(self) -> dict[str, list]:
-        raise _unported_watches("ServePool.check_watches")
+        """Drain every watch-carrying ladder's accumulators; the merged
+        ``{session_id: [tripped verdicts]}`` of the whole pool (ladders over
+        nets without watches are skipped)."""
+        alerts: dict[str, list] = {}
+        for ladder in self._ladders.values():
+            if ladder.net.static.watches:
+                alerts.update(ladder.check_watches())
+        return alerts
 
-    def quarantine(self, session_id: str, verdicts=()):
-        raise _unported_watches("ServePool.quarantine")
+    def quarantine(self, session_id: str, verdicts=()) -> Quarantined:
+        """Evict a tripped tenant with its evidence (its snapshot and flight
+        window); its route and activity entries go with it. The other lanes
+        are untouched."""
+        q = self.ladder_of(session_id).quarantine(session_id, verdicts)
+        del self._routes[session_id]
+        self._activity.pop(session_id, None)
+        return q
 
     def flight(self, session_id: str) -> tuple:
-        raise _unported_watches("ServePool.flight")
+        """The tenant's recorded flight window, oldest first."""
+        return self.ladder_of(session_id).flight(session_id)

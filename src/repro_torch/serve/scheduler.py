@@ -36,31 +36,49 @@ monitors (``[B, ...]`` accumulators on the device, the default set folded
 inside the neuron kernel's launch); :meth:`~LaneScheduler.flush` drains a
 lane's to the host, and nothing else crosses.
 
-The lanes' state and telemetry are registered in the network's memory
-ledger under stage "8. Serve Lanes" (``serve.lanes[.<ledger_key>]`` and
-``serve.telemetry[.<ledger_key>]``; a second scheduler on the same net
-and key replaces the registrations).
+A net compiled with watches (``compile(watches="default")``) keeps every
+lane's watch accumulators through every chunk (the default set inside the
+neuron kernel's launch too); :meth:`~LaneScheduler.check_watches` copies
+the fleet's to the host in one transfer, drains each occupied lane and
+names the tenants whose watches tripped, and
+:meth:`~LaneScheduler.quarantine` evicts such a tenant with its evidence
+(:class:`Quarantined`: its snapshot, the verdicts and its flight window).
+With ``flight_window=K`` the scheduler keeps each tenant's last K
+chunk-boundary :class:`LaneSnapshot` s (:meth:`~LaneScheduler.flight`),
+which ``serve.recorder.replay`` re-runs bit for bit.
 
-Left to later ports: watchpoints, the flight recorder and quarantine
-(A10), and the mesh-sharded lane axis (``mesh=``, A11).
+The lanes' state, telemetry and watches are registered in the network's
+memory ledger under stage "8. Serve Lanes" (``serve.lanes[.<ledger_key>]``,
+``serve.telemetry[.<ledger_key>]``, ``serve.watch[.<ledger_key>]``; a
+second scheduler on the same net and key replaces the registrations).
+Admit, evict, export, restore, step and flush report spans, counters,
+gauges and histograms to :mod:`repro_torch.obs` under the reference's
+names; a step's span times the host's enqueue of the chunk and never
+synchronizes the device.
+
+Left to a later port: the mesh-sharded lane axis (``mesh=``, A11).
 """
 from __future__ import annotations
 
 import dataclasses
 import zlib
+from collections import deque
 from typing import NamedTuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import backend as be
 from repro_torch.core import rng
 from repro_torch.core.engine import _run_lanes, batched_route, run
 from repro_torch.core.lanes import broadcast_state, lane_state, set_lane
 from repro_torch.core.network import CompiledNetwork, NetState
+from repro_torch.obs import watch as wat
+from repro_torch.obs.metrics import us_per_tick
 from repro_torch.precision.policy import tree_bytes
 from repro_torch.telemetry import monitors as tel
 
-__all__ = ["LaneScheduler", "LaneSnapshot", "Evicted"]
+__all__ = ["LaneScheduler", "LaneSnapshot", "Evicted", "Quarantined"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +100,43 @@ def _set_lane_tel(carry: tuple, lane: int, values: tuple) -> None:
     for c, x in zip(carry, values):
         if isinstance(x, torch.Tensor):
             c[lane] = x
+
+
+def _lane_watch(carry: tuple, lane: int) -> tuple:
+    """One lane's slots of a lane-batched watch carry (views)."""
+    return tuple(tuple(x[lane] for x in slot) for slot in carry)
+
+
+def _set_lane_watch(carry: tuple, lane: int, values: tuple) -> None:
+    """Write one lane's slots into a lane-batched watch carry, in place."""
+    for slot, vals in zip(carry, values):
+        for x, v in zip(slot, vals):
+            x[lane].copy_(torch.as_tensor(v))
+
+
+def _flat_int32(carry: tuple) -> torch.Tensor:
+    """A lane-batched watch carry as one int32 ``[B, W]`` tensor (f32 slots
+    bit-cast), so the fleet crosses to the host in one copy."""
+    cols = [x.reshape(x.shape[0], -1) for slot in carry for x in slot]
+    return torch.cat([c.view(torch.int32) if c.dtype == torch.float32 else c for c in cols],
+                     dim=1)
+
+
+def _unflat_int32(flat: torch.Tensor, like: tuple) -> tuple:
+    """:func:`_flat_int32`'s inverse: ``flat`` split into ``like``'s slots
+    (its shapes and dtypes, on ``flat``'s device)."""
+    out, at = [], 0
+    for slot in like:
+        vals = []
+        for x in slot:
+            width = x[0].numel()
+            col = flat[:, at:at + width]
+            at += width
+            if x.dtype == torch.float32:
+                col = col.contiguous().view(torch.float32)
+            vals.append(col.reshape(x.shape).clone())
+        out.append(tuple(vals))
+    return tuple(out)
 
 
 class Evicted(NamedTuple):
@@ -110,6 +165,19 @@ class LaneSnapshot(NamedTuple):
     ticks_since_flush: int
 
 
+class Quarantined(NamedTuple):
+    """What :meth:`LaneScheduler.quarantine` hands back: the evidence of a
+    tripped tenant. Its no-flush snapshot (resumable and replayable bit
+    for bit), the watch verdicts that tripped, and its flight window (the
+    last K chunk-boundary :class:`LaneSnapshot` s, oldest first). Persist
+    it with ``serve.lifecycle.dump_quarantine``."""
+
+    session_id: str
+    snapshot: LaneSnapshot
+    verdicts: tuple
+    recording: tuple
+
+
 class LaneScheduler:
     """Admit/evict/step scheduler over ``capacity`` lanes of one compiled
     network.
@@ -117,9 +185,12 @@ class LaneScheduler:
     All admitted sessions share ``net`` (topology, parameters and
     precision policy). ``record`` is ``"monitors"`` (default; the net must
     carry monitors: every lane accumulates flushable telemetry) or
-    ``"none"``. ``mesh`` (A11) and ``flight_window > 0`` (A10) raise
+    ``"none"``. ``flight_window`` K > 0 keeps every tenant's last K
+    chunk-boundary snapshots. ``mesh`` (A11) raises
     ``NotImplementedError``. ``ledger_key`` namespaces the ledger
-    registrations (``serve.lanes.<key>``, ``serve.telemetry.<key>``).
+    registrations (``serve.lanes.<key>``, ``serve.telemetry.<key>``,
+    ``serve.watch.<key>``) and names the scheduler's obs series
+    (``rung=<key>``, else ``rung=cap<capacity>``).
     """
 
     def __init__(self, net: CompiledNetwork, capacity: int, *, record: str = "monitors",
@@ -138,10 +209,6 @@ class LaneScheduler:
             raise NotImplementedError(
                 "LaneScheduler(mesh=...): sharding the lane axis across cards is not "
                 "ported to repro_torch yet (ROADMAP A11)")
-        if flight_window:
-            raise NotImplementedError(
-                "LaneScheduler(flight_window=...): the flight recorder is not ported to "
-                "repro_torch yet (ROADMAP A10)")
         self.net = net
         self.capacity = capacity
         self.record = record
@@ -153,18 +220,34 @@ class LaneScheduler:
         self._ticks_since_flush = [0] * capacity
         self._tel = (tel.init_carry(net.static, 1, device=dev, lanes=capacity)
                      if record == "monitors" else ())
-        # The batched route's launchers, kept across chunks: admit and
+        # Watch accumulators (compile(watches=...)), one carry per lane,
+        # threaded through every chunk and drained by check_watches().
+        self._watch = (wat.init_carry(net.static, device=dev, lanes=capacity)
+                       if net.static.watches else ())
+        # The flight recorder: each tenant's last K chunk-boundary snapshots.
+        self.flight_window = int(flight_window)
+        self._flight: dict[str, deque] = {}
+        # The batched route's launchers, built at the first step and kept
+        # across chunks (that step is the scheduler's compile): admit and
         # restore write a lane's weights into them.
-        self._prop = (be.LanePropagation(net.static, net.params, self.states.weights, capacity)
-                      if batched_route(net.static) else None)
+        self._prop = None
+        self._batched = batched_route(net.static)
         suffix = f".{ledger_key}" if ledger_key else ""
-        self._ledger_names = (f"serve.lanes{suffix}", f"serve.telemetry{suffix}")
+        self._ledger_names = (f"serve.lanes{suffix}", f"serve.telemetry{suffix}",
+                              f"serve.watch{suffix}")
+        # The label of this scheduler's obs series: the ledger key (a ladder
+        # rung), else the capacity.
+        self._obs_rung = ledger_key or f"cap{capacity}"
         for name in self._ledger_names:
             net.ledger.release(name)
         with net.ledger.stage("8. Serve Lanes"):
             net.ledger.register(self._ledger_names[0], self._ledger_tree())
             if self._tel:
                 net.ledger.register(self._ledger_names[1], self._tel)
+            if self._watch:
+                net.ledger.register(self._ledger_names[2], self._watch)
+        if obs.enabled():
+            self._obs_occupancy()
 
     def _ledger_tree(self):
         """The lanes' state as the ledger counts it: the tensors and, as the
@@ -174,9 +257,15 @@ class LaneScheduler:
             t=torch.empty((self.capacity,), dtype=torch.int32, device="meta"))
 
     def close(self) -> None:
-        """Drop this scheduler's ledger registrations."""
+        """Drop this scheduler's ledger registrations and occupancy gauges."""
         for name in self._ledger_names:
             self.net.ledger.release(name)
+        for gauge in ("repro_serve_lane_occupancy", "repro_serve_lane_capacity"):
+            obs.remove_gauge(gauge, rung=self._obs_rung)
+
+    def _obs_occupancy(self) -> None:
+        obs.gauge("repro_serve_lane_occupancy", float(self.occupancy), rung=self._obs_rung)
+        obs.gauge("repro_serve_lane_capacity", float(self.capacity), rung=self._obs_rung)
 
     # -- occupancy ------------------------------------------------------------
     @property
@@ -199,8 +288,9 @@ class LaneScheduler:
     @property
     def session_bytes(self) -> int:
         """Device bytes one admitted session costs: its lane's slice of the
-        state and of the telemetry accumulators."""
-        return (tree_bytes(self._ledger_tree()) + tree_bytes(self._tel)) // self.capacity
+        state and of the telemetry and watch accumulators."""
+        return (tree_bytes(self._ledger_tree()) + tree_bytes(self._tel)
+                + tree_bytes(self._watch)) // self.capacity
 
     def lane_of(self, session_id: str) -> int:
         for i, s in enumerate(self._lanes):
@@ -217,7 +307,17 @@ class LaneScheduler:
         default the seed ``crc32(session_id)``, stable across processes);
         ``state`` resumes an existing session instead of the net's
         ``state0``. The lane's telemetry is zeroed whole (counts and filter
-        levels: an evict keeps the level and an export drains nothing)."""
+        levels: an evict keeps the level and an export drains nothing) and
+        its watches start anew (init values: a WeightDrift's norms start at
+        its baseline)."""
+        with obs.span("admit", rung=self._obs_rung, session=session_id):
+            lane = self._admit_impl(session_id, seed=seed, key=key, state=state, lane=lane)
+        if obs.enabled():
+            obs.inc("repro_serve_admits_total", rung=self._obs_rung)
+            self._obs_occupancy()
+        return lane
+
+    def _admit_impl(self, session_id: str, *, seed, key, state, lane) -> int:
         free = self.free_lanes
         if not free:
             raise RuntimeError(f"scheduler full ({self.capacity} lanes) — evict before "
@@ -242,6 +342,9 @@ class LaneScheduler:
         for c in self._tel:
             if isinstance(c, torch.Tensor):
                 c[lane].zero_()
+        if self._watch:
+            _set_lane_watch(self._watch, lane,
+                            wat.init_carry(self.net.static, device=self.active.device))
         self._lanes[lane] = _LaneInfo(session_id=session_id, ticks=int(state.t))
         self._ticks_since_flush[lane] = 0
         return lane
@@ -251,12 +354,17 @@ class LaneScheduler:
         telemetry flush (:class:`Evicted`). The lane goes idle until the
         next admit. The flush drains the tenant's telemetry: a move that
         keeps the flush accounting is :meth:`export`."""
-        lane = self.lane_of(session_id)
-        state = lane_state(self.states, lane)
-        gen_key = self.gen_keys[lane].clone()
-        final = self.flush(session_id) if self._tel else None
-        self.active[lane] = False
-        self._lanes[lane] = None
+        with obs.span("evict", rung=self._obs_rung, session=session_id):
+            lane = self.lane_of(session_id)
+            state = lane_state(self.states, lane)
+            gen_key = self.gen_keys[lane].clone()
+            final = self.flush(session_id) if self._tel else None
+            self.active[lane] = False
+            self._lanes[lane] = None
+            self._flight.pop(session_id, None)
+        if obs.enabled():
+            obs.inc("repro_serve_evicts_total", rung=self._obs_rung)
+            self._obs_occupancy()
         return Evicted(state=state, gen_key=gen_key, flush=final)
 
     # -- migration ------------------------------------------------------------
@@ -275,19 +383,25 @@ class LaneScheduler:
     def export(self, session_id: str) -> LaneSnapshot:
         """Copy a session out and free its lane: the payload of
         :meth:`restore` on another scheduler over the same net."""
-        lane = self.lane_of(session_id)
-        snap = self.snapshot(session_id)
-        self.active[lane] = False
-        self._lanes[lane] = None
+        with obs.span("export", rung=self._obs_rung, session=session_id):
+            lane = self.lane_of(session_id)
+            snap = self.snapshot(session_id)
+            self.active[lane] = False
+            self._lanes[lane] = None
+        if obs.enabled():
+            obs.inc("repro_serve_exports_total", rung=self._obs_rung)
+            self._obs_occupancy()
         return snap
 
     def restore(self, snap: LaneSnapshot) -> int:
         """Admit an exported lane, its telemetry accumulators and flush
         counter carried through; returns its new lane."""
-        lane = self.admit(snap.session_id, key=snap.gen_key, state=snap.state)
-        if self._tel and snap.tel is not None:
-            _set_lane_tel(self._tel, lane, snap.tel)
-        self._ticks_since_flush[lane] = snap.ticks_since_flush
+        with obs.span("restore", rung=self._obs_rung, session=snap.session_id):
+            lane = self.admit(snap.session_id, key=snap.gen_key, state=snap.state)
+            if self._tel and snap.tel is not None:
+                _set_lane_tel(self._tel, lane, snap.tel)
+            self._ticks_since_flush[lane] = snap.ticks_since_flush
+        obs.inc("repro_serve_restores_total", rung=self._obs_rung)
         return lane
 
     def export_all(self) -> list[LaneSnapshot]:
@@ -297,7 +411,23 @@ class LaneScheduler:
     # -- advance --------------------------------------------------------------
     def step(self, n_ticks: int) -> None:
         """Advance every lane ``n_ticks``, idle ones gated silent; nothing is
-        read back to the host."""
+        read back to the host. The span times the host's enqueue of the
+        chunk (the device is not synchronized)."""
+        if not obs.enabled():
+            return self._step_impl(n_ticks)
+        occ = self.occupancy
+        before = obs.build_count()
+        with obs.span("step_chunk", rung=self._obs_rung, n_ticks=n_ticks,
+                      occupancy=occ) as sp:
+            self._step_impl(n_ticks)
+        obs.note_dispatch("serve.step_lanes", before)
+        obs.observe("repro_serve_chunk_latency_ms", sp.dur_s * 1e3, scope="scheduler",
+                    rung=self._obs_rung)
+        obs.observe("repro_serve_us_per_tick", us_per_tick(sp.dur_s, n_ticks),
+                    scope="scheduler", rung=self._obs_rung)
+        obs.inc("repro_serve_ticks_total", float(n_ticks * occ), rung=self._obs_rung)
+
+    def _step_impl(self, n_ticks: int) -> None:
         static, params = self.net.static, self.net.params
         mon = dict(record=self.record)
         if self._tel:
@@ -305,28 +435,61 @@ class LaneScheduler:
                                                  device=self.active.device,
                                                  lanes=self.capacity),
                        return_tel_carry=True)
-        if self._prop is not None:
+        if self._batched:
+            if self._prop is None:
+                self._prop = be.LanePropagation(static, params, self.states.weights,
+                                                self.capacity)
+                obs.note_build()
             self.states, out = _run_lanes(static, params, self.states, n_ticks,
                                           gen_base=self.gen_keys, active=self.active,
-                                          prop=self._prop, **mon)
+                                          prop=self._prop, watch_carry=self._watch or None,
+                                          **mon)
             if self._tel:
                 self._tel = out["tel_carry"]
+            if self._watch:
+                self._watch = out["watch_carry"]
         else:
             carry = mon.get("tel_carry")
             for lane in range(self.capacity):
                 if carry is not None:
                     mon["tel_carry"] = _lane_tel(carry, lane)
+                if self._watch:
+                    mon["watch_carry"] = _lane_watch(self._watch, lane)
                 final, out = run(static, params, lane_state(self.states, lane), n_ticks,
                                  gen_base=self.gen_keys[lane], active=self.active[lane], **mon)
                 self.states = set_lane(self.states, lane, final)
                 if carry is not None:
                     _set_lane_tel(carry, lane, out["tel_carry"])
+                if self._watch:
+                    _set_lane_watch(self._watch, lane, out["watch_carry"])
             if carry is not None:
                 self._tel = carry
         for i, info in enumerate(self._lanes):
             if info is not None:
                 self._lanes[i] = dataclasses.replace(info, ticks=info.ticks + n_ticks)
                 self._ticks_since_flush[i] += n_ticks
+        if self.flight_window:
+            self._record_flight()
+
+    def _record_flight(self) -> None:
+        """Every occupied lane's chunk-boundary snapshot into its tenant's
+        ring (the last ``flight_window`` of them, oldest dropped first)."""
+        for info in self._lanes:
+            if info is None:
+                continue
+            ring = self._flight.get(info.session_id)
+            if ring is None:
+                ring = self._flight[info.session_id] = deque(maxlen=self.flight_window)
+            ring.append(self.snapshot(info.session_id))
+        if obs.enabled() and self.occupancy:
+            obs.event("flight_record", rung=self._obs_rung, sessions=self.occupancy,
+                      window=self.flight_window)
+            obs.inc("repro_flight_records_total", float(self.occupancy), rung=self._obs_rung)
+
+    def flight(self, session_id: str) -> tuple[LaneSnapshot, ...]:
+        """The tenant's recorded flight window, oldest first (empty when the
+        recorder is off or no chunk boundary has passed yet)."""
+        return tuple(self._flight.get(session_id, ()))
 
     # -- telemetry ------------------------------------------------------------
     def flush(self, session_id: str) -> dict:
@@ -336,21 +499,52 @@ class LaneScheduler:
         if not self._tel:
             raise ValueError("scheduler built with record='none'")
         lane = self.lane_of(session_id)
-        values, zeroed = tel.flush_carry(self.net.static, _lane_tel(self._tel, lane))
-        _set_lane_tel(self._tel, lane, zeroed)
-        values["n_ticks"] = self._ticks_since_flush[lane]
-        self._ticks_since_flush[lane] = 0
+        with obs.span("flush", rung=self._obs_rung, session=session_id):
+            values, zeroed = tel.flush_carry(self.net.static, _lane_tel(self._tel, lane))
+            _set_lane_tel(self._tel, lane, zeroed)
+            values["n_ticks"] = self._ticks_since_flush[lane]
+            self._ticks_since_flush[lane] = 0
+        obs.inc("repro_serve_flushes_total", rung=self._obs_rung)
         return values
 
     def flush_all(self) -> dict[str, dict]:
         return {s.session_id: self.flush(s.session_id) for s in self._lanes if s is not None}
 
-    # -- later ports ----------------------------------------------------------
-
+    # -- watchpoints ----------------------------------------------------------
     def check_watches(self) -> dict[str, list]:
-        raise NotImplementedError("LaneScheduler.check_watches: in-run watchpoints are "
-                                  "not ported to repro_torch yet (ROADMAP A10)")
+        """Drain every occupied lane's watch accumulators and return the
+        tripped verdicts by session id (sessions with none are left out).
+        Tripped verdicts go to the obs plane (``watch_trip`` events and
+        ``repro_watch_trips_total``). The fleet's accumulators cross to the
+        host in one copy and the drained windows go back in one."""
+        if not self._watch:
+            raise ValueError("network compiled without watches — pass watches=... "
+                             "(e.g. 'default') to compile()")
+        flat = _flat_int32(self._watch).cpu()
+        host = _unflat_int32(flat, self._watch)
+        alerts: dict[str, list] = {}
+        for lane, info in enumerate(self._lanes):
+            if info is None:
+                continue
+            verdicts, reset = wat.drain(self.net.static, _lane_watch(host, lane))
+            _set_lane_watch(host, lane, reset)
+            tripped = wat.alert(verdicts, rung=self._obs_rung, session=info.session_id)
+            if tripped:
+                alerts[info.session_id] = tripped
+        self._watch = _unflat_int32(_flat_int32(host).to(self.active.device), self._watch)
+        return alerts
 
-    def quarantine(self, session_id: str, verdicts=()):
-        raise NotImplementedError("LaneScheduler.quarantine: quarantine and the flight "
-                                  "recorder are not ported to repro_torch yet (ROADMAP A10)")
+    def quarantine(self, session_id: str, verdicts=()) -> Quarantined:
+        """Evict a tripped tenant with its evidence: the no-flush
+        :class:`LaneSnapshot` (replayable bit for bit), the verdicts that
+        tripped and its flight window. The lane is freed; the other lanes
+        are untouched. Persist the bundle with
+        ``serve.lifecycle.dump_quarantine``."""
+        recording = tuple(self._flight.pop(session_id, ()))
+        snap = self.export(session_id)
+        if obs.enabled():
+            obs.event("quarantine", rung=self._obs_rung, session=session_id,
+                      watches=",".join(v.watch for v in verdicts), recorded=len(recording))
+            obs.inc("repro_quarantines_total", rung=self._obs_rung)
+        return Quarantined(session_id=session_id, snapshot=snap, verdicts=tuple(verdicts),
+                           recording=recording)

@@ -16,10 +16,16 @@ their cumulative accumulators on the device between calls
 :meth:`Session.flush`, whose spike counts over a chunk sequence sum to
 the uninterrupted run's totals bit for bit.
 
+A session over a net compiled with watches threads their accumulators
+through every chunk (``watch_carry``); :meth:`Session.check_watches`
+drains them and publishes the tripped verdicts to :mod:`repro_torch.obs`.
+Every chunk reports a ``step_chunk`` span and the serving latency
+histograms (the host's enqueue of the chunk: the device is not
+synchronized), every flush a ``flush`` span and
+``repro_serve_flushes_total``, all with ``rung="solo"``.
+
 Sessions are what :class:`repro_torch.serve.LaneScheduler` multiplexes
-onto lanes and what :mod:`repro_torch.serve.lifecycle` checkpoints. Their
-watchpoints (``check_watches``) wait for the observability port (ROADMAP
-A10).
+onto lanes and what :mod:`repro_torch.serve.lifecycle` checkpoints.
 """
 from __future__ import annotations
 
@@ -27,9 +33,12 @@ import dataclasses
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import rng
 from repro_torch.core.engine import Engine
 from repro_torch.core.network import CompiledNetwork, NetState
+from repro_torch.obs import watch as wat
+from repro_torch.obs.metrics import us_per_tick
 from repro_torch.telemetry import monitors as tel
 
 __all__ = ["Session", "SessionMonitors"]
@@ -72,9 +81,11 @@ class SessionMonitors:
         flush}``. O(N) per flush, whatever the ticks elapsed."""
         if self.carry is None:
             raise RuntimeError("flush() before any chunk has run")
-        values, self.carry = tel.flush_carry(self.static, self.carry)
-        values["n_ticks"] = self.ticks_since_flush
-        self.ticks_since_flush = 0
+        with obs.span("flush", scope="session"):
+            values, self.carry = tel.flush_carry(self.static, self.carry)
+            values["n_ticks"] = self.ticks_since_flush
+            self.ticks_since_flush = 0
+        obs.inc("repro_serve_flushes_total", rung="solo")
         return values
 
 
@@ -87,7 +98,7 @@ class Session:
     ``gen_key`` is the base of the generator stream (an int32 ``[2]`` key,
     as :mod:`repro_torch.core.rng` makes); ``monitors`` its
     :class:`SessionMonitors` (None without monitors). Drain telemetry with
-    :meth:`flush`.
+    :meth:`flush`, watches with :meth:`check_watches`.
     """
 
     engine: Engine
@@ -95,6 +106,10 @@ class Session:
     state: NetState
     monitors: SessionMonitors | None = None
     ticks: int = 0  # ticks served so far (the state's t)
+    # The raw watch accumulators of a net compiled with watches, threaded
+    # through every run() and drained by check_watches(); None until the
+    # first chunk runs.
+    watch_carry: tuple | None = None
 
     @classmethod
     def create(cls, net: CompiledNetwork | Engine, *, seed: int = 0,
@@ -143,16 +158,37 @@ class Session:
                     "cannot record='monitors'")
             kw["tel_carry"] = self.monitors.chunk_carry(n_ticks)
             kw["return_tel_carry"] = True
-        self.state, out = self.engine.run(n_ticks, state=self.state, record=record,
-                                          gen_base=self.gen_key, **kw)
+        want_watch = bool(self.engine.net.static.watches)
+        if want_watch and self.watch_carry is not None:
+            kw["watch_carry"] = self.watch_carry
+        with obs.span("step_chunk", scope="session", n_ticks=n_ticks, record=record) as sp:
+            self.state, out = self.engine.run(n_ticks, state=self.state, record=record,
+                                              gen_base=self.gen_key, **kw)
+        if sp is not None:
+            obs.observe("repro_serve_chunk_latency_ms", sp.dur_s * 1e3, scope="session",
+                        rung="solo")
+            obs.observe("repro_serve_us_per_tick", us_per_tick(sp.dur_s, n_ticks),
+                        scope="session", rung="solo")
         if want_mon:
             self.monitors.absorb(out.pop("tel_carry"), n_ticks)
+        if want_watch:
+            self.watch_carry = out.pop("watch_carry")
         self.ticks += n_ticks
         return out
 
     def check_watches(self) -> list:
-        raise NotImplementedError("Session.check_watches: in-run watchpoints are not "
-                                  "ported to repro_torch yet (ROADMAP A10)")
+        """Drain the session's watch accumulators: returns every verdict
+        (tripped or not) and publishes the tripped ones to the obs plane
+        (``watch_trip`` events and counters, ``rung="solo"``); the drained
+        window restarts. An empty list until a chunk has run."""
+        if not self.engine.net.static.watches:
+            raise ValueError("network compiled without watches — pass watches=... "
+                             "(e.g. 'default') to compile()")
+        if self.watch_carry is None:
+            return []
+        verdicts, self.watch_carry = wat.drain(self.engine.net.static, self.watch_carry)
+        wat.alert(verdicts, rung="solo")
+        return verdicts
 
     def flush(self) -> dict:
         """Shorthand for ``self.monitors.flush()``."""

@@ -29,7 +29,9 @@ one-lane launchers, B4 (``FusedTickRun``), B5 (``StdpGatherRun``), B6
 against ``ref.drive_run_ref`` at fan-ins up to 33,000) over lanes the
 same way, ``NeuronRun``'s per-lane spike counts, and static, plastic
 (with homeostasis) and fused ``run_batch`` lanes against solo card
-runs."""
+runs; and the in-run monitor and watch slots of B1 and B4 against their
+plain versions (NaN, inf, silent and fp16-overflow lanes for the watches),
+and watched runs on the card against the CPU port."""
 import math
 
 import numpy as np
@@ -1617,3 +1619,197 @@ def test_monitored_runs_card_equal_cpu(card, propagation, backend):
                       record="monitors")
         for name in ("spike_count", "group_rate"):
             assert torch.equal(solo["telemetry"][name], batch["telemetry"][name][b]), name
+
+
+def _same_bits(a, b):
+    """Equal bit for bit, NaNs in the same places included."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan = a.isnan()
+    return torch.equal(nan, b.isnan()) and torch.equal(a[~nan], b[~nan])
+
+
+def _watch_slots(g, lead, n, device):
+    """Random watch slots: a RateBand count, a Silent's {last, gap, flags}
+    words and a NonFinite's {ticks, 0, flags} words (flags clear)."""
+    count = torch.randint(0, 50, (*lead, n), generator=g, dtype=torch.int32)
+    zero = torch.zeros(lead, dtype=torch.int32)
+    silent = torch.stack([-1 - torch.randint(0, 30, lead, generator=g, dtype=torch.int32),
+                          torch.randint(0, 60, lead, generator=g, dtype=torch.int32),
+                          zero, zero], -1)
+    bad = torch.stack([torch.randint(0, 5, lead, generator=g, dtype=torch.int32),
+                       zero, zero, zero], -1)
+    return [x.to(torch.int32).contiguous().to(device) for x in (count, silent, bad)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("substeps", [2, 1])
+@pytest.mark.parametrize("lanes", [None, 64], ids=["one-lane", "64-lanes"])
+@pytest.mark.parametrize("policy", ["fp16", "fp32"])
+def test_neuron_run_watch_slots_match_plain(card, policy, lanes, substeps):
+    """B1 with the in-run watch slots (a RateBand's count, a Silent's and a
+    NonFinite's words) over 12 chained Synfire4 ticks on random state: bit
+    for bit its plain version with the same slots, NaNs in place, with lane
+    0's membrane NaN and, over lanes, lane 1's stored as inf, lane 2 at rest
+    (it never spikes) and lane 3's ring at -65,504 (with one substep its f32
+    membrane lands finite past -65,504, which fp16 stores as -inf: counted,
+    the check is on the stored value)."""
+    from repro_torch.configs.synfire4 import SYNFIRE4, build_synfire
+    from repro_torch.core import NeuronModel
+
+    net = build_synfire(SYNFIRE4, policy=policy, propagation="sparse", device=card,
+                        budget=None)
+    static, n, ticks = net.static, net.static.n, 12
+    g = torch.Generator().manual_seed(41)
+    lead = () if lanes is None else (lanes,)
+    dtype = net.state0.neurons.v.dtype
+    v = (torch.rand((*lead, n), generator=g) * 115 - 80).to(dtype)
+    u = (torch.rand((*lead, n), generator=g) * 10 - 15).to(dtype)
+    ring = (torch.rand((*lead, *net.state0.ring.shape), generator=g) * 12).to(dtype)
+    gen = torch.rand((*lead, ticks, static.n_gen), generator=g) < 0.3
+    (v[0] if lanes else v)[-7] = float("nan")  # a neuron, not a generator
+    if lanes:
+        v[1, -20] = float("inf")
+        v[2], u[2], ring[2], gen[2] = -70.0, -14.0, 0.0, False
+        ring[3] = -65504.0
+    v, u, ring, gen = v.to(card), u.to(card), ring.to(card), gen.to(card)
+    refrac = torch.zeros((*lead, n), dtype=torch.int16, device=card)
+    slots = _watch_slots(g, lead, n, card)
+    w0 = [x.clone() for x in slots]
+    plain = [x.clone() for x in slots]
+    p = net.params.neuron
+    is_gen = p.model == NeuronModel.GENERATOR
+    cols = torch.full((n,), -1, dtype=torch.int64, device=card)
+    cols[is_gen] = torch.arange(int(is_gen.sum()), device=card)
+    t0 = tuple(100 + 7 * b for b in range(lanes)) if lanes else None
+    k_ring = ring.clone()
+    kernel = ops.NeuronRun(v, u, refrac, k_ring, is_gen, p.a, p.b, p.c, p.d, gen_spk=gen,
+                           gen_cols=cols, dt=static.dt, substeps=substeps, t0=t0,
+                           w_count=slots[0], w_silent=slots[1], w_bad=slots[2])
+    assert kernel.launcher is not None
+    pv, pu, pr, p_ring = v.clone(), u.clone(), refrac.clone(), ring.clone()
+    spikes = torch.zeros((*lead, n), device=card)
+    kw = dict(w_count=plain[0], w_silent=plain[1], w_bad=plain[2], dt=static.dt,
+              substeps=substeps)
+    ops.reset_launches()
+    for i in range(ticks):
+        if lanes:
+            kernel(i)
+            ref.neuron_lanes_ref(pv, pu, pr, p_ring, [(t + i) % static.ring_len for t in t0],
+                                 is_gen, p.a, p.b, p.c, p.d, cols, spikes, gen_rows=gen[:, i],
+                                 step=i, **kw)
+        else:
+            kernel(i, 100 + i)
+            ref.neuron_run_ref(pv, pu, pr, p_ring, (100 + i) % static.ring_len, is_gen, p.a,
+                               p.b, p.c, p.d, cols, spikes, gen_row=gen[i], step=i, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["izh4_update"] == ticks
+    for a, b in zip((kernel.v, kernel.u, kernel.refrac, k_ring, *slots),
+                    (pv, pu, pr, p_ring, *plain)):
+        assert _same_bits(a, b)
+    bad = (slots[2] - w0[2])[..., 0].reshape(-1)  # the ticks folded: all but the last
+    assert int(bad[0]) >= ticks - 2
+    if lanes:
+        assert int(bad[1]) > 0 and torch.equal(slots[1][2], w0[1][2])  # lane 2 never spiked
+        assert int(bad[3]) > 0 if (substeps == 1 and policy == "fp16") else int(bad[3]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [None, 64], ids=["one-lane", "64-lanes"])
+@pytest.mark.parametrize("propagation", ["packed", "sparse"])
+def test_fused_tick_watch_slots_match_plain(card, propagation, lanes):
+    """B4 with the in-run watch slots over 12 ticks of Synfire4 fp16 (random
+    state, lane 0's membrane NaN and, over lanes, lane 1's stored as inf
+    and lane 2 at rest with no input): bit for bit its plain version with
+    the same slots, still one launch a tick."""
+    from repro_torch.configs.synfire4 import SYNFIRE4, build_synfire
+    from repro_torch.core import backend as be
+    from repro_torch.core.neurons import NeuronModel
+    from repro_torch.kernels.fused_tick import assemble_kernel
+
+    net = build_synfire(SYNFIRE4, policy="fp16", propagation=propagation, device=card,
+                        backend="fused", budget=None)
+    g = torch.Generator().manual_seed(43)
+    ticks, n = 12, net.static.n
+    lead = () if lanes is None else (lanes,)
+    payload = assemble_kernel(net.static, net.params,
+                              be.assemble_packed(net.static, net.state0.weights))
+    dtype = net.state0.neurons.v.dtype
+    v = (torch.rand((*lead, n), generator=g) * 100 - 75).to(dtype)
+    u = (torch.rand((*lead, n), generator=g) * 10 - 15).to(dtype)
+    ring = (torch.rand((*lead, net.static.ring_len, n), generator=g) * 10).to(dtype)
+    rows = torch.rand((*lead, ticks, n), generator=g) < 0.2
+    (v[0] if lanes else v)[-7] = float("nan")  # a neuron, not a generator
+    if lanes:
+        v[1, -20] = float("inf")
+        v[2], u[2], ring[2], rows[2] = -70.0, -14.0, 0.0, False
+    v, u, ring, rows = v.to(card), u.to(card), ring.to(card), rows.to(card)
+    slots = _watch_slots(g, lead, n, card)
+    t0 = tuple(100 + 7 * b for b in range(lanes)) if lanes else None
+    p = net.params.neuron
+    is_gen = p.model == NeuronModel.GENERATOR
+    state = [x.clone() for x in (v, u, ring, rows, *slots)]
+    plain = [x.clone() for x in state]
+    runs = ops.FusedTickRun(payload, *state[:3], is_gen, p.a, p.b, p.c, p.d, state[3], t0=t0,
+                            w_count=state[4], w_silent=state[5], w_bad=state[6])
+    assert runs.launcher is not None
+    ops.reset_launches()
+    kw = dict(dense=payload.dense, csr=payload.csr, ring_len=net.static.ring_len,
+              w_count=plain[4], w_silent=plain[5], w_bad=plain[6])
+    for i in range(ticks):
+        pv, pu, pring, prows = plain[:4]
+        if lanes is None:
+            runs.tick(i, 100 + i)
+            v2, u2, spikes, ring2, _ = ref.fused_tick_ref(
+                pv, pu, pring, prows[i], is_gen, p.a, p.b, p.c, p.d, 100 + i, step=i, **kw)
+        else:
+            runs.tick(i)
+            v2, u2, spikes, ring2, _ = ref.fused_tick_lanes_ref(
+                pv, pu, pring, prows[:, i], is_gen, p.a, p.b, p.c, p.d,
+                [t + i for t in t0], step=i, **kw)
+        pv.copy_(v2)
+        pu.copy_(u2)
+        pring.copy_(ring2)
+        prows[..., i, :] = spikes
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fused_tick"] == ticks
+    for x, y in zip(state, plain):
+        assert _same_bits(x, y)
+    bad = (state[6] - slots[2])[..., 0].reshape(-1)  # the ticks folded: all but the last
+    assert int(bad[0]) >= ticks - 2
+    if lanes:
+        assert int(bad[1]) > 0 and torch.equal(state[5][2], slots[1][2])  # lane 2 never spiked
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", [None, "fused"], ids=["default", "fused"])
+@pytest.mark.parametrize("propagation", ["packed", "sparse"])
+def test_watched_runs_card_equal_cpu(card, propagation, backend):
+    """Synfire4-mini fp16 with the default watches (300 ticks): the card's
+    watch carry equals the CPU port's bit for bit, its raster and state the
+    unwatched card run's, and ``run_batch(300, 4)``'s carries each lane's
+    solo run's."""
+    from repro_torch.configs.synfire4 import SYNFIRE4_MINI, build_synfire
+    from repro_torch.core import rng
+    from repro_torch.core.engine import run, run_batch
+
+    nets = [build_synfire(SYNFIRE4_MINI, policy="fp16", propagation=propagation,
+                          backend=backend, device=dev, watches=w)
+            for dev, w in ((card, "default"), ("cpu", "default"), (card, None))]
+    outs = [run(net.static, net.params, net.state0, 300) for net in nets]
+    for x, y in zip(outs[0][1]["watch_carry"], outs[1][1]["watch_carry"]):
+        for a, b in zip(x, y):
+            assert torch.equal(a.cpu(), b)
+    assert torch.equal(outs[0][1]["spikes"], outs[2][1]["spikes"])
+    assert torch.equal(outs[0][0].neurons.v, outs[2][0].neurons.v)
+    net = nets[0]
+    _, batch = run_batch(net.static, net.params, net.state0, 300, 4, record="none")
+    keys = rng.split(net.state0.key, 4)
+    for b in (0, 3):
+        _, solo = run(net.static, net.params, net.state0._replace(key=keys[b]), 300,
+                      record="none")
+        for x, y in zip(solo["watch_carry"], batch["watch_carry"]):
+            for a, c in zip(x, y):
+                assert torch.equal(a, c[b])

@@ -13,6 +13,7 @@ import jax  # noqa: E402
 
 from repro.configs import synfire4 as rsyn  # noqa: E402
 from repro.core import network as rnet  # noqa: E402
+from repro.obs import watch as rwatch  # noqa: E402
 from repro.telemetry import monitors as rtel  # noqa: E402
 from repro_torch.configs import synfire4 as tsyn  # noqa: E402
 from repro_torch.core import COBAConfig, NetworkBuilder, izh4  # noqa: E402
@@ -184,15 +185,15 @@ class TestUnportedFeaturesRaise:
         assert c.static.buckets == ()
         assert c.params.proj_csr_idx[0].shape == (10, spec.fanin)
 
-    # The loop oracle (ROADMAP A5), conductances (A7, COBA) and in-run
-    # monitors (A6) are ported: their cases (error None) now compile, the
-    # monitors resolved as the reference resolves its default; the ids keep
-    # the cases' names.
+    # The loop oracle (ROADMAP A5), conductances (A7, COBA), in-run
+    # monitors (A6) and watches (A10) are ported: their cases (error None)
+    # now compile, the monitors and watches resolved as the reference
+    # resolves its defaults; the ids keep the cases' names.
     @pytest.mark.parametrize("kw,item,error", [
         pytest.param({"propagation": "loop"}, "loop", None, id="kw0-A5"),
         pytest.param({"conductances": COBAConfig()}, "coba", None, id="kw1-A7"),
         pytest.param({"monitors": "default"}, "A6", None, id="kw2-A6"),
-        pytest.param({"watches": "default"}, "A10", NotImplementedError, id="kw3-A10"),
+        pytest.param({"watches": "default"}, "A10", None, id="kw3-A10"),
         pytest.param({"partition": object()}, "A11", NotImplementedError, id="kw4-A11"),
         # Ported with A7: a period without a homeostasis config is the
         # reference's ValueError.
@@ -209,6 +210,13 @@ class TestUnportedFeaturesRaise:
                     == [(type(m).__name__, dataclasses.asdict(m))
                         for m in rtel.resolve("default", n=10, n_projections=0)]
                 assert c.ledger.name_bytes()["monitor.telemetry"] == 8 * 10
+            elif item == "A10":  # in-run watches, ported with A10
+                assert [(type(w).__name__, dataclasses.asdict(w)) for w in c.static.watches] \
+                    == [(type(w).__name__, dataclasses.asdict(w))
+                        for w in rwatch.resolve("default", n=10, n_projections=0)]
+                assert c.ledger.name_bytes()["monitor.watch"] == 8 + 4 * 10 + 4 + 8
+                with pytest.raises(ValueError, match="partitioned"):
+                    self._net().compile(device="cpu", watches="default", partition=object())
             else:
                 assert c.static.ring_channels == 2 and c.static.coba == kw["conductances"]
                 assert tuple(c.state0.ring.shape[1:]) == (10, 2)

@@ -257,15 +257,40 @@ class TestErrors:
                                          ({"return_tel_carry": True}, "A6"),
                                          ({"watch_carry": ()}, "A10")])
     def test_unported_carries_raise(self, kw, item):
-        """Watchpoints (A10) still raise. The telemetry carries are ported
-        (A6): ``tel_carry`` resumes a run's monitors, so two runs of 50
-        ticks on ``gen_base`` fed each other's carry equal one of 100, as
-        in the reference; ``return_tel_carry`` without monitors is the
-        reference's ValueError."""
+        """The telemetry carries are ported (A6): ``tel_carry`` resumes a
+        run's monitors, so two runs of 50 ticks on ``gen_base`` fed each
+        other's carry equal one of 100, as in the reference;
+        ``return_tel_carry`` without monitors is the reference's ValueError.
+        So is ``watch_carry`` (A10): a net without watches ignores it, as
+        the reference's run does, and on a net with watches two runs of 50
+        fed each other's carry give one run's of 100, and the reference's
+        carry."""
         net = self._net()
         if item == "A10":
-            with pytest.raises(NotImplementedError, match=item):
-                run(net.static, net.params, net.state0, 10, **kw)
+            key = rng.key(5)
+            _, bare = run(net.static, net.params, net.state0, 10, gen_base=key)
+            _, ignored = run(net.static, net.params, net.state0, 10, gen_base=key, **kw)
+            assert ignored.keys() == bare.keys() == {"spikes"}
+            assert torch.equal(ignored["spikes"], bare["spikes"])
+            watched = tsyn.build_synfire(tsyn.SYNFIRE4_MINI, policy="fp16",
+                                         propagation="sparse", device="cpu",
+                                         watches="default")
+            _, whole = run(watched.static, watched.params, watched.state0, 100,
+                           gen_base=key, record="none")
+            mid, first = run(watched.static, watched.params, watched.state0, 50,
+                             gen_base=key, record="none")
+            _, second = run(watched.static, watched.params, mid, 50, gen_base=key,
+                            record="none", watch_carry=first["watch_carry"])
+            rwatched = rsyn.build_synfire(rsyn.SYNFIRE4_MINI, policy="fp16",
+                                          propagation="sparse", monitors=None,
+                                          watches="default")
+            _, rwhole = ref_run(rwatched.static, rwatched.params, rwatched.state0, 100,
+                                gen_base=jax.random.key(5), record="none")
+            for got, one, want in zip(second["watch_carry"], whole["watch_carry"],
+                                      rwhole["watch_carry"]):
+                for x, y, z in zip(got, one, want):
+                    assert torch.equal(x, y)
+                    np.testing.assert_array_equal(x.numpy(), np.asarray(z))
             return
         if "return_tel_carry" in kw:
             with pytest.raises(ValueError, match="return_tel_carry requires"):

@@ -148,12 +148,14 @@ class TestSession:
             assert_same_state(as_np_state(tsess.state), rstate)
 
     def test_unported_modes_raise(self):
-        """Watchpoints (A10) still raise. The monitor modes are ported (A6):
-        the reference's default ``record="monitors"`` and ``"both"`` keep
-        the session's telemetry, and every flush equals the reference
-        session's (spike counts bit for bit; filter levels bit for bit
-        against its chunks compiled at opt level 0); a session without
-        monitors cannot flush."""
+        """The monitor modes are ported (A6): the reference's default
+        ``record="monitors"`` and ``"both"`` keep the session's telemetry,
+        and every flush equals the reference session's (spike counts bit for
+        bit; filter levels bit for bit against its chunks compiled at opt
+        level 0); a session without monitors cannot flush. Watchpoints are
+        ported (A10): over a net without watches ``check_watches`` is the
+        reference's ValueError, and over one with them it drains the
+        session's carry."""
         rnet = mini(ref=True, monitors="default")
         key = jax.random.key(5)
         chunk = ref_run.lower(rnet.static, rnet.params, rnet.state0, 40, gen_base=key,
@@ -173,8 +175,14 @@ class TestSession:
             assert got.keys() == want.keys() and got["n_ticks"] == 40
             for name in ("spike_count", "group_rate"):
                 np.testing.assert_array_equal(got[name], np.asarray(want[name]), name)
-        with pytest.raises(NotImplementedError, match="A10"):
+        with pytest.raises(ValueError, match="without watches"):
             sess.check_watches()
+        watched = Session.create(mini(watches="default"), seed=5)
+        assert watched.check_watches() == []
+        watched.run(40)
+        verdicts = watched.check_watches()
+        assert [v.watch for v in verdicts] == ["nonfinite", "rate_band", "silent"]
+        assert int(watched.watch_carry[1][1]) == 0  # the drained window restarts
         bare = Session.create(mini(), monitors=False)
         with pytest.raises(ValueError, match="monitors"):
             bare.flush()
@@ -461,8 +469,11 @@ class TestLaneScheduler:
 
     def test_unported_options_raise(self):
         """The reference's default, ``record="monitors"``, is ported (A6):
-        its flushes equal solo sessions'; mesh (A11), the flight recorder,
-        watchpoints and quarantine (A10) still raise."""
+        its flushes equal solo sessions'; mesh (A11) still raises. The
+        flight recorder, watchpoints and quarantine are ported (A10): a
+        flight window keeps the last chunk boundaries, ``check_watches``
+        over a net without watches is the reference's ValueError, and
+        ``quarantine`` frees the lane with its evidence."""
         net = mini()
         sched = LaneScheduler(net, capacity=2)
         assert sched.record == "monitors"
@@ -477,8 +488,11 @@ class TestLaneScheduler:
             LaneScheduler(mini(monitors=None), capacity=2)
         with pytest.raises(NotImplementedError, match="A11"):
             LaneScheduler(net, capacity=2, record="none", mesh=object())
-        with pytest.raises(NotImplementedError, match="A10"):
-            LaneScheduler(net, capacity=2, record="none", flight_window=3)
+        recorder = LaneScheduler(net, capacity=2, record="none", flight_window=3)
+        recorder.admit("f", seed=3)
+        for _ in range(4):
+            recorder.step(10)
+        assert [s.ticks for s in recorder.flight("f")] == [20, 30, 40]
         with pytest.raises(ValueError, match="raster"):
             LaneScheduler(net, capacity=2, record="raster")
         with pytest.raises(ValueError, match="capacity"):
@@ -487,7 +501,8 @@ class TestLaneScheduler:
         sched.admit("a", seed=0)
         with pytest.raises(ValueError, match="record='none'"):
             sched.flush("a")
-        with pytest.raises(NotImplementedError, match="A10"):
+        with pytest.raises(ValueError, match="without watches"):
             sched.check_watches()
-        with pytest.raises(NotImplementedError, match="A10"):
-            sched.quarantine("a")
+        q = sched.quarantine("a")
+        assert q.session_id == "a" and q.verdicts == () and q.recording == ()
+        assert sched.session_ids == [] and q.snapshot.ticks == 0

@@ -205,13 +205,19 @@ class TestPoolRouting:
         _assert_state_eq(pool2.evict("mig").state, solo.state)
 
     def test_unported_parts_raise(self):
+        """Mesh (A11) still raises. The watch surface is ported (A10): a
+        pool over nets without watches has nothing to check (its ladder
+        raises the reference's ValueError), no flight window by default,
+        and quarantines a tenant with its snapshot."""
         net = _mini("fp32", "packed")
         pool = ServePool()
         pool.admit(net, "x")
-        for call in (pool.check_watches, lambda: pool.quarantine("x"),
-                     lambda: pool.flight("x"), pool.ladder_of("x").check_watches):
-            with pytest.raises(NotImplementedError, match="A10"):
-                call()
+        assert pool.check_watches() == {}
+        with pytest.raises(ValueError, match="without watches"):
+            pool.ladder_of("x").check_watches()
+        assert pool.flight("x") == ()
+        q = pool.quarantine("x")
+        assert q.session_id == "x" and "x" not in pool.session_ids
         with pytest.raises(NotImplementedError, match="A11"):
             ServePool(mesh=object())
         with pytest.raises(NotImplementedError, match="A11"):
