@@ -198,6 +198,32 @@ Phases (each raises, and the script exits non-zero, on any failure):
    turns, the compile and cache-hit counts of a first and a second
    scheduler step (printed), the Prometheus text's size and
    ``health_snapshot``'s status (the mini pass on the M33, Synfire4 fail).
+11. Partitioning (after phase 10, in a process of its own too:
+   ``chip_smoke.py --partition-json PATH``): (a) Synfire4 fp32 packed,
+   fp16 auto, fp32 packed on ``backend="fused"``, plastic fp32 sparse and
+   plastic fp16 packed, each unpartitioned and cut at ``n_cores=2`` and at
+   a byte budget (300,000 B static, 1,000,000 B plastic), sequential
+   lowering, 1,000 ticks: raster, neuron state, ring, weights and traces
+   equal to the unpartitioned card run's and the CPU port's partitioned
+   run's bit for bit, launches per tick as the plan says, device events
+   per tick; (b) every core's launchers (``NeuronRun``, ``GatherRun``,
+   ``MatmulRun`` and, on the plastic owner core, ``DriveRun``,
+   ``StdpGatherRun``/``StdpUpdateRun``) against their plain versions over
+   12 chained ticks, the 50-post core of the plastic cut among them; (c)
+   Synfire4x100 fp16 sparse under ``PartitionSpec()`` (the MCU budget per
+   core), 200 ticks: raster and state equal to the unpartitioned x100
+   card run's, every core's ledger within 8.477 MB, ``health_snapshot``'s
+   per-core checks passing; cores, largest core, exchange bytes per tick,
+   us/tick of both, device events and launches per tick, peak memory; (d)
+   the mesh lowering at 4 cores on ``core_mesh(devices=[card] * 4)`` and
+   on ``core_mesh()`` (every visible card), fp32 sparse and fp16 packed,
+   1,000 ticks, equal to the unpartitioned run, us/tick beside the
+   sequential lowering; (e) ``LaneScheduler(mesh=lane_mesh(devices=[card]
+   * 4))``: 8 lanes of the plastic mini at 60 Hz, two 50-tick chunks, and
+   64 lanes of Synfire4 fp16 sparse, 10 chunks of 100 ticks, states and
+   flushes equal to the unsharded scheduler's; (f) ``ShardedSNN`` (1,024
+   neurons, fan-in 32) at mesh sizes 1 and 4, 300 ticks, equal to the CPU
+   port's.
 6. LM serving on the dense decoder (``repro_torch.launch.serve``): (a) the
    attention kernel ``flash_attention`` against its plain version on the
    card, at rtol = atol = 1e-5, at smollm-360m's prefill and decode shapes,
@@ -4792,6 +4818,540 @@ def _obs_main(out: str) -> int:
     return 0
 
 
+# -- partitioning (phase 11) -----------------------------------------------------------
+
+PART_TICKS = 1000
+PART_CELLS = (  # (name, policy, propagation, backend, plastic)
+    ("fp32/packed", "fp32", "packed", None, False),
+    ("fp16/auto", "fp16", "auto", None, False),
+    ("fp32/packed/fused", "fp32", "packed", "fused", False),
+    ("plastic/fp32/sparse", "fp32", "sparse", None, True),
+    ("plastic/fp16/packed", "fp16", "packed", None, True),
+)
+PART_X100_TICKS = 200
+PART_TWIN_TICKS = 12  # chained ticks per per-core launcher case: ring slots wrap past L = 11
+PART_CHUNKS = 10  # 100-tick chunks of the 64-lane sharded scheduler
+SNN_TICKS = 300
+
+
+def _part_launches(plan, ticks: int) -> dict:
+    """The launches a partitioned run of ``ticks`` ticks makes: per core and
+    tick, one ``izh4_update``, one ``syn_matmul`` per dense bucket, one
+    ``syn_gather`` where the core has a sparse bucket, one ``plastic_drive``
+    where it owns a plastic projection, one ``stdp_gather`` and one
+    ``stdp_update`` where it owns CSR or dense pair-STDP projections."""
+    from repro_torch.kernels import ops
+
+    per = {k: 0 for k in ops.LAUNCHES}
+    for cp in plan.cores:
+        cs = cp.static
+        kinds = [b.kind for b in cs.buckets]
+        pair = [j for j, c in enumerate(cs.stdp) if c is not None and c.tau_elig is None]
+        per["izh4_update"] += 1
+        per["syn_matmul"] += kinds.count("dense")
+        per["syn_gather"] += int("sparse" in kinds)
+        per["plastic_drive"] += int(any(s.plastic or s.stp is not None
+                                        for s in cs.projections))
+        per["stdp_gather"] += int(any(j in cs.csr_projs for j in pair))
+        per["stdp_update"] += int(any(j not in cs.csr_projs for j in pair))
+    return {k: v * ticks for k, v in per.items()}
+
+
+def _engine_run(net, ticks: int, dev, warm: int = 20, **kw):
+    """``Engine(net).run(ticks)`` from state0 on the default generator
+    stream; on the card warmed up first and timed, the launch counts reset
+    just before and read just after. Returns (final, raster or None,
+    launches or None, seconds)."""
+    from repro_torch.core.engine import Engine
+    from repro_torch.kernels import ops
+
+    card = dev.type == "cuda"
+    if card and warm:
+        Engine(net).run(warm, **kw)
+        torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    final, out = Engine(net).run(ticks, **kw)
+    if card:
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return (final, out["spikes"].cpu() if "spikes" in out else None,
+            dict(ops.LAUNCHES) if card else None, seconds)
+
+
+def _all_projections(net) -> range:
+    return range(len(net.static.projections))
+
+
+def _part_specs(plastic: bool):
+    """Phase 11a's two cuts of a cell: two cores, and a byte budget
+    (300,000 B static, 1,000,000 B plastic: the STDP cluster's span)."""
+    from repro_torch.core.partition import PartitionSpec
+
+    budget = 1_000_000 if plastic else 300_000
+    return (("n_cores=2", PartitionSpec(n_cores=2)),
+            (f"budget={budget}", PartitionSpec(core_budget_bytes=budget)))
+
+
+def _part_kw(policy, propagation, backend, plastic) -> dict:
+    from repro_torch.configs.synfire4 import CHAIN_STDP
+
+    return dict(policy=policy, propagation=propagation, backend=backend,
+                stdp_chain=CHAIN_STDP if plastic else None)
+
+
+def _part_cpu_run(kw: dict, spec) -> tuple:
+    """The CPU port's partitioned run of a phase 11a cut (a worker process
+    of its own, one PyTorch thread): (raster, final state)."""
+    from repro_torch.configs.synfire4 import SYNFIRE4, build_synfire
+    from repro_torch.core.engine import Engine
+
+    torch.set_num_threads(1)
+    net = build_synfire(SYNFIRE4, device="cpu", partition=spec, **kw)
+    final, out = Engine(net).run(PART_TICKS)
+    return out["spikes"], final
+
+
+def _part_cell(name, policy, propagation, backend, plastic, dev, totals, cpu_runs) -> dict:
+    """Phase 11a: one Synfire4 cell unpartitioned on the card, then cut at
+    ``n_cores=2`` and at a byte budget (300,000 B static, 1,000,000 B
+    plastic), sequential lowering, 1,000 ticks each: raster, neuron state,
+    ring, weights and traces equal the unpartitioned card run's and the
+    CPU port's partitioned run's (``cpu_runs[label]``, futures of worker
+    processes that run beside the card) bit for bit; launches per tick as
+    the plan says; device events per tick."""
+    from repro_torch.configs.synfire4 import SYNFIRE4, build_synfire
+    from repro_torch.core.engine import Engine
+
+    kw = _part_kw(policy, propagation, backend, plastic)
+    base = build_synfire(SYNFIRE4, device=dev, **kw)
+    f0, r0, _, s0 = _engine_run(base, PART_TICKS, dev)
+    out = {"unpartitioned_us_per_tick": s0 / PART_TICKS * 1e6, "spikes": int(r0.sum())}
+    for label, spec in _part_specs(plastic):
+        net = build_synfire(SYNFIRE4, device=dev, partition=spec, **kw)
+        plan = net.partition
+        f1, r1, launches, s1 = _engine_run(net, PART_TICKS, dev)
+        want = _part_launches(plan, PART_TICKS)
+        require(launches == want, f"partition {name} {label}: launches {launches} != {want}")
+        _add(totals, launches)
+        what = f"partition {name} {label}"
+        _require_same_raster(r1, r0, f"{what} vs the unpartitioned card run")
+        _require_same_state(f1, f0, f"{what} vs unpartitioned", plastic=_all_projections(net))
+        raster2, f2 = cpu_runs[label].result(timeout=300)
+        _require_same_raster(r1, raster2, f"{what} card vs CPU port")
+        _require_same_state(f1, f2, f"{what} card vs CPU port", plastic=_all_projections(net))
+        events = len(_cuda_events(lambda: Engine(net).run(20), 1)) / 20
+        out[label] = {
+            "cores": [(c.lo, c.hi) for c in plan.cores],
+            "core_bytes": [c.bytes_total for c in plan.cores],
+            "exchange_bytes_per_tick": plan.exchange.bytes_per_tick,
+            "us_per_tick": s1 / PART_TICKS * 1e6,
+            "launches_per_tick": {k: v / PART_TICKS for k, v in launches.items() if v},
+            "device_events_per_tick": events}
+        log(f"[partition] {name} {label}: cores {out[label]['cores']}, exchange "
+            f"{plan.exchange.bytes_per_tick} B/tick, {s1 / PART_TICKS * 1e6:.1f} us/tick "
+            f"(unpartitioned {s0 / PART_TICKS * 1e6:.1f}), launches/tick "
+            f"{out[label]['launches_per_tick']}, device events/tick {events:.2f}; raster and "
+            f"state == unpartitioned card run == CPU port")
+    return out
+
+
+def _core_twins(net_card, net_cpu, what: str) -> dict:
+    """Phase 11b: every core's launchers on the card against their plain
+    versions over PART_TWIN_TICKS chained ticks: the card's cores and the
+    CPU port's, each set driven tick by tick; after phase A each core's
+    ``NeuronRun`` (spikes, v, u, refrac, ring), after phase B its
+    ``GatherRun`` rows, its ring (``MatmulRun`` and the commits), its
+    ``DriveRun`` accumulators and, on the owner core, its
+    ``StdpGatherRun``/``StdpUpdateRun`` weights and traces, bit for bit.
+    Each card launcher must be a kernel launcher."""
+    from repro_torch.core import partition as part
+
+    sets = []
+    for net in (net_card, net_cpu):
+        plan = net.partition
+        sets.append(part._sequential_cores(net.static, plan, plan.run_params, net.state0,
+                                           PART_TWIN_TICKS, True)[2])
+    card, cpu = sets
+    require(all(c.neuron_run.launcher is None for c in cpu),
+            f"{what}: the CPU twin's cores must run the plain versions")
+    held = {}
+    for c in card:
+        kinds = [b.kind for b in c.cs.buckets]
+        names = ["NeuronRun"] + (["GatherRun"] if "sparse" in kinds else []) + (
+            ["MatmulRun"] if "dense" in kinds else []) + (
+            ["DriveRun"] if c.drive is not None else []) + [
+            type(r).__name__ for r in c.stdp_runs]
+        require(c.neuron_run is not None and c.neuron_run.launcher is not None,
+                f"{what}: core {c.cp.index} has no izh4_update launcher")
+        require("sparse" not in kinds or c.gather.launcher is not None,
+                f"{what}: core {c.cp.index} has no syn_gather launcher")
+        require(c.drive is None or c.drive.run.launcher is not None,
+                f"{what}: core {c.cp.index} has no plastic_drive launcher")
+        require(all(r.launcher is not None for r in c.stdp_runs),
+                f"{what}: core {c.cp.index} has a plain STDP launcher")
+        held[f"core{c.cp.index} [{c.cp.lo}, {c.cp.hi})"] = {
+            "launchers": names, "n_ext": c.cp.n_ext,
+            "gather_idx": str(c.gather.plan.idx_dtype) if "sparse" in kinds else None}
+
+    def same(a, b, label):
+        a, b = a.cpu(), b.cpu()
+        require(a.dtype == b.dtype and torch.equal(a, b),
+                f"{what}: {label} differs from the plain version, max abs err "
+                f"{max_err(a.float(), b.float())}")
+
+    for i in range(PART_TWIN_TICKS):
+        for cores in sets:
+            for c in cores:
+                c.phase_a(i, i)
+        for a, b in zip(card, cpu):
+            k = a.cp.index
+            nr_a, nr_b = a.neuron_run, b.neuron_run
+            for label, x, y in (("spikes", a.spikes, b.spikes), ("v", nr_a.v, nr_b.v),
+                                ("u", nr_a.u, nr_b.u), ("refrac", nr_a.refrac, nr_b.refrac),
+                                ("ring", a.ring, b.ring)):
+                same(x, y, f"tick {i} core {k} NeuronRun {label}")
+        for cores in sets:
+            for c in cores:
+                c.phase_b(i)
+        for a, b in zip(card, cpu):
+            k = a.cp.index
+            same(a.gather.rows, b.gather.rows, f"tick {i} core {k} GatherRun rows")
+            same(a.ring, b.ring, f"tick {i} core {k} ring (MatmulRun, commits)")
+            if a.drive is not None and a.drive.own:
+                same(a.drive._own, b.drive._own, f"tick {i} core {k} DriveRun accumulators")
+            for ra, rb in zip(a.stdp_runs, b.stdp_runs):
+                for pa, pb in zip(ra.projs, rb.projs):
+                    same(pa.w, pb.w, f"tick {i} core {k} {type(ra).__name__} weights")
+                for n in range(len(ra.projs)):
+                    for x, y in zip(ra.traces(n), rb.traces(n)):
+                        same(x, y, f"tick {i} core {k} {type(ra).__name__} traces")
+    log(f"[partition] {what}: every core's launchers == their plain versions over "
+        f"{PART_TWIN_TICKS} chained ticks: {held}")
+    return held
+
+
+def _part_x100(dev, totals) -> dict:
+    """Phase 11c: Synfire4x100 fp16 sparse under ``PartitionSpec()`` (the
+    MCU budget per core), sequential lowering, PART_X100_TICKS ticks: raster
+    and final state equal to the unpartitioned x100 card run's, every
+    core's ledger within MCU_BUDGET_BYTES, ``health_snapshot``'s per-core
+    checks passing; every core's launchers held against their plain
+    versions at these shapes (phase 11b's comparison, on a CPU copy of the
+    plan and state); the core count, largest core, exchange bytes per tick,
+    us/tick of both (steady state: a 20-tick run's time taken from a
+    220-tick run's), device events and launches per tick, peak device
+    memory."""
+    from repro_torch.configs.synfire4 import SYNFIRE4, build_synfire, scale_synfire
+    from repro_torch.core.engine import Engine
+    from repro_torch.core.partition import PartitionSpec
+    from repro_torch.memory import MCU_BUDGET_BYTES
+    from repro_torch.obs.health import health_snapshot
+
+    import dataclasses
+
+    from repro_torch.core.network import _to_device
+    from repro_torch.core.partition import plan_partition
+
+    cfg = scale_synfire(SYNFIRE4, 100)
+    kw = dict(policy="fp16", propagation="sparse", monitors=None, monitor_ms_hint=0)
+    t0 = time.perf_counter()
+    base = build_synfire(cfg, device=dev, budget=None, **kw)
+    build_s = time.perf_counter() - t0
+    # build_synfire(cfg, partition=PartitionSpec()) is this net (its global
+    # budget dropped) with the plan: one x100 build serves both runs.
+    net = dataclasses.replace(base, partition=plan_partition(base, PartitionSpec()))
+    plan_s = time.perf_counter() - t0 - build_s
+    plan = net.partition
+    require(net.n_neurons == 120_000 and plan.n_cores > 1, f"x100 plan: {plan.n_cores} cores")
+    require(all(c.bytes_total <= MCU_BUDGET_BYTES for c in plan.cores),
+            f"x100 core bytes {[c.bytes_total for c in plan.cores]} over the MCU budget")
+    rows = [c for c in health_snapshot(net)["checks"] if c["name"].startswith("core_bytes")]
+    require(len(rows) == plan.n_cores and all(c["status"] == "pass" for c in rows),
+            f"x100 health per-core checks {rows}")
+    out = {"cores": plan.n_cores, "core_ranges": [(c.lo, c.hi) for c in plan.cores],
+           "largest_core_bytes": max(c.bytes_total for c in plan.cores),
+           "exchange_bytes_per_tick": plan.exchange.bytes_per_tick,
+           "max_import_row": max(c.n_ext for c in plan.cores), "build_s": build_s,
+           "plan_s": plan_s}
+    # Phase 11b at the x100 cores' shapes: import rows up to 65,000 entries,
+    # so int32 gather indices, against the plain versions on a CPU copy of
+    # the same plan and state.
+    cpu = torch.device("cpu")
+    cpu_plan = dataclasses.replace(plan, params=_to_device(plan.params, cpu),
+                                   ext_idx=_to_device(plan.ext_idx, cpu))
+    cpu_net = dataclasses.replace(net, state0=_to_device(net.state0, cpu), partition=cpu_plan)
+    t1 = time.perf_counter()
+    out["core_launchers"] = _core_twins(net, cpu_net, "x100 PartitionSpec()")
+    out["core_launchers_s"] = time.perf_counter() - t1
+    require(any(h["gather_idx"] == str(torch.int32) for h in out["core_launchers"].values()),
+            f"x100 cores: no int32 gather index held, {out['core_launchers']}")
+    finals = {}
+    for label, n in (("partitioned", net), ("unpartitioned", base)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        final, raster, launches, seconds = _engine_run(n, PART_X100_TICKS, dev, warm=0)
+        peak = torch.cuda.max_memory_allocated(dev)
+        _add(totals, launches)
+        short = _engine_run(n, 20, dev, warm=0)[3]
+        long = _engine_run(n, 220, dev, warm=0)[3]
+        events = len(_cuda_events(lambda n=n: Engine(n).run(20), 1)) / 20
+        finals[label] = (final, raster)
+        out[label] = {"us_per_tick_with_setup": seconds / PART_X100_TICKS * 1e6,
+                      "us_per_tick": (long - short) / 200 * 1e6,
+                      "launches_per_tick": {k: v / PART_X100_TICKS
+                                            for k, v in launches.items() if v},
+                      "device_events_per_tick": events, "peak_device_bytes": peak}
+    require(out["partitioned"]["launches_per_tick"] == {
+        k: v / PART_X100_TICKS for k, v in _part_launches(plan, PART_X100_TICKS).items() if v},
+        f"x100 partitioned launches {out['partitioned']['launches_per_tick']}")
+    _require_same_raster(finals["partitioned"][1], finals["unpartitioned"][1],
+                         "x100 partitioned vs unpartitioned")
+    _require_same_state(finals["partitioned"][0], finals["unpartitioned"][0],
+                        "x100 partitioned vs unpartitioned")
+    log(f"[partition] x100 under PartitionSpec(): {plan.n_cores} cores, largest "
+        f"{out['largest_core_bytes']} B (<= {MCU_BUDGET_BYTES}), exchange "
+        f"{plan.exchange.bytes_per_tick} B/tick, import rows up to {out['max_import_row']}, "
+        f"build {build_s:.1f} s, plan {plan_s:.1f} s; us/tick {out['partitioned']['us_per_tick']:.1f} "
+        f"partitioned vs {out['unpartitioned']['us_per_tick']:.1f} unpartitioned (with "
+        f"set-up {out['partitioned']['us_per_tick_with_setup']:.1f} vs "
+        f"{out['unpartitioned']['us_per_tick_with_setup']:.1f}); device events/tick "
+        f"{out['partitioned']['device_events_per_tick']:.2f} vs "
+        f"{out['unpartitioned']['device_events_per_tick']:.2f}; launches/tick "
+        f"{out['partitioned']['launches_per_tick']}; peak device memory "
+        f"{out['partitioned']['peak_device_bytes']} vs "
+        f"{out['unpartitioned']['peak_device_bytes']} B; raster and state == unpartitioned")
+    return out
+
+
+def _part_mesh(dev, totals) -> dict:
+    """Phase 11d: the mesh lowering, Synfire4 fp32 sparse and fp16 packed,
+    1,000 ticks: 4 cores on ``core_mesh(devices=[card] * 4)`` and
+    ``core_mesh()`` (every visible card, one core each) through
+    ``Engine.run``, both equal to the unpartitioned card run bit for bit;
+    us/tick beside the sequential lowering of the same 4-core plan."""
+    from repro_torch.configs.synfire4 import SYNFIRE4, build_synfire
+    from repro_torch.core import partition as part
+    from repro_torch.core.distributed import core_mesh
+    from repro_torch.kernels import ops
+
+    out = {}
+    for policy, propagation in (("fp32", "sparse"), ("fp16", "packed")):
+        kw = dict(policy=policy, propagation=propagation)
+        base = build_synfire(SYNFIRE4, device=dev, **kw)
+        f0, r0, _, s0 = _engine_run(base, PART_TICKS, dev)
+        net = build_synfire(SYNFIRE4, device=dev, **kw,
+                            partition=part.PartitionSpec(n_cores=4, lowering="mesh"))
+        plan = net.partition
+        mesh = core_mesh(devices=[dev] * 4)
+        res = {}
+        for label, fn in (("mesh", lambda n: part.run_partitioned_mesh(
+                net.static, plan, plan.run_params, net.state0, n, mesh=mesh)),
+                          ("sequential", lambda n: part.run_partitioned(
+                              net.static, plan, plan.run_params, net.state0, n))):
+            fn(20)
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            final, o = fn(PART_TICKS)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = dict(ops.LAUNCHES)
+            require(launches == _part_launches(plan, PART_TICKS),
+                    f"{label} {policy}/{propagation} launches {launches}")
+            _add(totals, launches)
+            _require_same_raster(o["spikes"].cpu(), r0, f"{label} lowering {policy}")
+            _require_same_state(final, f0, f"{label} lowering {policy}")
+            res[f"{label}_us_per_tick"] = seconds / PART_TICKS * 1e6
+        k = torch.cuda.device_count()
+        every = build_synfire(SYNFIRE4, device=dev, **kw,
+                              partition=part.PartitionSpec(n_cores=k, lowering="mesh"))
+        f3, r3, launches, s3 = _engine_run(every, PART_TICKS, dev)
+        _add(totals, launches)
+        _require_same_raster(r3, r0, f"core_mesh() lowering {policy}")
+        _require_same_state(f3, f0, f"core_mesh() lowering {policy}")
+        res.update(unpartitioned_us_per_tick=s0 / PART_TICKS * 1e6, visible_cards=k,
+                   every_card_us_per_tick=s3 / PART_TICKS * 1e6)
+        out[f"{policy}/{propagation}"] = res
+        log(f"[partition] mesh {policy}/{propagation}: 4 cores on [card] * 4 "
+            f"{res['mesh_us_per_tick']:.1f} us/tick, sequential "
+            f"{res['sequential_us_per_tick']:.1f}, unpartitioned "
+            f"{res['unpartitioned_us_per_tick']:.1f}, core_mesh() over {k} card(s) "
+            f"{res['every_card_us_per_tick']:.1f}; every raster and state == unpartitioned")
+    return out
+
+
+def _part_lanes(dev, totals) -> dict:
+    """Phase 11e: ``LaneScheduler(mesh=lane_mesh(devices=[card] * 4))``: 8
+    lanes of plastic Synfire4-mini fp16 sparse at 60 Hz for two 50-tick
+    chunks (the reference's case), and 64 lanes of Synfire4 fp16 sparse for
+    PART_CHUNKS chunks of 100 ticks: states and flushes equal the
+    unsharded scheduler's; us per chunk of both."""
+    import dataclasses
+
+    from repro_torch.configs.synfire4 import (
+        CHAIN_STDP,
+        SYNFIRE4,
+        SYNFIRE4_MINI,
+        build_synfire,
+    )
+    from repro_torch.core.distributed import lane_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.serve import LaneScheduler
+
+    mini = build_synfire(dataclasses.replace(SYNFIRE4_MINI, stim_rate_hz=60.0), policy="fp16",
+                         propagation="sparse", stdp_chain=CHAIN_STDP, device=dev)
+    syn = build_synfire(SYNFIRE4, policy="fp16", propagation="sparse", device=dev, budget=None)
+    out = {}
+    for name, net, cap, chunks, chunk in (("plastic_mini_8", mini, 8, 2, 50),
+                                          ("synfire4_64", syn, LANES, PART_CHUNKS, 100)):
+        res, got = {}, {}
+        for label, mesh in (("sharded", lane_mesh(devices=[dev] * 4)), ("unsharded", None)):
+            s = LaneScheduler(net, cap, mesh=mesh, ledger_key=f"{name}_{label}")
+            for i in range(cap):
+                s.admit(f"t{i}")
+            ops.reset_launches()
+            times = []
+            for _ in range(chunks):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                s.step(chunk)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e6)
+            _add(totals, dict(ops.LAUNCHES))
+            got[label] = (s.states, s.flush_all())
+            res[f"{label}_us_per_chunk"] = times
+            s.close()
+        (a, fa), (b, fb) = got["sharded"], got["unsharded"]
+        require(a.t == b.t, f"{name}: lane ticks differ")
+        _require_same_state(a, b, f"sharded lanes {name}", plastic=_all_projections(net))
+        require(fa.keys() == fb.keys() and all(
+            torch.equal(torch.as_tensor(fa[k][n]), torch.as_tensor(fb[k][n]))
+            for k in fb for n in fb[k]), f"sharded lanes {name}: flushes differ")
+        out[name] = res
+        log(f"[partition] sharded lanes {name}: states and flushes == unsharded; us per chunk "
+            f"sharded {[round(x) for x in res['sharded_us_per_chunk']]} vs unsharded "
+            f"{[round(x) for x in res['unsharded_us_per_chunk']]}")
+    return out
+
+
+def _part_sharded_snn(dev) -> dict:
+    """Phase 11f: ``ShardedSNN`` (1,024 neurons, fan-in 32, delay 8, seed 3,
+    SNN_TICKS ticks) at mesh sizes 1 and 4 on the card against the CPU port
+    at the same size: per-tick counts, final v, u and ring bit for bit."""
+    from repro_torch.core.distributed import build_sharded, lane_mesh
+
+    out = {}
+    for k in (1, 4):
+        runs = {}
+        for d in (dev, torch.device("cpu")):
+            snn = build_sharded(lane_mesh(k, axis="model", devices=[d] * k), "model",
+                                n_neurons=1024, fanin=32, max_delay=8, seed=3)
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, counts = snn.run(SNN_TICKS)
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+            runs[d.type] = (st, counts.cpu(), time.perf_counter() - t0)
+        (a, ca, sa), (b, cb, _) = runs["cuda"], runs["cpu"]
+        require(torch.equal(ca, cb), f"ShardedSNN mesh {k}: per-tick counts differ")
+        for name in ("v", "u", "ring"):
+            require(torch.equal(getattr(a, name).cpu(), getattr(b, name)),
+                    f"ShardedSNN mesh {k}: {name} differs")
+        out[f"mesh{k}"] = {"spikes": int(ca.sum()), "us_per_tick": sa / SNN_TICKS * 1e6}
+        log(f"[partition] ShardedSNN mesh {k}: card == CPU port ({int(ca.sum())} spikes, "
+            f"{sa / SNN_TICKS * 1e6:.1f} us/tick on the card)")
+    return out
+
+
+def phase_partition(dev, totals: dict) -> dict:
+    """Phase 11: partitioning (A11). (a) Synfire4 cells cut at 2 cores and
+    at a byte budget equal to the unpartitioned card run and the CPU
+    port's partitioned run; (b) every core's launchers against their plain
+    versions, the 50-post core among them; (c) Synfire4x100 under the MCU
+    budget per core; (d) the mesh lowering; (e) sharded scheduler lanes;
+    (f) ``ShardedSNN``."""
+    from repro_torch.configs.synfire4 import CHAIN_STDP, SYNFIRE4, build_synfire
+    from repro_torch.core.partition import PartitionSpec
+
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    t0 = time.perf_counter()
+    paths, seconds = {}, {}
+    # The CPU port's runs of 11a in worker processes beside the card's work
+    # (the host has cores to spare; the card's loop is one thread).
+    with ProcessPoolExecutor(max_workers=5,
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu_runs = {name: {label: pool.submit(_part_cpu_run,
+                                              _part_kw(policy, propagation, backend, plastic),
+                                              spec)
+                           for label, spec in _part_specs(plastic)}
+                    for name, policy, propagation, backend, plastic in PART_CELLS}
+        for name, policy, propagation, backend, plastic in PART_CELLS:
+            paths[f"partition/synfire4/{name}"] = _part_cell(
+                name, policy, propagation, backend, plastic, dev, totals, cpu_runs[name])
+    seconds["a"] = time.perf_counter() - t0
+    twins = {}
+    for label, kw, spec in (
+            ("plastic/fp32/sparse n_cores=2", dict(policy="fp32", propagation="sparse",
+                                                   stdp_chain=CHAIN_STDP),
+             PartitionSpec(n_cores=2)),
+            ("plastic/fp16/packed n_cores=2", dict(policy="fp16", propagation="packed",
+                                                   stdp_chain=CHAIN_STDP),
+             PartitionSpec(n_cores=2)),
+            ("fp32/packed n_cores=4", dict(policy="fp32", propagation="packed"),
+             PartitionSpec(n_cores=4)),
+            ("fp16/sparse budget=300000", dict(policy="fp16", propagation="sparse"),
+             PartitionSpec(core_budget_bytes=300_000))):
+        twins[label] = _core_twins(build_synfire(SYNFIRE4, device=dev, partition=spec, **kw),
+                                   build_synfire(SYNFIRE4, device="cpu", partition=spec,
+                                                 **kw), label)
+    paths["partition/core_launchers"] = twins
+    seconds["b"] = time.perf_counter() - t0 - sum(seconds.values())
+    paths["partition/synfire4_x100/fp16/sparse"] = _part_x100(dev, totals)
+    seconds["c"] = time.perf_counter() - t0 - sum(seconds.values())
+    paths["partition/mesh"] = _part_mesh(dev, totals)
+    seconds["d"] = time.perf_counter() - t0 - sum(seconds.values())
+    paths["partition/lanes"] = _part_lanes(dev, totals)
+    seconds["e"] = time.perf_counter() - t0 - sum(seconds.values())
+    paths["partition/sharded_snn"] = _part_sharded_snn(dev)
+    seconds["f"] = time.perf_counter() - t0 - sum(seconds.values())
+    paths["partition/phase_seconds"] = seconds
+    log(f"[partition] phase 11 seconds by part: {seconds}")
+    return paths
+
+
+def phase_partition_fresh(totals: dict) -> dict:
+    """Phase 11 in a process of its own (``chip_smoke.py --partition-json
+    PATH``), as phases 8-10 are. Its paths and launch counts join this
+    run's."""
+    import tempfile
+
+    from repro_torch.kernels import ops
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "partition.json"
+        subprocess.run([sys.executable, str(Path(__file__).resolve()), "--partition-json",
+                        str(out)], check=True, timeout=600)
+        res = json.loads(out.read_text())
+    require(set(res["totals"]) == set(ops.LAUNCHES), f"phase 11 counts {res['totals']}")
+    _add(totals, res["totals"])
+    return res["paths"]
+
+
+def _partition_main(out: str) -> int:
+    """``--partition-json PATH``: phase 11 alone, written to ``PATH`` as JSON."""
+    from repro_torch.kernels import _build, ops
+
+    _build.build()
+    totals = {k: 0 for k in ops.LAUNCHES}
+    paths = phase_partition(torch.device("cuda", 0), totals)
+    Path(out).write_text(json.dumps({"paths": paths, "totals": totals}, default=str))
+    return 0
+
+
 # -- LM serving ----------------------------------------------------------------------
 
 SMOLLM = "smollm-360m"
@@ -5329,6 +5889,8 @@ def main() -> int:
         return _monitors_main(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--obs-json":
         return _obs_main(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--partition-json":
+        return _partition_main(sys.argv[2])
     from repro_torch.kernels import ops
 
     dev = torch.device("cuda", 0)
@@ -5349,6 +5911,7 @@ def main() -> int:
     paths.update(phase_lanes_fresh(rows, totals))
     paths.update(phase_monitors_fresh(rows, totals))
     paths.update(phase_obs_fresh(rows, totals))
+    paths.update(phase_partition_fresh(totals))
     lm_row, lm_paths = phase_lm(dev, totals)
     rows.append(lm_row)
     paths.update(lm_paths)

@@ -10,7 +10,7 @@ hold no leaf. So a file either package writes, the other reads. Torch
 tensors are written as numpy arrays of their dtype; the caller converts
 what the reference keeps in another type (``serve.lifecycle`` writes a
 tick as int32 and a key as its ``uint32`` words). Re-sharding
-(``reshard``) is partitioning's, ROADMAP A11.
+(``reshard``), which takes the LM mesh's shardings, is ROADMAP A12's.
 """
 from __future__ import annotations
 

@@ -135,6 +135,7 @@ def build_synfire(
     stdp_chain: STDPConfig | None = None,
     homeo_chain: HomeostasisConfig | None = None,
     homeostasis_period: int = 0,
+    partition=None,
     device: str | torch.device | None = None,
 ) -> CompiledNetwork:
     """Build the Synfire benchmark under a precision policy on ``device``
@@ -155,11 +156,19 @@ def build_synfire(
     ``SYNFIRE4_X10`` inside the 8.477 MB budget. ``homeo_chain`` with
     ``homeostasis_period`` adds CARLsim's slow-timer synaptic scaling to
     the same projections, applied every ``homeostasis_period`` ticks.
+
+    ``partition`` (a ``core.partition.PartitionSpec``) cuts the net into
+    cores; the paper's ceiling then holds per core, on each core's ledger,
+    so the default global budget is dropped (kept, it would refuse exactly
+    the nets that partitioning exists for).
     """
     net = _synfire_builder(cfg, seed=seed, stdp_chain=stdp_chain, homeo_chain=homeo_chain)
+    if partition is not None and budget == MCU_BUDGET_BYTES:
+        budget = None
     ledger = MemoryLedger(budget=budget, name=f"{cfg.name}/{policy}")
     return net.compile(policy=policy, ledger=ledger,
                        monitor_ms_hint=monitor_ms_hint, monitors=monitors,
                        watches=watches, method=method, backend=backend,
                        propagation=propagation,
-                       homeostasis_period=homeostasis_period, device=device)
+                       homeostasis_period=homeostasis_period, partition=partition,
+                       device=device)

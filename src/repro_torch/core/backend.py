@@ -122,13 +122,16 @@ def assemble_matmul(static, packed, lanes: int | None = None) -> ops.MatmulRun:
                           for b, w in zip(static.buckets, packed)], lanes)
 
 
-def assemble_gather(static, params, packed, lanes: int | None = None) -> ops.GatherRun:
+def assemble_gather(static, params, packed, lanes: int | None = None,
+                    n_pre: int | None = None) -> ops.GatherRun:
     """The run's ``syn_gather`` launcher over the sparse buckets' CSR
     tables (``params.bucket_csr_idx``, weights from ``packed``, pre ids
     composed through ``bucket_pre_ids`` where ``pre_start < 0``), with the
     whole plan's post columns (``bucket_post_ids`` where ``post_start <
     0``) deciding its launch groups; built once per run, as
-    :func:`assemble_matmul`, over ``lanes`` lanes where given."""
+    :func:`assemble_matmul`, over ``lanes`` lanes where given. ``n_pre``
+    is the spike row's length where it is not ``static.n`` (a partition
+    core's import row)."""
     buckets = []
     for bi, b in enumerate(static.buckets):
         posts = (np.arange(b.post_start, b.post_start + b.q) if b.post_start >= 0
@@ -140,7 +143,7 @@ def assemble_gather(static, params, packed, lanes: int | None = None) -> ops.Gat
             table = (pre, params.bucket_csr_idx[bi], packed[bi])
         buckets.append(Bucket(b.delay_ms, posts, table, b.channel))
     return ops.GatherRun(static.n, buckets, params.neuron.a.device, static.ring_channels,
-                         lanes)
+                         lanes, n_pre)
 
 
 class LanePropagation:
@@ -201,7 +204,8 @@ def coba_coeffs(static) -> CobaCoeffs:
 
 def assemble_neurons(static, params, neurons: nrn.NeuronState, ring: torch.Tensor, *,
                      cond=None, gen_spk=None, i_ext=None, raster=None, v_rows=None,
-                     i_rows=None, counts=None, t0=None, tel=None) -> ops.NeuronRun | None:
+                     i_rows=None, counts=None, t0=None, tel=None,
+                     spikes=None) -> ops.NeuronRun | None:
     """The run's neuron-phase launcher (an :class:`repro_torch.kernels.ops.NeuronRun`
     on copies of ``neurons`` and, for a COBA net, of its conductances
     ``cond``, and on the run's ``ring``) for IZH4-only Euler networks, None
@@ -210,7 +214,8 @@ def assemble_neurons(static, params, neurons: nrn.NeuronState, ring: torch.Tenso
     spikes side by side in ``static.gen_spans`` order; the other rows and
     ``counts`` are ``NeuronRun``'s, as is ``t0``, the lanes' first ticks of
     a run over lanes; ``tel`` its in-run monitor slots (``tel_count``,
-    ``tel_rate`` and ``rate``, a dict; None for none)."""
+    ``tel_rate`` and ``rate``, a dict; None for none); ``spikes`` the
+    buffer its spike row lands in (None: its own)."""
     if not (static.izh4_only and static.method == "euler"):
         return None
     p = params.neuron
@@ -226,7 +231,8 @@ def assemble_neurons(static, params, neurons: nrn.NeuronState, ring: torch.Tenso
                          gen_spk=gen_spk, gen_cols=cols, i_ext=i_ext, raster=raster,
                          v_rows=v_rows, i_rows=i_rows, counts=counts, cond=cond,
                          coba=None if static.coba is None else coba_coeffs(static),
-                         dt=static.dt, substeps=static.substeps, t0=t0, **(tel or {}))
+                         dt=static.dt, substeps=static.substeps, t0=t0, spikes=spikes,
+                         **(tel or {}))
 
 
 def update_neurons_dispatch(static, params, neurons: nrn.NeuronState,
@@ -271,9 +277,12 @@ class FaninRows(NamedTuple):
     rows: torch.Tensor | None
 
 
-def assemble_fanin(static, params) -> tuple[FaninRows | None, ...]:
+def assemble_fanin(static, params, n_pre: int | None = None) -> tuple[FaninRows | None, ...]:
     """Per projection, the :class:`FaninRows` of plastic and STP
-    projections (None for the others)."""
+    projections (None for the others), over a spike row of ``n_pre``
+    entries (``static.n`` when None), whose sentinel pad reads the zero
+    appended after it."""
+    n_pre = static.n if n_pre is None else n_pre
     out = []
     for j, spec in enumerate(static.projections):
         if not (spec.plastic or spec.stp is not None):
@@ -284,7 +293,7 @@ def assemble_fanin(static, params) -> tuple[FaninRows | None, ...]:
             out.append(FaninRows(pre=idx, rows=None))
             continue
         pad = idx >= spec.pre_size  # the sentinel of dense-stored tables
-        pre = torch.where(pad, static.n, idx + spec.pre_start)
+        pre = torch.where(pad, n_pre, idx + spec.pre_start)
         rows = None
         if j not in static.csr_projs:
             q = spec.post_size
@@ -305,11 +314,13 @@ class PlasticDrive:
     the reference's order (:func:`xla_cpu_row_sum`) on both devices, so
     the card's drive equals the CPU port's bit for bit. Built per run (per
     chunk over ``lanes``) after ``gather``, on ``weights`` and ``stp`` for
-    their storage dtypes."""
+    their storage dtypes. ``n_pre`` is the spike row's length where it is
+    not ``static.n`` (a partition core's import row; ``fanin`` built for
+    it)."""
 
     def __init__(self, static, params, weights, stp, gather, fanin=None,
-                 lanes: int | None = None):
-        fanin = fanin if fanin is not None else assemble_fanin(static, params)
+                 lanes: int | None = None, n_pre: int | None = None):
+        fanin = fanin if fanin is not None else assemble_fanin(static, params, n_pre)
         n_ch = static.ring_channels
         lead = () if lanes is None else (lanes,)
         self.keys = tuple(j for j, s in enumerate(static.projections)
@@ -334,7 +345,8 @@ class PlasticDrive:
                 sentinel=spec.pre_size * spec.post_size if fr.rows is not None else -1,
                 stp=spec.stp is not None, pre_start=spec.pre_start, n_pre=spec.pre_size,
                 stp_dtype=stp[j].u.dtype if spec.stp is not None else f32))
-        self.run = ops.DriveRun(static.n, projs, lanes=lanes, coba=n_ch == 2)
+        self.run = ops.DriveRun(static.n if n_pre is None else n_pre, projs, lanes=lanes,
+                                coba=n_ch == 2)
 
     def start(self, acc: dict) -> None:
         """The tick's own accumulators, zeroed, into ``acc`` (delay → its
@@ -345,13 +357,13 @@ class PlasticDrive:
 
 
 def assemble_drive(static, params, weights, stp, gather, fanin=None,
-                   lanes: int | None = None) -> PlasticDrive | None:
+                   lanes: int | None = None, n_pre: int | None = None) -> PlasticDrive | None:
     """The run's :class:`PlasticDrive` (on ``gather``, :func:`assemble_gather`'s
     launcher of the same run), None for a net with no plastic or STP
     projection."""
     if not any(s.plastic or s.stp is not None for s in static.projections):
         return None
-    return PlasticDrive(static, params, weights, stp, gather, fanin, lanes)
+    return PlasticDrive(static, params, weights, stp, gather, fanin, lanes, n_pre)
 
 
 def _bucket_pre(static, params, spikes_f32, bi):

@@ -1117,6 +1117,8 @@ class Engine:
 
     def run(self, n_steps: int, state: NetState | None = None, **kw):
         state = state if state is not None else self.net.state0
+        if self.net.partition is not None:
+            return self._run_partitioned(n_steps, state, **kw)
         if not obs.enabled():
             return run(self.net.static, self.net.params, state, n_steps, **kw)
         # A host-side span around the run's enqueue: nothing on the device
@@ -1130,8 +1132,41 @@ class Engine:
         obs.inc("repro_engine_ticks_total", float(n_steps))
         return out
 
+    def _run_partitioned(self, n_steps: int, state: NetState, record: str = "raster",
+                         **kw):
+        """A partitioned net (``compile(partition=...)``) runs through its
+        plan's lowering. The per-core runs record the raster or nothing;
+        any other keyword is a feature the partitioned path does not
+        express, and raises rather than diverge from :func:`run`."""
+        from repro_torch.core import partition as part
+
+        if kw:
+            raise part.PartitionError(
+                "partitioned runs accept record='raster'/'none' only — "
+                f"unsupported kwargs: {sorted(kw)}")
+        plan = self.net.partition
+        fn = (part.run_partitioned if plan.spec.lowering == "sequential"
+              else part.run_partitioned_mesh)
+        if not obs.enabled():
+            return fn(self.net.static, plan, plan.run_params, state, n_steps, record)
+        with obs.span("partition_run", lowering=plan.spec.lowering, n_cores=plan.n_cores,
+                      n_ticks=n_steps, record=str(record)):
+            out = fn(self.net.static, plan, plan.run_params, state, n_steps, record)
+        obs.inc("repro_partition_ticks_total", float(n_steps))
+        obs.inc("repro_partition_exchange_bytes_total",
+                float(plan.exchange.bytes_per_tick) * n_steps)
+        obs.inc("repro_engine_ticks_total", float(n_steps))
+        return out
+
     def run_batch(self, n_steps: int, batch: int, state: NetState | None = None, **kw):
         """``batch`` independent trials; see :func:`run_batch`."""
+        if self.net.partition is not None:
+            from repro_torch.core.partition import PartitionError
+
+            raise PartitionError(
+                "run_batch is not supported on a partitioned network — lanes over cores "
+                "would replicate every core's tables per trial; run trials through a "
+                "ServePool instead")
         state = state if state is not None else self.net.state0
         if not obs.enabled():
             return run_batch(self.net.static, self.net.params, state, n_steps, batch, **kw)

@@ -24,8 +24,10 @@ dense-stored and propagated on its own), with plastic (STDP, DA-STDP,
 homeostasis) and STP projections, in-run monitors
 (``monitors="default"``: SpikeCount and GroupRate, as the reference's
 default) and in-run watches (``watches="default"``: NonFinite, RateBand
-and Silent, :mod:`repro_torch.obs.watch`). Core partitioning raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+and Silent, :mod:`repro_torch.obs.watch`), and cut into fixed-budget
+cores (``partition=PartitionSpec(...)``, :mod:`repro_torch.core.partition`:
+the plan lands in ``CompiledNetwork.partition``, which ``Engine.run``
+follows).
 """
 from __future__ import annotations
 
@@ -304,14 +306,19 @@ class _PendingConnect:
     homeostasis: HomeostasisConfig | None = None
 
 
-def _to_device(tree, device: torch.device):
-    """Move every tensor of a nested NamedTuple/tuple tree to ``device``."""
+def _to_device(tree, device: torch.device, _moved=None):
+    """Move every tensor of a nested NamedTuple/tuple tree to ``device``.
+    A tensor that appears twice (a CSR index table that is both a bucket's
+    and its projection's) is moved once and stays one tensor."""
+    moved = {} if _moved is None else _moved
     if isinstance(tree, torch.Tensor):
-        return tree.to(device)
+        if id(tree) not in moved:
+            moved[id(tree)] = (tree, tree.to(device))
+        return moved[id(tree)][1]
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_to_device(x, device) for x in tree))
+        return type(tree)(*(_to_device(x, device, moved) for x in tree))
     if isinstance(tree, tuple):
-        return tuple(_to_device(x, device) for x in tree)
+        return tuple(_to_device(x, device, moved) for x in tree)
     return tree
 
 
@@ -404,12 +411,10 @@ class NetworkBuilder:
         elif homeostasis_period:
             raise ValueError("homeostasis_period set but no connection has a "
                              "HomeostasisConfig")
-        if partition is not None:
-            if watches is not None and watches != ():
-                raise ValueError(
-                    "watches are not supported on partitioned networks yet — "
-                    "the per-core lowerings carry no watch accumulators")
-            raise _unported("core partitioning", "A11")
+        if partition is not None and watches is not None and watches != ():
+            raise ValueError(
+                "watches are not supported on partitioned networks yet — "
+                "the per-core lowerings carry no watch accumulators")
         device = _resolve_device(device)
         if isinstance(policy, str):
             policy = get_policy(policy)
@@ -635,10 +640,14 @@ class NetworkBuilder:
         state0 = NetState(t=0, key=key, neurons=nstate, ring=ring,
                           weights=weights, stp=stp_states, stdp=stdp_states,
                           cond=cond, homeo=homeo_states)
-        return CompiledNetwork(static=static,
-                               params=_to_device(params, device),
-                               state0=_to_device(state0, device),
-                               ledger=ledger, policy=policy)
+        net = CompiledNetwork(static=static, params=_to_device(params, device),
+                              state0=_to_device(state0, device), ledger=ledger,
+                              policy=policy)
+        if partition is not None:
+            from repro_torch.core.partition import plan_partition
+
+            net.partition = plan_partition(net, partition)
+        return net
 
 
 # How many × fewer bytes the CSR layout must touch per tick before a
@@ -768,6 +777,9 @@ class CompiledNetwork:
     state0: NetState
     ledger: MemoryLedger
     policy: PrecisionPolicy
+    # Set by compile(partition=PartitionSpec(...)): the core-grid plan the
+    # Engine runs the net through (repro_torch.core.partition).
+    partition: object | None = None
 
     @property
     def n_neurons(self) -> int:

@@ -124,7 +124,9 @@ class NeuronRun:
     ``run(i, t)`` is the run's ``i``-th tick, tick ``t`` (ring slot ``t %
     L``); afterwards ``spikes`` ``[N]`` f32 holds its spike row (0.0/1.0)
     until the next call, and ``v``, ``u``, ``refrac`` (and ``cond``) the
-    state. ``rows(gen_spk, start)`` hands it another ``[T', n_gen]``
+    state. ``spikes`` is the caller's buffer where one is given (a
+    partition core's ``[lo, hi)`` view of the global spike row), else the
+    run's own. ``rows(gen_spk, start)`` hands it another ``[T', n_gen]``
     generator buffer, whose row 0 is tick ``i = start`` (a run whose
     generator spikes are made segment by segment). On the card
     the tensors are checked and the plan is filled once (``launcher``, a
@@ -162,7 +164,7 @@ class NeuronRun:
                  counts=None, cond=None, coba=None, dt: float = 1.0, substeps: int = 2,
                  t0: tuple[int, ...] | None = None, tel_count=None, tel_rate=None,
                  rate: tuple[float, float] = (0.0, 0.0), w_count=None, w_silent=None,
-                 w_bad=None):
+                 w_bad=None, spikes=None):
         n = v.shape[-1]
         if t0 is not None and not t0:
             raise ValueError("izh4_update: t0 must name at least one lane")
@@ -229,7 +231,12 @@ class NeuronRun:
         self.v, self.u, self.refrac = v.clone(), u.clone(), refrac.clone()
         self.cond = None if cond is None else tuple(g.clone() for g in cond)
         self._coba = coba
-        self.spikes = torch.zeros(v.shape, dtype=f32, device=v.device)
+        if spikes is not None and (spikes.shape != v.shape or spikes.dtype != f32
+                                   or not spikes.is_contiguous()):
+            raise ValueError(f"izh4_update: spikes must be a contiguous float32 "
+                             f"{dims('N')} buffer")
+        self.spikes = (torch.zeros(v.shape, dtype=f32, device=v.device) if spikes is None
+                       else spikes)
         if i_ext is not None:
             i_ext = i_ext.to(f32).contiguous()
         self._args = (ring, is_gen, a, b, c, d, gen_cols.long(), counts)
@@ -447,10 +454,15 @@ class GatherRun:
     ``[Q, F]``, shared by the lanes, or ``[B, Q, F]``, one table per lane;
     the index plan is shared and one launch covers every lane, each lane
     summed as the one-lane launch sums
-    (:func:`repro_torch.kernels.ref.gather_lanes_ref` on the CPU)."""
+    (:func:`repro_torch.kernels.ref.gather_lanes_ref` on the CPU).
+
+    ``n_pre`` (None: ``N``) is the spike row's length where it is not the
+    accumulators' ``N``: a partition core's import row
+    (:mod:`repro_torch.core.partition`), whose entries the buckets' pre ids
+    index."""
 
     def __init__(self, n: int, buckets, device, channels: int = 1,
-                 lanes: int | None = None):
+                 lanes: int | None = None, n_pre: int | None = None):
         _check_lanes("syn_gather", lanes)
         buckets = list(buckets)
         tables = [b.table for b in buckets if b.table is not None]
@@ -463,7 +475,7 @@ class GatherRun:
             if idx.dtype not in _gather.INDEX_DTYPES or w.dtype not in _gather.WEIGHT_DTYPES:
                 raise ValueError(f"syn_gather: idx/w dtypes {idx.dtype}/{w.dtype} not in "
                                  f"{_gather.INDEX_DTYPES}/{_gather.WEIGHT_DTYPES}")
-        self.plan = _gather.GatherPlan(n, buckets, channels)
+        self.plan = _gather.GatherPlan(n, buckets, channels, n_pre)
         self.delays, self.keys, self.starts = self.plan.delays, self.plan.keys, self.plan.starts
         self.lanes = lanes
         device = torch.device(device)

@@ -81,9 +81,11 @@ class Bucket(NamedTuple):
 
 
 class GatherPlan:
-    """The host plan of one run's CSR gathers over an ``[N]`` spike row,
-    into a ring of ``channels`` channels (1: CUBA, 2: COBA, where each
-    bucket's drive lands as its absolute value, ``absolute``).
+    """The host plan of one run's CSR gathers over a spike row of ``n_pre``
+    entries (``N`` when None; a partition core reads its import row, whose
+    length is not its ``N``), into ``[N]`` accumulator rows of a ring of
+    ``channels`` channels (1: CUBA, 2: COBA, where each bucket's drive
+    lands as its absolute value, ``absolute``).
 
     ``buckets`` (:class:`Bucket`, the whole plan in plan order) are cut
     into launch groups. Group 0 launches before the plan's first bucket and
@@ -114,8 +116,9 @@ class GatherPlan:
     takes them. Raises on an index outside ``[0, P)``.
     """
 
-    def __init__(self, n: int, buckets, channels: int = 1):
+    def __init__(self, n: int, buckets, channels: int = 1, n_pre: int | None = None):
         self.n, self.channels, self.absolute = n, channels, channels == 2
+        self.n_pre = n if n_pre is None else n_pre
         buckets = list(buckets)
         if any(not 0 <= b.channel < channels for b in buckets):
             raise ValueError(f"syn_gather: bucket channels must lie in [0, {channels})")
@@ -154,7 +157,8 @@ class GatherPlan:
         self.w_lanes = lead[0] if lead else None
         wdts = {t[2].dtype for t in tables.values()}
         self.w_dtype = wdts.pop() if len(wdts) == 1 else torch.float32
-        self.idx_dtype = torch.int16 if n <= np.iinfo(np.int16).max else torch.int32
+        self.idx_dtype = (torch.int16 if self.n_pre <= np.iinfo(np.int16).max
+                          else torch.int32)
         composed, ws, offsets, off = {}, [], {}, 0
         for i in sparse:
             pre, idx, w = tables[i]
@@ -264,7 +268,7 @@ class GatherLauncher:
             self._keep.append(items)
             rp = RunPlan(items=items.data_ptr(), contribs=contribs.data_ptr(),
                          idx=idx.data_ptr(), w=w.data_ptr(), rows=self.rows.data_ptr(),
-                         stream=stream, n_items=items.shape[0], P=plan.n, F=0,
+                         stream=stream, n_items=items.shape[0], P=plan.n_pre, F=0,
                          itype=_ITYPE[plan.idx_dtype], wtype=_WTYPE[plan.w_dtype],
                          accumulate=int(g > 0), staged=int(staged),
                          absolute=int(plan.absolute), lanes=lanes or 1,
@@ -275,8 +279,8 @@ class GatherLauncher:
 
     def __call__(self, g: int, spikes_ptr: int) -> None:
         """Launch group ``g`` on the f32 spike row at device pointer
-        ``spikes_ptr`` (``N`` contiguous values; over lanes, B rows of
-        them)."""
+        ``spikes_ptr`` (``plan.n_pre`` contiguous values; over lanes, B rows
+        of them)."""
         err = self._fn(self._plans[g][0], spikes_ptr)
         if err:
             _build.check(self._lib, err, "syn_gather")

@@ -59,6 +59,13 @@ class MemoryLedger:
         self._entries: list[_Entry] = []
         self._current_stage: str | None = None
 
+    def child(self, suffix: str, budget: int | None = None) -> "MemoryLedger":
+        """A derived ledger named ``<name>/<suffix>`` with its own budget
+        (``budget``, else this ledger's): one per partition core, so the
+        paper's 8.477 MB ceiling holds per core rather than globally."""
+        return MemoryLedger(budget=self.budget if budget is None else budget,
+                            name=f"{self.name}/{suffix}")
+
     @contextmanager
     def stage(self, stage: str) -> Iterator[None]:
         prev, self._current_stage = self._current_stage, stage

@@ -28,9 +28,10 @@ is live right now:
   the card it reads the host's enqueue of a chunk (the runtime never
   synchronizes the device inside a span).
 * **Watchpoints** (``watchpoints``): WARN once any in-run watch tripped.
-* **Per-core bytes** (``core_bytes[...]``): read from the
-  ``repro_partition_core_bytes`` gauges, which partitioned cores (ROADMAP
-  A11) will publish; none are published yet.
+* **Per-core bytes** (``core_bytes[...]``): a partitioned net's plan
+  (``compile(partition=...)``), each core's verified ledger bytes against
+  its per-core ceiling; without a net, the
+  ``repro_partition_core_bytes`` gauges that ``plan_partition`` publishes.
 
 Status aggregates worst-of; the dict shape is JSON-safe and stable.
 """
@@ -201,8 +202,11 @@ def health_snapshot(net=None, *, hw: HardwareSpec = M33,
     With a compiled ``net``: modeled real-time factor on ``hw``, its
     ledger vs budget, its serving rungs vs the MCU ceiling. Without one,
     rung bytes come from the live gauges, so a metrics-only process still
-    gets the memory checks. The measured-latency and watch checks ride the
-    process registry either way.
+    gets the memory checks. A partitioned ``net`` (``compile(partition=)``)
+    adds one check per core, its verified ledger bytes against the plan's
+    per-core ceiling, and its unbudgeted global ledger answers to cores ×
+    that ceiling. The measured-latency and watch checks ride the process
+    registry either way.
     """
     from repro_torch import obs
 
@@ -217,16 +221,26 @@ def health_snapshot(net=None, *, hw: HardwareSpec = M33,
             hw=hw, mean_rate_hz=mean_rate_hz, dt_ms=dt_ms,
             bytes_per_weight=2 if "16" in policy_name else 4))
         ledger = ledger if ledger is not None else net.ledger
+    plan = getattr(net, "partition", None)
     if ledger is not None:
+        # A partitioned, unbudgeted ledger answers to the fleet's capacity
+        # (cores × the per-core ceiling), not one MCU: the per-core checks
+        # below hold each core to the single-device ceiling.
+        fallback = mcu_ceiling
+        if plan is not None:
+            fallback = (plan.spec.core_budget_bytes or mcu_ceiling) * plan.n_cores
         checks.append(budget_check(
             ledger.total_used,
-            budget=ledger.budget if ledger.budget else mcu_ceiling))
+            budget=ledger.budget if ledger.budget else fallback))
         checks.extend(rung_checks(ledger.serve_rung_bytes(), ceiling=mcu_ceiling))
     else:
         checks.extend(rung_checks(_rungs_from_registry(registry), ceiling=mcu_ceiling))
-    # Partitioned nets (ROADMAP A11) are not ported: per-core bytes come
-    # from the registry's gauges only.
-    checks.extend(core_checks(_cores_from_registry(registry), ceiling=mcu_ceiling))
+    if plan is not None:
+        checks.extend(core_checks(
+            {str(c): float(b) for c, b in plan.core_bytes().items()},
+            ceiling=plan.spec.core_budget_bytes or mcu_ceiling))
+    else:
+        checks.extend(core_checks(_cores_from_registry(registry), ceiling=mcu_ceiling))
 
     measured = measured_serve_check(registry, dt_ms=dt_ms)
     if measured is not None:

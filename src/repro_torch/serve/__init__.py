@@ -24,8 +24,10 @@
   for bit.
 
 Every layer reports to :mod:`repro_torch.obs` under the reference's
-metric and event names. Left to a later port: the mesh-sharded lane axis
-(ROADMAP A11).
+metric and event names. ``LaneScheduler``, ``CapacityLadder`` and
+``ServePool`` take ``mesh=`` (a device-list mesh,
+:func:`repro_torch.core.distributed.lane_mesh`): the lane axis in one
+block per mesh entry, each on its entry's device.
 """
 from repro_torch.serve.lifecycle import (
     CheckpointError,

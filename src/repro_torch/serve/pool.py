@@ -33,8 +33,9 @@ Both layers carry the reference's observability calls (``rung_build`` and
 event and ``repro_pool_routes_total``) and its watch surface:
 ``flight_window`` reaches every rung's scheduler, flight windows survive
 rung migrations, and ``check_watches``, ``quarantine`` and ``flight``
-route to the tenant's rung. The mesh-sharded lane axis (``mesh=``) is
-A11.
+route to the tenant's rung. With ``mesh=`` (a device-list mesh) the
+ladder's rungs that the mesh axis size divides shard their lanes across
+it, and the smaller ones run unsharded, as the reference's do.
 """
 from __future__ import annotations
 
@@ -102,7 +103,9 @@ class CapacityLadder:
     ``idle_after`` consecutive :meth:`step` calls during which a smaller
     rung would have sufficed (hysteresis: one transient eviction does not
     thrash the ladder). Per-rung ledger names carry ``ledger_prefix``.
-    ``flight_window`` is every rung's scheduler's. ``mesh`` (A11) raises.
+    ``flight_window`` is every rung's scheduler's. With a ``mesh`` (a
+    device-list mesh), a rung that the mesh axis size divides runs
+    sharded; a smaller or indivisible rung runs unsharded.
     """
 
     def __init__(self, net: CompiledNetwork, *, rungs=RUNGS, record: str = "monitors",
@@ -110,10 +113,6 @@ class CapacityLadder:
                  ledger_prefix: str = "", lane_chooser=None, flight_window: int = 0):
         if not rungs:
             raise ValueError("need at least one rung")
-        if mesh is not None:
-            raise NotImplementedError(
-                "CapacityLadder(mesh=...): sharding the lane axis across cards is not "
-                "ported to repro_torch yet (ROADMAP A11)")
         self.net = net
         self.flight_window = flight_window
         # Optional admission policy hook: called with the live scheduler,
@@ -122,7 +121,7 @@ class CapacityLadder:
         self._lane_chooser = lane_chooser
         self.rungs = tuple(sorted(set(int(r) for r in rungs)))
         self.record = record
-        self.mesh = None
+        self.mesh = mesh
         self.mesh_axis = mesh_axis
         self.idle_after = idle_after
         self.ledger_prefix = ledger_prefix
@@ -150,8 +149,12 @@ class CapacityLadder:
 
     def _build(self, n: int) -> LaneScheduler:
         key = f"{self.ledger_prefix}rung{n}"
+        mesh = self.mesh
+        if mesh is not None and n % mesh.shape[self.mesh_axis]:
+            mesh = None  # a rung smaller than the mesh: run unsharded
         with obs.span("rung_build", rung=n, ledger_key=key):
-            return LaneScheduler(self.net, n, record=self.record, ledger_key=key,
+            return LaneScheduler(self.net, n, record=self.record, mesh=mesh,
+                                 mesh_axis=self.mesh_axis, ledger_key=key,
                                  flight_window=self.flight_window)
 
     def _migrate(self, new_rung: int) -> None:
@@ -266,11 +269,7 @@ class ServePool:
                              "'first_fit' or 'best_fit'")
         if bin_lanes < 1:
             raise ValueError(f"bin_lanes must be >= 1, got {bin_lanes}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "ServePool(mesh=...): sharding the lane axis across cards is not ported "
-                "to repro_torch yet (ROADMAP A11)")
-        self._opts = dict(rungs=rungs, record=record, mesh_axis=mesh_axis,
+        self._opts = dict(rungs=rungs, record=record, mesh=mesh, mesh_axis=mesh_axis,
                           idle_after=idle_after, flight_window=flight_window)
         self.policy = policy
         self.bin_lanes = bin_lanes

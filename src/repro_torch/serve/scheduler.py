@@ -56,7 +56,18 @@ gauges and histograms to :mod:`repro_torch.obs` under the reference's
 names; a step's span times the host's enqueue of the chunk and never
 synchronizes the device.
 
-Left to a later port: the mesh-sharded lane axis (``mesh=``, A11).
+**Mesh sharding** (``mesh=``, a device-list mesh,
+:func:`repro_torch.core.distributed.lane_mesh`): the lane axis is cut
+into contiguous blocks, one per mesh entry. Each block ticks on its
+entry's device through launchers of its own (built on that device at the
+first step), with no exchange at all, since lanes never interact; every
+lane's state, flushes and watches equal the unsharded scheduler's, bit
+for bit. The lanes' state stays on the net's device between chunks: a
+chunk hands each block its lanes (views where the block's device is the
+net's, copies elsewhere) and writes each block's final state, telemetry
+and watch carries back into its lanes of those tensors, in place. That
+write-back is one copy of every lane's state per chunk, on one card (or
+on ``["cpu"] * k``) too.
 """
 from __future__ import annotations
 
@@ -70,9 +81,10 @@ import torch
 from repro_torch import obs
 from repro_torch.core import backend as be
 from repro_torch.core import rng
+from repro_torch.core.distributed import device_context
 from repro_torch.core.engine import _run_lanes, batched_route, run
 from repro_torch.core.lanes import broadcast_state, lane_state, set_lane
-from repro_torch.core.network import CompiledNetwork, NetState
+from repro_torch.core.network import CompiledNetwork, NetState, _to_device
 from repro_torch.obs import watch as wat
 from repro_torch.obs.metrics import us_per_tick
 from repro_torch.precision.policy import tree_bytes
@@ -139,6 +151,36 @@ def _unflat_int32(flat: torch.Tensor, like: tuple) -> tuple:
     return tuple(out)
 
 
+def _lanes_of(tree, b0: int, b1: int, device):
+    """Lanes ``[b0, b1)`` of a lane-batched tree (a batched ``NetState``, a
+    telemetry or watch carry) on ``device``; non-tensor leaves stay."""
+    if isinstance(tree, torch.Tensor):
+        return tree[b0:b1].to(device)
+    if isinstance(tree, NetState) and tree.t is not None:
+        return _lanes_of(tree._replace(t=None), b0, b1, device)._replace(t=tree.t[b0:b1])
+    if isinstance(tree, tuple):
+        items = [_lanes_of(x, b0, b1, device) for x in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return tree
+
+
+def _put_lanes(dst, src, b0: int):
+    """Write the lane block ``src`` into lanes ``[b0, b0 + B)`` of the
+    lane-batched tree ``dst``, in place on its tensors
+    (:func:`_lanes_of`'s inverse); returns ``dst`` with the block's ticks."""
+    if isinstance(dst, torch.Tensor):
+        if isinstance(src, torch.Tensor):  # a telemetry slot may come back as ()
+            dst[b0:b0 + src.shape[0]].copy_(src)
+        return dst
+    if isinstance(dst, NetState) and dst.t is not None:
+        _put_lanes(dst._replace(t=None), src._replace(t=None), b0)
+        return dst._replace(t=dst.t[:b0] + tuple(src.t) + dst.t[b0 + len(src.t):])
+    if isinstance(dst, tuple):
+        for x, y in zip(dst, src, strict=True):
+            _put_lanes(x, y, b0)
+    return dst
+
+
 class Evicted(NamedTuple):
     """What :meth:`LaneScheduler.evict` hands back: the lane's state and
     stimulus key, enough to resume it bit for bit elsewhere
@@ -186,8 +228,10 @@ class LaneScheduler:
     precision policy). ``record`` is ``"monitors"`` (default; the net must
     carry monitors: every lane accumulates flushable telemetry) or
     ``"none"``. ``flight_window`` K > 0 keeps every tenant's last K
-    chunk-boundary snapshots. ``mesh`` (A11) raises
-    ``NotImplementedError``. ``ledger_key`` namespaces the ledger
+    chunk-boundary snapshots. ``mesh`` (a device-list mesh) with
+    ``mesh_axis`` shards the lane axis into one contiguous block per mesh
+    entry (``capacity`` a multiple of the axis size). ``ledger_key``
+    namespaces the ledger
     registrations (``serve.lanes.<key>``, ``serve.telemetry.<key>``,
     ``serve.watch.<key>``) and names the scheduler's obs series
     (``rung=<key>``, else ``rung=cap<capacity>``).
@@ -206,14 +250,30 @@ class LaneScheduler:
         if record == "monitors" and not net.static.monitors:
             raise ValueError("record='monitors' needs a network compiled with monitors")
         if mesh is not None:
-            raise NotImplementedError(
-                "LaneScheduler(mesh=...): sharding the lane axis across cards is not "
-                "ported to repro_torch yet (ROADMAP A11)")
+            if mesh_axis not in mesh.shape:
+                raise ValueError(f"mesh has no axis {mesh_axis!r} (axes: "
+                                 f"{tuple(mesh.shape)})")
+            if capacity % mesh.shape[mesh_axis]:
+                raise ValueError(
+                    f"capacity ({capacity}) must be a multiple of the mesh axis size "
+                    f"({mesh.shape[mesh_axis]}) — lanes shard evenly, no ragged device "
+                    "gets a partial lane block")
         self.net = net
         self.capacity = capacity
         self.record = record
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
         self.states: NetState = broadcast_state(net.state0, capacity)
         dev = net.state0.ring.device
+        # Lane blocks: (device, first lane, end), one per mesh entry; the
+        # whole capacity on the net's device without a mesh.
+        if mesh is None:
+            self._blocks = ((dev, 0, capacity),)
+        else:
+            per = capacity // mesh.shape[mesh_axis]
+            self._blocks = tuple((d, k * per, (k + 1) * per)
+                                 for k, d in enumerate(mesh.devices))
+        self._params = tuple(_to_device(net.params, d) for d, _, _ in self._blocks)
         self.gen_keys = rng.key(0, dev).expand(capacity, 2).clone()
         self.active = torch.zeros((capacity,), dtype=torch.bool, device=dev)
         self._lanes: list[_LaneInfo | None] = [None] * capacity
@@ -227,10 +287,11 @@ class LaneScheduler:
         # The flight recorder: each tenant's last K chunk-boundary snapshots.
         self.flight_window = int(flight_window)
         self._flight: dict[str, deque] = {}
-        # The batched route's launchers, built at the first step and kept
-        # across chunks (that step is the scheduler's compile): admit and
-        # restore write a lane's weights into them.
-        self._prop = None
+        # The batched route's launchers, one set per lane block, built at
+        # the first step and kept across chunks (that step is the
+        # scheduler's compile): admit and restore write a lane's weights
+        # into its block's.
+        self._prop = [None] * len(self._blocks)
         self._batched = batched_route(net.static)
         suffix = f".{ledger_key}" if ledger_key else ""
         self._ledger_names = (f"serve.lanes{suffix}", f"serve.telemetry{suffix}",
@@ -335,8 +396,9 @@ class LaneScheduler:
                           self.gen_keys.device)
         state = state if state is not None else self.net.state0
         self.states = set_lane(self.states, lane, state)
-        if self._prop is not None:
-            self._prop.set_lane(lane, state.weights)
+        k, (d, b0, _) = self._block_of(lane)
+        if self._prop[k] is not None:
+            self._prop[k].set_lane(lane - b0, _to_device(state.weights, d))
         self.gen_keys[lane] = key
         self.active[lane] = True
         for c in self._tel:
@@ -427,23 +489,52 @@ class LaneScheduler:
                     scope="scheduler", rung=self._obs_rung)
         obs.inc("repro_serve_ticks_total", float(n_ticks * occ), rung=self._obs_rung)
 
+    def _block_of(self, lane: int):
+        """``(k, (device, first lane, end))`` of the lane block holding
+        ``lane``."""
+        for k, block in enumerate(self._blocks):
+            if block[1] <= lane < block[2]:
+                return k, block
+        raise IndexError(lane)
+
     def _step_impl(self, n_ticks: int) -> None:
-        static, params = self.net.static, self.net.params
+        static = self.net.static
+        home = self.active.device
         mon = dict(record=self.record)
         if self._tel:
-            mon.update(tel_carry=tel.chunk_carry(static, self._tel, n_ticks,
-                                                 device=self.active.device,
+            mon.update(tel_carry=tel.chunk_carry(static, self._tel, n_ticks, device=home,
                                                  lanes=self.capacity),
                        return_tel_carry=True)
         if self._batched:
-            if self._prop is None:
-                self._prop = be.LanePropagation(static, params, self.states.weights,
-                                                self.capacity)
-                obs.note_build()
-            self.states, out = _run_lanes(static, params, self.states, n_ticks,
-                                          gen_base=self.gen_keys, active=self.active,
-                                          prop=self._prop, watch_carry=self._watch or None,
-                                          **mon)
+            whole = len(self._blocks) == 1
+            finals, outs = [], []
+            for k, (d, b0, b1) in enumerate(self._blocks):
+                def part(x, d=d, b0=b0, b1=b1):
+                    return x if whole or x is None else _lanes_of(x, b0, b1, d)
+                states = part(self.states)
+                with device_context(d):
+                    if self._prop[k] is None:
+                        self._prop[k] = be.LanePropagation(static, self._params[k],
+                                                           states.weights, b1 - b0)
+                        obs.note_build()
+                    final, out = _run_lanes(
+                        static, self._params[k], states, n_ticks,
+                        gen_base=part(self.gen_keys), active=part(self.active),
+                        prop=self._prop[k], watch_carry=part(self._watch or None),
+                        **{**mon, "tel_carry": part(mon.get("tel_carry"))})
+                finals.append(final)
+                outs.append(out)
+            if whole:
+                self.states, out = finals[0], outs[0]
+            else:
+                # Each block's final state, telemetry and watches go back
+                # into its lanes of the home tensors, in place.
+                out = {key: mon.get("tel_carry") if key == "tel_carry" else self._watch
+                       for key in ("tel_carry", "watch_carry") if key in outs[0]}
+                for (_, b0, _), final, o in zip(self._blocks, finals, outs):
+                    self.states = _put_lanes(self.states, final, b0)
+                    for key in out:
+                        _put_lanes(out[key], o[key], b0)
             if self._tel:
                 self._tel = out["tel_carry"]
             if self._watch:
@@ -451,12 +542,16 @@ class LaneScheduler:
         else:
             carry = mon.get("tel_carry")
             for lane in range(self.capacity):
+                k, (d, _, _) = self._block_of(lane)
                 if carry is not None:
-                    mon["tel_carry"] = _lane_tel(carry, lane)
+                    mon["tel_carry"] = _to_device(_lane_tel(carry, lane), d)
                 if self._watch:
-                    mon["watch_carry"] = _lane_watch(self._watch, lane)
-                final, out = run(static, params, lane_state(self.states, lane), n_ticks,
-                                 gen_base=self.gen_keys[lane], active=self.active[lane], **mon)
+                    mon["watch_carry"] = _to_device(_lane_watch(self._watch, lane), d)
+                with device_context(d):
+                    final, out = run(static, self._params[k],
+                                     _to_device(lane_state(self.states, lane), d), n_ticks,
+                                     gen_base=self.gen_keys[lane].to(d),
+                                     active=self.active[lane].to(d), **mon)
                 self.states = set_lane(self.states, lane, final)
                 if carry is not None:
                     _set_lane_tel(carry, lane, out["tel_carry"])

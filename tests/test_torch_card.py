@@ -31,7 +31,10 @@ same way, ``NeuronRun``'s per-lane spike counts, and static, plastic
 (with homeostasis) and fused ``run_batch`` lanes against solo card
 runs; and the in-run monitor and watch slots of B1 and B4 against their
 plain versions (NaN, inf, silent and fp16-overflow lanes for the watches),
-and watched runs on the card against the CPU port."""
+and watched runs on the card against the CPU port; and partitioning: every
+core's launchers of a two-core plastic cut (the 50-post core among them)
+against their plain versions, and partitioned runs (both lowerings)
+against the unpartitioned card run."""
 import math
 
 import numpy as np
@@ -1813,3 +1816,79 @@ def test_watched_runs_card_equal_cpu(card, propagation, backend):
         for x, y in zip(solo["watch_carry"], batch["watch_carry"]):
             for a, c in zip(x, y):
                 assert torch.equal(a, c[b])
+
+
+def _partition_nets(card, spec, **kw):
+    from repro_torch.configs.synfire4 import SYNFIRE4, build_synfire
+
+    return [build_synfire(SYNFIRE4, device=dev, partition=spec, **kw) for dev in (card, "cpu")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy,propagation", [("fp32", "sparse"), ("fp16", "packed")])
+def test_partition_core_launchers_match_plain(card, policy, propagation):
+    """Plastic Synfire4 cut at two cores, ``[0, 1150)`` (the STDP cluster,
+    its drive and its STDP launcher) and the 50-post ``[1150, 1200)``:
+    every core's launchers on the card against the CPU port's (their plain
+    versions) over 12 chained ticks, each core's spikes, v, u, ring, gather
+    rows and plastic weights and traces bit for bit after every phase."""
+    from repro_torch.configs.synfire4 import CHAIN_STDP
+    from repro_torch.core import partition as part
+
+    nets = _partition_nets(card, part.PartitionSpec(n_cores=2), policy=policy,
+                           propagation=propagation, stdp_chain=CHAIN_STDP)
+    assert [(c.lo, c.hi) for c in nets[0].partition.cores] == [(0, 1150), (1150, 1200)]
+    sets = [part._sequential_cores(n.static, n.partition, n.partition.run_params, n.state0,
+                                   12, True)[2] for n in nets]
+    owner, small = sets[0]
+    assert owner.neuron_run.launcher is not None and small.neuron_run.launcher is not None
+    assert owner.drive.run.launcher is not None
+    assert owner.stdp_runs and all(r.launcher is not None for r in owner.stdp_runs)
+    ops.reset_launches()
+    for i in range(12):
+        for phase in ("phase_a", "phase_b"):
+            for cores in sets:
+                for c in cores:
+                    if phase == "phase_a":
+                        c.phase_a(i, i)
+                    else:
+                        c.phase_b(i)
+            for a, b in zip(*sets):
+                pairs = [(a.spikes, b.spikes), (a.ring, b.ring),
+                         (a.neuron_run.v, b.neuron_run.v), (a.neuron_run.u, b.neuron_run.u),
+                         (a.gather.rows, b.gather.rows)]
+                for ra, rb in zip(a.stdp_runs, b.stdp_runs):
+                    pairs += [(pa.w, pb.w) for pa, pb in zip(ra.projs, rb.projs)]
+                    pairs += list(zip(ra.traces(0), rb.traces(0)))
+                for x, y in pairs:
+                    assert torch.equal(x.cpu(), y), (i, phase, a.cp.index)
+    assert ops.LAUNCHES["izh4_update"] == 24 and ops.LAUNCHES["plastic_drive"] == 12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lowering", ["sequential", "mesh"])
+def test_partitioned_card_run_equals_unpartitioned(card, lowering):
+    """Synfire4 fp16 sparse cut at 4 cores, 300 ticks on the card (the mesh
+    lowering on ``[card] * 4``): raster and state equal the unpartitioned
+    card run's and the CPU port's partitioned run's."""
+    from repro_torch.configs.synfire4 import SYNFIRE4, build_synfire
+    from repro_torch.core import partition as part
+    from repro_torch.core.distributed import core_mesh
+    from repro_torch.core.engine import Engine
+
+    spec = part.PartitionSpec(n_cores=4, lowering=lowering)
+    net, cpu = _partition_nets(card, spec, policy="fp16", propagation="sparse")
+    base = build_synfire(SYNFIRE4, policy="fp16", propagation="sparse", device=card)
+    s0, o0 = Engine(base).run(300)
+    plan = net.partition
+    if lowering == "mesh":
+        s1, o1 = part.run_partitioned_mesh(net.static, plan, plan.run_params, net.state0, 300,
+                                           mesh=core_mesh(devices=[card] * 4))
+    else:
+        s1, o1 = Engine(net).run(300)
+    s2, o2 = part.run_partitioned(cpu.static, cpu.partition, cpu.partition.run_params,
+                                  cpu.state0, 300)
+    assert torch.equal(o1["spikes"], o0["spikes"]) and torch.equal(o1["spikes"].cpu(),
+                                                                   o2["spikes"])
+    for a, b, c in ((s1.ring, s0.ring, s2.ring), *zip(s1.neurons, s0.neurons, s2.neurons)):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)

@@ -20,6 +20,7 @@ from repro_torch.core import COBAConfig, NetworkBuilder, izh4  # noqa: E402
 from repro_torch.core.plasticity import HomeostasisConfig, STDPConfig  # noqa: E402
 from repro_torch.core.synapses import STPConfig  # noqa: E402
 from repro_torch.core import network as tnet  # noqa: E402
+from repro_torch.core import partition as tpart  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -186,15 +187,17 @@ class TestUnportedFeaturesRaise:
         assert c.params.proj_csr_idx[0].shape == (10, spec.fanin)
 
     # The loop oracle (ROADMAP A5), conductances (A7, COBA), in-run
-    # monitors (A6) and watches (A10) are ported: their cases (error None)
-    # now compile, the monitors and watches resolved as the reference
-    # resolves its defaults; the ids keep the cases' names.
+    # monitors (A6), watches (A10) and partitioning (A11) are ported: their
+    # cases (error None) now compile, the monitors and watches resolved as
+    # the reference resolves its defaults, the partition cut as the
+    # reference cuts it; the ids keep the cases' names.
     @pytest.mark.parametrize("kw,item,error", [
         pytest.param({"propagation": "loop"}, "loop", None, id="kw0-A5"),
         pytest.param({"conductances": COBAConfig()}, "coba", None, id="kw1-A7"),
         pytest.param({"monitors": "default"}, "A6", None, id="kw2-A6"),
         pytest.param({"watches": "default"}, "A10", None, id="kw3-A10"),
-        pytest.param({"partition": object()}, "A11", NotImplementedError, id="kw4-A11"),
+        pytest.param({"partition": tpart.PartitionSpec(n_cores=2)}, "A11", None,
+                     id="kw4-A11"),
         # Ported with A7: a period without a homeostasis config is the
         # reference's ValueError.
         pytest.param({"homeostasis_period": 10}, "HomeostasisConfig", ValueError,
@@ -216,7 +219,20 @@ class TestUnportedFeaturesRaise:
                         for w in rwatch.resolve("default", n=10, n_projections=0)]
                 assert c.ledger.name_bytes()["monitor.watch"] == 8 + 4 * 10 + 4 + 8
                 with pytest.raises(ValueError, match="partitioned"):
-                    self._net().compile(device="cpu", watches="default", partition=object())
+                    self._net().compile(device="cpu", watches="default",
+                                        partition=tpart.PartitionSpec(n_cores=2))
+            elif item == "A11":  # core partitioning, ported with A11
+                from repro.core import partition as rpart
+                from repro.core.neurons import izh4 as rizh4
+
+                ref = rnet.NetworkBuilder(seed=1)
+                ref.add_group("a", rizh4(10, a=0.02, b=0.2, c=-65.0, d=8.0))
+                rplan = ref.compile(partition=rpart.PartitionSpec(n_cores=2)).partition
+                plan = c.partition
+                assert [(cp.lo, cp.hi, cp.bytes_total) for cp in plan.cores] == [
+                    (cp.lo, cp.hi, cp.bytes_total) for cp in rplan.cores]
+                assert [(cp.lo, cp.hi) for cp in plan.cores] == [(0, 5), (5, 10)]
+                assert plan.exchange.edges == rplan.exchange.edges == ()
             else:
                 assert c.static.ring_channels == 2 and c.static.coba == kw["conductances"]
                 assert tuple(c.state0.ring.shape[1:]) == (10, 2)

@@ -27,6 +27,7 @@ from repro.core.engine import run as ref_run  # noqa: E402
 from repro.core.plasticity import HomeostasisConfig as RHomeo  # noqa: E402
 from repro_torch.configs import synfire4 as tsyn  # noqa: E402
 from repro_torch.core import Engine, lane_state, rng  # noqa: E402
+from repro_torch.core.distributed import lane_mesh  # noqa: E402
 from repro_torch.core.plasticity import HomeostasisConfig  # noqa: E402
 from repro_torch.serve import LaneScheduler, LaneSnapshot, Session  # noqa: E402
 
@@ -469,7 +470,9 @@ class TestLaneScheduler:
 
     def test_unported_options_raise(self):
         """The reference's default, ``record="monitors"``, is ported (A6):
-        its flushes equal solo sessions'; mesh (A11) still raises. The
+        its flushes equal solo sessions'. The mesh (A11) is ported: a lane
+        mesh whose size does not divide the capacity is the reference's
+        ValueError, and one that does shards the lanes. The
         flight recorder, watchpoints and quarantine are ported (A10): a
         flight window keeps the last chunk boundaries, ``check_watches``
         over a net without watches is the reference's ValueError, and
@@ -486,8 +489,11 @@ class TestLaneScheduler:
             np.testing.assert_array_equal(got[name], want[name], name)
         with pytest.raises(ValueError, match="compiled with monitors"):
             LaneScheduler(mini(monitors=None), capacity=2)
-        with pytest.raises(NotImplementedError, match="A11"):
-            LaneScheduler(net, capacity=2, record="none", mesh=object())
+        with pytest.raises(ValueError, match="multiple of the mesh axis size"):
+            LaneScheduler(net, capacity=2, record="none",
+                          mesh=lane_mesh(devices=["cpu"] * 4))
+        assert LaneScheduler(net, capacity=2, record="none",
+                             mesh=lane_mesh(devices=["cpu"] * 2))._blocks[1][1:] == (1, 2)
         recorder = LaneScheduler(net, capacity=2, record="none", flight_window=3)
         recorder.admit("f", seed=3)
         for _ in range(4):

@@ -1,7 +1,7 @@
 """The elastic serving plane on the port (``repro_torch.serve.pool``): rung
 migration parity, admit/evict churn, recycled lanes, per-rung ledger
 bytes, admission policy; on the CPU, mirroring ``tests/test_serve_pool.py``
-(its fast cases; the mesh-sharded case is ROADMAP A11).
+(its fast cases; its mesh-sharded case is ``tests/test_torch_serve_mesh.py``).
 
 Elasticity is invisible to tenants: a session that rode the capacity
 ladder up and back down produces the state, weights, flushed telemetry and
@@ -27,6 +27,7 @@ from repro import serve as rserve  # noqa: E402
 from repro.configs import synfire4 as rsyn  # noqa: E402
 from repro.core.engine import run as ref_run  # noqa: E402
 from repro_torch.configs.synfire4 import CHAIN_STDP, SYNFIRE4_MINI, build_synfire  # noqa: E402
+from repro_torch.core.distributed import lane_mesh  # noqa: E402
 from repro_torch.core.plasticity import HomeostasisConfig  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     CapacityLadder,
@@ -205,7 +206,9 @@ class TestPoolRouting:
         _assert_state_eq(pool2.evict("mig").state, solo.state)
 
     def test_unported_parts_raise(self):
-        """Mesh (A11) still raises. The watch surface is ported (A10): a
+        """The mesh (A11) is ported: a pool and a ladder take a lane mesh,
+        and the ladder's rung 1, smaller than it, runs unsharded. The watch
+        surface is ported (A10): a
         pool over nets without watches has nothing to check (its ladder
         raises the reference's ValueError), no flight window by default,
         and quarantines a tenant with its snapshot."""
@@ -218,10 +221,11 @@ class TestPoolRouting:
         assert pool.flight("x") == ()
         q = pool.quarantine("x")
         assert q.session_id == "x" and "x" not in pool.session_ids
-        with pytest.raises(NotImplementedError, match="A11"):
-            ServePool(mesh=object())
-        with pytest.raises(NotImplementedError, match="A11"):
-            CapacityLadder(net, mesh=object())
+        mesh = lane_mesh(devices=["cpu"] * 4)
+        assert ServePool(mesh=mesh)._opts["mesh"] is mesh
+        ladder = CapacityLadder(net, mesh=mesh)
+        ladder.admit("m", seed=1)
+        assert ladder.mesh is mesh and ladder.rung == 1 and ladder.scheduler.mesh is None
 
 
 class TestReferenceParity:
