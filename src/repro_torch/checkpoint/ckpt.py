@@ -7,7 +7,10 @@ leaf names are the reference's: jax's tree-path strings joined by ``||``,
 a dict entry as ``['name']``, a NamedTuple field as ``.name`` and a tuple
 item as ``[i]``, dict entries in sorted key order; ``None`` and ``()``
 hold no leaf. So a file either package writes, the other reads. Torch
-tensors are written as numpy arrays of their dtype; the caller converts
+tensors are written as numpy arrays of their dtype, a bf16 tensor as its
+raw bits (``|V2``), which is what ``np.asarray`` of a JAX bf16 array
+writes; such a leaf is read back by its bits (the reference's own
+``restore`` refuses it: ROADMAP queue C). The caller converts
 what the reference keeps in another type (``serve.lifecycle`` writes a
 tick as int32 and a key as its ``uint32`` words). Re-sharding
 (``reshard``), which takes the LM mesh's shardings, is ROADMAP A12's.
@@ -19,6 +22,8 @@ import re
 
 import numpy as np
 import torch
+
+from repro_torch.core.convert import tensor_from_numpy
 
 __all__ = ["save", "restore", "latest_step", "save_every", "step_path"]
 
@@ -50,7 +55,10 @@ def step_path(ckpt_dir: str, step: int) -> str:
 
 def _as_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).numpy().view(np.dtype("V2"))
+        return leaf.numpy()
     return np.asarray(leaf)
 
 
@@ -82,8 +90,7 @@ def _rebuild(tree, data, prefix=()):
         return type(tree)(_rebuild(x, data, prefix + (f"[{i}]",)) for i, x in enumerate(tree))
     arr = data[_SEP.join(prefix)]
     if isinstance(tree, torch.Tensor):
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(device=tree.device,
-                                                              dtype=tree.dtype)
+        return tensor_from_numpy(arr).to(device=tree.device, dtype=tree.dtype)
     if isinstance(tree, (np.ndarray, np.generic)):
         return np.asarray(arr).astype(tree.dtype)
     return type(tree)(arr)

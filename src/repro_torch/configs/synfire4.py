@@ -142,7 +142,9 @@ def build_synfire(
     (the card when ``None``).
 
     ``policy='fp16'`` is the paper's MCU configuration, ``'fp32'`` its
-    single-precision reference. ``propagation`` selects ``packed`` dense
+    single-precision reference; ``'bf16'`` stores state, ring and weights
+    in bf16, and ``'fp16_opt'`` and ``'fp16_sr'`` compile the fp16 net (the
+    storage dtypes are all the SNN reads of a policy). ``propagation`` selects ``packed`` dense
     bucket matmuls, ``sparse`` CSR gathers or the per-projection ``auto``
     cost model. The ledger enforces ``budget`` (the paper's 8.477 MB by
     default) and counts a ``monitor_ms_hint``-tick raster buffer and the

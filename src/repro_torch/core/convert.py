@@ -26,6 +26,11 @@ reference's nested dict (``embed``, ``lm_head``, ``final_norm``,
 ``layers`` with its stacked ``[L, ...]`` leaves) as numpy arrays, into
 the port's :class:`~repro_torch.models.transformer.Transformer`, dtypes
 checked leaf by leaf.
+
+The reference's bf16 arrays reach numpy as ``ml_dtypes.bfloat16``, a
+2-byte void type to numpy itself (``dtype.str == '<V2'``), which
+``torch.from_numpy`` refuses: :func:`tensor_from_numpy` reads them by
+their bits (no ``ml_dtypes`` import: the card's machine lacks it).
 """
 from __future__ import annotations
 
@@ -39,7 +44,18 @@ from repro_torch.core.plasticity import DASTDPState, STDPState
 from repro_torch.core.synapses import STPState
 from repro_torch.precision import get_policy
 
-__all__ = ["params_from_numpy", "state_from_numpy", "lm_params_from_numpy"]
+__all__ = ["params_from_numpy", "state_from_numpy", "lm_params_from_numpy",
+           "tensor_from_numpy"]
+
+
+def tensor_from_numpy(arr) -> torch.Tensor:
+    """A C-contiguous copy of ``arr`` as a tensor; a 2-byte void array
+    (a bf16 array of the reference, ``ml_dtypes.bfloat16``, or the raw bf16
+    bits a checkpoint holds as ``|V2``) becomes bf16 of the same bits."""
+    arr = np.array(arr, copy=True, order="C")
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 class _Reader:
@@ -52,7 +68,7 @@ class _Reader:
         if key not in self._arrays:
             raise KeyError(f"missing array {key!r}")
         self._used.add(key)
-        x = torch.from_numpy(np.array(self._arrays[key], copy=True, order="C"))
+        x = tensor_from_numpy(self._arrays[key])
         if tuple(x.shape) != tuple(shape) or x.dtype != dtype:
             raise ValueError(f"{key}: expected {dtype} {tuple(shape)}, got "
                              f"{x.dtype} {tuple(x.shape)}")
@@ -188,7 +204,7 @@ def lm_params_from_numpy(cfg, arrays: dict, device, policy):
         if arr is None:
             raise KeyError(f"missing array {key!r}")
         used.add(key)
-        x = torch.from_numpy(np.array(arr, copy=True, order="C"))
+        x = tensor_from_numpy(arr)
         if tuple(x.shape) != tuple(p.shape) or x.dtype != p.dtype:
             raise ValueError(f"{name}: expected {p.dtype} {tuple(p.shape)}, got "
                              f"{x.dtype} {tuple(x.shape)}")

@@ -18,7 +18,9 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["KERNELS", "BUILD_DIR", "build", "load", "check"]
+import torch
+
+__all__ = ["KERNELS", "BUILD_DIR", "STORAGE_CODE", "build", "load", "check"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
@@ -26,6 +28,10 @@ KERNELS = ("izh_update", "syn_matmul", "syn_gather", "fused_tick", "stdp_update"
            "stdp_gather", "plastic_drive", "flash_attn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# The storage-type code a launch plan passes for a tensor's dtype (wtype,
+# stype, the occupancy query's type; csrc/common.cuh round_to decodes it).
+STORAGE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -1,7 +1,8 @@
 // Shared helpers for the port's CUDA kernels: storage-type decode/encode
-// through the CUDA intrinsics, the IZH4 update and the pair-STDP cell update
-// with their rounding pinned, the C export macro, and the error-string
-// export every library carries (each library is built from one .cu file).
+// (f32, fp16, bf16) through the CUDA intrinsics, the IZH4 update and the
+// pair-STDP cell update with their rounding pinned, the C export macro, and
+// the error-string export every library carries (each library is built
+// from one .cu file).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -19,6 +20,16 @@ template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
   return __float2half_rn(x);  // round to nearest even, as torch's .to(float16)
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);  // round to nearest even, as torch's .to(bfloat16)
+}
+
+// An f32 value rounded to the storage type of `code` (0 f32, 1 fp16, 2
+// bf16: kernels/_build.py STORAGE_CODE) and back.
+__device__ __forceinline__ float round_to(int code, float x) {
+  return code == 1 ? __half2float(__float2half_rn(x))
+                   : code == 2 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
 }
 
 // One IZH4 tick of one neuron: `substeps` Euler steps, each taking (dv, du)
@@ -98,6 +109,9 @@ __device__ __forceinline__ float rate_fold(float c, bool spike, float alpha, flo
 // as the reference's isfinite on v.astype(f32) of the stored state does.
 __device__ __forceinline__ bool stored_finite(float x) { return isfinite(x); }
 __device__ __forceinline__ bool stored_finite(__half x) {
+  return !__hisinf(x) && !__hisnan(x);
+}
+__device__ __forceinline__ bool stored_finite(__nv_bfloat16 x) {
   return !__hisinf(x) && !__hisnan(x);
 }
 

@@ -475,15 +475,18 @@ REPRO_EXPORT int fused_tick_limits(int* out) {
 }
 
 // The kernel's resident CTAs per SM at N neurons with `group` lanes'
-// bitmasks staged (storage type f32 when fp16 is 0, else fp16), the
+// bitmasks staged (storage type `code`: 0 f32, 1 fp16, 2 bf16), the
 // device's SM count, and whether it takes cooperative launches.
-REPRO_EXPORT int fused_tick_occupancy(int fp16, int n, int group, int* out) {
+REPRO_EXPORT int fused_tick_occupancy(int code, int n, int group, int* out) {
   int per_sm = 0, dev = 0, sms = 0, coop = 0;
   const size_t smem = words_bytes(n, group);
-  cudaError_t err = fp16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                               &per_sm, fused_tick_kernel<__half>, kThreads, smem)
-                         : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                               &per_sm, fused_tick_kernel<float>, kThreads, smem);
+  cudaError_t err =
+      code == 1   ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                        &per_sm, fused_tick_kernel<__half>, kThreads, smem)
+      : code == 2 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                        &per_sm, fused_tick_kernel<__nv_bfloat16>, kThreads, smem)
+                  : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                        &per_sm, fused_tick_kernel<float>, kThreads, smem);
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
@@ -510,3 +513,4 @@ REPRO_EXPORT int fused_tick_barrier_probe(int grid, int reps, void* stream) {
 
 REPRO_FUSED(fused_tick_f32, float)
 REPRO_FUSED(fused_tick_f16, __half)
+REPRO_FUSED(fused_tick_bf16, __nv_bfloat16)

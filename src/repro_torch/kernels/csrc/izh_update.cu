@@ -272,6 +272,11 @@ REPRO_EXPORT int izh4_run_f16(const NeuronPlan* p, int slot, int step, const voi
   return launch_run<__half>(p, slot, step, gen_row, i_ext, raster, v_rec, i_rec);
 }
 
+REPRO_EXPORT int izh4_run_bf16(const NeuronPlan* p, int slot, int step, const void* gen_row,
+                               const void* i_ext, void* raster, void* v_rec, void* i_rec) {
+  return launch_run<__nv_bfloat16>(p, slot, step, gen_row, i_ext, raster, v_rec, i_rec);
+}
+
 REPRO_EXPORT int izh4_update_f32(const void* v, const void* u, const void* i_syn,
                                  const void* a, const void* b, const void* c,
                                  const void* d, void* v_out, void* u_out,
@@ -288,4 +293,13 @@ REPRO_EXPORT int izh4_update_f16(const void* v, const void* u, const void* i_syn
                                  void* stream) {
   return launch<__half>(v, u, i_syn, a, b, c, d, v_out, u_out, spiked, n, h,
                         substeps, stream);
+}
+
+REPRO_EXPORT int izh4_update_bf16(const void* v, const void* u, const void* i_syn,
+                                  const void* a, const void* b, const void* c,
+                                  const void* d, void* v_out, void* u_out,
+                                  void* spiked, int n, float h, int substeps,
+                                  void* stream) {
+  return launch<__nv_bfloat16>(v, u, i_syn, a, b, c, d, v_out, u_out, spiked, n, h,
+                               substeps, stream);
 }

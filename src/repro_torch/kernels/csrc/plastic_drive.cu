@@ -82,7 +82,7 @@ struct DriveProj {
   int Q, F;
   int stp;  // 1: pre ids are local, the pre row scaled by u * x
   int pre_start, n_pre;  // STP: the pre group in the spike row
-  int wtype, stype;  // weight and STP state storage types: 0 f32, 1 fp16
+  int wtype, stype;  // weight and STP state storage types: 0 f32, 1 fp16, 2 bf16
   int sentinel;  // dense: the flat id that reads +0.0 (P * Q)
   int levels;  // window levels of the XLA order (0: F <= 32)
   int off[kMaxLevels];  // per level, the skipped slots in front of its first window
@@ -119,8 +119,9 @@ struct DriveTick {
 };
 
 __device__ __forceinline__ float load(const void* p, long long i, int type) {
-  return type ? __half2float(__ldg(static_cast<const __half*>(p) + i))
-              : __ldg(static_cast<const float*>(p) + i);
+  return type == 1   ? __half2float(__ldg(static_cast<const __half*>(p) + i))
+         : type == 2 ? __bfloat162float(__ldg(static_cast<const __nv_bfloat16*>(p) + i))
+                     : __ldg(static_cast<const float*>(p) + i);
 }
 
 // The warp's x summed over threads [lo, hi) in order from +0.0; every
@@ -199,7 +200,7 @@ struct Row {
         for (int a = 0; a < kB; ++a) {
           float ga;
           if (kStp) {
-            ga = __fmul_rn(sp[a], p.stype ? __half2float(__float2half_rn(ux[a])) : ux[a]);
+            ga = __fmul_rn(sp[a], round_to(p.stype, ux[a]));
           } else {
             ga = j[a] == n ? 0.0f : sp[a];
           }

@@ -118,7 +118,7 @@ struct StdpProj {
   float* post_tr[2];  // [B, Q] ping-pong
   long long w_lane;  // the weights' lane stride in entries
   long long begin;
-  int P, Q, F, pre_start, post_start, itype, wtype;  // wtype 0 f32, 1 fp16
+  int P, Q, F, pre_start, post_start, itype, wtype;  // wtype 0 f32, 1 fp16, 2 bf16
   float a_plus, a_minus, w_min, w_max, decay_pre, decay_post;
 };
 
@@ -129,6 +129,13 @@ struct StdpPlan {
   int n_projs;
   int lanes, n;  // lanes (grid.y) and the spike row's length (its lane stride)
 };
+
+// One cell's weight, in storage type T, updated in place.
+template <typename T>
+__device__ __forceinline__ void update_cell(T* w, float pt, float ps, float qt, float qs,
+                                            bool ok, const StdpCoeffs& c) {
+  *w = from_f32<T>(stdp_cell(to_f32(*w), pt, ps, qt, qs, ok, c));
+}
 
 __global__ void __launch_bounds__(kThreads)
     stdp_run_kernel(StdpPlan plan, const float* __restrict__ spikes, int parity) {
@@ -170,12 +177,12 @@ __global__ void __launch_bounds__(kThreads)
   const StdpCoeffs c{p.a_plus, p.a_minus, p.w_min, p.w_max};
   const bool ok = p.valid[local] != 0;
   const long long at = lane * p.w_lane + local;
-  if (p.wtype) {
-    __half* w = static_cast<__half*>(p.w) + at;
-    *w = from_f32<__half>(stdp_cell(to_f32(*w), pt, ps, qt, qs, ok, c));
+  if (p.wtype == 1) {
+    update_cell(static_cast<__half*>(p.w) + at, pt, ps, qt, qs, ok, c);
+  } else if (p.wtype == 2) {
+    update_cell(static_cast<__nv_bfloat16*>(p.w) + at, pt, ps, qt, qs, ok, c);
   } else {
-    float* w = static_cast<float*>(p.w) + at;
-    *w = stdp_cell(*w, pt, ps, qt, qs, ok, c);
+    update_cell(static_cast<float*>(p.w) + at, pt, ps, qt, qs, ok, c);
   }
 }
 
@@ -214,5 +221,7 @@ REPRO_EXPORT int stdp_gather_run(const StdpPlan* plan, const void* spikes, int p
 
 REPRO_STDP_GATHER(stdp_gather_i16_f32, int16_t, float)
 REPRO_STDP_GATHER(stdp_gather_i16_f16, int16_t, __half)
+REPRO_STDP_GATHER(stdp_gather_i16_bf16, int16_t, __nv_bfloat16)
 REPRO_STDP_GATHER(stdp_gather_i32_f32, int32_t, float)
 REPRO_STDP_GATHER(stdp_gather_i32_f16, int32_t, __half)
+REPRO_STDP_GATHER(stdp_gather_i32_bf16, int32_t, __nv_bfloat16)

@@ -114,7 +114,7 @@ struct StdpDenseProj {
   float* pre_tr[2];  // [B, P] ping-pong
   float* post_tr[2];  // [B, Q] ping-pong
   long long w_lane;  // the weights' lane stride in entries
-  int begin, P, Q, col_tiles, pre_start, post_start, wtype;  // wtype 0 f32, 1 fp16
+  int begin, P, Q, col_tiles, pre_start, post_start, wtype;  // wtype 0 f32, 1 fp16, 2 bf16
   float a_plus, a_minus, w_min, w_max, decay_pre, decay_post;
 };
 
@@ -209,8 +209,10 @@ __global__ void __launch_bounds__(kThreads)
   const StdpDenseProj p = plan.projs[k];  // a copy: the stores below alias nothing in it
   const int lane = static_cast<int>(blockIdx.y);
   const float* row = spikes + static_cast<long long>(lane) * plan.n;
-  if (p.wtype) {  // the same for the whole CTA, as is the barrier inside
+  if (p.wtype == 1) {  // the same for the whole CTA, as is the barrier inside
     update_tile<__half>(p, tile_id - p.begin, row, parity, lane);
+  } else if (p.wtype == 2) {
+    update_tile<__nv_bfloat16>(p, tile_id - p.begin, row, parity, lane);
   } else {
     update_tile<float>(p, tile_id - p.begin, row, parity, lane);
   }
@@ -250,3 +252,4 @@ REPRO_EXPORT int stdp_update_run(const StdpDensePlan* plan, const void* spikes, 
 
 REPRO_STDP_UPDATE(stdp_update_f32, float)
 REPRO_STDP_UPDATE(stdp_update_f16, __half)
+REPRO_STDP_UPDATE(stdp_update_bf16, __nv_bfloat16)

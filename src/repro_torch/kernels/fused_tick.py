@@ -52,7 +52,8 @@ MAX_BUCKETS = 64
 THREADS = 256  # per CTA
 CSR_ROWS_PER_CTA = 16  # two CSR rows (one pair in flight) per warp
 _DESC_INTS = 8
-_ENTRY = {torch.float32: "fused_tick_f32", torch.float16: "fused_tick_f16"}
+_ENTRY = {torch.float32: "fused_tick_f32", torch.float16: "fused_tick_f16",
+          torch.bfloat16: "fused_tick_bf16"}
 STORAGE_DTYPES = tuple(_ENTRY)
 
 _P = ctypes.c_void_p
@@ -77,7 +78,7 @@ class _Plan(ctypes.Structure):
 
 _TICK_SIGNATURE = [ctypes.POINTER(_Plan), ctypes.c_int, ctypes.c_int, _P, _P, _P, _P]
 _INTS = ctypes.POINTER(ctypes.c_int)
-_SIGNATURES = {"fused_tick_f32": _TICK_SIGNATURE, "fused_tick_f16": _TICK_SIGNATURE,
+_SIGNATURES = {**{name: _TICK_SIGNATURE for name in _ENTRY.values()},
                "fused_tick_limits": [_INTS],
                "fused_tick_occupancy": [ctypes.c_int, ctypes.c_int, ctypes.c_int, _INTS],
                "fused_tick_barrier_probe": [ctypes.c_int, ctypes.c_int, _P]}
@@ -241,7 +242,7 @@ class TickLauncher:
         group = lane_group(n, lanes)
         occ = (ctypes.c_int * 3)()
         _build.check(self._lib, self._lib.fused_tick_occupancy(
-            int(v.dtype == torch.float16), n, group, occ), "fused_tick occupancy")
+            _build.STORAGE_CODE[v.dtype], n, group, occ), "fused_tick occupancy")
         csr_rows = sum(w.shape[-2] for *_, w in payload.csr)
         self.grid = plan_grid(lanes * n, lanes * csr_rows, occ[0], occ[1], bool(occ[2]), grid)
         self.resident = occ[0] * occ[1]

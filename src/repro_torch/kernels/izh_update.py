@@ -26,8 +26,10 @@ __all__ = ["STORAGE_DTYPES", "CobaCoeffs", "launch", "NeuronLauncher"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURE = [_P] * 10 + [_I, ctypes.c_float, _I, _P]
-_ENTRY = {torch.float32: "izh4_update_f32", torch.float16: "izh4_update_f16"}
-_RUN_ENTRY = {torch.float32: "izh4_run_f32", torch.float16: "izh4_run_f16"}
+_ENTRY = {torch.float32: "izh4_update_f32", torch.float16: "izh4_update_f16",
+          torch.bfloat16: "izh4_update_bf16"}
+_RUN_ENTRY = {torch.float32: "izh4_run_f32", torch.float16: "izh4_run_f16",
+              torch.bfloat16: "izh4_run_bf16"}
 STORAGE_DTYPES = tuple(_ENTRY)
 
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attn as _flash
 from repro_torch.kernels import fused_tick as _fused
 from repro_torch.kernels import izh_update as _izh
@@ -78,7 +79,7 @@ def _check_lanes(name: str, lanes: int | None) -> None:
 
 def izh4_update(v, u, i_syn, a, b, c, d, *, dt: float = 1.0, substeps: int = 2):
     """Fused IZH4 tick over flat ``[N]`` tensors: returns ``(v', u',
-    spiked)`` with v', u' in v's storage dtype (fp16 or f32) and a bool
+    spiked)`` with v', u' in v's storage dtype (f32, fp16 or bf16) and a bool
     spike row. ``i_syn``, ``a``, ``b``, ``c``, ``d`` are f32."""
     n = v.shape[0]
     tensors = (v, u, i_syn, a, b, c, d)
@@ -522,7 +523,7 @@ def _check_stdp_vectors(name: str, n_pre: int, n_post: int, pre_trace, post_trac
 
 def stdp_update(w, mask, pre_trace, post_trace, pre_spikes, post_spikes, *,
                 a_plus: float, a_minus: float, w_min: float, w_max: float):
-    """Dense pair-based STDP: ``w [P, Q]`` (fp16 or f32 storage) and its
+    """Dense pair-based STDP: ``w [P, Q]`` (f32, fp16 or bf16 storage) and its
     bool ``mask`` → the updated weights in w's dtype
     (:func:`repro_torch.kernels.ref.stdp_update_ref`); traces and spikes
     ``[P]``/``[Q]`` f32, spikes as 0.0/1.0. The clip keeps a NaN, as the
@@ -786,7 +787,7 @@ class DriveRun:
             if p.out.shape != (*lead, q) or p.out.dtype != f32:
                 raise ValueError(f"plastic_drive: out {tuple(p.out.shape)} must be float32 "
                                  f"{list(lead) + [q]}")
-            if p.w_dtype not in _drive._TYPE or p.stp_dtype not in _drive._TYPE:
+            if p.w_dtype not in _build.STORAGE_CODE or p.stp_dtype not in _build.STORAGE_CODE:
                 raise ValueError(f"plastic_drive: storage dtypes {p.w_dtype}/{p.stp_dtype}")
             if p.rows is not None and p.sentinel < 0:
                 raise ValueError("plastic_drive: a dense projection needs its sentinel P·Q")

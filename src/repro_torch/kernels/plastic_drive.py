@@ -36,7 +36,6 @@ _L = ctypes.c_longlong
 MAX_PROJS = 32
 _MAX_LEVELS = 7
 WINDOW = 32  # XLA CPU's tree reduction rewriter's window
-_TYPE = {torch.float32: 0, torch.float16: 1}
 
 
 class DriveProjection(NamedTuple):
@@ -148,7 +147,8 @@ class DriveLauncher:
                 keep.append(rows)
                 d.rows = rows.data_ptr()
             d.Q, d.F, d.stp, d.pre_start, d.n_pre = q, f, int(p.stp), p.pre_start, p.n_pre
-            d.wtype, d.stype, d.sentinel = _TYPE[p.w_dtype], _TYPE[p.stp_dtype], p.sentinel
+            d.wtype, d.stype = _build.STORAGE_CODE[p.w_dtype], _build.STORAGE_CODE[p.stp_dtype]
+            d.sentinel = p.sentinel
             d.levels = len(levels)
             d.off[:len(levels)] = levels
             col = p.out.stride(-1) * p.out.element_size()

@@ -25,9 +25,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURE = [_P] * 8 + [_I, _I, _I, _F, _F, _F, _F, _P]
 _IDX = {torch.int16: "i16", torch.int32: "i32"}
-_W = {torch.float32: "f32", torch.float16: "f16"}
+_W = {torch.float32: "f32", torch.float16: "f16", torch.bfloat16: "bf16"}
 _ITYPE = {torch.int16: 0, torch.int32: 1}
-_WTYPE = {torch.float32: 0, torch.float16: 1}
 INDEX_DTYPES = tuple(_IDX)
 STORAGE_DTYPES = tuple(_W)
 
@@ -74,7 +73,7 @@ def launch(w, idx, valid, pre_t, post_t, pre_s, post_s, out, *, a_plus: float,
 
 class Projection(NamedTuple):
     """One plastic CSR projection of a run, on the run's own buffers: its
-    ``[Q, F]`` weights ``w`` (fp16 or f32, updated in place), indices
+    ``[Q, F]`` weights ``w`` (f32, fp16 or bf16, updated in place), indices
     ``idx`` (int16/int32, local to the pre group) and validity rows
     ``valid``; its traces as ping-pong pairs ``pre_tr`` (two ``[P]`` f32)
     and ``post_tr`` (two ``[Q]`` f32); where its pre and post groups start
@@ -125,7 +124,7 @@ class StdpLauncher:
             d.w_lane = p.w.stride(0) if lanes is not None else 0
             d.begin, d.P, d.Q, d.F = begin, n_pre, q, f
             d.pre_start, d.post_start = p.pre_start, p.post_start
-            d.itype, d.wtype = _ITYPE[p.idx.dtype], _WTYPE[p.w.dtype]
+            d.itype, d.wtype = _ITYPE[p.idx.dtype], _build.STORAGE_CODE[p.w.dtype]
             d.a_plus, d.a_minus, d.w_min, d.w_max = p.a_plus, p.a_minus, p.w_min, p.w_max
             d.decay_pre, d.decay_post = p.decay_pre, p.decay_post
             begin += q * f + n_pre + q

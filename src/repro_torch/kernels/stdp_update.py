@@ -25,8 +25,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURE = [_P] * 7 + [_I, _I, _F, _F, _F, _F, _P]
-_ENTRY = {torch.float32: "stdp_update_f32", torch.float16: "stdp_update_f16"}
-_WTYPE = {torch.float32: 0, torch.float16: 1}
+_ENTRY = {torch.float32: "stdp_update_f32", torch.float16: "stdp_update_f16",
+          torch.bfloat16: "stdp_update_bf16"}
 STORAGE_DTYPES = tuple(_ENTRY)
 
 
@@ -70,7 +70,7 @@ def launch(w, mask, pre_t, post_t, pre_s, post_s, out, *, a_plus: float,
 
 class DenseProjection(NamedTuple):
     """One dense-stored pair-STDP projection of a run, on the run's own
-    buffers: its ``[P, Q]`` weights ``w`` (fp16 or f32, contiguous, updated
+    buffers: its ``[P, Q]`` weights ``w`` (f32, fp16 or bf16, contiguous, updated
     in place) and bool ``mask``; its traces as ping-pong pairs ``pre_tr``
     (two ``[P]`` f32) and ``post_tr`` (two ``[Q]`` f32); where its pre and
     post groups start in the tick's ``[N]`` spike row; the update's
@@ -129,7 +129,7 @@ class StdpUpdateLauncher:
             d.w_lane = p.w.stride(0) if lanes is not None else 0
             d.begin, d.P, d.Q, d.col_tiles = tiles, n_pre, n_post, col_tiles
             d.pre_start, d.post_start = p.pre_start, p.post_start
-            d.wtype = _WTYPE[p.w.dtype]
+            d.wtype = _build.STORAGE_CODE[p.w.dtype]
             d.a_plus, d.a_minus, d.w_min, d.w_max = p.a_plus, p.a_minus, p.w_min, p.w_max
             d.decay_pre, d.decay_post = p.decay_pre, p.decay_post
             begins.append(tiles)

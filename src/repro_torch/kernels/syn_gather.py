@@ -29,7 +29,6 @@ _SIGNATURE = [_P, _P, _P, _P, _I, _I, _I, _P]
 _IDX = {torch.int16: "i16", torch.int32: "i32"}
 _W = {torch.float32: "f32", torch.float16: "f16", torch.bfloat16: "bf16"}
 _ITYPE = {torch.int16: 0, torch.int32: 1}
-_WTYPE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 INDEX_DTYPES = tuple(_IDX)
 WEIGHT_DTYPES = tuple(_W)
 WARP = 32  # a zero-fill item writes up to one entry a lane
@@ -269,7 +268,7 @@ class GatherLauncher:
             rp = RunPlan(items=items.data_ptr(), contribs=contribs.data_ptr(),
                          idx=idx.data_ptr(), w=w.data_ptr(), rows=self.rows.data_ptr(),
                          stream=stream, n_items=items.shape[0], P=plan.n_pre, F=0,
-                         itype=_ITYPE[plan.idx_dtype], wtype=_WTYPE[plan.w_dtype],
+                         itype=_ITYPE[plan.idx_dtype], wtype=_build.STORAGE_CODE[plan.w_dtype],
                          accumulate=int(g > 0), staged=int(staged),
                          absolute=int(plan.absolute), lanes=lanes or 1,
                          w_stride=0 if plan.w_lanes is None else w.shape[-1],

@@ -22,7 +22,6 @@ _I = ctypes.c_int
 _SIGNATURE = [_P, _P, _P, _I, _I, _I, _P]
 _ENTRY = {torch.float32: "syn_matmul_f32", torch.float16: "syn_matmul_f16",
           torch.bfloat16: "syn_matmul_bf16"}
-_WTYPE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 WEIGHT_DTYPES = tuple(_ENTRY)
 
 
@@ -89,7 +88,8 @@ class GemvRun:
                 self._plans.append(None)
                 continue
             k, n = w.shape[-2:]
-            kw = dict(w=w.data_ptr(), stream=stream, K=k, N=n, wtype=_WTYPE[w.dtype])
+            kw = dict(w=w.data_ptr(), stream=stream, K=k, N=n,
+                      wtype=_build.STORAGE_CODE[w.dtype])
             if lanes is None:
                 out = torch.empty((n,), dtype=torch.float32, device=device)
                 plan = GemvPlan(out=out.data_ptr(), **kw)

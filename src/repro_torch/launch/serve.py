@@ -9,7 +9,11 @@ the hand-written kernel on the card. Parameters are random, drawn from
 the same prompts.
 
   python -m repro_torch.launch.serve --arch smollm-360m --full \\
-      --batch 4 --prompt-len 512 --gen 32
+      --batch 4 --prompt-len 512 --gen 32 [--policy bf16]
+
+Every policy of ``repro_torch.precision`` serves: ``bf16`` stores weights
+and the KV cache in bf16, ``fp16_opt`` runs bf16 activations over fp16
+storage.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ from repro_torch.configs import get_arch, reduce_arch
 from repro_torch.core.network import _resolve_device
 from repro_torch.models import transformer as tf
 from repro_torch.models.tasks import make_decode_step, make_prefill_step
-from repro_torch.precision import get_policy
+from repro_torch.precision import POLICIES, get_policy
 
 __all__ = ["serve"]
 
@@ -91,14 +95,14 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=32)
-    ap.add_argument("--policy", default="fp16")
+    ap.add_argument("--policy", default="fp16", choices=sorted(POLICIES))
     ap.add_argument("--full", action="store_true",
                     help="serve the architecture at its published widths and depth "
                          "(default: its reduced smoke-test variant)")
     args = ap.parse_args()
     out = serve(args.arch, batch=args.batch, prompt_len=args.prompt_len, gen=args.gen,
                 policy_name=args.policy, reduced=not args.full)
-    print(f"{torch.cuda.get_device_name()}: prefill {out['prefill_s'] * 1e3:.1f} ms, "
+    print(f"{torch.cuda.get_device_name()} ({args.policy}): prefill {out['prefill_s'] * 1e3:.1f} ms, "
           f"decode {out['decode_tok_s']:.1f} tok/s (batch {out['batch']})")
     print("sample tokens:", out["tokens"][0, :16])
 

@@ -41,18 +41,22 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 rot: tuple[torch.Tensor, torch.Tensor] | None, *,
-                cache: dict | None = None, pos: int | None = None):
-        """x ``[B, S, D]`` f32, positions ``[B, S]`` int32, ``rot`` the
-        forward's RoPE table (None without rotary). Without ``cache``
-        (train/prefill) the sequence attends causally to itself over its
-        f32 K/V. With ``cache`` (decode) S == 1: the KV pair is written into
-        slot ``pos mod C``, whose ``cache["pos"]`` entry the caller has set
-        to ``pos``, and the query attends over the cache. Returns ``(out
-        [B, S, D], (k, v))``, k/v ``[B, S, Hkv, Dh]`` f32 after RoPE."""
+                cache: dict | None = None, pos: int | None = None,
+                act_to: torch.dtype | None = None):
+        """x ``[B, S, D]`` (f32, or the activation dtype ``act_to``), positions ``[B,
+        S]`` int32, ``rot`` the forward's RoPE table (None without rotary).
+        Without ``cache`` (train/prefill) the sequence attends causally to
+        itself over its K/V in k's dtype (f32 after RoPE; v, in the
+        activation dtype, upcast exactly). With ``cache`` (decode) S == 1:
+        the KV pair is written into slot ``pos mod C`` (cast to the cache's
+        dtype), whose ``cache["pos"]`` entry the caller has set to ``pos``,
+        and the query attends over the cache. Returns ``(out [B, S, D],
+        (k, v))``, k ``[B, S, Hkv, Dh]`` f32 after RoPE, v in the
+        activation dtype."""
         b, s, _ = x.shape
-        q = dense(x, self.wq, self.bq).view(b, s, self.n_heads, self.head_dim)
-        k = dense(x, self.wk, self.bk).view(b, s, self.n_kv_heads, self.head_dim)
-        v = dense(x, self.wv, self.bv).view(b, s, self.n_kv_heads, self.head_dim)
+        q = dense(x, self.wq, self.bq, act_to).view(b, s, self.n_heads, self.head_dim)
+        k = dense(x, self.wk, self.bk, act_to).view(b, s, self.n_kv_heads, self.head_dim)
+        v = dense(x, self.wv, self.bv, act_to).view(b, s, self.n_kv_heads, self.head_dim)
         if rot is not None:
             q = apply_rope(q, rot)
             k = apply_rope(k, rot)
@@ -62,8 +66,8 @@ class Attention(nn.Module):
             cache["v"][:, slot] = v[:, 0]
             out = ops.attention(q, cache["k"], cache["v"], positions, cache["pos"])
         else:
-            out = ops.attention(q, k, v, positions, positions[0])
-        proj = dense(out.reshape(b, s, self.n_heads * self.head_dim), self.wo)
+            out = ops.attention(q, k, v.to(k.dtype), positions, positions[0])
+        proj = dense(out.reshape(b, s, self.n_heads * self.head_dim), self.wo, act_to=act_to)
         return proj, (k, v)
 
 

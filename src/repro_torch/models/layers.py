@@ -3,9 +3,12 @@
 Math convention, as the reference's ``repro/models/layers.py``: parameters
 live in the policy's storage dtype; a projection rounds its input to the
 weight's dtype (fp16 under the paper's policy) and accumulates in f32;
-norms, activations and softmax run in f32. Both ported policies keep
-activations in f32 (the reference's bf16-activation policy is not
-ported), so there is no activation-dtype switch.
+norms and softmax run in f32 inside. The activation dtype ``act_to`` is
+the policy's compute dtype: None (f32) under every policy but
+``fp16_opt``, whose projection outputs, norm outputs and prompt embeddings
+are cast to bf16, at the places the reference's ``act`` casts them. The
+reference keeps it in a process-wide setting; here the step functions
+pass it down from their policy as an argument.
 
 A product of two fp16 values is exact in f32, so :func:`dense` upcasts
 both operands and runs an f32 matmul (TF32 stays off, PyTorch's default):
@@ -17,20 +20,33 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["dense", "rmsnorm", "layernorm", "apply_norm", "mlp_apply", "rope_table",
-           "apply_rope", "rope", "mrope", "init_dense", "init_zeros", "Norm", "MLP"]
+__all__ = ["act_dtype", "act", "dense", "rmsnorm", "layernorm", "apply_norm", "mlp_apply",
+           "rope_table", "apply_rope", "rope", "mrope", "init_dense", "init_zeros", "Norm",
+           "MLP"]
 
 f32 = torch.float32
 
 
-def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
-    """x ``[.., K]`` @ w ``[K, N]`` with f32 accumulation; f32 output."""
+def act_dtype(compute: torch.dtype) -> torch.dtype | None:
+    """The activation dtype of a policy's compute dtype: None for f32."""
+    return None if compute == f32 else compute
+
+
+def act(x: torch.Tensor, dtype: torch.dtype | None) -> torch.Tensor:
+    """``x`` cast to the activation dtype (kept as it is for None)."""
+    return x if dtype is None else x.to(dtype)
+
+
+def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
+          act_to: torch.dtype | None = None) -> torch.Tensor:
+    """x ``[.., K]`` @ w ``[K, N]`` with f32 accumulation; output in the
+    activation dtype ``act_to`` (None: f32)."""
     if w.dtype in (torch.float16, torch.bfloat16):
         x = x.to(w.dtype)
     out = torch.matmul(x.to(f32), w.to(f32))
     if b is not None:
         out = out + b.to(f32)
-    return out
+    return act(out, act_to)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -56,22 +72,43 @@ def apply_norm(kind: str, x: torch.Tensor, p: "Norm") -> torch.Tensor:
 # -- MLP variants ---------------------------------------------------------------
 
 
-def mlp_apply(kind: str, x: torch.Tensor, p: "MLP") -> torch.Tensor:
-    """x ``[.., D]`` -> ``[.., D]``. kinds: swiglu | geglu | gelu | relu2.
-    GELU is the tanh form, as ``jax.nn.gelu``'s default."""
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``. In f32, ``F.silu`` (one kernel, within an f32 ulp of
+    XLA's). Under bf16 activations, ``x * (1 / (1 + exp(-x)))`` with every
+    operation rounding to bf16, as XLA evaluates it: ``F.silu`` rounds once
+    and differs in about 4 of 10 bf16 outputs."""
+    if x.dtype == f32:
+        return F.silu(x)
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (the tanh form, its default): ``F.gelu`` in f32,
+    operation for operation in a narrower activation dtype."""
+    if x.dtype == f32:
+        return F.gelu(x, approximate="tanh")
+    c = torch.tensor(0.7978845608028654, dtype=x.dtype)  # sqrt(2 / pi) in x's dtype
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * x ** 3))))
+
+
+def mlp_apply(kind: str, x: torch.Tensor, p: "MLP",
+              act_to: torch.dtype | None = None) -> torch.Tensor:
+    """x ``[.., D]`` -> ``[.., D]``, projection outputs in the activation
+    dtype ``act_to``. kinds: swiglu | geglu | gelu | relu2. GELU is the
+    tanh form, as ``jax.nn.gelu``'s default."""
     if kind in ("swiglu", "geglu"):
-        gate = dense(x, p.w_gate)
-        up = dense(x, p.w_up)
-        a = F.silu(gate) if kind == "swiglu" else F.gelu(gate, approximate="tanh")
-        return dense(a * up, p.w_down)
-    h = dense(x, p.w_up)
+        gate = dense(x, p.w_gate, act_to=act_to)
+        up = dense(x, p.w_up, act_to=act_to)
+        a = silu(gate) if kind == "swiglu" else gelu_tanh(gate)
+        return dense(a * up, p.w_down, act_to=act_to)
+    h = dense(x, p.w_up, act_to=act_to)
     if kind == "gelu":
-        h = F.gelu(h, approximate="tanh")
+        h = gelu_tanh(h)
     elif kind == "relu2":
         h = torch.square(torch.relu(h))
     else:
         raise ValueError(kind)
-    return dense(h, p.w_down)
+    return dense(h, p.w_down, act_to=act_to)
 
 
 # -- RoPE -------------------------------------------------------------------------
@@ -167,7 +204,8 @@ def init_zeros(d: int, dtype: torch.dtype) -> nn.Parameter:
 
 class Norm(nn.Module):
     """RMSNorm (``scale``) or LayerNorm (``scale``, ``bias``), f32 at rest
-    and initialised to 0 (the norms multiply by ``1 + scale``)."""
+    and initialised to 0 (the norms multiply by ``1 + scale``); f32 inside,
+    output in the activation dtype ``act_to``."""
 
     def __init__(self, kind: str, d: int):
         super().__init__()
@@ -175,8 +213,8 @@ class Norm(nn.Module):
         self.scale = init_zeros(d, f32)
         self.bias = init_zeros(d, f32) if kind == "layernorm" else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return apply_norm(self.kind, x, self)
+    def forward(self, x: torch.Tensor, act_to: torch.dtype | None = None) -> torch.Tensor:
+        return act(apply_norm(self.kind, x, self), act_to)
 
 
 class MLP(nn.Module):
@@ -192,5 +230,5 @@ class MLP(nn.Module):
         self.w_up = init_dense(gen, d_model, d_ff, dtype)
         self.w_down = init_dense(gen, d_ff, d_model, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return mlp_apply(self.kind, x, self)
+    def forward(self, x: torch.Tensor, act_to: torch.dtype | None = None) -> torch.Tensor:
+        return mlp_apply(self.kind, x, self, act_to)

@@ -21,7 +21,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.network import _resolve_device, _unported
 from repro_torch.models.attention import Attention
-from repro_torch.models.layers import MLP, Norm, apply_norm, dense, rope_table
+from repro_torch.models.layers import MLP, Norm, act, dense, rope_table
 from repro_torch.precision import PrecisionPolicy
 
 __all__ = ["Block", "Transformer", "init_params", "forward", "lm_logits", "init_cache",
@@ -59,7 +59,9 @@ class Transformer(nn.Module):
     standard normal draws from a CPU generator, in this order: embed,
     lm_head, then per layer wq, wk, wv, wo and the MLP's weights; scaled
     by ``1/sqrt(fan-in)`` (embed and lm_head by ``1/sqrt(d_model)``).
-    With ``gen`` None the weights are left uninitialised, to be carried in."""
+    With ``gen`` None the weights are left uninitialised, to be carried in.
+    The activation dtype is not the model's: the step functions pass their
+    policy's (``act_to``)."""
 
     def __init__(self, cfg: ArchConfig, policy: PrecisionPolicy,
                  gen: torch.Generator | None):
@@ -96,16 +98,16 @@ def _rope(cfg: ArchConfig, positions: torch.Tensor):
                       rotary_pct=cfg.rotary_pct)
 
 
-def _block_full(layer: Block, h, positions, rot, cfg: ArchConfig, kv_cache: dict | None):
+def _block_full(layer: Block, h, positions, rot, kv_cache: dict | None, act_to):
     """Full-sequence block (train/prefill); packs its K/V into ``kv_cache``
     (one layer's cache) when given."""
-    x = apply_norm(cfg.norm, h, layer.norm1)
-    mix, kv = layer.attn(x, positions, rot)
+    x = layer.norm1(h, act_to)
+    mix, kv = layer.attn(x, positions, rot, act_to=act_to)
     if kv_cache is not None:
         _pack_kv(kv, positions, kv_cache)
     h = h + mix
-    x = apply_norm(cfg.norm, h, layer.norm2)
-    return h + layer.mlp(x)
+    x = layer.norm2(h, act_to)
+    return h + layer.mlp(x, act_to)
 
 
 def _pack_kv(kv, positions: torch.Tensor, kv_cache: dict) -> None:
@@ -122,12 +124,11 @@ def _pack_kv(kv, positions: torch.Tensor, kv_cache: dict) -> None:
     kv_cache["pos"][:s] = positions[0]
 
 
-def _block_decode(layer: Block, h, kv_cache: dict, positions, rot, cfg: ArchConfig,
-                  pos: int):
-    x = apply_norm(cfg.norm, h, layer.norm1)
-    h = h + layer.attn(x, positions, rot, cache=kv_cache, pos=pos)[0]
-    x = apply_norm(cfg.norm, h, layer.norm2)
-    return h + layer.mlp(x)
+def _block_decode(layer: Block, h, kv_cache: dict, positions, rot, pos: int, act_to):
+    x = layer.norm1(h, act_to)
+    h = h + layer.attn(x, positions, rot, cache=kv_cache, pos=pos, act_to=act_to)[0]
+    x = layer.norm2(h, act_to)
+    return h + layer.mlp(x, act_to)
 
 
 def _layer_cache(cache: dict, i: int) -> dict:
@@ -136,30 +137,34 @@ def _layer_cache(cache: dict, i: int) -> dict:
 
 
 def forward(model: Transformer, batch: dict, *, collect_cache: bool = False,
-            cache_len: int = 0, cache_dtype: torch.dtype = torch.float16):
+            cache_len: int = 0, cache_dtype: torch.dtype = torch.float16,
+            act_to: torch.dtype | None = None):
     """Train/prefill forward over ``batch["tokens"]`` ``[B, S]`` at
     ``batch["positions"]`` ``[B, S]`` int32 (the same row for every batch
-    entry). Returns the final hidden states ``[B, S, D]`` f32 and, with
+    entry), activations in ``act_to`` (None: f32). Returns the final
+    hidden states ``[B, S, D]`` in that dtype and, with
     ``collect_cache``, the decode cache of ``cache_len`` slots in
     ``cache_dtype`` (:func:`init_cache`'s layout)."""
     cfg = model.cfg
     tokens, positions = batch["tokens"], batch["positions"]
-    h = model.embed[tokens].to(f32)
+    h = act(model.embed[tokens].to(f32), act_to)
     rot = _rope(cfg, positions)
     cache = None
     if collect_cache:
         cache = init_cache(cfg, tokens.shape[0], cache_len, cache_dtype, tokens.device)
     for i, layer in enumerate(model.layers):
-        h = _block_full(layer, h, positions, rot, cfg,
-                        _layer_cache(cache, i) if collect_cache else None)
-    h = apply_norm(cfg.norm, h, model.final_norm)
+        h = _block_full(layer, h, positions, rot,
+                        _layer_cache(cache, i) if collect_cache else None, act_to)
+    h = model.final_norm(h, act_to)
     return (h, cache) if collect_cache else h
 
 
-def lm_logits(model: Transformer, h: torch.Tensor) -> torch.Tensor:
-    """h ``[.., D]`` -> logits ``[.., V]`` (f32 accumulate)."""
+def lm_logits(model: Transformer, h: torch.Tensor,
+              act_to: torch.dtype | None = None) -> torch.Tensor:
+    """h ``[.., D]`` -> logits ``[.., V]`` (f32 accumulate; in the
+    activation dtype ``act_to``, as the reference's)."""
     w = model.embed.T if model.cfg.tie_embeddings else model.lm_head
-    return dense(h, w)
+    return dense(h, w, act_to=act_to)
 
 
 def init_cache(cfg: ArchConfig, batch: int, capacity: int, dtype: torch.dtype,
@@ -172,12 +177,13 @@ def init_cache(cfg: ArchConfig, batch: int, capacity: int, dtype: torch.dtype,
                                      device=device)}}
 
 
-def decode_step(model: Transformer, cache: dict, token: torch.Tensor,
-                pos: int) -> tuple[torch.Tensor, dict]:
+def decode_step(model: Transformer, cache: dict, token: torch.Tensor, pos: int,
+                act_to: torch.dtype | None = None) -> tuple[torch.Tensor, dict]:
     """One serving step: token ``[B, 1]`` at position ``pos`` (a Python
-    int, the same for the whole batch) -> ``(logits [B, V] f32, cache)``.
-    The cache is updated in place (slot ``pos mod C`` of every layer) and
-    returned."""
+    int, the same for the whole batch) -> ``(logits [B, V], cache)``, the
+    logits in the activation dtype ``act_to``. The token's embedding stays f32, as
+    the reference's decode step leaves it. The cache is updated in place
+    (slot ``pos mod C`` of every layer) and returned."""
     cfg = model.cfg
     b = token.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=token.device)
@@ -186,6 +192,6 @@ def decode_step(model: Transformer, cache: dict, token: torch.Tensor,
     kv = cache["kv"]
     kv["pos"][:, pos % kv["pos"].shape[1]] = pos
     for i, layer in enumerate(model.layers):
-        h = _block_decode(layer, h, _layer_cache(cache, i), positions, rot, cfg, pos)
-    h = apply_norm(cfg.norm, h, model.final_norm)
-    return lm_logits(model, h[:, 0]), cache
+        h = _block_decode(layer, h, _layer_cache(cache, i), positions, rot, pos, act_to)
+    h = model.final_norm(h, act_to)
+    return lm_logits(model, h[:, 0], act_to), cache

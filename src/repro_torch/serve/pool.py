@@ -46,26 +46,12 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.network import CompiledNetwork, NetState
+from repro_torch.precision.policy import _flatten
 from repro_torch.serve.scheduler import Evicted, LaneScheduler, LaneSnapshot, Quarantined
 
 __all__ = ["CapacityLadder", "ServePool", "compile_fingerprint", "RUNGS"]
 
 RUNGS = (1, 8, 64, 512)
-
-
-def _leaves(tree):
-    """The tensors and numbers of a tree of NamedTuples, tuples, lists and
-    dicts, in order (None and ``()`` hold none)."""
-    if tree is None:
-        return
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _leaves(tree[k])
-    elif isinstance(tree, (tuple, list)):
-        for x in tree:
-            yield from _leaves(x)
-    else:
-        yield tree
 
 
 def compile_fingerprint(net: CompiledNetwork) -> str:
@@ -84,8 +70,13 @@ def compile_fingerprint(net: CompiledNetwork) -> str:
     if cached is not None:
         return cached
     h = hashlib.sha1(repr(net.static).encode())
-    for leaf in _leaves((net.params, net.state0.weights)):
-        arr = leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
+    for leaf in _flatten((net.params, net.state0.weights))[0]:
+        if isinstance(leaf, torch.Tensor):
+            leaf = leaf.detach().cpu()
+            # numpy has no bf16: hash its bits (the dtype is in the static plan)
+            arr = (leaf.view(torch.int16) if leaf.dtype == torch.bfloat16 else leaf).numpy()
+        else:
+            arr = np.asarray(leaf)
         h.update(str((arr.dtype, arr.shape)).encode())
         h.update(arr.tobytes())
     fp = h.hexdigest()

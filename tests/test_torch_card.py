@@ -34,7 +34,8 @@ plain versions (NaN, inf, silent and fp16-overflow lanes for the watches),
 and watched runs on the card against the CPU port; and partitioning: every
 core's launchers of a two-core plastic cut (the 50-post core among them)
 against their plain versions, and partitioned runs (both lowerings)
-against the unpartitioned card run."""
+against the unpartitioned card run; and the bf16 entries of B1, B4, B5, B6
+and the drive, as cases of the tests above (``-k bf16``)."""
 import math
 
 import numpy as np
@@ -422,14 +423,14 @@ def _fused_case(n, dtype, exact, seed, device):
 @pytest.mark.parametrize("n", [1, 33, 1025, 5000])
 @pytest.mark.parametrize("grid", [1, None], ids=["one-cta", "by-work"])
 @pytest.mark.parametrize("dtype,exact", [(torch.float16, True), (torch.float32, True),
-                                         (torch.float32, False)],
-                         ids=["fp16-exact", "fp32-exact", "fp32-normal"])
+                                         (torch.float32, False), (torch.bfloat16, True)],
+                         ids=["fp16-exact", "fp32-exact", "fp32-normal", "bf16-exact"])
 def test_fused_tick_kernel_matches_plain(card, n, grid, dtype, exact):
     """The fused tick against its plain version: twelve chained ticks bit
     for bit with exact weights; one tick with random normal weights, v',
     u', spikes and i_syn bit for bit and the ring at rtol 1e-5, atol 1e-4
-    (f32 sums in another order; fp16 rings only with exact weights, where
-    one f32 ulp could move a rounded fp16 drive by a whole fp16 ulp). The
+    (f32 sums in another order; fp16 and bf16 rings only with exact weights,
+    where one f32 ulp could move a rounded drive by a whole storage ulp). The
     grid is one CTA, or chosen by the work (one CTA per 256 neurons or 16
     CSR rows)."""
     payload, x, gen_rows = _fused_case(n, dtype, exact, seed=n, device=card)
@@ -538,7 +539,7 @@ def _neuron_net(policy, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("policy", ["fp16", "fp32"])
+@pytest.mark.parametrize("policy", ["fp16", "fp32", "bf16"])
 def test_neuron_run_matches_per_op_phase(card, policy):
     """``run`` through the neuron-phase launcher (one ``izh4_update``
     launch per tick) against the per-op phase on the card: the same
@@ -569,7 +570,7 @@ def test_neuron_run_matches_per_op_phase(card, policy):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("policy", ["fp16", "fp32"])
+@pytest.mark.parametrize("policy", ["fp16", "fp32", "bf16"])
 def test_stdp_gather_run_matches_per_call_path(card, policy):
     """Plastic Synfire4 sparse through the CSR STDP launcher (one
     ``stdp_gather`` launch per tick for the four chain projections) against
@@ -602,7 +603,7 @@ def test_stdp_gather_run_matches_per_call_path(card, policy):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("policy", ["fp16", "fp32"])
+@pytest.mark.parametrize("policy", ["fp16", "fp32", "bf16"])
 @pytest.mark.parametrize("homeo", [False, True])
 def test_stdp_update_run_matches_per_call_path(card, policy, homeo):
     """Plastic Synfire4 packed through the dense STDP launcher (one
@@ -645,7 +646,7 @@ def test_stdp_update_run_matches_per_call_path(card, policy, homeo):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
 def test_stdp_update_nan_weight_follows_plain(card, dtype):
     """A NaN weight stays NaN in a masked-in cell and becomes +0.0 in a
     masked-out one, through ``ops.stdp_update`` and ``ops.StdpUpdateRun``
@@ -703,7 +704,7 @@ def _coba_net(cfg_name, policy, propagation, device, **kw):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("policy", ["fp16", "fp32"])
+@pytest.mark.parametrize("policy", ["fp16", "fp32", "bf16"])
 def test_coba_neuron_run_matches_per_op_phase(card, policy):
     """A COBA run through the neuron-phase launcher (the conductances in the
     one ``izh4_update`` launch per tick) against the per-op COBA phase on
@@ -838,7 +839,7 @@ def _lane_states(net, lanes, seed, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("policy", ["fp16", "fp32"])
+@pytest.mark.parametrize("policy", ["fp16", "fp32", "bf16"])
 @pytest.mark.parametrize("coba", [False, True], ids=["cuba", "coba"])
 def test_neuron_run_lanes_matches_plain_and_one_lane(card, policy, coba):
     """B1 over 16 lanes at their own ticks (spread over the ring) for 12
@@ -1029,10 +1030,10 @@ def test_scheduler_lane_with_weights_of_its_own(card, propagation):
 # -- plastic, STP and fused lanes (B4, B5, B6 and the plastic drive over lanes) --------
 
 
-def _plastic_mini(propagation, device, **kw):
+def _plastic_mini(propagation, device, policy="fp16", **kw):
     from repro_torch.configs.synfire4 import CHAIN_STDP, SYNFIRE4_MINI, build_synfire
 
-    return build_synfire(SYNFIRE4_MINI, policy="fp16", propagation=propagation, device=device,
+    return build_synfire(SYNFIRE4_MINI, policy=policy, propagation=propagation, device=device,
                          stdp_chain=CHAIN_STDP, **kw)
 
 
@@ -1063,15 +1064,16 @@ def _one_lane(tree, b):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["fp16", "bf16"])
 @pytest.mark.parametrize("propagation", ["packed", "sparse"])
-def test_stdp_lanes_match_plain_and_one_lane(card, propagation):
+def test_stdp_lanes_match_plain_and_one_lane(card, propagation, policy):
     """``StdpUpdateRun`` (packed) or ``StdpGatherRun`` (sparse) over 48 lanes
     of the plastic mini's chain on random off-grid weights and traces, a
     third of the lanes silent: bit for bit their plain lane versions after
     every tick, and every lane its one-lane launch; one launch a tick."""
     from repro_torch.core import backend as be
 
-    net = _plastic_mini(propagation, card)
+    net = _plastic_mini(propagation, card, policy)
     g = torch.Generator().manual_seed(21)
     lanes = 48
     weights, stdp = _lane_tables(net, g, lanes, card)
@@ -1106,8 +1108,9 @@ def test_stdp_lanes_match_plain_and_one_lane(card, propagation):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["fp16", "bf16"])
 @pytest.mark.parametrize("net_name", ["packed", "sparse", "stp", "x10-sparse"])
-def test_drive_kernel_matches_plain_bitwise(card, net_name):
+def test_drive_kernel_matches_plain_bitwise(card, net_name, policy):
     """``DriveRun`` over 16 lanes on random off-grid weights (and STP state)
     lands bit for bit what ``ref.drive_run_ref`` lands, on the card and on
     the CPU, and every lane its one-lane launch: the kernel sums each row
@@ -1122,14 +1125,14 @@ def test_drive_kernel_matches_plain_bitwise(card, net_name):
         b_.add_group("n", izh4(20, a=0.02, b=0.2, c=-65.0, d=8.0))
         b_.connect("g", "n", fanin=20, weight=0.3, delay_ms=1,
                    stp=STPConfig(u0=0.45, tau_f=50.0, tau_d=750.0))
-        net = b_.compile(policy="fp16", device=card)
+        net = b_.compile(policy=policy, device=card)
     elif net_name == "x10-sparse":
         from repro_torch.configs.synfire4 import CHAIN_STDP, SYNFIRE4_X10, build_synfire
 
-        net = build_synfire(SYNFIRE4_X10, policy="fp16", propagation="sparse", device=card,
+        net = build_synfire(SYNFIRE4_X10, policy=policy, propagation="sparse", device=card,
                             stdp_chain=CHAIN_STDP, monitor_ms_hint=0, budget=None)
     else:
-        net = _plastic_mini(net_name, card)
+        net = _plastic_mini(net_name, card, policy)
     g = torch.Generator().manual_seed(22)
     lanes = 16
     fanin = be.assemble_fanin(net.static, net.params)
@@ -1215,9 +1218,10 @@ def test_neuron_run_lane_counts_match_one_lane(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["fp16", "bf16"])
 @pytest.mark.parametrize("per_lane", [False, True], ids=["shared", "per-lane"])
 @pytest.mark.parametrize("propagation", ["packed", "sparse"])
-def test_fused_tick_lanes_match_plain_and_one_lane(card, propagation, per_lane):
+def test_fused_tick_lanes_match_plain_and_one_lane(card, propagation, per_lane, policy):
     """``FusedTickRun`` over 64 lanes of Synfire4 fp16 at their own ring
     slots (random v, u, ring and generator rows, a third of the lanes
     silent; weights shared, or each lane's own Synfire-valued table, which
@@ -1228,7 +1232,7 @@ def test_fused_tick_lanes_match_plain_and_one_lane(card, propagation, per_lane):
     from repro_torch.core.neurons import NeuronModel
     from repro_torch.kernels.fused_tick import assemble_kernel
 
-    net = build_synfire(SYNFIRE4, policy="fp16", propagation=propagation, device=card,
+    net = build_synfire(SYNFIRE4, policy=policy, propagation=propagation, device=card,
                         backend="fused", budget=None)
     g = torch.Generator().manual_seed(24)
     lanes, ticks, n = 64, 12, net.static.n
@@ -1471,7 +1475,7 @@ def _monitor_slots(g, shape, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("lanes", [None, 64], ids=["one-lane", "64-lanes"])
-@pytest.mark.parametrize("policy", ["fp16", "fp32"])
+@pytest.mark.parametrize("policy", ["fp16", "fp32", "bf16"])
 def test_neuron_run_monitor_slots_match_plain(card, policy, lanes):
     """B1 with the in-run monitor slots (a SpikeCount's count, a GroupRate's
     level folded in the launch) over 20 chained Synfire4 ticks: bit for bit
@@ -1650,7 +1654,7 @@ def _watch_slots(g, lead, n, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("substeps", [2, 1])
 @pytest.mark.parametrize("lanes", [None, 64], ids=["one-lane", "64-lanes"])
-@pytest.mark.parametrize("policy", ["fp16", "fp32"])
+@pytest.mark.parametrize("policy", ["fp16", "fp32", "bf16"])
 def test_neuron_run_watch_slots_match_plain(card, policy, lanes, substeps):
     """B1 with the in-run watch slots (a RateBand's count, a Silent's and a
     NonFinite's words) over 12 chained Synfire4 ticks on random state: bit
@@ -1658,7 +1662,9 @@ def test_neuron_run_watch_slots_match_plain(card, policy, lanes, substeps):
     0's membrane NaN and, over lanes, lane 1's stored as inf, lane 2 at rest
     (it never spikes) and lane 3's ring at -65,504 (with one substep its f32
     membrane lands finite past -65,504, which fp16 stores as -inf: counted,
-    the check is on the stored value)."""
+    the check is on the stored value; bf16 and f32 store it finite). NaNs
+    compare by place, not by bits: the kernel's and torch's NaN patterns
+    may differ."""
     from repro_torch.configs.synfire4 import SYNFIRE4, build_synfire
     from repro_torch.core import NeuronModel
 

@@ -190,7 +190,8 @@ def _flat_state(state):
     return out
 
 
-@pytest.mark.parametrize("policy,propagation", [("fp32", "sparse"), ("fp16", "packed")])
+@pytest.mark.parametrize("policy,propagation", [("fp32", "sparse"), ("fp16", "packed"),
+                                               ("bf16", "sparse")])
 def test_resume_reference_state_on_port(policy, propagation):
     """The reference's params and its Synfire4 state after 137 ticks,
     carried across, continue on the port for 113 ticks into the

@@ -472,8 +472,8 @@ class TestSTDPUpdate:
         with pytest.raises(ValueError, match="bool mask"):
             ops.stdp_update(torch.ones((4, 4)), torch.ones((4, 4)), ones, ones, ones,
                             ones, **STDP_KW)
-        with pytest.raises(ValueError, match="w dtype"):
-            ops.stdp_update(torch.ones((4, 4), dtype=torch.bfloat16),
+        with pytest.raises(ValueError, match="w dtype"):  # bf16 is a storage dtype now
+            ops.stdp_update(torch.ones((4, 4), dtype=torch.float64),
                             torch.ones((4, 4), dtype=torch.bool), ones, ones, ones, ones,
                             **STDP_KW)
         with pytest.raises(ValueError, match="float32"):
@@ -824,7 +824,7 @@ class TestStdpUpdateRun:
         with pytest.raises(ValueError, match="bool mask of its shape"):
             ops.StdpUpdateRun(200, [p._replace(mask=p.mask.float())])
         with pytest.raises(ValueError, match="w dtype"):
-            ops.StdpUpdateRun(200, [p._replace(w=p.w.to(torch.bfloat16))])
+            ops.StdpUpdateRun(200, [p._replace(w=p.w.to(torch.float64))])
         with pytest.raises(ValueError, match="pre_tr/post_tr"):
             ops.StdpUpdateRun(200, [p._replace(post_tr=(p.pre_tr[0], p.pre_tr[1]))])
         with pytest.raises(ValueError, match="float32"):

@@ -645,7 +645,7 @@ def test_drive_run_checks_its_projections():
     for bad, match in (
             (dict(rows=torch.zeros((4, 2), dtype=torch.int64)), "one \\[Q, F\\]"),
             (dict(out=acc[:, :3]), "out"), (dict(out=acc.double()[:, :4]), "out"),
-            (dict(rows=pre, sentinel=-1), "sentinel"), (dict(w_dtype=torch.bfloat16), "dtype"),
+            (dict(rows=pre, sentinel=-1), "sentinel"), (dict(w_dtype=torch.float64), "dtype"),
             (dict(pre=pre.to("meta")), "different devices")):
         with pytest.raises(ValueError, match=match):
             ops.DriveRun(10, [DriveProjection(**{**ok, **bad})], lanes=2)
