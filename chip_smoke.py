@@ -247,6 +247,23 @@ Phases (each raises, and the script exits non-zero, on any failure):
    fp16, bf16 and fp16_opt, and at 2 layers the card against the CPU port.
    The bf16 entries join the kernel rows as ``<kernel>[bf16]``, their
    launches counted on (b)-(d).
+13. Training (after phase 12, in a process of its own too: ``chip_smoke.py
+   --train-json PATH``): (a) the attention backward ``flash_attn_bwd`` and
+   B7's forward with the rows' log-sum-exp against their plain versions
+   (each output within ``BWD_TOL`` of its scale, two backward calls bit
+   for bit) at smollm-360m's training shape, the reduced shape, 5 rows per
+   KV head, a window, invalid slots and rows with no key, head dims 128
+   and 160 (GQA groups 5 and 4) and Sk = 1,536, each timed beside its
+   plain version and the backward of ``scaled_dot_product_attention``;
+   (b) smollm-360m at full width trained through ``launch.train.train``
+   for 10 steps of 8 x 512 ``TokenStream`` tokens under fp16 (the main
+   path: finite losses, no skipped step, exactly 64 ``flash_attention``
+   and 32 ``flash_attention_bwd`` launches a step), ms/step, tokens/s and
+   peak device memory; (c) the card against the CPU port at full width cut
+   to 2 layers, fp32 and fp16: one step's loss, grad norm and new masters,
+   three steps' losses; (d) the reduced model learning over 20 steps, 4
+   straight steps equal to 2 + save/restore + 2 bit for bit, a NaN step
+   skipped; (e) bf16 and fp16_opt at full width for 3 steps.
 6. LM serving on the dense decoder (``repro_torch.launch.serve``; after
    phase 12, in a process of its own: ``chip_smoke.py --lm-json PATH``): (a) the
    attention kernel ``flash_attention`` against its plain version on the
@@ -288,6 +305,7 @@ import contextlib
 import copy
 import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1917,7 +1935,7 @@ def _card_and_cpu_rasters(cfg, policy, propagation, gen_u, dev, **build_kw):
 
 
 NOT_ON_PATH = {"stdp_update": 0, "stdp_gather": 0, "plastic_drive": 0,
-               "flash_attention": 0}  # of a static tick
+               "flash_attention": 0, "flash_attention_bwd": 0}  # of a static tick
 
 
 def _fused_launches(ticks: int) -> dict:
@@ -2261,7 +2279,7 @@ def _plastic_launches(net, ticks: int) -> dict:
     return {"izh4_update": ticks, "syn_matmul": kinds.count("dense") * ticks,
             "syn_gather": ticks if "sparse" in kinds else 0, "fused_tick": 0,
             "stdp_update": ticks if chain - csr else 0, "stdp_gather": ticks if csr else 0,
-            "plastic_drive": ticks, "flash_attention": 0}
+            "plastic_drive": ticks, "flash_attention": 0, "flash_attention_bwd": 0}
 
 
 def phase_plastic(dev, totals: dict) -> dict:
@@ -6494,6 +6512,340 @@ def phase_profile(dev) -> dict:
     return out
 
 
+# -- training (A12b) ------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 10
+# Of each output's scale: the kernel and the plain version (cuBLAS) sum in
+# their own orders, over up to Sq x G terms for dK and dV (1.5e-5 measured
+# at smollm's shape, run 3; NVIDIA H100 80GB HBM3).
+BWD_TOL = 2e-4
+# Card against the CPU port, one step from the same state and tokens (full
+# width, 2 layers): fp32 sums in another order; under fp16 each gradient is
+# also rounded to fp16 on its way back, where a sum one ulp apart flips it.
+TRAIN_CARD_TOL = {"fp32": {"loss": 1e-5, "grad_norm": 1e-4, "losses": 1e-4},
+                  "fp16": {"loss": 1e-4, "grad_norm": 1e-3, "losses": 1e-3}}
+
+
+def _bwd_case(g, b, s, hq, hkv, d, dev, invalid=0, shift=0):
+    q = torch.randn((b, s, hq, d), generator=g)
+    k = torch.randn((b, s, hkv, d), generator=g)
+    v = torch.randn((b, s, hkv, d), generator=g)
+    dout = torch.randn((b, s, hq, d), generator=g)
+    kpos = torch.arange(s, dtype=torch.int32)
+    if invalid:
+        kpos[-invalid:] = -1
+    qpos = (torch.arange(s, dtype=torch.int32) + shift).expand(b, s)
+    return [x.contiguous().to(dev) for x in (q, k, v, qpos, kpos, dout)]
+
+
+def _bwd_row(name, args, causal, window):
+    """Check and time B7's forward with the rows' log-sum-exp and the
+    attention backward on one case: each output against its plain version
+    (within ``BWD_TOL`` of its scale), two backward calls bit for bit; per
+    call and on the device, the plain backward, the backward of one
+    ``scaled_dot_product_attention`` on the same f32 inputs (causal,
+    ``enable_gqa``; None where the case has a window, invalid slots or rows
+    with no key: SDPA has no such mask there), and the bound: the inputs
+    read and the gradients written once at 3.35 TB/s, or five f32 products
+    (2 operations each) of D per allowed (query, key) pair and head at 67
+    TFLOP/s, whichever is larger."""
+    from repro_torch.kernels import ops, ref
+
+    q, k, v, qpos, kpos, dout = args
+    fwd = lambda: ops._attention_fwd(q, k, v, qpos, kpos, causal, window, with_lse=True)  # noqa: E731
+    out, lse = fwd()
+    bwd = lambda: ops.attention_bwd(q, k, v, qpos, kpos, out, lse, dout, causal=causal,  # noqa: E731
+                                    window=window)
+    got, again = bwd(), bwd()
+    w_out, w_lse = ref.chunked_attention_ref(q, k, v, qpos, kpos, causal=causal,
+                                             window=window, return_lse=True)
+    plain = lambda: ref.chunked_attention_bwd_ref(q, k, v, qpos, kpos, w_out, w_lse, dout,  # noqa: E731
+                                                  causal=causal, window=window)
+    want = plain()
+    torch.cuda.synchronize()
+    require(all(torch.equal(x, y) for x, y in zip(got, again)),
+            f"flash_attn_bwd {name}: two calls differ")
+    errs, rel = {}, {}
+    for what, x, y in zip(("out", "lse", "dq", "dk", "dv"), (out, lse, *got), (w_out, w_lse, *want)):
+        errs[what] = max_err(x, y)
+        rel[what] = errs[what] / max(float(y.abs().max()), 1.0)
+        require(rel[what] <= BWD_TOL, f"flash_attn_bwd {name}: {what} max abs err "
+                f"{errs[what]}, {rel[what]} of its scale > {BWD_TOL}")
+    allowed = _allowed(qpos, kpos, causal, window)
+    pairs = int(allowed.sum())
+    b, s, hq, d = q.shape
+    b_ms, b_by = bound(nbytes(q, k, v, out, lse, dout, qpos, kpos) + nbytes(*got),
+                       10 * hq * d * pairs)
+    library = library_device = None
+    plain_mask = causal and window <= 0 and bool((kpos >= 0).all()) and bool(
+        allowed.any(dim=-1).all())
+    if plain_mask:
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+        ot = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                               enable_gqa=True)
+        gt = dout.transpose(1, 2).contiguous()
+
+        def sdpa_bwd():
+            return torch.autograd.grad(ot, (qt, kt, vt), gt, retain_graph=True)
+
+        library = cuda_ms(sdpa_bwd, reps=20, warmup=3)
+        library_device = device_total_ms(sdpa_bwd, reps=10)
+    row = {"case": name, "shape": f"q {list(q.shape)} kv {list(k.shape)} causal={causal} "
+           f"window={window}", "max_abs_err": max(errs.values()), "errs": errs,
+           "errs_of_scale": rel,
+           "allowed_pairs": pairs, "ms": cuda_ms(bwd, reps=20, warmup=3),
+           "device_ms": device_total_ms(bwd, reps=10),
+           "fwd_lse_ms": cuda_ms(fwd, reps=20, warmup=3),
+           "fwd_ms": cuda_ms(lambda: ops.attention(q, k, v, qpos, kpos, causal=causal,
+                                                   window=window), reps=20, warmup=3),
+           "plain_ms": cuda_ms(plain, reps=3, warmup=1), "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": library, "library_device_ms": library_device}
+    lib = "-" if library is None else (f"{library * 1e3:.2f} us ({library_device * 1e3:.2f} "
+                                       "us on the device)")
+    log(f"[train] flash_attn_bwd {name} ({row['shape']}): errs {errs}, of the scale "
+        f"{ {k: float(f'{v:.3g}') for k, v in rel.items()} }, "
+        f"{row['ms'] * 1e3:.2f} us per call ({row['device_ms'] * 1e3:.2f} us on the device), "
+        f"plain {row['plain_ms'] * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us ({b_by}), SDPA "
+        f"backward {lib}; forward with lse {row['fwd_lse_ms'] * 1e3:.2f} us, without "
+        f"{row['fwd_ms'] * 1e3:.2f} us")
+    return row
+
+
+def _check_bwd(dev) -> dict:
+    """Phase 13a; returns the backward kernel's row (its numbers: smollm's
+    training shape) with every case under ``cases``."""
+    g = torch.Generator(device="cpu").manual_seed(43)
+    cases = [
+        ("smollm train [8,512,15,64], 5 KV heads", _bwd_case(g, 8, 512, 15, 5, 64, dev),
+         True, -1),
+        ("reduced [4,64,4,16], 1 KV head", _bwd_case(g, 4, 64, 4, 1, 16, dev), True, -1),
+        ("5 rows per KV head (decode-sized)", _bwd_case(g, 2, 5, 3, 1, 16, dev), True, -1),
+        ("window 64, group 4", _bwd_case(g, 2, 160, 8, 2, 16, dev), True, 64),
+        ("invalid slots and rows with no key",
+         _bwd_case(g, 2, 40, 6, 2, 64, dev, invalid=5, shift=-8), True, -1),
+        ("D 128, group 5 (qwen2.5)", _bwd_case(g, 1, 512, 10, 2, 128, dev), True, -1),
+        ("D 128, group 4 (minitron)", _bwd_case(g, 1, 512, 8, 2, 128, dev), True, -1),
+        ("D 160, group 4 (stablelm)", _bwd_case(g, 1, 512, 8, 2, 160, dev), True, -1),
+        ("Sk 1,536, group 3", _bwd_case(g, 1, 1536, 15, 5, 64, dev), True, -1),
+    ]
+    rows = [_bwd_row(name, args, causal, window) for name, args, causal, window in cases]
+    main = rows[0]
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attn_bwd.cu",
+            "replaces": "src/repro/models/attention.py:53 (XLA autodiff of chunked_attention; "
+                        "no Pallas kernel)",
+            "shape": main["shape"], "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "library_device_ms", "fwd_lse_ms",
+                                    "fwd_ms")},
+            "cases": rows}
+
+
+def _state_to(state, dev):
+    from repro_torch.precision.policy import tree_map
+
+    return tree_map(lambda x: x.to(dev), state)
+
+
+def _train_card_vs_cpu(dev, policy_name: str) -> dict:
+    """Phase 13c: smollm-360m at full width cut to 2 layers, one state on
+    the CPU and the card, 2 x 64 tokens: one step's loss, grad norm and
+    every new master (within 2 lr_t: Adam's first step moves each entry by
+    about lr_t sign(g), so a gradient entry that is rounding noise on both
+    devices may move the other way), then three steps' losses."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models import tasks
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.precision import get_policy
+    from repro_torch.precision.policy import tree_leaves
+
+    cfg = dataclasses.replace(get_arch(SMOLLM), n_layers=2)
+    policy = get_policy(policy_name)
+    lr = 1e-3
+    step = tasks.make_train_step(cfg, policy, opt_cfg=AdamWConfig(lr=lr), ce_chunk=64)
+    stream = TokenStream(cfg.vocab_size, 64, 2, seed=3)
+    state0 = tasks.init_train_state(cfg, policy, seed=5, device="cpu")
+    out = {}
+    for where, state in (("cpu", state0), ("card", _state_to(state0, dev))):
+        losses, first = [], None
+        where_dev = state["params"]["embed"].device
+        for i in range(3):
+            state, m = step(state, {"tokens": stream.batch(i)["tokens"].to(where_dev)})
+            losses.append(float(m["loss"]))
+            if i == 0:
+                first = ({k: float(v) for k, v in m.items()}, _state_to(state, "cpu"))
+        out[where] = (losses, first)
+    tol = TRAIN_CARD_TOL[policy_name]
+    (cl, (cm, cs)), (gl, (gm, gs)) = out["cpu"], out["card"]
+    lr_t = lr * 2 / 100
+    master = "master" if policy.master_fp32 else "params"
+    leaf_err = max(max_err(a, b) for a, b in zip(tree_leaves(gs[master]),
+                                                 tree_leaves(cs[master])))
+    rel = {k: abs(gm[k] - cm[k]) / abs(cm[k]) for k in ("loss", "grad_norm")}
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
+    require(rel["loss"] <= tol["loss"] and rel["grad_norm"] <= tol["grad_norm"],
+            f"train card vs CPU {policy_name}: {rel} against {tol}")
+    require(leaf_err <= 2 * lr_t + 1e-6, f"train card vs CPU {policy_name}: a new master "
+            f"is {leaf_err} from the CPU's (> 2 lr_t = {2 * lr_t})")
+    require(loss_rel <= tol["losses"], f"train card vs CPU {policy_name}: 3-step losses "
+            f"{gl} against {cl}")
+    log(f"[train] card vs CPU port, {SMOLLM} full width 2 layers {policy_name}: step 1 loss "
+        f"rel {rel['loss']:.3g}, grad norm rel {rel['grad_norm']:.3g}, new masters max abs "
+        f"{leaf_err:.3g} (2 lr_t = {2 * lr_t:.3g}); 3-step losses card {gl} CPU {cl} (max rel "
+        f"{loss_rel:.3g}); tolerance {tol}")
+    return {"rel": rel, "master_max_abs": leaf_err, "losses_card": gl, "losses_cpu": cl,
+            "losses_max_rel": loss_rel, "tolerance": tol}
+
+
+def _train_learns_and_resumes(dev) -> dict:
+    """Phase 13d on the card: the reduced smollm learns over 20 steps at lr
+    3e-3 (the reference's ``test_loss_descends``); 4 straight steps equal
+    2 steps, ``save``, ``restore`` and 2 more, bit for bit; a NaN in the
+    embedding's master skips the step."""
+    import tempfile
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_arch, reduce_arch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models import tasks
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.precision import get_policy
+    from repro_torch.precision.policy import tree_leaves
+
+    cfg, policy = reduce_arch(get_arch(SMOLLM)), get_policy("fp16")
+    step = tasks.make_train_step(cfg, policy, opt_cfg=AdamWConfig(lr=3e-3), ce_chunk=32)
+    stream = TokenStream(cfg.vocab_size, 64, 4, seed=1)
+    batch = lambda i: {"tokens": stream.batch(i)["tokens"].to(dev)}  # noqa: E731
+    state = tasks.init_train_state(cfg, policy, seed=0, device=dev)
+    losses = []
+    for i in range(20):
+        state, m = step(state, batch(i))
+        losses.append(float(m["loss"]))
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    require(all(map(math.isfinite, losses)) and last < first,
+            f"reduced {SMOLLM} on the card does not learn: {losses}")
+
+    s = tasks.init_train_state(cfg, policy, seed=5, device=dev)
+    for i in range(4):
+        s, m_straight = step(s, batch(100 + i))
+    s2 = tasks.init_train_state(cfg, policy, seed=5, device=dev)
+    for i in range(2):
+        s2, _ = step(s2, batch(100 + i))
+    with tempfile.TemporaryDirectory() as d:
+        ckpt.save(d, 2, s2)
+        s2 = ckpt.restore(d, 2, tasks.init_train_state(cfg, policy, seed=9, device=dev))
+    for i in range(2, 4):
+        s2, m_resumed = step(s2, batch(100 + i))
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves((s, m_straight)),
+                                                  tree_leaves((s2, m_resumed))))
+    require(same, "4 straight steps on the card differ from 2 + save/restore + 2")
+
+    bad = tasks.init_train_state(cfg, policy, seed=0, device=dev)
+    bad["master"]["embed"][0, 0] = float("nan")
+    scale_before = bad["master"]["final_norm"]["scale"].clone()
+    new, m = step(bad, {"tokens": torch.zeros((4, 32), dtype=torch.int64, device=dev)})
+    skipped = float(m["skipped"])
+    require(skipped == 1.0 and torch.equal(new["master"]["final_norm"]["scale"], scale_before)
+            and float(new["scale"].scale) == 2048.0 and int(new["opt"].step) == 0,
+            f"the NaN step on the card was not skipped: {m}")
+    log(f"[train] reduced {SMOLLM} fp16 on the card, 20 steps at lr 3e-3: loss {losses[0]:.4f} "
+        f"-> {losses[-1]:.4f} (mean of the first 5 {first:.4f}, of the last 5 {last:.4f}); "
+        f"resume bit for bit: {same}; NaN step skipped, scale 4096 -> "
+        f"{float(new['scale'].scale):.0f}")
+    return {"losses": losses, "first5": first, "last5": last, "resume_bitwise": same,
+            "nan_skipped": skipped}
+
+
+def _train_full(dev, policy_name: str, steps: int, totals: dict | None) -> dict:
+    """smollm-360m at full width (32 layers) through ``launch.train.train``
+    from ``TokenStream``: ``steps`` steps of batch 8 x 512. Losses finite,
+    no step skipped (the scale stays at the policy's, the step count at
+    ``steps``); with ``totals`` the launches are counted (the main path)
+    and required: 2 B7 forwards a layer a step (remat runs each block
+    twice) and one backward."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+    from repro_torch.precision import get_policy
+
+    cfg, policy = get_arch(SMOLLM), get_policy(policy_name)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    out = train(SMOLLM, steps=steps, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                policy_name=policy_name, reduced=False, lr=1e-4, seed=0, log_every=steps,
+                device=dev)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    state = out["state"]
+    require(all(map(math.isfinite, out["losses"])), f"train {policy_name}: {out['losses']}")
+    want_scale = policy.loss_scale or 1.0
+    require(float(state["scale"].scale) == want_scale and int(state["opt"].step) == steps,
+            f"train {policy_name}: a step was skipped (scale {float(state['scale'].scale)}, "
+            f"step {int(state['opt'].step)})")
+    if totals is not None:
+        want = {k: 0 for k in launches}
+        want["flash_attention"] = 2 * cfg.n_layers * steps
+        want["flash_attention_bwd"] = cfg.n_layers * steps
+        require(launches == want, f"train launches {launches} != {want}")
+        _add(totals, launches)
+    times = out["times"][2:] if steps > 3 else out["times"][1:]
+    ms = sorted(times)[len(times) // 2] * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    res = {"policy": policy_name, "steps": steps, "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+           "losses": out["losses"], "ms_per_step_median": ms,
+           "ms_per_step": [t * 1e3 for t in out["times"]], "tokens_per_s": tokens / ms * 1e3,
+           "peak_device_bytes": peak, "launches": launches,
+           "loss_scale": float(state["scale"].scale)}
+    log(f"[train] {SMOLLM} full width (32 layers) {policy_name}, batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, {steps} steps: losses {out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}, "
+        f"{ms:.1f} ms/step (median after warm-up; steps {[round(t * 1e3, 1) for t in out['times']]}), "
+        f"{res['tokens_per_s']:.0f} tokens/s, peak device memory {peak} B, launches {launches}")
+    return res
+
+
+def phase_train(dev, totals: dict) -> tuple[dict, dict]:
+    """Phase 13: the attention backward and B7's log-sum-exp against their
+    plain versions (a); smollm-360m trained at full width, the main path
+    (b); the card against the CPU port (c); learning, resume and the NaN
+    skip (d); the bf16 and fp16_opt policies at full width (e). Returns
+    (the backward kernel's row, paths)."""
+    t0 = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    log(f"[train] {smi}")
+    row = _check_bwd(dev)
+    paths = {"train/card": smi,
+             "train/smollm-360m/fp16": _train_full(dev, "fp16", TRAIN_STEPS, totals)}
+    for policy_name in ("fp32", "fp16"):
+        paths[f"train/smollm-360m-2l/card_vs_cpu/{policy_name}"] = _train_card_vs_cpu(
+            dev, policy_name)
+    paths["train/smollm-360m-reduced/learn_resume_nan"] = _train_learns_and_resumes(dev)
+    for policy_name in ("bf16", "fp16_opt"):
+        paths[f"train/smollm-360m/{policy_name}"] = _train_full(dev, policy_name, 3, None)
+    seconds = time.perf_counter() - t0
+    paths["train/phase_s"] = seconds
+    log(f"[train] phase 13 in {seconds:.1f} s")
+    return row, paths
+
+
+def _train_main(out: str) -> int:
+    """``--train-json PATH``: phase 13 alone, its row, paths and launch
+    counts written to ``PATH`` as JSON."""
+    from repro_torch.kernels import _build, ops
+
+    _build.build()
+    totals = {k: 0 for k in ops.LAUNCHES}
+    row, paths = phase_train(torch.device("cuda", 0), totals)
+    Path(out).write_text(json.dumps({"row": row, "paths": paths, "totals": totals},
+                                    default=str))
+    return 0
+
+
 def _run_child(flag: str, timeout: int) -> dict:
     """``chip_smoke.py flag PATH`` in a process of its own, waited for;
     returns the JSON it wrote to PATH. Late in a long process
@@ -6547,6 +6899,8 @@ def main() -> int:
         return _partition_main(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--precision-json":
         return _precision_main(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--train-json":
+        return _train_main(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--lm-json":
         return _lm_main(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--profile-json":
@@ -6573,6 +6927,10 @@ def main() -> int:
     paths.update(phase_obs_fresh(rows, totals))
     paths.update(phase_partition_fresh(totals))
     paths.update(phase_precision_fresh(rows, totals))
+    trained = _run_child("--train-json", 600)  # phase 13
+    _add(totals, trained["totals"])
+    rows.append(trained["row"])
+    paths.update(trained["paths"])
     lm = _run_child("--lm-json", 900)  # phases 6 and 7: fresh processes, whole traces
     _add(totals, lm["totals"])
     rows.append(lm["row"])

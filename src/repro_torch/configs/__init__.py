@@ -14,7 +14,10 @@ from repro_torch.configs.base import (
     ArchConfig,
     HybridConfig,
     MoEConfig,
+    SHAPES,
     SSMConfig,
+    ShapeConfig,
+    count_active_params,
     count_params,
 )
 from repro_torch.configs.synfire4 import (
@@ -54,6 +57,10 @@ def get_arch(name: str) -> ArchConfig:
     return importlib.import_module(f"repro_torch.configs.{mod}").CONFIG
 
 
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+
+
 def reduce_arch(cfg: ArchConfig) -> ArchConfig:
     """Smoke-test variant: same family/topology, tiny dimensions."""
     kv_ratio = max(1, cfg.n_heads // max(cfg.n_kv_heads, 1))
@@ -81,7 +88,8 @@ def reduce_arch(cfg: ArchConfig) -> ArchConfig:
     return dataclasses.replace(cfg, **changes)
 
 
-__all__ = ["ARCH_NAMES", "ArchConfig", "HybridConfig", "MoEConfig", "SSMConfig",
-           "count_params", "get_arch", "reduce_arch",
+__all__ = ["ARCH_NAMES", "ArchConfig", "HybridConfig", "MoEConfig", "SHAPES", "SSMConfig",
+           "ShapeConfig", "count_active_params", "count_params", "get_arch", "get_shape",
+           "reduce_arch",
            "SYNFIRE4", "SYNFIRE4_MINI", "SYNFIRE4_X10", "SynfireConfig",
            "build_synfire", "scale_synfire"]

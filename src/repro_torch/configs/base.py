@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["MoEConfig", "SSMConfig", "HybridConfig", "ArchConfig", "count_params"]
+__all__ = ["MoEConfig", "SSMConfig", "HybridConfig", "ArchConfig", "ShapeConfig", "SHAPES",
+           "count_params", "count_active_params"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,7 +91,23 @@ class ArchConfig:
         return len(kinds) == 1
 
 
-# -- analytic parameter counts ----------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+# -- analytic parameter counts (MODEL_FLOPS = 6·N·D) ---------------------------
 
 
 def _mlp_params(cfg: ArchConfig, d_ff: int) -> int:
@@ -104,7 +121,7 @@ def _attn_params(cfg: ArchConfig) -> int:
             + cfg.q_dim * cfg.d_model)
 
 
-def _layer_params(cfg: ArchConfig, i: int) -> int:
+def _layer_params(cfg: ArchConfig, i: int, *, active_only: bool = False) -> int:
     kind = cfg.layer_kind(i)
     n = 0
     if kind == "attn":
@@ -129,7 +146,7 @@ def _layer_params(cfg: ArchConfig, i: int) -> int:
             m = cfg.moe
             n += cfg.d_model * m.n_experts  # router
             per_exp = _mlp_params(cfg, m.d_expert)
-            n += m.n_experts * per_exp
+            n += (m.top_k if active_only else m.n_experts) * per_exp
             if m.n_shared:
                 n += _mlp_params(cfg, m.d_shared)
         else:
@@ -147,3 +164,12 @@ def count_params(cfg: ArchConfig) -> int:
     n += sum(_layer_params(cfg, i) for i in range(cfg.n_layers))
     return n
 
+
+
+def count_active_params(cfg: ArchConfig) -> int:
+    """Active parameters per token (MoE: only top-k experts)."""
+    n = cfg.vocab_size * cfg.d_model
+    if not cfg.tie_embeddings:
+        n += cfg.vocab_size * cfg.d_model
+    n += sum(_layer_params(cfg, i, active_only=True) for i in range(cfg.n_layers))
+    return n

@@ -27,6 +27,11 @@ reference's nested dict (``embed``, ``lm_head``, ``final_norm``,
 the port's :class:`~repro_torch.models.transformer.Transformer`, dtypes
 checked leaf by leaf.
 
+:func:`train_state_from_numpy` carries a train state across (``params``,
+``master``, ``opt.m``, ``opt.v``, ``opt.step`` and ``scale``, parameter
+trees in the reference's layout), and :func:`train_state_to_numpy` gives
+a port train state back as the reference's tree with numpy leaves.
+
 The reference's bf16 arrays reach numpy as ``ml_dtypes.bfloat16``, a
 2-byte void type to numpy itself (``dtype.str == '<V2'``), which
 ``torch.from_numpy`` refuses: :func:`tensor_from_numpy` reads them by
@@ -45,7 +50,7 @@ from repro_torch.core.synapses import STPState
 from repro_torch.precision import get_policy
 
 __all__ = ["params_from_numpy", "state_from_numpy", "lm_params_from_numpy",
-           "tensor_from_numpy"]
+           "train_state_from_numpy", "train_state_to_numpy", "tensor_from_numpy"]
 
 
 def tensor_from_numpy(arr) -> torch.Tensor:
@@ -213,3 +218,67 @@ def lm_params_from_numpy(cfg, arrays: dict, device, policy):
     if extra:
         raise ValueError(f"arrays the model has no parameter for: {extra}")
     return model.to(torch.device(device))
+
+
+def _field(tree, name: str):
+    return tree[name] if isinstance(tree, dict) else getattr(tree, name)
+
+
+def train_state_from_numpy(cfg, arrays, device, policy) -> dict:
+    """The port's train state (:func:`repro_torch.models.tasks.init_train_state`'s
+    tree) holding the reference's ``arrays``: its train state with numpy
+    leaves (``opt`` and ``scale`` as its NamedTuples or dicts), on
+    ``device``. Raises on a missing or extra leaf and on a shape or dtype
+    other than the policy's."""
+    from repro_torch.models.transformer import Transformer, params_tree
+    from repro_torch.optim.adamw import OptState, ScaleState
+
+    if isinstance(policy, str):
+        policy = get_policy(policy)
+    dev = torch.device(device)
+    with torch.device("meta"):
+        like = params_tree(Transformer(cfg, get_policy("fp32"), None))
+
+    def tree(src, ref, dtype, name):
+        if isinstance(ref, dict):
+            if not isinstance(src, dict) or set(src) != set(ref):
+                got = sorted(src) if isinstance(src, dict) else type(src).__name__
+                raise KeyError(f"{name}: expected keys {sorted(ref)}, got {got}")
+            return {k: tree(src[k], ref[k], dtype, f"{name}.{k}") for k in ref}
+        x = tensor_from_numpy(src)
+        if tuple(x.shape) != tuple(ref.shape) or x.dtype != dtype:
+            raise ValueError(f"{name}: expected {dtype} {tuple(ref.shape)}, got "
+                             f"{x.dtype} {tuple(x.shape)}")
+        return x.to(dev)
+
+    def scalar(src, dtype, name):
+        x = tensor_from_numpy(np.asarray(src))
+        if x.shape != () or x.dtype != dtype:
+            raise ValueError(f"{name}: expected a {dtype} scalar, got {x.dtype} "
+                             f"{tuple(x.shape)}")
+        return x.to(dev)
+
+    master = _field(arrays, "master")
+    if (master is None) == policy.master_fp32:
+        raise ValueError(f"policy {policy.name!r} {'keeps' if policy.master_fp32 else 'has no'} "
+                         "f32 masters")
+    opt, scale = _field(arrays, "opt"), _field(arrays, "scale")
+    return {
+        "params": tree(_field(arrays, "params"), like, policy.param_storage, "params"),
+        "master": None if master is None else tree(master, like, torch.float32, "master"),
+        "opt": OptState(m=tree(_field(opt, "m"), like, torch.float32, "opt.m"),
+                        v=tree(_field(opt, "v"), like, torch.float32, "opt.v"),
+                        step=scalar(_field(opt, "step"), torch.int32, "opt.step")),
+        "scale": ScaleState(scale=scalar(_field(scale, "scale"), torch.float32, "scale.scale"),
+                            good_steps=scalar(_field(scale, "good_steps"), torch.int32,
+                                              "scale.good_steps")),
+    }
+
+
+def train_state_to_numpy(state: dict) -> dict:
+    """A port train state as the reference's tree with numpy leaves (bf16
+    leaves as their raw bits, ``|V2``, as a checkpoint holds them)."""
+    from repro_torch.checkpoint.ckpt import _as_numpy
+    from repro_torch.precision.policy import tree_map
+
+    return tree_map(_as_numpy, state)

@@ -114,8 +114,19 @@ def random_bits(k: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     return y1 ^ y2
 
 
-def uniform(k: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
-    """float32 uniforms in ``[0, 1)`` of ``shape``, drawn from ``k`` (from
-    each key of a stack ``[..., 2]``: ``[..., *shape]``)."""
+def uniform(k: torch.Tensor, shape: tuple[int, ...], *, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """float32 uniforms in ``[minval, maxval)`` of ``shape``, drawn from
+    ``k`` (from each key of a stack ``[..., 2]``: ``[..., *shape]``). As
+    ``jax.random.uniform``: ``u`` in ``[0, 1)``, then ``max(minval, u *
+    (maxval - minval) + minval)`` in float32, the mul-add rounded once, as
+    XLA CPU's fused multiply-add rounds it (the exact f32 product plus
+    ``minval`` in f64, then to f32)."""
     bits = (random_bits(k, shape) >> 9) | _ONE_F32_BITS
-    return bits.to(torch.int32).view(torch.float32) - 1.0
+    u = bits.to(torch.int32).view(torch.float32) - 1.0
+    if minval == 0.0 and maxval == 1.0:
+        return u
+    lo = torch.tensor(minval, dtype=torch.float32)
+    span = torch.tensor(maxval, dtype=torch.float32) - lo
+    out = (u.double() * span.double() + lo.double()).float()
+    return torch.maximum(out, lo.to(out.device))

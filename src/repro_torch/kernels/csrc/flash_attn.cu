@@ -58,12 +58,17 @@
 // (the serve's prefill is 2.0 GFLOP of f32 work, 30 us at 67 TFLOP/s; as
 // split TF32 it is three tensor-core passes).
 //
+// With an lse pointer (training; the launcher then takes the prefill path)
+// each row also writes lse = m + log(l), or -1e30 for a row with no allowed
+// key, which the backward (flash_attn_bwd.cu) reads; serving passes null.
+//
 // Head dims up to 256 on both paths. Built without --use_fast_math:
 // expf and IEEE division.
 #include <climits>
 #include <type_traits>
 
 #include "common.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -84,6 +89,7 @@ struct Args {
   const int* qpos;
   const int* kpos;
   float* out;
+  float* lse;    // [B, Hq, Sq] m + log(l) per row (kNeg: no allowed key), or null
   float* part;   // decode: [B * Hkv * splits][rows][D + 2 rounded up to 4] partials
   int* tickets;  // decode: [B * Hkv], zero between calls
   int B, Sq, Sk, Hq, Hkv, D;
@@ -464,40 +470,6 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(Args a) {
 
 // --------------------------------------------------------------- prefill
 
-// x = hi + lo: hi x rounded to TF32 (10 mantissa bits, ties away), lo the
-// exact rest, whose low bits the tensor core drops.
-__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma(float c[4], const unsigned a[4], unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a * b with a = a_hi + a_lo and b f32 (split too) or exact in TF32
-// (fp16, bf16: b_lo = 0), small terms first.
-template <bool kSplitB>
-__device__ __forceinline__ void mma3(float c[4], const unsigned ahi[4], const unsigned alo[4],
-                                     float b0, float b1) {
-  if (kSplitB) {
-    unsigned b0h, b0l, b1h, b1l;
-    split_tf32(b0, b0h, b0l);
-    split_tf32(b1, b1h, b1l);
-    mma(c, alo, b0h, b1h);
-    mma(c, ahi, b0l, b1l);
-    mma(c, ahi, b0h, b1h);
-  } else {
-    const unsigned b0h = __float_as_uint(b0), b1h = __float_as_uint(b1);
-    mma(c, alo, b0h, b1h);
-    mma(c, ahi, b0h, b1h);
-  }
-}
-
 // Keys per prefill tile: 64, or fewer where the ring of K/V tiles would
 // crowd out a second and third CTA per SM (about 64 KB and 104 KB).
 template <typename KV>
@@ -693,6 +665,8 @@ __global__ void __launch_bounds__(kThreads) prefill_kernel(Args a) {
     const int r = half ? r1 : r0;
     if (r >= rows) continue;
     const float m = half ? m1 : m0, l = half ? l1 : l0;
+    if (a.lse != nullptr && t == 0)
+      a.lse[(static_cast<size_t>(b) * a.Hq + h) * a.Sq + row0 + r] = m == kNeg ? kNeg : m + logf(l);
     float* out = a.out + (static_cast<size_t>(b) * a.Sq + row0 + r) * a.Hq * D +
                  static_cast<size_t>(h) * D;
 #pragma unroll
@@ -736,6 +710,7 @@ int launch(const Args& a, cudaStream_t s) {
   if (a.B <= 0 || a.Sq <= 0 || a.Hq <= 0 || a.D <= 0 || a.Sk <= 0) return 0;
   if (a.Hkv <= 0 || a.Hq % a.Hkv != 0 || a.D > 256) return static_cast<int>(cudaErrorInvalidValue);
   if (a.splits > 0) {
+    if (a.lse != nullptr) return static_cast<int>(cudaErrorInvalidValue);  // prefill only
     const int out = a.Sq * (a.Hq / a.Hkv) * a.D;  // outputs of a CTA
     if (a.Sq * (a.Hq / a.Hkv) > kDecMaxRows || out > 16 * kThreads ||
         a.kps > kWindow * kDecTile)
@@ -754,17 +729,18 @@ int launch(const Args& a, cudaStream_t s) {
 
 }  // namespace
 
-#define FLASH_ATTN_EXPORT(NAME, KV)                                                      \
-  REPRO_EXPORT int NAME(const void* q, const void* k, const void* v, const void* qpos,    \
-                        const void* kpos, void* out, void* part, void* tickets, int B,   \
-                        int Sq, int Sk, int Hq, int Hkv, int D, int causal, int window,  \
-                        float scale, float pad_den, int splits, int kps, int vec,        \
-                        void* stream) {                                                  \
-    const Args a{static_cast<const float*>(q), k, v, static_cast<const int*>(qpos),      \
-                 static_cast<const int*>(kpos), static_cast<float*>(out),                \
-                 static_cast<float*>(part), static_cast<int*>(tickets), B, Sq, Sk, Hq,    \
-                 Hkv, D, causal, window, scale, pad_den, splits, kps, vec};               \
-    return launch<KV>(a, static_cast<cudaStream_t>(stream));                              \
+#define FLASH_ATTN_EXPORT(NAME, KV)                                                       \
+  REPRO_EXPORT int NAME(const void* q, const void* k, const void* v, const void* qpos,     \
+                        const void* kpos, void* out, void* lse, void* part, void* tickets, \
+                        int B, int Sq, int Sk, int Hq, int Hkv, int D, int causal,        \
+                        int window, float scale, float pad_den, int splits, int kps,      \
+                        int vec, void* stream) {                                          \
+    const Args a{static_cast<const float*>(q), k, v, static_cast<const int*>(qpos),       \
+                 static_cast<const int*>(kpos), static_cast<float*>(out),                 \
+                 static_cast<float*>(lse), static_cast<float*>(part),                     \
+                 static_cast<int*>(tickets), B, Sq, Sk, Hq, Hkv, D, causal, window,       \
+                 scale, pad_den, splits, kps, vec};                                       \
+    return launch<KV>(a, static_cast<cudaStream_t>(stream));                               \
   }
 
 FLASH_ATTN_EXPORT(flash_attn_f32, float)

@@ -6,7 +6,8 @@ signature) or :func:`repro_torch.kernels.ops.flash_attention` (the Pallas
 signature), which check the tensors, allocate the output and count
 launches. :func:`plan` chooses the kernel's path from the shapes: the
 split-K decode path for at most ``DECODE_ROWS`` query rows per KV head,
-with its split count, or the tensor-core prefill path. The decode path's
+with its split count, or the tensor-core prefill path (always, when the training
+forward asks for the rows' log-sum-exp). The decode path's
 partials and tickets live in scratch held here per card and stream.
 """
 from __future__ import annotations
@@ -20,7 +21,7 @@ from repro_torch.kernels import _build
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_SIGNATURE = [_P] * 8 + [_I] * 8 + [_F, _F] + [_I] * 3 + [_P]
+_SIGNATURE = [_P] * 9 + [_I] * 8 + [_F, _F] + [_I] * 3 + [_P]
 _ENTRY = {torch.float32: "flash_attn_f32", torch.float16: "flash_attn_f16",
           torch.bfloat16: "flash_attn_bf16"}
 _SIGNATURES = {name: _SIGNATURE for name in _ENTRY.values()}
@@ -69,9 +70,11 @@ def _scratch(dev: torch.device, stream: int, floats: int, pairs: int):
 
 
 def launch(q, k, v, qpos, kpos, out, *, causal: bool, window: int,
-           splits: int | None = None) -> None:
+           splits: int | None = None, lse: torch.Tensor | None = None) -> None:
     """One launch; ``splits`` overrides :func:`plan`'s decode split count
-    (a decode-shaped call only; for tests of the split combine)."""
+    (a decode-shaped call only; for tests of the split combine). With
+    ``lse`` (f32 ``[B, Hq, Sq]``, the training forward) the prefill path
+    also writes each row's log-sum-exp, whatever the shapes."""
     lib = _build.load("flash_attn", _SIGNATURES)
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -79,7 +82,7 @@ def launch(q, k, v, qpos, kpos, out, *, causal: bool, window: int,
     n_sm = _SMS.get(dev.index)
     if n_sm is None:
         n_sm = _SMS[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_split, kps = plan(b, sq, sk, hq, hkv, d, n_sm)
+    n_split, kps = (0, 0) if lse is not None else plan(b, sq, sk, hq, hkv, d, n_sm)
     if splits is not None and n_split:
         kps = min(MAX_SPLIT, TILE * max(1, -(-sk // (splits * TILE))))
         n_split = -(-sk // kps)
@@ -89,7 +92,8 @@ def launch(q, k, v, qpos, kpos, out, *, causal: bool, window: int,
     vec = int((d * k.element_size()) % 16 == 0 and k.data_ptr() % 16 == 0
               and v.data_ptr() % 16 == 0)
     err = getattr(lib, _ENTRY[k.dtype])(
-        *(t.data_ptr() for t in (q, k, v, qpos, kpos, out, part, tickets)),
+        *(t.data_ptr() for t in (q, k, v, qpos, kpos, out)),
+        None if lse is None else lse.data_ptr(), part.data_ptr(), tickets.data_ptr(),
         b, sq, sk, hq, hkv, d, int(causal), window, 1.0 / d ** 0.5, pad_den(sk),
         n_split, kps, vec, stream)
     _build.check(lib, err, "flash_attention")

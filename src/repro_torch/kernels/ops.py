@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attn as _flash
+from repro_torch.kernels import flash_attn_bwd as _flash_bwd
 from repro_torch.kernels import fused_tick as _fused
 from repro_torch.kernels import izh_update as _izh
 from repro_torch.kernels import plastic_drive as _drive
@@ -24,13 +25,14 @@ from repro_torch.kernels import syn_matmul as _matmul
 __all__ = ["LAUNCHES", "reset_launches", "izh4_update", "NeuronRun", "syn_matmul",
            "MatmulRun", "syn_gather", "GatherRun", "FusedTickRun", "stdp_update",
            "stdp_gather", "StdpGatherRun", "StdpUpdateRun", "DriveRun", "attention",
-           "flash_attention"]
+           "AttentionFn", "attention_bwd", "flash_attention"]
 
 f32 = torch.float32
 
 LAUNCHES: dict[str, int] = {"izh4_update": 0, "syn_matmul": 0, "syn_gather": 0,
                             "fused_tick": 0, "stdp_update": 0, "stdp_gather": 0,
-                            "plastic_drive": 0, "flash_attention": 0}
+                            "plastic_drive": 0, "flash_attention": 0,
+                            "flash_attention_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -946,7 +948,10 @@ def attention(q, k, v, qpos, kpos, *, causal: bool = True, window: int = -1):
     is 0. On the card it is one launch of the split-K decode path or the
     tensor-core prefill path, chosen from the shapes
     (:func:`repro_torch.kernels.flash_attn.plan`); D is at most
-    ``MAX_HEAD_DIM`` (256) there, and above it raises."""
+    ``MAX_HEAD_DIM`` (256) there, and above it raises. When grad is on and
+    an input requires grad, the call goes through :class:`AttentionFn`, so
+    the output's gradient reaches q, k and v (the backward kernel takes
+    f32 k/v)."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"attention: q {tuple(q.shape)} must be [B, Sq, Hq, D] and "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} one [B, Sk, Hkv, D]")
@@ -963,18 +968,85 @@ def attention(q, k, v, qpos, kpos, *, causal: bool = True, window: int = -1):
                          f"{_flash.KV_DTYPES}, got {q.dtype}/{k.dtype}/{v.dtype}")
     if qpos.dtype != torch.int32 or kpos.dtype != torch.int32:
         raise ValueError("attention: qpos and kpos must be int32")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return AttentionFn.apply(q, k, v, qpos, kpos, causal, window)
+    return _attention_fwd(q, k, v, qpos, kpos, causal, window, with_lse=False)[0]
+
+
+def _attention_fwd(q, k, v, qpos, kpos, causal: bool, window: int, *, with_lse: bool):
+    """``(out, lse)`` of :func:`attention` (lse None unless ``with_lse``):
+    one launch of B7 on the card, its plain version on the CPU."""
     if not _on_card("flash_attention", q, k, v, qpos, kpos):
-        return ref.chunked_attention_ref(q, k, v, qpos, kpos, causal=causal, window=window)
+        if with_lse:
+            return ref.chunked_attention_ref(q, k, v, qpos, kpos, causal=causal,
+                                             window=window, return_lse=True)
+        return ref.chunked_attention_ref(q, k, v, qpos, kpos, causal=causal,
+                                         window=window), None
+    b, sq, hq, d = q.shape
     if d > _flash.MAX_HEAD_DIM:
         raise ValueError(f"attention: head dim {d} above the kernel's limit "
                          f"{_flash.MAX_HEAD_DIM}")
-    if sk == 0:
-        return torch.zeros_like(q)
+    lse = torch.full((b, hq, sq), ref.NEG_INF, dtype=f32, device=q.device) if with_lse else None
+    if k.shape[1] == 0:
+        return torch.zeros_like(q), lse
     out = torch.empty_like(q)
     if out.numel():
-        _flash.launch(q, k, v, qpos, kpos, out, causal=causal, window=window)
+        _flash.launch(q, k, v, qpos, kpos, out, causal=causal, window=window, lse=lse)
         LAUNCHES["flash_attention"] += 1
-    return out
+    return out, lse
+
+
+def attention_bwd(q, k, v, qpos, kpos, out, lse, dout, *, causal: bool = True,
+                  window: int = -1):
+    """``(dq, dk, dv)`` f32 of :func:`attention` at the cotangent ``dout``
+    (``[B, Sq, Hq, D]`` f32), from the forward's output ``out`` and the
+    rows' log-sum-exp ``lse`` ``[B, Hq, Sq]`` (B7's, or
+    ``chunked_attention_ref(return_lse=True)``'s): the CUDA kernel
+    ``csrc/flash_attn_bwd.cu`` on the card, which takes f32 k/v only, its
+    plain version :func:`repro_torch.kernels.ref.chunked_attention_bwd_ref`
+    on the CPU."""
+    b, sq, hq, d = q.shape
+    if out.shape != q.shape or dout.shape != q.shape or lse.shape != (b, hq, sq):
+        raise ValueError(f"attention_bwd: out {tuple(out.shape)} and dout "
+                         f"{tuple(dout.shape)} must be q's {tuple(q.shape)}, lse "
+                         f"{tuple(lse.shape)} [{b}, {hq}, {sq}]")
+    if not _on_card("flash_attention_bwd", q, k, v, qpos, kpos, out, lse, dout):
+        return ref.chunked_attention_bwd_ref(q, k, v, qpos, kpos, out, lse, dout,
+                                             causal=causal, window=window)
+    if any(x.dtype != f32 for x in (q, k, v, out, lse, dout)):
+        raise ValueError(f"attention_bwd: the kernel takes float32 q, k, v, out, lse and "
+                         f"dout, got k/v {k.dtype}/{v.dtype}")
+    if d > _flash.MAX_HEAD_DIM:
+        raise ValueError(f"attention_bwd: head dim {d} above the kernel's limit "
+                         f"{_flash.MAX_HEAD_DIM}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if not (q.numel() and k.numel()):  # nothing to launch: every gradient is 0
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    _flash_bwd.launch(q, k, v, out, dout, lse, qpos, kpos, dq, dk, dv, causal=causal,
+                      window=window)
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class AttentionFn(torch.autograd.Function):
+    """:func:`attention` with its gradient: the forward is B7 writing the
+    rows' log-sum-exp (its plain version on the CPU), the backward
+    :func:`attention_bwd` (the ``flash_attn_bwd`` kernel on the card). The
+    positions take no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, qpos, kpos, causal: bool, window: int):
+        out, lse = _attention_fwd(q, k, v, qpos, kpos, causal, window, with_lse=True)
+        ctx.save_for_backward(q, k, v, qpos, kpos, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, qpos, kpos, out, lse = ctx.saved_tensors
+        dq, dk, dv = attention_bwd(q, k, v, qpos, kpos, out, lse, dout.contiguous(),
+                                   causal=ctx.causal, window=ctx.window)
+        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = -1):

@@ -15,6 +15,7 @@ __all__ = ["izh4_ref", "neuron_run_ref", "neuron_lanes_ref", "coba_current_ref",
            "syn_matmul_ref", "syn_matmul_lanes_ref", "syn_gather_ref", "gather_run_ref",
            "gather_lanes_ref", "fused_tick_ref", "fused_tick_lanes_ref", "stdp_update_ref",
            "stdp_gather_ref", "stdp_gather_run_ref", "stdp_update_run_ref",
+           "attention_mask", "chunked_attention_bwd_ref",
            "stdp_gather_lanes_ref", "stdp_update_lanes_ref", "xla_cpu_row_sum",
            "rate_fold_ref", "watch_fold_ref",
            "plastic_drive_ref", "drive_run_ref",
@@ -515,7 +516,7 @@ def drive_run_ref(spikes, projs, weights, stp, *, coba: bool = False) -> None:
 
 
 def chunked_attention_ref(q, k, v, qpos, kpos, *, causal: bool = True,
-                          window: int = -1, block_k: int = 1024):
+                          window: int = -1, block_k: int = 1024, return_lse: bool = False):
     """Online-softmax GQA attention blocked over KV, step for step as the
     reference's ``models/attention.py:chunked_attention``.
 
@@ -531,13 +532,18 @@ def chunked_attention_ref(q, k, v, qpos, kpos, *, causal: bool = True,
     so every key, padding included, gets ``p = 1`` and the row is
     ``Σ_{j<Sk} v_j / (Sk + pad)`` with ``pad = -Sk mod min(block_k, Sk)``,
     the reference's value, which the CUDA kernel gives too. Returns
-    ``[B, Sq, Hq, D]`` f32.
+    ``[B, Sq, Hq, D]`` f32 and, with ``return_lse``, the log-sum-exp of
+    each row's scaled scores ``lse = m + log(l)`` ``[B, Hq, Sq]`` f32,
+    ``NEG_INF`` on a row with no allowed key (the backward's marker).
     """
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
     g = hq // hkv
     if sk == 0:
-        return torch.zeros((b, sq, hq, d), dtype=f32, device=q.device)
+        out = torch.zeros((b, sq, hq, d), dtype=f32, device=q.device)
+        if return_lse:
+            return out, torch.full((b, hq, sq), NEG_INF, dtype=f32, device=q.device)
+        return out
     scale = 1.0 / (d ** 0.5)
     bk = min(block_k, sk)
     pad = -sk % bk
@@ -570,7 +576,62 @@ def chunked_attention_ref(q, k, v, qpos, kpos, *, causal: bool = True,
         acc = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, vc.to(f32))
         m = m_new
     out = acc / torch.where(l > 0, l, 1.0)[..., None]
-    return out.reshape(b, hkv * g, sq, d).transpose(1, 2).contiguous()
+    out = out.reshape(b, hkv * g, sq, d).transpose(1, 2).contiguous()
+    if return_lse:
+        lse = torch.where(m == NEG_INF, NEG_INF, m + torch.log(l))
+        return out, lse.reshape(b, hkv * g, sq)
+    return out
+
+
+def attention_mask(qpos, kpos, *, causal: bool, window: int):
+    """``[B, Sq, Sk]`` bool: key ``j`` allowed for query ``i`` (valid, not
+    in the future when ``causal``, inside ``window`` when it is positive)."""
+    mask = (kpos >= 0)[None, None, :]
+    if causal:
+        mask = mask & (kpos[None, None, :] <= qpos[:, :, None])
+    if window > 0:
+        mask = mask & (kpos[None, None, :] > qpos[:, :, None] - window)
+    return mask.expand(qpos.shape[0], qpos.shape[1], kpos.shape[0])
+
+
+def chunked_attention_bwd_ref(q, k, v, qpos, kpos, out, lse, dout, *, causal: bool = True,
+                              window: int = -1, block_k: int = 1024):
+    """The gradients ``(dq, dk, dv)`` of :func:`chunked_attention_ref` (f32,
+    in q's and k's shapes) for the output cotangent ``dout`` ``[B, Sq, Hq,
+    D]``, from its output ``out`` and log-sum-exp ``lse`` ``[B, Hq, Sq]``:
+    ``P = exp(scale QK^T - lse)`` on allowed keys (0 elsewhere), ``dV = P^T
+    dO``, ``dP = dO V^T``, ``dS = P (dP - rowsum(dO O))``, ``dQ = scale dS
+    K``, ``dK = scale dS^T Q``; a query head's gradient lands on its KV
+    head, so dK and dV sum over the GQA group. A row with no allowed key
+    (``lse == NEG_INF``) is ``sum_{j<Sk} v_j / (Sk + pad)`` in the forward,
+    so it gives ``dq = 0``, nothing to dk, and ``dO / (Sk + pad)`` to every
+    ``dv_j``, as autograd through the reference gives."""
+    b, sq, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    g = hq // hkv
+    if sk == 0:
+        return (torch.zeros_like(q, dtype=f32), torch.zeros(k.shape, dtype=f32, device=k.device),
+                torch.zeros(v.shape, dtype=f32, device=v.device))
+    scale = 1.0 / (d ** 0.5)
+    pad_den = float(sk + (-sk % min(block_k, sk)))
+    qf = (q.to(f32) * scale).reshape(b, sq, hkv, g, d)
+    kf, vf = k.to(f32), v.to(f32)
+    go = dout.to(f32).reshape(b, sq, hkv, g, d)
+    ls = lse.reshape(b, hkv, g, sq)
+    mask = attention_mask(qpos, kpos, causal=causal, window=window)[:, None, None]
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf)
+    p = torch.where(mask, torch.exp(s - ls[..., None]), 0.0)
+    delta = (go * out.to(f32).reshape(b, sq, hkv, g, d)).sum(-1)  # [b, sq, hkv, g]
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", go, vf)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf).reshape(b, sq, hq, d)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, go)
+    nokey = (ls == NEG_INF).permute(0, 3, 1, 2)  # [b, sq, hkv, g]
+    if bool(nokey.any()):
+        extra = torch.where(nokey[..., None], go, 0.0).sum(dim=(1, 3)) / pad_den  # [b, hkv, d]
+        dv = dv + extra[:, None]
+    return dq * scale, dk, dv
 
 
 def model_layout(q, k, v):

@@ -20,12 +20,13 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, dense, init_dense, init_zeros
 
-__all__ = ["Attention", "init_kv_cache"]
+__all__ = ["Attention", "attend", "init_kv_cache"]
 
 
 class Attention(nn.Module):
     """Self-attention sublayer: ``wq``, ``wk``, ``wv``, ``wo`` (drawn in
-    that order) and, with ``cfg.qkv_bias``, zero ``bq``/``bk``/``bv``."""
+    that order) and, with ``cfg.qkv_bias``, zero ``bq``/``bk``/``bv``;
+    applied by :func:`attend`."""
 
     def __init__(self, cfg: ArchConfig, gen: torch.Generator | None, dtype: torch.dtype):
         super().__init__()
@@ -39,36 +40,39 @@ class Attention(nn.Module):
         self.bk = init_zeros(cfg.kv_dim, dtype) if bias else None
         self.bv = init_zeros(cfg.kv_dim, dtype) if bias else None
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                rot: tuple[torch.Tensor, torch.Tensor] | None, *,
-                cache: dict | None = None, pos: int | None = None,
-                act_to: torch.dtype | None = None):
-        """x ``[B, S, D]`` (f32, or the activation dtype ``act_to``), positions ``[B,
-        S]`` int32, ``rot`` the forward's RoPE table (None without rotary).
-        Without ``cache`` (train/prefill) the sequence attends causally to
-        itself over its K/V in k's dtype (f32 after RoPE; v, in the
-        activation dtype, upcast exactly). With ``cache`` (decode) S == 1:
-        the KV pair is written into slot ``pos mod C`` (cast to the cache's
-        dtype), whose ``cache["pos"]`` entry the caller has set to ``pos``,
-        and the query attends over the cache. Returns ``(out [B, S, D],
-        (k, v))``, k ``[B, S, Hkv, Dh]`` f32 after RoPE, v in the
-        activation dtype."""
-        b, s, _ = x.shape
-        q = dense(x, self.wq, self.bq, act_to).view(b, s, self.n_heads, self.head_dim)
-        k = dense(x, self.wk, self.bk, act_to).view(b, s, self.n_kv_heads, self.head_dim)
-        v = dense(x, self.wv, self.bv, act_to).view(b, s, self.n_kv_heads, self.head_dim)
-        if rot is not None:
-            q = apply_rope(q, rot)
-            k = apply_rope(k, rot)
-        if cache is not None:
-            slot = pos % cache["k"].shape[1]
-            cache["k"][:, slot] = k[:, 0]
-            cache["v"][:, slot] = v[:, 0]
-            out = ops.attention(q, cache["k"], cache["v"], positions, cache["pos"])
-        else:
-            out = ops.attention(q, k, v.to(k.dtype), positions, positions[0])
-        proj = dense(out.reshape(b, s, self.n_heads * self.head_dim), self.wo, act_to=act_to)
-        return proj, (k, v)
+
+def attend(p, x: torch.Tensor, positions: torch.Tensor,
+           rot: tuple[torch.Tensor, torch.Tensor] | None, *, cache: dict | None = None,
+           pos: int | None = None, act_to: torch.dtype | None = None):
+    """The sublayer on the weights of ``p`` (an :class:`Attention`, or any
+    object with its attributes: ``n_heads``, ``n_kv_heads``, ``head_dim``,
+    ``wq``..``wo``, ``bq``/``bk``/``bv`` or None). x ``[B, S, D]`` (f32, or
+    the activation dtype ``act_to``), positions ``[B, S]`` int32, ``rot``
+    the forward's RoPE table (None without rotary). Without ``cache``
+    (train/prefill) the sequence attends causally to itself over its K/V in
+    k's dtype (f32 after RoPE; v, in the activation dtype, upcast exactly).
+    With ``cache`` (decode) S == 1: the KV pair is written into slot ``pos
+    mod C`` (cast to the cache's dtype), whose ``cache["pos"]`` entry the
+    caller has set to ``pos``, and the query attends over the cache.
+    Returns ``(out [B, S, D], (k, v))``, k ``[B, S, Hkv, Dh]`` f32 after
+    RoPE, v in the activation dtype. When the weights require grad the
+    attention call carries its gradient (``ops.AttentionFn``)."""
+    b, s, _ = x.shape
+    q = dense(x, p.wq, p.bq, act_to).view(b, s, p.n_heads, p.head_dim)
+    k = dense(x, p.wk, p.bk, act_to).view(b, s, p.n_kv_heads, p.head_dim)
+    v = dense(x, p.wv, p.bv, act_to).view(b, s, p.n_kv_heads, p.head_dim)
+    if rot is not None:
+        q = apply_rope(q, rot)
+        k = apply_rope(k, rot)
+    if cache is not None:
+        slot = pos % cache["k"].shape[1]
+        cache["k"][:, slot] = k[:, 0]
+        cache["v"][:, slot] = v[:, 0]
+        out = ops.attention(q, cache["k"], cache["v"], positions, cache["pos"])
+    else:
+        out = ops.attention(q, k, v.to(k.dtype), positions, positions[0])
+    proj = dense(out.reshape(b, s, p.n_heads * p.head_dim), p.wo, act_to=act_to)
+    return proj, (k, v)
 
 
 def init_kv_cache(cfg: ArchConfig, batch: int, capacity: int, dtype: torch.dtype,

@@ -204,17 +204,14 @@ def init_zeros(d: int, dtype: torch.dtype) -> nn.Parameter:
 
 class Norm(nn.Module):
     """RMSNorm (``scale``) or LayerNorm (``scale``, ``bias``), f32 at rest
-    and initialised to 0 (the norms multiply by ``1 + scale``); f32 inside,
-    output in the activation dtype ``act_to``."""
+    and initialised to 0 (the norms multiply by ``1 + scale``); applied by
+    :func:`apply_norm`, f32 inside."""
 
     def __init__(self, kind: str, d: int):
         super().__init__()
         self.kind = kind
         self.scale = init_zeros(d, f32)
         self.bias = init_zeros(d, f32) if kind == "layernorm" else None
-
-    def forward(self, x: torch.Tensor, act_to: torch.dtype | None = None) -> torch.Tensor:
-        return act(apply_norm(self.kind, x, self), act_to)
 
 
 class MLP(nn.Module):

@@ -12,20 +12,30 @@ audio (sinusoidal positions) and VLM branches raise
 
 The decode cache is the reference's layout for a homogeneous stack:
 ``{"kv": {"k", "v": [L, B, C, Hkv, Dh], "pos": [L, C]}}``.
+
+Training runs the same blocks on a parameter tree in the reference's
+layout (``{"embed", "final_norm", "layers", "lm_head"}``, each ``layers``
+leaf stacked ``[L, ...]``): :func:`params_view` gives it the model's
+attributes, one unbound slice of each stacked leaf per layer, so the
+gradient of a stacked leaf is one stack of the layers' gradients.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.network import _resolve_device, _unported
-from repro_torch.models.attention import Attention
-from repro_torch.models.layers import MLP, Norm, act, dense, rope_table
+from repro_torch.models.attention import Attention, attend
+from repro_torch.models.layers import MLP, Norm, act, apply_norm, dense, mlp_apply, rope_table
 from repro_torch.precision import PrecisionPolicy
 
 __all__ = ["Block", "Transformer", "init_params", "forward", "lm_logits", "init_cache",
-           "decode_step"]
+           "decode_step", "params_tree", "params_view"]
 
 f32 = torch.float32
 
@@ -98,16 +108,21 @@ def _rope(cfg: ArchConfig, positions: torch.Tensor):
                       rotary_pct=cfg.rotary_pct)
 
 
-def _block_full(layer: Block, h, positions, rot, kv_cache: dict | None, act_to):
-    """Full-sequence block (train/prefill); packs its K/V into ``kv_cache``
-    (one layer's cache) when given."""
-    x = layer.norm1(h, act_to)
-    mix, kv = layer.attn(x, positions, rot, act_to=act_to)
+def _norm(p, x: torch.Tensor, act_to) -> torch.Tensor:
+    return act(apply_norm(p.kind, x, p), act_to)
+
+
+def _block_full(layer, h, positions, rot, kv_cache: dict | None, act_to):
+    """Full-sequence block (train/prefill) on ``layer`` (a :class:`Block`
+    or a :func:`params_view` layer); packs its K/V into ``kv_cache`` (one
+    layer's cache) when given."""
+    x = _norm(layer.norm1, h, act_to)
+    mix, kv = attend(layer.attn, x, positions, rot, act_to=act_to)
     if kv_cache is not None:
         _pack_kv(kv, positions, kv_cache)
     h = h + mix
-    x = layer.norm2(h, act_to)
-    return h + layer.mlp(x, act_to)
+    x = _norm(layer.norm2, h, act_to)
+    return h + mlp_apply(layer.mlp.kind, x, layer.mlp, act_to)
 
 
 def _pack_kv(kv, positions: torch.Tensor, kv_cache: dict) -> None:
@@ -125,10 +140,10 @@ def _pack_kv(kv, positions: torch.Tensor, kv_cache: dict) -> None:
 
 
 def _block_decode(layer: Block, h, kv_cache: dict, positions, rot, pos: int, act_to):
-    x = layer.norm1(h, act_to)
-    h = h + layer.attn(x, positions, rot, cache=kv_cache, pos=pos, act_to=act_to)[0]
-    x = layer.norm2(h, act_to)
-    return h + layer.mlp(x, act_to)
+    x = _norm(layer.norm1, h, act_to)
+    h = h + attend(layer.attn, x, positions, rot, cache=kv_cache, pos=pos, act_to=act_to)[0]
+    x = _norm(layer.norm2, h, act_to)
+    return h + mlp_apply(layer.mlp.kind, x, layer.mlp, act_to)
 
 
 def _layer_cache(cache: dict, i: int) -> dict:
@@ -136,27 +151,36 @@ def _layer_cache(cache: dict, i: int) -> dict:
     return {"k": kv["k"][i], "v": kv["v"][i], "pos": kv["pos"][i]}
 
 
-def forward(model: Transformer, batch: dict, *, collect_cache: bool = False,
-            cache_len: int = 0, cache_dtype: torch.dtype = torch.float16,
-            act_to: torch.dtype | None = None):
-    """Train/prefill forward over ``batch["tokens"]`` ``[B, S]`` at
+def forward(model, batch: dict, *, collect_cache: bool = False, cache_len: int = 0,
+            cache_dtype: torch.dtype = torch.float16, act_to: torch.dtype | None = None,
+            remat: bool = False):
+    """Train/prefill forward of ``model`` (a :class:`Transformer` or a
+    :func:`params_view`) over ``batch["tokens"]`` ``[B, S]`` at
     ``batch["positions"]`` ``[B, S]`` int32 (the same row for every batch
-    entry), activations in ``act_to`` (None: f32). Returns the final
-    hidden states ``[B, S, D]`` in that dtype and, with
-    ``collect_cache``, the decode cache of ``cache_len`` slots in
-    ``cache_dtype`` (:func:`init_cache`'s layout)."""
+    entry), activations in ``act_to`` (None: f32). Returns ``(h, aux)``:
+    the final hidden states ``[B, S, D]`` in that dtype and the auxiliary
+    loss (0.0 for the dense archs), and, with ``collect_cache``, the decode
+    cache of ``cache_len`` slots in ``cache_dtype`` (:func:`init_cache`'s
+    layout) as a third item. ``remat`` recomputes each block in the
+    backward (``torch.utils.checkpoint``), as the reference's
+    ``jax.checkpoint`` over its layer scan."""
     cfg = model.cfg
     tokens, positions = batch["tokens"], batch["positions"]
-    h = act(model.embed[tokens].to(f32), act_to)
+    h = act(F.embedding(tokens, model.embed).to(f32), act_to)
     rot = _rope(cfg, positions)
     cache = None
     if collect_cache:
         cache = init_cache(cfg, tokens.shape[0], cache_len, cache_dtype, tokens.device)
     for i, layer in enumerate(model.layers):
-        h = _block_full(layer, h, positions, rot,
-                        _layer_cache(cache, i) if collect_cache else None, act_to)
-    h = model.final_norm(h, act_to)
-    return (h, cache) if collect_cache else h
+        kv = _layer_cache(cache, i) if collect_cache else None
+        if remat:
+            h = checkpoint(_block_full, layer, h, positions, rot, kv, act_to,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            h = _block_full(layer, h, positions, rot, kv, act_to)
+    h = _norm(model.final_norm, h, act_to)
+    aux = torch.zeros((), dtype=f32, device=h.device)
+    return (h, aux, cache) if collect_cache else (h, aux)
 
 
 def lm_logits(model: Transformer, h: torch.Tensor,
@@ -187,11 +211,77 @@ def decode_step(model: Transformer, cache: dict, token: torch.Tensor, pos: int,
     cfg = model.cfg
     b = token.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=token.device)
-    h = model.embed[token].to(f32)
+    h = F.embedding(token, model.embed).to(f32)
     rot = _rope(cfg, positions)
     kv = cache["kv"]
     kv["pos"][:, pos % kv["pos"].shape[1]] = pos
     for i, layer in enumerate(model.layers):
         h = _block_decode(layer, h, _layer_cache(cache, i), positions, rot, pos, act_to)
-    h = model.final_norm(h, act_to)
+    h = _norm(model.final_norm, h, act_to)
     return lm_logits(model, h[:, 0], act_to), cache
+
+
+# -- parameter trees (training) -------------------------------------------------------
+
+
+def _norm_tree(p) -> dict:
+    return {"scale": p.scale} if p.bias is None else {"scale": p.scale, "bias": p.bias}
+
+
+def _layer_tree(layer: Block) -> dict:
+    attn = {n: getattr(layer.attn, n) for n in ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+            if getattr(layer.attn, n) is not None}
+    mlp = {n: getattr(layer.mlp, n) for n in ("w_gate", "w_up", "w_down")
+           if hasattr(layer.mlp, n)}
+    return {"norm1": _norm_tree(layer.norm1), "attn": attn, "norm2": _norm_tree(layer.norm2),
+            "mlp": mlp}
+
+
+def params_tree(model: Transformer) -> dict:
+    """The model's parameters as the reference's tree (detached tensors):
+    ``embed``, ``final_norm``, ``layers`` (each leaf stacked ``[L, ...]``)
+    and, untied, ``lm_head``."""
+    layers = [_layer_tree(layer) for layer in model.layers]
+
+    def stack(*xs):
+        if isinstance(xs[0], dict):
+            return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
+        return torch.stack([x.detach() for x in xs])
+
+    tree = {"embed": model.embed.detach(), "final_norm": {
+        k: v.detach() for k, v in _norm_tree(model.final_norm).items()},
+        "layers": stack(*layers)}
+    if model.lm_head is not None:
+        tree["lm_head"] = model.lm_head.detach()
+    return tree
+
+
+def params_view(cfg: ArchConfig, params: dict) -> SimpleNamespace:
+    """A :class:`Transformer`-shaped view of a parameter tree in the
+    reference's layout (:func:`params_tree`), for :func:`forward` and
+    :func:`lm_logits`: each stacked ``layers`` leaf is unbound once into
+    its layers' slices, so autograd through the view reaches the tree's
+    leaves."""
+    def unbind(tree):
+        if isinstance(tree, dict):
+            return {k: unbind(v) for k, v in tree.items()}
+        return tree.unbind(0)
+
+    def norm(p: dict, i=None):
+        pick = (lambda x: x) if i is None else (lambda x: x[i])
+        return SimpleNamespace(kind=cfg.norm, scale=pick(p["scale"]),
+                               bias=pick(p["bias"]) if "bias" in p else None)
+
+    lay = unbind(params["layers"])
+    layers = []
+    for i in range(cfg.n_layers):
+        attn = lay["attn"]
+        layers.append(SimpleNamespace(
+            norm1=norm(lay["norm1"], i), norm2=norm(lay["norm2"], i),
+            attn=SimpleNamespace(
+                n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                **{n: attn[n][i] if n in attn else None
+                   for n in ("wq", "wk", "wv", "wo", "bq", "bk", "bv")}),
+            mlp=SimpleNamespace(kind=cfg.mlp, **{n: w[i] for n, w in lay["mlp"].items()})))
+    return SimpleNamespace(cfg=cfg, embed=params["embed"], lm_head=params.get("lm_head"),
+                           final_norm=norm(params["final_norm"]), layers=layers)

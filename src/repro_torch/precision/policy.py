@@ -19,6 +19,7 @@ from typing import Any, Callable
 import torch
 
 __all__ = ["PrecisionPolicy", "POLICIES", "get_policy", "store_tree", "load_tree",
+           "tree_leaves", "tree_map",
            "tree_bytes"]
 
 _FLOATS = (torch.float16, torch.bfloat16, torch.float32, torch.float64)
@@ -215,6 +216,18 @@ def _flatten(tree: Any) -> tuple[list, Callable[[list], Any]]:
             return type(tree)(out)
         return [x for sub, _ in parts for x in sub], rebuild
     return [tree], lambda leaves: leaves[0]
+
+
+def tree_leaves(tree: Any) -> list:
+    """The leaves of ``tree`` in ``jax.tree.leaves``' order (dict keys sorted)."""
+    return _flatten(tree)[0]
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any):
+    """``tree`` rebuilt from ``fn`` of its leaves and the same-placed leaves of
+    ``rest`` (trees of its structure), as ``jax.tree.map``."""
+    leaves, rebuild = _flatten(tree)
+    return rebuild([fn(*xs) for xs in zip(leaves, *map(tree_leaves, rest))])
 
 
 def store_tree(tree: Any, policy: PrecisionPolicy, *, key: torch.Tensor | None = None):

@@ -35,7 +35,11 @@ and watched runs on the card against the CPU port; and partitioning: every
 core's launchers of a two-core plastic cut (the 50-post core among them)
 against their plain versions, and partitioned runs (both lowerings)
 against the unpartitioned card run; and the bf16 entries of B1, B4, B5, B6
-and the drive, as cases of the tests above (``-k bf16``)."""
+and the drive, as cases of the tests above (``-k bf16``); and training:
+B7's forward with the rows' log-sum-exp and the attention backward
+(``flash_attn_bwd``) against their plain versions, ``ops.attention``
+under grad, and one reduced train step on the card against the CPU port
+(``-k "bwd or attention_fn or train_step"``)."""
 import math
 
 import numpy as np
@@ -99,6 +103,95 @@ def test_flash_attention_kernel_matches_plain(card, case):
         want_empty = mean.repeat_interleave(hq // hkv, dim=1)[:, None].to(card)
         torch.testing.assert_close(got[:, :-shift], want_empty.expand(b, -shift, hq, d),
                                    rtol=1e-5, atol=1e-5)
+
+
+# (b, s, hq, hkv, d, causal, window, invalid slots, query shift)
+BWD_CASES = {
+    "smollm-train": (8, 512, 15, 5, 64, True, -1, 0, 0),
+    "reduced": (4, 64, 4, 2, 16, True, -1, 0, 0),
+    "few-rows-per-kv-head": (2, 5, 3, 1, 16, True, -1, 0, 0),
+    "window-g4": (2, 160, 8, 2, 16, True, 64, 0, 0),
+    "invalid-and-no-key-rows": (2, 40, 6, 2, 64, True, -1, 5, -8),
+    "d128-g5": (1, 100, 10, 2, 128, True, -1, 0, 0),
+    "d160-g4": (1, 70, 8, 2, 160, True, -1, 0, 0),
+    "long-1536": (1, 1536, 5, 1, 64, True, -1, 0, 0),
+    "noncausal": (2, 33, 4, 4, 16, False, -1, 0, 0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BWD_CASES.values(), ids=BWD_CASES.keys())
+def test_flash_attention_bwd_kernel_matches_plain(card, case):
+    """B7's forward with the log-sum-exp and the ``flash_attn_bwd`` kernel
+    against their plain versions: out, lse and each gradient within 2e-4 of
+    its scale (the kernel's split-TF32 products and the plain version's
+    cuBLAS products sum in their own orders, over up to Sq x G terms for dK
+    and dV: 1.5e-5 measured at smollm's shape), two calls bit for bit, one
+    launch of each per call."""
+    b, s, hq, hkv, d, causal, window, invalid, shift = case
+    q, k, v, qpos, kpos = _attn_args(card, s, b, s, s, hq, hkv, d, torch.float32, invalid,
+                                     shift)
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(7)).to(card)
+    ops.reset_launches()
+    out, lse = ops._attention_fwd(q, k, v, qpos, kpos, causal, window, with_lse=True)
+    grads = ops.attention_bwd(q, k, v, qpos, kpos, out, lse, dout, causal=causal,
+                              window=window)
+    again = ops.attention_bwd(q, k, v, qpos, kpos, out, lse, dout, causal=causal,
+                              window=window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 1 and ops.LAUNCHES["flash_attention_bwd"] == 2
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+    w_out, w_lse = ref.chunked_attention_ref(q, k, v, qpos, kpos, causal=causal,
+                                             window=window, return_lse=True)
+    want = ref.chunked_attention_bwd_ref(q, k, v, qpos, kpos, w_out, w_lse, dout,
+                                         causal=causal, window=window)
+    for got, w in zip((out, lse, *grads), (w_out, w_lse, *want)):
+        assert float((got - w).abs().max()) <= 2e-4 * max(float(w.abs().max()), 1.0)
+
+
+@pytest.mark.cuda
+def test_attention_fn_on_card_launches_kernels(card):
+    """Under grad, ``ops.attention`` is one B7 launch forward and one
+    ``flash_attn_bwd`` launch backward, and its gradients match autograd
+    through the plain version."""
+    q, k, v, qpos, kpos = _attn_args(card, 3, 2, 64, 64, 6, 2, 64, torch.float32)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    ops.reset_launches()
+    out = ops.attention(q, k, v, qpos, kpos)
+    assert type(out.grad_fn).__name__ == "AttentionFnBackward"
+    grads = torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 1 and ops.LAUNCHES["flash_attention_bwd"] == 1
+    plain = ref.chunked_attention_ref(q, k, v, qpos, kpos)
+    want = torch.autograd.grad(plain, (q, k, v), torch.ones_like(plain))
+    for g, w in zip(grads, want):
+        assert float((g - w).abs().max()) <= 2e-4 * max(float(w.abs().max()), 1.0)
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu(card):
+    """Reduced smollm-360m, one fp32 train step from the same state and
+    tokens: the card's loss and new masters against the CPU port's."""
+    from repro_torch.models import tasks
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = reduce_arch(get_arch("smollm-360m"))
+    step = tasks.make_train_step(cfg, get_policy("fp32"), opt_cfg=AdamWConfig(lr=3e-3),
+                                 ce_chunk=32)
+    state = tasks.init_train_state(cfg, get_policy("fp32"), seed=0, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (4, 64), generator=torch.Generator().manual_seed(1))
+    cpu_state, cpu_m = step(state, {"tokens": toks})
+    from repro_torch.precision.policy import tree_leaves, tree_map
+
+    ops.reset_launches()
+    card_state, card_m = step(tree_map(lambda x: x.to(card), state), {"tokens": toks.to(card)})
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 2 * cfg.n_layers
+    assert ops.LAUNCHES["flash_attention_bwd"] == cfg.n_layers
+    np.testing.assert_allclose(float(card_m["loss"]), float(cpu_m["loss"]), rtol=1e-5)
+    lr_t = 3e-3 * 2 / 100
+    for a, b in zip(tree_leaves(card_state["params"]), tree_leaves(cpu_state["params"])):
+        assert float((a.cpu() - b).abs().max()) <= 2 * lr_t + 1e-6
 
 
 def _attn_args(card, seed, b, sq, sk, hq, hkv, d, kvdt, invalid=0, shift=0):

@@ -937,9 +937,14 @@ class TestWrappers:
                                          out=out, w_dtype=torch.float32)])(
             torch.ones(8), [torch.ones((4, 3))], [None])
         assert torch.equal(out, torch.full((4,), 3.0))
+        q, k = torch.ones((1, 2, 4, 8), requires_grad=True), torch.ones((1, 3, 2, 8))
+        o = ops.attention(q, k, k, torch.ones((1, 2), dtype=torch.int32),
+                          torch.ones(3, dtype=torch.int32))
+        o.sum().backward()  # ops.AttentionFn: the plain backward on the CPU
         assert ops.LAUNCHES == {"izh4_update": 0, "syn_matmul": 0, "syn_gather": 0,
                                 "fused_tick": 0, "stdp_update": 0, "stdp_gather": 0,
-                                "plastic_drive": 0, "flash_attention": 0}
+                                "plastic_drive": 0, "flash_attention": 0,
+                                "flash_attention_bwd": 0}
         assert _build._LIBS == {}
 
     def test_mixed_devices_raise(self):
@@ -957,12 +962,13 @@ class TestWrappers:
     def test_kernel_sources_and_build_flags(self):
         """Every kernel has its CUDA source, built for sm_90a, which names
         the Pallas TPU kernel it replaces, or, for the port's own plastic
-        drive (the reference computes it in XLA), says it replaces none."""
+        drive and attention backward (the reference computes them in XLA),
+        says it replaces none."""
         for name in _build.KERNELS:
             src = _build.CSRC / f"{name}.cu"
             assert src.exists(), src
             text = src.read_text()
-            if name == "plastic_drive":
+            if name in ("plastic_drive", "flash_attn_bwd"):
                 assert "Replaces no TPU kernel" in text
             else:
                 assert "Replaces the Pallas TPU kernel" in text
