@@ -243,8 +243,9 @@ Phases (each raises, and the script exits non-zero, on any failure):
    Synfire4 fp32 on int8-round-tripped weights, packed on both backends,
    accuracy against fp32 required >= 0.97, the card raster against the CPU
    port's; (f) stochastic rounding (``fp16_sr``, bf16) of a card tensor
-   equal to the CPU port's; (g) smollm-360m at full width served under
-   fp16, bf16 and fp16_opt, and at 2 layers the card against the CPU port.
+   equal to the CPU port's; (g) smollm-360m at full width cut to 8 layers
+   served under fp16, bf16 and fp16_opt, and at 2 layers the card against
+   the CPU port.
    The bf16 entries join the kernel rows as ``<kernel>[bf16]``, their
    launches counted on (b)-(d).
 13. Training (after phase 12, in a process of its own too: ``chip_smoke.py
@@ -264,6 +265,38 @@ Phases (each raises, and the script exits non-zero, on any failure):
    three steps' losses; (d) the reduced model learning over 20 steps, 4
    straight steps equal to 2 + save/restore + 2 bit for bit, a NaN step
    skipped; (e) bf16 and fp16_opt at full width for 3 steps.
+14. The other five LM families (in a process of its own, started before
+   the build: its CPU half (each arch drawn once as a train state on the
+   CPU, the CPU port's logits and, for three archs, a train step) runs on
+   6 threads beside the build, and phase 2 starts once it is done; its
+   card half runs after phase 6; alone: ``chip_smoke.py --archs-json
+   PATH``): (a) B7 and the attention backward against their plain
+   versions at the shapes (b) and (e) give them: recurrentgemma's D 256
+   with 10 query heads on 1 KV head, prefill under its window of 2,048
+   over 2,100 keys and decode on a wrapped 2,048-slot fp16 ring whose slot
+   positions are out of order, its training shape with and without the
+   window binding (2,560 keys); qwen2-vl's D 128 GQA 6:1 with M-RoPE's
+   repeated t positions (256 patches at t = 0) in prefill, decode and
+   training; qwen2-moe's D 128 MHA 16:16, musicgen's D 64 MHA 32:32 and
+   granite's D 64 GQA 2:1 in prefill, decode and training; each timed
+   beside its plain version and SDPA (rows ``flash_attention[archs]`` and
+   ``flash_attention_bwd[archs]``); then for granite-moe-1b-a400m,
+   qwen2-moe-a2.7b, falcon-mamba-7b, recurrentgemma-2b, musicgen-large
+   and qwen2-vl-2b at full width cut to 2 layers (the hybrid 3: one
+   period): (b) served
+   through ``launch.serve.serve`` (the VLM through the step functions) at
+   batch 2 x 128 + 8 tokens (the hybrid one 2,100-token prompt into a
+   2,048-slot ring), the main path, with exactly one B7 launch per
+   attention layer and step (none for falcon-mamba); (c) the card against
+   the CPU port, fp16, prefill and 2 decode steps on the CPU's tokens,
+   MoE routes compared first (a row whose routes flip is counted with its
+   top-k margin and not gated); (d) prefill against token-by-token decode;
+   (e) one timed train step (after a warm-up step) at 4 x 512 (the hybrid
+   1 x 2,560: its window binds; qwen2-moe on its first layer), peak
+   memory, two B7 forwards and one backward per attention layer, the main
+   path too; (f) one train step on the card against the CPU port at full
+   width for granite-moe, falcon-mamba and recurrentgemma: loss, grad
+   norm, each leaf's first moment and the new masters.
 6. LM serving on the dense decoder (``repro_torch.launch.serve``; after
    phase 12, in a process of its own: ``chip_smoke.py --lm-json PATH``): (a) the
    attention kernel ``flash_attention`` against its plain version on the
@@ -295,9 +328,10 @@ Phases (each raises, and the script exits non-zero, on any failure):
    ``ops.StdpGatherRun`` and the plastic fp16 packed tick with and without
    ``ops.StdpUpdateRun``: host us/tick and device events per tick.
 
-The last lines are a JSON object of per-kernel numbers, a JSON object of
-per-path numbers, the card's name and power limit from nvidia-smi, and
-``{"ok": true, "device": {...}}``.
+Each phase's end is logged as ``[clock] <phase> done at N s``. The last
+lines are a JSON object of per-kernel numbers, a JSON object of per-path
+numbers, the card's name and power limit from nvidia-smi, and ``{"ok":
+true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -308,8 +342,10 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import torch
 
@@ -392,12 +428,16 @@ def device_total_ms(fn, reps: int = 100) -> float:
     """Mean device time (ms) of all kernels one call of ``fn`` launches,
     from a ``torch.profiler`` trace of ``reps`` calls: a library call's
     kernels, whatever their names (traced again as :func:`device_ms` is
-    when records are missing)."""
+    when records are missing; the fullest trace counts, since a later one
+    may hold none at all)."""
+    spans: list = []
     for attempt in range(PROFILE_TRIES):
-        spans = [e.time_range.elapsed_us() for e in _cuda_events(fn, reps)]
+        trace = [e.time_range.elapsed_us() for e in _cuda_events(fn, reps)]
+        if len(trace) > len(spans):
+            spans = trace
         if len(spans) >= reps:
             break
-        log(f"[profile] all kernels: trace {attempt + 1} held {len(spans)} events in "
+        log(f"[profile] all kernels: trace {attempt + 1} held {len(trace)} events in "
             f"{reps} calls; tracing again")
     require(len(spans) >= reps // 2, f"profiler saw {len(spans)} kernels in {reps} calls")
     return sum(spans) / reps / 1e3
@@ -5849,19 +5889,26 @@ def _prec_sr(dev) -> dict:
     return {"precision/stochastic_round": out}
 
 
+PREC_LM_LAYERS = 8
+
+
 def _prec_lm(dev, totals: dict) -> dict:
-    """Phase 12g: smollm-360m at full width served under ``bf16`` and
-    ``fp16_opt`` beside ``fp16`` (batch 4, 512-token prompts, 32 tokens):
-    prefill ms and tokens/s; one attention launch per layer per step; and
-    at 2 layers the card against the CPU port (logits within the stated
-    tolerance; greedy tokens counted, not gated: see :func:`_card_vs_cpu`)."""
+    """Phase 12g: smollm-360m at full width cut to ``PREC_LM_LAYERS`` layers
+    (32 until phase 14 came to share the script's time: the draws of 32
+    layers took 4 s a policy) served under ``bf16`` and ``fp16_opt``
+    beside ``fp16`` (batch 4, 512-token prompts, 32 tokens): prefill ms and
+    tokens/s; one attention launch per layer per step; and at 2 layers the
+    card against the CPU port (logits within the stated tolerance; greedy
+    tokens counted, not gated: see :func:`_card_vs_cpu`)."""
+    import dataclasses
+
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve
     from repro_torch.models import transformer as tf
     from repro_torch.precision import get_policy
 
-    cfg, paths = get_arch(SMOLLM), {}
+    cfg, paths = dataclasses.replace(get_arch(SMOLLM), n_layers=PREC_LM_LAYERS), {}
     for policy_name in ("fp16", "bf16", "fp16_opt"):
         model = tf.init_params(cfg, get_policy(policy_name), seed=0, device=dev)
         kw = dict(batch=LM_BATCH, prompt_len=LM_PROMPT, reduced=False, params=model,
@@ -5882,7 +5929,7 @@ def _prec_lm(dev, totals: dict) -> dict:
             "decode_tok_s": out["decode_tok_s"],
             "prefill_tok_s": LM_BATCH * LM_PROMPT / out["prefill_s"],
             "kv_dtype": str(get_policy(policy_name).state_storage)}
-        log(f"[precision] serve {SMOLLM} full width {policy_name}: prefill "
+        log(f"[precision] serve {SMOLLM} full width {cfg.n_layers} layers {policy_name}: prefill "
             f"{out['prefill_s'] * 1e3:.1f} ms ({LM_BATCH * LM_PROMPT / out['prefill_s']:.0f} "
             f"tok/s), decode {step_ms:.2f} ms/step, {out['decode_tok_s']:.1f} tok/s")
         del model
@@ -6846,6 +6893,607 @@ def _train_main(out: str) -> int:
     return 0
 
 
+# -- the other five LM families (A12c) ---------------------------------------------------
+
+ARCHS_NEW = ("granite-moe-1b-a400m", "qwen2-moe-a2.7b", "falcon-mamba-7b", "recurrentgemma-2b",
+             "musicgen-large", "qwen2-vl-2b")
+# Depth at full width: one period of the hybrid (two RG-LRU layers and one
+# local-attention layer), 2 layers otherwise. Each arch is drawn once, as a
+# train state on the CPU in phase 14's CPU half (the randn of 1.76 B
+# weights alone takes about 18 s there): its params serve, and it trains
+# on the card. qwen2-moe trains on its first
+# layer only: at 2 layers its f32 masters, moments, gradients and saved
+# activations ran out of the card's 80 GB.
+ARCH_DEPTH = {"recurrentgemma-2b": 3}
+ARCH_TRAIN_LAYERS = {"qwen2-moe-a2.7b": 1}
+# Serving: batch 2, 128-token prompts and 8 tokens; the hybrid serves one
+# 2,100-token prompt into a 2,048-slot cache (its window), so prefill
+# packs a ring of the last 2,048 tokens and every decode step writes past
+# a wrap.
+ARCH_SERVE = {"recurrentgemma-2b": dict(batch=1, prompt_len=2100, gen=8, capacity=2048)}
+ARCH_SERVE_DEFAULT = dict(batch=2, prompt_len=128, gen=8)
+# One train step: batch 4 x 512 (the hybrid 1 x 2,560, so that its window of
+# 2,048 binds in the forward and the backward).
+ARCH_TRAIN = {"recurrentgemma-2b": (1, 2560)}
+ARCH_TRAIN_DEFAULT = (4, 512)
+# Card against the CPU port (fp16, full width at the depths above): one fp16
+# ulp of a projection input moves a logit by up to about 3e-3 at full width
+# (smollm, ROADMAP queue C), 4e-3 held there; the same here but for the
+# hybrid, whose RG-LRU gates carry an f32 ulp of their exp and sigmoid
+# through the recurrence into every later position (queue C).
+ARCH_CARD_TOL = {"recurrentgemma-2b": 8e-3}
+ARCH_CARD_TOL_DEFAULT = 4e-3
+# One train step card against CPU port: the first moments at queue C's
+# fp16 5e-3 of a leaf's scale (each cotangent rounds to fp16 on its way
+# back, where a sum one f32 ulp apart lands an fp16 ulp apart).
+ARCH_TRAIN_TOL = {"loss": 1e-4, "grad_norm": 1e-3, "m": 5e-3}
+
+
+def _arch_cfg(arch: str, depth: int | None = None):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(arch)
+    return dataclasses.replace(cfg, n_layers=depth or ARCH_DEPTH.get(arch, 2))
+
+
+def _attn_layers(cfg) -> int:
+    return sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+
+
+def _vlm_batch(cfg, b: int, s: int, seed: int, dev):
+    """The VLM's prefill batch: ``cfg.n_patches`` bf16 patch embeddings on
+    a 16-wide grid at t = 0 (repeated key positions), then ``s`` text
+    tokens at t = h = w = 2, 3, ... (as the reference's test batch)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    p = cfg.n_patches
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)))
+    patches = torch.from_numpy(rng.normal(size=(b, p, cfg.d_model)).astype(np.float32))
+    pos = np.zeros((b, p + s, 3), np.int32)
+    pos[:, :p, 1] = np.arange(p) // 16
+    pos[:, :p, 2] = np.arange(p) % 16
+    pos[:, p:] = (np.arange(s) + 2)[None, :, None]
+    return {"tokens": toks.to(dev), "patch_embeds": patches.to(torch.bfloat16).float().to(dev),
+            "positions": torch.from_numpy(pos).to(dev)}
+
+
+def _arch_attn_cases(g, dev) -> list:
+    """Phase 14a's B7 cases: the new families' shapes."""
+    f16, f32 = torch.float16, torch.float32
+    # The hybrid's ring after a wrap: 2,048 slots holding positions P-2047..P
+    # at slot pos mod 2048, the query at P, window 2,048.
+    p_now = 2107
+    ring = _attn_case(g, 1, 1, 2048, 10, 1, 256, f16, dev)
+    slots = torch.arange(2048)
+    ring[4] = (p_now - ((p_now - slots) % 2048)).to(torch.int32).to(dev)
+    ring[3] = torch.full((1, 1), p_now, dtype=torch.int32, device=dev)
+    # M-RoPE as phase 14b serves qwen2-vl: 256 patches at t = 0, then 128
+    # text tokens at t = 2..129; its third decode step at position 386 over
+    # 392 slots, the prefill's t positions and the decoded 384..386.
+    mrope = _attn_case(g, 2, 384, 384, 12, 2, 128, f32, dev)
+    t = torch.cat([torch.zeros(256), torch.arange(128) + 2]).to(torch.int32)
+    mrope[3], mrope[4] = t.expand(2, 384).contiguous().to(dev), t.to(dev)
+    vlm_decode = _attn_case(g, 2, 1, 392, 12, 2, 128, f16, dev)
+    kpos = torch.cat([t, torch.arange(384, 387, dtype=torch.int32),
+                      torch.full((5,), -1, dtype=torch.int32)])
+    vlm_decode[3] = torch.full((2, 1), 386, dtype=torch.int32, device=dev)
+    vlm_decode[4] = kpos.to(dev)
+    return [
+        ("recurrentgemma prefill, D 256 MQA 10:1, window 2,048 over 2,100",
+         _attn_case(g, 1, 2100, 2100, 10, 1, 256, f32, dev), True, 2048),
+        ("recurrentgemma decode on a wrapped 2,048-slot fp16 ring, window 2,048", ring,
+         True, 2048),
+        ("qwen2-vl prefill, D 128 GQA 6:1, M-RoPE t positions (256 repeated)", mrope,
+         True, -1),
+        ("qwen2-moe prefill, D 128 MHA 16:16", _attn_case(g, 2, 128, 128, 16, 16, 128, f32, dev),
+         True, -1),
+        ("qwen2-moe decode, D 128 MHA 16:16, fp16 cache",
+         _attn_case(g, 2, 1, 136, 16, 16, 128, f16, dev, invalid=6), True, -1),
+        ("musicgen decode, D 64 MHA 32:32, fp16 cache",
+         _attn_case(g, 2, 1, 136, 32, 32, 64, f16, dev, invalid=6), True, -1),
+        ("granite decode, D 64 GQA 2:1, fp16 cache",
+         _attn_case(g, 2, 1, 136, 16, 8, 64, f16, dev, invalid=6), True, -1),
+        ("granite prefill, D 64 GQA 2:1", _attn_case(g, 2, 128, 128, 16, 8, 64, f32, dev),
+         True, -1),
+        ("musicgen prefill, D 64 MHA 32:32", _attn_case(g, 2, 128, 128, 32, 32, 64, f32, dev),
+         True, -1),
+        ("qwen2-vl decode, D 128 GQA 6:1, fp16 cache, M-RoPE t positions (256 repeated)",
+         vlm_decode, True, -1),
+    ]
+
+
+def _arch_bwd_cases(g, dev) -> list:
+    """Phase 14a's backward cases: the new families' training shapes."""
+    mrope = _bwd_case(g, 4, 512, 12, 2, 128, dev)
+    t = torch.cat([torch.zeros(256), torch.arange(256) + 2]).to(torch.int32).to(dev)
+    mrope[3], mrope[4] = t.expand(4, 512).contiguous(), t
+    return [
+        ("recurrentgemma train, D 256 MQA 10:1", _bwd_case(g, 4, 512, 10, 1, 256, dev),
+         True, -1),
+        ("recurrentgemma train, D 256 MQA 10:1, window 2,048 over 2,560",
+         _bwd_case(g, 1, 2560, 10, 1, 256, dev), True, 2048),
+        ("qwen2-vl train, D 128 GQA 6:1, M-RoPE t positions (256 repeated)", mrope, True, -1),
+        ("qwen2-moe train, D 128 MHA 16:16", _bwd_case(g, 4, 512, 16, 16, 128, dev), True, -1),
+        ("musicgen train, D 64 MHA 32:32", _bwd_case(g, 4, 512, 32, 32, 64, dev), True, -1),
+        ("granite train, D 64 GQA 2:1", _bwd_case(g, 4, 512, 16, 8, 64, dev), True, -1),
+    ]
+
+
+def _entry_row(kernel: str, rows: list, main: int) -> dict:
+    m = rows[main]
+    return {"name": f"{kernel}[archs]", "kernel": kernel, "entry": "archs",
+            "shape": m["shape"], "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{k: m.get(k) for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms", "library_device_ms")},
+            "cases": rows}
+
+
+def _record_routes():
+    """A wrapper of the transformer's ``moe_apply`` that records each call's
+    routes (eids and the top-k margin: the k-th probability less the next),
+    and its undo."""
+    from repro_torch.models import transformer as tf
+
+    calls, orig = [], tf.moe_apply
+
+    def recording(p, x, cfg, act_to=None):
+        from repro_torch.models.moe import route
+
+        k = cfg.moe.top_k
+        probs, eids, _ = route(p, x, cfg, act_to)
+        top = probs.topk(k + 1, dim=-1).values
+        calls.append({"eids": eids.cpu(), "margin": (top[..., k - 1] - top[..., k]).cpu()})
+        return orig(p, x, cfg, act_to)
+
+    tf.moe_apply = recording
+    return calls, lambda: setattr(tf, "moe_apply", orig)
+
+
+def _arch_steps(model, cfg, policy, batch: dict, fed: list, gen: int, cap: int, where):
+    """Prefill of ``batch`` and ``gen - 1`` decode steps, each fed ``fed``'s
+    token (the CPU's greedy choice; appended when ``fed`` is shorter):
+    the logits of every step on the host."""
+    from repro_torch.models import tasks
+
+    prefill = tasks.make_prefill_step(cfg, policy, collect_cache=True, cache_len=cap)
+    decode = tasks.make_decode_step(cfg, policy)
+    b = {k: v.to(where) for k, v in batch.items()}
+    s = b["positions"].shape[1] if "positions" in b else b["tokens"].shape[1]
+    with torch.inference_mode():
+        out, cache = prefill(model, b)
+        steps = [out.float().cpu()]
+        for i in range(gen - 1):
+            if len(fed) <= i:
+                fed.append(out.argmax(dim=-1)[:, None].cpu())
+            out, cache = decode(model, cache, fed[i].to(where), s + i)
+            steps.append(out.float().cpu())
+    return steps
+
+
+def _arch_routed_steps(model, cfg, batch, cap, gen, fed: list, where) -> tuple[list, list]:
+    """``_arch_steps`` at fp16 with the MoE routes of every layer call
+    recorded: (logits per step, route calls)."""
+    from repro_torch.precision import get_policy
+
+    calls, undo = _record_routes()
+    try:
+        steps = _arch_steps(model, cfg, get_policy("fp16"), batch, fed, gen, cap, where)
+    finally:
+        undo()
+    return steps, calls
+
+
+def _arch_card_vs_cpu(arch, cfg, cpu: dict, card_model, batch, cap, gen) -> dict:
+    """Phase 14c: the same weights on the CPU (``cpu``: its logits per
+    step, the greedy tokens it fed and its routes, from :func:`_arch_prep`)
+    and the card, fp16, a prefill and ``gen - 1`` decode steps, the card
+    fed the CPU's tokens. Under MoE the routes are compared first, per
+    layer call: a batch row any of whose routes differ (a near tie an ulp
+    decides) is counted, with the CPU's top-k margin there, and its logits
+    are not gated; every other row's are, at the arch's tolerance."""
+    card, card_routes = _arch_routed_steps(card_model, cfg, batch, cap, gen, list(cpu["fed"]),
+                                           torch.device("cuda", 0))
+    b = batch["tokens"].shape[0]
+    flipped_rows, flips = set(), []
+    for i, (c, d) in enumerate(zip(cpu["routes"], card_routes)):
+        diff = (c["eids"].sort(-1).values != d["eids"].sort(-1).values).any(-1)  # [B, S]
+        for row, pos in torch.nonzero(diff).tolist():
+            flipped_rows.add(row)
+            flips.append({"call": i, "row": row, "pos": pos,
+                          "cpu_margin": float(c["margin"][row, pos])})
+    keep = [r for r in range(b) if r not in flipped_rows]
+    tol = ARCH_CARD_TOL.get(arch, ARCH_CARD_TOL_DEFAULT)
+    errs = []
+    for i, (c, d) in enumerate(zip(cpu["steps"], card)):
+        errs.append(max_err(d[keep], c[keep]) if keep else 0.0)
+        require(errs[-1] <= tol, f"[archs] {arch} card vs CPU step {i}: max abs logit err "
+                f"{errs[-1]} > {tol} on rows {keep}")
+    require(keep, f"[archs] {arch}: every row's routes flipped: {flips[:8]}")
+    require(len(card_routes) == len(cpu["routes"]), f"[archs] {arch}: route calls differ")
+    log(f"[archs] card vs CPU port, {arch} full width {cfg.n_layers} layers fp16: prefill + "
+        f"{gen - 1} decode steps on the CPU's tokens, max abs logit err {max(errs):.3g} "
+        f"(tolerance {tol}) on rows {keep}; MoE route calls {len(card_routes)}, flips "
+        f"{len(flips)}: {flips[:6]}")
+    return {"max_abs_err_per_step": errs, "tolerance": tol, "rows_gated": keep,
+            "route_calls": len(card_routes), "route_flips": flips}
+
+
+def _arch_prefill_vs_decode(arch, cfg, model, dev) -> dict:
+    """Phase 14d: the reference's ``test_prefill_matches_decode`` at full
+    width on the card (8 tokens; MoE at drop-free capacity, the VLM's
+    text-only prompt as the other archs', its M-RoPE positions all equal)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.models import tasks
+    from repro_torch.models import transformer as tf
+    from repro_torch.precision import get_policy
+
+    policy = get_policy("fp16")
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+    if isinstance(model, tf.Transformer):
+        view = tf.params_view(cfg, tf.params_tree(model))
+    else:  # a params_view already: the same weights under the drop-free config
+        view = copy.copy(model)
+        view.cfg = cfg
+    toks = torch.from_numpy(np.random.default_rng(41).integers(0, cfg.vocab_size, (1, 8)))
+    toks = toks.to(dev)
+    batch = {"tokens": toks}
+    if cfg.frontend == "vision":
+        cfg = dataclasses.replace(cfg, frontend="none")
+        view.cfg = cfg
+        batch["positions"] = torch.arange(8, dtype=torch.int32, device=dev)[None, :, None] \
+            .expand(1, 8, 3).contiguous()
+    with torch.inference_mode():
+        logits_p = tasks.make_prefill_step(cfg, policy)(view, batch)
+        cache = tf.init_cache(cfg, 1, 16, policy.state_storage, dev)
+        step = tasks.make_decode_step(cfg, policy)
+        for pos in range(8):
+            logits_d, cache = step(view, cache, toks[:, pos:pos + 1], pos)
+    err = max_err(logits_p, logits_d)
+    require(bool(torch.isfinite(logits_d).all()) and err <= 5e-2,
+            f"[archs] {arch} prefill vs decode on the card: max abs err {err}")
+    return {"max_abs_err": err, "tolerance": 5e-2}
+
+
+def _arch_serve(arch, cfg, model, dev, totals) -> dict:
+    """Phase 14b, the main path: ``launch.serve.serve`` (the VLM through
+    the step functions, which ``launch.serve`` leaves to the caller) at full
+    width, launches counted: one B7 launch per attention layer and step."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.precision import get_policy
+
+    kw = dict(ARCH_SERVE.get(arch, ARCH_SERVE_DEFAULT))
+    gen = kw["gen"]
+    if cfg.frontend == "vision":
+        policy = get_policy("fp16")
+        batch = _vlm_batch(cfg, kw["batch"], kw["prompt_len"], 43, dev)
+        cap = cfg.n_patches + kw["prompt_len"] + gen
+
+        def run():
+            t0 = time.perf_counter()
+            steps = _arch_steps(model, cfg, policy, batch, [], gen, cap, dev)
+            torch.cuda.synchronize()
+            return {"tokens": torch.stack([s.argmax(-1) for s in steps], 1).numpy(),
+                    "wall_s": time.perf_counter() - t0}
+    else:
+        def run():
+            return serve(arch, reduced=False, params=model, device=dev, **kw)
+
+    run()  # warm-up: cuBLAS handles, the allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    want = {k: 0 for k in launches}
+    want["flash_attention"] = _attn_layers(cfg) * gen
+    require(launches == want, f"[archs] serve {arch}: launches {launches} != {want}")
+    _add(totals, launches)
+    toks = np.asarray(out["tokens"])
+    require(toks.shape == (kw["batch"], gen) and int(toks.min()) >= 0
+            and int(toks.max()) < cfg.vocab_size, f"[archs] {arch} served tokens {toks.shape}")
+    res = {"batch": kw["batch"], "prompt_len": kw["prompt_len"], "gen": gen,
+           "capacity": kw.get("capacity"), "launches": launches,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(dev)}
+    if "decode_s" in out:
+        res.update(prefill_ms=out["prefill_s"] * 1e3,
+                   decode_ms_per_step=out["decode_s"] / (gen - 1) * 1e3,
+                   decode_tok_s=out["decode_tok_s"])
+    else:
+        res.update(wall_ms=out["wall_s"] * 1e3)
+    return res
+
+
+def _arch_train(arch, cfg, dev, totals, state) -> dict:
+    """Phase 14e, the main path: ``make_train_step`` (fp16) at full width on
+    ``state`` (on the card), a warm-up step and a timed one at the arch's
+    shape, launches counted: two B7 forwards (the block's remat) and one
+    backward per attention layer and step."""
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.models import tasks
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.precision import get_policy
+
+    policy = get_policy("fp16")
+    b, s = ARCH_TRAIN.get(arch, ARCH_TRAIN_DEFAULT)
+    torch.cuda.reset_peak_memory_stats(dev)
+    step = tasks.make_train_step(cfg, policy, opt_cfg=AdamWConfig(lr=1e-4), ce_chunk=512)
+    p = cfg.n_patches if cfg.frontend == "vision" else 0
+    stream = TokenStream(cfg.vocab_size, s - p, b, seed=0)
+
+    def batch(i):
+        if p:
+            out = _vlm_batch(cfg, b, s - p, 47 + i, dev)
+            out["tokens"] = stream.batch(i)["tokens"].to(dev)
+            return out
+        return {"tokens": stream.batch(i)["tokens"].to(dev)}
+
+    state, m0 = step(state, batch(0))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    state, m1 = step(state, batch(1))
+    loss = float(m1["loss"])
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(ops.LAUNCHES)
+    want = {k: 0 for k in launches}
+    want["flash_attention"] = 2 * _attn_layers(cfg)
+    want["flash_attention_bwd"] = _attn_layers(cfg)
+    require(launches == want, f"[archs] train {arch}: launches {launches} != {want}")
+    _add(totals, launches)
+    losses = [float(m0["loss"]), loss]
+    require(all(map(math.isfinite, losses)) and float(m1["skipped"]) == 0.0
+            and float(m0["skipped"]) == 0.0, f"[archs] train {arch}: {losses}, skipped "
+            f"{float(m0['skipped'])}, {float(m1['skipped'])}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    return {"layers": cfg.n_layers, "batch": b, "seq_len": s, "losses": losses,
+            "ms_per_step": ms, "tokens_per_s": b * (s - p) / ms * 1e3,
+            "peak_device_bytes": peak, "launches": launches}
+
+
+ARCH_TRAIN_LR = 1e-3
+ARCH_TRAIN_VS_CPU = ("granite-moe-1b-a400m", "falcon-mamba-7b", "recurrentgemma-2b")
+ARCH_GEN_VS_CPU = 3  # card vs CPU: a prefill and 2 decode steps
+
+
+def _arch_compare_step(cfg):
+    """Phase 14f's train step (fp16, lr ``ARCH_TRAIN_LR``) and its 2 x 32
+    tokens."""
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models import tasks
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.precision import get_policy
+
+    step = tasks.make_train_step(cfg, get_policy("fp16"),
+                                 opt_cfg=AdamWConfig(lr=ARCH_TRAIN_LR), ce_chunk=32)
+    return step, TokenStream(cfg.vocab_size, 32, 2, seed=3).batch(0)["tokens"]
+
+
+def _first_layers(cfg, master: dict, n: int | None):
+    """``(cfg, master)`` cut to the first ``n`` layers of a homogeneous
+    stack (each stacked leaf sliced); as they are for ``n`` None."""
+    import dataclasses
+
+    from repro_torch.precision.policy import tree_map
+
+    if n is None:
+        return cfg, master
+    return dataclasses.replace(cfg, n_layers=n), dict(
+        master, layers=tree_map(lambda x: x[:n].clone(), master["layers"]))
+
+
+def _state_from_master(master: dict, dev):
+    """``tasks.init_train_state``'s fp16 state of the f32 masters
+    ``master``, on ``dev``: params cast to fp16, zero moments, step 0, the
+    policy's loss scale."""
+    from repro_torch.optim.adamw import adamw_init, scale_init
+    from repro_torch.precision import get_policy
+    from repro_torch.precision.policy import tree_map
+
+    policy = get_policy("fp16")
+    master = tree_map(lambda x: x.to(dev), master)
+    return {"params": tree_map(lambda x: x.to(policy.param_storage), master),
+            "master": master, "opt": adamw_init(master),
+            "scale": scale_init(policy.loss_scale, device=dev)}
+
+
+def _arch_prep(arch: str) -> dict:
+    """Phase 14's CPU half for one arch: its train state drawn on the CPU
+    (``tasks.init_train_state``, fp16, seed 0; its params serve), the CPU
+    port's logits and routes over the card-vs-CPU prompt, and for
+    ``ARCH_TRAIN_VS_CPU`` one train step there. Keeps the f32 masters (the
+    card rebuilds the state from them) and what the card is held to."""
+    import numpy as np
+
+    from repro_torch.models import tasks
+    from repro_torch.models import transformer as tf
+    from repro_torch.precision import get_policy
+
+    t0 = time.perf_counter()
+    cfg = _arch_cfg(arch)
+    state0 = tasks.init_train_state(cfg, get_policy("fp16"), seed=0, device="cpu")
+    prep = {"cfg": cfg, "master": state0["master"], "seconds": {}}
+    prep["seconds"]["draw"] = time.perf_counter() - t0
+    if cfg.frontend == "vision":
+        batch, cap = _vlm_batch(cfg, 2, 24, 53, "cpu"), cfg.n_patches + 32
+    else:
+        batch = {"tokens": torch.from_numpy(np.random.default_rng(53).integers(
+            0, cfg.vocab_size, (2, 32)))}
+        cap = 40
+    t0 = time.perf_counter()
+    fed: list = []
+    steps, routes = _arch_routed_steps(tf.params_view(cfg, state0["params"]), cfg, batch, cap,
+                                       ARCH_GEN_VS_CPU, fed, torch.device("cpu"))
+    prep.update(batch=batch, cap=cap, cpu={"steps": steps, "fed": fed, "routes": routes})
+    prep["seconds"]["logits"] = time.perf_counter() - t0
+    if arch in ARCH_TRAIN_VS_CPU:
+        t0 = time.perf_counter()
+        step, toks = _arch_compare_step(cfg)
+        cs, cm = step(state0, {"tokens": toks})
+        prep["train_cpu"] = ({k: float(cm[k]) for k in ("loss", "grad_norm")}, cs["master"],
+                             cs["opt"].m)
+        prep["seconds"]["train_step"] = time.perf_counter() - t0
+    return prep
+
+
+def _arch_train_card_vs_cpu(arch, cfg, prep: dict, card_state) -> tuple[dict, dict]:
+    """Phase 14f: one fp16 step at full width on the card from the state the
+    CPU stepped (2 x 32 tokens): loss and grad norm at ``ARCH_TRAIN_TOL``,
+    each leaf's first moment (``(1 - b1) g``, the gradient each leaf got)
+    within ``ARCH_TRAIN_TOL["m"]`` of its scale, every new master within 2
+    lr_t of the CPU's (Adam's first step moves an entry by about lr_t
+    sign(g), so the masters check the gradients' signs only). Returns (the
+    result, the card's new state)."""
+    from repro_torch.precision.policy import tree_leaves
+
+    step, toks = _arch_compare_step(cfg)
+    cm, cpu_master, cpu_m = prep["train_cpu"]
+    card_state, gm = step(card_state, {"tokens": toks.to(card_state["params"]["embed"].device)})
+    rel = {k: abs(float(gm[k]) - cm[k]) / abs(cm[k]) for k in ("loss", "grad_norm")}
+    m_rel = max(max_err(a.cpu(), b) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(tree_leaves(card_state["opt"].m), tree_leaves(cpu_m)))
+    lr_t = ARCH_TRAIN_LR * 2 / 100
+    leaf_err = max(max_err(a.cpu(), b) for a, b in zip(tree_leaves(card_state["master"]),
+                                                       tree_leaves(cpu_master)))
+    tol = ARCH_TRAIN_TOL
+    require(rel["loss"] <= tol["loss"] and rel["grad_norm"] <= tol["grad_norm"]
+            and m_rel <= tol["m"] and leaf_err <= 2 * lr_t + 1e-6,
+            f"[archs] train card vs CPU {arch}: {rel}, first moments {m_rel} of scale, "
+            f"masters {leaf_err} (2 lr_t {2 * lr_t})")
+    log(f"[archs] train card vs CPU port, {arch} full width {cfg.n_layers} layers fp16: loss "
+        f"rel {rel['loss']:.3g}, grad norm rel {rel['grad_norm']:.3g}, first moments "
+        f"{m_rel:.3g} of a leaf's scale, new masters max abs {leaf_err:.3g} (2 lr_t = "
+        f"{2 * lr_t:.3g})")
+    return {"rel": rel, "m_rel": m_rel, "master_max_abs": leaf_err,
+            "tolerance": ARCH_TRAIN_TOL}, card_state
+
+
+def phase_archs_prep(threads: int | None = None) -> dict:
+    """Phase 14's CPU half for every arch (:func:`_arch_prep`), on
+    ``threads`` CPU threads (None: as they are)."""
+    prev = torch.get_num_threads()
+    if threads:
+        torch.set_num_threads(threads)
+    try:
+        return {arch: _arch_prep(arch) for arch in ARCHS_NEW}
+    finally:
+        torch.set_num_threads(prev)
+
+
+def phase_archs(dev, totals: dict, preps: dict) -> tuple[list, dict]:
+    """Phase 14's card half: (a) B7 and the attention backward on the new
+    families' shapes against their plain versions; per arch at full width
+    and cut depth, from :func:`phase_archs_prep`'s masters, (b) served, the
+    main path, B7 launches counted, (c) card against the CPU port, (d)
+    prefill against decode, (f) for granite-moe, falcon-mamba and
+    recurrentgemma a train step against the CPU port's, (e) one timed train
+    step with peak memory, the main path too. Returns (the two kernels'
+    ``[archs]`` rows, paths)."""
+    from repro_torch.configs import count_params
+    from repro_torch.models import transformer as tf
+    from repro_torch.precision import get_policy
+    from repro_torch.precision.policy import tree_leaves, tree_map
+
+    t_all = time.perf_counter()
+    seconds = {}
+    g = torch.Generator(device="cpu").manual_seed(141)
+    t0 = time.perf_counter()
+    attn_rows = [_attn_row(name, args, causal, window)
+                 for name, args, causal, window in _arch_attn_cases(g, dev)]
+    bwd_rows = [_bwd_row(name, args, causal, window)
+                for name, args, causal, window in _arch_bwd_cases(g, dev)]
+    seconds["kernels"] = time.perf_counter() - t0
+    paths = {}
+    fp16 = get_policy("fp16").param_storage
+    for arch in ARCHS_NEW:
+        t0 = time.perf_counter()
+        prep = preps[arch]
+        cfg, master = prep["cfg"], prep["master"]
+        model = tf.params_view(cfg, tree_map(lambda x: x.to(dev).to(fp16), master))
+        res = {"layers": cfg.n_layers, "count_params": count_params(cfg),
+               "params": sum(x.numel() for x in tree_leaves(master)),
+               "cpu_seconds": prep["seconds"]}
+        res["serve"] = _arch_serve(arch, cfg, model, dev, totals)
+        res["card_vs_cpu"] = _arch_card_vs_cpu(arch, cfg, prep["cpu"], model, prep["batch"],
+                                               prep["cap"], ARCH_GEN_VS_CPU)
+        res["prefill_vs_decode"] = _arch_prefill_vs_decode(arch, cfg, model, dev)
+        del model
+        torch.cuda.empty_cache()
+        train_cfg, train_master = _first_layers(cfg, master, ARCH_TRAIN_LAYERS.get(arch))
+        card_state = _state_from_master(train_master, dev)
+        del train_master
+        if arch in ARCH_TRAIN_VS_CPU:
+            res["train_card_vs_cpu"], card_state = _arch_train_card_vs_cpu(
+                arch, train_cfg, prep, card_state)
+        preps[arch] = None  # the CPU's tensors are not needed again
+        res["train"] = _arch_train(arch, train_cfg, dev, totals, card_state)
+        del card_state
+        torch.cuda.empty_cache()
+        seconds[arch] = time.perf_counter() - t0
+        sv, tr = res["serve"], res["train"]
+        log(f"[archs] {arch} full width, {cfg.n_layers} layers ({res['params']} parameters): "
+            f"serve {sv} ; train {tr['layers']} layers {tr['batch']} x {tr['seq_len']}: "
+            f"{tr['ms_per_step']:.1f} ms/step, {tr['tokens_per_s']:.0f} tokens/s, peak "
+            f"{tr['peak_device_bytes']} B, losses {tr['losses']}; prefill vs decode "
+            f"{res['prefill_vs_decode']['max_abs_err']:.3g}; card {seconds[arch]:.1f} s, CPU "
+            f"{ {k: round(v, 1) for k, v in prep['seconds'].items()} }")
+        paths[f"archs/{arch}"] = res
+    rows = [_entry_row("flash_attention", attn_rows, 1),
+            _entry_row("flash_attention_bwd", bwd_rows, 0)]
+    seconds["phase"] = time.perf_counter() - t_all
+    paths["archs/phase_s"] = seconds
+    log(f"[archs] phase 14 card seconds: { {k: round(v, 1) for k, v in seconds.items()} }")
+    return rows, paths
+
+
+# Phase 14's CPU half runs beside the build, whose two attention sources
+# keep two of the machine's 8 cores busy for about 85 s after the others
+# are built; the CPU port's logits depend on the thread count (sum orders).
+ARCH_PREP_THREADS = 6
+ARCH_PREP_TIMEOUT = 600
+
+
+def _archs_main(out: str, go: str | None = None) -> int:
+    """``--archs-json PATH [GO]``: phase 14 alone, its rows, paths and
+    launch counts written to ``PATH`` as JSON. With ``GO``, its CPU half
+    runs first on ``ARCH_PREP_THREADS`` threads (while the parent builds
+    the kernels), then the file ``GO.ready`` is written, and its card half
+    runs once the file ``GO`` exists: the card is touched only then."""
+    t0 = time.perf_counter()
+    preps = phase_archs_prep(ARCH_PREP_THREADS if go else None)
+    prep_s = time.perf_counter() - t0
+    log(f"[archs] phase 14 CPU half in {prep_s:.1f} s")
+    if go:
+        Path(f"{go}.ready").write_text("ready")
+        while not Path(go).exists():
+            time.sleep(0.5)
+    from repro_torch.kernels import _build, ops
+
+    _build.build()
+    totals = {k: 0 for k in ops.LAUNCHES}
+    rows, paths = phase_archs(torch.device("cuda", 0), totals, preps)
+    paths["archs/cpu_half_s"] = prep_s
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    paths["archs/card"] = smi
+    Path(out).write_text(json.dumps({"rows": rows, "paths": paths, "totals": totals},
+                                    default=str))
+    return 0
+
+
 def _run_child(flag: str, timeout: int) -> dict:
     """``chip_smoke.py flag PATH`` in a process of its own, waited for;
     returns the JSON it wrote to PATH. Late in a long process
@@ -6901,43 +7549,117 @@ def main() -> int:
         return _precision_main(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--train-json":
         return _train_main(sys.argv[2])
+    if len(sys.argv) in (3, 4) and sys.argv[1] == "--archs-json":
+        return _archs_main(*sys.argv[2:])
     if len(sys.argv) == 3 and sys.argv[1] == "--lm-json":
         return _lm_main(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--profile-json":
         return _profile_main(sys.argv[2])
-    from repro_torch.kernels import ops
-
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     log(f"[device] {torch.cuda.get_device_name(0)} | {smi} | torch {torch.__version__} "
         f"CUDA {torch.version.cuda}")
-    build = phase_build()
+    t_start, clock = time.perf_counter(), {}
+
+    def mark(phase: str) -> None:
+        clock[phase] = time.perf_counter() - t_start
+        log(f"[clock] {phase} done at {clock[phase]:.1f} s")
+
+    with tempfile.TemporaryDirectory() as tmp, _archs_child(Path(tmp)) as archs_child:
+        build = phase_build()
+        mark("1 build")
+        archs_child.ready(ARCH_PREP_TIMEOUT)  # no timed phase runs beside the CPU half
+        mark("14 CPU half")
+        return _main_phases(dev, smi, build, mark, clock, archs_child.finish)
+
+
+@contextlib.contextmanager
+def _archs_child(tmp: Path):
+    """Phase 14 in a process of its own, started now: its CPU half runs
+    beside the build, its card half once :func:`_main_phases` writes the
+    go file. Yields ``ready(timeout)``, which waits for the CPU half, and
+    ``finish(timeout)``, which starts the card half and returns the child's
+    JSON; the child is killed if the script ends before it does."""
+    out, go = tmp / "archs.json", tmp / "archs.go"
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--archs-json",
+                             str(out), str(go)])
+
+    def ready(timeout: int) -> None:
+        end = time.perf_counter() + timeout
+        while not Path(f"{go}.ready").exists():
+            require(proc.poll() is None, f"phase 14's process exited with {proc.returncode}")
+            require(time.perf_counter() < end, f"phase 14's CPU half took over {timeout} s")
+            time.sleep(0.5)
+
+    def finish(timeout: int) -> dict:
+        go.write_text("go")
+        rc = proc.wait(timeout=timeout)
+        require(rc == 0, f"phase 14's process exited with {rc}")
+        return json.loads(out.read_text())
+
+    try:
+        yield SimpleNamespace(ready=ready, finish=finish)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _main_phases(dev, smi, build, mark, clock, archs_child) -> int:
+    """Phases 2-14 and 7 after the build, the kernel and path lines and
+    the last line."""
+    from repro_torch.kernels import ops
+
     rows, designs = phase_kernels(dev)
+    mark("2 kernels")
     totals = {k: 0 for k in ops.LAUNCHES}
     paths = phase_synfire(dev, totals)
+    mark("3 synfire")
     paths.update(phase_scale(dev, totals))
+    mark("4 scale")
     paths.update(phase_plastic(dev, totals))
+    mark("5 plastic")
     phase_coba_kernels(dev, rows)
     paths.update(phase_coba(dev, totals))
+    mark("5b coba")
     paths.update(phase_a5(dev, totals))
+    mark("5c a5")
     paths.update(phase_lanes_fresh(rows, totals))
+    mark("8 lanes")
     paths.update(phase_monitors_fresh(rows, totals))
+    mark("9 monitors")
     paths.update(phase_obs_fresh(rows, totals))
+    mark("10 obs")
     paths.update(phase_partition_fresh(totals))
+    mark("11 partition")
     paths.update(phase_precision_fresh(rows, totals))
+    mark("12 precision")
     trained = _run_child("--train-json", 600)  # phase 13
     _add(totals, trained["totals"])
     rows.append(trained["row"])
     paths.update(trained["paths"])
+    mark("13 train")
     lm = _run_child("--lm-json", 900)  # phases 6 and 7: fresh processes, whole traces
     _add(totals, lm["totals"])
     rows.append(lm["row"])
     paths.update(lm["paths"])
+    mark("6 lm")
+    archs = archs_child(900)  # phase 14's card half
+    _add(totals, archs["totals"])
+    by_name = {r["name"]: r for r in rows}
+    for r in archs["rows"]:  # an entry's route, source and TPU kernel are its kernel's
+        base = by_name[r["kernel"]]
+        rows.append({**{k: base[k] for k in ("route", "source", "replaces")}, **r,
+                     "launches": archs["totals"][r["kernel"]]})
+    paths.update(archs["paths"])
+    mark("14 archs")
     paths.update(_run_child("--profile-json", 900)["paths"])
+    mark("7 profile")
+    paths["clock_s"] = clock
     for r in rows:
-        if "entry" not in r:  # a bf16 entry's launches are phase 12's bf16 paths'
+        if "entry" not in r:  # an entry's launches are its own paths' (phases 12, 14)
             r["launches"] = totals[r["name"]]
         require(r["launches"] > 0, f"{r['name']} never launched on the main path")
     log(json.dumps({"kernels": rows}))

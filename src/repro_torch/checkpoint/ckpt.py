@@ -13,7 +13,7 @@ writes; such a leaf is read back by its bits (the reference's own
 ``restore`` refuses it: ROADMAP queue C). The caller converts
 what the reference keeps in another type (``serve.lifecycle`` writes a
 tick as int32 and a key as its ``uint32`` words). Re-sharding
-(``reshard``), which takes the LM mesh's shardings, is ROADMAP A12's.
+(``reshard``), which takes the LM mesh's shardings, is ROADMAP A12d's.
 """
 from __future__ import annotations
 

@@ -1,9 +1,10 @@
 """Configurations: the paper's Synfire nets and the LM substrate's
 architectures.
 
-The LM registry names the reference's ten architectures; the four
-``family="dense"`` ones are ported, and :func:`get_arch` raises
-``NotImplementedError`` for the other six (ROADMAP A12).
+The LM registry holds the reference's ten architectures, in its order:
+the dense GQA transformers, two MoE, the Mamba SSM, the RG-LRU hybrid
+with local attention, the audio decoder (sinusoidal positions) and the
+VLM (M-RoPE and a patch-embedding prefix).
 """
 from __future__ import annotations
 
@@ -28,32 +29,28 @@ from repro_torch.configs.synfire4 import (
     build_synfire,
     scale_synfire,
 )
-from repro_torch.core.network import _unported
 
 _MODULES = {
+    "falcon-mamba-7b": "falcon_mamba_7b",
+    "musicgen-large": "musicgen_large",
     "qwen2.5-14b": "qwen2_5_14b",
     "minitron-8b": "minitron_8b",
     "smollm-360m": "smollm_360m",
     "stablelm-12b": "stablelm_12b",
-}
-# The reference's other architectures, whose families are not ported yet.
-_UNPORTED = {
-    "falcon-mamba-7b": "ssm", "musicgen-large": "audio", "qwen2-vl-2b": "vlm",
-    "recurrentgemma-2b": "hybrid", "granite-moe-1b-a400m": "moe",
-    "qwen2-moe-a2.7b": "moe",
+    "qwen2-vl-2b": "qwen2_vl_2b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
+    "granite-moe-1b-a400m": "granite_moe_1b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
 }
 
 ARCH_NAMES = tuple(_MODULES)
 
 
 def get_arch(name: str) -> ArchConfig:
-    if name in _UNPORTED:
-        raise _unported(f"{name} (family {_UNPORTED[name]!r})", "A12")
     try:
         mod = _MODULES[name]
     except KeyError as e:
-        raise KeyError(f"unknown arch {name!r}; have "
-                       f"{sorted([*_MODULES, *_UNPORTED])}") from e
+        raise KeyError(f"unknown arch {name!r}; have {sorted(_MODULES)}") from e
     return importlib.import_module(f"repro_torch.configs.{mod}").CONFIG
 
 

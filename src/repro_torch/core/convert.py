@@ -177,9 +177,10 @@ def state_from_numpy(static: NetStatic, arrays: dict, device) -> NetState:
 
 
 def _flatten(tree, prefix: str = "") -> dict:
-    if isinstance(tree, dict):
+    if isinstance(tree, (dict, tuple, list)):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
         out = {}
-        for k, v in tree.items():
+        for k, v in items:
             out.update(_flatten(v, f"{prefix}{k}."))
         return out
     return {prefix[:-1]: tree}
@@ -188,8 +189,9 @@ def _flatten(tree, prefix: str = "") -> dict:
 def lm_params_from_numpy(cfg, arrays: dict, device, policy):
     """The port's model holding the reference's parameters ``arrays`` (its
     parameter tree with numpy leaves; a homogeneous stack's ``layers``
-    leaves are ``[L, ...]``), on ``device``. Raises on a missing or extra
-    leaf and on a shape or dtype other than the port's parameter's."""
+    leaves are ``[L, ...]``, the hybrid's ``layers`` a tuple of per-layer
+    trees), on ``device``. Raises on a missing or extra leaf and on a shape
+    or dtype other than the port's parameter's."""
     from repro_torch.models.transformer import Transformer
 
     if isinstance(policy, str):
@@ -199,7 +201,7 @@ def lm_params_from_numpy(cfg, arrays: dict, device, policy):
     used = set()
     for name, p in model.named_parameters():
         parts = name.split(".")
-        if parts[0] == "layers":
+        if parts[0] == "layers" and cfg.homogeneous:
             key = ".".join([parts[0], *parts[2:]])
             arr = flat.get(key)
             arr = None if arr is None else np.asarray(arr)[int(parts[1])]
@@ -240,6 +242,12 @@ def train_state_from_numpy(cfg, arrays, device, policy) -> dict:
         like = params_tree(Transformer(cfg, get_policy("fp32"), None))
 
     def tree(src, ref, dtype, name):
+        if isinstance(ref, tuple):
+            if not isinstance(src, (tuple, list)) or len(src) != len(ref):
+                raise KeyError(f"{name}: expected a tuple of {len(ref)} layers, got "
+                               f"{type(src).__name__}")
+            return tuple(tree(x, r, dtype, f"{name}[{i}]") for i, (x, r) in
+                         enumerate(zip(src, ref)))
         if isinstance(ref, dict):
             if not isinstance(src, dict) or set(src) != set(ref):
                 got = sorted(src) if isinstance(src, dict) else type(src).__name__

@@ -2,11 +2,14 @@
 
 The reference's ``repro/launch/serve.py`` on the port: prefill builds the
 decode cache in the policy's storage dtype (fp16 KV under the paper's
-policy), then each decode step feeds back the argmax token. Attention runs
-the hand-written kernel on the card. Parameters are random, drawn from
-``seed`` (no published weights are read); prompts come from numpy
-``default_rng(seed)`` exactly as in the reference, so both packages serve
-the same prompts.
+policy; KV rings for the hybrid's local attention, SSM and RG-LRU states
+for the recurrent layers), then each decode step feeds back the argmax
+token. Attention runs the hand-written kernel on the card. Parameters are
+random, drawn from ``seed`` (no published weights are read); prompts come
+from numpy ``default_rng(seed)`` exactly as in the reference, so both
+packages serve the same prompts. Every architecture but the VLM serves
+here: like the reference's ``serve``, this one makes no patch embeddings, so
+``qwen2-vl-2b`` serves through ``models.tasks``' step functions.
 
   python -m repro_torch.launch.serve --arch smollm-360m --full \\
       --batch 4 --prompt-len 512 --gen 32 [--policy bf16]
@@ -52,6 +55,9 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 32,
     ``decode_tok_s`` and ``batch``."""
     device = _resolve_device(device)
     cfg = get_arch(arch)
+    if cfg.frontend == "vision":
+        raise ValueError(f"{arch}: serve makes no patch_embeds for the vision "
+                         "frontend; run it through models.tasks' step functions")
     if reduced:
         cfg = reduce_arch(cfg)
     policy = get_policy(policy_name)
@@ -91,7 +97,8 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 32,
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--arch", default="smollm-360m",
+                    help="any architecture of repro_torch.configs.ARCH_NAMES but the VLM")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=32)

@@ -5,7 +5,10 @@ The reference's ``repro/launch/train.py`` on the port: random weights from
 the same data), periodic atomic checkpoints in the reference's format with
 automatic resume from the latest step, and a per-step wall-clock watchdog
 that flags stragglers. Runs on the card unless ``device`` says otherwise;
-attention runs the hand-written forward and backward kernels there.
+attention runs the hand-written forward and backward kernels there. Every
+architecture but the VLM trains here: like the reference's ``train``, this
+one makes no patch embeddings (``qwen2-vl-2b`` trains through
+``models.tasks.make_train_step``).
 
   python -m repro_torch.launch.train --arch smollm-360m --reduced \\
       --steps 200 --global-batch 8 --seq-len 128 --ckpt-dir /tmp/ckpt
@@ -38,6 +41,9 @@ def train(arch: str, *, steps: int = 200, global_batch: int = 8, seq_len: int = 
     and ``state``. ``device`` None is the card, raising without one."""
     device = _resolve_device(device)
     cfg = get_arch(arch)
+    if cfg.frontend == "vision":
+        raise ValueError(f"{arch}: train makes no patch_embeds for the vision "
+                         "frontend; run it through models.tasks' step functions")
     if reduced:
         cfg = reduce_arch(cfg)
     policy = get_policy(policy_name)
@@ -85,7 +91,8 @@ def train(arch: str, *, steps: int = 200, global_batch: int = 8, seq_len: int = 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--arch", default="smollm-360m",
+                    help="any architecture of repro_torch.configs.ARCH_NAMES but the VLM")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=128)

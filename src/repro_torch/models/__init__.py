@@ -1,1 +1,1 @@
-"""The LM substrate's dense decoders (``repro/models`` for ``family="dense"``)."""
+"""The LM substrate's decoders, all ten architectures (``repro/models``)."""

@@ -41,22 +41,27 @@ class Attention(nn.Module):
         self.bv = init_zeros(cfg.kv_dim, dtype) if bias else None
 
 
-def attend(p, x: torch.Tensor, positions: torch.Tensor,
-           rot: tuple[torch.Tensor, torch.Tensor] | None, *, cache: dict | None = None,
-           pos: int | None = None, act_to: torch.dtype | None = None):
+def attend(p, x: torch.Tensor, qpos: torch.Tensor,
+           rot: tuple[torch.Tensor, torch.Tensor] | None, *, window: int = -1,
+           cache: dict | None = None, pos: int | None = None,
+           act_to: torch.dtype | None = None):
     """The sublayer on the weights of ``p`` (an :class:`Attention`, or any
     object with its attributes: ``n_heads``, ``n_kv_heads``, ``head_dim``,
     ``wq``..``wo``, ``bq``/``bk``/``bv`` or None). x ``[B, S, D]`` (f32, or
-    the activation dtype ``act_to``), positions ``[B, S]`` int32, ``rot``
-    the forward's RoPE table (None without rotary). Without ``cache``
-    (train/prefill) the sequence attends causally to itself over its K/V in
-    k's dtype (f32 after RoPE; v, in the activation dtype, upcast exactly).
-    With ``cache`` (decode) S == 1: the KV pair is written into slot ``pos
-    mod C`` (cast to the cache's dtype), whose ``cache["pos"]`` entry the
-    caller has set to ``pos``, and the query attends over the cache.
-    Returns ``(out [B, S, D], (k, v))``, k ``[B, S, Hkv, Dh]`` f32 after
-    RoPE, v in the activation dtype. When the weights require grad the
-    attention call carries its gradient (``ops.AttentionFn``)."""
+    the activation dtype ``act_to``), qpos ``[B, S]`` int32 the queries'
+    positions for the mask (the t position under M-RoPE), ``rot`` the
+    forward's RoPE or M-RoPE table (None without rotary: the audio
+    decoder's sinusoidal positions are in x already), ``window`` the local
+    attention's width (-1: none). Without ``cache`` (train/prefill) the
+    sequence attends causally to itself at key positions ``qpos[0]`` over
+    its K/V upcast to f32 (exact). With ``cache`` (decode) S == 1: the KV
+    pair is written into slot ``pos mod C`` (cast to the cache's dtype),
+    whose ``cache["pos"]`` entry the caller has set to ``pos``, and the
+    query attends over the cache, whatever order its slots' positions are
+    in (a ring). Returns ``(out [B, S, D], (k, v))``, k ``[B, S, Hkv, Dh]``
+    f32 after RoPE (the activation dtype without), v in the activation
+    dtype. When the weights require grad the attention call carries its
+    gradient (``ops.AttentionFn``)."""
     b, s, _ = x.shape
     q = dense(x, p.wq, p.bq, act_to).view(b, s, p.n_heads, p.head_dim)
     k = dense(x, p.wk, p.bk, act_to).view(b, s, p.n_kv_heads, p.head_dim)
@@ -64,13 +69,15 @@ def attend(p, x: torch.Tensor, positions: torch.Tensor,
     if rot is not None:
         q = apply_rope(q, rot)
         k = apply_rope(k, rot)
+    q = q.to(torch.float32)
     if cache is not None:
         slot = pos % cache["k"].shape[1]
         cache["k"][:, slot] = k[:, 0]
         cache["v"][:, slot] = v[:, 0]
-        out = ops.attention(q, cache["k"], cache["v"], positions, cache["pos"])
+        out = ops.attention(q, cache["k"], cache["v"], qpos, cache["pos"], window=window)
     else:
-        out = ops.attention(q, k, v.to(k.dtype), positions, positions[0])
+        f32 = torch.float32
+        out = ops.attention(q, k.to(f32), v.to(f32), qpos, qpos[0], window=window)
     proj = dense(out.reshape(b, s, p.n_heads * p.head_dim), p.wo, act_to=act_to)
     return proj, (k, v)
 

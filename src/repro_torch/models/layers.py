@@ -21,8 +21,8 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["act_dtype", "act", "dense", "rmsnorm", "layernorm", "apply_norm", "mlp_apply",
-           "rope_table", "apply_rope", "rope", "mrope", "init_dense", "init_zeros", "Norm",
-           "MLP"]
+           "rope_table", "mrope_table", "apply_rope", "rope", "mrope", "sigmoid", "softplus",
+           "init_dense", "init_zeros", "Norm", "MLP"]
 
 f32 = torch.float32
 
@@ -91,6 +91,19 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return x * (0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * x ** 3))))
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as XLA lowers it: ``1 / (1 + exp(-x))``."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` (``jnp.logaddexp(x, 0)``): ``max(x, 0) +
+    log1p(exp(-|x|))``, NaN passed through (``F.softplus`` has another
+    form, exact above its threshold)."""
+    out = torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+    return torch.where(torch.isnan(x), x, out)
+
+
 def mlp_apply(kind: str, x: torch.Tensor, p: "MLP",
               act_to: torch.dtype | None = None) -> torch.Tensor:
     """x ``[.., D]`` -> ``[.., D]``, projection outputs in the activation
@@ -141,6 +154,24 @@ def rope_table(positions: torch.Tensor, head_dim: int, *, theta: float = 10000.0
     return torch.cos(ang), torch.sin(ang)
 
 
+def mrope_table(positions: torch.Tensor, head_dim: int, sections: tuple[int, int, int], *,
+                theta: float = 10000.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) ``[B, S, 1, head_dim/2]`` of Qwen2-VL's multimodal RoPE
+    for positions ``[B, S, 3]`` (t, h, w): the rotary frequencies split
+    into three contiguous sections, each taking its angle from one of the
+    three positions (what :func:`mrope` applies)."""
+    d = head_dim
+    if sum(sections) != d // 2:
+        raise ValueError(f"M-RoPE sections {sections} must sum to {d // 2}")
+    angs = [_rope_angles(positions[..., i], d, theta) for i in range(3)]  # [B, S, d/2]
+    s0, s1, _ = sections
+    sel = torch.cat([torch.zeros(s0, dtype=torch.int64), torch.ones(s1, dtype=torch.int64),
+                     torch.full((d // 2 - s0 - s1,), 2, dtype=torch.int64)]).to(positions.device)
+    ang = torch.where(sel == 0, angs[0], torch.where(sel == 1, angs[1], angs[2]))
+    ang = ang[:, :, None, :]
+    return torch.cos(ang), torch.sin(ang)
+
+
 def apply_rope(x: torch.Tensor, table: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
     """x ``[B, S, H, D]`` rotated by a :func:`rope_table` (f32); a table
     narrower than D rotates only the leading part of each head."""
@@ -168,17 +199,7 @@ def mrope(x: torch.Tensor, positions: torch.Tensor, sections: tuple[int, int, in
     """Qwen2-VL multimodal RoPE. x ``[B, S, H, D]``; positions ``[B, S, 3]``
     (t, h, w). The D/2 rotary frequencies are split into three contiguous
     sections that take their angle from the t/h/w position respectively."""
-    d = x.shape[-1]
-    if sum(sections) != d // 2:
-        raise ValueError(f"M-RoPE sections {sections} must sum to {d // 2}")
-    xf = x.to(f32)
-    angs = [_rope_angles(positions[..., i], d, theta) for i in range(3)]  # [B, S, d/2]
-    s0, s1, _ = sections
-    sel = torch.cat([torch.zeros(s0, dtype=torch.int64), torch.ones(s1, dtype=torch.int64),
-                     torch.full((d // 2 - s0 - s1,), 2, dtype=torch.int64)]).to(x.device)
-    ang = torch.where(sel == 0, angs[0], torch.where(sel == 1, angs[1], angs[2]))
-    ang = ang[:, :, None, :]
-    return _apply_rot(xf, torch.cos(ang), torch.sin(ang))
+    return apply_rope(x, mrope_table(positions, x.shape[-1], sections, theta=theta))
 
 
 # -- initialisers ----------------------------------------------------------------------

@@ -1,0 +1,155 @@
+"""Mamba-1 block (falcon-mamba): the selective SSM
+(``repro/models/mamba.py``).
+
+The full-sequence path (train and prefill) runs the linear recurrence
+over the sequence with :func:`repro_torch.models.scan.associative_scan`,
+the reference's ``jax.lax.associative_scan`` recursion (log-depth, a few
+element-wise launches per level on the card); decode is the O(1)
+single-step recurrence, carrying the last K-1 raw conv inputs and the
+``[B, Di, N]`` state in the cache's dtype. The reference's own lever
+``SSM_CHUNK`` (:func:`set_ssm_chunk`) scans chunks of that many steps
+one after another instead, the state carried between them.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.layers import act, dense, init_zeros, silu, softplus
+from repro_torch.models.scan import associative_scan, causal_conv, chunked_scan, fma
+
+__all__ = ["Mamba", "mamba_apply", "init_mamba_cache", "mamba_decode_step", "set_ssm_chunk",
+           "SSM_CHUNK"]
+
+f32 = torch.float32
+
+# 0: one associative scan over S; > 0: a sequential scan over chunks of
+# this many steps (S a multiple of it), associative within each chunk.
+SSM_CHUNK = [0]
+
+
+def set_ssm_chunk(n: int) -> None:
+    SSM_CHUNK[0] = int(n)
+
+
+def _dims(cfg: ArchConfig):
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    dt_rank = s.dt_rank or -(-cfg.d_model // 16)
+    return d_in, dt_rank, s.d_state, s.d_conv
+
+
+class Mamba(nn.Module):
+    """The mixer's parameters, as the reference's tree: ``in_proj`` ``[D,
+    2 Di]``, ``conv_w`` ``[K, Di]``, ``conv_b``, ``x_proj`` ``[Di, R +
+    2N]``, ``dt_proj`` ``[R, Di]``, ``dt_bias``, ``out_proj`` ``[Di, D]``
+    in the storage dtype, and ``A_log`` ``[Di, N]`` (``log(1..N)``, S4D-real)
+    and ``D`` (ones) in f32. Weights are normal draws from ``gen`` scaled by
+    ``1/sqrt(fan-in)`` (the conv by 0.3); ``dt_bias`` is the softplus
+    inverse of log-uniform steps in [1e-3, 1e-1]. ``gen`` None leaves
+    them uninitialised, to be carried in."""
+
+    def __init__(self, cfg: ArchConfig, gen: torch.Generator | None, dtype: torch.dtype):
+        super().__init__()
+        d_in, dt_rank, n, k = _dims(cfg)
+        d = cfg.d_model
+
+        def draw(shape, scale, dt=dtype):
+            if gen is None:
+                return nn.Parameter(torch.empty(shape, dtype=dt), requires_grad=False)
+            w = torch.randn(shape, generator=gen, dtype=f32) * scale
+            return nn.Parameter(w.to(dt), requires_grad=False)
+
+        self.in_proj = draw((d, 2 * d_in), (1.0 / d) ** 0.5)
+        self.conv_w = draw((k, d_in), 0.3)
+        self.conv_b = init_zeros(d_in, dtype)
+        self.x_proj = draw((d_in, dt_rank + 2 * n), (1.0 / d_in) ** 0.5)
+        self.dt_proj = draw((dt_rank, d_in), (1.0 / dt_rank) ** 0.5)
+        if gen is None:
+            dt_bias = torch.empty((d_in,), dtype=f32)
+        else:
+            lo, hi = math.log(1e-3), math.log(1e-1)
+            u = torch.rand((d_in,), generator=gen, dtype=f32) * (hi - lo) + lo
+            dt_bias = torch.log(torch.expm1(torch.exp(u)))
+        self.dt_bias = nn.Parameter(dt_bias.to(dtype), requires_grad=False)
+        a_log = torch.log(torch.arange(1, n + 1, dtype=f32)).expand(d_in, n).contiguous()
+        self.A_log = nn.Parameter(a_log, requires_grad=False)
+        self.D = nn.Parameter(torch.ones((d_in,), dtype=f32), requires_grad=False)
+        self.out_proj = draw((d_in, d), (1.0 / d_in) ** 0.5)
+
+
+def _ssm_scan(delta_a: torch.Tensor, delta_bu: torch.Tensor) -> torch.Tensor:
+    chunk = SSM_CHUNK[0]
+    s = delta_a.shape[1]
+    if chunk <= 0 or s <= chunk or s % chunk:
+        return associative_scan(delta_a, delta_bu)[1]
+    return chunked_scan(delta_a, delta_bu, chunk)
+
+
+def _project(p, xin, cfg, act_to):
+    """``(delta, B, C)`` of the conv's output ``xin``."""
+    _, dt_rank, n, _ = _dims(cfg)
+    proj = dense(xin, p.x_proj, act_to=act_to)
+    dt, b_mat, c_mat = torch.split(proj, [dt_rank, n, n], dim=-1)
+    delta = softplus(dense(dt, p.dt_proj, act_to=act_to) + p.dt_bias.to(f32))
+    return delta, b_mat, c_mat
+
+
+def mamba_apply(p, x: torch.Tensor, cfg: ArchConfig, act_to: torch.dtype | None = None,
+                return_state: bool = False):
+    """Full-sequence selective SSM on the weights of ``p`` (a
+    :class:`Mamba` or any object with its attributes). x ``[B, S, D]`` ->
+    ``([B, S, D], state)``, projection outputs in the activation dtype
+    ``act_to``; ``state`` is the decode cache at the last position
+    (``{"conv": the last K-1 raw conv inputs, "ssm": h}``) with
+    ``return_state``, else None. The discretised ``exp(delta A)`` and
+    ``delta B u`` round to the activation dtype before the scan, as the
+    reference's ``act`` does."""
+    k = cfg.ssm.d_conv
+    if return_state and x.shape[1] < k - 1:
+        raise ValueError(f"a prompt of {x.shape[1]} tokens is shorter than the conv's "
+                         f"history of {k - 1}: the decode cache has no layout for it")
+    raw, z = torch.chunk(dense(x, p.in_proj, act_to=act_to), 2, dim=-1)
+    xin = silu(causal_conv(raw, p.conv_w, p.conv_b))
+    delta, b_mat, c_mat = _project(p, xin, cfg, act_to)
+    a = -torch.exp(p.A_log)  # [Di, N]
+    delta_a = act(torch.exp(delta[..., None] * a), act_to)  # [B, S, Di, N]
+    delta_bu = act((delta * xin)[..., None] * b_mat[..., None, :], act_to)
+    h = _ssm_scan(delta_a, delta_bu)
+    y = torch.einsum("bsdn,bsn->bsd", h, c_mat.to(h.dtype)) + p.D * xin
+    y = y * silu(z)
+    out = dense(y, p.out_proj, act_to=act_to)
+    if return_state:
+        return out, {"conv": raw[:, -(k - 1):], "ssm": h[:, -1]}
+    return out, None
+
+
+def init_mamba_cache(cfg: ArchConfig, batch: int, dtype: torch.dtype, device) -> dict:
+    d_in, _, n, k = _dims(cfg)
+    return {"conv": torch.zeros((batch, k - 1, d_in), dtype=dtype, device=device),
+            "ssm": torch.zeros((batch, d_in, n), dtype=dtype, device=device)}
+
+
+def mamba_decode_step(p, x: torch.Tensor, cache: dict, cfg: ArchConfig,
+                      act_to: torch.dtype | None = None) -> torch.Tensor:
+    """One-token recurrence: x ``[B, 1, D]`` -> ``[B, 1, D]``; ``cache``
+    (``conv`` ``[B, K-1, Di]``, the last K-1 raw conv inputs, and ``ssm``
+    ``[B, Di, N]``) is updated in place, cast to its dtype."""
+    raw, z = torch.chunk(dense(x, p.in_proj, act_to=act_to), 2, dim=-1)  # [B, 1, Di]
+    conv_in = torch.cat([cache["conv"].to(raw.dtype), raw], dim=1)  # [B, K, Di]
+    conv_out = torch.einsum("bkd,kd->bd", conv_in, p.conv_w.to(raw.dtype))
+    xin = silu(conv_out + p.conv_b.to(raw.dtype))[:, None]
+    delta, b_mat, c_mat = _project(p, xin, cfg, act_to)
+    a = -torch.exp(p.A_log)
+    delta_a = torch.exp(delta[..., None] * a)[:, 0]  # [B, Di, N]
+    delta_bu = ((delta * xin)[..., None] * b_mat[..., None, :])[:, 0]
+    h = fma(delta_a, cache["ssm"].to(f32), delta_bu)
+    y = torch.einsum("bdn,bn->bd", h, c_mat[:, 0].to(h.dtype)) + p.D * xin[:, 0]
+    y = (y * silu(z[:, 0]))[:, None]
+    out = dense(y, p.out_proj, act_to=act_to)
+    cache["conv"].copy_(conv_in[:, 1:])
+    cache["ssm"].copy_(h)
+    return out

@@ -1,0 +1,126 @@
+"""RG-LRU recurrent block (RecurrentGemma / Griffin)
+(``repro/models/rglru.py``).
+
+Per channel (Griffin eq. 6-8):
+
+    r_t = sigmoid(W_a x_t + b_a)            recurrence gate
+    i_t = sigmoid(W_x x_t + b_x)            input gate
+    a_t = exp(-c softplus(lam) r_t)         c = 8
+    h_t = a_t h_{t-1} + sqrt(1 - a_t^2) (i_t x_t)
+
+wrapped in a K = 4 temporal conv and a GELU output gate. Train and
+prefill run the recurrence with
+:func:`repro_torch.models.scan.associative_scan` over ``[B, S, W]``;
+decode is the single-step update carrying ``h`` ``[B, W]`` and the last
+three raw conv inputs in the cache's dtype.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.layers import dense, gelu_tanh, init_zeros, sigmoid, softplus
+from repro_torch.models.scan import associative_scan, causal_conv, fma
+
+__all__ = ["RGLRU", "rglru_apply", "init_rglru_cache", "rglru_decode_step"]
+
+f32 = torch.float32
+_C = 8.0
+
+
+def _width(cfg: ArchConfig) -> int:
+    return cfg.hybrid.lru_width or cfg.d_model
+
+
+class RGLRU(nn.Module):
+    """The block's parameters, as the reference's tree: ``in_proj`` and
+    ``gate_proj`` ``[D, W]``, ``conv_w`` ``[4, W]``, ``conv_b``, ``w_a``
+    and ``w_x`` ``[W, W]``, ``out_proj`` ``[W, D]`` in the storage dtype;
+    ``b_a``, ``b_x`` (zeros) and ``lam`` in f32, ``lam`` the softplus
+    inverse of ``-log(u) / 8`` for u uniform in (0.9, 0.999), so that
+    ``a`` lies there at ``r = 1``. ``gen`` None leaves them
+    uninitialised, to be carried in."""
+
+    def __init__(self, cfg: ArchConfig, gen: torch.Generator | None, dtype: torch.dtype):
+        super().__init__()
+        d, w = cfg.d_model, _width(cfg)
+
+        def draw(shape, scale):
+            if gen is None:
+                return nn.Parameter(torch.empty(shape, dtype=dtype), requires_grad=False)
+            x = torch.randn(shape, generator=gen, dtype=f32) * scale
+            return nn.Parameter(x.to(dtype), requires_grad=False)
+
+        sd, sw = (1.0 / d) ** 0.5, (1.0 / w) ** 0.5
+        self.in_proj = draw((d, w), sd)
+        self.gate_proj = draw((d, w), sd)
+        self.conv_w = draw((4, w), 0.3)
+        self.conv_b = init_zeros(w, dtype)
+        self.w_a = draw((w, w), sw)
+        self.b_a = init_zeros(w, f32)
+        self.w_x = draw((w, w), sw)
+        self.b_x = init_zeros(w, f32)
+        if gen is None:
+            lam = torch.empty((w,), dtype=f32)
+        else:
+            u = torch.rand((w,), generator=gen, dtype=f32) * (0.999 - 0.9) + 0.9
+            lam = torch.log(torch.expm1(-torch.log(u) / _C))
+        self.lam = nn.Parameter(lam, requires_grad=False)
+        self.out_proj = draw((w, d), sw)
+
+
+def _gates(p, xc, act_to):
+    r = sigmoid(dense(xc, p.w_a, act_to=act_to) + p.b_a)
+    i = sigmoid(dense(xc, p.w_x, act_to=act_to) + p.b_x)
+    log_a = -_C * softplus(p.lam.to(f32)) * r
+    a = torch.exp(log_a)
+    gated_in = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xc)
+    return a, gated_in
+
+
+def rglru_apply(p, x: torch.Tensor, cfg: ArchConfig, act_to: torch.dtype | None = None,
+                return_state: bool = False):
+    """Full-sequence recurrent block on the weights of ``p`` (an
+    :class:`RGLRU` or any object with its attributes): x ``[B, S, D]`` ->
+    ``([B, S, D], state)``, ``state`` the decode cache at the last position
+    (``{"h", "conv": the last three raw conv inputs}``) with
+    ``return_state``, else None."""
+    if return_state and x.shape[1] < 3:
+        raise ValueError(f"a prompt of {x.shape[1]} tokens is shorter than the conv's "
+                         "history of 3: the decode cache has no layout for it")
+    raw = dense(x, p.in_proj, act_to=act_to)  # [B, S, W]
+    gate = dense(x, p.gate_proj, act_to=act_to)
+    xc = causal_conv(raw, p.conv_w, p.conv_b)
+    a, gated_in = _gates(p, xc, act_to)
+    h = associative_scan(a, gated_in)[1]
+    y = h * gelu_tanh(gate)
+    out = dense(y, p.out_proj, act_to=act_to)
+    if return_state:
+        return out, {"h": h[:, -1], "conv": raw[:, -3:]}
+    return out, None
+
+
+def init_rglru_cache(cfg: ArchConfig, batch: int, dtype: torch.dtype, device) -> dict:
+    w = _width(cfg)
+    return {"h": torch.zeros((batch, w), dtype=dtype, device=device),
+            "conv": torch.zeros((batch, 3, w), dtype=dtype, device=device)}
+
+
+def rglru_decode_step(p, x: torch.Tensor, cache: dict, cfg: ArchConfig,
+                      act_to: torch.dtype | None = None) -> torch.Tensor:
+    """One-token recurrence: x ``[B, 1, D]`` -> ``[B, 1, D]``; ``cache``
+    (``h`` ``[B, W]``, ``conv`` ``[B, 3, W]``) is updated in place, cast to
+    its dtype."""
+    xc = dense(x, p.in_proj, act_to=act_to)  # [B, 1, W]
+    gate = dense(x, p.gate_proj, act_to=act_to)
+    conv_in = torch.cat([cache["conv"].to(xc.dtype), xc], dim=1)
+    co = torch.einsum("bkw,kw->bw", conv_in, p.conv_w.to(xc.dtype))
+    xcc = (co + p.conv_b.to(xc.dtype))[:, None]
+    a, gated_in = _gates(p, xcc, act_to)  # [B, 1, W]
+    h = fma(a[:, 0], cache["h"].to(f32), gated_in[:, 0])
+    y = h[:, None] * gelu_tanh(gate)
+    out = dense(y, p.out_proj, act_to=act_to)
+    cache["h"].copy_(h)
+    cache["conv"].copy_(conv_in[:, 1:])
+    return out

@@ -10,8 +10,11 @@ A train state is the reference's tree: ``params`` (the storage dtype),
 (:class:`repro_torch.optim.adamw.OptState`) and ``scale``
 (:class:`ScaleState`), each parameter tree in the reference's layout
 (:func:`repro_torch.models.transformer.params_tree`: ``layers`` leaves
-stacked ``[L, ...]``), so ``checkpoint/ckpt.save`` writes the reference's
-leaf names, shapes and dtypes.
+stacked ``[L, ...]``, or the hybrid's tuple of per-layer trees), so
+``checkpoint/ckpt.save`` writes the reference's leaf names, shapes and
+dtypes. Under the vision frontend a batch carries ``patch_embeds`` and
+M-RoPE ``positions`` beside its text ``tokens``, and the loss runs over
+the text positions only.
 """
 from __future__ import annotations
 
@@ -134,6 +137,8 @@ def make_train_step(cfg: ArchConfig, policy: PrecisionPolicy, *, remat: bool = T
         full = _fill_positions(cfg, batch)
         h, aux = tf.forward(model, full, act_to=act_to, remat=remat)
         tokens = full["tokens"]
+        if cfg.frontend == "vision":
+            h = h[:, cfg.n_patches:]  # the loss runs over the text positions only
         targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
         mask = torch.cat([torch.ones(tokens[:, 1:].shape, dtype=f32, device=tokens.device),
                           torch.zeros(tokens[:, :1].shape, dtype=f32, device=tokens.device)],

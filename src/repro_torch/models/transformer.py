@@ -1,23 +1,31 @@
-"""Config-driven decoder for the dense GQA transformers.
+"""Config-driven decoder for all ten architectures
+(``repro/models/transformer.py``).
 
-Mirrors the reference's ``repro/models/transformer.py`` for
-``family="dense"`` (qwen2.5, minitron, smollm, stablelm): token embedding,
-``n_layers`` pre-norm blocks (attention, then MLP, each added to the
-residual), final norm, logits through the LM head or the tied embedding.
-The layers run in a Python loop; the model is an ``nn.Module`` whose
-parameters sit in the policy's storage dtype (norm scales in f32), as the
-reference's parameter tree does. The reference's MoE, SSM, RG-LRU hybrid,
-audio (sinusoidal positions) and VLM branches raise
-``NotImplementedError`` (ROADMAP A12).
+One generic decoder covering the dense GQA transformers (qwen2.5,
+minitron, smollm, stablelm), MoE (granite, qwen2-moe: :mod:`.moe` in
+place of the MLP, the load-balance loss summed over layers), the pure
+SSM (falcon-mamba: a block is norm and :mod:`.mamba` mixer only), the
+RG-LRU hybrid (recurrentgemma: :mod:`.rglru` layers and every third a
+local-attention layer with a window), the audio-token decoder (musicgen:
+sinusoidal positions added to the embeddings, no rotary) and the VLM
+(qwen2-vl: M-RoPE and the batch's patch embeddings as a prefix). The
+layers run in a Python loop; the model is an ``nn.Module`` whose
+parameters sit in the policy's storage dtype (norm scales and the SSM's
+and RG-LRU's f32 leaves as the reference keeps them).
 
-The decode cache is the reference's layout for a homogeneous stack:
-``{"kv": {"k", "v": [L, B, C, Hkv, Dh], "pos": [L, C]}}``.
+Decode caches are the reference's layouts. A homogeneous stack stacks
+each layer's entry: ``{"kv": {"k", "v": [L, B, C, Hkv, Dh], "pos": [L,
+C]}}`` or ``{"ssm": {"conv": [L, B, K-1, Di], "ssm": [L, B, Di, N]}}``.
+The hybrid's is a tuple of per-layer entries, ``{"kv": ...}`` (capacity
+capped at the window: a ring, slot ``pos mod C``) or ``{"rglru": {"h":
+[B, W], "conv": [B, 3, W]}}``.
 
 Training runs the same blocks on a parameter tree in the reference's
-layout (``{"embed", "final_norm", "layers", "lm_head"}``, each ``layers``
-leaf stacked ``[L, ...]``): :func:`params_view` gives it the model's
-attributes, one unbound slice of each stacked leaf per layer, so the
-gradient of a stacked leaf is one stack of the layers' gradients.
+layout (``{"embed", "final_norm", "layers", "lm_head"}``; ``layers`` a
+dict of leaves stacked ``[L, ...]`` for a homogeneous stack, a tuple of
+per-layer dicts for the hybrid): :func:`params_view` gives it the
+model's attributes, one unbound slice of each stacked leaf per layer, so
+the gradient of a stacked leaf is one stack of the layers' gradients.
 """
 from __future__ import annotations
 
@@ -29,9 +37,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.network import _resolve_device, _unported
-from repro_torch.models.attention import Attention, attend
-from repro_torch.models.layers import MLP, Norm, act, apply_norm, dense, mlp_apply, rope_table
+from repro_torch.core.network import _resolve_device
+from repro_torch.models.attention import Attention, attend, init_kv_cache
+from repro_torch.models.layers import (
+    MLP, Norm, act, apply_norm, dense, mlp_apply, mrope_table, rope_table,
+)
+from repro_torch.models.mamba import Mamba, init_mamba_cache, mamba_apply, mamba_decode_step
+from repro_torch.models.moe import MoE, moe_apply
+from repro_torch.models.rglru import RGLRU, init_rglru_cache, rglru_apply, rglru_decode_step
 from repro_torch.precision import PrecisionPolicy
 
 __all__ = ["Block", "Transformer", "init_params", "forward", "lm_logits", "init_cache",
@@ -40,43 +53,42 @@ __all__ = ["Block", "Transformer", "init_params", "forward", "lm_logits", "init_
 f32 = torch.float32
 
 
-def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.family != "dense" or cfg.moe is not None or cfg.ssm is not None \
-            or cfg.hybrid is not None:
-        raise _unported(f"the {cfg.family!r} family", "A12")
-    if cfg.frontend != "none":
-        raise _unported(f"the {cfg.frontend!r} frontend", "A12")
-    if cfg.mrope_sections is not None:
-        raise _unported("M-RoPE positions", "A12")
-    if cfg.rotary_pct == 0.0:
-        raise _unported("sinusoidal positions (rotary_pct=0)", "A12")
-
-
 class Block(nn.Module):
-    """Pre-norm block: ``norm1``, ``attn``, ``norm2``, ``mlp``."""
+    """Pre-norm block of kind ``kind``: ``norm1`` and the mixer (``attn``,
+    ``ssm`` or ``rglru``), then, but for a Mamba block, ``norm2`` and the
+    ``mlp`` (or the ``moe``)."""
 
-    def __init__(self, cfg: ArchConfig, gen: torch.Generator | None, dtype: torch.dtype):
+    def __init__(self, cfg: ArchConfig, kind: str, gen: torch.Generator | None,
+                 dtype: torch.dtype):
         super().__init__()
         self.norm1 = Norm(cfg.norm, cfg.d_model)
-        self.attn = Attention(cfg, gen, dtype)
+        if kind == "attn":
+            self.attn = Attention(cfg, gen, dtype)
+        elif kind == "ssm":
+            self.ssm = Mamba(cfg, gen, dtype)
+            return
+        else:
+            self.rglru = RGLRU(cfg, gen, dtype)
         self.norm2 = Norm(cfg.norm, cfg.d_model)
-        self.mlp = MLP(gen, cfg.mlp, cfg.d_model, cfg.d_ff, dtype)
+        if cfg.moe is not None:
+            self.moe = MoE(cfg, gen, dtype)
+        else:
+            self.mlp = MLP(gen, cfg.mlp, cfg.d_model, cfg.d_ff, dtype)
 
 
 class Transformer(nn.Module):
-    """``embed`` ``[V, D]``, ``layers`` (``n_layers`` :class:`Block`),
-    ``final_norm`` and, untied, ``lm_head`` ``[D, V]``. Weights are
-    standard normal draws from a CPU generator, in this order: embed,
-    lm_head, then per layer wq, wk, wv, wo and the MLP's weights; scaled
-    by ``1/sqrt(fan-in)`` (embed and lm_head by ``1/sqrt(d_model)``).
-    With ``gen`` None the weights are left uninitialised, to be carried in.
-    The activation dtype is not the model's: the step functions pass their
+    """``embed`` ``[V, D]``, ``layers`` (``n_layers`` :class:`Block`, each
+    of ``cfg.layer_kind(i)``), ``final_norm`` and, untied, ``lm_head`` ``[D,
+    V]``. Weights are standard normal draws from a CPU generator, in this
+    order: embed, lm_head, then layer by layer in each block's order; scaled
+    by ``1/sqrt(fan-in)`` (embed and lm_head by ``1/sqrt(d_model)``). With
+    ``gen`` None the weights are left uninitialised, to be carried in. The
+    activation dtype is not the model's: the step functions pass their
     policy's (``act_to``)."""
 
     def __init__(self, cfg: ArchConfig, policy: PrecisionPolicy,
                  gen: torch.Generator | None):
         super().__init__()
-        _check_ported(cfg)
         self.cfg = cfg
         dtype = policy.param_storage
         scale = (1.0 / cfg.d_model) ** 0.5
@@ -89,7 +101,8 @@ class Transformer(nn.Module):
 
         self.embed = draw((cfg.vocab_size, cfg.d_model))
         self.lm_head = None if cfg.tie_embeddings else draw((cfg.d_model, cfg.vocab_size))
-        self.layers = nn.ModuleList(Block(cfg, gen, dtype) for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(Block(cfg, cfg.layer_kind(i), gen, dtype)
+                                    for i in range(cfg.n_layers))
         self.final_norm = Norm(cfg.norm, cfg.d_model)
 
 
@@ -103,83 +116,181 @@ def init_params(cfg: ArchConfig, policy: PrecisionPolicy, *, seed: int = 0,
     return Transformer(cfg, policy, gen).to(device)
 
 
-def _rope(cfg: ArchConfig, positions: torch.Tensor):
-    return rope_table(positions, cfg.head_dim, theta=cfg.rope_theta,
-                      rotary_pct=cfg.rotary_pct)
+def _window(cfg: ArchConfig) -> int:
+    return cfg.hybrid.window if cfg.hybrid is not None else -1
+
+
+def _sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """positions ``[B, S]`` -> ``[B, S, d]`` f32 (musicgen's absolute
+    positions): ``sin`` then ``cos`` of ``pos * exp(-log(1e4) i / (d/2))``."""
+    half = d // 2
+    log10k = torch.log(torch.tensor(10000.0, dtype=f32, device=positions.device))
+    freqs = torch.exp(-log10k * torch.arange(half, dtype=f32, device=positions.device) / half)
+    ang = positions.to(f32)[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+class _Ctx(SimpleNamespace):
+    """What every block of one forward or decode step shares: ``qpos``
+    (``[B, S]`` int32, the mask's positions), ``rot`` (the RoPE or M-RoPE
+    table, or None), ``window`` and ``act_to``."""
+
+
+def _ctx(cfg: ArchConfig, positions: torch.Tensor, act_to) -> _Ctx:
+    if cfg.mrope_sections is not None:
+        rot = mrope_table(positions, cfg.head_dim, cfg.mrope_sections, theta=cfg.rope_theta)
+        qpos = positions[..., 0].contiguous()
+    elif cfg.rotary_pct > 0:
+        rot = rope_table(positions, cfg.head_dim, theta=cfg.rope_theta,
+                         rotary_pct=cfg.rotary_pct)
+        qpos = positions
+    else:
+        rot, qpos = None, positions
+    return _Ctx(qpos=qpos, rot=rot, window=_window(cfg), act_to=act_to)
 
 
 def _norm(p, x: torch.Tensor, act_to) -> torch.Tensor:
     return act(apply_norm(p.kind, x, p), act_to)
 
 
-def _block_full(layer, h, positions, rot, kv_cache: dict | None, act_to):
+def _ffn(layer, h, cfg: ArchConfig, ctx: _Ctx):
+    """The residual's second half: ``h + mlp(norm2(h))`` (or the MoE's),
+    and the layer's load-balance loss (0.0 without MoE)."""
+    x = _norm(layer.norm2, h, ctx.act_to)
+    if cfg.moe is not None:
+        y, aux = moe_apply(layer.moe, x, cfg, ctx.act_to)
+        return h + y, aux
+    return h + mlp_apply(cfg.mlp, x, layer.mlp, ctx.act_to), None
+
+
+def _block_full(layer, h, cfg: ArchConfig, kind: str, ctx: _Ctx, cache: dict | None):
     """Full-sequence block (train/prefill) on ``layer`` (a :class:`Block`
-    or a :func:`params_view` layer); packs its K/V into ``kv_cache`` (one
-    layer's cache) when given."""
-    x = _norm(layer.norm1, h, act_to)
-    mix, kv = attend(layer.attn, x, positions, rot, act_to=act_to)
-    if kv_cache is not None:
-        _pack_kv(kv, positions, kv_cache)
-    h = h + mix
-    x = _norm(layer.norm2, h, act_to)
-    return h + mlp_apply(layer.mlp.kind, x, layer.mlp, act_to)
+    or a :func:`params_view` layer). Fills ``cache`` (the layer's entry of
+    the prefill cache) when given. Returns ``(h, aux)``, aux None without
+    MoE."""
+    x = _norm(layer.norm1, h, ctx.act_to)
+    if kind == "attn":
+        mix, kv = attend(layer.attn, x, ctx.qpos, ctx.rot, window=ctx.window,
+                         act_to=ctx.act_to)
+        if cache is not None:
+            _pack_kv(kv, ctx.qpos[0], ctx.window, cache["kv"])
+    elif kind == "ssm":
+        mix, st = mamba_apply(layer.ssm, x, cfg, ctx.act_to, return_state=cache is not None)
+        if cache is not None:
+            _copy_state(cache["ssm"], st)
+        return h + mix, None
+    else:
+        mix, st = rglru_apply(layer.rglru, x, cfg, ctx.act_to, return_state=cache is not None)
+        if cache is not None:
+            _copy_state(cache["rglru"], st)
+    return _ffn(layer, h + mix, cfg, ctx)
 
 
-def _pack_kv(kv, positions: torch.Tensor, kv_cache: dict) -> None:
-    """Write full-sequence ``(k, v)`` ``[B, S, Hkv, Dh]`` into the first S
-    slots of an empty decode cache (cast to its dtype), with their
-    positions; the other slots stay empty (``pos = -1``)."""
+def _copy_state(dst: dict, src: dict) -> None:
+    for name, x in src.items():
+        dst[name].copy_(x)
+
+
+def _pack_kv(kv, pos: torch.Tensor, window: int, kv_cache: dict) -> None:
+    """Write full-sequence ``(k, v)`` ``[B, S, Hkv, Dh]`` at positions
+    ``pos`` ``[S]`` into an empty decode cache of C slots (cast to its
+    dtype), as the reference's ``_pack_kv``: with a local window and ``C <=
+    window`` as a ring (the last ``min(C, S)`` tokens, slot ``pos mod C``),
+    else into the first S slots; the other slots stay empty (``pos =
+    -1``)."""
     k, v = kv
-    s = k.shape[1]
-    if s > kv_cache["k"].shape[1]:
-        raise ValueError(f"a prompt of {s} tokens does not fit a cache of "
-                         f"{kv_cache['k'].shape[1]} slots")
+    s, cap = k.shape[1], kv_cache["k"].shape[1]
+    if window > 0 and cap <= window:
+        keep = min(cap, s)
+        k, v, pos = k[:, s - keep:], v[:, s - keep:], pos[s - keep:]
+        slots = torch.remainder(pos, cap).long()
+        kv_cache["k"][:, slots] = k.to(kv_cache["k"].dtype)
+        kv_cache["v"][:, slots] = v.to(kv_cache["v"].dtype)
+        kv_cache["pos"][slots] = pos
+        return
+    if s > cap:
+        raise ValueError(f"a prompt of {s} tokens does not fit a cache of {cap} slots")
     kv_cache["k"][:, :s] = k
     kv_cache["v"][:, :s] = v
-    kv_cache["pos"][:s] = positions[0]
+    kv_cache["pos"][:s] = pos
 
 
-def _block_decode(layer: Block, h, kv_cache: dict, positions, rot, pos: int, act_to):
-    x = _norm(layer.norm1, h, act_to)
-    h = h + attend(layer.attn, x, positions, rot, cache=kv_cache, pos=pos, act_to=act_to)[0]
-    x = _norm(layer.norm2, h, act_to)
-    return h + mlp_apply(layer.mlp.kind, x, layer.mlp, act_to)
+def _block_decode(layer, h, cfg: ArchConfig, kind: str, ctx: _Ctx, cache: dict, pos: int):
+    x = _norm(layer.norm1, h, ctx.act_to)
+    if kind == "attn":
+        mix = attend(layer.attn, x, ctx.qpos, ctx.rot, window=ctx.window, cache=cache["kv"],
+                     pos=pos, act_to=ctx.act_to)[0]
+    elif kind == "ssm":
+        return h + mamba_decode_step(layer.ssm, x, cache["ssm"], cfg, ctx.act_to)
+    else:
+        mix = rglru_decode_step(layer.rglru, x, cache["rglru"], cfg, ctx.act_to)
+    return _ffn(layer, h + mix, cfg, ctx)[0]
 
 
-def _layer_cache(cache: dict, i: int) -> dict:
-    kv = cache["kv"]
-    return {"k": kv["k"][i], "v": kv["v"][i], "pos": kv["pos"][i]}
+def _layer_cache(cfg: ArchConfig, cache, i: int) -> dict:
+    """Layer ``i``'s entry of a cache: the tuple's item, or views of row
+    ``i`` of each stacked tensor (writes reach the stack)."""
+    if not cfg.homogeneous:
+        return cache[i]
+    return {part: {name: t[i] for name, t in entry.items()} for part, entry in cache.items()}
+
+
+def _embed_inputs(model, batch: dict, act_to):
+    """``(h [B, S, D], positions)``: the token embeddings (in the activation
+    dtype), behind the batch's ``patch_embeds`` under the vision frontend,
+    plus sinusoidal positions without rotary. The concatenation with the f32
+    patches and the sum with the f32 sinusoids promote h to f32, as the
+    reference's ``jnp`` promotion does."""
+    cfg = model.cfg
+    h = act(F.embedding(batch["tokens"], model.embed).to(f32), act_to)
+    if cfg.frontend == "vision":
+        h = torch.cat([batch["patch_embeds"].to(f32), h], dim=1)
+    positions = batch["positions"]
+    if cfg.rotary_pct == 0.0 and cfg.mrope_sections is None:
+        h = h + _sinusoidal(positions, cfg.d_model)
+    return h, positions
+
+
+def _assemble(cfg: ArchConfig, caches: list):
+    if not cfg.homogeneous:
+        return tuple(caches)
+    return {part: {name: torch.stack([c[part][name] for c in caches])
+                   for name in caches[0][part]} for part in caches[0]}
 
 
 def forward(model, batch: dict, *, collect_cache: bool = False, cache_len: int = 0,
             cache_dtype: torch.dtype = torch.float16, act_to: torch.dtype | None = None,
             remat: bool = False):
     """Train/prefill forward of ``model`` (a :class:`Transformer` or a
-    :func:`params_view`) over ``batch["tokens"]`` ``[B, S]`` at
-    ``batch["positions"]`` ``[B, S]`` int32 (the same row for every batch
-    entry), activations in ``act_to`` (None: f32). Returns ``(h, aux)``:
-    the final hidden states ``[B, S, D]`` in that dtype and the auxiliary
-    loss (0.0 for the dense archs), and, with ``collect_cache``, the decode
-    cache of ``cache_len`` slots in ``cache_dtype`` (:func:`init_cache`'s
-    layout) as a third item. ``remat`` recomputes each block in the
+    :func:`params_view`) over ``batch["tokens"]`` ``[B, S]`` (behind
+    ``batch["patch_embeds"]`` ``[B, P, D]`` under the vision frontend) at
+    ``batch["positions"]`` (``[B, S + P]`` int32, the same row for every
+    batch entry; ``[B, S + P, 3]`` under M-RoPE), activations in ``act_to``
+    (None: f32). Returns ``(h, aux)``: the final hidden states in that dtype
+    and the load-balance loss summed over the MoE layers (0.0 without), and,
+    with ``collect_cache``, the decode cache of ``cache_len`` slots in
+    ``cache_dtype`` as a third item. ``remat`` recomputes each block in the
     backward (``torch.utils.checkpoint``), as the reference's
-    ``jax.checkpoint`` over its layer scan."""
+    ``jax.checkpoint`` does."""
     cfg = model.cfg
-    tokens, positions = batch["tokens"], batch["positions"]
-    h = act(F.embedding(tokens, model.embed).to(f32), act_to)
-    rot = _rope(cfg, positions)
+    h, positions = _embed_inputs(model, batch, act_to)
+    ctx = _ctx(cfg, positions, act_to)
     cache = None
     if collect_cache:
-        cache = init_cache(cfg, tokens.shape[0], cache_len, cache_dtype, tokens.device)
-    for i, layer in enumerate(model.layers):
-        kv = _layer_cache(cache, i) if collect_cache else None
-        if remat:
-            h = checkpoint(_block_full, layer, h, positions, rot, kv, act_to,
-                           use_reentrant=False, preserve_rng_state=False)
-        else:
-            h = _block_full(layer, h, positions, rot, kv, act_to)
-    h = _norm(model.final_norm, h, act_to)
+        cache = init_cache(cfg, h.shape[0], cache_len, cache_dtype, h.device,
+                           cap_at_window=False)
     aux = torch.zeros((), dtype=f32, device=h.device)
+    for i, layer in enumerate(model.layers):
+        kind = cfg.layer_kind(i)
+        lc = _layer_cache(cfg, cache, i) if collect_cache else None
+        if remat:
+            h, a = checkpoint(_block_full, layer, h, cfg, kind, ctx, lc, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            h, a = _block_full(layer, h, cfg, kind, ctx, lc)
+        if a is not None:
+            aux = aux + a
+    h = _norm(model.final_norm, h, act_to)
     return (h, aux, cache) if collect_cache else (h, aux)
 
 
@@ -191,32 +302,52 @@ def lm_logits(model: Transformer, h: torch.Tensor,
     return dense(h, w, act_to=act_to)
 
 
-def init_cache(cfg: ArchConfig, batch: int, capacity: int, dtype: torch.dtype,
-               device) -> dict:
-    """An empty decode cache of ``capacity`` slots for every layer."""
-    shape = (cfg.n_layers, batch, capacity, cfg.n_kv_heads, cfg.head_dim)
-    return {"kv": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                   "v": torch.zeros(shape, dtype=dtype, device=device),
-                   "pos": torch.full((cfg.n_layers, capacity), -1, dtype=torch.int32,
-                                     device=device)}}
+def init_cache(cfg: ArchConfig, batch: int, capacity: int, dtype: torch.dtype, device, *,
+               cap_at_window: bool = True):
+    """An empty decode cache of ``capacity`` slots: the stacked layout of a
+    homogeneous stack, a tuple of per-layer entries for the hybrid, whose
+    attention layers hold ``min(capacity, window)`` slots (a ring). The
+    prefill's cache passes ``cap_at_window=False``: every attention layer
+    holds ``capacity`` slots (a ring only where ``capacity`` is within the
+    window), as the reference's ``_pack_kv`` sizes it."""
+    def layer(i: int):
+        kind = cfg.layer_kind(i)
+        if kind == "attn":
+            cap = capacity
+            if cap_at_window and cfg.hybrid is not None:
+                cap = min(capacity, cfg.hybrid.window)
+            return {"kv": init_kv_cache(cfg, batch, cap, dtype, device)}
+        if kind == "ssm":
+            return {"ssm": init_mamba_cache(cfg, batch, dtype, device)}
+        return {"rglru": init_rglru_cache(cfg, batch, dtype, device)}
+
+    return _assemble(cfg, [layer(i) for i in range(cfg.n_layers)])
 
 
-def decode_step(model: Transformer, cache: dict, token: torch.Tensor, pos: int,
-                act_to: torch.dtype | None = None) -> tuple[torch.Tensor, dict]:
+def decode_step(model: Transformer, cache, token: torch.Tensor, pos: int,
+                act_to: torch.dtype | None = None):
     """One serving step: token ``[B, 1]`` at position ``pos`` (a Python
-    int, the same for the whole batch) -> ``(logits [B, V], cache)``, the
-    logits in the activation dtype ``act_to``. The token's embedding stays f32, as
-    the reference's decode step leaves it. The cache is updated in place
-    (slot ``pos mod C`` of every layer) and returned."""
+    int, the same for the whole batch; all three M-RoPE positions under the
+    VLM) -> ``(logits [B, V], cache)``, the logits in the activation dtype
+    ``act_to``. The token's embedding stays f32, as the reference's decode
+    step leaves it (decode sees no modality prefix). The cache is updated
+    in place (every attention layer's slot ``pos mod C``, every recurrent
+    layer's state) and returned."""
     cfg = model.cfg
     b = token.shape[0]
-    positions = torch.full((b, 1), pos, dtype=torch.int32, device=token.device)
+    shape = (b, 1, 3) if cfg.mrope_sections is not None else (b, 1)
+    positions = torch.full(shape, pos, dtype=torch.int32, device=token.device)
     h = F.embedding(token, model.embed).to(f32)
-    rot = _rope(cfg, positions)
-    kv = cache["kv"]
-    kv["pos"][:, pos % kv["pos"].shape[1]] = pos
+    if cfg.rotary_pct == 0.0 and cfg.mrope_sections is None:
+        h = h + _sinusoidal(positions, cfg.d_model)
+    ctx = _ctx(cfg, positions, act_to)
     for i, layer in enumerate(model.layers):
-        h = _block_decode(layer, h, _layer_cache(cache, i), positions, rot, pos, act_to)
+        kind = cfg.layer_kind(i)
+        lc = _layer_cache(cfg, cache, i)
+        if kind == "attn":
+            kv = lc["kv"]
+            kv["pos"][pos % kv["pos"].shape[0]] = pos
+        h = _block_decode(layer, h, cfg, kind, ctx, lc, pos)
     h = _norm(model.final_norm, h, act_to)
     return lm_logits(model, h[:, 0], act_to), cache
 
@@ -224,64 +355,82 @@ def decode_step(model: Transformer, cache: dict, token: torch.Tensor, pos: int,
 # -- parameter trees (training) -------------------------------------------------------
 
 
-def _norm_tree(p) -> dict:
-    return {"scale": p.scale} if p.bias is None else {"scale": p.scale, "bias": p.bias}
-
-
-def _layer_tree(layer: Block) -> dict:
-    attn = {n: getattr(layer.attn, n) for n in ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
-            if getattr(layer.attn, n) is not None}
-    mlp = {n: getattr(layer.mlp, n) for n in ("w_gate", "w_up", "w_down")
-           if hasattr(layer.mlp, n)}
-    return {"norm1": _norm_tree(layer.norm1), "attn": attn, "norm2": _norm_tree(layer.norm2),
-            "mlp": mlp}
+def _tree(module: nn.Module | None) -> dict:
+    """A block's (or sublayer's) parameters as the reference's nested dict."""
+    out = {}
+    for name, p in module.named_parameters(recurse=False):
+        out[name] = p.detach()
+    for name, child in module.named_children():
+        out[name] = _tree(child)
+    return out
 
 
 def params_tree(model: Transformer) -> dict:
     """The model's parameters as the reference's tree (detached tensors):
-    ``embed``, ``final_norm``, ``layers`` (each leaf stacked ``[L, ...]``)
-    and, untied, ``lm_head``."""
-    layers = [_layer_tree(layer) for layer in model.layers]
+    ``embed``, ``final_norm``, ``layers`` (each leaf stacked ``[L, ...]``,
+    or a tuple of per-layer dicts for the hybrid) and, untied,
+    ``lm_head``."""
+    layers = [_tree(layer) for layer in model.layers]
 
     def stack(*xs):
         if isinstance(xs[0], dict):
             return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
-        return torch.stack([x.detach() for x in xs])
+        return torch.stack(xs)
 
-    tree = {"embed": model.embed.detach(), "final_norm": {
-        k: v.detach() for k, v in _norm_tree(model.final_norm).items()},
-        "layers": stack(*layers)}
+    tree = {"embed": model.embed.detach(), "final_norm": _tree(model.final_norm),
+            "layers": stack(*layers) if model.cfg.homogeneous else tuple(layers)}
     if model.lm_head is not None:
         tree["lm_head"] = model.lm_head.detach()
     return tree
+
+
+def _norm_view(cfg: ArchConfig, p: dict) -> SimpleNamespace:
+    return SimpleNamespace(kind=cfg.norm, scale=p["scale"], bias=p.get("bias"))
+
+
+def _layer_view(cfg: ArchConfig, lay: dict) -> SimpleNamespace:
+    out = {}
+    for name, sub in lay.items():
+        if name in ("norm1", "norm2"):
+            out[name] = _norm_view(cfg, sub)
+        elif name == "attn":
+            out[name] = SimpleNamespace(
+                n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                **{n: sub.get(n) for n in ("wq", "wk", "wv", "wo", "bq", "bk", "bv")})
+        elif name == "mlp":
+            out[name] = SimpleNamespace(kind=cfg.mlp, **sub)
+        elif name == "moe":
+            shared = sub.get("shared")
+            out[name] = SimpleNamespace(
+                **{n: w for n, w in sub.items() if n != "shared"},
+                shared=None if shared is None else SimpleNamespace(kind=cfg.mlp, **shared))
+        else:  # ssm, rglru: flat leaves
+            out[name] = SimpleNamespace(**sub)
+    return SimpleNamespace(**out)
 
 
 def params_view(cfg: ArchConfig, params: dict) -> SimpleNamespace:
     """A :class:`Transformer`-shaped view of a parameter tree in the
     reference's layout (:func:`params_tree`), for :func:`forward` and
     :func:`lm_logits`: each stacked ``layers`` leaf is unbound once into
-    its layers' slices, so autograd through the view reaches the tree's
-    leaves."""
-    def unbind(tree):
-        if isinstance(tree, dict):
-            return {k: unbind(v) for k, v in tree.items()}
-        return tree.unbind(0)
+    its layers' slices (a hybrid's tuple is taken layer by layer), so
+    autograd through the view reaches the tree's leaves."""
+    lay = params["layers"]
+    if isinstance(lay, dict):
+        def unbind(tree):
+            if isinstance(tree, dict):
+                return {k: unbind(v) for k, v in tree.items()}
+            return tree.unbind(0)
 
-    def norm(p: dict, i=None):
-        pick = (lambda x: x) if i is None else (lambda x: x[i])
-        return SimpleNamespace(kind=cfg.norm, scale=pick(p["scale"]),
-                               bias=pick(p["bias"]) if "bias" in p else None)
+        def pick(tree, i):
+            if isinstance(tree, dict):
+                return {k: pick(v, i) for k, v in tree.items()}
+            return tree[i]
 
-    lay = unbind(params["layers"])
-    layers = []
-    for i in range(cfg.n_layers):
-        attn = lay["attn"]
-        layers.append(SimpleNamespace(
-            norm1=norm(lay["norm1"], i), norm2=norm(lay["norm2"], i),
-            attn=SimpleNamespace(
-                n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
-                **{n: attn[n][i] if n in attn else None
-                   for n in ("wq", "wk", "wv", "wo", "bq", "bk", "bv")}),
-            mlp=SimpleNamespace(kind=cfg.mlp, **{n: w[i] for n, w in lay["mlp"].items()})))
+        parts = unbind(lay)
+        per_layer = [pick(parts, i) for i in range(cfg.n_layers)]
+    else:
+        per_layer = list(lay)
     return SimpleNamespace(cfg=cfg, embed=params["embed"], lm_head=params.get("lm_head"),
-                           final_norm=norm(params["final_norm"]), layers=layers)
+                           final_norm=_norm_view(cfg, params["final_norm"]),
+                           layers=[_layer_view(cfg, p) for p in per_layer])

@@ -1991,3 +1991,84 @@ def test_partitioned_card_run_equals_unpartitioned(card, lowering):
                                                                    o2["spikes"])
     for a, b, c in ((s1.ring, s0.ring, s2.ring), *zip(s1.neurons, s0.neurons, s2.neurons)):
         assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+
+
+# -- the other five LM families (A12c) ------------------------------------------------
+
+
+def _ring_case(card, seed, p_now, cap, hq, hkv, d, kvdt):
+    """One decode query at ``p_now`` over a ``cap``-slot ring after a wrap:
+    slot j holds the latest position congruent to j mod cap."""
+    q, k, v, _, _ = _attn_args(card, seed, 1, 1, cap, hq, hkv, d, kvdt)
+    slots = torch.arange(cap)
+    kpos = (p_now - ((p_now - slots) % cap)).to(torch.int32).to(card)
+    qpos = torch.full((1, 1), p_now, dtype=torch.int32, device=card)
+    return q, k, v, qpos, kpos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [2048, 100], ids=["window2048", "window100"])
+def test_archs_ring_decode_matches_plain(card, window):
+    """B7 on recurrentgemma's decode: D 256, 10 query heads on 1 KV head,
+    a 2,048-slot fp16 ring whose slot positions are out of order after a
+    wrap, under its window (and a narrower one that masks most slots)."""
+    q, k, v, qpos, kpos = _ring_case(card, 5, 2107, 2048, 10, 1, 256, torch.float16)
+    ops.reset_launches()
+    got = ops.attention(q, k, v, qpos, kpos, window=window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 1
+    want = ref.chunked_attention_ref(q, k, v, qpos, kpos, window=window)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# (b, s, hq, hkv, d, window, repeated M-RoPE t positions)
+ARCH_BWD = {
+    "d256-mqa": (2, 256, 10, 1, 256, -1, False),
+    "d256-mqa-window": (1, 600, 10, 1, 256, 256, False),
+    "d128-g6-mrope": (1, 300, 12, 2, 128, -1, True),
+    "d128-mha16": (2, 128, 16, 16, 128, -1, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ARCH_BWD.values(), ids=ARCH_BWD.keys())
+def test_archs_attention_fwd_bwd_matches_plain(card, case):
+    """B7 (with the log-sum-exp) and ``flash_attn_bwd`` at the new
+    families' head dims and groups, a window, and M-RoPE's repeated key
+    positions (a prefix of 100 at t = 0): within 2e-4 of each output's
+    scale of the plain versions."""
+    b, s, hq, hkv, d, window, mrope = case
+    q, k, v, qpos, kpos = _attn_args(card, s + hq, b, s, s, hq, hkv, d, torch.float32)
+    if mrope:
+        kpos = torch.cat([torch.zeros(100), torch.arange(s - 100) + 2]).to(torch.int32).to(card)
+        qpos = kpos.expand(b, s).contiguous()
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(3)).to(card)
+    out, lse = ops._attention_fwd(q, k, v, qpos, kpos, True, window, with_lse=True)
+    grads = ops.attention_bwd(q, k, v, qpos, kpos, out, lse, dout, window=window)
+    w_out, w_lse = ref.chunked_attention_ref(q, k, v, qpos, kpos, window=window,
+                                             return_lse=True)
+    want = ref.chunked_attention_bwd_ref(q, k, v, qpos, kpos, w_out, w_lse, dout, window=window)
+    for got, w in zip((out, lse, *grads), (w_out, w_lse, *want)):
+        assert float((got - w).abs().max()) <= 2e-4 * max(float(w.abs().max()), 1.0)
+
+
+ARCHS_NEW = ("granite-moe-1b-a400m", "qwen2-moe-a2.7b", "falcon-mamba-7b",
+             "recurrentgemma-2b", "musicgen-large")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ARCHS_NEW)
+def test_archs_serve_on_card_matches_cpu(card, arch):
+    """The reduced arch served on the card (one B7 launch per attention
+    layer and step) gives the CPU port's greedy tokens, fp32; the hybrid's
+    40-token prompt fills a 32-slot ring (its reduced window) that decode
+    wraps."""
+    cfg = reduce_arch(get_arch(arch))
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    kw = dict(batch=2, prompt_len=40, gen=6, policy_name="fp32",
+              capacity=32 if cfg.hybrid is not None else None)
+    ops.reset_launches()
+    got = serve(arch, device=card, **kw)
+    assert ops.LAUNCHES["flash_attention"] == n_attn * 6
+    want = serve(arch, device="cpu", **kw)
+    np.testing.assert_array_equal(got["tokens"], want["tokens"])

@@ -38,8 +38,6 @@ from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.precision import get_policy  # noqa: E402
 
 DENSE = ("smollm-360m", "qwen2.5-14b", "minitron-8b", "stablelm-12b")
-UNPORTED = ("falcon-mamba-7b", "musicgen-large", "qwen2-vl-2b", "recurrentgemma-2b",
-            "granite-moe-1b-a400m", "qwen2-moe-a2.7b")
 # bf16 keeps f32 activations and rounds projection inputs to bf16: on the
 # reduced archs no input lands a bf16 ulp apart (2.4e-7 measured), so it
 # holds fp32's 1e-4. fp16_opt's activations and logits are bf16: the
@@ -327,18 +325,22 @@ def test_smollm_parameter_count():
     assert configs.count_params(configs.get_arch("smollm-360m")) == 361_820_160
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_archs_raise(arch):
-    assert arch in jconfigs.ARCH_NAMES
-    with pytest.raises(NotImplementedError, match="A12"):
-        configs.get_arch(arch)
-
-
-def test_unported_family_model_raises():
-    cfg = dataclasses.replace(configs.reduce_arch(configs.get_arch("smollm-360m")),
-                              family="moe", moe=configs.MoEConfig(4, 2, 32))
-    with pytest.raises(NotImplementedError, match="A12"):
-        tf.init_params(cfg, get_policy("fp16"), device="cpu")
+@pytest.mark.parametrize("arch", jconfigs.ARCH_NAMES)
+def test_registry_matches_reference(arch):
+    """All ten of the reference's architectures: each config field for
+    field (full and reduced), its layer kinds, ``count_params`` and
+    ``count_active_params``."""
+    full, jfull = configs.get_arch(arch), jconfigs.get_arch(arch)
+    assert dataclasses.asdict(full) == dataclasses.asdict(jfull)
+    red, jred = configs.reduce_arch(full), jconfigs.reduce_arch(jfull)
+    assert dataclasses.asdict(red) == dataclasses.asdict(jred)
+    for c, j in ((full, jfull), (red, jred)):
+        assert configs.count_params(c) == jconfigs.count_params(j)
+        assert configs.count_active_params(c) == jconfigs.count_active_params(j)
+        assert c.homogeneous == j.homogeneous
+        assert [c.layer_kind(i) for i in range(c.n_layers)] == [
+            j.layer_kind(i) for i in range(j.n_layers)]
+    assert configs.ARCH_NAMES == jconfigs.ARCH_NAMES
 
 
 @pytest.mark.parametrize("name", ["fp32", "fp16", "bf16", "fp16_opt", "fp16_sr"])
