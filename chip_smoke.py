@@ -67,7 +67,8 @@ Phases (each raises, and the script exits non-zero, on any failure):
    out in every run), and Synfire4x10 sparse fp16 for 1,000 ticks on both
    backends (raster against the CPU again); launch counts checked. Then
    Synfire4x100 (N = 120,000) sparse fp16 for 1,000 ticks on both
-   backends, whose rasters must be equal bit for bit (two independent
+   backends (built once: the default net is the fused compile without its
+   fused plan), whose rasters must be equal bit for bit (two independent
    kernel paths), at 17-29 Hz, with peak device memory, ``ops.GatherRun``
    against its plain version on the x100 tables (and staged against
    unstaged on its longest pre row alone), ``ops.NeuronRun`` against its
@@ -203,7 +204,7 @@ Phases (each raises, and the script exits non-zero, on any failure):
    fp16 auto, fp32 packed on ``backend="fused"``, plastic fp32 sparse and
    plastic fp16 packed, each unpartitioned and cut at ``n_cores=2`` and at
    a byte budget (300,000 B static, 1,000,000 B plastic), sequential
-   lowering, 1,000 ticks: raster, neuron state, ring, weights and traces
+   lowering, 500 ticks: raster, neuron state, ring, weights and traces
    equal to the unpartitioned card run's and the CPU port's partitioned
    run's bit for bit, launches per tick as the plan says, device events
    per tick; (b) every core's launchers (``NeuronRun``, ``GatherRun``,
@@ -217,12 +218,12 @@ Phases (each raises, and the script exits non-zero, on any failure):
    us/tick of both, device events and launches per tick, peak memory; (d)
    the mesh lowering at 4 cores on ``core_mesh(devices=[card] * 4)`` and
    on ``core_mesh()`` (every visible card), fp32 sparse and fp16 packed,
-   1,000 ticks, equal to the unpartitioned run, us/tick beside the
+   500 ticks, equal to the unpartitioned run, us/tick beside the
    sequential lowering; (e) ``LaneScheduler(mesh=lane_mesh(devices=[card]
    * 4))``: 8 lanes of the plastic mini at 60 Hz, two 50-tick chunks, and
    64 lanes of Synfire4 fp16 sparse, 10 chunks of 100 ticks, states and
    flushes equal to the unsharded scheduler's; (f) ``ShardedSNN`` (1,024
-   neurons, fan-in 32) at mesh sizes 1 and 4, 300 ticks, equal to the CPU
+   neurons, fan-in 32) at mesh sizes 1 and 4, 100 ticks, equal to the CPU
    port's.
 12. Precision policies (after phase 11, in a process of its own too:
    ``chip_smoke.py --precision-json PATH``): (a) the bf16 entries of B1
@@ -243,7 +244,7 @@ Phases (each raises, and the script exits non-zero, on any failure):
    Synfire4 fp32 on int8-round-tripped weights, packed on both backends,
    accuracy against fp32 required >= 0.97, the card raster against the CPU
    port's; (f) stochastic rounding (``fp16_sr``, bf16) of a card tensor
-   equal to the CPU port's; (g) smollm-360m at full width cut to 8 layers
+   equal to the CPU port's; (g) smollm-360m at full width cut to 4 layers
    served under fp16, bf16 and fp16_opt, and at 2 layers the card against
    the CPU port.
    The bf16 entries join the kernel rows as ``<kernel>[bf16]``, their
@@ -264,7 +265,8 @@ Phases (each raises, and the script exits non-zero, on any failure):
    to 2 layers, fp32 and fp16: one step's loss, grad norm and new masters,
    three steps' losses; (d) the reduced model learning over 20 steps, 4
    straight steps equal to 2 + save/restore + 2 bit for bit, a NaN step
-   skipped; (e) bf16 and fp16_opt at full width for 3 steps.
+   skipped; (e) bf16 and fp16_opt at full width cut to 8 layers for 3
+   steps.
 14. The other five LM families (in a process of its own, started before
    the build: its CPU half (each arch drawn once as a train state on the
    CPU, the CPU port's logits and, for three archs, a train step) runs on
@@ -297,6 +299,21 @@ Phases (each raises, and the script exits non-zero, on any failure):
    path too; (f) one train step on the card against the CPU port at full
    width for granite-moe, falcon-mamba and recurrentgemma: loss, grad
    norm, each leaf's first moment and the new masters.
+15. The LM mesh (after phase 14's card half, in a process of its own:
+   ``chip_smoke.py --mesh-json PATH``): (a) smollm-360m fp16 at full width
+   trained through ``build_task`` on a 4x2 mesh of ``[card] * 8``, 3 steps
+   of 8 x 512 ``TokenStream`` tokens (the main path: exactly 2 B7 launches
+   and one ``flash_attn_bwd`` per layer and data index a step), then
+   ``ckpt.save``, ``restore`` and ``reshard`` onto a 2x2 mesh of ``[card] *
+   4`` and 3 more steps; every step held against the single-device step on
+   the card from the same state and batch (loss, grad norm, first moments,
+   new masters within 2 lr_t), its collective bytes and ms printed beside
+   the single-device step's ms; (b) smollm-360m served on the 2x2 mesh
+   through ``build_task`` (2 x 128 prompt, 8 decode steps) under both KV
+   layouts against single-device serving; (c) ``psum_compressed`` over
+   ``[card] * 4``; (d) the meta dry-run of smollm train_4k on 16x16 (a
+   CPU process beside (a)-(c)), its per-device argument bytes held against
+   the plan's.
 6. LM serving on the dense decoder (``repro_torch.launch.serve``; after
    phase 12, in a process of its own: ``chip_smoke.py --lm-json PATH``): (a) the
    attention kernel ``flash_attention`` against its plain version on the
@@ -1926,16 +1943,18 @@ def _require_same_raster(card, cpu, what):
                              f"first at tick {first}")
 
 
-def _card_run(cfg, policy, propagation, gen_u, ticks, dev, backend=None, **build_kw):
+def _card_run(cfg, policy, propagation, gen_u, ticks, dev, backend=None, net=None, **build_kw):
     """The main path on the card for ``ticks`` ticks (timed, launch counts
     reset just before and read just after), on ``gen_u`` or, when it is
-    None, the default generator stream."""
+    None, the default generator stream; on ``net`` when given (built
+    otherwise)."""
     from repro_torch.configs.synfire4 import build_synfire
     from repro_torch.core.engine import run
     from repro_torch.kernels import ops
 
-    net = build_synfire(cfg, policy=policy, propagation=propagation, device=dev,
-                        backend=backend, **build_kw)
+    if net is None:
+        net = build_synfire(cfg, policy=policy, propagation=propagation, device=dev,
+                            backend=backend, **build_kw)
     gu = None if gen_u is None else gen_u.to(dev)
     run(net.static, net.params, net.state0, 20,
         gen_u=None if gu is None else gu[:20])  # warm-up
@@ -2109,16 +2128,27 @@ def _phase_x100(dev, totals: dict) -> dict:
     there."""
     from repro_torch.configs.synfire4 import SYNFIRE4, scale_synfire
 
+    import dataclasses
+
+    from repro_torch.configs.synfire4 import build_synfire
+
     cfg = scale_synfire(SYNFIRE4, 100)
     g = torch.Generator(device="cpu").manual_seed(43)
     gen_u = torch.rand((X100_TICKS, cfg.n_stim), generator=g)
     paths, rasters, nets = {}, {}, {}
+    # One build (about 30 s on the host): a fused compile is the default
+    # compile plus its fused plan, so the default net is it without the plan.
+    t0 = time.perf_counter()
+    fused = build_synfire(cfg, policy="fp16", propagation="sparse", device=dev, backend="fused",
+                          budget=None, monitor_ms_hint=0)
+    build_s = time.perf_counter() - t0
+    built = {"fused": fused, None: dataclasses.replace(
+        fused, static=dataclasses.replace(fused.static, backend=None, fused=None))}
     for backend in (None, "fused"):
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         net, sp, launches, seconds = _card_run(cfg, "fp16", "sparse", gen_u, X100_TICKS,
-                                               dev, backend=backend, budget=None,
-                                               monitor_ms_hint=0)
+                                               dev, backend=backend, net=built[backend])
         total_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated(dev)
         kinds = [b.kind for b in net.static.buckets]
@@ -2138,12 +2168,12 @@ def _phase_x100(dev, totals: dict) -> dict:
         paths[key] = {"us_per_tick": seconds / X100_TICKS * 1e6, "spikes": total,
                       "rate_hz": rate, "n": net.static.n, "longest_pre": longest,
                       "synapse_bytes": net.ledger.synapse_bytes(),
-                      "peak_device_bytes": peak, "build_and_run_s": total_s,
+                      "peak_device_bytes": peak, "build_s": build_s, "runs_s": total_s,
                       "launches": launches}
         log(f"[x100] sparse fp16 backend={backend}: N={net.static.n}, {total} spikes, "
             f"{rate:.2f} Hz, {seconds / X100_TICKS * 1e6:.1f} us/tick, longest pre row "
             f"{longest}, synapse bytes {net.ledger.synapse_bytes()}, peak device memory "
-            f"{peak} B, build + runs {total_s:.1f} s, launches {launches}")
+            f"{peak} B, build (shared) {build_s:.1f} s, runs {total_s:.1f} s, launches {launches}")
     _require_same_raster(rasters["fused"], rasters[None], "x100 fused vs default backend")
     log("[x100] the fused raster equals the default backend's bit for bit")
     paths["synfire4_x100/fp16/sparse"]["monitors"] = _x100_monitored(
@@ -4959,7 +4989,7 @@ def _obs_main(out: str) -> int:
 
 # -- partitioning (phase 11) -----------------------------------------------------------
 
-PART_TICKS = 1000
+PART_TICKS = 500  # 1,000 until phase 15 came to share the script's time
 PART_CELLS = (  # (name, policy, propagation, backend, plastic)
     ("fp32/packed", "fp32", "packed", None, False),
     ("fp16/auto", "fp16", "auto", None, False),
@@ -4970,7 +5000,7 @@ PART_CELLS = (  # (name, policy, propagation, backend, plastic)
 PART_X100_TICKS = 200
 PART_TWIN_TICKS = 12  # chained ticks per per-core launcher case: ring slots wrap past L = 11
 PART_CHUNKS = 10  # 100-tick chunks of the 64-lane sharded scheduler
-SNN_TICKS = 300
+SNN_TICKS = 100  # 300 until phase 15 came to share the script's time
 
 
 def _part_launches(plan, ticks: int) -> dict:
@@ -5889,7 +5919,7 @@ def _prec_sr(dev) -> dict:
     return {"precision/stochastic_round": out}
 
 
-PREC_LM_LAYERS = 8
+PREC_LM_LAYERS = 4  # 8 until phase 15 came to share the script's time
 
 
 def _prec_lm(dev, totals: dict) -> dict:
@@ -6562,6 +6592,8 @@ def phase_profile(dev) -> dict:
 # -- training (A12b) ------------------------------------------------------------------
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 10
+# Phase 13e's depth: 32 until phase 15 came to share the script's time.
+TRAIN_CUT_LAYERS = 8
 # Of each output's scale: the kernel and the plain version (cuBLAS) sum in
 # their own orders, over up to Sq x G terms for dK and dV (1.5e-5 measured
 # at smollm's shape, run 3; NVIDIA H100 80GB HBM3).
@@ -6806,13 +6838,38 @@ def _train_learns_and_resumes(dev) -> dict:
             "nan_skipped": skipped}
 
 
-def _train_full(dev, policy_name: str, steps: int, totals: dict | None) -> dict:
-    """smollm-360m at full width (32 layers) through ``launch.train.train``
-    from ``TokenStream``: ``steps`` steps of batch 8 x 512. Losses finite,
-    no step skipped (the scale stays at the policy's, the step count at
+def _train_cut(cfg, policy_name: str, steps: int, dev) -> dict:
+    """``launch.train.train``'s loop (lr 1e-4, its warm-up, ``TokenStream``
+    batches, the loss read back each step) on ``cfg``, a depth cut of
+    smollm-360m: ``train`` takes an arch by name only."""
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models import tasks
+    from repro_torch.optim.adamw import AdamWConfig
+
+    opt = AdamWConfig(lr=1e-4, warmup_steps=max(10, steps // 20))
+    state = tasks.init_train_state(cfg, policy_name, seed=0, device=dev)
+    step_fn = tasks.make_train_step(cfg, policy_name, opt_cfg=opt, ce_chunk=min(512, TRAIN_SEQ))
+    stream = TokenStream(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    losses, times = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, m = step_fn(state, {"tokens": stream.batch(i)["tokens"].to(dev)})
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    return {"losses": losses, "times": times, "state": state}
+
+
+def _train_full(dev, policy_name: str, steps: int, totals: dict | None,
+                layers: int | None = None) -> dict:
+    """smollm-360m at full width (32 layers, or cut to ``layers``) through
+    ``launch.train.train`` (:func:`_train_cut` at a cut depth) from
+    ``TokenStream``: ``steps`` steps of batch 8 x 512. Losses finite, no
+    step skipped (the scale stays at the policy's, the step count at
     ``steps``); with ``totals`` the launches are counted (the main path)
     and required: 2 B7 forwards a layer a step (remat runs each block
     twice) and one backward."""
+    import dataclasses
+
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
     from repro_torch.launch.train import train
@@ -6821,9 +6878,13 @@ def _train_full(dev, policy_name: str, steps: int, totals: dict | None) -> dict:
     cfg, policy = get_arch(SMOLLM), get_policy(policy_name)
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launches()
-    out = train(SMOLLM, steps=steps, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
-                policy_name=policy_name, reduced=False, lr=1e-4, seed=0, log_every=steps,
-                device=dev)
+    if layers is None:
+        out = train(SMOLLM, steps=steps, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                    policy_name=policy_name, reduced=False, lr=1e-4, seed=0, log_every=steps,
+                    device=dev)
+    else:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+        out = _train_cut(cfg, policy_name, steps, dev)
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
@@ -6842,12 +6903,13 @@ def _train_full(dev, policy_name: str, steps: int, totals: dict | None) -> dict:
     times = out["times"][2:] if steps > 3 else out["times"][1:]
     ms = sorted(times)[len(times) // 2] * 1e3
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    res = {"policy": policy_name, "steps": steps, "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+    res = {"policy": policy_name, "layers": cfg.n_layers, "steps": steps, "batch": TRAIN_BATCH,
+           "seq_len": TRAIN_SEQ,
            "losses": out["losses"], "ms_per_step_median": ms,
            "ms_per_step": [t * 1e3 for t in out["times"]], "tokens_per_s": tokens / ms * 1e3,
            "peak_device_bytes": peak, "launches": launches,
            "loss_scale": float(state["scale"].scale)}
-    log(f"[train] {SMOLLM} full width (32 layers) {policy_name}, batch {TRAIN_BATCH} x "
+    log(f"[train] {SMOLLM} full width ({cfg.n_layers} layers) {policy_name}, batch {TRAIN_BATCH} x "
         f"{TRAIN_SEQ}, {steps} steps: losses {out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}, "
         f"{ms:.1f} ms/step (median after warm-up; steps {[round(t * 1e3, 1) for t in out['times']]}), "
         f"{res['tokens_per_s']:.0f} tokens/s, peak device memory {peak} B, launches {launches}")
@@ -6873,7 +6935,8 @@ def phase_train(dev, totals: dict) -> tuple[dict, dict]:
             dev, policy_name)
     paths["train/smollm-360m-reduced/learn_resume_nan"] = _train_learns_and_resumes(dev)
     for policy_name in ("bf16", "fp16_opt"):
-        paths[f"train/smollm-360m/{policy_name}"] = _train_full(dev, policy_name, 3, None)
+        paths[f"train/smollm-360m/{policy_name}"] = _train_full(dev, policy_name, 3, None,
+                                                                layers=TRAIN_CUT_LAYERS)
     seconds = time.perf_counter() - t0
     paths["train/phase_s"] = seconds
     log(f"[train] phase 13 in {seconds:.1f} s")
@@ -7039,14 +7102,14 @@ def _record_routes():
 
     calls, orig = [], tf.moe_apply
 
-    def recording(p, x, cfg, act_to=None):
+    def recording(p, x, cfg, act_to=None, **kw):
         from repro_torch.models.moe import route
 
         k = cfg.moe.top_k
         probs, eids, _ = route(p, x, cfg, act_to)
         top = probs.topk(k + 1, dim=-1).values
         calls.append({"eids": eids.cpu(), "margin": (top[..., k - 1] - top[..., k]).cpu()})
-        return orig(p, x, cfg, act_to)
+        return orig(p, x, cfg, act_to, **kw)
 
     tf.moe_apply = recording
     return calls, lambda: setattr(tf, "moe_apply", orig)
@@ -7494,6 +7557,321 @@ def _archs_main(out: str, go: str | None = None) -> int:
     return 0
 
 
+# -- the LM mesh (A12d) -------------------------------------------------------------------
+
+MESH_BATCH, MESH_SEQ = 8, 512
+# Sharded against single-device, per step from the same state and batch (the
+# data indices' NLL sums added in another order; each data index's gradient
+# rounds to fp16 on its own rows): loss and grad norm at slice 17's card
+# tolerances (TRAIN_CARD_TOL fp16), first moments within slice 17's fp16
+# 5e-3 of a leaf's scale, new masters within 2 lr_t (Adam's sign-like first
+# moves, ROADMAP queue C).
+MESH_TOL = {"loss": 1e-4, "grad_norm": 1e-3, "m": 5e-3}
+MESH_SERVE = dict(batch=2, prompt_len=128, gen=8)
+# Sharded serving against single-device serving of each data index's rows:
+# the same ops on the same shapes, bit for bit expected; held at 1e-5.
+MESH_SERVE_TOL = 1e-5
+
+
+def _mesh_compare(sharded, single, metrics, want, lr_t) -> dict:
+    """One sharded step against the single-device step from the same state
+    and batch: loss and grad norm (relative), each leaf's first moment (of
+    its scale) and each new master (absolute, against 2 lr_t)."""
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import sharded as sh
+    from repro_torch.precision.policy import tree_leaves
+
+    got = sh.gather_tree(sharded)
+    rel = {k: abs(float(metrics[k]) - float(want[k])) / abs(float(want[k]))
+           for k in ("loss", "grad_norm")}
+    m_rel = max(max_err(a, b) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(tree_leaves(got["opt"].m), tree_leaves(single["opt"].m)))
+    master = max(max_err(a, b) for a, b in zip(tree_leaves(got["master"]),
+                                                tree_leaves(single["master"])))
+    require(rel["loss"] <= MESH_TOL["loss"] and rel["grad_norm"] <= MESH_TOL["grad_norm"],
+            f"mesh step: {rel} against {MESH_TOL}")
+    require(m_rel <= MESH_TOL["m"], f"mesh step: first moments {m_rel} of scale")
+    require(master <= 2 * lr_t + 1e-6, f"mesh step: a new master {master} > 2 lr_t {2 * lr_t}")
+    require(float(metrics["skipped"]) == 0.0 and float(want["skipped"]) == 0.0,
+            "mesh step: a step was skipped")
+    return {"loss": float(metrics["loss"]), "rel": rel, "m_of_scale": m_rel,
+            "master_max_abs": master, "two_lr_t": 2 * lr_t}, got
+
+
+def _mesh_train(dev, totals) -> dict:
+    """Phase 15a-b: smollm-360m fp16 at full width through ``build_task`` on
+    a 4x2 mesh of ``[card] * 8`` for 3 steps, ``ckpt.save``, ``restore``
+    and ``reshard`` onto a 2x2 mesh of ``[card] * 4``, 3 more steps; after
+    every step the single-device step from the same state and batch."""
+    import tempfile
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import distributed
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import sharded as sh
+    from repro_torch.models import tasks
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.precision.policy import tree_leaves
+
+    cfg, opt = get_arch(SMOLLM), AdamWConfig()  # build_task's
+    shape = ShapeConfig("mesh", MESH_SEQ, MESH_BATCH, "train")
+    meshes = {n: meshlib.make_host_mesh(s, devices=[dev] * n) for n, s in ((8, (4, 2)), (4, (2, 2)))}
+    task = {n: tasks.build_task(cfg, shape, m, "fp16") for n, m in meshes.items()}
+    single = tasks.make_train_step(cfg, "fp16", opt_cfg=opt, ce_chunk=512)
+    stream = TokenStream(cfg.vocab_size, MESH_SEQ, MESH_BATCH, seed=0)
+    t0 = time.perf_counter()
+    state = tasks.init_train_state(cfg, "fp16", seed=0, device=dev)
+    init_s = time.perf_counter() - t0
+    steps, launches, colls, times, single_times = [], [], [], [], []
+    for i in range(6):
+        n = 8 if i < 3 else 4
+        if i == 3:
+            t0 = time.perf_counter()
+            with tempfile.TemporaryDirectory() as d:
+                ckpt.save(d, 3, state)
+                like = _meta_to(tasks.train_state_specs(cfg, "fp16"), dev)
+                restored = ckpt.restore(d, 3, like)
+            state = ckpt.reshard(restored, task[4].in_shardings[0])
+            save_s = time.perf_counter() - t0
+            require(all(x.mesh.size == 4 for x in tree_leaves(state)), "reshard left another mesh")
+        batch = {"tokens": stream.batch(i)["tokens"].to(dev)}
+        whole = sh.gather_tree(state) if i else state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want_state, want = single(whole, batch)
+        float(want["loss"])
+        single_times.append(time.perf_counter() - t0)
+        del whole
+        ops.reset_launches()
+        distributed.reset_collectives()
+        t0 = time.perf_counter()
+        state, metrics = task[n].sharded()(state, batch)
+        float(metrics["loss"])
+        times.append(time.perf_counter() - t0)
+        launches.append(dict(ops.LAUNCHES))
+        colls.append({k: dict(v) for k, v in distributed.COLLECTIVES.items()})
+        _add(totals, ops.LAUNCHES)
+        data = 4 if n == 8 else 2
+        expect = {"flash_attention": 2 * cfg.n_layers * data,
+                  "flash_attention_bwd": cfg.n_layers * data}
+        got = {k: v for k, v in ops.LAUNCHES.items() if v}
+        require(got == expect, f"mesh step {i} on {n} entries: launches {got} != {expect}")
+        lr_t = opt.lr * min(1.0, (i + 2) / opt.warmup_steps)  # the warm-up at opt.step i + 1
+        row, _ = _mesh_compare(state, want_state, metrics, want, lr_t)
+        steps.append({"step": i, "entries": n, **row})
+        del want_state
+        log(f"[mesh] step {i} on {n} entries: loss {row['loss']:.5f}, rel {row['rel']}, first "
+            f"moments {row['m_of_scale']:.3g} of scale, masters {row['master_max_abs']:.3g} "
+            f"(2 lr_t {2 * lr_t:.3g}); launches {got}; collectives {colls[-1]}; "
+            f"{times[-1] * 1e3:.1f} ms (single-device {single_times[-1] * 1e3:.1f} ms)")
+    log(f"[mesh] init {init_s:.1f} s, save + restore + reshard {save_s:.1f} s")
+    params = sh.gather_tree(state["params"])
+    return {"steps": steps, "launches": launches, "collectives": colls,
+            "ms_per_step": [t * 1e3 for t in times],
+            "single_ms_per_step": [t * 1e3 for t in single_times], "init_s": init_s,
+            "save_restore_reshard_s": save_s}, params
+
+
+def _meta_to(tree, dev):
+    """A meta tree's leaves as empty tensors on ``dev`` (a restore target)."""
+    from repro_torch.precision.policy import tree_map
+
+    return tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype, device=dev), tree)
+
+
+def _mesh_serve(dev, params) -> dict:
+    """Phase 15c: smollm-360m fp16 (the trained params) served on a 2x2
+    mesh of ``[card] * 4`` through ``build_task`` (the prefill cell; the
+    cache from the sharded prefill; 8 decode steps through the decode
+    cell), each KV layout, against single-device serving on the card of
+    each data index's rows (the same shapes: held at ``MESH_SERVE_TOL``)
+    and of the whole batch (printed: a row split changes cuBLAS's shapes,
+    and at full width an fp16 ulp of a projection input moves a logit by
+    up to about 4e-3, ROADMAP queue C slice 4)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import sharded as sh
+    from repro_torch.models import tasks
+    from repro_torch.models import transformer as tf
+    from repro_torch.precision import get_policy
+
+    cfg, pol = get_arch(SMOLLM), get_policy("fp16")
+    b, s, gen = MESH_SERVE["batch"], MESH_SERVE["prompt_len"], MESH_SERVE["gen"]
+    cap = s + gen
+    model = tf.params_view(cfg, params)
+    mesh = meshlib.make_host_mesh((2, 2), devices=[dev] * 4)
+    g = torch.Generator().manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=g).to(dev)
+    prefill1 = tasks.make_prefill_step(cfg, pol)
+    prefill = tasks.make_prefill_step(cfg, pol, collect_cache=True, cache_len=cap)
+    step1 = tasks.make_decode_step(cfg, pol)
+
+    def single(rows, feed=None):
+        """Single-device serving of ``rows``: per step the logits, and the
+        greedy tokens fed back (``feed``'s, when given)."""
+        logits, cache = prefill(model, {"tokens": toks[rows]})
+        out = [prefill1(model, {"tokens": toks[rows]})]
+        token = torch.argmax(logits, -1)[:, None]
+        tokens = []
+        for i in range(gen):
+            token = token if feed is None else feed[i]
+            tokens.append(token)
+            logits, cache = step1(model, cache, token, s + i)
+            out.append(logits)
+            token = torch.argmax(logits, -1)[:, None]
+        return out, tokens
+
+    out = {}
+    with torch.inference_mode():
+        per_row = [single(slice(r, r + 1)) for r in range(b)]
+        want = [torch.cat([r[0][i] for r in per_row]) for i in range(gen + 1)]
+        feed = [torch.cat([r[1][i] for r in per_row]) for i in range(gen)]
+        whole, _ = single(slice(0, b), feed)
+        for layout in ("headdim", "seq"):
+            meshlib.KV_CACHE_LAYOUT[0] = layout
+            try:
+                pre = tasks.build_task(cfg, ShapeConfig("p", s, b, "prefill"), mesh,
+                                       pol).sharded()
+                dec = tasks.build_task(cfg, ShapeConfig("d", cap, b, "decode"), mesh,
+                                       pol).sharded()
+                got = [sh.gather(pre(params, {"tokens": toks}))]
+                _, s_cache = tasks.make_prefill_step(cfg, pol, mesh=mesh, collect_cache=True,
+                                                     cache_len=cap)(params, {"tokens": toks})
+                for i in range(gen):
+                    s_logits, s_cache = dec(params, s_cache, feed[i], s + i)
+                    got.append(sh.gather(s_logits))
+            finally:
+                meshlib.KV_CACHE_LAYOUT[0] = "headdim"
+            rows = max(max_err(a, w) for a, w in zip(got, want))
+            batch = max(max_err(a, w) for a, w in zip(got, whole))
+            require(rows <= MESH_SERVE_TOL, f"mesh serve {layout}: logits {rows} from "
+                    f"single-device serving of the same rows > {MESH_SERVE_TOL}")
+            out[layout] = {"logits_max_abs_rows": rows, "bitwise_rows": rows == 0.0,
+                           "logits_max_abs_batch": batch}
+            log(f"[mesh] served on 2x2 ({layout}): prefill and {gen} decode steps, logits "
+                f"within {rows:.3g} of single-device serving of each data index's rows "
+                f"(bit for bit: {rows == 0.0}), {batch:.3g} of the whole batch's")
+    return out
+
+
+def _mesh_psum(dev) -> dict:
+    """Phase 15d: ``psum_compressed`` over ``[card] * 4`` (None, bf16,
+    int8) against the exact mean, within the reference test's bounds."""
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import sharded as sh
+    from repro_torch.optim.compress import psum_compressed
+
+    mesh = meshlib.make_host_mesh((4,), ("pod",), devices=[dev] * 4)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((4, 1 << 20), generator=g)
+    exact = (x[0].double() + x[1] + x[2] + x[3]) / 4
+    out = {}
+    for method, bound_ in ((None, 1e-6), ("bf16", 0.02), ("int8", 0.05)):
+        got = psum_compressed([x[i].to(dev) for i in range(4)], mesh, "pod", method)
+        err = max(float((r.double().cpu() - exact).abs().max()) for r in got)
+        scale = float(exact.abs().max())
+        require(err < bound_ * scale, f"psum_compressed {method}: {err} >= {bound_} of {scale}")
+        out[str(method)] = {"max_abs": err, "of_scale": err / scale}
+    log(f"[mesh] psum_compressed on [card] * 4: {out}")
+    return out
+
+
+def _mesh_dryrun_start(tmp: Path):
+    """Phase 15e, started first: the meta dry-run of smollm train_4k on the
+    16x16 production mesh, in a process of its own (CPU only)."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", SMOLLM, "--shape",
+         "train_4k", "--mesh", "single", "--out", str(tmp), "--force"],
+        env={**__import__("os").environ, "PYTHONPATH": str(ROOT / "src")},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _mesh_dryrun_finish(proc, tmp: Path) -> dict:
+    """The dry-run's record; its per-device argument bytes held against the
+    plan's (each leaf's bytes over the entries its spec divides it into)."""
+    import math as _math
+
+    from repro_torch.configs import get_arch, get_shape
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import sharded as sh
+    from repro_torch.models import tasks
+    from repro_torch.precision.policy import tree_leaves
+
+    text, _ = proc.communicate(timeout=600)
+    require(proc.returncode == 0, f"the dry-run failed: {text[-2000:]}")
+    rec = json.loads((tmp / f"{SMOLLM}__train_4k__single.json").read_text())
+    require(rec["status"] == "ok", f"dry-run cell: {rec.get('error')}")
+    cfg, shape = get_arch(SMOLLM), get_shape("train_4k")
+    mesh = meshlib.make_production_mesh()
+    state = tasks.train_state_specs(cfg, "fp16")
+    batch = tasks.input_specs(cfg, shape)
+    plan = 0
+    for tree, specs in ((state, tasks._state_pspecs(state, mesh)),
+                        (batch, meshlib.batch_pspecs(batch, mesh))):
+        for x, spec in zip(tree_leaves(tree), tree_leaves(specs)):
+            n = _math.prod(mesh.shape[a] for part in spec for a in meshlib.part_axes(part))
+            plan += x.numel() // n * x.element_size()
+    got = rec["production"]["memory"]["argument_bytes"]
+    require(got == plan, f"dry-run argument bytes {got} != the plan's {plan}")
+    log(f"[mesh] dry-run {SMOLLM} train_4k on 16x16 (meta): argument bytes {got} == the plan's; "
+        f"{rec['production']['flops']:.4g} FLOPs per compute device, saved activations "
+        f"{rec['production']['memory']['activation_bytes']} B, collectives "
+        f"{rec['production']['collectives']}, counted in {rec['production']['count_s']:.1f} s")
+    return {"argument_bytes": got, "plan_bytes": plan, "record": rec["production"]}
+
+
+def phase_mesh(dev, totals: dict) -> dict:
+    """Phase 15: the LM mesh lowering on one card: training on [card] * 8
+    and [card] * 4 with the reshard between (the main path: its launches
+    are counted), serving on [card] * 4, the compressed all-reduce, and the
+    meta dry-run of one production cell (run beside the card work)."""
+    t0 = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = _mesh_dryrun_start(Path(tmp))
+        try:
+            train, params = _mesh_train(dev, totals)
+            paths = {"mesh/card": smi, "mesh/train": train}
+            t1 = time.perf_counter()
+            paths["mesh/serve"] = _mesh_serve(dev, params)
+            paths["mesh/serve_s"] = time.perf_counter() - t1
+            del params
+            paths["mesh/psum_compressed"] = _mesh_psum(dev)
+            t1 = time.perf_counter()
+            paths["mesh/dryrun"] = _mesh_dryrun_finish(proc, Path(tmp))
+            paths["mesh/dryrun_wait_s"] = time.perf_counter() - t1
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    ms, one = paths["mesh/train"]["ms_per_step"], paths["mesh/train"]["single_ms_per_step"]
+    log(f"[mesh] sharded step ms {[round(x, 1) for x in ms]} against the single-device "
+        f"{[round(x, 1) for x in one]} ({smi}); serving {paths['mesh/serve_s']:.1f} s, waited "
+        f"{paths['mesh/dryrun_wait_s']:.1f} s for the dry-run")
+    paths["mesh/phase_s"] = time.perf_counter() - t0
+    log(f"[mesh] phase 15 in {paths['mesh/phase_s']:.1f} s")
+    return paths
+
+
+def _mesh_main(out: str) -> int:
+    """``--mesh-json PATH``: phase 15 alone, its paths and launch counts
+    written to ``PATH`` as JSON."""
+    from repro_torch.kernels import _build, ops
+
+    _build.build()
+    totals = {k: 0 for k in ops.LAUNCHES}
+    paths = phase_mesh(torch.device("cuda", 0), totals)
+    Path(out).write_text(json.dumps({"paths": paths, "totals": totals}, default=str))
+    return 0
+
+
 def _run_child(flag: str, timeout: int) -> dict:
     """``chip_smoke.py flag PATH`` in a process of its own, waited for;
     returns the JSON it wrote to PATH. Late in a long process
@@ -7551,6 +7929,8 @@ def main() -> int:
         return _train_main(sys.argv[2])
     if len(sys.argv) in (3, 4) and sys.argv[1] == "--archs-json":
         return _archs_main(*sys.argv[2:])
+    if len(sys.argv) == 3 and sys.argv[1] == "--mesh-json":
+        return _mesh_main(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--lm-json":
         return _lm_main(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--profile-json":
@@ -7655,6 +8035,10 @@ def _main_phases(dev, smi, build, mark, clock, archs_child) -> int:
                      "launches": archs["totals"][r["kernel"]]})
     paths.update(archs["paths"])
     mark("14 archs")
+    meshed = _run_child("--mesh-json", 600)  # phase 15
+    _add(totals, meshed["totals"])
+    paths.update(meshed["paths"])
+    mark("15 mesh")
     paths.update(_run_child("--profile-json", 900)["paths"])
     mark("7 profile")
     paths["clock_s"] = clock

@@ -12,8 +12,11 @@ raw bits (``|V2``), which is what ``np.asarray`` of a JAX bf16 array
 writes; such a leaf is read back by its bits (the reference's own
 ``restore`` refuses it: ROADMAP queue C). The caller converts
 what the reference keeps in another type (``serve.lifecycle`` writes a
-tick as int32 and a key as its ``uint32`` words). Re-sharding
-(``reshard``), which takes the LM mesh's shardings, is ROADMAP A12d's.
+tick as int32 and a key as its ``uint32`` words). A state laid out on a
+device-list mesh (:class:`repro_torch.launch.sharded.Sharded` leaves) is
+gathered leaf by leaf into the same file; :func:`reshard` lays a state,
+sharded or whole, out on another mesh (the elastic path: 8 entries to 4
+after losing devices).
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import torch
 
 from repro_torch.core.convert import tensor_from_numpy
 
-__all__ = ["save", "restore", "latest_step", "save_every", "step_path"]
+__all__ = ["save", "restore", "latest_step", "save_every", "step_path", "reshard"]
 
 _SEP = "||"
 _STEP = re.compile(r"step_(\d+)\.npz$")
@@ -54,6 +57,10 @@ def step_path(ckpt_dir: str, step: int) -> str:
 
 
 def _as_numpy(leaf) -> np.ndarray:
+    from repro_torch.launch.sharded import Sharded, gather
+
+    if isinstance(leaf, Sharded):
+        leaf = gather(leaf, "cpu")
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach().cpu()
         if leaf.dtype == torch.bfloat16:
@@ -124,3 +131,15 @@ def save_every(ckpt_dir: str, step: int, state, *, interval: int,
     for s in _steps(ckpt_dir)[:-keep_last]:
         os.remove(step_path(ckpt_dir, s))
     return path
+
+
+def reshard(state, shardings):
+    """Elastic re-shard: ``state`` (tensors, or Sharded leaves on any mesh)
+    laid out per ``shardings`` (a tree of
+    :class:`~repro_torch.launch.mesh.NamedSharding` on the new mesh,
+    possibly with fewer entries). A leaf already laid out so is kept; any
+    other is gathered and cut into the new mesh's blocks, on its
+    devices."""
+    from repro_torch.launch.sharded import shard_tree
+
+    return shard_tree(state, shardings)

@@ -26,6 +26,7 @@ names, is defined nowhere there, and the port has none either.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import dataclasses
 from typing import NamedTuple
 
@@ -34,34 +35,57 @@ import torch
 
 from repro_torch.core import rng
 
-__all__ = ["DeviceMesh", "lane_mesh", "core_mesh", "device_context", "ShardedParams",
+__all__ = ["DeviceMesh", "device_grid", "lane_mesh", "core_mesh", "device_context", "on_entry",
+           "current_entry", "COLLECTIVES", "reset_collectives", "note_collective", "ShardedParams",
            "ShardedState", "ShardedSNN", "make_step", "build_sharded"]
 
 f32 = torch.float32
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, eq=False)
 class DeviceMesh:
-    """A 1-D mesh: ``devices`` (torch devices, repeats allowed) along the
-    axis named ``axis``. ``shape[axis]`` is its size, as on the reference's
-    ``Mesh``, so code written against ``mesh.shape[mesh_axis]`` reads the
-    same."""
+    """An N-D mesh of torch devices (repeats allowed): ``devices`` a numpy
+    object array with one dimension per name of ``axis_names``, as the
+    reference's ``Mesh``; ``shape[axis]`` is an axis's size, so code
+    written against ``mesh.shape[mesh_axis]`` reads the same. A 1-D mesh
+    (``lane_mesh``, ``core_mesh``) also names its one axis ``axis``; the
+    LM's 2-D and 3-D meshes are :func:`repro_torch.launch.mesh.make_host_mesh`'s."""
 
-    devices: tuple[torch.device, ...]
-    axis: str
+    devices: np.ndarray
+    axis_names: tuple[str, ...]
+
+    def __post_init__(self) -> None:
+        if self.devices.ndim != len(self.axis_names):
+            raise ValueError(f"a mesh of shape {self.devices.shape} needs "
+                             f"{self.devices.ndim} axis names, got {self.axis_names}")
 
     @property
     def shape(self) -> dict[str, int]:
-        return {self.axis: len(self.devices)}
+        return dict(zip(self.axis_names, self.devices.shape))
 
     @property
     def size(self) -> int:
-        return len(self.devices)
+        return int(self.devices.size)
+
+    @property
+    def axis(self) -> str:
+        """The one axis of a 1-D mesh."""
+        if len(self.axis_names) != 1:
+            raise ValueError(f"a mesh over {self.axis_names} has more than one axis")
+        return self.axis_names[0]
 
     @property
     def distinct(self) -> tuple[torch.device, ...]:
-        """The mesh's devices, each once, in first-seen order."""
-        return tuple(dict.fromkeys(self.devices))
+        """The mesh's devices, each once, in first-seen (row-major) order."""
+        return tuple(dict.fromkeys(self.devices.flat))
+
+
+def device_grid(devices, shape: tuple[int, ...]) -> np.ndarray:
+    """``devices`` (torch devices or names) as a numpy object array of
+    ``shape``, row-major."""
+    flat = np.empty((len(devices),), dtype=object)
+    flat[:] = [torch.device(d) for d in devices]
+    return flat.reshape(shape)
 
 
 def lane_mesh(n: int | None = None, *, axis: str = "lanes", devices=None) -> DeviceMesh:
@@ -82,7 +106,7 @@ def lane_mesh(n: int | None = None, *, axis: str = "lanes", devices=None) -> Dev
     if n > len(pool):
         raise ValueError(f"requested {n} mesh devices but only {len(pool)} visible — "
                          f"{hint}")
-    return DeviceMesh(tuple(pool[:n]), axis)
+    return DeviceMesh(device_grid(pool[:n], (n,)), (axis,))
 
 
 def core_mesh(n: int | None = None, *, axis: str = "cores", devices=None) -> DeviceMesh:
@@ -100,6 +124,50 @@ def device_context(device: torch.device):
     if device.type == "cuda" and device.index not in (None, torch.cuda.current_device()):
         return torch.cuda.device(device)
     return contextlib.nullcontext()
+
+
+_ENTRY: contextvars.ContextVar[tuple[int, ...] | None] = contextvars.ContextVar(
+    "mesh_entry", default=None)
+
+# Per collective kind over a device-list mesh: the calls, and the bytes
+# that the mesh entry taking in the most has taken in from other entries
+# over all of them (a device's share; ``_RECEIVED`` keeps every entry's).
+COLLECTIVES: dict[str, dict[str, int]] = {}
+_RECEIVED: dict[str, dict[tuple, int]] = {}
+
+
+def reset_collectives() -> None:
+    COLLECTIVES.clear()
+    _RECEIVED.clear()
+
+
+def note_collective(kind: str, received: dict[tuple, int]) -> None:
+    """Count one collective of ``kind`` that brings ``received[entry]``
+    bytes into each receiving entry from the others."""
+    per = _RECEIVED.setdefault(kind, {})
+    for entry, nbytes in received.items():
+        per[entry] = per.get(entry, 0) + int(nbytes)
+    ent = COLLECTIVES.setdefault(kind, {"count": 0, "bytes": 0})
+    ent["count"] += 1
+    ent["bytes"] = max(per.values(), default=0)
+
+
+def current_entry() -> tuple[int, ...] | None:
+    """The mesh index whose work runs now (:func:`on_entry`), or None."""
+    return _ENTRY.get()
+
+
+@contextlib.contextmanager
+def on_entry(mesh: DeviceMesh, index: tuple[int, ...]):
+    """Run the enclosed work as mesh entry ``index``'s: its device's
+    context (:func:`device_context`), and :func:`current_entry` names it
+    (the dry-run's op counter charges the entry's device)."""
+    token = _ENTRY.set(tuple(index))
+    try:
+        with device_context(mesh.devices[tuple(index)]):
+            yield
+    finally:
+        _ENTRY.reset(token)
 
 
 class ShardedParams(NamedTuple):
@@ -157,7 +225,7 @@ def make_step(mesh: DeviceMesh, axis: str, ring_len: int, dt: float):
         slot = t % ring_len
         rows = []
         for k, (p, v_s, u_s, ring) in enumerate(shards):
-            with device_context(devices[k]):
+            with on_entry(mesh, (k,)):
                 i_syn = ring[slot].to(f32, copy=True)
                 ring[slot] = 0
                 v = v_s.to(f32)
@@ -177,8 +245,10 @@ def make_step(mesh: DeviceMesh, axis: str, ring_len: int, dt: float):
                 u_s.copy_(u)
         # The exchange: the global spike bitmap on every distinct device.
         gathered = {d: torch.cat([r.to(d) for r in rows]) for d in mesh.distinct}
+        row_bytes = [r.numel() * r.element_size() for r in rows]
+        note_collective("all-gather", {(k,): sum(row_bytes) - b for k, b in enumerate(row_bytes)})
         for k, (p, _, _, ring) in enumerate(shards):
-            with device_context(devices[k]):
+            with on_entry(mesh, (k,)):
                 spikes = gathered[devices[k]]
                 contrib = spikes[p.idx].to(f32) * p.w.to(f32)  # [n_local, fanin]
                 dslot = (t + p.delay) % ring_len
@@ -258,13 +328,29 @@ def build_sharded(
     stim_frac: float = 0.05,
     stim_rate_hz: float = 300.0,
     stim_ms: float = 15.0,
+    as_specs: bool = False,
 ) -> ShardedSNN:
     """A random balanced network (synfire-like statistics), the
     reference's: the same numpy draws from ``default_rng(seed)`` give the
-    same connectivity, and the key is ``seed``'s."""
+    same connectivity, and the key is ``seed``'s. With ``as_specs`` every
+    tensor is an empty one of its shape and dtype on the ``meta`` device
+    (nothing drawn or allocated), the dry-run's network of 1M+ neurons."""
     k = mesh.shape[axis]
     n = ((n_neurons + k - 1) // k) * k  # pad to a shard multiple
     ring_len = max_delay + 1
+    if as_specs:
+        def spec(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        params = ShardedParams(
+            *(spec((n,), f32) for _ in range(4)), is_gen=spec((n,), torch.bool),
+            gen_rate=spec((n,), f32), gen_until=spec((n,), f32),
+            gen_rate_after=spec((n,), f32), idx=spec((n, fanin), torch.int32),
+            w=spec((n, fanin), weight_dtype), delay=spec((n, fanin), torch.int32))
+        state = ShardedState(t=0, key=spec((2,), torch.int32), v=spec((n,), state_dtype),
+                             u=spec((n,), state_dtype), ring=spec((ring_len, n), state_dtype))
+        return ShardedSNN(mesh=mesh, axis=axis, n=n, fanin=fanin, ring_len=ring_len, dt=1.0,
+                          params=params, state=state)
     dev = mesh.devices[0]
     r = np.random.default_rng(seed)
 

@@ -42,14 +42,15 @@ def reset_launches() -> None:
 
 def _on_card(name: str, *tensors: torch.Tensor) -> bool:
     """True for CUDA tensors (all contiguous, on the current card), False
-    for CPU tensors; raises on anything else. The kernels launch on the
-    current card's context, so tensors on another card raise instead of
-    launching there."""
+    for CPU tensors and for ``meta`` ones (shapes only: the dry-run counts
+    the plain versions' operations there); raises on anything else. The
+    kernels launch on the current card's context, so tensors on another
+    card raise instead of launching there."""
     dev = tensors[0].device
     if any(t.device != dev for t in tensors):
         raise ValueError(f"{name}: tensors on different devices "
                          f"{sorted({str(t.device) for t in tensors})}")
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return False
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")

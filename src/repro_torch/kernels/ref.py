@@ -628,7 +628,7 @@ def chunked_attention_bwd_ref(q, k, v, qpos, kpos, out, lse, dout, *, causal: bo
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf)
     dv = torch.einsum("bhgqk,bqhgd->bkhd", p, go)
     nokey = (ls == NEG_INF).permute(0, 3, 1, 2)  # [b, sq, hkv, g]
-    if bool(nokey.any()):
+    if nokey.is_meta or bool(nokey.any()):  # meta: shapes only, counted as taken
         extra = torch.where(nokey[..., None], go, 0.0).sum(dim=(1, 3)) / pad_den  # [b, hkv, d]
         dv = dv + extra[:, None]
     return dq * scale, dk, dv

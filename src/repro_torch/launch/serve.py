@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.configs import get_arch, reduce_arch
 from repro_torch.core.network import _resolve_device
+from repro_torch.launch.sharded import Sharded, gather
 from repro_torch.models import transformer as tf
 from repro_torch.models.tasks import make_decode_step, make_prefill_step
 from repro_torch.precision import POLICIES, get_policy
@@ -42,17 +43,27 @@ def _clock(device: torch.device) -> float:
     return time.perf_counter()
 
 
+def _whole(x):
+    """A sharded output gathered onto the mesh's first device."""
+    return gather(x) if isinstance(x, Sharded) else x
+
+
 @torch.inference_mode()
 def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 32,
           policy_name: str = "fp16", reduced: bool = True, seed: int = 0,
           capacity: int | None = None, params: tf.Transformer | None = None,
-          device=None) -> dict:
+          device=None, mesh=None) -> dict:
     """Serve ``batch`` random prompts of ``prompt_len`` tokens and decode
     ``gen`` tokens greedily (the first from the prefill's logits). Runs on
     the card unless ``device`` says otherwise (``params``, when given,
-    must lie there). Returns the generated ``tokens`` ``[batch, gen]``
-    (numpy), ``prefill_s``, ``decode_s`` (the ``gen - 1`` decode steps),
-    ``decode_tok_s`` and ``batch``."""
+    must lie there). With ``mesh`` (a device-list mesh; ``device`` then
+    defaults to its first device) the params are held per ``param_pspec``
+    and the cache per ``cache_pspec``, and prefill and decode run over the
+    mesh's lowering (``models/tasks``). Returns the generated ``tokens``
+    ``[batch, gen]`` (numpy), ``prefill_s``, ``decode_s`` (the ``gen - 1``
+    decode steps), ``decode_tok_s`` and ``batch``."""
+    if device is None and mesh is not None:
+        device = mesh.devices.flat[0]
     device = _resolve_device(device)
     cfg = get_arch(arch)
     if cfg.frontend == "vision":
@@ -69,19 +80,25 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 32,
     prompts = torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (batch, prompt_len)).astype(np.int64)).to(device)
 
-    prefill = make_prefill_step(cfg, policy, collect_cache=True, cache_len=capacity)
-    decode = make_decode_step(cfg, policy)
+    if mesh is None:
+        prefill = make_prefill_step(cfg, policy, collect_cache=True, cache_len=capacity)
+        decode = make_decode_step(cfg, policy)
+    else:
+        params = tf.params_tree(params)
+        prefill = make_prefill_step(cfg, policy, mesh=mesh, seq_shard=False,
+                                    collect_cache=True, cache_len=capacity)
+        decode = make_decode_step(cfg, policy, mesh=mesh)
 
     t0 = _clock(device)
     logits, cache = prefill(params, {"tokens": prompts})
     t_prefill = _clock(device) - t0
 
-    token = torch.argmax(logits, dim=-1)[:, None]
+    token = torch.argmax(_whole(logits), dim=-1)[:, None]
     generated = [token]
     t0 = _clock(device)
     for i in range(gen - 1):
         logits, cache = decode(params, cache, token, prompt_len + i)
-        token = torch.argmax(logits, dim=-1)[:, None]
+        token = torch.argmax(_whole(logits), dim=-1)[:, None]
         generated.append(token)
     t_decode = _clock(device) - t0
 

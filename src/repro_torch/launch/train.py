@@ -34,11 +34,17 @@ __all__ = ["train"]
 def train(arch: str, *, steps: int = 200, global_batch: int = 8, seq_len: int = 128,
           policy_name: str = "fp16", reduced: bool = True, ckpt_dir: str | None = None,
           ckpt_interval: int = 50, lr: float = 1e-3, seed: int = 0, log_every: int = 10,
-          straggler_factor: float = 3.0, device=None) -> dict:
+          straggler_factor: float = 3.0, device=None, mesh=None) -> dict:
     """Train ``steps`` steps (resuming from ``ckpt_dir``'s latest step) and
     return ``first_loss``, ``final_loss``, ``losses`` (the steps run here),
     ``times`` (host seconds per step, each ending with the loss read back)
-    and ``state``. ``device`` None is the card, raising without one."""
+    and ``state``. ``device`` None is the card, raising without one (with
+    ``mesh``: its first device). With ``mesh`` (a device-list mesh,
+    ``launch/mesh.make_host_mesh``) the step runs over the mesh's lowering
+    (``models/tasks.make_train_step(mesh=)``) and ``state`` comes back
+    sharded; checkpoints gather it into the same file format."""
+    if device is None and mesh is not None:
+        device = mesh.devices.flat[0]
     device = _resolve_device(device)
     cfg = get_arch(arch)
     if cfg.frontend == "vision":
@@ -58,7 +64,8 @@ def train(arch: str, *, steps: int = 200, global_batch: int = 8, seq_len: int = 
             start = last
             print(f"resumed from step {last}")
 
-    step_fn = make_train_step(cfg, policy, opt_cfg=opt_cfg, ce_chunk=min(512, seq_len))
+    step_fn = make_train_step(cfg, policy, mesh=mesh, seq_shard=mesh is not None,
+                              opt_cfg=opt_cfg, ce_chunk=min(512, seq_len))
     stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=seq_len,
                          global_batch=global_batch, seed=seed)
 

@@ -110,19 +110,23 @@ def _experts(p, buf: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return out.reshape(e, b, c, d).transpose(0, 1)
 
 
-def moe_apply(p, x: torch.Tensor, cfg: ArchConfig,
-              act_to: torch.dtype | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_apply(p, x: torch.Tensor, cfg: ArchConfig, act_to: torch.dtype | None = None, *,
+              stats: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """x ``[B, S, D]`` -> ``(out [B, S, D], aux)``, out in the activation
     dtype ``act_to``, aux the Switch load-balance loss ``E * sum_e frac_e *
-    mean_prob_e`` (f32 scalar). Dispatch is per sequence, with capacity
-    ``ceil(S k / E cf)``."""
+    mean_prob_e`` (f32 scalar), or with ``stats`` its two factors
+    ``[frac, mean_prob]`` (``[2, E]``, means over B and S). Dispatch is per
+    sequence, with capacity ``ceil(S k / E cf)``."""
     m = cfg.moe
     b, s, d = x.shape
     e, k = m.n_experts, m.top_k
     cap = int(math.ceil(s * k / e * m.capacity_factor))
     probs, eids, gates = route(p, x, cfg, act_to)
     frac = F.one_hot(eids, e).to(f32).sum(dim=2).mean(dim=(0, 1))
-    aux = e * torch.sum(frac * probs.mean(dim=(0, 1)))
+    if stats:
+        aux = torch.stack([frac, probs.mean(dim=(0, 1))])
+    else:
+        aux = e * torch.sum(frac * probs.mean(dim=(0, 1)))
 
     dp = dispatch_plan(eids, e, cap)
     xf = x.to(f32)

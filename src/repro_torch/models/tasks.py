@@ -1,9 +1,10 @@
-"""Step functions: train, prefill and decode (``repro/models/tasks.py``).
+"""Task builders: train, prefill and decode steps per (arch x shape)
+(``repro/models/tasks.py``).
 
 ``make_*_step`` return plain functions of the model (or the train state)
-and its inputs. There is no mesh and no sharding yet: ``build_task``,
-``input_specs``, ``train_state_specs`` and ``make_train_step(mesh=)`` come
-with the LM mesh (ROADMAP A12d).
+and its inputs; :func:`build_task` assembles a cell's :class:`Task` (the
+step, its inputs as ``meta`` tensors, nothing allocated, and the
+shardings of its arguments and outputs on a mesh).
 
 A train state is the reference's tree: ``params`` (the storage dtype),
 ``master`` (the f32 masters, or None where the policy keeps none), ``opt``
@@ -15,25 +16,89 @@ stacked ``[L, ...]``, or the hybrid's tuple of per-layer trees), so
 dtypes. Under the vision frontend a batch carries ``patch_embeds`` and
 M-RoPE ``positions`` beside its text ``tokens``, and the loss runs over
 the text positions only.
+
+**On a mesh** (``mesh=``, a device list: ``launch/mesh.make_host_mesh``),
+the reference jits its step with in/out shardings and leaves the
+collectives to GSPMD; one PyTorch process has none, so the port lowers
+the step itself over :mod:`repro_torch.launch.mesh`'s sharded tensors:
+
+- *State.* Every leaf of ``params``, ``master``, ``opt.m`` and ``opt.v``
+  is held as blocks per :func:`_state_pspecs` (the parameter rules,
+  fitted); scalars are replicated, a copy per entry.
+- *Compute* is data-parallel over the data axes. Each data index takes its
+  rows of the batch (``batch_pspecs``; a batch the data axes do not divide
+  is one data index's); its model-rank-0 entry casts nothing itself: the
+  masters are cast to the storage dtype on their owners and all-gathered
+  onto it, so the gather moves storage bytes (the reference's pinned
+  cast). It then runs the forward and backward, B7 and ``flash_attn_bwd``
+  on the card.
+- *Loss.* Each data index's masked NLL sum, added in data-index order
+  (an all-reduce) and divided by the global mask count: ``chunked_ce``
+  over the whole batch. The MoE load-balance loss is not additive over
+  rows, so its routing statistics are averaged over the data indices
+  first (:func:`repro_torch.models.transformer.aux_loss`). Each data
+  index's backward starts from the cotangents of that global loss.
+- *Gradients* are cast to f32 and reduce-scattered straight into the
+  master layout in data-index order; then the finite check over all
+  blocks (one replicated flag), the global norm summed leaf by leaf in the
+  single-device step's leaf order, AdamW on each block on its owner, the
+  scale update, and the new params cast to storage on the owners.
+  ``microbatch`` slices the global batch as on one device (each data
+  index all-gathers the batch and takes its rows of each slice).
+- *Serving* (``make_prefill_step(mesh=)``, the decode task): params held
+  per ``param_pspec``, the KV/SSM cache per ``cache_pspec``; each data
+  index gathers the params and its rows of the cache and inputs, steps,
+  and scatters its rows of the logits and the cache back to its group.
+- ``seq_shard`` is recorded: in the reference it is a layout constraint
+  on the residual stream that changes no number, and here it changes
+  nothing until model-axis compute (Megatron splits, a sequence-sharded
+  residual stream) exists; the ``model`` axis holds state, not work.
+
+On a mesh of ``meta`` devices (the dry-run) one data index computes and
+the others contribute its tensors: every collective still runs, and is
+counted, for each.
 """
 from __future__ import annotations
+
+import dataclasses
+import itertools
+from typing import Any, Callable
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.core.distributed import on_entry
+from repro_torch.launch import mesh as meshlib
+from repro_torch.launch import sharded as sh
+from repro_torch.launch.mesh import NamedSharding, P
+from repro_torch.launch.sharded import Sharded
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import act_dtype, dense
 from repro_torch.optim.adamw import (
-    AdamWConfig, adamw_init, adamw_update, scale_init, scale_update,
+    AdamWConfig, OptState, ScaleState, adamw_init, adamw_update, scale_init, scale_update,
+    step_scalars, update_leaf,
 )
 from repro_torch.precision import PrecisionPolicy, get_policy
 from repro_torch.precision.policy import _flatten, tree_leaves, tree_map
 
-__all__ = ["make_prefill_step", "make_decode_step", "make_train_step", "init_train_state",
-           "chunked_ce"]
+__all__ = ["Task", "build_task", "input_specs", "train_state_specs", "make_prefill_step",
+           "make_decode_step", "make_train_step", "init_train_state", "chunked_ce"]
 
 f32 = torch.float32
+
+
+def _targets(cfg: ArchConfig, full: dict, h: torch.Tensor):
+    """``(h, targets, mask)`` of the loss: next-token targets with the last
+    position masked, over the text positions only under the vision
+    frontend."""
+    tokens = full["tokens"]
+    if cfg.frontend == "vision":
+        h = h[:, cfg.n_patches:]  # the loss runs over the text positions only
+    targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
+    mask = torch.cat([torch.ones(tokens[:, 1:].shape, dtype=f32, device=tokens.device),
+                      torch.zeros(tokens[:, :1].shape, dtype=f32, device=tokens.device)], dim=1)
+    return h, targets, mask
 
 
 def _fill_positions(cfg: ArchConfig, batch: dict) -> dict:
@@ -68,21 +133,34 @@ def chunked_ce(model, cfg: ArchConfig, h: torch.Tensor, targets: torch.Tensor,
     :func:`~repro_torch.models.transformer.params_view`) in the activation
     dtype ``act_to``, then f32; the masked sum over the chunks in order,
     divided by ``max(sum(mask), 1)``."""
-    b, s, d = h.shape
+    nll, count = _ce_parts(model, cfg, h, targets, mask, chunk=chunk, act_to=act_to)
+    return nll / torch.clamp(count, min=1.0)
+
+
+def _ce_sum(model, cfg: ArchConfig, h, targets, mask, c: int, act_to) -> torch.Tensor:
+    """The masked NLL summed over chunks of ``c`` positions in order, f32
+    (the inputs padded to a multiple of ``c``)."""
+    w = model.embed.T if cfg.tie_embeddings else model.lm_head
+    total = torch.zeros((), dtype=f32, device=h.device)
+    for i in range(0, h.shape[1], c):
+        total = total + checkpoint(_ce_chunk, h[:, i:i + c], w, targets[:, i:i + c],
+                                   mask[:, i:i + c], act_to, use_reentrant=False,
+                                   preserve_rng_state=False)
+    return total
+
+
+def _ce_parts(model, cfg: ArchConfig, h, targets, mask, *, chunk: int, act_to):
+    """``(nll sum, mask count)`` of :func:`chunked_ce`: a data index's
+    share of the global loss."""
+    s = h.shape[1]
     c = min(chunk, s)
     pad = -s % c
-    mask_sum = torch.sum(mask)
+    count = torch.sum(mask)
     if pad:
         h = torch.nn.functional.pad(h, (0, 0, 0, pad))
         targets = torch.nn.functional.pad(targets, (0, pad))
         mask = torch.nn.functional.pad(mask, (0, pad))
-    w = model.embed.T if cfg.tie_embeddings else model.lm_head
-    total = torch.zeros((), dtype=f32, device=h.device)
-    for i in range(0, s + pad, c):
-        total = total + checkpoint(_ce_chunk, h[:, i:i + c], w, targets[:, i:i + c],
-                                   mask[:, i:i + c], act_to, use_reentrant=False,
-                                   preserve_rng_state=False)
-    return total / torch.clamp(mask_sum, min=1.0)
+    return _ce_sum(model, cfg, h, targets, mask, c, act_to), count
 
 
 # -- train state -----------------------------------------------------------------------
@@ -109,12 +187,54 @@ def init_train_state(cfg: ArchConfig, policy: PrecisionPolicy, seed: int = 0,
     }
 
 
+def train_state_specs(cfg: ArchConfig, policy: PrecisionPolicy) -> dict:
+    """The train state's tree on the ``meta`` device (leaf names, shapes
+    and dtypes; nothing drawn or allocated), from :func:`init_train_state`
+    itself: the counterpart of the reference's ``jax.eval_shape``."""
+    return init_train_state(cfg, policy, device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    """The model inputs of a cell as ``meta`` tensors, the reference's
+    dtypes: int32 tokens (``[B, 1]`` and a scalar ``pos`` for decode), bf16
+    ``patch_embeds`` and int32 M-RoPE ``positions`` under the vision
+    frontend."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def spec(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.kind == "decode":
+        return {"token": spec((b, 1), torch.int32), "pos": spec((), torch.int32)}
+    if cfg.frontend == "vision":
+        p = cfg.n_patches
+        return {"tokens": spec((b, s - p), torch.int32),
+                "patch_embeds": spec((b, p, cfg.d_model), torch.bfloat16),
+                "positions": spec((b, s, 3), torch.int32)}
+    return {"tokens": spec((b, s), torch.int32)}
+
+
+def _state_pspecs(state_specs, mesh):
+    """The specs of a train state's leaves: ``params`` and ``master`` by the
+    parameter rules, ``opt.m`` and ``opt.v`` likewise (their leading keys
+    dropped), everything else replicated; each fitted to the mesh."""
+    def rule(keys, leaf, m):
+        if keys and keys[0] in ("params", "master"):
+            return meshlib.param_pspec(keys[1:], leaf, m)
+        if len(keys) > 1 and keys[0] == "opt" and keys[1] in ("m", "v"):
+            return meshlib.param_pspec(keys[2:], leaf, m)
+        return P()
+
+    return meshlib.tree_pspecs(state_specs, mesh, rule=rule)
+
+
 # -- step functions ----------------------------------------------------------------------
 
 
-def make_train_step(cfg: ArchConfig, policy: PrecisionPolicy, *, remat: bool = True,
-                    microbatch: int = 1, opt_cfg: AdamWConfig = AdamWConfig(),
-                    aux_weight: float = 0.01, ce_chunk: int = 512):
+def make_train_step(cfg: ArchConfig, policy: PrecisionPolicy, *, mesh=None,
+                    seq_shard: bool = True, remat: bool = True, microbatch: int = 1,
+                    opt_cfg: AdamWConfig = AdamWConfig(), aux_weight: float = 0.01,
+                    ce_chunk: int = 512):
     """``train_step(state, batch)`` -> ``(state, metrics)``, as the
     reference's: the loss of the masters cast to the storage dtype (whose
     backward rounds each gradient to that dtype: loss scaling guards it),
@@ -126,23 +246,24 @@ def make_train_step(cfg: ArchConfig, policy: PrecisionPolicy, *, remat: bool = T
     Metrics: ``loss``, ``grad_norm``, ``loss_scale`` and ``skipped`` (0-d
     f32 tensors on the state's device). Attention runs B7 and the
     ``flash_attn_bwd`` kernel on the card (``ops.AttentionFn``), their
-    plain versions on the CPU."""
+    plain versions on the CPU. With ``mesh`` the step runs over the mesh's
+    lowering (the module's docstring): ``state`` and ``batch`` may be
+    tensors or :class:`~repro_torch.launch.sharded.Sharded` trees, the state
+    comes back laid out per :func:`_state_pspecs`, the metrics on the
+    mesh's first device. ``seq_shard`` changes no number (recorded only)."""
     if isinstance(policy, str):
         policy = get_policy(policy)
     act_to = act_dtype(policy.compute)
+    if mesh is not None:
+        return _sharded_train_step(cfg, policy, mesh, remat=remat, microbatch=microbatch,
+                                   opt_cfg=opt_cfg, aux_weight=aux_weight, ce_chunk=ce_chunk)
 
     def loss_fn(master, batch, scale):
         params = tree_map(lambda x: x.to(policy.param_storage), master)
         model = tf.params_view(cfg, params)
         full = _fill_positions(cfg, batch)
         h, aux = tf.forward(model, full, act_to=act_to, remat=remat)
-        tokens = full["tokens"]
-        if cfg.frontend == "vision":
-            h = h[:, cfg.n_patches:]  # the loss runs over the text positions only
-        targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
-        mask = torch.cat([torch.ones(tokens[:, 1:].shape, dtype=f32, device=tokens.device),
-                          torch.zeros(tokens[:, :1].shape, dtype=f32, device=tokens.device)],
-                         dim=1)
+        h, targets, mask = _targets(cfg, full, h)
         loss = chunked_ce(model, cfg, h, targets, mask, chunk=ce_chunk, act_to=act_to)
         loss = loss + aux_weight * aux
         return loss * scale, loss
@@ -189,13 +310,23 @@ def make_train_step(cfg: ArchConfig, policy: PrecisionPolicy, *, remat: bool = T
     return train_step
 
 
-def make_prefill_step(cfg: ArchConfig, policy: PrecisionPolicy, *,
-                      collect_cache: bool = False, cache_len: int = 0):
+def make_prefill_step(cfg: ArchConfig, policy: PrecisionPolicy, *, mesh=None,
+                      seq_shard: bool = True, collect_cache: bool = False,
+                      cache_len: int = 0):
     """``prefill_step(model, batch)`` -> last-position logits ``[B, V]``
     (and, with ``collect_cache``, the decode cache of ``cache_len`` slots
     in the policy's state storage dtype). Activations run in the policy's
-    compute dtype, as the reference's step sets them."""
+    compute dtype, as the reference's step sets them. With ``mesh``,
+    ``model`` is a parameter tree (``params_tree``'s layout; tensors or
+    :class:`~repro_torch.launch.sharded.Sharded`, laid out per
+    ``param_pspec``) and the step runs over the mesh's lowering: logits
+    laid out per ``P(data, "model")`` and the cache per ``cache_pspec``,
+    both fitted; ``seq_shard`` changes no number (recorded only)."""
     act_to = act_dtype(policy.compute)
+    if mesh is not None:
+        single = make_prefill_step(cfg, policy, collect_cache=collect_cache,
+                                   cache_len=cache_len)
+        return _sharded_prefill_step(cfg, mesh, single, collect_cache)
 
     def prefill_step(model: tf.Transformer, batch: dict):
         full = _fill_positions(cfg, batch)
@@ -209,12 +340,420 @@ def make_prefill_step(cfg: ArchConfig, policy: PrecisionPolicy, *,
     return prefill_step
 
 
-def make_decode_step(cfg: ArchConfig, policy: PrecisionPolicy):
+def make_decode_step(cfg: ArchConfig, policy: PrecisionPolicy, *, mesh=None):
     """``decode_fn(model, cache, token, pos)`` -> ``(logits, cache)``,
-    activations in the policy's compute dtype."""
+    activations in the policy's compute dtype. With ``mesh`` (the port's:
+    the reference's decode takes its layout from ``jit``), ``model`` is a
+    parameter tree and the step runs over the mesh's lowering, the cache
+    laid out per ``cache_pspec``."""
     act_to = act_dtype(policy.compute)
+    if mesh is not None:
+        return _sharded_decode_step(cfg, policy, mesh)
 
     def decode_fn(model: tf.Transformer, cache: dict, token: torch.Tensor, pos: int):
         return tf.decode_step(model, cache, token, pos, act_to)
 
     return decode_fn
+
+
+# -- the mesh lowering ------------------------------------------------------------------
+
+
+def _groups(mesh) -> list[tuple]:
+    """Each data index's compute entry (model rank 0), in data-index order
+    (row-major over the data axes, as the batch dim's blocks)."""
+    d = meshlib.data_axes(mesh)
+    sizes = mesh.shape
+    out = []
+    for coords in itertools.product(*(range(sizes[a]) for a in d)):
+        at = dict(zip(d, coords))
+        out.append(tuple(at.get(a, 0) for a in mesh.axis_names))
+    return out
+
+
+def _dry(mesh) -> bool:
+    """A mesh of ``meta`` devices: one data index computes for all."""
+    return all(dev.type == "meta" for dev in mesh.devices.flat)
+
+
+def _place(tree, specs, mesh):
+    """``tree`` laid out per ``specs`` (tensors sharded, Sharded leaves kept
+    or re-laid out)."""
+    return sh.shard_tree(tree, meshlib.named(specs, mesh))
+
+
+def _blockwise(x: Sharded, fn) -> Sharded:
+    """``fn`` of every block on its owner, as a Sharded of x's layout."""
+    mesh = x.mesh
+    blocks = x.blocks.copy()
+    for e in sh.entries(mesh):
+        with on_entry(mesh, e):
+            blocks[e] = fn(x.blocks[e])
+    return Sharded(x.sharding, x.shape, blocks.flat[0].dtype, blocks)
+
+
+def _replicated(value: torch.Tensor, mesh) -> Sharded:
+    """A scalar computed once (from replicated inputs) held by every entry."""
+    sharding = NamedSharding(mesh, P())
+    blocks = sh.blocks_of(mesh, lambda e: value.to(mesh.devices[e], copy=True))
+    return Sharded(sharding, tuple(value.shape), value.dtype, blocks)
+
+
+def _first(x: Sharded) -> torch.Tensor:
+    return x.blocks.flat[0]
+
+
+def _split(b: int, mesh) -> int:
+    """How many data indices share ``b`` rows: all of them where they
+    divide it, else one (as ``fit_spec`` leaves such a batch whole)."""
+    n = len(_groups(mesh))
+    return n if b % n == 0 else 1
+
+
+def _sharded_train_step(cfg, policy, mesh, *, remat, microbatch, opt_cfg, aux_weight,
+                        ce_chunk):
+    act_to = act_dtype(policy.compute)
+    d_axes = meshlib.data_axes(mesh)
+    groups = _groups(mesh)
+    dry = _dry(mesh)
+
+    def group_loss(leaves, rebuild, rows):
+        model = tf.params_view(cfg, rebuild(leaves))
+        full = _fill_positions(cfg, rows)
+        h, stats = tf.forward(model, full, act_to=act_to, remat=remat, aux_stats=True)
+        h, targets, mask = _targets(cfg, full, h)
+        nll, count = _ce_parts(model, cfg, h, targets, mask, chunk=ce_chunk, act_to=act_to)
+        return nll, count, stats
+
+    def global_loss(src_entries, outs, scale):
+        """The loss from every data index's (nll, count, stats), detached
+        copies taking the gradient; returns (loss, scaled, their inputs)."""
+        with torch.enable_grad():
+            ins = [[t.detach().requires_grad_() for t in (nll, *stats)] for nll, _, stats in outs]
+            nll = sh.all_reduce([(e, x[0]) for e, x in zip(src_entries, ins)])
+            count = sh.all_reduce([(e, o[1]) for e, o in zip(src_entries, outs)])
+            loss = nll / torch.clamp(count, min=1.0)
+            dev = loss.device
+            if cfg.moe is not None:
+                n = len(outs)
+                means = [sh.all_reduce([(e, x[1 + i]) for e, x in zip(src_entries, ins)])
+                         / n for i in range(len(outs[0][2]))]
+                aux = tf.aux_loss(cfg, means, dev)
+            else:
+                aux = torch.zeros((), dtype=f32, device=dev)
+            loss = loss + aux_weight * aux
+            scaled = loss * scale.to(dev)
+        return loss, scaled, ins
+
+    def data_parallel_grads(master_storage, rebuild, batch, scale, src, run):
+        """Every data index's f32 gradients (summed over the microbatches)
+        of the global loss, on its compute entry, and the loss."""
+        every = tuple(mesh.axis_names)
+        gathered = {}
+        for e in src:
+            got = [sh.all_gather(x, e, every)[0] for x in master_storage]
+            if e in run:
+                with on_entry(mesh, e):
+                    gathered[e] = [t.requires_grad_() for t in got]
+        leaves, rebuild_batch = _flatten(batch)
+        b = leaves[0].shape[0]
+        if microbatch > 1:  # each data index takes its rows of every slice
+            whole = {e: [sh.all_gather(x, e, every)[0] for x in leaves] for e in src}
+        row_axes = meshlib.model_axes(mesh)
+        acc, loss_sum = {}, None
+        for i in range(microbatch):
+            outs = []
+            for gi, e in enumerate(src):
+                if microbatch > 1:
+                    per = b // microbatch // len(src)
+                    lo = i * (b // microbatch) + gi * per
+                    rows = rebuild_batch([t[lo:lo + per] for t in whole[e]])
+                else:  # its group's blocks over `model` (the whole batch if unsplit)
+                    rows = rebuild_batch([sh.all_gather(x, e, row_axes)[0] for x in leaves])
+                if e not in run:
+                    outs.append(outs[0])
+                    continue
+                with on_entry(mesh, e), torch.enable_grad():
+                    outs.append(group_loss(gathered[e], rebuild, rows))
+            with on_entry(mesh, run[0]):
+                loss, scaled, ins = global_loss(src, outs, scale)
+                cot = torch.autograd.grad(scaled, [t for x in ins for t in x])
+            loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
+            k = 0
+            for e, (nll, _, stats), x in zip(src, outs, ins):
+                d_out, k = cot[k:k + len(x)], k + len(x)
+                if e not in run:
+                    continue
+                with on_entry(mesh, e):
+                    grads = torch.autograd.grad([nll, *stats], gathered[e], grad_outputs=d_out)
+                    grads = [g.to(f32) for g in grads]
+                    acc[e] = [a + g for a, g in zip(acc[e], grads)] if e in acc else grads
+        return acc, (loss_sum / microbatch if microbatch > 1 else loss_sum)
+
+    def update(state, master_leaves, grads, finite):
+        """AdamW on every block on its owner, the global norm summed leaf by
+        leaf, the scale update and the new params cast on the owners."""
+        entries = sh.entries(mesh)
+        sq = None
+        for g in grads:  # the single-device step's leaf order
+            parts = []
+            for e in g.distinct():
+                with on_entry(mesh, e):
+                    parts.append((e, torch.sum(torch.square(g.blocks[e].to(f32)))))
+            leaf = sh.all_reduce(parts)
+            sq = leaf if sq is None else sq + leaf.to(sq.device)
+        gnorm = torch.sqrt(sq)
+        skip = ~finite
+        opt = state["opt"]
+        sc = step_scalars(opt_cfg, _first(opt.step), gnorm)
+        new = ([], [], [])  # m, v, masters
+        for g, m, v, p in zip(grads, tree_leaves(opt.m), tree_leaves(opt.v), master_leaves):
+            blocks = [p.blocks.copy() for _ in range(3)]
+            for e in entries:
+                with on_entry(mesh, e):
+                    dev = mesh.devices[e]
+                    out = update_leaf(opt_cfg, type(sc)(*(t.to(dev) for t in sc)), g.blocks[e],
+                                      m.blocks[e], v.blocks[e], p.blocks[e], skip.to(dev))
+                for k in range(3):
+                    blocks[k][e] = out[k]
+            for k in range(3):
+                new[k].append(Sharded(p.sharding, p.shape, f32, blocks[k]))
+        new_scale = scale_update(ScaleState(*(_first(t) for t in state["scale"])), finite)
+        step = torch.where(skip, _first(opt.step), sc.step)
+        _, rebuild = _flatten(state["params"])
+        return {
+            "params": rebuild([_blockwise(x, lambda t: t.to(policy.param_storage))
+                               for x in new[2]]),
+            "master": rebuild(new[2]) if state["master"] is not None else None,
+            "opt": OptState(m=rebuild(new[0]), v=rebuild(new[1]), step=_replicated(step, mesh)),
+            "scale": ScaleState(*(_replicated(t, mesh) for t in new_scale)),
+        }, gnorm, new_scale
+
+    def train_step(state: dict, batch: dict):
+        state = _place(state, _state_pspecs(state, mesh), mesh)
+        batch = _place(batch, meshlib.batch_pspecs(batch, mesh), mesh)
+        master = state["master"] if state["master"] is not None else state["params"]
+        m_leaves, rebuild = _flatten(master)
+        b = next(iter(batch.values())).shape[0]
+        src = groups[:_split(b // microbatch, mesh)]
+        run = src[:1] if dry else src
+        # The pinned cast on the owners: the gathers move storage bytes.
+        storage = [_blockwise(x, lambda t: t.to(policy.param_storage)) for x in m_leaves]
+        scale0 = _first(state["scale"].scale)  # replicated: every owner holds this value
+        acc, loss = data_parallel_grads(storage, rebuild, batch, scale0, src, run)
+        # Gradients reduce-scattered into the master layout, in data-index order.
+        grads = []
+        for j, x in enumerate(m_leaves):
+            whole = tuple(slice(0, n) for n in x.shape)
+            parts = [(e, whole, acc[e if e in acc else run[0]][j]) for e in src]
+            g = sh.reduce_scatter(parts, x.sharding, x.shape, d_axes)
+            if microbatch > 1:
+                g = _blockwise(g, lambda t: t / microbatch)
+            grads.append(_blockwise(g, lambda t: t / scale0.to(t.device)))
+        flags = []
+        for e in sh.entries(mesh):
+            with on_entry(mesh, e):
+                flags.append((e, torch.stack([torch.isfinite(g.blocks[e]).all()
+                                              for g in grads]).all()))
+        finite = sh.all_reduce(flags, op="all")
+        new_state, gnorm, new_scale = update(state, m_leaves, grads, finite)
+        metrics = {"loss": loss, "grad_norm": gnorm, "loss_scale": new_scale.scale,
+                   "skipped": (~finite).to(f32)}
+        return new_state, metrics
+
+    return train_step
+
+
+def _write_back(mesh, parts: list, spec: P, shape: tuple, n_src: int) -> Sharded:
+    """The data indices' outputs (``[(entry, region, tensor)]``) laid out
+    per ``spec``: each group's rows scattered to its entries (over every
+    axis when one data index computed for all)."""
+    axes = meshlib.model_axes(mesh) if n_src > 1 else tuple(mesh.axis_names)
+    return sh.reduce_scatter(parts, NamedSharding(mesh, spec), shape, axes)
+
+
+def _region(spec: P, shape: tuple, mesh, entry, n_src: int) -> tuple:
+    """A data index's region of an output of ``shape``: its block along the
+    dims ``spec`` shards over the data axes, the rest whole."""
+    d = meshlib.data_axes(mesh)
+    whole = tuple(slice(0, n) for n in shape)
+    if n_src == 1:
+        return whole
+    blk = sh.block_slices(shape, spec, mesh, entry)
+    parts = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(b if meshlib.part_axes(p) == d else w for b, w, p in zip(blk, whole, parts))
+
+
+def _serve_groups(mesh, b: int):
+    n_src = _split(b, mesh)
+    src = _groups(mesh)[:n_src]
+    return n_src, src, (src[:1] if _dry(mesh) else src)
+
+
+def _gather_params(params, mesh, src, run):
+    """Each computing data index's whole parameter tree (storage dtype)."""
+    leaves, rebuild = _flatten(params)
+    out = {}
+    for e in src:
+        got = [sh.all_gather(x, e, tuple(mesh.axis_names))[0] for x in leaves]
+        if e in run:
+            out[e] = rebuild(got)
+    return out
+
+
+def _logits_spec(mesh, b: int, v: int) -> P:
+    return meshlib.fit_spec(P(meshlib.data_axes(mesh), "model"), (b, v), mesh)
+
+
+def _serve_step(cfg, mesh, params, inputs: list, step):
+    """A serving step over the mesh's lowering: ``params`` (laid out per
+    ``param_pspec``) gathered onto each computing data index's entry with
+    its rows of ``inputs`` (Sharded over the batch, or whole), where
+    ``step(model, rows)`` runs; returns ``(logits, cache)`` (cache None if
+    ``step`` gives none), each data index's rows sent back to its group:
+    the logits per ``P(data, "model")`` and the cache per ``cache_pspec``,
+    fitted."""
+    b = inputs[0].shape[0]
+    n_src, src, run = _serve_groups(mesh, b)
+    full = _gather_params(params, mesh, src, run)
+    axes = meshlib.model_axes(mesh)  # a cache's features lie over `model`
+    results = {}
+    for e in src:
+        rows = [sh.all_gather(x, e, axes)[0] for x in inputs]
+        if e in run:
+            with on_entry(mesh, e):
+                out = step(tf.params_view(cfg, full[e]), rows)
+            results[e] = out if isinstance(out, tuple) else (out, None)
+    results = {e: results.get(e, results[run[0]]) for e in src}
+    shape = (b, results[src[0]][0].shape[-1])
+    spec = _logits_spec(mesh, *shape)
+    logits = _write_back(mesh, [(e, _region(spec, shape, mesh, e, n_src), results[e][0])
+                                for e in src], spec, shape, n_src)
+    if results[src[0]][1] is None:
+        return logits, None
+    return logits, _cache_back(mesh, {e: results[e][1] for e in src}, src, n_src)
+
+
+def _sharded_prefill_step(cfg, mesh, single, collect_cache: bool):
+    def prefill_step(params, batch: dict):
+        params = _place(params, meshlib.tree_pspecs(params, mesh), mesh)
+        batch = _place(batch, meshlib.batch_pspecs(batch, mesh), mesh)
+        leaves, rebuild = _flatten(batch)
+        logits, cache = _serve_step(cfg, mesh, params, leaves,
+                                    lambda model, rows: single(model, rebuild(rows)))
+        return (logits, cache) if collect_cache else logits
+
+    return prefill_step
+
+
+def _cache_back(mesh, caches: dict, src, n_src: int):
+    """Every data index's rows of a decode cache laid out per
+    ``cache_pspec`` (fitted to the whole cache's shape)."""
+    first = caches[src[0]]
+    _, rebuild = _flatten(first)
+    per = {e: tree_leaves(caches[e]) for e in src}
+    out = []
+    for j, (keys, leaf) in enumerate(meshlib.key_paths(first)):
+        raw = meshlib.cache_pspec(keys, leaf, mesh)
+        shape = _global_shape(tuple(leaf.shape), raw, mesh, n_src)
+        spec = meshlib.fit_spec(raw, shape, mesh)
+        parts = [(e, _region(spec, shape, mesh, e, n_src), per[e][j]) for e in src]
+        out.append(_write_back(mesh, parts, spec, shape, n_src))
+    return rebuild(out)
+
+
+def _global_shape(local: tuple, spec: P, mesh, n_src: int) -> tuple:
+    """A data index's output shape grown back along its data-sharded dims."""
+    d = meshlib.data_axes(mesh)
+    parts = tuple(spec) + (None,) * (len(local) - len(spec))
+    return tuple(n * n_src if meshlib.part_axes(p) == d else n for n, p in zip(local, parts))
+
+
+def _sharded_decode_step(cfg, policy, mesh):
+    """``decode(params, cache, token, pos)`` -> ``(logits, cache)`` over the
+    mesh's lowering: params per ``param_pspec``, the cache per
+    ``cache_pspec``; each data index gathers the params and its rows of the
+    cache and tokens, steps, and its rows go back to its group."""
+    single = make_decode_step(cfg, policy)
+
+    def decode(params, cache, token, pos):
+        params = _place(params, meshlib.tree_pspecs(params, mesh), mesh)
+        cache = _place(cache, meshlib.tree_pspecs(cache, mesh, rule=meshlib.cache_pspec), mesh)
+        token = _place(token, meshlib.batch_pspecs(token, mesh), mesh)
+        leaves, rebuild = _flatten(cache)
+        return _serve_step(cfg, mesh, params, [token, *leaves], lambda model, rows: single(
+            model, rebuild(rows[1:]), rows[0], int(pos)))
+
+    return decode
+
+
+# -- cell assembly ---------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Task:
+    """A cell: ``fn`` (the step), ``args`` (its inputs as ``meta`` tensor
+    trees, one per positional argument), and the shardings of its
+    arguments and outputs (trees of
+    :class:`~repro_torch.launch.mesh.NamedSharding`)."""
+
+    name: str
+    kind: str  # train | prefill | decode
+    fn: Callable
+    args: tuple
+    in_shardings: tuple
+    out_shardings: Any
+    donate_argnums: tuple = ()
+    seq_shard: bool = True
+
+    def sharded(self) -> Callable:
+        """The step over the mesh's lowering, the counterpart of the
+        reference's ``jitted()``: it lays tensor arguments out per
+        ``in_shardings`` (``jit``'s ``device_put``; Sharded ones are kept,
+        or re-laid out), and its outputs come laid out per
+        ``out_shardings`` (metrics, replicated scalars, as tensors on the
+        mesh's first device)."""
+        return self.fn
+
+
+def build_task(cfg: ArchConfig, shape: ShapeConfig, mesh, policy: PrecisionPolicy | str = "fp16",
+               *, seq_shard: bool = True, microbatch: int | None = None,
+               ce_chunk: int = 512) -> Task:
+    """Assemble the (arch x shape) cell on ``mesh`` for the dry-run and the
+    drivers: the reference's tasks (training at the default
+    ``AdamWConfig``), shardings and meta inputs."""
+    if isinstance(policy, str):
+        policy = get_policy(policy)
+    d = meshlib.data_axes(mesh)
+    batch_specs = input_specs(cfg, shape)
+    batch_shard = meshlib.named(meshlib.batch_pspecs(batch_specs, mesh), mesh)
+    param_specs = tf.params_tree(tf.init_params(cfg, policy, device="meta"))
+    param_shard = meshlib.named(meshlib.tree_pspecs(param_specs, mesh), mesh)
+    name = f"{cfg.name}:{shape.name}"
+    b = shape.global_batch
+
+    if shape.kind == "train":
+        step = make_train_step(cfg, policy, mesh=mesh, seq_shard=seq_shard,
+                               microbatch=microbatch or 1, ce_chunk=ce_chunk)
+        state_specs = train_state_specs(cfg, policy)
+        state_shard = meshlib.named(_state_pspecs(state_specs, mesh), mesh)
+        metric_shard = {k: NamedSharding(mesh, P()) for k in
+                        ("loss", "grad_norm", "loss_scale", "skipped")}
+        return Task(name, "train", step, (state_specs, batch_specs),
+                    (state_shard, batch_shard), (state_shard, metric_shard), (0,), seq_shard)
+
+    logits_shard = NamedSharding(mesh, _logits_spec(mesh, b, cfg.vocab_size))
+    if shape.kind == "prefill":
+        step = make_prefill_step(cfg, policy, mesh=mesh, seq_shard=seq_shard)
+        return Task(name, "prefill", step, (param_specs, batch_specs),
+                    (param_shard, batch_shard), logits_shard, (), seq_shard)
+
+    step = make_decode_step(cfg, policy, mesh=mesh)
+    cache_specs = tf.init_cache(cfg, b, shape.seq_len, policy.state_storage, "meta")
+    cache_shard = meshlib.named(
+        meshlib.tree_pspecs(cache_specs, mesh, rule=meshlib.cache_pspec), mesh)
+    token_shard = NamedSharding(mesh, meshlib.fit_spec(P(d, None), (b, 1), mesh))
+    return Task(name, "decode", step,
+                (param_specs, cache_specs, batch_specs["token"], batch_specs["pos"]),
+                (param_shard, cache_shard, token_shard, NamedSharding(mesh, P())),
+                (logits_shard, cache_shard), (1,), seq_shard)

@@ -47,7 +47,7 @@ from repro_torch.models.moe import MoE, moe_apply
 from repro_torch.models.rglru import RGLRU, init_rglru_cache, rglru_apply, rglru_decode_step
 from repro_torch.precision import PrecisionPolicy
 
-__all__ = ["Block", "Transformer", "init_params", "forward", "lm_logits", "init_cache",
+__all__ = ["Block", "Transformer", "init_params", "forward", "aux_loss", "lm_logits", "init_cache",
            "decode_step", "params_tree", "params_view"]
 
 f32 = torch.float32
@@ -110,8 +110,13 @@ def init_params(cfg: ArchConfig, policy: PrecisionPolicy, *, seed: int = 0,
                 device=None) -> Transformer:
     """A randomly initialised model on ``device`` (None: the card, raising
     without one). The draws come from a CPU ``torch.Generator`` seeded with
-    ``seed``, so every device holds the same weights."""
+    ``seed``, so every device holds the same weights. On ``"meta"`` the
+    same modules hold empty tensors of their shapes and dtypes (the
+    dry-run's and the plan's trees: nothing is drawn or allocated)."""
     device = _resolve_device(device)
+    if device.type == "meta":  # shapes and dtypes only: the same modules, nothing drawn
+        with torch.device("meta"):
+            return Transformer(cfg, policy, None)
     gen = torch.Generator(device="cpu").manual_seed(seed)
     return Transformer(cfg, policy, gen).to(device)
 
@@ -133,10 +138,11 @@ def _sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
 class _Ctx(SimpleNamespace):
     """What every block of one forward or decode step shares: ``qpos``
     (``[B, S]`` int32, the mask's positions), ``rot`` (the RoPE or M-RoPE
-    table, or None), ``window`` and ``act_to``."""
+    table, or None), ``window``, ``act_to`` and ``aux_stats`` (an MoE
+    layer returns its routing statistics, not its load-balance loss)."""
 
 
-def _ctx(cfg: ArchConfig, positions: torch.Tensor, act_to) -> _Ctx:
+def _ctx(cfg: ArchConfig, positions: torch.Tensor, act_to, aux_stats: bool = False) -> _Ctx:
     if cfg.mrope_sections is not None:
         rot = mrope_table(positions, cfg.head_dim, cfg.mrope_sections, theta=cfg.rope_theta)
         qpos = positions[..., 0].contiguous()
@@ -146,7 +152,7 @@ def _ctx(cfg: ArchConfig, positions: torch.Tensor, act_to) -> _Ctx:
         qpos = positions
     else:
         rot, qpos = None, positions
-    return _Ctx(qpos=qpos, rot=rot, window=_window(cfg), act_to=act_to)
+    return _Ctx(qpos=qpos, rot=rot, window=_window(cfg), act_to=act_to, aux_stats=aux_stats)
 
 
 def _norm(p, x: torch.Tensor, act_to) -> torch.Tensor:
@@ -155,10 +161,11 @@ def _norm(p, x: torch.Tensor, act_to) -> torch.Tensor:
 
 def _ffn(layer, h, cfg: ArchConfig, ctx: _Ctx):
     """The residual's second half: ``h + mlp(norm2(h))`` (or the MoE's),
-    and the layer's load-balance loss (0.0 without MoE)."""
+    and the layer's load-balance loss (None without MoE; its routing
+    statistics under ``ctx.aux_stats``)."""
     x = _norm(layer.norm2, h, ctx.act_to)
     if cfg.moe is not None:
-        y, aux = moe_apply(layer.moe, x, cfg, ctx.act_to)
+        y, aux = moe_apply(layer.moe, x, cfg, ctx.act_to, stats=ctx.aux_stats)
         return h + y, aux
     return h + mlp_apply(cfg.mlp, x, layer.mlp, ctx.act_to), None
 
@@ -260,7 +267,7 @@ def _assemble(cfg: ArchConfig, caches: list):
 
 def forward(model, batch: dict, *, collect_cache: bool = False, cache_len: int = 0,
             cache_dtype: torch.dtype = torch.float16, act_to: torch.dtype | None = None,
-            remat: bool = False):
+            remat: bool = False, aux_stats: bool = False):
     """Train/prefill forward of ``model`` (a :class:`Transformer` or a
     :func:`params_view`) over ``batch["tokens"]`` ``[B, S]`` (behind
     ``batch["patch_embeds"]`` ``[B, P, D]`` under the vision frontend) at
@@ -271,15 +278,18 @@ def forward(model, batch: dict, *, collect_cache: bool = False, cache_len: int =
     with ``collect_cache``, the decode cache of ``cache_len`` slots in
     ``cache_dtype`` as a third item. ``remat`` recomputes each block in the
     backward (``torch.utils.checkpoint``), as the reference's
-    ``jax.checkpoint`` does."""
+    ``jax.checkpoint`` does. With ``aux_stats`` the second item is the list
+    of the MoE layers' routing statistics (:func:`aux_loss` of the list is
+    the load-balance loss): a data-parallel step adds them over its data
+    indices before the loss, which is not additive."""
     cfg = model.cfg
     h, positions = _embed_inputs(model, batch, act_to)
-    ctx = _ctx(cfg, positions, act_to)
+    ctx = _ctx(cfg, positions, act_to, aux_stats)
     cache = None
     if collect_cache:
         cache = init_cache(cfg, h.shape[0], cache_len, cache_dtype, h.device,
                            cap_at_window=False)
-    aux = torch.zeros((), dtype=f32, device=h.device)
+    aux = [] if aux_stats else torch.zeros((), dtype=f32, device=h.device)
     for i, layer in enumerate(model.layers):
         kind = cfg.layer_kind(i)
         lc = _layer_cache(cfg, cache, i) if collect_cache else None
@@ -289,9 +299,22 @@ def forward(model, batch: dict, *, collect_cache: bool = False, cache_len: int =
         else:
             h, a = _block_full(layer, h, cfg, kind, ctx, lc)
         if a is not None:
-            aux = aux + a
+            if aux_stats:
+                aux.append(a)
+            else:
+                aux = aux + a
     h = _norm(model.final_norm, h, act_to)
     return (h, aux, cache) if collect_cache else (h, aux)
+
+
+def aux_loss(cfg: ArchConfig, stats: list, device) -> torch.Tensor:
+    """The load-balance loss summed over the MoE layers from their routing
+    statistics (``forward(aux_stats=True)``: per layer ``[frac, mean_prob]``
+    ``[2, E]``), as each layer's ``moe_apply`` computes it."""
+    aux = torch.zeros((), dtype=f32, device=device)
+    for st in stats:
+        aux = aux + cfg.moe.n_experts * torch.sum(st[0] * st[1])
+    return aux
 
 
 def lm_logits(model: Transformer, h: torch.Tensor,

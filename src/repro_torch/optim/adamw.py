@@ -20,7 +20,8 @@ import torch
 from repro_torch.precision.policy import _flatten, tree_leaves, tree_map
 
 __all__ = ["AdamWConfig", "OptState", "ScaleState", "adamw_init", "adamw_update",
-           "scale_init", "scale_update", "global_norm"]
+           "scale_init", "scale_update", "global_norm", "StepScalars", "step_scalars",
+           "update_leaf"]
 
 f32 = torch.float32
 
@@ -80,35 +81,55 @@ def _pow_f32(base: float, e: torch.Tensor) -> torch.Tensor:
     return torch.pow(b.to(e.device), e.double()).to(f32)
 
 
+class StepScalars(NamedTuple):
+    """What every leaf's update shares: the clip divisor, the new step
+    count, the learning rate and the two bias corrections."""
+
+    denom: torch.Tensor
+    step: torch.Tensor
+    lr: torch.Tensor
+    c1: torch.Tensor
+    c2: torch.Tensor
+
+
+def step_scalars(cfg: AdamWConfig, opt_step: torch.Tensor, gnorm: torch.Tensor) -> StepScalars:
+    """The scalars of one step from the optimizer's step count and the
+    global gradient norm."""
+    denom = torch.clamp(gnorm / cfg.clip_norm, min=1.0)
+    step = opt_step + 1
+    lr = _lr_at(cfg, step)
+    stepf = step.to(f32)
+    return StepScalars(denom, step, lr, 1.0 - _pow_f32(cfg.b1, stepf),
+                       1.0 - _pow_f32(cfg.b2, stepf))
+
+
+def update_leaf(cfg: AdamWConfig, sc: StepScalars, g, m, v, p,
+                skip: torch.Tensor | None = None):
+    """``(m', v', p')`` of one leaf (or one block of it: the update is
+    elementwise), frozen where ``skip``."""
+    g = g.to(f32) / sc.denom
+    m2 = cfg.b1 * m + (1.0 - cfg.b1) * g
+    v2 = cfg.b2 * v + (1.0 - cfg.b2) * g * g
+    mh = m2 / sc.c1
+    vh = v2 / sc.c2
+    p2 = p - sc.lr * (mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * p)
+    if skip is not None:
+        m2, v2, p2 = (torch.where(skip, old, new) for new, old in ((m2, m), (v2, v), (p2, p)))
+    return m2, v2, p2
+
+
 def adamw_update(cfg: AdamWConfig, grads: dict, opt: OptState, master: dict, *,
                  skip: torch.Tensor | None = None) -> tuple[dict, OptState, torch.Tensor]:
     """One AdamW step on the f32 masters. ``skip`` (a bool scalar tensor:
     nonfinite grads under loss scaling) freezes everything. Returns
     ``(master', opt', grad_norm)``."""
     gnorm = global_norm(grads)
-    denom = torch.clamp(gnorm / cfg.clip_norm, min=1.0)
-    step = opt.step + 1
-    lr = _lr_at(cfg, step)
-    stepf = step.to(f32)
-    c1 = 1.0 - _pow_f32(cfg.b1, stepf)
-    c2 = 1.0 - _pow_f32(cfg.b2, stepf)
-
-    def upd(g, m, v, p):
-        g = g.to(f32) / denom
-        m2 = cfg.b1 * m + (1.0 - cfg.b1) * g
-        v2 = cfg.b2 * v + (1.0 - cfg.b2) * g * g
-        mh = m2 / c1
-        vh = v2 / c2
-        p2 = p - lr * (mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * p)
-        if skip is not None:
-            m2, v2, p2 = (torch.where(skip, old, new)
-                          for new, old in ((m2, m), (v2, v), (p2, p)))
-        return m2, v2, p2
-
+    sc = step_scalars(cfg, opt.step, gnorm)
     flat_g, rebuild = _flatten(grads)
-    out = [upd(g, m, v, p) for g, m, v, p in
+    out = [update_leaf(cfg, sc, g, m, v, p, skip) for g, m, v, p in
            zip(flat_g, tree_leaves(opt.m), tree_leaves(opt.v), tree_leaves(master))]
     m2, v2, p2 = (rebuild([o[i] for o in out]) for i in range(3))
+    step = sc.step
     if skip is not None:
         step = torch.where(skip, opt.step, step)
     return p2, OptState(m=m2, v=v2, step=step), gnorm

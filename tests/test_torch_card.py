@@ -39,7 +39,9 @@ and the drive, as cases of the tests above (``-k bf16``); and training:
 B7's forward with the rows' log-sum-exp and the attention backward
 (``flash_attn_bwd``) against their plain versions, ``ops.attention``
 under grad, and one reduced train step on the card against the CPU port
-(``-k "bwd or attention_fn or train_step"``)."""
+(``-k "bwd or attention_fn or train_step"``); and the LM mesh: one reduced
+train step over a 2x2 mesh of ``[card] * 4`` against the single-device
+card step (``-k mesh``)."""
 import math
 
 import numpy as np
@@ -192,6 +194,45 @@ def test_train_step_on_card_matches_cpu(card):
     lr_t = 3e-3 * 2 / 100
     for a, b in zip(tree_leaves(card_state["params"]), tree_leaves(cpu_state["params"])):
         assert float((a.cpu() - b).abs().max()) <= 2 * lr_t + 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pol", ["fp32", "fp16"])
+def test_mesh_train_step_on_card_matches_single(card, pol):
+    """Reduced smollm-360m, one train step over the mesh lowering on a 2x2
+    mesh of ``[card] * 4`` against the single-device card step from the same
+    state and tokens: B7 twice and the backward once per layer and data
+    index, every block on the card, loss and new masters as one step's
+    (``tests/test_torch_sharded.py``'s tolerances)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import sharded as sh
+    from repro_torch.models import tasks
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.precision.policy import tree_leaves
+
+    cfg, opt = reduce_arch(get_arch("smollm-360m")), AdamWConfig()  # build_task's
+    mesh = meshlib.make_host_mesh((2, 2), devices=[card] * 4)
+    task = tasks.build_task(cfg, ShapeConfig("mesh", 64, 4, "train"), mesh, pol, ce_chunk=32)
+    single = tasks.make_train_step(cfg, get_policy(pol), opt_cfg=opt, ce_chunk=32)
+    state = tasks.init_train_state(cfg, get_policy(pol), seed=0, device=card)
+    toks = torch.randint(0, cfg.vocab_size, (4, 64), generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks.to(card)}
+    want_state, want = single(state, batch)
+    ops.reset_launches()
+    got_state, got = task.sharded()(state, batch)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 2 * cfg.n_layers * 2
+    assert ops.LAUNCHES["flash_attention_bwd"] == cfg.n_layers * 2
+    assert all(b.device == card for x in tree_leaves(got_state) for b in x.blocks.flat)
+    np.testing.assert_allclose(float(got["loss"]), float(want["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(float(got["grad_norm"]), float(want["grad_norm"]),
+                               rtol=1e-5 if pol == "fp32" else 1e-4)
+    key = "master" if pol == "fp16" else "params"
+    lr_t = opt.lr * 2 / 100
+    for a, b in zip(tree_leaves(sh.gather_tree(got_state)[key]),
+                    tree_leaves(want_state[key])):
+        assert float((a - b).abs().max()) <= 2 * lr_t + 1e-6
 
 
 def _attn_args(card, seed, b, sq, sk, hq, hkv, d, kvdt, invalid=0, shift=0):
