@@ -255,8 +255,11 @@ Phases (each raises, and the script exits non-zero, on any failure):
    (each output within ``BWD_TOL`` of its scale, two backward calls bit
    for bit) at smollm-360m's training shape, the reduced shape, 5 rows per
    KV head, a window, invalid slots and rows with no key, head dims 128
-   and 160 (GQA groups 5 and 4) and Sk = 1,536, each timed beside its
-   plain version and the backward of ``scaled_dot_product_attention``;
+   and 160 (GQA groups 5 and 4), Sk = 1,536 and head dim 20 (4-byte
+   copies, a group of 7, Sk 100), each timed beside its plain version and
+   the backward of ``scaled_dot_product_attention`` (an explicit boolean
+   mask where the mask is not the index-causal one), its device time split
+   by sub-kernel (delta, dK/dV, the reductions, dQ), SDPA's kernels named;
    (b) smollm-360m at full width trained through ``launch.train.train``
    for 10 steps of 8 x 512 ``TokenStream`` tokens under fp16 (the main
    path: finite losses, no skipped step, exactly 64 ``flash_attention``
@@ -281,7 +284,8 @@ Phases (each raises, and the script exits non-zero, on any failure):
    repeated t positions (256 patches at t = 0) in prefill, decode and
    training; qwen2-moe's D 128 MHA 16:16, musicgen's D 64 MHA 32:32 and
    granite's D 64 GQA 2:1 in prefill, decode and training; each timed
-   beside its plain version and SDPA (rows ``flash_attention[archs]`` and
+   beside its plain version and SDPA (the backward as in 13a; rows
+   ``flash_attention[archs]`` and
    ``flash_attention_bwd[archs]``); then for granite-moe-1b-a400m,
    qwen2-moe-a2.7b, falcon-mamba-7b, recurrentgemma-2b, musicgen-large
    and qwen2-vl-2b at full width cut to 2 layers (the hybrid 3: one
@@ -522,7 +526,10 @@ def phase_build() -> dict:
             if "registers" in line or "spill" in line:
                 log(f"[build]   {line.strip()}")
     log(f"[build] all kernels in {wall:.2f} s wall (parallel nvcc)")
-    drive = _ptxas_report(report["plastic_drive"]["log"], "plastic_drive_kernel")
+    bwd = _build.ptxas_entries(report["flash_attn_bwd"]["log"])
+    for name, line in bwd.items():
+        log(f"[build] flash_attn_bwd {name}: {line}")
+    drive = _build.ptxas_entries(report["plastic_drive"]["log"]).get("plastic_drive_kernel")
     log(f"[build] plastic_drive_kernel ptxas: {drive or 'not in the log (a cached build)'}")
     if drive is not None:
         require("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" in drive,
@@ -533,19 +540,8 @@ def phase_build() -> dict:
     require(res["local_bytes"] == 0,
             f"plastic_drive_kernel uses {res['local_bytes']} bytes of local memory a thread")
     return {"nvcc_wall_s": wall, "plastic_drive_ptxas": drive, "plastic_drive_resources": res,
+            "flash_attn_bwd_ptxas": bwd,
             "nvcc_s": {k: v["seconds"] for k, v in report.items()}}
-
-
-def _ptxas_report(log_text: str, kernel: str) -> str | None:
-    """ptxas' registers, stack and spill lines for the entry ``kernel``
-    (its mangled name contains it) in one build's ``-v`` log, joined; None
-    where the log does not name it."""
-    lines = log_text.splitlines()
-    for i, line in enumerate(lines):
-        if "Function properties for" in line and kernel in line:
-            found = [x.strip().removeprefix("ptxas info    : ") for x in lines[i + 1:i + 3]]
-            return "; ".join(found)
-    return None
 
 
 def _izh_inputs(n: int, dtype, dev, seed: int):
@@ -6617,17 +6613,50 @@ def _bwd_case(g, b, s, hq, hkv, d, dev, invalid=0, shift=0):
     return [x.contiguous().to(dev) for x in (q, k, v, qpos, kpos, dout)]
 
 
+# flash_attn_bwd's sub-kernels, by name in a trace.
+BWD_PARTS = ("delta_kernel", "dkv_kernel", "reduce_kernel", "dq_kernel", "reduce_q_kernel")
+# Split TF32: three tensor-core passes at 495 TFLOP/s, f32-accurate products.
+SPLIT_TF32_OPS_PER_S = 495e12 / 3
+
+
+def device_split_ms(fn, reps: int = 10) -> tuple[float, dict]:
+    """Mean device time (ms) per call of all kernels ``fn`` launches, and
+    per kernel name, from one ``torch.profiler`` trace of ``reps`` calls
+    (traced again as :func:`device_total_ms` is when records are missing)."""
+    best: list = []
+    for attempt in range(PROFILE_TRIES):
+        trace = [(e.name, e.time_range.elapsed_us()) for e in _cuda_events(fn, reps)]
+        if len(trace) > len(best):
+            best = trace
+        if len(best) >= reps:
+            break
+        log(f"[profile] by kernel: trace {attempt + 1} held {len(trace)} events in {reps} "
+            "calls; tracing again")
+    require(len(best) >= reps // 2, f"profiler saw {len(best)} kernels in {reps} calls")
+    by: dict = {}
+    for n, us in best:
+        by[n] = by.get(n, 0.0) + us / reps / 1e3
+    return sum(by.values()), by
+
+
 def _bwd_row(name, args, causal, window):
     """Check and time B7's forward with the rows' log-sum-exp and the
     attention backward on one case: each output against its plain version
     (within ``BWD_TOL`` of its scale), two backward calls bit for bit; per
-    call and on the device, the plain backward, the backward of one
-    ``scaled_dot_product_attention`` on the same f32 inputs (causal,
-    ``enable_gqa``; None where the case has a window, invalid slots or rows
-    with no key: SDPA has no such mask there), and the bound: the inputs
-    read and the gradients written once at 3.35 TB/s, or five f32 products
-    (2 operations each) of D per allowed (query, key) pair and head at 67
-    TFLOP/s, whichever is larger."""
+    call and on the device, the backward split by sub-kernel (delta,
+    dK/dV, the head and split reduction, dQ, the dQ splits' sum), the plain
+    backward, the backward of one ``scaled_dot_product_attention`` on the
+    same f32 inputs (``is_causal`` where the mask is the index-causal one,
+    else an explicit boolean ``attn_mask``; ``enable_gqa``) with the names
+    of the kernels it ran; and two bounds: the inputs read and the
+    gradients written once at 3.35 TB/s, or five f32 products (2
+    operations each) of D per allowed (query, key) pair and head at 67
+    TFLOP/s (``bound_ms``) or as split TF32 at 165 TFLOP/s
+    (``bound_tc_ms``), whichever is larger. ``device_ms`` sums the
+    sub-kernels' device times; dQ runs beside dK/dV on a second stream, so
+    the call (``ms``, CUDA events over back-to-back calls) can take less.
+    ``added_s``: the seconds SDPA took where it needs an explicit mask
+    (not timed before)."""
     from repro_torch.kernels import ops, ref
 
     q, k, v, qpos, kpos, dout = args
@@ -6653,40 +6682,53 @@ def _bwd_row(name, args, causal, window):
     allowed = _allowed(qpos, kpos, causal, window)
     pairs = int(allowed.sum())
     b, s, hq, d = q.shape
-    b_ms, b_by = bound(nbytes(q, k, v, out, lse, dout, qpos, kpos) + nbytes(*got),
-                       10 * hq * d * pairs)
-    library = library_device = None
-    plain_mask = causal and window <= 0 and bool((kpos >= 0).all()) and bool(
-        allowed.any(dim=-1).all())
-    if plain_mask:
-        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
-        ot = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                               enable_gqa=True)
-        gt = dout.transpose(1, 2).contiguous()
+    moved, flops = nbytes(q, k, v, out, lse, dout, qpos, kpos) + nbytes(*got), 10 * hq * d * pairs
+    b_ms, b_by = bound(moved, flops)
+    tc_ms = max(moved / HBM_BYTES_PER_S, flops / SPLIT_TF32_OPS_PER_S) * 1e3
+    device, kernels = device_split_ms(bwd)
+    parts = {p: sum(ms for n, ms in kernels.items() if p in n) for p in BWD_PARTS}
+    require(abs(sum(parts.values()) - device) <= 1e-6 * max(device, 1.0),
+            f"flash_attn_bwd {name}: kernels outside the sub-kernels: {sorted(kernels)}")
+    # SDPA's backward on the same inputs and mask.
+    tril = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    index_causal = causal and window <= 0 and torch.equal(allowed, tril.expand_as(allowed))
+    t_added = time.perf_counter()
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = None if index_causal else allowed[:, None]
+    ot = sdpa(qt, kt, vt, attn_mask=mask, is_causal=index_causal, enable_gqa=True)
+    gt = dout.transpose(1, 2).contiguous()
 
-        def sdpa_bwd():
-            return torch.autograd.grad(ot, (qt, kt, vt), gt, retain_graph=True)
+    def sdpa_bwd():
+        return torch.autograd.grad(ot, (qt, kt, vt), gt, retain_graph=True)
 
-        library = cuda_ms(sdpa_bwd, reps=20, warmup=3)
-        library_device = device_total_ms(sdpa_bwd, reps=10)
+    library = cuda_ms(sdpa_bwd, reps=20, warmup=3)
+    library_device, lib_kernels = device_split_ms(sdpa_bwd)
+    top = sorted(lib_kernels.items(), key=lambda kv: -kv[1])[:4]
+    library_finite = bool(all(torch.isfinite(x).all() for x in sdpa_bwd()))
+    t_added = 0.0 if index_causal else time.perf_counter() - t_added  # new with the mask
     row = {"case": name, "shape": f"q {list(q.shape)} kv {list(k.shape)} causal={causal} "
            f"window={window}", "max_abs_err": max(errs.values()), "errs": errs,
            "errs_of_scale": rel,
            "allowed_pairs": pairs, "ms": cuda_ms(bwd, reps=20, warmup=3),
-           "device_ms": device_total_ms(bwd, reps=10),
+           "device_ms": device, "parts_ms": parts,
            "fwd_lse_ms": cuda_ms(fwd, reps=20, warmup=3),
            "fwd_ms": cuda_ms(lambda: ops.attention(q, k, v, qpos, kpos, causal=causal,
                                                    window=window), reps=20, warmup=3),
            "plain_ms": cuda_ms(plain, reps=3, warmup=1), "bound_ms": b_ms, "bound_by": b_by,
-           "library_ms": library, "library_device_ms": library_device}
-    lib = "-" if library is None else (f"{library * 1e3:.2f} us ({library_device * 1e3:.2f} "
-                                       "us on the device)")
+           "bound_tc_ms": tc_ms, "library_ms": library, "library_device_ms": library_device,
+           "library_mask": "is_causal" if index_causal else "attn_mask",
+           "library_kernels_ms": {n[:100]: ms for n, ms in top},
+           "library_finite": library_finite, "added_s": t_added}
+    part_us = {p.removesuffix("_kernel"): round(ms * 1e3, 2) for p, ms in parts.items() if ms}
     log(f"[train] flash_attn_bwd {name} ({row['shape']}): errs {errs}, of the scale "
         f"{ {k: float(f'{v:.3g}') for k, v in rel.items()} }, "
-        f"{row['ms'] * 1e3:.2f} us per call ({row['device_ms'] * 1e3:.2f} us on the device), "
-        f"plain {row['plain_ms'] * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us ({b_by}), SDPA "
-        f"backward {lib}; forward with lse {row['fwd_lse_ms'] * 1e3:.2f} us, without "
-        f"{row['fwd_ms'] * 1e3:.2f} us")
+        f"{row['ms'] * 1e3:.2f} us per call ({device * 1e3:.2f} us on the device: {part_us}), "
+        f"plain {row['plain_ms'] * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us ({b_by}; split TF32 "
+        f"{tc_ms * 1e3:.3f}), SDPA backward {library * 1e3:.2f} us ({library_device * 1e3:.2f} "
+        f"us on the device, {row['library_mask']}{'' if library_finite else ', not finite'}: "
+        f"{[n[:60] for n, _ in top[:2]]}); forward with lse {row['fwd_lse_ms'] * 1e3:.2f} us, "
+        f"without {row['fwd_ms'] * 1e3:.2f} us; added {t_added:.2f} s")
     return row
 
 
@@ -6706,16 +6748,21 @@ def _check_bwd(dev) -> dict:
         ("D 128, group 4 (minitron)", _bwd_case(g, 1, 512, 8, 2, 128, dev), True, -1),
         ("D 160, group 4 (stablelm)", _bwd_case(g, 1, 512, 8, 2, 160, dev), True, -1),
         ("Sk 1,536, group 3", _bwd_case(g, 1, 1536, 15, 5, 64, dev), True, -1),
+        ("D 20 (4-byte copies), group 7, Sk 100", _bwd_case(g, 2, 100, 7, 1, 20, dev), True, -1),
     ]
+    t0 = time.perf_counter()
     rows = [_bwd_row(name, args, causal, window) for name, args, causal, window in cases]
+    log(f"[train] phase 13a: {time.perf_counter() - t0:.1f} s, of which SDPA under an "
+        f"explicit mask {sum(r['added_s'] for r in rows):.2f} s")
     main = rows[0]
     return {"name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attn_bwd.cu",
             "replaces": "src/repro/models/attention.py:53 (XLA autodiff of chunked_attention; "
                         "no Pallas kernel)",
             "shape": main["shape"], "max_abs_err": max(r["max_abs_err"] for r in rows),
-            **{k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms", "library_device_ms", "fwd_lse_ms",
+            **{k: main[k] for k in ("ms", "device_ms", "parts_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "bound_tc_ms", "library_ms",
+                                    "library_device_ms", "library_kernels_ms", "fwd_lse_ms",
                                     "fwd_ms")},
             "cases": rows}
 
@@ -7089,8 +7136,9 @@ def _entry_row(kernel: str, rows: list, main: int) -> dict:
     m = rows[main]
     return {"name": f"{kernel}[archs]", "kernel": kernel, "entry": "archs",
             "shape": m["shape"], "max_abs_err": max(r["max_abs_err"] for r in rows),
-            **{k: m.get(k) for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                                     "library_ms", "library_device_ms")},
+            **{k: m.get(k) for k in ("ms", "device_ms", "parts_ms", "plain_ms", "bound_ms",
+                                     "bound_by", "bound_tc_ms", "library_ms",
+                                     "library_device_ms")},
             "cases": rows}
 
 
@@ -7475,8 +7523,11 @@ def phase_archs(dev, totals: dict, preps: dict) -> tuple[list, dict]:
     t0 = time.perf_counter()
     attn_rows = [_attn_row(name, args, causal, window)
                  for name, args, causal, window in _arch_attn_cases(g, dev)]
+    t1 = time.perf_counter()
     bwd_rows = [_bwd_row(name, args, causal, window)
                 for name, args, causal, window in _arch_bwd_cases(g, dev)]
+    log(f"[archs] phase 14a backward: {time.perf_counter() - t1:.1f} s, of which SDPA under "
+        f"an explicit mask {sum(r['added_s'] for r in bwd_rows):.2f} s")
     seconds["kernels"] = time.perf_counter() - t0
     paths = {}
     fp16 = get_policy("fp16").param_storage

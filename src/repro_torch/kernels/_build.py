@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -20,7 +21,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["KERNELS", "BUILD_DIR", "STORAGE_CODE", "build", "load", "check"]
+__all__ = ["KERNELS", "BUILD_DIR", "STORAGE_CODE", "build", "load", "check",
+           "ptxas_entries"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
@@ -111,3 +113,38 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(
             f"{what}: CUDA launch failed with error {err} "
             f"({lib.error_string(err).decode()})")
+
+
+def _entry_name(mangled: str) -> str:
+    """A kernel entry's identifier and integer template arguments from its
+    mangled name (``_ZN12_GLOBAL__N_110dkv_kernelILi128EEEvNS_4ArgsE`` ->
+    ``dkv_kernel<128>``); an unmangled name as it is."""
+    if not mangled.startswith("_Z"):
+        return mangled
+    rest = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
+    ident = None
+    while rest[:1].isdigit():
+        digits = re.match(r"\d+", rest).group(0)
+        n = int(digits)
+        ident, rest = rest[len(digits):len(digits) + n], rest[len(digits) + n:]
+    if ident is None:
+        return mangled
+    if rest.startswith("I"):
+        args = re.findall(r"L[a-z](-?\d+)E", rest[:rest.find("EE") + 1])
+        return f"{ident}<{', '.join(args)}>"
+    return ident
+
+
+def ptxas_entries(log: str) -> dict[str, str]:
+    """ptxas' report per kernel entry in one build's ``-v`` log: the
+    entry's name (:func:`_entry_name`, e.g. ``dkv_kernel<128>``) to its
+    stack/spill and register lines, joined. Empty for a cached build's
+    empty log."""
+    out: dict[str, str] = {}
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Function properties for" in line:
+            name = _entry_name(line.rsplit(" ", 1)[-1])
+            out[name] = "; ".join(x.strip().removeprefix("ptxas info    : ")
+                                  for x in lines[i + 1:i + 3])
+    return out

@@ -68,6 +68,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "cp_async.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -113,20 +114,6 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 __device__ __forceinline__ bool allowed(int kp, int qp, int causal, int window) {
   return kp >= 0 && (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 template <typename KV>

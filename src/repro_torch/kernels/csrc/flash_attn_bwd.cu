@@ -18,40 +18,102 @@
 // dQ = 0, nothing to dK, and dO / pad_den to every dv_j, as autograd of the
 // reference gives.
 //
-// Deterministic, no float atomics: three kernels in one call.
+// Deterministic, no float atomics: up to five kernels in one call.
 //  1. delta: a warp per (batch, query, head) row.
-//  2. dK/dV: a CTA of four warps per (64 keys, KV head, batch row, column
-//     chunk), each warp 16 keys; it loops over the GQA group's query heads
-//     and their query tiles of 32, so the group's sum stays in registers.
-//     Head dims above 128 accumulate in two column chunks of 128, each CTA
-//     recomputing the tile's scores.
-//  3. dQ: a CTA of four warps per (64 query rows, query head, batch row),
-//     each warp 16 rows; it loops over the key tiles of 32.
-// Tiles no row of the CTA may see (the causal frontier, the window,
-// invalid slots) are skipped after their positions are read. Products run
-// on the tensor cores as split-TF32 mma.sync (tf32_mma.cuh, as the
-// forward's prefill), near f32's accuracy: scores and dP in the dQ kernel
-// (Q K^T, dO V^T), their transposes in the dK/dV kernel (K Q^T, V dO^T),
-// and dQ += dS K, dV += P^T dO, dK += dS^T Q from the score fragments in
-// registers (keys or queries of each 8-step permuted as in the forward's PV
-// product). Seven products of the causal work against the five a fused
-// kernel needs; tiles staged by plain loads, one CTA per SM at head dim
-// 256. What bounds it: operations (five f32 products); wgmma with TMA is
-// later work. Built without --use_fast_math: expf and IEEE division.
+//  2. dK/dV: a CTA per (32 keys, query head, batch row, split), so the card
+//     fills at short sequences (Sk/32 x Hq x B x splits CTAs, where one CTA
+//     per KV head once walked the whole GQA group serially). With Hq > Hkv
+//     each head's and split's partial dK/dV goes to an f32 workspace
+//     [splits, B, Sk, Hq, D], and
+//  3. reduce sums the group's partials in head order, each head's splits
+//     in split order (with one query head per KV head and no splits, the
+//     dK/dV kernel writes dk and dv itself).
+//  4. dQ: a CTA per (32 query rows, query head, batch row, split), and
+//  5. with splits, reduce_q sums the splits' partial dQ in split order.
+// A GQA call whose dK/dV grid is under two CTAs an SM splits each block of
+// fixed rows over up to 4 CTAs, each taking a contiguous slice of the
+// block's live tiles (kernels/flash_attn_bwd.py:plan): the causal blocks
+// that see the most tiles set the time, and a slice shortens them. dQ (4,
+// 5) runs on a second stream of the card beside dK/dV (2, 3): the caller's
+// stream forks after delta and joins before the launcher returns, so the
+// two fill each other's idle SMs. dQ stays its own kernel: measured before
+// this layout it took 15-37 % of a call at every GQA training shape and
+// 45-52 % only at the MHA ones (PERF.md), whose grids already fill the
+// card; fusing it into dK/dV without atomics needs a partial dQ per block
+// of 32 keys (16 x dQ's bytes at 512 keys), summed in a fixed order.
+//
+// Both tile kernels share one body. A CTA holds 32 fixed rows (dK/dV:
+// keys; dQ: query rows) and streams the other side (dK/dV: the head's
+// query rows; dQ: the KV head's keys) in tiles of 16. Its warps are 2 row
+// groups of 16 fixed rows x D/32 column groups of 32 columns; an instance
+// per padded head dim DP = 32, 64, 128, 160, 256 (2, 4, 8, 10, 16 warps),
+// so D 160 runs five column groups and no column of 256's. Each warp
+//  - holds its 16 fixed rows x 32 columns of both fixed operands (dK/dV: K
+//    and V; dQ: scale Q and dO) as split-TF32 A fragments in registers,
+//    split once when the CTA starts;
+//  - takes its 32 columns' share of the two score products (S and dP, or
+//    their transposes) for the tile and writes the partial sums to shared
+//    memory; no warp recomputes another's columns;
+//  - after a barrier, takes every CW-th of its lane's 8 score entries (CW
+//    column groups): sums the row group's partials there in column-group
+//    order, forms P and dS, splits them once and shares them through
+//    shared memory, so every warp of a row group uses the same bits;
+//  - accumulates its 32 columns of the outputs (dV += P^T dO and dK +=
+//    dS^T Q; or dQ += dS K) in registers, the tile's rows as the depth,
+//    permuted as in the forward (row 2t <-> k t, 2t + 1 <-> k t + 4).
+// Streamed tiles pass through a ring of two stages in shared memory, filled
+// by cp.async (16-byte copies where D % 4 == 0 and the tensors are 16-byte
+// aligned, 4-byte ones otherwise), so tile i + 1 is in flight while tile i
+// is computed. When a tile lands, its elements are split once into TF32 hi
+// (in place) and lo tiles (scaled by the softmax scale first where the tile
+// is q), and every product reads both halves from there: the score
+// products' B fragments by ldmatrix (one x4 gives two 8-wide tiles' b0 and
+// b1), the accumulating ones' by 32-bit loads (rows 2t and 2t + 1 of a
+// column, which ldmatrix cannot transpose for 32-bit data). Tiles no row of
+// the CTA may see (the causal frontier, the window, invalid slots) are
+// found up front, 512 tiles per pass, and never copied. Shared memory:
+// 77 KB at DP 128 (two CTAs of 8 warps on an SM), 142 KB at DP 256 (one
+// CTA of 16 warps). ptxas caps registers for 16 warps an SM (128 a
+// thread; DP 160's 10 warps take what they need, one CTA an SM): the
+// spills are the price, and relaxing the cap measured no faster.
+//
+// Products: mma.sync.m16n8k8 TF32 with both operands split, three passes
+// small terms first (tf32_mma.cuh), near f32's accuracy. Not wgmma: TF32
+// wgmma reads both operands K-major from shared memory, which fits the score
+// products as staged, but the accumulating ones read dO, Q (dK/dV) and K
+// (dQ) along the other axis and would need a second, transposed, split copy
+// of each staged tile, and a wgmma tile's 64 rows per warpgroup would halve
+// the grid at the short sequences this layout is built to fill. Seven
+// products of the causal work against the five a fused kernel needs (S and
+// dP in both tile kernels). What bounds it: operations (five f32 products,
+// three tensor-core passes each); as built, the tile loop's instruction
+// count and shared-memory traffic (each mma's B halves, the split, the
+// exchange) and its four barriers a tile hold it at about 8-18 x that
+// bound at the training shapes (PERF.md). Built without --use_fast_math:
+// expf and IEEE division.
 #include <climits>
 #include <math.h>
 
 #include "common.cuh"
+#include "cp_async.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
 
 constexpr float kNeg = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kThreads = 128;  // four warps
-constexpr int kRows = 64;      // dQ: query rows per CTA; dK/dV: keys per CTA
-constexpr int kTile = 32;      // dQ: keys per tile; dK/dV: query rows per tile
-constexpr int kChunk = 128;    // dK/dV: accumulated columns per CTA
+constexpr int kCols = 32;       // columns of D per warp
+constexpr int kFix = 32;        // fixed rows per CTA: two row groups of 16
+constexpr int kTile = 16;       // streamed rows per tile
+constexpr int kNT = kTile / 8;  // 8-wide tiles of a score fragment
+static_assert(kNT == 2, "one ldmatrix.x4 holds the B fragments of two 8-wide tiles");
+constexpr int kKK = kCols / 8;  // 8-steps over a warp's columns
+constexpr int kSlots = 4 * kNT;  // a lane's entries of a score fragment
+constexpr int kWin = 512;       // tiles one liveness pass covers
+constexpr int kDeltaThreads = 128;
+constexpr int kRedThreads = 256;
+constexpr int kRedBatch = 8;   // partials a reducing thread loads at once
+constexpr int kMaxSplits = 4;  // CTAs sharing a block of fixed rows
 
 struct Args {
   const float* q;
@@ -66,9 +128,38 @@ struct Args {
   float* dq;
   float* dk;
   float* dv;
+  float* wk;  // [splits, B, Sk, Hq, D] each head's and split's dK (Hq > Hkv), else null
+  float* wv;  // the same for dV
+  float* wq;  // [splits, B, Sq, Hq, D] each split's dQ (splits > 1), else null
   int B, Sq, Sk, Hq, Hkv, D;
   int causal, window;
   float scale, pad_den;
+  int vec;     // 16-byte copies allowed
+  int splits;  // CTAs sharing one block of fixed rows, each a slice of its live tiles
+};
+
+// The layout of one instance's shared memory, in floats.
+template <int DP>
+struct Cfg {
+  static constexpr int kWarps = 2 * (DP / kCols);
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kMinBlocks = 512 / kThreads > 1 ? 512 / kThreads : 1;  // 16 warps an SM
+  static constexpr int kSt = DP + 4;  // row stride: the fragments' reads hit distinct banks
+  static constexpr int kMat = kTile * kSt;                   // one matrix of a tile
+  static constexpr int kPartW = 2 * kNT * 4 * 32;            // one warp's two partials
+  static constexpr int kRing = 0;                            // [2 stages][2 mats][kTile][kSt]
+  static constexpr int kLo = kRing + 4 * kMat;               // [2 mats][kTile][kSt]
+  static constexpr int kPart = kLo + 2 * kMat;               // [kWarps][kPartW]
+  static constexpr int kPds = kPart + kWarps * kPartW;       // [2 row groups][4][kSlots][32]
+  static constexpr int kEx = kPds + 2 * 4 * kSlots * 32;     // [DP] the no-key rows' dv term
+  static constexpr int kSPos = kEx + DP;                     // int [2 stages][kTile]
+  static constexpr int kSLse = kSPos + 2 * kTile;            // [2][kTile] (dK/dV)
+  static constexpr int kSDel = kSLse + 2 * kTile;            // [2][kTile] (dK/dV)
+  static constexpr int kFPos = kSDel + 2 * kTile;            // int [kFix]
+  static constexpr int kList = kFPos + kFix;                 // int [kWin] live tiles
+  static constexpr int kCount = kList + kWin;                // int, 3 floats of padding
+  static constexpr int kFlag = kCount + 4;                   // unsigned char [kWin]
+  static constexpr size_t kBytes = sizeof(float) * kFlag + kWin;
 };
 
 __device__ __forceinline__ bool allowed(int kp, int qp, int causal, int window) {
@@ -86,40 +177,43 @@ __device__ __forceinline__ size_t q_off(const Args& a, int b, int i, int h) {
 __device__ __forceinline__ size_t k_off(const Args& a, int b, int j, int hk) {
   return (static_cast<size_t>(b) * a.Sk + j) * a.Hkv * a.D + static_cast<size_t>(hk) * a.D;
 }
+__device__ __forceinline__ size_t w_off(const Args& a, int b, int j, int h) {
+  return (static_cast<size_t>(b) * a.Sk + j) * a.Hq * a.D + static_cast<size_t>(h) * a.D;
+}
 __device__ __forceinline__ size_t row_off(const Args& a, int b, int h, int i) {
   return (static_cast<size_t>(b) * a.Hq + h) * a.Sq + i;
 }
 
-__device__ __forceinline__ void zero_smem(unsigned char* smem, size_t bytes) {
-  uint4* w = reinterpret_cast<uint4*>(smem);
-  for (size_t e = threadIdx.x; e < bytes / 16; e += kThreads) w[e] = make_uint4(0u, 0u, 0u, 0u);
+// Four 8 x 4 blocks of 32-bit words from shared memory, each lane's row
+// address in p: r[m] holds block m's word (lane / 4, lane % 4), the
+// m16n8k8 B fragment's (k = t, n = g) when a block's rows are n and its
+// words k.
+__device__ __forceinline__ void ldsm4(unsigned r[4], const unsigned* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
 }
 
-// A operand (16 rows of a row-major [.][st] f32 tile from row r0, columns
-// kk * 8 ..), split.
-__device__ __forceinline__ void load_a(const float* x, int st, int r0, int kk, int g, int t,
-                                       unsigned hi[4], unsigned lo[4]) {
-  const float* p0 = x + (r0 + g) * st + kk * 8 + t;
-  const float* p1 = p0 + 8 * st;
-  split_tf32(p0[0], hi[0], lo[0]);
-  split_tf32(p1[0], hi[1], lo[1]);
-  split_tf32(p0[4], hi[2], lo[2]);
-  split_tf32(p1[4], hi[3], lo[3]);
-}
-
-// A operand from a C fragment (16 x 8, rows x the 8-step's columns), the
-// columns permuted: column 2t -> k t, column 2t + 1 -> k t + 4.
-__device__ __forceinline__ void frag_a(const float c[4], unsigned hi[4], unsigned lo[4]) {
-  split_tf32(c[0], hi[0], lo[0]);  // (g, 2t)         -> k = t
-  split_tf32(c[2], hi[1], lo[1]);  // (g + 8, 2t)     -> k = t
-  split_tf32(c[1], hi[2], lo[2]);  // (g, 2t + 1)     -> k = t + 4
-  split_tf32(c[3], hi[3], lo[3]);  // (g + 8, 2t + 1) -> k = t + 4
+// A operand (rows g and g + 8 at offsets o0, o1 of x, valid where ok0, ok1;
+// columns c and c + 4, zero from D on), times mul, split.
+__device__ __forceinline__ void load_fixed(const float* x, size_t o0, size_t o1, bool ok0,
+                                           bool ok1, int c, int D, float mul, unsigned hi[4],
+                                           unsigned lo[4]) {
+  const float a0 = ok0 && c < D ? x[o0 + c] * mul : 0.0f;
+  const float a1 = ok1 && c < D ? x[o1 + c] * mul : 0.0f;
+  const float a2 = ok0 && c + 4 < D ? x[o0 + c + 4] * mul : 0.0f;
+  const float a3 = ok1 && c + 4 < D ? x[o1 + c + 4] * mul : 0.0f;
+  split_tf32(a0, hi[0], lo[0]);
+  split_tf32(a1, hi[1], lo[1]);
+  split_tf32(a2, hi[2], lo[2]);
+  split_tf32(a3, hi[3], lo[3]);
 }
 
 // ---------------------------------------------------------------- delta
 
-__global__ void __launch_bounds__(kThreads) delta_kernel(Args a) {
-  const int row = (blockIdx.x * kThreads + threadIdx.x) >> 5;  // (b * Sq + i) * Hq + h
+__global__ void __launch_bounds__(kDeltaThreads) delta_kernel(Args a) {
+  const int row = (blockIdx.x * kDeltaThreads + threadIdx.x) >> 5;  // (b * Sq + i) * Hq + h
   const int lane = threadIdx.x & 31;
   if (row >= a.B * a.Sq * a.Hq) return;  // warp-uniform
   const int h = row % a.Hq, bi = row / a.Hq;
@@ -133,349 +227,553 @@ __global__ void __launch_bounds__(kThreads) delta_kernel(Args a) {
   if (lane == 0) a.delta[row_off(a, b, h, i)] = s;
 }
 
-// ---------------------------------------------------------------- dK, dV
+// ---------------------------------------------------------------- tiles
 
-template <int DP>
-__host__ __device__ constexpr int chunk_cols() {
-  return DP < kChunk ? DP : kChunk;
+// Queue the copies of streamed tile `tile` into ring stage `stage`: matrix
+// 0 (dK/dV: q; dQ: k) and 1 (dO; v), rows past the end zeroed, and the
+// rows' positions (dK/dV: qpos, lse and delta of head h; dQ: kpos).
+template <int DP, bool kDQ>
+__device__ __forceinline__ void queue_tile(const Args& a, int tile, int stage, int b, int h,
+                                           int hk, float* sm) {
+  using C = Cfg<DP>;
+  const int i0 = tile * kTile;
+  const int rows = min(kTile, (kDQ ? a.Sk : a.Sq) - i0);
+  float* x0 = sm + C::kRing + stage * 2 * C::kMat;
+  float* x1 = x0 + C::kMat;
+  const float* s0 = kDQ ? a.k : a.q;
+  const float* s1 = kDQ ? a.v : a.dout;
+  if (a.vec) {
+    constexpr int kCh = DP / 4;  // 16-byte chunks of a padded row
+    for (int e = threadIdx.x; e < kTile * kCh; e += C::kThreads) {
+      const int r = e / kCh, c = (e - r * kCh) * 4;
+      float* d0 = x0 + r * C::kSt + c;
+      float* d1 = x1 + r * C::kSt + c;
+      if (r < rows) {
+        if (c < a.D) {
+          const size_t off = (kDQ ? k_off(a, b, i0 + r, hk) : q_off(a, b, i0 + r, h)) + c;
+          cp_async16(d0, s0 + off);
+          cp_async16(d1, s1 + off);
+        }
+      } else {
+        *reinterpret_cast<float4*>(d0) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        *reinterpret_cast<float4*>(d1) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+    }
+  } else {
+    for (int e = threadIdx.x; e < kTile * DP; e += C::kThreads) {
+      const int r = e / DP, c = e - r * DP;
+      float* d0 = x0 + r * C::kSt + c;
+      float* d1 = x1 + r * C::kSt + c;
+      if (r < rows) {
+        if (c < a.D) {
+          const size_t off = (kDQ ? k_off(a, b, i0 + r, hk) : q_off(a, b, i0 + r, h)) + c;
+          cp_async4(d0, s0 + off);
+          cp_async4(d1, s1 + off);
+        }
+      } else {
+        *d0 = 0.0f;
+        *d1 = 0.0f;
+      }
+    }
+  }
+  if (threadIdx.x < kTile) {
+    const int r = threadIdx.x;
+    int* pos = reinterpret_cast<int*>(sm + C::kSPos) + stage * kTile + r;
+    if (kDQ) {
+      if (r < rows)
+        cp_async4(pos, a.kpos + i0 + r);
+      else
+        *pos = -1;
+    } else {
+      float* ls = sm + C::kSLse + stage * kTile + r;
+      float* dl = sm + C::kSDel + stage * kTile + r;
+      if (r < rows) {
+        cp_async4(pos, a.qpos + static_cast<size_t>(b) * a.Sq + i0 + r);
+        cp_async4(ls, a.lse + row_off(a, b, h, i0 + r));
+        cp_async4(dl, a.delta + row_off(a, b, h, i0 + r));
+      } else {  // p = exp(s - inf) = 0
+        *pos = 0;
+        *ls = INFINITY;
+        *dl = 0.0f;
+      }
+    }
+  }
 }
 
-template <int DP>
-__host__ __device__ constexpr size_t dkv_smem() {
-  return sizeof(float) * ((2 * kRows + 2 * kTile) * (DP + 4) + 2 * kTile + chunk_cols<DP>()) +
-         sizeof(int) * (kRows + kTile);
+// Split the landed tile of `stage` once: hi in place, lo into the lo tile
+// (dK/dV: q scaled first).
+template <int DP, bool kDQ>
+__device__ __forceinline__ void split_tile(const Args& a, int stage, float* sm) {
+  using C = Cfg<DP>;
+  uint4* x = reinterpret_cast<uint4*>(sm + C::kRing + stage * 2 * C::kMat);
+  uint4* lo = reinterpret_cast<uint4*>(sm + C::kLo);
+  constexpr int kN = C::kMat / 4;  // float4s of one matrix, padding included
+  for (int e = threadIdx.x; e < 2 * kN; e += C::kThreads) {
+    float4 v = reinterpret_cast<const float4*>(x)[e];
+    if (!kDQ && e < kN) {
+      v.x *= a.scale;
+      v.y *= a.scale;
+      v.z *= a.scale;
+      v.w *= a.scale;
+    }
+    uint4 hi, l;
+    split_tf32(v.x, hi.x, l.x);
+    split_tf32(v.y, hi.y, l.y);
+    split_tf32(v.z, hi.z, l.z);
+    split_tf32(v.w, hi.w, l.w);
+    x[e] = hi;
+    lo[e] = l;
+  }
 }
 
-template <int DP>
-__global__ void __launch_bounds__(kThreads) dkv_kernel(Args a) {
-  constexpr int st = DP + 4;
-  constexpr int DC = chunk_cols<DP>();
-  constexpr int NCH = DP / DC;  // column chunks
-  constexpr int ND = DP / 8, NC = DC / 8, NT = kTile / 8;
+template <int DP, bool kDQ>
+__device__ __forceinline__ void tiles(const Args& a) {
+  using C = Cfg<DP>;
+  constexpr int st = C::kSt;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* ks = reinterpret_cast<float*>(smem);  // [kRows][st]
-  float* vs = ks + kRows * st;                 // [kRows][st]
-  float* qs = vs + kRows * st;                 // [kTile][st], scaled
-  float* gs = qs + kTile * st;                 // [kTile][st], dO
-  float* ls = gs + kTile * st;                 // [kTile] lse
-  float* dl = ls + kTile;                      // [kTile] delta
-  float* ex = dl + kTile;                      // [DC] the no-key rows' dv term
-  int* kp = reinterpret_cast<int*>(ex + DC);   // [kRows]
-  int* qp = kp + kRows;                        // [kTile]
-  const int D = a.D, G = a.Hq / a.Hkv;
-  const int chunk = blockIdx.x % NCH, key0 = (blockIdx.x / NCH) * kRows;
-  const int hk = blockIdx.y, b = blockIdx.z;
-  const int keys = min(kRows, a.Sk - key0);
-  const int c0 = chunk * DC;
+  float* sm = reinterpret_cast<float*>(smem);
+  int* fpos = reinterpret_cast<int*>(sm + C::kFPos);
+  int* list = reinterpret_cast<int*>(sm + C::kList);
+  int* count = reinterpret_cast<int*>(sm + C::kCount);
+  unsigned char* flag = smem + sizeof(float) * C::kFlag;
+  float* part = sm + C::kPart;
+  unsigned* pds = reinterpret_cast<unsigned*>(sm + C::kPds);  // P, dS: hi, lo
+  float* ex = sm + C::kEx;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-
-  zero_smem(smem, dkv_smem<DP>());
-  __syncthreads();
-  for (int e = tid; e < keys * D; e += kThreads) {
-    const int r = e / D, d = e - r * D;
-    const size_t off = k_off(a, b, key0 + r, hk) + d;
-    ks[r * st + d] = a.k[off];
-    vs[r * st + d] = a.v[off];
-  }
-  if (tid < kRows) kp[tid] = tid < keys ? a.kpos[key0 + tid] : -1;
-
-  // Rows with no allowed key in the group's heads: their dO / pad_den
-  // lands on every key (summed in row order, per column).
-  bool nokey = false;
-  for (int e = tid; e < G * a.Sq; e += kThreads)
-    nokey |= a.lse[row_off(a, b, hk * G + e / a.Sq, e % a.Sq)] == kNeg;
-  if (__syncthreads_or(nokey)) {
-    for (int d = tid; d < DC; d += kThreads) {
-      float s = 0.0f;
-      if (c0 + d < D)
-        for (int hh = hk * G; hh < (hk + 1) * G; ++hh)
-          for (int i = 0; i < a.Sq; ++i)
-            if (a.lse[row_off(a, b, hh, i)] == kNeg) s += a.dout[q_off(a, b, i, hh) + c0 + d] / a.pad_den;
-      ex[d] = s;
-    }
-  }
-  __syncthreads();
-
-  const int r0 = warp * 16;  // the warp's keys r0 + g, r0 + g + 8
-  const int kp0 = kp[r0 + g], kp1 = kp[r0 + g + 8];
-  float dv[NC][4], dk[NC][4];
-#pragma unroll
-  for (int n = 0; n < NC; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dv[n][e] = dk[n][e] = 0.0f;
-
-  const int nq = (a.Sq + kTile - 1) / kTile;
-  for (int hh = hk * G; hh < (hk + 1) * G; ++hh) {
-    for (int qt = 0; qt < nq; ++qt) {
-      const int i0 = qt * kTile;
-      const int nrow = min(kTile, a.Sq - i0);
-      __syncthreads();  // the last tile is consumed
-      if (tid < kTile) {
-        const bool ok = tid < nrow;
-        qp[tid] = ok ? a.qpos[static_cast<size_t>(b) * a.Sq + i0 + tid] : 0;
-        ls[tid] = ok ? a.lse[row_off(a, b, hh, i0 + tid)] : INFINITY;
-        dl[tid] = ok ? a.delta[row_off(a, b, hh, i0 + tid)] : 0.0f;
-      }
-      __syncthreads();
-      int qlo = INT_MAX, qhi = INT_MIN;
-      for (int r = 0; r < nrow; ++r) {
-        qlo = min(qlo, qp[r]);
-        qhi = max(qhi, qp[r]);
-      }
-      const bool mine = tid < keys && live(a, kp[tid], qlo, qhi);
-      if (!__syncthreads_or(mine)) continue;  // uniform: no key of the CTA is seen
-      for (int e = tid; e < kTile * D; e += kThreads) {
-        const int r = e / D, d = e - r * D;
-        float qv = 0.0f, gv = 0.0f;
-        if (r < nrow) {
-          const size_t off = q_off(a, b, i0 + r, hh) + d;
-          qv = a.q[off] * a.scale;
-          gv = a.dout[off];
-        }
-        qs[r * st + d] = qv;
-        gs[r * st + d] = gv;
-      }
-      __syncthreads();
-
-      // S^T = K Qs^T and dP^T = V dO^T for the warp's 16 keys and the
-      // tile's 32 queries.
-      float s[NT][4], dp[NT][4];
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
-#pragma unroll 4
-      for (int kk = 0; kk < ND; ++kk) {
-        unsigned kh[4], kl[4], vh[4], vl[4];
-        load_a(ks, st, r0, kk, g, t, kh, kl);
-        load_a(vs, st, r0, kk, g, t, vh, vl);
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          const float* qr = qs + (n * 8 + g) * st + kk * 8 + t;
-          const float* gr = gs + (n * 8 + g) * st + kk * 8 + t;
-          mma3<true>(s[n], kh, kl, qr[0], qr[4]);
-          mma3<true>(dp[n], vh, vl, gr[0], gr[4]);
-        }
-      }
-      // P^T and dS^T on the fragments: (key, query) entries.
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = n * 8 + 2 * t + (e & 1);
-          const int kpos = e < 2 ? kp0 : kp1;
-          const bool ok = col < nrow && allowed(kpos, qp[col], a.causal, a.window);
-          const float p = ok ? expf(s[n][e] - ls[col]) : 0.0f;
-          s[n][e] = p;
-          dp[n][e] = p * (dp[n][e] - dl[col]);
-        }
-      }
-      // dV += P^T dO, dK += dS^T Qs over the chunk's columns.
-#pragma unroll
-      for (int kk = 0; kk < NT; ++kk) {
-        unsigned ph[4], pl[4], sh[4], sl[4];
-        frag_a(s[kk], ph, pl);
-        frag_a(dp[kk], sh, sl);
-        const float* g0 = gs + (kk * 8 + 2 * t) * st + c0 + g;
-        const float* q0 = qs + (kk * 8 + 2 * t) * st + c0 + g;
-#pragma unroll
-        for (int n = 0; n < NC; ++n) {
-          mma3<true>(dv[n], ph, pl, g0[n * 8], g0[st + n * 8]);
-          mma3<true>(dk[n], sh, sl, q0[n * 8], q0[st + n * 8]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = r0 + g + 8 * half;
-    if (r >= keys) continue;
-    float* dkr = a.dk + k_off(a, b, key0 + r, hk);
-    float* dvr = a.dv + k_off(a, b, key0 + r, hk);
-#pragma unroll
-    for (int n = 0; n < NC; ++n) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = n * 8 + 2 * t + e;
-        if (c0 + c < D) {
-          dkr[c0 + c] = dk[n][2 * half + e];
-          dvr[c0 + c] = dv[n][2 * half + e] + ex[c];
-        }
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------- dQ
-
-template <int DP>
-__host__ __device__ constexpr size_t dq_smem() {
-  return sizeof(float) * (2 * kRows + 2 * kTile) * (DP + 4) + sizeof(int) * (kTile + kRows);
-}
-
-template <int DP>
-__global__ void __launch_bounds__(kThreads) dq_kernel(Args a) {
-  constexpr int st = DP + 4;
-  constexpr int ND = DP / 8, NT = kTile / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);  // [kRows][st], scaled
-  float* gs = qs + kRows * st;                 // [kRows][st], dO
-  float* ks = gs + kRows * st;                 // [kTile][st]
-  float* vs = ks + kTile * st;                 // [kTile][st]
-  int* kp = reinterpret_cast<int*>(vs + kTile * st);  // [kTile]
-  int* qp = kp + kTile;                               // [kRows]
+  const int rg = warp & 1, cg = warp >> 1;  // row group, column group
+  constexpr int kCW = DP / kCols;  // column groups
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / (a.Hq / a.Hkv);
+  const int nfb = ((kDQ ? a.Sq : a.Sk) + kFix - 1) / kFix;  // blocks of fixed rows
+  const int f0 = (blockIdx.x % nfb) * kFix, split = blockIdx.x / nfb;
+  const int nstr = kDQ ? a.Sk : a.Sq;
+  const int nf = min(kFix, (kDQ ? a.Sq : a.Sk) - f0);
+  const int ntiles = (nstr + kTile - 1) / kTile;
   const int D = a.D;
-  const int row0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (a.Hq / a.Hkv);
-  const int rows = min(kRows, a.Sq - row0);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
 
-  zero_smem(smem, dq_smem<DP>());
-  __syncthreads();
-  for (int e = tid; e < rows * D; e += kThreads) {
-    const int r = e / D, d = e - r * D;
-    const size_t off = q_off(a, b, row0 + r, h) + d;
-    qs[r * st + d] = a.q[off] * a.scale;
-    gs[r * st + d] = a.dout[off];
+  {
+    uint4* w = reinterpret_cast<uint4*>(smem);
+    for (size_t e = tid; e < C::kBytes / 16; e += C::kThreads) w[e] = make_uint4(0u, 0u, 0u, 0u);
   }
-  if (tid < rows) qp[tid] = a.qpos[static_cast<size_t>(b) * a.Sq + row0 + tid];
   __syncthreads();
-  int qlo = INT_MAX, qhi = INT_MIN;
-  for (int r = 0; r < rows; ++r) {
-    qlo = min(qlo, qp[r]);
-    qhi = max(qhi, qp[r]);
-  }
-  const int r0 = warp * 16 + g, r1 = r0 + 8;
-  const bool v0 = r0 < rows, v1 = r1 < rows;
-  const int qp0 = qp[r0], qp1 = qp[r1];
-  const float lse0 = v0 ? a.lse[row_off(a, b, h, row0 + r0)] : 0.0f;
-  const float lse1 = v1 ? a.lse[row_off(a, b, h, row0 + r1)] : 0.0f;
-  const float dl0 = v0 ? a.delta[row_off(a, b, h, row0 + r0)] : 0.0f;
-  const float dl1 = v1 ? a.delta[row_off(a, b, h, row0 + r1)] : 0.0f;
-
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
-
-  const int ntiles = (a.Sk + kTile - 1) / kTile;
-  for (int tile = 0; tile < ntiles; ++tile) {
-    const int j0 = tile * kTile;
-    __syncthreads();  // the last tile is consumed
-    bool mine = false;
-    if (tid < kTile) {
-      const int j = j0 + tid;
-      const int p = j < a.Sk ? a.kpos[j] : -1;
-      kp[tid] = p;
-      mine = live(a, p, qlo, qhi);
-    }
-    if (!__syncthreads_or(mine)) continue;  // uniform: no row of the CTA sees the tile
-    for (int e = tid; e < kTile * D; e += kThreads) {
-      const int jj = e / D, d = e - jj * D;
-      const int j = j0 + jj;
-      float kv = 0.0f, vv = 0.0f;
-      if (j < a.Sk) {
-        const size_t off = k_off(a, b, j, hk) + d;
-        kv = a.k[off];
-        vv = a.v[off];
+  if (tid < kFix)
+    fpos[tid] = tid < nf ? (kDQ ? a.qpos[static_cast<size_t>(b) * a.Sq + f0 + tid]
+                               : a.kpos[f0 + tid])
+                         : (kDQ ? 0 : -1);
+  if (!kDQ) {
+    // Rows of head h with no allowed key: their dO / pad_den lands on every
+    // key (summed in row order, per column).
+    bool nokey = false;
+    for (int i = tid; i < a.Sq; i += C::kThreads) nokey |= a.lse[row_off(a, b, h, i)] == kNeg;
+    if (__syncthreads_or(nokey)) {
+      for (int d = tid; d < D; d += C::kThreads) {
+        float s = 0.0f;
+        for (int i = 0; i < a.Sq; ++i)
+          if (a.lse[row_off(a, b, h, i)] == kNeg) s += a.dout[q_off(a, b, i, h) + d] / a.pad_den;
+        ex[d] = s;
       }
-      ks[jj * st + d] = kv;
-      vs[jj * st + d] = vv;
+    }
+  }
+  __syncthreads();
+
+  // The warp's fixed rows r0, r1 and its 32 columns of both fixed operands.
+  const int r0 = rg * 16 + g, r1 = r0 + 8;
+  const bool v0 = r0 < nf, v1 = r1 < nf;
+  unsigned f0h[kKK][4], f0l[kKK][4], f1h[kKK][4], f1l[kKK][4];
+  {
+    const float* x0 = kDQ ? a.q : a.k;
+    const float* x1 = kDQ ? a.dout : a.v;
+    const size_t o0 = v0 ? (kDQ ? q_off(a, b, f0 + r0, h) : k_off(a, b, f0 + r0, hk)) : 0;
+    const size_t o1 = v1 ? (kDQ ? q_off(a, b, f0 + r1, h) : k_off(a, b, f0 + r1, hk)) : 0;
+    const float mul = kDQ ? a.scale : 1.0f;
+#pragma unroll
+    for (int kk = 0; kk < kKK; ++kk) {
+      const int c = cg * kCols + kk * 8 + t;
+      load_fixed(x0, o0, o1, v0, v1, c, D, mul, f0h[kk], f0l[kk]);
+      load_fixed(x1, o0, o1, v0, v1, c, D, 1.0f, f1h[kk], f1l[kk]);
+    }
+  }
+  const int p0 = fpos[r0], p1 = fpos[r1];  // dK/dV: key positions; dQ: query positions
+  float lse0 = 0.0f, lse1 = 0.0f, dl0 = 0.0f, dl1 = 0.0f;
+  int qlo = INT_MAX, qhi = INT_MIN;  // dQ: the CTA's query positions
+  if (kDQ) {
+    if (v0) {
+      lse0 = a.lse[row_off(a, b, h, f0 + r0)];
+      dl0 = a.delta[row_off(a, b, h, f0 + r0)];
+    }
+    if (v1) {
+      lse1 = a.lse[row_off(a, b, h, f0 + r1)];
+      dl1 = a.delta[row_off(a, b, h, f0 + r1)];
+    }
+    for (int r = 0; r < nf; ++r) {
+      qlo = min(qlo, fpos[r]);
+      qhi = max(qhi, fpos[r]);
+    }
+  }
+
+  float acc0[kKK][4], acc1[kKK][4];  // dK/dV: dK, dV; dQ: dQ, unused
+#pragma unroll
+  for (int n = 0; n < kKK; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc0[n][e] = acc1[n][e] = 0.0f;
+
+  for (int w0 = 0; w0 < ntiles; w0 += kWin) {
+    // Which tiles any fixed row of the CTA may see, in order.
+    const int cnt = min(kWin, ntiles - w0);
+    for (int i = tid; i < cnt; i += C::kThreads) {
+      const int j0 = (w0 + i) * kTile, rows = min(kTile, nstr - j0);
+      bool any = false;
+      int lo = INT_MAX, hi = INT_MIN;
+#pragma unroll
+      for (int r = 0; r < kTile; ++r) {  // unrolled: the row loads are in flight together
+        if (r < rows) {
+          if (kDQ) {
+            any |= live(a, a.kpos[j0 + r], qlo, qhi);
+          } else {
+            const int p = a.qpos[static_cast<size_t>(b) * a.Sq + j0 + r];
+            lo = min(lo, p);
+            hi = max(hi, p);
+          }
+        }
+      }
+      if (!kDQ)
+        for (int r = 0; r < nf; ++r) any |= live(a, fpos[r], lo, hi);
+      flag[i] = any;
     }
     __syncthreads();
+    if (warp == 0) {
+      int n = 0;
+      for (int base = 0; base < cnt; base += 32) {
+        const bool f = base + lane < cnt && flag[base + lane];
+        const unsigned m = __ballot_sync(kFull, f);
+        if (f) list[n + __popc(m & ((1u << lane) - 1u))] = w0 + base + lane;
+        n += __popc(m);
+      }
+      if (lane == 0) *count = n;
+    }
+    __syncthreads();  // also: every warp is done with the last window's tiles
+    // This CTA's slice of the live tiles.
+    const int i0 = *count * split / a.splits, n = *count * (split + 1) / a.splits;
+    if (i0 < n) queue_tile<DP, kDQ>(a, list[i0], 0, b, h, hk, sm);
+    cp_async_commit();
 
-    // S = Qs K^T and dP = dO V^T for the warp's 16 rows and the tile's keys.
-    float s[NT][4], dp[NT][4];
+    for (int it = i0; it < n; ++it) {
+      const int s = (it - i0) & 1;
+      cp_async_wait<0>();  // this thread's copies of tile it have landed
+      __syncthreads();     // ... everyone's; and tile it - 1 is consumed
+      if (it + 1 < n) queue_tile<DP, kDQ>(a, list[it + 1], s ^ 1, b, h, hk, sm);
+      cp_async_commit();
+      split_tile<DP, kDQ>(a, s, sm);
+      __syncthreads();
+
+      // The tile's hi and lo halves: matrix 0, then 1 at + kMat.
+      const unsigned* xh = reinterpret_cast<const unsigned*>(sm + C::kRing + s * 2 * C::kMat);
+      const unsigned* xl = reinterpret_cast<const unsigned*>(sm + C::kLo);
+
+      // The warp's columns of S and dP (dK/dV: S^T = K Qs^T, dP^T = V dO^T;
+      // dQ: S = Qs K^T, dP = dO V^T): fixed rows x the tile's 16 rows.
+      float sc[kNT][4], dp[kNT][4];
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+      for (int n2 = 0; n2 < kNT; ++n2)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
-#pragma unroll 4
-    for (int kk = 0; kk < ND; ++kk) {
-      unsigned qh[4], ql[4], gh[4], gl[4];
-      load_a(qs, st, warp * 16, kk, g, t, qh, ql);
-      load_a(gs, st, warp * 16, kk, g, t, gh, gl);
+        for (int e = 0; e < 4; ++e) sc[n2][e] = dp[n2][e] = 0.0f;
+      // Lane l addresses row l % 8 of 8 x 4 block l / 8: (8-wide tile l / 16,
+      // columns + 4 (l / 8) % 2), so one ldmatrix gives b0, b1 of both tiles.
+      const int lm = ((lane >> 4) * 8 + (lane & 7)) * st + 4 * ((lane >> 3) & 1);
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const float* kr = ks + (n * 8 + g) * st + kk * 8 + t;
-        const float* vr = vs + (n * 8 + g) * st + kk * 8 + t;
-        mma3<true>(s[n], qh, ql, kr[0], kr[4]);
-        mma3<true>(dp[n], gh, gl, vr[0], vr[4]);
+      for (int kk = 0; kk < kKK; ++kk) {
+        const int o = lm + cg * kCols + kk * 8;
+        unsigned b0h[4], b0l[4], b1h[4], b1l[4];
+        ldsm4(b0h, xh + o);
+        ldsm4(b0l, xl + o);
+        ldsm4(b1h, xh + C::kMat + o);
+        ldsm4(b1l, xl + C::kMat + o);
+#pragma unroll
+        for (int n2 = 0; n2 < kNT; ++n2) {
+          mma3s(sc[n2], f0h[kk], f0l[kk], b0h[2 * n2], b0h[2 * n2 + 1], b0l[2 * n2],
+                b0l[2 * n2 + 1]);
+          mma3s(dp[n2], f1h[kk], f1l[kk], b1h[2 * n2], b1h[2 * n2 + 1], b1l[2 * n2],
+                b1l[2 * n2 + 1]);
+        }
       }
-    }
-    // dS on the fragments: (row, key) entries.
+      {
+        float* mine = part + warp * C::kPartW + lane;
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
+        for (int n2 = 0; n2 < kNT; ++n2)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kpos = kp[n * 8 + 2 * t + (e & 1)];
-        const bool up = e < 2;
-        const bool ok = (up ? v0 : v1) && allowed(kpos, up ? qp0 : qp1, a.causal, a.window);
-        const float p = ok ? expf(s[n][e] - (up ? lse0 : lse1)) : 0.0f;
-        s[n][e] = p * (dp[n][e] - (up ? dl0 : dl1));
+          for (int e = 0; e < 4; ++e) {
+            mine[(n2 * 4 + e) * 32] = sc[n2][e];
+            mine[((kNT + n2) * 4 + e) * 32] = dp[n2][e];
+          }
       }
-    }
-    // dQ += dS K.
+      __syncthreads();
+      // Each warp of a row group takes every CW-th of the lane's 8 fragment
+      // entries: sums the group's partials in column-group order, forms P
+      // and dS (fixed row, streamed row), splits them once and shares them.
+      {
+        const int* spos = reinterpret_cast<const int*>(sm + C::kSPos) + s * kTile;
+        const float* slse = sm + C::kSLse + s * kTile;
+        const float* sdel = sm + C::kSDel + s * kTile;
+        unsigned* mypds = pds + rg * 4 * kSlots * 32 + lane;
+        for (int q = cg; q < kSlots; q += kCW) {
+          float x = 0.0f, y = 0.0f;
 #pragma unroll
-    for (int kk = 0; kk < NT; ++kk) {
-      unsigned sh[4], sl[4];
-      frag_a(s[kk], sh, sl);
-      const float* k0 = ks + (kk * 8 + 2 * t) * st + g;
+          for (int c = 0; c < kCW; ++c) {
+            const float* p = part + (c * 2 + rg) * C::kPartW + lane;
+            x = c ? x + p[q * 32] : p[q * 32];
+            y = c ? y + p[(kNT * 4 + q) * 32] : p[(kNT * 4 + q) * 32];
+          }
+          const int e = q & 3, col = (q >> 2) * 8 + 2 * t + (e & 1);
+          const bool up = e < 2;
+          bool ok;
+          float l, d;
+          if (kDQ) {
+            ok = (up ? v0 : v1) && allowed(spos[col], up ? p0 : p1, a.causal, a.window);
+            l = up ? lse0 : lse1;
+            d = up ? dl0 : dl1;
+          } else {
+            ok = allowed(up ? p0 : p1, spos[col], a.causal, a.window);
+            l = slse[col];
+            d = sdel[col];
+          }
+          const float pv = ok ? expf(x - l) : 0.0f;
+          unsigned hi, lo;
+          split_tf32(pv * (y - d), hi, lo);
+          mypds[(2 * kSlots + q) * 32] = hi;
+          mypds[(3 * kSlots + q) * 32] = lo;
+          if (!kDQ) {
+            split_tf32(pv, hi, lo);
+            mypds[q * 32] = hi;
+            mypds[(kSlots + q) * 32] = lo;
+          }
+        }
+      }
+      __syncthreads();
+      // dK/dV: dV += P^T dO, dK += dS^T Qs; dQ: dQ += dS K; over the warp's
+      // columns, the tile's rows as the depth (row 2t <-> k t, 2t + 1 <-> t + 4;
+      // the A operand from the C fragment's entries 0, 2, 1, 3).
+      const unsigned* rd = pds + rg * 4 * kSlots * 32 + lane;
 #pragma unroll
-      for (int n = 0; n < ND; ++n) mma3<true>(acc[n], sh, sl, k0[n * 8], k0[st + n * 8]);
+      for (int kk = 0; kk < kNT; ++kk) {
+        unsigned sh[4], sl[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int q = kk * 4 + ((j & 1) << 1 | j >> 1);  // entries 0, 2, 1, 3
+          sh[j] = rd[(2 * kSlots + q) * 32];
+          sl[j] = rd[(3 * kSlots + q) * 32];
+        }
+        const int o = (kk * 8 + 2 * t) * st + cg * kCols + g;
+        if (kDQ) {
+#pragma unroll
+          for (int n2 = 0; n2 < kKK; ++n2) {
+            const int x = o + n2 * 8;
+            mma3s(acc0[n2], sh, sl, xh[x], xh[x + st], xl[x], xl[x + st]);
+          }
+        } else {
+          unsigned ph[4], pl[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int q = kk * 4 + ((j & 1) << 1 | j >> 1);  // entries 0, 2, 1, 3
+            ph[j] = rd[q * 32];
+            pl[j] = rd[(kSlots + q) * 32];
+          }
+#pragma unroll
+          for (int n2 = 0; n2 < kKK; ++n2) {
+            const int x = o + n2 * 8, x1 = C::kMat + x;
+            mma3s(acc1[n2], ph, pl, xh[x1], xh[x1 + st], xl[x1], xl[x1 + st]);
+            mma3s(acc0[n2], sh, sl, xh[x], xh[x + st], xl[x], xl[x + st]);
+          }
+        }
+      }
     }
   }
 
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = half ? r1 : r0;
-    if (r >= rows) continue;
-    float* dqr = a.dq + q_off(a, b, row0 + r, h);
+    if (r >= nf) continue;
+    const int row = f0 + r;
 #pragma unroll
-    for (int n = 0; n < ND; ++n) {
+    for (int n2 = 0; n2 < kKK; ++n2)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int d = n * 8 + 2 * t + e;
-        if (d < D) dqr[d] = acc[n][2 * half + e] * a.scale;
+        const int c = cg * kCols + n2 * 8 + 2 * t + e;
+        if (c >= D) continue;
+        const float x0 = acc0[n2][2 * half + e];
+        if (kDQ) {
+          const size_t o = q_off(a, b, row, h) + c;
+          if (a.wq)
+            a.wq[static_cast<size_t>(split) * a.B * a.Sq * a.Hq * D + o] = x0 * a.scale;
+          else
+            a.dq[o] = x0 * a.scale;
+        } else {
+          const float x1 = acc1[n2][2 * half + e] + (split ? 0.0f : ex[c]);
+          if (a.wk) {
+            const size_t o = static_cast<size_t>(split) * a.B * a.Sk * a.Hq * D +
+                             w_off(a, b, row, h) + c;
+            a.wk[o] = x0;
+            a.wv[o] = x1;
+          } else {
+            const size_t o = k_off(a, b, row, hk) + c;
+            a.dk[o] = x0;
+            a.dv[o] = x1;
+          }
+        }
       }
-    }
   }
 }
 
-template <typename K>
-int set_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(bytes)));
+template <int DP>
+__global__ void __launch_bounds__(Cfg<DP>::kThreads, Cfg<DP>::kMinBlocks) dkv_kernel(Args a) {
+  tiles<DP, false>(a);
 }
 
 template <int DP>
-int launch_dp(const Args& a, cudaStream_t s) {
-  const long rows = static_cast<long>(a.B) * a.Sq * a.Hq;
-  delta_kernel<<<static_cast<unsigned>((rows * 32 + kThreads - 1) / kThreads), kThreads, 0, s>>>(a);
-  int err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  constexpr size_t kv_bytes = dkv_smem<DP>();
-  if ((err = set_smem(dkv_kernel<DP>, kv_bytes))) return err;
-  const int kv_ctas = (a.Sk + kRows - 1) / kRows * (DP / chunk_cols<DP>());
-  dkv_kernel<DP><<<dim3(kv_ctas, a.Hkv, a.B), kThreads, kv_bytes, s>>>(a);
-  if ((err = static_cast<int>(cudaGetLastError()))) return err;
-  constexpr size_t q_bytes = dq_smem<DP>();
-  if ((err = set_smem(dq_kernel<DP>, q_bytes))) return err;
-  dq_kernel<DP><<<dim3((a.Sq + kRows - 1) / kRows, a.Hq, a.B), kThreads, q_bytes, s>>>(a);
-  return static_cast<int>(cudaGetLastError());
+__global__ void __launch_bounds__(Cfg<DP>::kThreads, Cfg<DP>::kMinBlocks) dq_kernel(Args a) {
+  tiles<DP, true>(a);
 }
 
-int launch(const Args& a, cudaStream_t s) {
+// ---------------------------------------------------------------- reduce
+
+// dk, dv [B, Sk, Hkv, D]: each KV head's partials summed in head order,
+// each head's splits in split order.
+__global__ void __launch_bounds__(kRedThreads) reduce_kernel(Args a) {
+  const int G = a.Hq / a.Hkv;
+  const size_t n = static_cast<size_t>(a.B) * a.Sk * a.Hkv * a.D;
+  const size_t split = static_cast<size_t>(a.B) * a.Sk * a.Hq * a.D;
+  for (size_t e = static_cast<size_t>(blockIdx.x) * kRedThreads + threadIdx.x; e < n;
+       e += static_cast<size_t>(gridDim.x) * kRedThreads) {
+    const int d = static_cast<int>(e % a.D);
+    const size_t r = e / a.D;
+    const int hk = static_cast<int>(r % a.Hkv);
+    const size_t bj = r / a.Hkv;  // b * Sk + j
+    const size_t o = (bj * a.Hq + static_cast<size_t>(hk) * G) * a.D + d;
+    const int n_in = G * a.splits;  // partial i: head i / splits, split i % splits
+    float sk = 0.0f, sv = 0.0f;
+    for (int i0 = 0; i0 < n_in; i0 += kRedBatch) {  // a batch of loads in flight, summed in order
+      float xk[kRedBatch], xv[kRedBatch];
+#pragma unroll
+      for (int j = 0; j < kRedBatch; ++j) {
+        const int i = i0 + j;
+        const size_t w = o + static_cast<size_t>(i / a.splits) * a.D + (i % a.splits) * split;
+        xk[j] = i < n_in ? a.wk[w] : 0.0f;
+        xv[j] = i < n_in ? a.wv[w] : 0.0f;
+      }
+#pragma unroll
+      for (int j = 0; j < kRedBatch; ++j)
+        if (i0 + j < n_in) {
+          sk += xk[j];
+          sv += xv[j];
+        }
+    }
+    a.dk[e] = sk;
+    a.dv[e] = sv;
+  }
+}
+
+// dq [B, Sq, Hq, D]: the splits' partials summed in split order.
+__global__ void __launch_bounds__(kRedThreads) reduce_q_kernel(Args a) {
+  const size_t n = static_cast<size_t>(a.B) * a.Sq * a.Hq * a.D;
+  for (size_t e = static_cast<size_t>(blockIdx.x) * kRedThreads + threadIdx.x; e < n;
+       e += static_cast<size_t>(gridDim.x) * kRedThreads) {
+    float x[kMaxSplits];
+#pragma unroll
+    for (int y = 0; y < kMaxSplits; ++y) x[y] = y < a.splits ? a.wq[e + y * n] : 0.0f;
+    float s = 0.0f;
+#pragma unroll
+    for (int y = 0; y < kMaxSplits; ++y)
+      if (y < a.splits) s += x[y];
+    a.dq[e] = s;
+  }
+}
+
+unsigned red_blocks(size_t n) {
+  const size_t blocks = (n + kRedThreads - 1) / kRedThreads;
+  return static_cast<unsigned>(blocks < 65535 ? blocks : 65535);
+}
+
+// Once per kernel and device (bit d of done: set on device d; setting it
+// twice from two threads is harmless).
+template <typename K>
+int set_smem(K kernel, size_t bytes, unsigned& done) {
+  if (bytes <= 48 * 1024) return 0;
+  int dev = 0;
+  int err = static_cast<int>(cudaGetDevice(&dev));
+  if (err || (dev < 32 && (done >> dev & 1u))) return err;
+  err = static_cast<int>(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              static_cast<int>(bytes)));
+  if (!err && dev < 32) done |= 1u << dev;
+  return err;
+}
+
+// dK/dV and their reduction on s; dQ and its splits' sum on sq.
+template <int DP>
+int launch_dp(const Args& a, cudaStream_t s, cudaStream_t sq) {
+  using C = Cfg<DP>;
+  int err = 0;
+  {
+    static unsigned kv_set = 0;
+    if ((err = set_smem(dkv_kernel<DP>, C::kBytes, kv_set))) return err;
+    const unsigned kb = (a.Sk + kFix - 1) / kFix;
+    dkv_kernel<DP><<<dim3(kb * a.splits, a.Hq, a.B), C::kThreads, C::kBytes, s>>>(a);
+    if ((err = static_cast<int>(cudaGetLastError()))) return err;
+    if (a.wk) {
+      reduce_kernel<<<red_blocks(static_cast<size_t>(a.B) * a.Sk * a.Hkv * a.D), kRedThreads,
+                      0, s>>>(a);
+      if ((err = static_cast<int>(cudaGetLastError()))) return err;
+    }
+  }
+  {
+    static unsigned q_set = 0;
+    if ((err = set_smem(dq_kernel<DP>, C::kBytes, q_set))) return err;
+    const unsigned qb = (a.Sq + kFix - 1) / kFix;
+    dq_kernel<DP><<<dim3(qb * a.splits, a.Hq, a.B), C::kThreads, C::kBytes, sq>>>(a);
+    if ((err = static_cast<int>(cudaGetLastError()))) return err;
+    if (a.wq) {
+      reduce_q_kernel<<<red_blocks(static_cast<size_t>(a.B) * a.Sq * a.Hq * a.D), kRedThreads,
+                        0, sq>>>(a);
+      err = static_cast<int>(cudaGetLastError());
+    }
+  }
+  return err;
+}
+
+// delta on s; then dK/dV on s and dQ on side (when given: forked after
+// delta through the event fork, joined back into s through join).
+int launch(const Args& a, int dp, cudaStream_t s, cudaStream_t side, cudaEvent_t fork,
+           cudaEvent_t join) {
   if (a.B <= 0 || a.Sq <= 0 || a.Sk <= 0 || a.Hq <= 0 || a.D <= 0) return 0;
-  if (a.Hkv <= 0 || a.Hq % a.Hkv != 0 || a.D > 256 || a.Hq > 65535 || a.B > 65535)
+  if (a.Hkv <= 0 || a.Hq % a.Hkv != 0 || a.D > dp || a.Hq > 65535 || a.B > 65535 ||
+      a.splits < 1 || a.splits > kMaxSplits || (a.splits > 1 && a.Hq == a.Hkv) ||
+      ((a.wk == nullptr) != (a.Hq == a.Hkv)) || (a.wk != nullptr) != (a.wv != nullptr) ||
+      ((a.wq == nullptr) != (a.splits == 1)))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (a.D <= 32) return launch_dp<32>(a, s);
-  if (a.D <= 64) return launch_dp<64>(a, s);
-  if (a.D <= 128) return launch_dp<128>(a, s);
-  return launch_dp<256>(a, s);
+  if (dp != 32 && dp != 64 && dp != 128 && dp != 160 && dp != 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long rows = static_cast<long>(a.B) * a.Sq * a.Hq;
+  delta_kernel<<<static_cast<unsigned>((rows * 32 + kDeltaThreads - 1) / kDeltaThreads),
+                 kDeltaThreads, 0, s>>>(a);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  cudaStream_t sq = s;
+  if (side) {
+    if ((err = static_cast<int>(cudaEventRecord(fork, s)))) return err;
+    if ((err = static_cast<int>(cudaStreamWaitEvent(side, fork, 0)))) return err;
+    sq = side;
+  }
+  switch (dp) {
+    case 32: err = launch_dp<32>(a, s, sq); break;
+    case 64: err = launch_dp<64>(a, s, sq); break;
+    case 128: err = launch_dp<128>(a, s, sq); break;
+    case 160: err = launch_dp<160>(a, s, sq); break;
+    default: err = launch_dp<256>(a, s, sq); break;
+  }
+  if (side) {  // joined even after a failed launch, so s never runs ahead of side
+    const int e1 = static_cast<int>(cudaEventRecord(join, side));
+    const int e2 = static_cast<int>(cudaStreamWaitEvent(s, join, 0));
+    if (!err) err = e1 ? e1 : e2;
+  }
+  return err;
 }
 
 }  // namespace
@@ -483,14 +781,24 @@ int launch(const Args& a, cudaStream_t s) {
 REPRO_EXPORT int flash_attn_bwd_f32(const void* q, const void* k, const void* v, const void* out,
                                     const void* dout, const void* lse, const void* qpos,
                                     const void* kpos, void* delta, void* dq, void* dk, void* dv,
-                                    int B, int Sq, int Sk, int Hq, int Hkv, int D, int causal,
-                                    int window, float scale, float pad_den, void* stream) {
+                                    void* wk, void* wv, void* wq, int B, int Sq, int Sk, int Hq,
+                                    int Hkv, int D, int causal, int window, float scale,
+                                    float pad_den, int dp, int vec, int splits, void* stream,
+                                    void* side, void* fork, void* join) {
   const Args a{static_cast<const float*>(q),    static_cast<const float*>(k),
                static_cast<const float*>(v),    static_cast<const float*>(out),
                static_cast<const float*>(dout), static_cast<const float*>(lse),
                static_cast<const int*>(qpos),   static_cast<const int*>(kpos),
                static_cast<float*>(delta),      static_cast<float*>(dq),
                static_cast<float*>(dk),         static_cast<float*>(dv),
-               B, Sq, Sk, Hq, Hkv, D, causal, window, scale, pad_den};
-  return launch(a, static_cast<cudaStream_t>(stream));
+               static_cast<float*>(wk),         static_cast<float*>(wv),
+               static_cast<float*>(wq),         B,
+               Sq,                              Sk,
+               Hq,                              Hkv,
+               D,                               causal,
+               window,                          scale,
+               pad_den,                         vec,
+               splits};
+  return launch(a, dp, static_cast<cudaStream_t>(stream), static_cast<cudaStream_t>(side),
+                static_cast<cudaEvent_t>(fork), static_cast<cudaEvent_t>(join));
 }

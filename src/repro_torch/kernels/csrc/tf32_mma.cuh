@@ -43,3 +43,13 @@ __device__ __forceinline__ void mma3(float c[4], const unsigned ahi[4], const un
     mma(c, ahi, b0h, b1h);
   }
 }
+
+// c += a * b with both split ahead of the product (b's halves read from a
+// hi and a lo tile, where each element was split once), small terms first:
+// the same three passes as mma3<true>.
+__device__ __forceinline__ void mma3s(float c[4], const unsigned ahi[4], const unsigned alo[4],
+                                      unsigned bh0, unsigned bh1, unsigned bl0, unsigned bl1) {
+  mma(c, alo, bh0, bh1);
+  mma(c, ahi, bl0, bl1);
+  mma(c, ahi, bh0, bh1);
+}

@@ -10,7 +10,10 @@ reference's KV block pads), a window, invalid slots and rows with no
 allowed key. Tolerance: each gradient within 2e-6 of its scale (max abs
 difference over max abs value): the plain backward recomputes P from the
 log-sum-exp where autograd differentiates the online softmax, which
-rounds differently."""
+rounds differently. The CUDA kernel's launch plan (instance, grids, splits,
+workspace, shared memory) is tested here too, without a card."""
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -136,3 +139,99 @@ def test_lse_marks_rows_with_no_key():
     assert lse.shape == (1, 3, 12)
     assert torch.all(lse[:, :, :4] == ref.NEG_INF) and torch.all(lse[:, :, 4:] > -100)
     torch.testing.assert_close(out, ref.chunked_attention_ref(*args), rtol=0, atol=0)
+
+
+# The CUDA kernel's launch plan (kernels/flash_attn_bwd.py:plan), tested
+# without a card: [B, S, Hq, Hkv, D] with Sq = Sk = S.
+PLAN_SHAPES = {
+    "smollm": (8, 512, 15, 5, 64),
+    "qwen2.5": (1, 512, 10, 2, 128),
+    "stablelm": (1, 512, 8, 2, 160),
+    "recurrentgemma": (4, 512, 10, 1, 256),
+    "qwen2-moe-mha": (4, 512, 16, 16, 128),
+    "reduced": (4, 64, 4, 1, 16),
+    "group7-d20": (2, 100, 7, 1, 20),
+    "decode-sized": (2, 5, 3, 1, 16),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PLAN_SHAPES))
+def test_bwd_plan_covers_every_row_head_and_batch_once_per_split(name):
+    """Each dK/dV CTA holds 32 keys of one query head and batch row, each
+    dQ CTA 32 query rows; over a grid every (row, head, batch row) is held
+    by exactly one CTA of each split."""
+    from repro_torch.kernels import flash_attn_bwd as fb
+
+    b, s, hq, hkv, d = PLAN_SHAPES[name]
+    p = fb.plan(b, s, s, hq, hkv, d)
+    for grid in (p["dkv_grid"], p["dq_grid"]):
+        nx, ny, nz = grid
+        assert (ny, nz) == (hq, b) and nx % p["splits"] == 0
+        blocks = nx // p["splits"]
+        seen = np.zeros((p["splits"], s, hq, b), dtype=np.int64)
+        for x in range(nx):
+            row0, split = (x % blocks) * fb.FIX_ROWS, x // blocks
+            seen[split, row0:min(row0 + fb.FIX_ROWS, s)] += 1
+        assert np.all(seen == 1)
+
+
+@pytest.mark.parametrize("d", [16, 20, 32, 64, 100, 128, 129, 160, 161, 200, 256])
+def test_bwd_plan_instance_is_the_smallest_at_or_above_d(d):
+    from repro_torch.kernels import flash_attn_bwd as fb
+
+    p = fb.plan(1, 64, 64, 4, 2, d)
+    assert p["dp"] == min(x for x in fb.INSTANCES if x >= d)
+    assert p["threads"] == 32 * p["warps"] == 32 * 2 * p["dp"] // fb.COLS
+    if 128 < d <= 160:  # D 160 has its own instance: no 256-wide work
+        assert p["dp"] == 160
+
+
+def test_bwd_plan_fills_the_card_at_qwen25():
+    """[1, 512, 10, 2, 128]: at least one CTA per SM (132) in both tile
+    kernels (the dK/dV grid was 16 CTAs when one walked a GQA group)."""
+    from repro_torch.kernels import flash_attn_bwd as fb
+
+    p = fb.plan(1, 512, 512, 10, 2, 128)
+    for grid in (p["dkv_grid"], p["dq_grid"]):
+        assert math.prod(grid) >= 132
+
+
+@pytest.mark.parametrize("name", sorted(PLAN_SHAPES))
+def test_bwd_plan_workspace(name):
+    """No workspace for MHA (one query head per KV head: no splits either);
+    with a group, per-head and per-split dK and dV, and per-split dQ where
+    a block's tiles are split."""
+    from repro_torch.kernels import flash_attn_bwd as fb
+
+    b, s, hq, hkv, d = PLAN_SHAPES[name]
+    p = fb.plan(b, s, s, hq, hkv, d)
+    if hq == hkv:
+        assert p["splits"] == 1 and p["workspace_bytes"] == 0
+        assert p["reduce_grid"] is None and p["reduce_q_grid"] is None
+    else:
+        sp = p["splits"]
+        assert 1 <= sp <= fb.MAX_SPLITS and p["reduce_grid"] is not None
+        want = 4 * (2 * sp * b * s * hq * d + (sp * b * s * hq * d if sp > 1 else 0))
+        assert p["workspace_bytes"] == want
+        assert (p["reduce_q_grid"] is not None) == (sp > 1)
+
+
+def test_bwd_plan_shared_memory_fits_the_sm():
+    """Every instance fits an H100 CTA (227 KB); D <= 128 two CTAs an SM
+    (228 KB of shared memory), D 256 one."""
+    from repro_torch.kernels import flash_attn_bwd as fb
+
+    for dp in fb.INSTANCES:
+        smem = fb.plan(1, 64, 64, 2, 1, dp)["smem_bytes"]
+        assert smem <= 232_448
+        if dp <= 128:
+            assert 2 * smem <= 233_472
+
+
+def test_bwd_plan_rejects_what_the_kernel_does_not_take():
+    from repro_torch.kernels import flash_attn_bwd as fb
+
+    with pytest.raises(ValueError):
+        fb.plan(1, 8, 8, 4, 2, 257)
+    with pytest.raises(ValueError):
+        fb.plan(1, 8, 8, 5, 2, 64)

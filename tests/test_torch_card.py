@@ -118,6 +118,12 @@ BWD_CASES = {
     "d160-g4": (1, 70, 8, 2, 160, True, -1, 0, 0),
     "long-1536": (1, 1536, 5, 1, 64, True, -1, 0, 0),
     "noncausal": (2, 33, 4, 4, 16, False, -1, 0, 0),
+    # the dK/dV per query head and the splits of a block's live tiles
+    "d160-512-g4": (1, 512, 8, 2, 160, True, -1, 0, 0),
+    "d256-mqa10": (2, 300, 10, 1, 256, True, -1, 0, 0),
+    "group7-d20-4byte": (2, 100, 7, 1, 20, True, -1, 0, 0),
+    "sk70-invalid-g2": (1, 70, 6, 3, 64, True, -1, 3, 0),
+    "g3-empty-splits": (1, 40, 3, 1, 128, True, -1, 0, 0),
 }
 
 
