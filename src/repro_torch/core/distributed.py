@@ -36,7 +36,8 @@ import torch
 from repro_torch.core import rng
 
 __all__ = ["DeviceMesh", "device_grid", "lane_mesh", "core_mesh", "device_context", "on_entry",
-           "current_entry", "COLLECTIVES", "reset_collectives", "note_collective", "ShardedParams",
+           "current_entry", "COLLECTIVES", "GATHERED", "reset_collectives", "note_collective",
+           "note_gathered", "recording_collectives", "replay_collectives", "ShardedParams",
            "ShardedState", "ShardedSNN", "make_step", "build_sharded"]
 
 f32 = torch.float32
@@ -134,16 +135,50 @@ _ENTRY: contextvars.ContextVar[tuple[int, ...] | None] = contextvars.ContextVar(
 # over all of them (a device's share; ``_RECEIVED`` keeps every entry's).
 COLLECTIVES: dict[str, dict[str, int]] = {}
 _RECEIVED: dict[str, dict[tuple, int]] = {}
+# Per mesh entry, the bytes of parameters (and batch or cache rows) that
+# the LM lowering assembled on it for its compute since the last reset:
+# its own block and what it took in, held through the step.
+GATHERED: dict[tuple, int] = {}
 
 
 def reset_collectives() -> None:
     COLLECTIVES.clear()
     _RECEIVED.clear()
+    GATHERED.clear()
+
+
+def note_gathered(entry: tuple, nbytes: int) -> None:
+    """Count ``nbytes`` that ``entry`` assembled for its compute."""
+    GATHERED[entry] = GATHERED.get(entry, 0) + int(nbytes)
+
+
+_RECORDS: list = []
+
+
+@contextlib.contextmanager
+def recording_collectives(log: list):
+    """Append every collective counted inside to ``log`` as ``(kind,
+    received)`` as well (:func:`replay_collectives` counts them again)."""
+    _RECORDS.append(log)
+    try:
+        yield log
+    finally:
+        _RECORDS.remove(log)
+
+
+def replay_collectives(log: list, move) -> None:
+    """Count the collectives of ``log`` again, each entry moved by
+    ``move(entry)``: a dry-run's data index counting what the computing
+    one's model group did."""
+    for kind, received in log:
+        note_collective(kind, {move(e): b for e, b in received.items()})
 
 
 def note_collective(kind: str, received: dict[tuple, int]) -> None:
     """Count one collective of ``kind`` that brings ``received[entry]``
     bytes into each receiving entry from the others."""
+    for log in _RECORDS:
+        log.append((kind, dict(received)))
     per = _RECEIVED.setdefault(kind, {})
     for entry, nbytes in received.items():
         per[entry] = per.get(entry, 0) + int(nbytes)

@@ -31,9 +31,17 @@ computes and every collective runs, for each data index, on shapes only.
   inputs), parameters and views of them not counted. XLA's
   ``temp_bytes`` has no counterpart in eager PyTorch: recorded as null.
   ``working_bytes`` adds the arguments, the saved activations and what the
-  compute entry all-gathers (the lowering computes data-parallel only, so
-  it gathers whole parameters); ``fits_hbm`` holds it against the card's
-  80 GB.
+  fullest compute entry assembles for its compute (``gathered_bytes``:
+  ``core/distributed.GATHERED``, its parameters and batch or cache rows):
+  under ``model_compute`` ``"data"`` the whole parameters, under
+  ``"megatron"`` only its ranges (heads, ``d_ff``, vocab) and the
+  replicated norms; ``fits_hbm`` holds it against the card's 80 GB. With
+  one data index computing, all of that index's model-rank entries
+  compute. Under ``"megatron"`` one backward call spans a model group's
+  entries: :class:`_BackwardEntries` runs each autograd node's backward
+  as the entry that made it, and a tensor saved outside any entry (remat's
+  block inputs, the loss's chunks) is charged to the entry whose op made
+  its storage.
 * **Collectives** (``collectives``, ``collective_bytes``) are the
   lowering's own counters (``core/distributed.COLLECTIVES``): per kind the
   calls, and the bytes the entry taking in the most receives over them
@@ -47,6 +55,7 @@ No analysis twins: counting op by op visits every layer
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -54,6 +63,7 @@ import traceback
 from collections import defaultdict
 
 import torch
+from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
@@ -103,12 +113,14 @@ class OpCounter(TorchDispatchMode):
     ``flops`` by ``torch.utils.flop_counter``'s formulas for products and
     convolutions plus one per output element of elementwise ops and
     reductions, and ``bytes`` as every op's tensor inputs plus outputs,
-    views excluded."""
+    views excluded. ``owner`` maps each storage an op made to the entry
+    it ran as."""
 
     def __init__(self):
         super().__init__()
         self.flops: dict = defaultdict(int)
         self.bytes: dict = defaultdict(int)
+        self.owner: dict = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -121,24 +133,71 @@ class OpCounter(TorchDispatchMode):
         elif torch.Tag.pointwise in func.tags or packet in _REDUCTIONS:
             self.flops[entry] += sum(t.numel() for t in outs)
         if not func.is_view:
-            self.bytes[entry] += (sum(_nbytes(t) for t in _tensors((args, kwargs)))
-                                  + sum(_nbytes(t) for t in outs))
+            ins = list(_tensors((args, kwargs)))
+            self.bytes[entry] += sum(_nbytes(t) for t in ins) + sum(_nbytes(t) for t in outs)
+            read = {t.untyped_storage()._cdata for t in ins}
+            for t in outs:
+                key = t.untyped_storage()._cdata
+                if key not in read:
+                    self.owner[key] = entry
         return out
+
+
+class _BackwardEntries(TorchFunctionMode):
+    """Tags the autograd node of every op run as a mesh entry, and the
+    untagged nodes behind it (views and casts made outside any entry), to
+    run its backward as that entry (:func:`distributed.on_entry`), as its
+    forward ran. The backward runs on the calling thread here (``meta``)."""
+
+    def __init__(self, mesh):
+        super().__init__()
+        self.mesh = mesh
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        entry = distributed.current_entry()
+        if entry is not None:
+            self._tag([t.grad_fn for t in _tensors(out)], entry)
+        return out
+
+    def _tag(self, stack: list, entry: tuple) -> None:
+        while stack:
+            node = stack.pop()
+            if node is None or "entry" in node.metadata or type(node).__name__ == "AccumulateGrad":
+                continue
+            node.metadata["entry"] = entry
+            held: list = []
+
+            def enter(_grads, held=held, entry=entry):
+                held.append(distributed.on_entry(self.mesh, entry))
+                held[-1].__enter__()
+
+            def leave(_grads_in, _grads_out, held=held):
+                held.pop().__exit__(None, None, None)
+
+            node.register_prehook(enter)
+            node.register_hook(leave)
+            stack.extend(n for n, _ in node.next_functions)
 
 
 class _Saved:
     """Bytes saved for the backward per entry, each storage once, the
-    parameters' storages (autograd leaves) not counted."""
+    parameters' storages (autograd leaves) not counted; with ``owner``, a
+    tensor saved outside any entry is charged to its storage's owner."""
 
-    def __init__(self):
+    def __init__(self, owner: dict | None = None):
         self.bytes: dict = defaultdict(int)
         self._seen: set = set()
+        self._owner = owner if owner is not None else {}
 
     def pack(self, t: torch.Tensor):
         key = t.untyped_storage()._cdata
         if key not in self._seen and not (t.is_leaf and t.requires_grad):
             self._seen.add(key)
-            self.bytes[distributed.current_entry()] += t.untyped_storage().nbytes()
+            entry = distributed.current_entry()
+            if entry is None:
+                entry = self._owner.get(key)
+            self.bytes[entry] += t.untyped_storage().nbytes()
         return t
 
     @staticmethod
@@ -170,9 +229,12 @@ def count_step(task) -> dict:
               for a, s in zip(args, task.in_shardings)]
     arg_held = sh.held_bytes(placed)
     distributed.reset_collectives()
-    counter, saved = OpCounter(), _Saved()
+    counter = OpCounter()
+    split = task.model_compute == "megatron"
+    saved = _Saved(counter.owner if split else None)
+    entries = _BackwardEntries(mesh) if split else contextlib.nullcontext()
     t0 = time.perf_counter()
-    with counter, torch.autograd.graph.saved_tensors_hooks(saved.pack, saved.unpack):
+    with entries, counter, torch.autograd.graph.saved_tensors_hooks(saved.pack, saved.unpack):
         out = task.fn(*placed)
     seconds = time.perf_counter() - t0
     colls = {k: dict(v) for k, v in distributed.COLLECTIVES.items()}
@@ -192,6 +254,7 @@ def count_step(task) -> dict:
         },
         "collectives": colls,
         "collective_bytes": sum(v["bytes"] for v in colls.values()),
+        "gathered_bytes": max(distributed.GATHERED.values(), default=0),
     }
 
 
@@ -237,12 +300,14 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: str, *,
         prod = count_step(task)
         record["production"] = prod
         record["n_devices"] = mesh.size
+        record["model_compute"] = task.model_compute
+        record["seq_shard"] = seq_shard
         mem = prod["memory"]
         # What the compute entry holds at once: its blocks, what it gathers
-        # (the storage-dtype params, its rows of the cache) and the saved
-        # activations.
+        # (the storage-dtype params or their ranges, its rows of the batch
+        # or the cache) and the saved activations.
         record["working_bytes"] = (mem["argument_bytes"] + mem["activation_bytes"]
-                                   + prod["collectives"].get("all-gather", {}).get("bytes", 0))
+                                   + prod["gathered_bytes"])
         record["fits_hbm"] = record["working_bytes"] <= HBM_BYTES
         record["status"] = "ok"
     except Exception as e:  # record the failure: these are bugs to fix
@@ -296,8 +361,11 @@ def main() -> None:
                 extra = ""
                 if status == "ok":
                     mem = rec["production"]["memory"]
-                    extra = (f"args={mem['argument_bytes'] / 2**30:.2f}GiB "
+                    extra = (f"{rec['model_compute']} "
+                             f"args={mem['argument_bytes'] / 2**30:.2f}GiB "
+                             f"gathered={rec['production']['gathered_bytes'] / 2**30:.2f}GiB "
                              f"saved={mem['activation_bytes'] / 2**30:.2f}GiB "
+                             f"working={rec['working_bytes'] / 1e9:.1f}GB "
                              f"flops={rec['production']['flops']:.3e} "
                              f"count={rec['production']['count_s']:.0f}s")
                 elif status == "error":

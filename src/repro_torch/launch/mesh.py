@@ -15,12 +15,18 @@ A mesh is a device list (:class:`~repro_torch.core.distributed.DeviceMesh`,
 N-D, repeats allowed: ``["cpu"] * 4`` on the CPU, ``[card] * 8`` on one
 card). The tensors laid out per a :class:`NamedSharding`, and the
 collectives over named axes, are :mod:`repro_torch.launch.sharded`'s.
+
+The compute plan (:func:`compute_plan`, port-only) says what each rank of
+a ``model`` group computes under the Megatron lowering of
+``models/tasks.py`` (:func:`model_compute`): its query heads, the KV heads
+they read, its range of ``d_ff`` and of the vocabulary, each a balanced
+contiguous range.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 
@@ -29,7 +35,8 @@ from repro_torch.precision.policy import _flatten
 
 __all__ = ["Mesh", "P", "NamedSharding", "make_production_mesh", "make_host_mesh", "data_axes",
            "model_axes", "param_pspec", "cache_pspec", "fit_spec", "tree_pspecs",
-           "batch_pspecs", "named", "KV_CACHE_LAYOUT", "part_axes", "key_paths"]
+           "batch_pspecs", "named", "KV_CACHE_LAYOUT", "part_axes", "key_paths", "RankPlan",
+           "compute_plan", "model_compute", "balanced", "model_size"]
 
 Mesh = DeviceMesh
 
@@ -278,3 +285,86 @@ def named(specs, mesh: DeviceMesh):
     """A tree of :class:`P` -> a tree of :class:`NamedSharding`."""
     leaves, rebuild = _flatten(specs)
     return rebuild([NamedSharding(mesh, s) for s in leaves])
+
+
+# -- the compute plan of the model axis (port-only) -----------------------------------
+
+
+def model_size(mesh: DeviceMesh) -> int:
+    """The size m of the mesh's ``model`` axis (1 without one)."""
+    return mesh.shape.get("model", 1)
+
+
+def balanced(n: int, m: int) -> list[tuple[int, int]]:
+    """``n`` split into ``m`` contiguous ranges ``(lo, hi)``, the first ``n
+    % m`` one longer than the rest (empty ranges when ``m > n``)."""
+    out, lo = [], 0
+    for r in range(m):
+        hi = lo + n // m + (1 if r < n % m else 0)
+        out.append((lo, hi))
+        lo = hi
+    return out
+
+
+class RankPlan(NamedTuple):
+    """What model rank ``rank`` computes: query heads ``q_heads``, the KV
+    heads ``kv_heads`` they read (``[lo, hi)``, global indices; a rank
+    whose heads split no KV group recomputes the shared ones), its ``ff``
+    range of ``d_ff`` and its ``vocab`` range."""
+
+    rank: int
+    q_heads: tuple[int, int]
+    kv_heads: tuple[int, int]
+    ff: tuple[int, int]
+    vocab: tuple[int, int]
+
+    @property
+    def n_heads(self) -> int:
+        return self.q_heads[1] - self.q_heads[0]
+
+    @property
+    def n_kv(self) -> int:
+        return self.kv_heads[1] - self.kv_heads[0]
+
+    def kv_runs(self, group: int) -> list[tuple[int, int, int]]:
+        """The rank's query heads in runs reading one KV head each: ``(q_lo,
+        q_hi, kv)`` in local indices (``group`` query heads per KV head)."""
+        runs = []
+        for q in range(*self.q_heads):
+            kv = q // group - self.kv_heads[0]
+            if runs and runs[-1][2] == kv:
+                runs[-1] = (runs[-1][0], runs[-1][1] + 1, kv)
+            else:
+                q_lo = q - self.q_heads[0]
+                runs.append((q_lo, q_lo + 1, kv))
+        return runs
+
+
+def compute_plan(cfg, m: int) -> list[RankPlan]:
+    """Per model rank of an ``m``-way ``model`` axis its heads, ``d_ff``
+    range and vocab range. Where ``m <= n_kv_heads`` the ranks split whole
+    KV groups, balanced and contiguous (the first ``n_kv % m`` one group
+    more: smollm's 5 on 2 ranks as 3 + 2), each taking its groups' query
+    heads; else they split the query heads, balanced and contiguous, each
+    reading the KV heads its queries read (recomputed on every rank that
+    reads them). A rank may hold no head (qwen2-vl's 12 on 16)."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    if m <= cfg.n_kv_heads:
+        kvs = balanced(cfg.n_kv_heads, m)
+        qs = [(lo * g, hi * g) for lo, hi in kvs]
+    else:
+        qs = balanced(cfg.n_heads, m)
+        kvs = [(lo // g, (hi - 1) // g + 1) if hi > lo else (0, 0) for lo, hi in qs]
+    ffs, vocab = balanced(cfg.d_ff, m), balanced(cfg.vocab_size, m)
+    return [RankPlan(r, qs[r], kvs[r], ffs[r], vocab[r]) for r in range(m)]
+
+
+def model_compute(cfg) -> str:
+    """How the mesh lowering computes ``cfg`` over a ``model`` axis:
+    ``"megatron"`` (heads, ``d_ff`` and vocabulary split over the ranks)
+    where every layer is an attention block with a dense MLP, else
+    ``"data"`` (data-parallel over the data axes; MoE, Mamba and the RG-LRU
+    hybrid)."""
+    dense = cfg.moe is None and cfg.ssm is None and cfg.hybrid is None
+    return "megatron" if dense and all(cfg.layer_kind(i) == "attn"
+                                       for i in range(cfg.n_layers)) else "data"

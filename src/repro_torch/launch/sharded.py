@@ -6,12 +6,16 @@ PyTorch has no GSPMD in one process, so the port lays a tensor out itself:
 a :class:`Sharded` holds one block per mesh entry, on that entry's device,
 as its :class:`~repro_torch.launch.mesh.NamedSharding` says, and the
 lowering (``models/tasks.py``) moves data only through :func:`all_gather`,
-:func:`reduce_scatter` and :func:`all_reduce` over named axes. Each sums in
-a fixed order (the parts' order, mesh index order; never a float atomic)
-and counts its calls and bytes in
-:data:`repro_torch.core.distributed.COLLECTIVES`: per kind, the bytes that
-the entry taking in the most has received from other entries (a device's
-share).
+:func:`region_gather`, :func:`reduce_scatter` and :func:`all_reduce` over
+named axes, and, inside a ``model`` group (a data index's entries in rank
+order, :class:`Group`), through the differentiable :func:`group_sum`,
+:func:`group_copy`, :func:`seq_gather` and :func:`seq_scatter` (Megatron's
+g and f, and sequence parallelism's all-gather / reduce-scatter pair).
+Each sums in a fixed order (the parts' order, mesh index order, rank
+order; never a float atomic) and counts its calls and bytes in
+:data:`repro_torch.core.distributed.COLLECTIVES`, a group collective in
+its forward and in its backward: per kind, the bytes that the entry
+taking in the most has received from other entries (a device's share).
 """
 from __future__ import annotations
 
@@ -20,12 +24,15 @@ import math
 import numpy as np
 import torch
 
+from typing import NamedTuple
+
 from repro_torch.core.distributed import DeviceMesh, note_collective, on_entry
 from repro_torch.launch.mesh import NamedSharding, P, data_axes, part_axes
 from repro_torch.precision.policy import _flatten
 
 __all__ = ["Sharded", "shard", "gather", "shard_tree", "gather_tree", "held_bytes", "entries",
-           "blocks_of", "block_slices", "all_gather", "reduce_scatter", "all_reduce"]
+           "blocks_of", "block_slices", "all_gather", "reduce_scatter", "all_reduce", "pieces",
+           "region_gather", "Group", "group_sum", "group_copy", "seq_gather", "seq_scatter"]
 
 
 def entries(mesh: DeviceMesh) -> list[tuple]:
@@ -198,38 +205,70 @@ def _inside(block: tuple, region: tuple) -> bool:
     return all(r.start <= b.start and b.stop <= r.stop for b, r in zip(block, region))
 
 
+def _overlap(block: tuple, region: tuple) -> tuple | None:
+    """The slices of the whole tensor in both ``block`` and ``region``, or
+    None where they do not meet."""
+    out = tuple(slice(max(b.start, r.start), min(b.stop, r.stop)) for b, r in zip(block, region))
+    return None if any(s.start >= s.stop for s in out) else out
+
+
+def _within(sl: tuple, origin: tuple) -> tuple:
+    return tuple(slice(s.start - o.start, s.stop - o.start) for s, o in zip(sl, origin))
+
+
 def reduce_scatter(parts: list, sharding: NamedSharding, shape: tuple, axes) -> Sharded:
     """Each entry's block of the sum of ``parts`` over ``axes``: ``parts``
     is ``[(src, region, tensor)]``, ``tensor`` the part of the whole that
     ``src`` contributes over ``region`` (a data index's compute entry
-    stands for its whole group). An entry sums, in ``parts``' order, the
+    stands for its whole group; under model-axis compute each rank's
+    gradient over its ranges). An entry sums, in ``parts``' order, the
     parts whose source agrees with it on every batch axis not in ``axes``
-    and whose region holds its block: over the data axes every data
-    index's gradient (a reduce-scatter), over ``model`` only its own data
-    index's rows (a scatter within the group). Counts one reduce-scatter
-    of what each entry takes from the others."""
+    and whose region meets its block (a part that holds the whole block
+    starts or joins the sum as it is, one that holds some of it adds into
+    those elements): over the data axes every data index's gradient (a
+    reduce-scatter), over ``model`` only its own data index's rows (a
+    scatter within the group). Counts one reduce-scatter of what each
+    entry takes from the others."""
     mesh = sharding.mesh
     fixed = [i for i, a in enumerate(mesh.axis_names)
              if a in data_axes(mesh) and a not in axes]
     received, dtype = {}, parts[0][2].dtype
+    sums: dict = {}  # entries holding the same block of the same parts take one sum
 
     def block(e):
         want = block_slices(shape, sharding.spec, mesh, e)
+        key = (tuple((w.start, w.stop) for w in want), tuple(e[i] for i in fixed))
         acc, got = None, 0
         with on_entry(mesh, e):
             dev = mesh.devices[e]
+            done = sums.get(key)
             for src, region, t in parts:
-                if not (_agree(src, e, fixed) and _inside(want, region)):
+                if not _agree(src, e, fixed):
                     continue
-                piece = t[tuple(slice(w.start - r.start, w.stop - r.start)
-                                for w, r in zip(want, region))].to(dev)
+                meet = want if _inside(want, region) else _overlap(want, region)
+                if meet is None:
+                    continue
                 if src != e:
-                    got += piece.numel() * piece.element_size()
-                acc = piece.clone() if acc is None else acc + piece
+                    got += math.prod(m.stop - m.start for m in meet) * t.element_size()
+                if done is not None:
+                    continue
+                piece = t[_within(meet, region)].to(dev)
+                if meet is want:
+                    acc = piece.clone() if acc is None else acc + piece
+                else:
+                    if acc is None:
+                        acc = torch.zeros([w.stop - w.start for w in want], dtype=t.dtype,
+                                          device=dev)
+                    sub = _within(meet, want)
+                    acc[sub] = acc[sub] + piece
+            if done is not None:
+                acc = done.to(dev, copy=True)
+            elif acc is not None:
+                sums[key] = acc = acc.contiguous()
         if acc is None:
             raise ValueError(f"reduce_scatter: no part covers entry {e}'s block")
         received[e] = got
-        return acc.contiguous()
+        return acc
 
     blocks = blocks_of(mesh, block)
     note_collective("reduce-scatter", received)
@@ -250,3 +289,225 @@ def all_reduce(values: list, op: str = "sum") -> torch.Tensor:
     each = (len(values) - 1) * t0.numel() * t0.element_size()
     note_collective("all-reduce", {e: each for e, _ in values})
     return acc
+
+
+# -- regions and model groups (model-axis compute) ----------------------------------------
+
+
+def pieces(x: Sharded) -> dict:
+    """The distinct blocks of ``x``: their slices (as ``(start, stop)``
+    pairs) -> the entries holding each, in mesh order."""
+    out: dict[tuple, list] = {}
+    for e in entries(x.mesh):
+        out.setdefault(tuple((s.start, s.stop) for s in x.slices(e)), []).append(e)
+    return out
+
+
+def region_gather(x: Sharded, dst: tuple, region: tuple, held: dict | None = None
+                  ) -> torch.Tensor:
+    """The slices ``region`` of the whole tensor assembled on ``dst``'s
+    device from the distinct blocks that meet it (``held``: :func:`pieces`
+    of ``x``): ``dst``'s own where it holds one, else the first entry in
+    mesh order that does; the region need not align with the blocks.
+    Counts one all-gather of the bytes taken from other entries."""
+    held = pieces(x) if held is None else held
+    mesh = x.mesh
+    moved = 0
+    with on_entry(mesh, dst):
+        out = torch.empty([r.stop - r.start for r in region], dtype=x.dtype,
+                          device=mesh.devices[dst])
+        for sl, holders in held.items():
+            block = tuple(slice(a, b) for a, b in sl)
+            meet = _overlap(block, region)
+            if meet is None:
+                continue
+            src = dst if dst in holders else holders[0]
+            piece = x.blocks[src][_within(meet, block)]
+            out[_within(meet, region)] = piece
+            if src != dst:
+                moved += piece.numel() * piece.element_size()
+    note_collective("all-gather", {dst: moved})
+    return out
+
+
+class Group(NamedTuple):
+    """A data index's ``model`` group: its mesh and its entries in rank
+    order."""
+
+    mesh: DeviceMesh
+    ents: tuple
+
+    def device(self, r: int) -> torch.device:
+        return self.mesh.devices[self.ents[r]]
+
+    def on(self, r: int):
+        """Rank ``r``'s entry (:func:`~repro_torch.core.distributed.on_entry`)."""
+        return on_entry(self.mesh, self.ents[r])
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _rank_sum(ts: list) -> torch.Tensor:
+    """``ts`` (not None) added in their order, on the first one's device."""
+    acc = ts[0]
+    for t in ts[1:]:
+        acc = acc + t.to(acc.device)
+    return acc
+
+
+class _GroupSum(torch.autograd.Function):
+    """Megatron's g: every rank takes the sum of the present parts in rank
+    order; the backward hands each part its rank's cotangent, the whole one
+    (the ranks' copies downstream compute alike)."""
+
+    @staticmethod
+    def forward(ctx, grp, present, *parts):
+        ctx.grp, ctx.present = grp, present
+        acc = _rank_sum(list(parts))
+        outs = []
+        for j in range(len(grp.ents)):
+            with grp.on(j):
+                outs.append(acc.to(grp.device(j), copy=True))
+        each = {e: sum(_nbytes(t) for r, t in zip(present, parts) if r != j)
+                for j, e in enumerate(grp.ents)}
+        note_collective("all-reduce", each)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *douts):
+        grads = []
+        for r in ctx.present:
+            d = douts[r]
+            grads.append(None if d is None else d.to(ctx.grp.device(r)))
+        return (None, None, *grads)
+
+
+class _GroupCopy(torch.autograd.Function):
+    """Megatron's f: each rank's tensor passes as it is; the backward hands
+    every rank the sum of the ranks' cotangents in rank order (an
+    all-reduce)."""
+
+    @staticmethod
+    def forward(ctx, grp, *xs):
+        ctx.grp = grp
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *douts):
+        grp = ctx.grp
+        got = [(j, d) for j, d in enumerate(douts) if d is not None]
+        if not got:
+            return (None,) * (1 + len(douts))
+        acc = _rank_sum([d for _, d in got])
+        out = []
+        for r in range(len(douts)):
+            with grp.on(r):
+                out.append(acc.to(grp.device(r), copy=True))
+        note_collective("all-reduce", {e: sum(_nbytes(d) for j, d in got if j != r)
+                                       for r, e in enumerate(grp.ents)})
+        return (None, *out)
+
+
+class _SeqGather(torch.autograd.Function):
+    """Sequence parallelism's all-gather: every rank takes the ranks'
+    ranges concatenated along ``dim``; the backward reduce-scatters the
+    cotangents (rank ``r`` takes the sum over the ranks, in rank order, of
+    their cotangents' range ``r``)."""
+
+    @staticmethod
+    def forward(ctx, grp, ranges, dim, *xs):
+        ctx.grp, ctx.ranges, ctx.dim = grp, ranges, dim
+        outs = []
+        for j in range(len(xs)):
+            with grp.on(j):
+                dev = grp.device(j)
+                outs.append(torch.cat([x.to(dev) for x in xs], dim=dim))
+        note_collective("all-gather", {e: sum(_nbytes(x) for r, x in enumerate(xs) if r != j)
+                                       for j, e in enumerate(grp.ents)})
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *douts):
+        grp, dim = ctx.grp, ctx.dim
+        got = [(j, d) for j, d in enumerate(douts) if d is not None]
+        grads, each = [], {}
+        for r, (lo, hi) in enumerate(ctx.ranges):
+            with grp.on(r):
+                parts = [d.narrow(dim, lo, hi - lo) for _, d in got]
+                grads.append(_rank_sum([p.to(grp.device(r)) for p in parts]).clone()
+                             if parts else None)
+            each[grp.ents[r]] = sum(_nbytes(p) for (j, _), p in zip(got, parts) if j != r)
+        note_collective("reduce-scatter", each)
+        return (None, None, None, *grads)
+
+
+class _SeqScatter(torch.autograd.Function):
+    """Sequence parallelism's reduce-scatter: rank ``j`` takes range ``j``
+    along ``dim`` of the present parts' sum, in rank order; the backward
+    all-gathers the cotangents (each part takes the whole one)."""
+
+    @staticmethod
+    def forward(ctx, grp, ranges, dim, present, *parts):
+        ctx.grp, ctx.ranges, ctx.dim, ctx.present = grp, ranges, dim, present
+        ctx.shape, ctx.dtype = parts[0].shape, parts[0].dtype
+        outs, each = [], {}
+        for j, (lo, hi) in enumerate(ranges):
+            with grp.on(j):
+                dev = grp.device(j)
+                pieces_ = [p.narrow(dim, lo, hi - lo).to(dev) for p in parts]
+                outs.append(_rank_sum(pieces_).clone())
+            each[grp.ents[j]] = sum(_nbytes(p) for r, p in zip(present, pieces_) if r != j)
+        note_collective("reduce-scatter", each)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *douts):
+        grp, dim = ctx.grp, ctx.dim
+        filled = []
+        for j, (lo, hi) in enumerate(ctx.ranges):
+            d = douts[j]
+            if d is None:
+                shape = list(ctx.shape)
+                shape[dim] = hi - lo
+                d = torch.zeros(shape, dtype=ctx.dtype, device=grp.device(j))
+            filled.append(d)
+        grads = []
+        for r in ctx.present:
+            with grp.on(r):
+                dev = grp.device(r)
+                grads.append(torch.cat([d.to(dev) for d in filled], dim=dim))
+        note_collective("all-gather", {grp.ents[r]: sum(_nbytes(d) for j, d in enumerate(filled)
+                                                        if j != r) for r in ctx.present})
+        return (None, None, None, None, *grads)
+
+
+def group_sum(grp: Group, parts: list) -> list:
+    """Megatron's g over ``grp``: ``parts`` (one per rank, None for a rank
+    that contributes nothing) summed in rank order, a copy on every rank;
+    differentiable (each part's gradient is its rank's cotangent)."""
+    present = tuple(r for r, p in enumerate(parts) if p is not None)
+    return list(_GroupSum.apply(grp, present, *(parts[r] for r in present)))
+
+
+def group_copy(grp: Group, xs: list) -> list:
+    """Megatron's f over ``grp``: the ranks' tensors as they are; in the
+    backward each takes the sum of every rank's cotangent, in rank order."""
+    return list(_GroupCopy.apply(grp, *xs))
+
+
+def seq_gather(grp: Group, xs: list, ranges: list, dim: int = 1) -> list:
+    """The ranks' ``ranges`` of a tensor along ``dim`` (``xs[r]`` rank
+    ``r``'s) concatenated on every rank; differentiable (a reduce-scatter
+    in the backward)."""
+    return list(_SeqGather.apply(grp, tuple(ranges), dim, *xs))
+
+
+def seq_scatter(grp: Group, parts: list, ranges: list, dim: int = 1) -> list:
+    """Rank ``j``'s range ``ranges[j]`` along ``dim`` of the sum of
+    ``parts`` (None: nothing from that rank) in rank order; differentiable
+    (an all-gather in the backward)."""
+    present = tuple(r for r, p in enumerate(parts) if p is not None)
+    return list(_SeqScatter.apply(grp, tuple(ranges), dim, present,
+                                  *(parts[r] for r in present)))

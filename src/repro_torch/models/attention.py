@@ -44,7 +44,7 @@ class Attention(nn.Module):
 def attend(p, x: torch.Tensor, qpos: torch.Tensor,
            rot: tuple[torch.Tensor, torch.Tensor] | None, *, window: int = -1,
            cache: dict | None = None, pos: int | None = None,
-           act_to: torch.dtype | None = None):
+           act_to: torch.dtype | None = None, kv_runs: list | None = None):
     """The sublayer on the weights of ``p`` (an :class:`Attention`, or any
     object with its attributes: ``n_heads``, ``n_kv_heads``, ``head_dim``,
     ``wq``..``wo``, ``bq``/``bk``/``bv`` or None). x ``[B, S, D]`` (f32, or
@@ -61,7 +61,15 @@ def attend(p, x: torch.Tensor, qpos: torch.Tensor,
     in (a ring). Returns ``(out [B, S, D], (k, v))``, k ``[B, S, Hkv, Dh]``
     f32 after RoPE (the activation dtype without), v in the activation
     dtype. When the weights require grad the attention call carries its
-    gradient (``ops.AttentionFn``)."""
+    gradient (``ops.AttentionFn``).
+
+    Under model-axis compute ``p`` is a rank's view: its query heads'
+    columns of ``wq``/``bq`` and rows of ``wo`` (so the result is the
+    rank's partial output, summed over the ranks by the caller), the KV
+    heads they read, and ``n_heads``/``n_kv_heads`` set to those counts.
+    Where its query heads do not fall into equal groups of one KV head
+    each, ``kv_runs`` (``(q_lo, q_hi, kv)``, local indices) attends run by
+    run, one attention call each."""
     b, s, _ = x.shape
     q = dense(x, p.wq, p.bq, act_to).view(b, s, p.n_heads, p.head_dim)
     k = dense(x, p.wk, p.bk, act_to).view(b, s, p.n_kv_heads, p.head_dim)
@@ -75,9 +83,16 @@ def attend(p, x: torch.Tensor, qpos: torch.Tensor,
         cache["k"][:, slot] = k[:, 0]
         cache["v"][:, slot] = v[:, 0]
         out = ops.attention(q, cache["k"], cache["v"], qpos, cache["pos"], window=window)
-    else:
+    elif kv_runs is None:
         f32 = torch.float32
         out = ops.attention(q, k.to(f32), v.to(f32), qpos, qpos[0], window=window)
+    else:
+        f32 = torch.float32
+        out = torch.cat([ops.attention(q[:, :, lo:hi].contiguous(),
+                                       k[:, :, j:j + 1].to(f32).contiguous(),
+                                       v[:, :, j:j + 1].to(f32).contiguous(), qpos, qpos[0],
+                                       window=window)
+                         for lo, hi, j in kv_runs], dim=2)
     proj = dense(out.reshape(b, s, p.n_heads * p.head_dim), p.wo, act_to=act_to)
     return proj, (k, v)
 

@@ -25,13 +25,26 @@ the step itself over :mod:`repro_torch.launch.mesh`'s sharded tensors:
 - *State.* Every leaf of ``params``, ``master``, ``opt.m`` and ``opt.v``
   is held as blocks per :func:`_state_pspecs` (the parameter rules,
   fitted); scalars are replicated, a copy per entry.
-- *Compute* is data-parallel over the data axes. Each data index takes its
-  rows of the batch (``batch_pspecs``; a batch the data axes do not divide
-  is one data index's); its model-rank-0 entry casts nothing itself: the
-  masters are cast to the storage dtype on their owners and all-gathered
-  onto it, so the gather moves storage bytes (the reference's pinned
-  cast). It then runs the forward and backward, B7 and ``flash_attn_bwd``
-  on the card.
+- *Compute* runs over the data axes and, for archs whose layers are all
+  attention blocks with a dense MLP, over ``model`` too
+  (``launch/mesh.model_compute``: ``"megatron"``; MoE, Mamba and the
+  RG-LRU hybrid stay ``"data"``). Each data index takes its rows of the
+  batch (``batch_pspecs``; a batch the data axes do not divide is one data
+  index's). The masters are cast to the storage dtype on their owners (the
+  reference's pinned cast), so every gather moves storage bytes. Under
+  ``"data"`` the data index's model-rank-0 entry all-gathers the whole
+  parameters and runs the forward and backward. Under ``"megatron"`` each
+  of its m model ranks gathers only its ranges (``launch/mesh.compute_plan``:
+  whole heads of ``wq``/``wk``/``wv``/``wo`` and the biases, a range of
+  ``d_ff`` of ``w_gate``/``w_up``/``w_down``, a vocab range of ``embed``
+  and ``lm_head``; norms whole; :func:`_rank_region`), a region of the
+  column-sharded storage that need not align with its blocks, and the
+  group runs :func:`repro_torch.models.transformer.forward_group`:
+  column-parallel projections, row-parallel ones summed over the group in
+  rank order (no float atomics), the vocab-parallel embedding and loss
+  (per chunk the max, the sum of exponentials and the target logit each
+  all-reduced in rank order). B7 and ``flash_attn_bwd`` run at each rank's
+  heads on the card; a rank with no head computes no attention.
 - *Loss.* Each data index's masked NLL sum, added in data-index order
   (an all-reduce) and divided by the global mask count: ``chunked_ce``
   over the whole batch. The MoE load-balance loss is not additive over
@@ -39,7 +52,8 @@ the step itself over :mod:`repro_torch.launch.mesh`'s sharded tensors:
   first (:func:`repro_torch.models.transformer.aux_loss`). Each data
   index's backward starts from the cotangents of that global loss.
 - *Gradients* are cast to f32 and reduce-scattered straight into the
-  master layout in data-index order; then the finite check over all
+  master layout in data-index order (then model-rank order, each rank's
+  over its ranges); then the finite check over all
   blocks (one replicated flag), the global norm summed leaf by leaf in the
   single-device step's leaf order, AdamW on each block on its owner, the
   scale update, and the new params cast to storage on the owners.
@@ -49,10 +63,17 @@ the step itself over :mod:`repro_torch.launch.mesh`'s sharded tensors:
   per ``param_pspec``, the KV/SSM cache per ``cache_pspec``; each data
   index gathers the params and its rows of the cache and inputs, steps,
   and scatters its rows of the logits and the cache back to its group.
-- ``seq_shard`` is recorded: in the reference it is a layout constraint
-  on the residual stream that changes no number, and here it changes
-  nothing until model-axis compute (Megatron splits, a sequence-sharded
-  residual stream) exists; the ``model`` axis holds state, not work.
+  Prefill of a ``"megatron"`` arch runs the split forward (the ranks'
+  logits gathered along the vocab, their KV heads into the cache); decode
+  stays data-parallel (the reference's cache shards the head dim, which a
+  split by heads does not match).
+- ``seq_shard`` (the reference's default) shards the residual stream's
+  sequence over ``model`` between blocks under model-axis compute
+  (Megatron's sequence parallelism: norms on a rank's range, an all-gather
+  before and a reduce-scatter after each split projection, remat keeping
+  the range). Every sum runs in the same rank order without it, so
+  ``seq_shard`` True and False give the same bits, as the reference's
+  layout constraint does.
 
 On a mesh of ``meta`` devices (the dry-run) one data index computes and
 the others contribute its tensors: every collective still runs, and is
@@ -68,7 +89,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
-from repro_torch.core.distributed import on_entry
+from repro_torch.core.distributed import (
+    note_collective, note_gathered, on_entry, recording_collectives, replay_collectives,
+)
 from repro_torch.launch import mesh as meshlib
 from repro_torch.launch import sharded as sh
 from repro_torch.launch.mesh import NamedSharding, P
@@ -250,13 +273,17 @@ def make_train_step(cfg: ArchConfig, policy: PrecisionPolicy, *, mesh=None,
     lowering (the module's docstring): ``state`` and ``batch`` may be
     tensors or :class:`~repro_torch.launch.sharded.Sharded` trees, the state
     comes back laid out per :func:`_state_pspecs`, the metrics on the
-    mesh's first device. ``seq_shard`` changes no number (recorded only)."""
+    mesh's first device. Archs of attention blocks with dense MLPs compute
+    over the ``model`` axis too (:func:`repro_torch.launch.mesh.model_compute`),
+    with the residual stream sequence-sharded under ``seq_shard``, which
+    changes no bit."""
     if isinstance(policy, str):
         policy = get_policy(policy)
     act_to = act_dtype(policy.compute)
     if mesh is not None:
-        return _sharded_train_step(cfg, policy, mesh, remat=remat, microbatch=microbatch,
-                                   opt_cfg=opt_cfg, aux_weight=aux_weight, ce_chunk=ce_chunk)
+        return _sharded_train_step(cfg, policy, mesh, seq_shard=seq_shard, remat=remat,
+                                   microbatch=microbatch, opt_cfg=opt_cfg,
+                                   aux_weight=aux_weight, ce_chunk=ce_chunk)
 
     def loss_fn(master, batch, scale):
         params = tree_map(lambda x: x.to(policy.param_storage), master)
@@ -321,12 +348,11 @@ def make_prefill_step(cfg: ArchConfig, policy: PrecisionPolicy, *, mesh=None,
     :class:`~repro_torch.launch.sharded.Sharded`, laid out per
     ``param_pspec``) and the step runs over the mesh's lowering: logits
     laid out per ``P(data, "model")`` and the cache per ``cache_pspec``,
-    both fitted; ``seq_shard`` changes no number (recorded only)."""
+    both fitted; a ``"megatron"`` arch computes over the ``model`` axis
+    (``seq_shard`` changes no bit)."""
     act_to = act_dtype(policy.compute)
     if mesh is not None:
-        single = make_prefill_step(cfg, policy, collect_cache=collect_cache,
-                                   cache_len=cache_len)
-        return _sharded_prefill_step(cfg, mesh, single, collect_cache)
+        return _sharded_prefill_step(cfg, policy, mesh, seq_shard, collect_cache, cache_len)
 
     def prefill_step(model: tf.Transformer, batch: dict):
         full = _fill_positions(cfg, batch)
@@ -410,12 +436,162 @@ def _split(b: int, mesh) -> int:
     return n if b % n == 0 else 1
 
 
-def _sharded_train_step(cfg, policy, mesh, *, remat, microbatch, opt_cfg, aux_weight,
-                        ce_chunk):
+# -- model-axis compute (Megatron splits over `model`) ------------------------------------
+
+
+def _rank_ents(mesh, e0: tuple) -> tuple:
+    """The entries of ``e0``'s model group in rank order (``e0`` alone
+    without a ``model`` axis)."""
+    if "model" not in mesh.axis_names:
+        return (e0,)
+    i = mesh.axis_names.index("model")
+    return tuple(e0[:i] + (r,) + e0[i + 1:] for r in range(mesh.shape["model"]))
+
+
+def _moved_to(mesh, e0: tuple):
+    """An entry of another data index's group moved into ``e0``'s (its data
+    coordinates replaced by ``e0``'s)."""
+    d = [i for i, a in enumerate(mesh.axis_names) if a in meshlib.data_axes(mesh)]
+    return lambda e: tuple(e0[i] if i in d else x for i, x in enumerate(e))
+
+
+def _rank_region(keys, shape: tuple, pl: meshlib.RankPlan, cfg: ArchConfig) -> tuple:
+    """The slices of a parameter leaf (path ``keys``, stacked ``[L, ...]``
+    or not) that rank ``pl`` computes with: its query heads' columns of
+    ``wq``/``bq`` and rows of ``wo``, its KV heads' columns of ``wk``,
+    ``wv``, ``bk``, ``bv``, its ``d_ff`` columns of ``w_gate``/``w_up`` and
+    rows of ``w_down``, its vocab rows of ``embed`` and columns of
+    ``lm_head``; norms whole."""
+    out = [slice(0, n) for n in shape]
+    hd = cfg.head_dim
+    q = slice(pl.q_heads[0] * hd, pl.q_heads[1] * hd)
+    kv = slice(pl.kv_heads[0] * hd, pl.kv_heads[1] * hd)
+    ff, vocab = slice(*pl.ff), slice(*pl.vocab)
+    name = keys[-1]
+    cols = {"wq": q, "bq": q, "wk": kv, "wv": kv, "bk": kv, "bv": kv, "w_gate": ff, "w_up": ff,
+            "lm_head": vocab}
+    rows = {"wo": q, "w_down": ff, "embed": vocab}
+    if name in cols:
+        out[-1] = cols[name]
+    elif name in rows:
+        out[-2] = rows[name]
+    return tuple(out)
+
+
+def _group_run(cfg, mesh, e0: tuple, plan: list, rows: dict, seq_shard: bool, act_to
+               ) -> tf.GroupRun:
+    """The :class:`~repro_torch.models.transformer.GroupRun` of ``e0``'s
+    model group over a batch like ``rows``: each rank's sequence range
+    (prefix included) and its attention runs."""
+    s = rows["tokens"].shape[1] + (cfg.n_patches if cfg.frontend == "vision" else 0)
+    g = cfg.n_heads // cfg.n_kv_heads
+    runs = []
+    for pl in plan:
+        r = pl.kv_runs(g)
+        even = len(r) == pl.n_kv and len({hi - lo for lo, hi, _ in r}) <= 1
+        runs.append(None if even else r)
+    grp = sh.Group(mesh, _rank_ents(mesh, e0))
+    return tf.GroupRun(grp=grp, plan=plan, seq=meshlib.balanced(s, len(plan)),
+                       seq_shard=seq_shard, act_to=act_to, kv_runs=runs)
+
+
+class _VocabLSE(torch.autograd.Function):
+    """The rows' log-sum-exp over a model group's vocab ranges (``logits[r]``
+    rank ``r``'s ``[.., V_r]`` f32): the ranks' maxima and then their sums
+    of exponentials all-reduced in rank order, ``log(sum) + max`` on the
+    first rank (``torch.logsumexp``'s formula, so one rank gives its bits);
+    the backward gives each rank ``g exp(l - lse)`` (its formula too)."""
+
+    @staticmethod
+    def forward(ctx, grp, *logits):
+        maxes = []
+        for r, lg in enumerate(logits):
+            with grp.on(r):
+                maxes.append(torch.amax(lg, dim=-1))
+        top = maxes[0]
+        for mx in maxes[1:]:
+            top = torch.maximum(top, mx.to(top.device))
+        sums = []
+        for r, lg in enumerate(logits):
+            with grp.on(r):
+                sums.append(torch.sum(torch.exp(lg - top.to(lg.device)[..., None]), dim=-1))
+        total = sums[0]
+        for t in sums[1:]:
+            total = total + t.to(total.device)
+        lse = torch.log(total) + top
+        each = (len(logits) - 1) * 2 * top.numel() * top.element_size()
+        note_collective("all-reduce", {e: each for e in grp.ents})
+        ctx.grp = grp
+        ctx.save_for_backward(lse, *logits)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        lse, *logits = ctx.saved_tensors
+        out = []
+        for r, lg in enumerate(logits):
+            with ctx.grp.on(r):
+                dev = lg.device
+                out.append(g.to(dev)[..., None] * torch.exp(lg - lse.to(dev)[..., None]))
+        return (None, *out)
+
+
+def _ce_group_chunk(views, run, tcs, mc, *hcs):
+    """One chunk's masked NLL sum over the group (:func:`_ce_chunk`'s): each
+    rank's logits of its vocab range, the log-sum-exp over the ranges, the
+    target logit from the rank whose range holds it (the others add 0)."""
+    logits = [lg.to(f32) for lg in tf.lm_logits_group(views, list(hcs), run)]
+    lse = _VocabLSE.apply(run.grp, *logits)
+    tgt = None
+    for r, (lg, tc) in enumerate(zip(logits, tcs)):
+        with run.grp.on(r):
+            lo, hi = run.plan[r].vocab
+            if (lo, hi) == (0, views[r].cfg.vocab_size):
+                t = torch.gather(lg, -1, tc[..., None])[..., 0]
+            else:
+                inside = (tc >= lo) & (tc < hi)
+                t = torch.gather(lg, -1, torch.where(inside, tc - lo, 0)[..., None])[..., 0]
+                t = torch.where(inside, t, torch.zeros((), dtype=t.dtype, device=t.device))
+        tgt = t if tgt is None else tgt + t.to(tgt.device)
+    if len(logits) > 1:
+        note_collective("all-reduce", {e: (len(logits) - 1) * tgt.numel() * tgt.element_size()
+                                       for e in run.grp.ents})
+    return torch.sum((lse - tgt) * mc)
+
+
+def _ce_group_parts(views, run, trip: list, *, chunk: int):
+    """``(nll sum, mask count)`` of a data index's rows over its model group
+    (:func:`_ce_parts`, vocab-parallel): ``trip`` each rank's ``(h,
+    targets, mask)``, h over the whole sequence; chunks of ``chunk``
+    positions, each recomputed in the backward; on the first rank."""
+    hs = [t[0] for t in trip]
+    s = hs[0].shape[1]
+    c = min(chunk, s)
+    pad = -s % c
+    mask = trip[0][2]
+    count = torch.sum(mask)
+    tcs = [t[1] for t in trip]
+    if pad:
+        for r, h in enumerate(hs):
+            with run.grp.on(r):
+                hs[r] = torch.nn.functional.pad(h, (0, 0, 0, pad))
+        tcs = [torch.nn.functional.pad(t, (0, pad)) for t in tcs]
+        mask = torch.nn.functional.pad(mask, (0, pad))
+    total = torch.zeros((), dtype=f32, device=hs[0].device)
+    for i in range(0, hs[0].shape[1], c):
+        total = total + checkpoint(_ce_group_chunk, views, run, [t[:, i:i + c] for t in tcs],
+                                   mask[:, i:i + c], *[h[:, i:i + c] for h in hs],
+                                   use_reentrant=False, preserve_rng_state=False)
+    return total, count
+
+
+def _sharded_train_step(cfg, policy, mesh, *, seq_shard, remat, microbatch, opt_cfg,
+                        aux_weight, ce_chunk):
     act_to = act_dtype(policy.compute)
     d_axes = meshlib.data_axes(mesh)
     groups = _groups(mesh)
     dry = _dry(mesh)
+    megatron = meshlib.model_compute(cfg) == "megatron"
 
     def group_loss(leaves, rebuild, rows):
         model = tf.params_view(cfg, rebuild(leaves))
@@ -445,6 +621,27 @@ def _sharded_train_step(cfg, policy, mesh, *, remat, microbatch, opt_cfg, aux_we
             scaled = loss * scale.to(dev)
         return loss, scaled, ins
 
+    def rows_of(batch, src):
+        """Per microbatch, every data index's rows taken on ``entry`` (a
+        function of the data index's position and the entry)."""
+        leaves, rebuild_batch = _flatten(batch)
+        b = leaves[0].shape[0]
+        every = tuple(mesh.axis_names)
+        row_axes = meshlib.model_axes(mesh)
+        whole = {}
+
+        def rows(i, gi, entry):
+            if microbatch > 1:  # each data index takes its rows of every slice
+                if entry not in whole:
+                    whole[entry] = [sh.all_gather(x, entry, every)[0] for x in leaves]
+                per = b // microbatch // len(src)
+                lo = i * (b // microbatch) + gi * per
+                return rebuild_batch([t[lo:lo + per] for t in whole[entry]])
+            # its group's blocks over `model` (the whole batch if unsplit)
+            return rebuild_batch([sh.all_gather(x, entry, row_axes)[0] for x in leaves])
+
+        return rows
+
     def data_parallel_grads(master_storage, rebuild, batch, scale, src, run):
         """Every data index's f32 gradients (summed over the microbatches)
         of the global loss, on its compute entry, and the loss."""
@@ -452,24 +649,16 @@ def _sharded_train_step(cfg, policy, mesh, *, remat, microbatch, opt_cfg, aux_we
         gathered = {}
         for e in src:
             got = [sh.all_gather(x, e, every)[0] for x in master_storage]
+            note_gathered(e, _nbytes(got))
             if e in run:
                 with on_entry(mesh, e):
                     gathered[e] = [t.requires_grad_() for t in got]
-        leaves, rebuild_batch = _flatten(batch)
-        b = leaves[0].shape[0]
-        if microbatch > 1:  # each data index takes its rows of every slice
-            whole = {e: [sh.all_gather(x, e, every)[0] for x in leaves] for e in src}
-        row_axes = meshlib.model_axes(mesh)
+        rows_at = rows_of(batch, src)
         acc, loss_sum = {}, None
         for i in range(microbatch):
             outs = []
             for gi, e in enumerate(src):
-                if microbatch > 1:
-                    per = b // microbatch // len(src)
-                    lo = i * (b // microbatch) + gi * per
-                    rows = rebuild_batch([t[lo:lo + per] for t in whole[e]])
-                else:  # its group's blocks over `model` (the whole batch if unsplit)
-                    rows = rebuild_batch([sh.all_gather(x, e, row_axes)[0] for x in leaves])
+                rows = rows_at(i, gi, e)
                 if e not in run:
                     outs.append(outs[0])
                     continue
@@ -489,6 +678,70 @@ def _sharded_train_step(cfg, policy, mesh, *, remat, microbatch, opt_cfg, aux_we
                     grads = [g.to(f32) for g in grads]
                     acc[e] = [a + g for a, g in zip(acc[e], grads)] if e in acc else grads
         return acc, (loss_sum / microbatch if microbatch > 1 else loss_sum)
+
+    plan = meshlib.compute_plan(cfg, meshlib.model_size(mesh)) if megatron else None
+
+    def megatron_grads(storage, rebuild, batch, scale, src, run):
+        """Every data index's model group computes: each rank gathers its
+        ranges of the storage-dtype leaves and runs its share of the
+        forward (:func:`repro_torch.models.transformer.forward_group`) and
+        of the vocab-parallel loss; returns per data index each rank's f32
+        gradients over its ranges (summed over the microbatches), and the
+        loss."""
+        regions, gathered = _gather_ranges(rebuild(storage), mesh, src, run, cfg, plan)
+        for ranks in gathered.values():
+            for leaves in ranks:
+                for t in leaves:
+                    t.requires_grad_()
+        rows_at = rows_of(batch, src)
+        acc, loss_sum = {}, None
+        group_log: list = []  # the computing group's collectives (dry: counted for each)
+        for i in range(microbatch):
+            outs = []
+            for gi, e in enumerate(src):
+                rows = [rows_at(i, gi, er) for er in _rank_ents(mesh, e)]
+                if e not in run:
+                    outs.append(outs[0])
+                    continue
+                with torch.enable_grad(), recording_collectives(group_log):
+                    outs.append(megatron_loss(e, gathered[e], rebuild, rows))
+            with on_entry(mesh, run[0]):
+                loss, scaled, ins = global_loss(src, outs, scale)
+                cot = torch.autograd.grad(scaled, [t for x in ins for t in x])
+            loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
+            k = 0
+            for e, (nll, _, _), x in zip(src, outs, ins):
+                d_out, k = cot[k:k + len(x)], k + len(x)
+                if e not in run:
+                    continue
+                flat = [t for leaves in gathered[e] for t in leaves]
+                with on_entry(mesh, e), recording_collectives(group_log):
+                    grads = torch.autograd.grad([nll], flat, grad_outputs=d_out[:1],
+                                                allow_unused=True)
+                grads = [torch.zeros(t.shape, dtype=f32, device=t.device) if g is None
+                         else g.to(f32) for g, t in zip(grads, flat)]
+                n = len(storage)
+                per_rank = [grads[r * n:(r + 1) * n] for r in range(len(plan))]
+                acc[e] = per_rank if e not in acc else [[a + g for a, g in zip(ra, rg)]
+                                                        for ra, rg in zip(acc[e], per_rank)]
+        for e in src:
+            if e not in run:
+                replay_collectives(group_log, _moved_to(mesh, e))
+        return acc, (loss_sum / microbatch if microbatch > 1 else loss_sum), regions
+
+    def megatron_loss(e, leaves, rebuild, rows):
+        """A data index's (nll, count, []) over its model group."""
+        run = _group_run(cfg, mesh, e, plan, rows[0], seq_shard, act_to)
+        views = [tf.params_view(cfg, rebuild(lv), heads=(pl.n_heads, pl.n_kv))
+                 for lv, pl in zip(leaves, plan)]
+        full = [_fill_positions(cfg, r) for r in rows]
+        hs = tf.forward_group(views, full, run, remat=remat)
+        trip = []
+        for r, (h, f) in enumerate(zip(hs, full)):
+            with run.grp.on(r):
+                trip.append(_targets(cfg, f, h))
+        nll, count = _ce_group_parts(views, run, trip, chunk=ce_chunk)
+        return nll, count, []
 
     def update(state, master_leaves, grads, finite):
         """AdamW on every block on its owner, the global norm summed leaf by
@@ -540,12 +793,21 @@ def _sharded_train_step(cfg, policy, mesh, *, remat, microbatch, opt_cfg, aux_we
         # The pinned cast on the owners: the gathers move storage bytes.
         storage = [_blockwise(x, lambda t: t.to(policy.param_storage)) for x in m_leaves]
         scale0 = _first(state["scale"].scale)  # replicated: every owner holds this value
-        acc, loss = data_parallel_grads(storage, rebuild, batch, scale0, src, run)
-        # Gradients reduce-scattered into the master layout, in data-index order.
+        if megatron:
+            acc, loss, regions = megatron_grads(storage, rebuild, batch, scale0, src, run)
+        else:
+            acc, loss = data_parallel_grads(storage, rebuild, batch, scale0, src, run)
+        # Gradients reduce-scattered into the master layout, in data-index
+        # order (then model-rank order).
         grads = []
         for j, x in enumerate(m_leaves):
-            whole = tuple(slice(0, n) for n in x.shape)
-            parts = [(e, whole, acc[e if e in acc else run[0]][j]) for e in src]
+            if megatron:
+                parts = [(er, regions[r][j], acc[e if e in acc else run[0]][r][j])
+                         for e in src for r, er in enumerate(_rank_ents(mesh, e))
+                         if all(sl.stop > sl.start for sl in regions[r][j])]
+            else:
+                whole = tuple(slice(0, n) for n in x.shape)
+                parts = [(e, whole, acc[e if e in acc else run[0]][j]) for e in src]
             g = sh.reduce_scatter(parts, x.sharding, x.shape, d_axes)
             if microbatch > 1:
                 g = _blockwise(g, lambda t: t / microbatch)
@@ -590,40 +852,83 @@ def _serve_groups(mesh, b: int):
     return n_src, src, (src[:1] if _dry(mesh) else src)
 
 
+def _nbytes(ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
 def _gather_params(params, mesh, src, run):
     """Each computing data index's whole parameter tree (storage dtype)."""
     leaves, rebuild = _flatten(params)
     out = {}
     for e in src:
         got = [sh.all_gather(x, e, tuple(mesh.axis_names))[0] for x in leaves]
+        note_gathered(e, _nbytes(got))
         if e in run:
             out[e] = rebuild(got)
     return out
+
+
+def _gather_ranges(tree, mesh, src, run, cfg, plan):
+    """Every data index's model ranks gather their ranges of ``tree``'s
+    Sharded leaves (:func:`_rank_region`, a region of each leaf's blocks);
+    returns the regions per rank and leaf, and per computing data index
+    each rank's gathered leaves."""
+    leaves = tree_leaves(tree)
+    keys = [k for k, _ in meshlib.key_paths(tree)]
+    held = [sh.pieces(x) for x in leaves]
+    regions = [[_rank_region(k, x.shape, pl, cfg) for k, x in zip(keys, leaves)]
+               for pl in plan]
+    out = {}
+    for e in src:
+        got = []
+        for r, er in enumerate(_rank_ents(mesh, e)):
+            got.append([sh.region_gather(x, er, reg, h)
+                        for x, reg, h in zip(leaves, regions[r], held)])
+            note_gathered(er, _nbytes(got[-1]))
+        if e in run:
+            out[e] = got
+    return regions, out
 
 
 def _logits_spec(mesh, b: int, v: int) -> P:
     return meshlib.fit_spec(P(meshlib.data_axes(mesh), "model"), (b, v), mesh)
 
 
-def _serve_step(cfg, mesh, params, inputs: list, step):
+def _serve_step(cfg, mesh, params, inputs: list, step, split=None):
     """A serving step over the mesh's lowering: ``params`` (laid out per
     ``param_pspec``) gathered onto each computing data index's entry with
     its rows of ``inputs`` (Sharded over the batch, or whole), where
     ``step(model, rows)`` runs; returns ``(logits, cache)`` (cache None if
     ``step`` gives none), each data index's rows sent back to its group:
     the logits per ``P(data, "model")`` and the cache per ``cache_pspec``,
-    fitted."""
+    fitted. With ``split`` (model-axis compute: ``(plan, run_group)``) each
+    model rank gathers its ranges and its copy of the rows instead, and
+    ``run_group(e, trees, rows)`` computes the data index's logits and
+    cache on its first entry."""
     b = inputs[0].shape[0]
     n_src, src, run = _serve_groups(mesh, b)
-    full = _gather_params(params, mesh, src, run)
+    if split is None:
+        full = _gather_params(params, mesh, src, run)
+    else:
+        ranges = _gather_ranges(params, mesh, src, run, cfg, split[0])[1]
     axes = meshlib.model_axes(mesh)  # a cache's features lie over `model`
-    results = {}
+    results, group_log = {}, []
     for e in src:
-        rows = [sh.all_gather(x, e, axes)[0] for x in inputs]
+        ents = (e,) if split is None else _rank_ents(mesh, e)
+        rows = []
+        for er in ents:
+            rows.append([sh.all_gather(x, er, axes)[0] for x in inputs])
+            note_gathered(er, _nbytes(rows[-1]))
         if e in run:
-            with on_entry(mesh, e):
-                out = step(tf.params_view(cfg, full[e]), rows)
+            if split is None:
+                with on_entry(mesh, e):
+                    out = step(tf.params_view(cfg, full[e]), rows[0])
+            else:
+                with recording_collectives(group_log):
+                    out = split[1](e, ranges[e], rows)
             results[e] = out if isinstance(out, tuple) else (out, None)
+        elif split is not None:
+            replay_collectives(group_log, _moved_to(mesh, e))
     results = {e: results.get(e, results[run[0]]) for e in src}
     shape = (b, results[src[0]][0].shape[-1])
     spec = _logits_spec(mesh, *shape)
@@ -634,13 +939,83 @@ def _serve_step(cfg, mesh, params, inputs: list, step):
     return logits, _cache_back(mesh, {e: results[e][1] for e in src}, src, n_src)
 
 
-def _sharded_prefill_step(cfg, mesh, single, collect_cache: bool):
+def _megatron_prefill(cfg, policy, mesh, seq_shard: bool, collect_cache: bool,
+                      cache_len: int, rebuild_params, rebuild_batch):
+    """``(plan, run_group)`` for :func:`_serve_step`: a data index's prefill
+    over its model group (:func:`repro_torch.models.transformer.forward_group`),
+    the last position's vocab-parallel logits gathered along the vocab onto
+    its first entry and, with ``collect_cache``, the ranks' KV heads
+    assembled there into the decode cache."""
+    act_to = act_dtype(policy.compute)
+    plan = meshlib.compute_plan(cfg, meshlib.model_size(mesh))
+
+    def run_group(e, ranks, rows):
+        batches = [_fill_positions(cfg, rebuild_batch(r)) for r in rows]
+        run = _group_run(cfg, mesh, e, plan, batches[0], seq_shard, act_to)
+        views = [tf.params_view(cfg, rebuild_params(leaves), heads=(pl.n_heads, pl.n_kv))
+                 for leaves, pl in zip(ranks, plan)]
+        out = tf.forward_group(views, batches, run, collect_kv=collect_cache)
+        hs, kvs = out if collect_cache else (out, None)
+        parts = tf.lm_logits_group(views, [h[:, -1] for h in hs], run)
+        dev = run.grp.device(0)
+        with run.grp.on(0):
+            logits = torch.cat([p.to(dev) for p in parts], dim=-1)
+        note_collective("all-gather", {run.grp.ents[0]: _nbytes(parts[1:])})
+        if not collect_cache:
+            return logits
+        return logits, _assemble_cache(cfg, run, kvs, batches[0], cache_len,
+                                       policy.state_storage)
+
+    return plan, run_group
+
+
+def _assemble_cache(cfg, run, kvs: list, batch: dict, cache_len: int, dtype):
+    """The decode cache of a data index's rows on its first entry from each
+    rank's ``(k, v)`` of its KV heads per layer (a head several ranks
+    computed is taken from the first), packed as the single-device
+    prefill packs it."""
+    dev = run.grp.device(0)
+    b, s = batch["positions"].shape[:2]
+    pos = batch["positions"]
+    qpos = (pos[..., 0] if cfg.mrope_sections is not None else pos)[0]
+    hd = cfg.head_dim
+    with run.grp.on(0):
+        cache = tf.init_cache(cfg, b, cache_len, dtype, dev, cap_at_window=False)
+        for i, per_rank in enumerate(kvs):
+            first = next(kv for kv in per_rank if kv is not None)
+            k = torch.empty((b, s, cfg.n_kv_heads, hd), dtype=first[0].dtype, device=dev)
+            v = torch.empty((b, s, cfg.n_kv_heads, hd), dtype=first[1].dtype, device=dev)
+            moved, done = 0, 0
+            for pl, kv in zip(run.plan, per_rank):
+                lo, hi = max(pl.kv_heads[0], done), pl.kv_heads[1]
+                if kv is None or hi <= lo:
+                    continue
+                sl = slice(lo - pl.kv_heads[0], hi - pl.kv_heads[0])
+                k[:, :, lo:hi] = kv[0][:, :, sl].to(dev)
+                v[:, :, lo:hi] = kv[1][:, :, sl].to(dev)
+                if pl.rank:
+                    moved += _nbytes([kv[0][:, :, sl], kv[1][:, :, sl]])
+                done = hi
+            note_collective("all-gather", {run.grp.ents[0]: moved})
+            tf._pack_kv((k, v), qpos, tf._window(cfg), tf._layer_cache(cfg, cache, i)["kv"])
+    return cache
+
+
+def _sharded_prefill_step(cfg, policy, mesh, seq_shard: bool, collect_cache: bool,
+                          cache_len: int):
+    single = make_prefill_step(cfg, policy, collect_cache=collect_cache, cache_len=cache_len)
+    megatron = meshlib.model_compute(cfg) == "megatron"
+
     def prefill_step(params, batch: dict):
         params = _place(params, meshlib.tree_pspecs(params, mesh), mesh)
         batch = _place(batch, meshlib.batch_pspecs(batch, mesh), mesh)
         leaves, rebuild = _flatten(batch)
+        split = None
+        if megatron:
+            split = _megatron_prefill(cfg, policy, mesh, seq_shard, collect_cache, cache_len,
+                                      _flatten(params)[1], rebuild)
         logits, cache = _serve_step(cfg, mesh, params, leaves,
-                                    lambda model, rows: single(model, rebuild(rows)))
+                                    lambda model, rows: single(model, rebuild(rows)), split)
         return (logits, cache) if collect_cache else logits
 
     return prefill_step
@@ -705,6 +1080,7 @@ class Task:
     out_shardings: Any
     donate_argnums: tuple = ()
     seq_shard: bool = True
+    model_compute: str = "data"  # "megatron": split over `model` (launch/mesh.model_compute)
 
     def sharded(self) -> Callable:
         """The step over the mesh's lowering, the counterpart of the
@@ -731,6 +1107,7 @@ def build_task(cfg: ArchConfig, shape: ShapeConfig, mesh, policy: PrecisionPolic
     param_shard = meshlib.named(meshlib.tree_pspecs(param_specs, mesh), mesh)
     name = f"{cfg.name}:{shape.name}"
     b = shape.global_batch
+    split = meshlib.model_compute(cfg)  # decode stays data-parallel
 
     if shape.kind == "train":
         step = make_train_step(cfg, policy, mesh=mesh, seq_shard=seq_shard,
@@ -740,13 +1117,14 @@ def build_task(cfg: ArchConfig, shape: ShapeConfig, mesh, policy: PrecisionPolic
         metric_shard = {k: NamedSharding(mesh, P()) for k in
                         ("loss", "grad_norm", "loss_scale", "skipped")}
         return Task(name, "train", step, (state_specs, batch_specs),
-                    (state_shard, batch_shard), (state_shard, metric_shard), (0,), seq_shard)
+                    (state_shard, batch_shard), (state_shard, metric_shard), (0,), seq_shard,
+                    split)
 
     logits_shard = NamedSharding(mesh, _logits_spec(mesh, b, cfg.vocab_size))
     if shape.kind == "prefill":
         step = make_prefill_step(cfg, policy, mesh=mesh, seq_shard=seq_shard)
         return Task(name, "prefill", step, (param_specs, batch_specs),
-                    (param_shard, batch_shard), logits_shard, (), seq_shard)
+                    (param_shard, batch_shard), logits_shard, (), seq_shard, split)
 
     step = make_decode_step(cfg, policy, mesh=mesh)
     cache_specs = tf.init_cache(cfg, b, shape.seq_len, policy.state_storage, "meta")
@@ -756,4 +1134,4 @@ def build_task(cfg: ArchConfig, shape: ShapeConfig, mesh, policy: PrecisionPolic
     return Task(name, "decode", step,
                 (param_specs, cache_specs, batch_specs["token"], batch_specs["pos"]),
                 (param_shard, cache_shard, token_shard, NamedSharding(mesh, P())),
-                (logits_shard, cache_shard), (1,), seq_shard)
+                (logits_shard, cache_shard), (1,), seq_shard, "data")

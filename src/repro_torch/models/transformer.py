@@ -26,6 +26,25 @@ dict of leaves stacked ``[L, ...]`` for a homogeneous stack, a tuple of
 per-layer dicts for the hybrid): :func:`params_view` gives it the
 model's attributes, one unbound slice of each stacked leaf per layer, so
 the gradient of a stacked leaf is one stack of the layers' gradients.
+
+**Over a model group** (the mesh lowering's model-axis compute,
+``models/tasks.py``), :func:`forward_group` runs the same blocks on each
+rank's view (:func:`params_view` with the rank's heads) of its ranges of
+the parameters (``launch/mesh.compute_plan``): the vocab-parallel
+embedding (each rank looks up its vocab range, out-of-range rows zero,
+the parts summed), column-parallel ``wq``/``wk``/``wv`` and
+``w_gate``/``w_up``, row-parallel ``wo`` and ``w_down`` whose partial
+outputs are summed over the group in rank order
+(``launch/sharded.group_sum``, Megatron's g), and the vocab-parallel
+logits (:func:`lm_logits_group`). With ``seq_shard`` the residual stream
+between blocks is each rank's contiguous sequence range (Megatron's
+sequence parallelism): the norms run on that range, an all-gather along
+the sequence precedes the column-parallel projections and a
+reduce-scatter follows the row-parallel ones (``seq_gather`` /
+``seq_scatter``), and remat saves only the range. Without it every rank
+holds the whole stream and runs the norms range by range too (its own
+range alone takes the norm scales' gradient), then Megatron's f: every
+sum runs in the same rank order either way, so the two give the same bits.
 """
 from __future__ import annotations
 
@@ -38,6 +57,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.network import _resolve_device
+from repro_torch.launch import sharded as sh
 from repro_torch.models.attention import Attention, attend, init_kv_cache
 from repro_torch.models.layers import (
     MLP, Norm, act, apply_norm, dense, mlp_apply, mrope_table, rope_table,
@@ -48,7 +68,8 @@ from repro_torch.models.rglru import RGLRU, init_rglru_cache, rglru_apply, rglru
 from repro_torch.precision import PrecisionPolicy
 
 __all__ = ["Block", "Transformer", "init_params", "forward", "aux_loss", "lm_logits", "init_cache",
-           "decode_step", "params_tree", "params_view"]
+           "decode_step", "params_tree", "params_view", "GroupRun", "forward_group",
+           "lm_logits_group"]
 
 f32 = torch.float32
 
@@ -411,14 +432,16 @@ def _norm_view(cfg: ArchConfig, p: dict) -> SimpleNamespace:
     return SimpleNamespace(kind=cfg.norm, scale=p["scale"], bias=p.get("bias"))
 
 
-def _layer_view(cfg: ArchConfig, lay: dict) -> SimpleNamespace:
+def _layer_view(cfg: ArchConfig, lay: dict, heads: tuple[int, int] | None = None
+                ) -> SimpleNamespace:
+    n_heads, n_kv = heads if heads is not None else (cfg.n_heads, cfg.n_kv_heads)
     out = {}
     for name, sub in lay.items():
         if name in ("norm1", "norm2"):
             out[name] = _norm_view(cfg, sub)
         elif name == "attn":
             out[name] = SimpleNamespace(
-                n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                n_heads=n_heads, n_kv_heads=n_kv, head_dim=cfg.head_dim,
                 **{n: sub.get(n) for n in ("wq", "wk", "wv", "wo", "bq", "bk", "bv")})
         elif name == "mlp":
             out[name] = SimpleNamespace(kind=cfg.mlp, **sub)
@@ -432,12 +455,15 @@ def _layer_view(cfg: ArchConfig, lay: dict) -> SimpleNamespace:
     return SimpleNamespace(**out)
 
 
-def params_view(cfg: ArchConfig, params: dict) -> SimpleNamespace:
+def params_view(cfg: ArchConfig, params: dict, heads: tuple[int, int] | None = None
+                ) -> SimpleNamespace:
     """A :class:`Transformer`-shaped view of a parameter tree in the
     reference's layout (:func:`params_tree`), for :func:`forward` and
     :func:`lm_logits`: each stacked ``layers`` leaf is unbound once into
     its layers' slices (a hybrid's tuple is taken layer by layer), so
-    autograd through the view reaches the tree's leaves."""
+    autograd through the view reaches the tree's leaves. ``heads`` (query,
+    KV) sets the attention's head counts: a model rank's tree of its
+    ranges (:func:`forward_group`)."""
     lay = params["layers"]
     if isinstance(lay, dict):
         def unbind(tree):
@@ -456,4 +482,194 @@ def params_view(cfg: ArchConfig, params: dict) -> SimpleNamespace:
         per_layer = list(lay)
     return SimpleNamespace(cfg=cfg, embed=params["embed"], lm_head=params.get("lm_head"),
                            final_norm=_norm_view(cfg, params["final_norm"]),
-                           layers=[_layer_view(cfg, p) for p in per_layer])
+                           layers=[_layer_view(cfg, p, heads) for p in per_layer])
+
+
+# -- model-axis compute over a model group ------------------------------------------------
+
+
+class GroupRun(SimpleNamespace):
+    """One data index's model group under model-axis compute: ``grp`` (its
+    :class:`~repro_torch.launch.sharded.Group`), ``plan`` (each rank's
+    :class:`~repro_torch.launch.mesh.RankPlan`), ``seq`` (each rank's
+    sequence range of the whole sequence, prefix included), ``seq_shard``,
+    ``act_to``, ``kv_runs`` (per rank: None, or the runs a rank whose
+    query heads split unevenly over its KV heads attends by)."""
+
+
+def _combine(parts: list, run: GroupRun) -> list:
+    """The ranks' partial outputs summed over the group in rank order: each
+    rank's sequence range of the sum (``seq_shard``) or all of it."""
+    if run.seq_shard:
+        return sh.seq_scatter(run.grp, parts, run.seq)
+    return sh.group_sum(run.grp, parts)
+
+
+def _embed_part(view, batch: dict, vocab: tuple[int, int], act_to, first: bool):
+    """Rank's share of the embedded inputs: its vocab range's rows, zero for
+    tokens outside it (the whole lookup when the range is the vocab), and
+    the patch prefix on the first rank (zeros on the others)."""
+    cfg = view.cfg
+    t = batch["tokens"]
+    lo, hi = vocab
+    if (lo, hi) == (0, cfg.vocab_size):
+        e = F.embedding(t, view.embed)
+    else:
+        inside = (t >= lo) & (t < hi)
+        e = F.embedding(torch.where(inside, t - lo, 0), view.embed)
+        e = torch.where(inside[..., None], e, torch.zeros((), dtype=e.dtype, device=e.device))
+    h = act(e.to(f32), act_to)
+    if cfg.frontend == "vision":
+        patches = batch["patch_embeds"].to(f32)
+        h = torch.cat([patches if first else torch.zeros_like(patches), h], dim=1)
+    return h
+
+
+def _group_embed(views: list, batches: list, run: GroupRun) -> list:
+    """:func:`_embed_inputs` over the group: the vocab-parallel lookup's
+    parts summed (each element has one nonzero part: exact), then the
+    sinusoids of the whole sequence, sliced to a rank's range."""
+    cfg = views[0].cfg
+    parts = []
+    for r, (v, b) in enumerate(zip(views, batches)):
+        with run.grp.on(r):
+            parts.append(_embed_part(v, b, run.plan[r].vocab, run.act_to, r == 0))
+    hs = _combine(parts, run)
+    if cfg.rotary_pct == 0.0 and cfg.mrope_sections is None:
+        out = []
+        for r, (h, b) in enumerate(zip(hs, batches)):
+            with run.grp.on(r):
+                sin = _sinusoidal(b["positions"], cfg.d_model)
+                lo, hi = run.seq[r] if run.seq_shard else (0, sin.shape[1])
+                out.append(h + sin[:, lo:hi])
+        hs = out
+    return hs
+
+
+def _detached(p) -> SimpleNamespace:
+    return SimpleNamespace(kind=p.kind, scale=p.scale.detach(),
+                           bias=None if p.bias is None else p.bias.detach())
+
+
+class _DenseGrad(torch.autograd.Function):
+    """The identity; its backward hands on a contiguous cotangent. A range of
+    a concatenation's cotangent is a strided view, and a LayerNorm bias
+    sums its cotangent's rows in an order that depends on the layout."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _group_norm(norms: list, hs: list, run: GroupRun) -> list:
+    """Every rank's normed input over the whole sequence. ``seq_shard``:
+    each rank norms its range, then the all-gather along the sequence.
+    Otherwise each rank norms its whole copy range by range (the same
+    shapes; only its own range takes the scale's gradient), then
+    Megatron's f (the ranks' cotangents summed in rank order)."""
+    whole = len(hs) == 1  # the norm reads h itself, as the single-device forward
+    if run.seq_shard:
+        own = []
+        for r, h in enumerate(hs):
+            with run.grp.on(r):
+                # Through a view, as a range of a whole copy is below: the
+                # norm's own gradient terms add up before the residual's.
+                own.append(_norm(norms[r], h if whole else h.view_as(h), run.act_to))
+        return sh.seq_gather(run.grp, own, run.seq)
+    xs = []
+    for j, h in enumerate(hs):
+        with run.grp.on(j):
+            if whole:
+                xs.append(_norm(norms[j], h, run.act_to))
+            else:
+                xs.append(torch.cat([_DenseGrad.apply(_norm(
+                    norms[j] if r == j else _detached(norms[j]), h[:, lo:hi].contiguous(),
+                    run.act_to)) for r, (lo, hi) in enumerate(run.seq)], dim=1))
+    return sh.group_copy(run.grp, xs)
+
+
+def _group_add(hs: list, parts: list, run: GroupRun) -> list:
+    ys = _combine(parts, run)
+    out = []
+    for r, (h, y) in enumerate(zip(hs, ys)):
+        with run.grp.on(r):
+            out.append(h + y)
+    return out
+
+
+def _block_group(layers: list, hs: list, cfg: ArchConfig, ctxs: list, run: GroupRun,
+                 collect: bool = False):
+    """:func:`_block_full` over the group (attention blocks with a dense
+    MLP): returns the ranks' residual streams and, with ``collect``, each
+    rank's ``(k, v)`` of its KV heads (None for a rank with no head)."""
+    xs = _group_norm([lay.norm1 for lay in layers], hs, run)
+    parts, kvs = [], []
+    for r, (lay, x, ctx) in enumerate(zip(layers, xs, ctxs)):
+        if run.plan[r].n_heads == 0:  # a rank with no head computes no attention
+            parts.append(None)
+            kvs.append(None)
+            continue
+        with run.grp.on(r):
+            mix, kv = attend(lay.attn, x, ctx.qpos, ctx.rot, window=ctx.window,
+                             act_to=ctx.act_to, kv_runs=run.kv_runs[r])
+        parts.append(mix)
+        kvs.append(kv if collect else None)
+    hs = _group_add(hs, parts, run)
+    xs = _group_norm([lay.norm2 for lay in layers], hs, run)
+    parts = []
+    for r, (lay, x) in enumerate(zip(layers, xs)):
+        if run.plan[r].ff[1] == run.plan[r].ff[0]:
+            parts.append(None)
+            continue
+        with run.grp.on(r):
+            parts.append(mlp_apply(cfg.mlp, x, lay.mlp, run.act_to))
+    return _group_add(hs, parts, run), kvs
+
+
+def _remat_block(layers, cfg, ctxs, run, *hs):
+    return tuple(_block_group(layers, list(hs), cfg, ctxs, run)[0])
+
+
+def forward_group(views: list, batches: list, run: GroupRun, *, remat: bool = False,
+                  collect_kv: bool = False):
+    """:func:`forward` over a model group: ``views`` each rank's
+    :func:`params_view` of its ranges, ``batches`` each rank's copy of the
+    data index's rows (positions filled). Returns every rank's final normed
+    hidden states over the whole sequence (``[B, S + P, D]``, what the
+    vocab-parallel head reads) and, with ``collect_kv``, per layer each
+    rank's ``(k, v)``. ``remat`` recomputes each block in the backward,
+    keeping each rank's block input (its sequence range under
+    ``seq_shard``). Attention blocks with a dense MLP only."""
+    cfg = views[0].cfg
+    hs = _group_embed(views, batches, run)
+    ctxs = []
+    for r, b in enumerate(batches):
+        with run.grp.on(r):
+            ctxs.append(_ctx(cfg, b["positions"], run.act_to))
+    kv_all = []
+    for i in range(cfg.n_layers):
+        layers = [v.layers[i] for v in views]
+        if remat:
+            hs = list(checkpoint(_remat_block, layers, cfg, ctxs, run, *hs,
+                                 use_reentrant=False, preserve_rng_state=False))
+        else:
+            hs, kvs = _block_group(layers, hs, cfg, ctxs, run, collect_kv)
+            kv_all.append(kvs)
+    hs = _group_norm([v.final_norm for v in views], hs, run)
+    return (hs, kv_all) if collect_kv else hs
+
+
+def lm_logits_group(views: list, hs: list, run: GroupRun) -> list:
+    """Each rank's logits of its vocab range (``[.., V_r]``, the activation
+    dtype) from its copy of h: the columns of the LM head, or the rows of
+    the tied embedding."""
+    out = []
+    for r, (v, h) in enumerate(zip(views, hs)):
+        with run.grp.on(r):
+            w = v.embed.T if v.cfg.tie_embeddings else v.lm_head
+            out.append(dense(h, w, act_to=run.act_to))
+    return out

@@ -204,12 +204,17 @@ def test_train_step_on_card_matches_cpu(card):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("pol", ["fp32", "fp16"])
-def test_mesh_train_step_on_card_matches_single(card, pol):
-    """Reduced smollm-360m, one train step over the mesh lowering on a 2x2
-    mesh of ``[card] * 4`` against the single-device card step from the same
-    state and tokens: B7 twice and the backward once per layer and data
-    index, every block on the card, loss and new masters as one step's
-    (``tests/test_torch_sharded.py``'s tolerances)."""
+@pytest.mark.parametrize("arch,compute", [("smollm-360m", "megatron"),
+                                          ("granite-moe-1b-a400m", "data")])
+def test_mesh_train_step_on_card_matches_single(card, pol, arch, compute):
+    """A reduced arch, one train step over the mesh lowering on a 2x2 mesh of
+    ``[card] * 4`` against the single-device card step from the same state
+    and tokens: smollm split over the model axis (4 query heads on 2
+    ranks), granite-moe kept data-parallel (each data index's model rank 0
+    on the whole params; experts EP). B7 twice and the backward once per
+    layer, data index and computing model rank, every block on the card,
+    loss and new masters as one step's (``tests/test_torch_sharded.py``'s
+    tolerances)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import mesh as meshlib
     from repro_torch.launch import sharded as sh
@@ -217,7 +222,7 @@ def test_mesh_train_step_on_card_matches_single(card, pol):
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.precision.policy import tree_leaves
 
-    cfg, opt = reduce_arch(get_arch("smollm-360m")), AdamWConfig()  # build_task's
+    cfg, opt = reduce_arch(get_arch(arch)), AdamWConfig()  # build_task's
     mesh = meshlib.make_host_mesh((2, 2), devices=[card] * 4)
     task = tasks.build_task(cfg, ShapeConfig("mesh", 64, 4, "train"), mesh, pol, ce_chunk=32)
     single = tasks.make_train_step(cfg, get_policy(pol), opt_cfg=opt, ce_chunk=32)
@@ -228,8 +233,10 @@ def test_mesh_train_step_on_card_matches_single(card, pol):
     ops.reset_launches()
     got_state, got = task.sharded()(state, batch)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["flash_attention"] == 2 * cfg.n_layers * 2
-    assert ops.LAUNCHES["flash_attention_bwd"] == cfg.n_layers * 2
+    assert task.model_compute == compute
+    computing = 2 * (2 if compute == "megatron" else 1)  # data indices x computing ranks
+    assert ops.LAUNCHES["flash_attention"] == 2 * cfg.n_layers * computing
+    assert ops.LAUNCHES["flash_attention_bwd"] == cfg.n_layers * computing
     assert all(b.device == card for x in tree_leaves(got_state) for b in x.blocks.flat)
     np.testing.assert_allclose(float(got["loss"]), float(want["loss"]), rtol=1e-5)
     np.testing.assert_allclose(float(got["grad_norm"]), float(want["grad_norm"]),

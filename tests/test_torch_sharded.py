@@ -18,7 +18,14 @@ Tolerances (ROADMAP queue C, slice 19; measured values in the comments):
   at 2e-5: on this batch the port's own single-device step lies 1.28e-5
   from the reference (slice 17's cause; 3.3e-6 on slice 17's batch) and
   the sharded step 7e-8 from the port's single-device one.
-* serving: logits within 1e-5 (a data index's rows through the same ops).
+* serving: logits within 1e-5 (a data index's rows through the same ops),
+  but the prefill of an arch split over ``model`` (smollm:
+  ``launch/mesh.model_compute``): its logits and cache within 2e-3 (its
+  row- and vocab-parallel sums flip fp16 roundings of projection inputs,
+  ROADMAP queue C slice 21; up to 1.42e-3 in ``tests/test_torch_tp.py``),
+  the reduced fp16 bound of slice 4. Decode stays data-parallel, so the
+  single-device decode starts from the sharded prefill's cache and the
+  decode steps are held at 1e-5.
 """
 import functools
 import tempfile
@@ -55,6 +62,7 @@ GNORM_RTOL = {"fp32": 1e-5, "fp16": 1e-4}
 MOMENT_TOL = {"fp32": 1e-4, "fp16": 5e-3}
 # Against the reference: fp16 2e-5 (the docstring), the hybrid's 5e-5 (slice 18).
 REF_LOSS_RTOL = {"fp32": 1e-5, "fp16": 2e-5, ("recurrentgemma-2b", "fp16"): 5e-5}
+SPLIT_SERVE_TOL = 2e-3  # fp16 prefill split over `model` (the docstring)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -219,6 +227,7 @@ def test_sharded_prefill_and_decode_match_single_device(arch, layout, kv_layout)
     on 2x2, against single-device serving, under both KV layouts."""
     kv_layout(layout)
     cfg, pol = _cfgs(arch)[1], get_policy("fp16")
+    tol = SPLIT_SERVE_TOL if meshlib.model_compute(cfg) == "megatron" else 1e-5
     model = tf.init_params(cfg, pol, seed=3, device="cpu")
     params = tf.params_tree(model)
     mesh = _mesh((2, 2))
@@ -226,15 +235,18 @@ def test_sharded_prefill_and_decode_match_single_device(arch, layout, kv_layout)
     prefill = tasks.build_task(cfg, ShapeConfig("p", 16, B, "prefill"), mesh, pol)
     got = sh.gather(prefill.sharded()(params, {"tokens": toks}))
     want = tasks.make_prefill_step(cfg, pol)(model, {"tokens": toks})
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
     cap = 24
     single = tasks.make_prefill_step(cfg, pol, collect_cache=True, cache_len=cap)
     sharded = tasks.make_prefill_step(cfg, pol, mesh=mesh, collect_cache=True, cache_len=cap)
     logits, cache = single(model, {"tokens": toks})
     s_logits, s_cache = sharded(params, {"tokens": toks})
-    torch.testing.assert_close(sh.gather(s_logits), logits, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(sh.gather(s_logits), logits, rtol=tol, atol=tol)
     for a, b in zip(tree_leaves(sh.gather_tree(s_cache)), tree_leaves(cache)):
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol)
+    # Decode is data-parallel for every arch: single-device decode from the
+    # same cache (the sharded prefill's, gathered) is held at 1e-5.
+    cache = sh.gather_tree(s_cache)
     decode_task = tasks.build_task(cfg, ShapeConfig("d", cap, B, "decode"), mesh, pol)
     step1 = tasks.make_decode_step(cfg, pol)
     run = decode_task.sharded()
