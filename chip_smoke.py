@@ -7916,75 +7916,174 @@ def _mesh_train(dev, totals) -> dict:
             "save_restore_reshard_s": save_s}, params
 
 
-# The data-parallel lowering (the mesh path of the MoE, Mamba and RG-LRU
-# archs until they split over `model`): granite-moe-1b-a400m at phase 14's
-# full-width cut (2 layers, 4 x 512), 2 steps on a 2x2 mesh of [card] * 4.
-MESH_DATA_ARCH, MESH_DATA_LAYERS, MESH_DATA_STEPS = "granite-moe-1b-a400m", 2, 2
+# The split lowering of the other layer kinds (A12e part 2): each arch fp16
+# at full width on one card's meshes, one step each from a state drawn on
+# the card (the single-device step from the same state and batch beside
+# it), then the split prefill of the recurrent archs against single-device
+# prefill: (arch, layers, mesh, batch, seq). granite-moe's 32 experts split
+# EP on 2x2 (32 % 2 = 0) and TP on 1x3 (32 % 3 != 0); falcon-mamba's d_inner
+# 8,192 by channel; recurrentgemma one period (two RG-LRU layers and one
+# local-attention layer) over its 2,048 window. qwen2-moe's 2-layer step
+# alone needs about 60 GB: its TP and shared experts are the CPU tests'.
+MESH_LAYER_RUNS = (("granite-moe-1b-a400m", 2, (2, 2), 4, 512),
+                   ("granite-moe-1b-a400m", 2, (1, 3), 4, 512),
+                   ("falcon-mamba-7b", 2, (2, 2), 4, 512),
+                   ("recurrentgemma-2b", 3, (2, 2), 2, 2560))
+MESH_LAYER_PREFILL = dict(batch=2, prompt_len=128, gen=8)
 
 
-def _mesh_train_data(dev, totals) -> dict:
-    """Phase 15b: ``MESH_DATA_ARCH`` fp16 at full width, cut to
-    ``MESH_DATA_LAYERS`` layers, through ``build_task`` on a 2x2 mesh of
-    ``[card] * 4``, which keeps it data-parallel (each data index's model
-    rank 0 gathers the whole params and computes; experts laid out EP);
-    after every step the single-device step from the same state and batch,
-    at ``MESH_TOL``."""
-    import dataclasses
+def _card_state(cfg, dev, seed: int) -> dict:
+    """``tasks.init_train_state``'s fp16 state of ``cfg``, drawn on the card
+    from a CUDA generator seeded with ``seed`` (the same modules, shapes and
+    scales; another stream of draws than the CPU generator's, a few seconds
+    faster per billion weights)."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.precision import get_policy
 
-    from repro_torch.configs import get_arch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.device(dev):
+        model = tf.Transformer(cfg, get_policy("fp32"), gen)
+    return _state_from_master(tf.params_tree(model), dev)
+
+
+def _mesh_split_launches(cfg, mshape, steps: int) -> dict:
+    """B7 and ``flash_attn_bwd`` launches of a split train step (``steps``
+    2: the forward and remat's recompute) or prefill (1): per attention
+    layer and data index, one per model rank holding a query head."""
+    from repro_torch.launch import mesh as meshlib
+
+    ranks = sum(pl.n_heads > 0 for pl in meshlib.compute_plan(cfg, mshape[1]))
+    n = _attn_layers(cfg) * mshape[0] * ranks
+    out = {"flash_attention": steps * n}
+    if steps == 2:
+        out["flash_attention_bwd"] = n
+    return {k: v for k, v in out.items() if v}
+
+
+def _mesh_train_layers(dev, totals) -> tuple[dict, dict]:
+    """Phase 15b: each run of ``MESH_LAYER_RUNS`` through ``build_task``
+    (split over the model axis) on ``[card] * n``: one step against the
+    single-device step from the same state and batch at ``MESH_TOL``,
+    launches counted. Returns the paths and the recurrent archs' params
+    (their prefill's)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core import distributed
     from repro_torch.data.synthetic import TokenStream
     from repro_torch.kernels import ops
     from repro_torch.launch import mesh as meshlib
-    from repro_torch.launch import sharded as sh
     from repro_torch.models import tasks
     from repro_torch.optim.adamw import AdamWConfig
 
-    cfg = dataclasses.replace(get_arch(MESH_DATA_ARCH), n_layers=MESH_DATA_LAYERS)
     opt = AdamWConfig()  # build_task's
-    b, s = ARCH_TRAIN_DEFAULT
-    task = tasks.build_task(cfg, ShapeConfig("mesh", s, b, "train"),
-                            meshlib.make_host_mesh((2, 2), devices=[dev] * 4), "fp16")
-    require(task.model_compute == "data", f"{MESH_DATA_ARCH} is split over the model axis")
-    single = tasks.make_train_step(cfg, "fp16", opt_cfg=opt, ce_chunk=512)
-    stream = TokenStream(cfg.vocab_size, s, b, seed=0)
-    state = tasks.init_train_state(cfg, "fp16", seed=0, device=dev)
-    steps, launches, colls, times, single_times = [], [], [], [], []
-    for i in range(MESH_DATA_STEPS):
-        batch = {"tokens": stream.batch(i)["tokens"].to(dev)}
-        whole = sh.gather_tree(state) if i else state
+    out, params, states = {}, {}, {}
+    for arch, layers, mshape, b, s in MESH_LAYER_RUNS:
+        cfg = _arch_cfg(arch, layers)
+        name = f"{arch} {mshape[0]}x{mshape[1]}"
+        t0 = time.perf_counter()
+        if arch not in states:
+            states = {arch: _card_state(cfg, dev, seed=0)}  # one arch's state at a time
+            torch.cuda.synchronize()
+        state = states[arch]
+        draw_s = time.perf_counter() - t0
+        n = mshape[0] * mshape[1]
+        mesh = meshlib.make_host_mesh(mshape, devices=[dev] * n)
+        task = tasks.build_task(cfg, ShapeConfig("mesh", s, b, "train"), mesh, "fp16")
+        require(task.model_compute == "megatron", f"{name}: not split over the model axis")
+        single = tasks.make_train_step(cfg, "fp16", opt_cfg=opt, ce_chunk=512)
+        batch = {"tokens": TokenStream(cfg.vocab_size, s, b, seed=0).batch(0)["tokens"].to(dev)}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        want_state, want = single(whole, batch)
+        want_state, want = single(state, batch)
         float(want["loss"])
-        single_times.append(time.perf_counter() - t0)
-        del whole
+        single_ms = (time.perf_counter() - t0) * 1e3
         ops.reset_launches()
         distributed.reset_collectives()
         t0 = time.perf_counter()
-        state, metrics = task.sharded()(state, batch)
+        got_state, metrics = task.sharded()(state, batch)
         float(metrics["loss"])
-        times.append(time.perf_counter() - t0)
-        launches.append(dict(ops.LAUNCHES))
-        colls.append({k: dict(v) for k, v in distributed.COLLECTIVES.items()})
-        _add(totals, ops.LAUNCHES)
-        expect = {"flash_attention": 2 * cfg.n_layers * 2, "flash_attention_bwd": cfg.n_layers * 2}
+        ms = (time.perf_counter() - t0) * 1e3
         got = {k: v for k, v in ops.LAUNCHES.items() if v}
-        require(got == expect, f"data-parallel mesh step {i}: launches {got} != {expect}")
-        lr_t = opt.lr * min(1.0, (i + 2) / opt.warmup_steps)
-        row, _ = _mesh_compare(state, want_state, metrics, want, lr_t)
-        steps.append({"step": i, "mesh": "2x2", "entries": 4, **row})
-        del want_state
-        log(f"[mesh] {MESH_DATA_ARCH} ({cfg.n_layers} layers, data-parallel) step {i} on 2x2: "
-            f"loss {row['loss']:.5f}, rel {row['rel']}, first moments {row['m_of_scale']:.3g} of "
-            f"scale, masters {row['master_max_abs']:.3g} (2 lr_t {2 * lr_t:.3g}); launches {got}; "
-            f"collective bytes per device {colls[-1]}; {times[-1] * 1e3:.1f} ms (single-device "
-            f"{single_times[-1] * 1e3:.1f} ms)")
-    return {"arch": MESH_DATA_ARCH, "layers": cfg.n_layers, "batch": b, "seq_len": s,
-            "model_compute": task.model_compute, "steps": steps, "launches": launches,
-            "collectives": colls, "ms_per_step": [t * 1e3 for t in times],
-            "single_ms_per_step": [t * 1e3 for t in single_times]}
+        colls = {k: dict(v) for k, v in distributed.COLLECTIVES.items()}
+        _add(totals, ops.LAUNCHES)
+        expect = _mesh_split_launches(cfg, mshape, 2)
+        require(got == expect, f"{name} split step: launches {got} != {expect}")
+        lr_t = opt.lr * 2 / opt.warmup_steps  # the warm-up at step 1
+        row, _ = _mesh_compare(got_state, want_state, metrics, want, lr_t)
+        ep = meshlib.expert_parallel(cfg, mshape[1]) if cfg.moe is not None else None
+        require(("all-to-all" in colls) == bool(ep), f"{name}: collectives {sorted(colls)}")
+        del want_state, got_state
+        out[name] = {"layers": cfg.n_layers, "batch": b, "seq_len": s, "entries": n,
+                     "experts": {True: "EP", False: "TP", None: None}[ep], **row,
+                     "launches": got, "collectives": colls, "ms_per_step": ms,
+                     "single_ms_per_step": single_ms, "draw_s": draw_s}
+        log(f"[mesh] {name} ({cfg.n_layers} layers, {b} x {s}, split"
+            f"{'' if ep is None else ', experts ' + out[name]['experts']}): loss "
+            f"{row['loss']:.5f}, rel {row['rel']}, first moments {row['m_of_scale']:.3g} of "
+            f"scale, masters {row['master_max_abs']:.3g} (2 lr_t {2 * lr_t:.3g}); launches "
+            f"{got}; collective bytes per device {colls}; {ms:.1f} ms (single-device "
+            f"{single_ms:.1f} ms; state drawn in {draw_s:.1f} s)")
+        if arch in ("falcon-mamba-7b", "recurrentgemma-2b"):
+            params[arch] = (cfg, state["params"])
+        torch.cuda.empty_cache()
+    return out, params
+
+
+def _mesh_prefill_layers(dev, params: dict, totals) -> dict:
+    """Phase 15c: the split prefill (``collect_cache``) of the recurrent
+    archs on 2x2 of ``[card] * 4`` against single-device prefill of the same
+    params and prompts at ``MESH_SERVE_TOL``: the logits, and the decode
+    cache (Mamba's ``conv``/``ssm``, the RG-LRU's ``h``/``conv`` assembled
+    from the ranks' channels; the hybrid's KV heads)."""
+    from repro_torch.core import distributed
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import sharded as sh
+    from repro_torch.models import tasks
+    from repro_torch.models import transformer as tf
+    from repro_torch.precision import get_policy
+    from repro_torch.precision.policy import tree_leaves
+
+    pol = get_policy("fp16")
+    b, s = MESH_LAYER_PREFILL["batch"], MESH_LAYER_PREFILL["prompt_len"]
+    cap = s + MESH_LAYER_PREFILL["gen"]
+    mesh = meshlib.make_host_mesh((2, 2), devices=[dev] * 4)
+    out = {}
+    for arch, (cfg, p) in params.items():
+        g = torch.Generator().manual_seed(7)
+        toks = torch.randint(0, cfg.vocab_size, (b, s), generator=g).to(dev)
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = tasks.make_prefill_step(cfg, pol, collect_cache=True, cache_len=cap)(
+                tf.params_view(cfg, p), {"tokens": toks})
+            torch.cuda.synchronize()
+            single_ms = (time.perf_counter() - t0) * 1e3
+            ops.reset_launches()
+            distributed.reset_collectives()
+            t0 = time.perf_counter()
+            s_logits, s_cache = tasks.make_prefill_step(cfg, pol, mesh=mesh, collect_cache=True,
+                                                        cache_len=cap)(p, {"tokens": toks})
+            got_logits, got_cache = sh.gather(s_logits), sh.gather_tree(s_cache)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        _add(totals, ops.LAUNCHES)
+        expect = _mesh_split_launches(cfg, (2, 2), 1)
+        require(launches == expect, f"{arch} split prefill: launches {launches} != {expect}")
+        colls = {k: dict(v) for k, v in distributed.COLLECTIVES.items()}
+        err = {"logits": max_err(got_logits, logits)}
+        for (keys, a), w in zip(meshlib.key_paths(got_cache), tree_leaves(cache)):
+            if keys[-1] != "pos":
+                key = keys[-1] if keys[-1] in ("k", "v") else "/".join(keys[-2:])
+                err[key] = max(err.get(key, 0.0), max_err(a, w))
+        require(max(err.values()) <= MESH_SERVE_TOL,
+                f"{arch} split prefill: {err} against {MESH_SERVE_TOL}")
+        out[arch] = {"max_abs": err, "launches": launches, "collectives": colls, "ms": ms,
+                     "single_ms": single_ms}
+        log(f"[mesh] {arch} split prefill on 2x2 ({b} x {s}, cache {cap}): max abs from "
+            f"single-device prefill {err}; launches {launches}; collective bytes per device "
+            f"{colls}; {ms:.1f} ms (single-device {single_ms:.1f} ms)")
+    return out
 
 
 def _meta_to(tree, dev):
@@ -8143,10 +8242,11 @@ def _mesh_dryrun_finish(proc, tmp: Path) -> dict:
 
 def phase_mesh(dev, totals: dict) -> dict:
     """Phase 15: the LM mesh lowering on one card: the split training on
-    [card] * 8 and [card] * 4 with the reshards between and the
-    data-parallel training on [card] * 4 (the main path: their launches
-    are counted), serving on [card] * 4, the compressed all-reduce, and the
-    meta dry-run of one production cell (run beside the card work)."""
+    [card] * 8 and [card] * 4 with the reshards between, serving on
+    [card] * 4, the split training and prefill of the MoE, Mamba and RG-LRU
+    archs on [card] * 4 and [card] * 3 (the main path: their launches are
+    counted), the compressed all-reduce, and the meta dry-run of one
+    production cell (run beside the card work)."""
     t0 = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -8158,7 +8258,12 @@ def phase_mesh(dev, totals: dict) -> dict:
     paths["mesh/serve_s"] = time.perf_counter() - t1
     del params
     torch.cuda.empty_cache()
-    paths["mesh/train_data_parallel"] = _mesh_train_data(dev, totals)
+    t1 = time.perf_counter()
+    paths["mesh/train_layers"], layer_params = _mesh_train_layers(dev, totals)
+    paths["mesh/prefill_layers"] = _mesh_prefill_layers(dev, layer_params, totals)
+    del layer_params
+    torch.cuda.empty_cache()
+    paths["mesh/layers_s"] = time.perf_counter() - t1
     paths["mesh/psum_compressed"] = _mesh_psum(dev)
     t1 = time.perf_counter()
     done = os.environ.get(DRYRUN_ENV)  # counted beside the build
@@ -8169,7 +8274,8 @@ def phase_mesh(dev, totals: dict) -> dict:
     paths["mesh/dryrun_wait_s"] = time.perf_counter() - t1
     ms, one = paths["mesh/train"]["ms_per_step"], paths["mesh/train"]["single_ms_per_step"]
     log(f"[mesh] sharded step ms {[round(x, 1) for x in ms]} against the single-device "
-        f"{[round(x, 1) for x in one]} ({smi}); serving {paths['mesh/serve_s']:.1f} s, waited "
+        f"{[round(x, 1) for x in one]} ({smi}); serving {paths['mesh/serve_s']:.1f} s, the "
+        f"other layer kinds {paths['mesh/layers_s']:.1f} s, waited "
         f"{paths['mesh/dryrun_wait_s']:.1f} s for the dry-run")
     paths["mesh/phase_s"] = time.perf_counter() - t0
     log(f"[mesh] phase 15 in {paths['mesh/phase_s']:.1f} s")

@@ -33,9 +33,11 @@ computes and every collective runs, for each data index, on shapes only.
   ``working_bytes`` adds the arguments, the saved activations and what the
   fullest compute entry assembles for its compute (``gathered_bytes``:
   ``core/distributed.GATHERED``, its parameters and batch or cache rows):
-  under ``model_compute`` ``"data"`` the whole parameters, under
-  ``"megatron"`` only its ranges (heads, ``d_ff``, vocab) and the
-  replicated norms; ``fits_hbm`` holds it against the card's 80 GB. With
+  under ``model_compute`` ``"data"`` (decode) the whole parameters, under
+  ``"megatron"`` (train and prefill) only its ranges (heads, ``d_ff``,
+  vocab, experts or ``d_expert``, ``d_shared``, ``d_inner``, the RG-LRU's
+  width) and the replicated norms and router; ``fits_hbm`` holds it
+  against the card's 80 GB. With
   one data index computing, all of that index's model-rank entries
   compute. Under ``"megatron"`` one backward call spans a model group's
   entries: :class:`_BackwardEntries` runs each autograd node's backward
@@ -361,12 +363,14 @@ def main() -> None:
                 extra = ""
                 if status == "ok":
                     mem = rec["production"]["memory"]
+                    colls = " ".join(f"{k}={v['bytes'] / 2**30:.2f}GiB" for k, v in
+                                     sorted(rec["production"]["collectives"].items()))
                     extra = (f"{rec['model_compute']} "
                              f"args={mem['argument_bytes'] / 2**30:.2f}GiB "
                              f"gathered={rec['production']['gathered_bytes'] / 2**30:.2f}GiB "
                              f"saved={mem['activation_bytes'] / 2**30:.2f}GiB "
                              f"working={rec['working_bytes'] / 1e9:.1f}GB "
-                             f"flops={rec['production']['flops']:.3e} "
+                             f"flops={rec['production']['flops']:.3e} {colls} "
                              f"count={rec['production']['count_s']:.0f}s")
                 elif status == "error":
                     extra = rec["error"][:120]

@@ -19,8 +19,10 @@ collectives over named axes, are :mod:`repro_torch.launch.sharded`'s.
 The compute plan (:func:`compute_plan`, port-only) says what each rank of
 a ``model`` group computes under the Megatron lowering of
 ``models/tasks.py`` (:func:`model_compute`): its query heads, the KV heads
-they read, its range of ``d_ff`` and of the vocabulary, each a balanced
-contiguous range.
+they read, its range of ``d_ff`` and of the vocabulary, its experts (EP)
+or its range of ``d_expert`` (TP) as the expert rules choose, its range of
+``d_shared``, of Mamba's ``d_inner`` and of the RG-LRU's ``lru_width``,
+each a balanced contiguous range.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ from repro_torch.precision.policy import _flatten
 __all__ = ["Mesh", "P", "NamedSharding", "make_production_mesh", "make_host_mesh", "data_axes",
            "model_axes", "param_pspec", "cache_pspec", "fit_spec", "tree_pspecs",
            "batch_pspecs", "named", "KV_CACHE_LAYOUT", "part_axes", "key_paths", "RankPlan",
-           "compute_plan", "model_compute", "balanced", "model_size"]
+           "compute_plan", "model_compute", "balanced", "model_size", "expert_parallel"]
 
 Mesh = DeviceMesh
 
@@ -310,13 +312,23 @@ class RankPlan(NamedTuple):
     """What model rank ``rank`` computes: query heads ``q_heads``, the KV
     heads ``kv_heads`` they read (``[lo, hi)``, global indices; a rank
     whose heads split no KV group recomputes the shared ones), its ``ff``
-    range of ``d_ff`` and its ``vocab`` range."""
+    range of ``d_ff``, its ``vocab`` range, its ``experts`` and its
+    ``expert_ff`` range of ``d_expert`` (EP: a range of experts, each
+    whole; TP: every expert, a range of each), its ``shared`` range of
+    ``d_shared``, its ``inner`` range of Mamba's ``d_inner`` and its
+    ``lru`` range of the RG-LRU's width (``(0, 0)`` where the arch has
+    none)."""
 
     rank: int
     q_heads: tuple[int, int]
     kv_heads: tuple[int, int]
     ff: tuple[int, int]
     vocab: tuple[int, int]
+    experts: tuple[int, int] = (0, 0)
+    expert_ff: tuple[int, int] = (0, 0)
+    shared: tuple[int, int] = (0, 0)
+    inner: tuple[int, int] = (0, 0)
+    lru: tuple[int, int] = (0, 0)
 
     @property
     def n_heads(self) -> int:
@@ -340,6 +352,13 @@ class RankPlan(NamedTuple):
         return runs
 
 
+def expert_parallel(cfg, m: int) -> bool:
+    """Whether an ``m``-way ``model`` axis splits ``cfg``'s experts EP (the
+    expert count divides it: :data:`_MOE_RULES_EP`) or TP (inside each
+    expert), as :func:`param_pspec` chooses."""
+    return cfg.moe is not None and cfg.moe.n_experts % m == 0
+
+
 def compute_plan(cfg, m: int) -> list[RankPlan]:
     """Per model rank of an ``m``-way ``model`` axis its heads, ``d_ff``
     range and vocab range. Where ``m <= n_kv_heads`` the ranks split whole
@@ -347,7 +366,9 @@ def compute_plan(cfg, m: int) -> list[RankPlan]:
     more: smollm's 5 on 2 ranks as 3 + 2), each taking its groups' query
     heads; else they split the query heads, balanced and contiguous, each
     reading the KV heads its queries read (recomputed on every rank that
-    reads them). A rank may hold no head (qwen2-vl's 12 on 16)."""
+    reads them). A rank may hold no head (qwen2-vl's 12 on 16). Experts
+    split by :func:`expert_parallel`; ``d_shared``, ``d_inner`` and
+    ``lru_width`` balanced and contiguous."""
     g = cfg.n_heads // cfg.n_kv_heads
     if m <= cfg.n_kv_heads:
         kvs = balanced(cfg.n_kv_heads, m)
@@ -356,15 +377,27 @@ def compute_plan(cfg, m: int) -> list[RankPlan]:
         qs = balanced(cfg.n_heads, m)
         kvs = [(lo // g, (hi - 1) // g + 1) if hi > lo else (0, 0) for lo, hi in qs]
     ffs, vocab = balanced(cfg.d_ff, m), balanced(cfg.vocab_size, m)
-    return [RankPlan(r, qs[r], kvs[r], ffs[r], vocab[r]) for r in range(m)]
+    none = [(0, 0)] * m
+    experts = expert_ff = shared = inner = lru = none
+    if cfg.moe is not None:
+        e, f = cfg.moe.n_experts, cfg.moe.d_expert
+        if expert_parallel(cfg, m):
+            experts, expert_ff = balanced(e, m), [(0, f)] * m
+        else:
+            experts, expert_ff = [(0, e)] * m, balanced(f, m)
+        shared = balanced(cfg.moe.d_shared, m)
+    if cfg.ssm is not None:
+        inner = balanced(cfg.ssm.expand * cfg.d_model, m)
+    if cfg.hybrid is not None:
+        lru = balanced(cfg.hybrid.lru_width or cfg.d_model, m)
+    return [RankPlan(r, qs[r], kvs[r], ffs[r], vocab[r], experts[r], expert_ff[r], shared[r],
+                     inner[r], lru[r]) for r in range(m)]
 
 
 def model_compute(cfg) -> str:
-    """How the mesh lowering computes ``cfg`` over a ``model`` axis:
-    ``"megatron"`` (heads, ``d_ff`` and vocabulary split over the ranks)
-    where every layer is an attention block with a dense MLP, else
-    ``"data"`` (data-parallel over the data axes; MoE, Mamba and the RG-LRU
-    hybrid)."""
-    dense = cfg.moe is None and cfg.ssm is None and cfg.hybrid is None
-    return "megatron" if dense and all(cfg.layer_kind(i) == "attn"
-                                       for i in range(cfg.n_layers)) else "data"
+    """How the mesh lowering's train and prefill steps compute ``cfg`` over
+    a ``model`` axis: ``"megatron"`` for every arch (heads, ``d_ff``,
+    vocabulary, experts, ``d_inner`` and ``lru_width`` split over the
+    ranks, :func:`compute_plan`). Decode stays data-parallel
+    (``tasks.Task.model_compute`` ``"data"``)."""
+    return "megatron"

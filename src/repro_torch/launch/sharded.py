@@ -9,8 +9,10 @@ lowering (``models/tasks.py``) moves data only through :func:`all_gather`,
 :func:`region_gather`, :func:`reduce_scatter` and :func:`all_reduce` over
 named axes, and, inside a ``model`` group (a data index's entries in rank
 order, :class:`Group`), through the differentiable :func:`group_sum`,
-:func:`group_copy`, :func:`seq_gather` and :func:`seq_scatter` (Megatron's
-g and f, and sequence parallelism's all-gather / reduce-scatter pair).
+:func:`group_copy`, :func:`group_psum`, :func:`seq_gather`,
+:func:`seq_scatter` and :func:`all_to_all` (Megatron's g and f, an
+all-reduce whose backward is one too, sequence parallelism's all-gather /
+reduce-scatter pair, and the MoE combine's exchange).
 Each sums in a fixed order (the parts' order, mesh index order, rank
 order; never a float atomic) and counts its calls and bytes in
 :data:`repro_torch.core.distributed.COLLECTIVES`, a group collective in
@@ -32,7 +34,8 @@ from repro_torch.precision.policy import _flatten
 
 __all__ = ["Sharded", "shard", "gather", "shard_tree", "gather_tree", "held_bytes", "entries",
            "blocks_of", "block_slices", "all_gather", "reduce_scatter", "all_reduce", "pieces",
-           "region_gather", "Group", "group_sum", "group_copy", "seq_gather", "seq_scatter"]
+           "region_gather", "Group", "group_sum", "group_copy", "group_psum", "seq_gather",
+           "seq_scatter", "all_to_all"]
 
 
 def entries(mesh: DeviceMesh) -> list[tuple]:
@@ -511,3 +514,55 @@ def seq_scatter(grp: Group, parts: list, ranges: list, dim: int = 1) -> list:
     present = tuple(r for r, p in enumerate(parts) if p is not None)
     return list(_SeqScatter.apply(grp, tuple(ranges), dim, present,
                                   *(parts[r] for r in present)))
+
+
+def group_psum(grp: Group, parts: list) -> list:
+    """``parts`` (None: nothing from that rank) summed over ``grp`` in rank
+    order, a copy on every rank, where each rank goes on with its own share
+    of the work (not the same work: Megatron's g would hand each part only
+    its rank's cotangent): the backward sums every rank's cotangent in rank
+    order too (:func:`group_copy` of :func:`group_sum`)."""
+    return group_copy(grp, group_sum(grp, parts))
+
+
+def _moved(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    y = x.to(dev)
+    return x.view_as(x) if y is x else y
+
+
+class _AllToAll(torch.autograd.Function):
+    """Rank ``r``'s piece for rank ``j`` moved onto ``j``'s device, for
+    every pair; the backward moves each cotangent back (its transpose)."""
+
+    @staticmethod
+    def forward(ctx, grp, m, *pieces):
+        ctx.grp, ctx.m = grp, m
+        outs = []
+        for i, x in enumerate(pieces):
+            with grp.on(i % m):
+                outs.append(_moved(x, grp.device(i % m)))
+        note_collective("all-to-all", {e: sum(_nbytes(pieces[r * m + j]) for r in range(m)
+                                              if r != j) for j, e in enumerate(grp.ents)})
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *douts):
+        grp, m = ctx.grp, ctx.m
+        grads = []
+        for i, d in enumerate(douts):
+            with grp.on(i // m):
+                grads.append(None if d is None else _moved(d, grp.device(i // m)))
+        note_collective("all-to-all", {e: sum(_nbytes(douts[r * m + j]) for j in range(m)
+                                              if j != r and douts[r * m + j] is not None)
+                                       for r, e in enumerate(grp.ents)})
+        return (None, None, *grads)
+
+
+def all_to_all(grp: Group, pieces: list) -> list:
+    """The group's all-to-all: ``pieces[r][j]`` rank ``r``'s tensor for rank
+    ``j``; returns ``got[j][r]``, each on rank ``j``'s device; differentiable
+    (the backward is the transposed exchange). Counted as ``"all-to-all"``:
+    per rank the bytes it takes in from the others."""
+    m = len(grp.ents)
+    flat = _AllToAll.apply(grp, m, *(pieces[r][j] for r in range(m) for j in range(m)))
+    return [[flat[r * m + j] for r in range(m)] for j in range(m)]

@@ -8,7 +8,8 @@ element-wise launches per level on the card); decode is the O(1)
 single-step recurrence, carrying the last K-1 raw conv inputs and the
 ``[B, Di, N]`` state in the cache's dtype. The reference's own lever
 ``SSM_CHUNK`` (:func:`set_ssm_chunk`) scans chunks of that many steps
-one after another instead, the state carried between them.
+one after another instead, the state carried between them. Over a model
+group (:func:`mamba_group`) each rank runs a channel range of ``d_inner``.
 """
 from __future__ import annotations
 
@@ -18,10 +19,11 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch import sharded as sh
 from repro_torch.models.layers import act, dense, init_zeros, silu, softplus
 from repro_torch.models.scan import associative_scan, causal_conv, chunked_scan, fma
 
-__all__ = ["Mamba", "mamba_apply", "init_mamba_cache", "mamba_decode_step", "set_ssm_chunk",
+__all__ = ["Mamba", "mamba_apply", "mamba_group", "init_mamba_cache", "mamba_decode_step", "set_ssm_chunk",
            "SSM_CHUNK"]
 
 f32 = torch.float32
@@ -91,11 +93,41 @@ def _ssm_scan(delta_a: torch.Tensor, delta_bu: torch.Tensor) -> torch.Tensor:
 
 def _project(p, xin, cfg, act_to):
     """``(delta, B, C)`` of the conv's output ``xin``."""
+    return _discretise(p, dense(xin, p.x_proj, act_to=act_to), cfg, act_to)
+
+
+def _discretise(p, proj, cfg, act_to):
+    """``(delta, B, C)`` of ``x_proj``'s output ``[.., R + 2N]``."""
     _, dt_rank, n, _ = _dims(cfg)
-    proj = dense(xin, p.x_proj, act_to=act_to)
     dt, b_mat, c_mat = torch.split(proj, [dt_rank, n, n], dim=-1)
     delta = softplus(dense(dt, p.dt_proj, act_to=act_to) + p.dt_bias.to(f32))
     return delta, b_mat, c_mat
+
+
+def _mix_in(p, x, cfg, act_to, return_state):
+    """``(raw, z, xin)``: ``in_proj``'s two halves and the conv's output."""
+    k = cfg.ssm.d_conv
+    if return_state and x.shape[1] < k - 1:
+        raise ValueError(f"a prompt of {x.shape[1]} tokens is shorter than the conv's "
+                         f"history of {k - 1}: the decode cache has no layout for it")
+    raw, z = torch.chunk(dense(x, p.in_proj, act_to=act_to), 2, dim=-1)
+    return raw, z, silu(causal_conv(raw, p.conv_w, p.conv_b))
+
+
+def _mix_out(p, raw, z, xin, proj, cfg, act_to, return_state):
+    """The selective scan from ``x_proj``'s output ``proj``, the gate and
+    ``out_proj``: ``(out, state)``."""
+    delta, b_mat, c_mat = _discretise(p, proj, cfg, act_to)
+    a = -torch.exp(p.A_log)  # [Di, N]
+    delta_a = act(torch.exp(delta[..., None] * a), act_to)  # [B, S, Di, N]
+    delta_bu = act((delta * xin)[..., None] * b_mat[..., None, :], act_to)
+    h = _ssm_scan(delta_a, delta_bu)
+    y = torch.einsum("bsdn,bsn->bsd", h, c_mat.to(h.dtype)) + p.D * xin
+    y = y * silu(z)
+    out = dense(y, p.out_proj, act_to=act_to)
+    if return_state:
+        return out, {"conv": raw[:, -(cfg.ssm.d_conv - 1):], "ssm": h[:, -1]}
+    return out, None
 
 
 def mamba_apply(p, x: torch.Tensor, cfg: ArchConfig, act_to: torch.dtype | None = None,
@@ -108,23 +140,40 @@ def mamba_apply(p, x: torch.Tensor, cfg: ArchConfig, act_to: torch.dtype | None 
     ``return_state``, else None. The discretised ``exp(delta A)`` and
     ``delta B u`` round to the activation dtype before the scan, as the
     reference's ``act`` does."""
-    k = cfg.ssm.d_conv
-    if return_state and x.shape[1] < k - 1:
-        raise ValueError(f"a prompt of {x.shape[1]} tokens is shorter than the conv's "
-                         f"history of {k - 1}: the decode cache has no layout for it")
-    raw, z = torch.chunk(dense(x, p.in_proj, act_to=act_to), 2, dim=-1)
-    xin = silu(causal_conv(raw, p.conv_w, p.conv_b))
-    delta, b_mat, c_mat = _project(p, xin, cfg, act_to)
-    a = -torch.exp(p.A_log)  # [Di, N]
-    delta_a = act(torch.exp(delta[..., None] * a), act_to)  # [B, S, Di, N]
-    delta_bu = act((delta * xin)[..., None] * b_mat[..., None, :], act_to)
-    h = _ssm_scan(delta_a, delta_bu)
-    y = torch.einsum("bsdn,bsn->bsd", h, c_mat.to(h.dtype)) + p.D * xin
-    y = y * silu(z)
-    out = dense(y, p.out_proj, act_to=act_to)
-    if return_state:
-        return out, {"conv": raw[:, -(k - 1):], "ssm": h[:, -1]}
-    return out, None
+    raw, z, xin = _mix_in(p, x, cfg, act_to, return_state)
+    return _mix_out(p, raw, z, xin, dense(xin, p.x_proj, act_to=act_to), cfg, act_to,
+                    return_state)
+
+
+def mamba_group(ps: list, xs: list, cfg: ArchConfig, run, return_state: bool = False):
+    """:func:`mamba_apply` over a model group (``run``: the group's
+    ``transformer.GroupRun``), each rank on its channel range of ``d_inner``
+    (``ps`` each rank's view of its ranges: both halves of ``in_proj``, the
+    conv, ``dt_proj``'s columns, ``dt_bias``, ``A_log``'s rows, ``D``,
+    ``x_proj``'s and ``out_proj``'s rows), ``xs`` each rank's copy of the
+    normed input over the whole sequence. The conv, the discretisation,
+    the scan and the gate run per channel, as the whole layer runs them on
+    those channels; ``x_proj``'s partial products are summed over the group
+    in rank order (:func:`repro_torch.launch.sharded.group_psum`) before
+    the split into dt, B and C. Returns each rank's partial ``out_proj``
+    output (to be summed over the group) and, with ``return_state``, its
+    channels of the decode state."""
+    grp = run.grp
+    mids, parts = [], []
+    for r, (p, x) in enumerate(zip(ps, xs)):
+        with grp.on(r):
+            raw, z, xin = _mix_in(p, x, cfg, run.act_to, return_state)
+            mids.append((raw, z, xin))
+            parts.append(dense(xin, p.x_proj))
+    projs = sh.group_psum(grp, parts)
+    outs, states = [], []
+    for r, (p, (raw, z, xin), proj) in enumerate(zip(ps, mids, projs)):
+        with grp.on(r):
+            out, st = _mix_out(p, raw, z, xin, act(proj, run.act_to), cfg, run.act_to,
+                               return_state)
+        outs.append(out)
+        states.append(st)
+    return outs, states
 
 
 def init_mamba_cache(cfg: ArchConfig, batch: int, dtype: torch.dtype, device) -> dict:

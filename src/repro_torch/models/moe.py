@@ -14,7 +14,9 @@ the same bits on the card too: the buffer is filled by a gather (slot c of
 expert e holds the token at sorted position ``start_e + c``), and each
 token's k contributions are summed by a gather in the order the
 reference's scatter-add visits them (by expert, ascending), with no
-atomics.
+atomics. Over a model group (:func:`moe_group`) the same steps run on a
+range of the experts (EP) or of every expert's hidden dim (TP), the
+routing whole on every rank.
 """
 from __future__ import annotations
 
@@ -25,9 +27,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch import mesh as meshlib
+from repro_torch.launch import sharded as sh
 from repro_torch.models.layers import MLP, act, dense, gelu_tanh, mlp_apply, silu
 
-__all__ = ["MoE", "moe_apply", "route", "dispatch_plan"]
+__all__ = ["MoE", "moe_apply", "moe_group", "route", "dispatch_plan"]
 
 f32 = torch.float32
 
@@ -110,41 +114,166 @@ def _experts(p, buf: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return out.reshape(e, b, c, d).transpose(0, 1)
 
 
-def moe_apply(p, x: torch.Tensor, cfg: ArchConfig, act_to: torch.dtype | None = None, *,
-              stats: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    """x ``[B, S, D]`` -> ``(out [B, S, D], aux)``, out in the activation
-    dtype ``act_to``, aux the Switch load-balance loss ``E * sum_e frac_e *
-    mean_prob_e`` (f32 scalar), or with ``stats`` its two factors
-    ``[frac, mean_prob]`` (``[2, E]``, means over B and S). Dispatch is per
-    sequence, with capacity ``ceil(S k / E cf)``."""
+def _capacity(cfg: ArchConfig, s: int) -> int:
     m = cfg.moe
-    b, s, d = x.shape
-    e, k = m.n_experts, m.top_k
-    cap = int(math.ceil(s * k / e * m.capacity_factor))
-    probs, eids, gates = route(p, x, cfg, act_to)
-    frac = F.one_hot(eids, e).to(f32).sum(dim=2).mean(dim=(0, 1))
-    if stats:
-        aux = torch.stack([frac, probs.mean(dim=(0, 1))])
-    else:
-        aux = e * torch.sum(frac * probs.mean(dim=(0, 1)))
+    return int(math.ceil(s * m.top_k / m.n_experts * m.capacity_factor))
 
-    dp = dispatch_plan(eids, e, cap)
-    xf = x.to(f32)
-    tok = dp["token"].reshape(b, e * cap, 1).expand(b, e * cap, d)
-    buf = torch.where(dp["filled"][..., None],
-                      torch.gather(xf, 1, tok).reshape(b, e, cap, d), 0.0)
-    eout = _experts(p, buf, cfg)  # [B, E, C, D]
 
-    # Each token's k contributions, in the order of its experts' ids.
+def _stats(probs, eids, e: int):
+    """``(frac, mean_prob)`` ``[E]`` each: the share of assignments and the
+    mean router probability per expert, over B and S."""
+    return F.one_hot(eids, e).to(f32).sum(dim=2).mean(dim=(0, 1)), probs.mean(dim=(0, 1))
+
+
+def _dispatch(x: torch.Tensor, dp: dict, experts: tuple[int, int], cap: int) -> torch.Tensor:
+    """The buffer ``[B, E_r, cap, D]`` f32 of experts ``[lo, hi)``: slot c
+    of expert e holds its token's row (zeros where unfilled)."""
+    b, _, d = x.shape
+    lo, hi = experts
+    n = hi - lo
+    tok = dp["token"][:, lo:hi].reshape(b, n * cap, 1).expand(b, n * cap, d)
+    return torch.where(dp["filled"][:, lo:hi, :, None],
+                       torch.gather(x.to(f32), 1, tok).reshape(b, n, cap, d), 0.0)
+
+
+def _order(eids, gates, dp: dict, cap: int):
+    """Each token's k assignments in the order of their experts' ids:
+    ``(expert, slot, weight)`` ``[B, S, k]``, the slot clamped into the
+    buffer and the weight the renormalised gate (0 where dropped)."""
     eord, jord = torch.sort(eids, dim=-1)
     slot = torch.gather(dp["slot"], 2, jord).clamp(max=cap - 1)
     wgt = torch.gather(gates * dp["keep"].to(f32), 2, jord)
-    flat = (eord * cap + slot).reshape(b, s * k, 1).expand(b, s * k, d)
-    contrib = torch.gather(eout.reshape(b, e * cap, d), 1, flat).reshape(b, s, k, d)
-    contrib = contrib * wgt[..., None]
-    out = torch.zeros((b, s, d), dtype=f32, device=x.device)
-    for j in range(k):
+    return eord, slot, wgt
+
+
+def _pick(eout: torch.Tensor, eord, slot, experts: tuple[int, int], cap: int,
+          n_experts: int) -> torch.Tensor:
+    """``[B, S', k, D]``: each assignment's row of ``eout`` (``[B, E_r, cap,
+    D]``, experts ``[lo, hi)`` of ``n_experts``), zeros for an expert
+    outside the range."""
+    b, s, k = eord.shape
+    d = eout.shape[-1]
+    lo, hi = experts
+    flat = (eord - lo) * cap + slot
+    owned = None
+    if (lo, hi) != (0, n_experts):
+        owned = (eord >= lo) & (eord < hi)
+        flat = torch.where(owned, flat, 0)
+    rows = torch.gather(eout.reshape(b, -1, d), 1, flat.reshape(b, s * k, 1).expand(b, s * k, d))
+    rows = rows.reshape(b, s, k, d)
+    return rows if owned is None else torch.where(owned[..., None], rows, 0.0)
+
+
+def _weigh(rows: torch.Tensor, wgt: torch.Tensor) -> torch.Tensor:
+    """``sum_j wgt_j rows_j`` over the k assignments in order, f32 (the
+    reference's scatter-add order)."""
+    contrib = rows * wgt[..., None]
+    out = torch.zeros(rows.shape[:2] + rows.shape[3:], dtype=f32, device=rows.device)
+    for j in range(rows.shape[2]):
         out = out + contrib[:, :, j]
+    return out
+
+
+def moe_apply(p, x: torch.Tensor, cfg: ArchConfig, act_to: torch.dtype | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x ``[B, S, D]`` -> ``(out [B, S, D], aux)``, out in the activation
+    dtype ``act_to``, aux the Switch load-balance loss ``E * sum_e frac_e *
+    mean_prob_e`` (f32 scalar; ``frac`` and ``mean_prob`` means over B and
+    S). Dispatch is per sequence, with capacity ``ceil(S k / E cf)``."""
+    m = cfg.moe
+    e = m.n_experts
+    cap = _capacity(cfg, x.shape[1])
+    probs, eids, gates = route(p, x, cfg, act_to)
+    frac, mean_prob = _stats(probs, eids, e)
+    aux = e * torch.sum(frac * mean_prob)
+    dp = dispatch_plan(eids, e, cap)
+    eout = _experts(p, _dispatch(x, dp, (0, e), cap), cfg)  # [B, E, C, D]
+    eord, slot, wgt = _order(eids, gates, dp, cap)
+    out = _weigh(_pick(eout, eord, slot, (0, e), cap, e), wgt)
     if m.n_shared:
         out = out + mlp_apply(cfg.mlp, x, p.shared, act_to)
     return act(out, act_to), aux
+
+
+def moe_group(ps: list, xs: list, cfg: ArchConfig, run) -> tuple[list, torch.Tensor]:
+    """:func:`moe_apply` over a model group (``run``: the group's
+    ``transformer.GroupRun``): ``ps`` each rank's view of its ranges, ``xs``
+    each rank's copy of the normed input over the whole sequence. Returns
+    the ranks' outputs in the residual stream's layout (each rank's
+    sequence range under ``seq_shard``, else the whole) and the routing
+    statistics ``[2, E]`` of rank 0.
+
+    Every rank routes the whole sequence with the whole router (the same
+    bits on each: dispatch and capacity are per sequence). EP (the plan's
+    ``experts`` a range): a rank fills and runs its experts only; under
+    ``seq_shard`` an all-to-all brings each rank its tokens' rows from the
+    other ranks' experts, else an all-gather along E brings every expert's;
+    each rank combines its own sequence range in the reference's order, so
+    the routed output is the single-device layer's bit for bit (without
+    ``seq_shard`` the ranges are then summed onto every rank: each element
+    one nonzero part). TP (``expert_ff`` a range of every expert): each
+    rank combines every token from its partial expert outputs, and the
+    partials are summed over the group in rank order (a reduce-scatter
+    along the sequence under ``seq_shard``, as ``w_down``'s). Shared
+    experts split ``d_shared`` as the dense MLP does; their sum is added
+    after the routed one, as the reference adds it. Each rank's gates take
+    the gradient of its own combine only; rank 0's probabilities that of
+    the statistics."""
+    m = cfg.moe
+    e, grp, plan = m.n_experts, run.grp, run.plan
+    cap = _capacity(cfg, xs[0].shape[1])
+    ep = meshlib.expert_parallel(cfg, len(plan))
+    routed, stats = [], None
+    pieces, orders = [], []
+    for r, (p, x) in enumerate(zip(ps, xs)):
+        with grp.on(r):
+            probs, eids, gates = route(p, x, cfg, run.act_to)
+            if r == 0:
+                stats = torch.stack(_stats(probs, eids, e))
+            dp = dispatch_plan(eids, e, cap)
+            pl = plan[r]
+            eout = None
+            if pl.experts[1] > pl.experts[0] and pl.expert_ff[1] > pl.expert_ff[0]:
+                eout = _experts(p, _dispatch(x, dp, pl.experts, cap), cfg)
+            order = _order(eids, gates, dp, cap)
+            orders.append(order)
+            if not ep:  # TP: the partial combine of every token
+                routed.append(None if eout is None else _weigh(
+                    _pick(eout, order[0], order[1], pl.experts, cap, e), order[2]))
+            elif run.seq_shard:  # EP: the rows of its experts, for each rank's tokens
+                rows = _pick(eout, order[0], order[1], pl.experts, cap, e)
+                pieces.append([rows[:, lo:hi] for lo, hi in run.seq])
+            else:
+                pieces.append(eout)
+    if not ep:
+        routed = run.reduce(routed)
+    elif run.seq_shard:
+        got = sh.all_to_all(grp, pieces)
+        for j, (lo, hi) in enumerate(run.seq):
+            with grp.on(j):
+                rows = got[j][0]
+                for t in got[j][1:]:  # one owner per row, zeros elsewhere: exact
+                    rows = rows + t
+                routed.append(_weigh(rows, orders[j][2][:, lo:hi]))
+    else:
+        whole = sh.seq_gather(grp, pieces, [pl.experts for pl in plan], dim=1)
+        own = []
+        for j, (lo, hi) in enumerate(run.seq):
+            with grp.on(j):
+                eord, slot, wgt = orders[j]
+                own.append(_weigh(_pick(whole[j], eord[:, lo:hi], slot[:, lo:hi], (0, e), cap, e),
+                                  wgt[:, lo:hi]))
+        routed = run.spread(own)
+    if m.n_shared:
+        parts = []
+        for r, (p, x) in enumerate(zip(ps, xs)):
+            with grp.on(r):
+                lo, hi = plan[r].shared
+                parts.append(mlp_apply(cfg.mlp, x, p.shared, run.act_to) if hi > lo else None)
+        shared = run.reduce(parts)
+        routed = [y + z for y, z in zip(routed, shared)]
+    out = []
+    for r, y in enumerate(routed):
+        with grp.on(r):
+            out.append(act(y, run.act_to))
+    return out, stats

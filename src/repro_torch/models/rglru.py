@@ -12,7 +12,8 @@ wrapped in a K = 4 temporal conv and a GELU output gate. Train and
 prefill run the recurrence with
 :func:`repro_torch.models.scan.associative_scan` over ``[B, S, W]``;
 decode is the single-step update carrying ``h`` ``[B, W]`` and the last
-three raw conv inputs in the cache's dtype.
+three raw conv inputs in the cache's dtype. Over a model group
+(:func:`rglru_group`) each rank runs a channel range of the width.
 """
 from __future__ import annotations
 
@@ -20,10 +21,11 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch import sharded as sh
 from repro_torch.models.layers import dense, gelu_tanh, init_zeros, sigmoid, softplus
 from repro_torch.models.scan import associative_scan, causal_conv, fma
 
-__all__ = ["RGLRU", "rglru_apply", "init_rglru_cache", "rglru_decode_step"]
+__all__ = ["RGLRU", "rglru_apply", "rglru_group", "init_rglru_cache", "rglru_decode_step"]
 
 f32 = torch.float32
 _C = 8.0
@@ -70,13 +72,36 @@ class RGLRU(nn.Module):
         self.out_proj = draw((w, d), sw)
 
 
-def _gates(p, xc, act_to):
+def _gates(p, xc, act_to, own=None):
+    """``(a, gated_in)`` of the conv's output ``xc``; ``own`` (default
+    ``xc``) is the conv output of the gates' channels, which ``i * xc``
+    reads where ``w_a`` and ``w_x`` read all of ``xc``."""
+    own = xc if own is None else own
     r = sigmoid(dense(xc, p.w_a, act_to=act_to) + p.b_a)
     i = sigmoid(dense(xc, p.w_x, act_to=act_to) + p.b_x)
     log_a = -_C * softplus(p.lam.to(f32)) * r
     a = torch.exp(log_a)
-    gated_in = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xc)
+    gated_in = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * own)
     return a, gated_in
+
+
+def _mix_in(p, x, act_to, return_state):
+    """``(raw, gate, xc)``: the two input projections and the conv."""
+    if return_state and x.shape[1] < 3:
+        raise ValueError(f"a prompt of {x.shape[1]} tokens is shorter than the conv's "
+                         "history of 3: the decode cache has no layout for it")
+    raw = dense(x, p.in_proj, act_to=act_to)  # [B, S, W]
+    gate = dense(x, p.gate_proj, act_to=act_to)
+    return raw, gate, causal_conv(raw, p.conv_w, p.conv_b)
+
+
+def _mix_out(p, raw, gate, a, gated_in, act_to, return_state):
+    h = associative_scan(a, gated_in)[1]
+    y = h * gelu_tanh(gate)
+    out = dense(y, p.out_proj, act_to=act_to)
+    if return_state:
+        return out, {"h": h[:, -1], "conv": raw[:, -3:]}
+    return out, None
 
 
 def rglru_apply(p, x: torch.Tensor, cfg: ArchConfig, act_to: torch.dtype | None = None,
@@ -86,19 +111,37 @@ def rglru_apply(p, x: torch.Tensor, cfg: ArchConfig, act_to: torch.dtype | None 
     ``([B, S, D], state)``, ``state`` the decode cache at the last position
     (``{"h", "conv": the last three raw conv inputs}``) with
     ``return_state``, else None."""
-    if return_state and x.shape[1] < 3:
-        raise ValueError(f"a prompt of {x.shape[1]} tokens is shorter than the conv's "
-                         "history of 3: the decode cache has no layout for it")
-    raw = dense(x, p.in_proj, act_to=act_to)  # [B, S, W]
-    gate = dense(x, p.gate_proj, act_to=act_to)
-    xc = causal_conv(raw, p.conv_w, p.conv_b)
+    raw, gate, xc = _mix_in(p, x, act_to, return_state)
     a, gated_in = _gates(p, xc, act_to)
-    h = associative_scan(a, gated_in)[1]
-    y = h * gelu_tanh(gate)
-    out = dense(y, p.out_proj, act_to=act_to)
-    if return_state:
-        return out, {"h": h[:, -1], "conv": raw[:, -3:]}
-    return out, None
+    return _mix_out(p, raw, gate, a, gated_in, act_to, return_state)
+
+
+def rglru_group(ps: list, xs: list, cfg: ArchConfig, run, return_state: bool = False):
+    """:func:`rglru_apply` over a model group (``run``: the group's
+    ``transformer.GroupRun``), each rank on its channel range of the width
+    (``ps`` each rank's view of its ranges: the columns of ``in_proj``,
+    ``gate_proj``, ``w_a`` and ``w_x``, the conv, ``b_a``, ``b_x``, ``lam``
+    and ``out_proj``'s rows), ``xs`` each rank's copy of the normed input
+    over the whole sequence. ``w_a`` and ``w_x`` read the whole conv
+    output: the group all-gathers it along the width first (a
+    reduce-scatter in the backward); the scan and the output gate run per
+    channel. Returns each rank's partial ``out_proj`` output (to be summed
+    over the group) and, with ``return_state``, its channels of the decode
+    state."""
+    grp = run.grp
+    mids = []
+    for r, (p, x) in enumerate(zip(ps, xs)):
+        with grp.on(r):
+            mids.append(_mix_in(p, x, run.act_to, return_state))
+    whole = sh.seq_gather(grp, [xc for _, _, xc in mids], [pl.lru for pl in run.plan], dim=-1)
+    outs, states = [], []
+    for r, (p, (raw, gate, xc), xw) in enumerate(zip(ps, mids, whole)):
+        with grp.on(r):
+            a, gated_in = _gates(p, xw, run.act_to, own=xc)
+            out, st = _mix_out(p, raw, gate, a, gated_in, run.act_to, return_state)
+        outs.append(out)
+        states.append(st)
+    return outs, states
 
 
 def init_rglru_cache(cfg: ArchConfig, batch: int, dtype: torch.dtype, device) -> dict:

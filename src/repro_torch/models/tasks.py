@@ -25,26 +25,29 @@ the step itself over :mod:`repro_torch.launch.mesh`'s sharded tensors:
 - *State.* Every leaf of ``params``, ``master``, ``opt.m`` and ``opt.v``
   is held as blocks per :func:`_state_pspecs` (the parameter rules,
   fitted); scalars are replicated, a copy per entry.
-- *Compute* runs over the data axes and, for archs whose layers are all
-  attention blocks with a dense MLP, over ``model`` too
-  (``launch/mesh.model_compute``: ``"megatron"``; MoE, Mamba and the
-  RG-LRU hybrid stay ``"data"``). Each data index takes its rows of the
+- *Compute* runs over the data axes and ``model`` (``launch/mesh.model_compute``:
+  ``"megatron"`` for every arch). Each data index takes its rows of the
   batch (``batch_pspecs``; a batch the data axes do not divide is one data
   index's). The masters are cast to the storage dtype on their owners (the
-  reference's pinned cast), so every gather moves storage bytes. Under
-  ``"data"`` the data index's model-rank-0 entry all-gathers the whole
-  parameters and runs the forward and backward. Under ``"megatron"`` each
-  of its m model ranks gathers only its ranges (``launch/mesh.compute_plan``:
-  whole heads of ``wq``/``wk``/``wv``/``wo`` and the biases, a range of
-  ``d_ff`` of ``w_gate``/``w_up``/``w_down``, a vocab range of ``embed``
-  and ``lm_head``; norms whole; :func:`_rank_region`), a region of the
-  column-sharded storage that need not align with its blocks, and the
-  group runs :func:`repro_torch.models.transformer.forward_group`:
-  column-parallel projections, row-parallel ones summed over the group in
-  rank order (no float atomics), the vocab-parallel embedding and loss
-  (per chunk the max, the sum of exponentials and the target logit each
-  all-reduced in rank order). B7 and ``flash_attn_bwd`` run at each rank's
-  heads on the card; a rank with no head computes no attention.
+  reference's pinned cast), so every gather moves storage bytes. Each of
+  its m model ranks gathers only its ranges (``launch/mesh.compute_plan``,
+  :func:`_rank_regions`): whole heads of ``wq``/``wk``/``wv``/``wo`` and
+  the biases, a range of ``d_ff`` of ``w_gate``/``w_up``/``w_down`` (of
+  ``d_shared`` for qwen2-moe's shared expert), a vocab range of ``embed``
+  and ``lm_head``, its experts (EP, where the expert count divides m) or a
+  range of ``d_expert`` in every expert (TP), its channels of Mamba's
+  ``d_inner`` (both halves of ``in_proj``: two regions) and of the
+  RG-LRU's width; norms and the router whole. A region of the
+  column-sharded storage need not align with its blocks. The group runs
+  :func:`repro_torch.models.transformer.forward_group`: column-parallel
+  projections, row-parallel ones summed over the group in rank order (no
+  float atomics), the vocab-parallel embedding and loss (per chunk the
+  max, the sum of exponentials and the target logit each all-reduced in
+  rank order), the MoE routed on every rank and combined in the
+  reference's order, Mamba's ``x_proj`` all-reduced before its split, the
+  RG-LRU's conv output all-gathered before its gates. B7 and
+  ``flash_attn_bwd`` run at each rank's heads on the card; a rank with no
+  head computes no attention.
 - *Loss.* Each data index's masked NLL sum, added in data-index order
   (an all-reduce) and divided by the global mask count: ``chunked_ce``
   over the whole batch. The MoE load-balance loss is not additive over
@@ -63,10 +66,10 @@ the step itself over :mod:`repro_torch.launch.mesh`'s sharded tensors:
   per ``param_pspec``, the KV/SSM cache per ``cache_pspec``; each data
   index gathers the params and its rows of the cache and inputs, steps,
   and scatters its rows of the logits and the cache back to its group.
-  Prefill of a ``"megatron"`` arch runs the split forward (the ranks'
-  logits gathered along the vocab, their KV heads into the cache); decode
-  stays data-parallel (the reference's cache shards the head dim, which a
-  split by heads does not match).
+  Prefill runs the split forward (the ranks' logits gathered along the
+  vocab, their KV heads and recurrent states' channels into the cache);
+  decode stays data-parallel (the reference's cache shards the head dim,
+  which a split by heads does not match).
 - ``seq_shard`` (the reference's default) shards the residual stream's
   sequence over ``model`` between blocks under model-axis compute
   (Megatron's sequence parallelism: norms on a rank's range, an all-gather
@@ -273,10 +276,9 @@ def make_train_step(cfg: ArchConfig, policy: PrecisionPolicy, *, mesh=None,
     lowering (the module's docstring): ``state`` and ``batch`` may be
     tensors or :class:`~repro_torch.launch.sharded.Sharded` trees, the state
     comes back laid out per :func:`_state_pspecs`, the metrics on the
-    mesh's first device. Archs of attention blocks with dense MLPs compute
-    over the ``model`` axis too (:func:`repro_torch.launch.mesh.model_compute`),
-    with the residual stream sequence-sharded under ``seq_shard``, which
-    changes no bit."""
+    mesh's first device. Every arch computes over the ``model`` axis too
+    (:func:`repro_torch.launch.mesh.compute_plan`), with the residual stream
+    sequence-sharded under ``seq_shard``, which changes no bit."""
     if isinstance(policy, str):
         policy = get_policy(policy)
     act_to = act_dtype(policy.compute)
@@ -348,7 +350,7 @@ def make_prefill_step(cfg: ArchConfig, policy: PrecisionPolicy, *, mesh=None,
     :class:`~repro_torch.launch.sharded.Sharded`, laid out per
     ``param_pspec``) and the step runs over the mesh's lowering: logits
     laid out per ``P(data, "model")`` and the cache per ``cache_pspec``,
-    both fitted; a ``"megatron"`` arch computes over the ``model`` axis
+    both fitted; the forward computes over the ``model`` axis
     (``seq_shard`` changes no bit)."""
     act_to = act_dtype(policy.compute)
     if mesh is not None:
@@ -455,27 +457,61 @@ def _moved_to(mesh, e0: tuple):
     return lambda e: tuple(e0[i] if i in d else x for i, x in enumerate(e))
 
 
-def _rank_region(keys, shape: tuple, pl: meshlib.RankPlan, cfg: ArchConfig) -> tuple:
-    """The slices of a parameter leaf (path ``keys``, stacked ``[L, ...]``
-    or not) that rank ``pl`` computes with: its query heads' columns of
-    ``wq``/``bq`` and rows of ``wo``, its KV heads' columns of ``wk``,
-    ``wv``, ``bk``, ``bv``, its ``d_ff`` columns of ``w_gate``/``w_up`` and
-    rows of ``w_down``, its vocab rows of ``embed`` and columns of
-    ``lm_head``; norms whole."""
+def _rank_regions(keys, shape: tuple, pl: meshlib.RankPlan, cfg: ArchConfig) -> list:
+    """The regions (tuples of slices) of a parameter leaf (path ``keys``,
+    stacked ``[L, ...]`` or not) that rank ``pl`` computes with: its query
+    heads' columns of ``wq``/``bq`` and rows of ``wo``, its KV heads'
+    columns of ``wk``, ``wv``, ``bk``, ``bv``, its ``d_ff`` (a shared
+    expert's ``d_shared``) columns of ``w_gate``/``w_up`` and rows of
+    ``w_down``, its vocab rows of ``embed`` and columns of ``lm_head``; of
+    the routed experts its experts (EP) or its ``d_expert`` columns and rows
+    (TP); of Mamba its ``d_inner`` channels (both halves of ``in_proj``:
+    two regions, in that order; the columns of the conv, ``dt_proj``,
+    ``dt_bias`` and ``D``; the rows of ``x_proj``, ``A_log`` and
+    ``out_proj``); of the RG-LRU its width channels (the columns of
+    ``in_proj``, ``gate_proj``, ``w_a``, ``w_x``, the conv, ``b_a``, ``b_x``
+    and ``lam``; the rows of ``out_proj``); norms and the router whole."""
     out = [slice(0, n) for n in shape]
-    hd = cfg.head_dim
-    q = slice(pl.q_heads[0] * hd, pl.q_heads[1] * hd)
-    kv = slice(pl.kv_heads[0] * hd, pl.kv_heads[1] * hd)
-    ff, vocab = slice(*pl.ff), slice(*pl.vocab)
     name = keys[-1]
-    cols = {"wq": q, "bq": q, "wk": kv, "wv": kv, "bk": kv, "bv": kv, "w_gate": ff, "w_up": ff,
-            "lm_head": vocab}
-    rows = {"wo": q, "w_down": ff, "embed": vocab}
+    if "ssm" in keys:
+        ch = slice(*pl.inner)
+        if name == "in_proj":  # [D, 2 Di]: its channels of the x half and of the z half
+            di = shape[-1] // 2
+            return [tuple(out[:-1] + [ch]), tuple(out[:-1] + [slice(di + ch.start, di + ch.stop)])]
+        cols = dict.fromkeys(("conv_w", "conv_b", "dt_proj", "dt_bias", "D"), ch)
+        rows = dict.fromkeys(("x_proj", "A_log", "out_proj"), ch)
+    elif "rglru" in keys:
+        ch = slice(*pl.lru)
+        cols = dict.fromkeys(("in_proj", "gate_proj", "w_a", "w_x", "conv_w", "conv_b", "b_a",
+                              "b_x", "lam"), ch)
+        rows = {"out_proj": ch}
+    elif "moe" in keys and "shared" not in keys:
+        ef = slice(*pl.expert_ff)
+        cols, rows = {"w_gate": ef, "w_up": ef}, {"w_down": ef}
+        if name in ("w_gate", "w_up", "w_down"):
+            out[-3] = slice(*pl.experts)
+    else:
+        hd = cfg.head_dim
+        q = slice(pl.q_heads[0] * hd, pl.q_heads[1] * hd)
+        kv = slice(pl.kv_heads[0] * hd, pl.kv_heads[1] * hd)
+        ff, vocab = slice(*(pl.shared if "shared" in keys else pl.ff)), slice(*pl.vocab)
+        cols = {"wq": q, "bq": q, "wk": kv, "wv": kv, "bk": kv, "bv": kv, "w_gate": ff,
+                "w_up": ff, "lm_head": vocab}
+        rows = {"wo": q, "w_down": ff, "embed": vocab}
     if name in cols:
         out[-1] = cols[name]
     elif name in rows:
         out[-2] = rows[name]
-    return tuple(out)
+    return [tuple(out)]
+
+
+def _pieces(regions: list, t: torch.Tensor):
+    """``(region, piece)`` of a rank's tensor over its ``regions`` of a leaf
+    (laid side by side along the last dim), the empty ones left out."""
+    widths = [reg[-1].stop - reg[-1].start for reg in regions]
+    for reg, piece in zip(regions, torch.split(t, widths, dim=-1) if len(regions) > 1 else [t]):
+        if all(sl.stop > sl.start for sl in reg):
+            yield reg, piece
 
 
 def _group_run(cfg, mesh, e0: tuple, plan: list, rows: dict, seq_shard: bool, act_to
@@ -591,15 +627,7 @@ def _sharded_train_step(cfg, policy, mesh, *, seq_shard, remat, microbatch, opt_
     d_axes = meshlib.data_axes(mesh)
     groups = _groups(mesh)
     dry = _dry(mesh)
-    megatron = meshlib.model_compute(cfg) == "megatron"
-
-    def group_loss(leaves, rebuild, rows):
-        model = tf.params_view(cfg, rebuild(leaves))
-        full = _fill_positions(cfg, rows)
-        h, stats = tf.forward(model, full, act_to=act_to, remat=remat, aux_stats=True)
-        h, targets, mask = _targets(cfg, full, h)
-        nll, count = _ce_parts(model, cfg, h, targets, mask, chunk=ce_chunk, act_to=act_to)
-        return nll, count, stats
+    plan = meshlib.compute_plan(cfg, meshlib.model_size(mesh))
 
     def global_loss(src_entries, outs, scale):
         """The loss from every data index's (nll, count, stats), detached
@@ -642,52 +670,13 @@ def _sharded_train_step(cfg, policy, mesh, *, seq_shard, remat, microbatch, opt_
 
         return rows
 
-    def data_parallel_grads(master_storage, rebuild, batch, scale, src, run):
-        """Every data index's f32 gradients (summed over the microbatches)
-        of the global loss, on its compute entry, and the loss."""
-        every = tuple(mesh.axis_names)
-        gathered = {}
-        for e in src:
-            got = [sh.all_gather(x, e, every)[0] for x in master_storage]
-            note_gathered(e, _nbytes(got))
-            if e in run:
-                with on_entry(mesh, e):
-                    gathered[e] = [t.requires_grad_() for t in got]
-        rows_at = rows_of(batch, src)
-        acc, loss_sum = {}, None
-        for i in range(microbatch):
-            outs = []
-            for gi, e in enumerate(src):
-                rows = rows_at(i, gi, e)
-                if e not in run:
-                    outs.append(outs[0])
-                    continue
-                with on_entry(mesh, e), torch.enable_grad():
-                    outs.append(group_loss(gathered[e], rebuild, rows))
-            with on_entry(mesh, run[0]):
-                loss, scaled, ins = global_loss(src, outs, scale)
-                cot = torch.autograd.grad(scaled, [t for x in ins for t in x])
-            loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
-            k = 0
-            for e, (nll, _, stats), x in zip(src, outs, ins):
-                d_out, k = cot[k:k + len(x)], k + len(x)
-                if e not in run:
-                    continue
-                with on_entry(mesh, e):
-                    grads = torch.autograd.grad([nll, *stats], gathered[e], grad_outputs=d_out)
-                    grads = [g.to(f32) for g in grads]
-                    acc[e] = [a + g for a, g in zip(acc[e], grads)] if e in acc else grads
-        return acc, (loss_sum / microbatch if microbatch > 1 else loss_sum)
-
-    plan = meshlib.compute_plan(cfg, meshlib.model_size(mesh)) if megatron else None
-
     def megatron_grads(storage, rebuild, batch, scale, src, run):
         """Every data index's model group computes: each rank gathers its
         ranges of the storage-dtype leaves and runs its share of the
         forward (:func:`repro_torch.models.transformer.forward_group`) and
         of the vocab-parallel loss; returns per data index each rank's f32
-        gradients over its ranges (summed over the microbatches), and the
-        loss."""
+        gradients over its ranges (summed over the microbatches), the loss,
+        and the ranks' regions."""
         regions, gathered = _gather_ranges(rebuild(storage), mesh, src, run, cfg, plan)
         for ranks in gathered.values():
             for leaves in ranks:
@@ -710,13 +699,13 @@ def _sharded_train_step(cfg, policy, mesh, *, seq_shard, remat, microbatch, opt_
                 cot = torch.autograd.grad(scaled, [t for x in ins for t in x])
             loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
             k = 0
-            for e, (nll, _, _), x in zip(src, outs, ins):
+            for e, (nll, _, stats), x in zip(src, outs, ins):
                 d_out, k = cot[k:k + len(x)], k + len(x)
                 if e not in run:
                     continue
                 flat = [t for leaves in gathered[e] for t in leaves]
                 with on_entry(mesh, e), recording_collectives(group_log):
-                    grads = torch.autograd.grad([nll], flat, grad_outputs=d_out[:1],
+                    grads = torch.autograd.grad([nll, *stats], flat, grad_outputs=d_out,
                                                 allow_unused=True)
                 grads = [torch.zeros(t.shape, dtype=f32, device=t.device) if g is None
                          else g.to(f32) for g, t in zip(grads, flat)]
@@ -730,18 +719,19 @@ def _sharded_train_step(cfg, policy, mesh, *, seq_shard, remat, microbatch, opt_
         return acc, (loss_sum / microbatch if microbatch > 1 else loss_sum), regions
 
     def megatron_loss(e, leaves, rebuild, rows):
-        """A data index's (nll, count, []) over its model group."""
+        """A data index's (nll, count, MoE routing statistics) over its model
+        group."""
         run = _group_run(cfg, mesh, e, plan, rows[0], seq_shard, act_to)
         views = [tf.params_view(cfg, rebuild(lv), heads=(pl.n_heads, pl.n_kv))
                  for lv, pl in zip(leaves, plan)]
         full = [_fill_positions(cfg, r) for r in rows]
-        hs = tf.forward_group(views, full, run, remat=remat)
+        hs, stats = tf.forward_group(views, full, run, remat=remat)
         trip = []
         for r, (h, f) in enumerate(zip(hs, full)):
             with run.grp.on(r):
                 trip.append(_targets(cfg, f, h))
         nll, count = _ce_group_parts(views, run, trip, chunk=ce_chunk)
-        return nll, count, []
+        return nll, count, stats
 
     def update(state, master_leaves, grads, finite):
         """AdamW on every block on its owner, the global norm summed leaf by
@@ -793,21 +783,13 @@ def _sharded_train_step(cfg, policy, mesh, *, seq_shard, remat, microbatch, opt_
         # The pinned cast on the owners: the gathers move storage bytes.
         storage = [_blockwise(x, lambda t: t.to(policy.param_storage)) for x in m_leaves]
         scale0 = _first(state["scale"].scale)  # replicated: every owner holds this value
-        if megatron:
-            acc, loss, regions = megatron_grads(storage, rebuild, batch, scale0, src, run)
-        else:
-            acc, loss = data_parallel_grads(storage, rebuild, batch, scale0, src, run)
+        acc, loss, regions = megatron_grads(storage, rebuild, batch, scale0, src, run)
         # Gradients reduce-scattered into the master layout, in data-index
         # order (then model-rank order).
         grads = []
         for j, x in enumerate(m_leaves):
-            if megatron:
-                parts = [(er, regions[r][j], acc[e if e in acc else run[0]][r][j])
-                         for e in src for r, er in enumerate(_rank_ents(mesh, e))
-                         if all(sl.stop > sl.start for sl in regions[r][j])]
-            else:
-                whole = tuple(slice(0, n) for n in x.shape)
-                parts = [(e, whole, acc[e if e in acc else run[0]][j]) for e in src]
+            parts = [(er, reg, piece) for e in src for r, er in enumerate(_rank_ents(mesh, e))
+                     for reg, piece in _pieces(regions[r][j], acc[e if e in acc else run[0]][r][j])]
             g = sh.reduce_scatter(parts, x.sharding, x.shape, d_axes)
             if microbatch > 1:
                 g = _blockwise(g, lambda t: t / microbatch)
@@ -870,20 +852,28 @@ def _gather_params(params, mesh, src, run):
 
 def _gather_ranges(tree, mesh, src, run, cfg, plan):
     """Every data index's model ranks gather their ranges of ``tree``'s
-    Sharded leaves (:func:`_rank_region`, a region of each leaf's blocks);
+    Sharded leaves (:func:`_rank_regions`, regions of each leaf's blocks,
+    laid side by side);
     returns the regions per rank and leaf, and per computing data index
     each rank's gathered leaves."""
     leaves = tree_leaves(tree)
     keys = [k for k, _ in meshlib.key_paths(tree)]
     held = [sh.pieces(x) for x in leaves]
-    regions = [[_rank_region(k, x.shape, pl, cfg) for k, x in zip(keys, leaves)]
+    regions = [[_rank_regions(k, x.shape, pl, cfg) for k, x in zip(keys, leaves)]
                for pl in plan]
     out = {}
     for e in src:
         got = []
         for r, er in enumerate(_rank_ents(mesh, e)):
-            got.append([sh.region_gather(x, er, reg, h)
-                        for x, reg, h in zip(leaves, regions[r], held)])
+            ranks = []
+            for x, regs, h in zip(leaves, regions[r], held):
+                parts = [sh.region_gather(x, er, reg, h) for reg in regs]
+                if len(parts) == 1:
+                    ranks.append(parts[0])
+                else:
+                    with on_entry(mesh, er):
+                        ranks.append(torch.cat(parts, dim=-1))
+            got.append(ranks)
             note_gathered(er, _nbytes(got[-1]))
         if e in run:
             out[e] = got
@@ -894,17 +884,17 @@ def _logits_spec(mesh, b: int, v: int) -> P:
     return meshlib.fit_spec(P(meshlib.data_axes(mesh), "model"), (b, v), mesh)
 
 
-def _serve_step(cfg, mesh, params, inputs: list, step, split=None):
+def _serve_step(cfg, mesh, params, inputs: list, step=None, split=None):
     """A serving step over the mesh's lowering: ``params`` (laid out per
     ``param_pspec``) gathered onto each computing data index's entry with
     its rows of ``inputs`` (Sharded over the batch, or whole), where
-    ``step(model, rows)`` runs; returns ``(logits, cache)`` (cache None if
-    ``step`` gives none), each data index's rows sent back to its group:
-    the logits per ``P(data, "model")`` and the cache per ``cache_pspec``,
-    fitted. With ``split`` (model-axis compute: ``(plan, run_group)``) each
-    model rank gathers its ranges and its copy of the rows instead, and
-    ``run_group(e, trees, rows)`` computes the data index's logits and
-    cache on its first entry."""
+    ``step(model, rows)`` runs (decode); returns ``(logits, cache)`` (cache
+    None if ``step`` gives none), each data index's rows sent back to its
+    group: the logits per ``P(data, "model")`` and the cache per
+    ``cache_pspec``, fitted. With ``split`` (model-axis compute, prefill:
+    ``(plan, run_group)``) each model rank gathers its ranges and its copy
+    of the rows instead, and ``run_group(e, trees, rows)`` computes the
+    data index's logits and cache on its first entry."""
     b = inputs[0].shape[0]
     n_src, src, run = _serve_groups(mesh, b)
     if split is None:
@@ -944,8 +934,8 @@ def _megatron_prefill(cfg, policy, mesh, seq_shard: bool, collect_cache: bool,
     """``(plan, run_group)`` for :func:`_serve_step`: a data index's prefill
     over its model group (:func:`repro_torch.models.transformer.forward_group`),
     the last position's vocab-parallel logits gathered along the vocab onto
-    its first entry and, with ``collect_cache``, the ranks' KV heads
-    assembled there into the decode cache."""
+    its first entry and, with ``collect_cache``, the ranks' KV heads and
+    recurrent states' channels assembled there into the decode cache."""
     act_to = act_dtype(policy.compute)
     plan = meshlib.compute_plan(cfg, meshlib.model_size(mesh))
 
@@ -954,8 +944,8 @@ def _megatron_prefill(cfg, policy, mesh, seq_shard: bool, collect_cache: bool,
         run = _group_run(cfg, mesh, e, plan, batches[0], seq_shard, act_to)
         views = [tf.params_view(cfg, rebuild_params(leaves), heads=(pl.n_heads, pl.n_kv))
                  for leaves, pl in zip(ranks, plan)]
-        out = tf.forward_group(views, batches, run, collect_kv=collect_cache)
-        hs, kvs = out if collect_cache else (out, None)
+        out = tf.forward_group(views, batches, run, collect=collect_cache)
+        hs, states = out[0], (out[2] if collect_cache else None)
         parts = tf.lm_logits_group(views, [h[:, -1] for h in hs], run)
         dev = run.grp.device(0)
         with run.grp.on(0):
@@ -963,17 +953,19 @@ def _megatron_prefill(cfg, policy, mesh, seq_shard: bool, collect_cache: bool,
         note_collective("all-gather", {run.grp.ents[0]: _nbytes(parts[1:])})
         if not collect_cache:
             return logits
-        return logits, _assemble_cache(cfg, run, kvs, batches[0], cache_len,
+        return logits, _assemble_cache(cfg, run, states, batches[0], cache_len,
                                        policy.state_storage)
 
     return plan, run_group
 
 
-def _assemble_cache(cfg, run, kvs: list, batch: dict, cache_len: int, dtype):
+def _assemble_cache(cfg, run, states: list, batch: dict, cache_len: int, dtype):
     """The decode cache of a data index's rows on its first entry from each
-    rank's ``(k, v)`` of its KV heads per layer (a head several ranks
-    computed is taken from the first), packed as the single-device
-    prefill packs it."""
+    rank's share per layer (:func:`repro_torch.models.transformer.forward_group`),
+    packed as the single-device prefill packs it: an attention layer's
+    ``(k, v)`` of the rank's KV heads (a head several ranks computed is
+    taken from the first), a recurrent layer's state on the rank's channels
+    laid side by side in rank order."""
     dev = run.grp.device(0)
     b, s = batch["positions"].shape[:2]
     pos = batch["positions"]
@@ -981,7 +973,17 @@ def _assemble_cache(cfg, run, kvs: list, batch: dict, cache_len: int, dtype):
     hd = cfg.head_dim
     with run.grp.on(0):
         cache = tf.init_cache(cfg, b, cache_len, dtype, dev, cap_at_window=False)
-        for i, per_rank in enumerate(kvs):
+        for i, per_rank in enumerate(states):
+            lc = tf._layer_cache(cfg, cache, i)
+            if "kv" not in lc:  # Mamba's conv [B, K-1, Di] and ssm [B, Di, N]; the RG-LRU's
+                (part, _), = lc.items()  # h [B, W] and conv [B, 3, W]: channels by rank
+                whole = {name: torch.cat([st[name].to(dev) for st in per_rank],
+                                         dim=-2 if name == "ssm" else -1)
+                         for name in per_rank[0]}
+                note_collective("all-gather", {run.grp.ents[0]: sum(
+                    _nbytes(st.values()) for st in per_rank[1:])})
+                tf._copy_state(lc[part], whole)
+                continue
             first = next(kv for kv in per_rank if kv is not None)
             k = torch.empty((b, s, cfg.n_kv_heads, hd), dtype=first[0].dtype, device=dev)
             v = torch.empty((b, s, cfg.n_kv_heads, hd), dtype=first[1].dtype, device=dev)
@@ -997,25 +999,19 @@ def _assemble_cache(cfg, run, kvs: list, batch: dict, cache_len: int, dtype):
                     moved += _nbytes([kv[0][:, :, sl], kv[1][:, :, sl]])
                 done = hi
             note_collective("all-gather", {run.grp.ents[0]: moved})
-            tf._pack_kv((k, v), qpos, tf._window(cfg), tf._layer_cache(cfg, cache, i)["kv"])
+            tf._pack_kv((k, v), qpos, tf._window(cfg), lc["kv"])
     return cache
 
 
 def _sharded_prefill_step(cfg, policy, mesh, seq_shard: bool, collect_cache: bool,
                           cache_len: int):
-    single = make_prefill_step(cfg, policy, collect_cache=collect_cache, cache_len=cache_len)
-    megatron = meshlib.model_compute(cfg) == "megatron"
-
     def prefill_step(params, batch: dict):
         params = _place(params, meshlib.tree_pspecs(params, mesh), mesh)
         batch = _place(batch, meshlib.batch_pspecs(batch, mesh), mesh)
         leaves, rebuild = _flatten(batch)
-        split = None
-        if megatron:
-            split = _megatron_prefill(cfg, policy, mesh, seq_shard, collect_cache, cache_len,
-                                      _flatten(params)[1], rebuild)
-        logits, cache = _serve_step(cfg, mesh, params, leaves,
-                                    lambda model, rows: single(model, rebuild(rows)), split)
+        split = _megatron_prefill(cfg, policy, mesh, seq_shard, collect_cache, cache_len,
+                                  _flatten(params)[1], rebuild)
+        logits, cache = _serve_step(cfg, mesh, params, leaves, split=split)
         return (logits, cache) if collect_cache else logits
 
     return prefill_step

@@ -35,7 +35,9 @@ embedding (each rank looks up its vocab range, out-of-range rows zero,
 the parts summed), column-parallel ``wq``/``wk``/``wv`` and
 ``w_gate``/``w_up``, row-parallel ``wo`` and ``w_down`` whose partial
 outputs are summed over the group in rank order
-(``launch/sharded.group_sum``, Megatron's g), and the vocab-parallel
+(``launch/sharded.group_sum``, Megatron's g), the MoE over its experts
+(:func:`repro_torch.models.moe.moe_group`), Mamba and the RG-LRU over
+their channels (``mamba_group``, ``rglru_group``), and the vocab-parallel
 logits (:func:`lm_logits_group`). With ``seq_shard`` the residual stream
 between blocks is each rank's contiguous sequence range (Megatron's
 sequence parallelism): the norms run on that range, an all-gather along
@@ -62,9 +64,13 @@ from repro_torch.models.attention import Attention, attend, init_kv_cache
 from repro_torch.models.layers import (
     MLP, Norm, act, apply_norm, dense, mlp_apply, mrope_table, rope_table,
 )
-from repro_torch.models.mamba import Mamba, init_mamba_cache, mamba_apply, mamba_decode_step
-from repro_torch.models.moe import MoE, moe_apply
-from repro_torch.models.rglru import RGLRU, init_rglru_cache, rglru_apply, rglru_decode_step
+from repro_torch.models.mamba import (
+    Mamba, init_mamba_cache, mamba_apply, mamba_decode_step, mamba_group,
+)
+from repro_torch.models.moe import MoE, moe_apply, moe_group
+from repro_torch.models.rglru import (
+    RGLRU, init_rglru_cache, rglru_apply, rglru_decode_step, rglru_group,
+)
 from repro_torch.precision import PrecisionPolicy
 
 __all__ = ["Block", "Transformer", "init_params", "forward", "aux_loss", "lm_logits", "init_cache",
@@ -159,11 +165,10 @@ def _sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
 class _Ctx(SimpleNamespace):
     """What every block of one forward or decode step shares: ``qpos``
     (``[B, S]`` int32, the mask's positions), ``rot`` (the RoPE or M-RoPE
-    table, or None), ``window``, ``act_to`` and ``aux_stats`` (an MoE
-    layer returns its routing statistics, not its load-balance loss)."""
+    table, or None), ``window`` and ``act_to``."""
 
 
-def _ctx(cfg: ArchConfig, positions: torch.Tensor, act_to, aux_stats: bool = False) -> _Ctx:
+def _ctx(cfg: ArchConfig, positions: torch.Tensor, act_to) -> _Ctx:
     if cfg.mrope_sections is not None:
         rot = mrope_table(positions, cfg.head_dim, cfg.mrope_sections, theta=cfg.rope_theta)
         qpos = positions[..., 0].contiguous()
@@ -173,7 +178,7 @@ def _ctx(cfg: ArchConfig, positions: torch.Tensor, act_to, aux_stats: bool = Fal
         qpos = positions
     else:
         rot, qpos = None, positions
-    return _Ctx(qpos=qpos, rot=rot, window=_window(cfg), act_to=act_to, aux_stats=aux_stats)
+    return _Ctx(qpos=qpos, rot=rot, window=_window(cfg), act_to=act_to)
 
 
 def _norm(p, x: torch.Tensor, act_to) -> torch.Tensor:
@@ -182,11 +187,10 @@ def _norm(p, x: torch.Tensor, act_to) -> torch.Tensor:
 
 def _ffn(layer, h, cfg: ArchConfig, ctx: _Ctx):
     """The residual's second half: ``h + mlp(norm2(h))`` (or the MoE's),
-    and the layer's load-balance loss (None without MoE; its routing
-    statistics under ``ctx.aux_stats``)."""
+    and the layer's load-balance loss (None without MoE)."""
     x = _norm(layer.norm2, h, ctx.act_to)
     if cfg.moe is not None:
-        y, aux = moe_apply(layer.moe, x, cfg, ctx.act_to, stats=ctx.aux_stats)
+        y, aux = moe_apply(layer.moe, x, cfg, ctx.act_to)
         return h + y, aux
     return h + mlp_apply(cfg.mlp, x, layer.mlp, ctx.act_to), None
 
@@ -288,7 +292,7 @@ def _assemble(cfg: ArchConfig, caches: list):
 
 def forward(model, batch: dict, *, collect_cache: bool = False, cache_len: int = 0,
             cache_dtype: torch.dtype = torch.float16, act_to: torch.dtype | None = None,
-            remat: bool = False, aux_stats: bool = False):
+            remat: bool = False):
     """Train/prefill forward of ``model`` (a :class:`Transformer` or a
     :func:`params_view`) over ``batch["tokens"]`` ``[B, S]`` (behind
     ``batch["patch_embeds"]`` ``[B, P, D]`` under the vision frontend) at
@@ -299,18 +303,15 @@ def forward(model, batch: dict, *, collect_cache: bool = False, cache_len: int =
     with ``collect_cache``, the decode cache of ``cache_len`` slots in
     ``cache_dtype`` as a third item. ``remat`` recomputes each block in the
     backward (``torch.utils.checkpoint``), as the reference's
-    ``jax.checkpoint`` does. With ``aux_stats`` the second item is the list
-    of the MoE layers' routing statistics (:func:`aux_loss` of the list is
-    the load-balance loss): a data-parallel step adds them over its data
-    indices before the loss, which is not additive."""
+    ``jax.checkpoint`` does."""
     cfg = model.cfg
     h, positions = _embed_inputs(model, batch, act_to)
-    ctx = _ctx(cfg, positions, act_to, aux_stats)
+    ctx = _ctx(cfg, positions, act_to)
     cache = None
     if collect_cache:
         cache = init_cache(cfg, h.shape[0], cache_len, cache_dtype, h.device,
                            cap_at_window=False)
-    aux = [] if aux_stats else torch.zeros((), dtype=f32, device=h.device)
+    aux = torch.zeros((), dtype=f32, device=h.device)
     for i, layer in enumerate(model.layers):
         kind = cfg.layer_kind(i)
         lc = _layer_cache(cfg, cache, i) if collect_cache else None
@@ -320,18 +321,17 @@ def forward(model, batch: dict, *, collect_cache: bool = False, cache_len: int =
         else:
             h, a = _block_full(layer, h, cfg, kind, ctx, lc)
         if a is not None:
-            if aux_stats:
-                aux.append(a)
-            else:
-                aux = aux + a
+            aux = aux + a
     h = _norm(model.final_norm, h, act_to)
     return (h, aux, cache) if collect_cache else (h, aux)
 
 
 def aux_loss(cfg: ArchConfig, stats: list, device) -> torch.Tensor:
     """The load-balance loss summed over the MoE layers from their routing
-    statistics (``forward(aux_stats=True)``: per layer ``[frac, mean_prob]``
-    ``[2, E]``), as each layer's ``moe_apply`` computes it."""
+    statistics (:func:`forward_group`'s: per layer ``[frac, mean_prob]``
+    ``[2, E]``), as each layer's ``moe_apply`` computes it. The mesh
+    lowering averages the statistics over its data indices first: the loss
+    is not additive over rows."""
     aux = torch.zeros((), dtype=f32, device=device)
     for st in stats:
         aux = aux + cfg.moe.n_experts * torch.sum(st[0] * st[1])
@@ -496,13 +496,28 @@ class GroupRun(SimpleNamespace):
     ``act_to``, ``kv_runs`` (per rank: None, or the runs a rank whose
     query heads split unevenly over its KV heads attends by)."""
 
+    def reduce(self, parts: list) -> list:
+        """The ranks' partial outputs (None: nothing from that rank) summed
+        over the group in rank order: each rank's sequence range of the sum
+        (``seq_shard``) or all of it."""
+        if self.seq_shard:
+            return sh.seq_scatter(self.grp, parts, self.seq)
+        return sh.group_sum(self.grp, parts)
 
-def _combine(parts: list, run: GroupRun) -> list:
-    """The ranks' partial outputs summed over the group in rank order: each
-    rank's sequence range of the sum (``seq_shard``) or all of it."""
-    if run.seq_shard:
-        return sh.seq_scatter(run.grp, parts, run.seq)
-    return sh.group_sum(run.grp, parts)
+    def spread(self, own: list) -> list:
+        """The ranks' outputs over their own sequence ranges in the residual
+        stream's layout: as they are under ``seq_shard``, else each range
+        zero-padded and the ranges summed onto every rank (each element
+        one nonzero part: exact; each range takes its own rank's
+        cotangent, as Megatron's g hands it)."""
+        if self.seq_shard:
+            return own
+        s = self.seq[-1][1]
+        parts = []
+        for r, (y, (lo, hi)) in enumerate(zip(own, self.seq)):
+            with self.grp.on(r):
+                parts.append(F.pad(y, (0, 0, lo, s - hi)))
+        return sh.group_sum(self.grp, parts)
 
 
 def _embed_part(view, batch: dict, vocab: tuple[int, int], act_to, first: bool):
@@ -534,7 +549,7 @@ def _group_embed(views: list, batches: list, run: GroupRun) -> list:
     for r, (v, b) in enumerate(zip(views, batches)):
         with run.grp.on(r):
             parts.append(_embed_part(v, b, run.plan[r].vocab, run.act_to, r == 0))
-    hs = _combine(parts, run)
+    hs = run.reduce(parts)
     if cfg.rotary_pct == 0.0 and cfg.mrope_sections is None:
         out = []
         for r, (h, b) in enumerate(zip(hs, batches)):
@@ -593,7 +608,10 @@ def _group_norm(norms: list, hs: list, run: GroupRun) -> list:
 
 
 def _group_add(hs: list, parts: list, run: GroupRun) -> list:
-    ys = _combine(parts, run)
+    return _add(hs, run.reduce(parts), run)
+
+
+def _add(hs: list, ys: list, run: GroupRun) -> list:
     out = []
     for r, (h, y) in enumerate(zip(hs, ys)):
         with run.grp.on(r):
@@ -601,25 +619,37 @@ def _group_add(hs: list, parts: list, run: GroupRun) -> list:
     return out
 
 
-def _block_group(layers: list, hs: list, cfg: ArchConfig, ctxs: list, run: GroupRun,
+def _block_group(layers: list, hs: list, cfg: ArchConfig, kind: str, ctxs: list, run: GroupRun,
                  collect: bool = False):
-    """:func:`_block_full` over the group (attention blocks with a dense
-    MLP): returns the ranks' residual streams and, with ``collect``, each
-    rank's ``(k, v)`` of its KV heads (None for a rank with no head)."""
+    """:func:`_block_full` over the group, a block of ``kind``: returns the
+    ranks' residual streams, with ``collect`` each rank's share of the
+    decode cache (attention: the ``(k, v)`` of its KV heads, None for a rank
+    with no head; Mamba and the RG-LRU: their state on its channels), and
+    an MoE layer's routing statistics (None without)."""
     xs = _group_norm([lay.norm1 for lay in layers], hs, run)
-    parts, kvs = [], []
-    for r, (lay, x, ctx) in enumerate(zip(layers, xs, ctxs)):
-        if run.plan[r].n_heads == 0:  # a rank with no head computes no attention
-            parts.append(None)
-            kvs.append(None)
-            continue
-        with run.grp.on(r):
-            mix, kv = attend(lay.attn, x, ctx.qpos, ctx.rot, window=ctx.window,
-                             act_to=ctx.act_to, kv_runs=run.kv_runs[r])
-        parts.append(mix)
-        kvs.append(kv if collect else None)
+    if kind == "ssm":
+        parts, states = mamba_group([lay.ssm for lay in layers], xs, cfg, run, collect)
+        return _group_add(hs, parts, run), states, None
+    if kind == "rglru":
+        parts, states = rglru_group([lay.rglru for lay in layers], xs, cfg, run, collect)
+    else:
+        parts, states = [], []
+        for r, (lay, x, ctx) in enumerate(zip(layers, xs, ctxs)):
+            if run.plan[r].n_heads == 0:  # a rank with no head computes no attention
+                parts.append(None)
+                states.append(None)
+                continue
+            with run.grp.on(r):
+                mix, kv = attend(lay.attn, x, ctx.qpos, ctx.rot, window=ctx.window,
+                                 act_to=ctx.act_to, kv_runs=run.kv_runs[r])
+            parts.append(mix)
+            states.append(kv)
     hs = _group_add(hs, parts, run)
+    states = states if collect else None
     xs = _group_norm([lay.norm2 for lay in layers], hs, run)
+    if cfg.moe is not None:
+        ys, stats = moe_group([lay.moe for lay in layers], xs, cfg, run)
+        return _add(hs, ys, run), states, stats
     parts = []
     for r, (lay, x) in enumerate(zip(layers, xs)):
         if run.plan[r].ff[1] == run.plan[r].ff[0]:
@@ -627,40 +657,49 @@ def _block_group(layers: list, hs: list, cfg: ArchConfig, ctxs: list, run: Group
             continue
         with run.grp.on(r):
             parts.append(mlp_apply(cfg.mlp, x, lay.mlp, run.act_to))
-    return _group_add(hs, parts, run), kvs
+    return _group_add(hs, parts, run), states, None
 
 
-def _remat_block(layers, cfg, ctxs, run, *hs):
-    return tuple(_block_group(layers, list(hs), cfg, ctxs, run)[0])
+def _remat_block(layers, cfg, kind, ctxs, run, *hs):
+    hs, _, stats = _block_group(layers, list(hs), cfg, kind, ctxs, run)
+    return tuple(hs) if stats is None else (*hs, stats)
 
 
 def forward_group(views: list, batches: list, run: GroupRun, *, remat: bool = False,
-                  collect_kv: bool = False):
+                  collect: bool = False):
     """:func:`forward` over a model group: ``views`` each rank's
     :func:`params_view` of its ranges, ``batches`` each rank's copy of the
     data index's rows (positions filled). Returns every rank's final normed
     hidden states over the whole sequence (``[B, S + P, D]``, what the
-    vocab-parallel head reads) and, with ``collect_kv``, per layer each
-    rank's ``(k, v)``. ``remat`` recomputes each block in the backward,
+    vocab-parallel head reads), the MoE layers' routing statistics (rank
+    0's, per layer: :func:`aux_loss` of the data indices' mean) and, with
+    ``collect``, per layer each rank's share of the decode cache
+    (:func:`_block_group`). ``remat`` recomputes each block in the backward,
     keeping each rank's block input (its sequence range under
-    ``seq_shard``). Attention blocks with a dense MLP only."""
+    ``seq_shard``). Every layer kind: attention blocks with a dense MLP or
+    an MoE, Mamba blocks and the RG-LRU hybrid's tuple of layers."""
     cfg = views[0].cfg
     hs = _group_embed(views, batches, run)
     ctxs = []
     for r, b in enumerate(batches):
         with run.grp.on(r):
             ctxs.append(_ctx(cfg, b["positions"], run.act_to))
-    kv_all = []
+    states, stats = [], []
     for i in range(cfg.n_layers):
         layers = [v.layers[i] for v in views]
+        kind = cfg.layer_kind(i)
         if remat:
-            hs = list(checkpoint(_remat_block, layers, cfg, ctxs, run, *hs,
-                                 use_reentrant=False, preserve_rng_state=False))
+            out = list(checkpoint(_remat_block, layers, cfg, kind, ctxs, run, *hs,
+                                  use_reentrant=False, preserve_rng_state=False))
+            st = out.pop() if cfg.moe is not None else None
+            hs = out
         else:
-            hs, kvs = _block_group(layers, hs, cfg, ctxs, run, collect_kv)
-            kv_all.append(kvs)
+            hs, layer_states, st = _block_group(layers, hs, cfg, kind, ctxs, run, collect)
+            states.append(layer_states)
+        if st is not None:
+            stats.append(st)
     hs = _group_norm([v.final_norm for v in views], hs, run)
-    return (hs, kv_all) if collect_kv else hs
+    return (hs, stats, states) if collect else (hs, stats)
 
 
 def lm_logits_group(views: list, hs: list, run: GroupRun) -> list:

@@ -204,17 +204,16 @@ def test_train_step_on_card_matches_cpu(card):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("pol", ["fp32", "fp16"])
-@pytest.mark.parametrize("arch,compute", [("smollm-360m", "megatron"),
-                                          ("granite-moe-1b-a400m", "data")])
-def test_mesh_train_step_on_card_matches_single(card, pol, arch, compute):
+@pytest.mark.parametrize("arch", ["smollm-360m", "granite-moe-1b-a400m", "falcon-mamba-7b",
+                                  "recurrentgemma-2b"])
+def test_mesh_train_step_on_card_matches_single(card, pol, arch):
     """A reduced arch, one train step over the mesh lowering on a 2x2 mesh of
     ``[card] * 4`` against the single-device card step from the same state
-    and tokens: smollm split over the model axis (4 query heads on 2
-    ranks), granite-moe kept data-parallel (each data index's model rank 0
-    on the whole params; experts EP). B7 twice and the backward once per
-    layer, data index and computing model rank, every block on the card,
-    loss and new masters as one step's (``tests/test_torch_sharded.py``'s
-    tolerances)."""
+    and tokens, split over the model axis: smollm's 4 query heads on 2
+    ranks, granite-moe's 8 experts EP, falcon-mamba's and the RG-LRU's
+    channels. B7 twice and the backward once per attention layer, data
+    index and model rank, every block on the card, loss and new masters as
+    one step's (``tests/test_torch_sharded.py``'s tolerances)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import mesh as meshlib
     from repro_torch.launch import sharded as sh
@@ -233,10 +232,11 @@ def test_mesh_train_step_on_card_matches_single(card, pol, arch, compute):
     ops.reset_launches()
     got_state, got = task.sharded()(state, batch)
     torch.cuda.synchronize()
-    assert task.model_compute == compute
-    computing = 2 * (2 if compute == "megatron" else 1)  # data indices x computing ranks
-    assert ops.LAUNCHES["flash_attention"] == 2 * cfg.n_layers * computing
-    assert ops.LAUNCHES["flash_attention_bwd"] == cfg.n_layers * computing
+    assert task.model_compute == "megatron"
+    attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    computing = 2 * 2  # data indices x model ranks, each with a query head
+    assert ops.LAUNCHES["flash_attention"] == 2 * attn * computing
+    assert ops.LAUNCHES["flash_attention_bwd"] == attn * computing
     assert all(b.device == card for x in tree_leaves(got_state) for b in x.blocks.flat)
     np.testing.assert_allclose(float(got["loss"]), float(want["loss"]), rtol=1e-5)
     np.testing.assert_allclose(float(got["grad_norm"]), float(want["grad_norm"]),

@@ -18,11 +18,11 @@ Tolerances (ROADMAP queue C, slice 19; measured values in the comments):
   at 2e-5: on this batch the port's own single-device step lies 1.28e-5
   from the reference (slice 17's cause; 3.3e-6 on slice 17's batch) and
   the sharded step 7e-8 from the port's single-device one.
-* serving: logits within 1e-5 (a data index's rows through the same ops),
-  but the prefill of an arch split over ``model`` (smollm:
-  ``launch/mesh.model_compute``): its logits and cache within 2e-3 (its
+* serving: prefill is split over ``model`` for every arch
+  (``launch/mesh.model_compute``): its logits and cache within 2e-3 (its
   row- and vocab-parallel sums flip fp16 roundings of projection inputs,
-  ROADMAP queue C slice 21; up to 1.42e-3 in ``tests/test_torch_tp.py``),
+  ROADMAP queue C slices 21 and 22; up to 1.42e-3 in
+  ``tests/test_torch_tp.py``, 1.95e-3 in ``tests/test_torch_tp_layers.py``),
   the reduced fp16 bound of slice 4. Decode stays data-parallel, so the
   single-device decode starts from the sharded prefill's cache and the
   decode steps are held at 1e-5.
@@ -62,6 +62,13 @@ GNORM_RTOL = {"fp32": 1e-5, "fp16": 1e-4}
 MOMENT_TOL = {"fp32": 1e-4, "fp16": 5e-3}
 # Against the reference: fp16 2e-5 (the docstring), the hybrid's 5e-5 (slice 18).
 REF_LOSS_RTOL = {"fp32": 1e-5, "fp16": 2e-5, ("recurrentgemma-2b", "fp16"): 5e-5}
+# The grad norm against the reference as against the port (GNORM_RTOL), but
+# granite-moe fp16 on 2x2, split over the model axis: 1.12e-4 on this batch
+# (the port's single-device step 2.1e-5 from the reference, the split 9.2e-5
+# from that step: fp16 gradients rounded per rank and data index, and fp16
+# roundings flipped by the rank-order sums; at most 5.5e-5 over seven other
+# batches; ROADMAP queue C, slice 22).
+REF_GNORM_RTOL = {("granite-moe-1b-a400m", "fp16"): 2e-4}
 SPLIT_SERVE_TOL = 2e-3  # fp16 prefill split over `model` (the docstring)
 
 
@@ -176,7 +183,14 @@ def test_sharded_step_matches_single_device(arch, pol, shape):
     distributed.reset_collectives()
     ns, sm = _task(arch, pol, mesh).sharded()(ps, _pb(toks))
     masters = ps["master"] if ps["master"] is not None else ps["params"]
-    assert distributed.COLLECTIVES["reduce-scatter"]["count"] == len(tree_leaves(masters))
+    # One reduce-scatter per gradient leaf, and (seq_shard off) one in the
+    # backward of each all-gather of the model group's forward: along E
+    # before an EP combine, along the width before the RG-LRU's gates.
+    cfg = _cfgs(arch)[1]
+    ep = cfg.moe is not None and meshlib.expert_parallel(cfg, shape[1])
+    gathers = sum(cfg.layer_kind(i) == "rglru" or ep for i in range(cfg.n_layers))
+    assert distributed.COLLECTIVES["reduce-scatter"]["count"] == (len(tree_leaves(masters))
+                                                                  + gathers * shape[0])
     _check_layout(ns, mesh)
     if arch == "qwen2-moe-a2.7b":
         spec = tasks._state_pspecs(ps, mesh)["master"]["layers"]["moe"]["w_gate"]
@@ -189,7 +203,8 @@ def test_sharded_step_matches_single_device(arch, pol, shape):
             LOSS_RTOL if k == "loss" else GNORM_RTOL)[pol]), k
     assert float(sm["loss"]) == pytest.approx(
         float(jm["loss"]), rel=REF_LOSS_RTOL.get((arch, pol), REF_LOSS_RTOL[pol]))
-    assert float(sm["grad_norm"]) == pytest.approx(float(jm["grad_norm"]), rel=GNORM_RTOL[pol])
+    assert float(sm["grad_norm"]) == pytest.approx(
+        float(jm["grad_norm"]), rel=REF_GNORM_RTOL.get((arch, pol), GNORM_RTOL[pol]))
     assert float(sm["skipped"]) == float(pm["skipped"]) == 0.0
     assert float(sm["loss_scale"]) == float(pm["loss_scale"])
     _compare_states(sh.gather_tree(ns), ps2, pol, "sharded vs single")
@@ -227,7 +242,7 @@ def test_sharded_prefill_and_decode_match_single_device(arch, layout, kv_layout)
     on 2x2, against single-device serving, under both KV layouts."""
     kv_layout(layout)
     cfg, pol = _cfgs(arch)[1], get_policy("fp16")
-    tol = SPLIT_SERVE_TOL if meshlib.model_compute(cfg) == "megatron" else 1e-5
+    tol = SPLIT_SERVE_TOL
     model = tf.init_params(cfg, pol, seed=3, device="cpu")
     params = tf.params_tree(model)
     mesh = _mesh((2, 2))

@@ -21,8 +21,10 @@ against the reference the loss at 2e-5 (slice 19's; 7.0e-6 measured) and
 the grad norm as against the port (4.2e-5).
 Served logits within 1e-5 under fp32 (1.8e-6) and 2e-3 under fp16
 (1.42e-3; slice 4's reduced fp16 bound). ``python tests/test_torch_tp.py``
-prints these measured values. ``seq_shard`` True and False, and
-a ``model`` axis of size 1 against the data-parallel lowering, bit for bit.
+prints these measured values. ``seq_shard`` True and False bit for bit;
+a ``model`` axis of size 1 against the single-device step at the
+data-parallel tolerances. The MoE, Mamba and RG-LRU splits are
+``tests/test_torch_tp_layers.py``'s.
 """
 import functools
 
@@ -56,8 +58,6 @@ GNORM_RTOL = {"fp32": 1e-5, "fp16": 1e-4}
 MOMENT_TOL = {"fp32": 1e-4, "fp16": 5e-3}
 REF_LOSS_RTOL = 2e-5
 SERVE_TOL = {"fp32": 1e-5, "fp16": 2e-3}
-SPLIT = ("smollm-360m", "qwen2.5-14b", "minitron-8b", "stablelm-12b", "musicgen-large",
-         "qwen2-vl-2b")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -187,18 +187,26 @@ def test_split_train_step_matches_single_device_and_reference(arch, pol, shape):
 @pytest.mark.parametrize("arch,pol", [("smollm-360m", "fp16"), ("qwen2-vl-2b", "fp16"),
                                       ("stablelm-12b", "fp32")])
 @pytest.mark.parametrize("seq_shard", [True, False])
-def test_model_axis_of_one_equals_the_data_parallel_lowering(arch, pol, seq_shard, monkeypatch):
-    """On 2x1 the split lowering runs each data index on one rank: the same
-    bits as the data-parallel lowering."""
+def test_model_axis_of_one_equals_the_data_parallel_lowering(arch, pol, seq_shard):
+    """On 2x1 the split lowering runs each data index on one rank: what the
+    data-parallel lowering was, held against the single-device step at its
+    tolerances (``tests/test_torch_sharded.py``: the data indices' sums in
+    another order than one device's batch), ``seq_shard`` changing no bit."""
     cfg = _cfgs(arch)[1]
     _, ps = _states(arch, pol)
     batch = _pb(_batch(cfg))
     mesh = _mesh((2, 1))
-    split = tasks.make_train_step(cfg, pol, mesh=mesh, seq_shard=seq_shard, ce_chunk=CHUNK)
-    a, am = split(ps, batch)
-    monkeypatch.setattr(meshlib, "model_compute", lambda c: "data")
-    b, bm = tasks.make_train_step(cfg, pol, mesh=mesh, ce_chunk=CHUNK)(ps, batch)
-    assert _bitwise(sh.gather_tree(a), sh.gather_tree(b)) == []
+    a, am = tasks.make_train_step(cfg, pol, mesh=mesh, seq_shard=seq_shard, ce_chunk=CHUNK)(
+        ps, batch)
+    _, ps2, pm = _singles(arch, pol)
+    assert float(am["loss"]) == pytest.approx(float(pm["loss"]), rel=LOSS_RTOL)
+    assert float(am["grad_norm"]) == pytest.approx(float(pm["grad_norm"]), rel=GNORM_RTOL[pol])
+    got = sh.gather_tree(a)
+    for x, y in zip(tree_leaves(got["opt"].m), tree_leaves(ps2["opt"].m)):
+        assert _rel(x, y) <= MOMENT_TOL[pol]
+    b, bm = tasks.make_train_step(cfg, pol, mesh=mesh, seq_shard=not seq_shard,
+                                  ce_chunk=CHUNK)(ps, batch)
+    assert _bitwise(sh.gather_tree(b), got) == []
     assert all(float(am[k]) == float(bm[k]) for k in am)
 
 
@@ -291,9 +299,16 @@ def test_compute_plan_splits():
 
 
 def test_model_compute_by_arch():
+    """Every arch trains and prefills split over the model axis; decode
+    stays data-parallel."""
+    mesh = _mesh((2, 2))
     for arch in configs.ARCH_NAMES:
-        want = "megatron" if arch in SPLIT else "data"
-        assert meshlib.model_compute(configs.get_arch(arch)) == want, arch
+        cfg = configs.get_arch(arch)
+        assert meshlib.model_compute(cfg) == "megatron", arch
+        cfg = configs.reduce_arch(cfg)
+        for kind, want in (("train", "megatron"), ("prefill", "megatron"), ("decode", "data")):
+            task = tasks.build_task(cfg, ShapeConfig("t", S, 4, kind), mesh, "fp16")
+            assert task.model_compute == want, (arch, kind)
 
 
 def test_uneven_head_runs_attend_run_by_run():
@@ -346,8 +361,8 @@ def test_compute_entry_gathers_only_its_ranges(arch, kind):
         pl = plan[e[1]]
         share = 0
         for keys, x in meshlib.key_paths(params):
-            region = tasks._rank_region(keys, tuple(x.shape), pl, cfg)
-            share += int(np.prod([s.stop - s.start for s in region])) * x.element_size()
+            for region in tasks._rank_regions(keys, tuple(x.shape), pl, cfg):
+                share += int(np.prod([s.stop - s.start for s in region])) * x.element_size()
         assert got <= share + rows, (e, got, share)
         assert got < whole / 2, (e, got, whole)
     assert len(gathered) == 8  # every rank of every data index
@@ -370,13 +385,18 @@ def test_seq_shard_keeps_a_range_of_the_residual_stream():
 
 
 def test_data_parallel_archs_keep_their_lowering():
-    """MoE, Mamba and the RG-LRU hybrid stay data-parallel: each data index's
-    first entry gathers the whole parameters."""
-    for arch in ("granite-moe-1b-a400m", "falcon-mamba-7b", "recurrentgemma-2b"):
+    """MoE, Mamba and the RG-LRU hybrid, once data-parallel, split over the
+    model axis too: every rank of every data index gathers its ranges, none
+    the whole parameters."""
+    for arch in ("granite-moe-1b-a400m", "qwen2-moe-a2.7b", "falcon-mamba-7b",
+                 "recurrentgemma-2b"):
         cfg, _, _, gathered = _meta_count(arch, (2, 2))
-        assert sorted(gathered) == [(0, 0), (1, 0)]
+        assert sorted(gathered) == [(0, 0), (0, 1), (1, 0), (1, 1)], arch
+        params = tf.params_tree(tf.init_params(cfg, get_policy("fp16"), device="meta"))
+        whole = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+        assert max(gathered.values()) < whole, arch
         assert tasks.build_task(cfg, ShapeConfig("t", S, 4, "train"), _mesh((2, 2)),
-                                "fp16").model_compute == "data"
+                                "fp16").model_compute == "megatron"
 
 
 def _measure() -> None:
