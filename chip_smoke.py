@@ -317,16 +317,24 @@ Phases (each raises, and the script exits non-zero, on any failure):
    single-device step on the card from the same state and batch (loss,
    grad norm, first moments, new masters within 2 lr_t), its collective
    bytes per device by kind and ms printed beside the single-device step's
-   ms; (b) granite-moe-1b-a400m fp16 at full width on 2 layers, which
-   ``build_task`` keeps data-parallel (the mesh path of the MoE, Mamba and
-   RG-LRU archs), 2 steps of 4 x 512 on the 2x2 mesh, held the same way
-   (the main path too: 2 B7 launches and one ``flash_attn_bwd`` per layer
-   and data index a step); (c) smollm-360m served on the 2x2 mesh through
-   ``build_task`` (the split prefill cell, 2 x 128 prompt, then 8
-   data-parallel decode steps on its cache) under both KV layouts against
-   single-device serving; (d) ``psum_compressed`` over ``[card] * 4``;
-   (e) the meta dry-run of smollm train_4k on 16x16 (a CPU process beside
-   the build), its per-device argument bytes held against the plan's.
+   ms; (b) granite-moe-1b-a400m fp16 at full width on 2 layers split
+   EP on 2x2 and TP on 1x3, falcon-mamba-7b (2 layers) and
+   recurrentgemma-2b (3) on 2x2, one step each from a state drawn on the
+   card, held the same way (the main path too), then the split prefill of
+   the last two; (c) smollm-360m served on the 2x2 mesh through
+   ``build_task`` (the split prefill cell, 2 x 128 prompt, then 8 split
+   decode steps on its cache, their B7 launches counted) under both KV
+   layouts against single-device serving; (f) split decode at full width
+   (``MESH_DECODE_RUNS``: smollm-360m on 1x8, qwen2.5-14b's uneven head
+   runs on 1x9, granite-moe EP on 2x2 and TP on 1x3, falcon-mamba and
+   recurrentgemma's 2,048-slot ring on 2x2),
+   4 steps each against single-device decode from the same cache, B7
+   launches per step, ms beside the single-device step's, collective bytes
+   by kind and each rank's B7 path, then B7 at the ranks' decode shapes
+   against its plain version and SDPA; (d) ``psum_compressed`` over
+   ``[card] * 4``; (e) the meta dry-runs of smollm train_4k and decode_32k
+   on 16x16 (CPU processes beside the build), their per-device argument
+   bytes held against the plan's.
 6. LM serving on the dense decoder (``repro_torch.launch.serve``; after
    phase 12, in a process of its own: ``chip_smoke.py --lm-json PATH``): (a) the
    attention kernel ``flash_attention`` against its plain version on the
@@ -362,7 +370,7 @@ The CPU work of later phases runs beside the build (1): phase 14's CPU
 half, the CPU port's references of phases 3-5c, 9, 10 and 12
 (``REF_PROCS`` processes ``chip_smoke.py --cpu-refs DIR I N`` on one torch
 thread each, read back by name through ``cpu_ref``; a phase run alone
-computes them itself) and phase 15's meta dry-run. No timed phase starts
+computes them itself) and phase 15's meta dry-runs. No timed phase starts
 before all of them end; the wait is logged as ``[refs] waited N s``.
 
 Each phase's end is logged as ``[clock] <phase> done at N s``. The last
@@ -7307,9 +7315,9 @@ def _arch_bwd_cases(g, dev) -> list:
     ]
 
 
-def _entry_row(kernel: str, rows: list, main: int) -> dict:
+def _entry_row(kernel: str, rows: list, main: int, entry: str = "archs") -> dict:
     m = rows[main]
-    return {"name": f"{kernel}[archs]", "kernel": kernel, "entry": "archs",
+    return {"name": f"{kernel}[{entry}]", "kernel": kernel, "entry": entry,
             "shape": m["shape"], "max_abs_err": max(r["max_abs_err"] for r in rows),
             **{k: m.get(k) for k in ("ms", "device_ms", "parts_ms", "plain_ms", "bound_ms",
                                      "bound_by", "bound_tc_ms", "library_ms",
@@ -7964,8 +7972,8 @@ def _mesh_train_layers(dev, totals) -> tuple[dict, dict]:
     """Phase 15b: each run of ``MESH_LAYER_RUNS`` through ``build_task``
     (split over the model axis) on ``[card] * n``: one step against the
     single-device step from the same state and batch at ``MESH_TOL``,
-    launches counted. Returns the paths and the recurrent archs' params
-    (their prefill's)."""
+    launches counted. Returns the paths and each arch's params (their
+    split prefill's and decode's)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core import distributed
     from repro_torch.data.synthetic import TokenStream
@@ -8022,8 +8030,7 @@ def _mesh_train_layers(dev, totals) -> tuple[dict, dict]:
             f"scale, masters {row['master_max_abs']:.3g} (2 lr_t {2 * lr_t:.3g}); launches "
             f"{got}; collective bytes per device {colls}; {ms:.1f} ms (single-device "
             f"{single_ms:.1f} ms; state drawn in {draw_s:.1f} s)")
-        if arch in ("falcon-mamba-7b", "recurrentgemma-2b"):
-            params[arch] = (cfg, state["params"])
+        params[arch] = (cfg, state["params"])  # the split prefill's and decode's
         torch.cuda.empty_cache()
     return out, params
 
@@ -8049,6 +8056,8 @@ def _mesh_prefill_layers(dev, params: dict, totals) -> dict:
     mesh = meshlib.make_host_mesh((2, 2), devices=[dev] * 4)
     out = {}
     for arch, (cfg, p) in params.items():
+        if arch not in ("falcon-mamba-7b", "recurrentgemma-2b"):
+            continue
         g = torch.Generator().manual_seed(7)
         toks = torch.randint(0, cfg.vocab_size, (b, s), generator=g).to(dev)
         with torch.inference_mode():
@@ -8093,17 +8102,19 @@ def _meta_to(tree, dev):
     return tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype, device=dev), tree)
 
 
-def _mesh_serve(dev, params) -> dict:
+def _mesh_serve(dev, params, totals) -> dict:
     """Phase 15c: smollm-360m fp16 (the trained params) served on a 2x2
     mesh of ``[card] * 4`` through ``build_task`` (the prefill cell, split
-    over the model axis; the cache from the split prefill; 8 data-parallel
-    decode steps through the decode cell), each KV layout, against
-    single-device serving on the card of each data index's rows (held at
-    ``MESH_SERVE_TOL``) and of the whole batch (printed: a row split
-    changes cuBLAS's shapes, and at full width an fp16 ulp of a projection
-    input moves a logit by up to about 4e-3, ROADMAP queue C slice 4)."""
+    over the model axis; the cache from the split prefill; 8 split decode
+    steps through the decode cell, B7 launches counted), each KV layout,
+    against single-device serving on the card of each data index's rows
+    (held at ``MESH_SERVE_TOL``) and of the whole batch (printed: a row
+    split changes cuBLAS's shapes, and at full width an fp16 ulp of a
+    projection input moves a logit by up to about 4e-3, ROADMAP queue C
+    slice 4)."""
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
     from repro_torch.launch import mesh as meshlib
     from repro_torch.launch import sharded as sh
     from repro_torch.models import tasks
@@ -8152,9 +8163,20 @@ def _mesh_serve(dev, params) -> dict:
                 got = [sh.gather(pre(params, {"tokens": toks}))]
                 _, s_cache = tasks.make_prefill_step(cfg, pol, mesh=mesh, collect_cache=True,
                                                      cache_len=cap)(params, {"tokens": toks})
+                expect = _mesh_decode_launches(cfg, mesh, b)
+                step_ms = []
                 for i in range(gen):
+                    ops.reset_launches()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
                     s_logits, s_cache = dec(params, s_cache, feed[i], s + i)
                     got.append(sh.gather(s_logits))
+                    torch.cuda.synchronize()
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+                    require(launches == expect, f"mesh serve {layout}: split decode step {i} "
+                            f"launches {launches} != {expect}")
+                    _add(totals, ops.LAUNCHES)
             finally:
                 meshlib.KV_CACHE_LAYOUT[0] = "headdim"
             rows = max(max_err(a, w) for a, w in zip(got, want))
@@ -8162,11 +8184,231 @@ def _mesh_serve(dev, params) -> dict:
             require(rows <= MESH_SERVE_TOL, f"mesh serve {layout}: logits {rows} from "
                     f"single-device serving of the same rows > {MESH_SERVE_TOL}")
             out[layout] = {"logits_max_abs_rows": rows, "bitwise_rows": rows == 0.0,
-                           "logits_max_abs_batch": batch}
-            log(f"[mesh] served on 2x2 ({layout}): split prefill and {gen} decode steps, "
-                f"logits within {rows:.3g} of single-device serving of each data index's "
-                f"rows (bit for bit: {rows == 0.0}), {batch:.3g} of the whole batch's")
+                           "logits_max_abs_batch": batch, "decode_ms_per_step": step_ms,
+                           "decode_launches_per_step": expect}
+            log(f"[mesh] served on 2x2 ({layout}): split prefill and {gen} split decode "
+                f"steps ({[round(x, 1) for x in step_ms]} ms, {expect} a step), logits within "
+                f"{rows:.3g} of single-device serving of each data index's rows (bit for bit: "
+                f"{rows == 0.0}), {batch:.3g} of the whole batch's")
     return out
+
+
+# Split decode at full width (A12e part 3): each run fp16 through the split
+# prefill of a prompt and MESH_DECODE_STEPS decode steps of ``build_task``'s
+# decode cell, against single-device decode on the card from the same cache:
+# (arch, layers, mesh, batch, prompt, cache slots). smollm-360m (phase 15a's
+# trained params) on 1x8 reads its 5 KV heads from 8 ranks of 1-2 query
+# heads; granite-moe's experts EP on 2x2 and TP on 1x3; falcon-mamba by
+# channel; recurrentgemma over its 2,048-slot ring after a 2,100-token
+# prompt, each rank 5 query heads of its one KV head (phase 15b's params);
+# qwen2.5-14b (2 layers, params drawn on the card) on 1x9, where ranks 5
+# and 7 read two KV heads each by runs of 1 + 3 and 3 + 1 query heads: one
+# B7 launch per run, 11 a layer.
+MESH_DECODE_RUNS = (("smollm-360m", None, (1, 8), 2, 128, 136),
+                    ("qwen2.5-14b", 2, (1, 9), 2, 128, 136),
+                    ("granite-moe-1b-a400m", 2, (2, 2), 2, 128, 136),
+                    ("granite-moe-1b-a400m", 2, (1, 3), 2, 128, 136),
+                    ("falcon-mamba-7b", 2, (2, 2), 2, 128, 136),
+                    ("recurrentgemma-2b", 3, (2, 2), 2, 2100, 2048))
+MESH_DECODE_STEPS = 4
+
+
+def _decode_group_run(cfg, mesh):
+    """The first data index's ``GroupRun`` of a decode step (each rank's
+    attention runs) and the compute plan."""
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import tasks
+
+    plan = meshlib.compute_plan(cfg, meshlib.model_size(mesh))
+    return tasks._group_run(cfg, mesh, tasks._groups(mesh)[0], plan, 1, False, None), plan
+
+
+def _mesh_decode_launches(cfg, mesh, b: int) -> dict:
+    """B7 launches of a split decode step: per attention layer and
+    computing data index, one per rank holding a query head, or one per run
+    where its heads split unevenly over its KV heads."""
+    from repro_torch.models import tasks
+
+    run, plan = _decode_group_run(cfg, mesh)
+    per = sum(1 if r is None else len(r) for r, pl in zip(run.kv_runs, plan) if pl.n_heads)
+    n = _attn_layers(cfg) * tasks._split(b, mesh) * per
+    return {"flash_attention": n} if n else {}
+
+
+def _rank_paths(cfg, mesh, b: int, cap: int, dev) -> list:
+    """B7's path for each launch of a rank (``kernels/flash_attn.plan``):
+    its rows, cache slots, query and KV heads per launch."""
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.models import tasks
+
+    if not _attn_layers(cfg):
+        return ["no attention layer"]
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    run, plan = _decode_group_run(cfg, mesh)
+    bd = b // tasks._split(b, mesh)
+    slots = min(cap, cfg.hybrid.window) if cfg.hybrid is not None else cap
+    out = []
+    for pl, runs in zip(plan, run.kv_runs):
+        if not pl.n_heads:
+            out.append(f"rank {pl.rank}: no head")
+            continue
+        calls = [(pl.n_heads, pl.n_kv)] if runs is None else [(hi - lo, 1) for lo, hi, _ in runs]
+        paths = []
+        for hq, hkv in calls:
+            splits, kps = fa.plan(bd, 1, slots, hq, hkv, cfg.head_dim, n_sm)
+            paths.append(f"{hq}q/{hkv}kv " + (f"decode {splits} x {kps} keys" if splits
+                                                else "prefill"))
+        out.append(f"rank {pl.rank}: " + ", ".join(paths))
+    return out
+
+
+def _mesh_decode(dev, cfg, p, mshape, b: int, s: int, cap: int, totals) -> dict:
+    """Phase 15f, one run: the split prefill of ``b`` random prompts of
+    ``s`` tokens into ``cap`` slots on ``[card] * n``, then
+    ``MESH_DECODE_STEPS`` decode steps through ``build_task``'s decode cell
+    (split over the model axis, the cache updated in place) against
+    single-device decode from the same cache, fed the single-device greedy
+    tokens: each step's logits and the final cache within
+    ``MESH_SERVE_TOL``, the B7 launches of each step, its ms beside the
+    single-device step's, the collective bytes per device by kind."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import distributed
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import sharded as sh
+    from repro_torch.models import tasks
+    from repro_torch.models import transformer as tf
+    from repro_torch.precision import get_policy
+    from repro_torch.precision.policy import tree_leaves
+
+    pol = get_policy("fp16")
+    n = mshape[0] * mshape[1]
+    mesh = meshlib.make_host_mesh(mshape, devices=[dev] * n)
+    g = torch.Generator().manual_seed(11)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=g).to(dev)
+    model = tf.params_view(cfg, p)
+    task = tasks.build_task(cfg, ShapeConfig("d", cap, b, "decode"), mesh, pol)
+    require(task.model_compute == "megatron", f"{cfg.name}: decode not split over `model`")
+    split, one = task.sharded(), tasks.make_decode_step(cfg, pol)
+    expect = _mesh_decode_launches(cfg, mesh, b)
+    steps = []
+    with torch.inference_mode():
+        logits, s_cache = tasks.make_prefill_step(cfg, pol, mesh=mesh, collect_cache=True,
+                                                  cache_len=cap)(p, {"tokens": toks})
+        cache = sh.gather_tree(s_cache)  # single-device decode starts from the same cache
+        blocks = [[t.data_ptr() for t in x.blocks.flat] for x in tree_leaves(s_cache)]
+        token = torch.argmax(sh.gather(logits), -1)[:, None]
+        for i in range(MESH_DECODE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want, cache = one(model, cache, token, s + i)
+            torch.cuda.synchronize()
+            single_ms = (time.perf_counter() - t0) * 1e3
+            ops.reset_launches()
+            distributed.reset_collectives()
+            t0 = time.perf_counter()
+            got, s_cache = split(p, s_cache, token, s + i)
+            got = sh.gather(got)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+            _add(totals, ops.LAUNCHES)
+            require(launches == expect, f"{cfg.name} {mshape}: split decode step {i} launches "
+                    f"{launches} != {expect}")
+            err = max_err(got, want)
+            require(err <= MESH_SERVE_TOL, f"{cfg.name} {mshape}: split decode step {i} logits "
+                    f"{err} from single-device decode > {MESH_SERVE_TOL}")
+            steps.append({"ms": ms, "single_ms": single_ms, "logits_max_abs": err,
+                          "launches": launches, "collectives": {
+                              k: dict(v) for k, v in distributed.COLLECTIVES.items()}})
+            token = torch.argmax(want, -1)[:, None]
+        require([[t.data_ptr() for t in x.blocks.flat] for x in tree_leaves(s_cache)] == blocks,
+                f"{cfg.name} {mshape}: the decode cache moved (not updated in place)")
+        specs = tree_leaves(meshlib.tree_pspecs(cache, mesh, rule=meshlib.cache_pspec))
+        require([x.spec for x in tree_leaves(s_cache)] == specs,
+                f"{cfg.name} {mshape}: the cache's specs are not cache_pspec's")
+        cache_err = {}
+        for (keys, a), w in zip(meshlib.key_paths(sh.gather_tree(s_cache)), tree_leaves(cache)):
+            if keys[-1] == "pos":
+                require(torch.equal(a, w), f"{cfg.name} {mshape}: slot positions differ")
+            else:
+                key = keys[-1] if keys[-1] in ("k", "v") else "/".join(keys[-2:])
+                cache_err[key] = max(cache_err.get(key, 0.0), max_err(a, w))
+        require(max(cache_err.values()) <= MESH_SERVE_TOL,
+                f"{cfg.name} {mshape}: split decode cache {cache_err} > {MESH_SERVE_TOL}")
+    paths = _rank_paths(cfg, mesh, b, cap, dev)
+    last = steps[-1]
+    log(f"[mesh] {cfg.name} ({cfg.n_layers} layers) split decode on {mshape[0]}x{mshape[1]} "
+        f"({b} x {s}, {cap} slots): logits within {max(x['logits_max_abs'] for x in steps):.3g}"
+        f", cache {cache_err} of single-device decode; {expect} a step; ms a step "
+        f"{[round(x['ms'], 1) for x in steps]} (single-device "
+        f"{[round(x['single_ms'], 1) for x in steps]}); collective bytes per device a step "
+        f"{last['collectives']}; B7 per rank {paths}")
+    return {"layers": cfg.n_layers, "batch": b, "prompt": s, "slots": cap, "entries": n,
+            "steps": steps, "cache_max_abs": cache_err, "b7_paths": paths}
+
+
+def _card_params(cfg, dev, seed: int) -> dict:
+    """``cfg``'s fp16 parameter tree drawn on the card from a CUDA generator
+    seeded with ``seed`` (as :func:`_card_state`, without the train
+    state)."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.precision import get_policy
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.device(dev):
+        return tf.params_tree(tf.Transformer(cfg, get_policy("fp16"), gen))
+
+
+def _mesh_decode_runs(dev, smollm, layer_params: dict, totals) -> dict:
+    """Phase 15f: every run of ``MESH_DECODE_RUNS``."""
+    out = {}
+    for arch, layers, mshape, b, s, cap in MESH_DECODE_RUNS:
+        if arch == SMOLLM:
+            cfg, p = smollm
+        elif arch in layer_params:
+            cfg, p = layer_params[arch]
+        else:
+            cfg = _arch_cfg(arch, layers)
+            p = _card_params(cfg, dev, seed=0)
+        out[f"{arch} {mshape[0]}x{mshape[1]}"] = _mesh_decode(dev, cfg, p, mshape, b, s, cap,
+                                                              totals)
+        del p
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_decode_kernels(dev) -> list:
+    """Phase 15f's B7 cases: the ranks' decode shapes, each against its plain
+    version and timed beside SDPA (``_attn_row``): smollm's on 2x2 (9 query
+    heads on 3 KV heads, one row) and on 1x8 (2 on 1, two rows),
+    granite-moe's on 2x2 (8 on 4) and 1x3 (6 on 3), qwen2.5's run of 3
+    query heads on one KV head (1x9), recurrentgemma's on 2x2 (5 on its one
+    KV head, D 256, over the wrapped 2,048-slot ring: the decode path,
+    where the whole group's 10 passes the decode CTA)."""
+    f16 = torch.float16
+    g = torch.Generator(device="cpu").manual_seed(151)
+    p_now = 2103
+    ring = _attn_case(g, 1, 1, 2048, 5, 1, 256, f16, dev)
+    slots = torch.arange(2048)
+    ring[4] = (p_now - ((p_now - slots) % 2048)).to(torch.int32).to(dev)
+    ring[3] = torch.full((1, 1), p_now, dtype=torch.int32, device=dev)
+    cases = [
+        ("recurrentgemma rank decode on 2x2, D 256 MQA 5:1, wrapped 2,048-slot fp16 ring, "
+         "window 2,048", ring, True, 2048),
+        ("smollm rank decode on 2x2, D 64 GQA 9:3, fp16 cache",
+         _attn_case(g, 1, 1, 136, 9, 3, 64, f16, dev, invalid=4), True, -1),
+        ("smollm rank decode on 1x8, D 64 2:1, fp16 cache",
+         _attn_case(g, 2, 1, 136, 2, 1, 64, f16, dev, invalid=4), True, -1),
+        ("granite rank decode on 2x2, D 64 GQA 8:4, fp16 cache",
+         _attn_case(g, 1, 1, 136, 8, 4, 64, f16, dev, invalid=4), True, -1),
+        ("granite rank decode on 1x3, D 64 GQA 6:3, fp16 cache",
+         _attn_case(g, 2, 1, 136, 6, 3, 64, f16, dev, invalid=4), True, -1),
+        ("qwen2.5 rank 5's second run on 1x9, D 128 3:1, fp16 cache",
+         _attn_case(g, 2, 1, 136, 3, 1, 128, f16, dev, invalid=4), True, -1),
+    ]
+    rows = [_attn_row(name, args, causal, window) for name, args, causal, window in cases]
+    return [_entry_row("flash_attention", rows, 0, "mesh")]
 
 
 def _mesh_psum(dev) -> dict:
@@ -8194,59 +8436,94 @@ def _mesh_psum(dev) -> dict:
 DRYRUN_ENV = "CHIP_SMOKE_DRYRUN"  # where the whole script's dry-run child writes its record
 
 
-def _mesh_dryrun_start(tmp: Path):
-    """Phase 15e: the meta dry-run of smollm train_4k on the 16x16
-    production mesh, in a process of its own (CPU only): started beside the
-    build when the whole script runs, after the card work alone."""
-    return subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", SMOLLM, "--shape",
-         "train_4k", "--mesh", "single", "--out", str(tmp), "--force"],
+MESH_DRYRUN_SHAPES = ("train_4k", "decode_32k")  # smollm-360m's cells, a process each
+
+
+def _mesh_dryrun_start(tmp: Path) -> list:
+    """Phase 15e: the meta dry-runs of smollm train_4k and decode_32k on the
+    16x16 production mesh, each in a process of its own (CPU only): started
+    beside the build when the whole script runs, after the card work
+    alone."""
+    return [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", SMOLLM, "--shape", shape,
+         "--mesh", "single", "--out", str(tmp), "--force"],
         env={**__import__("os").environ, "PYTHONPATH": str(ROOT / "src")},
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for shape in MESH_DRYRUN_SHAPES]
 
 
-def _mesh_dryrun_finish(proc, tmp: Path) -> dict:
-    """The dry-run's record; its per-device argument bytes held against the
-    plan's (each leaf's bytes over the entries its spec divides it into)."""
+def _mesh_dryrun_wait(procs: list, timeout: float) -> None:
+    end = time.perf_counter() + timeout
+    for proc in procs:
+        text, _ = proc.communicate(timeout=max(1.0, end - time.perf_counter()))
+        require(proc.returncode == 0, f"the dry-run failed: {text[-2000:]}")
+
+
+def _mesh_dryrun_finish(procs, tmp: Path) -> dict:
+    """The dry-runs' records; each cell's per-device argument bytes held
+    against the plan's (each leaf's bytes over the entries its spec divides
+    it into: the train state and batch, or the params, cache and token)."""
     import math as _math
 
     from repro_torch.configs import get_arch, get_shape
     from repro_torch.launch import mesh as meshlib
-    from repro_torch.launch import sharded as sh
     from repro_torch.models import tasks
+    from repro_torch.models import transformer as tf
+    from repro_torch.precision import get_policy
     from repro_torch.precision.policy import tree_leaves
 
-    if proc is not None:
-        text, _ = proc.communicate(timeout=600)
-        require(proc.returncode == 0, f"the dry-run failed: {text[-2000:]}")
-    rec = json.loads((tmp / f"{SMOLLM}__train_4k__single.json").read_text())
-    require(rec["status"] == "ok", f"dry-run cell: {rec.get('error')}")
-    cfg, shape = get_arch(SMOLLM), get_shape("train_4k")
-    mesh = meshlib.make_production_mesh()
-    state = tasks.train_state_specs(cfg, "fp16")
-    batch = tasks.input_specs(cfg, shape)
-    plan = 0
-    for tree, specs in ((state, tasks._state_pspecs(state, mesh)),
-                        (batch, meshlib.batch_pspecs(batch, mesh))):
-        for x, spec in zip(tree_leaves(tree), tree_leaves(specs)):
-            n = _math.prod(mesh.shape[a] for part in spec for a in meshlib.part_axes(part))
-            plan += x.numel() // n * x.element_size()
-    got = rec["production"]["memory"]["argument_bytes"]
-    require(got == plan, f"dry-run argument bytes {got} != the plan's {plan}")
-    log(f"[mesh] dry-run {SMOLLM} train_4k on 16x16 (meta): argument bytes {got} == the plan's; "
-        f"{rec['production']['flops']:.4g} FLOPs per compute device, saved activations "
-        f"{rec['production']['memory']['activation_bytes']} B, collectives "
-        f"{rec['production']['collectives']}, counted in {rec['production']['count_s']:.1f} s")
-    return {"argument_bytes": got, "plan_bytes": plan, "record": rec["production"]}
+    if procs is not None:
+        _mesh_dryrun_wait(procs, 900)
+    cfg, mesh = get_arch(SMOLLM), meshlib.make_production_mesh()
+    out = {}
+    for name in MESH_DRYRUN_SHAPES:
+        rec = json.loads((tmp / f"{SMOLLM}__{name}__single.json").read_text())
+        require(rec["status"] == "ok", f"dry-run cell {name}: {rec.get('error')}")
+        shape = get_shape(name)
+        batch = tasks.input_specs(cfg, shape)
+        if shape.kind == "train":
+            state = tasks.train_state_specs(cfg, "fp16")
+            trees = ((state, tasks._state_pspecs(state, mesh)),
+                     (batch, meshlib.batch_pspecs(batch, mesh)))
+        else:  # the decode position is a host int and holds nothing
+            pol = get_policy("fp16")
+            params = tf.params_tree(tf.init_params(cfg, pol, device="meta"))
+            cache = tf.init_cache(cfg, shape.global_batch, shape.seq_len, pol.state_storage,
+                                  "meta")
+            token = {"token": batch["token"]}
+            trees = ((params, meshlib.tree_pspecs(params, mesh)),
+                     (cache, meshlib.tree_pspecs(cache, mesh, rule=meshlib.cache_pspec)),
+                     (token, meshlib.batch_pspecs(token, mesh)))
+        plan = 0
+        for tree, specs in trees:
+            for x, spec in zip(tree_leaves(tree), tree_leaves(specs)):
+                n = _math.prod(mesh.shape[a] for part in spec for a in meshlib.part_axes(part))
+                plan += x.numel() // n * x.element_size()
+        prod = rec["production"]
+        got = prod["memory"]["argument_bytes"]
+        require(got == plan, f"dry-run {name} argument bytes {got} != the plan's {plan}")
+        log(f"[mesh] dry-run {SMOLLM} {name} on 16x16 (meta, {rec['model_compute']}): argument "
+            f"bytes {got} == the plan's; gathered {prod['gathered_bytes']} B, working "
+            f"{rec['working_bytes']} B, {prod['flops']:.4g} FLOPs per compute device, saved "
+            f"activations {prod['memory']['activation_bytes']} B, collectives "
+            f"{prod['collectives']}, counted in {prod['count_s']:.1f} s")
+        out[name] = {"argument_bytes": got, "plan_bytes": plan, "working_bytes":
+                     rec["working_bytes"], "record": prod}
+    return out
 
 
-def phase_mesh(dev, totals: dict) -> dict:
+def phase_mesh(dev, totals: dict) -> tuple[list, dict]:
     """Phase 15: the LM mesh lowering on one card: the split training on
     [card] * 8 and [card] * 4 with the reshards between, serving on
-    [card] * 4, the split training and prefill of the MoE, Mamba and RG-LRU
-    archs on [card] * 4 and [card] * 3 (the main path: their launches are
-    counted), the compressed all-reduce, and the meta dry-run of one
-    production cell (run beside the card work)."""
+    [card] * 4 (split prefill and decode), the split training and prefill
+    of the MoE, Mamba and RG-LRU archs on [card] * 4 and [card] * 3, the
+    split decode of smollm on [card] * 8 and of the other layer kinds
+    (the main path: their launches are counted), B7 at the ranks' decode
+    shapes, the compressed all-reduce, and the meta dry-runs of two
+    production cells (run beside the card work). Returns (B7's ``[mesh]``
+    row, paths)."""
+    from repro_torch.configs import get_arch
+
     t0 = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -8254,16 +8531,20 @@ def phase_mesh(dev, totals: dict) -> dict:
     train, params = _mesh_train(dev, totals)
     paths = {"mesh/card": smi, "mesh/train": train}
     t1 = time.perf_counter()
-    paths["mesh/serve"] = _mesh_serve(dev, params)
+    paths["mesh/serve"] = _mesh_serve(dev, params, totals)
     paths["mesh/serve_s"] = time.perf_counter() - t1
-    del params
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
     paths["mesh/train_layers"], layer_params = _mesh_train_layers(dev, totals)
     paths["mesh/prefill_layers"] = _mesh_prefill_layers(dev, layer_params, totals)
-    del layer_params
-    torch.cuda.empty_cache()
     paths["mesh/layers_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    paths["mesh/decode"] = _mesh_decode_runs(dev, (get_arch(SMOLLM), params), layer_params,
+                                             totals)
+    paths["mesh/decode_s"] = time.perf_counter() - t1
+    del params, layer_params
+    torch.cuda.empty_cache()
+    rows = _mesh_decode_kernels(dev)
     paths["mesh/psum_compressed"] = _mesh_psum(dev)
     t1 = time.perf_counter()
     done = os.environ.get(DRYRUN_ENV)  # counted beside the build
@@ -8275,22 +8556,24 @@ def phase_mesh(dev, totals: dict) -> dict:
     ms, one = paths["mesh/train"]["ms_per_step"], paths["mesh/train"]["single_ms_per_step"]
     log(f"[mesh] sharded step ms {[round(x, 1) for x in ms]} against the single-device "
         f"{[round(x, 1) for x in one]} ({smi}); serving {paths['mesh/serve_s']:.1f} s, the "
-        f"other layer kinds {paths['mesh/layers_s']:.1f} s, waited "
-        f"{paths['mesh/dryrun_wait_s']:.1f} s for the dry-run")
+        f"other layer kinds {paths['mesh/layers_s']:.1f} s, split decode "
+        f"{paths['mesh/decode_s']:.1f} s, waited {paths['mesh/dryrun_wait_s']:.1f} s for the "
+        f"dry-runs")
     paths["mesh/phase_s"] = time.perf_counter() - t0
     log(f"[mesh] phase 15 in {paths['mesh/phase_s']:.1f} s")
-    return paths
+    return rows, paths
 
 
 def _mesh_main(out: str) -> int:
-    """``--mesh-json PATH``: phase 15 alone, its paths and launch counts
-    written to ``PATH`` as JSON."""
+    """``--mesh-json PATH``: phase 15 alone, its rows, paths and launch
+    counts written to ``PATH`` as JSON."""
     from repro_torch.kernels import _build, ops
 
     _build.build()
     totals = {k: 0 for k in ops.LAUNCHES}
-    paths = phase_mesh(torch.device("cuda", 0), totals)
-    Path(out).write_text(json.dumps({"paths": paths, "totals": totals}, default=str))
+    rows, paths = phase_mesh(torch.device("cuda", 0), totals)
+    Path(out).write_text(json.dumps({"rows": rows, "paths": paths, "totals": totals},
+                                    default=str))
     return 0
 
 
@@ -8399,20 +8682,19 @@ def _cpu_children(tmp: Path):
     os.environ[DRYRUN_ENV] = str(dry)
     procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--cpu-refs",
                                str(refs), str(i), str(REF_PROCS)]) for i in range(REF_PROCS)]
-    dry_proc = _mesh_dryrun_start(dry)
+    dry_procs = _mesh_dryrun_start(dry)
 
     def ready(timeout: int) -> None:
         end = time.perf_counter() + timeout
         for proc in procs:
             rc = proc.wait(timeout=max(1.0, end - time.perf_counter()))
             require(rc == 0, f"a CPU reference process exited with {rc}")
-        text, _ = dry_proc.communicate(timeout=max(1.0, end - time.perf_counter()))
-        require(dry_proc.returncode == 0, f"the dry-run failed: {text[-2000:]}")
+        _mesh_dryrun_wait(dry_procs, end - time.perf_counter())
 
     try:
         yield SimpleNamespace(ready=ready)
     finally:
-        for proc in (*procs, dry_proc):
+        for proc in (*procs, *dry_procs):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
@@ -8492,21 +8774,26 @@ def _main_phases(dev, smi, build, mark, clock, archs_child) -> int:
     archs = archs_child(900)  # phase 14's card half
     _add(totals, archs["totals"])
     by_name = {r["name"]: r for r in rows}
-    for r in archs["rows"]:  # an entry's route, source and TPU kernel are its kernel's
-        base = by_name[r["kernel"]]
-        rows.append({**{k: base[k] for k in ("route", "source", "replaces")}, **r,
-                     "launches": archs["totals"][r["kernel"]]})
+
+    def entries(child):  # an entry's route, source and TPU kernel are its kernel's
+        for r in child["rows"]:
+            base = by_name[r["kernel"]]
+            rows.append({**{k: base[k] for k in ("route", "source", "replaces")}, **r,
+                         "launches": child["totals"][r["kernel"]]})
+
+    entries(archs)
     paths.update(archs["paths"])
     mark("14 archs")
     meshed = _run_child("--mesh-json", 600)  # phase 15
     _add(totals, meshed["totals"])
+    entries(meshed)
     paths.update(meshed["paths"])
     mark("15 mesh")
     paths.update(_run_child("--profile-json", 900)["paths"])
     mark("7 profile")
     paths["clock_s"] = clock
     for r in rows:
-        if "entry" not in r:  # an entry's launches are its own paths' (phases 12, 14)
+        if "entry" not in r:  # an entry's launches are its own paths' (phases 12, 14, 15)
             r["launches"] = totals[r["name"]]
         require(r["launches"] > 0, f"{r['name']} never launched on the main path")
     log(json.dumps({"kernels": rows}))

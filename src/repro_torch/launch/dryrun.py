@@ -32,18 +32,19 @@ computes and every collective runs, for each data index, on shapes only.
   ``temp_bytes`` has no counterpart in eager PyTorch: recorded as null.
   ``working_bytes`` adds the arguments, the saved activations and what the
   fullest compute entry assembles for its compute (``gathered_bytes``:
-  ``core/distributed.GATHERED``, its parameters and batch or cache rows):
-  under ``model_compute`` ``"data"`` (decode) the whole parameters, under
-  ``"megatron"`` (train and prefill) only its ranges (heads, ``d_ff``,
-  vocab, experts or ``d_expert``, ``d_shared``, ``d_inner``, the RG-LRU's
-  width) and the replicated norms and router; ``fits_hbm`` holds it
-  against the card's 80 GB. With
-  one data index computing, all of that index's model-rank entries
-  compute. Under ``"megatron"`` one backward call spans a model group's
-  entries: :class:`_BackwardEntries` runs each autograd node's backward
-  as the entry that made it, and a tensor saved outside any entry (remat's
-  block inputs, the loss's chunks) is charged to the entry whose op made
-  its storage.
+  ``core/distributed.GATHERED``): its ranges of the parameters (heads,
+  ``d_ff``, vocab, experts or ``d_expert``, ``d_shared``, ``d_inner``, the
+  RG-LRU's width; every step is split over ``model``, ``model_compute``
+  ``"megatron"``), the replicated norms and router, its rows of the batch
+  and, under decode, its KV heads' rows of the cache (or its channels of
+  the recurrent states) summed over the layers, although each layer's copy
+  is freed before the next (an upper bound); ``fits_hbm`` holds it
+  against the card's 80 GB. With one data index computing, all of that
+  index's model-rank entries compute. One backward call spans a model
+  group's entries: :class:`_BackwardEntries` runs each autograd node's
+  backward as the entry that made it, and a tensor saved outside any entry
+  (remat's block inputs, the loss's chunks) is charged to the entry whose
+  op made its storage.
 * **Collectives** (``collectives``, ``collective_bytes``) are the
   lowering's own counters (``core/distributed.COLLECTIVES``): per kind the
   calls, and the bytes the entry taking in the most receives over them
@@ -57,7 +58,6 @@ No analysis twins: counting op by op visits every layer
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import time
@@ -232,11 +232,10 @@ def count_step(task) -> dict:
     arg_held = sh.held_bytes(placed)
     distributed.reset_collectives()
     counter = OpCounter()
-    split = task.model_compute == "megatron"
-    saved = _Saved(counter.owner if split else None)
-    entries = _BackwardEntries(mesh) if split else contextlib.nullcontext()
+    saved = _Saved(counter.owner)
     t0 = time.perf_counter()
-    with entries, counter, torch.autograd.graph.saved_tensors_hooks(saved.pack, saved.unpack):
+    with _BackwardEntries(mesh), counter, torch.autograd.graph.saved_tensors_hooks(
+            saved.pack, saved.unpack):
         out = task.fn(*placed)
     seconds = time.perf_counter() - t0
     colls = {k: dict(v) for k, v in distributed.COLLECTIVES.items()}

@@ -395,9 +395,9 @@ def compute_plan(cfg, m: int) -> list[RankPlan]:
 
 
 def model_compute(cfg) -> str:
-    """How the mesh lowering's train and prefill steps compute ``cfg`` over
-    a ``model`` axis: ``"megatron"`` for every arch (heads, ``d_ff``,
-    vocabulary, experts, ``d_inner`` and ``lru_width`` split over the
-    ranks, :func:`compute_plan`). Decode stays data-parallel
-    (``tasks.Task.model_compute`` ``"data"``)."""
+    """How the mesh lowering's train, prefill and decode steps compute
+    ``cfg`` over a ``model`` axis: ``"megatron"`` for every arch (heads,
+    ``d_ff``, vocabulary, experts, ``d_inner`` and ``lru_width`` split over
+    the ranks, :func:`compute_plan`; decode attends at a rank's heads over
+    its KV heads' rows of the cache)."""
     return "megatron"

@@ -6,9 +6,10 @@ PyTorch has no GSPMD in one process, so the port lays a tensor out itself:
 a :class:`Sharded` holds one block per mesh entry, on that entry's device,
 as its :class:`~repro_torch.launch.mesh.NamedSharding` says, and the
 lowering (``models/tasks.py``) moves data only through :func:`all_gather`,
-:func:`region_gather`, :func:`reduce_scatter` and :func:`all_reduce` over
-named axes, and, inside a ``model`` group (a data index's entries in rank
-order, :class:`Group`), through the differentiable :func:`group_sum`,
+:func:`region_gather`, its inverse :func:`region_write` (a decode step's
+new cache entries into the blocks that hold them), :func:`reduce_scatter`
+and :func:`all_reduce` over named axes, and, inside a ``model`` group (a
+data index's entries in rank order, :class:`Group`), through the differentiable :func:`group_sum`,
 :func:`group_copy`, :func:`group_psum`, :func:`seq_gather`,
 :func:`seq_scatter` and :func:`all_to_all` (Megatron's g and f, an
 all-reduce whose backward is one too, sequence parallelism's all-gather /
@@ -34,8 +35,8 @@ from repro_torch.precision.policy import _flatten
 
 __all__ = ["Sharded", "shard", "gather", "shard_tree", "gather_tree", "held_bytes", "entries",
            "blocks_of", "block_slices", "all_gather", "reduce_scatter", "all_reduce", "pieces",
-           "region_gather", "Group", "group_sum", "group_copy", "group_psum", "seq_gather",
-           "seq_scatter", "all_to_all"]
+           "region_gather", "region_write", "Group", "group_sum", "group_copy", "group_psum",
+           "seq_gather", "seq_scatter", "all_to_all"]
 
 
 def entries(mesh: DeviceMesh) -> list[tuple]:
@@ -331,6 +332,31 @@ def region_gather(x: Sharded, dst: tuple, region: tuple, held: dict | None = Non
                 moved += piece.numel() * piece.element_size()
     note_collective("all-gather", {dst: moved})
     return out
+
+
+def region_write(x: Sharded, src: tuple, region: tuple, t: torch.Tensor,
+                 held: dict | None = None) -> None:
+    """The inverse of :func:`region_gather`: ``t`` (the values of the slices
+    ``region`` of the whole tensor, on ``src``'s device) written in place
+    into every block of ``x`` that meets the region, each replica of a
+    block too (``held``: :func:`pieces` of ``x``); the region need not align
+    with the blocks. Counts one ``"region-write"`` of the bytes that
+    entries other than ``src`` take in."""
+    held = pieces(x) if held is None else held
+    mesh = x.mesh
+    received: dict[tuple, int] = {}
+    for sl, holders in held.items():
+        block = tuple(slice(a, b) for a, b in sl)
+        meet = _overlap(block, region)
+        if meet is None:
+            continue
+        piece = t[_within(meet, region)]
+        for e in holders:
+            with on_entry(mesh, e):
+                x.blocks[e][_within(meet, block)] = piece.to(mesh.devices[e])
+            if e != src:
+                received[e] = received.get(e, 0) + piece.numel() * piece.element_size()
+    note_collective("region-write", received)
 
 
 class Group(NamedTuple):

@@ -69,7 +69,7 @@ def attend(p, x: torch.Tensor, qpos: torch.Tensor,
     heads they read, and ``n_heads``/``n_kv_heads`` set to those counts.
     Where its query heads do not fall into equal groups of one KV head
     each, ``kv_runs`` (``(q_lo, q_hi, kv)``, local indices) attends run by
-    run, one attention call each."""
+    run, one attention call each, over the sequence or over the cache."""
     b, s, _ = x.shape
     q = dense(x, p.wq, p.bq, act_to).view(b, s, p.n_heads, p.head_dim)
     k = dense(x, p.wk, p.bk, act_to).view(b, s, p.n_kv_heads, p.head_dim)
@@ -82,15 +82,15 @@ def attend(p, x: torch.Tensor, qpos: torch.Tensor,
         slot = pos % cache["k"].shape[1]
         cache["k"][:, slot] = k[:, 0]
         cache["v"][:, slot] = v[:, 0]
-        out = ops.attention(q, cache["k"], cache["v"], qpos, cache["pos"], window=window)
-    elif kv_runs is None:
-        f32 = torch.float32
-        out = ops.attention(q, k.to(f32), v.to(f32), qpos, qpos[0], window=window)
+        keys, values, kpos = cache["k"], cache["v"], cache["pos"]
     else:
-        f32 = torch.float32
+        keys, values, kpos = k.to(torch.float32), v.to(torch.float32), qpos[0]
+    if kv_runs is None:
+        out = ops.attention(q, keys, values, qpos, kpos, window=window)
+    else:
         out = torch.cat([ops.attention(q[:, :, lo:hi].contiguous(),
-                                       k[:, :, j:j + 1].to(f32).contiguous(),
-                                       v[:, :, j:j + 1].to(f32).contiguous(), qpos, qpos[0],
+                                       keys[:, :, j:j + 1].contiguous(),
+                                       values[:, :, j:j + 1].contiguous(), qpos, kpos,
                                        window=window)
                          for lo, hi, j in kv_runs], dim=2)
     proj = dense(out.reshape(b, s, p.n_heads * p.head_dim), p.wo, act_to=act_to)

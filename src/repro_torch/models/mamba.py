@@ -9,7 +9,8 @@ single-step recurrence, carrying the last K-1 raw conv inputs and the
 ``[B, Di, N]`` state in the cache's dtype. The reference's own lever
 ``SSM_CHUNK`` (:func:`set_ssm_chunk`) scans chunks of that many steps
 one after another instead, the state carried between them. Over a model
-group (:func:`mamba_group`) each rank runs a channel range of ``d_inner``.
+group (:func:`mamba_group`, :func:`mamba_decode_group`) each rank runs a
+channel range of ``d_inner``.
 """
 from __future__ import annotations
 
@@ -23,8 +24,8 @@ from repro_torch.launch import sharded as sh
 from repro_torch.models.layers import act, dense, init_zeros, silu, softplus
 from repro_torch.models.scan import associative_scan, causal_conv, chunked_scan, fma
 
-__all__ = ["Mamba", "mamba_apply", "mamba_group", "init_mamba_cache", "mamba_decode_step", "set_ssm_chunk",
-           "SSM_CHUNK"]
+__all__ = ["Mamba", "mamba_apply", "mamba_group", "init_mamba_cache", "mamba_decode_step",
+           "mamba_decode_group", "set_ssm_chunk", "SSM_CHUNK"]
 
 f32 = torch.float32
 
@@ -89,11 +90,6 @@ def _ssm_scan(delta_a: torch.Tensor, delta_bu: torch.Tensor) -> torch.Tensor:
     if chunk <= 0 or s <= chunk or s % chunk:
         return associative_scan(delta_a, delta_bu)[1]
     return chunked_scan(delta_a, delta_bu, chunk)
-
-
-def _project(p, xin, cfg, act_to):
-    """``(delta, B, C)`` of the conv's output ``xin``."""
-    return _discretise(p, dense(xin, p.x_proj, act_to=act_to), cfg, act_to)
 
 
 def _discretise(p, proj, cfg, act_to):
@@ -182,16 +178,19 @@ def init_mamba_cache(cfg: ArchConfig, batch: int, dtype: torch.dtype, device) ->
             "ssm": torch.zeros((batch, d_in, n), dtype=dtype, device=device)}
 
 
-def mamba_decode_step(p, x: torch.Tensor, cache: dict, cfg: ArchConfig,
-                      act_to: torch.dtype | None = None) -> torch.Tensor:
-    """One-token recurrence: x ``[B, 1, D]`` -> ``[B, 1, D]``; ``cache``
-    (``conv`` ``[B, K-1, Di]``, the last K-1 raw conv inputs, and ``ssm``
-    ``[B, Di, N]``) is updated in place, cast to its dtype."""
+def _decode_in(p, x, cache, act_to):
+    """``(z, conv_in, xin)`` of one token: ``in_proj``'s gate half, the conv
+    window (the cached K-1 raw inputs and this one) and the conv's output."""
     raw, z = torch.chunk(dense(x, p.in_proj, act_to=act_to), 2, dim=-1)  # [B, 1, Di]
     conv_in = torch.cat([cache["conv"].to(raw.dtype), raw], dim=1)  # [B, K, Di]
     conv_out = torch.einsum("bkd,kd->bd", conv_in, p.conv_w.to(raw.dtype))
-    xin = silu(conv_out + p.conv_b.to(raw.dtype))[:, None]
-    delta, b_mat, c_mat = _project(p, xin, cfg, act_to)
+    return z, conv_in, silu(conv_out + p.conv_b.to(raw.dtype))[:, None]
+
+
+def _decode_out(p, z, conv_in, xin, proj, cache, cfg, act_to):
+    """One step of the recurrence from ``x_proj``'s output ``proj``, the
+    gate and ``out_proj``; the cache updated in place."""
+    delta, b_mat, c_mat = _discretise(p, proj, cfg, act_to)
     a = -torch.exp(p.A_log)
     delta_a = torch.exp(delta[..., None] * a)[:, 0]  # [B, Di, N]
     delta_bu = ((delta * xin)[..., None] * b_mat[..., None, :])[:, 0]
@@ -202,3 +201,37 @@ def mamba_decode_step(p, x: torch.Tensor, cache: dict, cfg: ArchConfig,
     cache["conv"].copy_(conv_in[:, 1:])
     cache["ssm"].copy_(h)
     return out
+
+
+def mamba_decode_step(p, x: torch.Tensor, cache: dict, cfg: ArchConfig,
+                      act_to: torch.dtype | None = None) -> torch.Tensor:
+    """One-token recurrence: x ``[B, 1, D]`` -> ``[B, 1, D]``; ``cache``
+    (``conv`` ``[B, K-1, Di]``, the last K-1 raw conv inputs, and ``ssm``
+    ``[B, Di, N]``) is updated in place, cast to its dtype."""
+    z, conv_in, xin = _decode_in(p, x, cache, act_to)
+    return _decode_out(p, z, conv_in, xin, dense(xin, p.x_proj, act_to=act_to), cache, cfg,
+                       act_to)
+
+
+def mamba_decode_group(ps: list, xs: list, caches: list, cfg: ArchConfig, run) -> list:
+    """:func:`mamba_decode_step` over a model group (``run``: the group's
+    ``transformer.GroupRun``), each rank on its channel range of ``d_inner``
+    (``ps`` each rank's view of its ranges, as :func:`mamba_group`'s; ``xs``
+    each rank's copy of the normed token; ``caches`` each rank's channels
+    of the layer's ``conv`` and ``ssm``, updated in place). ``x_proj``'s
+    partial products are summed over the group in rank order before the
+    split into dt, B and C. Returns each rank's partial ``out_proj`` output
+    (to be summed over the group)."""
+    grp = run.grp
+    mids, parts = [], []
+    for r, (p, x, c) in enumerate(zip(ps, xs, caches)):
+        with grp.on(r):
+            mids.append(_decode_in(p, x, c, run.act_to))
+            parts.append(dense(mids[-1][2], p.x_proj))
+    projs = sh.group_sum(grp, parts)
+    outs = []
+    for r, (p, (z, conv_in, xin), proj, c) in enumerate(zip(ps, mids, projs, caches)):
+        with grp.on(r):
+            outs.append(_decode_out(p, z, conv_in, xin, act(proj, run.act_to), c, cfg,
+                                    run.act_to))
+    return outs

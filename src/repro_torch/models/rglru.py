@@ -13,7 +13,8 @@ prefill run the recurrence with
 :func:`repro_torch.models.scan.associative_scan` over ``[B, S, W]``;
 decode is the single-step update carrying ``h`` ``[B, W]`` and the last
 three raw conv inputs in the cache's dtype. Over a model group
-(:func:`rglru_group`) each rank runs a channel range of the width.
+(:func:`rglru_group`, :func:`rglru_decode_group`) each rank runs a
+channel range of the width.
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ from repro_torch.launch import sharded as sh
 from repro_torch.models.layers import dense, gelu_tanh, init_zeros, sigmoid, softplus
 from repro_torch.models.scan import associative_scan, causal_conv, fma
 
-__all__ = ["RGLRU", "rglru_apply", "rglru_group", "init_rglru_cache", "rglru_decode_step"]
+__all__ = ["RGLRU", "rglru_apply", "rglru_group", "init_rglru_cache", "rglru_decode_step",
+           "rglru_decode_group"]
 
 f32 = torch.float32
 _C = 8.0
@@ -150,20 +152,56 @@ def init_rglru_cache(cfg: ArchConfig, batch: int, dtype: torch.dtype, device) ->
             "conv": torch.zeros((batch, 3, w), dtype=dtype, device=device)}
 
 
-def rglru_decode_step(p, x: torch.Tensor, cache: dict, cfg: ArchConfig,
-                      act_to: torch.dtype | None = None) -> torch.Tensor:
-    """One-token recurrence: x ``[B, 1, D]`` -> ``[B, 1, D]``; ``cache``
-    (``h`` ``[B, W]``, ``conv`` ``[B, 3, W]``) is updated in place, cast to
-    its dtype."""
+def _decode_in(p, x, cache, act_to):
+    """``(gate, conv_in, xcc)`` of one token: the gate's projection, the conv
+    window (the cached three raw inputs and this one) and the conv's
+    output."""
     xc = dense(x, p.in_proj, act_to=act_to)  # [B, 1, W]
     gate = dense(x, p.gate_proj, act_to=act_to)
     conv_in = torch.cat([cache["conv"].to(xc.dtype), xc], dim=1)
     co = torch.einsum("bkw,kw->bw", conv_in, p.conv_w.to(xc.dtype))
-    xcc = (co + p.conv_b.to(xc.dtype))[:, None]
-    a, gated_in = _gates(p, xcc, act_to)  # [B, 1, W]
+    return gate, conv_in, (co + p.conv_b.to(xc.dtype))[:, None]
+
+
+def _decode_out(p, gate, conv_in, a, gated_in, cache, act_to):
+    """One step of the recurrence, the output gate and ``out_proj``; the
+    cache updated in place."""
     h = fma(a[:, 0], cache["h"].to(f32), gated_in[:, 0])
     y = h[:, None] * gelu_tanh(gate)
     out = dense(y, p.out_proj, act_to=act_to)
     cache["h"].copy_(h)
     cache["conv"].copy_(conv_in[:, 1:])
     return out
+
+
+def rglru_decode_step(p, x: torch.Tensor, cache: dict, cfg: ArchConfig,
+                      act_to: torch.dtype | None = None) -> torch.Tensor:
+    """One-token recurrence: x ``[B, 1, D]`` -> ``[B, 1, D]``; ``cache``
+    (``h`` ``[B, W]``, ``conv`` ``[B, 3, W]``) is updated in place, cast to
+    its dtype."""
+    gate, conv_in, xcc = _decode_in(p, x, cache, act_to)
+    a, gated_in = _gates(p, xcc, act_to)  # [B, 1, W]
+    return _decode_out(p, gate, conv_in, a, gated_in, cache, act_to)
+
+
+def rglru_decode_group(ps: list, xs: list, caches: list, cfg: ArchConfig, run) -> list:
+    """:func:`rglru_decode_step` over a model group (``run``: the group's
+    ``transformer.GroupRun``), each rank on its channel range of the width
+    (``ps`` each rank's view of its ranges, as :func:`rglru_group`'s; ``xs``
+    each rank's copy of the normed token; ``caches`` each rank's channels
+    of the layer's ``h`` and ``conv``, updated in place). ``w_a`` and
+    ``w_x`` read the whole conv output: the group all-gathers it along the
+    width first. Returns each rank's partial ``out_proj`` output (to be
+    summed over the group)."""
+    grp = run.grp
+    mids = []
+    for r, (p, x, c) in enumerate(zip(ps, xs, caches)):
+        with grp.on(r):
+            mids.append(_decode_in(p, x, c, run.act_to))
+    whole = sh.seq_gather(grp, [xcc for _, _, xcc in mids], [pl.lru for pl in run.plan], dim=-1)
+    outs = []
+    for r, (p, (gate, conv_in, xcc), xw, c) in enumerate(zip(ps, mids, whole, caches)):
+        with grp.on(r):
+            a, gated_in = _gates(p, xw, run.act_to, own=xcc)
+            outs.append(_decode_out(p, gate, conv_in, a, gated_in, c, run.act_to))
+    return outs

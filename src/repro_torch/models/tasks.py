@@ -26,7 +26,7 @@ the step itself over :mod:`repro_torch.launch.mesh`'s sharded tensors:
   is held as blocks per :func:`_state_pspecs` (the parameter rules,
   fitted); scalars are replicated, a copy per entry.
 - *Compute* runs over the data axes and ``model`` (``launch/mesh.model_compute``:
-  ``"megatron"`` for every arch). Each data index takes its rows of the
+  ``"megatron"`` for every arch and step). Each data index takes its rows of the
   batch (``batch_pspecs``; a batch the data axes do not divide is one data
   index's). The masters are cast to the storage dtype on their owners (the
   reference's pinned cast), so every gather moves storage bytes. Each of
@@ -64,12 +64,20 @@ the step itself over :mod:`repro_torch.launch.mesh`'s sharded tensors:
   index all-gathers the batch and takes its rows of each slice).
 - *Serving* (``make_prefill_step(mesh=)``, the decode task): params held
   per ``param_pspec``, the KV/SSM cache per ``cache_pspec``; each data
-  index gathers the params and its rows of the cache and inputs, steps,
-  and scatters its rows of the logits and the cache back to its group.
+  index's model ranks gather their ranges and its rows of the inputs.
   Prefill runs the split forward (the ranks' logits gathered along the
-  vocab, their KV heads and recurrent states' channels into the cache);
-  decode stays data-parallel (the reference's cache shards the head dim,
-  which a split by heads does not match).
+  vocab, their KV heads and recurrent states' channels into the cache,
+  which goes back to its group). Decode runs the one-token forms of the
+  split layers (``transformer.decode_group``): per attention layer each
+  rank with heads assembles its KV heads' rows of the cache from the
+  blocks (along ``Dh`` under the ``"headdim"`` layout, along the slots
+  under ``"seq"``), writes the new token into slot ``pos mod C`` and
+  attends at its query heads (B7's decode path), and the new slot goes
+  back into every block that holds part of it; a recurrent layer's state
+  is gathered and written back on the rank's channels. The cache is
+  updated in place (the reference donates it) and no step holds a data
+  index's whole cache; each rank's vocab range of the logits goes to its
+  blocks.
 - ``seq_shard`` (the reference's default) shards the residual stream's
   sequence over ``model`` between blocks under model-axis compute
   (Megatron's sequence parallelism: norms on a rank's range, an all-gather
@@ -514,12 +522,16 @@ def _pieces(regions: list, t: torch.Tensor):
             yield reg, piece
 
 
-def _group_run(cfg, mesh, e0: tuple, plan: list, rows: dict, seq_shard: bool, act_to
+def _seq_len(cfg, rows: dict) -> int:
+    """The whole sequence of a batch like ``rows``, prefix included."""
+    return rows["tokens"].shape[1] + (cfg.n_patches if cfg.frontend == "vision" else 0)
+
+
+def _group_run(cfg, mesh, e0: tuple, plan: list, s: int, seq_shard: bool, act_to
                ) -> tf.GroupRun:
     """The :class:`~repro_torch.models.transformer.GroupRun` of ``e0``'s
-    model group over a batch like ``rows``: each rank's sequence range
-    (prefix included) and its attention runs."""
-    s = rows["tokens"].shape[1] + (cfg.n_patches if cfg.frontend == "vision" else 0)
+    model group over a sequence of ``s`` positions: each rank's sequence
+    range and its attention runs."""
     g = cfg.n_heads // cfg.n_kv_heads
     runs = []
     for pl in plan:
@@ -721,7 +733,7 @@ def _sharded_train_step(cfg, policy, mesh, *, seq_shard, remat, microbatch, opt_
     def megatron_loss(e, leaves, rebuild, rows):
         """A data index's (nll, count, MoE routing statistics) over its model
         group."""
-        run = _group_run(cfg, mesh, e, plan, rows[0], seq_shard, act_to)
+        run = _group_run(cfg, mesh, e, plan, _seq_len(cfg, rows[0]), seq_shard, act_to)
         views = [tf.params_view(cfg, rebuild(lv), heads=(pl.n_heads, pl.n_kv))
                  for lv, pl in zip(leaves, plan)]
         full = [_fill_positions(cfg, r) for r in rows]
@@ -838,18 +850,6 @@ def _nbytes(ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def _gather_params(params, mesh, src, run):
-    """Each computing data index's whole parameter tree (storage dtype)."""
-    leaves, rebuild = _flatten(params)
-    out = {}
-    for e in src:
-        got = [sh.all_gather(x, e, tuple(mesh.axis_names))[0] for x in leaves]
-        note_gathered(e, _nbytes(got))
-        if e in run:
-            out[e] = rebuild(got)
-    return out
-
-
 def _gather_ranges(tree, mesh, src, run, cfg, plan):
     """Every data index's model ranks gather their ranges of ``tree``'s
     Sharded leaves (:func:`_rank_regions`, regions of each leaf's blocks,
@@ -884,40 +884,27 @@ def _logits_spec(mesh, b: int, v: int) -> P:
     return meshlib.fit_spec(P(meshlib.data_axes(mesh), "model"), (b, v), mesh)
 
 
-def _serve_step(cfg, mesh, params, inputs: list, step=None, split=None):
-    """A serving step over the mesh's lowering: ``params`` (laid out per
-    ``param_pspec``) gathered onto each computing data index's entry with
-    its rows of ``inputs`` (Sharded over the batch, or whole), where
-    ``step(model, rows)`` runs (decode); returns ``(logits, cache)`` (cache
-    None if ``step`` gives none), each data index's rows sent back to its
-    group: the logits per ``P(data, "model")`` and the cache per
-    ``cache_pspec``, fitted. With ``split`` (model-axis compute, prefill:
-    ``(plan, run_group)``) each model rank gathers its ranges and its copy
-    of the rows instead, and ``run_group(e, trees, rows)`` computes the
-    data index's logits and cache on its first entry."""
+def _serve_step(cfg, mesh, params, inputs: list, plan: list, run_group):
+    """The split prefill over the mesh's lowering: ``params`` (laid out per
+    ``param_pspec``) and ``inputs`` (Sharded over the batch, or whole); each
+    computing data index's model ranks gather their ranges (``plan``) and
+    their copy of its rows, and ``run_group(e, trees, rows)`` computes the
+    data index's logits (and cache) on its first entry; returns ``(logits,
+    cache)`` (cache None if ``run_group`` gives none), each data index's
+    rows sent back to its group: the logits per ``P(data, "model")`` and the
+    cache per ``cache_pspec``, fitted."""
     b = inputs[0].shape[0]
     n_src, src, run = _serve_groups(mesh, b)
-    if split is None:
-        full = _gather_params(params, mesh, src, run)
-    else:
-        ranges = _gather_ranges(params, mesh, src, run, cfg, split[0])[1]
+    ranges = _gather_ranges(params, mesh, src, run, cfg, plan)[1]
     axes = meshlib.model_axes(mesh)  # a cache's features lie over `model`
     results, group_log = {}, []
     for e in src:
-        ents = (e,) if split is None else _rank_ents(mesh, e)
-        rows = []
-        for er in ents:
-            rows.append([sh.all_gather(x, er, axes)[0] for x in inputs])
-            note_gathered(er, _nbytes(rows[-1]))
+        rows = _rank_rows(mesh, e, inputs, axes)
         if e in run:
-            if split is None:
-                with on_entry(mesh, e):
-                    out = step(tf.params_view(cfg, full[e]), rows[0])
-            else:
-                with recording_collectives(group_log):
-                    out = split[1](e, ranges[e], rows)
+            with recording_collectives(group_log):
+                out = run_group(e, ranges[e], rows)
             results[e] = out if isinstance(out, tuple) else (out, None)
-        elif split is not None:
+        else:
             replay_collectives(group_log, _moved_to(mesh, e))
     results = {e: results.get(e, results[run[0]]) for e in src}
     shape = (b, results[src[0]][0].shape[-1])
@@ -927,6 +914,16 @@ def _serve_step(cfg, mesh, params, inputs: list, step=None, split=None):
     if results[src[0]][1] is None:
         return logits, None
     return logits, _cache_back(mesh, {e: results[e][1] for e in src}, src, n_src)
+
+
+def _rank_rows(mesh, e, inputs: list, axes) -> list:
+    """Each of ``e``'s model ranks' copy of its data index's rows of
+    ``inputs``."""
+    rows = []
+    for er in _rank_ents(mesh, e):
+        rows.append([sh.all_gather(x, er, axes)[0] for x in inputs])
+        note_gathered(er, _nbytes(rows[-1]))
+    return rows
 
 
 def _megatron_prefill(cfg, policy, mesh, seq_shard: bool, collect_cache: bool,
@@ -941,7 +938,7 @@ def _megatron_prefill(cfg, policy, mesh, seq_shard: bool, collect_cache: bool,
 
     def run_group(e, ranks, rows):
         batches = [_fill_positions(cfg, rebuild_batch(r)) for r in rows]
-        run = _group_run(cfg, mesh, e, plan, batches[0], seq_shard, act_to)
+        run = _group_run(cfg, mesh, e, plan, _seq_len(cfg, batches[0]), seq_shard, act_to)
         views = [tf.params_view(cfg, rebuild_params(leaves), heads=(pl.n_heads, pl.n_kv))
                  for leaves, pl in zip(ranks, plan)]
         out = tf.forward_group(views, batches, run, collect=collect_cache)
@@ -957,6 +954,19 @@ def _megatron_prefill(cfg, policy, mesh, seq_shard: bool, collect_cache: bool,
                                        policy.state_storage)
 
     return plan, run_group
+
+
+def _first_kv_heads(plan: list) -> list:
+    """Per rank the KV heads ``(lo, hi)`` that it is the first to compute
+    (None where it computes no new one, or has no head): the cache takes
+    each KV head from the first rank that computed it."""
+    out, done = [], 0
+    for pl in plan:
+        lo, hi = max(pl.kv_heads[0], done), pl.kv_heads[1]
+        out.append((lo, hi) if pl.n_heads and hi > lo else None)
+        if pl.n_heads:
+            done = max(done, hi)
+    return out
 
 
 def _assemble_cache(cfg, run, states: list, batch: dict, cache_len: int, dtype):
@@ -987,17 +997,16 @@ def _assemble_cache(cfg, run, states: list, batch: dict, cache_len: int, dtype):
             first = next(kv for kv in per_rank if kv is not None)
             k = torch.empty((b, s, cfg.n_kv_heads, hd), dtype=first[0].dtype, device=dev)
             v = torch.empty((b, s, cfg.n_kv_heads, hd), dtype=first[1].dtype, device=dev)
-            moved, done = 0, 0
-            for pl, kv in zip(run.plan, per_rank):
-                lo, hi = max(pl.kv_heads[0], done), pl.kv_heads[1]
-                if kv is None or hi <= lo:
+            moved = 0
+            for pl, kv, heads in zip(run.plan, per_rank, _first_kv_heads(run.plan)):
+                if heads is None:
                     continue
+                lo, hi = heads
                 sl = slice(lo - pl.kv_heads[0], hi - pl.kv_heads[0])
                 k[:, :, lo:hi] = kv[0][:, :, sl].to(dev)
                 v[:, :, lo:hi] = kv[1][:, :, sl].to(dev)
                 if pl.rank:
                     moved += _nbytes([kv[0][:, :, sl], kv[1][:, :, sl]])
-                done = hi
             note_collective("all-gather", {run.grp.ents[0]: moved})
             tf._pack_kv((k, v), qpos, tf._window(cfg), lc["kv"])
     return cache
@@ -1009,9 +1018,9 @@ def _sharded_prefill_step(cfg, policy, mesh, seq_shard: bool, collect_cache: boo
         params = _place(params, meshlib.tree_pspecs(params, mesh), mesh)
         batch = _place(batch, meshlib.batch_pspecs(batch, mesh), mesh)
         leaves, rebuild = _flatten(batch)
-        split = _megatron_prefill(cfg, policy, mesh, seq_shard, collect_cache, cache_len,
-                                  _flatten(params)[1], rebuild)
-        logits, cache = _serve_step(cfg, mesh, params, leaves, split=split)
+        plan, run_group = _megatron_prefill(cfg, policy, mesh, seq_shard, collect_cache,
+                                            cache_len, _flatten(params)[1], rebuild)
+        logits, cache = _serve_step(cfg, mesh, params, leaves, plan, run_group)
         return (logits, cache) if collect_cache else logits
 
     return prefill_step
@@ -1040,20 +1049,147 @@ def _global_shape(local: tuple, spec: P, mesh, n_src: int) -> tuple:
     return tuple(n * n_src if meshlib.part_axes(p) == d else n for n, p in zip(local, parts))
 
 
+class _CacheShares:
+    """A data index's rows of the decode cache (Sharded per ``cache_pspec``,
+    updated in place) as its model ranks compute with them: the ``cache``
+    of :func:`repro_torch.models.transformer.decode_group`.
+    ``share(i, r)`` assembles on rank ``r``'s entry its region of layer
+    ``i`` from the blocks that hold it (``sharded.region_gather``): an
+    attention layer's ``k`` and ``v`` of the rank's KV heads over every slot
+    (along ``Dh`` under the ``"headdim"`` layout, along the slots under
+    ``"seq"``) with the entry's own replica of the slots' ``pos``, or the
+    rank's channels of a recurrent state; it is dropped after the layer.
+    ``commit(i, r, share)`` writes what the rank changed into every block
+    that holds part of it (``sharded.region_write``): the new token's slot
+    of the KV heads the rank is the first to compute
+    (:func:`_first_kv_heads`), or its channels of the new state."""
+
+    def __init__(self, cfg, cache, ents: tuple, plan: list, rows: slice, pos: int):
+        self.cfg, self.cache, self.ents, self.plan, self.rows, self.pos = (
+            cfg, cache, ents, plan, rows, pos)
+        self.held: dict = {}
+        self.gathered = [0] * len(ents)  # bytes each rank assembled
+        self.first = _first_kv_heads(plan)
+
+    def _layer(self, i: int):
+        """Layer ``i``'s kind of entry, its leaves, and the leading slice of
+        a stacked cache."""
+        if self.cfg.homogeneous:
+            (part, leaves), = self.cache.items()
+            return part, leaves, (slice(i, i + 1),)
+        (part, leaves), = self.cache[i].items()
+        return part, leaves, ()
+
+    def _region(self, part: str, name: str, x: Sharded, pl, lead: tuple) -> tuple:
+        rest = [slice(0, n) for n in x.shape[len(lead):]]
+        rest[0] = self.rows
+        if part == "kv":  # [B, C, Hkv, Dh]: its KV heads
+            rest[2] = slice(*pl.kv_heads)
+        else:  # Mamba's conv [B, K-1, Di] and ssm [B, Di, N]; the RG-LRU's h and conv
+            rest[1 if name == "ssm" else -1] = slice(*(pl.inner if part == "ssm" else pl.lru))
+        return lead + tuple(rest)
+
+    def _pieces(self, x: Sharded) -> dict:
+        if id(x) not in self.held:
+            self.held[id(x)] = sh.pieces(x)
+        return self.held[id(x)]
+
+    def share(self, i: int, r: int) -> dict:
+        part, leaves, lead = self._layer(i)
+        er = self.ents[r]
+        out = {}
+        for name, x in leaves.items():
+            if name == "pos":  # replicated: the entry's own copy, the new slot set
+                out[name] = x.blocks[er][i] if lead else x.blocks[er]
+                continue
+            t = sh.region_gather(x, er, self._region(part, name, x, self.plan[r], lead),
+                                 self._pieces(x))
+            note_gathered(er, t.numel() * t.element_size())
+            self.gathered[r] += t.numel() * t.element_size()
+            out[name] = t[0] if lead else t
+        return out
+
+    def commit(self, i: int, r: int, share: dict) -> None:
+        part, leaves, lead = self._layer(i)
+        pl, er = self.plan[r], self.ents[r]
+        if part == "kv" and self.first[r] is None:
+            return
+        for name, x in leaves.items():
+            if name == "pos":
+                continue
+            region = list(self._region(part, name, x, pl, lead))
+            t = share[name]
+            if part == "kv":  # the new slot of the heads it is the first to compute
+                lo, hi = self.first[r]
+                slot = self.pos % t.shape[1]
+                t = t[:, slot:slot + 1, lo - pl.kv_heads[0]:hi - pl.kv_heads[0]]
+                region[len(lead) + 1] = slice(slot, slot + 1)
+                region[len(lead) + 2] = slice(lo, hi)
+            sh.region_write(x, er, tuple(region), t[None] if lead else t, self._pieces(x))
+
+
+def _set_pos(cfg, cache, pos: int) -> None:
+    """``pos`` into slot ``pos mod C`` of every attention layer's ``pos`` on
+    every entry (a replicated leaf, each entry's own copy: no collective)."""
+    if cfg.homogeneous:
+        xs = [cache["kv"]["pos"]] if "kv" in cache else []
+    else:
+        xs = [entry["kv"]["pos"] for entry in cache if "kv" in entry]
+    for x in xs:  # [L, C] stacked (every layer at once), or one layer's [C]
+        for e in sh.entries(x.mesh):
+            with on_entry(x.mesh, e):
+                blk = x.blocks[e]
+                blk[..., pos % blk.shape[-1]] = pos
+
+
 def _sharded_decode_step(cfg, policy, mesh):
     """``decode(params, cache, token, pos)`` -> ``(logits, cache)`` over the
-    mesh's lowering: params per ``param_pspec``, the cache per
-    ``cache_pspec``; each data index gathers the params and its rows of the
-    cache and tokens, steps, and its rows go back to its group."""
-    single = make_decode_step(cfg, policy)
+    mesh's lowering, split over ``model``: params per ``param_pspec``, the
+    cache per ``cache_pspec`` and updated in place (the reference donates
+    it). Each computing data index's model ranks gather their ranges
+    (:func:`_gather_ranges`, prefill's plan) and their copy of its token
+    rows, and run :func:`repro_torch.models.transformer.decode_group`, each
+    layer's cache assembled per rank and written back
+    (:class:`_CacheShares`); each rank's vocab range of the logits goes to
+    the blocks of ``P(data, "model")``, fitted."""
+    act_to = act_dtype(policy.compute)
+    plan = meshlib.compute_plan(cfg, meshlib.model_size(mesh))
 
     def decode(params, cache, token, pos):
         params = _place(params, meshlib.tree_pspecs(params, mesh), mesh)
         cache = _place(cache, meshlib.tree_pspecs(cache, mesh, rule=meshlib.cache_pspec), mesh)
         token = _place(token, meshlib.batch_pspecs(token, mesh), mesh)
-        leaves, rebuild = _flatten(cache)
-        return _serve_step(cfg, mesh, params, [token, *leaves], lambda model, rows: single(
-            model, rebuild(rows[1:]), rows[0], int(pos)))
+        pos = int(pos)
+        _set_pos(cfg, cache, pos)
+        b, v = token.shape[0], cfg.vocab_size
+        n_src, src, run = _serve_groups(mesh, b)
+        rebuild = _flatten(params)[1]
+        ranges = _gather_ranges(params, mesh, src, run, cfg, plan)[1]
+        axes = meshlib.model_axes(mesh)
+        results, group_log, shares = {}, [], None
+        for gi, e in enumerate(src):
+            tokens = [rows[0] for rows in _rank_rows(mesh, e, [token], axes)]
+            if e not in run:  # a dry-run's data index: what the computing one did
+                replay_collectives(group_log, _moved_to(mesh, e))
+                for er, n in zip(_rank_ents(mesh, e), shares.gathered):
+                    note_gathered(er, n)
+                continue
+            bd = b // n_src
+            shares = _CacheShares(cfg, cache, _rank_ents(mesh, e), plan,
+                                  slice(gi * bd, (gi + 1) * bd), pos)
+            views = [tf.params_view(cfg, rebuild(lv), heads=(pl.n_heads, pl.n_kv))
+                     for lv, pl in zip(ranges[e], plan)]
+            with recording_collectives(group_log):
+                results[e] = tf.decode_group(views, tokens, pos,
+                                             _group_run(cfg, mesh, e, plan, 1, False, act_to),
+                                             shares)
+        spec = _logits_spec(mesh, b, v)
+        parts = []
+        for e in src:
+            rows = _region(spec, (b, v), mesh, e, n_src)[0]
+            for er, pl, lg in zip(_rank_ents(mesh, e), plan, results.get(e, results[run[0]])):
+                parts.append((er, (rows, slice(*pl.vocab)), lg))
+        return _write_back(mesh, parts, spec, (b, v), n_src), cache
 
     return decode
 
@@ -1076,7 +1212,7 @@ class Task:
     out_shardings: Any
     donate_argnums: tuple = ()
     seq_shard: bool = True
-    model_compute: str = "data"  # "megatron": split over `model` (launch/mesh.model_compute)
+    model_compute: str = "megatron"  # split over `model` (launch/mesh.model_compute)
 
     def sharded(self) -> Callable:
         """The step over the mesh's lowering, the counterpart of the
@@ -1103,7 +1239,7 @@ def build_task(cfg: ArchConfig, shape: ShapeConfig, mesh, policy: PrecisionPolic
     param_shard = meshlib.named(meshlib.tree_pspecs(param_specs, mesh), mesh)
     name = f"{cfg.name}:{shape.name}"
     b = shape.global_batch
-    split = meshlib.model_compute(cfg)  # decode stays data-parallel
+    split = meshlib.model_compute(cfg)
 
     if shape.kind == "train":
         step = make_train_step(cfg, policy, mesh=mesh, seq_shard=seq_shard,
@@ -1130,4 +1266,4 @@ def build_task(cfg: ArchConfig, shape: ShapeConfig, mesh, policy: PrecisionPolic
     return Task(name, "decode", step,
                 (param_specs, cache_specs, batch_specs["token"], batch_specs["pos"]),
                 (param_shard, cache_shard, token_shard, NamedSharding(mesh, P())),
-                (logits_shard, cache_shard), (1,), seq_shard, "data")
+                (logits_shard, cache_shard), (1,), seq_shard, split)

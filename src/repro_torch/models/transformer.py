@@ -38,15 +38,18 @@ outputs are summed over the group in rank order
 (``launch/sharded.group_sum``, Megatron's g), the MoE over its experts
 (:func:`repro_torch.models.moe.moe_group`), Mamba and the RG-LRU over
 their channels (``mamba_group``, ``rglru_group``), and the vocab-parallel
-logits (:func:`lm_logits_group`). With ``seq_shard`` the residual stream
-between blocks is each rank's contiguous sequence range (Megatron's
-sequence parallelism): the norms run on that range, an all-gather along
-the sequence precedes the column-parallel projections and a
-reduce-scatter follows the row-parallel ones (``seq_gather`` /
-``seq_scatter``), and remat saves only the range. Without it every rank
-holds the whole stream and runs the norms range by range too (its own
-range alone takes the norm scales' gradient), then Megatron's f: every
-sum runs in the same rank order either way, so the two give the same bits.
+logits (:func:`lm_logits_group`); :func:`decode_group` is its one-token
+step (the ranks' shares of each layer's cache handed in and back, Mamba's
+and the RG-LRU's ``mamba_decode_group``, ``rglru_decode_group``). With
+``seq_shard`` the residual stream between blocks is each rank's
+contiguous sequence range (Megatron's sequence parallelism): the norms run
+on that range, an all-gather along the sequence precedes the
+column-parallel projections and a reduce-scatter follows the row-parallel
+ones (``seq_gather`` / ``seq_scatter``), and remat saves only the range.
+Without it every rank holds the whole stream and runs the norms range by
+range too (its own range alone takes the norm scales' gradient), then
+Megatron's f: every sum runs in the same rank order either way, so the two
+give the same bits.
 """
 from __future__ import annotations
 
@@ -65,17 +68,17 @@ from repro_torch.models.layers import (
     MLP, Norm, act, apply_norm, dense, mlp_apply, mrope_table, rope_table,
 )
 from repro_torch.models.mamba import (
-    Mamba, init_mamba_cache, mamba_apply, mamba_decode_step, mamba_group,
+    Mamba, init_mamba_cache, mamba_apply, mamba_decode_group, mamba_decode_step, mamba_group,
 )
 from repro_torch.models.moe import MoE, moe_apply, moe_group
 from repro_torch.models.rglru import (
-    RGLRU, init_rglru_cache, rglru_apply, rglru_decode_step, rglru_group,
+    RGLRU, init_rglru_cache, rglru_apply, rglru_decode_group, rglru_decode_step, rglru_group,
 )
 from repro_torch.precision import PrecisionPolicy
 
 __all__ = ["Block", "Transformer", "init_params", "forward", "aux_loss", "lm_logits", "init_cache",
            "decode_step", "params_tree", "params_view", "GroupRun", "forward_group",
-           "lm_logits_group"]
+           "lm_logits_group", "decode_group"]
 
 f32 = torch.float32
 
@@ -520,20 +523,24 @@ class GroupRun(SimpleNamespace):
         return sh.group_sum(self.grp, parts)
 
 
-def _embed_part(view, batch: dict, vocab: tuple[int, int], act_to, first: bool):
-    """Rank's share of the embedded inputs: its vocab range's rows, zero for
-    tokens outside it (the whole lookup when the range is the vocab), and
-    the patch prefix on the first rank (zeros on the others)."""
-    cfg = view.cfg
-    t = batch["tokens"]
+def _vocab_lookup(view, t: torch.Tensor, vocab: tuple[int, int]) -> torch.Tensor:
+    """The rows of ``t``'s tokens in a rank's vocab range of the embedding,
+    zero for tokens outside it (the whole lookup when the range is the
+    vocab), in the storage dtype."""
     lo, hi = vocab
-    if (lo, hi) == (0, cfg.vocab_size):
-        e = F.embedding(t, view.embed)
-    else:
-        inside = (t >= lo) & (t < hi)
-        e = F.embedding(torch.where(inside, t - lo, 0), view.embed)
-        e = torch.where(inside[..., None], e, torch.zeros((), dtype=e.dtype, device=e.device))
-    h = act(e.to(f32), act_to)
+    if (lo, hi) == (0, view.cfg.vocab_size):
+        return F.embedding(t, view.embed)
+    inside = (t >= lo) & (t < hi)
+    e = F.embedding(torch.where(inside, t - lo, 0), view.embed)
+    return torch.where(inside[..., None], e, torch.zeros((), dtype=e.dtype, device=e.device))
+
+
+def _embed_part(view, batch: dict, vocab: tuple[int, int], act_to, first: bool):
+    """Rank's share of the embedded inputs: its vocab range's rows
+    (:func:`_vocab_lookup`), and the patch prefix on the first rank (zeros
+    on the others)."""
+    cfg = view.cfg
+    h = act(_vocab_lookup(view, batch["tokens"], vocab).to(f32), act_to)
     if cfg.frontend == "vision":
         patches = batch["patch_embeds"].to(f32)
         h = torch.cat([patches if first else torch.zeros_like(patches), h], dim=1)
@@ -712,3 +719,93 @@ def lm_logits_group(views: list, hs: list, run: GroupRun) -> list:
             w = v.embed.T if v.cfg.tie_embeddings else v.lm_head
             out.append(dense(h, w, act_to=run.act_to))
     return out
+
+
+# -- decode over a model group -------------------------------------------------------------
+
+
+def _rank_norms(norms: list, hs: list, run: GroupRun) -> list:
+    """Each rank's norm of its copy of the whole residual stream (decode:
+    one token, every rank the same bits as one device)."""
+    out = []
+    for r, (p, h) in enumerate(zip(norms, hs)):
+        with run.grp.on(r):
+            out.append(_norm(p, h, run.act_to))
+    return out
+
+
+def _block_decode_group(layers: list, hs: list, cfg: ArchConfig, kind: str, ctxs: list,
+                        run: GroupRun, cache, i: int, pos: int) -> list:
+    """:func:`_block_decode` over the group, layer ``i`` of ``kind``: each
+    rank takes its share of the layer's cache (``cache.share(i, r)``: its KV
+    heads' ``k``/``v`` and the slots' ``pos``, or its channels of a
+    recurrent state), steps on it in place, and hands it back
+    (``cache.commit(i, r, share)``); attention at the rank's heads (run by
+    run where they split unevenly over its KV heads; none on a rank with no
+    head), the MLP over its ``d_ff``, the MoE over its experts, the
+    row-parallel outputs summed over the group in rank order."""
+    xs = _rank_norms([lay.norm1 for lay in layers], hs, run)
+    parts = []
+    if kind == "attn":
+        for r, (lay, x, ctx) in enumerate(zip(layers, xs, ctxs)):
+            if run.plan[r].n_heads == 0:
+                parts.append(None)
+                continue
+            share = cache.share(i, r)
+            with run.grp.on(r):
+                parts.append(attend(lay.attn, x, ctx.qpos, ctx.rot, window=ctx.window,
+                                    cache=share, pos=pos, act_to=ctx.act_to,
+                                    kv_runs=run.kv_runs[r])[0])
+            cache.commit(i, r, share)
+    else:
+        shares = [cache.share(i, r) for r in range(len(layers))]
+        step = mamba_decode_group if kind == "ssm" else rglru_decode_group
+        parts = step([getattr(lay, kind) for lay in layers], xs, shares, cfg, run)
+        for r, share in enumerate(shares):
+            cache.commit(i, r, share)
+    hs = _group_add(hs, parts, run)
+    if kind == "ssm":
+        return hs
+    xs = _rank_norms([lay.norm2 for lay in layers], hs, run)
+    if cfg.moe is not None:
+        return _add(hs, moe_group([lay.moe for lay in layers], xs, cfg, run)[0], run)
+    parts = []
+    for r, (lay, x) in enumerate(zip(layers, xs)):
+        if run.plan[r].ff[1] == run.plan[r].ff[0]:
+            parts.append(None)
+            continue
+        with run.grp.on(r):
+            parts.append(mlp_apply(cfg.mlp, x, lay.mlp, run.act_to))
+    return _group_add(hs, parts, run)
+
+
+def decode_group(views: list, tokens: list, pos: int, run: GroupRun, cache) -> list:
+    """:func:`decode_step` over a model group (``run.seq_shard`` False: one
+    token has no sequence to shard, every rank holds the whole residual
+    stream): ``views`` each rank's :func:`params_view` of its ranges,
+    ``tokens`` each rank's copy of the data index's ``[B, 1]`` tokens at
+    position ``pos``; ``cache`` hands each rank its share of a layer's cache
+    and takes back what the rank wrote (:func:`_block_decode_group`). The
+    vocab-parallel embedding's parts summed (exact; f32, as the single
+    device's decode leaves it), the blocks in turn, the final norm, and each
+    rank's logits of its vocab range (``[B, V_r]``, the activation dtype)."""
+    cfg = views[0].cfg
+    b = tokens[0].shape[0]
+    shape = (b, 1, 3) if cfg.mrope_sections is not None else (b, 1)
+    parts = []
+    for r, (v, t) in enumerate(zip(views, tokens)):
+        with run.grp.on(r):
+            parts.append(_vocab_lookup(v, t, run.plan[r].vocab).to(f32))
+    hs = sh.group_sum(run.grp, parts)
+    ctxs = []
+    for r, t in enumerate(tokens):
+        with run.grp.on(r):
+            positions = torch.full(shape, pos, dtype=torch.int32, device=t.device)
+            if cfg.rotary_pct == 0.0 and cfg.mrope_sections is None:
+                hs[r] = hs[r] + _sinusoidal(positions, cfg.d_model)
+            ctxs.append(_ctx(cfg, positions, run.act_to))
+    for i in range(cfg.n_layers):
+        hs = _block_decode_group([v.layers[i] for v in views], hs, cfg, cfg.layer_kind(i), ctxs,
+                                 run, cache, i, pos)
+    hs = _rank_norms([v.final_norm for v in views], hs, run)
+    return lm_logits_group(views, [h[:, 0] for h in hs], run)

@@ -18,14 +18,19 @@ Tolerances (ROADMAP queue C, slice 19; measured values in the comments):
   at 2e-5: on this batch the port's own single-device step lies 1.28e-5
   from the reference (slice 17's cause; 3.3e-6 on slice 17's batch) and
   the sharded step 7e-8 from the port's single-device one.
-* serving: prefill is split over ``model`` for every arch
-  (``launch/mesh.model_compute``): its logits and cache within 2e-3 (its
-  row- and vocab-parallel sums flip fp16 roundings of projection inputs,
-  ROADMAP queue C slices 21 and 22; up to 1.42e-3 in
+* serving: prefill and decode are split over ``model`` for every arch
+  (``launch/mesh.model_compute``): the prefill's logits and cache within
+  2e-3 (its row- and vocab-parallel sums flip fp16 roundings of projection
+  inputs, ROADMAP queue C slices 21 and 22; up to 1.42e-3 in
   ``tests/test_torch_tp.py``, 1.95e-3 in ``tests/test_torch_tp_layers.py``),
-  the reduced fp16 bound of slice 4. Decode stays data-parallel, so the
-  single-device decode starts from the sharded prefill's cache and the
-  decode steps are held at 1e-5.
+  the reduced fp16 bound of slice 4. The single-device decode starts from
+  the sharded prefill's cache; the split decode steps (the same rank-order
+  sums, slice 23) are held at that bound, the hybrid's at its fp16 serving
+  bound 4e-3 (slice 18, ``tests/test_torch_archs.py``): 2.64e-3 measured
+  here, where the single-device fp16 decode itself lies 2.95e-3 to
+  4.02e-3 from an f32 decode of the same weights and the split one
+  2.95e-3 to 4.09e-3. The fp32 unsplit batch keeps 1e-5 (fp32 sums move by
+  ulps only).
 """
 import functools
 import tempfile
@@ -69,7 +74,8 @@ REF_LOSS_RTOL = {"fp32": 1e-5, "fp16": 2e-5, ("recurrentgemma-2b", "fp16"): 5e-5
 # roundings flipped by the rank-order sums; at most 5.5e-5 over seven other
 # batches; ROADMAP queue C, slice 22).
 REF_GNORM_RTOL = {("granite-moe-1b-a400m", "fp16"): 2e-4}
-SPLIT_SERVE_TOL = 2e-3  # fp16 prefill split over `model` (the docstring)
+SPLIT_SERVE_TOL = 2e-3  # fp16 serving split over `model` (the docstring)
+SPLIT_DECODE_TOL = {"recurrentgemma-2b": 4e-3}  # the hybrid's fp16 bound (the docstring)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -259,17 +265,18 @@ def test_sharded_prefill_and_decode_match_single_device(arch, layout, kv_layout)
     torch.testing.assert_close(sh.gather(s_logits), logits, rtol=tol, atol=tol)
     for a, b in zip(tree_leaves(sh.gather_tree(s_cache)), tree_leaves(cache)):
         torch.testing.assert_close(a, b, rtol=tol, atol=tol)
-    # Decode is data-parallel for every arch: single-device decode from the
-    # same cache (the sharded prefill's, gathered) is held at 1e-5.
+    # Decode is split over `model` for every arch: single-device decode from
+    # the same cache (the sharded prefill's, gathered).
     cache = sh.gather_tree(s_cache)
     decode_task = tasks.build_task(cfg, ShapeConfig("d", cap, B, "decode"), mesh, pol)
     step1 = tasks.make_decode_step(cfg, pol)
     run = decode_task.sharded()
     token = torch.argmax(logits, -1)[:, None]
+    tol = SPLIT_DECODE_TOL.get(arch, SPLIT_SERVE_TOL)
     for i in range(3):
         logits, cache = step1(model, cache, token, 16 + i)
         s_logits, s_cache = run(params, s_cache, token, 16 + i)
-        torch.testing.assert_close(sh.gather(s_logits), logits, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(sh.gather(s_logits), logits, rtol=tol, atol=tol)
         token = torch.argmax(logits, -1)[:, None]
     specs = tree_leaves(meshlib.tree_pspecs(cache, mesh, rule=meshlib.cache_pspec))
     assert [x.spec for x in tree_leaves(s_cache)] == specs
@@ -277,8 +284,9 @@ def test_sharded_prefill_and_decode_match_single_device(arch, layout, kv_layout)
 
 def test_unsplit_serving_batch_on_one_data_index():
     """Prefill and two decode steps of 3 rows on 2x2 (the data axes do not
-    divide the batch: one data index serves it, gathering the cache's
-    model-sharded features) against single-device serving."""
+    divide the batch: one data index serves it, its model ranks assembling
+    their KV heads from the cache's model-sharded features) against
+    single-device serving."""
     cfg, pol = _cfgs("smollm-360m")[1], get_policy("fp32")
     model = tf.init_params(cfg, pol, seed=4, device="cpu")
     params, mesh = tf.params_tree(model), _mesh((2, 2))

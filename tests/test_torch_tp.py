@@ -234,8 +234,8 @@ SERVE = [("smollm-360m", "fp32", (2, 2)), ("smollm-360m", "fp16", (1, 3)),
 @pytest.mark.parametrize("seq_shard", [True, False])
 def test_split_prefill_matches_single_device(arch, pol, shape, seq_shard):
     """``build_task``'s prefill cell, and the serving prefill with its cache
-    and two data-parallel decode steps on it, against single-device serving;
-    the logits laid out per ``P(data, "model")`` as fitted."""
+    and two split decode steps on it, against single-device serving; the
+    logits laid out per ``P(data, "model")`` as fitted."""
     cfg, policy = _cfgs(arch)[1], get_policy(pol)
     model = tf.init_params(cfg, policy, seed=3, device="cpu")
     params, mesh = tf.params_tree(model), _mesh(shape)
@@ -299,14 +299,14 @@ def test_compute_plan_splits():
 
 
 def test_model_compute_by_arch():
-    """Every arch trains and prefills split over the model axis; decode
-    stays data-parallel."""
+    """Every arch trains, prefills and decodes split over the model axis."""
     mesh = _mesh((2, 2))
     for arch in configs.ARCH_NAMES:
         cfg = configs.get_arch(arch)
         assert meshlib.model_compute(cfg) == "megatron", arch
         cfg = configs.reduce_arch(cfg)
-        for kind, want in (("train", "megatron"), ("prefill", "megatron"), ("decode", "data")):
+        for kind, want in (("train", "megatron"), ("prefill", "megatron"),
+                           ("decode", "megatron")):
             task = tasks.build_task(cfg, ShapeConfig("t", S, 4, kind), mesh, "fp16")
             assert task.model_compute == want, (arch, kind)
 

@@ -345,7 +345,7 @@ def test_split_layers_prefill_matches_single_device(arch, pol, shape, seq_shard)
     """``build_task``'s prefill cell and the serving prefill with its cache
     (the recurrent states assembled from the ranks' channels, the KV heads
     from the ranks' heads) against single-device prefill, then a
-    data-parallel decode step from the assembled cache."""
+    split decode step from the assembled cache."""
     cfg, policy = _cfgs(arch)[1], get_policy(pol)
     model = tf.init_params(cfg, policy, seed=3, device="cpu")
     params, mesh = tf.params_tree(model), _mesh(shape)
@@ -372,7 +372,7 @@ def test_split_layers_prefill_matches_single_device(arch, pol, shape, seq_shard)
     step = tasks.make_decode_step(cfg, policy)
     one, _ = step(model, sh.gather_tree(s_cache), token, 16)
     got, _ = tasks.make_decode_step(cfg, policy, mesh=mesh)(params, s_cache, token, 16)
-    torch.testing.assert_close(sh.gather(got), one, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(sh.gather(got), one, rtol=tol, atol=tol)
 
 
 # -- meta-device counts -------------------------------------------------------------------
